@@ -1,0 +1,159 @@
+"""Vanilla Transformer semantic encoder/decoder (JAX package
+`models/transformer.py`): post-LN layers with LayerNorm eps 1e-6, the
+embedding scaled by sqrt(d_model) plus the sinusoidal table, and a vocab
+projection in f32, tied to the decoder embedding or a separate Dense.
+
+Inference only (no dropout). Dense weights are held in the activation
+dtype, LayerNorm parameters and the embedding table in f32, as flax
+computes with them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepsc_gan_tpu_torch.ops.attention import MultiHeadAttention
+from deepsc_gan_tpu_torch.ops.attention_kernel import fused_attention
+from deepsc_gan_tpu_torch.ops.positional import positional_encoding
+
+LN_EPS = 1e-6
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax LayerNorm with an activation dtype: statistics and affine in
+    f32, the result cast to the activation dtype."""
+
+    def __init__(self, d_model: int, dtype=torch.float32):
+        super().__init__(d_model, eps=LN_EPS)
+        self.act_dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.act_dtype)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, dff: int, mode: str = "mlp",
+                 dtype=torch.float32):
+        super().__init__()
+        if mode not in ("mlp", "identity"):
+            raise ValueError(f"ffn mode {mode!r}")
+        self.mode = mode
+        if mode == "mlp":
+            self.fc1 = nn.Linear(d_model, dff, dtype=dtype)
+            self.fc2 = nn.Linear(dff, d_model, dtype=dtype)
+
+    def forward(self, x):
+        if self.mode == "identity":
+            return x
+        return self.fc2(torch.relu(self.fc1(x)))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model, num_heads, dff, ffn_mode="mlp",
+                 dtype=torch.float32, attention: Callable = fused_attention):
+        super().__init__()
+        self.mha = MultiHeadAttention(d_model, num_heads, dtype, attention)
+        self.ffn = FeedForward(d_model, dff, ffn_mode, dtype)
+        self.ln1 = LayerNorm(d_model, dtype)
+        self.ln2 = LayerNorm(d_model, dtype)
+
+    def forward(self, x, mask):
+        out1 = self.ln1(x + self.mha(x, x, x, mask))
+        return self.ln2(out1 + self.ffn(out1))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, d_model, num_heads, dff, ffn_mode="mlp",
+                 dtype=torch.float32, attention: Callable = fused_attention):
+        super().__init__()
+        self.self_mha = MultiHeadAttention(d_model, num_heads, dtype,
+                                           attention)
+        self.cross_mha = MultiHeadAttention(d_model, num_heads, dtype,
+                                            attention)
+        self.ffn = FeedForward(d_model, dff, ffn_mode, dtype)
+        self.ln1 = LayerNorm(d_model, dtype)
+        self.ln2 = LayerNorm(d_model, dtype)
+        self.ln3 = LayerNorm(d_model, dtype)
+
+    def forward(self, x, enc_output, look_ahead_mask, padding_mask):
+        out1 = self.ln1(x + self.self_mha(x, x, x, look_ahead_mask))
+        attn2 = self.cross_mha(out1, enc_output, enc_output, padding_mask)
+        out2 = self.ln2(attn2 + out1)
+        return self.ln3(self.ffn(out2) + out2)
+
+
+class TokenEmbed(nn.Module):
+    """Embedding * sqrt(d_model) + positional table, in the activation
+    dtype (the table itself stays f32: a tied decoder projects with it)."""
+
+    def __init__(self, vocab_size, d_model, max_position=512,
+                 dtype=torch.float32):
+        super().__init__()
+        self.embedding = nn.Embedding(vocab_size, d_model)
+        self.dtype = dtype
+        # sqrt computed in the activation dtype, as jnp.sqrt(asarray(d, dt))
+        self.register_buffer(
+            "sqrt_d", torch.tensor(float(d_model), dtype=dtype).sqrt(),
+            persistent=False)
+        self.register_buffer(
+            "pe", positional_encoding(max_position, d_model, dtype),
+            persistent=False)
+
+    def forward(self, tokens):
+        x = self.embedding(tokens).to(self.dtype) * self.sqrt_d
+        return x + self.pe[:, :tokens.shape[1], :]
+
+
+class Encoder(nn.Module):
+    def __init__(self, num_layers, num_heads, d_model, dff, vocab_size,
+                 ffn_mode="mlp", max_position=512, dtype=torch.float32,
+                 attention: Callable = fused_attention):
+        super().__init__()
+        self.embed = TokenEmbed(vocab_size, d_model, max_position, dtype)
+        self.layers = nn.ModuleList(
+            EncoderLayer(d_model, num_heads, dff, ffn_mode, dtype, attention)
+            for _ in range(num_layers))
+
+    def forward(self, tokens, mask):
+        x = self.embed(tokens)
+        for layer in self.layers:
+            x = layer(x, mask)
+        return x
+
+
+class Decoder(nn.Module):
+    """Embedding prologue + N decoder layers; `final_projection` is
+    separate so greedy decoding projects only the position it reads."""
+
+    def __init__(self, num_layers, d_model, num_heads, dff, vocab_size,
+                 ffn_mode="mlp", max_position=512, tie_embeddings=False,
+                 dtype=torch.float32, attention: Callable = fused_attention):
+        super().__init__()
+        self.tie_embeddings = tie_embeddings
+        self.embed = TokenEmbed(vocab_size, d_model, max_position, dtype)
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, num_heads, dff, ffn_mode, dtype, attention)
+            for _ in range(num_layers))
+        if tie_embeddings:
+            self.final_bias = nn.Parameter(torch.zeros(vocab_size))
+        else:
+            self.final_layer = nn.Linear(d_model, vocab_size)
+
+    def forward(self, tokens, enc_output, look_ahead_mask, padding_mask,
+                apply_final: bool = True):
+        x = self.embed(tokens)
+        for layer in self.layers:
+            x = layer(x, enc_output, look_ahead_mask, padding_mask)
+        return self.final_projection(x) if apply_final else x
+
+    def final_projection(self, x):
+        """Vocab logits in f32."""
+        if self.tie_embeddings:
+            return x.float() @ self.embed.embedding.weight.float().T \
+                + self.final_bias.float()
+        return self.final_layer(x.float())

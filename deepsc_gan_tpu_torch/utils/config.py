@@ -1,0 +1,84 @@
+"""Configuration of the port: the fields of the JAX package's `Config`
+that the serving path reads, with the same names and defaults.
+
+A frozen dataclass like the JAX package's (`deepsc_gan_tpu/utils/config.py`),
+kept as the port's own copy so the port imports nothing of that package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+
+@dataclass(frozen=True)
+class Config:
+    # --- data paths
+    test_save_path: str = "data/txt/test_data.pkl"
+    vocab_path: str = "data/txt/vocab.json"
+    log_save_path: str = "log"
+
+    # --- batching and decoding
+    bs: int = 64
+    max_length: int = 30        # decode steps
+    seq_len: int = 32           # padded sentence length
+    channel: str = "AWGN"
+
+    # --- model
+    vocab_size: int = 22234
+    encoder_num_layer: int = 4
+    encoder_d_model: int = 128
+    encoder_d_ff: int = 512
+    encoder_num_heads: int = 8
+    decoder_num_layer: int = 4
+    decoder_d_model: int = 128
+    decoder_d_ff: int = 512
+    decoder_num_heads: int = 8
+
+    # --- channel codec
+    channel_hidden: int = 256
+    channel_dim: int = 16
+    channel_dec_hidden: int = 512
+
+    # --- quirk Q1: "mlp" | "identity" feed-forward sublayer
+    ffn_mode: str = "mlp"
+
+    # --- special token ids
+    pad_idx: int = 0
+    start_idx: int = 1
+    end_idx: int = 2
+    unk_idx: int = 3
+
+    tie_embeddings: bool = False
+
+    # --- compute
+    dtype: str = "bfloat16"      # activations
+    param_dtype: str = "float32"
+
+    def replace(self, **kw: Any) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def add_config_args(parser: argparse.ArgumentParser) -> None:
+    """Register every Config field as a --flag (dashes for underscores)."""
+    for f in dataclasses.fields(Config):
+        name = "--" + f.name.replace("_", "-")
+        if isinstance(f.default, bool):
+            parser.add_argument(name, action=argparse.BooleanOptionalAction,
+                                default=f.default)
+        else:
+            parser.add_argument(name, type=type(f.default), default=f.default)
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    names = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in vars(args).items() if k in names})
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """Config dtype name -> torch dtype."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
