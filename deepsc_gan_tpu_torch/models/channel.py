@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from deepsc_gan_tpu_torch.models.transformer import LayerNorm
+from deepsc_gan_tpu_torch.ops.layers import Dense
 
 
 def snr_to_noise(snr_db) -> torch.Tensor:
@@ -52,11 +53,11 @@ class ChannelEncoder(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.dense0 = nn.Linear(d_model, hidden, dtype=dtype)
-        self.dense1 = nn.Linear(hidden, out_dim, dtype=dtype)
+        self.dense0 = Dense(d_model, hidden, dtype=dtype)
+        self.dense1 = Dense(hidden, out_dim, dtype=dtype)
 
     def forward(self, x):
-        x = self.dense1(torch.relu(self.dense0(x.to(self.dtype))))
+        x = self.dense1(torch.relu(self.dense0(x)))
         return power_normalize(x.float()).to(self.dtype)
 
 
@@ -67,13 +68,12 @@ class ChannelDecoder(nn.Module):
     def __init__(self, in_dim=16, d_model=128, hidden=512,
                  dtype=torch.float32):
         super().__init__()
-        self.dtype = dtype
-        self.dense1 = nn.Linear(in_dim, d_model, dtype=dtype)
-        self.dense2 = nn.Linear(d_model, hidden, dtype=dtype)
-        self.dense3 = nn.Linear(hidden, d_model, dtype=dtype)
+        self.dense1 = Dense(in_dim, d_model, dtype=dtype)
+        self.dense2 = Dense(d_model, hidden, dtype=dtype)
+        self.dense3 = Dense(hidden, d_model, dtype=dtype)
         self.layernorm1 = LayerNorm(d_model, dtype)
 
     def forward(self, y):
-        x1 = torch.relu(self.dense1(y.to(self.dtype)))
+        x1 = torch.relu(self.dense1(y))
         x3 = self.dense3(torch.relu(self.dense2(x1)))
         return self.layernorm1(x1 + x3)

@@ -1,8 +1,11 @@
 """The vanilla DeepSC transceiver (JAX package `models/transceiver.py:
 44-133`), as stages: `encode` (tokens -> power-normalized channel symbols),
 `transmit` (symbols -> received symbols through the channel),
-`channel_decode` (received symbols -> decoder memory), `_semantic_decode`
-and `final_projection`.
+`channel_decode` (received symbols -> decoder memory), `_semantic_decode`,
+`final_projection`, and for training `decode` (received symbols -> logits)
+and `decode_loss_ready` (received symbols -> decoder hidden states, for the
+fused vocab-projection + CE). A stage given a `torch.Generator` applies
+dropout with masks drawn from it; without one it is deterministic.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from deepsc_gan_tpu_torch.models.channel import (
     ChannelEncoder,
     awgn,
 )
-from deepsc_gan_tpu_torch.models.transformer import Decoder, Encoder
+from deepsc_gan_tpu_torch.models.transformer import Decoder, Encoder, Gen
 from deepsc_gan_tpu_torch.ops.attention_kernel import fused_attention
 from deepsc_gan_tpu_torch.utils.config import Config, torch_dtype
 
@@ -29,21 +32,22 @@ class Transceiver(nn.Module):
         dt = torch_dtype(cfg.dtype)
         self.semantic_encoder = Encoder(
             cfg.encoder_num_layer, cfg.encoder_num_heads, cfg.encoder_d_model,
-            cfg.encoder_d_ff, cfg.vocab_size, cfg.ffn_mode, dtype=dt,
-            attention=attention)
+            cfg.encoder_d_ff, cfg.vocab_size, cfg.encoder_dropout,
+            cfg.ffn_mode, dtype=dt, attention=attention)
         self.semantic_decoder = Decoder(
             cfg.decoder_num_layer, cfg.decoder_d_model, cfg.decoder_num_heads,
-            cfg.decoder_d_ff, cfg.vocab_size, cfg.ffn_mode,
-            tie_embeddings=cfg.tie_embeddings, dtype=dt, attention=attention)
+            cfg.decoder_d_ff, cfg.vocab_size, cfg.decoder_dropout,
+            cfg.ffn_mode, tie_embeddings=cfg.tie_embeddings, dtype=dt,
+            attention=attention)
         self.channel_encoder = ChannelEncoder(
             cfg.encoder_d_model, cfg.channel_hidden, cfg.channel_dim, dt)
         self.channel_decoder = ChannelDecoder(
             cfg.channel_dim, cfg.decoder_d_model, cfg.channel_dec_hidden, dt)
 
-    def encode(self, inp, enc_padding_mask=None):
+    def encode(self, inp, enc_padding_mask=None, gen: Gen = None):
         """tokens -> power-normalized channel symbols (B, L, channel_dim)."""
         return self.channel_encoder(
-            self.semantic_encoder(inp, enc_padding_mask))
+            self.semantic_encoder(inp, enc_padding_mask, gen))
 
     def transmit(self, tx, noise, n_std, p: Optional[torch.Tensor] = None,
                  pnr_db: float = 0.0, channel_kind: Optional[str] = None):
@@ -58,9 +62,24 @@ class Transceiver(nn.Module):
         return self.channel_decoder(y)
 
     def _semantic_decode(self, tar_inp, mem, combined_mask, dec_padding_mask,
-                         apply_final: bool = True):
+                         apply_final: bool = True, gen: Gen = None):
         return self.semantic_decoder(tar_inp, mem, combined_mask,
-                                     dec_padding_mask, apply_final)
+                                     dec_padding_mask, apply_final, gen)
+
+    def decode(self, tar_inp, y, combined_mask=None, dec_padding_mask=None,
+               gen: Gen = None, apply_final: bool = True):
+        """received symbols (+ the teacher-forced target prefix) -> vocab
+        logits in f32."""
+        return self._semantic_decode(tar_inp, self.channel_decode(y),
+                                     combined_mask, dec_padding_mask,
+                                     apply_final, gen)
+
+    def decode_loss_ready(self, tar_inp, y, combined_mask=None,
+                          dec_padding_mask=None, gen: Gen = None):
+        """`decode` without the vocab projection: the decoder's hidden
+        states (B, L, D) in the activation dtype."""
+        return self.decode(tar_inp, y, combined_mask, dec_padding_mask, gen,
+                           apply_final=False)
 
     def final_projection(self, x):
         return self.semantic_decoder.final_projection(x)

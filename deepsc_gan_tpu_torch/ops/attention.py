@@ -4,9 +4,8 @@ layout, the mask collapsed to one additive f32 bias (B, Lq, Lk) of
 -1e9 * mask shared by the heads, the fused attention kernel, and a biased
 output projection.
 
-Weights are held in the activation dtype: flax casts its f32 params to the
-activation dtype at every use, so rounding them once at load time gives the
-same values without a cast per call.
+Weights are f32 and cast to the activation dtype at every use, as flax
+computes (`ops/layers.py:Dense`).
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ import torch
 from torch import nn
 
 from deepsc_gan_tpu_torch.ops.attention_kernel import fused_attention
+from deepsc_gan_tpu_torch.ops.layers import Dense
 
 NEG_INF = -1e9
 
@@ -35,9 +35,9 @@ def mask_to_bias(mask: Optional[torch.Tensor], b: int, lq: int, lk: int,
 
 
 class MultiHeadAttention(nn.Module):
-    """`attention` is the per-call attention function (the kernel wrapper
-    by default; chip_smoke.py passes the plain version to compare whole
-    decodes)."""
+    """`attention` is the per-call attention function (the kernels by
+    default; chip_smoke.py passes the plain versions to compare whole
+    decodes and train steps)."""
 
     def __init__(self, d_model: int, num_heads: int, dtype=torch.float32,
                  attention: Callable = fused_attention):
@@ -47,20 +47,19 @@ class MultiHeadAttention(nn.Module):
                              f"{num_heads} heads")
         self.num_heads = num_heads
         self.depth = d_model // num_heads
-        self.dtype = dtype
         self.attention = attention
         hd = num_heads * self.depth
-        self.wq = nn.Linear(d_model, hd, bias=False, dtype=dtype)
-        self.wk = nn.Linear(d_model, hd, bias=False, dtype=dtype)
-        self.wv = nn.Linear(d_model, hd, bias=False, dtype=dtype)
-        self.out = nn.Linear(hd, d_model, bias=True, dtype=dtype)
+        self.wq = Dense(d_model, hd, bias=False, dtype=dtype)
+        self.wk = Dense(d_model, hd, bias=False, dtype=dtype)
+        self.wv = Dense(d_model, hd, bias=False, dtype=dtype)
+        self.out = Dense(hd, d_model, bias=True, dtype=dtype)
 
     def forward(self, q, k, v, mask=None):
         b, lq = q.shape[0], q.shape[1]
         lk = k.shape[1]
-        qp = self.wq(q.to(self.dtype))
-        kp = self.wk(k.to(self.dtype))
-        vp = self.wv(v.to(self.dtype))
+        qp = self.wq(q)
+        kp = self.wk(k)
+        vp = self.wv(v)
         bias = mask_to_bias(mask, b, lq, lk, q.device)
         ctx = self.attention(qp, kp, vp, bias, self.num_heads,
                              math.sqrt(self.depth))

@@ -3,9 +3,9 @@ interface, bound with `ctypes`.
 
 Each source `csrc/<name>.cu` is compiled by `nvcc` alone (no PyTorch
 header, no `torch.utils.cpp_extension`, no ninja) for `sm_90a` into
-`_build/<name>-<hash>/lib<name>.so`, where the hash covers the source and
-the command, so an edited source is rebuilt and an unchanged one is
-loaded from the earlier build. `_build/` is listed in `.gitignore`.
+`_build/<name>-<hash>/lib<name>.so`, where the hash covers the source, the
+shared headers `csrc/*.cuh` and the command, so an edited source is rebuilt
+and an unchanged one is loaded from the earlier build. `_build/` is listed in `.gitignore`.
 Nothing is compiled when a module is imported: the first wrapper call
 builds, and a missing `nvcc` or a failed build raises.
 """
@@ -49,6 +49,8 @@ def nvcc_command(source: Path, output: Path, nvcc: str = "nvcc") -> List[str]:
 def _target(name: str) -> Path:
     source = CSRC / f"{name}.cu"
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 

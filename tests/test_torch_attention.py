@@ -33,7 +33,7 @@ def _inputs(seed, b, lq, lk, h, dh, p_block=0.3):
     v = rng.standard_normal((b, lk, hd), np.float32)
     bias = np.where(rng.random((b, lq, lk)) < p_block, -1e9, 0.0)
     bias = bias.astype(np.float32)
-    bias[0, 1, :] = -1e9  # one query row with every key blocked
+    bias[0, min(1, lq - 1), :] = -1e9  # one query row with every key blocked
     return q, k, v, bias
 
 
@@ -169,3 +169,61 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         bias = bias[:, :, :-1].contiguous()
     with pytest.raises((TypeError, ValueError)):
         attn._check(q, k, v, bias, h)
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 8, 2, 8), (4, 7, 9, 2, 8),
+                                   (6, 1, 12, 3, 4), (2, 31, 32, 8, 16)])
+def test_attention_bwd_reference_matches_jax_kernel(shape):
+    """The plain backward (K2's plain version) against jax.grad through the
+    TPU kernel's custom VJP (under the Pallas interpreter), and against
+    torch.autograd through the plain forward: dq, dk, dv and dbias of
+    sum(sin(out)), at the shapes of tests/test_ops.py's kernel test (Lq !=
+    Lk included) and the decoder cross-attention's."""
+    b, lq, lk, h, dh = shape
+    q, k, v, bias = _inputs(5, b, lq, lk, h, dh)
+    scale = float(np.sqrt(dh))
+    set_attn_kernel_mode("interpret")
+    try:
+        out, vjp = jax.vjp(
+            lambda *a: jax_fused_attention(*a, h, scale),
+            *(jnp.asarray(a) for a in (q, k, v, bias)))
+        g = np.cos(np.asarray(out))
+        want = vjp(jnp.asarray(g))
+    finally:
+        set_attn_kernel_mode("auto")
+    got = attn.attention_bwd_reference(
+        *(torch.from_numpy(a) for a in (q, k, v, bias)), torch.from_numpy(g),
+        h, scale)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v, bias)]
+    torch.sin(attn.attention_fwd_reference(*leaves, h, scale)).sum() \
+        .backward()
+    for name, gt, w, auto in zip("qkvb", got, want, leaves):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(w), atol=2e-6,
+                                   err_msg=f"d{name} vs JAX")
+        np.testing.assert_allclose(gt.numpy(), auto.grad.numpy(), atol=2e-6,
+                                   err_msg=f"d{name} vs autograd")
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_fused_attention_function_backward(plain):
+    """The autograd Function: the CPU backward is the plain version's, the
+    bias gets a gradient only when it needs one, no kernel launch is
+    counted on the CPU."""
+    q, k, v, bias = (torch.from_numpy(a) for a in _inputs(6, 3, 9, 10, 2, 8))
+    fn = attn.plain_attention if plain else attn.fused_attention
+    attn.reset_launches()
+    for bias_grad in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        bt = bias.clone().requires_grad_(bias_grad)
+        out = fn(*leaves, bt, 2, 4.0)
+        g = torch.cos(out.detach())
+        out.backward(g)
+        want = attn.attention_bwd_reference(q, k, v, bias, g, 2, 4.0,
+                                            bias_grad)
+        for t, w in zip(leaves, want[:3]):
+            torch.testing.assert_close(t.grad, w, rtol=0, atol=0)
+        if bias_grad:
+            torch.testing.assert_close(bt.grad, want[3], rtol=0, atol=0)
+        else:
+            assert bt.grad is None and want[3] is None
+    assert attn.launches == 0 and attn.bwd_launches == 0
