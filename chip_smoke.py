@@ -7,28 +7,37 @@ Phases, each printing its lines; any failure raises and the script exits
 non-zero without its last line:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: every CUDA kernel of the serving and training paths (K1-K4),
+2. build: every CUDA kernel of the serving and training paths (K1-K4, K6),
    compiled by nvcc from the sources in this checkout (all nvcc processes
    started together);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the two paths give it, in f32 and bf16, with the tolerance
+   the shapes the paths give it, in f32 and bf16, with the tolerance
    stated; the kernel's time, its host enqueue time, the plain version's
    time, one PyTorch library call's (a yardstick the port never calls), and
    the least time the card could take;
-4. serving path: the port's CLI runs the greedy BLEU-vs-SNR sweep (SNR
-   0..18 dB) of the trained transceiver (results/plain_best_params.pkl) in
-   bf16 on synthetic batches of 64 made from --seed; every launch count is
-   set to 0 just before and read just after, and must equal what the path
-   makes; then one batch is decoded at f32 through the kernels and through
-   the plain versions, and the ids must be identical;
+4. serving paths, each through the port's CLI on the trained transceiver
+   (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
+   batches of 64; every launch count is set to 0 just before a path and
+   read just after, and must equal what the path makes; the BLEU table
+   must be 19 finite values in [0, 1]:
+   a. the full-prefix greedy sweep (--batches batches; 244 K1 per batch);
+   b. the KV-cached greedy sweep, --kv-cache (--batches batches; 4 K1 per
+      batch, the encoder);
+   c. beam search, --eval-mode beam --beam-size 4 (KV-cached), one batch,
+      one decode call per SNR (4 K1 and 30 K6 per call);
+   then at f32 on one batch: the full-prefix greedy ids through the kernels
+   equal the plain versions'; the KV greedy ids equal the full-prefix ids;
+   the beam sweep's ids with K6 scoring equal those with its plain version;
+   the KV beam's ids equal the full-prefix beam's at three SNRs;
 5. training path: the port's CLI trains the full-width transceiver in bf16
    from a random init (--seed) on the synthetic set for --epochs epochs;
    launch counts as above (per step: 12 K1, 12 K2, 1 K3, 1 K4); every loss
    finite and the last 20 below the first 20 on average; then one f32 step
    through the kernels and one through the plain versions from the same
    weights, noise and dropout masks: the same loss and gradients;
-6. profile: device time by kernel over one bf16 sweep call and over one
-   bf16 train step, and the device's idle share in each (torch.profiler);
+6. profile: device time by kernel over one bf16 call of the full-prefix
+   sweep, of the KV sweep and of the beam, and over one bf16 train step,
+   and the device's idle share in each (torch.profiler);
 7. the kernels as one JSON line, then `{"ok": true, "device": {...}}` as
    the last line.
 
@@ -48,15 +57,23 @@ import torch
 import torch.nn.functional as F
 
 from deepsc_gan_tpu_torch import cli
-from deepsc_gan_tpu_torch.data.loader import eval_batches
+from deepsc_gan_tpu_torch.data.loader import eval_batches, train_dataset
+from deepsc_gan_tpu_torch.evaluate.beam import (
+    make_beam_decode,
+    make_beam_decode_kv,
+    make_beam_decode_sweep,
+)
 from deepsc_gan_tpu_torch.evaluate.greedy import make_greedy_decode_sweep
-from deepsc_gan_tpu_torch.data.loader import train_dataset
+from deepsc_gan_tpu_torch.evaluate.kv_decode import (
+    make_greedy_decode_kv_sweep,
+)
 from deepsc_gan_tpu_torch.evaluate.metrics import SNR_to_noise
 from deepsc_gan_tpu_torch.models.channel import snr_to_noise
 from deepsc_gan_tpu_torch.models.transceiver import make_model
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
 from deepsc_gan_tpu_torch.ops import build
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
+from deepsc_gan_tpu_torch.ops import topk_kernel as topk
 from deepsc_gan_tpu_torch.train import steps
 from deepsc_gan_tpu_torch.utils.config import Config
 from deepsc_gan_tpu_torch.utils.convert import (
@@ -79,7 +96,9 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3.2e-2}
 TRAIN_SHAPES = (("encoder", 32, 32), ("decoder_self", 31, 31),
                 ("decoder_cross", 31, 32))
-KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD)
+KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
+           topk.KERNEL)
+BEAM = 4
 
 
 def phase_device():
@@ -288,8 +307,56 @@ def ce_cases(dtype, gen, iters, n, d, v):
     return rows
 
 
+def dyadic(shape, scale, gen, dtype):
+    """Random integers in [-scale, scale] over 8 * scale, for a power of
+    two `scale`: exact in bf16. With h and b at scale 8 and W at scale 2,
+    every logit h . W_v + b_v (D = 128) is a multiple of 2^-10 below 2.2 in
+    magnitude, exact in f32 whatever the order of the sums: the kernel and
+    its plain version must then rank the logits alike, exact ties (of which
+    these inputs have many) included."""
+    x = torch.randint(-scale, scale + 1, shape, generator=gen, device="cuda")
+    return (x.float() / (8 * scale)).to(dtype)
+
+
+def topk_case(label, n, dtype, gen, iters, k=BEAM, tie=False):
+    """K6 at one shape (W the (V, D) table). `tie`: every logit equal to
+    the bias, which is 1 at indices in different vocab splits and 0
+    elsewhere."""
+    cfg = Config()
+    d, v = cfg.decoder_d_model, cfg.vocab_size
+    if tie:
+        h = torch.ones((n, d), device="cuda", dtype=dtype)
+        W = torch.zeros((v, d), device="cuda", dtype=dtype)
+        b = torch.zeros(v, device="cuda")
+        b[[v - 3, 7, v // 2, 130, 64]] = 1.0
+    else:
+        h = dyadic((n, d), 8, gen, dtype)
+        W = dyadic((v, d), 2, gen, dtype)
+        b = dyadic((v,), 8, gen, torch.float32)
+    vals, idx, lse = topk.topk_logits(h, W, b, k)
+    ref = topk.topk_logits_reference(h, W, b, k)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, ref[1]):
+        rows = (idx != ref[1]).any(dim=1).sum().item()
+        raise AssertionError(f"topk {label} {dtype}: indices differ from "
+                             f"the plain version in {rows} rows")
+
+    def library():
+        logits = (h @ W.t()).float() + b
+        return torch.topk(logits, k), torch.logsumexp(logits, dim=-1)
+
+    elt = h.element_size()
+    return kernel_row(
+        topk.KERNEL, label, dtype, max_err([vals, lse], [ref[0], ref[2]]),
+        TOL[dtype], lambda: topk.topk_logits(h, W, b, k),
+        lambda: topk.topk_logits_reference(h, W, b, k), library,
+        (n * d + v * d) * elt + v * 4 + n * k * 8 + n * 4, 2 * n * d * v,
+        iters, n=n, d=d, v=v, k=k)
+
+
 def phase_kernels(seed, n, bs, iters):
-    """Every kernel at the serving path's shapes (K1, N = 19 SNRs x bs)
+    """Every kernel at the serving paths' shapes (K1, N = 19 SNRs x bs; K6
+    at N = bs x 4 beams, the CLI's beam, and 19 x bs x 4, the beam sweep)
     and the training path's (K1-K2 at N = bs; K3-K4 at bs x 31 rows)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cfg = Config()
@@ -305,18 +372,24 @@ def phase_kernels(seed, n, bs, iters):
                                                dtype, gen, iters, dbias))
         rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1),
                          cfg.decoder_d_model, cfg.vocab_size)
+        rows.append(topk_case("beam", bs * BEAM, dtype, gen, iters))
+        rows.append(topk_case("beam_sweep", n * BEAM, dtype, gen, iters))
+    rows.append(topk_case("tie", bs * BEAM, torch.float32, gen, iters,
+                          k=8, tie=True))
     return rows
 
 
 def reset_launches():
     attn.reset_launches()
     ce.reset_launches()
+    topk.reset_launches()
 
 
 def launches():
-    """Launches of K1-K4 since the last reset."""
+    """Launches of K1-K4 and K6 since the last reset."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
-            ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches}
+            ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
+            topk.KERNEL: topk.launches}
 
 
 def check_launches(path, got, expected):
@@ -327,37 +400,61 @@ def check_launches(path, got, expected):
                              f"{expected}")
 
 
-def phase_main_path(seed, batches, bs):
-    """The serving path: the greedy sweep through the CLI."""
+def phase_serve(tag, flags, seed, batches, bs, per_call):
+    """One serving path through `cli evaluate` on the trained weights in
+    bf16, 19 SNRs: the launch counts must equal `per_call` times the decode
+    calls; the BLEU table 19 finite values in [0, 1]. -> (launch counts,
+    steady seq/s: the fastest call's)."""
     reset_launches()
     t0 = time.perf_counter()
-    res = cli.main(["evaluate", "--variant", "transformer",
-                    "--eval-mode", "greedy", "--params-pkl", PARAMS,
-                    "--dtype", "bfloat16", "--bs", str(bs),
-                    "--eval-batches", str(batches), "--seed", str(seed),
-                    "--snr-lo", str(SNRS[0]), "--snr-hi", str(SNRS[-1]),
-                    "--device", "cuda", "--log-save-path", "log/chip_smoke"])
+    res = cli.main(["evaluate", "--variant", "transformer", *flags,
+                    "--params-pkl", PARAMS, "--dtype", "bfloat16",
+                    "--bs", str(bs), "--eval-batches", str(batches),
+                    "--seed", str(seed), "--snr-lo", str(SNRS[0]),
+                    "--snr-hi", str(SNRS[-1]), "--device", "cuda",
+                    "--log-save-path", f"log/chip_smoke/{tag}"])
     wall = time.perf_counter() - t0
     got = launches()
-    cfg = Config()
-    # encoder: one self-attention per layer, once per batch; decoder: self
-    # and cross per layer at each of max_length steps
-    k1 = (cfg.encoder_num_layer
-          + 2 * cfg.decoder_num_layer * cfg.max_length) * batches
-    check_launches("main", got, {attn.KERNEL: k1, attn.KERNEL_BWD: 0,
-                                 ce.KERNEL_FWD: 0, ce.KERNEL_BWD: 0})
+    secs = res["decode_seconds"]
+    check_launches(tag, got, {name: n * len(secs)
+                              for name, n in per_call.items()})
     table = res["table"]
     if len(table) != len(SNRS) or not all(
             math.isfinite(b) and 0.0 <= b <= 1.0 for _, b in table):
-        raise AssertionError(f"bad BLEU table {table}")
-    print("[main] BLEU-1 " + " ".join(f"{s:.0f}dB={b:.4f}" for s, b in table))
-    secs = res["decode_seconds"]
-    per_batch = res["sequences"] / len(secs)
-    print(f"[main] {res['sequences']} sequences in {len(secs)} sweep calls: "
-          f"call seconds {secs}; {res['sequences'] / sum(secs):.1f} seq/s "
-          f"over all calls, {per_batch / min(secs):.1f} seq/s in the "
-          f"fastest; wall {wall:.2f} s")
-    return got
+        raise AssertionError(f"{tag}: bad BLEU table {table}")
+    print(f"[{tag}] BLEU-1 " + " ".join(f"{s:.0f}dB={b:.4f}"
+                                        for s, b in table))
+    per_call_seqs = res["sequences"] / len(secs)
+    steady = per_call_seqs / min(secs)
+    print(f"[{tag}] {res['sequences']} sequences in {len(secs)} decode "
+          f"calls: call seconds {secs}; {res['sequences'] / sum(secs):.1f} "
+          f"seq/s over all calls, {steady:.1f} seq/s in the fastest; wall "
+          f"{wall:.2f} s")
+    return got, steady
+
+
+def phase_serving(seed, batches, bs):
+    """The three serving paths (full-prefix greedy, KV greedy, KV beam);
+    -> their launch counts by path."""
+    cfg = Config()
+    none = {name: 0 for name in KERNELS}
+    # full prefix: the encoder's self-attention per layer, then the
+    # decoder's self and cross per layer at each of max_length steps
+    full = dict(none, **{attn.KERNEL: cfg.encoder_num_layer
+                         + 2 * cfg.decoder_num_layer * cfg.max_length})
+    serve, full_rate = phase_serve("main", ["--eval-mode", "greedy"], seed,
+                                   batches, bs, full)
+    # KV: only the encoder prefill goes through K1
+    encoder = dict(none, **{attn.KERNEL: cfg.encoder_num_layer})
+    kv, kv_rate = phase_serve("kv", ["--eval-mode", "greedy", "--kv-cache"],
+                              seed, batches, bs, encoder)
+    print(f"[kv] steady {kv_rate:.1f} seq/s against the full-prefix "
+          f"sweep's {full_rate:.1f} ({kv_rate / full_rate:.2f}x)")
+    beam, beam_rate = phase_serve(
+        "beam", ["--eval-mode", "beam", "--beam-size", str(BEAM)], seed, 1,
+        bs, dict(encoder, **{topk.KERNEL: cfg.max_length}))
+    print(f"[beam] steady {beam_rate:.1f} seq/s")
+    return {"serve": serve, "kv": kv, "beam": beam}
 
 
 def phase_train(seed, epochs, bs):
@@ -378,7 +475,7 @@ def phase_train(seed, epochs, bs):
     per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
     check_launches("train", got, {
         attn.KERNEL: per_step * n, attn.KERNEL_BWD: per_step * n,
-        ce.KERNEL_FWD: n, ce.KERNEL_BWD: n})
+        ce.KERNEL_FWD: n, ce.KERNEL_BWD: n, topk.KERNEL: 0})
     losses = res["losses"]
     first, last = losses[:20].mean().item(), losses[-20:].mean().item()
     print(f"[train] {n} steps in {epochs} epochs; loss first {losses[0]:.4f}"
@@ -429,7 +526,8 @@ def phase_step_parity(seed, bs):
         torch.cuda.synchronize()
         out.append((loss.item(), model, launches()))
     (lk, mk, ck), (lp, mp, cp) = out
-    if sum(cp.values()) or 0 in ck.values():
+    trained = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD)
+    if sum(cp.values()) or any(ck[name] == 0 for name in trained):
         raise AssertionError(f"step parity launches: kernels {ck}, plain "
                              f"{cp}")
     worst, worst_name = 0.0, ""
@@ -447,9 +545,20 @@ def phase_step_parity(seed, bs):
                              f"of max|ref|")
 
 
+def same_ids(tag, got, want):
+    same = torch.equal(got, want)
+    print(f"[f32] {tag}: {same} ({(got != want).sum().item()} of "
+          f"{got.numel()} ids differ)")
+    if not same:
+        raise AssertionError(f"f32 {tag}: the ids differ")
+
+
 def phase_f32_ids(seed, bs):
-    """One batch at f32 through the kernel and through the plain version
-    on the card, same weights and noise: the ids must be identical."""
+    """One batch at f32 on the card, all 19 SNRs, same weights and noise:
+    the full-prefix greedy sweep through K1 and through its plain version;
+    the KV sweep against the full-prefix one; the beam sweep scored by K6
+    and by its plain version; the KV beam against the full-prefix beam at
+    three SNRs."""
     params = load_params_pickle(PARAMS)
     cfg = Config(dtype="float32", bs=bs, tie_embeddings=is_tied(params))
     model_k, model_p = (
@@ -463,15 +572,29 @@ def phase_f32_ids(seed, bs):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     noise = torch.randn((len(SNRS), bs, cfg.seq_len, cfg.channel_dim),
                         generator=gen, device="cuda")
-    ids_k = make_greedy_decode_sweep(model_k, cfg)(inp, 0.0, n_stds, noise)
-    ids_p = make_greedy_decode_sweep(model_p, cfg)(inp, 0.0, n_stds, noise)
-    same = torch.equal(ids_k, ids_p)
-    diff = (ids_k != ids_p).sum().item()
-    print(f"[f32] kernel ids == plain ids: {same} ({diff} of "
-          f"{ids_k.numel()} differ)")
-    if not same:
-        raise AssertionError("f32 decode through the kernel differs from "
-                             "the plain version")
+    args = (inp, 0.0, n_stds, noise)
+    ids_full = make_greedy_decode_sweep(model_k, cfg)(*args)
+    same_ids("greedy, kernel vs plain attention", ids_full,
+             make_greedy_decode_sweep(model_p, cfg)(*args))
+    same_ids("greedy, KV vs full prefix",
+             make_greedy_decode_kv_sweep(model_k, cfg)(*args), ids_full)
+
+    reset_launches()
+    beam_k = make_beam_decode_sweep(model_k, cfg, BEAM)(*args)
+    k6 = topk.launches
+    beam_p = make_beam_decode_sweep(
+        model_k, cfg, BEAM, topk=topk.topk_logits_reference)(*args)
+    if (k6, topk.launches) != (cfg.max_length, cfg.max_length):
+        raise AssertionError(f"beam sweep: {k6} K6 launches with K6, "
+                             f"{topk.launches - k6} with the plain scorer")
+    same_ids(f"beam sweep ({len(SNRS)} x {bs} x {BEAM} rows), K6 vs plain "
+             f"scorer", beam_k, beam_p)
+    kv, full = (make(model_k, cfg, BEAM) for make in (make_beam_decode_kv,
+                                                      make_beam_decode))
+    for s in (0, 9, 18):
+        a = (inp, 0.0, float(n_stds[s]), noise[s])
+        same_ids(f"beam at {SNRS[s]} dB, KV vs full prefix", kv(*a),
+                 full(*a))
 
 
 def _busy_us(intervals):
@@ -526,8 +649,10 @@ def profiled(tag, fn):
 
 
 def phase_profile(seed, bs):
-    """One bf16 sweep call (19 SNRs x bs rows) of the trained weights, and
-    one bf16 train step at full width, each after a warm-up."""
+    """One bf16 call (19 SNRs x bs rows) of the full-prefix sweep and of the
+    KV sweep, and one bf16 beam call (bs rows x 4 beams at one SNR) of the
+    trained weights, and one bf16 train step at full width, each after a
+    warm-up."""
     cfg, model = cli.load_model(Config(bs=bs), PARAMS, torch.device("cuda"))
     sweep = make_greedy_decode_sweep(model, cfg)
     inp = torch.as_tensor(eval_batches(cfg.test_save_path, cfg.seq_len,
@@ -538,9 +663,17 @@ def phase_profile(seed, bs):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     noise = torch.randn((len(SNRS), bs, cfg.seq_len, cfg.channel_dim),
                         generator=gen, device="cuda")
-    sweep(inp, 0.0, n_stds, noise)
+    for tag, fn in (("one sweep call", sweep),
+                    ("one KV sweep call", make_greedy_decode_kv_sweep(model,
+                                                                      cfg))):
+        fn(inp, 0.0, n_stds, noise)
+        torch.cuda.synchronize()
+        profiled(tag, lambda: fn(inp, 0.0, n_stds, noise))
+    beam = make_beam_decode_kv(model, cfg, BEAM)
+    args = (inp, 0.0, float(n_stds[9]), noise[9])
+    beam(*args)
     torch.cuda.synchronize()
-    profiled("one sweep call", lambda: sweep(inp, 0.0, n_stds, noise))
+    profiled("one beam call", lambda: beam(*args))
 
     cfg = Config(bs=bs)
     model = steps.init_params(make_model(cfg), seed).cuda().train()
@@ -571,23 +704,25 @@ KERNEL_INFO = {
                     "training: N=1984 D=128 V=22234, bf16"),
     ce.KERNEL_BWD: ("deepsc_gan_tpu/ops/pallas/ce.py:166,189", "ce",
                     "training: N=1984 D=128 V=22234, bf16"),
+    topk.KERNEL: ("deepsc_gan_tpu/ops/pallas/topk.py:94", "beam",
+                  "beam: N=64x4 D=128 V=22234 k=4, bf16"),
 }
 
 
-def kernels_line(rows, serve, train):
+def kernels_line(rows, by_path):
     """One entry per kernel, from its bf16 row at the path shape that
-    matters most; `launches` is the training path's count (this slice's
-    main path), `launches_by_path` both paths'."""
+    matters most; `launches_by_path` counts each path's run (serve: the
+    full-prefix greedy sweep, kv, beam, train) and `launches` their sum."""
     out = []
     for kernel, (replaces, case, at) in KERNEL_INFO.items():
         row = next(r for r in rows if r["kernel"] == kernel
                    and r["case"] == case and r["dtype"] == "bfloat16")
+        paths = {path: got[kernel] for path, got in by_path.items()}
         out.append({
             "name": kernel, "route": "cuda",
             "source": f"deepsc_gan_tpu_torch/csrc/{kernel}.cu",
-            "replaces": replaces, "launches": train[kernel],
-            "launches_by_path": {"serve": serve[kernel],
-                                 "train": train[kernel]},
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -611,12 +746,12 @@ def main(argv=None) -> int:
     phase_build()
     rows = phase_kernels(args.seed, len(SNRS) * args.bs, args.bs,
                          args.iters)
-    serve = phase_main_path(args.seed, args.batches, args.bs)
+    by_path = phase_serving(args.seed, args.batches, args.bs)
     phase_f32_ids(args.seed, args.bs)
-    train, _ = phase_train(args.seed, args.epochs, args.bs)
+    by_path["train"], _ = phase_train(args.seed, args.epochs, args.bs)
     phase_step_parity(args.seed, args.bs)
     phase_profile(args.seed, args.bs)
-    kernels = kernels_line(rows, serve, train)
+    kernels = kernels_line(rows, by_path)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

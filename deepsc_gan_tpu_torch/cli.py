@@ -1,22 +1,29 @@
-"""Command-line entry points of the port: the greedy BLEU-vs-SNR sweep of
-the vanilla transceiver (the JAX package's `cli evaluate --variant
-transformer --eval-mode greedy`, without `--kv-cache`) and its plain
-teacher-forced training (`cli train --variant transformer --train-mode
-plain`, one device, one step per call).
+"""Command-line entry points of the port: the BLEU-vs-SNR sweeps of the
+vanilla transceiver (the JAX package's `cli evaluate --variant transformer`:
+`--eval-mode greedy`, full-prefix or `--kv-cache`, and `--eval-mode beam`
+with `--beam-size` and `--beam-impl kv|full`) and its plain teacher-forced
+training (`cli train --variant transformer --train-mode plain`, one device,
+one step per call).
 
   python -m deepsc_gan_tpu_torch.cli evaluate --variant transformer \
-      --eval-mode greedy --params-pkl results/plain_best_params.pkl \
-      --snr-lo 0 --snr-hi 18 --eval-batches 8
+      --eval-mode greedy --kv-cache \
+      --params-pkl results/plain_best_params.pkl --eval-batches 8
+  python -m deepsc_gan_tpu_torch.cli evaluate --eval-mode beam \
+      --beam-size 4 --params-pkl results/plain_best_params.pkl
   python -m deepsc_gan_tpu_torch.cli train --variant transformer \
       --train-mode plain --epochs 3
 
 Weights come from a params pickle in the `results/*_params.pkl` format
-(whether the decoder is tied is read from the tree); without one the model
-is initialised at random from `--seed` (flax's initialisers). Data come
-from `--test-save-path` / `--train-save-path`, or from synthetic sentences
-made from `--seed` when the file does not exist; the vocab from
-`--vocab-path`, or an identity vocab. Channel noise and dropout masks are
-drawn from a `torch.Generator` seeded with `--seed`. Training logs the loss
+(whether the decoder is tied is read from the tree): `--params-pkl`, or for
+`evaluate` the `<checkpoint-path>/<variant>_params.pkl` that `train` saves
+when it exists; without either the model is initialised at random from
+`--seed` (flax's initialisers). The evaluation set is `--test-save-path`, or
+synthetic sentences made from seed 0 when the file does not exist (as the
+JAX CLI); the training set `--train-save-path`, or synthetic sentences made
+from `--seed`. The vocab comes from `--vocab-path`, or is an identity vocab.
+Channel noise and dropout masks are drawn from a `torch.Generator` seeded
+with `--seed`. The greedy sweeps decode every SNR point of a batch in one
+call; beam search makes one call per (SNR, batch). Training logs the loss
 every `--log-every` steps and sentences/s per epoch to
 `<log-save-path>/train.jsonl`, and saves the params (the EMA shadow when
 `--ema-decay` is on) as `<checkpoint-path>/<variant>_params.pkl` in the
@@ -36,11 +43,19 @@ import torch
 
 from deepsc_gan_tpu_torch.data.loader import eval_batches, train_dataset
 from deepsc_gan_tpu_torch.data.vocab import Vocab
+from deepsc_gan_tpu_torch.evaluate.beam import (
+    make_beam_decode,
+    make_beam_decode_kv,
+)
 from deepsc_gan_tpu_torch.evaluate.evaluator import (
     save_result_table,
+    snr_sweep_bleu,
     snr_sweep_bleu_fast,
 )
 from deepsc_gan_tpu_torch.evaluate.greedy import make_greedy_decode_sweep
+from deepsc_gan_tpu_torch.evaluate.kv_decode import (
+    make_greedy_decode_kv_sweep,
+)
 from deepsc_gan_tpu_torch.models.channel import snr_to_noise
 from deepsc_gan_tpu_torch.models.transceiver import make_model
 from deepsc_gan_tpu_torch.train.steps import (
@@ -73,42 +88,67 @@ def load_model(cfg: Config, params_pkl, device, seed: int = 0):
         cfg = cfg.replace(tie_embeddings=is_tied(params))
         model = load_into(make_model(cfg), params)
     else:
-        print("[cli] no --params-pkl; using random init", file=sys.stderr)
+        print("[cli] no params pickle; using random init", file=sys.stderr)
         model = init_params(make_model(cfg), seed)
     return cfg, model.to(device).eval()
 
 
+def evaluate_params_path(args, cfg: Config):
+    """`--params-pkl`, else the `<checkpoint-path>/<variant>_params.pkl`
+    that `cli train` saves when it exists (as the JAX CLI restores what its
+    `train` wrote), else None."""
+    if args.params_pkl:
+        return args.params_pkl
+    saved = os.path.join(cfg.checkpoint_path, f"{args.variant}_params.pkl")
+    return saved if os.path.exists(saved) else None
+
+
 def cmd_evaluate(args) -> dict:
     """Run the sweep; -> {"table", "sequences", "decode_seconds",
-    "device"}. decode_seconds holds one entry per batch: the sweep call
-    up to its ids on the host."""
+    "params_path", "device"}. decode_seconds holds one entry per decode
+    call (a greedy sweep call per batch; a beam call per SNR and batch), up
+    to its ids on the host."""
     device = resolve_device(args.device)
-    cfg, model = load_model(config_from_args(args), args.params_pkl, device,
-                            args.seed)
+    cfg = config_from_args(args)
+    params_path = evaluate_params_path(args, cfg)
+    if params_path:
+        print(f"[eval] params from {params_path}", file=sys.stderr)
+    cfg, model = load_model(cfg, params_path, device, args.seed)
     vocab = (Vocab.load(cfg.vocab_path) if os.path.exists(cfg.vocab_path)
              else Vocab.identity(cfg.vocab_size))
+    # seed 0, as the JAX CLI's test set (its `_load_dataset` default)
     batches = eval_batches(cfg.test_save_path, cfg.seq_len, cfg.vocab_size,
-                           cfg.bs, args.eval_batches, args.seed)
+                           cfg.bs, args.eval_batches)
     snrs = list(range(args.snr_lo, args.snr_hi + 1))
-    sweep = make_greedy_decode_sweep(model, cfg)
     seconds = []
 
-    def timed_sweep(*a):
-        t0 = time.perf_counter()
-        ids = sweep(*a).cpu()
-        seconds.append(time.perf_counter() - t0)
-        return ids
+    def timed(fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            ids = fn(*a).cpu()
+            seconds.append(time.perf_counter() - t0)
+            return ids
+        return call
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    table = snr_sweep_bleu_fast(timed_sweep, batches, vocab, cfg, gen,
-                                snrs=snrs, pnr_db=args.pnr_db)
+    if args.eval_mode == "beam":
+        make = make_beam_decode if args.beam_impl == "full" \
+            else make_beam_decode_kv
+        table = snr_sweep_bleu(timed(make(model, cfg, args.beam_size)),
+                               batches, vocab, cfg, gen, snrs=snrs,
+                               pnr_db=args.pnr_db)
+    else:
+        make = make_greedy_decode_kv_sweep if args.kv_cache \
+            else make_greedy_decode_sweep
+        table = snr_sweep_bleu_fast(timed(make(model, cfg)), batches, vocab,
+                                    cfg, gen, snrs=snrs, pnr_db=args.pnr_db)
     for snr, bleu in table:
         print(f"SNR={snr:.0f}dB {bleu:.4f}")
     save_result_table(table, os.path.join(
         cfg.log_save_path, f"test-{args.variant}-{args.eval_mode}.pkl"))
     return {"table": table, "device": str(device),
             "sequences": len(snrs) * sum(len(b) for b in batches),
-            "decode_seconds": seconds}
+            "decode_seconds": seconds, "params_path": params_path}
 
 
 def save_params_pickle(path: str, params, cfg: Config, recipe: dict) -> str:
@@ -177,9 +217,17 @@ def build_parser() -> argparse.ArgumentParser:
     add_config_args(p)
     p.add_argument("--variant", default="transformer",
                    choices=["transformer"])
-    p.add_argument("--eval-mode", default="greedy", choices=["greedy"])
+    p.add_argument("--eval-mode", default="greedy",
+                   choices=["greedy", "beam"])
+    p.add_argument("--kv-cache", action="store_true",
+                   help="greedy: the KV-cached decoder (same ids at f32)")
+    p.add_argument("--beam-size", type=int, default=4)
+    p.add_argument("--beam-impl", default="kv", choices=["kv", "full"],
+                   help="beam: KV-cached (serving) or full-prefix (oracle)")
     p.add_argument("--params-pkl", default=None,
-                   help="flax params pickle (results/*_params.pkl format)")
+                   help="flax params pickle (results/*_params.pkl format); "
+                        "default <checkpoint-path>/<variant>_params.pkl "
+                        "when it exists")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without it)")
     p.add_argument("--seed", type=int, default=0)

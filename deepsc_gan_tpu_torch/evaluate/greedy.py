@@ -12,6 +12,8 @@ The sweep decodes S noise levels at once. JAX vmaps the decode over the
 noise levels; here the S x B rows are one batch written out. The encoder
 does not depend on the noise level, so it runs once on the B input rows
 (as under vmap) and every noise level shares its power normalization.
+`single_level` and `noise_sweep` wrap a decoder loop (this module's, the
+KV decoder's, beam search's) into the one-level and the sweep entry points.
 """
 
 from __future__ import annotations
@@ -44,28 +46,27 @@ def _decode_loop(model, mem, enc_padding_mask, max_length: int,
     return buf.to(torch.int32)
 
 
-def make_greedy_decode(model, cfg: Config) -> Callable:
-    """Clean greedy decode at one noise level:
-    `decode(inp, pnr_db, n_std, noise) -> (B, max_length+1) ids`, with
-    `noise` the channel's standard-normal draw shaped like the transmitted
-    symbols (B, L, channel_dim)."""
+def single_level(model, cfg: Config, loop: Callable) -> Callable:
+    """-> `decode(inp, pnr_db, n_std, noise) -> (B, max_length+1) ids`:
+    encode, the channel at one noise level with its standard-normal draw
+    `noise` (B, L, channel_dim), channel decode, then
+    `loop(mem, enc_padding_mask)` (the greedy, KV or beam decoder)."""
 
     @torch.inference_mode()
     def decode(inp, pnr_db, n_std, noise):
         enc_padding_mask = create_padding_mask(inp, cfg.pad_idx)
         tx = model.encode(inp, enc_padding_mask)
         y = model.transmit(tx, noise, n_std, pnr_db=pnr_db)
-        mem = model.channel_decode(y)
-        return _decode_loop(model, mem, enc_padding_mask, cfg.max_length,
-                            cfg.start_idx, cfg.pad_idx)
+        return loop(model.channel_decode(y), enc_padding_mask)
 
     return decode
 
 
-def make_greedy_decode_sweep(model, cfg: Config) -> Callable:
-    """Clean greedy decode across S noise levels in one call:
-    `sweep(inp, pnr_db, n_stds[S], noise[S, B, L, channel_dim])
-    -> (S, B, max_length+1) ids`."""
+def noise_sweep(model, cfg: Config, loop: Callable) -> Callable:
+    """-> `sweep(inp, pnr_db, n_stds[S], noise[S, B, L, channel_dim])
+    -> (S, B, max_length+1) ids`: the encoder once on the B rows, the
+    channel at S noise levels, then `loop` once on the S x B rows folded
+    noise-level-major into one batch."""
 
     @torch.inference_mode()
     def sweep(inp, pnr_db, n_stds, noise):
@@ -75,8 +76,27 @@ def make_greedy_decode_sweep(model, cfg: Config) -> Callable:
         y = model.transmit(tx[None], noise, n_stds.reshape(s, 1, 1, 1),
                            pnr_db=pnr_db)
         mem = model.channel_decode(y.reshape((s * b,) + tx.shape[1:]))
-        ids = _decode_loop(model, mem, enc_padding_mask.repeat(s, 1, 1, 1),
-                           cfg.max_length, cfg.start_idx, cfg.pad_idx)
+        ids = loop(mem, enc_padding_mask.repeat(s, 1, 1, 1))
         return ids.reshape(s, b, -1)
 
     return sweep
+
+
+def _greedy_loop(model, cfg: Config) -> Callable:
+    return lambda mem, mask: _decode_loop(model, mem, mask, cfg.max_length,
+                                          cfg.start_idx, cfg.pad_idx)
+
+
+def make_greedy_decode(model, cfg: Config) -> Callable:
+    """Clean greedy decode at one noise level:
+    `decode(inp, pnr_db, n_std, noise) -> (B, max_length+1) ids`, with
+    `noise` the channel's standard-normal draw shaped like the transmitted
+    symbols (B, L, channel_dim)."""
+    return single_level(model, cfg, _greedy_loop(model, cfg))
+
+
+def make_greedy_decode_sweep(model, cfg: Config) -> Callable:
+    """Clean greedy decode across S noise levels in one call:
+    `sweep(inp, pnr_db, n_stds[S], noise[S, B, L, channel_dim])
+    -> (S, B, max_length+1) ids`."""
+    return noise_sweep(model, cfg, _greedy_loop(model, cfg))

@@ -48,13 +48,14 @@ def reset_launches() -> None:
     bwd_launches = 0
 
 
-def op_dtype(h: torch.Tensor) -> torch.dtype:
-    """Matmul operand dtype: bf16 for bf16 activations, else f32."""
-    return torch.bfloat16 if h.dtype == torch.bfloat16 else torch.float32
+def op_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Matmul operand dtype for activations of `dtype`: bf16 for bf16,
+    else f32."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
 
 
 def _operands(h, W, b, labels):
-    od = op_dtype(h)
+    od = op_dtype(h.dtype)
     return (h.to(od).contiguous(), W.to(od).contiguous(),
             b.to(torch.float32).contiguous(),
             labels.to(torch.int32).contiguous())
@@ -117,7 +118,7 @@ def _on_cuda(h):
     if h.device.type == "cpu":
         return False
     if h.device.type != "cuda":
-        raise ValueError(f"CE kernels run on CUDA, not {h.device}")
+        raise ValueError(f"the kernels run on CUDA, not {h.device}")
     if h.device.index != torch.cuda.current_device():
         raise ValueError(f"h is on {h.device} but the current CUDA device "
                          f"is {torch.cuda.current_device()}")

@@ -12,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from deepsc_gan_tpu_torch.evaluate.beam import make_beam_decode_sweep
 from deepsc_gan_tpu_torch.evaluate.greedy import make_greedy_decode_sweep
 from deepsc_gan_tpu_torch.models.transceiver import make_model
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
+from deepsc_gan_tpu_torch.ops import topk_kernel as topk
 from deepsc_gan_tpu_torch.train import steps
 from deepsc_gan_tpu_torch.utils.config import Config
 
@@ -185,3 +187,70 @@ def test_tiny_train_step_kernels_equal_plain_step(cuda):
     for (name, a), b in zip(models[0].named_parameters(),
                             models[1].parameters()):
         assert _err(a.grad, b.grad, relative=True) <= 1e-4, name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("n,d,v,k", [(100, 16, 1000, 4), (256, 128, 1024, 8),
+                                     (7, 8, 17, 1)])
+def test_topk_kernel_matches_plain_version(cuda, dtype, tol, n, d, v, k):
+    """K6 against its plain version at padded shapes (rows and vocab not
+    multiples of the 64-tiles) and an exact one: the same indices, vals and
+    lse within the tolerance."""
+    gen = torch.Generator(cuda).manual_seed(8)
+    h = torch.randn((n, d), device=cuda, generator=gen).to(dtype)
+    W = (0.3 * torch.randn((v, d), device=cuda, generator=gen)).to(dtype)
+    b = 0.1 * torch.randn(v, device=cuda, generator=gen)
+    topk.reset_launches()
+    vals, idx, lse = topk.topk_logits(h, W, b, k)
+    rv, ri, rl = topk.topk_logits_reference(h, W, b, k)
+    torch.cuda.synchronize()
+    assert topk.launches == 1
+    assert vals.shape == (n, k) and idx.dtype == torch.int32
+    assert torch.equal(idx, ri)
+    assert _err(vals, rv) <= tol and _err(lse, rl) <= tol
+
+
+def test_topk_kernel_ties_go_to_the_lowest_index(cuda):
+    """Equal maxima far apart in the vocab (in different vocab splits of
+    the kernel at N = 256): the lowest indices first."""
+    n, d, v = 256, 128, 22234
+    h = torch.ones((n, d), device=cuda)
+    W = torch.zeros((v, d), device=cuda)
+    b = torch.zeros(v, device=cuda)
+    b[[21000, 5, 11000, 64]] = 1.0
+    vals, idx, _ = topk.topk_logits(h, W, b, 6)
+    ref = topk.topk_logits_reference(h, W, b, 6)
+    assert torch.equal(idx, ref[1])
+    assert idx[0].tolist() == [5, 64, 11000, 21000, 0, 1]
+    assert torch.equal(vals, ref[0])
+
+
+def test_topk_wrapper_raises_on_an_unsupported_k(cuda):
+    h = torch.randn((4, 16), device=cuda)
+    W = torch.randn((40, 16), device=cuda)
+    b = torch.zeros(40, device=cuda)
+    for k in (0, 9):
+        with pytest.raises(ValueError, match="k"):
+            topk.topk_logits(h, W, b, k)
+
+
+def test_tiny_beam_kernel_ids_equal_plain_ids(cuda):
+    """A beam-4 sweep at f32 on the card with candidates scored by K6 and
+    by its plain version, same weights and noise: identical ids."""
+    torch.manual_seed(1)
+    model = make_model(TINY).to(cuda).eval()
+    rng = np.random.default_rng(3)
+    inp = torch.from_numpy(rng.integers(3, 40, (4, 12))).to(cuda)
+    inp[:, 0] = 1
+    inp[:, 9:] = 0
+    n_stds = torch.tensor([1.0, 0.3], device=cuda)
+    noise = torch.randn((2, 4, 12, 8), device=cuda)
+    topk.reset_launches()
+    ids_k = make_beam_decode_sweep(model, TINY, 4)(inp, 0.0, n_stds, noise)
+    assert topk.launches == TINY.max_length
+    ids_p = make_beam_decode_sweep(
+        model, TINY, 4, topk=topk.topk_logits_reference)(inp, 0.0, n_stds,
+                                                         noise)
+    assert topk.launches == TINY.max_length
+    assert torch.equal(ids_k, ids_p)
