@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (`deepsc_gan_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--batches 2] [--epochs 3]
+                          [--star-epochs 2]
 
 Phases, each printing its lines; any failure raises and the script exits
 non-zero without its last line:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: every CUDA kernel of the serving and training paths (K1-K4, K6),
+2. build: every CUDA kernel of the serving and training paths (K1-K6),
    compiled by nvcc from the sources in this checkout (all nvcc processes
    started together);
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -35,10 +36,23 @@ non-zero without its last line:
    finite and the last 20 below the first 20 on average; then one f32 step
    through the kernels and one through the plain versions from the same
    weights, noise and dropout masks: the same loss and gradients;
-6. profile: device time by kernel over one bf16 call of the full-prefix
-   sweep, of the KV sweep and of the beam, and over one bf16 train step,
-   and the device's idle share in each (torch.profiler);
-7. the kernels as one JSON line, then `{"ok": true, "device": {...}}` as
+6. star training: the CLI trains the full-width single-block star
+   transceiver (--variant star) in bf16 from a random init on the
+   synthetic set at seq_len 31 for --star-epochs epochs, scoring the
+   un-shifted target (per step: 16 K5, 1 K3, 1 K4, no K1 or K2); losses as
+   in 5; then an f32 star step through K5 and the CE kernels against one
+   through the plain versions;
+7. star serving: the CLI's one-shot sweep (--variant star, no
+   --params-pkl: it loads what phase 6 saved and says so) over --batches
+   batches in bf16, 16 K5 per call and nothing else; then at f32 on one
+   batch the one-shot ids through K5 equal the plain version's, for the
+   trained star weights and for a random multi-layer star (star_multi, 64
+   K5 per call);
+8. profile: device time by kernel over one bf16 call of the full-prefix
+   sweep, of the KV sweep, of the beam and of the star sweep, and over one
+   bf16 train step of each codec, and the device's idle share in each
+   (torch.profiler);
+9. the kernels as one JSON line, then `{"ok": true, "device": {...}}` as
    the last line.
 
 Needs CUDA: without it the script exits 1 before any phase.
@@ -47,6 +61,8 @@ Needs CUDA: without it the script exits 1 before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -73,9 +89,10 @@ from deepsc_gan_tpu_torch.models.transceiver import make_model
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
 from deepsc_gan_tpu_torch.ops import build
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
+from deepsc_gan_tpu_torch.ops import star_kernel as star
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk
 from deepsc_gan_tpu_torch.train import steps
-from deepsc_gan_tpu_torch.utils.config import Config
+from deepsc_gan_tpu_torch.utils.config import Config, default_seq_len
 from deepsc_gan_tpu_torch.utils.convert import (
     is_tied,
     load_into,
@@ -83,6 +100,7 @@ from deepsc_gan_tpu_torch.utils.convert import (
 )
 
 PARAMS = "results/plain_best_params.pkl"
+STAR_CKPT = "log/chip_smoke/star_ckpt"
 SNRS = list(range(0, 19))
 HEADS, DH = 8, 16
 # H100 SXM data sheet: HBM rate, dense bf16 tensor-core rate, f32 rate
@@ -97,7 +115,7 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 3.2e-2}
 TRAIN_SHAPES = (("encoder", 32, 32), ("decoder_self", 31, 31),
                 ("decoder_cross", 31, 32))
 KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
-           topk.KERNEL)
+           star.KERNEL, topk.KERNEL)
 BEAM = 4
 
 
@@ -186,16 +204,17 @@ def max_err(got, want, relative=False):
 
 
 def kernel_row(kernel, case, dtype, err, tol, call, plain, library, nbytes,
-               ops, iters, **extra):
+               ops, iters, ops_dtype=None, **extra):
     """Check `err` against `tol`, time the kernel, its plain version and
-    the library call, print and return the row."""
+    the library call, print and return the row. The operations are counted
+    at the peak rate of `ops_dtype` (default: the row's dtype)."""
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"{kernel} {case} {dtype}: max err {err} > "
                              f"{tol}")
     ms, host_ms = cuda_ms(call, iters)
     plain_ms, _ = cuda_ms(plain, iters)
     library_ms = cuda_ms(library, iters)[0] if library else None
-    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    bound_ms, bound_by = bound(nbytes, ops, ops_dtype or dtype)
     row = {"kernel": kernel, "case": case,
            "dtype": str(dtype).replace("torch.", ""), **extra,
            "max_abs_err": err, "tol": tol, "ms": ms,
@@ -354,10 +373,37 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, tie=False):
         iters, n=n, d=d, v=v, k=k)
 
 
+def star_case(label, n, dtype, gen, iters):
+    """K5 at N rows of D = 128 (8 heads of 16): q (1, N, D), k and v
+    (5, 1, N, D) ~ N(0, 1)."""
+    d = HEADS * DH
+    q = torch.randn((1, n, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((5, 1, n, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((5, 1, n, d), generator=gen, device="cuda").to(dtype)
+    out = star.star_satellite(q, k, v, HEADS)
+    ref = star.satellite_reference(q[0], k[:, 0], v[:, 0], HEADS)
+    torch.cuda.synchronize()
+    # yardstick: one library call over the five contexts of each row
+    qh = q[0].view(n, HEADS, 1, DH)
+    kh, vh = (t[:, 0].view(5, n, HEADS, DH).permute(1, 2, 0, 3)
+              for t in (k, v))
+    # bytes: q, 5 k, 5 v and the output; operations: the 5 dot products and
+    # the weighted sum of 5 (an f32 multiply-add each), on the f32 cores
+    return kernel_row(
+        star.KERNEL, label, dtype, max_err([out[0]], [ref]), TOL[dtype],
+        lambda: star.star_satellite(q, k, v, HEADS),
+        lambda: star.satellite_reference(q[0], k[:, 0], v[:, 0], HEADS),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh),
+        12 * n * d * q.element_size(), 2 * 2 * 5 * n * d, iters,
+        ops_dtype=torch.float32, n=n, d=d, heads=HEADS)
+
+
 def phase_kernels(seed, n, bs, iters):
     """Every kernel at the serving paths' shapes (K1, N = 19 SNRs x bs; K6
-    at N = bs x 4 beams, the CLI's beam, and 19 x bs x 4, the beam sweep)
-    and the training path's (K1-K2 at N = bs; K3-K4 at bs x 31 rows)."""
+    at N = bs x 4 beams, the CLI's beam, and 19 x bs x 4, the beam sweep;
+    K5 at N = 19 x bs x 31, the star sweep's decoder) and the training
+    path's (K1-K2 at N = bs; K3-K4 and K5 at bs x 31 rows), and K5 at a row
+    count that is not a multiple of its 8 rows per block."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cfg = Config()
     rows = []
@@ -374,6 +420,12 @@ def phase_kernels(seed, n, bs, iters):
                          cfg.decoder_d_model, cfg.vocab_size)
         rows.append(topk_case("beam", bs * BEAM, dtype, gen, iters))
         rows.append(topk_case("beam_sweep", n * BEAM, dtype, gen, iters))
+        star_len = default_seq_len("star")
+        rows.append(star_case("star_train", bs * star_len, dtype, gen,
+                              iters))
+        rows.append(star_case("star_sweep", n * star_len, dtype, gen, iters))
+        rows.append(star_case("odd_rows", bs * star_len + 3, dtype, gen,
+                              iters))
     rows.append(topk_case("tie", bs * BEAM, torch.float32, gen, iters,
                           k=8, tie=True))
     return rows
@@ -382,14 +434,15 @@ def phase_kernels(seed, n, bs, iters):
 def reset_launches():
     attn.reset_launches()
     ce.reset_launches()
+    star.reset_launches()
     topk.reset_launches()
 
 
 def launches():
-    """Launches of K1-K4 and K6 since the last reset."""
+    """Launches of K1-K6 since the last reset."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
             ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
-            topk.KERNEL: topk.launches}
+            star.KERNEL: star.launches, topk.KERNEL: topk.launches}
 
 
 def check_launches(path, got, expected):
@@ -400,19 +453,36 @@ def check_launches(path, got, expected):
                              f"{expected}")
 
 
-def phase_serve(tag, flags, seed, batches, bs, per_call):
-    """One serving path through `cli evaluate` on the trained weights in
-    bf16, 19 SNRs: the launch counts must equal `per_call` times the decode
-    calls; the BLEU table 19 finite values in [0, 1]. -> (launch counts,
-    steady seq/s: the fastest call's)."""
+@contextlib.contextmanager
+def stderr_copy():
+    """Yields a StringIO that receives what the block writes to stderr;
+    the text goes on to stderr after the block."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(buf):
+            yield buf
+    finally:
+        sys.stderr.write(buf.getvalue())
+
+
+VANILLA = ("--variant", "transformer", "--params-pkl", PARAMS)
+
+
+def phase_serve(tag, flags, seed, batches, bs, per_call, model=VANILLA):
+    """One serving path through `cli evaluate` in bf16, 19 SNRs (`model`:
+    the variant and where its weights come from; the vanilla transceiver's
+    trained weights by default): the launch counts must equal `per_call`
+    times the decode calls; the BLEU table 19 finite values in [0, 1]. ->
+    (launch counts, steady seq/s: the fastest call's, the CLI's result,
+    what it wrote to stderr)."""
     reset_launches()
     t0 = time.perf_counter()
-    res = cli.main(["evaluate", "--variant", "transformer", *flags,
-                    "--params-pkl", PARAMS, "--dtype", "bfloat16",
-                    "--bs", str(bs), "--eval-batches", str(batches),
-                    "--seed", str(seed), "--snr-lo", str(SNRS[0]),
-                    "--snr-hi", str(SNRS[-1]), "--device", "cuda",
-                    "--log-save-path", f"log/chip_smoke/{tag}"])
+    with stderr_copy() as err:
+        res = cli.main(["evaluate", *model, *flags, "--dtype", "bfloat16",
+                        "--bs", str(bs), "--eval-batches", str(batches),
+                        "--seed", str(seed), "--snr-lo", str(SNRS[0]),
+                        "--snr-hi", str(SNRS[-1]), "--device", "cuda",
+                        "--log-save-path", f"log/chip_smoke/{tag}"])
     wall = time.perf_counter() - t0
     got = launches()
     secs = res["decode_seconds"]
@@ -430,7 +500,7 @@ def phase_serve(tag, flags, seed, batches, bs, per_call):
           f"calls: call seconds {secs}; {res['sequences'] / sum(secs):.1f} "
           f"seq/s over all calls, {steady:.1f} seq/s in the fastest; wall "
           f"{wall:.2f} s")
-    return got, steady
+    return got, steady, res, err.getvalue()
 
 
 def phase_serving(seed, batches, bs):
@@ -442,45 +512,56 @@ def phase_serving(seed, batches, bs):
     # decoder's self and cross per layer at each of max_length steps
     full = dict(none, **{attn.KERNEL: cfg.encoder_num_layer
                          + 2 * cfg.decoder_num_layer * cfg.max_length})
-    serve, full_rate = phase_serve("main", ["--eval-mode", "greedy"], seed,
-                                   batches, bs, full)
+    serve, full_rate, *_ = phase_serve("main", ["--eval-mode", "greedy"],
+                                       seed, batches, bs, full)
     # KV: only the encoder prefill goes through K1
     encoder = dict(none, **{attn.KERNEL: cfg.encoder_num_layer})
-    kv, kv_rate = phase_serve("kv", ["--eval-mode", "greedy", "--kv-cache"],
-                              seed, batches, bs, encoder)
+    kv, kv_rate, *_ = phase_serve(
+        "kv", ["--eval-mode", "greedy", "--kv-cache"], seed, batches, bs,
+        encoder)
     print(f"[kv] steady {kv_rate:.1f} seq/s against the full-prefix "
           f"sweep's {full_rate:.1f} ({kv_rate / full_rate:.2f}x)")
-    beam, beam_rate = phase_serve(
+    beam, beam_rate, *_ = phase_serve(
         "beam", ["--eval-mode", "beam", "--beam-size", str(BEAM)], seed, 1,
         bs, dict(encoder, **{topk.KERNEL: cfg.max_length}))
     print(f"[beam] steady {beam_rate:.1f} seq/s")
     return {"serve": serve, "kv": kv, "beam": beam}
 
 
-def phase_train(seed, epochs, bs):
-    """The training path: `cli train` at full width in bf16 from a random
-    init on the synthetic set."""
+def phase_train(seed, epochs, bs, variant="transformer",
+                checkpoint="log/chip_smoke/ckpt"):
+    """A training path: `cli train --variant <variant>` at full width in
+    bf16 from a random init on the synthetic set, the params saved under
+    `checkpoint`. Per step the vanilla transceiver launches K1 and K2 once
+    per attention, the star one K5 once per cycle of its encoder and its
+    decoder; both K3 and K4 once."""
+    tag = "train" if variant == "transformer" else f"{variant}_train"
     reset_launches()
     t0 = time.perf_counter()
-    res = cli.main(["train", "--variant", "transformer", "--train-mode",
+    res = cli.main(["train", "--variant", variant, "--train-mode",
                     "plain", "--dtype", "bfloat16", "--bs", str(bs),
                     "--epochs", str(epochs), "--seed", str(seed),
                     "--device", "cuda", "--log-every", "64",
-                    "--log-save-path", "log/chip_smoke/train",
-                    "--checkpoint-path", "log/chip_smoke/ckpt"])
+                    "--log-save-path", f"log/chip_smoke/{tag}",
+                    "--checkpoint-path", checkpoint])
     wall = time.perf_counter() - t0
     got = launches()
     cfg = Config()
     n = res["steps"]
-    per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
-    check_launches("train", got, {
-        attn.KERNEL: per_step * n, attn.KERNEL_BWD: per_step * n,
-        ce.KERNEL_FWD: n, ce.KERNEL_BWD: n, topk.KERNEL: 0})
+    expected = {name: 0 for name in KERNELS}
+    expected.update({ce.KERNEL_FWD: n, ce.KERNEL_BWD: n})
+    if variant == "transformer":
+        per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
+        expected.update({attn.KERNEL: per_step * n,
+                         attn.KERNEL_BWD: per_step * n})
+    else:
+        expected[star.KERNEL] = 2 * cfg.cycle_num * n
+    check_launches(tag, got, expected)
     losses = res["losses"]
     first, last = losses[:20].mean().item(), losses[-20:].mean().item()
-    print(f"[train] {n} steps in {epochs} epochs; loss first {losses[0]:.4f}"
-          f" last {losses[-1]:.4f}; mean of the first 20 {first:.4f}, of "
-          f"the last 20 {last:.4f}")
+    print(f"[{tag}] {n} steps in {epochs} epochs; loss first "
+          f"{losses[0]:.4f} last {losses[-1]:.4f}; mean of the first 20 "
+          f"{first:.4f}, of the last 20 {last:.4f}")
     if len(losses) != n or not torch.isfinite(losses).all():
         raise AssertionError("a train loss is not finite")
     if not last < first:
@@ -490,7 +571,7 @@ def phase_train(seed, epochs, bs):
     ms_step = sum(steady) / len(steady) / per_epoch * 1e3
     rate = sum(res["sents_per_sec"][1:] or res["sents_per_sec"]) \
         / len(steady)
-    print(f"[train] epoch seconds {res['epoch_seconds']}; steady (epochs "
+    print(f"[{tag}] epoch seconds {res['epoch_seconds']}; steady (epochs "
           f"after the first) {ms_step:.3f} ms/step, {rate:.1f} sentences/s;"
           f" first epoch {res['sents_per_sec'][0]:.1f} sentences/s; wall "
           f"{wall:.2f} s")
@@ -505,29 +586,42 @@ def _train_batch(cfg, seed):
     return torch.from_numpy(inp).to("cuda", torch.long)
 
 
-def phase_step_parity(seed, bs):
+def variant_model(cfg, variant, plain=False):
+    """The transceiver of `variant` through the kernels, or through their
+    plain versions when `plain`."""
+    if variant == "transformer":
+        return make_model(cfg, attention=attn.plain_attention if plain
+                          else attn.fused_attention)
+    return make_model(cfg, variant, satellite=star.plain_satellite if plain
+                      else star.satellite_attention)
+
+
+def phase_step_parity(seed, bs, variant="transformer"):
     """One f32 train step at full width through the kernels and one
     through the plain versions: the same weights (init from `seed`),
     noise and dropout masks (one generator seed, drawn in the same
-    order)."""
-    cfg = Config(dtype="float32", bs=bs)
+    order). A star step scores the un-shifted target."""
+    is_star = variant != "transformer"
+    cfg = Config(dtype="float32", bs=bs, seq_len=default_seq_len(variant))
     inp = _train_batch(cfg, seed)
     n_std = float(snr_to_noise(cfg.train_snr))
     out = []
     for plain in (False, True):
-        attention = attn.plain_attention if plain else attn.fused_attention
-        model = steps.init_params(make_model(cfg, attention=attention), seed)
+        model = steps.init_params(variant_model(cfg, variant, plain), seed)
         model = model.cuda().train()
         state = steps.create_train_state(model, cfg)
-        step = steps.make_train_step(model, cfg, plain=plain)
+        step = steps.make_train_step(model, cfg, plain=plain,
+                                     full_target=is_star)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         reset_launches()
         _, loss = step(state, inp, inp, gen, n_std)
         torch.cuda.synchronize()
         out.append((loss.item(), model, launches()))
     (lk, mk, ck), (lp, mp, cp) = out
-    trained = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD)
-    if sum(cp.values()) or any(ck[name] == 0 for name in trained):
+    trained = (star.KERNEL,) if is_star else (attn.KERNEL, attn.KERNEL_BWD)
+    trained += (ce.KERNEL_FWD, ce.KERNEL_BWD)
+    if sum(cp.values()) or any(ck[name] == 0 for name in trained) \
+            or any(ck[name] for name in KERNELS if name not in trained):
         raise AssertionError(f"step parity launches: kernels {ck}, plain "
                              f"{cp}")
     worst, worst_name = 0.0, ""
@@ -535,7 +629,8 @@ def phase_step_parity(seed, bs):
         err = max_err([a.grad], [b.grad], relative=True)
         if err > worst:
             worst, worst_name = err, name
-    print(f"[parity] f32 step: loss kernels {lk:.7f} plain {lp:.7f} (rel "
+    print(f"[parity] {variant} f32 step: loss kernels {lk:.7f} plain "
+          f"{lp:.7f} (rel "
           f"{abs(lk - lp) / abs(lp):.2e}); worst grad err / max|ref| "
           f"{worst:.2e} ({worst_name}); launches {json.dumps(ck)}")
     if not abs(lk - lp) <= 1e-5 * abs(lp):
@@ -597,6 +692,65 @@ def phase_f32_ids(seed, bs):
                  full(*a))
 
 
+def phase_star_serving(seed, batches, bs):
+    """The star one-shot sweep through `cli evaluate --variant star` with
+    no --params-pkl: it must load the params the star training phase saved
+    (and say so); 16 K5 per call (8 cycles of the encoder on the bs rows, 8
+    of the decoder on the 19 x bs rows) and nothing else. -> its launch
+    counts."""
+    saved = f"{STAR_CKPT}/star_params.pkl"
+    per_call = {name: 0 for name in KERNELS}
+    per_call[star.KERNEL] = 2 * Config().cycle_num
+    got, rate, res, err = phase_serve(
+        "star_serve", ["--eval-mode", "greedy"], seed, batches, bs, per_call,
+        model=("--variant", "star", "--checkpoint-path", STAR_CKPT))
+    if res["params_path"] != saved or f"params from {saved}" not in err:
+        raise AssertionError(f"star_serve: loaded {res['params_path']}, "
+                             f"not the trained {saved}")
+    print(f"[star_serve] params from {saved}; steady {rate:.1f} seq/s")
+    return got
+
+
+def phase_star_f32_ids(seed, bs):
+    """One batch at f32 on the card, all 19 SNRs, same weights and noise:
+    the one-shot ids through K5 and through its plain version, for the
+    star weights the training phase saved and for a random star_multi
+    (flax's initialisers from `seed`)."""
+    params = load_params_pickle(f"{STAR_CKPT}/star_params.pkl")
+    seq_len = default_seq_len("star")
+    base = Config(dtype="float32", bs=bs, seq_len=seq_len)
+    inp = torch.as_tensor(eval_batches(base.test_save_path, seq_len,
+                                       base.vocab_size, bs, 1, seed)[0],
+                          dtype=torch.long, device="cuda")
+    n_stds = torch.tensor([SNR_to_noise(s) for s in SNRS],
+                          dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn((len(SNRS), bs, seq_len, base.channel_dim),
+                        generator=gen, device="cuda")
+    for variant in ("star", "star_multi"):
+        cfg = base.replace(tie_embeddings=is_tied(params)) \
+            if variant == "star" else base
+        ids = []
+        for plain in (False, True):
+            model = variant_model(cfg, variant, plain)
+            model = load_into(model, params) if variant == "star" \
+                else steps.init_params(model, seed)
+            sweep = make_greedy_decode_sweep(model.cuda().eval(), cfg,
+                                             "oneshot")
+            reset_launches()
+            ids.append(sweep(inp, 0.0, n_stds, noise))
+            torch.cuda.synchronize()
+            layers = 1 if variant == "star" else cfg.encoder_num_layer
+            want = 0 if plain else 2 * layers * cfg.cycle_num
+            if launches() != dict({n: 0 for n in KERNELS},
+                                  **{star.KERNEL: want}):
+                raise AssertionError(f"{variant} one-shot sweep (plain "
+                                     f"{plain}): launches {launches()}")
+        same_ids(f"{variant} one-shot sweep ({len(SNRS)} x {bs} rows, "
+                 f"{2 * layers * cfg.cycle_num} K5 per call), K5 vs plain",
+                 *ids)
+
+
 def _busy_us(intervals):
     """Length of the union of (start, end) intervals."""
     busy, end = 0.0, float("-inf")
@@ -651,8 +805,9 @@ def profiled(tag, fn):
 def phase_profile(seed, bs):
     """One bf16 call (19 SNRs x bs rows) of the full-prefix sweep and of the
     KV sweep, and one bf16 beam call (bs rows x 4 beams at one SNR) of the
-    trained weights, and one bf16 train step at full width, each after a
-    warm-up."""
+    trained weights; one bf16 call of the star one-shot sweep of the star
+    weights the training phase saved; and one bf16 train step at full width
+    of the vanilla and of the star transceiver; each after a warm-up."""
     cfg, model = cli.load_model(Config(bs=bs), PARAMS, torch.device("cuda"))
     sweep = make_greedy_decode_sweep(model, cfg)
     inp = torch.as_tensor(eval_batches(cfg.test_save_path, cfg.seq_len,
@@ -675,10 +830,32 @@ def phase_profile(seed, bs):
     torch.cuda.synchronize()
     profiled("one beam call", lambda: beam(*args))
 
-    cfg = Config(bs=bs)
-    model = steps.init_params(make_model(cfg), seed).cuda().train()
+    seq_len = default_seq_len("star")
+    cfg, model = cli.load_model(Config(bs=bs, seq_len=seq_len),
+                                f"{STAR_CKPT}/star_params.pkl",
+                                torch.device("cuda"), variant="star")
+    sweep = make_greedy_decode_sweep(model, cfg, "oneshot")
+    inp = torch.as_tensor(eval_batches(cfg.test_save_path, seq_len,
+                                       cfg.vocab_size, bs, 1, seed)[0],
+                          dtype=torch.long, device="cuda")
+    noise = torch.randn((len(SNRS), bs, seq_len, cfg.channel_dim),
+                        generator=gen, device="cuda")
+    sweep(inp, 0.0, n_stds, noise)
+    torch.cuda.synchronize()
+    profiled("one star sweep call", lambda: sweep(inp, 0.0, n_stds, noise))
+
+    for variant in ("transformer", "star"):
+        profile_train_step(variant, seed, bs, gen)
+
+
+def profile_train_step(variant, seed, bs, gen):
+    """One bf16 train step of `variant` at full width after a warm-up,
+    timed without the profiler, then profiled."""
+    is_star = variant != "transformer"
+    cfg = Config(bs=bs, seq_len=default_seq_len(variant))
+    model = steps.init_params(make_model(cfg, variant), seed).cuda().train()
     state = steps.create_train_state(model, cfg)
-    step = steps.make_train_step(model, cfg)
+    step = steps.make_train_step(model, cfg, full_target=is_star)
     inp = _train_batch(cfg, seed)
     n_std = float(snr_to_noise(cfg.train_snr))
     for _ in range(3):
@@ -687,9 +864,10 @@ def phase_profile(seed, bs):
     t0 = time.perf_counter()
     step(state, inp, inp, gen, n_std)
     torch.cuda.synchronize()
-    print(f"[profile] one train step without the profiler: "
+    tag = "one star train step" if is_star else "one train step"
+    print(f"[profile] {tag} without the profiler: "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
-    profiled("one train step", lambda: step(state, inp, inp, gen, n_std))
+    profiled(tag, lambda: step(state, inp, inp, gen, n_std))
 
 
 KERNEL_INFO = {
@@ -704,6 +882,9 @@ KERNEL_INFO = {
                     "training: N=1984 D=128 V=22234, bf16"),
     ce.KERNEL_BWD: ("deepsc_gan_tpu/ops/pallas/ce.py:166,189", "ce",
                     "training: N=1984 D=128 V=22234, bf16"),
+    star.KERNEL: ("deepsc_gan_tpu/ops/pallas/star.py:107", "star_sweep",
+                  "star serving: decoder satellite update, bf16, "
+                  "N=19x64x31 D=128 H=8"),
     topk.KERNEL: ("deepsc_gan_tpu/ops/pallas/topk.py:94", "beam",
                   "beam: N=64x4 D=128 V=22234 k=4, bf16"),
 }
@@ -712,7 +893,8 @@ KERNEL_INFO = {
 def kernels_line(rows, by_path):
     """One entry per kernel, from its bf16 row at the path shape that
     matters most; `launches_by_path` counts each path's run (serve: the
-    full-prefix greedy sweep, kv, beam, train) and `launches` their sum."""
+    full-prefix greedy sweep, kv, beam, train, star_train, star_serve) and
+    `launches` their sum."""
     out = []
     for kernel, (replaces, case, at) in KERNEL_INFO.items():
         row = next(r for r in rows if r["kernel"] == kernel
@@ -736,6 +918,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--bs", type=int, default=64)
     ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--star-epochs", type=int, default=2)
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -750,6 +933,12 @@ def main(argv=None) -> int:
     phase_f32_ids(args.seed, args.bs)
     by_path["train"], _ = phase_train(args.seed, args.epochs, args.bs)
     phase_step_parity(args.seed, args.bs)
+    by_path["star_train"], _ = phase_train(args.seed, args.star_epochs,
+                                           args.bs, "star", STAR_CKPT)
+    phase_step_parity(args.seed, args.bs, "star")
+    by_path["star_serve"] = phase_star_serving(args.seed, args.batches,
+                                               args.bs)
+    phase_star_f32_ids(args.seed, args.bs)
     phase_profile(args.seed, args.bs)
     kernels = kernels_line(rows, by_path)
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -1,9 +1,13 @@
-"""Command-line entry points of the port: the BLEU-vs-SNR sweeps of the
-vanilla transceiver (the JAX package's `cli evaluate --variant transformer`:
+"""Command-line entry points of the port: the BLEU-vs-SNR sweeps (the JAX
+package's `cli evaluate`) and plain teacher-forced training (`cli train
+--train-mode plain`, one device, one step per call) of the vanilla
+transceiver (`--variant transformer`) and the star ones (`--variant star`,
+the single-block SE/SD codec, or `star_multi`). The vanilla sweeps are
 `--eval-mode greedy`, full-prefix or `--kv-cache`, and `--eval-mode beam`
-with `--beam-size` and `--beam-impl kv|full`) and its plain teacher-forced
-training (`cli train --variant transformer --train-mode plain`, one device,
-one step per call).
+with `--beam-size` and `--beam-impl kv|full`; a star decoder is decoded in
+one shot (position i predicts token i), with or without `--kv-cache`, and
+has no beam search. Star training scores the un-shifted target. An unset
+`--seq-len` is 31 for the star variants and 32 for the vanilla one.
 
   python -m deepsc_gan_tpu_torch.cli evaluate --variant transformer \
       --eval-mode greedy --kv-cache \
@@ -12,6 +16,8 @@ one step per call).
       --beam-size 4 --params-pkl results/plain_best_params.pkl
   python -m deepsc_gan_tpu_torch.cli train --variant transformer \
       --train-mode plain --epochs 3
+  python -m deepsc_gan_tpu_torch.cli train --variant star --epochs 2
+  python -m deepsc_gan_tpu_torch.cli evaluate --variant star
 
 Weights come from a params pickle in the `results/*_params.pkl` format
 (whether the decoder is tied is read from the tree): `--params-pkl`, or for
@@ -57,7 +63,7 @@ from deepsc_gan_tpu_torch.evaluate.kv_decode import (
     make_greedy_decode_kv_sweep,
 )
 from deepsc_gan_tpu_torch.models.channel import snr_to_noise
-from deepsc_gan_tpu_torch.models.transceiver import make_model
+from deepsc_gan_tpu_torch.models.transceiver import VARIANTS, make_model
 from deepsc_gan_tpu_torch.train.steps import (
     create_train_state,
     eval_params,
@@ -68,6 +74,7 @@ from deepsc_gan_tpu_torch.utils.config import (
     Config,
     add_config_args,
     config_from_args,
+    default_seq_len,
 )
 from deepsc_gan_tpu_torch.utils.convert import (
     is_tied,
@@ -79,17 +86,31 @@ from deepsc_gan_tpu_torch.utils.device import resolve_device
 from deepsc_gan_tpu_torch.utils.logging import MetricLogger
 
 
-def load_model(cfg: Config, params_pkl, device, seed: int = 0):
-    """(cfg, model) on `device`, in eval mode: weights from `params_pkl`
-    (cfg's tie_embeddings set from the tree), else a random init from
-    `seed`."""
+def is_star(variant: str) -> bool:
+    return variant.startswith("star")
+
+
+def variant_config(args) -> Config:
+    """Config from args, an unset --seq-len resolved for the variant (JAX
+    CLI `_variant_config`)."""
+    cfg = config_from_args(args)
+    if args.seq_len is None:
+        cfg = cfg.replace(seq_len=default_seq_len(args.variant))
+    return cfg
+
+
+def load_model(cfg: Config, params_pkl, device, seed: int = 0,
+               variant: str = "transformer"):
+    """(cfg, model of `variant`) on `device`, in eval mode: weights from
+    `params_pkl` (cfg's tie_embeddings set from the tree), else a random
+    init from `seed`."""
     if params_pkl:
         params = load_params_pickle(params_pkl)
         cfg = cfg.replace(tie_embeddings=is_tied(params))
-        model = load_into(make_model(cfg), params)
+        model = load_into(make_model(cfg, variant), params)
     else:
         print("[cli] no params pickle; using random init", file=sys.stderr)
-        model = init_params(make_model(cfg), seed)
+        model = init_params(make_model(cfg, variant), seed)
     return cfg, model.to(device).eval()
 
 
@@ -108,12 +129,20 @@ def cmd_evaluate(args) -> dict:
     "params_path", "device"}. decode_seconds holds one entry per decode
     call (a greedy sweep call per batch; a beam call per SNR and batch), up
     to its ids on the host."""
+    star = is_star(args.variant)
+    if star and args.eval_mode == "beam":
+        raise SystemExit(
+            "beam search requires an autoregressive decoder; star decoders "
+            "are non-autoregressive (position i predicts token i from the "
+            "channel signal) — use --eval-mode greedy, which decodes "
+            "them in one shot")
     device = resolve_device(args.device)
-    cfg = config_from_args(args)
+    cfg = variant_config(args)
     params_path = evaluate_params_path(args, cfg)
     if params_path:
         print(f"[eval] params from {params_path}", file=sys.stderr)
-    cfg, model = load_model(cfg, params_path, device, args.seed)
+    cfg, model = load_model(cfg, params_path, device, args.seed,
+                            args.variant)
     vocab = (Vocab.load(cfg.vocab_path) if os.path.exists(cfg.vocab_path)
              else Vocab.identity(cfg.vocab_size))
     # seed 0, as the JAX CLI's test set (its `_load_dataset` default)
@@ -138,10 +167,16 @@ def cmd_evaluate(args) -> dict:
                                batches, vocab, cfg, gen, snrs=snrs,
                                pnr_db=args.pnr_db)
     else:
-        make = make_greedy_decode_kv_sweep if args.kv_cache \
-            else make_greedy_decode_sweep
-        table = snr_sweep_bleu_fast(timed(make(model, cfg)), batches, vocab,
-                                    cfg, gen, snrs=snrs, pnr_db=args.pnr_db)
+        # the KV decoder is autoregressive: a star decoder is decoded in one
+        # shot with or without --kv-cache, as the JAX CLI does
+        if star:
+            sweep = make_greedy_decode_sweep(model, cfg, "oneshot")
+        elif args.kv_cache:
+            sweep = make_greedy_decode_kv_sweep(model, cfg)
+        else:
+            sweep = make_greedy_decode_sweep(model, cfg)
+        table = snr_sweep_bleu_fast(timed(sweep), batches, vocab, cfg, gen,
+                                    snrs=snrs, pnr_db=args.pnr_db)
     for snr, bleu in table:
         print(f"SNR={snr:.0f}dB {bleu:.4f}")
     save_result_table(table, os.path.join(
@@ -166,11 +201,11 @@ def cmd_train(args) -> dict:
     host), "steps", "epoch_seconds", "sents_per_sec", "params_path",
     "device"}."""
     device = resolve_device(args.device)
-    cfg, model = load_model(config_from_args(args), args.params_pkl, device,
-                            args.seed)
+    cfg, model = load_model(variant_config(args), args.params_pkl, device,
+                            args.seed, args.variant)
     model.train()
     state = create_train_state(model, cfg)
-    step = make_train_step(model, cfg)
+    step = make_train_step(model, cfg, full_target=is_star(args.variant))
     ds = train_dataset(cfg.train_save_path, cfg.seq_len, cfg.vocab_size,
                        cfg.bs, args.seed)
     n_std = float(snr_to_noise(cfg.train_snr))
@@ -215,12 +250,12 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("evaluate")
     add_config_args(p)
-    p.add_argument("--variant", default="transformer",
-                   choices=["transformer"])
+    p.add_argument("--variant", default="transformer", choices=VARIANTS)
     p.add_argument("--eval-mode", default="greedy",
                    choices=["greedy", "beam"])
     p.add_argument("--kv-cache", action="store_true",
-                   help="greedy: the KV-cached decoder (same ids at f32)")
+                   help="greedy: the KV-cached decoder (same ids at f32; a "
+                        "star decoder is decoded in one shot either way)")
     p.add_argument("--beam-size", type=int, default=4)
     p.add_argument("--beam-impl", default="kv", choices=["kv", "full"],
                    help="beam: KV-cached (serving) or full-prefix (oracle)")
@@ -238,8 +273,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     t = sub.add_parser("train")
     add_config_args(t)
-    t.add_argument("--variant", default="transformer",
-                   choices=["transformer"])
+    t.add_argument("--variant", default="transformer", choices=VARIANTS)
     t.add_argument("--train-mode", default="plain", choices=["plain"])
     t.add_argument("--params-pkl", default=None,
                    help="start from these weights (results/*_params.pkl "

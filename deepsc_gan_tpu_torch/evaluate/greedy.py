@@ -1,12 +1,20 @@
-"""Greedy autoregressive decoding over a fixed output buffer (JAX package
-`evaluate/greedy.py:49-148`, position mode "step").
+"""Greedy decoding over a fixed output buffer (JAX package
+`evaluate/greedy.py:49-148`).
 
 Every sequence starts with <START>; the channel decoder runs once; then for
 each of max_length steps the combined causal + pad mask is rebuilt over the
 (B, max_length+1) buffer, the semantic decoder runs over the whole buffer,
-and the argmax of the vocab projection of position i becomes token i+1.
+and the argmax of the vocab projection of one position becomes token i+1.
 Future positions hold <PAD>, so the masks reproduce the reference's
-growing-prefix decode exactly.
+growing-prefix decode exactly. `position_mode` says which position:
+- "step" (the vanilla decoder, the default): position i at step i;
+- "last": the reference's `[:, -1:]` read, the last position of the
+  decoder's output at every step (on a star decoder, whose output has the
+  memory's length, always the same position);
+- "oneshot" (the star decoders): no loop; one decoder pass over the buffer
+  of <START> and <PAD>, the f32 vocab projection of every position and the
+  argmax of each: a star decoder's position i predicts token i from the
+  channel signal.
 
 The sweep decodes S noise levels at once. JAX vmaps the decode over the
 noise levels; here the S x B rows are one batch written out. The encoder
@@ -29,19 +37,35 @@ from deepsc_gan_tpu_torch.ops.masks import (
 from deepsc_gan_tpu_torch.utils.config import Config
 
 
+POSITION_MODES = ("step", "last", "oneshot")
+
+
 def _decode_loop(model, mem, enc_padding_mask, max_length: int,
-                 start_idx: int, pad_idx: int) -> torch.Tensor:
-    """-> (N, max_length+1) int32 ids decoded from memory `mem` (N, L, D)."""
+                 start_idx: int, pad_idx: int,
+                 position_mode: str = "step") -> torch.Tensor:
+    """-> (N, max_length+1) int32 ids decoded from memory `mem` (N, L, D)
+    (for "oneshot", the first max_length+1 of the decoder's positions)."""
+    if position_mode not in POSITION_MODES:
+        raise ValueError(f"position_mode {position_mode!r}: one of "
+                         f"{POSITION_MODES}")
     n = mem.shape[0]
     buf = torch.full((n, max_length + 1), pad_idx, dtype=torch.long,
                      device=mem.device)
     buf[:, 0] = start_idx
     causal = create_look_ahead_mask(max_length + 1, mem.device)
-    for i in range(max_length):
+
+    def decode():
         combined = torch.maximum(create_padding_mask(buf, pad_idx), causal)
-        h = model._semantic_decode(buf, mem, combined, enc_padding_mask,
-                                   apply_final=False)
-        logits = model.final_projection(h[:, i:i + 1, :])[:, 0]
+        return model._semantic_decode(buf, mem, combined, enc_padding_mask,
+                                      apply_final=False)
+
+    if position_mode == "oneshot":
+        ids = torch.argmax(model.final_projection(decode()), dim=-1)
+        return ids[:, :max_length + 1].to(torch.int32)
+    for i in range(max_length):
+        h = decode()
+        pos = i if position_mode == "step" else h.shape[1] - 1
+        logits = model.final_projection(h[:, pos:pos + 1, :])[:, 0]
         buf[:, i + 1] = torch.argmax(logits, dim=-1)
     return buf.to(torch.int32)
 
@@ -82,21 +106,24 @@ def noise_sweep(model, cfg: Config, loop: Callable) -> Callable:
     return sweep
 
 
-def _greedy_loop(model, cfg: Config) -> Callable:
+def _greedy_loop(model, cfg: Config, position_mode: str) -> Callable:
     return lambda mem, mask: _decode_loop(model, mem, mask, cfg.max_length,
-                                          cfg.start_idx, cfg.pad_idx)
+                                          cfg.start_idx, cfg.pad_idx,
+                                          position_mode)
 
 
-def make_greedy_decode(model, cfg: Config) -> Callable:
+def make_greedy_decode(model, cfg: Config,
+                       position_mode: str = "step") -> Callable:
     """Clean greedy decode at one noise level:
     `decode(inp, pnr_db, n_std, noise) -> (B, max_length+1) ids`, with
     `noise` the channel's standard-normal draw shaped like the transmitted
     symbols (B, L, channel_dim)."""
-    return single_level(model, cfg, _greedy_loop(model, cfg))
+    return single_level(model, cfg, _greedy_loop(model, cfg, position_mode))
 
 
-def make_greedy_decode_sweep(model, cfg: Config) -> Callable:
+def make_greedy_decode_sweep(model, cfg: Config,
+                             position_mode: str = "step") -> Callable:
     """Clean greedy decode across S noise levels in one call:
     `sweep(inp, pnr_db, n_stds[S], noise[S, B, L, channel_dim])
     -> (S, B, max_length+1) ids`."""
-    return noise_sweep(model, cfg, _greedy_loop(model, cfg))
+    return noise_sweep(model, cfg, _greedy_loop(model, cfg, position_mode))

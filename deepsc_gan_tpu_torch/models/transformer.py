@@ -148,7 +148,29 @@ class Encoder(nn.Module):
         return x
 
 
-class Decoder(nn.Module):
+class VocabProjection(nn.Module):
+    """The vocab projection of a decoder, in f32: tied to the decoder's
+    embedding table `embed` with a `final_bias`, or a separate Dense
+    `final_layer` (the names the flax trees use). Shared by the vanilla and
+    the star decoders."""
+
+    def _vocab_head(self, d_model: int, vocab_size: int,
+                    tie_embeddings: bool) -> None:
+        self.tie_embeddings = tie_embeddings
+        if tie_embeddings:
+            self.final_bias = nn.Parameter(torch.zeros(vocab_size))
+        else:
+            self.final_layer = nn.Linear(d_model, vocab_size)
+
+    def final_projection(self, x):
+        """Vocab logits in f32."""
+        if self.tie_embeddings:
+            return x.float() @ self.embed.embedding.weight.float().T \
+                + self.final_bias.float()
+        return self.final_layer(x.float())
+
+
+class Decoder(VocabProjection):
     """Embedding prologue + N decoder layers; `final_projection` is
     separate so greedy decoding projects only the position it reads."""
 
@@ -157,17 +179,13 @@ class Decoder(nn.Module):
                  tie_embeddings=False, dtype=torch.float32,
                  attention: Callable = fused_attention):
         super().__init__()
-        self.tie_embeddings = tie_embeddings
         self.embed = TokenEmbed(vocab_size, d_model, max_position, dtype,
                                 dropout_rate)
         self.layers = nn.ModuleList(
             DecoderLayer(d_model, num_heads, dff, dropout_rate, ffn_mode,
                          dtype, attention)
             for _ in range(num_layers))
-        if tie_embeddings:
-            self.final_bias = nn.Parameter(torch.zeros(vocab_size))
-        else:
-            self.final_layer = nn.Linear(d_model, vocab_size)
+        self._vocab_head(d_model, vocab_size, tie_embeddings)
 
     def forward(self, tokens, enc_output, look_ahead_mask, padding_mask,
                 apply_final: bool = True, gen: Gen = None):
@@ -175,10 +193,3 @@ class Decoder(nn.Module):
         for layer in self.layers:
             x = layer(x, enc_output, look_ahead_mask, padding_mask, gen)
         return self.final_projection(x) if apply_final else x
-
-    def final_projection(self, x):
-        """Vocab logits in f32."""
-        if self.tie_embeddings:
-            return x.float() @ self.embed.embedding.weight.float().T \
-                + self.final_bias.float()
-        return self.final_layer(x.float())

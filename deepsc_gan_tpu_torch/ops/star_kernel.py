@@ -1,0 +1,190 @@
+"""Star-Transformer satellite update: the CUDA kernel
+`csrc/star_satellite.cu` (K5, the port of the TPU kernel `_satellite_kernel`,
+deepsc_gan_tpu/ops/pallas/star.py:107), its wrapper and plain PyTorch
+version, the analytic backward, and the `torch.autograd.Function` that joins
+them as the TPU package's custom VJP does.
+
+`star_satellite(q, k_ctx, v_ctx, heads)` has the JAX signature
+(`star_satellite_attention`, star.py:185): q (B, L, D) projected queries,
+k_ctx and v_ctx (5, B, L, D) the projected keys and values of the five
+contexts {h_{i+1}, h_i, h_{i-1}, e_i, s} stacked by the caller. Per row and
+head it computes the scores q . k_j / sqrt(Dh) over the five contexts in
+f32, a softmax over the five and sum_j w_j v_j, returned as (B, L, D) in q's
+dtype. On CUDA tensors the wrapper launches the kernel (and counts the
+launch) or raises; on CPU tensors it runs the plain version, which is also
+what the kernel is held against on the card.
+
+The TPU backward is an analytic XLA VJP, not a Pallas kernel, so the
+backward here is plain PyTorch on every device (`satellite_backward`).
+`satellite_attention` is the Function through K5, `plain_satellite` the same
+Function through the plain version on any device (chip_smoke.py's yardstick
+for whole decodes and steps).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from deepsc_gan_tpu_torch.ops import build
+from deepsc_gan_tpu_torch.ops.ce_kernel import _on_cuda
+
+KERNEL = "star_satellite"
+CONTEXTS = 5
+# what the kernel takes (csrc/star_satellite.cu): a warp per row, each lane
+# holding D / 32 consecutive elements, so D is 32 x (2, 4 or 8); a head's
+# Dh elements span a power of two of lanes
+WIDTHS = (64, 128, 256)
+
+# Launches of K5 since the last reset (the wrapper adds one per launch and
+# nowhere else); read by chip_smoke.py to show that a path went through it.
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _split(x, heads):
+    """(..., D) -> (..., H, Dh) in f32."""
+    return x.reshape(*x.shape[:-1], heads, x.shape[-1] // heads).float()
+
+
+def _weights(qh, kh):
+    """Softmax over the contexts (axis 0) of q . k_j / sqrt(Dh):
+    (5, ..., H) f32."""
+    scores = (qh[None] * kh).sum(dim=-1) / math.sqrt(qh.shape[-1])
+    return torch.softmax(scores, dim=0)
+
+
+def satellite_reference(q2, k2, v2, heads: int):
+    """Plain PyTorch version of K5 (`_xla_satellite`, star.py:252): q2
+    (N, D), k2 and v2 (5, N, D) -> (N, D) in q2's dtype."""
+    w = _weights(_split(q2, heads), _split(k2, heads))
+    out = (w[..., None] * _split(v2, heads)).sum(dim=0)
+    return out.reshape(q2.shape).to(q2.dtype)
+
+
+def _plain(q, k_ctx, v_ctx, heads: int):
+    """`satellite_reference` in the wrapper's layout: q (B, L, D), k_ctx and
+    v_ctx (5, B, L, D) -> (B, L, D)."""
+    n = q.shape[0] * q.shape[1]
+    return satellite_reference(
+        q.reshape(n, -1), k_ctx.reshape(CONTEXTS, n, -1),
+        v_ctx.reshape(CONTEXTS, n, -1), heads).reshape(q.shape)
+
+
+def satellite_backward(q, k_ctx, v_ctx, g, heads: int):
+    """The analytic VJP (`_star_bwd`, star.py:218-246), in f32 with the
+    weights recomputed: dv_j = w_j g; a_j = g . v_j per head;
+    ds_j = w_j (a_j - sum_i w_i a_i); dq = sum_j ds_j k_j / sqrt(Dh);
+    dk_j = ds_j q / sqrt(Dh). -> (dq, dk, dv) in the inputs' dtypes."""
+    qh, kh, vh, gh = (_split(t, heads) for t in (q, k_ctx, v_ctx, g))
+    scale = 1.0 / math.sqrt(qh.shape[-1])
+    w = _weights(qh, kh)
+    dv = w[..., None] * gh[None]
+    a = (gh[None] * vh).sum(dim=-1)
+    ds = w * (a - (w * a).sum(dim=0, keepdim=True))
+    dq = (ds[..., None] * kh).sum(dim=0) * scale
+    dk = ds[..., None] * qh[None] * scale
+    return (dq.reshape(q.shape).to(q.dtype),
+            dk.reshape(k_ctx.shape).to(k_ctx.dtype),
+            dv.reshape(v_ctx.shape).to(v_ctx.dtype))
+
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_BOUND = {}
+
+
+def _bind(dtype):
+    """The built library's launch function for `dtype`, with its ctypes
+    signature declared."""
+    if dtype not in _BOUND:
+        fn = getattr(build.load(KERNEL), f"deepsc_star_satellite_"
+                                         f"{_SUFFIX[dtype]}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BOUND[dtype] = fn
+    return _BOUND[dtype]
+
+
+def _check(q, k_ctx, v_ctx, heads):
+    """What the kernel takes: q (B, L, D) and k_ctx, v_ctx (5, B, L, D) of
+    one dtype, f32 or bf16; D in WIDTHS and a head width Dh that is a power
+    of two of at least D / 32; all contiguous, 16-byte aligned, on q's
+    device. Any B * L."""
+    if q.dtype not in _SUFFIX or k_ctx.dtype != q.dtype \
+            or v_ctx.dtype != q.dtype:
+        raise TypeError(f"K5 takes q, k_ctx and v_ctx of one dtype, float32 "
+                        f"or bfloat16, not {q.dtype}, {k_ctx.dtype} and "
+                        f"{v_ctx.dtype}")
+    if q.dim() != 3 or k_ctx.shape != (CONTEXTS, *q.shape) \
+            or v_ctx.shape != k_ctx.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k_ctx "
+                         f"{tuple(k_ctx.shape)} v_ctx {tuple(v_ctx.shape)} "
+                         f"(want (B, L, D) and (5, B, L, D))")
+    d = q.shape[-1]
+    dh = d // heads if heads > 0 and d % heads == 0 else 0
+    if d not in WIDTHS or dh < d // 32 or dh & (dh - 1):
+        raise ValueError(f"D {d} with {heads} heads: K5 takes D in {WIDTHS} "
+                         f"and a head width that is a power of two of at "
+                         f"least D / 32")
+    for name, t in (("q", q), ("k_ctx", k_ctx), ("v_ctx", v_ctx)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def star_satellite(q, k_ctx, v_ctx, heads: int):
+    """K5's wrapper: the satellite update, (B, L, D) in q's dtype; see the
+    module docstring."""
+    if not _on_cuda(q):
+        return _plain(q, k_ctx, v_ctx, heads)
+    _check(q, k_ctx, v_ctx, heads)
+    b, length, d = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bind(q.dtype)(q.data_ptr(), k_ctx.data_ptr(), v_ctx.data_ptr(),
+                         out.data_ptr(), b * length, d, heads, stream)
+    if err != 0:
+        raise RuntimeError(f"K5 launch failed: CUDA error {err}")
+    global launches
+    launches += 1
+    return out
+
+
+class SatelliteAttention(torch.autograd.Function):
+    """Forward K5 (or the plain version when `plain`), backward
+    `satellite_backward`, saving q, k_ctx and v_ctx as the TPU package's
+    custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k_ctx, v_ctx, heads, plain):
+        ctx.save_for_backward(q, k_ctx, v_ctx)
+        ctx.heads = heads
+        return (_plain if plain else star_satellite)(q, k_ctx, v_ctx, heads)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k_ctx, v_ctx = ctx.saved_tensors
+        dq, dk, dv = satellite_backward(q, k_ctx, v_ctx, g, ctx.heads)
+        return dq, dk, dv, None, None
+
+
+def satellite_attention(q, k_ctx, v_ctx, heads: int):
+    """The satellite update through K5, with `satellite_backward` as its
+    backward."""
+    return SatelliteAttention.apply(q, k_ctx, v_ctx, heads, False)
+
+
+def plain_satellite(q, k_ctx, v_ctx, heads: int):
+    """`satellite_attention` through the plain version on any device."""
+    return SatelliteAttention.apply(q, k_ctx, v_ctx, heads, True)

@@ -161,19 +161,24 @@ def make_forward_loss(model: nn.Module, cfg: Config, lkw: dict,
     return forward_loss
 
 
-def make_train_step(model: nn.Module, cfg: Config,
-                    plain: bool = False) -> Callable:
+def make_train_step(model: nn.Module, cfg: Config, plain: bool = False,
+                    full_target: bool = False) -> Callable:
     """-> `step(state, inp, tar, gen, n_std, noise=None) -> (state, loss)`:
     one plain teacher-forced update in place (PNR 0, no perturbation). The
     gradients stay on the parameters until the next step. `noise` is the
     channel's standard normal (B, L, channel_dim), drawn from `gen` when
     not given. `plain` takes the CE through its plain versions (the
-    attention's are chosen when the model is built)."""
+    attention's and the satellite update's are chosen when the model is
+    built). `full_target` scores against the un-shifted target, as the star
+    decoders need (their output has the memory's length); the decoder
+    still reads the shifted `tar[:, :-1]`."""
     lkw = _loss_kwargs(cfg)
     forward_loss = make_forward_loss(model, cfg, lkw, plain)
 
     def step(state: TrainState, inp, tar, gen, n_std, noise=None):
         tar_inp, tar_real = _shift_targets(tar)
+        if full_target:
+            tar_real = tar
         enc_mask, combined_mask, dec_mask = create_masks(inp, tar_inp,
                                                          cfg.pad_idx)
         n_std_t = _step_noise(cfg, gen, n_std, inp.device)

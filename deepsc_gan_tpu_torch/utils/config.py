@@ -1,6 +1,6 @@
 """Configuration of the port: the fields of the JAX package's `Config`
-that the serving path and the plain training path read, with the same
-names and defaults.
+that the serving paths and the plain training path read, with the same
+names and defaults, and the padded length of each model variant.
 
 A frozen dataclass like the JAX package's (`deepsc_gan_tpu/utils/config.py`),
 kept as the port's own copy so the port imports nothing of that package.
@@ -45,6 +45,10 @@ class Config:
     decoder_d_ff: int = 512
     decoder_num_heads: int = 8
     decoder_dropout: float = 0.1
+    # Star codec: ring + relay cycles per layer (`cycle_layers` is carried
+    # as the JAX package carries it; nothing reads it)
+    cycle_num: int = 8
+    cycle_layers: int = 8
 
     # --- channel codec
     channel_hidden: int = 256
@@ -93,11 +97,23 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+def default_seq_len(variant: str) -> int:
+    """Padded sentence length of a model variant (JAX package
+    `utils/config.py:174`): 31 for the star codecs (31 satellites and the
+    relay), 32 for the others."""
+    return 31 if "star" in variant else 32
+
+
 def add_config_args(parser: argparse.ArgumentParser) -> None:
-    """Register every Config field as a --flag (dashes for underscores)."""
+    """Register every Config field as a --flag (dashes for underscores).
+    `--seq-len` defaults to None: a command that knows its variant resolves
+    it with `default_seq_len`, else `config_from_args` takes the dataclass
+    default."""
     for f in dataclasses.fields(Config):
         name = "--" + f.name.replace("_", "-")
-        if isinstance(f.default, bool):
+        if f.name == "seq_len":
+            parser.add_argument(name, type=int, default=None)
+        elif isinstance(f.default, bool):
             parser.add_argument(name, action=argparse.BooleanOptionalAction,
                                 default=f.default)
         else:
@@ -106,7 +122,10 @@ def add_config_args(parser: argparse.ArgumentParser) -> None:
 
 def config_from_args(args: argparse.Namespace) -> Config:
     names = {f.name for f in dataclasses.fields(Config)}
-    return Config(**{k: v for k, v in vars(args).items() if k in names})
+    kw = {k: v for k, v in vars(args).items() if k in names}
+    if kw.get("seq_len") is None:
+        kw.pop("seq_len", None)
+    return Config(**kw)
 
 
 def torch_dtype(name: str) -> torch.dtype:

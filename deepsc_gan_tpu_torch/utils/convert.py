@@ -5,10 +5,13 @@ Layouts (JAX package `ops/attention.py`, `models/transformer.py`,
 `train/steps.py:137-148`):
 - a Dense kernel (in, out) is an `nn.Linear` weight (out, in);
 - the attention kernels `wq/wk/wv` (D, H, Dh) are weights (H*Dh, D), the
-  output kernel `out` (H, Dh, D) a weight (D, H*Dh) with its bias;
+  output kernel `out` (H, Dh, D) a weight (D, H*Dh) with its bias: in the
+  vanilla `*mha` modules and in the star banks (`att_satellite`,
+  `att_relay`, `multi_tar`) alike;
 - LayerNorm `scale` is `weight`; the embedding `embed/embedding/embedding`
   is `embed.embedding.weight`;
-- flax's `layer{i}` is the port's `layers.{i}`;
+- flax's `layer{i}` is the port's `layers.{i}` (the single-block star
+  codec's `block` keeps its name);
 - a tied decoder has `final_bias` (and projects with the embedding table),
   an untied one a `final_layer` Dense.
 
@@ -91,6 +94,10 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor], cfg: Config) -> dict:
     """The inverse of `flax_to_state_dict` (f32 numpy leaves); `cfg` gives
     the head counts that split the attention kernels."""
     tree: dict = {}
+    # an `out` kernel belongs to an attention module when its module also
+    # holds `wq`
+    attn_modules = {n[:-len(".wq.weight")] for n in sd
+                    if n.endswith(".wq.weight")}
     for name, t in sd.items():
         a = t.detach().float().cpu().numpy()
         parts = name.split(".")
@@ -113,7 +120,8 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor], cfg: Config) -> dict:
                      else cfg.decoder_num_heads)
             if path[-2] in _ATTN_IN:      # (H*Dh, D) -> (D, H, Dh)
                 a = a.T.reshape(a.shape[1], heads, -1)
-            elif path[-2] == "out" and path[-3].endswith("mha"):
+            elif path[-2] == "out" and name.rsplit(".", 2)[0] \
+                    in attn_modules:      # (D, H*Dh) -> (H, Dh, D)
                 a = a.T.reshape(heads, -1, a.shape[0])
             else:
                 a = a.T

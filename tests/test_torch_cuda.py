@@ -17,6 +17,7 @@ from deepsc_gan_tpu_torch.evaluate.greedy import make_greedy_decode_sweep
 from deepsc_gan_tpu_torch.models.transceiver import make_model
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
+from deepsc_gan_tpu_torch.ops import star_kernel as star
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk
 from deepsc_gan_tpu_torch.train import steps
 from deepsc_gan_tpu_torch.utils.config import Config
@@ -254,3 +255,87 @@ def test_tiny_beam_kernel_ids_equal_plain_ids(cuda):
                                                          noise)
     assert topk.launches == TINY.max_length
     assert torch.equal(ids_k, ids_p)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("b,l,d,h", [(64, 31, 128, 8), (1216, 31, 128, 8),
+                                     (1, 1987, 128, 8), (3, 5, 64, 4),
+                                     (2, 9, 256, 8), (2, 7, 128, 32)])
+def test_star_kernel_matches_plain_version(cuda, dtype, tol, b, l, d, h):
+    """K5 against its plain version at the star paths' shapes (the train
+    step's and the sweep decoder's N = 64 x 31 and 19 x 64 x 31), at a row
+    count that is not a multiple of the 8 rows per block, and at the other
+    widths and head layouts it takes."""
+    gen = torch.Generator(cuda).manual_seed(9)
+    q = torch.randn((b, l, d), device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn((5, b, l, d), device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    star.reset_launches()
+    out = star.star_satellite(q, k, v, h)
+    ref = star.satellite_reference(q.reshape(b * l, d),
+                                   k.reshape(5, b * l, d),
+                                   v.reshape(5, b * l, d), h)
+    torch.cuda.synchronize()
+    assert star.launches == 1
+    assert out.shape == q.shape and out.dtype == dtype
+    assert _err(out.reshape(b * l, d), ref) <= tol
+
+
+def test_star_wrapper_raises_on_an_unsupported_shape(cuda):
+    q = torch.randn((2, 4, 128), device=cuda)
+    k = torch.randn((5, 2, 4, 128), device=cuda)
+    with pytest.raises(ValueError, match="K5 takes D"):
+        star.star_satellite(q, k, k, 64)        # Dh 2: under D / 32
+    with pytest.raises(ValueError, match="K5 takes D"):
+        star.star_satellite(q[..., :96].contiguous(),
+                            k[..., :96].contiguous(),
+                            k[..., :96].contiguous(), 6)   # D 96
+    with pytest.raises(ValueError, match="shapes"):
+        star.star_satellite(q, k[:4], k[:4], 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        star.star_satellite(q, k.transpose(1, 2).contiguous()
+                            .transpose(1, 2), k, 8)
+    with pytest.raises(TypeError, match="dtype"):
+        star.star_satellite(q.half(), k.half(), k.half(), 8)
+
+
+TINY_STAR = TINY.replace(encoder_d_model=64, decoder_d_model=64,
+                         encoder_num_heads=4, decoder_num_heads=4,
+                         cycle_num=2)
+
+
+@pytest.mark.parametrize("variant", ["star", "star_multi"])
+def test_tiny_star_train_step_kernel_equals_plain_step(cuda, variant):
+    """One f32 star step at small widths (D = 64, the narrowest K5 takes)
+    through K5 and the CE kernels and through the plain versions, same
+    weights, noise and dropout masks: the loss within rtol 1e-5, every
+    gradient within 1e-4 of the largest reference gradient."""
+    cfg = TINY_STAR.replace(bs=8)
+    rng = np.random.default_rng(6)
+    inp = torch.from_numpy(rng.integers(4, 40, (8, 12))).to(cuda)
+    inp[:, 0] = 1
+    inp[:, 9:] = 0
+    losses, models = [], []
+    for plain in (False, True):
+        satellite = star.plain_satellite if plain else star.satellite_attention
+        model = steps.init_params(make_model(cfg, variant,
+                                             satellite=satellite), 3)
+        model = model.to(cuda).train()
+        state = steps.create_train_state(model, cfg)
+        step = steps.make_train_step(model, cfg, plain=plain,
+                                     full_target=True)
+        star.reset_launches()
+        ce.reset_launches()
+        gen = torch.Generator(cuda).manual_seed(7)
+        _, loss = step(state, inp, inp, gen, 0.5)
+        torch.cuda.synchronize()
+        layers = 1 if variant == "star" else cfg.encoder_num_layer
+        want = (0, 0, 0) if plain else (2 * layers * cfg.cycle_num, 1, 1)
+        assert (star.launches, ce.fwd_launches, ce.bwd_launches) == want
+        losses.append(loss.item())
+        models.append(model)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    for (name, a), b in zip(models[0].named_parameters(),
+                            models[1].parameters()):
+        assert _err(a.grad, b.grad, relative=True) <= 1e-4, name

@@ -43,18 +43,20 @@ TINY_FLAGS = ["--vocab-size", "40", "--seq-len", "12", "--max-length", "11",
               "--channel-dec-hidden", "32", "--dtype", "float32"]
 
 
-def _both_sweeps(jcfg, jmodel, params, inp, snrs, seed):
+def _both_sweeps(jcfg, jmodel, params, inp, snrs, seed,
+                 variant="transformer", position_mode="step"):
     """(JAX ids, port ids), each (S, B, max_length+1)."""
     key = jax.random.PRNGKey(seed)
     n_stds = np.asarray([jax_snr_to_noise(s) for s in snrs], np.float32)
-    want = np.asarray(jax_make_sweep(jmodel, jcfg)(
+    want = np.asarray(jax_make_sweep(jmodel, jcfg,
+                                     position_mode=position_mode)(
         params, jnp.asarray(inp), key, 0.0, jnp.asarray(n_stds)))
     shape = (inp.shape[0], jcfg.seq_len, jcfg.channel_dim)
     noise = np.stack([np.asarray(jax.random.normal(k, shape, jnp.float32))
                       for k in jax.random.split(key, len(snrs))])
     tcfg = port_config(jcfg)
-    model = convert.load_into(make_model(tcfg), params).eval()
-    got = make_greedy_decode_sweep(model, tcfg)(
+    model = convert.load_into(make_model(tcfg, variant), params).eval()
+    got = make_greedy_decode_sweep(model, tcfg, position_mode)(
         torch.tensor(inp, dtype=torch.long), 0.0, torch.from_numpy(n_stds),
         torch.tensor(noise)).numpy()
     return want, got

@@ -28,6 +28,8 @@ def _port_modules():
 def test_port_and_chip_smoke_import_no_jax():
     mods = _port_modules() + ["chip_smoke"]
     assert "deepsc_gan_tpu_torch.ops.attention_kernel" in mods
+    assert "deepsc_gan_tpu_torch.ops.star_kernel" in mods
+    assert "deepsc_gan_tpu_torch.models.star" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

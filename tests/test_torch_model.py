@@ -33,11 +33,11 @@ def port_config(jax_cfg, **kw) -> TorchConfig:
     return TorchConfig(**fields)
 
 
-def flax_params(cfg, seed: int = 0):
-    """(flax model, params) for `cfg`: flax's init, then every leaf moved
-    by N(0, 0.1) noise from numpy so biases, LayerNorm scales and the tied
-    decoder's final bias are not at their trivial init values."""
-    model = make_flax_model(cfg, "transformer")
+def flax_params(cfg, seed: int = 0, variant: str = "transformer"):
+    """(flax model, params) of `variant` for `cfg`: flax's init, then every
+    leaf moved by N(0, 0.1) noise from numpy so biases, LayerNorm scales and
+    the tied decoder's final bias are not at their trivial init values."""
+    model = make_flax_model(cfg, variant)
     inp = jnp.zeros((2, cfg.seq_len), jnp.int32)
     tar = jnp.zeros((2, cfg.seq_len - 1), jnp.int32)
     p = jnp.zeros((2, cfg.seq_len, cfg.channel_dim), jnp.float32)
