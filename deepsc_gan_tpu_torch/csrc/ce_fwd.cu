@@ -7,30 +7,42 @@
 //     lse_n = log sum_v exp(h_n . W_v + b_v),   ce_n = lse_n - (h_n . W_y + b_y)
 // with f32 products and sums of operands in h's type (f32, or bf16 on the
 // training path). The (N, V) logits never reach device memory: each block
-// recomputes 64 x 64 tiles of them in registers and keeps a running max and
-// a rescaled sum of exponentials, as the TPU kernel does over its vocab grid
+// recomputes tiles of them in registers and keeps a running max and a
+// rescaled sum of exponentials, as the TPU kernel does over its vocab grid
 // axis. The TPU kernel pads W and b to a whole number of vocab tiles (bias
 // -1e30 on the padding, a copy of the table per call); here the last tile
-// is bound-checked instead, which gives the same sums: a padded column adds
+// is masked instead, which gives the same sums: a padded column adds
 // exp(-1e30 - m) = 0.
 //
 // What bounds it: operations. At the training path (N = 64 x 31 = 1,984,
 // D = 128, V = 22,234, bf16) one call does 2 N D V = 11.3 GFLOP (11 us at
-// the bf16 tensor-core rate) and reads 6.2 MB (2 us at 3.35 TB/s). This
-// first version multiplies on the f32 CUDA cores (67 TFLOP/s: 0.17 ms at
-// best); tensor cores (wgmma) are later work.
+// the bf16 tensor-core rate) and N V = 44 M exponentials (about 11 us on
+// the SFUs), and reads 6.2 MB (2 us at 3.35 TB/s).
 //
 // Design: the TPU kernel's grid runs its vocab axis in order on one core;
 // here blocks run in parallel, so the vocab axis is cut into `splits`
-// contiguous ranges. Block (row tile, split) stages its 64 rows of h once,
-// walks its range of 64-row vocab tiles of W through shared memory, and
-// each thread keeps, for its 4 rows, a running max, sum of exponentials and
-// gold logit over the columns it owns. The 16 partials of a row are merged
-// in the block, and one (max, sum, gold) per (split, row) goes to a
-// workspace; a second kernel merges the splits of each row in order and
-// writes ce and lse. No atomics: the result is deterministic.
+// contiguous ranges. Block (row tile, split) keeps its 64 rows of h and
+// walks its range of vocab tiles; one (max, sum, gold) per (split, row)
+// goes to a workspace, and a second kernel merges the splits of each row in
+// order and writes ce and lse. No atomics: the result is deterministic.
+// Each dtype has one kernel:
+// - bf16, tensor cores (csrc/wgmma_tile.cuh): one warpgroup per block. The
+//   h tile stays in shared memory; vocab tiles of 128 rows of W stream
+//   through a two-stage ring filled by the TMA, one mbarrier per stage. The
+//   logits S = h_t . W_t^T (64 x 128, f32) come from wgmma m64n128k16 over
+//   D; the bias, the running max, the rescaled sum of exponentials (ex2 on
+//   log2e-scaled values) and the gold logit are taken in registers, each
+//   thread over the columns it holds of its two rows, and the four threads
+//   of a quad (one row) are merged by shuffles once at the end. The next
+//   tile's TMA load runs under this tile's epilogue, and two blocks share an
+//   SM, so one block's exponentials run under the other's products.
+// - f32, CUDA cores (exact f32 products, which the f32 step-parity checks
+//   need): 256 threads stage both tiles in shared memory (csrc/ce_tile.cuh)
+//   and each thread keeps the softmax state of a 4 x 4 patch of 64 x 64
+//   logits; the 16 partials of a row are merged in the block.
 
 #include "ce_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -39,9 +51,10 @@ using ce::NEG;
 using ce::TN;
 using ce::TV;
 
-template <typename T>
+// ---- f32: CUDA cores ----
+
 __global__ void __launch_bounds__(kThreads)
-ce_fwd_partial_kernel(const T* __restrict__ h, const T* __restrict__ w,
+ce_fwd_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
                       const float* __restrict__ b,
                       const int* __restrict__ labels,
                       float* __restrict__ part, int n, int d, int v,
@@ -158,34 +171,203 @@ __global__ void ce_fwd_combine_kernel(const float* __restrict__ part,
   ce_out[row] = lse - gg;
 }
 
-size_t smem_bytes(int d) {
+// ---- bf16: tensor cores ----
+
+constexpr int kTV16 = 128;   // vocab rows per tile: wgmma N
+constexpr int kStages = 2;   // ring of vocab tiles
+
+// One thread's online-softmax state: rows r and r + 8 of the row tile, over
+// its columns 8 q + 2 (lane % 4) + e (q < 16, e < 2) of each vocab tile.
+struct Softmax {
+  int lab[2];
+  float m[2], s[2], gold[2];
+
+  // folds in the logits acc (64 x 128 accumulator, bias added in place) of
+  // the vocab tile at col0; c0 = col0 + 2 (lane % 4); columns from `lim` on
+  // (a ragged last tile) are left out
+  template <bool kRagged>
+  __device__ __forceinline__ void add(float (&acc)[64], const float* bias,
+                                      int col0, int c0, int lim) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float cm = NEG;
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = acc[4 * q + 2 * i + e];
+          x += bias[2 * q + e];
+          if (kRagged && c0 + 8 * q + e >= lim) x = -INFINITY;
+          cm = fmaxf(cm, x);
+        }
+      const float mn = fmaxf(m[i], cm);
+      const float mn2 = mn * wg::kLog2e;
+      float se = 0.f;
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          se += wg::exp2_approx(
+              fmaf(acc[4 * q + 2 * i + e], wg::kLog2e, -mn2));
+      s[i] = s[i] * wg::exp2_approx((m[i] - mn) * wg::kLog2e) + se;
+      m[i] = mn;
+      if (lab[i] >= col0 && lab[i] < col0 + kTV16) {
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (c0 + 8 * q + e == lab[i]) gold[i] = acc[4 * q + 2 * i + e];
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(wg::kThreads)
+ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap hmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const float* __restrict__ b,
+                    const int* __restrict__ labels,
+                    float* __restrict__ part, int n, int d, int v,
+                    int tiles_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar[kStages + 1];  // the ring's stages, then h
+  uint8_t* hs = wg::align_1024(smem_raw);
+  uint8_t* ring = hs + wg::tile_bytes(wg::kRows, d);
+  const int stage_bytes = wg::tile_bytes(kTV16, d);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * wg::kRows;
+  const int split = blockIdx.y;
+  const int nvt = (v + kTV16 - 1) / kTV16;
+  const int t0 = split * tiles_per_split;
+  const int count = min(t0 + tiles_per_split, nvt) - t0;
+
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) wg::mbar_init(&bar[i], 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    wg::load_tile(hs, &hmap, &bar[kStages], row0, wg::kRows, d);
+    for (int i = 0; i < kStages && i < count; ++i)
+      wg::load_tile(ring + i * stage_bytes, &wmap, &bar[i],
+                    (t0 + i) * kTV16, kTV16, d);
+  }
+
+  const int r = (tid >> 5) * 16 + (lane >> 2);
+  Softmax sm;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r + 8 * i;
+    sm.lab[i] = row < n ? labels[row] : -1;
+    sm.m[i] = NEG;
+    sm.s[i] = 0.f;
+    sm.gold[i] = 0.f;
+  }
+
+  wg::mbar_wait(&bar[kStages], 0);
+  const uint32_t h_addr = wg::smem_u32(hs);
+  for (int it = 0; it < count; ++it) {
+    const int col0 = (t0 + it) * kTV16;
+    const int c0 = col0 + 2 * (lane & 3);
+    float bias[32];  // 8-byte loads (c0 is even) but on a ragged tile
+    if (col0 + kTV16 <= v) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const float2 x = __ldg(reinterpret_cast<const float2*>(c0 + 8 * q + b));
+        bias[2 * q] = x.x;
+        bias[2 * q + 1] = x.y;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * q + e;
+          bias[2 * q + e] = c < v ? __ldg(b + c) : 0.f;
+        }
+    }
+    uint8_t* ws = ring + (it % kStages) * stage_bytes;
+    wg::mbar_wait(&bar[it % kStages], (it / kStages) & 1);
+    float acc[64];
+    wg::logits<kTV16, wg::kMaxSlabs>(acc, h_addr, wg::smem_u32(ws), d);
+    __syncthreads();  // every warp's products have read the stage
+    if (tid == 0 && it + kStages < count)
+      wg::load_tile(ws, &wmap, &bar[it % kStages],
+                    (t0 + it + kStages) * kTV16, kTV16, d);
+    if (col0 + kTV16 <= v)
+      sm.add<false>(acc, bias, col0, c0, v);
+    else
+      sm.add<true>(acc, bias, col0, c0, v);
+  }
+
+  // merge the four threads of each row (lanes 4 g .. 4 g + 3), in the same
+  // butterfly order in every run
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, sm.m[i], off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, sm.s[i], off);
+      const float g2 = __shfl_xor_sync(0xffffffffu, sm.gold[i], off);
+      const float mn = fmaxf(sm.m[i], m2);
+      sm.s[i] = sm.s[i] * wg::exp2_approx((sm.m[i] - mn) * wg::kLog2e) +
+                s2 * wg::exp2_approx((m2 - mn) * wg::kLog2e);
+      sm.gold[i] += g2;
+      sm.m[i] = mn;
+    }
+    const int row = row0 + r + 8 * i;
+    if ((lane & 3) == 0 && row < n) {
+      float* out = part + ((size_t)split * n + row) * 3;
+      out[0] = sm.m[i];
+      out[1] = sm.s[i];
+      out[2] = sm.gold[i];
+    }
+  }
+}
+
+size_t smem_bytes_f32(int d) {
   return sizeof(float) * ((size_t)(TN + TV) * (d + 1) + 3 * TN * 16);
 }
 
-template <typename T>
-int launch(const void* h, const void* w, const void* b, const void* labels,
-           void* ce_out, void* lse_out, void* part, int n, int d, int v,
-           int splits, void* stream) {
-  if (n <= 0 || v <= 0 || d <= 0 || d > ce::kMaxD ||
-      d % (16 / (int)sizeof(T)) || splits <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int nvt = (v + TV - 1) / TV;
+size_t smem_bytes_bf16(int d) {
+  return 1024 + (size_t)wg::tile_bytes(wg::kRows, d) +
+         (size_t)kStages * wg::tile_bytes(kTV16, d);
+}
+
+// vocab tiles per split for `splits` splits of tiles of `tv` rows, or -1
+// when the arguments are bad or a split would own no tile
+int split_tiles(int n, int d, int v, int splits, int tv) {
+  if (n <= 0 || v <= 0 || d <= 0 || d > ce::kMaxD || splits <= 0) return -1;
+  const int nvt = (v + tv - 1) / tv;
   const int tps = (nvt + splits - 1) / splits;
-  if ((splits - 1) * tps >= nvt) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ce_fwd_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((n + TN - 1) / TN, splits);
-  cudaStream_t st = (cudaStream_t)stream;
-  ce_fwd_partial_kernel<T><<<grid, kThreads, smem, st>>>(
-      (const T*)h, (const T*)w, (const float*)b, (const int*)labels,
-      (float*)part, n, d, v, tps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (splits - 1) * tps >= nvt ? -1 : tps;
+}
+
+int set_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// What the wrapper cuts the vocab into splits by, into out[3]: `rows` of
+// h per tile, `vocab_rows` of W per tile, and how many blocks of the
+// partial kernel `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) fit an SM, from the occupancy calculator. 0 on success, else a
+// CUDA error.
+int tiling(const void* kernel, int threads, size_t smem, int rows,
+           int vocab_rows, int* out) {
+  const int err = set_smem(kernel, smem);
+  if (err) return err;
+  out[0] = rows;
+  out[1] = vocab_rows;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                            threads, smem);
+}
+
+int combine(const void* part, void* ce_out, void* lse_out, int n, int splits,
+            cudaStream_t st) {
   ce_fwd_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(
       (const float*)part, (float*)ce_out, (float*)lse_out, n, splits);
   return (int)cudaGetLastError();
@@ -196,27 +378,72 @@ int launch(const void* h, const void* w, const void* b, const void* labels,
 extern "C" {
 
 // Bytes of dynamic shared memory one block of the partial kernel needs.
-size_t deepsc_ce_fwd_smem_bytes(int d) { return smem_bytes(d); }
+size_t deepsc_ce_fwd_smem_bytes_f32(int d) { return smem_bytes_f32(d); }
+size_t deepsc_ce_fwd_smem_bytes_bf16(int d) { return smem_bytes_bf16(d); }
 
-// h: contiguous f32 (N, D); w: contiguous f32 (V, D); b: f32 (V); labels:
-// int32 (N); ce_out, lse_out: f32 (N); part: f32 workspace (splits, N, 3).
-// Every split must own at least one vocab tile of 64 rows. Returns
-// cudaGetLastError() after the launches (0 = success).
+// The splits' terms at width d, out[3] as `tiling` fills it for the
+// partial kernel of the dtype on the current device.
+int deepsc_ce_fwd_tiling_f32(int d, int* out) {
+  if (d <= 0 || d > ce::kMaxD || d % 4) return (int)cudaErrorInvalidValue;
+  return tiling((const void*)ce_fwd_partial_kernel, kThreads,
+                smem_bytes_f32(d), TN, TV, out);
+}
+
+int deepsc_ce_fwd_tiling_bf16(int d, int* out) {
+  if (d <= 0 || d > ce::kMaxD || d % 16) return (int)cudaErrorInvalidValue;
+  return tiling((const void*)ce_fwd_wgmma_kernel, wg::kThreads,
+                smem_bytes_bf16(d), wg::kRows, kTV16, out);
+}
+
+// h: contiguous f32 (N, D), D a multiple of 4 up to 256; w: contiguous f32
+// (V, D); b: f32 (V); labels: int32 (N); ce_out, lse_out: f32 (N); part:
+// f32 workspace (splits, N, 3). Every split must own at least one vocab
+// tile of 64 rows. Returns cudaGetLastError() after the launches (0 =
+// success).
 int deepsc_ce_fwd_f32(const void* h, const void* w, const void* b,
                       const void* labels, void* ce_out, void* lse_out,
                       void* part, int n, int d, int v, int splits,
                       void* stream) {
-  return launch<float>(h, w, b, labels, ce_out, lse_out, part, n, d, v,
-                       splits, stream);
+  const int tps = split_tiles(n, d, v, splits, TV);
+  if (tps < 0 || d % 4) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes_f32(d);
+  int err = set_smem((const void*)ce_fwd_partial_kernel, smem);
+  if (err) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  ce_fwd_partial_kernel<<<dim3((n + TN - 1) / TN, splits), kThreads, smem,
+                          st>>>((const float*)h, (const float*)w,
+                                (const float*)b, (const int*)labels,
+                                (float*)part, n, d, v, tps);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return combine(part, ce_out, lse_out, n, splits, st);
 }
 
-// As above with h and w in bf16.
+// As above with h and w in bf16 and D a multiple of 16 up to 256 (one
+// wgmma k-step is 16 columns); every split owns at least one vocab tile of
+// 128 rows.
 int deepsc_ce_fwd_bf16(const void* h, const void* w, const void* b,
                        const void* labels, void* ce_out, void* lse_out,
                        void* part, int n, int d, int v, int splits,
                        void* stream) {
-  return launch<__nv_bfloat16>(h, w, b, labels, ce_out, lse_out, part, n, d,
-                               v, splits, stream);
+  const int tps = split_tiles(n, d, v, splits, kTV16);
+  if (tps < 0 || d % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap hmap, wmap;
+  int err = wg::make_map(&hmap, h, n, d, wg::kRows);
+  if (err) return err;
+  err = wg::make_map(&wmap, w, v, d, kTV16);
+  if (err) return err;
+  const size_t smem = smem_bytes_bf16(d);
+  err = set_smem((const void*)ce_fwd_wgmma_kernel, smem);
+  if (err) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  ce_fwd_wgmma_kernel<<<dim3((n + wg::kRows - 1) / wg::kRows, splits),
+                        wg::kThreads, smem, st>>>(
+      hmap, wmap, (const float*)b, (const int*)labels, (float*)part, n, d,
+      v, tps);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return combine(part, ce_out, lse_out, n, splits, st);
 }
 
 }  // extern "C"

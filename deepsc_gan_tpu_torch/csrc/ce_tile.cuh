@@ -1,6 +1,7 @@
-// Shared pieces of the vocab cross-entropy kernels (csrc/ce_fwd.cu,
-// csrc/ce_bwd.cu): the tile shape, staging of rows into shared memory, and
-// one 64 x 64 tile of logits h . W_v recomputed from the staged rows.
+// Shared pieces of the CUDA-core vocab kernels (the f32 cross entropy of
+// csrc/ce_fwd.cu and csrc/ce_bwd.cu, and csrc/topk.cu): the tile shape,
+// staging of rows into shared memory, and one 64 x 64 tile of logits
+// h . W_v recomputed from the staged rows.
 //
 // Layout: h is (N, D) and the vocab table W is (V, D), both row-major in
 // the operand type T (f32 or bf16), so every row is contiguous along D and
@@ -27,21 +28,6 @@ constexpr float NEG = -1e30f; // the TPU kernels' running-max start
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: `.astype(operand dtype)` before a product
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
 }
 
 // rows [row0, row0 + count) of a row-major (total, d) T array -> f32 rows

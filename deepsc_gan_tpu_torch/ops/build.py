@@ -24,9 +24,12 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# what nvcc printed for each source it built in this process (ptxas's
+# registers, shared memory and spills per kernel, from -Xptxas -v)
+LOGS: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -80,6 +83,7 @@ def build(names: Sequence[str], force: bool = False) -> Dict[str, float]:
         proc, tmp, out, t0 = job
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        LOGS[name] = log
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                                f"(exit {proc.returncode}):\n{log}")

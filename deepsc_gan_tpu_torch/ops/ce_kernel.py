@@ -14,7 +14,9 @@ deepsc_gan_tpu/ops/fused_ce.py:51-54). The backward returns dh in h's
 dtype, dW in W's and db in b's, as the TPU package's VJP does. On CUDA
 tensors each wrapper launches its kernel (and counts the launch) or raises;
 on CPU tensors it runs the plain version, which is also what the kernels are
-held against on the card.
+held against on the card. Each dtype has one kernel: bf16 multiplies on the
+tensor cores (wgmma) and f32 on the CUDA cores in exact f32, which the f32
+step-parity checks need.
 """
 
 from __future__ import annotations
@@ -28,11 +30,7 @@ from deepsc_gan_tpu_torch.ops import build
 
 KERNEL_FWD = "ce_fwd"
 KERNEL_BWD = "ce_bwd"
-TILE_V = 64     # vocab rows per tile (csrc/ce_tile.cuh)
-TILE_N = 64     # rows of h per tile
 MAX_D = 256
-# blocks per SM the vocab splits aim for (two blocks of ~80 KB fit an SM)
-BLOCKS_PER_SM = 2
 
 # Launches of the forward (K3) and backward (K4) kernels since the last
 # reset (each wrapper adds one per call that launches its kernels and
@@ -78,15 +76,19 @@ def ce_fwd_reference(h, W, b, labels):
     return lse - gold, lse
 
 
-def ce_bwd_reference(h, W, b, labels, lse, g):
+def ce_bwd_reference(h, W, b, labels, lse, g, softmax_only=False):
     """Plain PyTorch version of K4: P = exp(logits - lse) g - onehot g in
     f32; dh = Pc W, dW = Pc^T h with Pc = P rounded to the op dtype;
-    db = sum_n P. -> (dh (N, D), dW (V, D), db (V,)), all f32."""
+    db = sum_n P. -> (dh (N, D), dW (V, D), db (V,)), all f32.
+    `softmax_only` leaves the label term out of P: the softmax part of the
+    gradients, which checks hold on its own scale (beside the label term
+    it is small)."""
     h, W, b, labels = _operands(h, W, b, labels)
     g = g.to(torch.float32)
     p = torch.exp(_logits(h, W, b) - lse[:, None]) * g[:, None]
-    rows = torch.arange(p.shape[0], device=p.device)
-    p[rows, labels.long()] -= g
+    if not softmax_only:
+        rows = torch.arange(p.shape[0], device=p.device)
+        p[rows, labels.long()] -= g
     pc = p.to(h.dtype).float()
     return pc @ W.float(), pc.t() @ h.float(), p.sum(dim=0)
 
@@ -94,22 +96,43 @@ def ce_bwd_reference(h, W, b, labels, lse, g):
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _POINTERS = {KERNEL_FWD: 7, KERNEL_BWD: 10}
 _BOUND = {}
+_TILING = {}
 
 
 def _bind(kernel, dtype):
-    """(launch function, shared-memory size function) of the built
-    library of `kernel`, with their ctypes signatures declared."""
+    """(launch function, shared-memory size function, tiling function) of
+    the built library of `kernel`, with their ctypes signatures
+    declared."""
     if (kernel, dtype) not in _BOUND:
         lib = build.load(kernel)
         fn = getattr(lib, f"deepsc_{kernel}_{_SUFFIX[dtype]}")
         fn.argtypes = ([ctypes.c_void_p] * _POINTERS[kernel]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = getattr(lib, f"deepsc_{kernel}_smem_bytes")
+        smem = getattr(lib, f"deepsc_{kernel}_smem_bytes_{_SUFFIX[dtype]}")
         smem.argtypes = [ctypes.c_int]
         smem.restype = ctypes.c_size_t
-        _BOUND[(kernel, dtype)] = (fn, smem)
+        tiling = getattr(lib, f"deepsc_{kernel}_tiling_{_SUFFIX[dtype]}")
+        tiling.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        tiling.restype = ctypes.c_int
+        _BOUND[(kernel, dtype)] = (fn, smem, tiling)
     return _BOUND[(kernel, dtype)]
+
+
+def tiling(kernel, dtype, d, device):
+    """(rows of h per tile, vocab rows per tile, blocks per SM) of the
+    kernel in the library `kernel` that takes the vocab splits, at width d
+    on `device`, as the library reports them (the blocks from CUDA's
+    occupancy calculator)."""
+    key = (kernel, dtype, d, device)
+    if key not in _TILING:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            err = _bind(kernel, dtype)[2](d, out)
+        if err != 0:
+            raise RuntimeError(f"{kernel} tiling at D {d}: CUDA error {err}")
+        _TILING[key] = tuple(out)
+    return _TILING[key]
 
 
 def _on_cuda(h):
@@ -127,8 +150,9 @@ def _on_cuda(h):
 
 def _check(h, W, b, labels, *rows):
     """What the kernels take: h (N, D) and W (V, D) of one dtype, f32 or
-    bf16, D a multiple of 8 up to 256; b (V,) f32; int32 labels and f32
-    per-row vectors (N,); all contiguous, 16-byte aligned, on h's device."""
+    bf16, D a multiple of 8 (f32) or of 16 (bf16: one wgmma k-step) up to
+    256; b (V,) f32; int32 labels and f32 per-row vectors (N,); all
+    contiguous, 16-byte aligned, on h's device."""
     if h.dtype not in _SUFFIX or W.dtype != h.dtype:
         raise TypeError(f"CE kernels take h and W of one dtype, float32 or "
                         f"bfloat16, not {h.dtype} and {W.dtype}")
@@ -136,9 +160,10 @@ def _check(h, W, b, labels, *rows):
         raise ValueError(f"bad shapes h {tuple(h.shape)} W {tuple(W.shape)}"
                          f" (want (N, D) and (V, D))")
     n, d = h.shape
-    if d % 8 or d > MAX_D:
-        raise ValueError(f"D {d}: the CE kernels take a multiple of 8 up to "
-                         f"{MAX_D}")
+    step = 16 if h.dtype == torch.bfloat16 else 8
+    if d % step or d > MAX_D:
+        raise ValueError(f"D {d}: the {_SUFFIX[h.dtype]} CE kernels take a "
+                         f"multiple of {step} up to {MAX_D}")
     if b.dtype != torch.float32 or tuple(b.shape) != (W.shape[0],):
         raise ValueError(f"b must be float32 ({W.shape[0]},)")
     if labels.dtype != torch.int32 or tuple(labels.shape) != (n,):
@@ -155,24 +180,31 @@ def _check(h, W, b, labels, *rows):
             raise ValueError("CE kernel inputs must be 16-byte aligned")
 
 
-def vocab_splits(n: int, v: int, sm_count: int) -> int:
-    """Vocab ranges the row tiles are cut into, so about BLOCKS_PER_SM
-    blocks per SM run at once; every range owns at least one vocab tile."""
-    tiles = math.ceil(v / TILE_V)
-    want = max(1, math.ceil(BLOCKS_PER_SM * sm_count / math.ceil(n / TILE_N)))
+def vocab_splits(n: int, v: int, sm_count: int, rows: int, vocab_rows: int,
+                 blocks_per_sm: int) -> int:
+    """Vocab ranges the row tiles (`rows` rows of h each) are cut into: the
+    most whose blocks (row tiles x ranges) all fit in one wave of
+    `blocks_per_sm` blocks per SM, at least one; every range owns at least
+    one vocab tile of `vocab_rows` rows."""
+    tiles = math.ceil(v / vocab_rows)
+    want = max(1, blocks_per_sm * sm_count // math.ceil(n / rows))
     per = math.ceil(tiles / min(want, tiles))
     return math.ceil(tiles / per)
 
 
-def _launch_setup(kernel, h):
-    fn, smem_bytes = _bind(kernel, h.dtype)
+def _launch_setup(kernel, h, W):
+    """(launch function, vocab splits) for h and W."""
+    fn, smem_bytes, _ = _bind(kernel, h.dtype)
     props = torch.cuda.get_device_properties(h.device)
     smem = smem_bytes(h.shape[1])
     if smem > props.shared_memory_per_block_optin:
         raise ValueError(f"{kernel} kernel needs {smem} bytes of shared "
                          f"memory per block; the device allows "
                          f"{props.shared_memory_per_block_optin}")
-    return fn, props.multi_processor_count
+    (n, d), v = h.shape, W.shape[0]
+    splits = vocab_splits(n, v, props.multi_processor_count,
+                          *tiling(kernel, h.dtype, d, h.device))
+    return fn, splits
 
 
 def ce_fwd(h, W, b, labels):
@@ -181,9 +213,8 @@ def ce_fwd(h, W, b, labels):
         return ce_fwd_reference(h, W, b, labels)
     h, W, b, labels = _operands(h, W, b, labels)
     _check(h, W, b, labels)
-    fn, sms = _launch_setup(KERNEL_FWD, h)
+    fn, splits = _launch_setup(KERNEL_FWD, h, W)
     (n, d), v = h.shape, W.shape[0]
-    splits = vocab_splits(n, v, sms)
     f32 = {"dtype": torch.float32, "device": h.device}
     ce = torch.empty(n, **f32)
     lse = torch.empty(n, **f32)
@@ -208,9 +239,8 @@ def ce_bwd(h, W, b, labels, lse, g):
     lse = lse.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
     _check(h, W, b, labels, lse, g)
-    fn, sms = _launch_setup(KERNEL_BWD, h)
+    fn, splits = _launch_setup(KERNEL_BWD, h, W)
     (n, d), v = h.shape, W.shape[0]
-    splits = vocab_splits(n, v, sms)
     f32 = {"dtype": torch.float32, "device": h.device}
     dh = torch.empty((n, d), **f32)
     dW = torch.empty((v, d), **f32)

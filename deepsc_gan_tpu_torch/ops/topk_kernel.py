@@ -23,6 +23,7 @@ NEG. `torch.topk` is not used: its order on ties is not specified.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -31,13 +32,14 @@ from deepsc_gan_tpu_torch.ops.ce_kernel import (
     MAX_D,
     _on_cuda,
     op_dtype,
-    vocab_splits,
 )
 
 KERNEL = "topk"
 NEG = -1e30
 IBIG = 2 ** 30
 MAX_K = 8       # the kernel keeps a sorted list of 8 candidates per row
+TILE = 64       # rows of h and of W per tile (csrc/ce_tile.cuh)
+BLOCKS_PER_SM = 2   # blocks per SM the vocab splits aim for
 
 # Launches of K6 since the last reset (the wrapper adds one per launch and
 # nowhere else); read by chip_smoke.py to show that a path went through it.
@@ -47,6 +49,15 @@ launches = 0
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def vocab_splits(n: int, v: int, sm_count: int) -> int:
+    """Vocab ranges the row tiles are cut into, so about BLOCKS_PER_SM
+    blocks per SM run at once; every range owns at least one vocab tile."""
+    tiles = math.ceil(v / TILE)
+    want = max(1, math.ceil(BLOCKS_PER_SM * sm_count / math.ceil(n / TILE)))
+    per = math.ceil(tiles / min(want, tiles))
+    return math.ceil(tiles / per)
 
 
 def take_top(x: torch.Tensor, cols: torch.Tensor, k: int):

@@ -19,6 +19,7 @@ from deepsc_gan_tpu.ops.pallas.ce import (
     set_ce_kernel_mode,
 )
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
+from deepsc_gan_tpu_torch.ops import topk_kernel as topk
 from deepsc_gan_tpu_torch.ops.fused_ce import fused_ce_loss
 from deepsc_gan_tpu_torch.ops.losses import loss_function
 
@@ -158,11 +159,30 @@ def test_loss_function_matches_jax(smoothing, extra):
                                      (16, 40, 132), (7, 64, 4),
                                      (100000, 22234, 132), (64, 129, 132)])
 def test_vocab_splits_leave_no_split_empty(n, v, sms):
-    """The C entry points refuse a split that owns no vocab tile."""
-    splits = ce.vocab_splits(n, v, sms)
-    tiles = -(-v // ce.TILE_V)
-    per = -(-tiles // splits)
-    assert 1 <= splits <= tiles and (splits - 1) * per < tiles
+    """The C entry points refuse a split that owns no vocab tile: the CE
+    kernels' splits (`ce.vocab_splits`, here at the tilings the kernels
+    report: 64-row h tiles, vocab tiles of 64 or 128 rows, one to three
+    blocks per SM), whose blocks also fit in one wave, and K6's
+    (`topk.vocab_splits`, tiles of 64)."""
+    cases = [(topk.vocab_splits(n, v, sms), topk.TILE)]
+    for vocab_rows, blocks in ((64, 1), (64, 2), (128, 2), (64, 3)):
+        splits = ce.vocab_splits(n, v, sms, 64, vocab_rows, blocks)
+        assert splits == 1 or -(-n // 64) * splits <= blocks * sms
+        cases.append((splits, vocab_rows))
+    for splits, vocab_rows in cases:
+        tiles = -(-v // vocab_rows)
+        per = -(-tiles // splits)
+        assert 1 <= splits <= tiles and (splits - 1) * per < tiles
+
+
+def test_vocab_splits_fill_one_wave_at_the_training_shape():
+    """At the training path's shape on 132 SMs the 31 row tiles take 8
+    forward splits (vocab tiles of 128, two blocks per SM: the bf16 K3) and
+    12 dh splits (tiles of 64, three blocks per SM: the bf16 K4), one wave
+    each; K6 keeps its own policy (about two blocks per SM, 9 splits)."""
+    assert ce.vocab_splits(1984, 22234, 132, 64, 128, 2) == 8
+    assert ce.vocab_splits(1984, 22234, 132, 64, 64, 3) == 12
+    assert topk.vocab_splits(1984, 22234, 132) == 9
 
 
 def _ok_args(dtype=torch.bfloat16, n=4, d=128, v=100):
@@ -172,7 +192,7 @@ def _ok_args(dtype=torch.bfloat16, n=4, d=128, v=100):
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "width", "wide", "bias",
                                  "labels", "rows", "contiguous", "aligned",
-                                 "layout"])
+                                 "layout", "bf16_width"])
 def test_ce_wrapper_rejects_what_the_kernels_do_not_take(bad):
     """The checks the wrappers make before a launch (they run on any
     device; here on CPU tensors)."""
@@ -199,6 +219,11 @@ def test_ce_wrapper_rejects_what_the_kernels_do_not_take(bad):
         h = torch.zeros(h.numel() + 1, dtype=h.dtype)[1:].view(h.shape)
     elif bad == "layout":
         W = torch.zeros((128, 100), dtype=W.dtype)
+    elif bad == "bf16_width":
+        # a multiple of 8 the f32 kernels take, but not of the 16 columns
+        # of a bf16 wgmma k-step
+        ce._check(*_ok_args(torch.float32, d=24))
+        h, W, b, labels = _ok_args(d=24)
     with pytest.raises((TypeError, ValueError)):
         ce._check(h, W, b, labels, *rows)
 

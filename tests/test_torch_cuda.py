@@ -130,19 +130,28 @@ def test_attention_bwd_kernel_matches_plain_version(cuda, dtype, tol, lq, lk,
         assert _err(a, b) <= tol, name
 
 
+def _ce_inputs(device, dtype, n, d, v, seed=5):
+    """h ~ N(0, 1), W ~ N(0, 0.3^2), b ~ N(0, 0.1^2), uniform labels and
+    cotangents in [0, 1)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    h = torch.randn((n, d), device=device, generator=gen).to(dtype)
+    W = (0.3 * torch.randn((v, d), device=device, generator=gen)).to(dtype)
+    b = 0.1 * torch.randn(v, device=device, generator=gen)
+    labels = torch.randint(0, v, (n,), device=device, generator=gen)
+    g = torch.rand(n, device=device, generator=gen)
+    return h, W, b, labels, g
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3.2e-2)])
-@pytest.mark.parametrize("n,d,v", [(100, 16, 1000), (128, 128, 1024)])
+@pytest.mark.parametrize("n,d,v", [(100, 16, 1000), (128, 128, 1024),
+                                   (1984, 128, 22234)])
 def test_ce_kernels_match_plain_versions(cuda, dtype, tol, n, d, v):
     """K3 and K4 against their plain versions at a padded shape (rows and
-    vocab not multiples of the 64-tiles) and an exact one: ce and lse
-    absolute, dh, dW and db relative to the largest reference value."""
-    gen = torch.Generator(cuda).manual_seed(5)
-    h = torch.randn((n, d), device=cuda, generator=gen).to(dtype)
-    W = (0.3 * torch.randn((v, d), device=cuda, generator=gen)).to(dtype)
-    b = 0.1 * torch.randn(v, device=cuda, generator=gen)
-    labels = torch.randint(0, v, (n,), device=cuda, generator=gen)
-    g = torch.rand(n, device=cuda, generator=gen)
+    vocab not multiples of the 64-tiles), an exact one and the training
+    path's (64 x 31 rows, the vocab of 22,234): ce and lse absolute, dh, dW
+    and db relative to the largest reference value."""
+    h, W, b, labels, g = _ce_inputs(cuda, dtype, n, d, v)
     ce.reset_launches()
     cel, lse = ce.ce_fwd(h, W, b, labels)
     grads = ce.ce_bwd(h, W, b, labels, lse, g)
@@ -154,6 +163,72 @@ def test_ce_kernels_match_plain_versions(cuda, dtype, tol, n, d, v):
     for name, a, r in zip(("dh", "dW", "db"), grads, ref_grads):
         assert a.shape == r.shape and a.dtype == torch.float32
         assert _err(a, r, relative=True) <= tol, name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("n,d,v", [(100, 16, 1000), (128, 128, 1024),
+                                   (1984, 128, 22234)])
+def test_ce_bwd_softmax_part_matches_plain_version(cuda, dtype, tol, n, d,
+                                                   v):
+    """K4's dh, dW and db against its plain version relative to the
+    largest value of the plain version's softmax part (P without the label
+    term), which beside the label term can be too small for the test above
+    to see."""
+    h, W, b, labels, g = _ce_inputs(cuda, dtype, n, d, v)
+    lse = ce.ce_fwd_reference(h, W, b, labels)[1]
+    got = ce.ce_bwd(h, W, b, labels, lse, g)
+    want = ce.ce_bwd_reference(h, W, b, labels, lse, g)
+    part = ce.ce_bwd_reference(h, W, b, labels, lse, g, softmax_only=True)
+    torch.cuda.synchronize()
+    for name, a, r, c in zip(("dh", "dW", "db"), got, want, part):
+        assert (a - r).abs().max().item() <= tol * c.abs().max().item(), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_kernels_are_deterministic(cuda, dtype):
+    """Two calls of K3 and of K4 on the same inputs at the training path's
+    shape give bitwise-equal outputs (no atomics; every sum across blocks
+    in a fixed order)."""
+    h, W, b, labels, g = _ce_inputs(cuda, dtype, 1984, 128, 22234, seed=11)
+    first = ce.ce_fwd(h, W, b, labels)
+    second = ce.ce_fwd(h, W, b, labels)
+    grads = [ce.ce_bwd(h, W, b, labels, first[1], g) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    for a, c in zip(*grads):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("kernel,dtype,vocab_rows",
+                         [(ce.KERNEL_FWD, torch.float32, 64),
+                          (ce.KERNEL_FWD, torch.bfloat16, 128),
+                          (ce.KERNEL_BWD, torch.float32, 64),
+                          (ce.KERNEL_BWD, torch.bfloat16, 64)])
+def test_ce_tiling_comes_from_the_kernels(cuda, kernel, dtype, vocab_rows):
+    """Each CE library reports the tiles of the kernel that takes the vocab
+    splits (64 rows of h; 128 vocab rows for the bf16 forward, else 64) and
+    how many of its blocks fit an SM at D = 128; at the training path's
+    shape its splits' blocks fit in one wave."""
+    rows, tile_v, blocks = ce.tiling(kernel, dtype, 128, torch.device(cuda))
+    assert (rows, tile_v) == (64, vocab_rows) and blocks >= 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = ce.vocab_splits(1984, 22234, sms, rows, tile_v, blocks)
+    assert splits == 1 or 31 * splits <= blocks * sms
+
+
+@pytest.mark.parametrize("d", [8, 24])
+def test_ce_wrappers_refuse_a_bf16_width_off_the_wgmma_step(cuda, d):
+    """The bf16 kernels take D a multiple of 16 (one wgmma k-step): D = 8
+    or 24 raises before any launch, and nothing else runs in their place."""
+    h, W, b, labels, g = _ce_inputs(cuda, torch.bfloat16, 64, d, 300)
+    ce.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ce.ce_fwd(h, W, b, labels)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ce.ce_bwd(h, W, b, labels, torch.zeros(64, device=cuda), g)
+    assert (ce.fwd_launches, ce.bwd_launches) == (0, 0)
 
 
 def test_tiny_train_step_kernels_equal_plain_step(cuda):
