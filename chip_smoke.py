@@ -11,15 +11,18 @@ non-zero without its last line:
 2. build: every CUDA kernel of the serving and training paths (K1-K6),
    compiled by nvcc from the sources in this checkout (all nvcc processes
    started together); ptxas's registers, spills and performance warnings
-   for K3 and K4;
+   for K1, K3, K4 and K6;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it, in f32 and bf16, with the tolerance
    stated; the kernel's time, its host enqueue time, the plain version's
    time, one PyTorch library call's (a yardstick the port never calls), and
    the least time the card could take; beside each time, its device time
    (`device_ms` ...: the calls queued behind a spin of the device, so the
-   host's pace does not enter); for K3 and K4, which units multiply
-   (`design`: wgmma bf16 or cuda-core f32);
+   host's pace does not enter); for K1, K3, K4 and K6, which units multiply
+   (`design`: mma or wgmma bf16, or cuda-core f32); K6 also with ties
+   (both dtypes), k = 1 and 8, and every logit below 0 over a vocab that is
+   not a multiple of its 128-row tiles, its indices equal to the plain
+   version's in every case;
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -132,8 +135,12 @@ KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
 BEAM = 4
 # a spin of the device (about 0.1 s) that the timed calls queue up behind
 SPIN_CYCLES = 200_000_000
-# what multiplies in K3 and K4, by dtype (csrc/ce_fwd.cu, csrc/ce_bwd.cu)
-CE_DESIGN = {torch.bfloat16: "wgmma bf16", torch.float32: "cuda-core f32"}
+# what multiplies, by kernel and dtype (csrc/attention_fwd.cu,
+# csrc/ce_fwd.cu, csrc/ce_bwd.cu, csrc/topk.cu)
+WGMMA = {torch.bfloat16: "wgmma bf16", torch.float32: "cuda-core f32"}
+DESIGN = {attn.KERNEL: {torch.bfloat16: "mma bf16",
+                        torch.float32: "cuda-core f32"},
+          ce.KERNEL_FWD: WGMMA, ce.KERNEL_BWD: WGMMA, topk.KERNEL: WGMMA}
 
 
 def phase_device():
@@ -184,12 +191,12 @@ def ptxas_report(log):
 
 def phase_build():
     """Build every kernel; print nvcc's time for each and ptxas's report
-    (registers and spills per kernel, performance warnings) for K3 and
-    K4."""
+    (registers and spills per kernel, performance warnings) for the kernels
+    with a tensor-core design (K1, K3, K4, K6)."""
     seconds = build.build(KERNELS, force=True)
     for name, s in seconds.items():
         print(f"[build] csrc/{name}.cu: nvcc {s:.2f} s")
-    for name in (ce.KERNEL_FWD, ce.KERNEL_BWD):
+    for name in DESIGN:
         for line in ptxas_report(build.LOGS[name]):
             print(f"[ptxas] {name}: {line}")
 
@@ -338,7 +345,7 @@ def attention_case(label, n, lq, lk, dtype, gen, iters):
                                                scale=1.0 / scale),
         (q.numel() + k.numel() + v.numel() + q.numel()) * elt
         + bias.numel() * 4, 2 * 2 * n * HEADS * lq * lk * DH, iters,
-        n=n, lq=lq, lk=lk)
+        n=n, lq=lq, lk=lk, design=DESIGN[attn.KERNEL][dtype])
 
 
 def attention_bwd_case(label, n, lq, lk, dtype, gen, iters, dbias):
@@ -401,7 +408,7 @@ def ce_cases(dtype, gen, iters, n, d, v):
                              f"softmax part > {SOFTMAX_TOL[dtype]}")
     elt = h.element_size()
     ins = (n * d + v * d) * elt + v * 4 + n * 4
-    shape = {"n": n, "d": d, "v": v, "design": CE_DESIGN[dtype]}
+    shape = {"n": n, "d": d, "v": v, "design": DESIGN[ce.KERNEL_FWD][dtype]}
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     # rows of h and of W per tile and blocks per SM, as each library
     # reports them, and the vocab splits the wrapper took from them
@@ -447,13 +454,16 @@ def dyadic(shape, scale, gen, dtype):
     return (x.float() / (8 * scale)).to(dtype)
 
 
-def topk_case(label, n, dtype, gen, iters, k=BEAM, tie=False):
-    """K6 at one shape (W the (V, D) table). `tie`: every logit equal to
-    the bias, which is 1 at indices in different vocab splits and 0
-    elsewhere."""
+def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic"):
+    """K6 at one shape (W the (V, D) table, V = 22,234: its last vocab tile
+    of 128 rows is ragged). `mode`: "dyadic", exact logits with many ties;
+    "tie", every logit equal to the bias, which is 1 at indices in
+    different vocab splits and 0 elsewhere; "negative", the dyadic logits
+    less 3, so every logit is below 0 and a padded vocab column (zero
+    logit) in the list would show."""
     cfg = Config()
     d, v = cfg.decoder_d_model, cfg.vocab_size
-    if tie:
+    if mode == "tie":
         h = torch.ones((n, d), device="cuda", dtype=dtype)
         W = torch.zeros((v, d), device="cuda", dtype=dtype)
         b = torch.zeros(v, device="cuda")
@@ -462,6 +472,10 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, tie=False):
         h = dyadic((n, d), 8, gen, dtype)
         W = dyadic((v, d), 2, gen, dtype)
         b = dyadic((v,), 8, gen, torch.float32)
+        if mode == "negative":
+            b -= 3.0
+            if not (h.float() @ W.float().t() + b).amax().item() < 0:
+                raise AssertionError("topk negative: a logit is not below 0")
     vals, idx, lse = topk.topk_logits(h, W, b, k)
     ref = topk.topk_logits_reference(h, W, b, k)
     torch.cuda.synchronize()
@@ -474,13 +488,18 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, tie=False):
         logits = (h @ W.t()).float() + b
         return torch.topk(logits, k), torch.logsumexp(logits, dim=-1)
 
+    # rows of h and of W per tile and blocks per SM, as the library reports
+    # them, and the vocab splits the wrapper took from them
+    tiles = ce.tiling(topk.KERNEL, dtype, d, h.device)
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     elt = h.element_size()
     return kernel_row(
         topk.KERNEL, label, dtype, max_err([vals, lse], [ref[0], ref[2]]),
         TOL[dtype], lambda: topk.topk_logits(h, W, b, k),
         lambda: topk.topk_logits_reference(h, W, b, k), library,
         (n * d + v * d) * elt + v * 4 + n * k * 8 + n * 4, 2 * n * d * v,
-        iters, n=n, d=d, v=v, k=k)
+        iters, n=n, d=d, v=v, k=k, design=DESIGN[topk.KERNEL][dtype],
+        tiling=list(tiles), splits=ce.vocab_splits(n, v, sms, *tiles))
 
 
 def star_case(label, n, dtype, gen, iters):
@@ -513,7 +532,8 @@ def phase_kernels(seed, n, bs, iters):
     at N = bs x 4 beams, the CLI's beam, and 19 x bs x 4, the beam sweep;
     K5 at N = 19 x bs x 31, the star sweep's decoder) and the training
     path's (K1-K2 at N = bs; K3-K4 and K5 at bs x 31 rows), and K5 at a row
-    count that is not a multiple of its 8 rows per block."""
+    count that is not a multiple of its 8 rows per block; K6 also at k = 1
+    and 8, with exact ties and with every logit below 0."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cfg = Config()
     rows = []
@@ -530,14 +550,17 @@ def phase_kernels(seed, n, bs, iters):
                          cfg.decoder_d_model, cfg.vocab_size)
         rows.append(topk_case("beam", bs * BEAM, dtype, gen, iters))
         rows.append(topk_case("beam_sweep", n * BEAM, dtype, gen, iters))
+        for k in (1, 8):
+            rows.append(topk_case(f"k{k}", bs * BEAM, dtype, gen, iters, k))
+        rows.append(topk_case("negative", bs * BEAM, dtype, gen, iters, 8,
+                              "negative"))
+        rows.append(topk_case("tie", bs * BEAM, dtype, gen, iters, 8, "tie"))
         star_len = default_seq_len("star")
         rows.append(star_case("star_train", bs * star_len, dtype, gen,
                               iters))
         rows.append(star_case("star_sweep", n * star_len, dtype, gen, iters))
         rows.append(star_case("odd_rows", bs * star_len + 3, dtype, gen,
                               iters))
-    rows.append(topk_case("tie", bs * BEAM, torch.float32, gen, iters,
-                          k=8, tie=True))
     return rows
 
 

@@ -18,69 +18,77 @@
 // (9.7 MB): about 43 MB, 13 us at the H100 SXM's 3.35 TB/s, against about
 // 0.3 GFLOP (0.3 us at the bf16 tensor-core rate). Computed from the shapes.
 //
-// Design: one block per batch row, for all heads; one thread per
-// (query, head) pair, a warp per head (lane = query), so every read of the
-// row's keys and values is a broadcast. The row's K and V (as f32) and its
-// bias tile (rows of an odd number of words, so a warp's per-query reads
-// fall in distinct banks) are staged in shared memory once: each byte of
-// k, v and bias is read from device memory once. Each thread keeps its
-// query, its Lk logits and its context in registers (Dh and the largest Lk
-// are compile-time: Dh in {8, 16, 32}, Lk <= 32). Every sum runs in a
-// fixed order: the dot over d, the softmax denominator and the context
-// over keys. The kernel allocates nothing; the caller passes the output.
-// Making it fast (wgmma, TMA, folding the head split into the projections)
-// is later work.
+// Design: one block per batch row, one warp per head. Lq, Lk <= 32, Dh in
+// {8, 16, 32} and H <= 16 (compile-time Dh). Each dtype has one kernel:
+// - bf16, tensor cores (mma.sync m16n8k16, f32 accumulators). The block
+//   copies the row's q, k and v (contiguous, 16-byte cp.async) and its bias
+//   tile (4-byte cp.async: a row of 31 x 31 floats seldom starts on 16
+//   bytes) into shared memory and waits once; the byte stream is kept in
+//   flight by the several blocks each SM holds, one loading while another
+//   computes. Staged rows of q, k, v are padded by 16 bytes, so the eight
+//   rows a fragment load or ldmatrix reads fall in distinct banks. A warp
+//   computes S = q_h k_h^T as two 16-row m-tiles (one when Lq <= 16) x four
+//   8-key n-tiles x Dh/16 k-steps (Dh = 8: one k-step whose upper half is
+//   zero), K's fragments loaded once for both m-tiles. The softmax runs on
+//   the accumulators: a row's 32 logits lie in one quad, so its max and sum
+//   take two shuffles each; keys past Lk are set to -inf there (the bias has
+//   no such column), and v's rows past Lk are zeroed (p = 0 times stale
+//   shared memory could be NaN). The division e / sum is rounded through
+//   the rounded reciprocal and one fma correction (`div_rn`): the IEEE
+//   division's quotient wherever it is normal, at half its instructions.
+//   With the IEEE division the kernel took 0.041 ms at the serving shape,
+//   with this one 0.024 (H100, scripts/kernel_variants.py). p, rounded to
+//   bf16 and packed in pairs, is the A operand of p.v as it stands (the
+//   accumulator-to-A identity), and v is the B operand through
+//   ldmatrix.trans. The context, rounded to bf16, goes over the warp's own
+//   slice of the staged q, and the block writes rows < Lq with 16-byte
+//   stores. What bounds it now: the loads and stores alone (no products,
+//   no softmax) take 0.015 ms of the 0.024 (scripts/kernel_variants.py).
+// - f32, CUDA cores (exact f32, which the f32 greedy id checks need; mma
+//   on f32 would be TF32): one thread per (query, head), a warp per head
+//   (lane = query), so every read of the row's keys and values is a
+//   broadcast. The row's K and V and its bias tile (rows of an odd number
+//   of words, so a warp's per-query reads fall in distinct banks) are
+//   staged in shared memory once. Each thread keeps its query, its Lk
+//   logits and its context in registers. Every sum runs in a fixed order:
+//   the dot over d, the softmax denominator and the context over keys.
+// The kernels allocate nothing; the caller passes the output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cfloat>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxKeys = 32;   // keys per row (lk <= 32)
 constexpr int kMaxHeads = 16;  // one warp per head: <= 512 threads
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// ---- f32: CUDA cores ----
 
 // 16-byte moves: a thread's query, its context and the staged rows move
-// as uint4 (the wrapper requires 16-byte aligned tensors; a head's slice,
-// Dh * sizeof(T) bytes, is a multiple of 16).
-template <typename T>
-__device__ __forceinline__ void load16(const T* src, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-  for (int t = 0; t < 16 / (int)sizeof(T); ++t) dst[t] = to_float(e[t]);
+// as float4 (the wrapper requires 16-byte aligned tensors; a head's slice,
+// Dh * 4 bytes, is a multiple of 16).
+__device__ __forceinline__ void load16(const float* src, float* dst) {
+  const float4 u = *reinterpret_cast<const float4*>(src);
+  dst[0] = u.x;
+  dst[1] = u.y;
+  dst[2] = u.z;
+  dst[3] = u.w;
 }
 
-template <typename T>
-__device__ __forceinline__ void store16(T* dst, const float* src) {
-  uint4 u;
-  T* e = reinterpret_cast<T*>(&u);
-#pragma unroll
-  for (int t = 0; t < 16 / (int)sizeof(T); ++t) e[t] = from_float<T>(src[t]);
-  *reinterpret_cast<uint4*>(dst) = u;
+__device__ __forceinline__ void store16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2],
+                                                src[3]);
 }
 
 // Shared memory: ks, vs (Lk x H*Dh f32 each), bs (Lq x (Lk | 1) f32).
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kMaxHeads * 32)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ out, int lq, int lk, int heads,
-                     float inv_scale) {
+attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int lq, int lk, int heads, float inv_scale) {
   extern __shared__ float smem[];
   const int hd = heads * DH;
   const int bstride = lk | 1;
@@ -89,22 +97,12 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* bs = vs + lk * hd;
 
   const long long n = blockIdx.x;
-  const T* kn = k + n * lk * hd;
-  const T* vn = v + n * lk * hd;
+  const float* kn = k + n * lk * hd;
+  const float* vn = v + n * lk * hd;
   const float* bn = bias + n * lq * lk;
-  constexpr int kPer16 = 16 / (int)sizeof(T);
-  float tmp[kPer16];
-  for (int e = threadIdx.x * kPer16; e < lk * hd; e += blockDim.x * kPer16) {
-    load16(kn + e, tmp);
-#pragma unroll
-    for (int t = 0; t < kPer16; t += 4)
-      *reinterpret_cast<float4*>(ks + e + t) =
-          make_float4(tmp[t], tmp[t + 1], tmp[t + 2], tmp[t + 3]);
-    load16(vn + e, tmp);
-#pragma unroll
-    for (int t = 0; t < kPer16; t += 4)
-      *reinterpret_cast<float4*>(vs + e + t) =
-          make_float4(tmp[t], tmp[t + 1], tmp[t + 2], tmp[t + 3]);
+  for (int e = threadIdx.x * 4; e < lk * hd; e += blockDim.x * 4) {
+    load16(kn + e, ks + e);
+    load16(vn + e, vs + e);
   }
   for (int e = threadIdx.x; e < lq * lk; e += blockDim.x) {
     const int i = e / lk;
@@ -115,10 +113,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = threadIdx.x >> 5;
   const int i = threadIdx.x & 31;
   if (i >= lq) return;  // no later barrier
-  const T* qi = q + (n * lq + i) * hd + h * DH;
+  const float* qi = q + (n * lq + i) * hd + h * DH;
   float qv[DH];
 #pragma unroll
-  for (int d = 0; d < DH; d += kPer16) load16(qi + d, qv + d);
+  for (int d = 0; d < DH; d += 4) load16(qi + d, qv + d);
 
   // logits: s_j = (q . k_j) * (1/scale) + bias[i, j], rounded twice as the
   // TPU kernel does (no fused multiply-add across the two steps)
@@ -143,47 +141,318 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sum += s[j];
     }
   }
-  // p_j = e_j / sum, rounded to the input type before the p.v product
   float ctx[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) ctx[d] = 0.f;
 #pragma unroll
   for (int j = 0; j < kMaxKeys; ++j) {
     if (j < lk) {
-      const float p = to_float(from_float<T>(__fdiv_rn(s[j], sum)));
+      const float p = __fdiv_rn(s[j], sum);
       const float* vj = vs + j * hd + h * DH;
 #pragma unroll
       for (int d = 0; d < DH; ++d) ctx[d] = fmaf(p, vj[d], ctx[d]);
     }
   }
-  T* oi = out + (n * lq + i) * hd + h * DH;
+  float* oi = out + (n * lq + i) * hd + h * DH;
 #pragma unroll
-  for (int d = 0; d < DH; d += kPer16) store16(oi + d, ctx + d);
+  for (int d = 0; d < DH; d += 4) store16(oi + d, ctx + d);
 }
 
-size_t smem_bytes(int lq, int lk, int heads, int dh) {
+size_t smem_bytes_f32(int lq, int lk, int heads, int dh) {
   return sizeof(float) *
          (2 * (size_t)lk * heads * dh + (size_t)lq * (size_t)(lk | 1));
 }
 
-template <typename T, int DH>
+// ---- bf16: tensor cores ----
+
+constexpr int kRows = 32;        // staged rows of q, k, v (Lq, Lk <= 32)
+constexpr int kRowPad = 16;      // bytes after each staged row
+constexpr int kBiasStride = 40;  // floats per staged bias row: the 8-byte
+                                 // reads of a half-warp hit distinct banks
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// a / b rounded, for 0 <= a < 2^64 and b >= 1, from r = 1/b rounded: the
+// product's error corrected by one fma (Markstein), on a scaled by 2^64 so
+// that the remainder cannot underflow (scalings by powers of two are
+// exact). It equals __fdiv_rn(a, b) wherever the quotient is normal; a
+// subnormal one (below 1.2e-38) may differ in its last bit, rounded twice
+// (scripts/kernel_variants.py holds it against __fdiv_rn on the card). It
+// takes 5 instructions where __fdiv_rn takes about 10 and a branch.
+__device__ __forceinline__ float div_rn(float a, float b, float r) {
+  const float up = __int_as_float(0x5f800000);    // 2^64
+  const float down = __int_as_float(0x1f800000);  // 2^-64
+  const float sa = __fmul_rn(a, up);
+  const float q = __fmul_rn(sa, r);
+  return __fmul_rn(__fmaf_rn(__fmaf_rn(-q, b, sa), r, q), down);
+}
+
+__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// the transposed fragments of two 8 x 8 bf16 matrices whose rows lanes
+// 0-7 and 8-15 address: the B operand (16 keys x 8 columns) of an m16n8k16
+// product from a row-major (key, column) tile
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
+                                              const uint8_t* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b0), "=r"(b1)
+      : "r"(smem_u32(row))
+      : "memory");
+}
+
+// c += a . b, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragments (thread t of a warp, g = t / 4, c = t % 4): A (16 x 16) holds
+// rows g and g + 8, columns 2c, 2c + 1 and 8 + 2c, 9 + 2c; B (16 x 8) rows
+// 2c, 2c + 1 and 8 + 2c, 9 + 2c of column g; C (16 x 8) rows g and g + 8,
+// columns 2c, 2c + 1.
+template <int DH>
+__global__ void __launch_bounds__(kMaxHeads * 32)
+attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const float* __restrict__ bias,
+                         __nv_bfloat16* __restrict__ out, int lq, int lk,
+                         int heads, float inv_scale) {
+  constexpr int KS = (DH + 15) / 16;  // k-steps of q . k
+  constexpr int NT = DH / 8;          // 8-column n-tiles of the context
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int row_bytes = heads * DH * 2;
+  const int stride = row_bytes + kRowPad;
+  const int chunks = row_bytes / 16;
+  uint8_t* qs = smem_raw;
+  uint8_t* ks = qs + kRows * stride;
+  uint8_t* vs = ks + kRows * stride;
+  float* bs = reinterpret_cast<float*>(vs + kRows * stride);
+
+  const long long n = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const uint8_t* qg = reinterpret_cast<const uint8_t*>(q) + n * lq * row_bytes;
+  const uint8_t* kg = reinterpret_cast<const uint8_t*>(k) + n * lk * row_bytes;
+  const uint8_t* vg = reinterpret_cast<const uint8_t*>(v) + n * lk * row_bytes;
+  const float* bg = bias + n * lq * lk;
+  for (int c = tid; c < lq * chunks; c += nt) {
+    const int r = c / chunks;
+    cp_async16(qs + r * stride + 16 * (c - r * chunks), qg + 16 * c);
+  }
+  for (int c = tid; c < lk * chunks; c += nt) {
+    const int r = c / chunks;
+    const int o = r * stride + 16 * (c - r * chunks);
+    cp_async16(ks + o, kg + 16 * c);
+    cp_async16(vs + o, vg + 16 * c);
+  }
+  for (int e = tid; e < lq * lk; e += nt) {
+    const int i = e / lk;
+    cp_async4(bs + i * kBiasStride + (e - i * lk), bg + e);
+  }
+  for (int c = tid; c < (kRows - lk) * chunks; c += nt) {
+    const int r = lk + c / chunks;
+    *reinterpret_cast<uint4*>(vs + r * stride + 16 * (c % chunks)) =
+        make_uint4(0, 0, 0, 0);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c4 = 4 * (lane & 3);           // byte offset of column 2 (t % 4)
+  const int col = (tid >> 5) * DH * 2;     // this warp's head in a row
+
+  uint32_t kb[4][KS][2];  // B fragments of k: keys 8 nj + g
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    const uint8_t* kr = ks + (8 * nj + g) * stride + col + c4;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      kb[nj][s][0] = lds32(kr + 32 * s);
+      kb[nj][s][1] = DH >= 16 ? lds32(kr + 32 * s + 16) : 0u;
+    }
+  }
+  uint32_t vb[2][NT][2];  // B fragments of v: keys 16 kk .. 16 kk + 15
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn)
+      ldsm_x2_trans(vb[kk][dn][0], vb[kk][dn][1],
+                    vs + (16 * kk + (lane & 15)) * stride + col + 16 * dn);
+
+  const int mtiles = lq > 16 ? 2 : 1;
+  for (int mi = 0; mi < mtiles; ++mi) {
+    const int r0 = 16 * mi + g;  // this thread's rows r0 and r0 + 8
+    const uint8_t* q0 = qs + r0 * stride + col + c4;
+    const uint8_t* q1 = q0 + 8 * stride;
+    uint32_t qa[KS][4];
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      qa[s][0] = lds32(q0 + 32 * s);
+      qa[s][1] = lds32(q1 + 32 * s);
+      qa[s][2] = DH >= 16 ? lds32(q0 + 32 * s + 16) : 0u;
+      qa[s][3] = DH >= 16 ? lds32(q1 + 32 * s + 16) : 0u;
+    }
+    float sc[4][4];
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nj][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+        mma16816(sc[nj], qa[s], kb[nj][s][0], kb[nj][s][1]);
+    }
+
+    // logits: (q . k) * (1/scale), then + bias, each step rounded as the
+    // TPU kernel does; keys past lk out of the max and the sum
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = r0 + 8 * (e >> 1);
+        const int j = 8 * nj + (c4 >> 1) + (e & 1);
+        const float x =
+            j < lk ? __fadd_rn(__fmul_rn(sc[nj][e], inv_scale),
+                               bs[i * kBiasStride + j])
+                   : -INFINITY;
+        sc[nj][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[nj][e] = expf(sc[nj][e] - mx[e >> 1]);
+        sum[e >> 1] += sc[nj][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+    // p = e / sum, rounded to bf16: n-tiles 2 kk and 2 kk + 1 are the A
+    // operand of k-step kk of p . v
+    const float rs[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+    uint32_t pa[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* x = sc[2 * kk + half];
+        pa[kk][2 * half] = pack_bf16(div_rn(x[0], sum[0], rs[0]),
+                                     div_rn(x[1], sum[0], rs[0]));
+        pa[kk][2 * half + 1] = pack_bf16(div_rn(x[2], sum[1], rs[1]),
+                                         div_rn(x[3], sum[1], rs[1]));
+      }
+    float o[NT][4];
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        mma16816(o[dn], pa[kk], vb[kk][dn][0], vb[kk][dn][1]);
+    }
+    // the context over this warp's slice of rows r0 and r0 + 8 of q, which
+    // only this warp reads, and which it has read
+    __syncwarp();
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn) {
+      uint8_t* p0 = qs + r0 * stride + col + 16 * dn + c4;
+      *reinterpret_cast<uint32_t*>(p0) = pack_bf16(o[dn][0], o[dn][1]);
+      *reinterpret_cast<uint32_t*>(p0 + 8 * stride) =
+          pack_bf16(o[dn][2], o[dn][3]);
+    }
+  }
+  __syncthreads();
+  uint8_t* og = reinterpret_cast<uint8_t*>(out) + n * lq * row_bytes;
+  for (int c = tid; c < lq * chunks; c += nt) {
+    const int r = c / chunks;
+    *reinterpret_cast<uint4*>(og + 16 * c) =
+        *reinterpret_cast<const uint4*>(qs + r * stride +
+                                        16 * (c - r * chunks));
+  }
+}
+
+size_t smem_bytes_bf16(int heads, int dh) {
+  return 3 * (size_t)kRows * (heads * dh * 2 + kRowPad) +
+         sizeof(float) * kRows * kBiasStride;
+}
+
+// ---- launch ----
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <bool kBf16, int DH>
 int launch_dh(const void* q, const void* k, const void* v, const void* bias,
               void* out, int n, int lq, int lk, int heads, float inv_scale,
-              void* stream) {
-  const size_t smem = smem_bytes(lq, lk, heads, DH);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_kernel<T, DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+              cudaStream_t st) {
+  if constexpr (kBf16) {
+    const size_t smem = smem_bytes_bf16(heads, DH);
+    const int err = set_smem(attention_fwd_mma_kernel<DH>, smem);
+    if (err) return err;
+    attention_fwd_mma_kernel<DH><<<n, heads * 32, smem, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (const float*)bias, (__nv_bfloat16*)out, lq,
+        lk, heads, inv_scale);
+  } else {
+    const size_t smem = smem_bytes_f32(lq, lk, heads, DH);
+    const int err = set_smem(attention_fwd_kernel<DH>, smem);
+    if (err) return err;
+    attention_fwd_kernel<DH><<<n, heads * 32, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)bias, (float*)out, lq, lk, heads, inv_scale);
   }
-  attention_fwd_kernel<T, DH><<<n, heads * 32, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out, lq,
-      lk, heads, inv_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int n, int lq, int lk, int heads, int dh, double scale,
            void* stream) {
@@ -193,16 +462,17 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   // 1/scale in double, then rounded once to f32: the TPU kernel's
   // `s * (1.0 / scale)` with a Python-float scale
   const float inv_scale = (float)(1.0 / scale);
+  cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
     case 8:
-      return launch_dh<T, 8>(q, k, v, bias, out, n, lq, lk, heads, inv_scale,
-                             stream);
+      return launch_dh<kBf16, 8>(q, k, v, bias, out, n, lq, lk, heads,
+                                 inv_scale, st);
     case 16:
-      return launch_dh<T, 16>(q, k, v, bias, out, n, lq, lk, heads,
-                              inv_scale, stream);
+      return launch_dh<kBf16, 16>(q, k, v, bias, out, n, lq, lk, heads,
+                                  inv_scale, st);
     case 32:
-      return launch_dh<T, 32>(q, k, v, bias, out, n, lq, lk, heads,
-                              inv_scale, stream);
+      return launch_dh<kBf16, 32>(q, k, v, bias, out, n, lq, lk, heads,
+                                  inv_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -214,8 +484,14 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block needs (the wrapper checks this
 // against the device's limit before launching).
-size_t deepsc_attention_fwd_smem_bytes(int lq, int lk, int heads, int dh) {
-  return smem_bytes(lq, lk, heads, dh);
+size_t deepsc_attention_fwd_smem_bytes_f32(int lq, int lk, int heads,
+                                           int dh) {
+  return smem_bytes_f32(lq, lk, heads, dh);
+}
+
+size_t deepsc_attention_fwd_smem_bytes_bf16(int lq, int lk, int heads,
+                                            int dh) {
+  return smem_bytes_bf16(heads, dh);
 }
 
 // q, k, v, out: contiguous f32 (N, L, heads*dh); bias: contiguous f32
@@ -224,7 +500,7 @@ int deepsc_attention_fwd_f32(const void* q, const void* k, const void* v,
                              const void* bias, void* out, int n, int lq,
                              int lk, int heads, int dh, double scale,
                              void* stream) {
-  return launch<float>(q, k, v, bias, out, n, lq, lk, heads, dh, scale,
+  return launch<false>(q, k, v, bias, out, n, lq, lk, heads, dh, scale,
                        stream);
 }
 
@@ -233,8 +509,8 @@ int deepsc_attention_fwd_bf16(const void* q, const void* k, const void* v,
                               const void* bias, void* out, int n, int lq,
                               int lk, int heads, int dh, double scale,
                               void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, bias, out, n, lq, lk, heads, dh,
-                               scale, stream);
+  return launch<true>(q, k, v, bias, out, n, lq, lk, heads, dh, scale,
+                      stream);
 }
 
 }  // extern "C"

@@ -3,9 +3,9 @@
 // staging of rows into shared memory, and one 64 x 64 tile of logits
 // h . W_v recomputed from the staged rows.
 //
-// Layout: h is (N, D) and the vocab table W is (V, D), both row-major in
-// the operand type T (f32 or bf16), so every row is contiguous along D and
-// a vocab tile is TV consecutive rows of W. Staged rows are f32 with a row
+// Layout: h is (N, D) and the vocab table W is (V, D), both row-major f32,
+// so every row is contiguous along D and a vocab tile is TV consecutive
+// rows of W. Staged rows are f32 with a row
 // stride of D + 1 (odd, since the wrappers require D % 8 == 0), so the
 // threads of a warp that read one column of 16 different rows hit 16
 // different banks. A block has 256 threads as a 16 x 16 grid (ty, tx); in a
@@ -14,7 +14,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ce {
@@ -25,36 +24,25 @@ constexpr int kThreads = 256; // 16 x 16
 constexpr int kMaxD = 256;    // D handled as tx + 16 t, t < 16
 constexpr float NEG = -1e30f; // the TPU kernels' running-max start
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// rows [row0, row0 + count) of a row-major (total, d) T array -> f32 rows
-// of stride d + 1 in shared memory; rows past `total` are zero. 16-byte
-// loads (the wrappers require 16-byte aligned tensors and d * sizeof(T) a
-// multiple of 16).
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
+// rows [row0, row0 + count) of a row-major (total, d) f32 array -> rows of
+// stride d + 1 in shared memory; rows past `total` are zero. 16-byte loads
+// (the wrappers require 16-byte aligned tensors and d a multiple of 4).
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
                                            int total, int row0, int count,
                                            int d, float* dst) {
-  constexpr int kPer16 = 16 / (int)sizeof(T);
-  const int chunks = d / kPer16;
+  const int chunks = d / 4;
   const int stride = d + 1;
   for (int e = threadIdx.x; e < count * chunks; e += blockDim.x) {
     const int r = e / chunks;
-    const int c = (e - r * chunks) * kPer16;
+    const int c = (e - r * chunks) * 4;
     float* out = dst + r * stride + c;
-    if (row0 + r < total) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          src + (size_t)(row0 + r) * d + c);
-      const T* x = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int t = 0; t < kPer16; ++t) out[t] = to_float(x[t]);
-    } else {
-#pragma unroll
-      for (int t = 0; t < kPer16; ++t) out[t] = 0.f;
-    }
+    const float4 x = row0 + r < total
+        ? *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * d + c)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    out[0] = x.x;
+    out[1] = x.y;
+    out[2] = x.z;
+    out[3] = x.w;
   }
 }
 

@@ -12,31 +12,53 @@
 // What bounds it: at the CLI's beam (N = 64 x 4 = 256, D = 128, V = 22,234,
 // bf16) the 5.7 MB stream of W (1.7 us at 3.35 TB/s), just above the 1.46
 // GFLOP of the products at the bf16 tensor-core rate (1.5 us); at the beam
-// sweep (N = 19 x 256 = 4,864) the 27.7 GFLOP (28 us). This first version
-// multiplies on the f32 CUDA cores (67 TFLOP/s), as the CE kernels do, so it
-// cannot come within 15x of either bound; tensor cores are later work.
+// sweep (N = 19 x 256 = 4,864) the 27.7 GFLOP (28 us).
 //
 // Design: the TPU kernel walks the vocab tiles in order on one core, keeping
 // a running top-k and an online max and sum. Here blocks run in parallel, so
-// the vocab axis is cut into `splits` contiguous ranges (as the CE kernels,
-// enough blocks to fill the 132 SMs at N = 256). Block (row tile, split)
-// stages its 64 rows of h once and walks its range of 64-row tiles of W
-// through shared memory (csrc/ce_tile.cuh). Thread (ty, tx) owns rows
-// ty + 16 i and, in each tile, columns tx + 16 j; for each of its 4 rows it
-// keeps a running (max, sum of exponentials) and a sorted list of its best 8
-// candidates, ordered by (value descending, index ascending). The 16 threads
-// of a row (16 consecutive lanes of one warp) merge their lists and sums by
-// shuffles; one list and one (max, sum) per (split, row) go to a workspace.
-// A second kernel, a warp per row, merges the splits' lists and sums and
-// writes the first k of the list and lse. Because the order is total and
-// every index is seen by one thread only, the merged list is the same
-// whatever the merge order: ties go to the lowest index exactly as the TPU
-// kernel's masked argmax does. The sums are merged in a fixed tree, so the
-// result is deterministic. No atomics.
+// the vocab axis is cut into `splits` contiguous ranges (as the CE kernels:
+// the wrapper takes the most splits whose blocks fit one wave, from the
+// tiles and blocks per SM that `deepsc_topk_tiling_*` reports). Block
+// (row tile, split) keeps its 64 rows of h and walks its range of vocab
+// tiles; each thread keeps, for each row it holds, a running (max, sum of
+// exponentials) and a sorted list of its best L candidates, ordered by
+// (value descending, index ascending). The lists and sums of a row's
+// threads are merged by shuffles; one list and one (max, sum) per
+// (split, row) go to a workspace. A second kernel, a warp per row, merges
+// the splits' lists and sums and writes the first k of the list and lse.
+// Because the order is total and every index is seen by one thread only,
+// the merged list is the same whatever the merge order: ties go to the
+// lowest index exactly as the TPU kernel's masked argmax does. The sums are
+// merged in a fixed tree, so the result is deterministic. No atomics.
+// Each dtype has one partial kernel:
+// - bf16, tensor cores (csrc/wgmma_tile.cuh), the logits tile of K3's
+//   forward (csrc/ce_fwd.cu): one warpgroup per block, the h tile resident
+//   in 128-byte-swizzled shared memory, vocab tiles of 128 rows of W
+//   through a two-stage TMA ring, wgmma m64n128k16 over D with f32
+//   accumulators. A thread holds rows r and r + 8 and, of each vocab tile,
+//   columns 8 q + 2 (lane % 4) + e, which it visits in increasing order: a
+//   new logit enters its list only if it is larger than the list's last
+//   entry (an equal one has the larger index) and not below the quad's
+//   largest last entry (taken once a tile by two shuffles), and then by a
+//   shift that needs no index compare. L, the list's length, is the
+//   smallest of 1, 2, 4, 8 that holds k (a template), so a k = 4 call
+//   carries 4. These checks still cost about as much as the softmax sums:
+//   with no lists the kernel takes half its time (H100, N = 4,864,
+//   scripts/kernel_variants.py). The four threads of a row (a quad) are
+//   merged once per block. Vocab columns past V (the TMA zero-fills W's
+//   rows there) are set to -inf in the last tile, so they enter neither a
+//   list nor a sum. D a multiple of 8 up to 256: the TMA zero-fills the
+//   columns past D, so a last k-step of 8 adds zeros.
+// - f32, CUDA cores (exact f32 products, which the f32 beam id checks
+//   need): 256 threads stage 64-row tiles of h and W in shared memory as
+//   f32 (csrc/ce_tile.cuh), thread (ty, tx) owns rows ty + 16 i and columns
+//   tx + 16 j of each 64 x 64 tile and keeps lists of 8; the 16 threads of
+//   a row (16 consecutive lanes of one warp) merge by shuffles.
 
 #include <math_constants.h>
 
 #include "ce_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -56,11 +78,12 @@ __device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
 // insert (v, i) into the sorted list (lv, li), dropping its last entry: one
 // compare-and-swap pass with every index known at compile time, so the list
 // stays in registers
-__device__ __forceinline__ void insert(float (&lv)[kMaxK], int (&li)[kMaxK],
-                                       float v, int i) {
-  if (!before(v, i, lv[kMaxK - 1], li[kMaxK - 1])) return;
+template <int L>
+__device__ __forceinline__ void insert(float (&lv)[L], int (&li)[L], float v,
+                                       int i) {
+  if (!before(v, i, lv[L - 1], li[L - 1])) return;
 #pragma unroll
-  for (int t = 0; t < kMaxK; ++t) {
+  for (int t = 0; t < L; ++t) {
     if (before(v, i, lv[t], li[t])) {
       const float tv = lv[t];
       const int ti = li[t];
@@ -69,6 +92,35 @@ __device__ __forceinline__ void insert(float (&lv)[kMaxK], int (&li)[kMaxK],
       v = tv;
       i = ti;
     }
+  }
+}
+
+// insert (v, i) into the sorted list (lv, li) when i is above every index
+// in it (a thread's own columns, which come in increasing order) and v
+// above its last value: entries from v's place on move down one, each
+// step reading only the old list, so v goes after every equal value
+template <int L>
+__device__ __forceinline__ void insert_new(float (&lv)[L], int (&li)[L],
+                                           float v, int i) {
+#pragma unroll
+  for (int t = L - 1; t > 0; --t) {
+    const bool up = v > lv[t - 1];
+    const bool here = v > lv[t];
+    lv[t] = up ? lv[t - 1] : (here ? v : lv[t]);
+    li[t] = up ? li[t - 1] : (here ? i : li[t]);
+  }
+  if (v > lv[0]) {
+    lv[0] = v;
+    li[0] = i;
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void clear(float (&lv)[L], int (&li)[L]) {
+#pragma unroll
+  for (int t = 0; t < L; ++t) {
+    lv[t] = -CUDART_INF_F;
+    li[t] = kBig;
   }
 }
 
@@ -82,28 +134,43 @@ __device__ __forceinline__ void merge_ms(float& m, float& s, float m2,
 
 // merge the lists and sums of the lanes `lane ^ o` for o < width (a
 // butterfly over `width` consecutive lanes of a warp)
-__device__ __forceinline__ void merge_lanes(float (&lv)[kMaxK],
-                                            int (&li)[kMaxK], float& m,
-                                            float& s, int width) {
+template <int L>
+__device__ __forceinline__ void merge_lanes(float (&lv)[L], int (&li)[L],
+                                            float& m, float& s, int width) {
   for (int o = width / 2; o > 0; o /= 2) {
-    float ov[kMaxK];
-    int oi[kMaxK];
+    float ov[L];
+    int oi[L];
 #pragma unroll
-    for (int t = 0; t < kMaxK; ++t) {
+    for (int t = 0; t < L; ++t) {
       ov[t] = __shfl_xor_sync(0xffffffffu, lv[t], o);
       oi[t] = __shfl_xor_sync(0xffffffffu, li[t], o);
     }
     const float om = __shfl_xor_sync(0xffffffffu, m, o);
     const float os = __shfl_xor_sync(0xffffffffu, s, o);
 #pragma unroll
-    for (int t = 0; t < kMaxK; ++t) insert(lv, li, ov[t], oi[t]);
+    for (int t = 0; t < L; ++t) insert(lv, li, ov[t], oi[t]);
     merge_ms(m, s, om, os);
   }
 }
 
-template <typename T>
+// one (split, row)'s list and (max, sum) into the workspace (stride L)
+template <int L>
+__device__ __forceinline__ void put(const float (&lv)[L], const int (&li)[L],
+                                    float m, float s, float* part_v,
+                                    int* part_i, float* part_ms, size_t o) {
+#pragma unroll
+  for (int t = 0; t < L; ++t) {
+    part_v[o * L + t] = lv[t];
+    part_i[o * L + t] = li[t];
+  }
+  part_ms[o * 2] = m;
+  part_ms[o * 2 + 1] = s;
+}
+
+// ---- f32: CUDA cores ----
+
 __global__ void __launch_bounds__(kThreads)
-topk_partial_kernel(const T* __restrict__ h, const T* __restrict__ w,
+topk_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ part_v,
                     int* __restrict__ part_i, float* __restrict__ part_ms,
                     int n, int d, int v, int tiles_per_split) {
@@ -128,11 +195,7 @@ topk_partial_kernel(const T* __restrict__ h, const T* __restrict__ w,
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG;
     s[i] = 0.f;
-#pragma unroll
-    for (int t = 0; t < kMaxK; ++t) {
-      lv[i][t] = -CUDART_INF_F;
-      li[i][t] = kBig;
-    }
+    clear(lv[i], li[i]);
   }
 
   for (int t = t0; t < t1; ++t) {
@@ -176,21 +239,159 @@ topk_partial_kernel(const T* __restrict__ h, const T* __restrict__ w,
   for (int i = 0; i < 4; ++i) {
     merge_lanes(lv[i], li[i], m[i], s[i], 16);
     const int row = row0 + ty + 16 * i;
-    if (tx == 0 && row < n) {
-      const size_t o = (size_t)split * n + row;
-#pragma unroll
-      for (int t = 0; t < kMaxK; ++t) {
-        part_v[o * kMaxK + t] = lv[i][t];
-        part_i[o * kMaxK + t] = li[i][t];
-      }
-      part_ms[o * 2] = m[i];
-      part_ms[o * 2 + 1] = s[i];
-    }
+    if (tx == 0 && row < n)
+      put(lv[i], li[i], m[i], s[i], part_v, part_i, part_ms,
+          (size_t)split * n + row);
   }
 }
 
+// ---- bf16: tensor cores ----
+
+constexpr int kTV16 = 128;   // vocab rows per tile: wgmma N
+constexpr int kStages = 2;   // ring of vocab tiles
+
+// Folds the logits acc (64 x 128 accumulator of the vocab tile whose
+// column c0 + 8 q + e this thread holds as acc[4 q + 2 i + e] for its rows
+// i = 0, 1) into the thread's running max, sum and lists: the bias added in
+// place, columns from `lim` on (a ragged last tile) set to -inf.
+template <int L, bool kRagged>
+__device__ __forceinline__ void fold(float (&acc)[64], const float (&bias)[32],
+                                     int c0, int lim, float (&m)[2],
+                                     float (&s)[2], float (&lv)[2][L],
+                                     int (&li)[2][L]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float cm = NEG;
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = acc[4 * q + 2 * i + e];
+        x += bias[2 * q + e];
+        if (kRagged && c0 + 8 * q + e >= lim) x = -INFINITY;
+        cm = fmaxf(cm, x);
+      }
+    const float mn = fmaxf(m[i], cm);
+    const float mn2 = mn * wg::kLog2e;
+    float se = 0.f;
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        se += wg::exp2_approx(fmaf(acc[4 * q + 2 * i + e], wg::kLog2e, -mn2));
+    s[i] = s[i] * wg::exp2_approx((m[i] - mn) * wg::kLog2e) + se;
+    m[i] = mn;
+    // a logit below the last entry of any list of the row's quad has L
+    // larger ones in that list and cannot be among the row's best L
+    float tq = lv[i][L - 1];
+    tq = fmaxf(tq, __shfl_xor_sync(0xffffffffu, tq, 1));
+    tq = fmaxf(tq, __shfl_xor_sync(0xffffffffu, tq, 2));
+    // columns come in increasing order, so a logit equal to the last entry
+    // has the larger index and stays out
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = acc[4 * q + 2 * i + e];
+        if (x >= tq && x > lv[i][L - 1])
+          insert_new(lv[i], li[i], x, c0 + 8 * q + e);
+      }
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(wg::kThreads)
+topk_wgmma_kernel(const __grid_constant__ CUtensorMap hmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const float* __restrict__ b, float* __restrict__ part_v,
+                  int* __restrict__ part_i, float* __restrict__ part_ms,
+                  int n, int d, int v, int tiles_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar[kStages + 1];  // the ring's stages, then h
+  uint8_t* hs = wg::align_1024(smem_raw);
+  uint8_t* ring = hs + wg::tile_bytes(wg::kRows, d);
+  const int stage_bytes = wg::tile_bytes(kTV16, d);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * wg::kRows;
+  const int split = blockIdx.y;
+  const int nvt = (v + kTV16 - 1) / kTV16;
+  const int t0 = split * tiles_per_split;
+  const int count = min(t0 + tiles_per_split, nvt) - t0;
+
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) wg::mbar_init(&bar[i], 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    wg::load_tile(hs, &hmap, &bar[kStages], row0, wg::kRows, d);
+    for (int i = 0; i < kStages && i < count; ++i)
+      wg::load_tile(ring + i * stage_bytes, &wmap, &bar[i],
+                    (t0 + i) * kTV16, kTV16, d);
+  }
+
+  float m[2] = {NEG, NEG}, s[2] = {0.f, 0.f};
+  float lv[2][L];
+  int li[2][L];
+  clear(lv[0], li[0]);
+  clear(lv[1], li[1]);
+
+  wg::mbar_wait(&bar[kStages], 0);
+  const uint32_t h_addr = wg::smem_u32(hs);
+  for (int it = 0; it < count; ++it) {
+    const int col0 = (t0 + it) * kTV16;
+    const int c0 = col0 + 2 * (lane & 3);
+    float bias[32];  // 8-byte loads (c0 is even) but on a ragged tile
+    if (col0 + kTV16 <= v) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const float2 x = __ldg(reinterpret_cast<const float2*>(c0 + 8 * q + b));
+        bias[2 * q] = x.x;
+        bias[2 * q + 1] = x.y;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * q + e;
+          bias[2 * q + e] = c < v ? __ldg(b + c) : 0.f;
+        }
+    }
+    uint8_t* ws = ring + (it % kStages) * stage_bytes;
+    wg::mbar_wait(&bar[it % kStages], (it / kStages) & 1);
+    float acc[64];
+    wg::logits<kTV16, wg::kMaxSlabs>(acc, h_addr, wg::smem_u32(ws), d);
+    __syncthreads();  // every warp's products have read the stage
+    if (tid == 0 && it + kStages < count)
+      wg::load_tile(ws, &wmap, &bar[it % kStages],
+                    (t0 + it + kStages) * kTV16, kTV16, d);
+    if (col0 + kTV16 <= v)
+      fold<L, false>(acc, bias, c0, v, m, s, lv, li);
+    else
+      fold<L, true>(acc, bias, c0, v, m, s, lv, li);
+  }
+
+  // merge the four threads of each row (lanes 4 g .. 4 g + 3), in the same
+  // butterfly order in every run
+  const int r = (tid >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    merge_lanes(lv[i], li[i], m[i], s[i], 4);
+    const int row = row0 + r + 8 * i;
+    if ((lane & 3) == 0 && row < n)
+      put(lv[i], li[i], m[i], s[i], part_v, part_i, part_ms,
+          (size_t)split * n + row);
+  }
+}
+
+// ---- both: the splits merged ----
+
 // a warp per row: lane l merges splits l, l + 32, ... in order, then the
 // lanes are merged by a butterfly; lane 0 writes the first k and lse
+template <int L>
 __global__ void topk_combine_kernel(const float* __restrict__ part_v,
                                     const int* __restrict__ part_i,
                                     const float* __restrict__ part_ms,
@@ -201,25 +402,21 @@ __global__ void topk_combine_kernel(const float* __restrict__ part_v,
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= n) return;  // whole warps leave together
-  float lv[kMaxK];
-  int li[kMaxK];
-#pragma unroll
-  for (int t = 0; t < kMaxK; ++t) {
-    lv[t] = -CUDART_INF_F;
-    li[t] = kBig;
-  }
+  float lv[L];
+  int li[L];
+  clear(lv, li);
   float m = NEG, s = 0.f;
   for (int sp = lane; sp < splits; sp += 32) {
     const size_t o = (size_t)sp * n + row;
 #pragma unroll
-    for (int t = 0; t < kMaxK; ++t)
-      insert(lv, li, part_v[o * kMaxK + t], part_i[o * kMaxK + t]);
+    for (int t = 0; t < L; ++t)
+      insert(lv, li, part_v[o * L + t], part_i[o * L + t]);
     merge_ms(m, s, part_ms[o * 2], part_ms[o * 2 + 1]);
   }
   merge_lanes(lv, li, m, s, 32);
   if (lane == 0) {
 #pragma unroll
-    for (int t = 0; t < kMaxK; ++t) {
+    for (int t = 0; t < L; ++t) {
       if (t < k) {
         vals[(size_t)row * k + t] = lv[t];
         idx[(size_t)row * k + t] = li[t];
@@ -229,39 +426,80 @@ __global__ void topk_combine_kernel(const float* __restrict__ part_v,
   }
 }
 
-size_t smem_bytes(int d) { return sizeof(float) * (size_t)(TN + TV) * (d + 1); }
-
-template <typename T>
-int launch(const void* h, const void* w, const void* b, void* vals, void* idx,
-           void* lse, void* part_v, void* part_i, void* part_ms, int n, int d,
-           int v, int k, int splits, void* stream) {
-  if (n <= 0 || v <= 0 || d <= 0 || d > ce::kMaxD ||
-      d % (16 / (int)sizeof(T)) || splits <= 0 || k < 1 || k > kMaxK ||
-      k > v)
-    return (int)cudaErrorInvalidValue;
-  const int nvt = (v + TV - 1) / TV;
-  const int tps = (nvt + splits - 1) / splits;
-  if ((splits - 1) * tps >= nvt) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        topk_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((n + TN - 1) / TN, splits);
-  cudaStream_t st = (cudaStream_t)stream;
-  topk_partial_kernel<T><<<grid, kThreads, smem, st>>>(
-      (const T*)h, (const T*)w, (const float*)b, (float*)part_v,
-      (int*)part_i, (float*)part_ms, n, d, v, tps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+template <int L>
+int combine(const void* part_v, const void* part_i, const void* part_ms,
+            void* vals, void* idx, void* lse, int n, int k, int splits,
+            cudaStream_t st) {
   constexpr int kRowsPerBlock = 8;  // 8 warps
-  topk_combine_kernel<<<(n + kRowsPerBlock - 1) / kRowsPerBlock,
-                        32 * kRowsPerBlock, 0, st>>>(
+  topk_combine_kernel<L><<<(n + kRowsPerBlock - 1) / kRowsPerBlock,
+                           32 * kRowsPerBlock, 0, st>>>(
       (const float*)part_v, (const int*)part_i, (const float*)part_ms,
       (float*)vals, (int*)idx, (float*)lse, n, k, splits);
   return (int)cudaGetLastError();
+}
+
+size_t smem_bytes_f32(int d) {
+  return sizeof(float) * (size_t)(TN + TV) * (d + 1);
+}
+
+size_t smem_bytes_bf16(int d) {
+  return 1024 + (size_t)wg::tile_bytes(wg::kRows, d) +
+         (size_t)kStages * wg::tile_bytes(kTV16, d);
+}
+
+int set_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// vocab tiles per split for `splits` splits of tiles of `tv` rows, or -1
+// when the arguments are bad or a split would own no tile
+int split_tiles(int n, int d, int v, int k, int splits, int tv) {
+  if (n <= 0 || v <= 0 || d <= 0 || d > ce::kMaxD || d % 8 || splits <= 0 ||
+      k < 1 || k > kMaxK || k > v)
+    return -1;
+  const int nvt = (v + tv - 1) / tv;
+  const int tps = (nvt + splits - 1) / splits;
+  return (splits - 1) * tps >= nvt ? -1 : tps;
+}
+
+// What the wrapper cuts the vocab into splits by, into out[3]: `rows` of
+// h per tile, `vocab_rows` of W per tile, and how many blocks of the
+// partial kernel `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) fit an SM, from the occupancy calculator. 0 on success, else a
+// CUDA error.
+int tiling(const void* kernel, int threads, size_t smem, int rows,
+           int vocab_rows, int* out) {
+  const int err = set_smem(kernel, smem);
+  if (err) return err;
+  out[0] = rows;
+  out[1] = vocab_rows;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                            threads, smem);
+}
+
+template <int L>
+int launch_bf16(const void* h, const void* w, const void* b, void* vals,
+                void* idx, void* lse, void* part_v, void* part_i,
+                void* part_ms, int n, int d, int v, int k, int splits,
+                int tps, cudaStream_t st) {
+  CUtensorMap hmap, wmap;
+  int err = wg::make_map(&hmap, h, n, d, wg::kRows);
+  if (err) return err;
+  err = wg::make_map(&wmap, w, v, d, kTV16);
+  if (err) return err;
+  const size_t smem = smem_bytes_bf16(d);
+  err = set_smem((const void*)topk_wgmma_kernel<L>, smem);
+  if (err) return err;
+  topk_wgmma_kernel<L><<<dim3((n + wg::kRows - 1) / wg::kRows, splits),
+                         wg::kThreads, smem, st>>>(
+      hmap, wmap, (const float*)b, (float*)part_v, (int*)part_i,
+      (float*)part_ms, n, d, v, tps);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return combine<L>(part_v, part_i, part_ms, vals, idx, lse, n, k, splits,
+                    st);
 }
 
 }  // namespace
@@ -269,28 +507,71 @@ int launch(const void* h, const void* w, const void* b, void* vals, void* idx,
 extern "C" {
 
 // Bytes of dynamic shared memory one block of the partial kernel needs.
-size_t deepsc_topk_smem_bytes(int d) { return smem_bytes(d); }
+size_t deepsc_topk_smem_bytes_f32(int d) { return smem_bytes_f32(d); }
+size_t deepsc_topk_smem_bytes_bf16(int d) { return smem_bytes_bf16(d); }
 
-// h: contiguous f32 (N, D); w: contiguous f32 (V, D); b: f32 (V);
-// vals: f32 (N, k); idx: int32 (N, k); lse: f32 (N); part_v: f32 workspace
-// (splits, N, 8); part_i: int32 (splits, N, 8); part_ms: f32 (splits, N, 2).
-// 1 <= k <= min(8, V); every split must own at least one vocab tile of 64
-// rows. Returns cudaGetLastError() after the launches (0 = success).
+// The splits' terms at width d, out[3] as `tiling` fills it for the
+// partial kernel of the dtype on the current device (bf16: the instance
+// with lists of 8; a shorter list takes fewer registers, and the shared
+// memory bounds the blocks per SM either way).
+int deepsc_topk_tiling_f32(int d, int* out) {
+  if (d <= 0 || d > ce::kMaxD || d % 8) return (int)cudaErrorInvalidValue;
+  return tiling((const void*)topk_partial_kernel, kThreads, smem_bytes_f32(d),
+                TN, TV, out);
+}
+
+int deepsc_topk_tiling_bf16(int d, int* out) {
+  if (d <= 0 || d > ce::kMaxD || d % 8) return (int)cudaErrorInvalidValue;
+  return tiling((const void*)topk_wgmma_kernel<kMaxK>, wg::kThreads,
+                smem_bytes_bf16(d), wg::kRows, kTV16, out);
+}
+
+// h: contiguous f32 (N, D), D a multiple of 8 up to 256; w: contiguous f32
+// (V, D); b: f32 (V); vals: f32 (N, k); idx: int32 (N, k); lse: f32 (N);
+// part_v: f32 workspace (splits, N, 8); part_i: int32 (splits, N, 8);
+// part_ms: f32 (splits, N, 2). 1 <= k <= min(8, V); every split must own
+// at least one vocab tile of 64 rows. Returns cudaGetLastError() after the
+// launches (0 = success).
 int deepsc_topk_f32(const void* h, const void* w, const void* b, void* vals,
                     void* idx, void* lse, void* part_v, void* part_i,
                     void* part_ms, int n, int d, int v, int k, int splits,
                     void* stream) {
-  return launch<float>(h, w, b, vals, idx, lse, part_v, part_i, part_ms, n,
-                       d, v, k, splits, stream);
+  const int tps = split_tiles(n, d, v, k, splits, TV);
+  if (tps < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes_f32(d);
+  int err = set_smem((const void*)topk_partial_kernel, smem);
+  if (err) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  topk_partial_kernel<<<dim3((n + TN - 1) / TN, splits), kThreads, smem,
+                        st>>>((const float*)h, (const float*)w,
+                              (const float*)b, (float*)part_v, (int*)part_i,
+                              (float*)part_ms, n, d, v, tps);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return combine<kMaxK>(part_v, part_i, part_ms, vals, idx, lse, n, k,
+                        splits, st);
 }
 
-// As above with h and w in bf16.
+// As above with h and w in bf16; every split owns at least one vocab tile
+// of 128 rows.
 int deepsc_topk_bf16(const void* h, const void* w, const void* b, void* vals,
                      void* idx, void* lse, void* part_v, void* part_i,
                      void* part_ms, int n, int d, int v, int k, int splits,
                      void* stream) {
-  return launch<__nv_bfloat16>(h, w, b, vals, idx, lse, part_v, part_i,
-                               part_ms, n, d, v, k, splits, stream);
+  const int tps = split_tiles(n, d, v, k, splits, kTV16);
+  if (tps < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k == 1)
+    return launch_bf16<1>(h, w, b, vals, idx, lse, part_v, part_i, part_ms,
+                          n, d, v, k, splits, tps, st);
+  if (k == 2)
+    return launch_bf16<2>(h, w, b, vals, idx, lse, part_v, part_i, part_ms,
+                          n, d, v, k, splits, tps, st);
+  if (k <= 4)
+    return launch_bf16<4>(h, w, b, vals, idx, lse, part_v, part_i, part_ms,
+                          n, d, v, k, splits, tps, st);
+  return launch_bf16<kMaxK>(h, w, b, vals, idx, lse, part_v, part_i, part_ms,
+                            n, d, v, k, splits, tps, st);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
-// Tensor-core pieces of the bf16 vocab cross-entropy kernels (csrc/ce_fwd.cu,
-// csrc/ce_bwd.cu) for Hopper (sm_90a): TMA loads into 128-byte-swizzled
-// shared memory, mbarriers, wgmma descriptors and the three warpgroup
-// products the kernels use, as inline PTX.
+// Tensor-core pieces of the bf16 vocab kernels (the cross entropy of
+// csrc/ce_fwd.cu and csrc/ce_bwd.cu, and the beam scorer of csrc/topk.cu)
+// for Hopper (sm_90a): TMA loads into 128-byte-swizzled shared memory,
+// mbarriers, wgmma descriptors and the three warpgroup products the
+// kernels use, as inline PTX.
 //
 // Layout. h (N, D) and the vocab table W (V, D) are row-major bf16, so a
 // tile of R rows is R x D with D contiguous. In shared memory a tile is
@@ -11,7 +12,8 @@
 // the TMA applies on its way in: CU_TENSOR_MAP_SWIZZLE_128B). Slabs are
 // 1024-byte aligned. Columns past D and rows past the tensor's end are
 // zero-filled by the TMA, so no padded copy of W is ever made. D is a
-// multiple of 16 up to 256 (at most four slabs).
+// multiple of 16 up to 256 (at most four slabs); the logits alone also take
+// a multiple of 8, whose last k-step reads the TMA's zeros past D.
 //
 // The same slab serves two products:
 // - as a K-major operand (K = D): the logits h_t . W_t^T, where both h and
@@ -264,8 +266,8 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a,
 
 // acc = A . B^T, (64 x N) f32, over all 16-column k-steps of D: A (64 x D)
 // at `a` and B (N x D) at `b`, both K-major tiles of NS slabs (D <= 64 NS)
-// in shared memory. The k loop is unrolled to its most steps, so the
-// accumulator keeps its registers.
+// in shared memory, zero past D. The k loop is unrolled to its most steps,
+// so the accumulator keeps its registers.
 template <int N, int NS>
 __device__ __forceinline__ void logits(float (&acc)[N / 2], uint32_t a,
                                        uint32_t b, int d) {
@@ -273,7 +275,7 @@ __device__ __forceinline__ void logits(float (&acc)[N / 2], uint32_t a,
   fence();
 #pragma unroll
   for (int kk = 0; kk < 4 * NS; ++kk) {
-    if (kk < d / 16) {
+    if (kk < (d + 15) / 16) {
       const uint64_t da = desc_k(a, kRows, kk);
       const uint64_t db = desc_k(b, N, kk);
       if constexpr (N == 128)

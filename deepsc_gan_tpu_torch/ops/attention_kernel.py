@@ -25,8 +25,9 @@ from deepsc_gan_tpu_torch.ops import build
 
 KERNEL = "attention_fwd"
 KERNEL_BWD = "attention_bwd"
-# what the kernel takes (csrc/attention_fwd.cu): a warp per head, a lane
-# per query, the logits and context of a pair in registers
+# what the kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu): a
+# warp per head, at most 32 queries and keys (a tile of two 16-row mma
+# m-tiles in the bf16 forward, a lane per query otherwise)
 HEAD_DIMS = (8, 16, 32)
 MAX_LEN = 32
 MAX_HEADS = 16
@@ -96,6 +97,10 @@ def attention_bwd_reference(q, k, v, bias, g, heads: int, scale: float,
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _POINTERS = {KERNEL: 5, KERNEL_BWD: 9}
+# the shared-memory size function of each library (the forward's differs
+# by dtype)
+_SMEM = {KERNEL: "deepsc_attention_fwd_smem_bytes_{}",
+         KERNEL_BWD: "deepsc_attention_bwd_smem_bytes"}
 _BOUND = {}
 
 
@@ -109,7 +114,7 @@ def _bind(kernel, dtype):
                        + [ctypes.c_int] * 5
                        + [ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = getattr(lib, f"deepsc_{kernel}_smem_bytes")
+        smem = getattr(lib, _SMEM[kernel].format(_SUFFIX[dtype]))
         smem.argtypes = [ctypes.c_int] * 4
         smem.restype = ctypes.c_size_t
         _BOUND[(kernel, dtype)] = (fn, smem)

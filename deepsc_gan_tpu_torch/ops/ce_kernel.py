@@ -100,9 +100,8 @@ _TILING = {}
 
 
 def _bind(kernel, dtype):
-    """(launch function, shared-memory size function, tiling function) of
-    the built library of `kernel`, with their ctypes signatures
-    declared."""
+    """(launch function, shared-memory size function) of the built
+    library of `kernel`, with their ctypes signatures declared."""
     if (kernel, dtype) not in _BOUND:
         lib = build.load(kernel)
         fn = getattr(lib, f"deepsc_{kernel}_{_SUFFIX[dtype]}")
@@ -112,23 +111,25 @@ def _bind(kernel, dtype):
         smem = getattr(lib, f"deepsc_{kernel}_smem_bytes_{_SUFFIX[dtype]}")
         smem.argtypes = [ctypes.c_int]
         smem.restype = ctypes.c_size_t
-        tiling = getattr(lib, f"deepsc_{kernel}_tiling_{_SUFFIX[dtype]}")
-        tiling.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        tiling.restype = ctypes.c_int
-        _BOUND[(kernel, dtype)] = (fn, smem, tiling)
+        _BOUND[(kernel, dtype)] = (fn, smem)
     return _BOUND[(kernel, dtype)]
 
 
 def tiling(kernel, dtype, d, device):
     """(rows of h per tile, vocab rows per tile, blocks per SM) of the
-    kernel in the library `kernel` that takes the vocab splits, at width d
-    on `device`, as the library reports them (the blocks from CUDA's
+    kernel in the library `kernel` (`ce_fwd`, `ce_bwd` or K6's `topk`) that
+    takes the vocab splits, at width d on `device`, as the library's
+    `deepsc_<kernel>_tiling_<dtype>` reports them (the blocks from CUDA's
     occupancy calculator)."""
     key = (kernel, dtype, d, device)
     if key not in _TILING:
+        fn = getattr(build.load(kernel),
+                     f"deepsc_{kernel}_tiling_{_SUFFIX[dtype]}")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
         out = (ctypes.c_int * 3)()
         with torch.cuda.device(device):
-            err = _bind(kernel, dtype)[2](d, out)
+            err = fn(d, out)
         if err != 0:
             raise RuntimeError(f"{kernel} tiling at D {d}: CUDA error {err}")
         _TILING[key] = tuple(out)
@@ -194,7 +195,7 @@ def vocab_splits(n: int, v: int, sm_count: int, rows: int, vocab_rows: int,
 
 def _launch_setup(kernel, h, W):
     """(launch function, vocab splits) for h and W."""
-    fn, smem_bytes, _ = _bind(kernel, h.dtype)
+    fn, smem_bytes = _bind(kernel, h.dtype)
     props = torch.cuda.get_device_properties(h.device)
     smem = smem_bytes(h.shape[1])
     if smem > props.shared_memory_per_block_optin:

@@ -13,7 +13,10 @@ operands in h's dtype when it is bf16 and in f32 otherwise, with f32 sums
 and bias (`op_dtype`, as the CE kernels). On CUDA tensors the wrapper
 launches the kernel (and counts the launch) or raises; on CPU tensors it
 runs the plain version, which is also what the kernel is held against on
-the card.
+the card. Each dtype has one kernel: bf16 multiplies on the tensor cores
+(wgmma) and f32 on the CUDA cores in exact f32, which the f32 beam id
+checks need. The vocab splits come from `ce_kernel.vocab_splits` fed by
+the library's tiles and blocks per SM (`deepsc_topk_tiling_*`).
 
 `take_top` is the selection both use, and beam search's second stage too:
 k rounds of (max, lowest index reaching the max), each winner masked to
@@ -23,7 +26,6 @@ NEG. `torch.topk` is not used: its order on ties is not specified.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -32,14 +34,14 @@ from deepsc_gan_tpu_torch.ops.ce_kernel import (
     MAX_D,
     _on_cuda,
     op_dtype,
+    tiling,
+    vocab_splits,
 )
 
 KERNEL = "topk"
 NEG = -1e30
 IBIG = 2 ** 30
-MAX_K = 8       # the kernel keeps a sorted list of 8 candidates per row
-TILE = 64       # rows of h and of W per tile (csrc/ce_tile.cuh)
-BLOCKS_PER_SM = 2   # blocks per SM the vocab splits aim for
+MAX_K = 8       # the kernel keeps a sorted list of at most 8 per row
 
 # Launches of K6 since the last reset (the wrapper adds one per launch and
 # nowhere else); read by chip_smoke.py to show that a path went through it.
@@ -49,15 +51,6 @@ launches = 0
 def reset_launches() -> None:
     global launches
     launches = 0
-
-
-def vocab_splits(n: int, v: int, sm_count: int) -> int:
-    """Vocab ranges the row tiles are cut into, so about BLOCKS_PER_SM
-    blocks per SM run at once; every range owns at least one vocab tile."""
-    tiles = math.ceil(v / TILE)
-    want = max(1, math.ceil(BLOCKS_PER_SM * sm_count / math.ceil(n / TILE)))
-    per = math.ceil(tiles / min(want, tiles))
-    return math.ceil(tiles / per)
 
 
 def take_top(x: torch.Tensor, cols: torch.Tensor, k: int):
@@ -108,7 +101,7 @@ def _bind(dtype):
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = getattr(lib, "deepsc_topk_smem_bytes")
+        smem = getattr(lib, f"deepsc_topk_smem_bytes_{_SUFFIX[dtype]}")
         smem.argtypes = [ctypes.c_int]
         smem.restype = ctypes.c_size_t
         _BOUND[dtype] = (fn, smem)
@@ -156,7 +149,8 @@ def topk_logits(h, W, b, k: int = 4):
                          f"memory per block; the device allows "
                          f"{props.shared_memory_per_block_optin}")
     (n, d), v = h.shape, W.shape[0]
-    splits = vocab_splits(n, v, props.multi_processor_count)
+    splits = vocab_splits(n, v, props.multi_processor_count,
+                          *tiling(KERNEL, h.dtype, d, h.device))
     dev = h.device
     vals = torch.empty((n, k), dtype=torch.float32, device=dev)
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)

@@ -1,0 +1,253 @@
+#!/usr/bin/env python3
+"""What bounds the bf16 K1 and K6: each built as it is and with one part
+changed or taken out, timed on one card.
+
+    python3 scripts/kernel_variants.py [--iters 50]
+
+Every variant is an edited copy of `csrc/attention_fwd.cu` or
+`csrc/topk.cu` (the edit is a text replacement that must match the
+source), built with the port's nvcc flags in a temporary directory and
+called through its own C interface at the paths' shapes, on the inputs
+chip_smoke.py gives the kernels. Variants:
+- K1 (N = 1,216 and 64, Lq = Lk = 31, 8 heads of 16): `as_is`;
+  `ieee_div`, e / sum by `__fdiv_rn` instead of the reciprocal and one fma
+  correction; `no_softmax`, no products or softmax at all (the row's
+  loads and the stores alone: the kernel's floor as designed).
+- K6 (N = 256 and 4,864, k = 4, V = 22,234; and N = 256, k = 8):
+  `as_is`; `no_quad`, without the quad's shared threshold; `swap_insert`,
+  every insertion by the merge's compare-and-swap pass (index compares
+  included) instead of the shift; `no_lists`, no top-k lists (the
+  softmax sums alone).
+Prints each variant's max error against the plain version (K6: whether
+its indices equal the plain version's) and its device time per call
+(`chip_smoke.device_ms`: the calls queued behind a spin of the device),
+with the card's name and power limit. Then holds K1's `div_rn` (its text
+taken from the source) bit for bit against `__fdiv_rn` over 2^32 pairs
+(a, b): a in [0, 1) and b in [1, 32) as K1's e and sum, and a any normal
+float below 1. Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke as cs  # noqa: E402
+from deepsc_gan_tpu_torch.ops import attention_kernel as attn  # noqa: E402
+from deepsc_gan_tpu_torch.ops import build  # noqa: E402
+from deepsc_gan_tpu_torch.ops import ce_kernel as ce  # noqa: E402
+from deepsc_gan_tpu_torch.ops import topk_kernel as topk  # noqa: E402
+
+K1_DIV = (
+    """        pa[kk][2 * half] = pack_bf16(div_rn(x[0], sum[0], rs[0]),
+                                     div_rn(x[1], sum[0], rs[0]));
+        pa[kk][2 * half + 1] = pack_bf16(div_rn(x[2], sum[1], rs[1]),
+                                         div_rn(x[3], sum[1], rs[1]));""",
+    """        pa[kk][2 * half] = pack_bf16(__fdiv_rn(x[0], sum[0]),
+                                     __fdiv_rn(x[1], sum[0]));
+        pa[kk][2 * half + 1] = pack_bf16(__fdiv_rn(x[2], sum[1]),
+                                         __fdiv_rn(x[3], sum[1]));""")
+K1_NONE = ("  const int mtiles = lq > 16 ? 2 : 1;", "  const int mtiles = 0;")
+K6_CHECK = """        if (x >= tq && x > lv[i][L - 1])
+          insert_new(lv[i], li[i], x, c0 + 8 * q + e);"""
+K6_QUAD = (K6_CHECK, """        if (x > lv[i][L - 1])
+          insert_new(lv[i], li[i], x, c0 + 8 * q + e);""")
+K6_SWAP = (K6_CHECK, """        if (x >= tq && x > lv[i][L - 1])
+          insert(lv[i], li[i], x, c0 + 8 * q + e);""")
+K6_NONE = (K6_CHECK, "")
+
+VARIANTS = {
+    "attention_fwd": {"as_is": [], "ieee_div": [K1_DIV],
+                      "no_softmax": [K1_NONE]},
+    "topk": {"as_is": [], "no_quad": [K6_QUAD], "swap_insert": [K6_SWAP],
+             "no_lists": [K6_NONE]},
+}
+
+
+def build_all(tmp: Path) -> dict:
+    """Every variant's library, all nvcc processes started together."""
+    jobs = {}
+    for src, variants in VARIANTS.items():
+        text = (build.CSRC / f"{src}.cu").read_text()
+        for name, edits in variants.items():
+            s = text
+            for old, new in edits:
+                if s.count(old) != 1:
+                    raise RuntimeError(f"{src} {name}: the edit does not "
+                                       f"match the source once")
+                s = s.replace(old, new)
+            path = tmp / f"{src}_{name}.cu"
+            path.write_text(s)
+            lib = tmp / f"lib{src}_{name}.so"
+            cmd = build.nvcc_command(path, lib, build.find_nvcc())
+            cmd[1:1] = ["-I", str(build.CSRC)]
+            jobs[(src, name)] = (lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    libs = {}
+    for key, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        libs[key] = ctypes.CDLL(str(lib))
+    return libs
+
+
+DIVISION = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+%s
+__device__ uint32_t mix(uint32_t x) {
+  x ^= x >> 16; x *= 0x7feb352du; x ^= x >> 15; x *= 0x846ca68bu;
+  return x ^ (x >> 16);
+}
+// per thread `per` pairs; mode 0: a in [0, 1), b in [1, 32); mode 1: a any
+// normal float below 1, b in [1, 32)
+// count[0]: quotients that differ; count[1]: those of them that are normal
+__global__ void differ(unsigned long long* count, int per, int mode) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned long long n = 0, normal = 0;
+  for (int i = 0; i < per; ++i) {
+    const uint32_t h1 = mix(t * 2654435761u + i * 40503u + 1u);
+    const uint32_t h2 = mix(h1 ^ 0x9e3779b9u);
+    const float a = mode == 0 ? (h1 >> 8) * (1.f / 16777216.f)
+        : __uint_as_float(0x00800000u + h1 %% (0x3f800000u - 0x00800000u));
+    const float b = 1.f + (h2 >> 8) * (31.f / 16777216.f);
+    const float want = __fdiv_rn(a, b);
+    if (__float_as_uint(div_rn(a, b, __frcp_rn(b))) !=
+        __float_as_uint(want)) {
+      ++n;
+      normal += want >= 1.17549435e-38f;
+    }
+  }
+  atomicAdd(count, n);
+  atomicAdd(count + 1, normal);
+}
+extern "C" int run(void* count, int mode) {
+  differ<<<4096, 256>>>((unsigned long long*)count, 4096, mode);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def division_check(tmp: Path):
+    """K1's div_rn against __fdiv_rn, 2^32 pairs per mode."""
+    text = (build.CSRC / "attention_fwd.cu").read_text()
+    fn = re.search(r"__device__ __forceinline__ float div_rn\(.*?\n}\n",
+                   text, re.S)
+    if fn is None:
+        raise RuntimeError("div_rn not found in csrc/attention_fwd.cu")
+    src, lib = tmp / "division.cu", tmp / "libdivision.so"
+    src.write_text(DIVISION % fn.group(0))
+    subprocess.run(build.nvcc_command(src, lib, build.find_nvcc()),
+                   check=True, capture_output=True)
+    run = ctypes.CDLL(str(lib)).run
+    run.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    run.restype = ctypes.c_int
+    for mode, what in ((0, "a in [0, 1)"), (1, "a any normal float < 1")):
+        count = torch.zeros(2, dtype=torch.int64, device="cuda")
+        if run(count.data_ptr(), mode):
+            raise RuntimeError("division check: CUDA error")
+        differ, normal = count.tolist()
+        print(f"[division] div_rn vs __fdiv_rn, {what}, b in [1, 32): "
+              f"{differ} of {4096 * 256 * 4096} quotients differ, {normal} "
+              f"of them normal", flush=True)
+
+
+def stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def k1_rows(libs, gen, iters):
+    for n in (1216, 64):
+        q, k, v, bias = cs.attention_inputs(n, 31, 31, torch.bfloat16, gen,
+                                            True)
+        ref = attn.attention_fwd_reference(q, k, v, bias, cs.HEADS, 4.0)
+        out = torch.empty_like(q)
+        for name in VARIANTS["attention_fwd"]:
+            fn = libs[("attention_fwd", name)].deepsc_attention_fwd_bf16
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_double, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         bias.data_ptr(), out.data_ptr(), n, 31, 31,
+                         cs.HEADS, cs.DH, 4.0, stream())
+                if err:
+                    raise RuntimeError(f"K1 {name}: CUDA error {err}")
+
+            call()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            print(f"[variant] K1 {name:11s} N={n:5d}: max err {err:.3g}, "
+                  f"device_ms {cs.device_ms(call, iters)!r}", flush=True)
+
+
+def k6_rows(libs, gen, iters):
+    d, v = 128, 22234
+    for n, k in ((256, 4), (4864, 4), (256, 8)):
+        h = cs.dyadic((n, d), 8, gen, torch.bfloat16)
+        W = cs.dyadic((v, d), 2, gen, torch.bfloat16)
+        b = cs.dyadic((v,), 8, gen, torch.float32)
+        ref = topk.topk_logits_reference(h, W, b, k)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = ce.vocab_splits(n, v, sms, *ce.tiling(
+            topk.KERNEL, torch.bfloat16, d, h.device))
+        f32 = {"dtype": torch.float32, "device": "cuda"}
+        vals, lse = torch.empty((n, k), **f32), torch.empty(n, **f32)
+        idx = torch.empty((n, k), dtype=torch.int32, device="cuda")
+        part_v = torch.empty((splits, n, topk.MAX_K), **f32)
+        part_i = torch.empty((splits, n, topk.MAX_K), dtype=torch.int32,
+                             device="cuda")
+        part_ms = torch.empty((splits, n, 2), **f32)
+        for name in VARIANTS["topk"]:
+            fn = libs[("topk", name)].deepsc_topk_bf16
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            def call():
+                err = fn(h.data_ptr(), W.data_ptr(), b.data_ptr(),
+                         vals.data_ptr(), idx.data_ptr(), lse.data_ptr(),
+                         part_v.data_ptr(), part_i.data_ptr(),
+                         part_ms.data_ptr(), n, d, v, k, splits, stream())
+                if err:
+                    raise RuntimeError(f"K6 {name}: CUDA error {err}")
+
+            call()
+            torch.cuda.synchronize()
+            print(f"[variant] K6 {name:11s} N={n:5d} k={k}: indices equal "
+                  f"{torch.equal(idx, ref[1])}, lse err "
+                  f"{(lse - ref[2]).abs().max().item():.3g}, device_ms "
+                  f"{cs.device_ms(call, iters)!r}", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_variants: CUDA is not available", file=sys.stderr)
+        return 1
+    cs.phase_device()
+    gen = torch.Generator("cuda").manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_all(Path(tmp))
+        k1_rows(libs, gen, args.iters)
+        k6_rows(libs, gen, args.iters)
+        division_check(Path(tmp))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

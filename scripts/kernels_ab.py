@@ -1,0 +1,184 @@
+#!/usr/bin/env python3
+"""The port's kernels of two checkouts, timed in turns on one card.
+
+    python3 scripts/kernels_ab.py OLD NEW [--cases ce,attention,topk]
+                                  [--turns ABBA] [--iters 50]
+
+OLD and NEW are roots of checkouts of the repo (for instance a parent commit
+unpacked with `git archive <commit> chip_smoke.py deepsc_gan_tpu_torch` into
+a directory that .gitignore lists, and `.`). Turn A runs OLD, turn B runs
+NEW, each in a process of its own from its checkout's root, which builds
+that checkout's kernels and runs its own `chip_smoke` cases, in bf16 and
+f32: each kernel against its plain version, with the time per call between
+CUDA events, the host's enqueue time, the plain version's time and the
+library call's. Cases:
+- `ce`: K3 and K4 at the training path's shape (N = 1,984, D = 128,
+  V = 22,234);
+- `attention`: K1 at the serving path's shapes (N = 19 x 64 = 1,216) and
+  the training path's (N = 64), encoder (Lq = Lk = 32), decoder self
+  (31, 31) and cross (31, 32) attention, 8 heads of 16;
+- `topk`: K6 at the CLI's beam (N = 64 x 4 = 256) and the beam sweep's
+  (N = 19 x 256 = 4,864), k = 4.
+Each turn then takes the device time per call of every kernel the bf16
+wrapper launches at each shape, from torch.profiler over 20 calls. Prints
+every row with its checkout and turn, then the median of each number by
+checkout, and the card's name and power limit. Needs CUDA; imports nothing
+of either checkout itself.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+CASES = ("ce", "attention", "topk")
+
+TURN = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from deepsc_gan_tpu_torch.ops import attention_kernel as attn
+from deepsc_gan_tpu_torch.ops import build
+from deepsc_gan_tpu_torch.ops import ce_kernel as ce
+from deepsc_gan_tpu_torch.ops import topk_kernel as topk
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+args = json.loads(sys.argv[1])
+cases, iters = args["cases"], args["iters"]
+N, D, V = 1984, 128, 22234
+SERVE, TRAIN, BEAM = 19 * 64, 64, 256
+
+
+def device_us(kernel, case, call):
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            us = (e.time_range.end - e.time_range.start) / 20
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    print("DEVICE " + json.dumps({"kernel": kernel, "case": case,
+                                  "dtype": "bfloat16",
+                                  "device_us": sum(by_name.values()),
+                                  "by_name": by_name}), flush=True)
+
+
+def row(r):
+    print("ROW " + json.dumps(r), flush=True)
+
+
+cs.phase_device()
+build.build([name for case, names in (
+    ("ce", [ce.KERNEL_FWD, ce.KERNEL_BWD]), ("attention", [attn.KERNEL]),
+    ("topk", [topk.KERNEL])) if case in cases for name in names])
+bf16 = torch.bfloat16
+if "ce" in cases:
+    for dtype in (bf16, torch.float32):
+        gen = torch.Generator("cuda").manual_seed(0)
+        for r in cs.ce_cases(dtype, gen, iters, N, D, V):
+            row(r)
+    gen = torch.Generator("cuda").manual_seed(1)
+    h, W, b, labels, g = cs.ce_inputs(bf16, gen, N, D, V)
+    lse = ce.ce_fwd(h, W, b, labels)[1]
+    device_us(ce.KERNEL_FWD, "ce", lambda: ce.ce_fwd(h, W, b, labels))
+    device_us(ce.KERNEL_BWD, "ce",
+              lambda: ce.ce_bwd(h, W, b, labels, lse, g))
+if "attention" in cases:
+    shapes = [(label, SERVE, lq, lk) for label, lq, lk in cs.TRAIN_SHAPES]
+    shapes += [("train_" + label, TRAIN, lq, lk)
+               for label, lq, lk in cs.TRAIN_SHAPES]
+    for dtype in (bf16, torch.float32):
+        gen = torch.Generator("cuda").manual_seed(0)
+        for label, n, lq, lk in shapes:
+            row(cs.attention_case(label, n, lq, lk, dtype, gen, iters))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, n, lq, lk in shapes:
+        q, k, v, bias = cs.attention_inputs(n, lq, lk, bf16, gen, lq == lk)
+        device_us(attn.KERNEL, label,
+                  lambda: attn.attention_fwd(q, k, v, bias, cs.HEADS, 4.0))
+if "topk" in cases:
+    shapes = (("beam", BEAM), ("beam_sweep", 19 * BEAM))
+    for dtype in (bf16, torch.float32):
+        gen = torch.Generator("cuda").manual_seed(0)
+        for label, n in shapes:
+            row(cs.topk_case(label, n, dtype, gen, iters))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, n in shapes:
+        h = cs.dyadic((n, D), 8, gen, bf16)
+        W = cs.dyadic((V, D), 2, gen, bf16)
+        b = cs.dyadic((V,), 8, gen, torch.float32)
+        device_us(topk.KERNEL, label, lambda: topk.topk_logits(h, W, b, 4))
+"""
+
+
+def run_turn(root: Path, cases, iters: int) -> list:
+    """One checkout's rows: ("ROW" or "DEVICE", dict) for each such line."""
+    proc = subprocess.run(
+        [sys.executable, "-c", TURN,
+         json.dumps({"cases": list(cases), "iters": iters})],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"turn in {root} failed (exit {proc.returncode}):"
+                           f"\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    out = []
+    for line in proc.stdout.splitlines():
+        if line.startswith("[device]"):
+            print(f"  {line}")
+        for tag in ("ROW ", "DEVICE "):
+            if line.startswith(tag):
+                out.append((tag.strip(), json.loads(line[len(tag):])))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("old", type=Path)
+    ap.add_argument("new", type=Path)
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help=f"comma-separated, of {', '.join(CASES)}")
+    ap.add_argument("--turns", default="ABBA")
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args(argv)
+    cases = args.cases.split(",")
+    if not set(cases) <= set(CASES):
+        ap.error(f"--cases takes {', '.join(CASES)}, not {args.cases}")
+    roots = {"A": args.old.resolve(), "B": args.new.resolve()}
+    print(f"A = {roots['A']}\nB = {roots['B']}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(f"card: {smi.stdout.strip()}")
+    seen = {}
+    for i, turn in enumerate(args.turns):
+        for tag, row in run_turn(roots[turn], cases, args.iters):
+            print(f"[turn {i} {turn}] {tag} {json.dumps(row)}")
+            key = (turn, row["kernel"], row["case"], row["dtype"])
+            if tag == "ROW":
+                for field in ("ms", "host_enqueue_ms", "plain_ms",
+                              "library_ms", "device_ms"):
+                    if row.get(field) is not None:
+                        seen.setdefault(key + (field,), []).append(
+                            row[field])
+            else:
+                seen.setdefault(key + ("device_us",), []).append(
+                    row["device_us"])
+    print("medians by checkout:")
+    for key in sorted(seen):
+        vals = seen[key]
+        print(f"  {' '.join(key)}: {statistics.median(vals)!r} "
+              f"(of {len(vals)}: {vals})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

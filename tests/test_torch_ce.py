@@ -19,7 +19,6 @@ from deepsc_gan_tpu.ops.pallas.ce import (
     set_ce_kernel_mode,
 )
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
-from deepsc_gan_tpu_torch.ops import topk_kernel as topk
 from deepsc_gan_tpu_torch.ops.fused_ce import fused_ce_loss
 from deepsc_gan_tpu_torch.ops.losses import loss_function
 
@@ -162,9 +161,9 @@ def test_vocab_splits_leave_no_split_empty(n, v, sms):
     """The C entry points refuse a split that owns no vocab tile: the CE
     kernels' splits (`ce.vocab_splits`, here at the tilings the kernels
     report: 64-row h tiles, vocab tiles of 64 or 128 rows, one to three
-    blocks per SM), whose blocks also fit in one wave, and K6's
-    (`topk.vocab_splits`, tiles of 64)."""
-    cases = [(topk.vocab_splits(n, v, sms), topk.TILE)]
+    blocks per SM), whose blocks also fit in one wave; K6 takes its splits
+    from the same function at the tiles its library reports."""
+    cases = []
     for vocab_rows, blocks in ((64, 1), (64, 2), (128, 2), (64, 3)):
         splits = ce.vocab_splits(n, v, sms, 64, vocab_rows, blocks)
         assert splits == 1 or -(-n // 64) * splits <= blocks * sms
@@ -179,10 +178,9 @@ def test_vocab_splits_fill_one_wave_at_the_training_shape():
     """At the training path's shape on 132 SMs the 31 row tiles take 8
     forward splits (vocab tiles of 128, two blocks per SM: the bf16 K3) and
     12 dh splits (tiles of 64, three blocks per SM: the bf16 K4), one wave
-    each; K6 keeps its own policy (about two blocks per SM, 9 splits)."""
+    each."""
     assert ce.vocab_splits(1984, 22234, 132, 64, 128, 2) == 8
     assert ce.vocab_splits(1984, 22234, 132, 64, 64, 3) == 12
-    assert topk.vocab_splits(1984, 22234, 132) == 9
 
 
 def _ok_args(dtype=torch.bfloat16, n=4, d=128, v=100):

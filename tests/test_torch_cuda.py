@@ -70,6 +70,45 @@ def test_kernel_matches_plain_version(cuda, dtype, tol, lq, lk, h, dh):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _blocked_inputs(n, lq, lk, h, dh, dtype, device, seed=12):
+    """`_inputs`, and every key of batch row n - 1 blocked too."""
+    q, k, v, bias = _inputs(seed, n, lq, lk, h, dh, dtype, device)
+    bias[-1] = -1e9
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("n", [1, 37, 1216])
+def test_kernel_takes_every_batch_row_offset(cuda, dtype, tol, n):
+    """K1 at Lq = Lk = 31 for one batch row, an odd number (each row's
+    31 x 31 f32 bias tile starts at another offset from a 16-byte boundary)
+    and the serving sweep's 19 x 64, with fully blocked query rows (a
+    blocked row's weights stay near-uniform, as the plain version's)."""
+    q, k, v, bias = _blocked_inputs(n, 31, 31, 8, 16, dtype, cuda)
+    attn.reset_launches()
+    out = attn.attention_fwd(q, k, v, bias, 8, 4.0)
+    ref = attn.attention_fwd_reference(q, k, v, bias, 8, 4.0)
+    torch.cuda.synchronize()
+    assert attn.launches == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("h", [2, 3, 8, 16])
+@pytest.mark.parametrize("dh", [8, 16, 32])
+def test_kernel_takes_every_head_width_and_count(cuda, dtype, tol, h, dh):
+    """K1 at every head width it takes (Dh = 8: half a bf16 mma k-step;
+    32: two) and 2 to 16 heads, Lq = Lk = 31, with blocked rows."""
+    q, k, v, bias = _blocked_inputs(33, 31, 31, h, dh, dtype, cuda)
+    out = attn.attention_fwd(q, k, v, bias, h, math.sqrt(dh))
+    ref = attn.attention_fwd_reference(q, k, v, bias, h, math.sqrt(dh))
+    torch.cuda.synchronize()
+    assert _err(out, ref) <= tol
+
+
 def test_wrapper_raises_instead_of_falling_back(cuda):
     q, k, v, bias = _inputs(1, 4, 31, 31, 8, 16, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -205,12 +244,14 @@ def test_ce_kernels_are_deterministic(cuda, dtype):
                          [(ce.KERNEL_FWD, torch.float32, 64),
                           (ce.KERNEL_FWD, torch.bfloat16, 128),
                           (ce.KERNEL_BWD, torch.float32, 64),
-                          (ce.KERNEL_BWD, torch.bfloat16, 64)])
+                          (ce.KERNEL_BWD, torch.bfloat16, 64),
+                          (topk.KERNEL, torch.float32, 64),
+                          (topk.KERNEL, torch.bfloat16, 128)])
 def test_ce_tiling_comes_from_the_kernels(cuda, kernel, dtype, vocab_rows):
-    """Each CE library reports the tiles of the kernel that takes the vocab
-    splits (64 rows of h; 128 vocab rows for the bf16 forward, else 64) and
-    how many of its blocks fit an SM at D = 128; at the training path's
-    shape its splits' blocks fit in one wave."""
+    """Each CE library and K6's report the tiles of the kernel that takes
+    the vocab splits (64 rows of h; 128 vocab rows for the bf16 forward and
+    the bf16 K6, else 64) and how many of its blocks fit an SM at D = 128;
+    at the training path's shape its splits' blocks fit in one wave."""
     rows, tile_v, blocks = ce.tiling(kernel, dtype, 128, torch.device(cuda))
     assert (rows, tile_v) == (64, vocab_rows) and blocks >= 1
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
@@ -287,12 +328,85 @@ def test_topk_kernel_matches_plain_version(cuda, dtype, tol, n, d, v, k):
     assert _err(vals, rv) <= tol and _err(lse, rl) <= tol
 
 
-def test_topk_kernel_ties_go_to_the_lowest_index(cuda):
+def _dyadic(gen, shape, scale, dtype, device):
+    """Integers in [-scale, scale] over 8 * scale: exact in bf16, and with
+    h at scale 8, W at 2 and b at 8 every logit (D = 128) is exact in f32
+    whatever the order of the sums (as chip_smoke.py's `dyadic`)."""
+    x = torch.randint(-scale, scale + 1, shape, device=device, generator=gen)
+    return (x.float() / (8 * scale)).to(dtype)
+
+
+def _topk_dyadic(device, dtype, n, v, seed, shift=0.0):
+    gen = torch.Generator(device).manual_seed(seed)
+    return (_dyadic(gen, (n, 128), 8, dtype, device),
+            _dyadic(gen, (v, 128), 2, dtype, device),
+            _dyadic(gen, (v,), 8, torch.float32, device) + shift)
+
+
+def _topk_equal(got, want, tol):
+    """The same indices, vals and lse within `tol`."""
+    assert torch.equal(got[1], want[1])
+    assert _err(got[0], want[0]) <= tol and _err(got[2], want[2]) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("v", [1000, 22234])
+def test_topk_kernel_keeps_padded_vocab_columns_out(cuda, dtype, tol, v):
+    """Every logit below 0 (the dyadic logits less 3) over a vocab that is
+    not a multiple of the kernels' tiles (64 rows f32, 128 bf16): a padded
+    column, whose logit would be 0, enters neither the list nor lse."""
+    h, W, b = _topk_dyadic(cuda, dtype, 100, v, 13, shift=-3.0)
+    assert (h.float() @ W.float().t() + b).amax().item() < 0
+    got = topk.topk_logits(h, W, b, 8)
+    want = topk.topk_logits_reference(h, W, b, 8)
+    torch.cuda.synchronize()
+    assert int(got[1].max()) < v
+    _topk_equal(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("n", [100, 256])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+def test_topk_kernel_takes_every_list_length(cuda, dtype, tol, n, k):
+    """K6 at k = 1 to 4 and 8 (the bf16 kernel keeps lists of 1, 2, 4 or
+    8: the smallest that holds k),
+    at a row count that is not a multiple of 64 and at the beam's 256, on
+    exact logits with many ties: the same indices as the plain version."""
+    h, W, b = _topk_dyadic(cuda, dtype, n, 22234, 14)
+    topk.reset_launches()
+    got = topk.topk_logits(h, W, b, k)
+    want = topk.topk_logits_reference(h, W, b, k)
+    torch.cuda.synchronize()
+    assert topk.launches == 1 and got[0].shape == (n, k)
+    _topk_equal(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_is_deterministic(cuda, dtype):
+    """Two calls of K6 at the beam sweep's shape (19 x 64 x 4 rows) give
+    bitwise-equal outputs (no atomics; lists and sums merged in a fixed
+    order)."""
+    gen = torch.Generator(cuda).manual_seed(15)
+    h = torch.randn((4864, 128), device=cuda, generator=gen).to(dtype)
+    W = (0.3 * torch.randn((22234, 128), device=cuda, generator=gen)) \
+        .to(dtype)
+    b = 0.1 * torch.randn(22234, device=cuda, generator=gen)
+    first = topk.topk_logits(h, W, b, 4)
+    second = topk.topk_logits(h, W, b, 4)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_ties_go_to_the_lowest_index(cuda, dtype):
     """Equal maxima far apart in the vocab (in different vocab splits of
     the kernel at N = 256): the lowest indices first."""
     n, d, v = 256, 128, 22234
-    h = torch.ones((n, d), device=cuda)
-    W = torch.zeros((v, d), device=cuda)
+    h = torch.ones((n, d), device=cuda, dtype=dtype)
+    W = torch.zeros((v, d), device=cuda, dtype=dtype)
     b = torch.zeros(v, device=cuda)
     b[[21000, 5, 11000, 64]] = 1.0
     vals, idx, _ = topk.topk_logits(h, W, b, 6)

@@ -21,6 +21,7 @@ from deepsc_gan_tpu_torch.evaluate.beam import (
     _beam_select,
     _frozen_candidates,
 )
+from deepsc_gan_tpu_torch.ops import ce_kernel as ce
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk
 
 ATOL = 2e-5
@@ -153,3 +154,30 @@ def test_beam_select_matches_jax(K):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("vocab_rows", [64, 128])
+def test_vocab_splits_cover_every_vocab_tile_once(vocab_rows):
+    """K6's vocab splits (`ce.vocab_splits` at the tiles its library
+    reports: 64 rows of h, 64 vocab rows in f32 and 128 in bf16), cut as
+    csrc/topk.cu cuts them (split s owns tiles [s t, min((s + 1) t, T)),
+    t = ceil(T / splits)): over a grid of N, V and blocks per SM, every
+    vocab tile lies in exactly one split and no split is empty. At the
+    beam's shapes on 132 SMs with two blocks per SM: 58 splits at N = 256,
+    3 at N = 4,864 (tiles of 128)."""
+    for n in (1, 7, 64, 100, 256, 1984, 4864, 100000):
+        for v in (1, 17, 127, 128, 129, 1000, 22234):
+            for blocks in (1, 2, 3, 4):
+                for sms in (1, 132):
+                    splits = ce.vocab_splits(n, v, sms, 64, vocab_rows,
+                                             blocks)
+                    tiles = -(-v // vocab_rows)
+                    per = -(-tiles // splits)
+                    owned = [range(s * per, min((s + 1) * per, tiles))
+                             for s in range(splits)]
+                    assert all(len(r) > 0 for r in owned)
+                    assert [t for r in owned for t in r] == \
+                        list(range(tiles))
+    if vocab_rows == 128:
+        assert ce.vocab_splits(256, 22234, 132, 64, 128, 2) == 58
+        assert ce.vocab_splits(4864, 22234, 132, 64, 128, 2) == 3
