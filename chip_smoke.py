@@ -11,18 +11,20 @@ non-zero without its last line:
 2. build: every CUDA kernel of the serving and training paths (K1-K6),
    compiled by nvcc from the sources in this checkout (all nvcc processes
    started together); ptxas's registers, spills and performance warnings
-   for K1, K3, K4 and K6;
+   for each;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it, in f32 and bf16, with the tolerance
    stated; the kernel's time, its host enqueue time, the plain version's
    time, one PyTorch library call's (a yardstick the port never calls), and
    the least time the card could take; beside each time, its device time
    (`device_ms` ...: the calls queued behind a spin of the device, so the
-   host's pace does not enter); for K1, K3, K4 and K6, which units multiply
+   host's pace does not enter); for K1-K4 and K6, which units multiply
    (`design`: mma or wgmma bf16, or cuda-core f32); K6 also with ties
    (both dtypes), k = 1 and 8, and every logit below 0 over a vocab that is
    not a multiple of its 128-row tiles, its indices equal to the plain
-   version's in every case;
+   version's in every case; K5 on the unstacked ring, also at L = 1 and 2
+   and at an odd number of sequences; K2 bitwise equal over two calls and
+   with and without dbias;
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -58,7 +60,8 @@ non-zero without its last line:
 8. profile: device time by kernel over one bf16 call of the full-prefix
    sweep, of the KV sweep, of the beam and of the star sweep, and over one
    bf16 train step of each codec (with K3's and K4's share of it), and the
-   device's idle share in each (torch.profiler);
+   device's idle share in each (torch.profiler); the star sweep call must
+   run no roll kernel (K5 reads the ring unstacked);
 9. the kernels as one JSON line, then `{"ok": true, "device": {...}}` as
    the last line.
 
@@ -136,11 +139,11 @@ BEAM = 4
 # a spin of the device (about 0.1 s) that the timed calls queue up behind
 SPIN_CYCLES = 200_000_000
 # what multiplies, by kernel and dtype (csrc/attention_fwd.cu,
-# csrc/ce_fwd.cu, csrc/ce_bwd.cu, csrc/topk.cu)
+# csrc/attention_bwd.cu, csrc/ce_fwd.cu, csrc/ce_bwd.cu, csrc/topk.cu)
 WGMMA = {torch.bfloat16: "wgmma bf16", torch.float32: "cuda-core f32"}
-DESIGN = {attn.KERNEL: {torch.bfloat16: "mma bf16",
-                        torch.float32: "cuda-core f32"},
-          ce.KERNEL_FWD: WGMMA, ce.KERNEL_BWD: WGMMA, topk.KERNEL: WGMMA}
+MMA = {torch.bfloat16: "mma bf16", torch.float32: "cuda-core f32"}
+DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
+          ce.KERNEL_BWD: WGMMA, topk.KERNEL: WGMMA}
 
 
 def phase_device():
@@ -191,12 +194,11 @@ def ptxas_report(log):
 
 def phase_build():
     """Build every kernel; print nvcc's time for each and ptxas's report
-    (registers and spills per kernel, performance warnings) for the kernels
-    with a tensor-core design (K1, K3, K4, K6)."""
+    (registers and spills per kernel, performance warnings)."""
     seconds = build.build(KERNELS, force=True)
     for name, s in seconds.items():
         print(f"[build] csrc/{name}.cu: nvcc {s:.2f} s")
-    for name in DESIGN:
+    for name in KERNELS:
         for line in ptxas_report(build.LOGS[name]):
             print(f"[ptxas] {name}: {line}")
 
@@ -378,7 +380,27 @@ def attention_bwd_case(label, n, lq, lk, dtype, gen, iters, dbias):
                                              dbias),
         lambda: torch.autograd.grad(out, leaves, gh, retain_graph=True),
         nbytes, 5 * 2 * n * HEADS * lq * lk * DH, iters,
-        n=n, lq=lq, lk=lk, dbias=dbias)
+        n=n, lq=lq, lk=lk, dbias=dbias, design=DESIGN[attn.KERNEL_BWD][dtype])
+
+
+def attention_bwd_bitwise(label, n, lq, lk, dtype, gen):
+    """K2 twice without dbias and once with it on the same inputs: dq, dk
+    and dv must be bitwise equal in all three (no atomics, a fixed order of
+    every sum, and the same per-head arithmetic whether a block holds one
+    head or all of them)."""
+    q, k, v, bias = attention_inputs(n, lq, lk, dtype, gen, lq == lk)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    scale = math.sqrt(DH)
+    calls = [attn.attention_bwd(q, k, v, bias, g, HEADS, scale, dbias)[:3]
+             for dbias in (False, False, True)]
+    torch.cuda.synchronize()
+    same = [all(torch.equal(a, b) for a, b in zip(calls[0], other))
+            for other in calls[1:]]
+    print(f"[kernel] {attn.KERNEL_BWD} {label} {dtype}: bitwise equal "
+          f"twice without dbias {same[0]}, with and without {same[1]}")
+    if not all(same):
+        raise AssertionError(f"{attn.KERNEL_BWD} {label} {dtype}: calls on "
+                             f"the same inputs differ")
 
 
 def ce_inputs(dtype, gen, n, d, v):
@@ -502,38 +524,44 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic"):
         tiling=list(tiles), splits=ce.vocab_splits(n, v, sms, *tiles))
 
 
-def star_case(label, n, dtype, gen, iters):
-    """K5 at N rows of D = 128 (8 heads of 16): q (1, N, D), k and v
-    (5, 1, N, D) ~ N(0, 1)."""
+def star_case(label, b, length, dtype, gen, iters):
+    """K5 at B sequences of L rows of D = 128 (8 heads of 16): the ring q,
+    kh, vh, ke, ve (B, L, D) and ks, vs (B, D) ~ N(0, 1)."""
     d = HEADS * DH
-    q = torch.randn((1, n, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((5, 1, n, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((5, 1, n, d), generator=gen, device="cuda").to(dtype)
-    out = star.star_satellite(q, k, v, HEADS)
-    ref = star.satellite_reference(q[0], k[:, 0], v[:, 0], HEADS)
+    ring = [torch.randn((b, length, d) if i < 5 else (b, d), generator=gen,
+                        device="cuda").to(dtype) for i in range(7)]
+    q, kh, vh, ke, ve, ks, vs = ring
+    out = star.star_satellite(*ring, HEADS)
+    ref = star.ring_reference(*ring, HEADS)
     torch.cuda.synchronize()
-    # yardstick: one library call over the five contexts of each row
-    qh = q[0].view(n, HEADS, 1, DH)
-    kh, vh = (t[:, 0].view(5, n, HEADS, DH).permute(1, 2, 0, 3)
-              for t in (k, v))
-    # bytes: q, 5 k, 5 v and the output; operations: the 5 dot products and
-    # the weighted sum of 5 (an f32 multiply-add each), on the f32 cores
+    # yardstick: one library call over the five stacked contexts of each
+    # row (stacked here, outside the timing)
+    n = b * length
+    k5, v5 = (star.contexts(x, xe, xs).view(5, n, HEADS, DH)
+              .permute(1, 2, 0, 3) for x, xe, xs in ((kh, ke, ks),
+                                                      (vh, ve, vs)))
+    qh = q.view(n, HEADS, 1, DH)
+    # bytes: the ring, read once (q, kh, vh, ke, ve: N x D each; ks, vs:
+    # B x D each), and the output; operations: the 5 dot products and the
+    # weighted sum of 5 (an f32 multiply-add each), on the f32 cores
+    elt = q.element_size()
     return kernel_row(
-        star.KERNEL, label, dtype, max_err([out[0]], [ref]), TOL[dtype],
-        lambda: star.star_satellite(q, k, v, HEADS),
-        lambda: star.satellite_reference(q[0], k[:, 0], v[:, 0], HEADS),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh),
-        12 * n * d * q.element_size(), 2 * 2 * 5 * n * d, iters,
-        ops_dtype=torch.float32, n=n, d=d, heads=HEADS)
+        star.KERNEL, label, dtype, max_err([out], [ref]), TOL[dtype],
+        lambda: star.star_satellite(*ring, HEADS),
+        lambda: star.ring_reference(*ring, HEADS),
+        lambda: F.scaled_dot_product_attention(qh, k5, v5),
+        (6 * n * d + 2 * b * d) * elt, 2 * 2 * 5 * n * d, iters,
+        ops_dtype=torch.float32, b=b, l=length, n=n, d=d, heads=HEADS)
 
 
 def phase_kernels(seed, n, bs, iters):
     """Every kernel at the serving paths' shapes (K1, N = 19 SNRs x bs; K6
     at N = bs x 4 beams, the CLI's beam, and 19 x bs x 4, the beam sweep;
     K5 at N = 19 x bs x 31, the star sweep's decoder) and the training
-    path's (K1-K2 at N = bs; K3-K4 and K5 at bs x 31 rows), and K5 at a row
-    count that is not a multiple of its 8 rows per block; K6 also at k = 1
-    and 8, with exact ties and with every logit below 0."""
+    path's (K1-K2 at N = bs; K3-K4 and K5 at bs x 31 rows), and K5 at
+    bs - 1 sequences; K6 also at k = 1
+    and 8, with exact ties and with every logit below 0; K5 also at L = 1
+    and 2; K2 bitwise equal between calls with and without dbias."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cfg = Config()
     rows = []
@@ -556,11 +584,18 @@ def phase_kernels(seed, n, bs, iters):
                               "negative"))
         rows.append(topk_case("tie", bs * BEAM, dtype, gen, iters, 8, "tie"))
         star_len = default_seq_len("star")
-        rows.append(star_case("star_train", bs * star_len, dtype, gen,
+        rows.append(star_case("star_train", bs, star_len, dtype, gen,
                               iters))
-        rows.append(star_case("star_sweep", n * star_len, dtype, gen, iters))
-        rows.append(star_case("odd_rows", bs * star_len + 3, dtype, gen,
+        rows.append(star_case("star_sweep", n, star_len, dtype, gen, iters))
+        # an odd number of sequences; L = 1 and 2, where the neighbours
+        # coincide
+        rows.append(star_case("odd_rows", bs - 1, star_len, dtype, gen,
                               iters))
+        for length in (1, 2):
+            rows.append(star_case(f"L{length}", bs, length, dtype, gen,
+                                  iters))
+        for label, lq, lk in TRAIN_SHAPES:
+            attention_bwd_bitwise("train_" + label, bs, lq, lk, dtype, gen)
     return rows
 
 
@@ -1022,7 +1057,16 @@ def phase_profile(seed, bs):
                         generator=gen, device="cuda")
     sweep(inp, 0.0, n_stds, noise)
     torch.cuda.synchronize()
-    profiled("one star sweep call", lambda: sweep(inp, 0.0, n_stds, noise))
+    rows = profiled("one star sweep call",
+                    lambda: sweep(inp, 0.0, n_stds, noise))
+    # K5 reads the ring unstacked: no roll, and the concatenations left are
+    # the relay's
+    rolls, cats = (sum(c for name, (_, c) in rows if word in name)
+                   for word in ("roll_cuda_kernel", "CatArrayBatchedCopy"))
+    print(f"[profile] one star sweep call: {rolls} roll kernels, {cats} "
+          f"concatenation kernels")
+    if rows and rolls:
+        raise AssertionError(f"the star sweep call ran {rolls} roll kernels")
 
     for variant in ("transformer", "star"):
         profile_train_step(variant, seed, bs, gen)
@@ -1075,7 +1119,8 @@ KERNEL_INFO = {
                     "training: N=1984 D=128 V=22234, bf16"),
     star.KERNEL: ("deepsc_gan_tpu/ops/pallas/star.py:107", "star_sweep",
                   "star serving: decoder satellite update, bf16, "
-                  "N=19x64x31 D=128 H=8"),
+                  "B=19x64 L=31 D=128 H=8; bound from the unstacked ring's "
+                  "bytes (6 N D + 2 B D elements)"),
     topk.KERNEL: ("deepsc_gan_tpu/ops/pallas/topk.py:94", "beam",
                   "beam: N=64x4 D=128 V=22234 k=4, bf16"),
 }

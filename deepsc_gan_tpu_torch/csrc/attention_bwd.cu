@@ -11,34 +11,70 @@
 // in the TPU kernel's order of roundings: p is recomputed exactly as the
 // forward computes it (f32 logits `s * (1/scale)` then `+ bias`, two
 // roundings, no fused multiply-add across them); pc = p rounded to the
-// input type feeds dv only; ds uses the f32 p; dss = (ds * (1/scale))
-// rounded to the input type feeds dq and dk. dq, dk, dv are summed in f32
-// and rounded to the input type; dbias stays f32. A null dbias pointer skips
-// its reduction and write (the mask bias of the training path needs no
-// gradient).
+// input type feeds dv only; ds uses the f32 p and the f32 dp; dss = (ds *
+// (1/scale)) rounded to the input type feeds dq and dk. dq, dk, dv are
+// summed in f32 and rounded once to the input type; dbias stays f32. A
+// null dbias pointer skips its reduction and write (the mask bias of the
+// training path needs no gradient).
 //
 // What bounds it: memory. At the training path's decoder self-attention
-// (N = 64, Lq = Lk = 31, H = 8, Dh = 16, bf16) one call reads q, k, v, g
-// (2 MB) and the bias (0.25 MB) and writes dq, dk, dv (1.5 MB): under 4 MB,
-// about 1 us at 3.35 TB/s, against 4 products of 64 x 8 x 31 x 31 x 16
-// multiply-adds (0.06 GFLOP). At so few bytes the launch and the
-// per-row latency of the four dependent phases set the time.
+// (N = 64, Lq = Lk = 31, H = 8, Dh = 16, bf16, no dbias) one call reads q,
+// k, v, g (1.0 MB) and the bias (0.25 MB) and writes dq, dk, dv (0.76 MB):
+// 2.0 MB, 0.0012 ms at the H100 SXM's 3.35 TB/s, against 5 products of
+// 64 x 8 x 31 x 31 x 16 multiply-adds (0.08 us at the bf16 tensor-core
+// rate). At so few bytes the launch and each block's chain of dependent
+// steps set the time: 0.0068-0.0072 ms a call at the training shapes, of
+// which the loads and stores alone take 0.0036-0.0039 (no products or
+// softmax), on an NVIDIA H100 80GB HBM3 at 700 W (scripts/
+// kernel_variants.py); the design before this one, f32 staging and
+// CUDA-core products in a block per row, took 0.023.
 //
-// Design: one block per batch row for all heads (a warp per head), the
-// row's q, g, k, v (as f32), its bias tile and, for every head, p and ds
-// (Lq x (Lk | 1) f32 each: odd row strides, so a warp's accesses fall in
-// distinct banks) kept in shared memory. Phase 1, a thread per (query,
-// head) (lane = query): the logits, p, dp, the row sum and ds, written to
-// shared memory, and dq. Phase 2, a thread per (key, head) (lane = key):
-// dk and dv, summing over queries. Phase 3, a thread per (query, key):
-// dbias, summing over heads 0..H-1. Every sum runs in a fixed order and no
-// atomics are used, so a step is deterministic. Making it fast (wgmma,
-// folding the head split into the projections, several rows per block) is
-// later work.
+// Each dtype has one kernel:
+// - bf16, tensor cores (mma.sync m16n8k16, f32 accumulators; the staging,
+//   the quad softmax and the division are K1's, csrc/mma_row.cuh). A warp
+//   takes one head of one batch row. Without dbias a block takes
+//   kHeadsPerBlock = 4 heads of a row: 128 blocks at the training shape
+//   (one per row, 64 blocks, left half the SMs idle and took 3-6 % longer;
+//   a block per head, 512 blocks, took 18-21 % longer, each block staging
+//   the whole bias tile for one head). With dbias a block takes all H heads
+//   of its row, so that the sum over heads runs in shared memory in the
+//   fixed order 0..H-1. The block copies its columns of the row's q, g, k,
+//   v (16-byte cp.async, as bf16) and the bias tile (4-byte cp.async) into
+//   shared memory, rows padded to an odd number of 16-byte units, and
+//   zeroes the rows past Lq (q, g) and Lk (k, v): a product over them then
+//   adds exact zeros, never a stale NaN. Per 16-query tile: S = q k^T and
+//   p = e / sum on the accumulators (keys past Lk at -inf, `div_rn`, as
+//   K1); dP = g v^T lands in the same layout, so ds = p (dp - rowsum) is
+//   elementwise plus two shuffles for the row sum; p and ds of queries
+//   past Lq are set to 0. pc and dss, rounded to bf16 and packed in pairs,
+//   are the A operand of dQ = dss k as they stand (the accumulator-to-A
+//   identity; k through ldmatrix.trans). dK = dss^T q and dV = pc^T g take
+//   the transposes: movmatrix.trans turns each packed 8 x 8 block into its
+//   transpose's A fragment in registers (writing them to a warp-private
+//   shared tile and reading them back with ldmatrix.x4.trans measured the
+//   same to within 1.5 %), and q and g are the B operands through
+//   ldmatrix.trans. The results go over the warp's
+//   own columns of the staged q, k and v, and the block writes them with
+//   16-byte stores. No float atomics: every sum runs in a fixed order, and
+//   a head's arithmetic does not depend on the block it shares, so two
+//   calls give the same bits, with or without dbias.
+// - f32, CUDA cores (exact f32, which the f32 step parity needs; mma on f32
+//   would be TF32): one block per batch row for all heads (a warp per head),
+//   the row's q, g, k, v, its bias tile and, for every head, p and ds (Lq x
+//   (Lk | 1) f32 each: odd row strides, so a warp's accesses fall in
+//   distinct banks) kept in shared memory. Phase 1, a thread per (query,
+//   head) (lane = query): the logits, p, dp, the row sum and ds, written to
+//   shared memory, and dq. Phase 2, a thread per (key, head) (lane = key):
+//   dk and dv, summing over queries. Phase 3, a thread per (query, key):
+//   dbias, summing over heads 0..H-1.
+// The kernels allocate nothing; the caller passes the outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cfloat>
+#include <stdint.h>
+
+#include "mma_row.cuh"
 
 namespace {
 
@@ -46,68 +82,40 @@ constexpr int kMaxKeys = 32;   // keys per row (lk <= 32)
 constexpr int kMaxLen = 32;    // queries per row (lq <= 32)
 constexpr int kMaxHeads = 16;  // one warp per head: <= 512 threads
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: the TPU kernel's `.astype(dtype)` before a
-// product
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
+// ---- f32: CUDA cores ----
 
 // 16-byte moves (the wrapper requires 16-byte aligned tensors; a head's
-// slice, Dh * sizeof(T) bytes, is a multiple of 16)
-template <typename T>
-__device__ __forceinline__ void load16(const T* src, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-  for (int t = 0; t < 16 / (int)sizeof(T); ++t) dst[t] = to_float(e[t]);
+// slice, Dh * 4 bytes, is a multiple of 16)
+__device__ __forceinline__ void load16(const float* src, float* dst) {
+  const float4 u = *reinterpret_cast<const float4*>(src);
+  dst[0] = u.x;
+  dst[1] = u.y;
+  dst[2] = u.z;
+  dst[3] = u.w;
 }
 
-template <typename T>
-__device__ __forceinline__ void store16(T* dst, const float* src) {
-  uint4 u;
-  T* e = reinterpret_cast<T*>(&u);
-#pragma unroll
-  for (int t = 0; t < 16 / (int)sizeof(T); ++t) e[t] = from_float<T>(src[t]);
-  *reinterpret_cast<uint4*>(dst) = u;
+__device__ __forceinline__ void store16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2],
+                                                src[3]);
 }
 
-// rows x hd elements of a row-major (rows, hd) T array -> f32 shared memory
-template <typename T>
-__device__ __forceinline__ void stage(const T* src, float* dst, int count) {
-  constexpr int kPer16 = 16 / (int)sizeof(T);
-  float tmp[kPer16];
-  for (int e = threadIdx.x * kPer16; e < count; e += blockDim.x * kPer16) {
-    load16(src + e, tmp);
-#pragma unroll
-    for (int t = 0; t < kPer16; t += 4)
-      *reinterpret_cast<float4*>(dst + e + t) =
-          make_float4(tmp[t], tmp[t + 1], tmp[t + 2], tmp[t + 3]);
-  }
+// count elements of a row-major array -> shared memory
+__device__ __forceinline__ void stage(const float* src, float* dst,
+                                      int count) {
+  for (int e = threadIdx.x * 4; e < count; e += blockDim.x * 4)
+    *reinterpret_cast<float4*>(dst + e) =
+        *reinterpret_cast<const float4*>(src + e);
 }
 
 // Shared memory (f32): qs, gs (Lq x H*Dh); ks, vs (Lk x H*Dh); bs
 // (Lq x (Lk | 1)); ps, dss (H x Lq x (Lk | 1)): p and the unscaled ds.
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kMaxHeads * 32)
-attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     const T* __restrict__ g, T* __restrict__ dq,
-                     T* __restrict__ dk, T* __restrict__ dv,
+attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ g, float* __restrict__ dq,
+                     float* __restrict__ dk, float* __restrict__ dv,
                      float* __restrict__ dbias, int lq, int lk, int heads,
                      float inv_scale) {
   extern __shared__ float smem[];
@@ -122,8 +130,8 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dss = ps + heads * lq * bstride;
 
   const long long n = blockIdx.x;
-  const T* qn = q + n * lq * hd;
-  const T* gn = g + n * lq * hd;
+  const float* qn = q + n * lq * hd;
+  const float* gn = g + n * lq * hd;
   stage(qn, qs, lq * hd);
   stage(gn, gs, lq * hd);
   stage(k + n * lk * hd, ks, lk * hd);
@@ -137,7 +145,6 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int h = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  constexpr int kPer16 = 16 / (int)sizeof(T);
 
   // ---- phase 1: thread (query i = lane, head h)
   if (lane < lq) {
@@ -147,7 +154,7 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float qv[DH];
     float gv[DH];
 #pragma unroll
-    for (int d = 0; d < DH; d += kPer16) {
+    for (int d = 0; d < DH; d += 4) {
       load16(qn + i * hd + h * DH + d, qv + d);
       load16(gn + i * hd + h * DH + d, gv + d);
     }
@@ -200,15 +207,15 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float ds = __fmul_rn(s[j], __fsub_rn(dp[j], rowsum));
         p_row[j] = s[j];
         ds_row[j] = ds;
-        const float dsc = round_to<T>(__fmul_rn(ds, inv_scale));
+        const float dsc = __fmul_rn(ds, inv_scale);
         const float* kj = ks + j * hd + h * DH;
 #pragma unroll
         for (int d = 0; d < DH; ++d) dqa[d] = fmaf(dsc, kj[d], dqa[d]);
       }
     }
-    T* dqi = dq + (n * lq + i) * hd + h * DH;
+    float* dqi = dq + (n * lq + i) * hd + h * DH;
 #pragma unroll
-    for (int d = 0; d < DH; d += kPer16) store16(dqi + d, dqa + d);
+    for (int d = 0; d < DH; d += 4) store16(dqi + d, dqa + d);
   }
   __syncthreads();
 
@@ -223,9 +230,8 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dva[d] = 0.f;
     }
     for (int i = 0; i < lq; ++i) {
-      const float pc = round_to<T>(ps[(h * lq + i) * bstride + j]);
-      const float dsc =
-          round_to<T>(__fmul_rn(dss[(h * lq + i) * bstride + j], inv_scale));
+      const float pc = ps[(h * lq + i) * bstride + j];
+      const float dsc = __fmul_rn(dss[(h * lq + i) * bstride + j], inv_scale);
       const float* qi = qs + i * hd + h * DH;
       const float* gi = gs + i * hd + h * DH;
 #pragma unroll
@@ -234,10 +240,10 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dva[d] = fmaf(pc, gi[d], dva[d]);
       }
     }
-    T* dkj = dk + (n * lk + j) * hd + h * DH;
-    T* dvj = dv + (n * lk + j) * hd + h * DH;
+    float* dkj = dk + (n * lk + j) * hd + h * DH;
+    float* dvj = dv + (n * lk + j) * hd + h * DH;
 #pragma unroll
-    for (int d = 0; d < DH; d += kPer16) {
+    for (int d = 0; d < DH; d += 4) {
       store16(dkj + d, dka + d);
       store16(dvj + d, dva + d);
     }
@@ -257,7 +263,7 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-size_t smem_bytes(int lq, int lk, int heads, int dh) {
+size_t smem_bytes_f32(int lq, int lk, int heads, int dh) {
   const size_t hd = (size_t)heads * dh;
   const size_t tile = (size_t)lq * (size_t)(lk | 1);
   return sizeof(float) *
@@ -265,26 +271,334 @@ size_t smem_bytes(int lq, int lk, int heads, int dh) {
           2 * (size_t)heads * tile);
 }
 
-template <typename T, int DH>
+// ---- bf16: tensor cores (csrc/mma_row.cuh) ----
+
+using namespace mrow;
+
+// heads a block takes without dbias: the largest divisor of H up to this
+// (kMaxHeads: all H, a block per batch row, as always with dbias)
+constexpr int kHeadsPerBlock = 4;
+
+// Shared memory (bf16): qs, gs, ks, vs (kRows rows of the block's columns
+// each); bs (kRows x kBiasStride f32); with dbias, per warp the f32 tile
+// of ds (kRows x kBiasStride).
+size_t smem_bytes_bf16(int hpb, int dh, bool with_dbias) {
+  const size_t stride = row_stride(hpb * dh * 2 / 16);
+  size_t bytes = 4 * kRows * stride + sizeof(float) * kRows * kBiasStride;
+  if (with_dbias) bytes += (size_t)hpb * sizeof(float) * kRows * kBiasStride;
+  return bytes;
+}
+
+// the C fragment c (rows r0, r0 + 8; columns 2 (t % 4), + 1 of an 8-column
+// n-tile starting at byte `at` of row 0) rounded to bf16 into staged rows
+__device__ __forceinline__ void store_c(uint8_t* at, int stride,
+                                        const float (&c)[4]) {
+  *reinterpret_cast<uint32_t*>(at) = pack_bf16(c[0], c[1]);
+  *reinterpret_cast<uint32_t*>(at + 8 * stride) = pack_bf16(c[2], c[3]);
+}
+
+// The A fragments of the transpose of a 32 x 32 matrix X (queries x keys)
+// held as packed bf16 pairs in the accumulator layout of two 16-query
+// m-tiles x four 8-key n-tiles (xp[mi][nj][half]: rows 16 mi + g + 8 half,
+// columns 8 nj + 2 (t % 4), + 1): at[m][kk], 16 keys from 16 m x 16
+// queries from 16 kk, each 8 x 8 block transposed in registers.
+__device__ __forceinline__ void transpose_a(uint32_t (&at)[2][2][4],
+                                            const uint32_t (&xp)[2][4][2]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      at[m][kk][0] = movmatrix_trans(xp[kk][2 * m][0]);
+      at[m][kk][1] = movmatrix_trans(xp[kk][2 * m + 1][0]);
+      at[m][kk][2] = movmatrix_trans(xp[kk][2 * m][1]);
+      at[m][kk][3] = movmatrix_trans(xp[kk][2 * m + 1][1]);
+    }
+}
+
+// Fragments as in csrc/mma_row.cuh. Grid (N, H / heads per block), a warp
+// per head.
+template <int DH>
+__global__ void __launch_bounds__(kMaxHeads * 32)
+attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const float* __restrict__ bias,
+                         const __nv_bfloat16* __restrict__ g,
+                         __nv_bfloat16* __restrict__ dq,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv,
+                         float* __restrict__ dbias, int lq, int lk, int heads,
+                         float inv_scale) {
+  constexpr int KS = (DH + 15) / 16;  // k-steps of q . k and g . v
+  constexpr int NT = DH / 8;          // 8-column n-tiles of dq, dk, dv
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int hpb = blockDim.x >> 5;
+  const int row_bytes = heads * DH * 2;  // a row in device memory
+  const int chunks = hpb * DH * 2 / 16;  // the block's columns of it
+  const int stride = row_stride(chunks);
+  uint8_t* qs = smem_raw;
+  uint8_t* gs = qs + kRows * stride;
+  uint8_t* ks = gs + kRows * stride;
+  uint8_t* vs = ks + kRows * stride;
+  float* bs = reinterpret_cast<float*>(vs + kRows * stride);
+  float* ds_tiles = bs + kRows * kBiasStride;  // with dbias
+
+  const long long n = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const long long col0 = (long long)blockIdx.y * hpb * DH * 2;
+  const long long q_at = n * lq * row_bytes + col0;
+  const long long k_at = n * lk * row_bytes + col0;
+  const auto bytes = [](const __nv_bfloat16* t) {
+    return reinterpret_cast<const uint8_t*>(t);
+  };
+  stage_rows<2>({qs, gs}, stride, {bytes(q) + q_at, bytes(g) + q_at},
+                row_bytes, lq, chunks, tid, nt);
+  stage_rows<2>({ks, vs}, stride, {bytes(k) + k_at, bytes(v) + k_at},
+                row_bytes, lk, chunks, tid, nt);
+  stage_bias(bs, bias + n * lq * lk, lq, lk, tid, nt);
+  zero_rows<2>({qs, gs}, stride, lq, chunks, tid, nt);
+  zero_rows<2>({ks, vs}, stride, lk, chunks, tid, nt);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;            // fragment row g
+  const int c4 = 4 * (lane & 3);       // byte offset of column 2 (t % 4)
+  const int col = warp * DH * 2;       // this warp's head in a staged row
+  const int mq = lq > 16 ? 2 : 1;      // 16-row tiles of queries
+  const int mk = lk > 16 ? 2 : 1;      // 16-row tiles of keys
+  float* ds_tile = ds_tiles + warp * kRows * kBiasStride;
+
+  // B fragments of k and v as keys x Dh (keys 8 nj + g): S and dP
+  uint32_t kb[4][KS][2], vb[4][KS][2];
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    const int o = (8 * nj + gr) * stride + col + c4;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      kb[nj][s][0] = lds32(ks + o + 32 * s);
+      kb[nj][s][1] = DH >= 16 ? lds32(ks + o + 32 * s + 16) : 0u;
+      vb[nj][s][0] = lds32(vs + o + 32 * s);
+      vb[nj][s][1] = DH >= 16 ? lds32(vs + o + 32 * s + 16) : 0u;
+    }
+  }
+
+  // per 16-query tile: p and ds, packed in bf16 pairs (pcp: p; dsp: ds *
+  // (1/scale)), and dQ
+  uint32_t pcp[2][4][2], dsp[2][4][2];
+  float dqa[2][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        pcp[mi][nj][half] = dsp[mi][nj][half] = 0u;
+    if (mi >= mq) continue;
+    const int r0 = 16 * mi + gr;  // this thread's rows r0 and r0 + 8
+    uint32_t qa[KS][4], ga[KS][4];
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int o = r0 * stride + col + c4 + 32 * s;
+      qa[s][0] = lds32(qs + o);
+      qa[s][1] = lds32(qs + o + 8 * stride);
+      qa[s][2] = DH >= 16 ? lds32(qs + o + 16) : 0u;
+      qa[s][3] = DH >= 16 ? lds32(qs + o + 8 * stride + 16) : 0u;
+      ga[s][0] = lds32(gs + o);
+      ga[s][1] = lds32(gs + o + 8 * stride);
+      ga[s][2] = DH >= 16 ? lds32(gs + o + 16) : 0u;
+      ga[s][3] = DH >= 16 ? lds32(gs + o + 8 * stride + 16) : 0u;
+    }
+    float p[4][4], dp[4][4];
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nj][e] = dp[nj][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        mma16816(p[nj], qa[s], kb[nj][s][0], kb[nj][s][1]);
+        mma16816(dp[nj], ga[s], vb[nj][s][0], vb[nj][s][1]);
+      }
+    }
+    float sum[2];
+    softmax_exp(p, bs, r0, c4 >> 1, lk, inv_scale, sum);
+    const float rs[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+    // p (f32; 0 for queries past lq) and rowsum(dp p) over the quad
+    float rowsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float x = div_rn(p[nj][e], sum[r], rs[r]);
+        p[nj][e] = r0 + 8 * r < lq ? x : 0.f;
+        rowsum[r] = __fadd_rn(rowsum[r], __fmul_rn(dp[nj][e], p[nj][e]));
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rowsum[r] += __shfl_xor_sync(0xffffffffu, rowsum[r], 1);
+      rowsum[r] += __shfl_xor_sync(0xffffffffu, rowsum[r], 2);
+    }
+    // ds = p (dp - rowsum) in f32 (into dp), then the packed operands
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[nj][e] = __fmul_rn(p[nj][e], __fsub_rn(dp[nj][e], rowsum[e >> 1]));
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        pcp[mi][nj][half] = pack_bf16(p[nj][2 * half], p[nj][2 * half + 1]);
+        dsp[mi][nj][half] =
+            pack_bf16(__fmul_rn(dp[nj][2 * half], inv_scale),
+                      __fmul_rn(dp[nj][2 * half + 1], inv_scale));
+      }
+    }
+    if (dbias != nullptr) {
+      // the unscaled f32 ds for the sum over heads (rows past lq are 0)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<float2*>(
+              ds_tile + (r0 + 8 * half) * kBiasStride + 8 * nj + (c4 >> 1)) =
+              make_float2(dp[nj][2 * half], dp[nj][2 * half + 1]);
+    }
+    // dQ = dss k: dss's n-tiles 2 kk, 2 kk + 1 are the A operand of key
+    // k-step kk; k is the B operand through ldmatrix.trans
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[mi][dn][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (kk >= mk) continue;
+        const uint32_t a[4] = {dsp[mi][2 * kk][0], dsp[mi][2 * kk][1],
+                               dsp[mi][2 * kk + 1][0], dsp[mi][2 * kk + 1][1]};
+        uint32_t b0, b1;
+        ldsm_x2_trans(b0, b1,
+                      ks + (16 * kk + (lane & 15)) * stride + col + 16 * dn);
+        mma16816(dqa[mi][dn], a, b0, b1);
+      }
+    }
+  }
+
+  // dV = pc^T g and dK = dss^T q: 16-key m-tiles, K = queries; g and q are
+  // the B operands through ldmatrix.trans
+  uint32_t at[2][2][4];
+  float acc[2][NT][4];
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    uint8_t* src = pass == 0 ? gs : qs;
+    if (pass == 0)
+      transpose_a(at, pcp);
+    else
+      transpose_a(at, dsp);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][dn][e] = 0.f;
+        if (m >= mk) continue;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          if (kk >= mq) continue;
+          uint32_t b0, b1;
+          ldsm_x2_trans(
+              b0, b1, src + (16 * kk + (lane & 15)) * stride + col + 16 * dn);
+          mma16816(acc[m][dn], at[m][kk], b0, b1);
+        }
+      }
+    // dv over this warp's columns of v (pass 0), dk over those of k (pass
+    // 1): only this warp reads them, and it has read them
+    uint8_t* dst = pass == 0 ? vs : ks;
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn)
+        if (m < mk)
+          store_c(dst + (16 * m + gr) * stride + col + 16 * dn + c4, stride,
+                  acc[m][dn]);
+  }
+  // dq over this warp's columns of q, read for the last time above
+  __syncwarp();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn)
+      if (mi < mq)
+        store_c(qs + (16 * mi + gr) * stride + col + 16 * dn + c4, stride,
+                dqa[mi][dn]);
+  __syncthreads();
+
+  const auto out = [](__nv_bfloat16* t) {
+    return reinterpret_cast<uint8_t*>(t);
+  };
+  store_rows<1>({out(dq) + q_at}, row_bytes, {qs}, stride, lq, chunks, tid,
+                nt);
+  store_rows<2>({out(dk) + k_at, out(dv) + k_at}, row_bytes, {ks, vs},
+                stride, lk, chunks, tid, nt);
+  if (dbias != nullptr) {
+    // the block holds all heads: sum their ds in the order 0..H-1
+    float* dbn = dbias + n * lq * lk;
+    for (int e = tid; e < lq * lk; e += nt) {
+      const int i = e / lk;
+      const int o = i * kBiasStride + (e - i * lk);
+      float s = 0.f;
+      for (int hh = 0; hh < hpb; ++hh)
+        s = __fadd_rn(s, ds_tiles[hh * kRows * kBiasStride + o]);
+      dbn[e] = s;
+    }
+  }
+}
+
+// ---- launch ----
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <bool kBf16, int DH>
 int launch_dh(const void* q, const void* k, const void* v, const void* bias,
               const void* g, void* dq, void* dk, void* dv, void* dbias,
               int n, int lq, int lk, int heads, float inv_scale,
-              void* stream) {
-  const size_t smem = smem_bytes(lq, lk, heads, DH);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_bwd_kernel<T, DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+              cudaStream_t st) {
+  if constexpr (kBf16) {
+    // all H heads a block with dbias (for the sum over heads), else the
+    // largest divisor of H up to kHeadsPerBlock
+    int hpb = heads;
+    if (dbias == nullptr)
+      for (hpb = heads < kHeadsPerBlock ? heads : kHeadsPerBlock; heads % hpb;
+           --hpb) {
+      }
+    const size_t smem = smem_bytes_bf16(hpb, DH, dbias != nullptr);
+    const int err = set_smem(attention_bwd_mma_kernel<DH>, smem);
+    if (err) return err;
+    attention_bwd_mma_kernel<DH>
+        <<<dim3(n, heads / hpb), hpb * 32, smem, st>>>(
+            (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+            (const __nv_bfloat16*)v, (const float*)bias,
+            (const __nv_bfloat16*)g, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk,
+            (__nv_bfloat16*)dv, (float*)dbias, lq, lk, heads, inv_scale);
+  } else {
+    const size_t smem = smem_bytes_f32(lq, lk, heads, DH);
+    const int err = set_smem(attention_bwd_kernel<DH>, smem);
+    if (err) return err;
+    attention_bwd_kernel<DH><<<n, heads * 32, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)bias, (const float*)g, (float*)dq, (float*)dk,
+        (float*)dv, (float*)dbias, lq, lk, heads, inv_scale);
   }
-  attention_bwd_kernel<T, DH><<<n, heads * 32, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-      (const T*)g, (T*)dq, (T*)dk, (T*)dv, (float*)dbias, lq, lk, heads,
-      inv_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* g, void* dq, void* dk, void* dv, void* dbias, int n,
            int lq, int lk, int heads, int dh, double scale, void* stream) {
@@ -293,16 +607,17 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
     return (int)cudaErrorInvalidValue;
   // 1/scale in double, rounded once to f32, as the forward
   const float inv_scale = (float)(1.0 / scale);
+  cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
     case 8:
-      return launch_dh<T, 8>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq, lk,
-                             heads, inv_scale, stream);
+      return launch_dh<kBf16, 8>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq,
+                                 lk, heads, inv_scale, st);
     case 16:
-      return launch_dh<T, 16>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq, lk,
-                              heads, inv_scale, stream);
+      return launch_dh<kBf16, 16>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq,
+                                  lk, heads, inv_scale, st);
     case 32:
-      return launch_dh<T, 32>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq, lk,
-                              heads, inv_scale, stream);
+      return launch_dh<kBf16, 32>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq,
+                                  lk, heads, inv_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -312,10 +627,17 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs (the wrapper checks this
-// against the device's limit before launching).
-size_t deepsc_attention_bwd_smem_bytes(int lq, int lk, int heads, int dh) {
-  return smem_bytes(lq, lk, heads, dh);
+// Bytes of dynamic shared memory one block needs at most (the wrapper
+// checks this against the device's limit before launching; bf16: with
+// dbias, a block of all heads).
+size_t deepsc_attention_bwd_smem_bytes_f32(int lq, int lk, int heads,
+                                           int dh) {
+  return smem_bytes_f32(lq, lk, heads, dh);
+}
+
+size_t deepsc_attention_bwd_smem_bytes_bf16(int lq, int lk, int heads,
+                                            int dh) {
+  return smem_bytes_bf16(heads, dh, true);
 }
 
 // q, g, dq: contiguous f32 (N, Lq, heads*dh); k, v, dk, dv: (N, Lk,
@@ -326,7 +648,7 @@ int deepsc_attention_bwd_f32(const void* q, const void* k, const void* v,
                              void* dk, void* dv, void* dbias, int n, int lq,
                              int lk, int heads, int dh, double scale,
                              void* stream) {
-  return launch<float>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq, lk, heads,
+  return launch<false>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq, lk, heads,
                        dh, scale, stream);
 }
 
@@ -336,8 +658,8 @@ int deepsc_attention_bwd_bf16(const void* q, const void* k, const void* v,
                               void* dk, void* dv, void* dbias, int n, int lq,
                               int lk, int heads, int dh, double scale,
                               void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq,
-                               lk, heads, dh, scale, stream);
+  return launch<true>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq, lk, heads,
+                      dh, scale, stream);
 }
 
 }  // extern "C"

@@ -25,8 +25,10 @@
 //   tile (4-byte cp.async: a row of 31 x 31 floats seldom starts on 16
 //   bytes) into shared memory and waits once; the byte stream is kept in
 //   flight by the several blocks each SM holds, one loading while another
-//   computes. Staged rows of q, k, v are padded by 16 bytes, so the eight
-//   rows a fragment load or ldmatrix reads fall in distinct banks. A warp
+//   computes. Staged rows of q, k, v are padded to an odd number of 16-byte
+//   units, so the eight rows a fragment load or ldmatrix reads fall in
+//   distinct banks (the staging, the softmax and the division are shared
+//   with the backward through csrc/mma_row.cuh). A warp
 //   computes S = q_h k_h^T as two 16-row m-tiles (one when Lq <= 16) x four
 //   8-key n-tiles x Dh/16 k-steps (Dh = 8: one k-step whose upper half is
 //   zero), K's fragments loaded once for both m-tiles. The softmax runs on
@@ -58,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <stdint.h>
+
+#include "mma_row.cuh"
 
 namespace {
 
@@ -163,81 +167,9 @@ size_t smem_bytes_f32(int lq, int lk, int heads, int dh) {
          (2 * (size_t)lk * heads * dh + (size_t)lq * (size_t)(lk | 1));
 }
 
-// ---- bf16: tensor cores ----
+// ---- bf16: tensor cores (csrc/mma_row.cuh) ----
 
-constexpr int kRows = 32;        // staged rows of q, k, v (Lq, Lk <= 32)
-constexpr int kRowPad = 16;      // bytes after each staged row
-constexpr int kBiasStride = 40;  // floats per staged bias row: the 8-byte
-                                 // reads of a half-warp hit distinct banks
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-// a / b rounded, for 0 <= a < 2^64 and b >= 1, from r = 1/b rounded: the
-// product's error corrected by one fma (Markstein), on a scaled by 2^64 so
-// that the remainder cannot underflow (scalings by powers of two are
-// exact). It equals __fdiv_rn(a, b) wherever the quotient is normal; a
-// subnormal one (below 1.2e-38) may differ in its last bit, rounded twice
-// (scripts/kernel_variants.py holds it against __fdiv_rn on the card). It
-// takes 5 instructions where __fdiv_rn takes about 10 and a branch.
-__device__ __forceinline__ float div_rn(float a, float b, float r) {
-  const float up = __int_as_float(0x5f800000);    // 2^64
-  const float down = __int_as_float(0x1f800000);  // 2^-64
-  const float sa = __fmul_rn(a, up);
-  const float q = __fmul_rn(sa, r);
-  return __fmul_rn(__fmaf_rn(__fmaf_rn(-q, b, sa), r, q), down);
-}
-
-__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-// the transposed fragments of two 8 x 8 bf16 matrices whose rows lanes
-// 0-7 and 8-15 address: the B operand (16 keys x 8 columns) of an m16n8k16
-// product from a row-major (key, column) tile
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
-                                              const uint8_t* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(smem_u32(row))
-      : "memory");
-}
-
-// c += a . b, m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using namespace mrow;
 
 // Fragments (thread t of a warp, g = t / 4, c = t % 4): A (16 x 16) holds
 // rows g and g + 8, columns 2c, 2c + 1 and 8 + 2c, 9 + 2c; B (16 x 8) rows
@@ -255,8 +187,8 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NT = DH / 8;          // 8-column n-tiles of the context
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int row_bytes = heads * DH * 2;
-  const int stride = row_bytes + kRowPad;
   const int chunks = row_bytes / 16;
+  const int stride = row_stride(chunks);
   uint8_t* qs = smem_raw;
   uint8_t* ks = qs + kRows * stride;
   uint8_t* vs = ks + kRows * stride;
@@ -268,26 +200,10 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const uint8_t* qg = reinterpret_cast<const uint8_t*>(q) + n * lq * row_bytes;
   const uint8_t* kg = reinterpret_cast<const uint8_t*>(k) + n * lk * row_bytes;
   const uint8_t* vg = reinterpret_cast<const uint8_t*>(v) + n * lk * row_bytes;
-  const float* bg = bias + n * lq * lk;
-  for (int c = tid; c < lq * chunks; c += nt) {
-    const int r = c / chunks;
-    cp_async16(qs + r * stride + 16 * (c - r * chunks), qg + 16 * c);
-  }
-  for (int c = tid; c < lk * chunks; c += nt) {
-    const int r = c / chunks;
-    const int o = r * stride + 16 * (c - r * chunks);
-    cp_async16(ks + o, kg + 16 * c);
-    cp_async16(vs + o, vg + 16 * c);
-  }
-  for (int e = tid; e < lq * lk; e += nt) {
-    const int i = e / lk;
-    cp_async4(bs + i * kBiasStride + (e - i * lk), bg + e);
-  }
-  for (int c = tid; c < (kRows - lk) * chunks; c += nt) {
-    const int r = lk + c / chunks;
-    *reinterpret_cast<uint4*>(vs + r * stride + 16 * (c % chunks)) =
-        make_uint4(0, 0, 0, 0);
-  }
+  stage_rows<1>({qs}, stride, {qg}, row_bytes, lq, chunks, tid, nt);
+  stage_rows<2>({ks, vs}, stride, {kg, vg}, row_bytes, lk, chunks, tid, nt);
+  stage_bias(bs, bias + n * lq * lk, lq, lk, tid, nt);
+  zero_rows<1>({vs}, stride, lk, chunks, tid, nt);
   cp_async_wait_all();
   __syncthreads();
 
@@ -337,40 +253,9 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         mma16816(sc[nj], qa[s], kb[nj][s][0], kb[nj][s][1]);
     }
 
-    // logits: (q . k) * (1/scale), then + bias, each step rounded as the
-    // TPU kernel does; keys past lk out of the max and the sum
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = r0 + 8 * (e >> 1);
-        const int j = 8 * nj + (c4 >> 1) + (e & 1);
-        const float x =
-            j < lk ? __fadd_rn(__fmul_rn(sc[nj][e], inv_scale),
-                               bs[i * kBiasStride + j])
-                   : -INFINITY;
-        sc[nj][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[nj][e] = expf(sc[nj][e] - mx[e >> 1]);
-        sum[e >> 1] += sc[nj][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-    }
+    // the logits' exponentials and row sums, keys past lk at 0
+    float sum[2];
+    softmax_exp(sc, bs, r0, c4 >> 1, lk, inv_scale, sum);
     // p = e / sum, rounded to bf16: n-tiles 2 kk and 2 kk + 1 are the A
     // operand of k-step kk of p . v
     const float rs[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
@@ -406,17 +291,12 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  uint8_t* og = reinterpret_cast<uint8_t*>(out) + n * lq * row_bytes;
-  for (int c = tid; c < lq * chunks; c += nt) {
-    const int r = c / chunks;
-    *reinterpret_cast<uint4*>(og + 16 * c) =
-        *reinterpret_cast<const uint4*>(qs + r * stride +
-                                        16 * (c - r * chunks));
-  }
+  store_rows<1>({reinterpret_cast<uint8_t*>(out) + n * lq * row_bytes},
+                row_bytes, {qs}, stride, lq, chunks, tid, nt);
 }
 
 size_t smem_bytes_bf16(int heads, int dh) {
-  return 3 * (size_t)kRows * (heads * dh * 2 + kRowPad) +
+  return 3 * (size_t)kRows * row_stride(heads * dh * 2 / 16) +
          sizeof(float) * kRows * kBiasStride;
 }
 

@@ -1,0 +1,225 @@
+// Pieces of the bf16 attention kernels (the forward csrc/attention_fwd.cu
+// and the backward csrc/attention_bwd.cu) for Hopper (sm_90a): one batch
+// row staged into shared memory with cp.async, mma.sync m16n8k16 products
+// on its tiles, and the softmax of a row of logits on the accumulators.
+//
+// Staging. A batch row of q, k, v (and g) is (L, H*Dh) bf16, L <= 32. A
+// block copies the columns it needs of each row (16-byte cp.async chunks)
+// into a tile of kRows rows whose stride is the copied width plus 16 or 32
+// bytes, so that a row takes an odd number of 16-byte units: the eight
+// rows that a fragment load or an ldmatrix reads then fall in distinct
+// banks. The f32 bias tile (Lq, Lk) goes in with 4-byte cp.async (a row of
+// 31 x 31 floats seldom starts on 16 bytes) at kBiasStride floats a row.
+//
+// Fragments of m16n8k16 (thread t of a warp, g = t / 4, c = t % 4): A
+// (16 x 16) holds rows g and g + 8, columns 2c, 2c + 1 and 8 + 2c, 9 + 2c;
+// B (16 x 8) rows 2c, 2c + 1 and 8 + 2c, 9 + 2c of column g; C (16 x 8)
+// rows g and g + 8, columns 2c, 2c + 1. So the accumulators of a 16-row
+// tile of logits S (four n-tiles of 8 keys) hold a row's 32 logits in one
+// quad, and n-tiles 2 kk and 2 kk + 1, rounded to bf16 and packed in
+// pairs, are the A operand of k-step kk of a product with K = keys (the
+// accumulator-to-A identity).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mrow {
+
+constexpr int kRows = 32;        // staged rows of a tile (Lq, Lk <= 32)
+constexpr int kBiasStride = 40;  // floats per staged bias row
+
+// bytes between staged rows of `chunks` 16-byte chunks: an odd number of
+// 16-byte units
+__host__ __device__ __forceinline__ int row_stride(int chunks) {
+  return 16 * (chunks + (chunks % 2 == 0 ? 1 : 2));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Rows of N tensors of one layout at once (one index computation for all;
+// a row offset fits an int: at most 32 rows of 1,024 bytes and padding).
+
+// `rows` rows of `chunks` 16-byte chunks of each src[t], `src_stride` bytes
+// apart in device memory -> staged rows of dst[t] `stride` bytes apart, by
+// the block's `nt` threads
+template <int N>
+__device__ __forceinline__ void stage_rows(uint8_t* const (&dst)[N],
+                                           int stride,
+                                           const uint8_t* const (&src)[N],
+                                           int src_stride, int rows,
+                                           int chunks, int tid, int nt) {
+  for (int c = tid; c < rows * chunks; c += nt) {
+    const int r = c / chunks;
+    const int o = 16 * (c - r * chunks);
+#pragma unroll
+    for (int t = 0; t < N; ++t)
+      cp_async16(dst[t] + r * stride + o, src[t] + r * src_stride + o);
+  }
+}
+
+// staged rows [from, kRows) of each dst[t] set to zero (a product over them
+// then adds 0, never a stale NaN)
+template <int N>
+__device__ __forceinline__ void zero_rows(uint8_t* const (&dst)[N],
+                                          int stride, int from, int chunks,
+                                          int tid, int nt) {
+  for (int c = tid; c < (kRows - from) * chunks; c += nt) {
+    const int r = from + c / chunks;
+#pragma unroll
+    for (int t = 0; t < N; ++t)
+      *reinterpret_cast<uint4*>(dst[t] + r * stride + 16 * (c % chunks)) =
+          make_uint4(0, 0, 0, 0);
+  }
+}
+
+// the contiguous (lq, lk) f32 bias tile -> rows kBiasStride floats apart
+__device__ __forceinline__ void stage_bias(float* bs, const float* bg,
+                                           int lq, int lk, int tid, int nt) {
+  for (int e = tid; e < lq * lk; e += nt) {
+    const int i = e / lk;
+    cp_async4(bs + i * kBiasStride + (e - i * lk), bg + e);
+  }
+}
+
+// staged rows of each src[t], `stride` bytes apart -> `rows` rows of dst[t]
+// `dst_stride` bytes apart in device memory (16-byte stores)
+template <int N>
+__device__ __forceinline__ void store_rows(uint8_t* const (&dst)[N],
+                                           int dst_stride,
+                                           const uint8_t* const (&src)[N],
+                                           int stride, int rows, int chunks,
+                                           int tid, int nt) {
+  for (int c = tid; c < rows * chunks; c += nt) {
+    const int r = c / chunks;
+    const int o = 16 * (c - r * chunks);
+#pragma unroll
+    for (int t = 0; t < N; ++t)
+      *reinterpret_cast<uint4*>(dst[t] + r * dst_stride + o) =
+          *reinterpret_cast<const uint4*>(src[t] + r * stride + o);
+  }
+}
+
+// a / b rounded, for 0 <= a < 2^64 and b >= 1, from r = 1/b rounded: the
+// product's error corrected by one fma (Markstein), on a scaled by 2^64 so
+// that the remainder cannot underflow (scalings by powers of two are
+// exact). It equals __fdiv_rn(a, b) wherever the quotient is normal; a
+// subnormal one (below 1.2e-38) may differ in its last bit, rounded twice
+// (scripts/kernel_variants.py holds it against __fdiv_rn on the card). It
+// takes 5 instructions where __fdiv_rn takes about 10 and a branch.
+__device__ __forceinline__ float div_rn(float a, float b, float r) {
+  const float up = __int_as_float(0x5f800000);    // 2^64
+  const float down = __int_as_float(0x1f800000);  // 2^-64
+  const float sa = __fmul_rn(a, up);
+  const float q = __fmul_rn(sa, r);
+  return __fmul_rn(__fmaf_rn(__fmaf_rn(-q, b, sa), r, q), down);
+}
+
+__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// the transposed fragments of two 8 x 8 bf16 matrices whose rows lanes
+// 0-7 and 8-15 address: the B operand (16 keys x 8 columns) of an m16n8k16
+// product from a row-major (key, column) tile
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
+                                              const uint8_t* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b0), "=r"(b1)
+      : "r"(smem_u32(row))
+      : "memory");
+}
+
+// the transpose of an 8 x 8 bf16 matrix held as one register per thread
+// (thread t: row t / 4, columns 2 (t % 4) and 2 (t % 4) + 1), in the same
+// layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+// c += a . b, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The softmax numerators of one 16-row tile of logits on its accumulators
+// sc (rows r0 and r0 + 8 of this thread, r0 = 16 m + g; keys 8 nj + c2 +
+// (e & 1), c2 = 2 (t % 4)): the logit (q . k) * (1/scale), then + bias,
+// each step rounded as the TPU kernel does; keys past lk at -inf, out of
+// the max and the sum. On return sc holds exp(logit - row max) and sum[r]
+// the row sums of rows r0 + 8 r (two shuffles each in the quad).
+__device__ __forceinline__ void softmax_exp(float (&sc)[4][4], const float* bs,
+                                            int r0, int c2, int lk,
+                                            float inv_scale, float (&sum)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + 8 * (e >> 1);
+      const int j = 8 * nj + c2 + (e & 1);
+      const float x = j < lk ? __fadd_rn(__fmul_rn(sc[nj][e], inv_scale),
+                                         bs[i * kBiasStride + j])
+                             : -INFINITY;
+      sc[nj][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    sum[r] = 0.f;
+  }
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[nj][e] = expf(sc[nj][e] - mx[e >> 1]);
+      sum[e >> 1] += sc[nj][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+}
+
+}  // namespace mrow

@@ -15,9 +15,10 @@ LayerNorm sharing of each reference class kept:
 
 A LayerNorm or attention bank that a class never uses is not created, so
 the modules hold exactly the parameters of the flax trees. The satellite
-update projects K/V once on h and rolls them circularly over the padded
-length (`torch.roll`, as `jnp.roll`), then goes through the satellite
-function the model was built with (`ops/star_kernel.py`: K5 by default).
+update projects Q/K/V once on h, K/V on e and on s, and hands the ring
+unstacked to the satellite function the model was built with
+(`ops/star_kernel.py`: K5 by default), which takes the neighbours circularly
+over the padded length by index, as the JAX model's `jnp.roll` does.
 The relay and the decoder's target self-attention are plain PyTorch, as
 they are plain einsums in the JAX package. The encoder ignores its padding
 mask, as in the JAX package, and a star decoder's output has the MEMORY's
@@ -70,15 +71,9 @@ class StarAttention(nn.Module):
     def satellite(self, h, e, s):
         """One ring update, before its ReLU: h, e (B, L, D), s (B, D) ->
         (B, L, D)."""
-        b, length, d = h.shape
-        kh, vh = self.wk(h), self.wv(h)
-        ks = self.wk(s)[:, None].expand(b, length, d)
-        vs = self.wv(s)[:, None].expand(b, length, d)
-        k_ctx = torch.stack([kh.roll(-1, 1), kh, kh.roll(1, 1), self.wk(e),
-                             ks])
-        v_ctx = torch.stack([vh.roll(-1, 1), vh, vh.roll(1, 1), self.wv(e),
-                             vs])
-        out = self.satellite_op(self.wq(h), k_ctx, v_ctx, self.num_heads)
+        out = self.satellite_op(self.wq(h), self.wk(h), self.wv(h),
+                                self.wk(e), self.wv(e), self.wk(s),
+                                self.wv(s), self.num_heads)
         return self.out(out)
 
     def _attend(self, q, k, v, mask=None):

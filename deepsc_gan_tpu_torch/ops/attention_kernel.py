@@ -26,8 +26,11 @@ from deepsc_gan_tpu_torch.ops import build
 KERNEL = "attention_fwd"
 KERNEL_BWD = "attention_bwd"
 # what the kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu): a
-# warp per head, at most 32 queries and keys (a tile of two 16-row mma
-# m-tiles in the bf16 forward, a lane per query otherwise)
+# warp per head, at most 32 queries and keys. bf16: the row's q, k, v (and
+# g) staged as bf16 in two 16-row mma m-tiles of queries and of keys; the
+# forward's block holds a batch row's heads, the backward's four of them
+# (all when dbias is asked for). f32: a lane per query (and per key in the
+# backward), a block per batch row.
 HEAD_DIMS = (8, 16, 32)
 MAX_LEN = 32
 MAX_HEADS = 16
@@ -97,10 +100,9 @@ def attention_bwd_reference(q, k, v, bias, g, heads: int, scale: float,
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _POINTERS = {KERNEL: 5, KERNEL_BWD: 9}
-# the shared-memory size function of each library (the forward's differs
-# by dtype)
+# the shared-memory size function of each library and dtype
 _SMEM = {KERNEL: "deepsc_attention_fwd_smem_bytes_{}",
-         KERNEL_BWD: "deepsc_attention_bwd_smem_bytes"}
+         KERNEL_BWD: "deepsc_attention_bwd_smem_bytes_{}"}
 _BOUND = {}
 
 

@@ -1,24 +1,33 @@
 """Star-Transformer satellite update: the CUDA kernel
 `csrc/star_satellite.cu` (K5, the port of the TPU kernel `_satellite_kernel`,
 deepsc_gan_tpu/ops/pallas/star.py:107), its wrapper and plain PyTorch
-version, the analytic backward, and the `torch.autograd.Function` that joins
+versions, the analytic backward, and the `torch.autograd.Function` that joins
 them as the TPU package's custom VJP does.
 
-`star_satellite(q, k_ctx, v_ctx, heads)` has the JAX signature
-(`star_satellite_attention`, star.py:185): q (B, L, D) projected queries,
-k_ctx and v_ctx (5, B, L, D) the projected keys and values of the five
-contexts {h_{i+1}, h_i, h_{i-1}, e_i, s} stacked by the caller. Per row and
-head it computes the scores q . k_j / sqrt(Dh) over the five contexts in
-f32, a softmax over the five and sum_j w_j v_j, returned as (B, L, D) in q's
-dtype. On CUDA tensors the wrapper launches the kernel (and counts the
-launch) or raises; on CPU tensors it runs the plain version, which is also
-what the kernel is held against on the card.
+`star_satellite(q, kh, vh, ke, ve, ks, vs, heads)` takes the ring as the
+caller projects it: q, kh and vh (B, L, D) from the satellites h, ke and ve
+(B, L, D) from the embeddings e, ks and vs (B, D) from the relay s. It
+computes the TPU kernel's function (`star_satellite_attention`, star.py:185)
+on the five stacked contexts that the JAX model builds from them
+(deepsc_gan_tpu/models/star.py:119-125; `contexts` here): {h_{i+1}, h_i,
+h_{i-1}, e_i, s}, the neighbours rolled circularly over the padded length.
+Per row and head: the scores q . k_j / sqrt(Dh) over the five in f32, a
+softmax over the five and sum_j w_j v_j, returned as (B, L, D) in q's dtype.
+The kernel reads the ring unstacked (a neighbour by index); the plain
+version `ring_reference` stacks it and runs `satellite_reference`, the
+TPU package's `_xla_satellite` on the stacked, flattened contexts. On CUDA
+tensors the wrapper launches the kernel (and counts the launch) or raises;
+on CPU tensors it runs the plain version, which is also what the kernel is
+held against on the card.
 
 The TPU backward is an analytic XLA VJP, not a Pallas kernel, so the
-backward here is plain PyTorch on every device (`satellite_backward`).
-`satellite_attention` is the Function through K5, `plain_satellite` the same
-Function through the plain version on any device (chip_smoke.py's yardstick
-for whole decodes and steps).
+backward here is plain PyTorch on every device: `satellite_backward` on the
+stacked contexts, recomputed, each of the five context gradients rounded to
+the input dtype as `_star_bwd` returns them, then folded back onto the ring
+(`_fold`: the rolls undone, the relay's summed over the length).
+`satellite_attention` is the Function through K5, `plain_satellite` the
+same Function through the plain version on any device (chip_smoke.py's
+yardstick for whole decodes and steps).
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ KERNEL = "star_satellite"
 CONTEXTS = 5
 # what the kernel takes (csrc/star_satellite.cu): a warp per row, each lane
 # holding D / 32 consecutive elements, so D is 32 x (2, 4 or 8); a head's
-# Dh elements span a power of two of lanes
+# Dh elements span a power of two of lanes; any B and L
 WIDTHS = (64, 128, 256)
 
 # Launches of K5 since the last reset (the wrapper adds one per launch and
@@ -46,6 +55,20 @@ launches = 0
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def contexts(x, xe, xs):
+    """The five stacked contexts of the ring (the JAX model's `k_ctx` /
+    `v_ctx`): x and xe (B, L, D), xs (B, D) -> (5, B, L, D) =
+    [roll(x, -1, 1), x, roll(x, 1, 1), xe, xs broadcast over L]."""
+    return torch.stack([x.roll(-1, 1), x, x.roll(1, 1), xe,
+                        xs[:, None].expand_as(x)])
+
+
+def _fold(d_ctx):
+    """The gradient of `contexts`: (5, B, L, D) -> (dx, dxe, dxs)."""
+    return (d_ctx[0].roll(1, 1) + d_ctx[1] + d_ctx[2].roll(-1, 1), d_ctx[3],
+            d_ctx[4].sum(dim=1))
 
 
 def _split(x, heads):
@@ -68,13 +91,13 @@ def satellite_reference(q2, k2, v2, heads: int):
     return out.reshape(q2.shape).to(q2.dtype)
 
 
-def _plain(q, k_ctx, v_ctx, heads: int):
-    """`satellite_reference` in the wrapper's layout: q (B, L, D), k_ctx and
-    v_ctx (5, B, L, D) -> (B, L, D)."""
+def ring_reference(q, kh, vh, ke, ve, ks, vs, heads: int):
+    """Plain PyTorch version of K5 on the ring (see the module docstring):
+    `contexts`, then `satellite_reference` -> (B, L, D) in q's dtype."""
     n = q.shape[0] * q.shape[1]
     return satellite_reference(
-        q.reshape(n, -1), k_ctx.reshape(CONTEXTS, n, -1),
-        v_ctx.reshape(CONTEXTS, n, -1), heads).reshape(q.shape)
+        q.reshape(n, -1), contexts(kh, ke, ks).reshape(CONTEXTS, n, -1),
+        contexts(vh, ve, vs).reshape(CONTEXTS, n, -1), heads).reshape(q.shape)
 
 
 def satellite_backward(q, k_ctx, v_ctx, g, heads: int):
@@ -105,35 +128,39 @@ def _bind(dtype):
     if dtype not in _BOUND:
         fn = getattr(build.load(KERNEL), f"deepsc_star_satellite_"
                                          f"{_SUFFIX[dtype]}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _BOUND[dtype] = fn
     return _BOUND[dtype]
 
 
-def _check(q, k_ctx, v_ctx, heads):
-    """What the kernel takes: q (B, L, D) and k_ctx, v_ctx (5, B, L, D) of
-    one dtype, f32 or bf16; D in WIDTHS and a head width Dh that is a power
-    of two of at least D / 32; all contiguous, 16-byte aligned, on q's
-    device. Any B * L."""
-    if q.dtype not in _SUFFIX or k_ctx.dtype != q.dtype \
-            or v_ctx.dtype != q.dtype:
-        raise TypeError(f"K5 takes q, k_ctx and v_ctx of one dtype, float32 "
-                        f"or bfloat16, not {q.dtype}, {k_ctx.dtype} and "
-                        f"{v_ctx.dtype}")
-    if q.dim() != 3 or k_ctx.shape != (CONTEXTS, *q.shape) \
-            or v_ctx.shape != k_ctx.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k_ctx "
-                         f"{tuple(k_ctx.shape)} v_ctx {tuple(v_ctx.shape)} "
-                         f"(want (B, L, D) and (5, B, L, D))")
+RING = ("q", "kh", "vh", "ke", "ve", "ks", "vs")
+
+
+def _check(ring, heads):
+    """What the kernel takes: q, kh, vh, ke, ve (B, L, D) and ks, vs (B, D)
+    of one dtype, f32 or bf16; D in WIDTHS and a head width Dh that is a
+    power of two of at least D / 32; all contiguous, 16-byte aligned, on
+    q's device. Any B and L."""
+    q = ring[0]
+    if q.dtype not in _SUFFIX or any(t.dtype != q.dtype for t in ring):
+        raise TypeError(f"K5 takes q, kh, vh, ke, ve, ks, vs of one dtype, "
+                        f"float32 or bfloat16, not "
+                        f"{[str(t.dtype) for t in ring]}")
+    shapes = [tuple(t.shape) for t in ring]
+    if q.dim() != 3 or shapes[1:5] != [shapes[0]] * 4 \
+            or shapes[5:] != [(q.shape[0], q.shape[2])] * 2:
+        raise ValueError(f"bad shapes {dict(zip(RING, shapes))} (want "
+                         f"(B, L, D) for q, kh, vh, ke, ve and (B, D) for "
+                         f"ks, vs)")
     d = q.shape[-1]
     dh = d // heads if heads > 0 and d % heads == 0 else 0
     if d not in WIDTHS or dh < d // 32 or dh & (dh - 1):
         raise ValueError(f"D {d} with {heads} heads: K5 takes D in {WIDTHS} "
                          f"and a head width that is a power of two of at "
                          f"least D / 32")
-    for name, t in (("q", q), ("k_ctx", k_ctx), ("v_ctx", v_ctx)):
+    for name, t in zip(RING, ring):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -142,17 +169,18 @@ def _check(q, k_ctx, v_ctx, heads):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def star_satellite(q, k_ctx, v_ctx, heads: int):
-    """K5's wrapper: the satellite update, (B, L, D) in q's dtype; see the
-    module docstring."""
+def star_satellite(q, kh, vh, ke, ve, ks, vs, heads: int):
+    """K5's wrapper: the satellite update of the ring, (B, L, D) in q's
+    dtype; see the module docstring."""
+    ring = (q, kh, vh, ke, ve, ks, vs)
     if not _on_cuda(q):
-        return _plain(q, k_ctx, v_ctx, heads)
-    _check(q, k_ctx, v_ctx, heads)
+        return ring_reference(*ring, heads)
+    _check(ring, heads)
     b, length, d = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _bind(q.dtype)(q.data_ptr(), k_ctx.data_ptr(), v_ctx.data_ptr(),
-                         out.data_ptr(), b * length, d, heads, stream)
+    err = _bind(q.dtype)(*(t.data_ptr() for t in ring), out.data_ptr(), b,
+                         length, d, heads, stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: CUDA error {err}")
     global launches
@@ -162,29 +190,32 @@ def star_satellite(q, k_ctx, v_ctx, heads: int):
 
 class SatelliteAttention(torch.autograd.Function):
     """Forward K5 (or the plain version when `plain`), backward
-    `satellite_backward`, saving q, k_ctx and v_ctx as the TPU package's
-    custom VJP does."""
+    `satellite_backward` on the recomputed contexts, folded onto the ring;
+    saves the ring (no stacked copy)."""
 
     @staticmethod
-    def forward(ctx, q, k_ctx, v_ctx, heads, plain):
-        ctx.save_for_backward(q, k_ctx, v_ctx)
+    def forward(ctx, q, kh, vh, ke, ve, ks, vs, heads, plain):
+        ctx.save_for_backward(q, kh, vh, ke, ve, ks, vs)
         ctx.heads = heads
-        return (_plain if plain else star_satellite)(q, k_ctx, v_ctx, heads)
+        fn = ring_reference if plain else star_satellite
+        return fn(q, kh, vh, ke, ve, ks, vs, heads)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        q, k_ctx, v_ctx = ctx.saved_tensors
-        dq, dk, dv = satellite_backward(q, k_ctx, v_ctx, g, ctx.heads)
-        return dq, dk, dv, None, None
+        q, kh, vh, ke, ve, ks, vs = ctx.saved_tensors
+        dq, dk, dv = satellite_backward(q, contexts(kh, ke, ks),
+                                        contexts(vh, ve, vs), g, ctx.heads)
+        (dkh, dke, dks), (dvh, dve, dvs) = _fold(dk), _fold(dv)
+        return dq, dkh, dvh, dke, dve, dks, dvs, None, None
 
 
-def satellite_attention(q, k_ctx, v_ctx, heads: int):
+def satellite_attention(q, kh, vh, ke, ve, ks, vs, heads: int):
     """The satellite update through K5, with `satellite_backward` as its
     backward."""
-    return SatelliteAttention.apply(q, k_ctx, v_ctx, heads, False)
+    return SatelliteAttention.apply(q, kh, vh, ke, ve, ks, vs, heads, False)
 
 
-def plain_satellite(q, k_ctx, v_ctx, heads: int):
+def plain_satellite(q, kh, vh, ke, ve, ks, vs, heads: int):
     """`satellite_attention` through the plain version on any device."""
-    return SatelliteAttention.apply(q, k_ctx, v_ctx, heads, True)
+    return SatelliteAttention.apply(q, kh, vh, ke, ve, ks, vs, heads, True)

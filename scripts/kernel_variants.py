@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""What bounds the bf16 K1 and K6: each built as it is and with one part
-changed or taken out, timed on one card.
+"""What bounds the bf16 K1, K2, K5 and K6: each built as it is and with
+one part changed or taken out, timed on one card.
 
     python3 scripts/kernel_variants.py [--iters 50]
 
-Every variant is an edited copy of `csrc/attention_fwd.cu` or
-`csrc/topk.cu` (the edit is a text replacement that must match the
-source), built with the port's nvcc flags in a temporary directory and
-called through its own C interface at the paths' shapes, on the inputs
-chip_smoke.py gives the kernels. Variants:
+Every variant is an edited copy of `csrc/attention_fwd.cu`,
+`csrc/attention_bwd.cu`, `csrc/star_satellite.cu` or `csrc/topk.cu` (the
+edit is a text replacement
+that must match the source), built with the port's nvcc flags in a
+temporary directory and called through its own C interface at the paths'
+shapes, on the inputs chip_smoke.py gives the kernels. Variants:
 - K1 (N = 1,216 and 64, Lq = Lk = 31, 8 heads of 16): `as_is`;
   `ieee_div`, e / sum by `__fdiv_rn` instead of the reciprocal and one fma
   correction; `no_softmax`, no products or softmax at all (the row's
   loads and the stores alone: the kernel's floor as designed).
+- K2 (the training path's N = 64, the encoder's, decoder self and cross
+  attentions, 8 heads of 16, no dbias): `as_is`; `heads_1`,
+  `heads_2`, `heads_16`, blocks of (at most) that many heads of a row
+  instead of 4 (`heads_16`: all of them, a block per row, as with dbias);
+  `no_products`, no products or softmax at all (the row's loads and the
+  stores alone: the kernel's floor as designed).
+- K5 (the star sweep decoder's B = 19 x 64 and the train step's B = 64,
+  L = 31, D = 128, 8 heads): `as_is`; `rows_4`, `rows_16`, blocks of that
+  many rows (a warp each) instead of 8.
 - K6 (N = 256 and 4,864, k = 4, V = 22,234; and N = 256, k = 8):
   `as_is`; `no_quad`, without the quad's shared threshold; `swap_insert`,
   every insertion by the merge's compare-and-swap pass (index compares
@@ -21,8 +31,9 @@ chip_smoke.py gives the kernels. Variants:
 Prints each variant's max error against the plain version (K6: whether
 its indices equal the plain version's) and its device time per call
 (`chip_smoke.device_ms`: the calls queued behind a spin of the device),
-with the card's name and power limit. Then holds K1's `div_rn` (its text
-taken from the source) bit for bit against `__fdiv_rn` over 2^32 pairs
+with the card's name and power limit. Then holds K1's and K2's `div_rn`
+(its text taken from `csrc/mma_row.cuh`) bit for bit against `__fdiv_rn`
+over 2^32 pairs
 (a, b): a in [0, 1) and b in [1, 32) as K1's e and sum, and a any normal
 float below 1. Needs CUDA.
 """
@@ -45,6 +56,7 @@ import chip_smoke as cs  # noqa: E402
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn  # noqa: E402
 from deepsc_gan_tpu_torch.ops import build  # noqa: E402
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce  # noqa: E402
+from deepsc_gan_tpu_torch.ops import star_kernel as star  # noqa: E402
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk  # noqa: E402
 
 K1_DIV = (
@@ -65,9 +77,22 @@ K6_SWAP = (K6_CHECK, """        if (x >= tq && x > lv[i][L - 1])
           insert(lv[i], li[i], x, c0 + 8 * q + e);""")
 K6_NONE = (K6_CHECK, "")
 
+K2_HEADS = "constexpr int kHeadsPerBlock = 4;"
+K5_ROWS = "constexpr int kRowsPerBlock = 8;"
+K2_NONE_Q = ("  const int mq = lq > 16 ? 2 : 1;", "  const int mq = 0;")
+K2_NONE_K = ("  const int mk = lk > 16 ? 2 : 1;", "  const int mk = 0;")
+
 VARIANTS = {
     "attention_fwd": {"as_is": [], "ieee_div": [K1_DIV],
                       "no_softmax": [K1_NONE]},
+    "attention_bwd": {"as_is": [],
+                      **{f"heads_{n}": [(K2_HEADS, K2_HEADS.replace(
+                          "4", str(n)))] for n in (1, 2, 16)},
+                      "no_products": [K2_NONE_Q, K2_NONE_K]},
+    "star_satellite": {"as_is": [],
+                       **{f"rows_{n}": [(K5_ROWS,
+                                         K5_ROWS.replace("8", str(n)))]
+                          for n in (4, 16)}},
     "topk": {"as_is": [], "no_quad": [K6_QUAD], "swap_insert": [K6_SWAP],
              "no_lists": [K6_NONE]},
 }
@@ -140,12 +165,12 @@ extern "C" int run(void* count, int mode) {
 
 
 def division_check(tmp: Path):
-    """K1's div_rn against __fdiv_rn, 2^32 pairs per mode."""
-    text = (build.CSRC / "attention_fwd.cu").read_text()
+    """K1's and K2's div_rn against __fdiv_rn, 2^32 pairs per mode."""
+    text = (build.CSRC / "mma_row.cuh").read_text()
     fn = re.search(r"__device__ __forceinline__ float div_rn\(.*?\n}\n",
                    text, re.S)
     if fn is None:
-        raise RuntimeError("div_rn not found in csrc/attention_fwd.cu")
+        raise RuntimeError("div_rn not found in csrc/mma_row.cuh")
     src, lib = tmp / "division.cu", tmp / "libdivision.so"
     src.write_text(DIVISION % fn.group(0))
     subprocess.run(build.nvcc_command(src, lib, build.find_nvcc()),
@@ -190,6 +215,64 @@ def k1_rows(libs, gen, iters):
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             print(f"[variant] K1 {name:11s} N={n:5d}: max err {err:.3g}, "
+                  f"device_ms {cs.device_ms(call, iters)!r}", flush=True)
+
+
+def k2_rows(libs, gen, iters):
+    for label, lq, lk in cs.TRAIN_SHAPES:
+        n = 64
+        q, k, v, bias = cs.attention_inputs(n, lq, lk, torch.bfloat16, gen,
+                                            lq == lk)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        ref = attn.attention_bwd_reference(q, k, v, bias, g, cs.HEADS, 4.0,
+                                           False)[:3]
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+        for name in VARIANTS["attention_bwd"]:
+            fn = libs[("attention_bwd", name)].deepsc_attention_bwd_bf16
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           + [ctypes.c_double, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         bias.data_ptr(), g.data_ptr(),
+                         *(t.data_ptr() for t in outs), None, n, lq, lk,
+                         cs.HEADS, cs.DH, 4.0, stream())
+                if err:
+                    raise RuntimeError(f"K2 {name}: CUDA error {err}")
+
+            call()
+            torch.cuda.synchronize()
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(outs, ref))
+            print(f"[variant] K2 {name:14s} {label:13s}: max err {err:.3g}, "
+                  f"device_ms {cs.device_ms(call, iters)!r}", flush=True)
+
+
+def k5_rows(libs, gen, iters):
+    for label, b in (("star_sweep", 19 * 64), ("star_train", 64)):
+        ring = [torch.randn((b, 31, 128) if i < 5 else (b, 128),
+                            generator=gen, device="cuda").to(torch.bfloat16)
+                for i in range(7)]
+        ref = star.ring_reference(*ring, cs.HEADS)
+        out = torch.empty_like(ring[0])
+        for name in VARIANTS["star_satellite"]:
+            fn = libs[("star_satellite", name)].deepsc_star_satellite_bf16
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            def call():
+                err = fn(*(t.data_ptr() for t in ring), out.data_ptr(), b,
+                         31, 128, cs.HEADS, stream())
+                if err:
+                    raise RuntimeError(f"K5 {name}: CUDA error {err}")
+
+            call()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            print(f"[variant] K5 {name:14s} {label:10s}: max err {err:.3g}, "
                   f"device_ms {cs.device_ms(call, iters)!r}", flush=True)
 
 
@@ -244,6 +327,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(Path(tmp))
         k1_rows(libs, gen, args.iters)
+        k2_rows(libs, gen, args.iters)
+        k5_rows(libs, gen, args.iters)
         k6_rows(libs, gen, args.iters)
         division_check(Path(tmp))
     return 0

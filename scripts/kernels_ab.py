@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The port's kernels of two checkouts, timed in turns on one card.
 
-    python3 scripts/kernels_ab.py OLD NEW [--cases ce,attention,topk]
-                                  [--turns ABBA] [--iters 50]
+    python3 scripts/kernels_ab.py OLD NEW
+        [--cases ce,attention,attention_bwd,topk,star] [--turns ABBA]
+        [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
 unpacked with `git archive <commit> chip_smoke.py deepsc_gan_tpu_torch` into
@@ -17,10 +18,19 @@ library call's. Cases:
 - `attention`: K1 at the serving path's shapes (N = 19 x 64 = 1,216) and
   the training path's (N = 64), encoder (Lq = Lk = 32), decoder self
   (31, 31) and cross (31, 32) attention, 8 heads of 16;
+- `attention_bwd`: K2 at the training path's shapes (N = 64, the three
+  attentions above, no dbias);
 - `topk`: K6 at the CLI's beam (N = 64 x 4 = 256) and the beam sweep's
-  (N = 19 x 256 = 4,864), k = 4.
+  (N = 19 x 256 = 4,864), k = 4;
+- `star`: the whole satellite update `StarAttention.satellite` (its
+  projections, the contexts and K5) of a bf16 bank at D = 128, 8 heads,
+  L = 31, on the star sweep decoder's B = 19 x 64 without autograd, and on
+  the train step's B = 64 forward and backward. The update, not K5 alone,
+  because K5's inputs may differ between checkouts (stacked contexts in
+  older ones, the unstacked ring now); no plain version or library call.
 Each turn then takes the device time per call of every kernel the bf16
-wrapper launches at each shape, from torch.profiler over 20 calls. Prints
+wrapper (for `star`, the update) launches at each shape, and the number of
+kernels, from torch.profiler over 20 calls. Prints
 every row with its checkout and turn, then the median of each number by
 checkout, and the card's name and power limit. Needs CUDA; imports nothing
 of either checkout itself.
@@ -35,7 +45,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-CASES = ("ce", "attention", "topk")
+CASES = ("ce", "attention", "attention_bwd", "topk", "star")
 
 TURN = r"""
 import json, sys, torch
@@ -62,14 +72,17 @@ def device_us(kernel, case, call):
         for _ in range(20):
             call()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, count = {}, 0
     for e in prof.events():
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
+        if getattr(e, "device_type", None) == DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             us = (e.time_range.end - e.time_range.start) / 20
             by_name[e.name] = by_name.get(e.name, 0.0) + us
+            count += 1
     print("DEVICE " + json.dumps({"kernel": kernel, "case": case,
                                   "dtype": "bfloat16",
                                   "device_us": sum(by_name.values()),
+                                  "kernels": count / 20,
                                   "by_name": by_name}), flush=True)
 
 
@@ -80,7 +93,8 @@ def row(r):
 cs.phase_device()
 build.build([name for case, names in (
     ("ce", [ce.KERNEL_FWD, ce.KERNEL_BWD]), ("attention", [attn.KERNEL]),
-    ("topk", [topk.KERNEL])) if case in cases for name in names])
+    ("attention_bwd", [attn.KERNEL_BWD]), ("topk", [topk.KERNEL]),
+    ("star", ["star_satellite"])) if case in cases for name in names])
 bf16 = torch.bfloat16
 if "ce" in cases:
     for dtype in (bf16, torch.float32):
@@ -106,6 +120,45 @@ if "attention" in cases:
         q, k, v, bias = cs.attention_inputs(n, lq, lk, bf16, gen, lq == lk)
         device_us(attn.KERNEL, label,
                   lambda: attn.attention_fwd(q, k, v, bias, cs.HEADS, 4.0))
+if "attention_bwd" in cases:
+    for dtype in (bf16, torch.float32):
+        gen = torch.Generator("cuda").manual_seed(0)
+        for label, lq, lk in cs.TRAIN_SHAPES:
+            row(cs.attention_bwd_case("train_" + label, TRAIN, lq, lk, dtype,
+                                      gen, iters, False))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, lq, lk in cs.TRAIN_SHAPES:
+        q, k, v, bias = cs.attention_inputs(TRAIN, lq, lk, bf16, gen, lq == lk)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+        device_us(attn.KERNEL_BWD, "train_" + label,
+                  lambda: attn.attention_bwd(q, k, v, bias, g, cs.HEADS, 4.0,
+                                             False))
+if "star" in cases:
+    from deepsc_gan_tpu_torch.models.star import StarAttention
+    for label, b, train in (("star_sweep", SERVE, False),
+                            ("star_train", TRAIN, True)):
+        torch.manual_seed(0)
+        att = StarAttention(D, cs.HEADS, dtype=bf16).cuda()
+        gen = torch.Generator("cuda").manual_seed(2)
+        h, e, gout = (torch.randn((b, 31, D), generator=gen, device="cuda")
+                      .to(bf16) for _ in range(3))
+        s = torch.randn((b, D), generator=gen, device="cuda").to(bf16)
+        if train:
+            leaves = [t.requires_grad_(True) for t in (h, e, s)]
+            leaves += list(att.parameters())
+
+            def call():
+                return torch.autograd.grad(att.satellite(h, e, s), leaves,
+                                           gout)
+        else:
+            def call():
+                with torch.no_grad():
+                    return att.satellite(h, e, s)
+        ms, host_ms = cs.cuda_ms(call, iters)
+        row({"kernel": "satellite_update", "case": label,
+             "dtype": "bfloat16", "ms": ms, "host_enqueue_ms": host_ms,
+             "device_ms": cs.device_ms(call, iters)})
+        device_us("satellite_update", label, call)
 if "topk" in cases:
     shapes = (("beam", BEAM), ("beam_sweep", 19 * BEAM))
     for dtype in (bf16, torch.float32):

@@ -49,7 +49,7 @@ def _inputs(seed, n, lq, lk, h, dh, dtype, device):
                                                     np.float32))
                .to(device, dtype) for ln in (lq, lk, lk))
     bias = np.where(rng.random((n, lq, lk)) < 0.3, -1e9, 0.0)
-    bias[0, 1, :] = -1e9
+    bias[0, min(1, lq - 1), :] = -1e9
     return q, k, v, torch.from_numpy(bias.astype(np.float32)).to(device)
 
 
@@ -147,18 +147,25 @@ def _err(got, ref, relative=False):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3.2e-2)])
-@pytest.mark.parametrize("lq,lk", [(32, 32), (31, 31), (31, 32)])
+@pytest.mark.parametrize("n,lq,lk,h,dh", [
+    (64, 32, 32, 8, 16), (64, 31, 31, 8, 16), (64, 31, 32, 8, 16),
+    (64, 31, 31, 8, 8), (64, 31, 31, 8, 32), (64, 20, 20, 16, 16),
+    (64, 1, 31, 8, 16), (64, 17, 31, 8, 16), (64, 17, 9, 16, 32),
+    (1, 31, 31, 8, 16), (1216, 31, 31, 8, 16)])
 @pytest.mark.parametrize("dbias", [False, True])
-def test_attention_bwd_kernel_matches_plain_version(cuda, dtype, tol, lq, lk,
-                                                    dbias):
+def test_attention_bwd_kernel_matches_plain_version(cuda, dtype, tol, n, lq,
+                                                    lk, h, dh, dbias):
     """K2 against its plain version at the training path's shapes (batch
-    64, 8 heads of 16), with and without dbias."""
-    q, k, v, bias = _inputs(3, 64, lq, lk, 8, 16, dtype, cuda)
+    64, 8 heads of 16), at head widths 8 and 32, 16 heads, one query and
+    17 (a second m-tile of one row), one batch row and the serving batch,
+    with and without dbias (with it a block holds every head of its row)."""
+    q, k, v, bias = _inputs(3, n, lq, lk, h, dh, dtype, cuda)
     g = torch.randn(q.shape, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(4)).to(dtype)
+    scale = math.sqrt(dh)
     attn.reset_launches()
-    got = attn.attention_bwd(q, k, v, bias, g, 8, 4.0, dbias)
-    want = attn.attention_bwd_reference(q, k, v, bias, g, 8, 4.0, dbias)
+    got = attn.attention_bwd(q, k, v, bias, g, h, scale, dbias)
+    want = attn.attention_bwd_reference(q, k, v, bias, g, h, scale, dbias)
     torch.cuda.synchronize()
     assert attn.bwd_launches == 1
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
@@ -167,6 +174,23 @@ def test_attention_bwd_kernel_matches_plain_version(cuda, dtype, tol, lq, lk,
             continue
         assert a.dtype == b.dtype and a.shape == b.shape
         assert _err(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("lq,lk,h,dh", [(31, 31, 8, 16), (32, 32, 8, 16),
+                                        (17, 9, 16, 32)])
+def test_attention_bwd_bf16_is_bitwise_deterministic(cuda, lq, lk, h, dh):
+    """The bf16 K2 twice without dbias and once with it (a block of one
+    head, then of all heads): dq, dk and dv bitwise equal."""
+    q, k, v, bias = _inputs(5, 64, lq, lk, h, dh, torch.bfloat16, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(6)).to(
+                        torch.bfloat16)
+    calls = [attn.attention_bwd(q, k, v, bias, g, h, 4.0, dbias)[:3]
+             for dbias in (False, False, True)]
+    torch.cuda.synchronize()
+    for other in calls[1:]:
+        for a, b in zip(calls[0], other):
+            assert torch.equal(a, b)
 
 
 def _ce_inputs(device, dtype, n, d, v, seed=5):
@@ -446,47 +470,54 @@ def test_tiny_beam_kernel_ids_equal_plain_ids(cuda):
     assert torch.equal(ids_k, ids_p)
 
 
+def _ring(device, dtype, b, l, d, seed=9):
+    """The satellite ring q, kh, vh, ke, ve (b, l, d) and ks, vs (b, d)
+    ~ N(0, 1)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return [torch.randn((b, l, d) if i < 5 else (b, d), device=device,
+                        generator=gen).to(dtype) for i in range(7)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3.2e-2)])
 @pytest.mark.parametrize("b,l,d,h", [(64, 31, 128, 8), (1216, 31, 128, 8),
                                      (1, 1987, 128, 8), (3, 5, 64, 4),
-                                     (2, 9, 256, 8), (2, 7, 128, 32)])
+                                     (2, 9, 256, 8), (2, 7, 128, 32),
+                                     (64, 1, 128, 8), (64, 2, 128, 8),
+                                     (37, 1, 64, 4), (37, 2, 256, 8),
+                                     (40000, 1, 128, 8), (20000, 2, 128, 8),
+                                     (5000, 9, 64, 4)])
 def test_star_kernel_matches_plain_version(cuda, dtype, tol, b, l, d, h):
-    """K5 against its plain version at the star paths' shapes (the train
-    step's and the sweep decoder's N = 64 x 31 and 19 x 64 x 31), at a row
-    count that is not a multiple of the 8 rows per block, and at the other
-    widths and head layouts it takes."""
-    gen = torch.Generator(cuda).manual_seed(9)
-    q = torch.randn((b, l, d), device=cuda, generator=gen).to(dtype)
-    k, v = (torch.randn((5, b, l, d), device=cuda, generator=gen).to(dtype)
-            for _ in range(2))
+    """K5 on the unstacked ring against its plain version (stack, roll,
+    `satellite_reference`) at the star paths' shapes (the train step's B =
+    64, a row a warp, and the sweep decoder's 19 x 64, L = 31, runs of 8
+    rows a warp), at L = 1 and 2 (the neighbours coincide) in both, at a
+    run that does not divide L, and at the other widths and head layouts
+    it takes."""
+    ring = _ring(cuda, dtype, b, l, d)
     star.reset_launches()
-    out = star.star_satellite(q, k, v, h)
-    ref = star.satellite_reference(q.reshape(b * l, d),
-                                   k.reshape(5, b * l, d),
-                                   v.reshape(5, b * l, d), h)
+    out = star.star_satellite(*ring, h)
+    ref = star.ring_reference(*ring, h)
     torch.cuda.synchronize()
     assert star.launches == 1
-    assert out.shape == q.shape and out.dtype == dtype
-    assert _err(out.reshape(b * l, d), ref) <= tol
+    assert out.shape == (b, l, d) and out.dtype == dtype
+    assert _err(out, ref) <= tol
 
 
 def test_star_wrapper_raises_on_an_unsupported_shape(cuda):
-    q = torch.randn((2, 4, 128), device=cuda)
-    k = torch.randn((5, 2, 4, 128), device=cuda)
+    ring = _ring(cuda, torch.float32, 2, 4, 128)
     with pytest.raises(ValueError, match="K5 takes D"):
-        star.star_satellite(q, k, k, 64)        # Dh 2: under D / 32
+        star.star_satellite(*ring, 64)        # Dh 2: under D / 32
     with pytest.raises(ValueError, match="K5 takes D"):
-        star.star_satellite(q[..., :96].contiguous(),
-                            k[..., :96].contiguous(),
-                            k[..., :96].contiguous(), 6)   # D 96
+        star.star_satellite(*(t[..., :96].contiguous() for t in ring),
+                            6)                # D 96
     with pytest.raises(ValueError, match="shapes"):
-        star.star_satellite(q, k[:4], k[:4], 8)
+        star.star_satellite(*ring[:5], ring[1], ring[6], 8)  # ks (B, L, D)
     with pytest.raises(ValueError, match="contiguous"):
-        star.star_satellite(q, k.transpose(1, 2).contiguous()
-                            .transpose(1, 2), k, 8)
+        star.star_satellite(ring[0], ring[1].transpose(0, 1).contiguous()
+                            .transpose(0, 1), *ring[2:], 8)
     with pytest.raises(TypeError, match="dtype"):
-        star.star_satellite(q.half(), k.half(), k.half(), 8)
+        star.star_satellite(*(t.half() for t in ring), 8)
 
 
 TINY_STAR = TINY.replace(encoder_d_model=64, decoder_d_model=64,

@@ -1,8 +1,9 @@
 """The port's Star codec against the JAX package's on the CPU at f32: K5's
-plain version and its autograd Function (forward and the analytic
-backward) against the TPU kernel under the Pallas interpreter and
-`jax.grad` through it; each star module on the same weights through the
-weight bridge; and the bridge's round trip on star trees."""
+plain versions and its autograd Function (forward and the analytic
+backward, folded onto the ring) against the TPU kernel under the Pallas
+interpreter and `jax.grad` through it, on stacked contexts and on the ring
+as the JAX model stacks it; each star module on the same weights through
+the weight bridge; and the bridge's round trip on star trees."""
 
 from pathlib import Path
 
@@ -30,8 +31,16 @@ from test_torch_model import port_config
 STAR_TRAINED = str(Path(__file__).resolve().parent.parent / "results"
                    / "star_best_params.pkl")
 # (b, l, d, heads, tolerance): a tiny shape and the model's (D = 128, 8
-# heads), at the tolerances of tests/test_pallas_star.py
-SHAPES = {"tiny": (2, 6, 32, 4, 1e-5), "full": (4, 31, 128, 8, 1e-4)}
+# heads), at the tolerances of tests/test_pallas_star.py; for the ring also
+# L = 1 and 2 (the neighbours coincide with each other or with the row) and
+# an odd L
+SHAPES = {"tiny": (2, 6, 32, 4, 1e-5), "full": (4, 31, 128, 8, 1e-4),
+          "L1": (3, 1, 32, 4, 1e-5), "L2": (3, 2, 32, 4, 1e-5),
+          "odd": (2, 7, 32, 4, 1e-5)}
+# "tiny", "full": independent stacked contexts, which only the plain
+# version and the backward take; "ring_*": the unstacked ring
+CASES = ["tiny", "full"] + [f"ring_{name}" for name in SHAPES]
+RING = ("q", "kh", "vh", "ke", "ve", "ks", "vs")
 
 
 @pytest.fixture
@@ -50,45 +59,91 @@ def _inputs(b, l, d, seed):
             rng.standard_normal((5, b, l, d), np.float32))
 
 
-@pytest.mark.parametrize("shape", list(SHAPES))
-def test_satellite_matches_interpreted_kernel(interpret, shape):
-    """The plain version, the wrapper on the CPU and the Function through
-    K5 and through the plain version, against the TPU kernel."""
-    b, l, d, heads, tol = SHAPES[shape]
-    q, k, v = _inputs(b, l, d, seed=1)
-    want = np.asarray(star_satellite_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads))
-    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
-    got = {
-        "reference": star_kernel.satellite_reference(
+def _ring_inputs(b, l, d, seed):
+    """q, kh, vh, ke, ve (b, l, d) and ks, vs (b, d) ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, l, d) if i < 5 else (b, d),
+                                     np.float32) for i in range(7))
+
+
+def _jax_ring(q, kh, vh, ke, ve, ks, vs, heads):
+    """The TPU kernel on the contexts the JAX model builds from the ring
+    (deepsc_gan_tpu/models/star.py:119-125)."""
+    b, l, d = q.shape
+    nxt = lambda t: jnp.roll(t, -1, axis=1)  # noqa: E731
+    prv = lambda t: jnp.roll(t, 1, axis=1)  # noqa: E731
+    k_ctx = jnp.stack([nxt(kh), kh, prv(kh), ke,
+                       jnp.broadcast_to(ks.reshape(b, 1, d), (b, l, d))])
+    v_ctx = jnp.stack([nxt(vh), vh, prv(vh), ve,
+                       jnp.broadcast_to(vs.reshape(b, 1, d), (b, l, d))])
+    return star_satellite_attention(q, k_ctx, v_ctx, heads)
+
+
+def _case(case):
+    """(ring?, b, l, d, heads, tolerance)."""
+    ring = case.startswith("ring_")
+    return (ring, *SHAPES[case.removeprefix("ring_")])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_satellite_matches_interpreted_kernel(interpret, case):
+    """Against the TPU kernel: on stacked contexts, the plain version; on
+    the ring, its plain version, the wrapper on the CPU, and the Function
+    through K5 and through the plain version."""
+    ring, b, l, d, heads, tol = _case(case)
+    if not ring:
+        q, k, v = _inputs(b, l, d, seed=1)
+        want = np.asarray(star_satellite_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads))
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+        got = {"reference": star_kernel.satellite_reference(
             tq.reshape(b * l, d), tk.reshape(5, b * l, d),
-            tv.reshape(5, b * l, d), heads).reshape(b, l, d),
-        "wrapper": star_kernel.star_satellite(tq, tk, tv, heads),
-        "function": star_kernel.satellite_attention(tq, tk, tv, heads),
-        "plain": star_kernel.plain_satellite(tq, tk, tv, heads)}
+            tv.reshape(5, b * l, d), heads).reshape(b, l, d)}
+    else:
+        xs = _ring_inputs(b, l, d, seed=1)
+        want = np.asarray(_jax_ring(*map(jnp.asarray, xs), heads))
+        t = [torch.from_numpy(x) for x in xs]
+        got = {"ring_reference": star_kernel.ring_reference(*t, heads),
+               "wrapper": star_kernel.star_satellite(*t, heads),
+               "function": star_kernel.satellite_attention(*t, heads),
+               "plain": star_kernel.plain_satellite(*t, heads)}
     for name, out in got.items():
         np.testing.assert_allclose(out.numpy(), want, atol=tol, rtol=tol,
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("shape", list(SHAPES))
-def test_satellite_backward_matches_jax_vjp(interpret, shape):
-    """Autograd through the Function (backward: `satellite_backward`)
-    against `jax.grad` through the kernel's custom VJP, for a weighted sum
-    of the output."""
-    b, l, d, heads, tol = SHAPES[shape]
-    q, k, v = _inputs(b, l, d, seed=2)
+@pytest.mark.parametrize("case", CASES)
+def test_satellite_backward_matches_jax_vjp(interpret, case):
+    """Against `jax.grad` through the kernel's custom VJP, for a weighted
+    sum of the output: on stacked contexts, `satellite_backward`; on the
+    ring, autograd through the Function (K5 and plain paths) for all seven
+    inputs, against `jax.grad` through the JAX model's roll, stack and
+    broadcast."""
+    ring, b, l, d, heads, tol = _case(case)
     g = np.random.default_rng(3).standard_normal((b, l, d), np.float32)
-    want = jax.grad(
-        lambda q, k, v: jnp.sum(star_satellite_attention(q, k, v, heads) * g),
-        argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    for fn in (star_kernel.satellite_attention, star_kernel.plain_satellite):
-        leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
-        (fn(*leaves, heads) * torch.from_numpy(g)).sum().backward()
-        for name, t, w in zip("qkv", leaves, want):
-            np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
-                                       atol=tol, rtol=tol,
-                                       err_msg=f"{fn.__name__} d{name}")
+    if not ring:
+        xs = _inputs(b, l, d, seed=2)
+        want = jax.grad(lambda q, k, v: jnp.sum(
+            star_satellite_attention(q, k, v, heads) * g),
+            argnums=(0, 1, 2))(*map(jnp.asarray, xs))
+        got = {"satellite_backward": star_kernel.satellite_backward(
+            *(torch.from_numpy(x) for x in xs), torch.from_numpy(g), heads)}
+        names = "qkv"
+    else:
+        xs = _ring_inputs(b, l, d, seed=2)
+        want = jax.grad(lambda *a: jnp.sum(_jax_ring(*a, heads) * g),
+                        argnums=tuple(range(7)))(*map(jnp.asarray, xs))
+        got = {}
+        for fn in (star_kernel.satellite_attention,
+                   star_kernel.plain_satellite):
+            leaves = [torch.from_numpy(x).requires_grad_(True) for x in xs]
+            (fn(*leaves, heads) * torch.from_numpy(g)).sum().backward()
+            got[fn.__name__] = [t.grad for t in leaves]
+        names = RING
+    for fn_name, grads in got.items():
+        for name, t, w in zip(names, grads, want):
+            np.testing.assert_allclose(t.numpy(), np.asarray(w), atol=tol,
+                                       rtol=tol, err_msg=f"{fn_name} d{name}")
 
 
 def _noisy(tree, seed):
