@@ -24,7 +24,8 @@ non-zero without its last line:
    not a multiple of its 128-row tiles, its indices equal to the plain
    version's in every case; K5 on the unstacked ring, also at L = 1 and 2
    and at an odd number of sequences; K2 bitwise equal over two calls and
-   with and without dbias;
+   with and without dbias; K4 in its dh-only mode (no dW/db) at the
+   training shape, its dh bitwise equal to the full mode's;
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -57,12 +58,37 @@ non-zero without its last line:
    batch the one-shot ids through K5 equal the plain version's, for the
    trained star weights and for a random multi-layer star (star_multi, 64
    K5 per call);
-8. profile: device time by kernel over one bf16 call of the full-prefix
-   sweep, of the KV sweep, of the beam and of the star sweep, and over one
-   bf16 train step of each codec (with K3's and K4's share of it), and the
+8. fading: the CLI's full-prefix greedy sweep through Rayleigh, the KV
+   sweep through Rician with the MMSE equalizer and the beam through
+   Rician (one batch) on the trained weights, each call launching what its
+   AWGN path's launches; then at f32 on one batch the Rayleigh greedy ids
+   through K1 equal the plain version's on the same draws;
+9. attack training: `cli train --train-mode attack --adv-weight 0.5
+   --pnr-db 0` at full width in bf16 from a random init for
+   ATTACK_EPOCHS epochs (per step: 36 K1, 31 K2, 3 K3, 3 K4 of which 1
+   in the dh-only mode); every loss finite and the mean of the last 16
+   adversarial losses below that of the first 16; then an f32 attack step
+   through the kernels against one through the plain versions: the
+   perturbation and the losses; the gradients within 1e-4 of the plain
+   step given the kernels' perturbation and ReLU decisions (they are not
+   continuous in them: a ReLU flips), and within 3 times the plain step's
+   own gap under a 1e-5 jitter of its perturbation on each path's own;
+10. attack evaluation in bf16 at PNR 0 dB on the trained weights:
+   `--eval-mode teacher_forced` (28 K1, 7 K2 per call), `pgd` (116 K1,
+   7 K2; every eps* in [0, 1]) and `greedy_attack` (252 K1, 7 K2) through
+   AWGN, `teacher_forced` through Rayleigh, and the star `teacher_forced`
+   on the star weights phase 6 saved (32 K5 per call); 19 rows of finite
+   values each; then an f32 teacher-forced call through K1/K2 against one
+   through the plain versions (losses, ids but for near-ties, and the
+   attacked logits within 3 times the plain call's own gap under a 1e-5
+   jitter of its perturbation);
+11. profile: device time by kernel over one bf16 call of the full-prefix
+   sweep, of the KV sweep, of the beam and of the star sweep, over one
+   bf16 train step of each codec (with K3's and K4's share of it), over
+   one bf16 attack train step and one teacher-forced FGM call, and the
    device's idle share in each (torch.profiler); the star sweep call must
    run no roll kernel (K5 reads the ring unstacked);
-9. the kernels as one JSON line, then `{"ok": true, "device": {...}}` as
+12. the kernels as one JSON line, then `{"ok": true, "device": {...}}` as
    the last line.
 
 Needs CUDA: without it the script exits 1 before any phase.
@@ -95,7 +121,7 @@ from deepsc_gan_tpu_torch.evaluate.kv_decode import (
     make_greedy_decode_kv_sweep,
 )
 from deepsc_gan_tpu_torch.evaluate.metrics import SNR_to_noise
-from deepsc_gan_tpu_torch.models.channel import snr_to_noise
+from deepsc_gan_tpu_torch.models.channel import draw_channel, snr_to_noise
 from deepsc_gan_tpu_torch.models.transceiver import make_model
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
 from deepsc_gan_tpu_torch.ops import build
@@ -135,6 +161,9 @@ TRAIN_SHAPES = (("encoder", 32, 32), ("decoder_self", 31, 31),
                 ("decoder_cross", 31, 32))
 KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
            star.KERNEL, topk.KERNEL)
+# the K4 launches among ce_bwd's that ran in the dh-only mode
+DH_ONLY = "ce_bwd_dh_only"
+COUNTERS = KERNELS + (DH_ONLY,)
 BEAM = 4
 # a spin of the device (about 0.1 s) that the timed calls queue up behind
 SPIN_CYCLES = 200_000_000
@@ -465,6 +494,47 @@ def ce_cases(dtype, gen, iters, n, d, v):
     return rows
 
 
+def ce_dh_only_case(dtype, gen, iters, n, d, v):
+    """K4 in its dh-only mode at the training path's shape: dh bitwise
+    equal to the full mode's, and against the plain version's dh relative
+    to its largest value (and on the softmax part, SOFTMAX_TOL); no dW or
+    db returned. The library yardstick is PyTorch's cross entropy's
+    backward with respect to h alone."""
+    h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v)
+    lse = ce.ce_fwd_reference(h, W, b, labels)[1]
+    full = ce.ce_bwd(h, W, b, labels, lse, g)
+    got = ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True)
+    want = ce.ce_bwd_reference(h, W, b, labels, lse, g, dh_only=True)
+    part = ce.ce_bwd_reference(h, W, b, labels, lse, g, softmax_only=True,
+                               dh_only=True)
+    torch.cuda.synchronize()
+    if got[1] is not None or got[2] is not None:
+        raise AssertionError("ce_bwd dh_only returned dW or db")
+    if not torch.equal(got[0], full[0]):
+        raise AssertionError(f"ce_bwd dh_only {dtype}: dh differs from the "
+                             f"full mode's")
+    softmax_err = softmax_part_err(got[:1], want[:1], part[:1])
+    if not softmax_err <= SOFTMAX_TOL[dtype]:
+        raise AssertionError(f"ce_bwd dh_only {dtype}: err {softmax_err} of "
+                             f"the softmax part > {SOFTMAX_TOL[dtype]}")
+    leaf = h.detach().requires_grad_(True)
+    loss = F.cross_entropy((leaf @ W.t()).float() + b, labels,
+                           reduction="none")
+    elt = h.element_size()
+    # reads h, W, b, labels, lse, g; writes dh (f32); a logits recompute
+    # and the product P W
+    return kernel_row(
+        ce.KERNEL_BWD, "ce_dh_only", dtype,
+        max_err(got[:1], want[:1], relative=True), TOL[dtype],
+        lambda: ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True),
+        lambda: ce.ce_bwd_reference(h, W, b, labels, lse, g, dh_only=True),
+        lambda: torch.autograd.grad(loss, [leaf], g, retain_graph=True),
+        (n * d + v * d) * elt + v * 4 + 3 * n * 4 + n * d * 4,
+        4 * n * d * v, iters, n=n, d=d, v=v,
+        design=DESIGN[ce.KERNEL_BWD][dtype], softmax_err=softmax_err,
+        softmax_tol=SOFTMAX_TOL[dtype])
+
+
 def dyadic(shape, scale, gen, dtype):
     """Random integers in [-scale, scale] over 8 * scale, for a power of
     two `scale`: exact in bf16. With h and b at scale 8 and W at scale 2,
@@ -576,6 +646,8 @@ def phase_kernels(seed, n, bs, iters):
                                                dtype, gen, iters, dbias))
         rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1),
                          cfg.decoder_d_model, cfg.vocab_size)
+        rows.append(ce_dh_only_case(dtype, gen, iters, bs * (cfg.seq_len - 1),
+                                    cfg.decoder_d_model, cfg.vocab_size))
         rows.append(topk_case("beam", bs * BEAM, dtype, gen, iters))
         rows.append(topk_case("beam_sweep", n * BEAM, dtype, gen, iters))
         for k in (1, 8):
@@ -607,10 +679,12 @@ def reset_launches():
 
 
 def launches():
-    """Launches of K1-K6 since the last reset."""
+    """Launches of K1-K6 since the last reset, and how many of K4's ran in
+    its dh-only mode."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
             ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
-            star.KERNEL: star.launches, topk.KERNEL: topk.launches}
+            star.KERNEL: star.launches, topk.KERNEL: topk.launches,
+            DH_ONLY: ce.bwd_dh_only_launches}
 
 
 def check_launches(path, got, expected):
@@ -636,11 +710,14 @@ def stderr_copy():
 VANILLA = ("--variant", "transformer", "--params-pkl", PARAMS)
 
 
-def phase_serve(tag, flags, seed, batches, bs, per_call, model=VANILLA):
+def phase_serve(tag, flags, seed, batches, bs, per_call, model=VANILLA,
+                width=2):
     """One serving path through `cli evaluate` in bf16, 19 SNRs (`model`:
     the variant and where its weights come from; the vanilla transceiver's
     trained weights by default): the launch counts must equal `per_call`
-    times the decode calls; the BLEU table 19 finite values in [0, 1]. ->
+    times the decode calls; the table 19 rows of `width` finite values,
+    each BLEU in [0, 1] (a sweep's rows [snr, BLEU]; an attack table's
+    [snr, clean BLEU, attacked BLEU, loss clean, loss attacked]). ->
     (launch counts, steady seq/s: the fastest call's, the CLI's result,
     what it wrote to stderr)."""
     reset_launches()
@@ -657,11 +734,18 @@ def phase_serve(tag, flags, seed, batches, bs, per_call, model=VANILLA):
     check_launches(tag, got, {name: n * len(secs)
                               for name, n in per_call.items()})
     table = res["table"]
-    if len(table) != len(SNRS) or not all(
-            math.isfinite(b) and 0.0 <= b <= 1.0 for _, b in table):
-        raise AssertionError(f"{tag}: bad BLEU table {table}")
-    print(f"[{tag}] BLEU-1 " + " ".join(f"{s:.0f}dB={b:.4f}"
-                                        for s, b in table))
+    if len(table) != len(SNRS) or [r[0] for r in table] != SNRS or not all(
+            len(r) == width and all(math.isfinite(x) for x in r)
+            and all(0.0 <= x <= 1.0 for x in r[1:3 if width == 5 else 2])
+            for r in table):
+        raise AssertionError(f"{tag}: bad table {table}")
+    if width == 2:
+        print(f"[{tag}] BLEU-1 " + " ".join(f"{s:.0f}dB={b:.4f}"
+                                            for s, b in table))
+    else:
+        print(f"[{tag}] SNR: BLEU-1 clean/attacked, loss clean/attacked: "
+              + "; ".join(f"{r[0]:.0f}dB {r[1]:.4f}/{r[2]:.4f} "
+                          f"{r[3]:.3f}/{r[4]:.3f}" for r in table))
     per_call_seqs = res["sequences"] / len(secs)
     steady = per_call_seqs / min(secs)
     print(f"[{tag}] {res['sequences']} sequences in {len(secs)} decode "
@@ -675,7 +759,7 @@ def phase_serving(seed, batches, bs):
     """The three serving paths (full-prefix greedy, KV greedy, KV beam);
     -> their launch counts by path."""
     cfg = Config()
-    none = {name: 0 for name in KERNELS}
+    none = {name: 0 for name in COUNTERS}
     # full prefix: the encoder's self-attention per layer, then the
     # decoder's self and cross per layer at each of max_length steps
     full = dict(none, **{attn.KERNEL: cfg.encoder_num_layer
@@ -716,7 +800,7 @@ def phase_train(seed, epochs, bs, variant="transformer",
     got = launches()
     cfg = Config()
     n = res["steps"]
-    expected = {name: 0 for name in KERNELS}
+    expected = {name: 0 for name in COUNTERS}
     expected.update({ce.KERNEL_FWD: n, ce.KERNEL_BWD: n})
     if variant == "transformer":
         per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
@@ -789,7 +873,7 @@ def phase_step_parity(seed, bs, variant="transformer"):
     trained = (star.KERNEL,) if is_star else (attn.KERNEL, attn.KERNEL_BWD)
     trained += (ce.KERNEL_FWD, ce.KERNEL_BWD)
     if sum(cp.values()) or any(ck[name] == 0 for name in trained) \
-            or any(ck[name] for name in KERNELS if name not in trained):
+            or any(ck[name] for name in COUNTERS if name not in trained):
         raise AssertionError(f"step parity launches: kernels {ck}, plain "
                              f"{cp}")
     worst, worst_name = 0.0, ""
@@ -806,6 +890,135 @@ def phase_step_parity(seed, bs, variant="transformer"):
     if not worst <= 1e-4:
         raise AssertionError(f"f32 step grad {worst_name}: {worst} > 1e-4 "
                              f"of max|ref|")
+
+
+@contextlib.contextmanager
+def tapped(replay=(None, None)):
+    """`steps.fgm_normalize` (the train step's), `steps.fgm_perturbation`
+    (the eval steps') and `torch.relu` wrapped for the block: the
+    perturbations they return and every ReLU input are appended to the
+    yielded (perturbations, ReLU inputs) lists. `replay`, such a pair from
+    another run (or None in either place): the perturbations returned are
+    that run's, and each ReLU keeps the elements that run's kept (input
+    above 0), in call order."""
+    perts, inputs = [], []
+    normalize, perturb = steps.fgm_normalize, steps.fgm_perturbation
+    relu = torch.relu
+    given_r = iter(replay[0] or ())
+    given_x = iter(replay[1] or ())
+
+    def fgm(grad, epsilon=1.0):
+        r = normalize(grad, epsilon)
+        if replay[0] is not None:
+            r = next(given_r)
+        perts.append(r)
+        return r
+
+    def fgm_perturbation(loss_of, x, epsilon=1.0):
+        r, loss = perturb(loss_of, x, epsilon)
+        if replay[0] is not None:
+            r = next(given_r)
+        perts.append(r)
+        return r, loss
+
+    def relu_tap(x):
+        inputs.append(x.detach())
+        if replay[1] is not None:
+            return x * (next(given_x) > 0).to(x.dtype)
+        return relu(x)
+
+    steps.fgm_normalize, steps.fgm_perturbation = fgm, fgm_perturbation
+    torch.relu = relu_tap
+    try:
+        yield perts, inputs
+    finally:
+        steps.fgm_normalize, steps.fgm_perturbation = normalize, perturb
+        torch.relu = relu
+
+
+def phase_attack_step_parity(seed, bs):
+    """One f32 FGM step (adv_weight 0.5, PNR 0 dB) at full width through
+    the kernels and one through the plain versions, from the same weights
+    (init from `seed`), draws and dropout masks: `attack_step_launches`
+    through the kernels (K4 dh-only in phase 1), none through the plain
+    versions; both losses within rtol 1e-5; phase 1's perturbation and
+    every ReLU input within 1e-4 of their largest element.
+
+    The gradients are not continuous where a ReLU input sits at its kink,
+    and at this width some inputs lie within the paths' f32 difference of
+    0: their sign, and so the gradient through them, differs between the
+    paths (printed: how many, the gradient gap they make, and the gap a
+    perturbation scaled by 1 + 1e-5 N(0, 1) makes in the plain step). So
+    the gradients through the kernels are held within 1e-4 of their
+    largest to the plain step that takes the kernel run's perturbation and
+    ReLU decisions (its losses within rtol 1e-5 too), and on each path's
+    own perturbation and decisions within 3 times that jitter's gap. Both
+    paths must have run at least one ReLU, or the replay held nothing."""
+    cfg = Config(dtype="float32", bs=bs)
+    inp = _train_batch(cfg, seed)
+    n_std = float(snr_to_noise(cfg.train_snr))
+
+    def run(plain, replay=(None, None)):
+        model = steps.init_params(variant_model(cfg, "transformer", plain),
+                                  seed).cuda().train()
+        state = steps.create_train_state(model, cfg)
+        step = steps.make_train_attack_step(model, cfg, adv_weight=0.5,
+                                            plain=plain)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        reset_launches()
+        with tapped(replay) as taps:
+            _, losses = step(state, inp, inp, gen, 0.0, n_std, 1.0)
+        torch.cuda.synchronize()
+        return [x.item() for x in losses], model, launches(), taps
+
+    def grad_gap(a, b):
+        return max((max_err([p.grad], [q.grad], relative=True), name)
+                   for (name, p), q in zip(a.named_parameters(),
+                                           b.parameters()))
+
+    lk, mk, ck, (rk, xk) = run(False)
+    lp, mp, cp, (rp, xp) = run(True)
+    ls, ms, _, _ = run(True, (rk, xk))
+    noise = torch.randn(rp[0].shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    _, mj, _, _ = run(True, ([rp[0] * (1.0 + 1e-5 * noise)], None))
+    want = {name: 0 for name in COUNTERS}
+    want.update(attack_step_launches(cfg, 0.5))
+    check_launches("f32 attack step", ck, want)
+    if sum(cp.values()):
+        raise AssertionError(f"the plain attack step launched {cp}")
+    if not (len(xk) == len(xp) > 0 and len(rk) == 1):
+        raise AssertionError(f"{len(xk)} and {len(xp)} ReLU calls, "
+                             f"{len(rk)} perturbations")
+    r_err = max_err(rk, rp, relative=True)
+    x_err = max(max_err([a], [b], relative=True) for a, b in zip(xk, xp))
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(xk, xp))
+    elements = sum(a.numel() for a in xk)
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk + lk, lp + ls)]
+    same, own, jitter = grad_gap(mk, ms), grad_gap(mk, mp), grad_gap(mp, mj)
+    print(f"[parity] f32 attack step: losses (clean, adversarial) kernels "
+          f"{lk}, plain {lp}, plain on the kernel run's perturbation and "
+          f"ReLU decisions {ls} (rel {', '.join(f'{r:.2e}' for r in rel)}); "
+          f"perturbation err / max|ref| {r_err:.2e}; {len(xk)} ReLU calls: "
+          f"inputs err / max|ref| {x_err:.2e}, {flips} of {elements} "
+          f"change sign between the paths; worst grad err / max|ref| on the "
+          f"same perturbation and ReLU decisions {same[0]:.2e} ({same[1]}), "
+          f"on each path's own {own[0]:.2e} ({own[1]}); the plain step's "
+          f"with its perturbation scaled by 1 + 1e-5 N(0, 1) "
+          f"{jitter[0]:.2e} ({jitter[1]})")
+    if not all(r <= 1e-5 for r in rel):
+        raise AssertionError(f"f32 attack step losses {lk} vs plain {lp}, "
+                             f"{ls}")
+    if not (r_err <= 1e-4 and x_err <= 1e-4):
+        raise AssertionError(f"f32 attack step: perturbation err {r_err}, "
+                             f"ReLU inputs err {x_err} > 1e-4 of max|ref|")
+    if not same[0] <= 1e-4:
+        raise AssertionError(f"f32 attack step grad {same[1]}: {same[0]} > "
+                             f"1e-4 of max|ref|")
+    if not own[0] <= 3 * jitter[0]:
+        raise AssertionError(f"f32 attack step grad on each path's own "
+                             f"{own[1]}: {own[0]} > 3 x the plain step's "
+                             f"jitter gap {jitter[0]}")
 
 
 def same_ids(tag, got, want):
@@ -867,7 +1080,7 @@ def phase_star_serving(seed, batches, bs):
     of the decoder on the 19 x bs rows) and nothing else. -> its launch
     counts."""
     saved = f"{STAR_CKPT}/star_params.pkl"
-    per_call = {name: 0 for name in KERNELS}
+    per_call = {name: 0 for name in COUNTERS}
     per_call[star.KERNEL] = 2 * Config().cycle_num
     got, rate, res, err = phase_serve(
         "star_serve", ["--eval-mode", "greedy"], seed, batches, bs, per_call,
@@ -955,7 +1168,7 @@ def phase_star_f32_ids(seed, bs):
             logits.append(seen[0][:, :ids[-1].shape[-1]])
             layers = 1 if variant == "star" else cfg.encoder_num_layer
             want = 0 if plain else 2 * layers * cfg.cycle_num
-            if launches() != dict({n: 0 for n in KERNELS},
+            if launches() != dict({n: 0 for n in COUNTERS},
                                   **{star.KERNEL: want}):
                 raise AssertionError(f"{variant} one-shot sweep (plain "
                                      f"{plain}): launches {launches()}")
@@ -1070,6 +1283,46 @@ def phase_profile(seed, bs):
 
     for variant in ("transformer", "star"):
         profile_train_step(variant, seed, bs, gen)
+    profile_attack(seed, bs, gen)
+
+
+def profile_attack(seed, bs, gen):
+    """One bf16 FGM train step (adv_weight 0.5, PNR 0 dB) at full width
+    from a random init, and one bf16 teacher-forced FGM call on the
+    trained weights at 6 dB; each after a warm-up, timed without the
+    profiler, then profiled."""
+    cfg = Config(bs=bs)
+    model = steps.init_params(make_model(cfg), seed).cuda().train()
+    state = steps.create_train_state(model, cfg)
+    step = steps.make_train_attack_step(model, cfg, adv_weight=0.5)
+    inp = _train_batch(cfg, seed)
+    n_std = float(snr_to_noise(cfg.train_snr))
+    cfg_e, model_e = cli.load_model(Config(bs=bs), PARAMS,
+                                    torch.device("cuda"))
+    tf_step = steps.make_eval_step(model_e, cfg_e)
+    batch = torch.as_tensor(eval_batches(cfg.test_save_path, cfg.seq_len,
+                                         cfg.vocab_size, bs, 1, seed)[0],
+                            dtype=torch.long, device="cuda")
+    for tag, fn in (
+            ("one attack train step",
+             lambda: step(state, inp, inp, gen, 0.0, n_std, 1.0)),
+            ("one teacher-forced FGM call",
+             lambda: tf_step(batch, batch, gen, 0.0, SNR_to_noise(6), 1.0))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        print(f"[profile] {tag} without the profiler: "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+        rows = profiled(tag, fn)
+        total = sum(t for _, (t, _) in rows)
+        dh = sum(t for name, (t, _) in rows if "ce_dh_" in name)
+        dw = sum(c for name, (_, c) in rows if "ce_dw_" in name)
+        print(f"[profile] {tag}: K4's dh kernels {dh / 1e3:.3f} ms "
+              f"({dh / total if total else 0.0:.1%} of the device time), "
+              f"{dw} dW kernels")
 
 
 def profile_train_step(variant, seed, bs, gen):
@@ -1105,6 +1358,259 @@ def profile_train_step(variant, seed, bs, gen):
               f"{t / total if total else 0.0:.1%} of the step's device time")
 
 
+def _sum_counts(*counts):
+    return {name: sum(c[name] for c in counts) for name in COUNTERS}
+
+
+def phase_fading(seed, batches, bs):
+    """The serving paths through fading channels on the trained weights:
+    the full-prefix greedy sweep through Rayleigh, the KV sweep through
+    Rician with the MMSE equalizer, and the KV beam through Rician (one
+    batch); each call launches what its AWGN path's call launches (fading
+    adds no kernel). -> their launch counts summed."""
+    cfg = Config()
+    none = {name: 0 for name in COUNTERS}
+    full = dict(none, **{attn.KERNEL: cfg.encoder_num_layer
+                         + 2 * cfg.decoder_num_layer * cfg.max_length})
+    encoder = dict(none, **{attn.KERNEL: cfg.encoder_num_layer})
+    greedy, *_ = phase_serve(
+        "fading_greedy", ["--eval-mode", "greedy", "--channel", "Rayleigh"],
+        seed, batches, bs, full)
+    kv, *_ = phase_serve(
+        "fading_kv", ["--eval-mode", "greedy", "--kv-cache", "--channel",
+                      "Rician", "--equalizer", "MMSE"], seed, batches, bs,
+        encoder)
+    beam, *_ = phase_serve(
+        "fading_beam", ["--eval-mode", "beam", "--beam-size", str(BEAM),
+                        "--channel", "Rician"], seed, 1, bs,
+        dict(encoder, **{topk.KERNEL: cfg.max_length}))
+    return _sum_counts(greedy, kv, beam)
+
+
+def phase_fading_f32_ids(seed, bs):
+    """One batch at f32, all 19 SNRs through a Rayleigh channel, the same
+    weights, noise and fades: the full-prefix greedy ids through K1 equal
+    the plain version's."""
+    params = load_params_pickle(PARAMS)
+    cfg = Config(dtype="float32", bs=bs, tie_embeddings=is_tied(params),
+                 channel="Rayleigh")
+    model_k, model_p = (
+        load_into(make_model(cfg, attention=a), params).cuda().eval()
+        for a in (attn.fused_attention, attn.attention_fwd_reference))
+    inp = torch.as_tensor(eval_batches(cfg.test_save_path, cfg.seq_len,
+                                       cfg.vocab_size, bs, 1, seed)[0],
+                          dtype=torch.long, device="cuda")
+    n_stds = torch.tensor([SNR_to_noise(s) for s in SNRS],
+                          dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise, fade = draw_channel(gen, (bs, cfg.seq_len, cfg.channel_dim),
+                               "Rayleigh", lead=(len(SNRS),))
+    args = (inp, 0.0, n_stds, noise, fade)
+    same_ids("Rayleigh greedy sweep, kernel vs plain attention",
+             make_greedy_decode_sweep(model_k, cfg)(*args),
+             make_greedy_decode_sweep(model_p, cfg)(*args))
+
+
+def attack_step_launches(cfg, adv_weight):
+    """K1-K4 launches of one FGM train step of the vanilla transceiver.
+    Phase 1: a forward (K1 per attention, K3) and the backward to the
+    received y alone (K4 dh-only; K2 per attention on the path to y, which
+    leaves out decoder layer 1's self-attention). Phase 2: one forward and
+    backward, two with adv_weight < 1."""
+    per_forward = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
+    passes = 1 if adv_weight >= 1.0 else 2
+    return {attn.KERNEL: per_forward * (1 + passes),
+            attn.KERNEL_BWD: 2 * cfg.decoder_num_layer - 1
+            + per_forward * passes,
+            ce.KERNEL_FWD: 1 + passes, ce.KERNEL_BWD: 1 + passes,
+            DH_ONLY: 1}
+
+
+# epochs of the attack training phase: one epoch is 64 steps at bs 64
+ATTACK_EPOCHS = 1
+
+
+def phase_attack_train(seed, epochs, bs, adv_weight=0.5):
+    """`cli train --train-mode attack --adv-weight 0.5 --pnr-db 0` at full
+    width in bf16 from a random init on the synthetic set: the launch
+    counts are `attack_step_launches` per step; every clean and adversarial
+    loss finite, and the mean of the last 16 adversarial losses below that
+    of the first 16."""
+    tag = "attack_train"
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli.main(["train", "--variant", "transformer", "--train-mode",
+                    "attack", "--adv-weight", str(adv_weight), "--pnr-db",
+                    "0", "--dtype", "bfloat16", "--bs", str(bs), "--epochs",
+                    str(epochs), "--seed", str(seed), "--device", "cuda",
+                    "--log-every", "64", "--log-save-path",
+                    f"log/chip_smoke/{tag}", "--checkpoint-path",
+                    f"log/chip_smoke/{tag}_ckpt"])
+    wall = time.perf_counter() - t0
+    got = launches()
+    n = res["steps"]
+    expected = {name: 0 for name in COUNTERS}
+    expected.update({name: k * n for name, k in
+                     attack_step_launches(Config(), adv_weight).items()})
+    check_launches(tag, got, expected)
+    adv, clean = res["losses"], res["clean_losses"]
+    if len(adv) != n or len(clean) != n or not (
+            torch.isfinite(adv).all() and torch.isfinite(clean).all()):
+        raise AssertionError(f"{tag}: a loss is not finite")
+    first, last = adv[:16].mean().item(), adv[-16:].mean().item()
+    steady = res["epoch_seconds"][1:] or res["epoch_seconds"]
+    ms_step = sum(steady) / len(steady) / (n // epochs) * 1e3
+    print(f"[{tag}] {n} steps; adversarial loss mean of the first 16 "
+          f"{first:.4f}, of the last 16 {last:.4f}; clean loss first "
+          f"{clean[0]:.4f} last {clean[-1]:.4f}; epoch seconds "
+          f"{res['epoch_seconds']}; steady {ms_step:.3f} ms/step; wall "
+          f"{wall:.2f} s")
+    if not last < first:
+        raise AssertionError(f"{tag}: the adversarial loss did not fall: "
+                             f"{first} -> {last}")
+    return got
+
+
+def eval_step_launches(cfg, mode, iters=10):
+    """K1-K2 launches of one teacher-forced attack call (`mode`
+    teacher_forced or pgd) or one attacked greedy decode (greedy_attack) of
+    the vanilla transceiver: the encoder once; the gradient's decoder pass
+    and its backward (K2 per attention on the path to the channel, which
+    leaves out decoder layer 1's self-attention); then the clean and the
+    attacked decoder passes, PGD's bisection passes and its re-evaluation,
+    or the greedy decoder's max_length full-prefix steps."""
+    dec = 2 * cfg.decoder_num_layer
+    passes = {"teacher_forced": 2, "pgd": 3 + iters,
+              "greedy_attack": cfg.max_length}[mode]
+    return {attn.KERNEL: cfg.encoder_num_layer + dec * (1 + passes),
+            attn.KERNEL_BWD: dec - 1}
+
+
+def phase_attack_eval(seed, batches, bs):
+    """The attack evaluations through `cli evaluate` on the trained weights
+    in bf16 at PNR 0 dB: the teacher-forced FGM table, the PGD table (every
+    eps* in [0, 1]) and the attacked greedy decode through AWGN, the FGM
+    table again through Rayleigh, and the star FGM table on the star
+    weights the star training phase saved (K5 only: 8 cycles of the
+    encoder, then three decoder passes of 8). -> their launch counts
+    summed."""
+    cfg = Config()
+    none = {name: 0 for name in COUNTERS}
+    counts = []
+    for tag, flags in (("attack_tf", ["--eval-mode", "teacher_forced"]),
+                       ("attack_pgd", ["--eval-mode", "pgd"]),
+                       ("attack_greedy", ["--eval-mode", "greedy_attack"]),
+                       ("attack_tf_rayleigh", ["--eval-mode",
+                                               "teacher_forced", "--channel",
+                                               "Rayleigh"])):
+        mode = flags[1]
+        got, _, res, _ = phase_serve(
+            tag, flags + ["--pnr-db", "0"], seed, batches, bs,
+            dict(none, **eval_step_launches(cfg, mode)),
+            width=2 if mode == "greedy_attack" else 5)
+        if mode == "pgd":
+            eps = res["eps_star"]
+            print(f"[{tag}] eps* over {len(eps)} calls: min {min(eps):.4f} "
+                  f"max {max(eps):.4f}")
+            if len(eps) != len(res["decode_seconds"]) or not all(
+                    0.0 <= e <= 1.0 for e in eps):
+                raise AssertionError(f"{tag}: eps* {eps}")
+        counts.append(got)
+    got, *_ = phase_serve(
+        "attack_tf_star", ["--eval-mode", "teacher_forced", "--pnr-db", "0"],
+        seed, batches, bs, dict(none, **{star.KERNEL: 4 * cfg.cycle_num}),
+        model=("--variant", "star", "--checkpoint-path", STAR_CKPT), width=5)
+    counts.append(got)
+    return _sum_counts(*counts)
+
+
+def phase_attack_f32(seed, bs):
+    """One f32 teacher-forced FGM call on the trained weights through K1/K2
+    and through their plain versions, the same draws: both losses within
+    rtol 1e-5; the clean ids equal but for near-ties of the logits
+    (`same_ids_but_near_ties`). The perturbation comes from a gradient,
+    which is not continuous where a ReLU input sits at its kink, and it
+    enters the channel scaled to the noise's power, so its f32 rounding
+    reaches the attacked logits enlarged (printed: how many ReLU inputs
+    change sign between the paths, and what the perturbation and the
+    attacked logits differ by). So the perturbation through the kernels is
+    held within 1e-4 of its largest to the plain call that takes the
+    kernel call's ReLU decisions, and the attacked ids as the clean ones
+    to the plain call that also takes its perturbation (the losses of
+    both within rtol 1e-5). On each path's own perturbation the attacked
+    logits are held within 3 times what the plain call's own move by when
+    its perturbation is scaled by 1 + 1e-5 N(0, 1). Both paths must have
+    run at least one ReLU, or the replay held nothing."""
+    params = load_params_pickle(PARAMS)
+    cfg = Config(dtype="float32", bs=bs, tie_embeddings=is_tied(params))
+    inp = torch.as_tensor(eval_batches(cfg.test_save_path, cfg.seq_len,
+                                       cfg.vocab_size, bs, 1, seed)[0],
+                          dtype=torch.long, device="cuda")
+    n_std = SNR_to_noise(6)
+
+    def run(plain, replay=(None, None)):
+        model = load_into(variant_model(cfg, "transformer", plain),
+                          params).cuda().eval()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        reset_launches()
+        with tapped(replay) as taps:
+            out = steps.make_eval_step(model, cfg)(inp, inp, gen, 0.0,
+                                                   n_std, 1.0)
+        torch.cuda.synchronize()
+        want = {name: 0 for name in COUNTERS}
+        if not plain:
+            want.update(eval_step_launches(cfg, "teacher_forced"))
+        check_launches(f"f32 teacher-forced (plain {plain})", launches(),
+                       want)
+        return out, taps
+
+    (ck, ak, clk, alk), (rk, xk) = run(False)
+    (cp, ap, clp, alp), (rp, xp) = run(True)
+    (cs, as_, _, _), (rs, _) = run(True, (None, xk))
+    (ct, at, _, alt), _ = run(True, (rk, xk))
+    if not (len(xk) == len(xp) > 0 and len(rk) == len(rp) == 1):
+        raise AssertionError(f"{len(xk)} and {len(xp)} ReLU calls, "
+                             f"{len(rk)} and {len(rp)} perturbations")
+    noise = torch.randn(rp[0].shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    (_, _, _, alj), _ = run(True, ([rp[0] * (1.0 + 1e-5 * noise)], None))
+    own_l, jitter_l = max_err([alk], [alp]), max_err([alp], [alj])
+    rel = [abs(a.item() - b.item()) / abs(b.item())
+           for a, b in ((ck, cp), (ak, ap), (ck, cs), (ak, as_), (ck, ct),
+                        (ak, at))]
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(xk, xp))
+    own_r, same_r = (max_err(rk, r, relative=True) for r in (rp, rs))
+    print(f"[f32] teacher-forced FGM call: losses (clean, attacked) kernels "
+          f"{ck.item():.7f}, {ak.item():.7f}; plain {cp.item():.7f}, "
+          f"{ap.item():.7f}; plain on the kernel call's ReLU decisions "
+          f"{cs.item():.7f}, {as_.item():.7f}, and its perturbation "
+          f"{ct.item():.7f}, {at.item():.7f} (rel "
+          f"{', '.join(f'{r:.2e}' for r in rel)}); {len(xk)} ReLU calls, "
+          f"{flips} inputs change sign between the paths; perturbation err "
+          f"/ max|ref| {own_r:.2e} on each path's own decisions, "
+          f"{same_r:.2e} on the same; attacked logits differ by "
+          f"{own_l:.3g} on each path's own, "
+          f"{(alk.argmax(-1) != alp.argmax(-1)).sum().item()} ids; the "
+          f"plain call's with its perturbation scaled by 1 + 1e-5 N(0, 1) "
+          f"by {jitter_l:.3g}")
+    if not all(r <= 1e-5 for r in rel):
+        raise AssertionError(f"f32 teacher-forced losses differ: {rel}")
+    if not same_r <= 1e-4:
+        raise AssertionError(f"f32 teacher-forced perturbation: {same_r} > "
+                             f"1e-4 of max|ref|")
+    if not own_l <= 3 * jitter_l:
+        raise AssertionError(f"f32 teacher-forced attacked logits on each "
+                             f"path's own: {own_l} > 3 x the plain call's "
+                             f"jitter gap {jitter_l}")
+    same_ids_but_near_ties(
+        f"teacher-forced clean ids ({bs} x {cfg.seq_len - 1}), K1/K2 vs "
+        f"plain", clk.argmax(-1), clp.argmax(-1), clk, clp)
+    same_ids_but_near_ties(
+        f"teacher-forced attacked ids ({bs} x {cfg.seq_len - 1}), K1/K2 vs "
+        f"plain on the same ReLU decisions and perturbation", alk.argmax(-1),
+        alt.argmax(-1), alk, alt)
+
+
 KERNEL_INFO = {
     attn.KERNEL: ("deepsc_gan_tpu/ops/pallas/attention.py:125",
                   "decoder_self", "serving: decoder self-attention, bf16, "
@@ -1129,8 +1635,11 @@ KERNEL_INFO = {
 def kernels_line(rows, by_path):
     """One entry per kernel, from its bf16 row at the path shape that
     matters most; `launches_by_path` counts each path's run (serve: the
-    full-prefix greedy sweep, kv, beam, train, star_train, star_serve) and
-    `launches` their sum."""
+    full-prefix greedy sweep, kv, beam, train, star_train, star_serve,
+    fading: its three sweeps, attack_train, attack_eval: its five tables
+    and decodes) and `launches` their sum. K4's entry also holds its
+    dh-only mode (`dh_only`: the K4 launches that ran in it, and its bf16
+    row at the training shape)."""
     out = []
     for kernel, (replaces, case, at) in KERNEL_INFO.items():
         row = next(r for r in rows if r["kernel"] == kernel
@@ -1147,6 +1656,17 @@ def kernels_line(rows, by_path):
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"],
             "library_device_ms": row["library_device_ms"], "at": at})
+    dh = next(r for r in rows if r["case"] == "ce_dh_only"
+              and r["dtype"] == "bfloat16")
+    paths = {path: got[DH_ONLY] for path, got in by_path.items()}
+    out[[e["name"] for e in out].index(ce.KERNEL_BWD)]["dh_only"] = {
+        "replaces": "deepsc_gan_tpu/ops/pallas/ce.py:166",
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        **{key: dh[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "library_device_ms")},
+        "at": "attack training phase 1: N=1984 D=128 V=22234, bf16; "
+              "library: F.cross_entropy's backward to h alone"}
     return out
 
 
@@ -1177,6 +1697,14 @@ def main(argv=None) -> int:
     by_path["star_serve"] = phase_star_serving(args.seed, args.batches,
                                                args.bs)
     phase_star_f32_ids(args.seed, args.bs)
+    by_path["fading"] = phase_fading(args.seed, args.batches, args.bs)
+    phase_fading_f32_ids(args.seed, args.bs)
+    by_path["attack_train"] = phase_attack_train(args.seed, ATTACK_EPOCHS,
+                                                 args.bs)
+    phase_attack_step_parity(args.seed, args.bs)
+    by_path["attack_eval"] = phase_attack_eval(args.seed, args.batches,
+                                               args.bs)
+    phase_attack_f32(args.seed, args.bs)
     phase_profile(args.seed, args.bs)
     kernels = kernels_line(rows, by_path)
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -1,21 +1,38 @@
-"""Command-line entry points of the port: the BLEU-vs-SNR sweeps (the JAX
-package's `cli evaluate`) and plain teacher-forced training (`cli train
---train-mode plain`, one device, one step per call) of the vanilla
-transceiver (`--variant transformer`) and the star ones (`--variant star`,
-the single-block SE/SD codec, or `star_multi`). The vanilla sweeps are
-`--eval-mode greedy`, full-prefix or `--kv-cache`, and `--eval-mode beam`
-with `--beam-size` and `--beam-impl kv|full`; a star decoder is decoded in
-one shot (position i predicts token i), with or without `--kv-cache`, and
-has no beam search. Star training scores the un-shifted target. An unset
-`--seq-len` is 31 for the star variants and 32 for the vanilla one.
+"""Command-line entry points of the port: the BLEU-vs-SNR sweeps and the
+teacher-forced attack tables (the JAX package's `cli evaluate`), and
+teacher-forced training, plain or FGM-adversarial (`cli train --train-mode
+plain|attack`, one device, one step per call), of the vanilla transceiver
+(`--variant transformer`) and the star ones (`--variant star`, the
+single-block SE/SD codec, or `star_multi`). The evaluation modes:
+- `greedy`: the greedy sweep, full-prefix or `--kv-cache`; a star decoder
+  is decoded in one shot (position i predicts token i), with or without
+  `--kv-cache`;
+- `beam`, with `--beam-size` and `--beam-impl kv|full` (no star);
+- `greedy_attack`: greedy decoding through a channel carrying the FGM
+  perturbation of each batch, at `--pnr-db`;
+- `teacher_forced` and `pgd`: the teacher-forced FGM and PGD attack
+  tables, [snr, clean BLEU, attacked BLEU, loss clean, loss attacked] per
+  SNR, written to `<log-save-path>/eval-<variant>.pkl` (the others write
+  `test-<variant>-<eval-mode>.pkl`).
+`--channel AWGN|Rayleigh|Rician`, with `--equalizer` and
+`--fading-per-sample`, applies to every mode and to training. Star
+decoders score the un-shifted target in training and in the attacks. An
+unset `--seq-len` is 31 for the star variants and 32 for the vanilla one.
+Before any model is built, a run on CUDA stops with a message naming the
+flag when a kernel it would launch does not take its shapes
+(`ops/envelope.py`).
 
   python -m deepsc_gan_tpu_torch.cli evaluate --variant transformer \
       --eval-mode greedy --kv-cache \
       --params-pkl results/plain_best_params.pkl --eval-batches 8
   python -m deepsc_gan_tpu_torch.cli evaluate --eval-mode beam \
       --beam-size 4 --params-pkl results/plain_best_params.pkl
+  python -m deepsc_gan_tpu_torch.cli evaluate --eval-mode teacher_forced \
+      --pnr-db 0 --channel Rayleigh --params-pkl results/plain_best_params.pkl
   python -m deepsc_gan_tpu_torch.cli train --variant transformer \
       --train-mode plain --epochs 3
+  python -m deepsc_gan_tpu_torch.cli train --train-mode attack \
+      --adv-weight 0.5 --pnr-db 0 --epochs 3
   python -m deepsc_gan_tpu_torch.cli train --variant star --epochs 2
   python -m deepsc_gan_tpu_torch.cli evaluate --variant star
 
@@ -27,14 +44,15 @@ when it exists; without either the model is initialised at random from
 synthetic sentences made from seed 0 when the file does not exist (as the
 JAX CLI); the training set `--train-save-path`, or synthetic sentences made
 from `--seed`. The vocab comes from `--vocab-path`, or is an identity vocab.
-Channel noise and dropout masks are drawn from a `torch.Generator` seeded
-with `--seed`. The greedy sweeps decode every SNR point of a batch in one
-call; beam search makes one call per (SNR, batch). Training logs the loss
-every `--log-every` steps and sentences/s per epoch to
-`<log-save-path>/train.jsonl`, and saves the params (the EMA shadow when
-`--ema-decay` is on) as `<checkpoint-path>/<variant>_params.pkl` in the
-`results/*_params.pkl` format. Runs on CUDA unless `--device` names another
-device.
+Channel draws and dropout masks come from a `torch.Generator` seeded with
+`--seed`. The greedy sweeps decode every SNR point of a batch in one call;
+beam search, the attacked decode and the attack tables make one call per
+(SNR, batch). Training logs the loss (with `--train-mode attack`, the clean
+and the adversarial one) every `--log-every` steps and sentences/s per
+epoch to `<log-save-path>/train.jsonl`, and saves the params (the EMA
+shadow when `--ema-decay` is on) as `<checkpoint-path>/<variant>_params.pkl`
+in the `results/*_params.pkl` format. Runs on CUDA unless `--device` names
+another device.
 """
 
 from __future__ import annotations
@@ -57,17 +75,25 @@ from deepsc_gan_tpu_torch.evaluate.evaluator import (
     save_result_table,
     snr_sweep_bleu,
     snr_sweep_bleu_fast,
+    teacher_forced_sweep,
 )
-from deepsc_gan_tpu_torch.evaluate.greedy import make_greedy_decode_sweep
+from deepsc_gan_tpu_torch.evaluate.greedy import (
+    make_greedy_decode_attack,
+    make_greedy_decode_sweep,
+)
 from deepsc_gan_tpu_torch.evaluate.kv_decode import (
     make_greedy_decode_kv_sweep,
 )
 from deepsc_gan_tpu_torch.models.channel import snr_to_noise
 from deepsc_gan_tpu_torch.models.transceiver import VARIANTS, make_model
+from deepsc_gan_tpu_torch.ops.envelope import check_envelope
 from deepsc_gan_tpu_torch.train.steps import (
     create_train_state,
     eval_params,
     init_params,
+    make_eval_step,
+    make_eval_step_pgd,
+    make_train_attack_step,
     make_train_step,
 )
 from deepsc_gan_tpu_torch.utils.config import (
@@ -124,11 +150,15 @@ def evaluate_params_path(args, cfg: Config):
     return saved if os.path.exists(saved) else None
 
 
+EVAL_MODES = ("greedy", "beam", "greedy_attack", "teacher_forced", "pgd")
+
+
 def cmd_evaluate(args) -> dict:
-    """Run the sweep; -> {"table", "sequences", "decode_seconds",
-    "params_path", "device"}. decode_seconds holds one entry per decode
-    call (a greedy sweep call per batch; a beam call per SNR and batch), up
-    to its ids on the host."""
+    """Run the sweep or the attack table; -> {"table", "sequences",
+    "decode_seconds", "params_path", "device", "eps_star"}. decode_seconds
+    holds one entry per call (a greedy sweep call per batch; a beam,
+    attacked decode or attack-table call per SNR and batch), up to its
+    result on the host; eps_star the PGD strength of each `pgd` call."""
     star = is_star(args.variant)
     if star and args.eval_mode == "beam":
         raise SystemExit(
@@ -138,6 +168,8 @@ def cmd_evaluate(args) -> dict:
             "them in one shot")
     device = resolve_device(args.device)
     cfg = variant_config(args)
+    check_envelope(cfg, args.variant, args.eval_mode, args.beam_size,
+                   args.kv_cache, args.beam_impl, device)
     params_path = evaluate_params_path(args, cfg)
     if params_path:
         print(f"[eval] params from {params_path}", file=sys.stderr)
@@ -149,41 +181,67 @@ def cmd_evaluate(args) -> dict:
     batches = eval_batches(cfg.test_save_path, cfg.seq_len, cfg.vocab_size,
                            cfg.bs, args.eval_batches)
     snrs = list(range(args.snr_lo, args.snr_hi + 1))
-    seconds = []
+    seconds, eps_star = [], []
 
     def timed(fn):
         def call(*a):
             t0 = time.perf_counter()
-            ids = fn(*a).cpu()
+            out = fn(*a)
+            if isinstance(out, tuple):  # an attack-table step
+                if len(out) > 4:
+                    eps_star.append(float(out[4]))
+                out = (float(out[0]), float(out[1])) + out[2:4]
+            else:
+                out = out.cpu()
             seconds.append(time.perf_counter() - t0)
-            return ids
+            return out
         return call
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    if args.eval_mode == "beam":
-        make = make_beam_decode if args.beam_impl == "full" \
-            else make_beam_decode_kv
-        table = snr_sweep_bleu(timed(make(model, cfg, args.beam_size)),
-                               batches, vocab, cfg, gen, snrs=snrs,
-                               pnr_db=args.pnr_db)
+    position_mode = "oneshot" if star else "step"
+    name = f"test-{args.variant}-{args.eval_mode}.pkl"
+    if args.eval_mode in ("teacher_forced", "pgd"):
+        make = make_eval_step_pgd if args.eval_mode == "pgd" \
+            else make_eval_step
+        table = teacher_forced_sweep(
+            timed(make(model, cfg, full_target=star)), batches, vocab, cfg,
+            gen, snrs=snrs, pnr_db=args.pnr_db, epsilon=args.epsilon)
+        for row in table:
+            print(f"SNR={row[0]:.0f}dB BLEU clean {row[1]:.4f} attacked "
+                  f"{row[2]:.4f} loss {row[3]:.4f}/{row[4]:.4f}")
+        name = f"eval-{args.variant}.pkl"
     else:
-        # the KV decoder is autoregressive: a star decoder is decoded in one
-        # shot with or without --kv-cache, as the JAX CLI does
-        if star:
-            sweep = make_greedy_decode_sweep(model, cfg, "oneshot")
-        elif args.kv_cache:
-            sweep = make_greedy_decode_kv_sweep(model, cfg)
+        if args.eval_mode == "beam":
+            make = make_beam_decode if args.beam_impl == "full" \
+                else make_beam_decode_kv
+            table = snr_sweep_bleu(timed(make(model, cfg, args.beam_size)),
+                                   batches, vocab, cfg, gen, snrs=snrs,
+                                   pnr_db=args.pnr_db)
+        elif args.eval_mode == "greedy_attack":
+            decode = make_greedy_decode_attack(model, cfg,
+                                               position_mode=position_mode,
+                                               full_target=star)
+            table = snr_sweep_bleu(timed(decode), batches, vocab, cfg, gen,
+                                   snrs=snrs, pnr_db=args.pnr_db, draws=2,
+                                   decode_extra_args=(args.epsilon,))
         else:
-            sweep = make_greedy_decode_sweep(model, cfg)
-        table = snr_sweep_bleu_fast(timed(sweep), batches, vocab, cfg, gen,
-                                    snrs=snrs, pnr_db=args.pnr_db)
-    for snr, bleu in table:
-        print(f"SNR={snr:.0f}dB {bleu:.4f}")
-    save_result_table(table, os.path.join(
-        cfg.log_save_path, f"test-{args.variant}-{args.eval_mode}.pkl"))
+            # the KV decoder is autoregressive: a star decoder is decoded in
+            # one shot with or without --kv-cache, as the JAX CLI does
+            if star:
+                sweep = make_greedy_decode_sweep(model, cfg, "oneshot")
+            elif args.kv_cache:
+                sweep = make_greedy_decode_kv_sweep(model, cfg)
+            else:
+                sweep = make_greedy_decode_sweep(model, cfg)
+            table = snr_sweep_bleu_fast(timed(sweep), batches, vocab, cfg,
+                                        gen, snrs=snrs, pnr_db=args.pnr_db)
+        for snr, bleu in table:
+            print(f"SNR={snr:.0f}dB {bleu:.4f}")
+    save_result_table(table, os.path.join(cfg.log_save_path, name))
     return {"table": table, "device": str(device),
             "sequences": len(snrs) * sum(len(b) for b in batches),
-            "decode_seconds": seconds, "params_path": params_path}
+            "decode_seconds": seconds, "params_path": params_path,
+            "eps_star": eps_star}
 
 
 def save_params_pickle(path: str, params, cfg: Config, recipe: dict) -> str:
@@ -198,14 +256,23 @@ def save_params_pickle(path: str, params, cfg: Config, recipe: dict) -> str:
 
 def cmd_train(args) -> dict:
     """Train for cfg.epochs epochs; -> {"losses" (every step's, on the
-    host), "steps", "epoch_seconds", "sents_per_sec", "params_path",
-    "device"}."""
+    host; with --train-mode attack the adversarial ones), "clean_losses"
+    (attack: phase 1's clean losses), "steps", "epoch_seconds",
+    "sents_per_sec", "params_path", "device"}."""
     device = resolve_device(args.device)
-    cfg, model = load_model(variant_config(args), args.params_pkl, device,
-                            args.seed, args.variant)
+    cfg = variant_config(args)
+    check_envelope(cfg, args.variant, None, device=device)
+    cfg, model = load_model(cfg, args.params_pkl, device, args.seed,
+                            args.variant)
     model.train()
     state = create_train_state(model, cfg)
-    step = make_train_step(model, cfg, full_target=is_star(args.variant))
+    star = is_star(args.variant)
+    attack = args.train_mode == "attack"
+    if attack:
+        step = make_train_attack_step(model, cfg, full_target=star,
+                                      adv_weight=args.adv_weight)
+    else:
+        step = make_train_step(model, cfg, full_target=star)
     ds = train_dataset(cfg.train_save_path, cfg.seq_len, cfg.vocab_size,
                        cfg.bs, args.seed)
     n_std = float(snr_to_noise(cfg.train_snr))
@@ -214,16 +281,22 @@ def cmd_train(args) -> dict:
     print(f"[train] variant={args.variant} mode={args.train_mode} "
           f"device={device} params={n_params:,}")
     logger = MetricLogger(os.path.join(cfg.log_save_path, "train.jsonl"))
-    losses, epoch_seconds, rates = [], [], []
+    losses, clean_losses, epoch_seconds, rates = [], [], [], []
     for epoch in range(cfg.epochs):
         ds.set_epoch(epoch)
         t0 = time.perf_counter()
         for inp, _ in ds:
             batch = torch.from_numpy(inp).to(device, torch.long)
-            state, loss = step(state, batch, batch, gen, n_std)
+            if attack:
+                state, (clean, loss) = step(state, batch, batch, gen,
+                                            args.pnr_db, n_std, args.epsilon)
+                clean_losses.append(clean)
+            else:
+                state, loss = step(state, batch, batch, gen, n_std)
             losses.append(loss)
             if state.step % args.log_every == 0:
-                logger.log(epoch=epoch, step=state.step, loss=loss)
+                extra = {"clean_loss": clean} if attack else {}
+                logger.log(epoch=epoch, step=state.step, loss=loss, **extra)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
@@ -231,18 +304,26 @@ def cmd_train(args) -> dict:
         rates.append(len(ds) * cfg.bs / dt)
         logger.log(epoch=epoch, epoch_time=dt, sents_per_sec=rates[-1])
     logger.close()
+    recipe = {"variant": args.variant, "train_mode": args.train_mode,
+              "epochs": cfg.epochs, "steps": state.step, "seed": args.seed,
+              "tie_embeddings": cfg.tie_embeddings, "schedule": cfg.schedule,
+              "lr": cfg.lr, "ema_decay": cfg.ema_decay, "dtype": cfg.dtype,
+              "channel": cfg.channel}
+    if attack:
+        recipe.update(adv_weight=args.adv_weight, pnr_db=args.pnr_db,
+                      epsilon=args.epsilon)
     path = save_params_pickle(
         os.path.join(cfg.checkpoint_path, f"{args.variant}_params.pkl"),
-        eval_params(state), cfg,
-        {"variant": args.variant, "train_mode": args.train_mode,
-         "epochs": cfg.epochs, "steps": state.step, "seed": args.seed,
-         "tie_embeddings": cfg.tie_embeddings, "schedule": cfg.schedule,
-         "lr": cfg.lr, "ema_decay": cfg.ema_decay, "dtype": cfg.dtype})
+        eval_params(state), cfg, recipe)
     print(f"[train] done: {state.step} steps; params -> {path}")
-    return {"losses": torch.stack(losses).float().cpu() if losses
-            else torch.zeros(0), "steps": state.step,
-            "epoch_seconds": epoch_seconds, "sents_per_sec": rates,
-            "params_path": path, "device": str(device)}
+
+    def host(xs):
+        return torch.stack(xs).float().cpu() if xs else torch.zeros(0)
+
+    return {"losses": host(losses), "clean_losses": host(clean_losses),
+            "steps": state.step, "epoch_seconds": epoch_seconds,
+            "sents_per_sec": rates, "params_path": path,
+            "device": str(device)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -251,8 +332,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("evaluate")
     add_config_args(p)
     p.add_argument("--variant", default="transformer", choices=VARIANTS)
-    p.add_argument("--eval-mode", default="greedy",
-                   choices=["greedy", "beam"])
+    p.add_argument("--eval-mode", default="greedy", choices=EVAL_MODES)
     p.add_argument("--kv-cache", action="store_true",
                    help="greedy: the KV-cached decoder (same ids at f32; a "
                         "star decoder is decoded in one shot either way)")
@@ -267,6 +347,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: cuda; raises without it)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--pnr-db", type=float, default=0.0)
+    p.add_argument("--epsilon", type=float, default=1.0,
+                   help="FGM strength (cancelled by the normalization, "
+                        "quirk Q7: --pnr-db sets the attack's power)")
     p.add_argument("--eval-batches", type=int, default=8)
     p.add_argument("--snr-lo", type=int, default=0)
     p.add_argument("--snr-hi", type=int, default=18)
@@ -274,7 +357,16 @@ def build_parser() -> argparse.ArgumentParser:
     t = sub.add_parser("train")
     add_config_args(t)
     t.add_argument("--variant", default="transformer", choices=VARIANTS)
-    t.add_argument("--train-mode", default="plain", choices=["plain"])
+    t.add_argument("--train-mode", default="plain",
+                   choices=["plain", "attack"])
+    t.add_argument("--adv-weight", type=float, default=1.0,
+                   help="attack: the update's weight on the adversarial "
+                        "loss (the rest on the clean one); 1 is the "
+                        "reference's adversarial-only update")
+    t.add_argument("--pnr-db", type=float, default=0.0,
+                   help="attack: perturbation-to-noise ratio in dB")
+    t.add_argument("--epsilon", type=float, default=1.0,
+                   help="attack: FGM strength (cancelled, quirk Q7)")
     t.add_argument("--params-pkl", default=None,
                    help="start from these weights (results/*_params.pkl "
                         "format)")

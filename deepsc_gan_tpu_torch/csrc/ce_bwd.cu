@@ -30,6 +30,10 @@
 //   kernel adds the splits' partials in order.
 // - dW, db: block (vocab tile of 64 rows) keeps its rows of W, walks every
 //   row tile of h in row order and accumulates Pc^T h and sum_n P.
+// - dh alone (dW and db not asked for, the caller passes them null): the
+//   dh kernel and its split sum, and no dW/db kernel. The FGM attacks take
+//   the gradient with respect to the received symbols through a loss whose
+//   vocab table is held fixed.
 // No atomics: the result is deterministic. Each dtype has one version:
 // - bf16, tensor cores (csrc/wgmma_tile.cuh), one warpgroup per block: the
 //   resident tile A (h for dh, W for dW) and the streamed tiles B (64 rows
@@ -584,7 +588,7 @@ int launch_bf16(const CUtensorMap& hmap, const CUtensorMap& wmap,
   err = (int)cudaGetLastError();
   if (err) return err;
   err = sum_splits(dh_part, dh, n, d, splits, st);
-  if (err) return err;
+  if (err || dw == nullptr) return err;
   ce_dw_wgmma_kernel<NC><<<(v + wg::kRows - 1) / wg::kRows, wg::kThreads,
                            smem, st>>>(
       hmap, wmap, (const float*)b, (const int*)labels, (const float*)lse,
@@ -617,14 +621,17 @@ int deepsc_ce_bwd_tiling_bf16(int d, int* out) {
 // h: contiguous f32 (N, D), D a multiple of 4 up to 256; w: contiguous f32
 // (V, D); b, db: f32 (V); labels: int32 (N); lse, g: f32 (N); dh: f32
 // (N, D); dw: f32 (V, D); dh_part: f32 workspace (splits, N, D). Every
-// split must own at least one vocab tile of 64 rows. Returns
-// cudaGetLastError() after the launches (0 = success).
+// split must own at least one vocab tile of 64 rows. With dw and db both
+// null, dh alone: the dh kernel and its split sum, no dW/db kernel (the
+// gradient with respect to h of a loss whose vocab table is held fixed).
+// Returns cudaGetLastError() after the launches (0 = success).
 int deepsc_ce_bwd_f32(const void* h, const void* w, const void* b,
                       const void* labels, const void* lse, const void* g,
                       void* dh, void* dw, void* db, void* dh_part, int n,
                       int d, int v, int splits, void* stream) {
   const int tps = split_tiles(n, d, v, splits);
-  if (tps < 0 || d % 4) return (int)cudaErrorInvalidValue;
+  if (tps < 0 || d % 4 || (dw == nullptr) != (db == nullptr))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes_f32(d);
   int err = set_smem((const void*)ce_dh_kernel, smem);
   if (err) return err;
@@ -637,7 +644,7 @@ int deepsc_ce_bwd_f32(const void* h, const void* w, const void* b,
   err = (int)cudaGetLastError();
   if (err) return err;
   err = sum_splits(dh_part, dh, n, d, splits, st);
-  if (err) return err;
+  if (err || dw == nullptr) return err;
   ce_dw_kernel<<<(v + TV - 1) / TV, kThreads, smem, st>>>(
       (const float*)h, (const float*)w, (const float*)b, (const int*)labels,
       (const float*)lse, (const float*)g, (float*)dw, (float*)db, n, d, v);
@@ -651,7 +658,8 @@ int deepsc_ce_bwd_bf16(const void* h, const void* w, const void* b,
                        void* dh, void* dw, void* db, void* dh_part, int n,
                        int d, int v, int splits, void* stream) {
   const int tps = split_tiles(n, d, v, splits);
-  if (tps < 0 || d % 16) return (int)cudaErrorInvalidValue;
+  if (tps < 0 || d % 16 || (dw == nullptr) != (db == nullptr))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap hmap, wmap;
   int err = wg::make_map(&hmap, h, n, d, wg::kRows);
   if (err) return err;

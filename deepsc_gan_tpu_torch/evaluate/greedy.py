@@ -22,6 +22,8 @@ does not depend on the noise level, so it runs once on the B input rows
 (as under vmap) and every noise level shares its power normalization.
 `single_level` and `noise_sweep` wrap a decoder loop (this module's, the
 KV decoder's, beam search's) into the one-level and the sweep entry points.
+`make_greedy_decode_attack` decodes at one noise level through a channel
+that carries an FGM perturbation.
 """
 
 from __future__ import annotations
@@ -32,8 +34,11 @@ import torch
 
 from deepsc_gan_tpu_torch.ops.masks import (
     create_look_ahead_mask,
+    create_masks,
     create_padding_mask,
 )
+from deepsc_gan_tpu_torch.train.attacks import fgm_perturbation
+from deepsc_gan_tpu_torch.train.steps import logits_loss_of_y
 from deepsc_gan_tpu_torch.utils.config import Config
 
 
@@ -71,34 +76,36 @@ def _decode_loop(model, mem, enc_padding_mask, max_length: int,
 
 
 def single_level(model, cfg: Config, loop: Callable) -> Callable:
-    """-> `decode(inp, pnr_db, n_std, noise) -> (B, max_length+1) ids`:
-    encode, the channel at one noise level with its standard-normal draw
-    `noise` (B, L, channel_dim), channel decode, then
+    """-> `decode(inp, pnr_db, n_std, noise, fade=None) -> (B, max_length+1)
+    ids`: encode, the channel at one noise level with its standard-normal
+    draws `noise` (B, L, channel_dim) and, for a fading cfg.channel, `fade`
+    ((2,), or (B, 1, 2) per sample), channel decode, then
     `loop(mem, enc_padding_mask)` (the greedy, KV or beam decoder)."""
 
     @torch.inference_mode()
-    def decode(inp, pnr_db, n_std, noise):
+    def decode(inp, pnr_db, n_std, noise, fade=None):
         enc_padding_mask = create_padding_mask(inp, cfg.pad_idx)
         tx = model.encode(inp, enc_padding_mask)
-        y = model.transmit(tx, noise, n_std, pnr_db=pnr_db)
+        y = model.transmit(tx, noise, n_std, pnr_db=pnr_db, fade=fade)
         return loop(model.channel_decode(y), enc_padding_mask)
 
     return decode
 
 
 def noise_sweep(model, cfg: Config, loop: Callable) -> Callable:
-    """-> `sweep(inp, pnr_db, n_stds[S], noise[S, B, L, channel_dim])
-    -> (S, B, max_length+1) ids`: the encoder once on the B rows, the
-    channel at S noise levels, then `loop` once on the S x B rows folded
-    noise-level-major into one batch."""
+    """-> `sweep(inp, pnr_db, n_stds[S], noise[S, B, L, channel_dim],
+    fade=None) -> (S, B, max_length+1) ids`: the encoder once on the B rows,
+    the channel at S noise levels (for a fading cfg.channel, one fade draw
+    per level: `fade` (S, 2), or (S, B, 1, 2) per sample), then `loop` once
+    on the S x B rows folded noise-level-major into one batch."""
 
     @torch.inference_mode()
-    def sweep(inp, pnr_db, n_stds, noise):
+    def sweep(inp, pnr_db, n_stds, noise, fade=None):
         s, b = n_stds.shape[0], inp.shape[0]
         enc_padding_mask = create_padding_mask(inp, cfg.pad_idx)
         tx = model.encode(inp, enc_padding_mask)
         y = model.transmit(tx[None], noise, n_stds.reshape(s, 1, 1, 1),
-                           pnr_db=pnr_db)
+                           pnr_db=pnr_db, fade=fade)
         mem = model.channel_decode(y.reshape((s * b,) + tx.shape[1:]))
         ids = loop(mem, enc_padding_mask.repeat(s, 1, 1, 1))
         return ids.reshape(s, b, -1)
@@ -127,3 +134,38 @@ def make_greedy_decode_sweep(model, cfg: Config,
     `sweep(inp, pnr_db, n_stds[S], noise[S, B, L, channel_dim])
     -> (S, B, max_length+1) ids`."""
     return noise_sweep(model, cfg, _greedy_loop(model, cfg, position_mode))
+
+
+def make_greedy_decode_attack(model, cfg: Config,
+                              position_mode: str = "step",
+                              full_target: bool = False) -> Callable:
+    """FGM-attacked greedy decode at one noise level (the reference's
+    `greedy_decode`; JAX `make_greedy_decode_attack`) through cfg.channel:
+    a teacher-forced pass on the input itself through channel draw 1, the
+    gradient of its loss with respect to the received y, the FGM
+    perturbation injected into channel draw 2, then the decoder loop
+    (`position_mode`; "oneshot" for a star codec). `full_target` scores the
+    gradient's loss against the un-shifted input (the star decoders).
+    -> `decode(inp, pnr_db, n_std, noise, fade=None, epsilon=1.0) ->
+    (B, max_length+1) ids`, with the two draws stacked: noise
+    (2, B, L, channel_dim), and for a fading channel fade (2, 2) or
+    (2, B, 1, 2)."""
+
+    @torch.no_grad()
+    def decode(inp, pnr_db, n_std, noise, fade=None, epsilon=1.0):
+        f1, f2 = (None, None) if fade is None else (fade[0], fade[1])
+        tar_inp = inp[:, :-1]
+        tar_real = inp if full_target else inp[:, 1:]
+        enc_padding_mask, combined_mask, dec_mask = create_masks(
+            inp, tar_inp, cfg.pad_idx)
+        scored = logits_loss_of_y(model, cfg, tar_inp, tar_real,
+                                  combined_mask, dec_mask)
+        tx = model.encode(inp, enc_padding_mask)
+        y1 = model.transmit(tx, noise[0], n_std, None, pnr_db, fade=f1)
+        pert, _ = fgm_perturbation(lambda y: scored(y)[0], y1, epsilon)
+        y = model.transmit(tx, noise[1], n_std, pert, pnr_db, fade=f2)
+        return _decode_loop(model, model.channel_decode(y), enc_padding_mask,
+                            cfg.max_length, cfg.start_idx, cfg.pad_idx,
+                            position_mode)
+
+    return decode

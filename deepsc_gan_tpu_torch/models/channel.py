@@ -1,11 +1,20 @@
-"""AWGN channel and the dense channel codec (JAX package
-`models/channel.py`). The channel takes its standard-normal noise as an
-explicit tensor, so a caller (or a parity test) decides where the random
-numbers come from. Rayleigh and Rician fading are not ported yet.
+"""The channels (AWGN, Rayleigh and Rician fading) and the dense channel
+codec (JAX package `models/channel.py`). A channel takes its standard-normal
+draws as explicit tensors (the noise, and for fading the fade), so a caller
+(or a parity test) decides where the random numbers come from.
+
+Fading (Rayleigh K = 0, Rician K = 1) reads the signal as interleaved
+complex pairs (re, im) along its last axes, multiplies them by a complex
+fade h = mean + std * fade (one per call, or one per batch row with
+`fading_per_sample`) and adds complex noise, the noise draw read as pairs
+the same way. Quirk Q3, as the reference: without an equalizer the
+un-equalized y is returned; `p` and `pnr_db` are accepted and ignored on
+the fading path.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -38,6 +47,78 @@ def awgn(x: torch.Tensor, noise: torch.Tensor, n_std,
         size = torch.tensor(float(x.numel()), **f32)
         y = y + n_std * torch.sqrt(pnr) * (torch.sqrt(size) * p)
     return y
+
+
+EQUALIZERS = (None, "LS", "MMSE")
+
+
+def fading(x: torch.Tensor, fade: torch.Tensor, noise: torch.Tensor, n_std,
+           k_factor: float = 0.0, equalizer: Optional[str] = None
+           ) -> torch.Tensor:
+    """Flat fading with Rician factor `k_factor` (0: Rayleigh), in f32
+    real arithmetic on (re, im) pairs.
+
+    x (..., B, L, C) and the standard-normal `noise` broadcast to the
+    output's shape (leading noise-level axes allowed, as the sweeps give);
+    `n_std` broadcasts against it. `fade` is standard normal: (..., 2) for
+    one complex fade per call (per leading index), or (..., B, 1, 2) for
+    one per batch row. h = mean + std * fade with mean = sqrt(K / (2 (K +
+    1))) and std = sqrt(1 / (2 (K + 1))); y = x h + n_std * noise; `equalizer`
+    "LS" returns y conj(h) / |h|^2, "MMSE" y conj(h) / (|h|^2 + 2 n_std^2)."""
+    if equalizer not in EQUALIZERS:
+        raise ValueError("equalizer must be None, 'LS' or 'MMSE'")
+    x = x.to(torch.float32)
+    n_std = torch.as_tensor(n_std, dtype=torch.float32, device=x.device)
+    shape = torch.broadcast_shapes(x.shape, noise.shape)
+    xp = x.reshape(x.shape[:-2] + (-1, 2))
+    npair = noise.reshape(noise.shape[:-2] + (-1, 2))
+    if fade.dim() < len(shape):     # one fade per call: (..., 2)
+        fade = fade[..., None, None, :]
+    mean = math.sqrt(k_factor / (2.0 * (k_factor + 1.0)))
+    std = math.sqrt(1.0 / (2.0 * (k_factor + 1.0)))
+    h = mean + std * fade.to(torch.float32)
+    # the last axis kept at size 1, so n_std (S, 1, 1, 1) broadcasts
+    xr, xi = xp[..., :1], xp[..., 1:]
+    hr, hi = h[..., :1], h[..., 1:]
+    yr = xr * hr - xi * hi + n_std * npair[..., :1]
+    yi = xr * hi + xi * hr + n_std * npair[..., 1:]
+    if equalizer is not None:
+        h2 = hr * hr + hi * hi
+        if equalizer == "MMSE":
+            h2 = h2 + n_std * n_std * 2.0
+        yr, yi = (yr * hr + yi * hi) / h2, (yi * hr - yr * hi) / h2
+    return torch.cat([yr, yi], dim=-1).reshape(shape)
+
+
+def channel(x: torch.Tensor, noise: torch.Tensor, n_std,
+            p: Optional[torch.Tensor] = None, pnr_db: float = 0.0,
+            kind: str = "AWGN", fade: Optional[torch.Tensor] = None,
+            equalizer: Optional[str] = None) -> torch.Tensor:
+    """The reference's dispatch: "AWGN" | "Rayleigh" (K = 0) | anything else
+    Rician (K = 1). A fading channel needs its `fade` draw."""
+    if kind == "AWGN":
+        return awgn(x, noise, n_std, p, pnr_db)
+    if fade is None:
+        raise ValueError(f"the {kind} channel needs its fade draw")
+    return fading(x, fade, noise, n_std, 0.0 if kind == "Rayleigh" else 1.0,
+                  equalizer)
+
+
+def draw_channel(generator: torch.Generator, shape, kind: str = "AWGN",
+                 per_sample: bool = False, lead=()):
+    """-> (noise, fade): the standard-normal noise `shape` (B, L, C) with
+    leading axes `lead`, then for a fading `kind` the standard-normal fade
+    ((*lead, 2), or (*lead, B, 1, 2) `per_sample`), else None; both f32 from
+    `generator` on its device, in that order, so an AWGN channel draws the
+    noise alone."""
+    f32 = {"generator": generator, "device": generator.device,
+           "dtype": torch.float32}
+    lead = tuple(lead)
+    noise = torch.randn(lead + tuple(shape), **f32)
+    if kind == "AWGN":
+        return noise, None
+    fade = (shape[0], 1, 2) if per_sample else (2,)
+    return noise, torch.randn(lead + fade, **f32)
 
 
 def power_normalize(x: torch.Tensor) -> torch.Tensor:

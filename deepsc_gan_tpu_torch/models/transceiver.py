@@ -21,7 +21,7 @@ from torch import nn
 from deepsc_gan_tpu_torch.models.channel import (
     ChannelDecoder,
     ChannelEncoder,
-    awgn,
+    channel,
 )
 from deepsc_gan_tpu_torch.models.star import SD, SE, SDecoder, SEncoder
 from deepsc_gan_tpu_torch.models.transformer import Decoder, Encoder, Gen
@@ -51,12 +51,14 @@ class _TransceiverBase(nn.Module):
             self.semantic_encoder(inp, enc_padding_mask, gen))
 
     def transmit(self, tx, noise, n_std, p: Optional[torch.Tensor] = None,
-                 pnr_db: float = 0.0, channel_kind: Optional[str] = None):
-        """tx -> received symbols y; `noise` is standard normal."""
+                 pnr_db: float = 0.0, channel_kind: Optional[str] = None,
+                 fade: Optional[torch.Tensor] = None):
+        """tx -> received symbols y through the channel `channel_kind` (by
+        default cfg.channel, with cfg.equalizer); `noise` and, for a fading
+        channel, `fade` are standard normal (models/channel.py)."""
         kind = channel_kind or self.cfg.channel
-        if kind != "AWGN":
-            raise NotImplementedError(f"channel {kind!r} is not ported yet")
-        return awgn(tx, noise, n_std, p, pnr_db)
+        return channel(tx, noise, n_std, p, pnr_db, kind, fade,
+                       self.cfg.equalizer)
 
     def channel_decode(self, y):
         """received symbols -> decoder memory."""

@@ -170,10 +170,18 @@ def _on_cuda(q):
     return True
 
 
+def smem_bytes(kernel, dtype, lq: int, lk: int, heads: int,
+               dh: int) -> int:
+    """Shared memory one block of `kernel` ("attention_fwd" or
+    "attention_bwd") needs in `dtype` for Lq x Lk at `heads` heads of `dh`,
+    as its built library computes it (the library is built on first use)."""
+    return _bind(kernel, dtype)[1](lq, lk, heads, dh)
+
+
 def _smem(kernel, q, k, heads):
     n, lq, hd = q.shape
-    fn, smem_bytes = _bind(kernel, q.dtype)
-    smem = smem_bytes(lq, k.shape[1], heads, hd // heads)
+    fn = _bind(kernel, q.dtype)[0]
+    smem = smem_bytes(kernel, q.dtype, lq, k.shape[1], heads, hd // heads)
     limit = torch.cuda.get_device_properties(q.device) \
         .shared_memory_per_block_optin
     if smem > limit:

@@ -11,7 +11,10 @@ passes its embedding table and an untied one its `nn.Linear` weight, both
 already (V, D). Products take operands in h's dtype when it is bf16 and in
 f32 otherwise, with f32 sums and softmax arithmetic (`_op_dtype`,
 deepsc_gan_tpu/ops/fused_ce.py:51-54). The backward returns dh in h's
-dtype, dW in W's and db in b's, as the TPU package's VJP does. On CUDA
+dtype, dW in W's and db in b's, as the TPU package's VJP does; when
+neither W nor b needs a gradient (the attacks' gradient with respect to the
+decoder's hidden states, the table passed detached), K4 runs in its dh-only
+mode: the dh kernel alone, no dW/db kernel. On CUDA
 tensors each wrapper launches its kernel (and counts the launch) or raises;
 on CPU tensors it runs the plain version, which is also what the kernels are
 held against on the card. Each dtype has one kernel: bf16 multiplies on the
@@ -31,19 +34,25 @@ from deepsc_gan_tpu_torch.ops import build
 KERNEL_FWD = "ce_fwd"
 KERNEL_BWD = "ce_bwd"
 MAX_D = 256
+# D must be a multiple of this: one wgmma k-step (bf16), the f32 kernels'
+# vector loads
+D_STEP = {torch.float32: 8, torch.bfloat16: 16}
 
 # Launches of the forward (K3) and backward (K4) kernels since the last
 # reset (each wrapper adds one per call that launches its kernels and
-# nowhere else); read by chip_smoke.py to show that a path went through
-# them.
+# nowhere else; `bwd_dh_only_launches` counts the K4 calls among them that
+# ran in the dh-only mode); read by chip_smoke.py to show that a path went
+# through them.
 fwd_launches = 0
 bwd_launches = 0
+bwd_dh_only_launches = 0
 
 
 def reset_launches() -> None:
-    global fwd_launches, bwd_launches
+    global fwd_launches, bwd_launches, bwd_dh_only_launches
     fwd_launches = 0
     bwd_launches = 0
+    bwd_dh_only_launches = 0
 
 
 def op_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -76,13 +85,14 @@ def ce_fwd_reference(h, W, b, labels):
     return lse - gold, lse
 
 
-def ce_bwd_reference(h, W, b, labels, lse, g, softmax_only=False):
+def ce_bwd_reference(h, W, b, labels, lse, g, softmax_only=False,
+                     dh_only=False):
     """Plain PyTorch version of K4: P = exp(logits - lse) g - onehot g in
     f32; dh = Pc W, dW = Pc^T h with Pc = P rounded to the op dtype;
-    db = sum_n P. -> (dh (N, D), dW (V, D), db (V,)), all f32.
-    `softmax_only` leaves the label term out of P: the softmax part of the
-    gradients, which checks hold on its own scale (beside the label term
-    it is small)."""
+    db = sum_n P. -> (dh (N, D), dW (V, D), db (V,)), all f32; with
+    `dh_only`, (dh, None, None). `softmax_only` leaves the label term out
+    of P: the softmax part of the gradients, which checks hold on its own
+    scale (beside the label term it is small)."""
     h, W, b, labels = _operands(h, W, b, labels)
     g = g.to(torch.float32)
     p = torch.exp(_logits(h, W, b) - lse[:, None]) * g[:, None]
@@ -90,6 +100,8 @@ def ce_bwd_reference(h, W, b, labels, lse, g, softmax_only=False):
         rows = torch.arange(p.shape[0], device=p.device)
         p[rows, labels.long()] -= g
     pc = p.to(h.dtype).float()
+    if dh_only:
+        return pc @ W.float(), None, None
     return pc @ W.float(), pc.t() @ h.float(), p.sum(dim=0)
 
 
@@ -161,7 +173,7 @@ def _check(h, W, b, labels, *rows):
         raise ValueError(f"bad shapes h {tuple(h.shape)} W {tuple(W.shape)}"
                          f" (want (N, D) and (V, D))")
     n, d = h.shape
-    step = 16 if h.dtype == torch.bfloat16 else 8
+    step = D_STEP[h.dtype]
     if d % step or d > MAX_D:
         raise ValueError(f"D {d}: the {_SUFFIX[h.dtype]} CE kernels take a "
                          f"multiple of {step} up to {MAX_D}")
@@ -232,10 +244,11 @@ def ce_fwd(h, W, b, labels):
     return ce, lse
 
 
-def ce_bwd(h, W, b, labels, lse, g):
-    """K4's wrapper: -> (dh (N, D), dW (V, D), db (V,)), all f32."""
+def ce_bwd(h, W, b, labels, lse, g, dh_only=False):
+    """K4's wrapper: -> (dh (N, D), dW (V, D), db (V,)), all f32; with
+    `dh_only`, (dh, None, None) from the dh kernel alone."""
     if not _on_cuda(h):
-        return ce_bwd_reference(h, W, b, labels, lse, g)
+        return ce_bwd_reference(h, W, b, labels, lse, g, dh_only=dh_only)
     h, W, b, labels = _operands(h, W, b, labels)
     lse = lse.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
@@ -244,25 +257,29 @@ def ce_bwd(h, W, b, labels, lse, g):
     (n, d), v = h.shape, W.shape[0]
     f32 = {"dtype": torch.float32, "device": h.device}
     dh = torch.empty((n, d), **f32)
-    dW = torch.empty((v, d), **f32)
-    db = torch.empty(v, **f32)
+    dW = None if dh_only else torch.empty((v, d), **f32)
+    db = None if dh_only else torch.empty(v, **f32)
     dh_part = torch.empty((splits, n, d), **f32)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = fn(h.data_ptr(), W.data_ptr(), b.data_ptr(), labels.data_ptr(),
-             lse.data_ptr(), g.data_ptr(), dh.data_ptr(), dW.data_ptr(),
-             db.data_ptr(), dh_part.data_ptr(), n, d, v, splits, stream)
+             lse.data_ptr(), g.data_ptr(), dh.data_ptr(),
+             None if dh_only else dW.data_ptr(),
+             None if dh_only else db.data_ptr(), dh_part.data_ptr(), n, d, v,
+             splits, stream)
     if err != 0:
         raise RuntimeError(f"CE backward kernel launch failed: CUDA error "
                            f"{err}")
-    global bwd_launches
+    global bwd_launches, bwd_dh_only_launches
     bwd_launches += 1
+    bwd_dh_only_launches += dh_only
     return dh, dW, db
 
 
 class SoftmaxXent(torch.autograd.Function):
     """Per-row CE: forward K3, backward K4 (or both plain versions when
     `plain`), saving h, W, b, labels and lse as the TPU package's custom
-    VJP does."""
+    VJP does; K4 in its dh-only mode when neither W nor b needs a
+    gradient."""
 
     @staticmethod
     def forward(ctx, h, W, b, labels, plain):
@@ -277,7 +294,10 @@ class SoftmaxXent(torch.autograd.Function):
     def backward(ctx, g):
         h, W, b, labels, lse = ctx.saved_tensors
         bwd = ce_bwd_reference if ctx.plain else ce_bwd
-        dh, dW, db = bwd(h, W, b, labels, lse, g)
+        dh_only = not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2])
+        dh, dW, db = bwd(h, W, b, labels, lse, g, dh_only=dh_only)
+        if dh_only:
+            return dh.to(h.dtype), None, None, None, None
         return dh.to(h.dtype), dW.to(W.dtype), db.to(b.dtype), None, None
 
 

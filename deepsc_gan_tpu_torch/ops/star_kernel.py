@@ -47,6 +47,14 @@ CONTEXTS = 5
 # Dh elements span a power of two of lanes; any B and L
 WIDTHS = (64, 128, 256)
 
+
+def takes_width(d: int, heads: int) -> bool:
+    """Whether K5 takes width D = d in `heads` heads: D in WIDTHS and a
+    head width that is a power of two of at least D / 32."""
+    dh = d // heads if heads > 0 and d % heads == 0 else 0
+    return d in WIDTHS and dh >= d // 32 and dh & (dh - 1) == 0
+
+
 # Launches of K5 since the last reset (the wrapper adds one per launch and
 # nowhere else); read by chip_smoke.py to show that a path went through it.
 launches = 0
@@ -155,8 +163,7 @@ def _check(ring, heads):
                          f"(B, L, D) for q, kh, vh, ke, ve and (B, D) for "
                          f"ks, vs)")
     d = q.shape[-1]
-    dh = d // heads if heads > 0 and d % heads == 0 else 0
-    if d not in WIDTHS or dh < d // 32 or dh & (dh - 1):
+    if not takes_width(d, heads):
         raise ValueError(f"D {d} with {heads} heads: K5 takes D in {WIDTHS} "
                          f"and a head width that is a power of two of at "
                          f"least D / 32")

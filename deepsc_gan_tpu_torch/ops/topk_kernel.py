@@ -42,6 +42,7 @@ KERNEL = "topk"
 NEG = -1e30
 IBIG = 2 ** 30
 MAX_K = 8       # the kernel keeps a sorted list of at most 8 per row
+D_STEP = 8      # D a multiple of 8, up to ce_kernel.MAX_D
 
 # Launches of K6 since the last reset (the wrapper adds one per launch and
 # nowhere else); read by chip_smoke.py to show that a path went through it.
@@ -119,8 +120,9 @@ def _check(h, W, b, k):
         raise ValueError(f"bad shapes h {tuple(h.shape)} W {tuple(W.shape)}"
                          f" (want (N, D) and (V, D))")
     d, v = h.shape[1], W.shape[0]
-    if d % 8 or d > MAX_D:
-        raise ValueError(f"D {d}: K6 takes a multiple of 8 up to {MAX_D}")
+    if d % D_STEP or d > MAX_D:
+        raise ValueError(f"D {d}: K6 takes a multiple of {D_STEP} up to "
+                         f"{MAX_D}")
     if not 1 <= k <= min(MAX_K, v):
         raise ValueError(f"k {k}: K6 takes 1 <= k <= {MAX_K} and k <= V")
     if b.dtype != torch.float32 or tuple(b.shape) != (v,):

@@ -1,6 +1,7 @@
 """Configuration of the port: the fields of the JAX package's `Config`
-that the serving paths and the plain training path read, with the same
-names and defaults, and the padded length of each model variant.
+that the serving paths, the plain and attack training paths and the
+channels read, with the same names and defaults, and the padded length of
+each model variant.
 
 A frozen dataclass like the JAX package's (`deepsc_gan_tpu/utils/config.py`),
 kept as the port's own copy so the port imports nothing of that package.
@@ -11,7 +12,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -58,6 +59,8 @@ class Config:
     # --- training SNR: the fixed train_snr dB, or with train_snr_random a
     #     per-step draw U(lo, hi) dB (with probability train_snr_mix)
     train_snr: int = 3
+    # carried as the JAX package carries it; nothing reads it
+    test_snr: int = 6
     train_snr_random: bool = False
     train_snr_lo: float = 0.0
     train_snr_hi: float = 18.0
@@ -68,6 +71,11 @@ class Config:
     # --- quirk Q2: also mask ids 4 and 5 in the loss (the reference means
     #     to, but a bug leaves it pad-only)
     mask_extra_tokens: bool = False
+    # --- quirk Q3: None returns the un-equalized fading output, as the
+    #     reference does; "LS" | "MMSE" return the equalized estimate
+    equalizer: Optional[str] = None
+    # one fade per batch row instead of one per call (models/channel.py)
+    fading_per_sample: bool = False
 
     # --- special token ids
     pad_idx: int = 0
@@ -117,7 +125,8 @@ def add_config_args(parser: argparse.ArgumentParser) -> None:
             parser.add_argument(name, action=argparse.BooleanOptionalAction,
                                 default=f.default)
         else:
-            parser.add_argument(name, type=type(f.default), default=f.default)
+            typ = str if f.default is None else type(f.default)
+            parser.add_argument(name, type=typ, default=f.default)
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

@@ -19,6 +19,7 @@ from deepsc_gan_tpu_torch.ops import attention_kernel as attn
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
 from deepsc_gan_tpu_torch.ops import star_kernel as star
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk
+from deepsc_gan_tpu_torch.ops.envelope import envelope_errors
 from deepsc_gan_tpu_torch.train import steps
 from deepsc_gan_tpu_torch.utils.config import Config
 
@@ -556,6 +557,131 @@ def test_tiny_star_train_step_kernel_equals_plain_step(cuda, variant):
         losses.append(loss.item())
         models.append(model)
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    for (name, a), b in zip(models[0].named_parameters(),
+                            models[1].parameters()):
+        assert _err(a.grad, b.grad, relative=True) <= 1e-4, name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("n,d,v", [(100, 16, 1000), (1984, 128, 22234)])
+def test_ce_bwd_dh_only_mode(cuda, dtype, tol, n, d, v):
+    """K4's dh-only mode: dh bitwise equal to the full mode's (the same dh
+    kernel and split sum), within tol of the plain version's relative to
+    its largest value, no dW or db returned, one K4 launch counted as
+    dh-only, and no dW/db kernel on the device (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    h, W, b, labels, g = _ce_inputs(cuda, dtype, n, d, v)
+    lse = ce.ce_fwd_reference(h, W, b, labels)[1]
+    full = ce.ce_bwd(h, W, b, labels, lse, g)
+    ce.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True)
+        torch.cuda.synchronize()
+    want = ce.ce_bwd_reference(h, W, b, labels, lse, g, dh_only=True)
+    assert got[1] is None and got[2] is None and want[1:] == (None, None)
+    assert (ce.bwd_launches, ce.bwd_dh_only_launches) == (1, 1)
+    assert torch.equal(got[0], full[0])
+    assert _err(got[0], want[0], relative=True) <= tol
+    names = [e.name for e in prof.events()]
+    assert any("ce_dh" in name for name in names), names
+    assert not any("ce_dw" in name for name in names), names
+
+
+def test_softmax_xent_with_a_fixed_table_runs_dh_only(cuda):
+    """The CE Function asks K4 for dh alone when neither W nor b needs a
+    gradient, and the full mode otherwise; dh is the same either way."""
+    h, W, b, labels, g = _ce_inputs(cuda, torch.bfloat16, 256, 128, 4096)
+    grads = []
+    for fixed in (True, False):
+        hl = h.detach().requires_grad_(True)
+        Wl, bl = (t.detach().requires_grad_(not fixed) for t in (W, b))
+        ce.reset_launches()
+        loss = ce.softmax_xent(hl, Wl, bl, labels.to(torch.int32))
+        (loss * g).sum().backward()
+        torch.cuda.synchronize()
+        assert (ce.bwd_launches, ce.bwd_dh_only_launches) == (1, int(fixed))
+        assert (Wl.grad is None) == fixed
+        grads.append(hl.grad)
+    assert torch.equal(*grads)
+
+
+@pytest.mark.parametrize("heads,dh,refused", [(16, 16, True), (8, 16, False),
+                                              (8, 32, False),
+                                              (16, 32, True)])
+def test_envelope_reads_the_f32_backward_size_from_the_library(
+        cuda, heads, dh, refused):
+    """`cli train` at f32 (seq_len 32): the check at command start refuses
+    the f32 K2 exactly where its library's shared-memory size for the
+    encoder's 32 x 32 block exceeds the card's, and names that size."""
+    cfg = Config(dtype="float32").replace(
+        encoder_d_model=heads * dh, encoder_num_heads=heads,
+        decoder_d_model=heads * dh, decoder_num_heads=heads)
+    errors = envelope_errors(cfg, "transformer", None, device=cuda)
+    need = attn._bind(attn.KERNEL_BWD, torch.float32)[1](32, 32, heads, dh)
+    limit = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    assert (need > limit) == refused
+    if refused:
+        assert "--dtype float32" in errors[0]
+        assert f"needs {need} bytes" in errors[0]
+    else:
+        assert not any("--dtype" in e for e in errors), errors
+
+
+@pytest.mark.parametrize("kind,eq,per_sample", [("Rayleigh", None, False),
+                                                ("Rician", "MMSE", True),
+                                                ("Rayleigh", "LS", True)])
+def test_fading_transmit_on_cuda_equals_cpu(cuda, kind, eq, per_sample):
+    """`transmit` through a fading channel on the card equals the CPU's on
+    the same draws, with a sweep's noise-level axis."""
+    from deepsc_gan_tpu_torch.models.channel import draw_channel
+
+    cfg = TINY.replace(channel=kind, equalizer=eq,
+                       fading_per_sample=per_sample)
+    model = make_model(cfg)
+    gen = torch.Generator().manual_seed(4)
+    tx = torch.randn((4, 12, cfg.channel_dim), generator=gen)
+    noise, fade = draw_channel(gen, tx.shape, kind, per_sample, (3,))
+    n_stds = torch.tensor([0.9, 0.3, 0.05]).reshape(3, 1, 1, 1)
+    want = model.transmit(tx[None], noise, n_stds, fade=fade)
+    got = model.to(cuda).transmit(tx[None].to(cuda), noise.to(cuda),
+                                  n_stds.to(cuda), fade=fade.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_tiny_attack_step_kernels_equal_plain_step(cuda):
+    """One f32 FGM step (adv_weight 0.5) at tiny widths through the kernels
+    and through the plain versions, same weights, draws and dropout masks:
+    both losses within rtol 1e-5, every gradient within 1e-4 of the largest
+    reference gradient; phase 1 runs K4 in its dh-only mode."""
+    cfg = TINY.replace(bs=8)
+    rng = np.random.default_rng(6)
+    inp = torch.from_numpy(rng.integers(4, 40, (8, 12))).to(cuda)
+    inp[:, 0] = 1
+    inp[:, 9:] = 0
+    out, models = [], []
+    for plain in (False, True):
+        attention = attn.plain_attention if plain else attn.fused_attention
+        model = steps.init_params(make_model(cfg, attention=attention), 3)
+        model = model.to(cuda).train()
+        state = steps.create_train_state(model, cfg)
+        step = steps.make_train_attack_step(model, cfg, adv_weight=0.5,
+                                            plain=plain)
+        attn.reset_launches()
+        ce.reset_launches()
+        gen = torch.Generator(cuda).manual_seed(7)
+        _, (clean, adv) = step(state, inp, inp, gen, 0.0, 0.5, 1.0)
+        torch.cuda.synchronize()
+        launches = (attn.launches, attn.bwd_launches, ce.fwd_launches,
+                    ce.bwd_launches, ce.bwd_dh_only_launches)
+        # phase 1: 6 K1, 3 K2 (decoder layer 1's self-attention is off the
+        # path to y), K3, K4 dh-only; phase 2: two forwards and backwards
+        assert launches == ((0,) * 5 if plain else (18, 15, 3, 3, 1))
+        out.append((clean.item(), adv.item()))
+        models.append(model)
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-5)
     for (name, a), b in zip(models[0].named_parameters(),
                             models[1].parameters()):
         assert _err(a.grad, b.grad, relative=True) <= 1e-4, name
