@@ -25,7 +25,9 @@ non-zero without its last line:
    version's in every case; K5 on the unstacked ring, also at L = 1 and 2
    and at an odd number of sequences; K2 bitwise equal over two calls and
    with and without dbias; K4 in its dh-only mode (no dW/db) at the
-   training shape, its dh bitwise equal to the full mode's;
+   training shape, its dh bitwise equal to the full mode's; K1 and K2
+   also past 32 queries and keys (N = 64, Lq = Lk = 128: the long-length
+   kernels), K2 there bitwise equal over calls too;
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -82,13 +84,32 @@ non-zero without its last line:
    through the plain versions (losses, ids but for near-ties, and the
    attacked logits within 3 times the plain call's own gap under a 1e-5
    jitter of its perturbation);
-11. profile: device time by kernel over one bf16 call of the full-prefix
+11. long lengths: `cli train --seq-len 64` for one epoch in bf16 from a
+   random init (K1 and K2 through their long-length kernels; per step as
+   in 5); every loss finite and the last 20 below the first 20 on average;
+12. GAN training: `cli train --variant gan --train-mode gan` at full width
+   in bf16 from a random init, AWGN, GAN_EPOCHS epochs (per step: 20 K1,
+   20 K2, 2 K3, 2 K4); the losses, g_losses and d_losses finite, the mean
+   of the last 16 receiver losses below that of the first 16; then an f32
+   GAN step through the kernels against one through the plain versions on
+   the kernel run's ReLU decisions: the three losses and the gradients of
+   the three phases;
+13. GAN evaluation on what phase 12 saved, bf16, PNR 0 dB: the
+   teacher-forced table (20 K1, 7 K2 per call), `pgd` (the same step for a
+   GAN model; one batch) and the `greedy_gan` sweep (252 K1, 7 K2); 19
+   rows of finite values each; then at f32 the greedy_gan ids and noa
+   through K1/K2 equal the plain versions' on the same ReLU decisions and
+   perturbation, at three SNRs;
+14. gan_star: `cli train --variant gan_star --train-mode gan` (24 K5, 2
+   K3, 2 K4 per step), then its greedy_gan sweep (24 K5 per call);
+15. profile: device time by kernel over one bf16 call of the full-prefix
    sweep, of the KV sweep, of the beam and of the star sweep, over one
    bf16 train step of each codec (with K3's and K4's share of it), over
-   one bf16 attack train step and one teacher-forced FGM call, and the
-   device's idle share in each (torch.profiler); the star sweep call must
-   run no roll kernel (K5 reads the ring unstacked);
-12. the kernels as one JSON line, then `{"ok": true, "device": {...}}` as
+   one bf16 attack train step and one teacher-forced FGM call, over one
+   GAN train step, one GAN teacher-forced call and one greedy_gan call,
+   and the device's idle share in each (torch.profiler); the star sweep
+   call must run no roll kernel (K5 reads the ring unstacked);
+16. the kernels as one JSON line, then `{"ok": true, "device": {...}}` as
    the last line.
 
 Needs CUDA: without it the script exits 1 before any phase.
@@ -116,7 +137,11 @@ from deepsc_gan_tpu_torch.evaluate.beam import (
     make_beam_decode_kv,
     make_beam_decode_sweep,
 )
-from deepsc_gan_tpu_torch.evaluate.greedy import make_greedy_decode_sweep
+from deepsc_gan_tpu_torch.evaluate import greedy
+from deepsc_gan_tpu_torch.evaluate.greedy import (
+    make_greedy_decode_gan,
+    make_greedy_decode_sweep,
+)
 from deepsc_gan_tpu_torch.evaluate.kv_decode import (
     make_greedy_decode_kv_sweep,
 )
@@ -128,8 +153,12 @@ from deepsc_gan_tpu_torch.ops import build
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
 from deepsc_gan_tpu_torch.ops import star_kernel as star
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk
-from deepsc_gan_tpu_torch.train import steps
-from deepsc_gan_tpu_torch.utils.config import Config, default_seq_len
+from deepsc_gan_tpu_torch.train import gan_steps, steps
+from deepsc_gan_tpu_torch.utils.config import (
+    Config,
+    default_seq_len,
+    is_star,
+)
 from deepsc_gan_tpu_torch.utils.convert import (
     is_tied,
     load_into,
@@ -159,6 +188,11 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 3.2e-2}
 SOFTMAX_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-3}
 TRAIN_SHAPES = (("encoder", 32, 32), ("decoder_self", 31, 31),
                 ("decoder_cross", 31, 32))
+# K1/K2 past 32 queries and keys (the long-length kernels), at N = bs
+LONG_LEN = 128
+LONG_CASE = f"long_{LONG_LEN}"
+# the vanilla train epoch that runs them end to end
+LONG_SEQ = 64
 KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
            star.KERNEL, topk.KERNEL)
 # the K4 launches among ce_bwd's that ran in the dh-only mode
@@ -644,6 +678,12 @@ def phase_kernels(seed, n, bs, iters):
             for dbias in (False, True):
                 rows.append(attention_bwd_case("train_" + label, bs, lq, lk,
                                                dtype, gen, iters, dbias))
+        # past 32: the long-length kernels (query tiles, key tiles streamed)
+        rows.append(attention_case(LONG_CASE, bs, LONG_LEN, LONG_LEN, dtype,
+                                   gen, iters))
+        for dbias in (False, True):
+            rows.append(attention_bwd_case(LONG_CASE, bs, LONG_LEN, LONG_LEN,
+                                           dtype, gen, iters, dbias))
         rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1),
                          cfg.decoder_d_model, cfg.vocab_size)
         rows.append(ce_dh_only_case(dtype, gen, iters, bs * (cfg.seq_len - 1),
@@ -666,8 +706,10 @@ def phase_kernels(seed, n, bs, iters):
         for length in (1, 2):
             rows.append(star_case(f"L{length}", bs, length, dtype, gen,
                                   iters))
-        for label, lq, lk in TRAIN_SHAPES:
-            attention_bwd_bitwise("train_" + label, bs, lq, lk, dtype, gen)
+        for label, lq, lk in [("train_" + label, lq, lk)
+                              for label, lq, lk in TRAIN_SHAPES] + [
+                                  (LONG_CASE, LONG_LEN, LONG_LEN)]:
+            attention_bwd_bitwise(label, bs, lq, lk, dtype, gen)
     return rows
 
 
@@ -781,13 +823,14 @@ def phase_serving(seed, batches, bs):
 
 
 def phase_train(seed, epochs, bs, variant="transformer",
-                checkpoint="log/chip_smoke/ckpt"):
-    """A training path: `cli train --variant <variant>` at full width in
-    bf16 from a random init on the synthetic set, the params saved under
-    `checkpoint`. Per step the vanilla transceiver launches K1 and K2 once
-    per attention, the star one K5 once per cycle of its encoder and its
-    decoder; both K3 and K4 once."""
-    tag = "train" if variant == "transformer" else f"{variant}_train"
+                checkpoint="log/chip_smoke/ckpt", extra=(), tag=None):
+    """A training path: `cli train --variant <variant>` (and `extra`
+    flags) at full width in bf16 from a random init on the synthetic set,
+    the params saved under `checkpoint`. Per step the vanilla transceiver
+    launches K1 and K2 once per attention, the star one K5 once per cycle
+    of its encoder and its decoder; both K3 and K4 once."""
+    tag = tag or ("train" if variant == "transformer"
+                  else f"{variant}_train")
     reset_launches()
     t0 = time.perf_counter()
     res = cli.main(["train", "--variant", variant, "--train-mode",
@@ -795,7 +838,7 @@ def phase_train(seed, epochs, bs, variant="transformer",
                     "--epochs", str(epochs), "--seed", str(seed),
                     "--device", "cuda", "--log-every", "64",
                     "--log-save-path", f"log/chip_smoke/{tag}",
-                    "--checkpoint-path", checkpoint])
+                    "--checkpoint-path", checkpoint, *extra])
     wall = time.perf_counter() - t0
     got = launches()
     cfg = Config()
@@ -841,9 +884,9 @@ def _train_batch(cfg, seed):
 def variant_model(cfg, variant, plain=False):
     """The transceiver of `variant` through the kernels, or through their
     plain versions when `plain`."""
-    if variant == "transformer":
-        return make_model(cfg, attention=attn.plain_attention if plain
-                          else attn.fused_attention)
+    if not is_star(variant):
+        return make_model(cfg, variant, attention=attn.plain_attention
+                          if plain else attn.fused_attention)
     return make_model(cfg, variant, satellite=star.plain_satellite if plain
                       else star.satellite_attention)
 
@@ -895,7 +938,8 @@ def phase_step_parity(seed, bs, variant="transformer"):
 @contextlib.contextmanager
 def tapped(replay=(None, None)):
     """`steps.fgm_normalize` (the train step's), `steps.fgm_perturbation`
-    (the eval steps') and `torch.relu` wrapped for the block: the
+    (the eval steps'), `greedy.fgm_normalize` (the attacked and GAN greedy
+    decodes') and `torch.relu` wrapped for the block: the
     perturbations they return and every ReLU input are appended to the
     yielded (perturbations, ReLU inputs) lists. `replay`, such a pair from
     another run (or None in either place): the perturbations returned are
@@ -903,6 +947,7 @@ def tapped(replay=(None, None)):
     above 0), in call order."""
     perts, inputs = [], []
     normalize, perturb = steps.fgm_normalize, steps.fgm_perturbation
+    greedy_normalize = greedy.fgm_normalize
     relu = torch.relu
     given_r = iter(replay[0] or ())
     given_x = iter(replay[1] or ())
@@ -928,11 +973,13 @@ def tapped(replay=(None, None)):
         return relu(x)
 
     steps.fgm_normalize, steps.fgm_perturbation = fgm, fgm_perturbation
+    greedy.fgm_normalize = fgm
     torch.relu = relu_tap
     try:
         yield perts, inputs
     finally:
         steps.fgm_normalize, steps.fgm_perturbation = normalize, perturb
+        greedy.fgm_normalize = greedy_normalize
         torch.relu = relu
 
 
@@ -1284,6 +1331,47 @@ def phase_profile(seed, bs):
     for variant in ("transformer", "star"):
         profile_train_step(variant, seed, bs, gen)
     profile_attack(seed, bs, gen)
+    profile_gan(seed, bs, gen)
+
+
+def profile_gan(seed, bs, gen):
+    """One bf16 GAN train step at full width from a random init, and one
+    bf16 GAN teacher-forced call and one greedy_gan call (6 dB, bs rows) on
+    the weights the GAN training phase saved; each after a warm-up, timed
+    without the profiler, then profiled."""
+    cfg = Config(bs=bs)
+    model = steps.init_params(make_model(cfg, "gan"), seed).cuda().train()
+    state = steps.create_train_state(model, cfg)
+    step = gan_steps.make_gan_train_step(model, cfg)
+    inp = _train_batch(cfg, seed)
+    n_std = float(snr_to_noise(cfg.train_snr))
+    cfg_e, model_e = cli.load_model(Config(bs=bs),
+                                    f"{GAN_CKPT}/gan_params.pkl",
+                                    torch.device("cuda"), variant="gan")
+    tf_step = gan_steps.make_gan_eval_step(model_e, cfg_e)
+    decode = make_greedy_decode_gan(model_e, cfg_e)
+    batch = torch.as_tensor(eval_batches(cfg.test_save_path, cfg.seq_len,
+                                         cfg.vocab_size, bs, 1, seed)[0],
+                            dtype=torch.long, device="cuda")
+    noise = torch.randn((2, bs, cfg.seq_len, cfg.channel_dim),
+                        generator=gen, device="cuda")
+    for tag, fn in (
+            ("one GAN train step",
+             lambda: step(state, inp, inp, gen, n_std)),
+            ("one GAN teacher-forced call",
+             lambda: tf_step(batch, batch, gen, 0.0, SNR_to_noise(6), 1.0)),
+            ("one greedy_gan call",
+             lambda: decode(batch, 0.0, SNR_to_noise(6), noise, None,
+                            1.0))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        print(f"[profile] {tag} without the profiler: "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+        profiled(tag, fn)
 
 
 def profile_attack(seed, bs, gen):
@@ -1611,6 +1699,240 @@ def phase_attack_f32(seed, bs):
         alt.argmax(-1), alk, alt)
 
 
+def gan_step_launches(cfg):
+    """K1-K4 launches of one GAN train step of the vanilla GAN transceiver
+    (fused CE): the forward runs the encoder once and the decoder on both
+    branches (K1 per attention, K3 per branch); the backward of CE_r runs
+    through branch r and the encoder, that of CE_p through branch p and
+    the generator only (K2 per attention on each, K4 per branch)."""
+    dec = 2 * cfg.decoder_num_layer
+    return {attn.KERNEL: cfg.encoder_num_layer + 2 * dec,
+            attn.KERNEL_BWD: cfg.encoder_num_layer + 2 * dec,
+            ce.KERNEL_FWD: 2, ce.KERNEL_BWD: 2}
+
+
+def gan_eval_launches(cfg, mode):
+    """K1-K2 launches of one GAN evaluation call of the vanilla GAN
+    transceiver: the encoder once; the gradient's decoder pass (which also
+    gives the clean logits) and its backward to the received y_r (K2 per
+    attention on the path to it: decoder layer 1's self-attention is not);
+    then the attacked decoder pass (teacher_forced, and pgd, which runs the
+    same step for a GAN model) or the max_length full-prefix steps of the
+    greedy decoder (greedy_gan)."""
+    dec = 2 * cfg.decoder_num_layer
+    passes = cfg.max_length if mode == "greedy_gan" else 1
+    return {attn.KERNEL: cfg.encoder_num_layer + dec * (1 + passes),
+            attn.KERNEL_BWD: dec - 1}
+
+
+GAN_CKPT = "log/chip_smoke/gan_ckpt"
+GAN_STAR_CKPT = "log/chip_smoke/gan_star_ckpt"
+# epochs of the GAN training phases: one epoch is 64 steps at bs 64
+GAN_EPOCHS = 1
+
+
+def phase_gan_train(seed, epochs, bs, variant="gan"):
+    """`cli train --variant <gan|gan_star> --train-mode gan` at full width
+    in bf16 from a random init (seed) on the synthetic set, AWGN: the
+    launch counts per step (`gan_step_launches`; gan_star: K5 once per cycle
+    of the encoder and of both decoder branches, K3 and K4 per branch);
+    every loss, g_loss and d_loss finite; the mean of the last 16 receiver
+    losses below that of the first 16. -> (launch counts, ms per step)."""
+    tag = f"{variant}_train"
+    checkpoint = GAN_CKPT if variant == "gan" else GAN_STAR_CKPT
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli.main(["train", "--variant", variant, "--train-mode", "gan",
+                    "--dtype", "bfloat16", "--bs", str(bs), "--epochs",
+                    str(epochs), "--seed", str(seed), "--device", "cuda",
+                    "--log-every", "64", "--log-save-path",
+                    f"log/chip_smoke/{tag}", "--checkpoint-path",
+                    checkpoint])
+    wall = time.perf_counter() - t0
+    got = launches()
+    cfg = Config()
+    n = res["steps"]
+    expected = {name: 0 for name in COUNTERS}
+    if variant == "gan":
+        per_step = gan_step_launches(cfg)
+    else:
+        per_step = {star.KERNEL: 3 * cfg.cycle_num, ce.KERNEL_FWD: 2,
+                    ce.KERNEL_BWD: 2}
+    expected.update({name: k * n for name, k in per_step.items()})
+    check_launches(tag, got, expected)
+    losses = [res[k] for k in ("losses", "g_losses", "d_losses")]
+    if any(len(x) != n or not torch.isfinite(x).all() for x in losses):
+        raise AssertionError(f"{tag}: a loss is not finite")
+    loss = losses[0]
+    first, last = loss[:16].mean().item(), loss[-16:].mean().item()
+    steady = res["epoch_seconds"][1:] or res["epoch_seconds"]
+    ms_step = sum(steady) / len(steady) / (n // epochs) * 1e3
+    print(f"[{tag}] {n} steps ({3 * n} Adam updates); receiver loss mean of "
+          f"the first 16 {first:.4f}, of the last 16 {last:.4f}; g_loss "
+          f"first {losses[1][0]:.4f} last {losses[1][-1]:.4f}; d_loss first "
+          f"{losses[2][0]:.4f} last {losses[2][-1]:.4f}; epoch seconds "
+          f"{res['epoch_seconds']}; {ms_step:.3f} ms/step; wall {wall:.2f} s")
+    if not last < first:
+        raise AssertionError(f"{tag}: the receiver loss did not fall: "
+                             f"{first} -> {last}")
+    return got, ms_step
+
+
+@contextlib.contextmanager
+def gan_grads():
+    """Records the gradients each phase of a GAN step applies (the dicts
+    `gan_steps.selective_update` is given), in phase order."""
+    seen, update = [], gan_steps.selective_update
+
+    def record(state, grads, mask):
+        seen.append({n: None if g is None else g.detach().clone()
+                     for n, g in grads.items()})
+        return update(state, grads, mask)
+
+    gan_steps.selective_update = record
+    try:
+        yield seen
+    finally:
+        gan_steps.selective_update = update
+
+
+def phase_gan_step_parity(seed, bs):
+    """One f32 GAN step at full width through the kernels and one through
+    the plain versions, from the same weights (init from `seed`), draws
+    and dropout masks: `gan_step_launches` through the kernels, none
+    through the plain versions; the three losses within rtol 1e-5; the
+    gradients of the three phases within 1e-4 of their largest, the plain
+    step taking the kernel run's ReLU decisions (`tapped`: at this width
+    some ReLU inputs lie within the paths' f32 difference of 0, and a sign
+    flips a gradient term; printed, with the gap on each path's own
+    decisions). Both paths must have run a ReLU."""
+    cfg = Config(dtype="float32", bs=bs)
+    inp = _train_batch(cfg, seed)
+    n_std = float(snr_to_noise(cfg.train_snr))
+
+    def run(plain, replay=(None, None)):
+        model = steps.init_params(variant_model(cfg, "gan", plain),
+                                  seed).cuda().train()
+        state = steps.create_train_state(model, cfg)
+        step = gan_steps.make_gan_train_step(model, cfg, plain=plain)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        reset_launches()
+        with tapped(replay) as taps, gan_grads() as grads:
+            _, losses = step(state, inp, inp, gen, n_std)
+        torch.cuda.synchronize()
+        return [x.item() for x in losses], grads, launches(), taps
+
+    def grad_gap(a, b):
+        return max((max_err([a[i][n]], [b[i][n]], relative=True), f"{i}:{n}")
+                   for i in range(3) for n in a[i] if b[i][n] is not None)
+
+    lk, gk, ck, (_, xk) = run(False)
+    lp, gp, cp, (_, xp) = run(True)
+    ls, gs, _, _ = run(True, (None, xk))
+    want = {name: 0 for name in COUNTERS}
+    want.update(gan_step_launches(cfg))
+    check_launches("f32 GAN step", ck, want)
+    if sum(cp.values()):
+        raise AssertionError(f"the plain GAN step launched {cp}")
+    if not len(xk) == len(xp) > 0:
+        raise AssertionError(f"{len(xk)} and {len(xp)} ReLU calls")
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(xk, xp))
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk + lk, lp + ls)]
+    same, own = grad_gap(gk, gs), grad_gap(gk, gp)
+    print(f"[parity] f32 GAN step: losses (loss, g_loss, d_loss) kernels "
+          f"{lk}, plain {lp}, plain on the kernel run's ReLU decisions {ls} "
+          f"(rel {', '.join(f'{r:.2e}' for r in rel)}); {len(xk)} ReLU "
+          f"calls, {flips} inputs change sign between the paths; worst grad "
+          f"err / max|ref| on the same ReLU decisions {same[0]:.2e} "
+          f"({same[1]}), on each path's own {own[0]:.2e} ({own[1]}); "
+          f"launches {json.dumps(ck)}")
+    if not all(r <= 1e-5 for r in rel):
+        raise AssertionError(f"f32 GAN step losses {lk} vs plain {lp}, {ls}")
+    if not same[0] <= 1e-4:
+        raise AssertionError(f"f32 GAN step grad {same[1]}: {same[0]} > "
+                             f"1e-4 of max|ref|")
+
+
+def phase_gan_eval(seed, batches, bs):
+    """The GAN evaluations through `cli evaluate --variant gan` on the
+    weights the GAN training phase saved, bf16, PNR 0 dB: the
+    teacher-forced table (the GAN FGM step), `pgd` (which runs the same
+    step for a GAN model; one batch) and the `greedy_gan` sweep; 19 finite
+    rows each and `gan_eval_launches` per call. -> their launch counts
+    summed."""
+    cfg = Config()
+    none = {name: 0 for name in COUNTERS}
+    model = ("--variant", "gan", "--checkpoint-path", GAN_CKPT)
+    counts = []
+    for tag, mode, n_batches in (("gan_tf", "teacher_forced", batches),
+                                 ("gan_pgd", "pgd", 1),
+                                 ("gan_greedy", "greedy_gan", batches)):
+        got, _, res, _ = phase_serve(
+            tag, ["--eval-mode", mode, "--pnr-db", "0"], seed, n_batches, bs,
+            dict(none, **gan_eval_launches(cfg, mode)), model=model,
+            width=2 if mode == "greedy_gan" else 5)
+        if res["params_path"] != f"{GAN_CKPT}/gan_params.pkl":
+            raise AssertionError(f"{tag}: loaded {res['params_path']}")
+        counts.append(got)
+    return _sum_counts(*counts)
+
+
+def phase_gan_f32_ids(seed, bs):
+    """One batch at f32 on the trained GAN weights, three SNRs, the same
+    draws: `greedy_gan` through K1/K2 and through their plain versions.
+    The perturbation comes from a gradient (a ReLU input at its kink flips
+    a term), so the plain decode takes the kernel call's ReLU decisions and
+    perturbation (`tapped`); then the ids and noa are identical."""
+    params = load_params_pickle(f"{GAN_CKPT}/gan_params.pkl")
+    cfg = Config(dtype="float32", bs=bs, tie_embeddings=is_tied(params))
+    inp = torch.as_tensor(eval_batches(cfg.test_save_path, cfg.seq_len,
+                                       cfg.vocab_size, bs, 1, seed)[0],
+                          dtype=torch.long, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn((2, bs, cfg.seq_len, cfg.channel_dim),
+                        generator=gen, device="cuda")
+    models = [load_into(variant_model(cfg, "gan", plain),
+                        params).cuda().eval() for plain in (False, True)]
+
+    def run(plain, replay=(None, None)):
+        reset_launches()
+        with tapped(replay) as taps:
+            out = make_greedy_decode_gan(models[plain], cfg)(
+                inp, 0.0, SNR_to_noise(snr), noise, None, 1.0)
+        torch.cuda.synchronize()
+        want = {name: 0 for name in COUNTERS}
+        if not plain:
+            want.update(gan_eval_launches(cfg, "greedy_gan"))
+        check_launches(f"f32 greedy_gan {snr} dB (plain {plain})",
+                       launches(), want)
+        return out, taps
+
+    for snr in (0, 9, 18):
+        (ids_k, noa_k), taps = run(False)
+        if not (len(taps[0]) == 1 and taps[1]):
+            raise AssertionError("greedy_gan: no perturbation or no ReLU "
+                                 "recorded")
+        (ids_p, noa_p), _ = run(True, taps)
+        same_ids(f"greedy_gan ids at {snr} dB, K1/K2 vs plain on the same "
+                 f"ReLU decisions and perturbation", ids_k, ids_p)
+        same_ids(f"greedy_gan noa at {snr} dB", noa_k, noa_p)
+
+
+def phase_gan_star(seed, epochs, batches, bs):
+    """gan_star: `cli train --variant gan_star --train-mode gan` (it
+    counts as a star variant: seq_len 31, the un-shifted target), then the
+    `greedy_gan` sweep of what it saved (one-shot decoding; per call 8
+    cycles of the encoder, 8 of the gradient's decoder pass and 8 of the
+    one-shot decode, all K5). -> their launch counts summed."""
+    trained, ms_step = phase_gan_train(seed, epochs, bs, "gan_star")
+    none = {name: 0 for name in COUNTERS}
+    got, *_ = phase_serve(
+        "gan_star_greedy", ["--eval-mode", "greedy_gan", "--pnr-db", "0"],
+        seed, batches, bs, dict(none, **{star.KERNEL: 3 * Config().cycle_num}),
+        model=("--variant", "gan_star", "--checkpoint-path", GAN_STAR_CKPT))
+    return _sum_counts(trained, got), ms_step
+
+
 KERNEL_INFO = {
     attn.KERNEL: ("deepsc_gan_tpu/ops/pallas/attention.py:125",
                   "decoder_self", "serving: decoder self-attention, bf16, "
@@ -1637,9 +1959,12 @@ def kernels_line(rows, by_path):
     matters most; `launches_by_path` counts each path's run (serve: the
     full-prefix greedy sweep, kv, beam, train, star_train, star_serve,
     fading: its three sweeps, attack_train, attack_eval: its five tables
-    and decodes) and `launches` their sum. K4's entry also holds its
-    dh-only mode (`dh_only`: the K4 launches that ran in it, and its bf16
-    row at the training shape)."""
+    and decodes, long_len: the vanilla train epoch at seq_len LONG_SEQ,
+    gan_train, gan_eval: its three tables and sweeps, gan_star: its
+    training and its greedy_gan sweep) and `launches` their sum. K1's and
+    K2's entries also hold their long-length row (`long`: N = 64, L =
+    LONG_LEN), K4's its dh-only mode (`dh_only`: the K4 launches that ran
+    in it, and its bf16 row at the training shape)."""
     out = []
     for kernel, (replaces, case, at) in KERNEL_INFO.items():
         row = next(r for r in rows if r["kernel"] == kernel
@@ -1656,6 +1981,18 @@ def kernels_line(rows, by_path):
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"],
             "library_device_ms": row["library_device_ms"], "at": at})
+    for kernel in (attn.KERNEL, attn.KERNEL_BWD):
+        row = next(r for r in rows if r["kernel"] == kernel
+                   and r["case"] == LONG_CASE and r["dtype"] == "bfloat16"
+                   and not r.get("dbias"))
+        out[[e["name"] for e in out].index(kernel)]["long"] = {
+            key: row[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms")}
+        out[[e["name"] for e in out].index(kernel)]["long"]["at"] = (
+            f"the long-length kernels: N={row['n']} Lq=Lk={LONG_LEN} H=8 "
+            f"Dh=16, bf16; library: SDPA" + (" backward" if kernel ==
+                                             attn.KERNEL_BWD else ""))
     dh = next(r for r in rows if r["case"] == "ce_dh_only"
               and r["dtype"] == "bfloat16")
     paths = {path: got[DH_ONLY] for path, got in by_path.items()}
@@ -1705,6 +2042,16 @@ def main(argv=None) -> int:
     by_path["attack_eval"] = phase_attack_eval(args.seed, args.batches,
                                                args.bs)
     phase_attack_f32(args.seed, args.bs)
+    by_path["long_len"], _ = phase_train(
+        args.seed, 1, args.bs, extra=("--seq-len", str(LONG_SEQ)),
+        checkpoint="log/chip_smoke/long_ckpt", tag="long_len")
+    by_path["gan_train"], _ = phase_gan_train(args.seed, GAN_EPOCHS,
+                                              args.bs)
+    phase_gan_step_parity(args.seed, args.bs)
+    by_path["gan_eval"] = phase_gan_eval(args.seed, args.batches, args.bs)
+    phase_gan_f32_ids(args.seed, args.bs)
+    by_path["gan_star"], _ = phase_gan_star(args.seed, GAN_EPOCHS,
+                                            args.batches, args.bs)
     phase_profile(args.seed, args.bs)
     kernels = kernels_line(rows, by_path)
     print(f"[done] {time.perf_counter() - t0:.1f} s")

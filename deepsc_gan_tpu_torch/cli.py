@@ -1,19 +1,25 @@
 """Command-line entry points of the port: the BLEU-vs-SNR sweeps and the
 teacher-forced attack tables (the JAX package's `cli evaluate`), and
-teacher-forced training, plain or FGM-adversarial (`cli train --train-mode
-plain|attack`, one device, one step per call), of the vanilla transceiver
-(`--variant transformer`) and the star ones (`--variant star`, the
-single-block SE/SD codec, or `star_multi`). The evaluation modes:
+teacher-forced training, plain, FGM-adversarial or the GAN's three phases
+(`cli train --train-mode plain|attack|gan`, one device, one step per
+call), of the vanilla transceiver (`--variant transformer`), the star ones
+(`--variant star`, the single-block SE/SD codec, or `star_multi`) and the
+GAN ones (`--variant gan` around the vanilla codec, `gan_star` around
+SE/SD, a star variant; `--train-mode gan` trains only these). The
+evaluation modes:
 - `greedy`: the greedy sweep, full-prefix or `--kv-cache`; a star decoder
   is decoded in one shot (position i predicts token i), with or without
   `--kv-cache`;
 - `beam`, with `--beam-size` and `--beam-impl kv|full` (no star);
 - `greedy_attack`: greedy decoding through a channel carrying the FGM
-  perturbation of each batch, at `--pnr-db`;
+  perturbation of each batch, at `--pnr-db`; `greedy_gan` the same (the
+  JAX package's GAN decode, which also returns the clean teacher-forced
+  argmax);
 - `teacher_forced` and `pgd`: the teacher-forced FGM and PGD attack
   tables, [snr, clean BLEU, attacked BLEU, loss clean, loss attacked] per
   SNR, written to `<log-save-path>/eval-<variant>.pkl` (the others write
-  `test-<variant>-<eval-mode>.pkl`).
+  `test-<variant>-<eval-mode>.pkl`); for a GAN variant both run its FGM
+  step (`train/gan_steps.py:make_gan_eval_step`), as the JAX CLI does.
 `--channel AWGN|Rayleigh|Rician`, with `--equalizer` and
 `--fading-per-sample`, applies to every mode and to training. Star
 decoders score the un-shifted target in training and in the attacks. An
@@ -35,6 +41,9 @@ flag when a kernel it would launch does not take its shapes
       --adv-weight 0.5 --pnr-db 0 --epochs 3
   python -m deepsc_gan_tpu_torch.cli train --variant star --epochs 2
   python -m deepsc_gan_tpu_torch.cli evaluate --variant star
+  python -m deepsc_gan_tpu_torch.cli train --variant gan --train-mode gan
+  python -m deepsc_gan_tpu_torch.cli evaluate --variant gan \
+      --eval-mode greedy_gan
 
 Weights come from a params pickle in the `results/*_params.pkl` format
 (whether the decoder is tied is read from the tree): `--params-pkl`, or for
@@ -48,7 +57,8 @@ Channel draws and dropout masks come from a `torch.Generator` seeded with
 `--seed`. The greedy sweeps decode every SNR point of a batch in one call;
 beam search, the attacked decode and the attack tables make one call per
 (SNR, batch). Training logs the loss (with `--train-mode attack`, the clean
-and the adversarial one) every `--log-every` steps and sentences/s per
+and the adversarial one; with `gan`, the receiver's loss, g_loss and
+d_loss) every `--log-every` steps and sentences/s per
 epoch to `<log-save-path>/train.jsonl`, and saves the params (the EMA
 shadow when `--ema-decay` is on) as `<checkpoint-path>/<variant>_params.pkl`
 in the `results/*_params.pkl` format. Runs on CUDA unless `--device` names
@@ -79,14 +89,19 @@ from deepsc_gan_tpu_torch.evaluate.evaluator import (
 )
 from deepsc_gan_tpu_torch.evaluate.greedy import (
     make_greedy_decode_attack,
+    make_greedy_decode_gan,
     make_greedy_decode_sweep,
 )
 from deepsc_gan_tpu_torch.evaluate.kv_decode import (
     make_greedy_decode_kv_sweep,
 )
 from deepsc_gan_tpu_torch.models.channel import snr_to_noise
-from deepsc_gan_tpu_torch.models.transceiver import VARIANTS, make_model
+from deepsc_gan_tpu_torch.models.transceiver import make_model
 from deepsc_gan_tpu_torch.ops.envelope import check_envelope
+from deepsc_gan_tpu_torch.train.gan_steps import (
+    make_gan_eval_step,
+    make_gan_train_step,
+)
 from deepsc_gan_tpu_torch.train.steps import (
     create_train_state,
     eval_params,
@@ -97,10 +112,13 @@ from deepsc_gan_tpu_torch.train.steps import (
     make_train_step,
 )
 from deepsc_gan_tpu_torch.utils.config import (
+    VARIANTS,
     Config,
     add_config_args,
     config_from_args,
     default_seq_len,
+    is_gan,
+    is_star,
 )
 from deepsc_gan_tpu_torch.utils.convert import (
     is_tied,
@@ -110,10 +128,6 @@ from deepsc_gan_tpu_torch.utils.convert import (
 )
 from deepsc_gan_tpu_torch.utils.device import resolve_device
 from deepsc_gan_tpu_torch.utils.logging import MetricLogger
-
-
-def is_star(variant: str) -> bool:
-    return variant.startswith("star")
 
 
 def variant_config(args) -> Config:
@@ -150,7 +164,8 @@ def evaluate_params_path(args, cfg: Config):
     return saved if os.path.exists(saved) else None
 
 
-EVAL_MODES = ("greedy", "beam", "greedy_attack", "teacher_forced", "pgd")
+EVAL_MODES = ("greedy", "beam", "greedy_attack", "greedy_gan",
+              "teacher_forced", "pgd")
 
 
 def cmd_evaluate(args) -> dict:
@@ -187,10 +202,12 @@ def cmd_evaluate(args) -> dict:
         def call(*a):
             t0 = time.perf_counter()
             out = fn(*a)
-            if isinstance(out, tuple):  # an attack-table step
+            if isinstance(out, tuple) and len(out) > 2:  # an attack table's
                 if len(out) > 4:
                     eps_star.append(float(out[4]))
                 out = (float(out[0]), float(out[1])) + out[2:4]
+            elif isinstance(out, tuple):  # greedy_gan: (ids, noa)
+                out = tuple(x.cpu() for x in out)
             else:
                 out = out.cpu()
             seconds.append(time.perf_counter() - t0)
@@ -201,8 +218,14 @@ def cmd_evaluate(args) -> dict:
     position_mode = "oneshot" if star else "step"
     name = f"test-{args.variant}-{args.eval_mode}.pkl"
     if args.eval_mode in ("teacher_forced", "pgd"):
-        make = make_eval_step_pgd if args.eval_mode == "pgd" \
-            else make_eval_step
+        # a GAN model's teacher-forced table is its own FGM step, for pgd
+        # too (the JAX CLI tests for a GAN variant first)
+        if is_gan(args.variant):
+            make = make_gan_eval_step
+        elif args.eval_mode == "pgd":
+            make = make_eval_step_pgd
+        else:
+            make = make_eval_step
         table = teacher_forced_sweep(
             timed(make(model, cfg, full_target=star)), batches, vocab, cfg,
             gen, snrs=snrs, pnr_db=args.pnr_db, epsilon=args.epsilon)
@@ -217,10 +240,11 @@ def cmd_evaluate(args) -> dict:
             table = snr_sweep_bleu(timed(make(model, cfg, args.beam_size)),
                                    batches, vocab, cfg, gen, snrs=snrs,
                                    pnr_db=args.pnr_db)
-        elif args.eval_mode == "greedy_attack":
-            decode = make_greedy_decode_attack(model, cfg,
-                                               position_mode=position_mode,
-                                               full_target=star)
+        elif args.eval_mode in ("greedy_attack", "greedy_gan"):
+            make = make_greedy_decode_gan if args.eval_mode == "greedy_gan" \
+                else make_greedy_decode_attack
+            decode = make(model, cfg, position_mode=position_mode,
+                          full_target=star)
             table = snr_sweep_bleu(timed(decode), batches, vocab, cfg, gen,
                                    snrs=snrs, pnr_db=args.pnr_db, draws=2,
                                    decode_extra_args=(args.epsilon,))
@@ -256,9 +280,15 @@ def save_params_pickle(path: str, params, cfg: Config, recipe: dict) -> str:
 
 def cmd_train(args) -> dict:
     """Train for cfg.epochs epochs; -> {"losses" (every step's, on the
-    host; with --train-mode attack the adversarial ones), "clean_losses"
-    (attack: phase 1's clean losses), "steps", "epoch_seconds",
-    "sents_per_sec", "params_path", "device"}."""
+    host; with --train-mode attack the adversarial ones, with gan the
+    receiver's), "clean_losses" (attack: phase 1's clean losses),
+    "g_losses", "d_losses" (gan), "steps", "epoch_seconds",
+    "sents_per_sec", "params_path", "device"}. A GAN step makes three
+    optimizer updates; the recipe saved with the params counts both."""
+    if args.train_mode == "gan" and not is_gan(args.variant):
+        raise SystemExit(f"--train-mode gan needs a GAN transceiver "
+                         f"(--variant gan or gan_star), not "
+                         f"{args.variant!r}")
     device = resolve_device(args.device)
     cfg = variant_config(args)
     check_envelope(cfg, args.variant, None, device=device)
@@ -268,9 +298,12 @@ def cmd_train(args) -> dict:
     state = create_train_state(model, cfg)
     star = is_star(args.variant)
     attack = args.train_mode == "attack"
+    gan = args.train_mode == "gan"
     if attack:
         step = make_train_attack_step(model, cfg, full_target=star,
                                       adv_weight=args.adv_weight)
+    elif gan:
+        step = make_gan_train_step(model, cfg, full_target=star)
     else:
         step = make_train_step(model, cfg, full_target=star)
     ds = train_dataset(cfg.train_save_path, cfg.seq_len, cfg.vocab_size,
@@ -281,22 +314,31 @@ def cmd_train(args) -> dict:
     print(f"[train] variant={args.variant} mode={args.train_mode} "
           f"device={device} params={n_params:,}")
     logger = MetricLogger(os.path.join(cfg.log_save_path, "train.jsonl"))
-    losses, clean_losses, epoch_seconds, rates = [], [], [], []
+    losses, clean_losses, g_losses, d_losses = [], [], [], []
+    epoch_seconds, rates = [], []
     for epoch in range(cfg.epochs):
         ds.set_epoch(epoch)
         t0 = time.perf_counter()
-        for inp, _ in ds:
+        for i, (inp, _) in enumerate(ds):
             batch = torch.from_numpy(inp).to(device, torch.long)
+            extra = {}
             if attack:
                 state, (clean, loss) = step(state, batch, batch, gen,
                                             args.pnr_db, n_std, args.epsilon)
                 clean_losses.append(clean)
+                extra = {"clean_loss": clean}
+            elif gan:
+                state, (loss, g_loss, d_loss) = step(state, batch, batch,
+                                                     gen, n_std)
+                g_losses.append(g_loss)
+                d_losses.append(d_loss)
+                extra = {"g_loss": g_loss, "d_loss": d_loss}
             else:
                 state, loss = step(state, batch, batch, gen, n_std)
             losses.append(loss)
-            if state.step % args.log_every == 0:
-                extra = {"clean_loss": clean} if attack else {}
-                logger.log(epoch=epoch, step=state.step, loss=loss, **extra)
+            steps_done = epoch * len(ds) + i + 1
+            if steps_done % args.log_every == 0:
+                logger.log(epoch=epoch, step=steps_done, loss=loss, **extra)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
@@ -304,24 +346,30 @@ def cmd_train(args) -> dict:
         rates.append(len(ds) * cfg.bs / dt)
         logger.log(epoch=epoch, epoch_time=dt, sents_per_sec=rates[-1])
     logger.close()
+    steps_taken = len(losses)
     recipe = {"variant": args.variant, "train_mode": args.train_mode,
-              "epochs": cfg.epochs, "steps": state.step, "seed": args.seed,
+              "epochs": cfg.epochs, "steps": steps_taken, "seed": args.seed,
               "tie_embeddings": cfg.tie_embeddings, "schedule": cfg.schedule,
               "lr": cfg.lr, "ema_decay": cfg.ema_decay, "dtype": cfg.dtype,
               "channel": cfg.channel}
     if attack:
         recipe.update(adv_weight=args.adv_weight, pnr_db=args.pnr_db,
                       epsilon=args.epsilon)
+    if gan:
+        recipe.update(gan_lambda=cfg.gan_lambda, gan_pnr_db=cfg.gan_pnr_db,
+                      g_loss_ceiling=cfg.g_loss_ceiling,
+                      optimizer_updates=state.step)
     path = save_params_pickle(
         os.path.join(cfg.checkpoint_path, f"{args.variant}_params.pkl"),
         eval_params(state), cfg, recipe)
-    print(f"[train] done: {state.step} steps; params -> {path}")
+    print(f"[train] done: {steps_taken} steps; params -> {path}")
 
     def host(xs):
         return torch.stack(xs).float().cpu() if xs else torch.zeros(0)
 
     return {"losses": host(losses), "clean_losses": host(clean_losses),
-            "steps": state.step, "epoch_seconds": epoch_seconds,
+            "g_losses": host(g_losses), "d_losses": host(d_losses),
+            "steps": steps_taken, "epoch_seconds": epoch_seconds,
             "sents_per_sec": rates, "params_path": path,
             "device": str(device)}
 
@@ -358,7 +406,10 @@ def build_parser() -> argparse.ArgumentParser:
     add_config_args(t)
     t.add_argument("--variant", default="transformer", choices=VARIANTS)
     t.add_argument("--train-mode", default="plain",
-                   choices=["plain", "attack"])
+                   choices=["plain", "attack", "gan"],
+                   help="gan: the three-phase GAN step (--variant gan or "
+                        "gan_star; --gan-lambda, --gan-pnr-db, "
+                        "--g-loss-ceiling)")
     t.add_argument("--adv-weight", type=float, default=1.0,
                    help="attack: the update's weight on the adversarial "
                         "loss (the rest on the clean one); 1 is the "

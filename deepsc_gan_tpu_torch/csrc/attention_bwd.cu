@@ -29,7 +29,9 @@
 // kernel_variants.py); the design before this one, f32 staging and
 // CUDA-core products in a block per row, took 0.023.
 //
-// Each dtype has one kernel:
+// Up to 32 queries and keys each dtype has one kernel, below; past 32 of
+// either, the long-length kernels further down take the call (query tiles
+// and key tiles of 32; two kernels, dq then dk and dv).
 // - bf16, tensor cores (mma.sync m16n8k16, f32 accumulators; the staging,
 //   the quad softmax and the division are K1's, csrc/mma_row.cuh). A warp
 //   takes one head of one batch row. Without dbias a block takes
@@ -555,6 +557,672 @@ attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- any length: query tiles and key tiles ----
+//
+// Past 32 queries or keys (either) the launch takes two kernels in turn,
+// each recomputing the probabilities per (query tile, key tile) of 32 x 32:
+// A. a block per (batch row, tile of 32 queries), a warp per head: pass 1
+//    streams the key tiles for each query's softmax statistics, the running
+//    max m and sum l (rescaled by exp(m_old - m_new) as in the forward) and
+//    rowsum(dp p) as the running sum of exp(logit - m) dp over l; pass 2
+//    streams them again for p = exp(logit - m) / l, ds = p (dp - rowsum)
+//    and dq = sum over key tiles of dss k, and, with dbias, the sum over the
+//    block's heads (all of them, in the order 0..H-1) of each key tile's ds.
+//    It writes (m, l, rowsum) per (row, head, query) to the caller's
+//    scratch `stats` (N, H, Lq, 4) f32;
+// B. a block per (batch row, tile of 32 keys), a warp per head: streams the
+//    query tiles with their statistics from `stats`, recomputes p and ds,
+//    and sums dv = pc^T g and dk = dss^T q over them.
+// Every sum runs in a fixed order and every output element is written by
+// one thread of one block: no atomics, so two calls give the same bits,
+// with or without dbias (dq, dk and dv never depend on it). The
+// statistics come from online sums, so p may differ from the plain
+// version's in its last bits.
+//
+// What bounds it: memory. At N = 64, Lq = Lk = 128, 8 heads of 16 (bf16,
+// no dbias) a call must move 18.9 MB, 0.0056 ms at 3.35 TB/s, against 1.3
+// GFLOP. It takes 0.0610 ms of device time on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke.py), PyTorch's SDPA backward 0.0425: the logits and
+// dP are recomputed three times (two passes of A, one of B) and every key
+// tile is staged twice per query tile in A; the bf16 B kernel also spills
+// (24 bytes at Dh = 16, under the 128-register cap of 512 threads).
+// Saving the forward's row statistics would drop A's first pass.
+
+// f32: a lane per query (A) or per key (B). Shared memory of A: ks, vs
+// (kRows x H*Dh f32 each), bs (kRows x (kRows | 1)), and with dbias each
+// head's ds tile (H x kRows x (kRows | 1)); of B: qs, gs (kRows x H*Dh),
+// bs, and the query tile's statistics of every head (H x kRows x 4).
+template <int DH>
+__global__ void __launch_bounds__(kMaxHeads * 32)
+attention_bwd_dq_long_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ bias,
+                             const float* __restrict__ g,
+                             float* __restrict__ dq,
+                             float* __restrict__ dbias,
+                             float4* __restrict__ stats, int lq, int lk,
+                             int heads, float inv_scale) {
+  extern __shared__ float smem[];
+  constexpr int kTile = mrow::kRows;
+  constexpr int bstride = kTile | 1;
+  const int hd = heads * DH;
+  float* ks = smem;
+  float* vs = ks + kTile * hd;
+  float* bs = vs + kTile * hd;
+  float* dst = bs + kTile * bstride;  // with dbias
+
+  const long long n = blockIdx.x;
+  const int q0 = blockIdx.y * kTile;
+  const int ql = min(kTile, lq - q0);
+  const int h = threadIdx.x >> 5;
+  const int i = threadIdx.x & 31;
+  const bool valid = i < ql;
+  float qv[DH], gv[DH], dqa[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) qv[d] = gv[d] = dqa[d] = 0.f;
+  if (valid) {
+    const long long at = (n * lq + q0 + i) * hd + h * DH;
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) {
+      load16(q + at + d, qv + d);
+      load16(g + at + d, gv + d);
+    }
+  }
+  float m = -INFINITY, l = 0.f, racc = 0.f, rowsum = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < lk; k0 += kTile) {
+      const int kl = min(kTile, lk - k0);
+      __syncthreads();  // the last tile's reads are done
+      stage(k + (n * lk + k0) * hd, ks, kl * hd);
+      stage(v + (n * lk + k0) * hd, vs, kl * hd);
+      const float* bn = bias + (n * lq + q0) * lk + k0;
+      for (int e = threadIdx.x; e < ql * kl; e += blockDim.x) {
+        const int r = e / kl;
+        const int c = e - r * kl;
+        bs[r * bstride + c] = bn[(long long)r * lk + c];
+      }
+      __syncthreads();
+      if (valid) {
+        float s[kTile], dp[kTile];
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kTile; ++j) {
+          if (j < kl) {
+            const float* kj = ks + j * hd + h * DH;
+            const float* vj = vs + j * hd + h * DH;
+            float acc = 0.f, dacc = 0.f;
+#pragma unroll
+            for (int d = 0; d < DH; ++d) {
+              acc = fmaf(qv[d], kj[d], acc);
+              dacc = fmaf(gv[d], vj[d], dacc);
+            }
+            s[j] = __fadd_rn(__fmul_rn(acc, inv_scale), bs[i * bstride + j]);
+            dp[j] = dacc;
+            tmax = fmaxf(tmax, s[j]);
+          }
+        }
+        if (pass == 0) {
+          const float mn = fmaxf(m, tmax);
+          const float alpha = expf(m - mn);
+          l *= alpha;
+          racc *= alpha;
+#pragma unroll
+          for (int j = 0; j < kTile; ++j) {
+            if (j < kl) {
+              const float e = expf(s[j] - mn);
+              l += e;
+              racc = fmaf(e, dp[j], racc);
+            }
+          }
+          m = mn;
+        } else {
+          float* ds_row = dst + (h * kTile + i) * bstride;
+#pragma unroll
+          for (int j = 0; j < kTile; ++j) {
+            if (j < kl) {
+              const float p = __fdiv_rn(expf(s[j] - m), l);
+              const float ds = __fmul_rn(p, __fsub_rn(dp[j], rowsum));
+              if (dbias != nullptr) ds_row[j] = ds;
+              const float dsc = __fmul_rn(ds, inv_scale);
+              const float* kj = ks + j * hd + h * DH;
+#pragma unroll
+              for (int d = 0; d < DH; ++d) dqa[d] = fmaf(dsc, kj[d], dqa[d]);
+            }
+          }
+        }
+      }
+      if (pass == 1 && dbias != nullptr) {
+        __syncthreads();
+        float* dbn = dbias + (n * lq + q0) * lk + k0;
+        for (int e = threadIdx.x; e < ql * kl; e += blockDim.x) {
+          const int r = e / kl;
+          const int c = e - r * kl;
+          float acc = 0.f;
+          for (int hh = 0; hh < heads; ++hh)
+            acc = __fadd_rn(acc, dst[(hh * kTile + r) * bstride + c]);
+          dbn[(long long)r * lk + c] = acc;
+        }
+      }
+    }
+    if (pass == 0) rowsum = __fdiv_rn(racc, l);
+  }
+  if (!valid) return;
+  stats[(n * heads + h) * lq + q0 + i] = make_float4(m, l, rowsum, 0.f);
+  float* dqi = dq + (n * lq + q0 + i) * hd + h * DH;
+#pragma unroll
+  for (int d = 0; d < DH; d += 4) store16(dqi + d, dqa + d);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kMaxHeads * 32)
+attention_bwd_dkv_long_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ g,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              const float4* __restrict__ stats, int lq,
+                              int lk, int heads, float inv_scale) {
+  extern __shared__ float smem[];
+  constexpr int kTile = mrow::kRows;
+  constexpr int bstride = kTile | 1;
+  const int hd = heads * DH;
+  float* qs = smem;
+  float* gs = qs + kTile * hd;
+  float* bs = gs + kTile * hd;
+  // 32 x 33 floats end on 16 bytes
+  float4* st = reinterpret_cast<float4*>(bs + kTile * bstride);
+
+  const long long n = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;
+  const int kl = min(kTile, lk - k0);
+  const int h = threadIdx.x >> 5;
+  const int j = threadIdx.x & 31;
+  const bool valid = j < kl;
+  float kv[DH], vv[DH], dka[DH], dva[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) kv[d] = vv[d] = dka[d] = dva[d] = 0.f;
+  if (valid) {
+    const long long at = (n * lk + k0 + j) * hd + h * DH;
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) {
+      load16(k + at + d, kv + d);
+      load16(v + at + d, vv + d);
+    }
+  }
+  for (int q0 = 0; q0 < lq; q0 += kTile) {
+    const int ql = min(kTile, lq - q0);
+    __syncthreads();  // the last tile's reads are done
+    stage(q + (n * lq + q0) * hd, qs, ql * hd);
+    stage(g + (n * lq + q0) * hd, gs, ql * hd);
+    const float* bn = bias + (n * lq + q0) * lk + k0;
+    for (int e = threadIdx.x; e < ql * kl; e += blockDim.x) {
+      const int r = e / kl;
+      const int c = e - r * kl;
+      bs[r * bstride + c] = bn[(long long)r * lk + c];
+    }
+    for (int e = threadIdx.x; e < heads * ql; e += blockDim.x) {
+      const int hh = e / ql;
+      const int r = e - hh * ql;
+      st[hh * kTile + r] = stats[(n * heads + hh) * lq + q0 + r];
+    }
+    __syncthreads();
+    if (!valid) continue;
+    for (int i = 0; i < ql; ++i) {
+      const float* qi = qs + i * hd + h * DH;
+      const float* gi = gs + i * hd + h * DH;
+      float acc = 0.f, dacc = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        acc = fmaf(qi[d], kv[d], acc);
+        dacc = fmaf(gi[d], vv[d], dacc);
+      }
+      const float4 sti = st[h * kTile + i];
+      const float s = __fadd_rn(__fmul_rn(acc, inv_scale), bs[i * bstride + j]);
+      const float p = __fdiv_rn(expf(s - sti.x), sti.y);
+      const float ds = __fmul_rn(p, __fsub_rn(dacc, sti.z));
+      const float dsc = __fmul_rn(ds, inv_scale);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        dka[d] = fmaf(dsc, qi[d], dka[d]);
+        dva[d] = fmaf(p, gi[d], dva[d]);
+      }
+    }
+  }
+  if (!valid) return;
+  const long long at = (n * lk + k0 + j) * hd + h * DH;
+#pragma unroll
+  for (int d = 0; d < DH; d += 4) {
+    store16(dk + at + d, dka + d);
+    store16(dv + at + d, dva + d);
+  }
+}
+
+size_t smem_bytes_dq_long_f32(int heads, int dh, bool with_dbias) {
+  const size_t tile = (size_t)kRows * (kRows | 1);
+  return sizeof(float) * (2 * (size_t)kRows * heads * dh + tile +
+                          (with_dbias ? (size_t)heads * tile : 0));
+}
+
+size_t smem_bytes_dkv_long_f32(int heads, int dh) {
+  return sizeof(float) * (2 * (size_t)kRows * heads * dh +
+                          (size_t)kRows * (kRows | 1)) +
+         sizeof(float4) * (size_t)heads * kRows;
+}
+
+// bf16: the tensor-core products of the kernel above per 32 x 32 tile.
+// Shared memory of A: qs, gs (the query tile's rows, all heads), ks, vs
+// (a key tile's), bs (kRows x kBiasStride f32), with dbias each head's ds
+// tile (kRows x kBiasStride f32); of B: ks, vs (the key tile's), qs, gs (a
+// query tile's), bs, and the query tile's statistics of every head
+// (H x kRows float4).
+size_t smem_bytes_long_bf16(int heads, int dh, bool with_dbias) {
+  const size_t stride = row_stride(heads * dh * 2 / 16);
+  const size_t bias_tile = sizeof(float) * kRows * kBiasStride;
+  const size_t a = 4 * kRows * stride + bias_tile +
+                   (with_dbias ? (size_t)heads * bias_tile : 0);
+  const size_t b = 4 * kRows * stride + bias_tile +
+                   sizeof(float4) * (size_t)heads * kRows;
+  return a > b ? a : b;
+}
+
+// S = q k^T and dP = g v^T of one 16-query m-tile (rows r0, r0 + 8 of the
+// staged q and g) against the 32 keys of the staged k and v
+template <int DH>
+__device__ __forceinline__ void tile_products(float (&p)[4][4],
+                                              float (&dp)[4][4],
+                                              const uint8_t* qs,
+                                              const uint8_t* gs,
+                                              const uint8_t* ks,
+                                              const uint8_t* vs, int stride,
+                                              int r0, int col, int c4,
+                                              int gr) {
+  constexpr int KS = (DH + 15) / 16;
+  uint32_t qa[KS][4], ga[KS][4];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int o = r0 * stride + col + c4 + 32 * s;
+    qa[s][0] = lds32(qs + o);
+    qa[s][1] = lds32(qs + o + 8 * stride);
+    qa[s][2] = DH >= 16 ? lds32(qs + o + 16) : 0u;
+    qa[s][3] = DH >= 16 ? lds32(qs + o + 8 * stride + 16) : 0u;
+    ga[s][0] = lds32(gs + o);
+    ga[s][1] = lds32(gs + o + 8 * stride);
+    ga[s][2] = DH >= 16 ? lds32(gs + o + 16) : 0u;
+    ga[s][3] = DH >= 16 ? lds32(gs + o + 8 * stride + 16) : 0u;
+  }
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[nj][e] = dp[nj][e] = 0.f;
+    const int o = (8 * nj + gr) * stride + col + c4;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      mma16816(p[nj], qa[s], lds32(ks + o + 32 * s),
+               DH >= 16 ? lds32(ks + o + 32 * s + 16) : 0u);
+      mma16816(dp[nj], ga[s], lds32(vs + o + 32 * s),
+               DH >= 16 ? lds32(vs + o + 32 * s + 16) : 0u);
+    }
+  }
+}
+
+// Stage rows [r0, r0 + rows) of q and g (the block's whole rows) into qs,
+// gs, rows past `rows` zeroed.
+__device__ __forceinline__ void stage_pair(uint8_t* as, uint8_t* bs2,
+                                           const uint8_t* a,
+                                           const uint8_t* b, int row_bytes,
+                                           int stride, int rows, int tid,
+                                           int nt) {
+  const int chunks = row_bytes / 16;
+  stage_rows<2>({as, bs2}, stride, {a, b}, row_bytes, rows, chunks, tid, nt);
+  zero_rows<2>({as, bs2}, stride, rows, chunks, tid, nt);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kMaxHeads * 32)
+attention_bwd_dq_mma_long_kernel(const __nv_bfloat16* __restrict__ q,
+                                 const __nv_bfloat16* __restrict__ k,
+                                 const __nv_bfloat16* __restrict__ v,
+                                 const float* __restrict__ bias,
+                                 const __nv_bfloat16* __restrict__ g,
+                                 __nv_bfloat16* __restrict__ dq,
+                                 float* __restrict__ dbias,
+                                 float4* __restrict__ stats, int lq, int lk,
+                                 int heads, float inv_scale) {
+  constexpr int NT = DH / 8;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int row_bytes = heads * DH * 2;
+  const int stride = row_stride(row_bytes / 16);
+  uint8_t* qs = smem_raw;
+  uint8_t* gs = qs + kRows * stride;
+  uint8_t* ks = gs + kRows * stride;
+  uint8_t* vs = ks + kRows * stride;
+  float* bs = reinterpret_cast<float*>(vs + kRows * stride);
+  float* ds_tiles = bs + kRows * kBiasStride;  // with dbias
+
+  const long long n = blockIdx.x;
+  const int q0 = blockIdx.y * kRows;
+  const int ql = min(kRows, lq - q0);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const auto bytes = [](const __nv_bfloat16* t) {
+    return reinterpret_cast<const uint8_t*>(t);
+  };
+  const long long q_at = (n * lq + q0) * row_bytes;
+  stage_pair(qs, gs, bytes(q) + q_at, bytes(g) + q_at, row_bytes, stride, ql,
+             tid, nt);
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;
+  const int c4 = 4 * (lane & 3);
+  const int col = warp * DH * 2;
+  const int mq = ql > 16 ? 2 : 1;
+  float* ds_tile = ds_tiles + warp * kRows * kBiasStride;
+
+  float m[2][2], l[2][2], rowsum[2][2], dqa[2][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mi][r] = -INFINITY;
+      l[mi][r] = rowsum[mi][r] = 0.f;
+    }
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[mi][dn][e] = 0.f;
+  }
+
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < lk; k0 += kRows) {
+      const int kl = min(kRows, lk - k0);
+      const int mk = kl > 16 ? 2 : 1;
+      __syncthreads();  // the last tile's reads are done
+      const long long k_at = (n * lk + k0) * row_bytes;
+      stage_pair(ks, vs, bytes(k) + k_at, bytes(v) + k_at, row_bytes, stride,
+                 kl, tid, nt);
+      stage_bias_tile(bs, bias + (n * lq + q0) * lk + k0, ql, kl, lk, tid,
+                      nt);
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (mi >= mq) continue;
+        const int r0 = 16 * mi + gr;
+        float p[4][4], dp[4][4];
+        tile_products<DH>(p, dp, qs, gs, ks, vs, stride, r0, col, c4, gr);
+        float tmax[2];
+        tile_logits(p, bs, r0, c4 >> 1, kl, inv_scale, tmax);
+        if (pass == 0) {
+          float alpha[2], tl[2] = {0.f, 0.f}, tr[2] = {0.f, 0.f};
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float mn = fmaxf(m[mi][r], tmax[r]);
+            alpha[r] = expf(m[mi][r] - mn);
+            m[mi][r] = mn;
+          }
+#pragma unroll
+          for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float x = expf(p[nj][e] - m[mi][e >> 1]);
+              tl[e >> 1] += x;
+              tr[e >> 1] = fmaf(x, dp[nj][e], tr[e >> 1]);
+            }
+          quad_sum(tl);
+          quad_sum(tr);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            l[mi][r] = l[mi][r] * alpha[r] + tl[r];
+            rowsum[mi][r] = rowsum[mi][r] * alpha[r] + tr[r];
+          }
+          continue;
+        }
+        // pass 1: p, ds, dQ += dss k, and the f32 ds for dbias
+        const float rs[2] = {__frcp_rn(l[mi][0]), __frcp_rn(l[mi][1])};
+        uint32_t dsp[4][2];
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float x = div_rn(expf(p[nj][e] - m[mi][r]), l[mi][r], rs[r]);
+            dp[nj][e] = r0 + 8 * r < ql
+                            ? __fmul_rn(x, __fsub_rn(dp[nj][e], rowsum[mi][r]))
+                            : 0.f;
+          }
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            dsp[nj][half] =
+                pack_bf16(__fmul_rn(dp[nj][2 * half], inv_scale),
+                          __fmul_rn(dp[nj][2 * half + 1], inv_scale));
+        }
+        if (dbias != nullptr) {
+#pragma unroll
+          for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+              *reinterpret_cast<float2*>(ds_tile +
+                                         (r0 + 8 * half) * kBiasStride +
+                                         8 * nj + (c4 >> 1)) =
+                  make_float2(dp[nj][2 * half], dp[nj][2 * half + 1]);
+        }
+#pragma unroll
+        for (int dn = 0; dn < NT; ++dn)
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            if (kk >= mk) continue;
+            const uint32_t a[4] = {dsp[2 * kk][0], dsp[2 * kk][1],
+                                   dsp[2 * kk + 1][0], dsp[2 * kk + 1][1]};
+            uint32_t b0, b1;
+            ldsm_x2_trans(b0, b1, ks + (16 * kk + (lane & 15)) * stride +
+                                      col + 16 * dn);
+            mma16816(dqa[mi][dn], a, b0, b1);
+          }
+      }
+      if (pass == 1 && dbias != nullptr) {
+        __syncthreads();
+        float* dbn = dbias + (n * lq + q0) * lk + k0;
+        for (int e = tid; e < ql * kl; e += nt) {
+          const int i = e / kl;
+          const int o = i * kBiasStride + (e - i * kl);
+          float s = 0.f;
+          for (int hh = 0; hh < heads; ++hh)
+            s = __fadd_rn(s, ds_tiles[hh * kRows * kBiasStride + o]);
+          dbn[(long long)i * lk + (e - i * kl)] = s;
+        }
+      }
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          rowsum[mi][r] = __fdiv_rn(rowsum[mi][r], l[mi][r]);
+    }
+  }
+  // the statistics (one lane of each quad) and dq over this warp's columns
+  // of the staged q, read for the last time above
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    if (mi >= mq) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = 16 * mi + gr + 8 * r;
+      if ((lane & 3) == 0 && i < ql)
+        stats[(n * heads + warp) * lq + q0 + i] =
+            make_float4(m[mi][r], l[mi][r], rowsum[mi][r], 0.f);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn)
+      if (mi < mq)
+        store_c(qs + (16 * mi + gr) * stride + col + 16 * dn + c4, stride,
+                dqa[mi][dn]);
+  __syncthreads();
+  store_rows<1>({reinterpret_cast<uint8_t*>(dq) + q_at}, row_bytes, {qs},
+                stride, ql, row_bytes / 16, tid, nt);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kMaxHeads * 32)
+attention_bwd_dkv_mma_long_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k,
+                                  const __nv_bfloat16* __restrict__ v,
+                                  const float* __restrict__ bias,
+                                  const __nv_bfloat16* __restrict__ g,
+                                  __nv_bfloat16* __restrict__ dk,
+                                  __nv_bfloat16* __restrict__ dv,
+                                  const float4* __restrict__ stats, int lq,
+                                  int lk, int heads, float inv_scale) {
+  constexpr int NT = DH / 8;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int row_bytes = heads * DH * 2;
+  const int chunks = row_bytes / 16;
+  const int stride = row_stride(chunks);
+  uint8_t* ks = smem_raw;
+  uint8_t* vs = ks + kRows * stride;
+  uint8_t* qs = vs + kRows * stride;
+  uint8_t* gs = qs + kRows * stride;
+  float* bs = reinterpret_cast<float*>(gs + kRows * stride);
+  float4* st = reinterpret_cast<float4*>(bs + kRows * kBiasStride);
+
+  const long long n = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;
+  const int kl = min(kRows, lk - k0);
+  const int mk = kl > 16 ? 2 : 1;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const auto bytes = [](const __nv_bfloat16* t) {
+    return reinterpret_cast<const uint8_t*>(t);
+  };
+  const long long k_at = (n * lk + k0) * row_bytes;
+  stage_pair(ks, vs, bytes(k) + k_at, bytes(v) + k_at, row_bytes, stride, kl,
+             tid, nt);
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;
+  const int c4 = 4 * (lane & 3);
+  const int col = warp * DH * 2;
+
+  float dka[2][NT][4], dva[2][NT][4];
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[mm][dn][e] = dva[mm][dn][e] = 0.f;
+
+  for (int q0 = 0; q0 < lq; q0 += kRows) {
+    const int ql = min(kRows, lq - q0);
+    const int mq = ql > 16 ? 2 : 1;
+    __syncthreads();  // the last tile's reads are done
+    const long long q_at = (n * lq + q0) * row_bytes;
+    stage_pair(qs, gs, bytes(q) + q_at, bytes(g) + q_at, row_bytes, stride,
+               ql, tid, nt);
+    stage_bias_tile(bs, bias + (n * lq + q0) * lk + k0, ql, kl, lk, tid, nt);
+    for (int e = tid; e < heads * ql; e += nt) {
+      const int hh = e / ql;
+      const int r = e - hh * ql;
+      cp_async16(st + hh * kRows + r, stats + (n * heads + hh) * lq + q0 + r);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    uint32_t pcp[2][4][2], dsp[2][4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          pcp[mi][nj][half] = dsp[mi][nj][half] = 0u;
+      if (mi >= mq) continue;
+      const int r0 = 16 * mi + gr;
+      float p[4][4], dp[4][4];
+      tile_products<DH>(p, dp, qs, gs, ks, vs, stride, r0, col, c4, gr);
+      float tmax[2];
+      tile_logits(p, bs, r0, c4 >> 1, kl, inv_scale, tmax);
+      float4 sr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        sr[r] = r0 + 8 * r < ql ? st[warp * kRows + r0 + 8 * r]
+                                : make_float4(0.f, 1.f, 0.f, 0.f);
+      const float rs[2] = {__frcp_rn(sr[0].y), __frcp_rn(sr[1].y)};
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool in = r0 + 8 * r < ql;
+          const float x =
+              in ? div_rn(expf(p[nj][e] - sr[r].x), sr[r].y, rs[r]) : 0.f;
+          p[nj][e] = x;
+          dp[nj][e] = in ? __fmul_rn(x, __fsub_rn(dp[nj][e], sr[r].z)) : 0.f;
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          pcp[mi][nj][half] = pack_bf16(p[nj][2 * half], p[nj][2 * half + 1]);
+          dsp[mi][nj][half] =
+              pack_bf16(__fmul_rn(dp[nj][2 * half], inv_scale),
+                        __fmul_rn(dp[nj][2 * half + 1], inv_scale));
+        }
+      }
+    }
+    // dV += pc^T g and dK += dss^T q over this query tile
+    uint32_t at[2][2][4];
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const uint8_t* src = pass == 0 ? gs : qs;
+      if (pass == 0)
+        transpose_a(at, pcp);
+      else
+        transpose_a(at, dsp);
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm) {
+        if (mm >= mk) continue;
+#pragma unroll
+        for (int dn = 0; dn < NT; ++dn)
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            if (kk >= mq) continue;
+            uint32_t b0, b1;
+            ldsm_x2_trans(b0, b1, src + (16 * kk + (lane & 15)) * stride +
+                                      col + 16 * dn);
+            if (pass == 0)
+              mma16816(dva[mm][dn], at[mm][kk], b0, b1);
+            else
+              mma16816(dka[mm][dn], at[mm][kk], b0, b1);
+          }
+      }
+    }
+  }
+  // dv and dk over this warp's columns of the staged v and k, read for the
+  // last time above
+  __syncwarp();
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn)
+      if (mm < mk) {
+        const int o = (16 * mm + gr) * stride + col + 16 * dn + c4;
+        store_c(vs + o, stride, dva[mm][dn]);
+        store_c(ks + o, stride, dka[mm][dn]);
+      }
+  __syncthreads();
+  const auto out = [](__nv_bfloat16* t) {
+    return reinterpret_cast<uint8_t*>(t);
+  };
+  store_rows<2>({out(dk) + k_at, out(dv) + k_at}, row_bytes, {ks, vs},
+                stride, kl, chunks, tid, nt);
+}
+
 // ---- launch ----
 
 template <typename Kernel>
@@ -598,6 +1266,76 @@ int launch_dh(const void* q, const void* k, const void* v, const void* bias,
   return (int)cudaGetLastError();
 }
 
+template <bool kBf16, int DH>
+int launch_long_dh(const void* q, const void* k, const void* v,
+                   const void* bias, const void* g, void* dq, void* dk,
+                   void* dv, void* dbias, void* stats, int n, int lq, int lk,
+                   int heads, float inv_scale, cudaStream_t st) {
+  const dim3 grid_q(n, (lq + kRows - 1) / kRows);
+  const dim3 grid_k(n, (lk + kRows - 1) / kRows);
+  const int threads = heads * 32;
+  const bool with_dbias = dbias != nullptr;
+  int err;
+  if constexpr (kBf16) {
+    using T = __nv_bfloat16;
+    const size_t smem = smem_bytes_long_bf16(heads, DH, with_dbias);
+    if ((err = set_smem(attention_bwd_dq_mma_long_kernel<DH>, smem)) ||
+        (err = set_smem(attention_bwd_dkv_mma_long_kernel<DH>, smem)))
+      return err;
+    attention_bwd_dq_mma_long_kernel<DH><<<grid_q, threads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+        (const T*)g, (T*)dq, (float*)dbias, (float4*)stats, lq, lk, heads,
+        inv_scale);
+    if ((err = (int)cudaGetLastError())) return err;
+    attention_bwd_dkv_mma_long_kernel<DH><<<grid_k, threads, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+        (const T*)g, (T*)dk, (T*)dv, (const float4*)stats, lq, lk, heads,
+        inv_scale);
+  } else {
+    const size_t smem_a = smem_bytes_dq_long_f32(heads, DH, with_dbias);
+    const size_t smem_b = smem_bytes_dkv_long_f32(heads, DH);
+    if ((err = set_smem(attention_bwd_dq_long_kernel<DH>, smem_a)) ||
+        (err = set_smem(attention_bwd_dkv_long_kernel<DH>, smem_b)))
+      return err;
+    attention_bwd_dq_long_kernel<DH><<<grid_q, threads, smem_a, st>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)bias, (const float*)g, (float*)dq, (float*)dbias,
+        (float4*)stats, lq, lk, heads, inv_scale);
+    if ((err = (int)cudaGetLastError())) return err;
+    attention_bwd_dkv_long_kernel<DH><<<grid_k, threads, smem_b, st>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)bias, (const float*)g, (float*)dk, (float*)dv,
+        (const float4*)stats, lq, lk, heads, inv_scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kBf16>
+int launch_long(const void* q, const void* k, const void* v,
+                const void* bias, const void* g, void* dq, void* dk, void* dv,
+                void* dbias, void* stats, int n, int lq, int lk, int heads,
+                int dh, double scale, void* stream) {
+  if (n <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || heads > kMaxHeads)
+    return (int)cudaErrorInvalidValue;
+  const float inv_scale = (float)(1.0 / scale);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dh) {
+    case 8:
+      return launch_long_dh<kBf16, 8>(q, k, v, bias, g, dq, dk, dv, dbias,
+                                      stats, n, lq, lk, heads, inv_scale, st);
+    case 16:
+      return launch_long_dh<kBf16, 16>(q, k, v, bias, g, dq, dk, dv, dbias,
+                                       stats, n, lq, lk, heads, inv_scale,
+                                       st);
+    case 32:
+      return launch_long_dh<kBf16, 32>(q, k, v, bias, g, dq, dk, dv, dbias,
+                                       stats, n, lq, lk, heads, inv_scale,
+                                       st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* g, void* dq, void* dk, void* dv, void* dbias, int n,
@@ -632,11 +1370,17 @@ extern "C" {
 // dbias, a block of all heads).
 size_t deepsc_attention_bwd_smem_bytes_f32(int lq, int lk, int heads,
                                            int dh) {
+  if (lq > kRows || lk > kRows) {
+    const size_t a = smem_bytes_dq_long_f32(heads, dh, true);
+    const size_t b = smem_bytes_dkv_long_f32(heads, dh);
+    return a > b ? a : b;
+  }
   return smem_bytes_f32(lq, lk, heads, dh);
 }
 
 size_t deepsc_attention_bwd_smem_bytes_bf16(int lq, int lk, int heads,
                                             int dh) {
+  if (lq > kRows || lk > kRows) return smem_bytes_long_bf16(heads, dh, true);
   return smem_bytes_bf16(heads, dh, true);
 }
 
@@ -660,6 +1404,29 @@ int deepsc_attention_bwd_bf16(const void* q, const void* k, const void* v,
                               void* stream) {
   return launch<true>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq, lk, heads,
                       dh, scale, stream);
+}
+
+// Any Lq and Lk (the long-length kernels; the wrapper takes them past 32):
+// as above, and `stats` is the caller's f32 scratch (N, heads, Lq, 4),
+// 16-byte aligned.
+int deepsc_attention_bwd_long_f32(const void* q, const void* k,
+                                  const void* v, const void* bias,
+                                  const void* g, void* dq, void* dk, void* dv,
+                                  void* dbias, void* stats, int n, int lq,
+                                  int lk, int heads, int dh, double scale,
+                                  void* stream) {
+  return launch_long<false>(q, k, v, bias, g, dq, dk, dv, dbias, stats, n,
+                            lq, lk, heads, dh, scale, stream);
+}
+
+int deepsc_attention_bwd_long_bf16(const void* q, const void* k,
+                                   const void* v, const void* bias,
+                                   const void* g, void* dq, void* dk,
+                                   void* dv, void* dbias, void* stats, int n,
+                                   int lq, int lk, int heads, int dh,
+                                   double scale, void* stream) {
+  return launch_long<true>(q, k, v, bias, g, dq, dk, dv, dbias, stats, n, lq,
+                           lk, heads, dh, scale, stream);
 }
 
 }  // extern "C"

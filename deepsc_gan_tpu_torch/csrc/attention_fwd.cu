@@ -18,8 +18,11 @@
 // (9.7 MB): about 43 MB, 13 us at the H100 SXM's 3.35 TB/s, against about
 // 0.3 GFLOP (0.3 us at the bf16 tensor-core rate). Computed from the shapes.
 //
-// Design: one block per batch row, one warp per head. Lq, Lk <= 32, Dh in
-// {8, 16, 32} and H <= 16 (compile-time Dh). Each dtype has one kernel:
+// Design: one warp per head, Dh in {8, 16, 32} and H <= 16 (compile-time
+// Dh). Up to 32 queries and keys, one block per batch row and one kernel
+// per dtype, below; past 32 of either, the long-length kernels further
+// down (a block per tile of 32 queries, the keys streamed in tiles of 32
+// with an online softmax). For 32 or fewer each dtype has one kernel:
 // - bf16, tensor cores (mma.sync m16n8k16, f32 accumulators). The block
 //   copies the row's q, k and v (contiguous, 16-byte cp.async) and its bias
 //   tile (4-byte cp.async: a row of 31 x 31 floats seldom starts on 16
@@ -300,6 +303,292 @@ size_t smem_bytes_bf16(int heads, int dh) {
          sizeof(float) * kRows * kBiasStride;
 }
 
+// ---- any length: query tiles over the grid, key tiles streamed ----
+//
+// Past 32 queries or keys (either) the launch takes these kernels instead:
+// a block per (batch row, tile of 32 queries), a warp per head, the keys
+// streamed in tiles of 32 with an online softmax. A tile's logits are taken
+// as above; the row's running max m and sum l are updated (the context and
+// l rescaled by exp(m_old - m_new)) and the tile's exp(logit - m) times v
+// summed into the context, which is divided by l at the end. So the
+// probabilities are rounded to v's type before the division where the
+// plain version rounds them after it: within one rounding of each. Rows
+// and keys past the last tile's are masked (keys at -inf, their v rows
+// zero; queries are computed and not written).
+//
+// What bounds it: memory. At N = 64, Lq = Lk = 128, 8 heads of 16 (bf16)
+// a call must move 12.6 MB (q, k, v, out and the f32 bias), 0.0038 ms at
+// the H100 SXM's 3.35 TB/s, against 0.54 GFLOP. It takes 0.0165 ms of
+// device time on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), where
+// PyTorch's scaled_dot_product_attention takes 0.0219: each block stages a
+// key tile and waits for it before its products (the several blocks an
+// SM holds overlap one's loads with another's products), and each tile's
+// bias is read once per query tile.
+
+// f32: a lane per query of the tile (as the kernel above); smem: ks, vs
+// (kRows x H*Dh f32 each), bs (kRows x (kRows | 1)).
+template <int DH>
+__global__ void __launch_bounds__(kMaxHeads * 32)
+attention_fwd_long_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ bias,
+                          float* __restrict__ out, int lq, int lk, int heads,
+                          float inv_scale) {
+  extern __shared__ float smem[];
+  constexpr int kTile = mrow::kRows;
+  constexpr int bstride = kTile | 1;
+  const int hd = heads * DH;
+  float* ks = smem;
+  float* vs = ks + kTile * hd;
+  float* bs = vs + kTile * hd;
+
+  const long long n = blockIdx.x;
+  const int q0 = blockIdx.y * kTile;
+  const int ql = min(kTile, lq - q0);
+  const int h = threadIdx.x >> 5;
+  const int i = threadIdx.x & 31;
+  const bool valid = i < ql;
+  float qv[DH];
+  float ctx[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) ctx[d] = qv[d] = 0.f;
+  if (valid) {
+    const float* qi = q + (n * lq + q0 + i) * hd + h * DH;
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) load16(qi + d, qv + d);
+  }
+  float m = -INFINITY;
+  float l = 0.f;
+  for (int k0 = 0; k0 < lk; k0 += kTile) {
+    const int kl = min(kTile, lk - k0);
+    __syncthreads();  // the last tile's reads are done
+    const float* kn = k + (n * lk + k0) * hd;
+    const float* vn = v + (n * lk + k0) * hd;
+    for (int e = threadIdx.x * 4; e < kl * hd; e += blockDim.x * 4) {
+      load16(kn + e, ks + e);
+      load16(vn + e, vs + e);
+    }
+    const float* bn = bias + (n * lq + q0) * lk + k0;
+    for (int e = threadIdx.x; e < ql * kl; e += blockDim.x) {
+      const int r = e / kl;
+      const int c = e - r * kl;
+      bs[r * bstride + c] = bn[(long long)r * lk + c];
+    }
+    __syncthreads();
+    if (!valid) continue;
+    float s[kTile];
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      if (j < kl) {
+        const float* kj = ks + j * hd + h * DH;
+        float acc = 0.f;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) acc = fmaf(qv[d], kj[d], acc);
+        s[j] = __fadd_rn(__fmul_rn(acc, inv_scale), bs[i * bstride + j]);
+        tmax = fmaxf(tmax, s[j]);
+      }
+    }
+    const float mn = fmaxf(m, tmax);
+    const float alpha = expf(m - mn);
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) ctx[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      if (j < kl) {
+        const float e = expf(s[j] - mn);
+        l += e;
+        const float* vj = vs + j * hd + h * DH;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) ctx[d] = fmaf(e, vj[d], ctx[d]);
+      }
+    }
+    m = mn;
+  }
+  if (!valid) return;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) ctx[d] = __fdiv_rn(ctx[d], l);
+  float* oi = out + (n * lq + q0 + i) * hd + h * DH;
+#pragma unroll
+  for (int d = 0; d < DH; d += 4) store16(oi + d, ctx + d);
+}
+
+size_t smem_bytes_long_f32(int heads, int dh) {
+  return sizeof(float) * (2 * (size_t)kRows * heads * dh +
+                          (size_t)kRows * (kRows | 1));
+}
+
+// bf16: the tensor-core kernel above on a tile of 32 queries against key
+// tiles of 32; the query tile's fragments are read from shared memory at
+// each key tile.
+template <int DH>
+__global__ void __launch_bounds__(kMaxHeads * 32)
+attention_fwd_mma_long_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const float* __restrict__ bias,
+                              __nv_bfloat16* __restrict__ out, int lq,
+                              int lk, int heads, float inv_scale) {
+  constexpr int KS = (DH + 15) / 16;
+  constexpr int NT = DH / 8;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int row_bytes = heads * DH * 2;
+  const int chunks = row_bytes / 16;
+  const int stride = row_stride(chunks);
+  uint8_t* qs = smem_raw;
+  uint8_t* ks = qs + kRows * stride;
+  uint8_t* vs = ks + kRows * stride;
+  float* bs = reinterpret_cast<float*>(vs + kRows * stride);
+
+  const long long n = blockIdx.x;
+  const int q0 = blockIdx.y * kRows;
+  const int ql = min(kRows, lq - q0);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const uint8_t* qg =
+      reinterpret_cast<const uint8_t*>(q) + (n * lq + q0) * row_bytes;
+  stage_rows<1>({qs}, stride, {qg}, row_bytes, ql, chunks, tid, nt);
+  zero_rows<1>({qs}, stride, ql, chunks, tid, nt);
+
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c4 = 4 * (lane & 3);
+  const int col = (tid >> 5) * DH * 2;
+  const int mq = ql > 16 ? 2 : 1;
+
+  float o[2][NT][4];
+  float m[2][2], l[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mi][r] = -INFINITY;
+      l[mi][r] = 0.f;
+    }
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mi][dn][e] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < lk; k0 += kRows) {
+    const int kl = min(kRows, lk - k0);
+    __syncthreads();  // the last tile's reads are done
+    const uint8_t* kg =
+        reinterpret_cast<const uint8_t*>(k) + (n * lk + k0) * row_bytes;
+    const uint8_t* vg =
+        reinterpret_cast<const uint8_t*>(v) + (n * lk + k0) * row_bytes;
+    stage_rows<2>({ks, vs}, stride, {kg, vg}, row_bytes, kl, chunks, tid,
+                  nt);
+    stage_bias_tile(bs, bias + (n * lq + q0) * lk + k0, ql, kl, lk, tid, nt);
+    zero_rows<1>({vs}, stride, kl, chunks, tid, nt);
+    cp_async_wait_all();
+    __syncthreads();
+
+    uint32_t kb[4][KS][2];
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const uint8_t* kr = ks + (8 * nj + g) * stride + col + c4;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        kb[nj][s][0] = lds32(kr + 32 * s);
+        kb[nj][s][1] = DH >= 16 ? lds32(kr + 32 * s + 16) : 0u;
+      }
+    }
+    uint32_t vb[2][NT][2];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn)
+        ldsm_x2_trans(vb[kk][dn][0], vb[kk][dn][1],
+                      vs + (16 * kk + (lane & 15)) * stride + col + 16 * dn);
+
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      if (mi >= mq) continue;
+      const int r0 = 16 * mi + g;
+      const uint8_t* q0p = qs + r0 * stride + col + c4;
+      const uint8_t* q1p = q0p + 8 * stride;
+      uint32_t qa[KS][4];
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        qa[s][0] = lds32(q0p + 32 * s);
+        qa[s][1] = lds32(q1p + 32 * s);
+        qa[s][2] = DH >= 16 ? lds32(q0p + 32 * s + 16) : 0u;
+        qa[s][3] = DH >= 16 ? lds32(q1p + 32 * s + 16) : 0u;
+      }
+      float sc[4][4];
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nj][e] = 0.f;
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+          mma16816(sc[nj], qa[s], kb[nj][s][0], kb[nj][s][1]);
+      }
+      float tmax[2];
+      tile_logits(sc, bs, r0, c4 >> 1, kl, inv_scale, tmax);
+      float alpha[2], tsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[mi][r], tmax[r]);
+        alpha[r] = expf(m[mi][r] - mn);
+        m[mi][r] = mn;
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[nj][e] = expf(sc[nj][e] - m[mi][e >> 1]);
+          tsum[e >> 1] += sc[nj][e];
+        }
+      quad_sum(tsum);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[mi][r] = l[mi][r] * alpha[r] + tsum[r];
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float* x = sc[2 * kk + half];
+          pa[kk][2 * half] = pack_bf16(x[0], x[1]);
+          pa[kk][2 * half + 1] = pack_bf16(x[2], x[3]);
+        }
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mi][dn][e] *= alpha[e >> 1];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          mma16816(o[mi][dn], pa[kk], vb[kk][dn][0], vb[kk][dn][1]);
+      }
+    }
+  }
+  // the context / l over this warp's slice of the staged q (read for the
+  // last time above)
+  __syncwarp();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    if (mi >= mq) continue;
+    const int r0 = 16 * mi + g;
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn) {
+      uint8_t* p0 = qs + r0 * stride + col + 16 * dn + c4;
+      *reinterpret_cast<uint32_t*>(p0) =
+          pack_bf16(__fdiv_rn(o[mi][dn][0], l[mi][0]),
+                    __fdiv_rn(o[mi][dn][1], l[mi][0]));
+      *reinterpret_cast<uint32_t*>(p0 + 8 * stride) =
+          pack_bf16(__fdiv_rn(o[mi][dn][2], l[mi][1]),
+                    __fdiv_rn(o[mi][dn][3], l[mi][1]));
+    }
+  }
+  __syncthreads();
+  store_rows<1>({reinterpret_cast<uint8_t*>(out) + (n * lq + q0) * row_bytes},
+                row_bytes, {qs}, stride, ql, chunks, tid, nt);
+}
+
 // ---- launch ----
 
 template <typename Kernel>
@@ -313,6 +602,26 @@ template <bool kBf16, int DH>
 int launch_dh(const void* q, const void* k, const void* v, const void* bias,
               void* out, int n, int lq, int lk, int heads, float inv_scale,
               cudaStream_t st) {
+  if (lq > kRows || lk > kRows) {
+    const dim3 grid(n, (lq + kRows - 1) / kRows);
+    if constexpr (kBf16) {
+      const size_t smem = smem_bytes_bf16(heads, DH);
+      const int err = set_smem(attention_fwd_mma_long_kernel<DH>, smem);
+      if (err) return err;
+      attention_fwd_mma_long_kernel<DH><<<grid, heads * 32, smem, st>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+          (const __nv_bfloat16*)v, (const float*)bias, (__nv_bfloat16*)out,
+          lq, lk, heads, inv_scale);
+    } else {
+      const size_t smem = smem_bytes_long_f32(heads, DH);
+      const int err = set_smem(attention_fwd_long_kernel<DH>, smem);
+      if (err) return err;
+      attention_fwd_long_kernel<DH><<<grid, heads * 32, smem, st>>>(
+          (const float*)q, (const float*)k, (const float*)v,
+          (const float*)bias, (float*)out, lq, lk, heads, inv_scale);
+    }
+    return (int)cudaGetLastError();
+  }
   if constexpr (kBf16) {
     const size_t smem = smem_bytes_bf16(heads, DH);
     const int err = set_smem(attention_fwd_mma_kernel<DH>, smem);
@@ -336,8 +645,7 @@ template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int n, int lq, int lk, int heads, int dh, double scale,
            void* stream) {
-  if (n <= 0 || lq <= 0 || lq > 32 || lk <= 0 || lk > kMaxKeys ||
-      heads <= 0 || heads > kMaxHeads)
+  if (n <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || heads > kMaxHeads)
     return (int)cudaErrorInvalidValue;
   // 1/scale in double, then rounded once to f32: the TPU kernel's
   // `s * (1.0 / scale)` with a Python-float scale
@@ -366,6 +674,7 @@ extern "C" {
 // against the device's limit before launching).
 size_t deepsc_attention_fwd_smem_bytes_f32(int lq, int lk, int heads,
                                            int dh) {
+  if (lq > kRows || lk > kRows) return smem_bytes_long_f32(heads, dh);
   return smem_bytes_f32(lq, lk, heads, dh);
 }
 

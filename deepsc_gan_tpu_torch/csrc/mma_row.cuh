@@ -3,11 +3,12 @@
 // row staged into shared memory with cp.async, mma.sync m16n8k16 products
 // on its tiles, and the softmax of a row of logits on the accumulators.
 //
-// Staging. A batch row of q, k, v (and g) is (L, H*Dh) bf16, L <= 32. A
-// block copies the columns it needs of each row (16-byte cp.async chunks)
-// into a tile of kRows rows whose stride is the copied width plus 16 or 32
-// bytes, so that a row takes an odd number of 16-byte units: the eight
-// rows that a fragment load or an ldmatrix reads then fall in distinct
+// Staging. A batch row of q, k, v (and g) is (L, H*Dh) bf16. A block
+// copies the columns it needs of up to 32 rows (all of a row when L <= 32,
+// one 32-row tile of it in the long-length kernels; 16-byte cp.async
+// chunks) into a tile of kRows rows whose stride is the copied width plus
+// 16 or 32 bytes, so that a row takes an odd number of 16-byte units: the
+// eight rows that a fragment load or an ldmatrix reads then fall in distinct
 // banks. The f32 bias tile (Lq, Lk) goes in with 4-byte cp.async (a row of
 // 31 x 31 floats seldom starts on 16 bytes) at kBiasStride floats a row.
 //
@@ -28,7 +29,7 @@
 
 namespace mrow {
 
-constexpr int kRows = 32;        // staged rows of a tile (Lq, Lk <= 32)
+constexpr int kRows = 32;        // staged rows of a tile (queries or keys)
 constexpr int kBiasStride = 40;  // floats per staged bias row
 
 // bytes between staged rows of `chunks` 16-byte chunks: an odd number of
@@ -102,6 +103,18 @@ __device__ __forceinline__ void stage_bias(float* bs, const float* bg,
   for (int e = tid; e < lq * lk; e += nt) {
     const int i = e / lk;
     cp_async4(bs + i * kBiasStride + (e - i * lk), bg + e);
+  }
+}
+
+// a (rows, cols) window of an f32 bias whose rows are `ld` floats apart ->
+// rows kBiasStride floats apart (the long-length kernels' 32 x 32 tiles)
+__device__ __forceinline__ void stage_bias_tile(float* bs, const float* bg,
+                                                int rows, int cols, int ld,
+                                                int tid, int nt) {
+  for (int e = tid; e < rows * cols; e += nt) {
+    const int i = e / cols;
+    const int j = e - i * cols;
+    cp_async4(bs + i * kBiasStride + j, bg + (long long)i * ld + j);
   }
 }
 
@@ -219,6 +232,43 @@ __device__ __forceinline__ void softmax_exp(float (&sc)[4][4], const float* bs,
   for (int r = 0; r < 2; ++r) {
     sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
     sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+}
+
+// The logits of one 16-row tile of a 32-key tile on its accumulators (as
+// softmax_exp: (q . k) * (1/scale), then + bias, keys past kl at -inf), in
+// place; tmax[r] gets the tile's max of rows r0 + 8 r over the quad. The
+// long-length kernels' online softmax starts from these.
+__device__ __forceinline__ void tile_logits(float (&sc)[4][4], const float* bs,
+                                            int r0, int c2, int kl,
+                                            float inv_scale,
+                                            float (&tmax)[2]) {
+  tmax[0] = tmax[1] = -INFINITY;
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + 8 * (e >> 1);
+      const int j = 8 * nj + c2 + (e & 1);
+      const float x = j < kl ? __fadd_rn(__fmul_rn(sc[nj][e], inv_scale),
+                                         bs[i * kBiasStride + j])
+                             : -INFINITY;
+      sc[nj][e] = x;
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+  }
+}
+
+// the sum over the quad of a value of rows r0 and r0 + 8
+__device__ __forceinline__ void quad_sum(float (&x)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    x[r] += __shfl_xor_sync(0xffffffffu, x[r], 1);
+    x[r] += __shfl_xor_sync(0xffffffffu, x[r], 2);
   }
 }
 

@@ -31,7 +31,8 @@ def snr_sweep_bleu(
     decode_extra_args: tuple = (),
 ) -> List[List[float]]:
     """-> [[snr, mean BLEU], ...]: one `decode_fn(inp, pnr_db, n_std,
-    noise, fade, *decode_extra_args)` call per (SNR, batch)
+    noise, fade, *decode_extra_args)` call per (SNR, batch), which returns
+    the ids or a tuple led by them
     (evaluate.beam.make_beam_decode_kv, say), SNR-major, the channel noise
     (B, L, channel_dim) and the fade of a fading channel drawn from
     `generator` before each call (`draw_channel`; with `draws` > 1 that many
@@ -51,8 +52,10 @@ def snr_sweep_bleu(
             noise, fade = draw_channel(
                 generator, (inp_t.shape[0], inp_t.shape[1], cfg.channel_dim),
                 cfg.channel, cfg.fading_per_sample, lead)
-            ids = decode_fn(inp_t, pnr_db, n_std, noise, fade,
-                            *decode_extra_args).cpu().numpy()
+            out = decode_fn(inp_t, pnr_db, n_std, noise, fade,
+                            *decode_extra_args)
+            # greedy_gan's (ids, noa): the ids are scored
+            ids = (out[0] if isinstance(out, tuple) else out).cpu().numpy()
             hyp = [s2t.sequence_to_text(row[1:]) for row in ids]
             ref = [s2t.sequence_to_text(row[1:]) for row in np.asarray(inp)]
             scores.extend(scorer.compute_score(ref, hyp))

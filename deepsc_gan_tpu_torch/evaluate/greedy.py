@@ -23,7 +23,8 @@ does not depend on the noise level, so it runs once on the B input rows
 `single_level` and `noise_sweep` wrap a decoder loop (this module's, the
 KV decoder's, beam search's) into the one-level and the sweep entry points.
 `make_greedy_decode_attack` decodes at one noise level through a channel
-that carries an FGM perturbation.
+that carries an FGM perturbation; `make_greedy_decode_gan` does the same
+and also returns the teacher-forced clean argmax.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from deepsc_gan_tpu_torch.ops.masks import (
     create_masks,
     create_padding_mask,
 )
-from deepsc_gan_tpu_torch.train.attacks import fgm_perturbation
+from deepsc_gan_tpu_torch.train.attacks import fgm_normalize
 from deepsc_gan_tpu_torch.train.steps import logits_loss_of_y
 from deepsc_gan_tpu_torch.utils.config import Config
 
@@ -151,6 +152,24 @@ def make_greedy_decode_attack(model, cfg: Config,
     (2, B, L, channel_dim), and for a fading channel fade (2, 2) or
     (2, B, 1, 2)."""
 
+    return _fgm_decode(model, cfg, position_mode, full_target, False)
+
+
+def make_greedy_decode_gan(model, cfg: Config, position_mode: str = "step",
+                           full_target: bool = False) -> Callable:
+    """The GAN model's greedy decode (the reference's `greedy_decode_gan`;
+    JAX `make_greedy_decode_gan`): `make_greedy_decode_attack`'s decode,
+    the gradient taken on the clean reception of channel draw 1, which also
+    gives `noa`, the teacher-forced clean argmax ((B, L - 1) int32; (B, L)
+    with `full_target`, the star decoders, which decode in one shot). ->
+    `decode(inp, pnr_db, n_std, noise, fade=None, epsilon=1.0) -> (ids,
+    noa)`, the draws stacked as for `make_greedy_decode_attack`."""
+    return _fgm_decode(model, cfg, position_mode, full_target, True)
+
+
+def _fgm_decode(model, cfg: Config, position_mode: str, full_target: bool,
+                with_noa: bool) -> Callable:
+
     @torch.no_grad()
     def decode(inp, pnr_db, n_std, noise, fade=None, epsilon=1.0):
         f1, f2 = (None, None) if fade is None else (fade[0], fade[1])
@@ -161,11 +180,18 @@ def make_greedy_decode_attack(model, cfg: Config,
         scored = logits_loss_of_y(model, cfg, tar_inp, tar_real,
                                   combined_mask, dec_mask)
         tx = model.encode(inp, enc_padding_mask)
-        y1 = model.transmit(tx, noise[0], n_std, None, pnr_db, fade=f1)
-        pert, _ = fgm_perturbation(lambda y: scored(y)[0], y1, epsilon)
-        y = model.transmit(tx, noise[1], n_std, pert, pnr_db, fade=f2)
-        return _decode_loop(model, model.channel_decode(y), enc_padding_mask,
-                            cfg.max_length, cfg.start_idx, cfg.pad_idx,
-                            position_mode)
+        y1 = model.transmit(tx, noise[0], n_std, None, pnr_db,
+                            fade=f1).requires_grad_(True)
+        with torch.enable_grad():
+            loss, logits = scored(y1)
+            (g,) = torch.autograd.grad(loss, y1)
+        y = model.transmit(tx, noise[1], n_std, fgm_normalize(g, epsilon),
+                           pnr_db, fade=f2)
+        ids = _decode_loop(model, model.channel_decode(y), enc_padding_mask,
+                           cfg.max_length, cfg.start_idx, cfg.pad_idx,
+                           position_mode)
+        if not with_noa:
+            return ids
+        return ids, torch.argmax(logits, dim=-1).to(torch.int32)
 
     return decode

@@ -121,10 +121,11 @@ def draw_channel(generator: torch.Generator, shape, kind: str = "AWGN",
     return noise, torch.randn(lead + fade, **f32)
 
 
-def power_normalize(x: torch.Tensor) -> torch.Tensor:
+def power_normalize(x: torch.Tensor, half: bool = False) -> torch.Tensor:
     """x / sqrt(mean(x^2)): unit average power over the WHOLE tensor
-    (every row of the batch shares one normalizer)."""
-    return x / torch.sqrt(torch.mean(torch.square(x)))
+    (every row of the batch shares one normalizer); with `half`,
+    x / sqrt(2 mean(x^2)), half unit power (the GAN generator's)."""
+    return x / torch.sqrt((2.0 if half else 1.0) * torch.mean(torch.square(x)))
 
 
 class ChannelEncoder(nn.Module):

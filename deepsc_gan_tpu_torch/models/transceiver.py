@@ -1,7 +1,10 @@
-"""The DeepSC transceivers (JAX package `models/transceiver.py:44-187`):
+"""The DeepSC transceivers (JAX package `models/transceiver.py:44-300`):
 the vanilla Transformer codec (`Transceiver`), the single-block star codec
-(`TransceiverStar`, SE/SD) and the multi-layer one (`TransceiverStarMulti`,
-SEncoder/SDecoder), each with the dense channel codec, as stages: `encode`
+(`TransceiverStar`, SE/SD), the multi-layer one (`TransceiverStarMulti`,
+SEncoder/SDecoder), and the GAN transceivers around the vanilla and the
+single-block star codec (`TransceiverGAN`, `TransceiverGANStar`: the codec
+plus a perturbation `generator`, and a forward that runs the channel twice),
+each with the dense channel codec, as stages: `encode`
 (tokens -> power-normalized channel symbols), `transmit` (symbols ->
 received symbols through the channel), `channel_decode` (received symbols
 -> decoder memory), `_semantic_decode`, `final_projection`, and for
@@ -23,11 +26,17 @@ from deepsc_gan_tpu_torch.models.channel import (
     ChannelEncoder,
     channel,
 )
+from deepsc_gan_tpu_torch.models.gan import Generator
 from deepsc_gan_tpu_torch.models.star import SD, SE, SDecoder, SEncoder
 from deepsc_gan_tpu_torch.models.transformer import Decoder, Encoder, Gen
 from deepsc_gan_tpu_torch.ops.attention_kernel import fused_attention
 from deepsc_gan_tpu_torch.ops.star_kernel import satellite_attention
-from deepsc_gan_tpu_torch.utils.config import Config, torch_dtype
+from deepsc_gan_tpu_torch.utils.config import (
+    VARIANTS,
+    Config,
+    is_star,
+    torch_dtype,
+)
 
 
 class _TransceiverBase(nn.Module):
@@ -140,19 +149,65 @@ class TransceiverStar(_TransceiverBase):
             satellite=satellite))
 
 
-VARIANTS = ("transformer", "star", "star_multi")
+class _GAN:
+    """The GAN transceivers' part (JAX `TransceiverGAN`): a perturbation
+    `generator` beside the codec, and a forward that transmits tx twice."""
+
+    def __init__(self, cfg: Config, *args):
+        super().__init__(cfg, *args)
+        self.generator = Generator(cfg.channel_dim, cfg.channel_hidden,
+                                   cfg.channel_dim, torch_dtype(cfg.dtype))
+
+    def generate_perturbation(self, tx):
+        return self.generator(tx)
+
+    def forward(self, inp, tar_inp, noise_p, noise_r, n_std,
+                p: Optional[torch.Tensor] = None, pnr_db: float = 0.0,
+                enc_padding_mask=None, combined_mask=None,
+                dec_padding_mask=None, gen: Gen = None,
+                traingan: bool = False, fade_p=None, fade_r=None,
+                apply_final: bool = True):
+        """-> (pred_p, pred_r, tx, y_r): tx through the channel twice, with
+        the perturbation (`p`, or the generator's G(tx) when `traingan`) at
+        `pnr_db` on the draws `noise_p`/`fade_p`, and clean on
+        `noise_r`/`fade_r`; both receptions decoded (logits in f32, or with
+        `apply_final` False the decoder's hidden states, as
+        `decode_loss_ready`). Dropout masks come from `gen` in the order
+        encoder, branch p, branch r."""
+        tx = self.encode(inp, enc_padding_mask, gen)
+        if traingan:
+            p = self.generator(tx)
+        y_p = self.transmit(tx, noise_p, n_std, p, pnr_db, fade=fade_p)
+        y_r = self.transmit(tx, noise_r, n_std, None, pnr_db, fade=fade_r)
+        pred_p = self.decode(tar_inp, y_p, combined_mask, dec_padding_mask,
+                             gen, apply_final)
+        pred_r = self.decode(tar_inp, y_r, combined_mask, dec_padding_mask,
+                             gen, apply_final)
+        return pred_p, pred_r, tx, y_r
+
+
+class TransceiverGAN(_GAN, Transceiver):
+    """The vanilla GAN transceiver (reference `Transeiver_GAN`)."""
+
+
+class TransceiverGANStar(_GAN, TransceiverStar):
+    """The GAN transceiver around the single-block star codec (the JAX
+    package's extension); its decoder outputs at the memory's length, so
+    it trains on the un-shifted target."""
+
+
+_CLASSES = {"transformer": Transceiver, "star": TransceiverStar,
+            "star_multi": TransceiverStarMulti, "gan": TransceiverGAN,
+            "gan_star": TransceiverGANStar}
 
 
 def make_model(cfg: Config, variant: str = "transformer",
                attention: Callable = fused_attention,
                satellite: Callable = satellite_attention) -> _TransceiverBase:
-    """The transceiver of `variant`: the vanilla one with `attention`, a
+    """The transceiver of `variant`: a vanilla codec with `attention`, a
     star one with `satellite`."""
-    if variant == "transformer":
-        return Transceiver(cfg, attention)
-    if variant == "star":
-        return TransceiverStar(cfg, satellite)
-    if variant == "star_multi":
-        return TransceiverStarMulti(cfg, satellite)
-    raise ValueError(f"variant {variant!r} is not ported yet; the port has "
-                     f"{', '.join(VARIANTS)}")
+    if variant not in _CLASSES:
+        raise ValueError(f"unknown variant {variant!r}; the port has "
+                         f"{', '.join(VARIANTS)}")
+    return _CLASSES[variant](cfg, satellite if is_star(variant)
+                             else attention)

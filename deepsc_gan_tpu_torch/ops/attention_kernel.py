@@ -26,14 +26,18 @@ from deepsc_gan_tpu_torch.ops import build
 KERNEL = "attention_fwd"
 KERNEL_BWD = "attention_bwd"
 # what the kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu): a
-# warp per head, at most 32 queries and keys. bf16: the row's q, k, v (and
-# g) staged as bf16 in two 16-row mma m-tiles of queries and of keys; the
-# forward's block holds a batch row's heads, the backward's four of them
-# (all when dbias is asked for). f32: a lane per query (and per key in the
-# backward), a block per batch row.
+# warp per head, any number of queries and keys. Up to TILE of both: a
+# block per batch row; bf16: the row's q, k, v (and g) staged as bf16 in
+# two 16-row mma m-tiles of queries and of keys, the forward's block
+# holding a batch row's heads, the backward's four of them (all when dbias
+# is asked for); f32: a lane per query (and per key in the backward).
+# Past TILE of either: the long-length kernels, a block per tile of TILE
+# queries with the keys streamed in tiles of TILE (online softmax), and a
+# backward in two kernels (dq and dbias per query tile, then dk and dv per
+# key tile) that pass the softmax statistics through a scratch tensor.
 HEAD_DIMS = (8, 16, 32)
-MAX_LEN = 32
 MAX_HEADS = 16
+TILE = 32
 
 # Launches of the forward (K1) and backward (K2) kernels since the last
 # reset (each wrapper adds one per launch and nowhere else); read by
@@ -99,6 +103,8 @@ def attention_bwd_reference(q, k, v, bias, g, heads: int, scale: float,
 
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# pointer arguments of each launch function: q, k, v, bias (, g) and the
+# outputs (the long-length backward's entry also takes its scratch)
 _POINTERS = {KERNEL: 5, KERNEL_BWD: 9}
 # the shared-memory size function of each library and dtype
 _SMEM = {KERNEL: "deepsc_attention_fwd_smem_bytes_{}",
@@ -106,21 +112,31 @@ _SMEM = {KERNEL: "deepsc_attention_fwd_smem_bytes_{}",
 _BOUND = {}
 
 
-def _bind(kernel, dtype):
+def is_long(lq: int, lk: int) -> bool:
+    """Whether the long-length kernels take Lq x Lk (past TILE of
+    either)."""
+    return lq > TILE or lk > TILE
+
+
+def _bind(kernel, dtype, long_bwd=False):
     """(launch function, shared-memory size function) of the built
-    library of `kernel`, with their ctypes signatures declared."""
-    if (kernel, dtype) not in _BOUND:
+    library of `kernel` (with `long_bwd`, the backward's long-length entry,
+    which also takes the statistics scratch), with their ctypes signatures
+    declared."""
+    key = (kernel, dtype, long_bwd)
+    if key not in _BOUND:
         lib = build.load(kernel)
-        fn = getattr(lib, f"deepsc_{kernel}_{_SUFFIX[dtype]}")
-        fn.argtypes = ([ctypes.c_void_p] * _POINTERS[kernel]
+        entry = f"deepsc_{kernel}_long" if long_bwd else f"deepsc_{kernel}"
+        fn = getattr(lib, f"{entry}_{_SUFFIX[dtype]}")
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[kernel] + long_bwd)
                        + [ctypes.c_int] * 5
                        + [ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         smem = getattr(lib, _SMEM[kernel].format(_SUFFIX[dtype]))
         smem.argtypes = [ctypes.c_int] * 4
         smem.restype = ctypes.c_size_t
-        _BOUND[(kernel, dtype)] = (fn, smem)
-    return _BOUND[(kernel, dtype)]
+        _BOUND[key] = (fn, smem)
+    return _BOUND[key]
 
 
 def _check(q, k, v, bias, heads):
@@ -145,9 +161,6 @@ def _check(q, k, v, bias, heads):
         raise ValueError(f"{heads} heads of width {hd // heads}: the kernel "
                          f"takes widths {HEAD_DIMS}, at most {MAX_HEADS} "
                          f"heads")
-    if lq > MAX_LEN or lk > MAX_LEN:
-        raise ValueError(f"Lq {lq}, Lk {lk}: the kernel takes at most "
-                         f"{MAX_LEN}")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -180,7 +193,8 @@ def smem_bytes(kernel, dtype, lq: int, lk: int, heads: int,
 
 def _smem(kernel, q, k, heads):
     n, lq, hd = q.shape
-    fn = _bind(kernel, q.dtype)[0]
+    fn = _bind(kernel, q.dtype,
+               kernel == KERNEL_BWD and is_long(lq, k.shape[1]))[0]
     smem = smem_bytes(kernel, q.dtype, lq, k.shape[1], heads, hd // heads)
     limit = torch.cuda.get_device_properties(q.device) \
         .shared_memory_per_block_optin
@@ -225,13 +239,19 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
         raise ValueError("g must be contiguous and 16-byte aligned")
     fn = _smem(KERNEL_BWD, q, k, heads)
     n, lq, hd = q.shape
+    lk = k.shape[1]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dbias = torch.empty_like(bias) if need_dbias else None
+    # the long-length kernels' softmax statistics (m, l, rowsum(dp p), pad)
+    # per (row, head, query), written by the dq kernel, read by the dk/dv one
+    stats = [torch.empty((n, heads, lq, 4), dtype=torch.float32,
+                         device=q.device)] if is_long(lq, lk) else []
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
              g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             None if dbias is None else dbias.data_ptr(), n, lq, k.shape[1],
-             heads, hd // heads, float(scale), stream)
+             None if dbias is None else dbias.data_ptr(),
+             *(t.data_ptr() for t in stats), n, lq, lk, heads, hd // heads,
+             float(scale), stream)
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA "
                            f"error {err}")

@@ -6,20 +6,24 @@ CUDA; nothing falls back to a plain version), while the JAX package's
 Pallas kernels refuse none. So `cli train` and `cli evaluate` ask
 `check_envelope` first and stop with a message that names the flag, rather
 than mid-run after the weights are loaded. The envelopes are the ones the
-kernel modules export (`attention_kernel.HEAD_DIMS`, `MAX_LEN`,
-`MAX_HEADS`; `ce_kernel.MAX_D`, `D_STEP`; `topk_kernel.MAX_K`, `D_STEP`;
+kernel modules export (`attention_kernel.HEAD_DIMS`, `MAX_HEADS`;
+`ce_kernel.MAX_D`, `D_STEP`; `topk_kernel.MAX_K`, `D_STEP`;
 `star_kernel.takes_width`), and the f32 K2's shared memory is the one its
-built library computes (`attention_kernel.smem_bytes`). On the CPU the
-plain versions take any shape and nothing is refused.
+built library computes (`attention_kernel.smem_bytes`). K1 and K2 take any
+number of queries and keys (past 32, their long-length kernels), so no
+length is refused. On the CPU the plain versions take any shape and
+nothing is refused.
 
 Which kernels run, by variant and mode:
-- vanilla: K1 in every attention of the encoder (seq_len keys) and of a
-  full-prefix decoder (teacher-forced: seq_len - 1 queries; decoding:
-  max_length + 1; the KV decoders' steps are plain PyTorch); K2 wherever a
-  backward runs (training: every attention; the attack evaluations: the
-  decoder's); K3 and K4 in training with cfg.fused_ce; K6 in beam search;
-- star: K5 in every satellite update of the encoder and the decoder; K3
-  and K4 in training.
+- vanilla (`transformer`, `gan`): K1 in every attention of the encoder
+  (seq_len keys) and of a full-prefix decoder (teacher-forced: seq_len - 1
+  queries; decoding: max_length + 1; the KV decoders' steps are plain
+  PyTorch); K2 wherever a backward runs (training, plain, attack or GAN:
+  every attention; the attack evaluations, `greedy_gan` and the GAN
+  teacher-forced step: the decoder's); K3 and K4 in training with
+  cfg.fused_ce; K6 in beam search;
+- star (`star`, `star_multi`, `gan_star`): K5 in every satellite update of
+  the encoder and the decoder; K3 and K4 in training.
 This list is kept by hand beside the paths: were it to miss a kernel, the
 run would still stop at that kernel's wrapper (which raises on a shape it
 does not take), only later.
@@ -35,10 +39,10 @@ from deepsc_gan_tpu_torch.ops import attention_kernel as attn
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
 from deepsc_gan_tpu_torch.ops import star_kernel as star
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk
-from deepsc_gan_tpu_torch.utils.config import Config, torch_dtype
+from deepsc_gan_tpu_torch.utils.config import Config, is_star, torch_dtype
 
 # the eval modes whose attack gradient runs a backward through the decoder
-ATTACK_MODES = ("greedy_attack", "teacher_forced", "pgd")
+ATTACK_MODES = ("greedy_attack", "greedy_gan", "teacher_forced", "pgd")
 
 
 def _attention_errors(side: str, d_model: int, heads: int, calls,
@@ -55,11 +59,7 @@ def _attention_errors(side: str, d_model: int, heads: int, calls,
         errors.append(f"--{side}-num-heads {heads}: K1/K2 take at most "
                       f"{attn.MAX_HEADS} heads")
     for lq, lk, flag in calls:
-        if max(lq, lk) > attn.MAX_LEN:
-            errors.append(f"{flag}: the {side}'s attention would run "
-                          f"{lq} queries over {lk} keys; K1/K2 take at most "
-                          f"{attn.MAX_LEN}")
-        elif backward and dtype == torch.float32 and not errors:
+        if backward and dtype == torch.float32 and not errors:
             need = attn.smem_bytes(attn.KERNEL_BWD, torch.float32, lq,
                                    lk, heads, dh)
             limit = smem_limit()
@@ -95,7 +95,7 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
 
     train = eval_mode is None
     errors = []
-    if variant.startswith("star"):
+    if is_star(variant):
         for side, d, heads in (("encoder", cfg.encoder_d_model,
                                 cfg.encoder_num_heads),
                                ("decoder", cfg.decoder_d_model,
@@ -117,7 +117,7 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
             calls += [(t, t, seq), (t, cfg.seq_len, seq)]
         full_prefix = (eval_mode == "greedy" and not kv_cache) or (
             eval_mode == "beam" and beam_impl == "full") \
-            or eval_mode == "greedy_attack"
+            or eval_mode in ("greedy_attack", "greedy_gan")
         if full_prefix:
             t = cfg.max_length + 1
             flag = f"--max-length {cfg.max_length}"

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from deepsc_gan_tpu_torch.models.channel import draw_channel
+from deepsc_gan_tpu_torch.models.gan import Conv1dSame
 from deepsc_gan_tpu_torch.ops.fused_ce import fused_ce_loss
 from deepsc_gan_tpu_torch.ops.losses import loss_function
 from deepsc_gan_tpu_torch.ops.masks import create_masks
@@ -80,13 +81,14 @@ def eval_params(state: TrainState) -> Dict[str, torch.Tensor]:
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Flax's default initialisers, drawn on the CPU from `seed`: Dense
-    weights lecun_normal (truncated normal, std 1/sqrt(fan_in)), biases 0,
-    LayerNorm scale 1 and bias 0, embedding tables N(0, 1/d_model) (a tied
-    decoder's final bias is created at 0)."""
+    and conv weights lecun_normal (truncated normal, std 1/sqrt(fan_in)),
+    biases 0, LayerNorm scale 1 and bias 0, embedding tables
+    N(0, 1/d_model) (a tied decoder's final bias is created at 0)."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, nn.Linear):
-            std = 1.0 / math.sqrt(m.in_features) / _TRUNC_STD
+        if isinstance(m, (nn.Linear, Conv1dSame)):
+            fan_in = m.weight[0].numel()
+            std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
             w = torch.empty(m.weight.shape)
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                   generator=gen)

@@ -1,5 +1,5 @@
 """Configuration of the port: the fields of the JAX package's `Config`
-that the serving paths, the plain and attack training paths and the
+that the serving paths, the plain, attack and GAN training paths and the
 channels read, with the same names and defaults, and the padded length of
 each model variant.
 
@@ -89,6 +89,13 @@ class Config:
     # the saved params use the shadow when on
     ema_decay: float = 0.0
 
+    # --- GAN 3-phase training (train/gan_steps.py): d_loss = lambda CE_r +
+    #     (1 - lambda) CE_p; the perturbed branch at gan_pnr_db; g_loss =
+    #     g_loss_ceiling - CE_p
+    gan_lambda: float = 0.5
+    gan_pnr_db: float = 40.0
+    g_loss_ceiling: float = 10.0
+
     # --- schedule: "constant" | "noam" | "cosine" (ops/schedule.py)
     schedule: str = "constant"
     warmup_steps: int = 4000
@@ -103,6 +110,23 @@ class Config:
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+VARIANTS = ("transformer", "star", "star_multi", "gan", "gan_star")
+STAR_VARIANTS = ("star", "star_multi", "gan_star")
+GAN_VARIANTS = ("gan", "gan_star")
+
+
+def is_star(variant: str) -> bool:
+    """Whether `variant` has a star codec (the JAX CLI's `STAR_VARIANTS`):
+    its seq_len, one-shot decoding and un-shifted target."""
+    return variant in STAR_VARIANTS
+
+
+def is_gan(variant: str) -> bool:
+    """Whether `variant` is a GAN transceiver (a generator beside its
+    codec)."""
+    return variant in GAN_VARIANTS
 
 
 def default_seq_len(variant: str) -> int:

@@ -13,7 +13,10 @@ Layouts (JAX package `ops/attention.py`, `models/transformer.py`,
 - flax's `layer{i}` is the port's `layers.{i}` (the single-block star
   codec's `block` keeps its name);
 - a tied decoder has `final_bias` (and projects with the embedding table),
-  an untied one a `final_layer` Dense.
+  an untied one a `final_layer` Dense;
+- the GAN transceivers' `generator` is two Denses (`fc0`, `fc1`); the CNN
+  variants' `cnn*` conv kernels (width, in, out) are weights (out, in,
+  width), and their sequence LayerNorm `norm` keeps `scale` as `weight`.
 
 The committed `results/*_params.pkl` files are `{"params": tree, "recipe":
 {...}}` with numpy leaves, and load with numpy alone.
@@ -82,6 +85,8 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         if path[-1] == "kernel":
             if path[-2] in _ATTN_IN:      # (D, H, Dh) -> (H*Dh, D)
                 a = a.reshape(a.shape[0], -1).T
+            elif path[-2].startswith("cnn"):  # (W, in, out) -> (out, in, W)
+                a = a.transpose(2, 1, 0)
             elif a.ndim == 3:             # out: (H, Dh, D) -> (D, H*Dh)
                 a = a.reshape(-1, a.shape[-1]).T
             else:                         # Dense (in, out) -> (out, in)
@@ -112,7 +117,8 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor], cfg: Config) -> dict:
                     p = f"layer{p}"
                 path.append(p)
             if path[-1] == "weight":
-                is_ln = path[-2].startswith(("ln", "layernorm"))
+                is_ln = path[-2].startswith(("ln", "layernorm")) \
+                    or path[-2] == "norm"
                 path[-1] = "scale" if is_ln else "kernel"
         if path[-1] == "kernel":
             heads = (cfg.encoder_num_heads
@@ -120,6 +126,8 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor], cfg: Config) -> dict:
                      else cfg.decoder_num_heads)
             if path[-2] in _ATTN_IN:      # (H*Dh, D) -> (D, H, Dh)
                 a = a.T.reshape(a.shape[1], heads, -1)
+            elif path[-2].startswith("cnn"):  # (out, in, W) -> (W, in, out)
+                a = a.transpose(2, 1, 0)
             elif path[-2] == "out" and name.rsplit(".", 2)[0] \
                     in attn_modules:      # (D, H*Dh) -> (H, Dh, D)
                 a = a.T.reshape(heads, -1, a.shape[0])

@@ -159,8 +159,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q, k, v, bias, h = _ok_args(h=2, dh=64)
     elif bad == "heads":
         q, k, v, bias, h = _ok_args(h=32, dh=8)
-    elif bad == "length":
-        q, k, v, bias, h = _ok_args(lk=33)
+    elif bad == "length":  # k and v of different lengths
+        v = v[:, :-1].contiguous()
     elif bad == "contiguous":
         k = k.transpose(0, 1).contiguous().transpose(0, 1)
     elif bad == "aligned":
@@ -169,6 +169,15 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         bias = bias[:, :, :-1].contiguous()
     with pytest.raises((TypeError, ValueError)):
         attn._check(q, k, v, bias, h)
+
+
+@pytest.mark.parametrize("lq,lk", [(33, 33), (31, 64), (64, 31),
+                                   (256, 256)])
+def test_kernel_wrapper_takes_any_length(lq, lk):
+    """Past 32 queries or keys the wrapper's checks pass (the long-length
+    kernels take the call on the card)."""
+    attn._check(*_ok_args(lq=lq, lk=lk))
+    assert attn.is_long(lq, lk) and not attn.is_long(32, 31)
 
 
 @pytest.mark.parametrize("shape", [(4, 8, 8, 2, 8), (4, 7, 9, 2, 8),

@@ -194,6 +194,90 @@ def test_attention_bwd_bf16_is_bitwise_deterministic(cuda, lq, lk, h, dh):
             assert torch.equal(a, b)
 
 
+# past 32 queries or keys: the long-length kernels (query tiles, key tiles
+# streamed with an online softmax); 31 x 64 and 64 x 31 are the two
+# cross-attention shapes, one side within a tile and the other past it
+LONG = [(33, 33), (48, 48), (64, 64), (100, 100), (128, 128), (256, 256),
+        (31, 64), (64, 31)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("lq,lk", LONG)
+def test_kernel_takes_any_length(cuda, dtype, tol, lq, lk):
+    """K1 past 32 queries and keys against its plain version (8 heads of
+    16), with blocked keys and fully blocked query rows."""
+    q, k, v, bias = _blocked_inputs(16, lq, lk, 8, 16, dtype, cuda)
+    attn.reset_launches()
+    out = attn.attention_fwd(q, k, v, bias, 8, 4.0)
+    ref = attn.attention_fwd_reference(q, k, v, bias, 8, 4.0)
+    torch.cuda.synchronize()
+    assert attn.launches == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("lq,lk,h,dh", [(40, 40, 16, 32), (70, 50, 2, 8),
+                                        (17, 90, 3, 32)])
+def test_long_kernel_takes_every_head_width(cuda, dtype, tol, lq, lk, h, dh):
+    """K1 and K2 (with dbias) past 32 at head widths 8 and 32, 2, 3 and 16
+    heads, and a query tile of fewer than 16 rows."""
+    q, k, v, bias = _blocked_inputs(8, lq, lk, h, dh, dtype, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(8)).to(dtype)
+    scale = math.sqrt(dh)
+    out = attn.attention_fwd(q, k, v, bias, h, scale)
+    ref = attn.attention_fwd_reference(q, k, v, bias, h, scale)
+    got = attn.attention_bwd(q, k, v, bias, g, h, scale, True)
+    want = attn.attention_bwd_reference(q, k, v, bias, g, h, scale, True)
+    torch.cuda.synchronize()
+    assert _err(out, ref) <= tol
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _err(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("lq,lk", LONG)
+@pytest.mark.parametrize("dbias", [False, True])
+def test_attention_bwd_takes_any_length(cuda, dtype, tol, lq, lk, dbias):
+    """K2 past 32 queries and keys against its plain version, with and
+    without dbias (8 heads of 16; blocked keys and rows)."""
+    q, k, v, bias = _blocked_inputs(16, lq, lk, 8, 16, dtype, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4)).to(dtype)
+    attn.reset_launches()
+    got = attn.attention_bwd(q, k, v, bias, g, 8, 4.0, dbias)
+    want = attn.attention_bwd_reference(q, k, v, bias, g, 8, 4.0, dbias)
+    torch.cuda.synchronize()
+    assert attn.bwd_launches == 1
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _err(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk", [(128, 128), (31, 64), (64, 31)])
+def test_attention_bwd_long_is_bitwise_deterministic(cuda, dtype, lq, lk):
+    """The long-length K2 twice without dbias and once with it: dq, dk and
+    dv bitwise equal (no atomics; dbias changes no other output)."""
+    q, k, v, bias = _inputs(5, 16, lq, lk, 8, 16, dtype, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(6)).to(dtype)
+    calls = [attn.attention_bwd(q, k, v, bias, g, 8, 4.0, dbias)[:3]
+             for dbias in (False, False, True)]
+    torch.cuda.synchronize()
+    for other in calls[1:]:
+        for a, b in zip(calls[0], other):
+            assert torch.equal(a, b)
+
+
 def _ce_inputs(device, dtype, n, d, v, seed=5):
     """h ~ N(0, 1), W ~ N(0, 0.3^2), b ~ N(0, 0.1^2), uniform labels and
     cotangents in [0, 1)."""

@@ -20,12 +20,17 @@ from deepsc_gan_tpu_torch.ops.envelope import (
     check_envelope,
     envelope_errors,
 )
-from deepsc_gan_tpu_torch.utils.config import Config, default_seq_len
+from deepsc_gan_tpu_torch.utils.config import (
+    Config,
+    default_seq_len,
+    is_star,
+)
 
 # Hopper's shared memory per block (227 KiB), what an H100 reports as
 # shared_memory_per_block_optin
 SMEM = 232448
-MODES = [None, "greedy", "beam", "greedy_attack", "teacher_forced", "pgd"]
+MODES = [None, "greedy", "beam", "greedy_attack", "greedy_gan",
+         "teacher_forced", "pgd"]
 # the stand-in's bytes a head: 8 heads fit SMEM, 16 do not
 BYTES_PER_HEAD = SMEM // 12
 
@@ -46,10 +51,11 @@ def library_sizes(monkeypatch):
 # name -> (variant, eval mode (None: train), Config fields, extra keywords
 # of the check, the flag the message must name)
 REFUSED = {
-    "seq_len_40": ("transformer", "teacher_forced", dict(seq_len=40), {},
-                   "--seq-len 40"),
-    "max_length_40": ("transformer", "greedy", dict(max_length=40), {},
-                      "--max-length 40"),
+    "beam_size_9": ("transformer", "beam", {}, dict(beam_size=9),
+                    "--beam-size 9"),
+    "gan_star_d_model_96": ("gan_star", None,
+                            dict(encoder_d_model=96, decoder_d_model=96), {},
+                            "--encoder-d-model 96"),
     "head_width_64": ("transformer", None,
                       dict(encoder_d_model=512, encoder_num_heads=8), {},
                       "--encoder-d-model 512 / --encoder-num-heads 8"),
@@ -89,12 +95,37 @@ def test_accepted_on_cpu(case):
     check_envelope(cfg, variant, mode, device=torch.device("cpu"), **extra)
 
 
-@pytest.mark.parametrize("variant", ["transformer", "star", "star_multi"])
+# K1 and K2 take any length: what the check once refused (past 32
+# queries or keys) runs, in every mode that launches them
+ACCEPTED = {
+    "seq_len_40": ("transformer", "teacher_forced", dict(seq_len=40)),
+    "max_length_40": ("transformer", "greedy", dict(max_length=40)),
+    "gan_seq_len_64": ("gan", None, dict(seq_len=64)),
+    "greedy_gan_seq_len_128": ("gan", "greedy_gan",
+                               dict(seq_len=128, max_length=127)),
+}
+
+
+@pytest.mark.parametrize("case", list(ACCEPTED))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_long_lengths_accepted_on_cuda(case, dtype, library_sizes):
+    """No length refused; at f32 where a backward runs, the check asks the
+    library for the f32 K2's shared memory at the long shape."""
+    variant, mode, fields = ACCEPTED[case]
+    cfg = Config(dtype=dtype).replace(**fields)
+    assert envelope_errors(cfg, variant, mode, smem_limit=SMEM) == []
+    asked = [a[2:4] for a in library_sizes]
+    assert (dtype == "float32" and mode != "greedy") == bool(asked)
+    assert all(max(a) > 32 for a in asked)
+
+
+@pytest.mark.parametrize("variant", ["transformer", "star", "star_multi",
+                                     "gan", "gan_star"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_default_configuration_passes(variant, dtype):
     cfg = Config(seq_len=default_seq_len(variant), dtype=dtype)
     for mode in MODES:
-        if mode == "beam" and variant != "transformer":
+        if mode == "beam" and is_star(variant):
             continue
         for kv in (False, True):
             assert envelope_errors(cfg, variant, mode, kv_cache=kv,
@@ -138,10 +169,10 @@ def test_cli_refuses_before_building_a_model(tmp_path, monkeypatch, cmd,
 
     monkeypatch.setattr(cli, "make_model", refuse)
     monkeypatch.setattr(cli, "load_model", refuse)
-    argv = [cmd, "--seq-len", "40", "--log-save-path", str(tmp_path),
-            "--checkpoint-path", str(tmp_path)]
+    argv = [cmd, "--encoder-num-heads", "32", "--log-save-path",
+            str(tmp_path), "--checkpoint-path", str(tmp_path)]
     if mode:
         argv += ["--eval-mode", mode]
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
-    assert "--seq-len 40" in str(exc.value.code)
+    assert "--encoder-num-heads 32" in str(exc.value.code)
