@@ -27,7 +27,12 @@ non-zero without its last line:
    with and without dbias; K4 in its dh-only mode (no dW/db) at the
    training shape, its dh bitwise equal to the full mode's; K1 and K2
    also past 32 queries and keys (N = 64, Lq = Lk = 128: the long-length
-   kernels), K2 there bitwise equal over calls too;
+   kernels), K2 there bitwise equal over calls too; the widened
+   shapes: the f32 K2 at 16 heads of 16 (the long-length kernels, its
+   short kernel's shared memory too large), K1/K2 at 8 heads of 24, 64 and
+   128 and at 32 heads of 16, K3/K4 and K6 at D = 200 and 512, K6 at k =
+   9, 16 (with ties) and 64, K5 at D = 96 and 512 (the wide kernels where
+   the tuned ones do not take the shape);
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -43,7 +48,9 @@ non-zero without its last line:
    the beam sweep's ids with K6 scoring equal those with its plain version;
    the KV beam's ids equal the full-prefix beam's at three SNRs;
 5. training path: the port's CLI trains the full-width transceiver in bf16
-   from a random init (--seed) on the synthetic set for --epochs epochs;
+   from a random init (--seed) on the synthetic set for --epochs epochs,
+   through its default path (every training phase here: path scan32, 32
+   steps a call as replays of one captured CUDA graph of the step);
    launch counts as above (per step: 12 K1, 12 K2, 1 K3, 1 K4); every loss
    finite and the last 20 below the first 20 on average; then one f32 step
    through the kernels and one through the plain versions from the same
@@ -102,14 +109,31 @@ non-zero without its last line:
    perturbation, at three SNRs;
 14. gan_star: `cli train --variant gan_star --train-mode gan` (24 K5, 2
    K3, 2 K4 per step), then its greedy_gan sweep (24 K5 per call);
-15. profile: device time by kernel over one bf16 call of the full-prefix
+15. widened paths: `cli train` with an encoder of 8 heads of 64
+   and a decoder of 8 heads of 25 (every K1-K4 launch on the wide
+   kernels), `cli evaluate --eval-mode beam --beam-size 9` on what it
+   saved (K6's wide kernels), `cli train --variant star` at d_model 96
+   (K5's wide kernel), exact launch counts;
+16. the captured graph of the train step, vanilla and star at full width:
+   the card's optimizer update (GRAPH_K graphed f32 steps under noam with
+   the EMA, and two GAN steps' selective updates) against the CPU's Adam
+   on the same gradients (params, moments, EMA within 1e-5 of their
+   largest, counts equal); GRAPH_K f32 steps in one graphed call equal
+   GRAPH_K eager steps (losses rtol 1e-5, params and Adam moments within
+   1e-5 of their largest; whether bitwise equal printed), two replays'
+   draws differ and each equals the eager step's; bf16 wall ms a step
+   eager against graphed over GRAPH_RUNS runs each, and a profiled graphed
+   call whose trace holds GRAPH_K times a step's launches of every kernel
+   the eager step launched;
+17. profile: device time by kernel over one bf16 call of the full-prefix
    sweep, of the KV sweep, of the beam and of the star sweep, over one
    bf16 train step of each codec (with K3's and K4's share of it), over
    one bf16 attack train step and one teacher-forced FGM call, over one
    GAN train step, one GAN teacher-forced call and one greedy_gan call,
    and the device's idle share in each (torch.profiler); the star sweep
    call must run no roll kernel (K5 reads the ring unstacked);
-16. the kernels as one JSON line, then `{"ok": true, "device": {...}}` as
+18. the kernels as one JSON line (the wide kernels as entries of their
+   own, launches from phase 15), then `{"ok": true, "device": {...}}` as
    the last line.
 
 Needs CUDA: without it the script exits 1 before any phase.
@@ -195,10 +219,40 @@ LONG_CASE = f"long_{LONG_LEN}"
 LONG_SEQ = 64
 KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
            star.KERNEL, topk.KERNEL)
+# the libraries of the wide kernels: the shapes the tuned kernels
+# above do not take
+WIDE_LIBRARIES = (attn.KERNEL_WIDE, ce.KERNEL_WIDE, star.KERNEL_WIDE,
+                  topk.KERNEL_WIDE)
 # the K4 launches among ce_bwd's that ran in the dh-only mode
 DH_ONLY = "ce_bwd_dh_only"
-COUNTERS = KERNELS + (DH_ONLY,)
+# the launches among each kernel's that went to its wide kernels
+WIDE = {attn.KERNEL: "attention_fwd_wide", attn.KERNEL_BWD:
+        "attention_bwd_wide", ce.KERNEL_FWD: "ce_fwd_wide",
+        ce.KERNEL_BWD: "ce_bwd_wide", star.KERNEL: "star_wide",
+        topk.KERNEL: "topk_wide"}
+COUNTERS = KERNELS + (DH_ONLY,) + tuple(WIDE.values())
 BEAM = 4
+# `cli train`'s default steps a call (one captured CUDA graph of the step,
+# replayed): what the train phases run
+SCAN_STEPS = 32
+# the graph phase: K steps a call, and runs of each side timed
+GRAPH_K = 4
+GRAPH_TIMED_K = 32
+GRAPH_RUNS = 3
+# the widened shapes: K1/K2 heads x head width, K3/K4/K6 widths,
+# K6 list lengths, K5 widths
+WIDE_HEADS = ((8, 24), (8, 64), (8, 128), (32, 16))
+WIDE_D = (200, 512)
+WIDE_K = (9, 16, 64)
+WIDE_STAR_D = (96, 512)
+# the widened CLI paths' own shapes (phase_wide): the encoder at 8 heads of
+# 64 (d_model 512) and the decoder at 8 heads of 25 (d_model 200), N = bs;
+# the beam's K6 at N = bs x WIDE_BEAM, D = WIDE_PATH_D, k = WIDE_BEAM
+WIDE_PATH = (("wide_enc_8x64", 8, 64, 32, 32),
+             ("wide_dec_self_8x25", 8, 25, 31, 31),
+             ("wide_dec_cross_8x25", 8, 25, 31, 32))
+WIDE_PATH_D = 200
+WIDE_BEAM = 9
 # a spin of the device (about 0.1 s) that the timed calls queue up behind
 SPIN_CYCLES = 200_000_000
 # what multiplies, by kernel and dtype (csrc/attention_fwd.cu,
@@ -258,10 +312,10 @@ def ptxas_report(log):
 def phase_build():
     """Build every kernel; print nvcc's time for each and ptxas's report
     (registers and spills per kernel, performance warnings)."""
-    seconds = build.build(KERNELS, force=True)
+    seconds = build.build(KERNELS + WIDE_LIBRARIES, force=True)
     for name, s in seconds.items():
         print(f"[build] csrc/{name}.cu: nvcc {s:.2f} s")
-    for name in KERNELS:
+    for name in KERNELS + WIDE_LIBRARIES:
         for line in ptxas_report(build.LOGS[name]):
             print(f"[ptxas] {name}: {line}")
 
@@ -308,12 +362,12 @@ def device_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def attention_inputs(n, lq, lk, dtype, gen, causal):
+def attention_inputs(n, lq, lk, dtype, gen, causal, heads=HEADS, dh=DH):
     """q, k, v ~ N(0, 1) and a bias with padding (a random key length per
     row), the causal block where lq == lk, and two fully blocked query
     rows: every key of batch row 0, and every key of query 3 in row 1."""
     dev = "cuda"
-    hd = HEADS * DH
+    hd = heads * dh
     q = torch.randn((n, lq, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((n, lk, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((n, lk, hd), generator=gen, device=dev).to(dtype)
@@ -385,52 +439,67 @@ def kernel_row(kernel, case, dtype, err, tol, call, plain, library, nbytes,
     return row
 
 
-def _sdpa_views(q, k, v):
-    return [t.view(t.shape[0], t.shape[1], HEADS, DH).transpose(1, 2)
+def _sdpa_views(q, k, v, heads=HEADS):
+    return [t.view(t.shape[0], t.shape[1], heads, -1).transpose(1, 2)
             for t in (q, k, v)]
 
 
-def attention_case(label, n, lq, lk, dtype, gen, iters):
-    """K1 at one shape."""
-    q, k, v, bias = attention_inputs(n, lq, lk, dtype, gen, lq == lk)
-    scale = math.sqrt(DH)
-    out = attn.attention_fwd(q, k, v, bias, HEADS, scale)
-    ref = attn.attention_fwd_reference(q, k, v, bias, HEADS, scale)
+def _attention_design(kernel, dtype, heads, dh):
+    """What multiplies in the kernel that takes `heads` heads of `dh`."""
+    if attn.is_wide(heads, dh):
+        return "wide cuda-core f32"
+    return DESIGN[kernel][dtype]
+
+
+def attention_case(label, n, lq, lk, dtype, gen, iters, heads=HEADS,
+                   dh=DH):
+    """K1 at one shape (at `heads` heads of `dh`: the wide kernels where
+    the tuned ones do not take them)."""
+    q, k, v, bias = attention_inputs(n, lq, lk, dtype, gen, lq == lk, heads,
+                                     dh)
+    scale = math.sqrt(dh)
+    out = attn.attention_fwd(q, k, v, bias, heads, scale)
+    ref = attn.attention_fwd_reference(q, k, v, bias, heads, scale)
     torch.cuda.synchronize()
     # yardstick: one library call with the same additive mask (the port
     # never calls it)
-    qh, kh, vh = _sdpa_views(q, k, v)
+    qh, kh, vh = _sdpa_views(q, k, v, heads)
     mask4 = bias[:, None].to(dtype)
     elt = q.element_size()
     return kernel_row(
         attn.KERNEL, label, dtype, max_err([out], [ref]), TOL[dtype],
-        lambda: attn.attention_fwd(q, k, v, bias, HEADS, scale),
-        lambda: attn.attention_fwd_reference(q, k, v, bias, HEADS, scale),
+        lambda: attn.attention_fwd(q, k, v, bias, heads, scale),
+        lambda: attn.attention_fwd_reference(q, k, v, bias, heads, scale),
         lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4,
                                                scale=1.0 / scale),
         (q.numel() + k.numel() + v.numel() + q.numel()) * elt
-        + bias.numel() * 4, 2 * 2 * n * HEADS * lq * lk * DH, iters,
-        n=n, lq=lq, lk=lk, design=DESIGN[attn.KERNEL][dtype])
+        + bias.numel() * 4, 2 * 2 * n * heads * lq * lk * dh, iters,
+        n=n, lq=lq, lk=lk, heads=heads, dh=dh,
+        design=_attention_design(attn.KERNEL, dtype, heads, dh))
 
 
-def attention_bwd_case(label, n, lq, lk, dtype, gen, iters, dbias):
-    """K2 at one shape, with or without dbias."""
-    q, k, v, bias = attention_inputs(n, lq, lk, dtype, gen, lq == lk)
+def attention_bwd_case(label, n, lq, lk, dtype, gen, iters, dbias,
+                       heads=HEADS, dh=DH):
+    """K2 at one shape, with or without dbias (at `heads` heads of `dh`:
+    the wide kernels where the tuned ones do not take them)."""
+    q, k, v, bias = attention_inputs(n, lq, lk, dtype, gen, lq == lk, heads,
+                                     dh)
     g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-    scale = math.sqrt(DH)
-    got = attn.attention_bwd(q, k, v, bias, g, HEADS, scale, dbias)
-    want = attn.attention_bwd_reference(q, k, v, bias, g, HEADS, scale,
+    scale = math.sqrt(dh)
+    got = attn.attention_bwd(q, k, v, bias, g, heads, scale, dbias)
+    want = attn.attention_bwd_reference(q, k, v, bias, g, heads, scale,
                                         dbias)
     torch.cuda.synchronize()
     if (got[3] is None) != (not dbias):
         raise AssertionError("attention_bwd: dbias returned when not asked "
                              "for, or missing")
     # yardstick: the backward of one library call with the same mask
-    leaves = [t.detach().requires_grad_(True) for t in _sdpa_views(q, k, v)]
+    leaves = [t.detach().requires_grad_(True)
+              for t in _sdpa_views(q, k, v, heads)]
     out = F.scaled_dot_product_attention(*leaves,
                                          attn_mask=bias[:, None].to(dtype),
                                          scale=1.0 / scale)
-    gh = _sdpa_views(g, g, g)[0]
+    gh = _sdpa_views(g, g, g, heads)[0]
     elt = q.element_size()
     tile = bias.numel() * 4
     nbytes = (2 * q.numel() + 2 * k.numel()) * elt + tile \
@@ -438,12 +507,13 @@ def attention_bwd_case(label, n, lq, lk, dtype, gen, iters, dbias):
     return kernel_row(
         attn.KERNEL_BWD, label + ("+dbias" if dbias else ""), dtype,
         max_err(got, want), TOL[dtype],
-        lambda: attn.attention_bwd(q, k, v, bias, g, HEADS, scale, dbias),
-        lambda: attn.attention_bwd_reference(q, k, v, bias, g, HEADS, scale,
+        lambda: attn.attention_bwd(q, k, v, bias, g, heads, scale, dbias),
+        lambda: attn.attention_bwd_reference(q, k, v, bias, g, heads, scale,
                                              dbias),
         lambda: torch.autograd.grad(out, leaves, gh, retain_graph=True),
-        nbytes, 5 * 2 * n * HEADS * lq * lk * DH, iters,
-        n=n, lq=lq, lk=lk, dbias=dbias, design=DESIGN[attn.KERNEL_BWD][dtype])
+        nbytes, 5 * 2 * n * heads * lq * lk * dh, iters,
+        n=n, lq=lq, lk=lk, heads=heads, dh=dh, dbias=dbias,
+        design=_attention_design(attn.KERNEL_BWD, dtype, heads, dh))
 
 
 def attention_bwd_bitwise(label, n, lq, lk, dtype, gen):
@@ -477,8 +547,10 @@ def ce_inputs(dtype, gen, n, d, v):
     return h, W, b, labels, g
 
 
-def ce_cases(dtype, gen, iters, n, d, v):
-    """K3 and K4 at the training path's shape (tied layout: W is (V, D))."""
+def ce_cases(dtype, gen, iters, n, d, v, label="ce"):
+    """K3 and K4 at the training path's shape (tied layout: W is (V, D)),
+    or at another width D (the wide kernels where the tuned ones do not
+    take it)."""
     h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v)
     got = ce.ce_fwd(h, W, b, labels)
     want = ce.ce_fwd_reference(h, W, b, labels)
@@ -493,13 +565,17 @@ def ce_cases(dtype, gen, iters, n, d, v):
                              f"softmax part > {SOFTMAX_TOL[dtype]}")
     elt = h.element_size()
     ins = (n * d + v * d) * elt + v * 4 + n * 4
-    shape = {"n": n, "d": d, "v": v, "design": DESIGN[ce.KERNEL_FWD][dtype]}
+    wide = ce.is_wide(dtype, d)
+    shape = {"n": n, "d": d, "v": v,
+             "design": "wide cuda-core f32" if wide
+             else DESIGN[ce.KERNEL_FWD][dtype]}
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     # rows of h and of W per tile and blocks per SM, as each library
     # reports them, and the vocab splits the wrapper took from them
     launch = {}
     for kernel in (ce.KERNEL_FWD, ce.KERNEL_BWD):
-        tiles = ce.tiling(kernel, dtype, d, h.device)
+        tiles = ce.tiling(ce.KERNEL_WIDE if wide else kernel, dtype, d,
+                          h.device)
         launch[kernel] = {"tiling": list(tiles),
                           "splits": ce.vocab_splits(n, v, sms, *tiles)}
     # yardsticks: PyTorch's cross entropy over materialized logits, and
@@ -508,7 +584,7 @@ def ce_cases(dtype, gen, iters, n, d, v):
     loss = F.cross_entropy((leaves[0] @ leaves[1].t()).float() + leaves[2],
                            labels, reduction="none")
     rows = [kernel_row(
-        ce.KERNEL_FWD, "ce", dtype, max_err(got, want), TOL[dtype],
+        ce.KERNEL_FWD, label, dtype, max_err(got, want), TOL[dtype],
         lambda: ce.ce_fwd(h, W, b, labels),
         lambda: ce.ce_fwd_reference(h, W, b, labels),
         lambda: F.cross_entropy((h @ W.t()).float() + b, labels,
@@ -517,7 +593,7 @@ def ce_cases(dtype, gen, iters, n, d, v):
         **launch[ce.KERNEL_FWD])]
     # one recompute of the logits and the two products
     rows.append(kernel_row(
-        ce.KERNEL_BWD, "ce", dtype, max_err(dgot, dwant, relative=True),
+        ce.KERNEL_BWD, label, dtype, max_err(dgot, dwant, relative=True),
         TOL[dtype],
         lambda: ce.ce_bwd(h, W, b, labels, lse, g),
         lambda: ce.ce_bwd_reference(h, W, b, labels, lse, g),
@@ -580,20 +656,23 @@ def dyadic(shape, scale, gen, dtype):
     return (x.float() / (8 * scale)).to(dtype)
 
 
-def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic"):
+def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None):
     """K6 at one shape (W the (V, D) table, V = 22,234: its last vocab tile
     of 128 rows is ragged). `mode`: "dyadic", exact logits with many ties;
     "tie", every logit equal to the bias, which is 1 at indices in
     different vocab splits and 0 elsewhere; "negative", the dyadic logits
     less 3, so every logit is below 0 and a padded vocab column (zero
-    logit) in the list would show."""
+    logit) in the list would show. `d` (default the decoder's 128) and k
+    past 8 take the wide kernels where the tuned one does not."""
     cfg = Config()
-    d, v = cfg.decoder_d_model, cfg.vocab_size
+    d, v = d or cfg.decoder_d_model, cfg.vocab_size
     if mode == "tie":
         h = torch.ones((n, d), device="cuda", dtype=dtype)
         W = torch.zeros((v, d), device="cuda", dtype=dtype)
         b = torch.zeros(v, device="cuda")
         b[[v - 3, 7, v // 2, 130, 64]] = 1.0
+        if k > 8:  # more equal maxima than the tuned kernel's list holds
+            b[torch.arange(9, 9 + 7 * k, 7)] = 1.0
     else:
         h = dyadic((n, d), 8, gen, dtype)
         W = dyadic((v, d), 2, gen, dtype)
@@ -616,7 +695,9 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic"):
 
     # rows of h and of W per tile and blocks per SM, as the library reports
     # them, and the vocab splits the wrapper took from them
-    tiles = ce.tiling(topk.KERNEL, dtype, d, h.device)
+    wide = topk.is_wide(d, k)
+    tiles = ce.tiling(topk.KERNEL_WIDE if wide else topk.KERNEL, dtype, d,
+                      h.device)
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     elt = h.element_size()
     return kernel_row(
@@ -624,14 +705,15 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic"):
         TOL[dtype], lambda: topk.topk_logits(h, W, b, k),
         lambda: topk.topk_logits_reference(h, W, b, k), library,
         (n * d + v * d) * elt + v * 4 + n * k * 8 + n * 4, 2 * n * d * v,
-        iters, n=n, d=d, v=v, k=k, design=DESIGN[topk.KERNEL][dtype],
+        iters, n=n, d=d, v=v, k=k,
+        design="wide cuda-core f32" if wide else DESIGN[topk.KERNEL][dtype],
         tiling=list(tiles), splits=ce.vocab_splits(n, v, sms, *tiles))
 
 
-def star_case(label, b, length, dtype, gen, iters):
-    """K5 at B sequences of L rows of D = 128 (8 heads of 16): the ring q,
-    kh, vh, ke, ve (B, L, D) and ks, vs (B, D) ~ N(0, 1)."""
-    d = HEADS * DH
+def star_case(label, b, length, dtype, gen, iters, d=HEADS * DH):
+    """K5 at B sequences of L rows of D = 128 (8 heads of 16; another D in
+    8 heads: the wide kernel where the tuned one does not take it): the
+    ring q, kh, vh, ke, ve (B, L, D) and ks, vs (B, D) ~ N(0, 1)."""
     ring = [torch.randn((b, length, d) if i < 5 else (b, d), generator=gen,
                         device="cuda").to(dtype) for i in range(7)]
     q, kh, vh, ke, ve, ks, vs = ring
@@ -641,10 +723,10 @@ def star_case(label, b, length, dtype, gen, iters):
     # yardstick: one library call over the five stacked contexts of each
     # row (stacked here, outside the timing)
     n = b * length
-    k5, v5 = (star.contexts(x, xe, xs).view(5, n, HEADS, DH)
+    k5, v5 = (star.contexts(x, xe, xs).view(5, n, HEADS, d // HEADS)
               .permute(1, 2, 0, 3) for x, xe, xs in ((kh, ke, ks),
                                                       (vh, ve, vs)))
-    qh = q.view(n, HEADS, 1, DH)
+    qh = q.view(n, HEADS, 1, d // HEADS)
     # bytes: the ring, read once (q, kh, vh, ke, ve: N x D each; ks, vs:
     # B x D each), and the output; operations: the 5 dot products and the
     # weighted sum of 5 (an f32 multiply-add each), on the f32 cores
@@ -655,7 +737,8 @@ def star_case(label, b, length, dtype, gen, iters):
         lambda: star.ring_reference(*ring, HEADS),
         lambda: F.scaled_dot_product_attention(qh, k5, v5),
         (6 * n * d + 2 * b * d) * elt, 2 * 2 * 5 * n * d, iters,
-        ops_dtype=torch.float32, b=b, l=length, n=n, d=d, heads=HEADS)
+        ops_dtype=torch.float32, b=b, l=length, n=n, d=d, heads=HEADS,
+        design="wide" if not star.takes_width(d, HEADS) else "tuned")
 
 
 def phase_kernels(seed, n, bs, iters):
@@ -710,6 +793,44 @@ def phase_kernels(seed, n, bs, iters):
                               for label, lq, lk in TRAIN_SHAPES] + [
                                   (LONG_CASE, LONG_LEN, LONG_LEN)]:
             attention_bwd_bitwise(label, bs, lq, lk, dtype, gen)
+        rows += widened_cases(dtype, gen, iters, bs)
+    return rows
+
+
+def widened_cases(dtype, gen, iters, bs):
+    """The shapes the kernels took only after their wide paths,
+    each against its plain version with its time and bound: the f32 K2 at
+    16 heads of 16 (the long-length kernels, where the short kernel's
+    shared memory does not fit); K1/K2 at head widths 24, 64 and 128 and
+    at 32 heads (the decoder self-attention's shape, N = bs); K3/K4 at D =
+    200 and 512 (N = bs x 31); K5 at D = 96 and 512 (the star train step's
+    ring); K6 at k = 9, 16 and 64 (with exact ties past the tuned list's
+    8) and at D = 200 and 512; and K1/K2 and K6 at the shapes the widened
+    CLI paths of `phase_wide` give them (WIDE_PATH, WIDE_BEAM)."""
+    cfg = Config()
+    rows = []
+    if dtype == torch.float32:
+        rows.append(attention_bwd_case("f32_k2_16x16", bs, 31, 31, dtype,
+                                       gen, iters, False, 16, 16))
+    for label, heads, dh, lq, lk in [(f"wide_{heads}x{dh}", heads, dh, 31,
+                                      31) for heads, dh in WIDE_HEADS] + \
+            list(WIDE_PATH):
+        rows.append(attention_case(label, bs, lq, lk, dtype, gen, iters,
+                                   heads, dh))
+        rows.append(attention_bwd_case(label, bs, lq, lk, dtype, gen, iters,
+                                       False, heads, dh))
+    for d in WIDE_D:
+        rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1), d,
+                         cfg.vocab_size, label=f"ce_d{d}")
+        rows.append(topk_case(f"d{d}", bs * BEAM, dtype, gen, iters, d=d))
+    for k in WIDE_K:
+        rows.append(topk_case(f"k{k}", bs * BEAM, dtype, gen, iters, k,
+                              "tie" if k == WIDE_K[1] else "dyadic"))
+    rows.append(topk_case("wide_beam", bs * WIDE_BEAM, dtype, gen, iters,
+                          WIDE_BEAM, d=WIDE_PATH_D))
+    for d in WIDE_STAR_D:
+        rows.append(star_case(f"star_d{d}", bs, default_seq_len("star"),
+                              dtype, gen, iters, d))
     return rows
 
 
@@ -721,12 +842,18 @@ def reset_launches():
 
 
 def launches():
-    """Launches of K1-K6 since the last reset, and how many of K4's ran in
-    its dh-only mode."""
+    """Launches of K1-K6 since the last reset, how many of K4's ran in its
+    dh-only mode, and how many of each went to its wide kernels."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
             ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
             star.KERNEL: star.launches, topk.KERNEL: topk.launches,
-            DH_ONLY: ce.bwd_dh_only_launches}
+            DH_ONLY: ce.bwd_dh_only_launches,
+            WIDE[attn.KERNEL]: attn.wide_launches,
+            WIDE[attn.KERNEL_BWD]: attn.wide_bwd_launches,
+            WIDE[ce.KERNEL_FWD]: ce.wide_fwd_launches,
+            WIDE[ce.KERNEL_BWD]: ce.wide_bwd_launches,
+            WIDE[star.KERNEL]: star.wide_launches,
+            WIDE[topk.KERNEL]: topk.wide_launches}
 
 
 def check_launches(path, got, expected):
@@ -823,12 +950,15 @@ def phase_serving(seed, batches, bs):
 
 
 def phase_train(seed, epochs, bs, variant="transformer",
-                checkpoint="log/chip_smoke/ckpt", extra=(), tag=None):
+                checkpoint="log/chip_smoke/ckpt", extra=(), tag=None,
+                wide=()):
     """A training path: `cli train --variant <variant>` (and `extra`
     flags) at full width in bf16 from a random init on the synthetic set,
-    the params saved under `checkpoint`. Per step the vanilla transceiver
-    launches K1 and K2 once per attention, the star one K5 once per cycle
-    of its encoder and its decoder; both K3 and K4 once."""
+    the params saved under `checkpoint`, through the default path (SCAN_STEPS
+    steps a call: replays of one captured CUDA graph of the step). Per step
+    the vanilla transceiver launches K1 and K2 once per attention, the star
+    one K5 once per cycle of its encoder and its decoder; both K3 and K4
+    once; every launch of the kernels in `wide` on their wide kernels."""
     tag = tag or ("train" if variant == "transformer"
                   else f"{variant}_train")
     reset_launches()
@@ -841,6 +971,9 @@ def phase_train(seed, epochs, bs, variant="transformer",
                     "--checkpoint-path", checkpoint, *extra])
     wall = time.perf_counter() - t0
     got = launches()
+    if res["path"] != f"scan{SCAN_STEPS}":
+        raise AssertionError(f"{tag}: cli train ran path {res['path']}, "
+                             f"not the default scan{SCAN_STEPS}")
     cfg = Config()
     n = res["steps"]
     expected = {name: 0 for name in COUNTERS}
@@ -851,10 +984,13 @@ def phase_train(seed, epochs, bs, variant="transformer",
                          attn.KERNEL_BWD: per_step * n})
     else:
         expected[star.KERNEL] = 2 * cfg.cycle_num * n
+    for kernel in wide:
+        expected[WIDE[kernel]] = expected[kernel]
     check_launches(tag, got, expected)
     losses = res["losses"]
     first, last = losses[:20].mean().item(), losses[-20:].mean().item()
-    print(f"[{tag}] {n} steps in {epochs} epochs; loss first "
+    print(f"[{tag}] path {res['path']}: {n} steps in {epochs} epochs; loss "
+          f"first "
           f"{losses[0]:.4f} last {losses[-1]:.4f}; mean of the first 20 "
           f"{first:.4f}, of the last 20 {last:.4f}")
     if len(losses) != n or not torch.isfinite(losses).all():
@@ -1933,6 +2069,366 @@ def phase_gan_star(seed, epochs, batches, bs):
     return _sum_counts(trained, got), ms_step
 
 
+def _graph_batches(cfg, seed, k):
+    """(k, B, L) synthetic training batches on the card."""
+    ds = train_dataset(cfg.train_save_path, cfg.seq_len, cfg.vocab_size,
+                       cfg.bs, seed)
+    rows = [torch.from_numpy(inp) for (inp, _), _ in zip(ds, range(k))]
+    return torch.stack(rows).to("cuda", torch.long)
+
+
+@contextlib.contextmanager
+def recorded_draws():
+    """-> (draws, replays): every draw of a train step in order, the
+    tensors themselves (the channel noise through `steps._draw`, each
+    dropout mask through `bernoulli_`); and, for one graphed multi-step
+    call, after each replay the values of the draws made while the graph
+    was captured (tensors the graph keeps alive and each replay writes)."""
+    from deepsc_gan_tpu_torch.train import graphed
+
+    seen, replays = [], []
+    draw, bernoulli = steps._draw, torch.Tensor.bernoulli_
+    replay = graphed.GraphedStep.replay
+
+    def draw_rec(*a, **kw):
+        out = draw(*a, **kw)
+        seen.append(out[0])
+        return out
+
+    def bernoulli_rec(self, *a, **kw):
+        seen.append(bernoulli(self, *a, **kw))
+        return seen[-1]
+
+    def replay_rec(self, *a, **kw):
+        out = replay(self, *a, **kw)
+        # the warm-up step's draws, then the capture's
+        replays.append([t.clone() for t in seen[len(seen) // 2:]])
+        return out
+
+    steps._draw, torch.Tensor.bernoulli_ = draw_rec, bernoulli_rec
+    graphed.GraphedStep.replay = replay_rec
+    try:
+        yield seen, replays
+    finally:
+        steps._draw, torch.Tensor.bernoulli_ = draw, bernoulli
+        graphed.GraphedStep.replay = replay
+
+
+def _graph_run(cfg, variant, seed, inps, graphed):
+    """K steps of `variant` from the init of `seed` and one generator seed:
+    one multi-step call (graphed) or K eager steps -> (losses (K,), model,
+    state)."""
+    full = is_star(variant)
+    model = steps.init_params(variant_model(cfg, variant), seed).cuda()
+    state = steps.create_train_state(model.train(), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_std = float(snr_to_noise(cfg.train_snr))
+    if graphed:
+        multi = steps.make_train_multi_step(model, cfg, full_target=full)
+        state, losses = multi(state, inps, inps, gen, n_std)
+    else:
+        step = steps.make_train_step(model, cfg, full_target=full)
+        losses = torch.stack([step(state, x, x, gen, n_std)[1]
+                              for x in inps])
+    torch.cuda.synchronize()
+    return losses, model, state
+
+
+def graph_parity(seed, bs, variant):
+    """GRAPH_K f32 steps at full width (dropout 0.1) through one graphed
+    multi-step call and through GRAPH_K eager steps from the same init and
+    generator seed: the losses within rtol 1e-5, every parameter and Adam
+    moment within 1e-5 of its largest value (whether bitwise equal is
+    printed); the graph's channel noise and dropout masks of two replays
+    differ and each equals the eager step's draw at that point."""
+    cfg = Config(dtype="float32", bs=bs, seq_len=default_seq_len(variant))
+    inps = _graph_batches(cfg, seed, GRAPH_K)
+    with recorded_draws() as (drawn, _):
+        eager = _graph_run(cfg, variant, seed, inps, False)
+    with recorded_draws() as (_, replayed):
+        graphed = _graph_run(cfg, variant, seed, inps, True)
+    loss_err = ((graphed[0] - eager[0]).abs() / eager[0].abs()).max().item()
+    worst, worst_name, bitwise = 0.0, "", torch.equal(graphed[0], eager[0])
+    for (name, a), b in zip(graphed[1].named_parameters(),
+                            eager[1].parameters()):
+        sa, sb = graphed[2].optimizer.state[a], eager[2].optimizer.state[b]
+        for what, x, y in (("param", a, b),
+                           ("exp_avg", sa["exp_avg"], sb["exp_avg"]),
+                           ("exp_avg_sq", sa["exp_avg_sq"],
+                            sb["exp_avg_sq"])):
+            err = max_err([x], [y], relative=True)
+            bitwise = bitwise and torch.equal(x, y)
+            if err > worst:
+                worst, worst_name = err, f"{name} {what}"
+    per_step = len(drawn) // GRAPH_K
+    fresh = len(replayed) == GRAPH_K - 1 and len(replayed[0]) == per_step \
+        and not torch.equal(replayed[0][0], replayed[1][0]) \
+        and not torch.equal(replayed[0][-1], replayed[1][-1])
+    same_draws = all(torch.equal(a, b) for r, replay in enumerate(replayed)
+                     for a, b in zip(replay, drawn[(r + 1) * per_step:]))
+    print(f"[graph] {variant} f32, {GRAPH_K} steps: losses graphed "
+          f"{graphed[0].tolist()} eager {eager[0].tolist()} (max rel "
+          f"{loss_err:.2e}); worst param/moment err / max|ref| {worst:.2e} "
+          f"({worst_name}); bitwise equal {bitwise}; counts "
+          f"{graphed[2].step}/{eager[2].step}; {per_step} draws a step, "
+          f"replays' draws fresh {fresh}, equal to the eager draws "
+          f"{same_draws}")
+    if not loss_err <= 1e-5 or not worst <= 1e-5:
+        raise AssertionError(f"{variant}: graphed steps differ from eager "
+                             f"ones: loss {loss_err}, {worst_name} {worst}")
+    if graphed[2].step != eager[2].step or not fresh or not same_draws:
+        raise AssertionError(f"{variant}: a replay's draws are not fresh or "
+                             f"not the eager step's")
+    return {"bitwise": bitwise, "loss_rel_err": loss_err,
+            "param_moment_err": worst}
+
+
+def host_grads(model):
+    return [None if p.grad is None else p.grad.detach().cpu().clone()
+            for p in model.parameters()]
+
+
+def update_gap(got_model, got_state, ref_model, ref_state):
+    """-> (the worst |got - ref| / max|ref| over the params, the Adam
+    moments and the EMA shadow, where, whether every count is equal)."""
+    worst, worst_name = 0.0, ""
+    counts = got_state.step == ref_state.step
+    for (name, a), b in zip(got_model.named_parameters(),
+                            ref_model.parameters()):
+        sa, sb = got_state.optimizer.state[a], ref_state.optimizer.state[b]
+        pairs = [("param", a, b)] + [(key, sa[key], sb[key])
+                                     for key in ("exp_avg", "exp_avg_sq")]
+        if ref_state.ema is not None:
+            pairs.append(("ema", got_state.ema[name], ref_state.ema[name]))
+        for what, x, y in pairs:
+            err = max_err([x.cpu()], [y.cpu()], relative=True)
+            if err > worst:
+                worst, worst_name = err, f"{name} {what}"
+        counts = counts and sa["step"].item() == sb["step"].item()
+    return worst, worst_name, counts
+
+
+def _check_update(tag, updates, want, got_model, got_state, ref_model,
+                  ref_state):
+    worst, name, counts = update_gap(got_model, got_state, ref_model,
+                                     ref_state)
+    print(f"[graph] {tag}: {updates} updates, the card's against the CPU's "
+          f"on the same gradients: worst param/moment/EMA err / max|ref| "
+          f"{worst:.2e} ({name}); counts {got_state.step}/{ref_state.step},"
+          f" every Adam count equal {counts}")
+    if updates != want or not counts or not worst <= 1e-5:
+        raise AssertionError(f"{tag}: the card's update differs from the "
+                             f"CPU's: {name} {worst}, counts equal {counts}")
+    return worst
+
+
+def graph_update_parity(seed, bs):
+    """GRAPH_K f32 vanilla steps at full width under noam (warmup 40: the
+    rate moves visibly every count) with the EMA shadow, through one
+    graphed multi-step call (the fused capturable Adam, its rate written
+    before each replay, its count on the card), each step's gradients read
+    back after it; the same gradients applied from the same init by the
+    CPU's Adam (`TrainState.apply_gradients` with a float rate, the update
+    tests/test_torch_multistep.py holds to the JAX package's multi-step):
+    params, Adam moments and the EMA shadow within 1e-5 of their largest
+    value, every count equal. Both sides take the card's gradients, so the
+    update alone is compared; the kernels' gradients are held to the plain
+    versions' by phase_step_parity."""
+    from deepsc_gan_tpu_torch.train import graphed
+
+    cfg = Config(dtype="float32", bs=bs, schedule="noam", warmup_steps=40,
+                 ema_decay=0.9)
+    inps = _graph_batches(cfg, seed, GRAPH_K)
+    seen = []
+    warm_up, replay = graphed.warm_up, graphed.GraphedStep.replay
+
+    def warm_up_rec(step, state, *a, **kw):
+        out = warm_up(step, state, *a, **kw)
+        seen.append(host_grads(state.model))
+        return out
+
+    def replay_rec(self, state, *a, **kw):
+        out = replay(self, state, *a, **kw)
+        seen.append(host_grads(state.model))
+        return out
+
+    graphed.warm_up, graphed.GraphedStep.replay = warm_up_rec, replay_rec
+    try:
+        _, model, state = _graph_run(cfg, "transformer", seed, inps, True)
+    finally:
+        graphed.warm_up, graphed.GraphedStep.replay = warm_up, replay
+    ref_model = steps.init_params(variant_model(cfg, "transformer"), seed)
+    ref = steps.create_train_state(ref_model.train(), cfg)
+    for grads in seen:
+        for p, g in zip(ref_model.parameters(), grads):
+            p.grad = g
+        ref.apply_gradients()
+    return _check_update("transformer f32 noam+EMA graphed", len(seen),
+                         GRAPH_K, model, state, ref_model, ref)
+
+
+def gan_update_parity(seed, bs, n_steps=2):
+    """`n_steps` f32 GAN steps at full width on the card under noam
+    (warmup 40) with the EMA shadow: three selective updates a step over
+    one shared Adam, its device counts written before each. The same
+    gradients and masks applied from the same init by `selective_update`
+    over the CPU's Adam, the EMA after every third (the update
+    tests/test_torch_gan.py holds to JAX's GAN step): params, Adam moments
+    and the EMA shadow within 1e-5 of their largest value, every count
+    equal."""
+    cfg = Config(dtype="float32", bs=bs, schedule="noam", warmup_steps=40,
+                 ema_decay=0.9)
+    inps = _graph_batches(cfg, seed, n_steps)
+    n_std = float(snr_to_noise(cfg.train_snr))
+    updates, update = [], gan_steps.selective_update
+
+    def record(state, grads, mask):
+        updates.append(({n: None if g is None else g.detach().cpu().clone()
+                         for n, g in grads.items()}, mask))
+        return update(state, grads, mask)
+
+    model = steps.init_params(variant_model(cfg, "gan"), seed).cuda()
+    state = steps.create_train_state(model.train(), cfg)
+    step = gan_steps.make_gan_train_step(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gan_steps.selective_update = record
+    try:
+        for x in inps:
+            state, _ = step(state, x, x, gen, n_std)
+        torch.cuda.synchronize()
+    finally:
+        gan_steps.selective_update = update
+    ref_model = steps.init_params(variant_model(cfg, "gan"), seed)
+    ref = steps.create_train_state(ref_model.train(), cfg)
+    for i, (grads, mask) in enumerate(updates):
+        update(ref, grads, mask)
+        if i % 3 == 2:
+            gan_steps._ema(ref)
+    return _check_update(f"GAN f32 noam+EMA, {n_steps} steps", len(updates),
+                         3 * n_steps, model, state, ref_model, ref)
+
+
+# the main kernel of each kernel's launch as the profiler names it, and
+# how many it runs per launch
+_TRACE_NAMES = {attn.KERNEL: "attention_fwd_mma_kernel",
+                attn.KERNEL_BWD: "attention_bwd_mma_kernel",
+                ce.KERNEL_FWD: "ce_fwd_wgmma_kernel",
+                ce.KERNEL_BWD: "ce_dw_wgmma_kernel",
+                star.KERNEL: "star_satellite_kernel"}
+
+
+def graph_timing(seed, bs, variant, gen):
+    """bf16 at full width: the wall ms a step of GRAPH_RUNS runs of
+    GRAPH_TIMED_K eager steps and of GRAPH_RUNS graphed calls of as many
+    steps (each run synchronized at its end, after a warm-up); then one
+    graphed call of GRAPH_K steps profiled: its trace must hold GRAPH_K
+    times one step's launches of every kernel the eager step launched (the
+    replays ran them; a trace without device activity fails), and its idle
+    share; and one eager step profiled for its idle share."""
+    cfg = Config(bs=bs, seq_len=default_seq_len(variant))
+    full = is_star(variant)
+    n_std = float(snr_to_noise(cfg.train_snr))
+    inps = _graph_batches(cfg, seed, GRAPH_TIMED_K)
+    model = steps.init_params(make_model(cfg, variant), seed).cuda().train()
+    state = steps.create_train_state(model, cfg)
+    step = steps.make_train_step(model, cfg, full_target=full)
+    multi = steps.make_train_multi_step(model, cfg, full_target=full)
+    multi(state, inps[:GRAPH_K], inps[:GRAPH_K], gen, n_std)  # capture
+    step(state, inps[0], inps[0], gen, n_std)
+    times = {"eager": [], "graphed": []}
+    for _ in range(GRAPH_RUNS):
+        for side in ("eager", "graphed"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if side == "eager":
+                for x in inps:
+                    step(state, x, x, gen, n_std)
+            else:
+                multi(state, inps, inps, gen, n_std)
+            torch.cuda.synchronize()
+            times[side].append((time.perf_counter() - t0) * 1e3
+                               / GRAPH_TIMED_K)
+    reset_launches()
+    step(state, inps[0], inps[0], gen, n_std)
+    torch.cuda.synchronize()
+    one = launches()
+    tag = f"{variant} bf16"
+    eager_rows = profiled(f"one eager {tag} train step",
+                          lambda: step(state, inps[0], inps[0], gen, n_std))
+    rows = profiled(f"one graphed {tag} call of {GRAPH_K} steps",
+                    lambda: multi(state, inps[:GRAPH_K], inps[:GRAPH_K], gen,
+                                  n_std))
+    want = {kernel: GRAPH_K * n for kernel, n in one.items() if n}
+    counted = {kernel: sum(c for name, (_, c) in rows if word in name)
+               for kernel, word in _TRACE_NAMES.items() if kernel in want}
+    print(f"[graph] {tag}: ms a step over {GRAPH_RUNS} runs of "
+          f"{GRAPH_TIMED_K} steps: eager {times['eager']}, graphed "
+          f"{times['graphed']}; the profiled call's kernels by name "
+          f"{json.dumps(counted)} (want {json.dumps(want)})")
+    if not rows or counted != want:
+        raise AssertionError(f"{tag}: the graphed call's trace holds "
+                             f"{counted}, not {want}")
+    return {"ms_per_step": times, "trace_counts": counted,
+            "eager_rows": len(eager_rows), "graphed_rows": len(rows)}
+
+
+def phase_graph(seed, bs):
+    """The captured CUDA graph of the train step (`make_train_multi_step`,
+    the default `cli train` path) at full width, vanilla and star: f32
+    parity with the eager steps and fresh draws per replay
+    (`graph_parity`); bf16 wall time a step eager against graphed, and the
+    trace of a graphed call (`graph_timing`). First the card's optimizer
+    update, graphed and in the GAN's selective updates, against the CPU's
+    on the same gradients (`graph_update_parity`, `gan_update_parity`)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {"update_err": {"transformer_graphed": graph_update_parity(seed,
+                                                                     bs),
+                          "gan": gan_update_parity(seed, bs)}}
+    for variant in ("transformer", "star"):
+        out[variant] = dict(graph_parity(seed, bs, variant),
+                            **graph_timing(seed, bs, variant, gen))
+    return out
+
+
+def phase_wide(seed, bs):
+    """The widened kernels on paths through the CLI, bf16, from random
+    inits (each widening accepted at command start): `cli train` of a
+    transceiver with an encoder of 8 heads of 64 (d_model 512) and a
+    decoder of 8 heads of 25 (d_model 200) for one epoch (every K1/K2 and
+    K3/K4 launch on its wide kernels; per step as the default's), `cli
+    evaluate --eval-mode beam --beam-size 9` on what it saved (K6's wide
+    kernels, 30 a call; K1 of its encoder), and `cli train --variant star`
+    at d_model 96 (8 heads of 12: K5's wide kernel, 16 a step). -> the
+    launch counts by path."""
+    cfg = Config()
+    ckpt = "log/chip_smoke/wide_ckpt"
+    widths = ["--encoder-d-model", "512", "--encoder-d-ff", "1024",
+              "--decoder-d-model", str(WIDE_PATH_D), "--decoder-d-ff",
+              str(2 * WIDE_PATH_D)]
+    got, _ = phase_train(seed, 1, bs, extra=widths, checkpoint=ckpt,
+                         tag="wide_train", wide=(attn.KERNEL,
+                                                 attn.KERNEL_BWD,
+                                                 ce.KERNEL_FWD,
+                                                 ce.KERNEL_BWD))
+    beam_k = WIDE_BEAM
+    per_call = {name: 0 for name in COUNTERS}
+    per_call.update({attn.KERNEL: cfg.encoder_num_layer,
+                     WIDE[attn.KERNEL]: cfg.encoder_num_layer,
+                     topk.KERNEL: cfg.max_length,
+                     WIDE[topk.KERNEL]: cfg.max_length})
+    beam, *_ = phase_serve("wide_beam", ["--eval-mode", "beam",
+                                         "--beam-size", str(beam_k)],
+                           seed, 1, bs, per_call,
+                           model=("--variant", "transformer",
+                                  "--checkpoint-path", ckpt, *widths))
+    star_got, _ = phase_train(seed, 1, bs, "star",
+                              "log/chip_smoke/wide_star_ckpt",
+                              extra=["--encoder-d-model", "96",
+                                     "--decoder-d-model", "96"],
+                              tag="wide_star_train", wide=(star.KERNEL,))
+    return _sum_counts(got, beam, star_got)
+
+
 KERNEL_INFO = {
     attn.KERNEL: ("deepsc_gan_tpu/ops/pallas/attention.py:125",
                   "decoder_self", "serving: decoder self-attention, bf16, "
@@ -1951,6 +2447,26 @@ KERNEL_INFO = {
                   "bytes (6 N D + 2 B D elements)"),
     topk.KERNEL: ("deepsc_gan_tpu/ops/pallas/topk.py:94", "beam",
                   "beam: N=64x4 D=128 V=22234 k=4, bf16"),
+}
+
+
+# the wide kernels, by the kernel whose shapes they widen: (their
+# source, the case of their bf16 row shown, what it is)
+WIDE_INFO = {
+    attn.KERNEL: (attn.KERNEL_WIDE, "wide_dec_self_8x25", "the wide train "
+                  "path's decoder self-attention: K1 at 8 heads of 25, "
+                  "bf16, N=64 Lq=Lk=31"),
+    attn.KERNEL_BWD: (attn.KERNEL_WIDE, "wide_dec_self_8x25", "the wide "
+                      "train path's decoder self-attention backward: K2 at "
+                      "8 heads of 25, bf16, N=64 Lq=Lk=31, no dbias"),
+    ce.KERNEL_FWD: (ce.KERNEL_WIDE, "ce_d200", "the wide train path's CE: "
+                    "K3 at N=1984 D=200 V=22234, bf16"),
+    ce.KERNEL_BWD: (ce.KERNEL_WIDE, "ce_d200", "the wide train path's CE: "
+                    "K4 at N=1984 D=200 V=22234, bf16"),
+    star.KERNEL: (star.KERNEL_WIDE, "star_d96", "the wide star train "
+                  "path's ring: K5 at B=64 L=31 D=96 H=8, bf16"),
+    topk.KERNEL: (topk.KERNEL_WIDE, "wide_beam", "the wide beam path: K6 "
+                  "at N=64x9 D=200 V=22234 k=9, bf16"),
 }
 
 
@@ -2004,6 +2520,19 @@ def kernels_line(rows, by_path):
             "library_ms", "device_ms", "library_device_ms")},
         "at": "attack training phase 1: N=1984 D=128 V=22234, bf16; "
               "library: F.cross_entropy's backward to h alone"}
+    for kernel, (library, case, at) in WIDE_INFO.items():
+        row = next(r for r in rows if r["kernel"] == kernel
+                   and r["case"] == case and r["dtype"] == "bfloat16")
+        paths = {path: got[WIDE[kernel]] for path, got in by_path.items()}
+        out.append({
+            "name": WIDE[kernel], "route": "cuda", "design": row["design"],
+            "source": f"deepsc_gan_tpu_torch/csrc/{library}.cu",
+            "replaces": KERNEL_INFO[kernel][0],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            **{key: row[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms")},
+            "at": at})
     return out
 
 
@@ -2052,6 +2581,9 @@ def main(argv=None) -> int:
     phase_gan_f32_ids(args.seed, args.bs)
     by_path["gan_star"], _ = phase_gan_star(args.seed, GAN_EPOCHS,
                                             args.batches, args.bs)
+    by_path["wide"] = phase_wide(args.seed, args.bs)
+    graph = phase_graph(args.seed, args.bs)
+    print(f"[graph] {json.dumps(graph)}")
     phase_profile(args.seed, args.bs)
     kernels = kernels_line(rows, by_path)
     print(f"[done] {time.perf_counter() - t0:.1f} s")

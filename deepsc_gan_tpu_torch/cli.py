@@ -1,7 +1,9 @@
 """Command-line entry points of the port: the BLEU-vs-SNR sweeps and the
 teacher-forced attack tables (the JAX package's `cli evaluate`), and
 teacher-forced training, plain, FGM-adversarial or the GAN's three phases
-(`cli train --train-mode plain|attack|gan`, one device, one step per
+(`cli train --train-mode plain|attack|gan`, one device; plain mode K =
+`--scan-steps` steps a call, 32 by default as in the JAX CLI, on CUDA K
+replays of one captured CUDA graph of the step; the others one step a
 call), of the vanilla transceiver (`--variant transformer`), the star ones
 (`--variant star`, the single-block SE/SD codec, or `star_multi`) and the
 GAN ones (`--variant gan` around the vanilla codec, `gan_star` around
@@ -58,8 +60,8 @@ Channel draws and dropout masks come from a `torch.Generator` seeded with
 beam search, the attacked decode and the attack tables make one call per
 (SNR, batch). Training logs the loss (with `--train-mode attack`, the clean
 and the adversarial one; with `gan`, the receiver's loss, g_loss and
-d_loss) every `--log-every` steps and sentences/s per
-epoch to `<log-save-path>/train.jsonl`, and saves the params (the EMA
+d_loss) every `--log-every` steps (plain mode at K steps a call: every
+`--log-every` calls, the call's last loss) and sentences/s per epoch to `<log-save-path>/train.jsonl`, and saves the params (the EMA
 shadow when `--ema-decay` is on) as `<checkpoint-path>/<variant>_params.pkl`
 in the `results/*_params.pkl` format. Runs on CUDA unless `--device` names
 another device.
@@ -75,7 +77,11 @@ import time
 
 import torch
 
-from deepsc_gan_tpu_torch.data.loader import eval_batches, train_dataset
+from deepsc_gan_tpu_torch.data.loader import (
+    eval_batches,
+    stacked_batches,
+    train_dataset,
+)
 from deepsc_gan_tpu_torch.data.vocab import Vocab
 from deepsc_gan_tpu_torch.evaluate.beam import (
     make_beam_decode,
@@ -109,6 +115,7 @@ from deepsc_gan_tpu_torch.train.steps import (
     make_eval_step,
     make_eval_step_pgd,
     make_train_attack_step,
+    make_train_multi_step,
     make_train_step,
 )
 from deepsc_gan_tpu_torch.utils.config import (
@@ -283,8 +290,16 @@ def cmd_train(args) -> dict:
     host; with --train-mode attack the adversarial ones, with gan the
     receiver's), "clean_losses" (attack: phase 1's clean losses),
     "g_losses", "d_losses" (gan), "steps", "epoch_seconds",
-    "sents_per_sec", "params_path", "device"}. A GAN step makes three
-    optimizer updates; the recipe saved with the params counts both."""
+    "sents_per_sec", "path", "params_path", "device"}. A GAN step makes
+    three optimizer updates; the recipe saved with the params counts both.
+
+    Plain mode runs `--scan-steps` K steps a call (`make_train_multi_step`:
+    on CUDA K replays of one captured graph of the step), path `scanK`, as
+    the JAX CLI's `lax.scan` path: K-stacks of batches that run on across
+    epoch boundaries, len(ds) // K * K steps an epoch, a loss logged when
+    (step // K) % --log-every == 0; `--scan-steps 1`, the attack and the
+    GAN modes run one step a call (path `single`), a loss logged every
+    --log-every steps."""
     if args.train_mode == "gan" and not is_gan(args.variant):
         raise SystemExit(f"--train-mode gan needs a GAN transceiver "
                          f"(--variant gan or gan_star), not "
@@ -299,56 +314,77 @@ def cmd_train(args) -> dict:
     star = is_star(args.variant)
     attack = args.train_mode == "attack"
     gan = args.train_mode == "gan"
+    scan_k = max(1, args.scan_steps)
+    scan = not (attack or gan) and scan_k > 1
     if attack:
         step = make_train_attack_step(model, cfg, full_target=star,
                                       adv_weight=args.adv_weight)
     elif gan:
         step = make_gan_train_step(model, cfg, full_target=star)
+    elif scan:
+        step = make_train_multi_step(model, cfg, full_target=star)
     else:
         step = make_train_step(model, cfg, full_target=star)
+    path = f"scan{scan_k}" if scan else "single"
     ds = train_dataset(cfg.train_save_path, cfg.seq_len, cfg.vocab_size,
                        cfg.bs, args.seed)
     n_std = float(snr_to_noise(cfg.train_snr))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[train] variant={args.variant} mode={args.train_mode} "
-          f"device={device} params={n_params:,}")
+          f"path={path} device={device} params={n_params:,}")
     logger = MetricLogger(os.path.join(cfg.log_save_path, "train.jsonl"))
     losses, clean_losses, g_losses, d_losses = [], [], [], []
     epoch_seconds, rates = [], []
+    stacker = stacked_batches(ds, scan_k) if scan else None
+    step_i = 0
     for epoch in range(cfg.epochs):
         ds.set_epoch(epoch)
         t0 = time.perf_counter()
-        for i, (inp, _) in enumerate(ds):
-            batch = torch.from_numpy(inp).to(device, torch.long)
-            extra = {}
-            if attack:
-                state, (clean, loss) = step(state, batch, batch, gen,
-                                            args.pnr_db, n_std, args.epsilon)
-                clean_losses.append(clean)
-                extra = {"clean_loss": clean}
-            elif gan:
-                state, (loss, g_loss, d_loss) = step(state, batch, batch,
-                                                     gen, n_std)
-                g_losses.append(g_loss)
-                d_losses.append(d_loss)
-                extra = {"g_loss": g_loss, "d_loss": d_loss}
-            else:
-                state, loss = step(state, batch, batch, gen, n_std)
-            losses.append(loss)
-            steps_done = epoch * len(ds) + i + 1
-            if steps_done % args.log_every == 0:
-                logger.log(epoch=epoch, step=steps_done, loss=loss, **extra)
+        epoch_sents = len(ds) * cfg.bs
+        if scan:
+            n_disp = max(1, len(ds) // scan_k)
+            epoch_sents = n_disp * scan_k * cfg.bs
+            for _ in range(n_disp):
+                batch = torch.from_numpy(next(stacker)).to(device, torch.long)
+                state, stacked = step(state, batch, batch, gen, n_std)
+                losses.extend(stacked.unbind(0))
+                step_i += scan_k
+                if (step_i // scan_k) % args.log_every == 0:
+                    logger.log(epoch=epoch, step=step_i, loss=stacked[-1])
+        else:
+            for inp, _ in ds:
+                batch = torch.from_numpy(inp).to(device, torch.long)
+                extra = {}
+                if attack:
+                    state, (clean, loss) = step(state, batch, batch, gen,
+                                                args.pnr_db, n_std,
+                                                args.epsilon)
+                    clean_losses.append(clean)
+                    extra = {"clean_loss": clean}
+                elif gan:
+                    state, (loss, g_loss, d_loss) = step(state, batch, batch,
+                                                         gen, n_std)
+                    g_losses.append(g_loss)
+                    d_losses.append(d_loss)
+                    extra = {"g_loss": g_loss, "d_loss": d_loss}
+                else:
+                    state, loss = step(state, batch, batch, gen, n_std)
+                losses.append(loss)
+                step_i += 1
+                if step_i % args.log_every == 0:
+                    logger.log(epoch=epoch, step=step_i, loss=loss, **extra)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
         epoch_seconds.append(dt)
-        rates.append(len(ds) * cfg.bs / dt)
+        rates.append(epoch_sents / dt)
         logger.log(epoch=epoch, epoch_time=dt, sents_per_sec=rates[-1])
     logger.close()
     steps_taken = len(losses)
     recipe = {"variant": args.variant, "train_mode": args.train_mode,
               "epochs": cfg.epochs, "steps": steps_taken, "seed": args.seed,
+              "scan_steps": scan_k if scan else 1,
               "tie_embeddings": cfg.tie_embeddings, "schedule": cfg.schedule,
               "lr": cfg.lr, "ema_decay": cfg.ema_decay, "dtype": cfg.dtype,
               "channel": cfg.channel}
@@ -359,10 +395,10 @@ def cmd_train(args) -> dict:
         recipe.update(gan_lambda=cfg.gan_lambda, gan_pnr_db=cfg.gan_pnr_db,
                       g_loss_ceiling=cfg.g_loss_ceiling,
                       optimizer_updates=state.step)
-    path = save_params_pickle(
+    path_pkl = save_params_pickle(
         os.path.join(cfg.checkpoint_path, f"{args.variant}_params.pkl"),
         eval_params(state), cfg, recipe)
-    print(f"[train] done: {steps_taken} steps; params -> {path}")
+    print(f"[train] done: {steps_taken} steps; params -> {path_pkl}")
 
     def host(xs):
         return torch.stack(xs).float().cpu() if xs else torch.zeros(0)
@@ -370,7 +406,7 @@ def cmd_train(args) -> dict:
     return {"losses": host(losses), "clean_losses": host(clean_losses),
             "g_losses": host(g_losses), "d_losses": host(d_losses),
             "steps": steps_taken, "epoch_seconds": epoch_seconds,
-            "sents_per_sec": rates, "params_path": path,
+            "sents_per_sec": rates, "path": path, "params_path": path_pkl,
             "device": str(device)}
 
 
@@ -425,6 +461,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: cuda; raises without it)")
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--log-every", type=int, default=10)
+    t.add_argument("--scan-steps", type=int, default=32,
+                   help="plain mode: K steps a call, on CUDA K replays of "
+                        "one captured CUDA graph of the step (the JAX CLI's "
+                        "lax.scan path); 1 = one eager step a call")
     return parser
 
 

@@ -1406,7 +1406,8 @@ int deepsc_attention_bwd_bf16(const void* q, const void* k, const void* v,
                       dh, scale, stream);
 }
 
-// Any Lq and Lk (the long-length kernels; the wrapper takes them past 32):
+// Any Lq and Lk (the long-length kernels; the wrapper takes them past 32,
+// and in f32 where the short kernel's shared memory exceeds the card's):
 // as above, and `stats` is the caller's f32 scratch (N, heads, Lq, 4),
 // 16-byte aligned.
 int deepsc_attention_bwd_long_f32(const void* q, const void* k,

@@ -101,6 +101,21 @@ class Dataset:
             yield batch, batch
 
 
+def stacked_batches(ds, k: int) -> Iterator[np.ndarray]:
+    """Endless (k, B, L) stacks of `ds`'s input batches for the multi-step
+    train path (`train/steps.py:make_train_multi_step`; JAX package
+    `data/loader.py:stacked_batches`), buffering across epoch boundaries
+    so no batch is dropped when len(ds) % k != 0. Each pass over `ds` is
+    one of its epochs (its shuffle as it stands when the pass starts)."""
+    buf: List[np.ndarray] = []
+    while True:
+        for inp, _ in ds:
+            buf.append(inp)
+            if len(buf) == k:
+                yield np.stack(buf)
+                buf = []
+
+
 def synthetic_dataset(n: int = 1024, seq_len: int = 31,
                       vocab_size: int = 22234, batch_size: int = 64,
                       seed: int = 0, min_len: int = 7,

@@ -24,6 +24,17 @@ from deepsc_gan_tpu_torch.models.transformer import LayerNorm
 from deepsc_gan_tpu_torch.ops.layers import Dense
 
 
+def f32_scalar(value, device) -> torch.Tensor:
+    """`value` in f32 for arithmetic with tensors on `device`: a tensor
+    moved there (no copy when it is there already), a Python number as a
+    0-dim CPU tensor, which a CUDA kernel takes as a scalar argument: no
+    host-to-device copy, so a captured CUDA graph may hold it, and the same
+    f32 value the number rounds to."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.tensor(value, dtype=torch.float32)
+
+
 def snr_to_noise(snr_db) -> torch.Tensor:
     """SNR in dB -> noise std, in f32."""
     snr = 10.0 ** (torch.as_tensor(snr_db, dtype=torch.float32) / 10.0)
@@ -39,7 +50,7 @@ def awgn(x: torch.Tensor, noise: torch.Tensor, n_std,
     with leading noise-level axes); `n_std` broadcasts against it. `p` is
     the perturbation; None means zero, where the term is exactly 0."""
     x = x.to(torch.float32)
-    n_std = torch.as_tensor(n_std, dtype=torch.float32, device=x.device)
+    n_std = f32_scalar(n_std, x.device)
     y = x + n_std * noise
     if p is not None:
         f32 = {"dtype": torch.float32, "device": x.device}
@@ -68,7 +79,7 @@ def fading(x: torch.Tensor, fade: torch.Tensor, noise: torch.Tensor, n_std,
     if equalizer not in EQUALIZERS:
         raise ValueError("equalizer must be None, 'LS' or 'MMSE'")
     x = x.to(torch.float32)
-    n_std = torch.as_tensor(n_std, dtype=torch.float32, device=x.device)
+    n_std = f32_scalar(n_std, x.device)
     shape = torch.broadcast_shapes(x.shape, noise.shape)
     xp = x.reshape(x.shape[:-2] + (-1, 2))
     npair = noise.reshape(noise.shape[:-2] + (-1, 2))

@@ -1,8 +1,10 @@
 """Fused multi-head attention: the CUDA kernels `csrc/attention_fwd.cu`
 (K1, the port of the TPU kernel `_fwd_kernel`) and `csrc/attention_bwd.cu`
 (K2, the port of `_bwd_kernel`, deepsc_gan_tpu/ops/pallas/attention.py),
-their wrappers and plain PyTorch versions, and the `torch.autograd.Function`
-that joins them as the TPU package's custom VJP does.
+with `csrc/attention_wide.cu` for the head widths and counts they do not
+take, their wrappers and plain PyTorch versions, and the
+`torch.autograd.Function` that joins them as the TPU package's custom VJP
+does.
 
 `fused_attention(q, k, v, bias, heads, scale)` has the JAX signature of
 the TPU kernel's entry point: q (N, Lq, H*Dh), k and v (N, Lk, H*Dh), bias
@@ -25,31 +27,44 @@ from deepsc_gan_tpu_torch.ops import build
 
 KERNEL = "attention_fwd"
 KERNEL_BWD = "attention_bwd"
-# what the kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu): a
-# warp per head, any number of queries and keys. Up to TILE of both: a
-# block per batch row; bf16: the row's q, k, v (and g) staged as bf16 in
-# two 16-row mma m-tiles of queries and of keys, the forward's block
-# holding a batch row's heads, the backward's four of them (all when dbias
-# is asked for); f32: a lane per query (and per key in the backward).
-# Past TILE of either: the long-length kernels, a block per tile of TILE
+KERNEL_WIDE = "attention_wide"
+# what the tuned kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu):
+# a warp per head of a compile-time width in HEAD_DIMS, at most MAX_HEADS
+# heads, any number of queries and keys. Up to TILE of both: a block per
+# batch row; bf16: the row's q, k, v (and g) staged as bf16 in two 16-row
+# mma m-tiles of queries and of keys, the forward's block holding a batch
+# row's heads, the backward's four of them (all when dbias is asked for);
+# f32: a lane per query (and per key in the backward). Past TILE of either
+# (and for the f32 backward wherever its short kernel's shared memory does
+# not fit the card): the long-length kernels, a block per tile of TILE
 # queries with the keys streamed in tiles of TILE (online softmax), and a
 # backward in two kernels (dq and dbias per query tile, then dk and dv per
 # key tile) that pass the softmax statistics through a scratch tensor.
+# Any other head width up to MAX_HEAD_DIM, or more heads: the wide kernels
+# (csrc/attention_wide.cu), a warp per (row, head, query) with the head's
+# elements spread over the lanes, any length, the same statistics scratch.
 HEAD_DIMS = (8, 16, 32)
 MAX_HEADS = 16
+MAX_HEAD_DIM = 256
 TILE = 32
 
 # Launches of the forward (K1) and backward (K2) kernels since the last
-# reset (each wrapper adds one per launch and nowhere else); read by
-# chip_smoke.py to show that a path went through the kernels.
+# reset (each wrapper adds one per launch and nowhere else; `wide_launches`
+# and `wide_bwd_launches` count the calls among them that went to the wide
+# kernels); read by chip_smoke.py to show that a path went through the
+# kernels.
 launches = 0
 bwd_launches = 0
+wide_launches = 0
+wide_bwd_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, bwd_launches
+    global launches, bwd_launches, wide_launches, wide_bwd_launches
     launches = 0
     bwd_launches = 0
+    wide_launches = 0
+    wide_bwd_launches = 0
 
 
 def _heads(x, heads):
@@ -104,7 +119,7 @@ def attention_bwd_reference(q, k, v, bias, g, heads: int, scale: float,
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # pointer arguments of each launch function: q, k, v, bias (, g) and the
-# outputs (the long-length backward's entry also takes its scratch)
+# outputs (the long-length and wide backward entries also take the scratch)
 _POINTERS = {KERNEL: 5, KERNEL_BWD: 9}
 # the shared-memory size function of each library and dtype
 _SMEM = {KERNEL: "deepsc_attention_fwd_smem_bytes_{}",
@@ -116,6 +131,17 @@ def is_long(lq: int, lk: int) -> bool:
     """Whether the long-length kernels take Lq x Lk (past TILE of
     either)."""
     return lq > TILE or lk > TILE
+
+
+def is_wide(heads: int, dh: int) -> bool:
+    """Whether `heads` heads of width `dh` go to the wide kernels (a width
+    outside HEAD_DIMS, or more than MAX_HEADS heads)."""
+    return dh not in HEAD_DIMS or heads > MAX_HEADS
+
+
+def takes_head_dim(dh: int) -> bool:
+    """Whether some kernel takes heads of width `dh` (1 to MAX_HEAD_DIM)."""
+    return 1 <= dh <= MAX_HEAD_DIM
 
 
 def _bind(kernel, dtype, long_bwd=False):
@@ -139,6 +165,23 @@ def _bind(kernel, dtype, long_bwd=False):
     return _BOUND[key]
 
 
+def _bind_wide(kernel, dtype):
+    """The wide library's launch function for `kernel`'s function (K1 or
+    K2) in `dtype`, with its ctypes signature declared."""
+    key = (KERNEL_WIDE, kernel, dtype)
+    if key not in _BOUND:
+        part = "fwd" if kernel == KERNEL else "bwd"
+        fn = getattr(build.load(KERNEL_WIDE),
+                     f"deepsc_attention_wide_{part}_{_SUFFIX[dtype]}")
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[kernel]
+                                            + (kernel == KERNEL_BWD))
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
 def _check(q, k, v, bias, heads):
     if q.dtype not in _SUFFIX:
         raise TypeError(f"attention kernel takes float32 or bfloat16, "
@@ -152,15 +195,14 @@ def _check(q, k, v, bias, heads):
                          f"v {tuple(v.shape)}")
     n, lq, hd = q.shape
     lk = k.shape[1]
-    if k.shape[0] != n or k.shape[2] != hd or hd % heads:
+    if k.shape[0] != n or k.shape[2] != hd or heads < 1 or hd % heads:
         raise ValueError(f"k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)} with {heads} heads")
     if tuple(bias.shape) != (n, lq, lk):
         raise ValueError(f"bias {tuple(bias.shape)} is not {(n, lq, lk)}")
-    if hd // heads not in HEAD_DIMS or heads > MAX_HEADS:
-        raise ValueError(f"{heads} heads of width {hd // heads}: the kernel "
-                         f"takes widths {HEAD_DIMS}, at most {MAX_HEADS} "
-                         f"heads")
+    if not takes_head_dim(hd // heads):
+        raise ValueError(f"{heads} heads of width {hd // heads}: the kernels "
+                         f"take head widths 1 to {MAX_HEAD_DIM}")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -185,23 +227,47 @@ def _on_cuda(q):
 
 def smem_bytes(kernel, dtype, lq: int, lk: int, heads: int,
                dh: int) -> int:
-    """Shared memory one block of `kernel` ("attention_fwd" or
-    "attention_bwd") needs in `dtype` for Lq x Lk at `heads` heads of `dh`,
-    as its built library computes it (the library is built on first use)."""
+    """Shared memory one block of the tuned `kernel` ("attention_fwd" or
+    "attention_bwd") needs in `dtype` for Lq x Lk at `heads` heads of `dh`
+    (past TILE of either, the long-length kernels'), as its built library
+    computes it (the library is built on first use)."""
     return _bind(kernel, dtype)[1](lq, lk, heads, dh)
 
 
-def _smem(kernel, q, k, heads):
+def long_smem_bytes(kernel, dtype, heads: int, dh: int) -> int:
+    """`smem_bytes` of the long-length kernels, which does not depend on
+    the lengths."""
+    return smem_bytes(kernel, dtype, TILE + 1, TILE + 1, heads, dh)
+
+
+def uses_long(kernel, dtype, lq: int, lk: int, heads: int, dh: int,
+              smem_limit: int) -> bool:
+    """Whether the tuned `kernel` takes Lq x Lk through its long-length
+    kernels: past TILE of either, and for the f32 backward also where its
+    short kernel needs more shared memory than `smem_limit` (16 heads of
+    16 at 31 x 31, say; the long kernels stage one tile of keys at a
+    time)."""
+    if is_long(lq, lk):
+        return True
+    return (kernel == KERNEL_BWD and dtype == torch.float32
+            and smem_bytes(kernel, dtype, lq, lk, heads, dh) > smem_limit)
+
+
+def _tuned(kernel, q, k, heads):
+    """(launch function, whether it is the long-length backward entry) of
+    the tuned kernel for q and k, after checking its shared memory."""
     n, lq, hd = q.shape
-    fn = _bind(kernel, q.dtype,
-               kernel == KERNEL_BWD and is_long(lq, k.shape[1]))[0]
-    smem = smem_bytes(kernel, q.dtype, lq, k.shape[1], heads, hd // heads)
+    lk, dh = k.shape[1], hd // heads
     limit = torch.cuda.get_device_properties(q.device) \
         .shared_memory_per_block_optin
+    long_bwd = kernel == KERNEL_BWD and uses_long(kernel, q.dtype, lq, lk,
+                                                  heads, dh, limit)
+    smem = (long_smem_bytes(kernel, q.dtype, heads, dh) if long_bwd
+            else smem_bytes(kernel, q.dtype, lq, lk, heads, dh))
     if smem > limit:
         raise ValueError(f"{kernel} kernel needs {smem} bytes of shared "
                          f"memory per block; the device allows {limit}")
-    return fn
+    return _bind(kernel, q.dtype, long_bwd)[0], long_bwd
 
 
 def attention_fwd(q, k, v, bias, heads: int, scale: float):
@@ -209,8 +275,10 @@ def attention_fwd(q, k, v, bias, heads: int, scale: float):
     if not _on_cuda(q):
         return attention_fwd_reference(q, k, v, bias, heads, scale)
     _check(q, k, v, bias, heads)
-    fn = _smem(KERNEL, q, k, heads)
     n, lq, hd = q.shape
+    wide = is_wide(heads, hd // heads)
+    fn = _bind_wide(KERNEL, q.dtype) if wide else _tuned(KERNEL, q, k,
+                                                         heads)[0]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -219,8 +287,9 @@ def attention_fwd(q, k, v, bias, heads: int, scale: float):
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error "
                            f"{err}")
-    global launches
+    global launches, wide_launches
     launches += 1
+    wide_launches += wide
     return out
 
 
@@ -237,15 +306,20 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
                          f"{tuple(q.shape)} {q.dtype}")
     if not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("g must be contiguous and 16-byte aligned")
-    fn = _smem(KERNEL_BWD, q, k, heads)
     n, lq, hd = q.shape
     lk = k.shape[1]
+    wide = is_wide(heads, hd // heads)
+    if wide:
+        fn, scratch = _bind_wide(KERNEL_BWD, q.dtype), True
+    else:
+        fn, scratch = _tuned(KERNEL_BWD, q, k, heads)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dbias = torch.empty_like(bias) if need_dbias else None
-    # the long-length kernels' softmax statistics (m, l, rowsum(dp p), pad)
-    # per (row, head, query), written by the dq kernel, read by the dk/dv one
+    # the long-length and wide kernels' softmax statistics (m, l,
+    # rowsum(dp p), pad) per (row, head, query), written by the dq kernel,
+    # read by the dk/dv one
     stats = [torch.empty((n, heads, lq, 4), dtype=torch.float32,
-                         device=q.device)] if is_long(lq, lk) else []
+                         device=q.device)] if scratch else []
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
              g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -255,8 +329,9 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA "
                            f"error {err}")
-    global bwd_launches
+    global bwd_launches, wide_bwd_launches
     bwd_launches += 1
+    wide_bwd_launches += wide
     return dq, dk, dv, dbias
 
 

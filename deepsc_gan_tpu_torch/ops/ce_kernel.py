@@ -17,9 +17,10 @@ decoder's hidden states, the table passed detached), K4 runs in its dh-only
 mode: the dh kernel alone, no dW/db kernel. On CUDA
 tensors each wrapper launches its kernel (and counts the launch) or raises;
 on CPU tensors it runs the plain version, which is also what the kernels are
-held against on the card. Each dtype has one kernel: bf16 multiplies on the
-tensor cores (wgmma) and f32 on the CUDA cores in exact f32, which the f32
-step-parity checks need.
+held against on the card. Each dtype has one tuned kernel: bf16 multiplies
+on the tensor cores (wgmma) and f32 on the CUDA cores in exact f32, which
+the f32 step-parity checks need; a width they do not take goes to the wide
+kernels (`csrc/ce_wide.cu`, f32 CUDA-core tiles with D streamed in chunks).
 """
 
 from __future__ import annotations
@@ -33,26 +34,41 @@ from deepsc_gan_tpu_torch.ops import build
 
 KERNEL_FWD = "ce_fwd"
 KERNEL_BWD = "ce_bwd"
+KERNEL_WIDE = "ce_wide"
+# what the tuned kernels take: D a multiple of D_STEP (one wgmma k-step in
+# bf16, the f32 kernels' vector loads) up to MAX_D; any other D >= 1 goes
+# to the wide kernels (csrc/ce_wide.cu: D streamed in chunks through the
+# f32 CUDA-core tiles)
 MAX_D = 256
-# D must be a multiple of this: one wgmma k-step (bf16), the f32 kernels'
-# vector loads
 D_STEP = {torch.float32: 8, torch.bfloat16: 16}
 
 # Launches of the forward (K3) and backward (K4) kernels since the last
 # reset (each wrapper adds one per call that launches its kernels and
 # nowhere else; `bwd_dh_only_launches` counts the K4 calls among them that
-# ran in the dh-only mode); read by chip_smoke.py to show that a path went
-# through them.
+# ran in the dh-only mode, `wide_fwd_launches` and `wide_bwd_launches` the
+# calls that went to the wide kernels); read by chip_smoke.py to show that
+# a path went through them.
 fwd_launches = 0
 bwd_launches = 0
 bwd_dh_only_launches = 0
+wide_fwd_launches = 0
+wide_bwd_launches = 0
 
 
 def reset_launches() -> None:
     global fwd_launches, bwd_launches, bwd_dh_only_launches
+    global wide_fwd_launches, wide_bwd_launches
     fwd_launches = 0
     bwd_launches = 0
     bwd_dh_only_launches = 0
+    wide_fwd_launches = 0
+    wide_bwd_launches = 0
+
+
+def is_wide(dtype: torch.dtype, d: int) -> bool:
+    """Whether width D goes to the wide kernels (off the tuned kernels'
+    D_STEP, or past MAX_D)."""
+    return d % D_STEP[op_dtype(dtype)] != 0 or d > MAX_D
 
 
 def op_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -127,10 +143,27 @@ def _bind(kernel, dtype):
     return _BOUND[(kernel, dtype)]
 
 
+def _bind_wide(kernel, dtype):
+    """The wide library's launch function for `kernel`'s function (K3 or
+    K4) in `dtype`, with its ctypes signature declared (the tuned entry's
+    arguments)."""
+    key = (KERNEL_WIDE, kernel, dtype)
+    if key not in _BOUND:
+        part = "fwd" if kernel == KERNEL_FWD else "bwd"
+        fn = getattr(build.load(KERNEL_WIDE),
+                     f"deepsc_ce_wide_{part}_{_SUFFIX[dtype]}")
+        fn.argtypes = ([ctypes.c_void_p] * _POINTERS[kernel]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
 def tiling(kernel, dtype, d, device):
     """(rows of h per tile, vocab rows per tile, blocks per SM) of the
-    kernel in the library `kernel` (`ce_fwd`, `ce_bwd` or K6's `topk`) that
-    takes the vocab splits, at width d on `device`, as the library's
+    kernel in the library `kernel` (`ce_fwd`, `ce_bwd`, `ce_wide`, or K6's
+    `topk` or `topk_wide`) that takes the vocab splits, at width d on
+    `device`, as the library's
     `deepsc_<kernel>_tiling_<dtype>` reports them (the blocks from CUDA's
     occupancy calculator)."""
     key = (kernel, dtype, d, device)
@@ -163,20 +196,18 @@ def _on_cuda(h):
 
 def _check(h, W, b, labels, *rows):
     """What the kernels take: h (N, D) and W (V, D) of one dtype, f32 or
-    bf16, D a multiple of 8 (f32) or of 16 (bf16: one wgmma k-step) up to
-    256; b (V,) f32; int32 labels and f32 per-row vectors (N,); all
-    contiguous, 16-byte aligned, on h's device."""
+    bf16, any D >= 1 (the tuned kernels a multiple of 8 (f32) or of 16
+    (bf16: one wgmma k-step) up to 256, the wide kernels any other); b (V,)
+    f32; int32 labels and f32 per-row vectors (N,); all contiguous, 16-byte
+    aligned, on h's device."""
     if h.dtype not in _SUFFIX or W.dtype != h.dtype:
         raise TypeError(f"CE kernels take h and W of one dtype, float32 or "
                         f"bfloat16, not {h.dtype} and {W.dtype}")
-    if h.dim() != 2 or W.dim() != 2 or W.shape[1] != h.shape[1]:
+    if h.dim() != 2 or W.dim() != 2 or W.shape[1] != h.shape[1] \
+            or h.shape[1] < 1:
         raise ValueError(f"bad shapes h {tuple(h.shape)} W {tuple(W.shape)}"
-                         f" (want (N, D) and (V, D))")
-    n, d = h.shape
-    step = D_STEP[h.dtype]
-    if d % step or d > MAX_D:
-        raise ValueError(f"D {d}: the {_SUFFIX[h.dtype]} CE kernels take a "
-                         f"multiple of {step} up to {MAX_D}")
+                         f" (want (N, D) and (V, D), D >= 1)")
+    n = h.shape[0]
     if b.dtype != torch.float32 or tuple(b.shape) != (W.shape[0],):
         raise ValueError(f"b must be float32 ({W.shape[0]},)")
     if labels.dtype != torch.int32 or tuple(labels.shape) != (n,):
@@ -206,18 +237,24 @@ def vocab_splits(n: int, v: int, sm_count: int, rows: int, vocab_rows: int,
 
 
 def _launch_setup(kernel, h, W):
-    """(launch function, vocab splits) for h and W."""
-    fn, smem_bytes = _bind(kernel, h.dtype)
-    props = torch.cuda.get_device_properties(h.device)
-    smem = smem_bytes(h.shape[1])
-    if smem > props.shared_memory_per_block_optin:
-        raise ValueError(f"{kernel} kernel needs {smem} bytes of shared "
-                         f"memory per block; the device allows "
-                         f"{props.shared_memory_per_block_optin}")
+    """(launch function, vocab splits, whether it is the wide kernels') for
+    h and W."""
     (n, d), v = h.shape, W.shape[0]
+    props = torch.cuda.get_device_properties(h.device)
+    wide = is_wide(h.dtype, d)
+    if wide:
+        fn, tiles = _bind_wide(kernel, h.dtype), KERNEL_WIDE
+    else:
+        fn, smem_bytes = _bind(kernel, h.dtype)
+        tiles = kernel
+        smem = smem_bytes(d)
+        if smem > props.shared_memory_per_block_optin:
+            raise ValueError(f"{kernel} kernel needs {smem} bytes of shared "
+                             f"memory per block; the device allows "
+                             f"{props.shared_memory_per_block_optin}")
     splits = vocab_splits(n, v, props.multi_processor_count,
-                          *tiling(kernel, h.dtype, d, h.device))
-    return fn, splits
+                          *tiling(tiles, h.dtype, d, h.device))
+    return fn, splits, wide
 
 
 def ce_fwd(h, W, b, labels):
@@ -226,7 +263,7 @@ def ce_fwd(h, W, b, labels):
         return ce_fwd_reference(h, W, b, labels)
     h, W, b, labels = _operands(h, W, b, labels)
     _check(h, W, b, labels)
-    fn, splits = _launch_setup(KERNEL_FWD, h, W)
+    fn, splits, wide = _launch_setup(KERNEL_FWD, h, W)
     (n, d), v = h.shape, W.shape[0]
     f32 = {"dtype": torch.float32, "device": h.device}
     ce = torch.empty(n, **f32)
@@ -239,8 +276,9 @@ def ce_fwd(h, W, b, labels):
     if err != 0:
         raise RuntimeError(f"CE forward kernel launch failed: CUDA error "
                            f"{err}")
-    global fwd_launches
+    global fwd_launches, wide_fwd_launches
     fwd_launches += 1
+    wide_fwd_launches += wide
     return ce, lse
 
 
@@ -253,7 +291,7 @@ def ce_bwd(h, W, b, labels, lse, g, dh_only=False):
     lse = lse.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
     _check(h, W, b, labels, lse, g)
-    fn, splits = _launch_setup(KERNEL_BWD, h, W)
+    fn, splits, wide = _launch_setup(KERNEL_BWD, h, W)
     (n, d), v = h.shape, W.shape[0]
     f32 = {"dtype": torch.float32, "device": h.device}
     dh = torch.empty((n, d), **f32)
@@ -269,9 +307,10 @@ def ce_bwd(h, W, b, labels, lse, g, dh_only=False):
     if err != 0:
         raise RuntimeError(f"CE backward kernel launch failed: CUDA error "
                            f"{err}")
-    global bwd_launches, bwd_dh_only_launches
+    global bwd_launches, bwd_dh_only_launches, wide_bwd_launches
     bwd_launches += 1
     bwd_dh_only_launches += dh_only
+    wide_bwd_launches += wide
     return dh, dW, db
 
 

@@ -5,14 +5,16 @@ The kernels refuse shapes outside their envelope (each wrapper raises on
 CUDA; nothing falls back to a plain version), while the JAX package's
 Pallas kernels refuse none. So `cli train` and `cli evaluate` ask
 `check_envelope` first and stop with a message that names the flag, rather
-than mid-run after the weights are loaded. The envelopes are the ones the
-kernel modules export (`attention_kernel.HEAD_DIMS`, `MAX_HEADS`;
-`ce_kernel.MAX_D`, `D_STEP`; `topk_kernel.MAX_K`, `D_STEP`;
-`star_kernel.takes_width`), and the f32 K2's shared memory is the one its
-built library computes (`attention_kernel.smem_bytes`). K1 and K2 take any
-number of queries and keys (past 32, their long-length kernels), so no
-length is refused. On the CPU the plain versions take any shape and
-nothing is refused.
+than mid-run after the weights are loaded. Each kernel has a tuned path
+and a wide one that takes what the tuned one does not, so what is left to
+refuse is narrow: K1/K2 heads wider than `attention_kernel.MAX_HEAD_DIM`
+(or a head count that does not divide the width), K5 a head count that
+does not divide D, K6 a beam outside 1..V; K3/K4 take any width, and no
+length is refused. The f32 K2's shared memory is the one its built library
+computes (`attention_kernel.smem_bytes`): where the short kernel's does
+not fit the card, the long-length kernels take the call, and the check
+refuses only if theirs does not fit either. On the CPU the plain versions
+take any shape and nothing is refused.
 
 Which kernels run, by variant and mode:
 - vanilla (`transformer`, `gan`): K1 in every attention of the encoder
@@ -36,9 +38,7 @@ from typing import List, Optional
 import torch
 
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
-from deepsc_gan_tpu_torch.ops import ce_kernel as ce
 from deepsc_gan_tpu_torch.ops import star_kernel as star
-from deepsc_gan_tpu_torch.ops import topk_kernel as topk
 from deepsc_gan_tpu_torch.utils.config import Config, is_star, torch_dtype
 
 # the eval modes whose attack gradient runs a backward through the decoder
@@ -51,26 +51,26 @@ def _attention_errors(side: str, d_model: int, heads: int, calls,
     `heads` heads of d_model / heads."""
     flags = f"--{side}-d-model {d_model} / --{side}-num-heads {heads}"
     dh = d_model // heads if heads > 0 and d_model % heads == 0 else 0
-    errors = []
-    if dh not in attn.HEAD_DIMS:
-        errors.append(f"{flags}: the attention kernels K1/K2 take head "
-                      f"widths {attn.HEAD_DIMS}")
-    if heads > attn.MAX_HEADS:
-        errors.append(f"--{side}-num-heads {heads}: K1/K2 take at most "
-                      f"{attn.MAX_HEADS} heads")
+    if not attn.takes_head_dim(dh):
+        return [f"{flags}: the attention kernels K1/K2 take heads that "
+                f"divide the width, of widths 1 to {attn.MAX_HEAD_DIM}"]
+    if not backward or dtype != torch.float32 or attn.is_wide(heads, dh):
+        return []
     for lq, lk, flag in calls:
-        if backward and dtype == torch.float32 and not errors:
-            need = attn.smem_bytes(attn.KERNEL_BWD, torch.float32, lq,
-                                   lk, heads, dh)
-            limit = smem_limit()
-            if need > limit:
-                errors.append(
-                    f"--dtype float32 with {flags} and {flag}: the f32 K2 "
+        need = attn.smem_bytes(attn.KERNEL_BWD, torch.float32, lq, lk,
+                               heads, dh)
+        limit = smem_limit()
+        if need > limit and not attn.is_long(lq, lk):
+            # the short kernel does not fit: the long-length kernels take it
+            need = attn.long_smem_bytes(attn.KERNEL_BWD, torch.float32,
+                                        heads, dh)
+        if need > limit:
+            return [f"--dtype float32 with {flags} and {flag}: the f32 K2 "
                     f"needs {need} bytes of shared memory a block for "
                     f"{lq} x {lk} at {heads} heads of {dh}; the card allows "
                     f"{limit} (use --dtype bfloat16, fewer heads or a "
-                    f"shorter --seq-len)")
-    return errors
+                    f"shorter --seq-len)"]
+    return []
 
 
 def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
@@ -100,12 +100,11 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
                                 cfg.encoder_num_heads),
                                ("decoder", cfg.decoder_d_model,
                                 cfg.decoder_num_heads)):
-            if not star.takes_width(d, heads):
+            if not star.takes_heads(d, heads):
                 errors.append(
                     f"--{side}-d-model {d} / --{side}-num-heads {heads}: the "
-                    f"star satellite kernel K5 takes D in {star.WIDTHS} and "
-                    f"a head width that is a power of two of at least "
-                    f"D / 32")
+                    f"star satellite kernel K5 takes a number of heads that "
+                    f"divides D")
     else:
         seq = f"--seq-len {cfg.seq_len}"
         errors += _attention_errors(
@@ -126,18 +125,9 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
             errors += _attention_errors(
                 "decoder", cfg.decoder_d_model, cfg.decoder_num_heads, calls,
                 train or eval_mode in ATTACK_MODES, dtype, limit)
-    d = cfg.decoder_d_model
-    if train and cfg.fused_ce and (d % ce.D_STEP[dtype] or d > ce.MAX_D):
-        errors.append(f"--decoder-d-model {d} with --dtype {cfg.dtype}: the "
-                      f"CE kernels K3/K4 take a multiple of "
-                      f"{ce.D_STEP[dtype]} up to {ce.MAX_D}")
-    if eval_mode == "beam":
-        if d % topk.D_STEP or d > ce.MAX_D:
-            errors.append(f"--decoder-d-model {d}: the beam scorer K6 takes "
-                          f"a multiple of {topk.D_STEP} up to {ce.MAX_D}")
-        if not 1 <= beam_size <= min(topk.MAX_K, cfg.vocab_size):
-            errors.append(f"--beam-size {beam_size}: the beam scorer K6 "
-                          f"takes 1 to {topk.MAX_K}")
+    if eval_mode == "beam" and not 1 <= beam_size <= cfg.vocab_size:
+        errors.append(f"--beam-size {beam_size}: the beam scorer K6 takes "
+                      f"1 to the vocab size {cfg.vocab_size}")
     return errors
 
 

@@ -12,6 +12,16 @@ outside the square root, as `torch.optim.Adam` does.
   at decay_steps), with Adam's defaults.
 
 Schedules compute in f32, as optax's do under jit.
+
+On CUDA the optimizer is `torch.optim.Adam(capturable=True, fused=True)`
+with the learning rate a 0-dim device tensor: its count and bias
+corrections live on the device, so a captured CUDA graph of the update
+replays with the count it has reached, and `set_lr` writes each update's
+rate into the tensor before the update (or the replay) runs. The fused
+update is one kernel over every parameter (after one that advances the
+counts), in a graph and in an eager step alike. On the CPU, where the
+update is not captured, it is PyTorch's default Adam with the rate a
+Python float.
 """
 
 from __future__ import annotations
@@ -60,11 +70,23 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate to `lr`: written into the device tensor
+    of a capturable optimizer (a fill, no host-to-device copy), else set."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 5e-4,
                    schedule: str = "constant", d_model: int = 128,
                    warmup_steps: int = 4000, decay_steps: int = 40000
                    ) -> Tuple[torch.optim.Adam, Schedule]:
-    """-> (Adam over `params`, the schedule step -> lr)."""
+    """-> (Adam over `params`, the schedule step -> lr); capturable and
+    fused, with a device tensor for the rate, when the parameters are on
+    CUDA."""
     betas, eps = (0.9, 0.999), 1e-8
     if schedule == "noam":
         lr_fn = noam_schedule(d_model, warmup_steps)
@@ -78,4 +100,10 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 5e-4,
             return lr
     else:
         raise ValueError(f"schedule {schedule!r}: constant, noam or cosine")
+    params = list(params)
+    device = params[0].device if params else torch.device("cpu")
+    if device.type == "cuda":
+        rate = torch.full((), lr_fn(0), dtype=torch.float32, device=device)
+        return torch.optim.Adam(params, lr=rate, betas=betas, eps=eps,
+                                capturable=True, fused=True), lr_fn
     return torch.optim.Adam(params, lr=lr_fn(0), betas=betas, eps=eps), lr_fn

@@ -15,10 +15,11 @@ Per row and head: the scores q . k_j / sqrt(Dh) over the five in f32, a
 softmax over the five and sum_j w_j v_j, returned as (B, L, D) in q's dtype.
 The kernel reads the ring unstacked (a neighbour by index); the plain
 version `ring_reference` stacks it and runs `satellite_reference`, the
-TPU package's `_xla_satellite` on the stacked, flattened contexts. On CUDA
-tensors the wrapper launches the kernel (and counts the launch) or raises;
-on CPU tensors it runs the plain version, which is also what the kernel is
-held against on the card.
+TPU package's `_xla_satellite` on the stacked, flattened contexts. A width
+or head layout the kernel does not take goes to `csrc/star_wide.cu`. On
+CUDA tensors the wrapper launches the kernel (and counts the launch) or
+raises; on CPU tensors it runs the plain version, which is also what the
+kernel is held against on the card.
 
 The TPU backward is an analytic XLA VJP, not a Pallas kernel, so the
 backward here is plain PyTorch on every device: `satellite_backward` on the
@@ -41,28 +42,41 @@ from deepsc_gan_tpu_torch.ops import build
 from deepsc_gan_tpu_torch.ops.ce_kernel import _on_cuda
 
 KERNEL = "star_satellite"
+KERNEL_WIDE = "star_wide"
 CONTEXTS = 5
-# what the kernel takes (csrc/star_satellite.cu): a warp per row, each lane
-# holding D / 32 consecutive elements, so D is 32 x (2, 4 or 8); a head's
-# Dh elements span a power of two of lanes; any B and L
+# what the tuned kernel takes (csrc/star_satellite.cu): a warp per row, each
+# lane holding D / 32 consecutive elements, so D is 32 x (2, 4 or 8); a
+# head's Dh elements span a power of two of lanes; any B and L. Any other D
+# and head count that divides it goes to the wide kernel
+# (csrc/star_wide.cu: a warp per row and head)
 WIDTHS = (64, 128, 256)
 
 
 def takes_width(d: int, heads: int) -> bool:
-    """Whether K5 takes width D = d in `heads` heads: D in WIDTHS and a
-    head width that is a power of two of at least D / 32."""
+    """Whether the tuned K5 takes width D = d in `heads` heads: D in WIDTHS
+    and a head width that is a power of two of at least D / 32."""
     dh = d // heads if heads > 0 and d % heads == 0 else 0
     return d in WIDTHS and dh >= d // 32 and dh & (dh - 1) == 0
 
 
+def takes_heads(d: int, heads: int) -> bool:
+    """Whether some K5 kernel takes width D = d in `heads` heads: any
+    number of heads that divides D, as the star model's heads must."""
+    return heads > 0 and d > 0 and d % heads == 0
+
+
 # Launches of K5 since the last reset (the wrapper adds one per launch and
-# nowhere else); read by chip_smoke.py to show that a path went through it.
+# nowhere else; `wide_launches` counts the calls among them that went to
+# the wide kernel); read by chip_smoke.py to show that a path went through
+# it.
 launches = 0
+wide_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, wide_launches
     launches = 0
+    wide_launches = 0
 
 
 def contexts(x, xe, xs):
@@ -130,27 +144,29 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _BOUND = {}
 
 
-def _bind(dtype):
-    """The built library's launch function for `dtype`, with its ctypes
-    signature declared."""
-    if dtype not in _BOUND:
-        fn = getattr(build.load(KERNEL), f"deepsc_star_satellite_"
-                                         f"{_SUFFIX[dtype]}")
+def _bind(kernel, dtype):
+    """The launch function of the built library `kernel` (the tuned or the
+    wide one) for `dtype`, with its ctypes signature declared (both take
+    the same arguments)."""
+    if (kernel, dtype) not in _BOUND:
+        entry = "star_satellite" if kernel == KERNEL else "star_wide"
+        fn = getattr(build.load(kernel), f"deepsc_{entry}_{_SUFFIX[dtype]}")
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _BOUND[dtype] = fn
-    return _BOUND[dtype]
+        _BOUND[(kernel, dtype)] = fn
+    return _BOUND[(kernel, dtype)]
 
 
 RING = ("q", "kh", "vh", "ke", "ve", "ks", "vs")
 
 
 def _check(ring, heads):
-    """What the kernel takes: q, kh, vh, ke, ve (B, L, D) and ks, vs (B, D)
-    of one dtype, f32 or bf16; D in WIDTHS and a head width Dh that is a
-    power of two of at least D / 32; all contiguous, 16-byte aligned, on
-    q's device. Any B and L."""
+    """What the kernels take: q, kh, vh, ke, ve (B, L, D) and ks, vs (B, D)
+    of one dtype, f32 or bf16; heads dividing D (the tuned kernel: D in
+    WIDTHS and a head width Dh that is a power of two of at least D / 32;
+    the wide kernel any other); all contiguous, 16-byte aligned, on q's
+    device. Any B and L."""
     q = ring[0]
     if q.dtype not in _SUFFIX or any(t.dtype != q.dtype for t in ring):
         raise TypeError(f"K5 takes q, kh, vh, ke, ve, ks, vs of one dtype, "
@@ -163,10 +179,9 @@ def _check(ring, heads):
                          f"(B, L, D) for q, kh, vh, ke, ve and (B, D) for "
                          f"ks, vs)")
     d = q.shape[-1]
-    if not takes_width(d, heads):
-        raise ValueError(f"D {d} with {heads} heads: K5 takes D in {WIDTHS} "
-                         f"and a head width that is a power of two of at "
-                         f"least D / 32")
+    if not takes_heads(d, heads):
+        raise ValueError(f"D {d} with {heads} heads: K5 takes a number of "
+                         f"heads that divides D")
     for name, t in zip(RING, ring):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -184,14 +199,17 @@ def star_satellite(q, kh, vh, ke, ve, ks, vs, heads: int):
         return ring_reference(*ring, heads)
     _check(ring, heads)
     b, length, d = q.shape
+    wide = not takes_width(d, heads)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _bind(q.dtype)(*(t.data_ptr() for t in ring), out.data_ptr(), b,
-                         length, d, heads, stream)
+    err = _bind(KERNEL_WIDE if wide else KERNEL, q.dtype)(
+        *(t.data_ptr() for t in ring), out.data_ptr(), b, length, d, heads,
+        stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: CUDA error {err}")
-    global launches
+    global launches, wide_launches
     launches += 1
+    wide_launches += wide
     return out
 
 

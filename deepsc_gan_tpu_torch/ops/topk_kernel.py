@@ -15,8 +15,10 @@ launches the kernel (and counts the launch) or raises; on CPU tensors it
 runs the plain version, which is also what the kernel is held against on
 the card. Each dtype has one kernel: bf16 multiplies on the tensor cores
 (wgmma) and f32 on the CUDA cores in exact f32, which the f32 beam id
-checks need. The vocab splits come from `ce_kernel.vocab_splits` fed by
-the library's tiles and blocks per SM (`deepsc_topk_tiling_*`).
+checks need. Past k = 8, or at a width off its step, the wide kernels
+(`csrc/topk_wide.cu`) take the call. The vocab splits come from
+`ce_kernel.vocab_splits` fed by the library's tiles and blocks per SM
+(`deepsc_topk_tiling_*`, `deepsc_topk_wide_tiling_*`).
 
 `take_top` is the selection both use, and beam search's second stage too:
 k rounds of (max, lowest index reaching the max), each winner masked to
@@ -39,19 +41,33 @@ from deepsc_gan_tpu_torch.ops.ce_kernel import (
 )
 
 KERNEL = "topk"
+KERNEL_WIDE = "topk_wide"
 NEG = -1e30
 IBIG = 2 ** 30
-MAX_K = 8       # the kernel keeps a sorted list of at most 8 per row
-D_STEP = 8      # D a multiple of 8, up to ce_kernel.MAX_D
+# what the tuned kernel takes: k up to MAX_K (a sorted list of at most 8 a
+# row in registers), D a multiple of D_STEP up to ce_kernel.MAX_D; any
+# other k <= V or D >= 1 goes to the wide kernels (csrc/topk_wide.cu: the
+# logits through a workspace, each vocab split's top k, then a merge)
+MAX_K = 8
+D_STEP = 8
 
 # Launches of K6 since the last reset (the wrapper adds one per launch and
-# nowhere else); read by chip_smoke.py to show that a path went through it.
+# nowhere else; `wide_launches` counts the calls among them that went to
+# the wide kernels); read by chip_smoke.py to show that a path went through
+# it.
 launches = 0
+wide_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, wide_launches
     launches = 0
+    wide_launches = 0
+
+
+def is_wide(d: int, k: int) -> bool:
+    """Whether width D and k go to the wide kernels."""
+    return k > MAX_K or d % D_STEP != 0 or d > MAX_D
 
 
 def take_top(x: torch.Tensor, cols: torch.Tensor, k: int):
@@ -109,22 +125,34 @@ def _bind(dtype):
     return _BOUND[dtype]
 
 
+def _bind_wide(dtype):
+    """The wide library's launch function for `dtype`, with its ctypes
+    signature declared."""
+    key = (KERNEL_WIDE, dtype)
+    if key not in _BOUND:
+        fn = getattr(build.load(KERNEL_WIDE),
+                     f"deepsc_topk_wide_{_SUFFIX[dtype]}")
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
 def _check(h, W, b, k):
-    """What the kernel takes: h (N, D) and W (V, D) of one dtype, f32 or
-    bf16, D a multiple of 8 up to 256; b (V,) f32; 1 <= k <= min(8, V); all
-    contiguous, 16-byte aligned, on h's device."""
+    """What the kernels take: h (N, D) and W (V, D) of one dtype, f32 or
+    bf16, any D >= 1; b (V,) f32; 1 <= k <= V; all contiguous, 16-byte
+    aligned, on h's device."""
     if h.dtype not in _SUFFIX or W.dtype != h.dtype:
         raise TypeError(f"K6 takes h and W of one dtype, float32 or "
                         f"bfloat16, not {h.dtype} and {W.dtype}")
-    if h.dim() != 2 or W.dim() != 2 or W.shape[1] != h.shape[1]:
+    if h.dim() != 2 or W.dim() != 2 or W.shape[1] != h.shape[1] \
+            or h.shape[1] < 1:
         raise ValueError(f"bad shapes h {tuple(h.shape)} W {tuple(W.shape)}"
-                         f" (want (N, D) and (V, D))")
-    d, v = h.shape[1], W.shape[0]
-    if d % D_STEP or d > MAX_D:
-        raise ValueError(f"D {d}: K6 takes a multiple of {D_STEP} up to "
-                         f"{MAX_D}")
-    if not 1 <= k <= min(MAX_K, v):
-        raise ValueError(f"k {k}: K6 takes 1 <= k <= {MAX_K} and k <= V")
+                         f" (want (N, D) and (V, D), D >= 1)")
+    v = W.shape[0]
+    if not 1 <= k <= v:
+        raise ValueError(f"k {k}: K6 takes 1 <= k <= V = {v}")
     if b.dtype != torch.float32 or tuple(b.shape) != (v,):
         raise ValueError(f"b must be float32 ({v},)")
     for t in (h, W, b):
@@ -144,30 +172,46 @@ def topk_logits(h, W, b, k: int = 4):
         return topk_logits_reference(h, W, b, k)
     h, W, b = _operands(h, W, b)
     _check(h, W, b, k)
-    fn, smem_bytes = _bind(h.dtype)
-    props = torch.cuda.get_device_properties(h.device)
-    if smem_bytes(h.shape[1]) > props.shared_memory_per_block_optin:
-        raise ValueError(f"K6 needs {smem_bytes(h.shape[1])} bytes of shared "
-                         f"memory per block; the device allows "
-                         f"{props.shared_memory_per_block_optin}")
     (n, d), v = h.shape, W.shape[0]
+    props = torch.cuda.get_device_properties(h.device)
+    wide = is_wide(d, k)
+    if not wide:
+        fn, smem_bytes = _bind(h.dtype)
+        if smem_bytes(d) > props.shared_memory_per_block_optin:
+            raise ValueError(f"K6 needs {smem_bytes(d)} bytes of shared "
+                             f"memory per block; the device allows "
+                             f"{props.shared_memory_per_block_optin}")
     splits = vocab_splits(n, v, props.multi_processor_count,
-                          *tiling(KERNEL, h.dtype, d, h.device))
+                          *tiling(KERNEL_WIDE if wide else KERNEL, h.dtype,
+                                  d, h.device))
     dev = h.device
     vals = torch.empty((n, k), dtype=torch.float32, device=dev)
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
     lse = torch.empty(n, dtype=torch.float32, device=dev)
-    part_v = torch.empty((splits, n, MAX_K), dtype=torch.float32, device=dev)
-    part_i = torch.empty((splits, n, MAX_K), dtype=torch.int32, device=dev)
+    listed = k if wide else MAX_K
+    part_v = torch.empty((splits, n, listed), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((splits, n, listed), dtype=torch.int32, device=dev)
     part_ms = torch.empty((splits, n, 2), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), lse.data_ptr(), part_v.data_ptr(),
-             part_i.data_ptr(), part_ms.data_ptr(), n, d, v, k, splits,
-             stream)
+    if wide:
+        # the wide kernels' (N, V) f32 logits, written once and read by the
+        # split selection
+        logits = torch.empty((n, v), dtype=torch.float32, device=dev)
+        err = _bind_wide(h.dtype)(
+            h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), lse.data_ptr(), logits.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), part_ms.data_ptr(), n, d,
+            v, k, splits, stream)
+    else:
+        err = fn(h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), lse.data_ptr(), part_v.data_ptr(),
+                 part_i.data_ptr(), part_ms.data_ptr(), n, d, v, k, splits,
+                 stream)
     if err != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
-    global launches
+    global launches, wide_launches
     launches += 1
+    wide_launches += wide
     return vals, idx, lse
 

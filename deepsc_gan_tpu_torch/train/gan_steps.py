@@ -37,6 +37,7 @@ import torch
 from deepsc_gan_tpu_torch.ops.fused_ce import fused_ce_loss
 from deepsc_gan_tpu_torch.ops.losses import loss_function
 from deepsc_gan_tpu_torch.ops.masks import create_masks
+from deepsc_gan_tpu_torch.ops.schedule import set_lr
 from deepsc_gan_tpu_torch.train.attacks import fgm_normalize
 from deepsc_gan_tpu_torch.train.steps import (
     TrainState,
@@ -77,8 +78,7 @@ def selective_update(state: TrainState, grads: Dict[str, torch.Tensor],
     their values and moments."""
     count = state.step
     opt = state.optimizer
-    for group in opt.param_groups:
-        group["lr"] = state.schedule(count)
+    set_lr(opt, state.schedule(count))
     for name, p in state.model.named_parameters():
         if not mask[name]:
             p.grad = None
@@ -91,7 +91,11 @@ def selective_update(state: TrainState, grads: Dict[str, torch.Tensor],
                 p, memory_format=torch.preserve_format)
             st["exp_avg_sq"] = torch.zeros_like(
                 p, memory_format=torch.preserve_format)
-        st["step"] = torch.tensor(float(count), dtype=torch.float32)
+        if "step" not in st:  # on the parameter's device when capturable
+            st["step"] = torch.zeros(
+                (), dtype=torch.float32,
+                device=p.device if opt.defaults["capturable"] else None)
+        st["step"].fill_(float(count))
     opt.step()
     state.step += 1
 

@@ -12,6 +12,10 @@ order: the SNR draw (`train_snr_random`), the channel (its noise, then for
 a fading channel its fade), then the dropout masks in forward order. A
 caller may pass the draws instead, as the parity tests do with the normals
 JAX draws.
+
+`make_train_multi_step` runs K plain steps a call, the counterpart of the
+JAX package's `lax.scan` over K steps: on the CPU K eager steps, on CUDA
+K replays of one captured CUDA graph of the step (`train/graphed.py`).
 """
 
 from __future__ import annotations
@@ -23,12 +27,12 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from deepsc_gan_tpu_torch.models.channel import draw_channel
+from deepsc_gan_tpu_torch.models.channel import draw_channel, f32_scalar
 from deepsc_gan_tpu_torch.models.gan import Conv1dSame
 from deepsc_gan_tpu_torch.ops.fused_ce import fused_ce_loss
 from deepsc_gan_tpu_torch.ops.losses import loss_function
 from deepsc_gan_tpu_torch.ops.masks import create_masks
-from deepsc_gan_tpu_torch.ops.schedule import Schedule, make_optimizer
+from deepsc_gan_tpu_torch.ops.schedule import Schedule, make_optimizer, set_lr
 from deepsc_gan_tpu_torch.train.attacks import (
     fgm_normalize,
     fgm_perturbation,
@@ -54,19 +58,26 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]] = None
     ema_decay: float = 0.0
 
-    def apply_gradients(self) -> None:
-        """One Adam update from the gradients on the parameters, at the
-        learning rate of the pre-increment count; then the EMA shadow
-        (d * ema + (1 - d) * params)."""
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+    def set_lr(self) -> None:
+        """The learning rate at the pre-increment count, into the
+        optimizer (on CUDA a fill of its device tensor)."""
+        set_lr(self.optimizer, self.schedule(self.step))
+
+    def update(self) -> None:
+        """One Adam update from the gradients on the parameters at the rate
+        `set_lr` wrote; then the EMA shadow (d * ema + (1 - d) * params).
+        Device work alone, so a captured graph may hold it."""
         self.optimizer.step()
         if self.ema is not None:
             d = self.ema_decay
             with torch.no_grad():
                 for name, p in self.model.named_parameters():
                     self.ema[name].mul_(d).add_(p, alpha=1.0 - d)
+
+    def apply_gradients(self) -> None:
+        """`set_lr`, `update`, and the count up by one."""
+        self.set_lr()
+        self.update()
         self.step += 1
 
 
@@ -131,8 +142,9 @@ def _step_noise(cfg: Config, gen: torch.Generator, n_std, device):
     if cfg.train_snr_mix >= 1.0:
         return drawn
     use = torch.rand((), generator=gen, device=device) < cfg.train_snr_mix
-    return torch.where(use, drawn, torch.as_tensor(
-        n_std, dtype=torch.float32, device=device))
+    kept = (f32_scalar(n_std, device) if isinstance(n_std, torch.Tensor)
+            else torch.full((), n_std, dtype=torch.float32, device=device))
+    return torch.where(use, drawn, kept)
 
 
 def _loss_kwargs(cfg: Config) -> dict:
@@ -228,8 +240,9 @@ def make_train_step(model: nn.Module, cfg: Config, plain: bool = False,
     lkw = _loss_kwargs(cfg)
     forward_loss = make_forward_loss(model, cfg, lkw, plain)
 
-    def step(state: TrainState, inp, tar, gen, n_std, noise=None,
-             fade=None):
+    def forward_backward(state: TrainState, inp, tar, gen, n_std,
+                         noise=None, fade=None):
+        """The step's loss, its gradients left on the parameters."""
         tar_inp, tar_real = _shift_targets(tar)
         if full_target:
             tar_real = tar
@@ -242,10 +255,72 @@ def make_train_step(model: nn.Module, cfg: Config, plain: bool = False,
         loss = forward_loss(inp, tar_inp, tar_real, noise, n_std_t, enc_mask,
                             combined_mask, dec_mask, gen, fade=fade)
         loss.backward()
-        state.apply_gradients()
-        return state, loss.detach()
+        return loss.detach()
 
+    def step(state: TrainState, inp, tar, gen, n_std, noise=None,
+             fade=None):
+        loss = forward_backward(state, inp, tar, gen, n_std, noise, fade)
+        state.apply_gradients()
+        return state, loss
+
+    step.forward_backward = forward_backward
     return step
+
+
+def make_train_multi_step(model: nn.Module, cfg: Config,
+                          full_target: bool = False) -> Callable:
+    """K plain steps a call, the counterpart of the JAX package's
+    `make_train_multi_step` (`lax.scan` over K steps, one dispatch). ->
+    `multi_step(state, inps, tars, gen, n_std, noise=None) -> (state,
+    losses (K,))`, inps and tars (K, B, L) stacks (`data/loader.py:
+    stacked_batches`) and `noise` the channel's normals (K, B, L,
+    channel_dim), drawn from `gen` when not given; the state is updated in
+    place as K calls of `make_train_step`'s step would (`full_target` as
+    there).
+
+    On the CPU: K eager steps. On CUDA: the step captured once per shape as
+    a CUDA graph after a warm-up step (the first step of the first call,
+    run eagerly on a side stream), then replayed once per remaining step
+    with the batch copied into the graph's static input. `gen` is
+    registered with the graph, so each replay draws its channel noise and
+    dropout masks from the generator's state at that point, the values an
+    eager step would draw (`train/graphed.py`). One graph of one step, not
+    of K: K replays cost K launches of the graph, and a call of any K takes
+    the same graph. Its capture raises if it fails; nothing falls back to
+    the eager step (`--scan-steps 1` is that). A new batch shape, or noise
+    given where it was drawn, captures a graph of its own."""
+    step = make_train_step(model, cfg, full_target=full_target)
+    graphs = {}
+
+    def multi_step(state: TrainState, inps, tars, gen, n_std, noise=None):
+        k = inps.shape[0]
+        per = [None] * k if noise is None else list(noise)
+        if inps.device.type != "cuda":
+            losses = []
+            for i in range(k):
+                state, loss = step(state, inps[i], tars[i], gen, n_std,
+                                   per[i])
+                losses.append(loss)
+            return state, torch.stack(losses)
+        from deepsc_gan_tpu_torch.train.graphed import GraphedStep, warm_up
+
+        key = (tuple(inps.shape[1:]), tuple(tars.shape[1:]), noise is None)
+        losses = torch.empty(k, dtype=torch.float32, device=inps.device)
+        first = 0
+        if key not in graphs:
+            state, losses[0] = warm_up(step, state, inps[0], tars[0], gen,
+                                       n_std, per[0])
+            graphs[key] = GraphedStep(step.forward_backward, state, inps[0],
+                                      tars[0], gen, n_std, per[0])
+            first = 1
+        graph = graphs[key]
+        for i in range(first, k):
+            losses[i] = graph.replay(state, inps[i], tars[i], gen, n_std,
+                                     per[i])
+        return state, losses
+
+    multi_step.graphs = graphs
+    return multi_step
 
 
 def make_train_attack_step(model: nn.Module, cfg: Config,

@@ -201,10 +201,10 @@ def test_ce_wrapper_rejects_what_the_kernels_do_not_take(bad):
         h, W = h.half(), W.half()
     elif bad == "mixed":
         W = W.float()
-    elif bad == "width":
-        h, W, b, labels = _ok_args(d=12)
-    elif bad == "wide":
-        h, W, b, labels = _ok_args(d=264)
+    elif bad == "width":  # no columns at all
+        h, W, b, labels = _ok_args(d=0)
+    elif bad == "wide":  # h wider than the table
+        h = _ok_args(d=264)[0]
     elif bad == "bias":
         b = torch.zeros(99)
     elif bad == "labels":
@@ -218,12 +218,27 @@ def test_ce_wrapper_rejects_what_the_kernels_do_not_take(bad):
     elif bad == "layout":
         W = torch.zeros((128, 100), dtype=W.dtype)
     elif bad == "bf16_width":
-        # a multiple of 8 the f32 kernels take, but not of the 16 columns
-        # of a bf16 wgmma k-step
+        # a multiple of 8 the tuned f32 kernels take, but not of the 16
+        # columns of a bf16 wgmma k-step: the wide kernels take it; a bf16
+        # h against an f32 table of that width is still refused
         ce._check(*_ok_args(torch.float32, d=24))
+        ce._check(*_ok_args(d=24))
+        assert ce.is_wide(torch.bfloat16, 24)
+        assert not ce.is_wide(torch.float32, 24)
         h, W, b, labels = _ok_args(d=24)
+        W = W.float()
     with pytest.raises((TypeError, ValueError)):
         ce._check(h, W, b, labels, *rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12, 24, 200, 264, 512])
+def test_ce_wrapper_takes_any_width(dtype, d):
+    """Widths off the tuned kernels' step or past 256 pass the checks and
+    go to the wide kernels on the card; the training width stays tuned."""
+    ce._check(*_ok_args(dtype, d=d))
+    assert ce.is_wide(dtype, d) == (d % ce.D_STEP[dtype] != 0 or d > 256)
+    assert not ce.is_wide(dtype, 128)
 
 
 def test_ce_wrappers_never_fall_back_off_the_cpu():

@@ -115,8 +115,10 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         attn.fused_attention(q, k.transpose(1, 2).contiguous()
                              .transpose(1, 2), v, bias, 8, 4.0)
+    # one head of 512: wider than the wide kernels' 256
+    q, k, v, bias = _inputs(1, 4, 31, 31, 1, 512, torch.float32, cuda)
     with pytest.raises(ValueError, match="width"):
-        attn.fused_attention(q, k, v, bias, 2, 8.0)  # Dh = 64
+        attn.fused_attention(q, k, v, bias, 1, 8.0)
 
 
 def test_tiny_sweep_kernel_ids_equal_plain_ids(cuda):
@@ -369,16 +371,22 @@ def test_ce_tiling_comes_from_the_kernels(cuda, kernel, dtype, vocab_rows):
 
 
 @pytest.mark.parametrize("d", [8, 24])
-def test_ce_wrappers_refuse_a_bf16_width_off_the_wgmma_step(cuda, d):
-    """The bf16 kernels take D a multiple of 16 (one wgmma k-step): D = 8
-    or 24 raises before any launch, and nothing else runs in their place."""
+def test_ce_wrappers_take_a_bf16_width_off_the_wgmma_step(cuda, d):
+    """The tuned bf16 kernels take D a multiple of 16 (one wgmma k-step):
+    D = 8 or 24 goes to the wide kernels, counted as theirs, and matches
+    the plain versions."""
     h, W, b, labels, g = _ce_inputs(cuda, torch.bfloat16, 64, d, 300)
     ce.reset_launches()
-    with pytest.raises(ValueError, match="multiple of 16"):
-        ce.ce_fwd(h, W, b, labels)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        ce.ce_bwd(h, W, b, labels, torch.zeros(64, device=cuda), g)
-    assert (ce.fwd_launches, ce.bwd_launches) == (0, 0)
+    cel, lse = ce.ce_fwd(h, W, b, labels)
+    grads = ce.ce_bwd(h, W, b, labels, lse, g)
+    want = ce.ce_fwd_reference(h, W, b, labels)
+    want_grads = ce.ce_bwd_reference(h, W, b, labels, want[1], g)
+    torch.cuda.synchronize()
+    assert (ce.fwd_launches, ce.bwd_launches) == (1, 1)
+    assert (ce.wide_fwd_launches, ce.wide_bwd_launches) == (1, 1)
+    assert _err(cel, want[0]) <= 3.2e-2 and _err(lse, want[1]) <= 3.2e-2
+    for a, r in zip(grads, want_grads):
+        assert _err(a, r, relative=True) <= 3.2e-2
 
 
 def test_tiny_train_step_kernels_equal_plain_step(cuda):
@@ -526,10 +534,11 @@ def test_topk_kernel_ties_go_to_the_lowest_index(cuda, dtype):
 
 
 def test_topk_wrapper_raises_on_an_unsupported_k(cuda):
+    """k outside 1..V (k = 9 and more go to the wide kernels)."""
     h = torch.randn((4, 16), device=cuda)
     W = torch.randn((40, 16), device=cuda)
     b = torch.zeros(40, device=cuda)
-    for k in (0, 9):
+    for k in (0, 41):
         with pytest.raises(ValueError, match="k"):
             topk.topk_logits(h, W, b, k)
 
@@ -591,11 +600,11 @@ def test_star_kernel_matches_plain_version(cuda, dtype, tol, b, l, d, h):
 
 def test_star_wrapper_raises_on_an_unsupported_shape(cuda):
     ring = _ring(cuda, torch.float32, 2, 4, 128)
-    with pytest.raises(ValueError, match="K5 takes D"):
-        star.star_satellite(*ring, 64)        # Dh 2: under D / 32
-    with pytest.raises(ValueError, match="K5 takes D"):
+    with pytest.raises(ValueError, match="divides D"):
+        star.star_satellite(*ring, 3)         # heads that do not divide D
+    with pytest.raises(ValueError, match="divides D"):
         star.star_satellite(*(t[..., :96].contiguous() for t in ring),
-                            6)                # D 96
+                            5)                # D 96, 5 heads
     with pytest.raises(ValueError, match="shapes"):
         star.star_satellite(*ring[:5], ring[1], ring[6], 8)  # ks (B, L, D)
     with pytest.raises(ValueError, match="contiguous"):
@@ -691,14 +700,16 @@ def test_softmax_xent_with_a_fixed_table_runs_dh_only(cuda):
     assert torch.equal(*grads)
 
 
-@pytest.mark.parametrize("heads,dh,refused", [(16, 16, True), (8, 16, False),
-                                              (8, 32, False),
-                                              (16, 32, True)])
+@pytest.mark.parametrize("heads,dh,short_fits", [(16, 16, False),
+                                                 (8, 16, True),
+                                                 (8, 32, True),
+                                                 (16, 32, False)])
 def test_envelope_reads_the_f32_backward_size_from_the_library(
-        cuda, heads, dh, refused):
-    """`cli train` at f32 (seq_len 32): the check at command start refuses
-    the f32 K2 exactly where its library's shared-memory size for the
-    encoder's 32 x 32 block exceeds the card's, and names that size."""
+        cuda, heads, dh, short_fits):
+    """`cli train` at f32 (seq_len 32): where the f32 K2's short kernel
+    needs more shared memory than the card has (its library's size for the
+    encoder's 32 x 32 block), the long-length kernels take the call, their
+    size fits, and the check at command start refuses nothing."""
     cfg = Config(dtype="float32").replace(
         encoder_d_model=heads * dh, encoder_num_heads=heads,
         decoder_d_model=heads * dh, decoder_num_heads=heads)
@@ -706,12 +717,12 @@ def test_envelope_reads_the_f32_backward_size_from_the_library(
     need = attn._bind(attn.KERNEL_BWD, torch.float32)[1](32, 32, heads, dh)
     limit = torch.cuda.get_device_properties(cuda) \
         .shared_memory_per_block_optin
-    assert (need > limit) == refused
-    if refused:
-        assert "--dtype float32" in errors[0]
-        assert f"needs {need} bytes" in errors[0]
-    else:
-        assert not any("--dtype" in e for e in errors), errors
+    assert (need <= limit) == short_fits
+    assert attn.uses_long(attn.KERNEL_BWD, torch.float32, 32, 32, heads, dh,
+                          limit) == (not short_fits)
+    assert attn.long_smem_bytes(attn.KERNEL_BWD, torch.float32, heads,
+                                dh) <= limit
+    assert errors == []
 
 
 @pytest.mark.parametrize("kind,eq,per_sample", [("Rayleigh", None, False),
@@ -769,3 +780,457 @@ def test_tiny_attack_step_kernels_equal_plain_step(cuda):
     for (name, a), b in zip(models[0].named_parameters(),
                             models[1].parameters()):
         assert _err(a.grad, b.grad, relative=True) <= 1e-4, name
+
+
+# ---- the widened shapes: the f32 K2 past its short kernel's shared
+# memory, and the wide kernels of K1/K2, K3/K4, K5 and K6 ----
+
+
+def test_f32_k2_whose_short_kernel_does_not_fit_takes_the_long_kernels(
+        cuda):
+    """16 heads of 16 at Lq = Lk = 31 in f32: the short kernel's shared
+    memory exceeds the card's, so the wrapper takes the long-length
+    kernels (one tile of keys), with and without dbias, against the plain
+    version."""
+    limit = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    assert attn.uses_long(attn.KERNEL_BWD, torch.float32, 31, 31, 16, 16,
+                          limit)
+    q, k, v, bias = _blocked_inputs(64, 31, 31, 16, 16, torch.float32, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4))
+    for dbias in (False, True):
+        attn.reset_launches()
+        got = attn.attention_bwd(q, k, v, bias, g, 16, 4.0, dbias)
+        want = attn.attention_bwd_reference(q, k, v, bias, g, 16, 4.0, dbias)
+        torch.cuda.synchronize()
+        assert (attn.bwd_launches, attn.wide_bwd_launches) == (1, 0)
+        for a, r in zip(got, want):
+            if r is not None:
+                assert _err(a, r) <= 1e-5
+
+
+WIDE_HEADS = [(32, 16), (8, 24), (8, 25), (4, 64), (32, 64), (2, 128),
+              (32, 128), (1, 256), (3, 5)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("h,dh", WIDE_HEADS)
+@pytest.mark.parametrize("lq,lk", [(31, 31), (31, 32), (40, 33)])
+def test_wide_attention_matches_plain_version(cuda, dtype, tol, h, dh, lq,
+                                              lk):
+    """K1 and K2 at head widths other than 8, 16 and 32 (not multiples of
+    the mma k-step too) and past 16 heads, through the wide kernels, with
+    fully blocked rows: the forward, and dq, dk, dv and dbias, against the
+    plain versions; launches counted as the wide kernels'."""
+    q, k, v, bias = _blocked_inputs(5, lq, lk, h, dh, dtype, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4)).to(dtype)
+    scale = math.sqrt(dh)
+    attn.reset_launches()
+    out = attn.attention_fwd(q, k, v, bias, h, scale)
+    got = attn.attention_bwd(q, k, v, bias, g, h, scale, True)
+    torch.cuda.synchronize()
+    assert (attn.launches, attn.wide_launches, attn.bwd_launches,
+            attn.wide_bwd_launches) == (1, 1, 1, 1)
+    assert _err(out, attn.attention_fwd_reference(q, k, v, bias, h,
+                                                  scale)) <= tol
+    want = attn.attention_bwd_reference(q, k, v, bias, g, h, scale, True)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert _err(a, r) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_attention_bwd_is_bitwise_deterministic(cuda, dtype):
+    """Two wide K2 calls, and one with dbias, give the same dq, dk, dv."""
+    q, k, v, bias = _inputs(5, 16, 31, 31, 32, 64, dtype, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(6)).to(dtype)
+    calls = [attn.attention_bwd(q, k, v, bias, g, 32, 8.0, dbias)[:3]
+             for dbias in (False, False, True)]
+    torch.cuda.synchronize()
+    for other in calls[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(calls[0], other))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("n,d,v", [(100, 200, 1000), (1984, 512, 22234),
+                                   (70, 12, 300), (64, 264, 129),
+                                   (1984, 200, 22234)])
+def test_wide_ce_kernels_match_plain_versions(cuda, dtype, tol, n, d, v):
+    """K3 and K4 past D = 256 and off the tuned steps (D streamed in
+    chunks, the last one ragged), through the wide kernels: ce and lse
+    absolute, dh, dW and db relative to the largest reference value and
+    on the softmax part (tol 1e-3 f32, 2e-3 bf16, as chip_smoke.py's); the
+    dh-only mode's dh bitwise the full mode's; two calls bitwise equal.
+    D = 200 in f32 is a tuned width (a multiple of 8 up to 256): the same
+    checks hold there on the tuned kernels."""
+    wide = int(ce.is_wide(dtype, d))
+    h, W, b, labels, g = _ce_inputs(cuda, dtype, n, d, v)
+    ce.reset_launches()
+    cel, lse = ce.ce_fwd(h, W, b, labels)
+    grads = ce.ce_bwd(h, W, b, labels, lse, g)
+    dh_only = ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True)
+    again = ce.ce_bwd(h, W, b, labels, lse, g)
+    ref_ce, ref_lse = ce.ce_fwd_reference(h, W, b, labels)
+    ref = ce.ce_bwd_reference(h, W, b, labels, ref_lse, g)
+    part = ce.ce_bwd_reference(h, W, b, labels, ref_lse, g, True)
+    torch.cuda.synchronize()
+    assert (ce.fwd_launches, ce.bwd_launches, ce.wide_fwd_launches,
+            ce.wide_bwd_launches, ce.bwd_dh_only_launches) == \
+        (1, 3, wide, 3 * wide, 1)
+    assert _err(cel, ref_ce) <= tol and _err(lse, ref_lse) <= tol
+    soft = {torch.float32: 1e-3, torch.bfloat16: 2e-3}[dtype]
+    for name, a, r, c in zip(("dh", "dW", "db"), grads, ref, part):
+        assert a.shape == r.shape and a.dtype == torch.float32, name
+        assert _err(a, r, relative=True) <= tol, name
+        assert (a - r).abs().max().item() <= soft * c.abs().max().item(), \
+            name
+    assert dh_only[1] is None and torch.equal(dh_only[0], grads[0])
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+def _wide_topk_inputs(device, dtype, n, d, v, seed, mode):
+    gen = torch.Generator(device).manual_seed(seed)
+    if mode == "tie":
+        h = torch.ones((n, d), device=device, dtype=dtype)
+        W = torch.zeros((v, d), device=device, dtype=dtype)
+        b = torch.zeros(v, device=device)
+        b[[v - 3, 7, v // 2, 130, 64, 5000 % v]] = 1.0
+        return h, W, b
+    # dyadic values: every logit exact in f32 whatever the order of the
+    # sums, many exact ties (h at 8, W at 2 over d / 16 keeps them exact)
+    return (_dyadic(gen, (n, d), 8, dtype, device),
+            _dyadic(gen, (v, d), 2, dtype, device),
+            _dyadic(gen, (v,), 8, torch.float32, device)
+            - (3.0 if mode == "negative" else 0.0))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("n,d,k", [(256, 128, 9), (256, 128, 16),
+                                   (100, 128, 64), (256, 200, 4),
+                                   (64, 512, 8), (4864, 128, 9),
+                                   (576, 200, 9)])
+@pytest.mark.parametrize("mode", ["dyadic", "tie", "negative"])
+def test_wide_topk_matches_plain_version(cuda, dtype, tol, n, d, k, mode):
+    """K6 past k = 8 and at D past 256 (the wide kernels: per-split lists,
+    then a merge) and at D = 200 (the tuned kernel) at V = 22,234, with exact ties, with
+    every logit below 0 and with few distinct maxima: the plain version's
+    indices, vals and lse."""
+    h, W, b = _wide_topk_inputs(cuda, dtype, n, d, 22234, 3, mode)
+    topk.reset_launches()
+    got = topk.topk_logits(h, W, b, k)
+    want = topk.topk_logits_reference(h, W, b, k)
+    again = topk.topk_logits(h, W, b, k)
+    torch.cuda.synchronize()
+    # D = 200 is a multiple of the tuned kernel's 8: at k <= 8 it stays
+    assert (topk.launches, topk.wide_launches) == (2,
+                                                   2 * topk.is_wide(d, k))
+    assert got[0].shape == (n, k) and got[1].dtype == torch.int32
+    assert int(got[1].max()) < 22234
+    _topk_equal(got, want, tol)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("b,l,d,h", [(64, 31, 96, 8), (64, 31, 512, 8),
+                                     (1216, 31, 96, 8), (37, 1, 96, 3),
+                                     (37, 2, 512, 16), (64, 31, 128, 64),
+                                     (5, 9, 100, 5), (3, 4, 1024, 2)])
+def test_wide_star_kernel_matches_plain_version(cuda, dtype, tol, b, l, d,
+                                                h):
+    """K5 at widths outside {64, 128, 256} and head layouts the tuned
+    kernel does not take (head widths 2, 12, 20, 32, 64, 512), through the
+    wide kernel, at L = 1 and 2 too: the plain version's output."""
+    ring = _ring(cuda, dtype, b, l, d)
+    star.reset_launches()
+    out = star.star_satellite(*ring, h)
+    ref = star.ring_reference(*ring, h)
+    torch.cuda.synchronize()
+    assert (star.launches, star.wide_launches) == (1, 1)
+    assert out.shape == (b, l, d) and out.dtype == dtype
+    assert _err(out, ref) <= tol
+
+
+# ---- multi-step training: one captured CUDA graph of the step, replayed
+# (train/steps.py:make_train_multi_step, train/graphed.py) ----
+
+
+def _multi_inputs(cuda, cfg, k, seed=6):
+    rng = np.random.default_rng(seed)
+    inps = torch.from_numpy(rng.integers(4, cfg.vocab_size,
+                                         (k, cfg.bs, cfg.seq_len))).to(cuda)
+    inps[:, :, 0] = 1
+    inps[:, :, 9:] = 0
+    return inps
+
+
+def _trained(cuda, cfg, variant, k, graphed, seed=7):
+    """(losses (k,), model, state) of k steps from one init and one
+    generator seed: one multi-step call (graphed on the card) or k eager
+    steps."""
+    model = steps.init_params(make_model(cfg, variant), 3).to(cuda).train()
+    state = steps.create_train_state(model, cfg)
+    gen = torch.Generator(cuda).manual_seed(seed)
+    inps = _multi_inputs(cuda, cfg, k)
+    star_target = variant != "transformer"
+    if graphed:
+        multi = steps.make_train_multi_step(model, cfg,
+                                            full_target=star_target)
+        state, losses = multi(state, inps, inps, gen, 0.5)
+    else:
+        step = steps.make_train_step(model, cfg, full_target=star_target)
+        losses = torch.stack([step(state, x, x, gen, 0.5)[1] for x in inps])
+    torch.cuda.synchronize()
+    return losses, model, state
+
+
+@pytest.mark.parametrize("variant", ["transformer", "star"])
+def test_graphed_steps_equal_eager_steps(cuda, variant):
+    """K = 4 steps at f32 with dropout 0.1 through one multi-step call
+    (warm-up, capture, 3 replays) and through 4 eager steps, same init and
+    generator seed: the losses within rtol 1e-5; params, Adam moments and
+    counts within 1e-5 of their largest value; the count 4 on both."""
+    cfg = (TINY_STAR if variant == "star" else TINY).replace(
+        bs=8, encoder_dropout=0.1, decoder_dropout=0.1)
+    got = _trained(cuda, cfg, variant, 4, True)
+    want = _trained(cuda, cfg, variant, 4, False)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5)
+    assert got[2].step == want[2].step == 4
+    for (name, a), b in zip(got[1].named_parameters(),
+                            want[1].parameters()):
+        assert _err(a, b, relative=True) <= 1e-5, name
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            sa, sb = got[2].optimizer.state[a][key], \
+                want[2].optimizer.state[b][key]
+            assert _err(sa, sb, relative=True) <= 1e-5, (name, key)
+
+
+def _recorded_draws(monkeypatch):
+    """-> the list each draw of a train step goes to, in order: the channel
+    noise (`steps._draw`) and every dropout mask (`bernoulli_`), the tensors
+    themselves. A tensor made while a graph is captured stays alive in the
+    graph's memory, so it holds each replay's values after the replay."""
+    seen = []
+    real_draw, real_bernoulli = steps._draw, torch.Tensor.bernoulli_
+
+    def draw(*a, **kw):
+        out = real_draw(*a, **kw)
+        seen.append(out[0])
+        return out
+
+    def bernoulli(self, *a, **kw):
+        seen.append(real_bernoulli(self, *a, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(steps, "_draw", draw)
+    monkeypatch.setattr(torch.Tensor, "bernoulli_", bernoulli)
+    return seen
+
+
+def test_graphed_replays_draw_fresh_noise_and_masks(cuda, monkeypatch):
+    """Each replay draws its channel noise and dropout masks anew from the
+    registered generator: two replays' differ, and each equals what the
+    eager step draws at that point of the generator's stream."""
+    from deepsc_gan_tpu_torch.train import graphed
+
+    cfg = TINY.replace(bs=8, encoder_dropout=0.1, decoder_dropout=0.1)
+    seen = _recorded_draws(monkeypatch)
+    replays = []
+    real_replay = graphed.GraphedStep.replay
+
+    def replay(self, *a, **kw):
+        out = real_replay(self, *a, **kw)
+        per_step = len(seen) // 2  # the warm-up step's, then the capture's
+        replays.append([t.clone() for t in seen[per_step:]])
+        return out
+
+    monkeypatch.setattr(graphed.GraphedStep, "replay", replay)
+    _trained(cuda, cfg, "transformer", 3, True)
+    assert len(replays) == 2  # step 1 is the eager warm-up
+    seen.clear()
+    _trained(cuda, cfg, "transformer", 3, False)
+    per_step = len(seen) // 3
+    assert per_step == len(replays[0]) > 1
+    assert not torch.equal(replays[0][0], replays[1][0])  # the noise
+    assert not torch.equal(replays[0][-1], replays[1][-1])  # a mask
+    for r, drawn in enumerate(replays):
+        for a, b in zip(drawn, seen[(r + 1) * per_step:]):
+            assert torch.equal(a, b)
+
+
+def _same_updates(got_model, got_state, want_model, want_state, tol=1e-5):
+    """Every parameter, Adam moment and count, and the EMA shadow, of two
+    trained states within `tol` of the reference's largest value; the
+    counts equal."""
+    assert got_state.step == want_state.step
+    for (name, a), b in zip(got_model.named_parameters(),
+                            want_model.parameters()):
+        sa, sb = got_state.optimizer.state[a], want_state.optimizer.state[b]
+        pairs = [("param", a, b)] + [(key, sa[key], sb[key])
+                                     for key in ("exp_avg", "exp_avg_sq")]
+        if want_state.ema is not None:
+            pairs.append(("ema", got_state.ema[name], want_state.ema[name]))
+        for what, x, y in pairs:
+            assert _err(x.cpu(), y.cpu(), relative=True) <= tol, (name, what)
+        assert sa["step"].item() == sb["step"].item(), name
+
+
+def _host_grads(model):
+    return [None if p.grad is None else p.grad.detach().cpu().clone()
+            for p in model.parameters()]
+
+
+# name -> (variant, Config fields): the noam rate moves every count
+UPDATE_CASES = {
+    "ema_noam": ("transformer", dict(ema_decay=0.9, schedule="noam",
+                                     warmup_steps=40)),
+    "star_full_target": ("star", dict(schedule="noam", warmup_steps=40)),
+}
+
+
+@pytest.mark.parametrize("case", list(UPDATE_CASES))
+def test_graphed_updates_equal_the_cpu_updates(cuda, case, monkeypatch):
+    """K = 4 f32 steps through one graphed multi-step call (the fused
+    capturable Adam, its rate written before each replay, its count on the
+    card), each step's gradients read back after it; the same gradients
+    applied from the same init by the CPU's Adam (`apply_gradients`, the
+    update test_torch_multistep.py holds to the JAX package's multi-step):
+    params, Adam moments and the EMA shadow within 1e-5 of their largest
+    value; every count equal. The gradients are the card's own on both
+    sides, so what is compared is the update alone."""
+    from deepsc_gan_tpu_torch.train import graphed
+
+    variant, fields = UPDATE_CASES[case]
+    cfg = (TINY_STAR if variant == "star" else TINY).replace(bs=8,
+                                                             **fields)
+    seen = []
+    real_warm_up, real_replay = graphed.warm_up, graphed.GraphedStep.replay
+
+    def warm_up(step, state, *a, **kw):
+        out = real_warm_up(step, state, *a, **kw)
+        seen.append(_host_grads(state.model))
+        return out
+
+    def replay(self, state, *a, **kw):
+        out = real_replay(self, state, *a, **kw)
+        seen.append(_host_grads(state.model))
+        return out
+
+    monkeypatch.setattr(graphed, "warm_up", warm_up)
+    monkeypatch.setattr(graphed.GraphedStep, "replay", replay)
+    _, model, state = _trained(cuda, cfg, variant, 4, True)
+    assert len(seen) == 4
+    ref_model = steps.init_params(make_model(cfg, variant), 3).train()
+    ref = steps.create_train_state(ref_model, cfg)
+    for grads in seen:
+        for p, g in zip(ref_model.parameters(), grads):
+            p.grad = g
+        ref.apply_gradients()
+    _same_updates(model, state, ref_model, ref)
+
+
+def test_gan_updates_on_the_card_equal_the_cpu_updates(cuda, monkeypatch):
+    """Two f32 GAN steps on the card under noam with the EMA shadow: three
+    selective updates a step over one shared Adam, the device count written
+    before each. The same gradients and masks applied from the same init by
+    `selective_update` over the CPU's Adam, the EMA after every third (the
+    update test_torch_gan.py holds to JAX's GAN step): params, Adam moments
+    and the EMA shadow within 1e-5 of their largest value; every count
+    equal."""
+    from deepsc_gan_tpu_torch.train import gan_steps
+
+    cfg = TINY.replace(bs=8, schedule="noam", warmup_steps=40,
+                       ema_decay=0.9)
+    updates = []
+    real_update = gan_steps.selective_update
+
+    def selective_update(state, grads, mask):
+        updates.append(({n: None if g is None else g.detach().cpu().clone()
+                         for n, g in grads.items()}, mask))
+        return real_update(state, grads, mask)
+
+    monkeypatch.setattr(gan_steps, "selective_update", selective_update)
+    model = steps.init_params(make_model(cfg, "gan"), 3).to(cuda).train()
+    state = steps.create_train_state(model, cfg)
+    step = gan_steps.make_gan_train_step(model, cfg)
+    gen = torch.Generator(cuda).manual_seed(7)
+    for x in _multi_inputs(cuda, cfg, 2):
+        state, _ = step(state, x, x, gen, 0.5)
+    torch.cuda.synchronize()
+    assert len(updates) == 6 and state.step == 6
+    ref_model = steps.init_params(make_model(cfg, "gan"), 3).train()
+    ref = steps.create_train_state(ref_model, cfg)
+    for i, (grads, mask) in enumerate(updates):
+        real_update(ref, grads, mask)
+        if i % 3 == 2:
+            gan_steps._ema(ref)
+    _same_updates(model, state, ref_model, ref)
+
+
+def test_graphed_dispatch_counts_exact_launches(cuda):
+    """After a graphed call of K = 5 steps, and after a second one, each
+    kernel's count is K per call times its launches in one eager step (the
+    capture's counts taken back, each replay's added)."""
+    cfg = TINY.replace(bs=8)
+    model = steps.init_params(make_model(cfg), 3).to(cuda).train()
+    state = steps.create_train_state(model, cfg)
+    multi = steps.make_train_multi_step(model, cfg)
+    gen = torch.Generator(cuda).manual_seed(1)
+    inps = _multi_inputs(cuda, cfg, 5)
+    attn.reset_launches()
+    ce.reset_launches()
+    for call in (1, 2):
+        multi(state, inps, inps, gen, 0.5)
+        torch.cuda.synchronize()
+        per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
+        assert (attn.launches, attn.bwd_launches) == \
+            (5 * call * per_step,) * 2
+        assert (ce.fwd_launches, ce.bwd_launches) == (5 * call,) * 2
+    assert state.step == 10 and len(multi.graphs) == 1
+
+
+def test_graphed_step_recaptures_for_a_new_shape(cuda):
+    """A batch of another length gets a graph of its own; the first graph
+    still serves its shape. A call with another generator than the
+    capture's raises before any step."""
+    cfg = TINY.replace(bs=8)
+    model = steps.init_params(make_model(cfg), 3).to(cuda).train()
+    state = steps.create_train_state(model, cfg)
+    multi = steps.make_train_multi_step(model, cfg)
+    gen = torch.Generator(cuda).manual_seed(1)
+    inps = _multi_inputs(cuda, cfg, 3)
+    for batch in (inps, inps[:, :, :10].contiguous(), inps):
+        _, losses = multi(state, batch, batch, gen, 0.5)
+        torch.cuda.synchronize()
+        assert torch.isfinite(losses).all()
+    assert len(multi.graphs) == 2 and state.step == 9
+    # the graph draws from the generator it was captured with
+    with pytest.raises(ValueError, match="generator"):
+        multi(state, inps, inps, torch.Generator(cuda).manual_seed(1), 0.5)
+    assert state.step == 9
+
+
+def test_graph_capture_failure_raises(cuda):
+    """A step that synchronizes with the host inside the capture (here a
+    hook reading a value back) makes the graphed call raise; nothing falls
+    back to eager steps."""
+    cfg = TINY.replace(bs=8)
+    model = steps.init_params(make_model(cfg), 3).to(cuda).train()
+    def read_back(mod, args, out):
+        float(out.detach().sum())  # a host sync: refused while capturing
+
+    model.channel_encoder.register_forward_hook(read_back)
+    state = steps.create_train_state(model, cfg)
+    multi = steps.make_train_multi_step(model, cfg)
+    inps = _multi_inputs(cuda, cfg, 3)
+    with pytest.raises(RuntimeError):
+        multi(state, inps, inps, torch.Generator(cuda).manual_seed(1), 0.5)
+    torch.cuda.synchronize()
+    assert state.step == 1  # the eager warm-up step, and no other

@@ -2,12 +2,15 @@
 value a kernel of the run does not take is refused with a message naming
 the flag, before any model is built; on the CPU, where the plain versions
 take any shape, nothing is refused; the default configuration passes for
-every variant and mode.
+every variant and mode, and so do the shapes the kernels once refused and
+now take (`ACCEPTED`: any length, head width up to 256 and head count, CE
+width, star width, beam size).
 
 The f32 K2's shared-memory size comes from its built library, which the
 CPU cannot build: here a stand-in gives it, growing with the heads as the
 kernel's layout does (two score tiles a head) and crossing the card's
-limit between 8 and 16 heads. The card test
+limit between 8 and 16 heads for the short kernel, while the long-length
+kernels' (one tile of keys at a time) hold 16 heads. The card test
 `test_envelope_reads_the_f32_backward_size_from_the_library` holds the
 check to the library's own sizes."""
 
@@ -31,7 +34,8 @@ from deepsc_gan_tpu_torch.utils.config import (
 SMEM = 232448
 MODES = [None, "greedy", "beam", "greedy_attack", "greedy_gan",
          "teacher_forced", "pgd"]
-# the stand-in's bytes a head: 8 heads fit SMEM, 16 do not
+# the stand-in's bytes a head: 8 heads fit SMEM, 16 do not (the short
+# kernel); the long-length kernels' half of it, so 16 heads fit
 BYTES_PER_HEAD = SMEM // 12
 
 
@@ -43,37 +47,34 @@ def library_sizes(monkeypatch):
 
     def smem_bytes(kernel, dtype, lq, lk, heads, dh):
         asked.append((kernel, dtype, lq, lk, heads, dh))
-        return BYTES_PER_HEAD * heads
+        long = attn.is_long(lq, lk)
+        return BYTES_PER_HEAD * heads // (2 if long else 1)
 
     monkeypatch.setattr(attn, "smem_bytes", smem_bytes)
     return asked
 
 # name -> (variant, eval mode (None: train), Config fields, extra keywords
-# of the check, the flag the message must name)
+# of the check, the flag the message must name): what no kernel takes
 REFUSED = {
-    "beam_size_9": ("transformer", "beam", {}, dict(beam_size=9),
-                    "--beam-size 9"),
-    "gan_star_d_model_96": ("gan_star", None,
-                            dict(encoder_d_model=96, decoder_d_model=96), {},
-                            "--encoder-d-model 96"),
-    "head_width_64": ("transformer", None,
-                      dict(encoder_d_model=512, encoder_num_heads=8), {},
-                      "--encoder-d-model 512 / --encoder-num-heads 8"),
-    "heads_32": ("transformer", "greedy",
-                 dict(decoder_d_model=256, decoder_num_heads=32), {},
-                 "--decoder-num-heads 32"),
-    "beam_size_12": ("transformer", "beam", {}, dict(beam_size=12),
-                     "--beam-size 12"),
-    "star_d_model_96": ("star", "teacher_forced",
-                        dict(encoder_d_model=96, decoder_d_model=96), {},
-                        "--encoder-d-model 96"),
-    "ce_width_512": ("transformer", None,
-                     dict(decoder_d_model=512, decoder_num_heads=16), {},
-                     "--decoder-d-model 512"),
-    "f32_k2_16x16": ("transformer", None,
-                     dict(dtype="float32", seq_len=32, encoder_d_model=256,
-                          encoder_num_heads=16, decoder_d_model=256,
-                          decoder_num_heads=16), {}, "--dtype float32"),
+    "beam_size_0": ("transformer", "beam", {}, dict(beam_size=0),
+                    "--beam-size 0"),
+    "beam_size_past_vocab": ("transformer", "beam", {},
+                             dict(beam_size=22235), "--beam-size 22235"),
+    "gan_star_heads_7": ("gan_star", None, dict(encoder_num_heads=7), {},
+                         "--encoder-d-model 128 / --encoder-num-heads 7"),
+    "head_width_512": ("transformer", None,
+                       dict(encoder_d_model=512, encoder_num_heads=1), {},
+                       "--encoder-d-model 512 / --encoder-num-heads 1"),
+    "heads_not_dividing": ("transformer", "greedy",
+                           dict(decoder_num_heads=3), {},
+                           "--decoder-num-heads 3"),
+    "decoder_head_width_384": ("transformer", "teacher_forced",
+                               dict(decoder_d_model=384,
+                                    decoder_num_heads=1), {},
+                               "--decoder-d-model 384"),
+    "star_heads_5": ("star", "teacher_forced",
+                     dict(decoder_d_model=96, decoder_num_heads=5), {},
+                     "--decoder-d-model 96 / --decoder-num-heads 5"),
 }
 
 
@@ -97,26 +98,84 @@ def test_accepted_on_cpu(case):
 
 # K1 and K2 take any length: what the check once refused (past 32
 # queries or keys) runs, in every mode that launches them
-ACCEPTED = {
+LONG = {
     "seq_len_40": ("transformer", "teacher_forced", dict(seq_len=40)),
     "max_length_40": ("transformer", "greedy", dict(max_length=40)),
     "gan_seq_len_64": ("gan", None, dict(seq_len=64)),
     "greedy_gan_seq_len_128": ("gan", "greedy_gan",
                                dict(seq_len=128, max_length=127)),
 }
+# what the check refused until each kernel had a wide path (name ->
+# (variant, eval mode, Config fields, extra keywords of the check)): the
+# f32 K2 whose short kernel does not fit (the long-length kernels take
+# it); K1/K2 at head widths other than 8, 16 and 32 and past 16 heads; K3,
+# K4 and K6 at widths off their tuned steps or past 256; K5 at any width
+# and head count dividing it; K6 past k = 8
+WIDENED = {
+    "f32_k2_16x16": ("transformer", None,
+                     dict(dtype="float32", seq_len=32, encoder_d_model=256,
+                          encoder_num_heads=16, decoder_d_model=256,
+                          decoder_num_heads=16), {}),
+    "f32_k2_16x16_len_31": ("transformer", "teacher_forced",
+                            dict(dtype="float32", decoder_d_model=256,
+                                 decoder_num_heads=16), {}),
+    "head_width_64": ("transformer", None,
+                      dict(encoder_d_model=512, encoder_num_heads=8), {}),
+    "head_width_24": ("transformer", "pgd",
+                      dict(decoder_d_model=192, decoder_num_heads=8), {}),
+    "head_width_128_heads_32": ("gan", None,
+                                dict(encoder_d_model=4096,
+                                     encoder_num_heads=32), {}),
+    "heads_32": ("transformer", "greedy",
+                 dict(decoder_d_model=256, decoder_num_heads=32), {}),
+    "ce_width_512": ("transformer", None,
+                     dict(decoder_d_model=512, decoder_num_heads=16), {}),
+    "ce_width_200": ("transformer", None,
+                     dict(decoder_d_model=200, decoder_num_heads=8), {}),
+    "star_d_model_96": ("star", "teacher_forced",
+                        dict(encoder_d_model=96, decoder_d_model=96), {}),
+    "gan_star_d_model_96": ("gan_star", None,
+                            dict(encoder_d_model=96, decoder_d_model=96),
+                            {}),
+    "star_d_model_512": ("star_multi", "greedy",
+                         dict(encoder_d_model=512, decoder_d_model=512),
+                         {}),
+    "beam_size_9": ("transformer", "beam", {}, dict(beam_size=9)),
+    "beam_size_16_d_200": ("transformer", "beam",
+                           dict(decoder_d_model=200, decoder_num_heads=8),
+                           dict(beam_size=16)),
+    "beam_size_64": ("transformer", "beam", {}, dict(beam_size=64)),
+}
+ACCEPTED = {**{name: (*case, {}) for name, case in LONG.items()},
+            **WIDENED}
 
 
-@pytest.mark.parametrize("case", list(ACCEPTED))
+@pytest.mark.parametrize("case", list(LONG))
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_long_lengths_accepted_on_cuda(case, dtype, library_sizes):
     """No length refused; at f32 where a backward runs, the check asks the
     library for the f32 K2's shared memory at the long shape."""
-    variant, mode, fields = ACCEPTED[case]
+    variant, mode, fields = LONG[case]
     cfg = Config(dtype=dtype).replace(**fields)
     assert envelope_errors(cfg, variant, mode, smem_limit=SMEM) == []
     asked = [a[2:4] for a in library_sizes]
     assert (dtype == "float32" and mode != "greedy") == bool(asked)
     assert all(max(a) > 32 for a in asked)
+
+
+@pytest.mark.parametrize("case", list(ACCEPTED))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_widened_shapes_accepted_on_cuda(case, dtype):
+    """Every shape of `ACCEPTED` passes the check on CUDA in both dtypes
+    (a case that sets its dtype keeps it), for train and every eval mode
+    the case names, with the KV and the full-prefix decoders."""
+    variant, mode, fields, extra = ACCEPTED[case]
+    cfg = Config(seq_len=default_seq_len(variant), dtype=dtype) \
+        .replace(**fields)
+    for kv in (False, True):
+        assert envelope_errors(cfg, variant, mode, kv_cache=kv,
+                               beam_impl="full" if kv else "kv",
+                               smem_limit=SMEM, **extra) == [], case
 
 
 @pytest.mark.parametrize("variant", ["transformer", "star", "star_multi",
@@ -134,26 +193,40 @@ def test_default_configuration_passes(variant, dtype):
 
 
 def test_f32_backward_shape_boundary(library_sizes):
-    """The f32 K2 at 16 heads of 16: refused only where a backward runs
-    (training, the attack tables), and not in bf16 or without a
-    backward; 8 heads of 16 (the default) fits. The check asks the
-    library for the f32 K2 at the decoder's first teacher-forced shape
-    (the encoder runs no backward there) and stops at its first refusal."""
+    """The f32 K2 at 16 heads of 16: its short kernel does not fit, so the
+    check asks the library for the short size at the decoder's first
+    teacher-forced shape (the encoder runs no backward there), then for
+    the long-length kernels' (which hold 16 heads), and accepts; on a card
+    too small for those as well it refuses with the flag and the size
+    named, and stops at that first refusal. 8 heads of 16 (the default)
+    fit the short kernel; bf16 and a run without a backward ask nothing."""
     wide = dict(decoder_d_model=256, decoder_num_heads=16)
     f32 = Config(dtype="float32").replace(**wide)
+    assert envelope_errors(f32, "transformer", "teacher_forced",
+                           smem_limit=SMEM) == []
+    assert library_sizes[:2] == [
+        (attn.KERNEL_BWD, torch.float32, 31, 31, 16, 16),
+        (attn.KERNEL_BWD, torch.float32, 33, 33, 16, 16)]
+    library_sizes.clear()
+    small = BYTES_PER_HEAD * 6
     errors = envelope_errors(f32, "transformer", "teacher_forced",
-                             smem_limit=SMEM)
+                             smem_limit=small)
     assert len(errors) == 1 and "--dtype float32" in errors[0]
-    assert f"needs {BYTES_PER_HEAD * 16} bytes" in errors[0]
-    assert library_sizes == [(attn.KERNEL_BWD, torch.float32, 31, 31, 16,
-                              16)]
+    assert f"needs {BYTES_PER_HEAD * 16 // 2} bytes" in errors[0]
+    assert len(library_sizes) == 2
+    library_sizes.clear()
     assert not envelope_errors(f32.replace(decoder_num_heads=8),
                                "transformer", "teacher_forced",
                                smem_limit=SMEM)
+    assert library_sizes == [
+        (attn.KERNEL_BWD, torch.float32, 31, 31, 8, 32),
+        (attn.KERNEL_BWD, torch.float32, 31, 32, 8, 32)]
+    library_sizes.clear()
     assert not envelope_errors(f32, "transformer", "greedy",
                                smem_limit=SMEM)
     assert not envelope_errors(f32.replace(dtype="bfloat16"), "transformer",
                                "teacher_forced", smem_limit=SMEM)
+    assert library_sizes == []
 
 
 @pytest.mark.parametrize("cmd,mode", [("evaluate", "greedy"),
@@ -169,10 +242,11 @@ def test_cli_refuses_before_building_a_model(tmp_path, monkeypatch, cmd,
 
     monkeypatch.setattr(cli, "make_model", refuse)
     monkeypatch.setattr(cli, "load_model", refuse)
-    argv = [cmd, "--encoder-num-heads", "32", "--log-save-path",
-            str(tmp_path), "--checkpoint-path", str(tmp_path)]
+    argv = [cmd, "--encoder-d-model", "512", "--encoder-num-heads", "1",
+            "--log-save-path", str(tmp_path), "--checkpoint-path",
+            str(tmp_path)]
     if mode:
         argv += ["--eval-mode", mode]
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
-    assert "--encoder-num-heads 32" in str(exc.value.code)
+    assert "--encoder-num-heads 1" in str(exc.value.code)

@@ -370,15 +370,20 @@ def test_cli_evaluate_gan_modes_run_on_cpu(trained_gan, mode):
 
 def test_cli_gan_star_trains_and_decodes_on_cpu(tmp_path):
     """gan_star counts as star: seq_len 31 unless set, the un-shifted
-    target, one-shot decoding."""
+    target, one-shot decoding; trained on a pickle of 64 sentences (4
+    steps of 16)."""
+    rows = synthetic_sentences(64, 11, 40, seed=1, max_len=11)
+    with open(tmp_path / "train.pkl", "wb") as f:
+        pickle.dump([row[row != 0].tolist() for row in rows], f)
     flags = [*TINY_FLAGS, "--cycle-num", "2", "--log-save-path",
              str(tmp_path / "log"), "--checkpoint-path",
              str(tmp_path / "ckpt")]
     flags[flags.index("--seq-len") + 1] = "11"
     res = cli.main(["train", "--device", "cpu", "--variant", "gan_star",
                     "--train-mode", "gan", "--epochs", "1", "--bs", "16",
+                    "--train-save-path", str(tmp_path / "train.pkl"),
                     *flags])
-    assert torch.isfinite(res["losses"]).all()
+    assert res["steps"] == 4 and torch.isfinite(res["losses"]).all()
     out = cli.main(["evaluate", "--device", "cpu", "--variant", "gan_star",
                     "--bs", "4", "--eval-mode", "greedy_gan",
                     "--eval-batches", "1", "--snr-lo", "3", "--snr-hi", "3",

@@ -6,6 +6,8 @@ ids, token for token. Also `cli evaluate --kv-cache`, and the two repairs
 of `cli evaluate`: its test set is drawn from seed 0 whatever `--seed`, as
 the JAX CLI's, and it loads the params `cli train` saved."""
 
+import pickle
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,15 +141,21 @@ def test_cli_eval_set_is_seed_0_as_the_jax_cli(tmp_path, monkeypatch,
 
 
 def test_cli_evaluate_loads_what_train_saved(tmp_path, capsys):
-    """`cli train` then `cli evaluate` with the same --checkpoint-path and
-    no --params-pkl scores the saved params: the table of an explicit
+    """`cli train` (4 steps a call, one call: a training pickle of 256
+    sentences) then `cli evaluate` with the same --checkpoint-path and no
+    --params-pkl scores the saved params: the table of an explicit
     --params-pkl of that file."""
     ckpt = str(tmp_path / "ckpt")
-    common = ["--device", "cpu", *TINY_FLAGS, "--bs", "512",
+    rows = synthetic_sentences(256, 12, 40, seed=1, max_len=12)
+    with open(tmp_path / "train.pkl", "wb") as f:
+        pickle.dump([row[row != 0].tolist() for row in rows], f)
+    common = ["--device", "cpu", *TINY_FLAGS, "--bs", "64",
               "--checkpoint-path", ckpt]
     trained = cli.main(["train", *common, "--epochs", "1",
+                        "--scan-steps", "4",
                         "--log-save-path", str(tmp_path / "log"),
-                        "--train-save-path", str(tmp_path / "absent.pkl")])
+                        "--train-save-path", str(tmp_path / "train.pkl")])
+    assert (trained["steps"], trained["path"]) == (4, "scan4")
     flags = ["evaluate", *common, "--eval-batches", "1", "--snr-lo", "0",
              "--snr-hi", "1", "--log-save-path", str(tmp_path / "eval")]
     capsys.readouterr()

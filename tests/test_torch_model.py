@@ -20,6 +20,14 @@ from deepsc_gan_tpu_torch.ops.masks import create_masks
 from deepsc_gan_tpu_torch.utils import convert
 from deepsc_gan_tpu_torch.utils.config import Config as TorchConfig
 
+# One intra-op thread for PyTorch on the CPU: the test run gives each of
+# several workers its own process, and PyTorch's default of a thread per
+# core in each of them oversubscribes the cores many times over (a
+# tiny-width CLI test took 0.2 s alone and 40 s beside the others). The
+# other port test modules import this one, and the workers import every
+# test module when they collect, so the setting holds in every worker.
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 TRAINED = str(Path(__file__).resolve().parent.parent / "results"
               / "plain_best_params.pkl")

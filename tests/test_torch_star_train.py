@@ -143,6 +143,7 @@ def test_cli_star_train_then_evaluate(tiny_cfg, tmp_path, capsys):
                      synthetic_sentences(256, 12, 40, seed=1, max_len=12)], f)
     res = cli.main(["train", "--variant", "star", "--device", "cpu",
                     "--epochs", "1", "--bs", "64", "--log-every", "100",
+                    "--scan-steps", "1",
                     "--train-save-path", str(train_set), *dirs,
                     *STAR_FLAGS])
     assert res["params_path"] == str(tmp_path / "ckpt" / "star_params.pkl")

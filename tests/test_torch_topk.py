@@ -116,6 +116,23 @@ def test_take_top_matches_jax(k):
     assert got[1].dtype == torch.int32
 
 
+@pytest.mark.parametrize("k", [9, 16, 64])
+def test_take_top_past_eight_matches_jax(k):
+    """The selection past k = 8 (what the wide K6 kernels compute on the
+    card, `_take_top` in the JAX kernel): exact ties and NEG entries over
+    70 columns."""
+    rng = np.random.default_rng(k)
+    x = rng.integers(0, 7, (5, 70)).astype(np.float32)
+    x[1, 50:] = topk.NEG
+    cols = np.broadcast_to(np.arange(70, dtype=np.int32), x.shape)
+    want = jax_take_top(jnp.asarray(x), jnp.asarray(cols), k)
+    got = topk.take_top(torch.from_numpy(x), torch.from_numpy(cols.copy()),
+                        k)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert topk.is_wide(128, k) and not topk.is_wide(128, 8)
+
+
 @pytest.mark.parametrize("K", [1, 2, 4, 5])
 @pytest.mark.parametrize("pad_idx", [0, 2])
 def test_frozen_candidates_match_jax(K, pad_idx):

@@ -265,33 +265,39 @@ def test_gradient_flows_through_power_normalization(tiny_cfg, tiny_batch):
 
 
 def test_cli_train_logs_and_saves_params_flax_loads(tmp_path, tiny_cfg):
-    """`cli train` at tiny widths on the CPU for 2 epochs of the synthetic
-    set: train.jsonl holds the losses and sents_per_sec; the saved pickle
-    loads into the flax model, whose logits equal the port's; training
-    starts again from it with --params-pkl."""
+    """`cli train --scan-steps 1` (one step a call) at tiny widths on the
+    CPU for 2 epochs of a training pickle of 512 sentences (8 steps of 64
+    an epoch): train.jsonl holds every 4th step's loss and sents_per_sec;
+    the saved pickle loads into the flax model, whose logits equal the
+    port's; training starts again from it with --params-pkl."""
+    rows = synthetic_dataset(512, 12, 40, 64, seed=2).data
+    with open(tmp_path / "train.pkl", "wb") as f:
+        pickle.dump([row[row != 0].tolist() for row in rows], f)
     flags = ["train", "--device", "cpu", *TINY_FLAGS, "--epochs", "2",
-             "--log-every", "16", "--tie-embeddings",
+             "--log-every", "4", "--tie-embeddings", "--scan-steps", "1",
              "--log-save-path", str(tmp_path / "log"),
              "--checkpoint-path", str(tmp_path / "ckpt"),
-             "--train-save-path", str(tmp_path / "absent.pkl")]
+             "--train-save-path", str(tmp_path / "train.pkl")]
     res = cli.main(flags)
-    assert res["steps"] == 2 * 4096 // 64 and res["device"] == "cpu"
+    assert res["steps"] == 2 * 512 // 64 and res["device"] == "cpu"
+    assert res["path"] == "single"
     losses = res["losses"]
-    assert losses.shape == (128,) and torch.isfinite(losses).all()
+    assert losses.shape == (16,) and torch.isfinite(losses).all()
     recs = [json.loads(line)
             for line in (tmp_path / "log" / "train.jsonl").read_text()
             .splitlines()]
     logged = [r for r in recs if "loss" in r]
-    assert [r["step"] for r in logged] == list(range(16, 129, 16))
+    assert [r["step"] for r in logged] == list(range(4, 17, 4))
     np.testing.assert_allclose([r["loss"] for r in logged],
-                               losses[15::16].numpy(), rtol=1e-6)
+                               losses[3::4].numpy(), rtol=1e-6)
     rates = [r for r in recs if "sents_per_sec" in r]
     assert [r["epoch"] for r in rates] == [0, 1]
     assert all(r["sents_per_sec"] > 0 for r in rates)
 
     with open(res["params_path"], "rb") as f:
         blob = pickle.load(f)
-    assert blob["recipe"]["steps"] == 128
+    assert blob["recipe"]["steps"] == 16
+    assert blob["recipe"]["scan_steps"] == 1
     cfg = tiny_cfg.replace(tie_embeddings=True)
     params = jax.tree.map(jnp.asarray, blob["params"])
     inp = jnp.asarray(synthetic_dataset(8, cfg.seq_len, cfg.vocab_size, 8,
@@ -314,12 +320,12 @@ def test_cli_train_logs_and_saves_params_flax_loads(tmp_path, tiny_cfg):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
     again = cli.main(flags[:flags.index("--epochs")] + [
-        "--epochs", "1", "--log-every", "1000",
+        "--epochs", "1", "--log-every", "1000", "--scan-steps", "1",
         "--params-pkl", res["params_path"],
-        "--train-save-path", str(tmp_path / "absent.pkl"),
+        "--train-save-path", str(tmp_path / "train.pkl"),
         "--log-save-path", str(tmp_path / "log2"),
         "--checkpoint-path", str(tmp_path / "ckpt2")])
-    assert again["steps"] == 64 and torch.isfinite(again["losses"]).all()
+    assert again["steps"] == 8 and torch.isfinite(again["losses"]).all()
 
 
 def test_dense_reuses_its_cast_only_while_the_weights_are_unchanged():
