@@ -32,7 +32,10 @@ non-zero without its last line:
    short kernel's shared memory too large), K1/K2 at 8 heads of 24, 64 and
    128 and at 32 heads of 16, K3/K4 and K6 at D = 200 and 512, K6 at k =
    9, 16 (with ties) and 64, K5 at D = 96 and 512 (the wide kernels where
-   the tuned ones do not take the shape);
+   the tuned ones do not take the shape); and at the shapes of the
+   widened train paths of phase 15: K1/K2 at 8 heads of 64 and of 25,
+   the chunked K1/K2 at one head of 512 (Lq = Lk = 32) and 2 heads of 320
+   (31 x 31 and 31 x 32), K3/K4 at D = 640;
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -113,8 +116,34 @@ non-zero without its last line:
    and a decoder of 8 heads of 25 (every K1-K4 launch on the wide
    kernels), `cli evaluate --eval-mode beam --beam-size 9` on what it
    saved (K6's wide kernels), `cli train --variant star` at d_model 96
-   (K5's wide kernel), exact launch counts;
-16. the captured graph of the train step, vanilla and star at full width:
+   (K5's wide kernel), exact launch counts; then heads wider than 256:
+   `cli train` with an encoder of one head of 512 and a decoder of 2 heads
+   of 320 (the chunked wide K1/K2 kernels, K3/K4's wide ones at D = 640),
+   exact launch counts;
+16. MINE: `cli train --train-mode mine` at full width in bf16 from a
+   random init, MINE_EPOCHS epochs (per step: 16 K1, 12 K2, no K3/K4);
+   every ce and mi finite, the mean of the last 16 ce below that of the
+   first 16; then an f32 MINE step through the kernels against one through
+   the plain versions on the same draws, permutation and ReLU decisions:
+   ce and mi within rtol 1e-5, both networks' gradients within 1e-4 of
+   their largest;
+17. resume: `cli train` at f32 with --ema-decay through the graphed
+   scan32 path: 2 epochs, then `--resume` to RESUME_EPOCHS, bitwise equal
+   to RESUME_EPOCHS straight epochs (every tensor of the last checkpoint:
+   params, Adam moments and counts, the update count, the EMA shadow, the
+   generator's state);
+18. the levers: one bf16 epoch of `cli train --remat --fuse-qkv
+   --aug-crop 0.3 --aug-synth 0.3` on a corpus the script writes from
+   --seed, through the graphed path (per step: 24 K1, each recomputed
+   layer's K1 twice, 12 K2, 1 K3, 1 K4); GRAPH_K f32 graphed remat steps
+   against GRAPH_K graphed steps without (losses rtol 1e-6, gradients
+   within 1e-6 of their largest, the generator's state equal; whether
+   bitwise printed); what --remat and --fuse-qkv each cost alone on the
+   graphed bf16 path at batch 64 and 1,024 (peak memory of an eager step
+   and of a graphed call, ms a step); and `cli train --profile` of one
+   graphed epoch of PROFILE_STEPS steps, whose trace must hold 12 K1 a
+   step;
+19. the captured graph of the train step, vanilla and star at full width:
    the card's optimizer update (GRAPH_K graphed f32 steps under noam with
    the EMA, and two GAN steps' selective updates) against the CPU's Adam
    on the same gradients (params, moments, EMA within 1e-5 of their
@@ -125,16 +154,18 @@ non-zero without its last line:
    eager against graphed over GRAPH_RUNS runs each, and a profiled graphed
    call whose trace holds GRAPH_K times a step's launches of every kernel
    the eager step launched;
-17. profile: device time by kernel over one bf16 call of the full-prefix
+20. profile: device time by kernel over one bf16 call of the full-prefix
    sweep, of the KV sweep, of the beam and of the star sweep, over one
    bf16 train step of each codec (with K3's and K4's share of it), over
    one bf16 attack train step and one teacher-forced FGM call, over one
    GAN train step, one GAN teacher-forced call and one greedy_gan call,
-   and the device's idle share in each (torch.profiler); the star sweep
-   call must run no roll kernel (K5 reads the ring unstacked);
-18. the kernels as one JSON line (the wide kernels as entries of their
-   own, launches from phase 15), then `{"ok": true, "device": {...}}` as
-   the last line.
+   over one MINE step, and the device's idle share in each
+   (torch.profiler); the star sweep call must run no roll kernel (K5
+   reads the ring unstacked);
+21. the kernels as one JSON line (the wide kernels as entries of their
+   own, launches from phase 15; the chunked wide K1/K2 too, launches and
+   rows from its heads-wider-than-256 path), then `{"ok": true, "device": {...}}`
+   as the last line.
 
 Needs CUDA: without it the script exits 1 before any phase.
 """
@@ -146,6 +177,8 @@ import contextlib
 import io
 import json
 import math
+import os
+import pickle
 import re
 import subprocess
 import sys
@@ -155,7 +188,8 @@ import torch
 import torch.nn.functional as F
 
 from deepsc_gan_tpu_torch import cli
-from deepsc_gan_tpu_torch.data.loader import eval_batches, train_dataset
+from deepsc_gan_tpu_torch.data.augment import load_train_dataset
+from deepsc_gan_tpu_torch.data.loader import eval_batches, synthetic_sentences
 from deepsc_gan_tpu_torch.evaluate.beam import (
     make_beam_decode,
     make_beam_decode_kv,
@@ -177,7 +211,7 @@ from deepsc_gan_tpu_torch.ops import build
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
 from deepsc_gan_tpu_torch.ops import star_kernel as star
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk
-from deepsc_gan_tpu_torch.train import gan_steps, steps
+from deepsc_gan_tpu_torch.train import gan_steps, mine_steps, steps
 from deepsc_gan_tpu_torch.utils.config import (
     Config,
     default_seq_len,
@@ -253,6 +287,14 @@ WIDE_PATH = (("wide_enc_8x64", 8, 64, 32, 32),
              ("wide_dec_cross_8x25", 8, 25, 31, 32))
 WIDE_PATH_D = 200
 WIDE_BEAM = 9
+# heads wider than 256 (the chunked wide K1/K2 kernels) at the shapes the
+# wide-heads train path (phase_wide_heads) gives them: its encoder at one
+# head of 512, its decoder at 2 heads of 320, N = bs; its CE (the wide
+# K3/K4) at D = WIDE_HEADS_D, N = bs x 31
+WIDE_HEADS_PATH = (("wh_enc_1x512", 1, 512, 32, 32),
+                   ("wh_dec_self_2x320", 2, 320, 31, 31),
+                   ("wh_dec_cross_2x320", 2, 320, 31, 32))
+WIDE_HEADS_D = 640
 # a spin of the device (about 0.1 s) that the timed calls queue up behind
 SPIN_CYCLES = 200_000_000
 # what multiplies, by kernel and dtype (csrc/attention_fwd.cu,
@@ -803,10 +845,12 @@ def widened_cases(dtype, gen, iters, bs):
     16 heads of 16 (the long-length kernels, where the short kernel's
     shared memory does not fit); K1/K2 at head widths 24, 64 and 128 and
     at 32 heads (the decoder self-attention's shape, N = bs); K3/K4 at D =
-    200 and 512 (N = bs x 31); K5 at D = 96 and 512 (the star train step's
-    ring); K6 at k = 9, 16 and 64 (with exact ties past the tuned list's
-    8) and at D = 200 and 512; and K1/K2 and K6 at the shapes the widened
-    CLI paths of `phase_wide` give them (WIDE_PATH, WIDE_BEAM)."""
+    200 and 512 (N = bs x 31); K5 at D = 96 and 512 (the star train
+    step's ring); K6 at k = 9, 16 and 64 (with exact ties past the tuned
+    list's 8) and at D = 200 and 512; K1/K2 and K6 at the shapes the
+    widened CLI paths of `phase_wide` give them (WIDE_PATH, WIDE_BEAM);
+    and the chunked K1/K2 and the wide K3/K4 at the shapes of
+    `phase_wide_heads` (WIDE_HEADS_PATH, WIDE_HEADS_D)."""
     cfg = Config()
     rows = []
     if dtype == torch.float32:
@@ -814,7 +858,7 @@ def widened_cases(dtype, gen, iters, bs):
                                        gen, iters, False, 16, 16))
     for label, heads, dh, lq, lk in [(f"wide_{heads}x{dh}", heads, dh, 31,
                                       31) for heads, dh in WIDE_HEADS] + \
-            list(WIDE_PATH):
+            list(WIDE_PATH) + list(WIDE_HEADS_PATH):
         rows.append(attention_case(label, bs, lq, lk, dtype, gen, iters,
                                    heads, dh))
         rows.append(attention_bwd_case(label, bs, lq, lk, dtype, gen, iters,
@@ -823,6 +867,8 @@ def widened_cases(dtype, gen, iters, bs):
         rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1), d,
                          cfg.vocab_size, label=f"ce_d{d}")
         rows.append(topk_case(f"d{d}", bs * BEAM, dtype, gen, iters, d=d))
+    rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1), WIDE_HEADS_D,
+                     cfg.vocab_size, label=f"ce_d{WIDE_HEADS_D}")
     for k in WIDE_K:
         rows.append(topk_case(f"k{k}", bs * BEAM, dtype, gen, iters, k,
                               "tie" if k == WIDE_K[1] else "dyadic"))
@@ -951,14 +997,16 @@ def phase_serving(seed, batches, bs):
 
 def phase_train(seed, epochs, bs, variant="transformer",
                 checkpoint="log/chip_smoke/ckpt", extra=(), tag=None,
-                wide=()):
+                wide=(), k1_passes=1):
     """A training path: `cli train --variant <variant>` (and `extra`
     flags) at full width in bf16 from a random init on the synthetic set,
     the params saved under `checkpoint`, through the default path (SCAN_STEPS
     steps a call: replays of one captured CUDA graph of the step). Per step
     the vanilla transceiver launches K1 and K2 once per attention, the star
     one K5 once per cycle of its encoder and its decoder; both K3 and K4
-    once; every launch of the kernels in `wide` on their wide kernels."""
+    once; every launch of the kernels in `wide` on their wide kernels; K1
+    `k1_passes` times per attention (2 with --remat: each layer's forward
+    runs again in the backward)."""
     tag = tag or ("train" if variant == "transformer"
                   else f"{variant}_train")
     reset_launches()
@@ -980,7 +1028,7 @@ def phase_train(seed, epochs, bs, variant="transformer",
     expected.update({ce.KERNEL_FWD: n, ce.KERNEL_BWD: n})
     if variant == "transformer":
         per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
-        expected.update({attn.KERNEL: per_step * n,
+        expected.update({attn.KERNEL: k1_passes * per_step * n,
                          attn.KERNEL_BWD: per_step * n})
     else:
         expected[star.KERNEL] = 2 * cfg.cycle_num * n
@@ -1011,9 +1059,7 @@ def phase_train(seed, epochs, bs, variant="transformer",
 
 
 def _train_batch(cfg, seed):
-    ds = train_dataset(cfg.train_save_path, cfg.seq_len, cfg.vocab_size,
-                       cfg.bs, seed)
-    inp, _ = next(iter(ds))
+    inp, _ = next(iter(load_train_dataset(cfg, seed)))
     return torch.from_numpy(inp).to("cuda", torch.long)
 
 
@@ -1468,6 +1514,33 @@ def phase_profile(seed, bs):
         profile_train_step(variant, seed, bs, gen)
     profile_attack(seed, bs, gen)
     profile_gan(seed, bs, gen)
+    profile_mine(seed, bs, gen)
+
+
+def profile_mine(seed, bs, gen):
+    """One bf16 MINE step at full width from a random init after a
+    warm-up, timed without the profiler, then profiled (kernels, device
+    time, idle share)."""
+    cfg = Config(bs=bs)
+    model = steps.init_params(make_model(cfg), seed).cuda().train()
+    state = steps.create_train_state(model, cfg)
+    mine, mine_state = mine_steps.create_mine_state(cfg, seed, device="cuda")
+    step = mine_steps.make_mine_train_step(model, mine, cfg)
+    inp = _train_batch(cfg, seed)
+    n_std = float(snr_to_noise(cfg.train_snr))
+
+    def fn():
+        return step(state, mine_state, inp, inp, gen, n_std)
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    print(f"[profile] one MINE train step without the profiler: "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+    profiled("one MINE train step", fn)
 
 
 def profile_gan(seed, bs, gen):
@@ -2071,8 +2144,7 @@ def phase_gan_star(seed, epochs, batches, bs):
 
 def _graph_batches(cfg, seed, k):
     """(k, B, L) synthetic training batches on the card."""
-    ds = train_dataset(cfg.train_save_path, cfg.seq_len, cfg.vocab_size,
-                       cfg.bs, seed)
+    ds = load_train_dataset(cfg, seed)
     rows = [torch.from_numpy(inp) for (inp, _), _ in zip(ds, range(k))]
     return torch.stack(rows).to("cuda", torch.long)
 
@@ -2429,6 +2501,409 @@ def phase_wide(seed, bs):
     return _sum_counts(got, beam, star_got)
 
 
+def phase_wide_heads(seed, bs):
+    """Heads wider than 256 on a path: `cli train` in bf16 for one epoch
+    from a random init with an encoder of one head of 512 (d_model 512) and
+    a decoder of 2 heads of 320 (d_model 640): every K1/K2 launch on the
+    chunked wide kernels, K3/K4 on their wide ones (D = 640); per step as
+    the default's. -> its launch counts."""
+    widths = ["--encoder-d-model", "512", "--encoder-num-heads", "1",
+              "--encoder-d-ff", "1024", "--decoder-d-model", "640",
+              "--decoder-num-heads", "2", "--decoder-d-ff", "1280"]
+    got, _ = phase_train(seed, 1, bs, extra=widths,
+                         checkpoint="log/chip_smoke/wide_heads_ckpt",
+                         tag="wide_heads_train",
+                         wide=(attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD,
+                               ce.KERNEL_BWD))
+    return got
+
+
+# epochs of the MINE training phase: one epoch is 64 steps at bs 64
+MINE_EPOCHS = 1
+
+
+def mine_step_launches(cfg):
+    """K1/K2 launches of one MINE step of the vanilla transceiver: a
+    forward (K1 per attention) and its backward (K2 per attention), then
+    the encoder's forward again for T's update; no K3/K4 (the CE takes
+    materialized logits, as the JAX MINE step)."""
+    per_forward = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
+    return {attn.KERNEL: per_forward + cfg.encoder_num_layer,
+            attn.KERNEL_BWD: per_forward}
+
+
+def phase_mine_train(seed, epochs, bs):
+    """`cli train --train-mode mine` at full width in bf16 from a random
+    init on the synthetic set (path mine, one eager step a call): the
+    launch counts are `mine_step_launches` per step; every ce and mi
+    finite, and the mean of the last 16 ce below that of the first 16."""
+    tag = "mine_train"
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli.main(["train", "--variant", "transformer", "--train-mode",
+                    "mine", "--dtype", "bfloat16", "--bs", str(bs),
+                    "--epochs", str(epochs), "--seed", str(seed), "--device",
+                    "cuda", "--log-every", "64", "--log-save-path",
+                    f"log/chip_smoke/{tag}", "--checkpoint-path",
+                    f"log/chip_smoke/{tag}_ckpt"])
+    wall = time.perf_counter() - t0
+    got = launches()
+    n = res["steps"]
+    if res["path"] != "mine":
+        raise AssertionError(f"{tag}: cli train ran path {res['path']}")
+    expected = {name: 0 for name in COUNTERS}
+    expected.update({name: k * n for name, k in
+                     mine_step_launches(Config()).items()})
+    check_launches(tag, got, expected)
+    ces, mis = res["losses"], res["mis"]
+    if len(ces) != n or len(mis) != n or not (
+            torch.isfinite(ces).all() and torch.isfinite(mis).all()):
+        raise AssertionError(f"{tag}: a ce or mi is not finite")
+    first, last = ces[:16].mean().item(), ces[-16:].mean().item()
+    steady = res["epoch_seconds"][1:] or res["epoch_seconds"]
+    ms_step = sum(steady) / len(steady) / (n // epochs) * 1e3
+    print(f"[{tag}] {n} steps; ce mean of the first 16 {first:.4f}, of the "
+          f"last 16 {last:.4f}; mi first {mis[0]:.5f} last {mis[-1]:.5f} "
+          f"(mean of the last 16 {mis[-16:].mean().item():.5f}); epoch "
+          f"seconds {res['epoch_seconds']}; {ms_step:.3f} ms/step; wall "
+          f"{wall:.2f} s")
+    if not last < first:
+        raise AssertionError(f"{tag}: the ce did not fall: {first} -> "
+                             f"{last}")
+    return got
+
+
+def phase_mine_step_parity(seed, bs):
+    """One f32 MINE step at full width through the kernels and one through
+    the plain versions, from the same weights (the transceiver's init from
+    `seed`, T's from seed + 1), draws, permutation and dropout masks, the
+    plain step on the kernel run's ReLU decisions (`tapped`: T's ReLUs
+    among them): `mine_step_launches` through the kernels, none through
+    the plain versions; ce and mi within rtol 1e-5; each of the
+    transceiver's gradients (its update's) within 1e-4 of its largest, and
+    T's (its update's, clipped) within 1e-4 of the largest over T (fc2's
+    bias has the gradient 1 - sum softmax, zero but for rounding: the DV
+    bound does not move when T shifts). Both paths must have run a
+    ReLU."""
+    cfg = Config(dtype="float32", bs=bs)
+    inp = _train_batch(cfg, seed)
+    n_std = float(snr_to_noise(cfg.train_snr))
+
+    def run(plain, replay=(None, None)):
+        model = steps.init_params(variant_model(cfg, "transformer", plain),
+                                  seed).cuda().train()
+        state = steps.create_train_state(model, cfg)
+        mine, mine_state = mine_steps.create_mine_state(cfg, seed + 1,
+                                                        device="cuda")
+        step = mine_steps.make_mine_train_step(model, mine, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        reset_launches()
+        with tapped(replay) as taps:
+            _, _, out = step(state, mine_state, inp, inp, gen, n_std)
+        torch.cuda.synchronize()
+        return [x.item() for x in out], (model, mine), launches(), taps
+
+    def grad_gap(a, b):
+        gaps = [(max_err([p.grad], [q.grad], relative=True), name)
+                for (name, p), q in zip(a[0].named_parameters(),
+                                        b[0].parameters())]
+        largest = max(q.grad.abs().max().item() for q in b[1].parameters())
+        gaps += [(max_err([p.grad], [q.grad]) / largest, "T." + name)
+                 for (name, p), q in zip(a[1].named_parameters(),
+                                         b[1].parameters())]
+        return max(gaps)
+
+    lk, nk, ck, (_, xk) = run(False)
+    lp, np_, cp, (_, xp) = run(True)
+    ls, ns, _, _ = run(True, (None, xk))
+    want = {name: 0 for name in COUNTERS}
+    want.update(mine_step_launches(cfg))
+    check_launches("f32 MINE step", ck, want)
+    if sum(cp.values()):
+        raise AssertionError(f"the plain MINE step launched {cp}")
+    if not len(xk) == len(xp) > 0:
+        raise AssertionError(f"{len(xk)} and {len(xp)} ReLU calls")
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(xk, xp))
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk + lk, lp + ls)]
+    same, own = grad_gap(nk, ns), grad_gap(nk, np_)
+    print(f"[parity] f32 MINE step: (ce, mi) kernels {lk}, plain {lp}, plain "
+          f"on the kernel run's ReLU decisions {ls} (rel "
+          f"{', '.join(f'{r:.2e}' for r in rel)}); {len(xk)} ReLU calls, "
+          f"{flips} inputs change sign between the paths; worst grad err / "
+          f"max|ref| (transceiver and T) on the same ReLU decisions "
+          f"{same[0]:.2e} ({same[1]}), on each path's own {own[0]:.2e} "
+          f"({own[1]}); launches {json.dumps(ck)}")
+    if not all(r <= 1e-5 for r in rel):
+        raise AssertionError(f"f32 MINE step (ce, mi) {lk} vs plain {lp}, "
+                             f"{ls}")
+    if not same[0] <= 1e-4:
+        raise AssertionError(f"f32 MINE step grad {same[1]}: {same[0]} > "
+                             f"1e-4 of max|ref|")
+
+
+# the resume phase: epochs of the straight run (the split run resumes at 2)
+RESUME_EPOCHS = 3
+
+
+def _checkpoint_payload(directory, epoch):
+    return torch.load(os.path.join(directory, "transformer", str(epoch),
+                                   "state.pt"), weights_only=True)
+
+
+def phase_resume(seed, bs):
+    """Exact resume through the graphed scan32 path at f32 with --ema-decay
+    0.99 (32 divides the synthetic set's 64 batches an epoch): `cli train`
+    for RESUME_EPOCHS epochs straight, and for 2 epochs then `--resume` to
+    RESUME_EPOCHS (a fresh graph captured at epoch 2 from the restored
+    state, params, Adam moments and device counts, EMA shadow and
+    generator state); the last checkpoints must be bitwise equal in every
+    tensor. -> the three runs' launch counts (per step as the
+    default's)."""
+    import shutil
+
+    tag = "resume"
+    straight, split = (f"log/chip_smoke/{tag}_{name}_ckpt"
+                       for name in ("straight", "split"))
+    for d in (straight, split):
+        shutil.rmtree(d, ignore_errors=True)
+    common = ["train", "--variant", "transformer", "--dtype", "float32",
+              "--bs", str(bs), "--seed", str(seed), "--device", "cuda",
+              "--ema-decay", "0.99", "--ckpt-every", "1", "--log-every",
+              "64", "--log-save-path", f"log/chip_smoke/{tag}"]
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = [cli.main(common + ["--checkpoint-path", ckpt, *extra])
+            for ckpt, extra in (
+                (straight, ["--epochs", str(RESUME_EPOCHS)]),
+                (split, ["--epochs", "2"]),
+                (split, ["--epochs", str(RESUME_EPOCHS), "--resume"]))]
+    wall = time.perf_counter() - t0
+    got = launches()
+    cfg = Config()
+    n = sum(r["steps"] for r in runs)
+    per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
+    expected = {name: 0 for name in COUNTERS}
+    expected.update({attn.KERNEL: per_step * n, attn.KERNEL_BWD: per_step * n,
+                     ce.KERNEL_FWD: n, ce.KERNEL_BWD: n})
+    check_launches(tag, got, expected)
+    if [r["path"] for r in runs] != [f"scan{SCAN_STEPS}"] * 3 or \
+            runs[2]["start_epoch"] != 2:
+        raise AssertionError(f"{tag}: paths {[r['path'] for r in runs]}, "
+                             f"resumed at {runs[2]['start_epoch']}")
+    a = _checkpoint_payload(straight, RESUME_EPOCHS)
+    b = _checkpoint_payload(split, RESUME_EPOCHS)
+    differ = [] if a.keys() == b.keys() else ["keys"]
+    tensors = 0
+    for key in a:
+        if isinstance(a[key], dict):
+            for name in a[key]:
+                tensors += 1
+                if not torch.equal(a[key][name], b[key][name]):
+                    differ.append(f"{key}/{name}")
+        elif a[key] != b[key]:
+            differ.append(key)
+    print(f"[{tag}] f32 graphed, EMA 0.99: {RESUME_EPOCHS} epochs straight "
+          f"({runs[0]['steps']} steps) against 2 + --resume "
+          f"({runs[1]['steps']} + {runs[2]['steps']}): {tensors} tensors "
+          f"of the epoch-{RESUME_EPOCHS} checkpoint, update count "
+          f"{a['step']}/{b['step']}; bitwise equal {not differ} "
+          f"{differ[:5]}; wall {wall:.2f} s")
+    if differ or "ema" not in a:
+        raise AssertionError(f"{tag}: the resumed run differs from the "
+                             f"straight one in {differ[:10]}")
+    return got
+
+
+LEVERS_CORPUS = "log/chip_smoke/levers_corpus.pkl"
+# the --profile run: one graphed epoch of this many steps
+PROFILE_STEPS = 4
+
+
+def write_corpus(path, n, seed):
+    """A training pickle of `n` synthetic sentences (token lists, the
+    `results`' data layout) made from `seed`."""
+    cfg = Config()
+    rows = synthetic_sentences(n, cfg.seq_len, cfg.vocab_size, seed)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump([row[row != 0].tolist() for row in rows], f)
+    return path
+
+
+def remat_graph_parity(seed, bs):
+    """GRAPH_K f32 vanilla steps at full width (dropout 0.1) in one graphed
+    call with remat (each layer recomputed in the backward inside the
+    captured graph, its kept dropout masks read back) and one without,
+    from the same init, batches and generator seed: the losses within rtol
+    1e-6, the last step's gradients within 1e-6 of their largest, the
+    generator's state equal after (whether bitwise printed); K1 twice as
+    often with remat, K2 as often."""
+    cfg = Config(dtype="float32", bs=bs)
+    inps = _graph_batches(cfg, seed, GRAPH_K)
+    n_std = float(snr_to_noise(cfg.train_snr))
+    out = []
+    for remat in (True, False):
+        c = cfg.replace(remat=remat)
+        model = steps.init_params(variant_model(c, "transformer"),
+                                  seed).cuda().train()
+        state = steps.create_train_state(model, c)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        multi = steps.make_train_multi_step(model, c)
+        reset_launches()
+        state, losses = multi(state, inps, inps, gen, n_std)
+        torch.cuda.synchronize()
+        out.append((losses, model, gen.get_state(), launches()))
+    (lr, mr, gr, cr), (lp, mp, gp, cp) = out
+    loss_err = ((lr - lp).abs() / lp.abs()).max().item()
+    worst, worst_name = 0.0, ""
+    bitwise = torch.equal(lr, lp)
+    for (name, a), b in zip(mr.named_parameters(), mp.parameters()):
+        err = max_err([a.grad], [b.grad], relative=True)
+        bitwise = bitwise and torch.equal(a.grad, b.grad)
+        if err > worst:
+            worst, worst_name = err, name
+    same_gen = torch.equal(gr, gp)
+    print(f"[levers] f32 graphed remat, {GRAPH_K} steps: losses {lr.tolist()}"
+          f" against {lp.tolist()} (max rel {loss_err:.2e}); worst grad err"
+          f" / max|ref| {worst:.2e} ({worst_name}); bitwise equal {bitwise};"
+          f" generator state equal {same_gen}; K1/K2 launches "
+          f"{cr[attn.KERNEL]}/{cr[attn.KERNEL_BWD]} against "
+          f"{cp[attn.KERNEL]}/{cp[attn.KERNEL_BWD]}")
+    if not (loss_err <= 1e-6 and worst <= 1e-6 and same_gen):
+        raise AssertionError(f"graphed remat steps differ: loss {loss_err}, "
+                             f"{worst_name} {worst}, generator {same_gen}")
+    if cr[attn.KERNEL] != 2 * cp[attn.KERNEL] or \
+            cr[attn.KERNEL_BWD] != cp[attn.KERNEL_BWD]:
+        raise AssertionError(f"remat launches {cr}, without {cp}")
+    return {"bitwise": bitwise, "loss_rel_err": loss_err,
+            "grad_err": worst}
+
+
+# the levers' cost: batch sizes, and what each configuration switches on
+LEVER_BS = (64, 1024)
+LEVERS = ("default", "remat", "fuse_qkv")
+
+
+def _peak_mib(fn):
+    """MiB allocated at the peak of `fn()` above what was allocated before
+    it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def levers_cost(seed):
+    """What `--remat` and `--fuse-qkv` each change alone on the default
+    train path (bf16, full width, vanilla), at each batch size of LEVER_BS:
+    the peak memory of one eager step above the model and its optimizer
+    state, the peak of the first graphed call of GRAPH_K steps (warm-up,
+    capture and replays; the graph's pool in it), and the wall ms a step
+    of GRAPH_RUNS graphed calls of GRAPH_TIMED_K steps, the three
+    configurations taking turns within each run. -> {bs: {lever: ...}}."""
+    out = {}
+    for bs in LEVER_BS:
+        cfg = Config(bs=bs)
+        inps = _graph_batches(cfg, seed, GRAPH_TIMED_K)
+        inps = inps.repeat(-(-GRAPH_TIMED_K // len(inps)), 1, 1)[
+            :GRAPH_TIMED_K]
+        n_std = float(snr_to_noise(cfg.train_snr))
+        calls, got = {}, {}
+        for lever in LEVERS:
+            c = cfg if lever == "default" else cfg.replace(**{lever: True})
+            model = steps.init_params(variant_model(c, "transformer"),
+                                      seed).cuda().train()
+            state = steps.create_train_state(model, c)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            step = steps.make_train_step(model, c)
+            multi = steps.make_train_multi_step(model, c)
+            eager = _peak_mib(lambda: step(state, inps[0], inps[0], gen,
+                                           n_std))
+            graph = _peak_mib(lambda: multi(state, inps[:GRAPH_K],
+                                            inps[:GRAPH_K], gen, n_std))
+            calls[lever] = (multi, state, gen)
+            got[lever] = {"eager_step_peak_mib": eager,
+                          "graphed_call_peak_mib": graph, "ms_per_step": []}
+        for _ in range(GRAPH_RUNS):
+            for lever, (multi, state, gen) in calls.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                multi(state, inps, inps, gen, n_std)
+                torch.cuda.synchronize()
+                got[lever]["ms_per_step"].append(
+                    (time.perf_counter() - t0) * 1e3 / GRAPH_TIMED_K)
+        print(f"[levers] bf16 bs {bs}, each lever alone, graphed: "
+              f"{json.dumps(got)}")
+        out[bs] = got
+        del calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_profile_run(seed, bs):
+    """`cli train --profile DIR` for one bf16 epoch of PROFILE_STEPS steps
+    through the graphed path (`--scan-steps PROFILE_STEPS` on a corpus of
+    as many batches: the warm-up step, the capture and the replays all in
+    the traced epoch): DIR/trace.json must hold 12 K1 kernels a step. ->
+    its launch counts."""
+    import shutil
+
+    tag = "profile_run"
+    trace_dir = f"log/chip_smoke/{tag}_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    corpus = write_corpus(f"log/chip_smoke/{tag}_corpus.pkl",
+                          PROFILE_STEPS * bs, seed)
+    reset_launches()
+    res = cli.main(["train", "--variant", "transformer", "--dtype",
+                    "bfloat16", "--bs", str(bs), "--seed", str(seed),
+                    "--device", "cuda", "--epochs", "1", "--scan-steps",
+                    str(PROFILE_STEPS), "--train-save-path", corpus,
+                    "--profile", trace_dir, "--log-save-path",
+                    f"log/chip_smoke/{tag}", "--checkpoint-path",
+                    f"log/chip_smoke/{tag}_ckpt"])
+    got = launches()
+    cfg = Config()
+    per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
+    n = res["steps"]
+    expected = {name: 0 for name in COUNTERS}
+    expected.update({attn.KERNEL: per_step * n, attn.KERNEL_BWD: per_step * n,
+                     ce.KERNEL_FWD: n, ce.KERNEL_BWD: n})
+    check_launches(tag, got, expected)
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    k1 = sum(_TRACE_NAMES[attn.KERNEL] in name for name in names)
+    steps_traced = sum(name == "train_step" for name in names)
+    print(f"[{tag}] path {res['path']}, {n} steps: {path} "
+          f"{os.path.getsize(path)} bytes, {len(names)} events, "
+          f"{steps_traced} train_step regions, {k1} K1 kernels (want "
+          f"{per_step * n})")
+    if res["path"] != f"scan{PROFILE_STEPS}" or k1 != per_step * n:
+        raise AssertionError(f"{tag}: the trace holds {k1} K1 kernels, not "
+                             f"{per_step * n}")
+    return got
+
+
+def phase_levers(seed, bs):
+    """The training levers: one bf16 epoch of `cli train --remat
+    --fuse-qkv --aug-crop 0.3 --aug-synth 0.3` from a random init on a
+    corpus of 4,096 sentences written from `seed`, through the graphed
+    scan32 path (K1 twice per attention a step: remat), its loss falling;
+    then `remat_graph_parity`, `levers_cost` and `phase_profile_run`. ->
+    (the levers run's launch counts, the profile run's, the parity's and
+    the cost's numbers)."""
+    corpus = write_corpus(LEVERS_CORPUS, 4096, seed)
+    got, _ = phase_train(seed, 1, bs, extra=[
+        "--remat", "--fuse-qkv", "--aug-crop", "0.3", "--aug-synth", "0.3",
+        "--train-save-path", corpus], checkpoint="log/chip_smoke/levers_ckpt",
+        tag="levers_train", k1_passes=2)
+    numbers = {"remat_parity": remat_graph_parity(seed, bs),
+               "cost": levers_cost(seed)}
+    return got, phase_profile_run(seed, bs), numbers
+
+
 KERNEL_INFO = {
     attn.KERNEL: ("deepsc_gan_tpu/ops/pallas/attention.py:125",
                   "decoder_self", "serving: decoder self-attention, bf16, "
@@ -2480,7 +2955,9 @@ def kernels_line(rows, by_path):
     training and its greedy_gan sweep) and `launches` their sum. K1's and
     K2's entries also hold their long-length row (`long`: N = 64, L =
     LONG_LEN), K4's its dh-only mode (`dh_only`: the K4 launches that ran
-    in it, and its bf16 row at the training shape)."""
+    in it, and its bf16 row at the training shape); the chunked K1/K2's and
+    the wide K3/K4's hold in `cases` their rows at the wide-heads path's
+    shapes."""
     out = []
     for kernel, (replaces, case, at) in KERNEL_INFO.items():
         row = next(r for r in rows if r["kernel"] == kernel
@@ -2520,20 +2997,57 @@ def kernels_line(rows, by_path):
             "library_ms", "device_ms", "library_device_ms")},
         "at": "attack training phase 1: N=1984 D=128 V=22234, bf16; "
               "library: F.cross_entropy's backward to h alone"}
+    for kernel in (attn.KERNEL, attn.KERNEL_BWD):
+        cases = {label: next(r for r in rows if r["kernel"] == kernel
+                             and r["case"] == label
+                             and r["dtype"] == "bfloat16"
+                             and not r.get("dbias"))
+                 for label, *_ in WIDE_HEADS_PATH}
+        row = cases[WIDE_HEADS_PATH[0][0]]
+        n = by_path["wide_heads"][WIDE[kernel]]
+        out.append({
+            "name": WIDE[kernel] + "_chunked", "route": "cuda",
+            "design": row["design"],
+            "source": f"deepsc_gan_tpu_torch/csrc/{attn.KERNEL_WIDE}.cu",
+            "replaces": KERNEL_INFO[kernel][0], "launches": n,
+            "launches_by_path": {"wide_heads": n}, **_timing(row),
+            "cases": {label: _timing(r) for label, r in cases.items()},
+            "at": "heads wider than 256 (the chunked wide kernels) at the "
+                  "wide-heads train path's shapes, bf16, N=64: its encoder "
+                  "(one head of 512, Lq=Lk=32) shown; `cases`: the encoder, "
+                  "the decoder's self (2 heads of 320, Lq=Lk=31) and cross "
+                  "(Lq=31, Lk=32) attentions, each launched once a layer" + (
+                      ", no dbias; library: SDPA backward"
+                      if kernel == attn.KERNEL_BWD else "; library: SDPA")})
     for kernel, (library, case, at) in WIDE_INFO.items():
         row = next(r for r in rows if r["kernel"] == kernel
                    and r["case"] == case and r["dtype"] == "bfloat16")
-        paths = {path: got[WIDE[kernel]] for path, got in by_path.items()}
+        # the wide-heads path's K1/K2 launches all ran the chunked kernels
+        # (their entries above), the other paths' the register-held ones
+        paths = {path: got[WIDE[kernel]] for path, got in by_path.items()
+                 if path != "wide_heads"
+                 or kernel not in (attn.KERNEL, attn.KERNEL_BWD)}
         out.append({
             "name": WIDE[kernel], "route": "cuda", "design": row["design"],
             "source": f"deepsc_gan_tpu_torch/csrc/{library}.cu",
             "replaces": KERNEL_INFO[kernel][0],
             "launches": sum(paths.values()), "launches_by_path": paths,
-            **{key: row[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "device_ms", "library_device_ms")},
-            "at": at})
+            **_timing(row), "at": at})
+        if kernel in (ce.KERNEL_FWD, ce.KERNEL_BWD):
+            # the wide-heads path's CE runs at D = WIDE_HEADS_D
+            label = f"ce_d{WIDE_HEADS_D}"
+            out[-1]["cases"] = {label: _timing(next(
+                r for r in rows if r["kernel"] == kernel
+                and r["case"] == label and r["dtype"] == "bfloat16"))}
     return out
+
+
+def _timing(row):
+    """A kernel row's error, times and bound, as the kernels line gives
+    them."""
+    return {key: row[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "device_ms", "library_device_ms")}
 
 
 def main(argv=None) -> int:
@@ -2582,6 +3096,14 @@ def main(argv=None) -> int:
     by_path["gan_star"], _ = phase_gan_star(args.seed, GAN_EPOCHS,
                                             args.batches, args.bs)
     by_path["wide"] = phase_wide(args.seed, args.bs)
+    by_path["wide_heads"] = phase_wide_heads(args.seed, args.bs)
+    by_path["mine_train"] = phase_mine_train(args.seed, MINE_EPOCHS,
+                                             args.bs)
+    phase_mine_step_parity(args.seed, args.bs)
+    by_path["resume"] = phase_resume(args.seed, args.bs)
+    by_path["levers"], by_path["profile_run"], levers = phase_levers(
+        args.seed, args.bs)
+    print(f"[levers] {json.dumps(levers)}")
     graph = phase_graph(args.seed, args.bs)
     print(f"[graph] {json.dumps(graph)}")
     phase_profile(args.seed, args.bs)

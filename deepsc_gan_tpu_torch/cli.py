@@ -1,13 +1,14 @@
 """Command-line entry points of the port: the BLEU-vs-SNR sweeps and the
 teacher-forced attack tables (the JAX package's `cli evaluate`), and
-teacher-forced training, plain, FGM-adversarial or the GAN's three phases
-(`cli train --train-mode plain|attack|gan`, one device; plain mode K =
-`--scan-steps` steps a call, 32 by default as in the JAX CLI, on CUDA K
-replays of one captured CUDA graph of the step; the others one step a
-call), of the vanilla transceiver (`--variant transformer`), the star ones
-(`--variant star`, the single-block SE/SD codec, or `star_multi`) and the
-GAN ones (`--variant gan` around the vanilla codec, `gan_star` around
-SE/SD, a star variant; `--train-mode gan` trains only these). The
+teacher-forced training, plain, FGM-adversarial, the GAN's three phases or
+MINE (`cli train --train-mode plain|attack|gan|mine`, one device; plain
+mode K = `--scan-steps` steps a call, 32 by default as in the JAX CLI, on
+CUDA K replays of one captured CUDA graph of the step; the others one step
+a call), of the vanilla transceiver (`--variant transformer`), the star
+ones (`--variant star`, the single-block SE/SD codec, or `star_multi`) and
+the GAN ones (`--variant gan` around the vanilla codec, `gan_star` around
+SE/SD, a star variant; `--train-mode gan` trains only these; `mine` only
+the vanilla transceiver, as the JAX MINE step runs for it alone). The
 evaluation modes:
 - `greedy`: the greedy sweep, full-prefix or `--kv-cache`; a star decoder
   is decoded in one shot (position i predicts token i), with or without
@@ -50,8 +51,10 @@ flag when a kernel it would launch does not take its shapes
 Weights come from a params pickle in the `results/*_params.pkl` format
 (whether the decoder is tied is read from the tree): `--params-pkl`, or for
 `evaluate` the `<checkpoint-path>/<variant>_params.pkl` that `train` saves
-when it exists; without either the model is initialised at random from
-`--seed` (flax's initialisers). The evaluation set is `--test-save-path`, or
+when it exists, else the latest epoch checkpoint under
+`<checkpoint-path>/<variant>/` (its EMA shadow when it holds one); without
+any of them the model is initialised at random from `--seed` (flax's
+initialisers). The evaluation set is `--test-save-path`, or
 synthetic sentences made from seed 0 when the file does not exist (as the
 JAX CLI); the training set `--train-save-path`, or synthetic sentences made
 from `--seed`. The vocab comes from `--vocab-path`, or is an identity vocab.
@@ -63,13 +66,30 @@ and the adversarial one; with `gan`, the receiver's loss, g_loss and
 d_loss) every `--log-every` steps (plain mode at K steps a call: every
 `--log-every` calls, the call's last loss) and sentences/s per epoch to `<log-save-path>/train.jsonl`, and saves the params (the EMA
 shadow when `--ema-decay` is on) as `<checkpoint-path>/<variant>_params.pkl`
-in the `results/*_params.pkl` format. Runs on CUDA unless `--device` names
-another device.
+in the `results/*_params.pkl` format. It also saves an epoch checkpoint
+every `--ckpt-every` epochs and after the last (`utils/checkpoint.py`:
+`<checkpoint-path>/<variant>/<epoch>/`, the newest 5 kept; the port's own
+format, not Orbax's), and `--resume` continues from the latest one,
+bit-identical to the run that was not stopped: the params, Adam's moments
+and counts, the update count, the EMA shadow and the training generator's
+state are restored, and each epoch's shuffle (and augmentation) is a
+function of (seed, epoch). With `--scan-steps K` this holds when K divides
+an epoch's batches (the K-stacks run on across epoch boundaries, and a
+resumed run starts a new stack); resume on the device type that saved
+(the generator's state is the device's). In `mine` mode T, MINE's
+statistics network, restarts fresh on resume and is not saved, as in the
+JAX package. `--profile DIR` traces the first epoch (torch.profiler, a
+Chrome trace in `DIR/trace.json`). The training set takes `--aug-crop`,
+`--aug-concat`, `--aug-synth` (`data/augment.py`); `--remat` and
+`--fuse-qkv` change how the models compute, not what (the Config
+docstring lists the flags accepted without effect). Runs on CUDA unless
+`--device` names another device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import pickle
 import sys
@@ -77,11 +97,8 @@ import time
 
 import torch
 
-from deepsc_gan_tpu_torch.data.loader import (
-    eval_batches,
-    stacked_batches,
-    train_dataset,
-)
+from deepsc_gan_tpu_torch.data.augment import load_train_dataset
+from deepsc_gan_tpu_torch.data.loader import eval_batches, stacked_batches
 from deepsc_gan_tpu_torch.data.vocab import Vocab
 from deepsc_gan_tpu_torch.evaluate.beam import (
     make_beam_decode,
@@ -108,6 +125,10 @@ from deepsc_gan_tpu_torch.train.gan_steps import (
     make_gan_eval_step,
     make_gan_train_step,
 )
+from deepsc_gan_tpu_torch.train.mine_steps import (
+    create_mine_state,
+    make_mine_train_step,
+)
 from deepsc_gan_tpu_torch.train.steps import (
     create_train_state,
     eval_params,
@@ -118,6 +139,7 @@ from deepsc_gan_tpu_torch.train.steps import (
     make_train_multi_step,
     make_train_step,
 )
+from deepsc_gan_tpu_torch.utils.checkpoint import CheckpointManager
 from deepsc_gan_tpu_torch.utils.config import (
     VARIANTS,
     Config,
@@ -135,6 +157,7 @@ from deepsc_gan_tpu_torch.utils.convert import (
 )
 from deepsc_gan_tpu_torch.utils.device import resolve_device
 from deepsc_gan_tpu_torch.utils.logging import MetricLogger
+from deepsc_gan_tpu_torch.utils.profiling import annotate, trace
 
 
 def variant_config(args) -> Config:
@@ -147,14 +170,20 @@ def variant_config(args) -> Config:
 
 
 def load_model(cfg: Config, params_pkl, device, seed: int = 0,
-               variant: str = "transformer"):
+               variant: str = "transformer", state_dict=None):
     """(cfg, model of `variant`) on `device`, in eval mode: weights from
-    `params_pkl` (cfg's tie_embeddings set from the tree), else a random
-    init from `seed`."""
+    `params_pkl` (cfg's tie_embeddings set from the tree), else from
+    `state_dict` (an epoch checkpoint's; tied when it holds the decoder's
+    `final_bias`), else a random init from `seed`."""
     if params_pkl:
         params = load_params_pickle(params_pkl)
         cfg = cfg.replace(tie_embeddings=is_tied(params))
         model = load_into(make_model(cfg, variant), params)
+    elif state_dict is not None:
+        cfg = cfg.replace(
+            tie_embeddings="semantic_decoder.final_bias" in state_dict)
+        model = make_model(cfg, variant)
+        model.load_state_dict(state_dict, strict=True)
     else:
         print("[cli] no params pickle; using random init", file=sys.stderr)
         model = init_params(make_model(cfg, variant), seed)
@@ -169,6 +198,21 @@ def evaluate_params_path(args, cfg: Config):
         return args.params_pkl
     saved = os.path.join(cfg.checkpoint_path, f"{args.variant}_params.pkl")
     return saved if os.path.exists(saved) else None
+
+
+def latest_checkpoint_params(cfg: Config, variant: str):
+    """(the latest epoch checkpoint's directory, the parameters evaluation
+    uses from it: the EMA shadow when it holds one) under
+    `<checkpoint-path>/<variant>/`, as the JAX CLI's `_restore_latest`;
+    (None, None) when there is none."""
+    directory = os.path.join(cfg.checkpoint_path, variant)
+    if not os.path.isdir(directory):
+        return None, None
+    mgr = CheckpointManager(directory)
+    epoch = mgr.latest_epoch()
+    if epoch is None:
+        return None, None
+    return os.path.join(directory, str(epoch)), mgr.eval_params(epoch)
 
 
 EVAL_MODES = ("greedy", "beam", "greedy_attack", "greedy_gan",
@@ -192,11 +236,14 @@ def cmd_evaluate(args) -> dict:
     cfg = variant_config(args)
     check_envelope(cfg, args.variant, args.eval_mode, args.beam_size,
                    args.kv_cache, args.beam_impl, device)
-    params_path = evaluate_params_path(args, cfg)
+    pickled = evaluate_params_path(args, cfg)
+    checkpoint, restored = ((None, None) if pickled
+                            else latest_checkpoint_params(cfg, args.variant))
+    params_path = pickled or checkpoint
     if params_path:
         print(f"[eval] params from {params_path}", file=sys.stderr)
-    cfg, model = load_model(cfg, params_path, device, args.seed,
-                            args.variant)
+    cfg, model = load_model(cfg, pickled, device, args.seed, args.variant,
+                            restored)
     vocab = (Vocab.load(cfg.vocab_path) if os.path.exists(cfg.vocab_path)
              else Vocab.identity(cfg.vocab_size))
     # seed 0, as the JAX CLI's test set (its `_load_dataset` default)
@@ -285,116 +332,201 @@ def save_params_pickle(path: str, params, cfg: Config, recipe: dict) -> str:
     return path
 
 
+# The JAX MINE step shifts the target and was initialised for the vanilla
+# symbols' width: every other variant fails in it (CPU run of
+# deepsc_gan_tpu/train/mine_steps.py:make_mine_train_step on tiny_cfg)
+MINE_REFUSAL = (
+    "--train-mode mine trains the vanilla transceiver only (--variant "
+    "transformer), as the JAX package's MINE step does: it always shifts the "
+    "target, so the star decoders, which score the un-shifted one, fail "
+    "there with 'Incompatible shapes for broadcasting: (4, 11, 1), "
+    "(4, 12, 1)', and a GAN transceiver fails in MINE's fc0 (initialised for "
+    "a (192, 256) kernel, given 536 inputs)")
+
+
+def resume_from_checkpoint(cfg: Config, variant: str, state, gen) -> int:
+    """Restore `state` and the generator `gen` from the latest epoch
+    checkpoint under `<checkpoint-path>/<variant>/` -> its epoch, the first
+    to train; SystemExit when there is none or nothing is left to train."""
+    directory = os.path.join(cfg.checkpoint_path, variant)
+    mgr = CheckpointManager(directory)
+    latest = mgr.latest_epoch()
+    if latest is None:
+        raise SystemExit(f"--resume: no checkpoint under {directory}")
+    mgr.restore(state, latest)
+    gen.set_state(mgr.extra(latest)["generator"])
+    if latest >= cfg.epochs:
+        raise SystemExit(
+            f"--resume: checkpoint is at epoch {latest}, nothing left to "
+            f"train (--epochs {cfg.epochs})")
+    print(f"[train] resumed epoch {latest} from {directory} (step "
+          f"{state.step})")
+    return latest
+
+
 def cmd_train(args) -> dict:
-    """Train for cfg.epochs epochs; -> {"losses" (every step's, on the
-    host; with --train-mode attack the adversarial ones, with gan the
-    receiver's), "clean_losses" (attack: phase 1's clean losses),
-    "g_losses", "d_losses" (gan), "steps", "epoch_seconds",
-    "sents_per_sec", "path", "params_path", "device"}. A GAN step makes
-    three optimizer updates; the recipe saved with the params counts both.
+    """Train to epoch cfg.epochs (from the latest checkpoint's with
+    --resume); -> {"losses" (every step's of this run, on the host; with
+    --train-mode attack the adversarial ones, with gan the receiver's, with
+    mine the CE), "clean_losses" (attack: phase 1's clean losses),
+    "g_losses", "d_losses" (gan), "mis" (mine: the MI estimates), "steps"
+    (this run's), "start_epoch", "epoch_seconds", "sents_per_sec", "path",
+    "params_path", "device"}. A GAN step makes three optimizer updates;
+    the recipe saved with the params counts both.
 
     Plain mode runs `--scan-steps` K steps a call (`make_train_multi_step`:
     on CUDA K replays of one captured graph of the step), path `scanK`, as
     the JAX CLI's `lax.scan` path: K-stacks of batches that run on across
     epoch boundaries, len(ds) // K * K steps an epoch, a loss logged when
     (step // K) % --log-every == 0; `--scan-steps 1`, the attack and the
-    GAN modes run one step a call (path `single`), a loss logged every
-    --log-every steps."""
-    if args.train_mode == "gan" and not is_gan(args.variant):
+    GAN modes run one step a call (path `single`), MINE one step a call
+    (path `mine`), a loss logged every --log-every steps. Step numbers in
+    the log count from the first epoch, resumed runs included."""
+    mode = args.train_mode
+    if mode == "gan" and not is_gan(args.variant):
         raise SystemExit(f"--train-mode gan needs a GAN transceiver "
                          f"(--variant gan or gan_star), not "
                          f"{args.variant!r}")
+    if mode == "mine" and args.variant != "transformer":
+        raise SystemExit(MINE_REFUSAL)
     device = resolve_device(args.device)
     cfg = variant_config(args)
-    check_envelope(cfg, args.variant, None, device=device)
+    check_envelope(cfg, args.variant, "mine" if mode == "mine" else None,
+                   device=device)
     cfg, model = load_model(cfg, args.params_pkl, device, args.seed,
                             args.variant)
     model.train()
     state = create_train_state(model, cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    start_epoch = 0
+    if args.resume:
+        start_epoch = resume_from_checkpoint(cfg, args.variant, state, gen)
     star = is_star(args.variant)
-    attack = args.train_mode == "attack"
-    gan = args.train_mode == "gan"
     scan_k = max(1, args.scan_steps)
-    scan = not (attack or gan) and scan_k > 1
-    if attack:
+    scan = mode == "plain" and scan_k > 1
+    mine_state = None
+    if mode == "attack":
         step = make_train_attack_step(model, cfg, full_target=star,
                                       adv_weight=args.adv_weight)
-    elif gan:
+    elif mode == "gan":
         step = make_gan_train_step(model, cfg, full_target=star)
+    elif mode == "mine":
+        mine, mine_state = create_mine_state(cfg, args.seed, device=device)
+        step = make_mine_train_step(model, mine, cfg)
     elif scan:
         step = make_train_multi_step(model, cfg, full_target=star)
     else:
         step = make_train_step(model, cfg, full_target=star)
-    path = f"scan{scan_k}" if scan else "single"
-    ds = train_dataset(cfg.train_save_path, cfg.seq_len, cfg.vocab_size,
-                       cfg.bs, args.seed)
+    path = f"scan{scan_k}" if scan else ("mine" if mode == "mine"
+                                         else "single")
+    ds = load_train_dataset(cfg, args.seed)
+    if args.resume and scan and len(ds) % scan_k:
+        print(f"[train] --resume: not bit-identical to a run not stopped: "
+              f"--scan-steps {scan_k} does not divide the epoch's {len(ds)} "
+              f"batches (the stacks run across epochs; a resumed run starts "
+              f"a new one)", file=sys.stderr)
     n_std = float(snr_to_noise(cfg.train_snr))
-    gen = torch.Generator(device=device).manual_seed(args.seed)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[train] variant={args.variant} mode={args.train_mode} "
-          f"path={path} device={device} params={n_params:,}")
+    print(f"[train] variant={args.variant} mode={mode} path={path} "
+          f"device={device} params={n_params:,}")
     logger = MetricLogger(os.path.join(cfg.log_save_path, "train.jsonl"))
-    losses, clean_losses, g_losses, d_losses = [], [], [], []
+    ckpt = CheckpointManager(
+        os.path.join(cfg.checkpoint_path, args.variant), max_to_keep=5)
+    losses, clean_losses, g_losses, d_losses, mis = [], [], [], [], []
     epoch_seconds, rates = [], []
     stacker = stacked_batches(ds, scan_k) if scan else None
-    step_i = 0
-    for epoch in range(cfg.epochs):
-        ds.set_epoch(epoch)
-        t0 = time.perf_counter()
-        epoch_sents = len(ds) * cfg.bs
-        if scan:
-            n_disp = max(1, len(ds) // scan_k)
-            epoch_sents = n_disp * scan_k * cfg.bs
-            for _ in range(n_disp):
-                batch = torch.from_numpy(next(stacker)).to(device, torch.long)
-                state, stacked = step(state, batch, batch, gen, n_std)
-                losses.extend(stacked.unbind(0))
-                step_i += scan_k
-                if (step_i // scan_k) % args.log_every == 0:
-                    logger.log(epoch=epoch, step=step_i, loss=stacked[-1])
-        else:
-            for inp, _ in ds:
-                batch = torch.from_numpy(inp).to(device, torch.long)
-                extra = {}
-                if attack:
-                    state, (clean, loss) = step(state, batch, batch, gen,
-                                                args.pnr_db, n_std,
-                                                args.epsilon)
-                    clean_losses.append(clean)
-                    extra = {"clean_loss": clean}
-                elif gan:
-                    state, (loss, g_loss, d_loss) = step(state, batch, batch,
-                                                         gen, n_std)
-                    g_losses.append(g_loss)
-                    d_losses.append(d_loss)
-                    extra = {"g_loss": g_loss, "d_loss": d_loss}
-                else:
-                    state, loss = step(state, batch, batch, gen, n_std)
-                losses.append(loss)
-                step_i += 1
-                if step_i % args.log_every == 0:
-                    logger.log(epoch=epoch, step=step_i, loss=loss, **extra)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
-        epoch_seconds.append(dt)
-        rates.append(epoch_sents / dt)
-        logger.log(epoch=epoch, epoch_time=dt, sents_per_sec=rates[-1])
+    per_epoch = max(1, len(ds) // scan_k) * scan_k if scan else len(ds)
+    step_i = start_epoch * per_epoch
+    profiling = contextlib.ExitStack()
+    if args.profile:
+        profiling.enter_context(trace(args.profile))
+        print(f"[train] profiling epoch {start_epoch} -> {args.profile}")
+    with profiling:
+        for epoch in range(start_epoch, cfg.epochs):
+            traced = bool(args.profile) and epoch == start_epoch
+
+            def region():
+                return (annotate("train_step") if traced
+                        else contextlib.nullcontext())
+
+            ds.set_epoch(epoch)
+            t0 = time.perf_counter()
+            epoch_sents = per_epoch * cfg.bs
+            if scan:
+                for _ in range(per_epoch // scan_k):
+                    batch = torch.from_numpy(next(stacker)).to(device,
+                                                                torch.long)
+                    with region():
+                        state, stacked = step(state, batch, batch, gen,
+                                              n_std)
+                    losses.extend(stacked.unbind(0))
+                    step_i += scan_k
+                    if (step_i // scan_k) % args.log_every == 0:
+                        logger.log(epoch=epoch, step=step_i,
+                                   loss=stacked[-1])
+            else:
+                for inp, _ in ds:
+                    batch = torch.from_numpy(inp).to(device, torch.long)
+                    extra = {}
+                    with region():
+                        if mode == "attack":
+                            state, (clean, loss) = step(
+                                state, batch, batch, gen, args.pnr_db, n_std,
+                                args.epsilon)
+                            clean_losses.append(clean)
+                            extra = {"clean_loss": clean}
+                        elif mode == "gan":
+                            state, (loss, g_loss, d_loss) = step(
+                                state, batch, batch, gen, n_std)
+                            g_losses.append(g_loss)
+                            d_losses.append(d_loss)
+                            extra = {"g_loss": g_loss, "d_loss": d_loss}
+                        elif mode == "mine":
+                            state, mine_state, (loss, mi) = step(
+                                state, mine_state, batch, batch, gen, n_std)
+                            mis.append(mi)
+                            extra = {"mi": mi}
+                        else:
+                            state, loss = step(state, batch, batch, gen,
+                                               n_std)
+                    losses.append(loss)
+                    step_i += 1
+                    if step_i % args.log_every == 0:
+                        logger.log(epoch=epoch, step=step_i, loss=loss,
+                                   **extra)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            profiling.close()  # trace exactly the first epoch
+            epoch_seconds.append(dt)
+            rates.append(epoch_sents / dt)
+            logger.log(epoch=epoch, epoch_time=dt, sents_per_sec=rates[-1])
+            if (epoch + 1) % args.ckpt_every == 0 or epoch + 1 == cfg.epochs:
+                ckpt.save(epoch + 1, state, {"generator": gen.get_state()})
+    ckpt.close()
     logger.close()
     steps_taken = len(losses)
-    recipe = {"variant": args.variant, "train_mode": args.train_mode,
-              "epochs": cfg.epochs, "steps": steps_taken, "seed": args.seed,
+    recipe = {"variant": args.variant, "train_mode": mode,
+              "epochs": cfg.epochs, "start_epoch": start_epoch,
+              "steps": steps_taken, "seed": args.seed,
               "scan_steps": scan_k if scan else 1,
               "tie_embeddings": cfg.tie_embeddings, "schedule": cfg.schedule,
               "lr": cfg.lr, "ema_decay": cfg.ema_decay, "dtype": cfg.dtype,
-              "channel": cfg.channel}
-    if attack:
+              "channel": cfg.channel, "remat": cfg.remat,
+              "fuse_qkv": cfg.fuse_qkv, "aug_crop": cfg.aug_crop,
+              "aug_concat": cfg.aug_concat, "aug_synth": cfg.aug_synth,
+              "rng_impl": cfg.rng_impl, "ce_chunk": cfg.ce_chunk,
+              "shuffle_size": cfg.shuffle_size,
+              "input_data_dir": cfg.input_data_dir}
+    if mode == "attack":
         recipe.update(adv_weight=args.adv_weight, pnr_db=args.pnr_db,
                       epsilon=args.epsilon)
-    if gan:
+    if mode == "gan":
         recipe.update(gan_lambda=cfg.gan_lambda, gan_pnr_db=cfg.gan_pnr_db,
                       g_loss_ceiling=cfg.g_loss_ceiling,
                       optimizer_updates=state.step)
+    if mode == "mine":
+        recipe.update(mine_lambda=cfg.mine_lambda)
     path_pkl = save_params_pickle(
         os.path.join(cfg.checkpoint_path, f"{args.variant}_params.pkl"),
         eval_params(state), cfg, recipe)
@@ -405,7 +537,8 @@ def cmd_train(args) -> dict:
 
     return {"losses": host(losses), "clean_losses": host(clean_losses),
             "g_losses": host(g_losses), "d_losses": host(d_losses),
-            "steps": steps_taken, "epoch_seconds": epoch_seconds,
+            "mis": host(mis), "steps": steps_taken,
+            "start_epoch": start_epoch, "epoch_seconds": epoch_seconds,
             "sents_per_sec": rates, "path": path, "params_path": path_pkl,
             "device": str(device)}
 
@@ -442,10 +575,11 @@ def build_parser() -> argparse.ArgumentParser:
     add_config_args(t)
     t.add_argument("--variant", default="transformer", choices=VARIANTS)
     t.add_argument("--train-mode", default="plain",
-                   choices=["plain", "attack", "gan"],
+                   choices=["plain", "attack", "gan", "mine"],
                    help="gan: the three-phase GAN step (--variant gan or "
                         "gan_star; --gan-lambda, --gan-pnr-db, "
-                        "--g-loss-ceiling)")
+                        "--g-loss-ceiling); mine: MINE joint training "
+                        "(--variant transformer only; --mine-lambda)")
     t.add_argument("--adv-weight", type=float, default=1.0,
                    help="attack: the update's weight on the adversarial "
                         "loss (the rest on the clean one); 1 is the "
@@ -465,6 +599,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="plain mode: K steps a call, on CUDA K replays of "
                         "one captured CUDA graph of the step (the JAX CLI's "
                         "lax.scan path); 1 = one eager step a call")
+    t.add_argument("--ckpt-every", type=int, default=10,
+                   help="save an epoch checkpoint every N epochs under "
+                        "<checkpoint-path>/<variant>/<epoch>/ (the last "
+                        "epoch always saves; the newest 5 kept)")
+    t.add_argument("--resume", action="store_true",
+                   help="continue from the latest epoch checkpoint (params, "
+                        "Adam moments and counts, update count, EMA, the "
+                        "generator's state; bit-identical to the run not "
+                        "stopped, with --scan-steps K when K divides an "
+                        "epoch's batches, and it says at the start when K "
+                        "does not); mine mode: MINE restarts fresh")
+    t.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the first epoch with torch.profiler into "
+                        "DIR/trace.json (a Chrome trace)")
     return parser
 
 

@@ -1,14 +1,15 @@
-// Fused multi-head attention, forward and backward, at any head width up
-// to 256 and any number of heads, for Hopper (sm_90a), plain C interface.
+// Fused multi-head attention, forward and backward, at any head width and
+// any number of heads, for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 // deepsc_gan_tpu/ops/pallas/attention.py where the tuned kernels
 // (csrc/attention_fwd.cu, csrc/attention_bwd.cu: a warp per head of a
 // compile-time width 8, 16 or 32, at most 16 heads a block) do not take the
 // shape: the JAX kernels take any head width and count, so `--encoder-d-model
-// 512` with 8 heads (Dh = 64), 4 heads of 64, or 32 heads run here. Same
-// function and order of roundings as the tuned kernels: with q (N, Lq,
-// H*Dh), k and v (N, Lk, H*Dh), bias (N, Lq, Lk) f32 and g shaped like q,
+// 512` with 8 heads (Dh = 64), 4 heads of 64, 32 heads, or one head of 512
+// run here. Same function and order of roundings as the tuned kernels: with
+// q (N, Lq, H*Dh), k and v (N, Lk, H*Dh), bias (N, Lq, Lk) f32 and g shaped
+// like q,
 //     s = (q_h . k_h) * (1/scale) + bias   (f32, two roundings)
 //     p = exp(s - max) / sum               (f32)
 //     out = pc v_h with pc = p rounded to the input type (f32 sums)
@@ -26,19 +27,29 @@
 // Design: a warp per (batch row, head, query) for the forward and for the
 // backward's dq, a warp per (batch row, head, key) for dk and dv, and a warp
 // per (batch row, query) for dbias; eight warps a block, no shared memory.
-// Lane l holds the elements d = l + 32 t (t < ceil(Dh / 32)) of a head's
-// slice, zero past Dh, so any width up to 256 takes the same code; a dot
-// product is the lane's partial sum over its elements and a butterfly of
-// __shfl_xor_sync, which leaves every lane with the same bits. The softmax
-// is exact, not online: a first pass over the keys takes the max, a second
-// the sum of exponentials (and, backward, sum_j e_j dp_j), and the last
-// forms p = e / sum and accumulates; the logits are recomputed in each
-// pass rather than kept. The backward's dq kernel writes each query's
-// (max, sum, rowsum) to the caller's statistics scratch (N, H, Lq, 4), read
-// by the dk/dv kernel and the dbias kernel, which recompute s and dp with
-// the same products in the same order (bitwise the dq kernel's). Every
-// output element has one writer and a fixed order of sums: no atomics, the
-// same bits on every call. The kernels allocate nothing.
+// Lane l holds the elements d = l + 32 t of a head's slice, so a dot
+// product is the lane's partial sum over its elements in the order of t
+// and a butterfly of __shfl_xor_sync, which leaves every lane with the same
+// bits. The softmax is exact, not online: a first pass over the keys takes
+// the max, a second the sum of exponentials (and, backward, sum_j e_j dp_j),
+// and the last forms p = e / sum and accumulates; the logits are recomputed
+// in each pass rather than kept. The backward's dq kernel writes each
+// query's (max, sum, rowsum) to the caller's statistics scratch (N, H, Lq,
+// 4), read by the dk/dv kernel and the dbias kernel, which recompute s and
+// dp with the same products in the same order (bitwise the dq kernel's).
+// Every output element has one writer and a fixed order of sums: no
+// atomics, the same bits on every call. The kernels allocate nothing.
+//
+// Heads up to 256 wide (kMaxDh) keep the lane's 8 elements of q (and g, k,
+// v) in registers. A wider head takes the chunked kernels: the operands of
+// each dot product are read from memory (the same elements in the same
+// order, so the same bits as a register-held slice would give), and each
+// output row is walked in chunks of 256 elements, 8 a lane: for each chunk
+// the pass over the keys (or queries) is run again, its p (and ds)
+// recomputed exactly as in the other passes, and the chunk's accumulators
+// written before the next chunk starts. The work grows with the chunks (a
+// head of 512 runs the accumulating pass twice) but registers do not, so
+// any width runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,7 +57,7 @@
 
 namespace {
 
-constexpr int kMaxPer = 8;   // elements of a head a lane holds: Dh <= 256
+constexpr int kMaxPer = 8;   // elements of a head a lane holds in registers
 constexpr int kWarps = 8;    // warps a block
 constexpr int kMaxDh = 32 * kMaxPer;
 
@@ -321,13 +332,235 @@ attention_bwd_dbias_wide_kernel(const T* __restrict__ q,
   }
 }
 
+// ---- heads wider than kMaxDh: the chunked kernels ----
+
+// sum over the head of a[d] * b[d], both read from memory: the lane's
+// elements d = lane + 32 t in the order of t, then the butterfly (the same
+// products and order as `dot` on a register-held slice)
+template <typename T>
+__device__ __forceinline__ float dot_rows(const T* __restrict__ a,
+                                          const T* __restrict__ b, int lane,
+                                          int dh) {
+  float acc = 0.f;
+  for (int d = lane; d < dh; d += 32)
+    acc = fmaf(to_f(a[d]), to_f(b[d]), acc);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  return acc;
+}
+
+// acc[t] += w * row[c + lane + 32 t] over the chunk of the head at column c
+template <typename T>
+__device__ __forceinline__ void axpy_chunk(float w, const T* __restrict__ row,
+                                           int c, int lane, int dh,
+                                           float* acc) {
+#pragma unroll
+  for (int t = 0; t < kMaxPer; ++t) {
+    const int d = c + lane + 32 * t;
+    if (d < dh) acc[t] = fmaf(w, to_f(row[d]), acc[t]);
+  }
+}
+
+__device__ __forceinline__ void zero(float* acc) {
+#pragma unroll
+  for (int t = 0; t < kMaxPer; ++t) acc[t] = 0.f;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_fwd_chunked_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const float* __restrict__ bias,
+                             T* __restrict__ out, Shape sh) {
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= (long long)sh.n * sh.heads * sh.lq) return;  // the whole warp
+  const int i = (int)(w % sh.lq);
+  const long long nh = w / sh.lq;
+  const int h = (int)(nh % sh.heads);
+  const long long b = nh / sh.heads;
+  const long long hd = (long long)sh.heads * sh.dh;
+  const long long col = (long long)h * sh.dh;
+
+  const T* qi = q + (b * sh.lq + i) * hd + col;
+  const T* kb = k + b * sh.lk * hd + col;
+  const T* vb = v + b * sh.lk * hd + col;
+  const float* bb = bias + (b * sh.lq + i) * sh.lk;
+
+  float m = -INFINITY;
+  for (int j = 0; j < sh.lk; ++j)
+    m = fmaxf(m, logit(dot_rows(qi, kb + j * hd, lane, sh.dh), sh.inv_scale,
+                       bb[j]));
+  float sum = 0.f;
+  for (int j = 0; j < sh.lk; ++j)
+    sum += expf(logit(dot_rows(qi, kb + j * hd, lane, sh.dh), sh.inv_scale,
+                      bb[j]) - m);
+  T* oi = out + (b * sh.lq + i) * hd + col;
+  for (int c = 0; c < sh.dh; c += kMaxDh) {
+    float ctx[kMaxPer];
+    zero(ctx);
+    for (int j = 0; j < sh.lk; ++j) {
+      const float s = logit(dot_rows(qi, kb + j * hd, lane, sh.dh),
+                            sh.inv_scale, bb[j]);
+      const float p = round_to<T>(__fdiv_rn(expf(s - m), sum));
+      axpy_chunk(p, vb + j * hd, c, lane, sh.dh, ctx);
+    }
+    store_slice(oi + c, lane, sh.dh - c, ctx);
+  }
+}
+
+// dq and the statistics: a warp per (b, h, i)
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_bwd_dq_chunked_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const float* __restrict__ bias,
+                                const T* __restrict__ g, T* __restrict__ dq,
+                                float4* __restrict__ stats, Shape sh) {
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= (long long)sh.n * sh.heads * sh.lq) return;
+  const int i = (int)(w % sh.lq);
+  const long long nh = w / sh.lq;
+  const int h = (int)(nh % sh.heads);
+  const long long b = nh / sh.heads;
+  const long long hd = (long long)sh.heads * sh.dh;
+  const long long col = (long long)h * sh.dh;
+
+  const long long at = (b * sh.lq + i) * hd + col;
+  const T* qi = q + at;
+  const T* gi = g + at;
+  const T* kb = k + b * sh.lk * hd + col;
+  const T* vb = v + b * sh.lk * hd + col;
+  const float* bb = bias + (b * sh.lq + i) * sh.lk;
+
+  float m = -INFINITY;
+  for (int j = 0; j < sh.lk; ++j)
+    m = fmaxf(m, logit(dot_rows(qi, kb + j * hd, lane, sh.dh), sh.inv_scale,
+                       bb[j]));
+  float l = 0.f, racc = 0.f;
+  for (int j = 0; j < sh.lk; ++j) {
+    const float e = expf(logit(dot_rows(qi, kb + j * hd, lane, sh.dh),
+                               sh.inv_scale, bb[j]) - m);
+    l += e;
+    racc = fmaf(e, dot_rows(gi, vb + j * hd, lane, sh.dh), racc);
+  }
+  const float rowsum = __fdiv_rn(racc, l);
+  for (int c = 0; c < sh.dh; c += kMaxDh) {
+    float acc[kMaxPer];
+    zero(acc);
+    for (int j = 0; j < sh.lk; ++j) {
+      const T* kj = kb + j * hd;
+      const float s = logit(dot_rows(qi, kj, lane, sh.dh), sh.inv_scale,
+                            bb[j]);
+      const float dp = dot_rows(gi, vb + j * hd, lane, sh.dh);
+      const float p = __fdiv_rn(expf(s - m), l);
+      const float ds = __fmul_rn(p, __fsub_rn(dp, rowsum));
+      const float dss = round_to<T>(__fmul_rn(ds, sh.inv_scale));
+      axpy_chunk(dss, kj, c, lane, sh.dh, acc);
+    }
+    store_slice(dq + at + c, lane, sh.dh - c, acc);
+  }
+  if (lane == 0) stats[nh * sh.lq + i] = make_float4(m, l, rowsum, 0.f);
+}
+
+// dk and dv: a warp per (b, h, j), summing over the queries in order
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_bwd_dkv_chunked_kernel(const T* __restrict__ q,
+                                 const T* __restrict__ k,
+                                 const T* __restrict__ v,
+                                 const float* __restrict__ bias,
+                                 const T* __restrict__ g, T* __restrict__ dk,
+                                 T* __restrict__ dv,
+                                 const float4* __restrict__ stats, Shape sh) {
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= (long long)sh.n * sh.heads * sh.lk) return;
+  const int j = (int)(w % sh.lk);
+  const long long nh = w / sh.lk;
+  const int h = (int)(nh % sh.heads);
+  const long long b = nh / sh.heads;
+  const long long hd = (long long)sh.heads * sh.dh;
+  const long long col = (long long)h * sh.dh;
+
+  const long long at = (b * sh.lk + j) * hd + col;
+  const T* kj = k + at;
+  const T* vj = v + at;
+  const T* qb = q + b * sh.lq * hd + col;
+  const T* gb = g + b * sh.lq * hd + col;
+  const float* bb = bias + b * sh.lq * sh.lk + j;
+  const float4* st = stats + nh * sh.lq;
+
+  for (int c = 0; c < sh.dh; c += kMaxDh) {
+    float dka[kMaxPer], dva[kMaxPer];
+    zero(dka);
+    zero(dva);
+    for (int i = 0; i < sh.lq; ++i) {
+      const T* qi = qb + i * hd;
+      const T* gi = gb + i * hd;
+      const float4 sti = st[i];
+      const float s = logit(dot_rows(kj, qi, lane, sh.dh), sh.inv_scale,
+                            bb[(long long)i * sh.lk]);
+      const float dp = dot_rows(vj, gi, lane, sh.dh);
+      const float p = __fdiv_rn(expf(s - sti.x), sti.y);
+      const float ds = __fmul_rn(p, __fsub_rn(dp, sti.z));
+      const float dss = round_to<T>(__fmul_rn(ds, sh.inv_scale));
+      const float pc = round_to<T>(p);
+      axpy_chunk(dss, qi, c, lane, sh.dh, dka);
+      axpy_chunk(pc, gi, c, lane, sh.dh, dva);
+    }
+    store_slice(dk + at + c, lane, sh.dh - c, dka);
+    store_slice(dv + at + c, lane, sh.dh - c, dva);
+  }
+}
+
+// dbias = sum over heads 0..H-1 of ds: a warp per (b, i), lane 0 writing
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_bwd_dbias_chunked_kernel(const T* __restrict__ q,
+                                   const T* __restrict__ k,
+                                   const T* __restrict__ v,
+                                   const float* __restrict__ bias,
+                                   const T* __restrict__ g,
+                                   float* __restrict__ dbias,
+                                   const float4* __restrict__ stats,
+                                   Shape sh) {
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= (long long)sh.n * sh.lq) return;
+  const int i = (int)(w % sh.lq);
+  const long long b = w / sh.lq;
+  const long long hd = (long long)sh.heads * sh.dh;
+  const float* bb = bias + w * sh.lk;
+  float* out = dbias + w * sh.lk;
+  for (int j = 0; j < sh.lk; ++j) {
+    float acc = 0.f;
+    for (int h = 0; h < sh.heads; ++h) {
+      const long long col = (long long)h * sh.dh;
+      const T* qi = q + (b * sh.lq + i) * hd + col;
+      const T* gi = g + (b * sh.lq + i) * hd + col;
+      const float4 sti = stats[(b * sh.heads + h) * sh.lq + i];
+      const float s = logit(dot_rows(qi, k + (b * sh.lk + j) * hd + col,
+                                     lane, sh.dh), sh.inv_scale, bb[j]);
+      const float dp = dot_rows(gi, v + (b * sh.lk + j) * hd + col, lane,
+                                sh.dh);
+      const float p = __fdiv_rn(expf(s - sti.x), sti.y);
+      acc = __fadd_rn(acc, __fmul_rn(p, __fsub_rn(dp, sti.z)));
+    }
+    if (lane == 0) out[j] = acc;
+  }
+}
+
 unsigned blocks(long long warps) {
   return (unsigned)((warps + kWarps - 1) / kWarps);
 }
 
 bool bad(const Shape& sh) {
   return sh.n <= 0 || sh.lq <= 0 || sh.lk <= 0 || sh.heads <= 0 ||
-         sh.dh <= 0 || sh.dh > kMaxDh;
+         sh.dh <= 0;
 }
 
 Shape shape(int n, int lq, int lk, int heads, int dh, double scale) {
@@ -339,10 +572,16 @@ template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                void* out, const Shape& sh, void* stream) {
   if (bad(sh)) return (int)cudaErrorInvalidValue;
-  attention_fwd_wide_kernel<T>
-      <<<blocks((long long)sh.n * sh.heads * sh.lq), kWarps * 32, 0,
-         (cudaStream_t)stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                 (const float*)bias, (T*)out, sh);
+  const unsigned grid = blocks((long long)sh.n * sh.heads * sh.lq);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sh.dh <= kMaxDh)
+    attention_fwd_wide_kernel<T><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
+        sh);
+  else
+    attention_fwd_chunked_kernel<T><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
+        sh);
   return (int)cudaGetLastError();
 }
 
@@ -352,22 +591,38 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
                void* stats, const Shape& sh, void* stream) {
   if (bad(sh)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  attention_bwd_dq_wide_kernel<T>
-      <<<blocks((long long)sh.n * sh.heads * sh.lq), kWarps * 32, 0, st>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-          (const T*)g, (T*)dq, (float4*)stats, sh);
+  const bool chunked = sh.dh > kMaxDh;
+  const unsigned q_grid = blocks((long long)sh.n * sh.heads * sh.lq);
+  const unsigned k_grid = blocks((long long)sh.n * sh.heads * sh.lk);
+  const unsigned b_grid = blocks((long long)sh.n * sh.lq);
+  if (chunked)
+    attention_bwd_dq_chunked_kernel<T><<<q_grid, kWarps * 32, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+        (const T*)g, (T*)dq, (float4*)stats, sh);
+  else
+    attention_bwd_dq_wide_kernel<T><<<q_grid, kWarps * 32, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+        (const T*)g, (T*)dq, (float4*)stats, sh);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  attention_bwd_dkv_wide_kernel<T>
-      <<<blocks((long long)sh.n * sh.heads * sh.lk), kWarps * 32, 0, st>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-          (const T*)g, (T*)dk, (T*)dv, (const float4*)stats, sh);
+  if (chunked)
+    attention_bwd_dkv_chunked_kernel<T><<<k_grid, kWarps * 32, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+        (const T*)g, (T*)dk, (T*)dv, (const float4*)stats, sh);
+  else
+    attention_bwd_dkv_wide_kernel<T><<<k_grid, kWarps * 32, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+        (const T*)g, (T*)dk, (T*)dv, (const float4*)stats, sh);
   err = (int)cudaGetLastError();
   if (err || dbias == nullptr) return err;
-  attention_bwd_dbias_wide_kernel<T>
-      <<<blocks((long long)sh.n * sh.lq), kWarps * 32, 0, st>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-          (const T*)g, (float*)dbias, (const float4*)stats, sh);
+  if (chunked)
+    attention_bwd_dbias_chunked_kernel<T><<<b_grid, kWarps * 32, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+        (const T*)g, (float*)dbias, (const float4*)stats, sh);
+  else
+    attention_bwd_dbias_wide_kernel<T><<<b_grid, kWarps * 32, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+        (const T*)g, (float*)dbias, (const float4*)stats, sh);
   return (int)cudaGetLastError();
 }
 
@@ -375,11 +630,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
 
 extern "C" {
 
-// The widest head the kernels take.
-int deepsc_attention_wide_max_head_dim() { return kMaxDh; }
-
 // q, out: contiguous (N, Lq, heads*dh); k, v: (N, Lk, heads*dh); bias:
-// contiguous f32 (N, Lq, Lk); any N, Lq, Lk and heads, 1 <= dh <= 256.
+// contiguous f32 (N, Lq, Lk); any N, Lq, Lk, heads and dh >= 1 (past 256
+// the chunked kernels).
 // Returns cudaGetLastError() after the launch (0 = success).
 int deepsc_attention_wide_fwd_f32(const void* q, const void* k,
                                   const void* v, const void* bias, void* out,

@@ -125,11 +125,3 @@ def synthetic_dataset(n: int = 1024, seq_len: int = 31,
     return Dataset(synthetic_sentences(n, seq_len, vocab_size, seed, min_len,
                                        max_len),
                    batch_size=batch_size, seed=seed)
-
-
-def train_dataset(path: str, seq_len: int, vocab_size: int, batch_size: int,
-                  seed: int = 0) -> Dataset:
-    """The training set (the JAX CLI's `_load_train_dataset` without
-    augmentation): `load_sentences`, shuffled from `seed`."""
-    return Dataset(load_sentences(path, seq_len, vocab_size, seed),
-                   batch_size=batch_size, seed=seed)

@@ -24,6 +24,11 @@ they are plain einsums in the JAX package. The encoder ignores its padding
 mask, as in the JAX package, and a star decoder's output has the MEMORY's
 length: its position i predicts token i.
 
+With `fuse_qkv` (`Config.fuse_qkv`) the bank's projections that share an
+input run as one matmul (`ops/layers.py:project_packed`), where the JAX
+package's `_qkv` and `_kv` pack them: Q/K/V on h and on the decoder's
+target, K/V on e, on s and on the relay's context.
+
 Dropout sits at the JAX package's sites (the embedding; after the cycles
 and after the FFN; in the decoder also after the target self-attention)
 and draws its masks from the generator a forward is given.
@@ -45,7 +50,7 @@ from deepsc_gan_tpu_torch.models.transformer import (
     VocabProjection,
 )
 from deepsc_gan_tpu_torch.ops.attention import NEG_INF
-from deepsc_gan_tpu_torch.ops.layers import Dense, dropout
+from deepsc_gan_tpu_torch.ops.layers import Dense, dropout, project_packed
 from deepsc_gan_tpu_torch.ops.star_kernel import satellite_attention
 
 
@@ -55,7 +60,8 @@ class StarAttention(nn.Module):
     as `ops/attention.py:MultiHeadAttention`'s."""
 
     def __init__(self, d_model: int, num_heads: int, dtype=torch.float32,
-                 satellite: Callable = satellite_attention):
+                 satellite: Callable = satellite_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of "
@@ -63,17 +69,27 @@ class StarAttention(nn.Module):
         self.num_heads = num_heads
         self.depth = d_model // num_heads
         self.satellite_op = satellite
+        self.fuse_qkv = fuse_qkv
         self.wq = Dense(d_model, d_model, bias=False, dtype=dtype)
         self.wk = Dense(d_model, d_model, bias=False, dtype=dtype)
         self.wv = Dense(d_model, d_model, bias=False, dtype=dtype)
         self.out = Dense(d_model, d_model, bias=True, dtype=dtype)
 
+    def _kv(self, x):
+        if self.fuse_qkv:
+            return project_packed(x, (self.wk, self.wv))
+        return self.wk(x), self.wv(x)
+
+    def _qkv(self, x):
+        if self.fuse_qkv:
+            return project_packed(x, (self.wq, self.wk, self.wv))
+        return self.wq(x), self.wk(x), self.wv(x)
+
     def satellite(self, h, e, s):
         """One ring update, before its ReLU: h, e (B, L, D), s (B, D) ->
         (B, L, D)."""
-        out = self.satellite_op(self.wq(h), self.wk(h), self.wv(h),
-                                self.wk(e), self.wv(e), self.wk(s),
-                                self.wv(s), self.num_heads)
+        out = self.satellite_op(*self._qkv(h), *self._kv(e), *self._kv(s),
+                                self.num_heads)
         return self.out(out)
 
     def _attend(self, q, k, v, mask=None):
@@ -98,14 +114,17 @@ class StarAttention(nn.Module):
         [s; h] (+ h2) -> (B, D)."""
         ctx = torch.cat([s[:, None], h] + ([h2] if h2 is not None else []),
                         dim=1)
-        out = self._attend(self.wq(s[:, None]), self.wk(ctx), self.wv(ctx))
+        out = self._attend(self.wq(s[:, None]), *self._kv(ctx))
         return self.out(out)[:, 0]
 
     def full(self, q, k, v, mask=None):
         """Plain masked multi-head attention through the same weights (the
         decoder's target self-attention)."""
-        return self.out(self._attend(self.wq(q), self.wk(k), self.wv(v),
-                                     mask))
+        if q is k and k is v:
+            qkv = self._qkv(q)
+        else:
+            qkv = self.wq(q), self.wk(k), self.wv(v)
+        return self.out(self._attend(*qkv, mask))
 
 
 def _star_cycles(att_sat: StarAttention, att_relay: StarAttention, e,
@@ -123,17 +142,18 @@ class StarEncoderLayer(nn.Module):
     def __init__(self, cycle_num, d_model, num_heads, dff, dropout_rate=0.0,
                  ffn_mode="mlp", separate_relay=False, share_ffn_ln=False,
                  dtype=torch.float32,
-                 satellite: Callable = satellite_attention):
+                 satellite: Callable = satellite_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.cycle_num = cycle_num
         self.rate = dropout_rate
         self.separate_relay = separate_relay
         self.share_ffn_ln = share_ffn_ln
         self.att_satellite = StarAttention(d_model, num_heads, dtype,
-                                           satellite)
+                                           satellite, fuse_qkv)
         if separate_relay:
             self.att_relay = StarAttention(d_model, num_heads, dtype,
-                                           satellite)
+                                           satellite, fuse_qkv)
         self.sl2 = FeedForward(d_model, dff, ffn_mode, dtype)
         self.layernorm1 = LayerNorm(d_model, dtype)
         if not share_ffn_ln:
@@ -155,17 +175,19 @@ class StarDecoderLayer(nn.Module):
 
     def __init__(self, cycle_num, d_model, num_heads, dff, dropout_rate=0.0,
                  ffn_mode="mlp", separate_relay=False, dtype=torch.float32,
-                 satellite: Callable = satellite_attention):
+                 satellite: Callable = satellite_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.cycle_num = cycle_num
         self.rate = dropout_rate
         self.separate_relay = separate_relay
-        self.multi_tar = StarAttention(d_model, num_heads, dtype, satellite)
+        self.multi_tar = StarAttention(d_model, num_heads, dtype, satellite,
+                                       fuse_qkv)
         self.att_satellite = StarAttention(d_model, num_heads, dtype,
-                                           satellite)
+                                           satellite, fuse_qkv)
         if separate_relay:
             self.att_relay = StarAttention(d_model, num_heads, dtype,
-                                           satellite)
+                                           satellite, fuse_qkv)
         self.sl2 = FeedForward(d_model, dff, ffn_mode, dtype)
         self.layernorm1 = LayerNorm(d_model, dtype)
         self.layernorm2 = LayerNorm(d_model, dtype)
@@ -194,13 +216,15 @@ class SEncoder(nn.Module):
     def __init__(self, cycle_num, num_layers, num_heads, d_model, dff,
                  vocab_size, dropout_rate=0.0, ffn_mode="mlp",
                  max_position=512, dtype=torch.float32,
-                 satellite: Callable = satellite_attention):
+                 satellite: Callable = satellite_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.embed = TokenEmbed(vocab_size, d_model, max_position, dtype,
                                 dropout_rate)
         self.layers = nn.ModuleList(
             StarEncoderLayer(cycle_num, d_model, num_heads, dff, dropout_rate,
-                             ffn_mode, dtype=dtype, satellite=satellite)
+                             ffn_mode, dtype=dtype, satellite=satellite,
+                             fuse_qkv=fuse_qkv)
             for _ in range(num_layers))
 
     def forward(self, tokens, mask=None, gen: Gen = None):
@@ -216,13 +240,15 @@ class SDecoder(VocabProjection):
     def __init__(self, cycle_num, num_layers, d_model, num_heads, dff,
                  vocab_size, dropout_rate=0.0, ffn_mode="mlp",
                  max_position=512, tie_embeddings=False, dtype=torch.float32,
-                 satellite: Callable = satellite_attention):
+                 satellite: Callable = satellite_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.embed = TokenEmbed(vocab_size, d_model, max_position, dtype,
                                 dropout_rate)
         self.layers = nn.ModuleList(
             StarDecoderLayer(cycle_num, d_model, num_heads, dff, dropout_rate,
-                             ffn_mode, dtype=dtype, satellite=satellite)
+                             ffn_mode, dtype=dtype, satellite=satellite,
+                             fuse_qkv=fuse_qkv)
             for _ in range(num_layers))
         self._vocab_head(d_model, vocab_size, tie_embeddings)
 
@@ -242,14 +268,15 @@ class SE(nn.Module):
     def __init__(self, cycle_num, num_heads, d_model, dff, vocab_size,
                  dropout_rate=0.0, ffn_mode="mlp", max_position=512,
                  dtype=torch.float32,
-                 satellite: Callable = satellite_attention):
+                 satellite: Callable = satellite_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.embed = TokenEmbed(vocab_size, d_model, max_position, dtype,
                                 dropout_rate)
         self.block = StarEncoderLayer(
             cycle_num, d_model, num_heads, dff, dropout_rate, ffn_mode,
             separate_relay=True, share_ffn_ln=True, dtype=dtype,
-            satellite=satellite)
+            satellite=satellite, fuse_qkv=fuse_qkv)
 
     def forward(self, tokens, mask=None, gen: Gen = None):
         x, _ = self.block(self.embed(tokens, gen), gen)
@@ -263,13 +290,15 @@ class SD(VocabProjection):
     def __init__(self, cycle_num, d_model, num_heads, dff, vocab_size,
                  dropout_rate=0.0, ffn_mode="mlp", max_position=512,
                  tie_embeddings=False, dtype=torch.float32,
-                 satellite: Callable = satellite_attention):
+                 satellite: Callable = satellite_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.embed = TokenEmbed(vocab_size, d_model, max_position, dtype,
                                 dropout_rate)
         self.block = StarDecoderLayer(
             cycle_num, d_model, num_heads, dff, dropout_rate, ffn_mode,
-            separate_relay=True, dtype=dtype, satellite=satellite)
+            separate_relay=True, dtype=dtype, satellite=satellite,
+            fuse_qkv=fuse_qkv)
         self._vocab_head(d_model, vocab_size, tie_embeddings)
 
     def forward(self, tokens, enc_output, look_ahead_mask, padding_mask=None,

@@ -99,18 +99,20 @@ class _TransceiverBase(nn.Module):
 
 class Transceiver(_TransceiverBase):
     """The vanilla transceiver; `attention` is the per-call attention
-    function of its layers."""
+    function of its layers; cfg.remat recomputes each layer in the
+    backward and cfg.fuse_qkv packs the attentions' projections."""
 
     def __init__(self, cfg: Config, attention: Callable = fused_attention):
         dt = torch_dtype(cfg.dtype)
         super().__init__(cfg, Encoder(
             cfg.encoder_num_layer, cfg.encoder_num_heads, cfg.encoder_d_model,
             cfg.encoder_d_ff, cfg.vocab_size, cfg.encoder_dropout,
-            cfg.ffn_mode, dtype=dt, attention=attention), Decoder(
+            cfg.ffn_mode, dtype=dt, attention=attention, remat=cfg.remat,
+            fuse_qkv=cfg.fuse_qkv), Decoder(
             cfg.decoder_num_layer, cfg.decoder_d_model, cfg.decoder_num_heads,
             cfg.decoder_d_ff, cfg.vocab_size, cfg.decoder_dropout,
             cfg.ffn_mode, tie_embeddings=cfg.tie_embeddings, dtype=dt,
-            attention=attention))
+            attention=attention, remat=cfg.remat, fuse_qkv=cfg.fuse_qkv))
 
 
 class TransceiverStarMulti(_TransceiverBase):
@@ -124,12 +126,12 @@ class TransceiverStarMulti(_TransceiverBase):
             cfg.cycle_num, cfg.encoder_num_layer, cfg.encoder_num_heads,
             cfg.encoder_d_model, cfg.encoder_d_ff, cfg.vocab_size,
             cfg.encoder_dropout, cfg.ffn_mode, dtype=dt,
-            satellite=satellite), SDecoder(
+            satellite=satellite, fuse_qkv=cfg.fuse_qkv), SDecoder(
             cfg.cycle_num, cfg.decoder_num_layer, cfg.decoder_d_model,
             cfg.decoder_num_heads, cfg.decoder_d_ff, cfg.vocab_size,
             cfg.decoder_dropout, cfg.ffn_mode,
             tie_embeddings=cfg.tie_embeddings, dtype=dt,
-            satellite=satellite))
+            satellite=satellite, fuse_qkv=cfg.fuse_qkv))
 
 
 class TransceiverStar(_TransceiverBase):
@@ -142,11 +144,12 @@ class TransceiverStar(_TransceiverBase):
         super().__init__(cfg, SE(
             cfg.cycle_num, cfg.encoder_num_heads, cfg.encoder_d_model,
             cfg.encoder_d_ff, cfg.vocab_size, cfg.encoder_dropout,
-            cfg.ffn_mode, dtype=dt, satellite=satellite), SD(
+            cfg.ffn_mode, dtype=dt, satellite=satellite,
+            fuse_qkv=cfg.fuse_qkv), SD(
             cfg.cycle_num, cfg.decoder_d_model, cfg.decoder_num_heads,
             cfg.decoder_d_ff, cfg.vocab_size, cfg.decoder_dropout,
             cfg.ffn_mode, tie_embeddings=cfg.tie_embeddings, dtype=dt,
-            satellite=satellite))
+            satellite=satellite, fuse_qkv=cfg.fuse_qkv))
 
 
 class _GAN:

@@ -10,6 +10,20 @@ the embedding's positional table; after the attention and the FFN of an
 encoder layer; after the self-attention, the cross-attention and the FFN
 of a decoder layer) and draws its masks from the generator a forward is
 given; without one every layer is deterministic.
+
+With `remat` (`Config.remat`, the JAX package's `_maybe_remat`) each
+encoder and decoder layer is recomputed in the backward instead of keeping
+its intermediates (`torch.utils.checkpoint`, non-reentrant). The
+recompute must apply the masks of the first forward and leave the
+generator where the first forward left it, but
+`torch.utils.checkpoint` restores only the default generators' states,
+and an explicit generator's state cannot be read or set inside a CUDA
+graph capture. So a recomputed layer draws through a `MaskTape`
+(`ops/layers.py`): its masks are drawn from the generator in the first
+forward, in the same order, and kept (a byte an element); the recompute
+reads them back. Values, gradients and the generator's state are those of
+the step without remat; each K1 of a recomputed layer launches twice.
+`fuse_qkv` packs the attentions' projections (`ops/attention.py`).
 """
 
 from __future__ import annotations
@@ -18,11 +32,12 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from deepsc_gan_tpu_torch.ops.attention import MultiHeadAttention
 from deepsc_gan_tpu_torch.ops.attention_kernel import fused_attention
-from deepsc_gan_tpu_torch.ops.layers import Dense, dropout
+from deepsc_gan_tpu_torch.ops.layers import Dense, MaskTape, dropout
 from deepsc_gan_tpu_torch.ops.positional import positional_encoding
 
 Gen = Optional[torch.Generator]
@@ -60,13 +75,35 @@ class FeedForward(nn.Module):
         return self.fc2(torch.relu(self.fc1(x)))
 
 
+def remat_layer(layer: nn.Module, *args, gen: Gen = None):
+    """`layer(*args, gen)` recomputed in the backward, its dropout masks
+    drawn once and kept (see the module docstring); without autograd, the
+    plain call."""
+    if not torch.is_grad_enabled():
+        return layer(*args, gen)
+    tape = None if gen is None else MaskTape(gen)
+
+    def run(*a):
+        if tape is not None and tape.recorded:
+            tape.rewind()
+        return layer(*a, tape)
+
+    out = torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False)
+    if tape is not None:
+        tape.recorded = True
+    return out
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, d_model, num_heads, dff, dropout_rate=0.0,
                  ffn_mode="mlp", dtype=torch.float32,
-                 attention: Callable = fused_attention):
+                 attention: Callable = fused_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.rate = dropout_rate
-        self.mha = MultiHeadAttention(d_model, num_heads, dtype, attention)
+        self.mha = MultiHeadAttention(d_model, num_heads, dtype, attention,
+                                      fuse_qkv)
         self.ffn = FeedForward(d_model, dff, ffn_mode, dtype)
         self.ln1 = LayerNorm(d_model, dtype)
         self.ln2 = LayerNorm(d_model, dtype)
@@ -81,13 +118,14 @@ class EncoderLayer(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, d_model, num_heads, dff, dropout_rate=0.0,
                  ffn_mode="mlp", dtype=torch.float32,
-                 attention: Callable = fused_attention):
+                 attention: Callable = fused_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.rate = dropout_rate
         self.self_mha = MultiHeadAttention(d_model, num_heads, dtype,
-                                           attention)
+                                           attention, fuse_qkv)
         self.cross_mha = MultiHeadAttention(d_model, num_heads, dtype,
-                                            attention)
+                                            attention, fuse_qkv)
         self.ffn = FeedForward(d_model, dff, ffn_mode, dtype)
         self.ln1 = LayerNorm(d_model, dtype)
         self.ln2 = LayerNorm(d_model, dtype)
@@ -132,19 +170,22 @@ class TokenEmbed(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, num_layers, num_heads, d_model, dff, vocab_size,
                  dropout_rate=0.0, ffn_mode="mlp", max_position=512,
-                 dtype=torch.float32, attention: Callable = fused_attention):
+                 dtype=torch.float32, attention: Callable = fused_attention,
+                 remat: bool = False, fuse_qkv: bool = False):
         super().__init__()
+        self.remat = remat
         self.embed = TokenEmbed(vocab_size, d_model, max_position, dtype,
                                 dropout_rate)
         self.layers = nn.ModuleList(
             EncoderLayer(d_model, num_heads, dff, dropout_rate, ffn_mode,
-                         dtype, attention)
+                         dtype, attention, fuse_qkv)
             for _ in range(num_layers))
 
     def forward(self, tokens, mask, gen: Gen = None):
         x = self.embed(tokens, gen)
         for layer in self.layers:
-            x = layer(x, mask, gen)
+            x = (remat_layer(layer, x, mask, gen=gen) if self.remat
+                 else layer(x, mask, gen))
         return x
 
 
@@ -177,13 +218,15 @@ class Decoder(VocabProjection):
     def __init__(self, num_layers, d_model, num_heads, dff, vocab_size,
                  dropout_rate=0.0, ffn_mode="mlp", max_position=512,
                  tie_embeddings=False, dtype=torch.float32,
-                 attention: Callable = fused_attention):
+                 attention: Callable = fused_attention,
+                 remat: bool = False, fuse_qkv: bool = False):
         super().__init__()
+        self.remat = remat
         self.embed = TokenEmbed(vocab_size, d_model, max_position, dtype,
                                 dropout_rate)
         self.layers = nn.ModuleList(
             DecoderLayer(d_model, num_heads, dff, dropout_rate, ffn_mode,
-                         dtype, attention)
+                         dtype, attention, fuse_qkv)
             for _ in range(num_layers))
         self._vocab_head(d_model, vocab_size, tie_embeddings)
 
@@ -191,5 +234,7 @@ class Decoder(VocabProjection):
                 apply_final: bool = True, gen: Gen = None):
         x = self.embed(tokens, gen)
         for layer in self.layers:
-            x = layer(x, enc_output, look_ahead_mask, padding_mask, gen)
+            args = (x, enc_output, look_ahead_mask, padding_mask)
+            x = (remat_layer(layer, *args, gen=gen) if self.remat
+                 else layer(*args, gen))
         return self.final_projection(x) if apply_final else x

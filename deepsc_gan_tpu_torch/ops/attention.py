@@ -5,7 +5,10 @@ layout, the mask collapsed to one additive f32 bias (B, Lq, Lk) of
 output projection.
 
 Weights are f32 and cast to the activation dtype at every use, as flax
-computes (`ops/layers.py:Dense`).
+computes (`ops/layers.py:Dense`). With `fuse_qkv` the projections that
+share an input run as one matmul (`ops/layers.py:project_packed`): Q, K
+and V of a self-attention, K and V of a cross-attention, as the JAX
+package's `set_qkv_fusion` packs them; the parameters are unchanged.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 from torch import nn
 
 from deepsc_gan_tpu_torch.ops.attention_kernel import fused_attention
-from deepsc_gan_tpu_torch.ops.layers import Dense
+from deepsc_gan_tpu_torch.ops.layers import Dense, project_packed
 
 NEG_INF = -1e9
 
@@ -40,8 +43,10 @@ class MultiHeadAttention(nn.Module):
     decodes and train steps)."""
 
     def __init__(self, d_model: int, num_heads: int, dtype=torch.float32,
-                 attention: Callable = fused_attention):
+                 attention: Callable = fused_attention,
+                 fuse_qkv: bool = False):
         super().__init__()
+        self.fuse_qkv = fuse_qkv
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of "
                              f"{num_heads} heads")
@@ -57,9 +62,13 @@ class MultiHeadAttention(nn.Module):
     def forward(self, q, k, v, mask=None):
         b, lq = q.shape[0], q.shape[1]
         lk = k.shape[1]
-        qp = self.wq(q)
-        kp = self.wk(k)
-        vp = self.wv(v)
+        if self.fuse_qkv and q is k and k is v:
+            qp, kp, vp = project_packed(q, (self.wq, self.wk, self.wv))
+        elif self.fuse_qkv and k is v:
+            qp = self.wq(q)
+            kp, vp = project_packed(k, (self.wk, self.wv))
+        else:
+            qp, kp, vp = self.wq(q), self.wk(k), self.wv(v)
         bias = mask_to_bias(mask, b, lq, lk, q.device)
         ctx = self.attention(qp, kp, vp, bias, self.num_heads,
                              math.sqrt(self.depth))

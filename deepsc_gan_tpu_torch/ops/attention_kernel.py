@@ -40,12 +40,12 @@ KERNEL_WIDE = "attention_wide"
 # queries with the keys streamed in tiles of TILE (online softmax), and a
 # backward in two kernels (dq and dbias per query tile, then dk and dv per
 # key tile) that pass the softmax statistics through a scratch tensor.
-# Any other head width up to MAX_HEAD_DIM, or more heads: the wide kernels
+# Any other head width, or more heads: the wide kernels
 # (csrc/attention_wide.cu), a warp per (row, head, query) with the head's
-# elements spread over the lanes, any length, the same statistics scratch.
+# elements spread over the lanes (past 256 of them, walked in chunks of
+# 256), any length, the same statistics scratch.
 HEAD_DIMS = (8, 16, 32)
 MAX_HEADS = 16
-MAX_HEAD_DIM = 256
 TILE = 32
 
 # Launches of the forward (K1) and backward (K2) kernels since the last
@@ -140,8 +140,8 @@ def is_wide(heads: int, dh: int) -> bool:
 
 
 def takes_head_dim(dh: int) -> bool:
-    """Whether some kernel takes heads of width `dh` (1 to MAX_HEAD_DIM)."""
-    return 1 <= dh <= MAX_HEAD_DIM
+    """Whether some kernel takes heads of width `dh` (any width from 1)."""
+    return dh >= 1
 
 
 def _bind(kernel, dtype, long_bwd=False):
@@ -202,7 +202,7 @@ def _check(q, k, v, bias, heads):
         raise ValueError(f"bias {tuple(bias.shape)} is not {(n, lq, lk)}")
     if not takes_head_dim(hd // heads):
         raise ValueError(f"{heads} heads of width {hd // heads}: the kernels "
-                         f"take head widths 1 to {MAX_HEAD_DIM}")
+                         f"take head widths from 1")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")

@@ -7,10 +7,9 @@ Pallas kernels refuse none. So `cli train` and `cli evaluate` ask
 `check_envelope` first and stop with a message that names the flag, rather
 than mid-run after the weights are loaded. Each kernel has a tuned path
 and a wide one that takes what the tuned one does not, so what is left to
-refuse is narrow: K1/K2 heads wider than `attention_kernel.MAX_HEAD_DIM`
-(or a head count that does not divide the width), K5 a head count that
-does not divide D, K6 a beam outside 1..V; K3/K4 take any width, and no
-length is refused. The f32 K2's shared memory is the one its built library
+refuse is narrow: a K1/K2 or K5 head count that does not divide the width
+(the models refuse it too when built), K6 a beam outside 1..V; K1/K2 take
+any head width, K3/K4 any width, and no length is refused. The f32 K2's shared memory is the one its built library
 computes (`attention_kernel.smem_bytes`): where the short kernel's does
 not fit the card, the long-length kernels take the call, and the check
 refuses only if theirs does not fit either. On the CPU the plain versions
@@ -23,7 +22,10 @@ Which kernels run, by variant and mode:
   PyTorch); K2 wherever a backward runs (training, plain, attack or GAN:
   every attention; the attack evaluations, `greedy_gan` and the GAN
   teacher-forced step: the decoder's); K3 and K4 in training with
-  cfg.fused_ce; K6 in beam search;
+  cfg.fused_ce; K6 in beam search; MINE training (`mine`, vanilla only):
+  K1 and K2 at the training shapes (the encoder's K1 twice a step, its
+  recompute for T's update), no K3 or K4 (the CE takes materialized
+  logits);
 - star (`star`, `star_multi`, `gan_star`): K5 in every satellite update of
   the encoder and the decoder; K3 and K4 in training.
 This list is kept by hand beside the paths: were it to miss a kernel, the
@@ -52,8 +54,8 @@ def _attention_errors(side: str, d_model: int, heads: int, calls,
     flags = f"--{side}-d-model {d_model} / --{side}-num-heads {heads}"
     dh = d_model // heads if heads > 0 and d_model % heads == 0 else 0
     if not attn.takes_head_dim(dh):
-        return [f"{flags}: the attention kernels K1/K2 take heads that "
-                f"divide the width, of widths 1 to {attn.MAX_HEAD_DIM}"]
+        return [f"{flags}: the attention kernels K1/K2 take a number of "
+                f"heads that divides the width"]
     if not backward or dtype != torch.float32 or attn.is_wide(heads, dh):
         return []
     for lq, lk, flag in calls:
@@ -79,8 +81,9 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
                     smem_limit: Optional[int] = None) -> List[str]:
     """-> one message per flag whose value a kernel of this run does not
     take (empty: every kernel takes the run's shapes). `eval_mode` None is
-    `cli train`; else the `cli evaluate` mode, with `kv_cache` (greedy) and
-    `beam_impl` (beam) saying which decoder runs. `smem_limit` is the
+    `cli train`, "mine" `cli train --train-mode mine` (the same attention
+    shapes, forward and backward); else the `cli evaluate` mode, with
+    `kv_cache` (greedy) and `beam_impl` (beam) saying which decoder runs. `smem_limit` is the
     card's shared memory per block (default: the device's)."""
     device = torch.device(device)
     if device.type != "cuda":
@@ -93,7 +96,7 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
         return torch.cuda.get_device_properties(device) \
             .shared_memory_per_block_optin
 
-    train = eval_mode is None
+    train = eval_mode in (None, "mine")
     errors = []
     if is_star(variant):
         for side, d, heads in (("encoder", cfg.encoder_d_model,

@@ -1,6 +1,7 @@
 """Building blocks shared by the port's modules: a Dense layer with flax's
-`param_dtype` / `dtype` contract, and dropout drawn from an explicit
-generator.
+`param_dtype` / `dtype` contract, the packed projection of several
+bias-free Denses that share an input (`fuse_qkv`), and dropout drawn from
+an explicit generator.
 
 Dense: the weight and bias are held in f32 (the master copy the optimizer
 updates) and cast to the activation dtype at every use, as flax computes
@@ -15,7 +16,11 @@ Dropout (flax `nn.Dropout`): keep each element with probability 1 - rate,
 scaling kept ones by 1 / (1 - rate) in the activation dtype. The mask is
 drawn with `bernoulli_` from the caller's `torch.Generator`; without one
 (or at rate 0) the layer is the identity, as flax's `deterministic=True`.
-Nothing draws from the global generator.
+Nothing draws from the global generator. A layer recomputed in the
+backward (`remat`) draws through a `MaskTape` instead of the generator:
+the first forward draws its masks from the generator in the same order and
+keeps them, and the recompute takes the kept ones, so the masks and the
+generator's state are those of a layer that is not recomputed.
 """
 
 from __future__ import annotations
@@ -55,13 +60,62 @@ class Dense(nn.Linear):
         return F.linear(x.to(self.act_dtype), weight, bias)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
-    """Dropout of `x` with masks from `gen` (identity when gen is None or
-    rate is 0)."""
+def project_packed(x: torch.Tensor, denses) -> tuple:
+    """The projections of `x` by the bias-free Denses `denses` (the same
+    input and output widths) as ONE matmul of x against their stacked
+    weights, in the activation dtype (the JAX package's `project_packed`,
+    `ops/attention.py`): -> one contiguous, 16-byte aligned tensor per
+    Dense, x's leading shape by its output width. The parameters stay the
+    Denses' own."""
+    dt = denses[0].act_dtype
+    w = torch.stack([d.weight for d in denses]).to(dt)   # (n, out, in)
+    out = torch.matmul(x.to(dt).reshape(1, -1, x.shape[-1]),
+                       w.transpose(1, 2))                 # (n, rows, out)
+    parts = [o.view(*x.shape[:-1], o.shape[-1]) for o in out]
+    if any(t.data_ptr() % 16 for t in parts):
+        parts = [t.clone() for t in parts]
+    return tuple(parts)
+
+
+class MaskTape:
+    """The dropout draws of one layer call that is recomputed in the
+    backward: the first forward draws each mask from `gen` (as `dropout`
+    would) and keeps it; each recompute (`rewind`) takes the kept masks in
+    the same order and draws nothing."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+        self.kept = []
+        self.recorded = False
+        self._next = 0
+
+    def rewind(self) -> None:
+        """Start a recompute: the next masks are the kept ones."""
+        self._next = 0
+
+    def mask(self, shape, keep: float, device) -> torch.Tensor:
+        if self.recorded:
+            self._next += 1
+            return self.kept[self._next - 1]
+        mask = _draw_mask(shape, keep, device, self.gen).bool()
+        self.kept.append(mask)
+        return mask
+
+
+def _draw_mask(shape, keep: float, device, gen: torch.Generator):
+    mask = torch.empty(shape, dtype=torch.float32, device=device)
+    mask.bernoulli_(keep, generator=gen)
+    return mask
+
+
+def dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
+    """Dropout of `x` with masks from `gen`, a `torch.Generator` or a
+    `MaskTape` (identity when gen is None or rate is 0)."""
     if gen is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    mask.bernoulli_(keep, generator=gen)
+    if isinstance(gen, MaskTape):
+        mask = gen.mask(x.shape, keep, x.device)
+    else:
+        mask = _draw_mask(x.shape, keep, x.device, gen)
     return torch.where(mask.bool(), x / keep, torch.zeros_like(x))

@@ -1,7 +1,14 @@
 """Configuration of the port: the fields of the JAX package's `Config`
-that the serving paths, the plain, attack and GAN training paths and the
-channels read, with the same names and defaults, and the padded length of
-each model variant.
+with the same names and defaults (all but its parallel ones: `dp`, `tp`,
+`pp`, `pp_microbatches`), and the padded length of each model variant.
+
+Four fields are accepted and recorded but change nothing in the port:
+`rng_impl` (its draws come from a `torch.Generator`), `ce_chunk` (the CE
+kernels tile the vocab themselves), `shuffle_size` (unused in the JAX
+package too) and `input_data_dir` (read only by the JAX package's
+`preprocess`, which the port does not have yet). `train_with_mine` is
+carried as the JAX package carries it (`--train-mode mine` selects MINE
+training).
 
 A frozen dataclass like the JAX package's (`deepsc_gan_tpu/utils/config.py`),
 kept as the port's own copy so the port imports nothing of that package.
@@ -19,7 +26,8 @@ import torch
 
 @dataclass(frozen=True)
 class Config:
-    # --- data paths
+    # --- data paths (`input_data_dir`: no effect in the port)
+    input_data_dir: str = "data/txt/en"
     train_save_path: str = "data/txt/train_data.pkl"
     test_save_path: str = "data/txt/test_data.pkl"
     vocab_path: str = "data/txt/vocab.json"
@@ -28,8 +36,13 @@ class Config:
 
     # --- batching, training and decoding
     bs: int = 64
+    shuffle_size: int = 22234   # no effect (unused in the JAX package too)
     lr: float = 5e-4
     epochs: int = 60
+    # MINE (train/mine_steps.py): the transceiver's update takes
+    # ce - mine_lambda * MI; `train_with_mine` is carried, nothing reads it
+    train_with_mine: bool = False
+    mine_lambda: float = 0.0009
     max_length: int = 30        # decode steps
     seq_len: int = 32           # padded sentence length
     channel: str = "AWGN"
@@ -85,6 +98,12 @@ class Config:
 
     tie_embeddings: bool = False
     label_smoothing: float = 0.0
+    # training-data augmentation (data/augment.py): per-sentence
+    # probabilities of a synthetic full-vocab sentence, a concatenation of
+    # two and a word-span crop (0 = the plain shuffled set)
+    aug_crop: float = 0.0
+    aug_concat: float = 0.0
+    aug_synth: float = 0.0
     # exponential moving average of the params (0 = off); evaluation and
     # the saved params use the shadow when on
     ema_decay: float = 0.0
@@ -104,9 +123,18 @@ class Config:
     # --- compute
     dtype: str = "bfloat16"      # activations
     param_dtype: str = "float32"
+    # no effect: the port's draws come from a torch.Generator
+    rng_impl: str = "threefry"
+    # recompute each vanilla encoder and decoder layer in the backward
+    # (models/transformer.py:remat_layer), its dropout masks kept
+    remat: bool = False
     # vocab projection + CE through the online-softmax kernels (the
     # logits are never materialized); False materializes them
     fused_ce: bool = True
+    ce_chunk: int = 2048        # no effect: K3/K4 tile the vocab themselves
+    # Q/K/V projections that share an input as one matmul (the vanilla
+    # attention and the star banks); the parameters are unchanged
+    fuse_qkv: bool = False
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -136,6 +164,28 @@ def default_seq_len(variant: str) -> int:
     return 31 if "star" in variant else 32
 
 
+_NO_EFFECT = "accepted and recorded; no effect in the port"
+HELP = {
+    "input_data_dir": _NO_EFFECT,
+    "shuffle_size": _NO_EFFECT + " (unused in the JAX package too)",
+    "rng_impl": _NO_EFFECT + ": its draws come from a torch.Generator",
+    "ce_chunk": _NO_EFFECT + ": the CE kernels tile the vocab themselves",
+    "train_with_mine": "carried as the JAX package carries it; "
+                       "--train-mode mine selects MINE training",
+    "mine_lambda": "MINE mode: the transceiver's loss is ce - "
+                   "mine_lambda * MI",
+    "aug_crop": "P(a random contiguous word-span crop of a sentence)",
+    "aug_concat": "P(two sentences' words joined, truncated)",
+    "aug_synth": "P(a synthetic sentence over the full vocab)",
+    "remat": "recompute each vanilla encoder and decoder layer in the "
+             "backward (dropout masks kept): less activation memory for "
+             "about a fifth more time a step (PERF.md)",
+    "fuse_qkv": "Q/K/V projections sharing an input as one matmul; kept "
+                "for the JAX CLI's flags, no reliable gain on the H100 "
+                "(PERF.md)",
+}
+
+
 def add_config_args(parser: argparse.ArgumentParser) -> None:
     """Register every Config field as a --flag (dashes for underscores).
     `--seq-len` defaults to None: a command that knows its variant resolves
@@ -143,14 +193,15 @@ def add_config_args(parser: argparse.ArgumentParser) -> None:
     default."""
     for f in dataclasses.fields(Config):
         name = "--" + f.name.replace("_", "-")
+        doc = HELP.get(f.name)
         if f.name == "seq_len":
             parser.add_argument(name, type=int, default=None)
         elif isinstance(f.default, bool):
             parser.add_argument(name, action=argparse.BooleanOptionalAction,
-                                default=f.default)
+                                default=f.default, help=doc)
         else:
             typ = str if f.default is None else type(f.default)
-            parser.add_argument(name, type=typ, default=f.default)
+            parser.add_argument(name, type=typ, default=f.default, help=doc)
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

@@ -19,7 +19,16 @@ Layouts (JAX package `ops/attention.py`, `models/transformer.py`,
   width), and their sequence LayerNorm `norm` keeps `scale` as `weight`.
 
 The committed `results/*_params.pkl` files are `{"params": tree, "recipe":
-{...}}` with numpy leaves, and load with numpy alone.
+{...}}` with numpy leaves, and load with numpy alone. MINE's tree (`fc0`,
+`fc1`, `fc2` Denses, `models/mine.py`) goes both ways through the same two
+functions.
+
+Adam's state: optax's `ScaleByAdamState` (`mu`, `nu` trees shaped as the
+params, and `count`) maps to and from `torch.optim.Adam`'s per-parameter
+`exp_avg`, `exp_avg_sq` and `step` (`adam_state`, `set_adam_state` by
+parameter name; `adam_state_to_flax`, `load_flax_adam_state` by flax tree),
+so both packages can start from one mid-training state. Both count the
+updates made and correct the bias with the count after the increment.
 """
 
 from __future__ import annotations
@@ -150,3 +159,68 @@ def load_into(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
     must match)."""
     model.load_state_dict(flax_to_state_dict(params), strict=True)
     return model
+
+
+def adam_state(optimizer: torch.optim.Adam,
+               named: Mapping[str, torch.nn.Parameter]) -> Dict[str, dict]:
+    """{"exp_avg", "exp_avg_sq", "step"}: name -> tensor (zeros, and a
+    step of 0, for a parameter not updated yet), each on its parameter's
+    device as the optimizer holds it."""
+    out: Dict[str, dict] = {"exp_avg": {}, "exp_avg_sq": {}, "step": {}}
+    for name, p in named.items():
+        st = optimizer.state.get(p, {})
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[key][name] = st[key] if key in st else torch.zeros_like(p)
+        out["step"][name] = st["step"] if "step" in st \
+            else torch.zeros((), dtype=torch.float32)
+    return out
+
+
+def set_adam_state(optimizer: torch.optim.Adam,
+                   named: Mapping[str, torch.nn.Parameter],
+                   exp_avg: Mapping[str, torch.Tensor],
+                   exp_avg_sq: Mapping[str, torch.Tensor], step) -> None:
+    """Write each parameter's moments and count (`step`: one number for
+    all, or name -> number) into `optimizer` as its own update would have
+    left them: f32 moments on the parameter's device, the count an f32
+    0-dim tensor on that device when the optimizer is capturable or fused
+    (the update reads it there), else on the CPU."""
+    on_device = optimizer.defaults.get("capturable") \
+        or optimizer.defaults.get("fused")
+    for name, p in named.items():
+        count = step[name] if isinstance(step, Mapping) else step
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if on_device else "cpu"),
+            "exp_avg": exp_avg[name].detach().to(p.device, torch.float32)
+            .clone(),
+            "exp_avg_sq": exp_avg_sq[name].detach()
+            .to(p.device, torch.float32).clone()}
+
+
+def adam_state_to_flax(optimizer: torch.optim.Adam,
+                       named: Mapping[str, torch.nn.Parameter],
+                       cfg: Config) -> dict:
+    """-> {"mu": tree, "nu": tree, "count": int}: Adam's moments as flax
+    trees of numpy arrays (optax's `ScaleByAdamState` fields) and its count
+    (every parameter's: they must agree)."""
+    st = adam_state(optimizer, named)
+    counts = {float(c) for c in st["step"].values()}
+    if len(counts) != 1:
+        raise ValueError(f"the parameters' Adam counts differ: {counts}")
+    return {"mu": state_dict_to_flax(st["exp_avg"], cfg),
+            "nu": state_dict_to_flax(st["exp_avg_sq"], cfg),
+            "count": int(counts.pop())}
+
+
+def load_flax_adam_state(optimizer: torch.optim.Adam,
+                         named: Mapping[str, torch.nn.Parameter],
+                         mu: Mapping, nu: Mapping, count) -> None:
+    """Load optax's Adam state (`mu`, `nu` flax trees and `count`) into
+    `optimizer` for the parameters `named` (strict: every name matches)."""
+    exp_avg, exp_avg_sq = flax_to_state_dict(mu), flax_to_state_dict(nu)
+    if set(exp_avg) != set(named) or set(exp_avg_sq) != set(named):
+        raise ValueError("the Adam moments' names do not match the "
+                         "parameters'")
+    set_adam_state(optimizer, named, exp_avg, exp_avg_sq,
+                   int(np.asarray(count)))

@@ -155,8 +155,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "bias_dtype":
         bias = bias.double()
-    elif bad == "head_dim":  # wider than the wide kernels' 256
-        q, k, v, bias, h = _ok_args(h=1, dh=512)
+    elif bad == "head_dim":  # heads of width 0
+        q, k, v, bias, h = _ok_args(h=1, dh=0)
     elif bad == "heads":  # a head count that does not divide H * Dh = 128
         h = 3
     elif bad == "length":  # k and v of different lengths
@@ -172,15 +172,15 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.parametrize("h,dh", [(2, 64), (32, 8), (8, 24), (4, 256),
-                                  (3, 1), (17, 16)])
+                                  (3, 1), (17, 16), (1, 512), (2, 320)])
 def test_kernel_wrapper_takes_any_head_width_and_count(h, dh):
-    """Head widths other than 8, 16 and 32 up to 256, and more than 16
+    """Head widths other than 8, 16 and 32, past 256 too, and more than 16
     heads, pass the wrapper's checks and go to the wide kernels on the
     card; the tuned widths and counts stay on the tuned kernels."""
     attn._check(*_ok_args(h=h, dh=dh))
     assert attn.is_wide(h, dh) and attn.takes_head_dim(dh)
     assert not attn.is_wide(16, 32) and not attn.is_wide(8, 16)
-    assert not attn.takes_head_dim(257) and not attn.takes_head_dim(0)
+    assert attn.takes_head_dim(257) and not attn.takes_head_dim(0)
 
 
 @pytest.mark.parametrize("lq,lk", [(33, 33), (31, 64), (64, 31),

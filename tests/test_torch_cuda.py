@@ -115,10 +115,10 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         attn.fused_attention(q, k.transpose(1, 2).contiguous()
                              .transpose(1, 2), v, bias, 8, 4.0)
-    # one head of 512: wider than the wide kernels' 256
-    q, k, v, bias = _inputs(1, 4, 31, 31, 1, 512, torch.float32, cuda)
-    with pytest.raises(ValueError, match="width"):
-        attn.fused_attention(q, k, v, bias, 1, 8.0)
+    # 5 heads do not divide a width of 128
+    q, k, v, bias = _inputs(1, 4, 31, 31, 8, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="5 heads"):
+        attn.fused_attention(q, k, v, bias, 5, 8.0)
 
 
 def test_tiny_sweep_kernel_ids_equal_plain_ids(cuda):
@@ -811,7 +811,7 @@ def test_f32_k2_whose_short_kernel_does_not_fit_takes_the_long_kernels(
 
 
 WIDE_HEADS = [(32, 16), (8, 24), (8, 25), (4, 64), (32, 64), (2, 128),
-              (32, 128), (1, 256), (3, 5)]
+              (32, 128), (1, 256), (3, 5), (2, 320), (1, 257)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -843,16 +843,52 @@ def test_wide_attention_matches_plain_version(cuda, dtype, tol, h, dh, lq,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wide_attention_bwd_is_bitwise_deterministic(cuda, dtype):
-    """Two wide K2 calls, and one with dbias, give the same dq, dk, dv."""
-    q, k, v, bias = _inputs(5, 16, 31, 31, 32, 64, dtype, cuda)
+@pytest.mark.parametrize("h,dh", [(32, 64), (2, 320)])
+def test_wide_attention_bwd_is_bitwise_deterministic(cuda, dtype, h, dh):
+    """Two wide K2 calls, and one with dbias, give the same dq, dk, dv
+    (at 2 heads of 320, the chunked kernels)."""
+    q, k, v, bias = _inputs(5, 16, 31, 31, h, dh, dtype, cuda)
     g = torch.randn(q.shape, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(6)).to(dtype)
-    calls = [attn.attention_bwd(q, k, v, bias, g, 32, 8.0, dbias)[:3]
+    scale = math.sqrt(dh)
+    calls = [attn.attention_bwd(q, k, v, bias, g, h, scale, dbias)[:3]
              for dbias in (False, False, True)]
     torch.cuda.synchronize()
     for other in calls[1:]:
         assert all(torch.equal(a, b) for a, b in zip(calls[0], other))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize("h,dh,n,lq,lk", [(1, 512, 64, 32, 32),
+                                          (2, 320, 64, 31, 31),
+                                          (2, 320, 64, 31, 32),
+                                          (1, 512, 3, 70, 45)])
+def test_attention_past_256_wide_heads_matches_plain_version(
+        cuda, dtype, tol, h, dh, n, lq, lk):
+    """K1 and K2 at heads wider than 256 (the chunked wide kernels: a head
+    walked in chunks of 256 elements) at the train path's N = 64 and past
+    32 queries and keys, with fully blocked rows: the forward, dq, dk and
+    dv against the plain versions within the tolerances of chip_smoke.py,
+    dbias within them times its largest value (dbias sums p (dp -
+    rowsum), dp a dot of Dh N(0, 1) products: at Dh = 512 |dp| reaches
+    ~90, where an f32 ulp is ~1e-5); every launch counted as the wide
+    kernels'."""
+    q, k, v, bias = _blocked_inputs(n, lq, lk, h, dh, dtype, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(8)).to(dtype)
+    scale = math.sqrt(dh)
+    attn.reset_launches()
+    out = attn.fused_attention(q, k, v, bias, h, scale)
+    got = attn.attention_bwd(q, k, v, bias, g, h, scale, True)
+    torch.cuda.synchronize()
+    assert (attn.launches, attn.wide_launches, attn.bwd_launches,
+            attn.wide_bwd_launches) == (1, 1, 1, 1)
+    assert _err(out, attn.attention_fwd_reference(q, k, v, bias, h,
+                                                  scale)) <= tol
+    want = attn.attention_bwd_reference(q, k, v, bias, g, h, scale, True)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert _err(a, r, relative=name == "dbias") <= tol, name
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -1234,3 +1270,190 @@ def test_graph_capture_failure_raises(cuda):
         multi(state, inps, inps, torch.Generator(cuda).manual_seed(1), 0.5)
     torch.cuda.synchronize()
     assert state.step == 1  # the eager warm-up step, and no other
+
+
+# ---- training around the step: MINE, remat, fuse_qkv, resume through the
+# graph, --profile ----
+
+
+def _mine_step(cuda, cfg, plain, inp, relu_replay=None):
+    """One f32 MINE step at tiny widths through the kernels (or the plain
+    versions) from init 3, T from init 4, generator seed 7 -> ((ce, mi),
+    transceiver, T, launches (K1, K2, K3, K4))."""
+    from deepsc_gan_tpu_torch.train import mine_steps
+
+    attention = attn.plain_attention if plain else attn.fused_attention
+    model = steps.init_params(make_model(cfg, attention=attention), 3)
+    model = model.to(cuda).train()
+    state = steps.create_train_state(model, cfg)
+    mine, mine_state = mine_steps.create_mine_state(cfg, 4, device=cuda)
+    step = mine_steps.make_mine_train_step(model, mine, cfg)
+    attn.reset_launches()
+    ce.reset_launches()
+    gen = torch.Generator(cuda).manual_seed(7)
+    _, _, (ce_loss, mi) = step(state, mine_state, inp, inp, gen, 0.5)
+    torch.cuda.synchronize()
+    return ((ce_loss.item(), mi.item()), model, mine,
+            (attn.launches, attn.bwd_launches, ce.fwd_launches,
+             ce.bwd_launches))
+
+
+def test_tiny_mine_step_kernels_equal_plain_step(cuda):
+    """One f32 MINE step at tiny widths through the kernels and through the
+    plain versions, same weights, draws, permutation and dropout masks: ce
+    and mi within rtol 1e-5; every gradient of the transceiver within 1e-4
+    of its largest reference value, every gradient of T within 1e-4 of the
+    largest of T's (fc2's bias has the gradient 1 - sum softmax, zero but
+    for rounding: the DV bound does not move when T shifts). Launches: K1
+    in every attention of the forward and in the encoder's recompute for
+    T's update (2 + 4 + 2), K2 in every attention's backward, no K3/K4."""
+    cfg = TINY.replace(bs=8, mine_lambda=0.5)
+    rng = np.random.default_rng(6)
+    inp = torch.from_numpy(rng.integers(4, 40, (8, 12))).to(cuda)
+    inp[:, 0] = 1
+    inp[:, 9:] = 0
+    got = _mine_step(cuda, cfg, False, inp)
+    want = _mine_step(cuda, cfg, True, inp)
+    assert got[3] == (8, 6, 0, 0)
+    assert want[3] == (0, 0, 0, 0)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for (name, a), b in zip(got[1].named_parameters(),
+                            want[1].parameters()):
+        assert _err(a.grad, b.grad, relative=True) <= 1e-4, name
+    largest = max(p.grad.abs().max().item() for p in want[2].parameters())
+    for (name, a), b in zip(got[2].named_parameters(),
+                            want[2].parameters()):
+        assert _err(a.grad, b.grad) <= 1e-4 * largest, name
+
+
+def _remat_multi(cuda, cfg, remat, k=3):
+    cfg = cfg.replace(remat=remat)
+    model = steps.init_params(make_model(cfg), 3).to(cuda).train()
+    state = steps.create_train_state(model, cfg)
+    gen = torch.Generator(cuda).manual_seed(7)
+    multi = steps.make_train_multi_step(model, cfg)
+    attn.reset_launches()
+    state, losses = multi(state, *(_multi_inputs(cuda, cfg, k),) * 2, gen,
+                          0.5)
+    torch.cuda.synchronize()
+    return losses, model, gen, (attn.launches, attn.bwd_launches)
+
+
+def test_graphed_remat_steps_equal_graphed_steps(cuda):
+    """Three f32 steps with dropout 0.3 in one graphed call, with and
+    without remat (the layers recomputed inside the captured graph, their
+    kept masks read back): losses within rtol 1e-6, the last step's
+    gradients within 1e-6 of their largest, the generator's state equal
+    after; with remat each K1 launches twice a step."""
+    cfg = TINY.replace(bs=8, encoder_dropout=0.3, decoder_dropout=0.3)
+    got = _remat_multi(cuda, cfg, True)
+    want = _remat_multi(cuda, cfg, False)
+    assert want[3] == (18, 18) and got[3] == (36, 18)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-6)
+    for (name, a), b in zip(got[1].named_parameters(),
+                            want[1].parameters()):
+        assert _err(a.grad, b.grad, relative=True) <= 1e-6, name
+    assert torch.equal(got[2].get_state(), want[2].get_state())
+
+
+@pytest.mark.parametrize("variant", ["transformer", "star"])
+def test_fuse_qkv_on_the_card_equals_unfused(cuda, variant):
+    """One f32 eager step with the packed projections against one without,
+    same weights and draws: the loss within rtol 1e-5, every gradient
+    within 1e-4 of its largest; the same kernel launches."""
+    base = (TINY_STAR if variant == "star" else TINY).replace(bs=8)
+    out = []
+    for fuse in (True, False):
+        cfg = base.replace(fuse_qkv=fuse)
+        model = steps.init_params(make_model(cfg, variant), 3)
+        model = model.to(cuda).train()
+        state = steps.create_train_state(model, cfg)
+        step = steps.make_train_step(model, cfg,
+                                     full_target=variant == "star")
+        attn.reset_launches()
+        star.reset_launches()
+        gen = torch.Generator(cuda).manual_seed(7)
+        x = _multi_inputs(cuda, cfg, 1)[0]
+        _, loss = step(state, x, x, gen, 0.5)
+        torch.cuda.synchronize()
+        out.append((loss.item(), model, (attn.launches, attn.bwd_launches,
+                                         star.launches)))
+    assert out[0][2] == out[1][2] and sum(out[0][2]) > 0
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-5)
+    for (name, a), b in zip(out[0][1].named_parameters(),
+                            out[1][1].parameters()):
+        assert _err(a.grad, b.grad, relative=True) <= 1e-4, name
+
+
+def _tiny_corpus(path, n=64, seed=6):
+    rng = np.random.default_rng(seed)
+    rows = [[1] + rng.integers(4, 40, int(k)).tolist() + [2]
+            for k in rng.integers(4, 10, n)]
+    with open(path, "wb") as f:
+        import pickle
+        pickle.dump(rows, f)
+    return str(path)
+
+
+TINY_CLI = ["--vocab-size", "40", "--seq-len", "12", "--max-length", "11",
+            "--encoder-num-layer", "2", "--decoder-num-layer", "2",
+            "--encoder-d-model", "16", "--decoder-d-model", "16",
+            "--encoder-d-ff", "32", "--decoder-d-ff", "32",
+            "--encoder-num-heads", "2", "--decoder-num-heads", "2",
+            "--channel-hidden", "24", "--channel-dim", "8",
+            "--channel-dec-hidden", "32", "--dtype", "float32", "--bs", "8"]
+
+
+def test_graphed_resume_is_bitwise_the_straight_run(cuda, tmp_path):
+    """`cli train --scan-steps 4` on the card (replays of a captured graph
+    whose generator is registered) with the EMA shadow: two epochs, then
+    `--resume` for two more, bitwise equal to four straight epochs (every
+    tensor of the epoch-4 checkpoint, the generator's state included)."""
+    from deepsc_gan_tpu_torch import cli
+
+    corpus = _tiny_corpus(tmp_path / "train.pkl")
+
+    def run(ckpt, *extra):
+        return cli.main(["train", "--device", "cuda", *TINY_CLI,
+                         "--scan-steps", "4", "--ema-decay", "0.9",
+                         "--ckpt-every", "2", "--log-every", "1000",
+                         "--train-save-path", corpus,
+                         "--log-save-path", str(tmp_path / "log"),
+                         "--checkpoint-path", ckpt, *extra])
+
+    straight, split = str(tmp_path / "a"), str(tmp_path / "b")
+    assert run(straight, "--epochs", "4")["path"] == "scan4"
+    run(split, "--epochs", "2")
+    assert run(split, "--epochs", "4", "--resume")["start_epoch"] == 2
+    a, b = (torch.load(f"{d}/transformer/4/state.pt", weights_only=True)
+            for d in (straight, split))
+    assert a.keys() == b.keys() and a["step"] == b["step"] == 32
+    for key in a:
+        if isinstance(a[key], dict):
+            for name in a[key]:
+                assert torch.equal(a[key][name], b[key][name]), (key, name)
+
+
+@pytest.mark.parametrize("scan_steps", [1, 4])
+def test_profile_trace_holds_the_kernels(cuda, tmp_path, scan_steps):
+    """`cli train --profile` on the card, eager and graphed (the capture
+    inside the traced epoch): the trace holds K1's kernel once per
+    attention and step of the first epoch."""
+    import json
+
+    from deepsc_gan_tpu_torch import cli
+
+    prof = tmp_path / "prof"
+    res = cli.main(["train", "--device", "cuda", *TINY_CLI, "--epochs", "2",
+                    "--scan-steps", str(scan_steps), "--log-every", "1000",
+                    "--train-save-path",
+                    _tiny_corpus(tmp_path / "train.pkl", n=32),
+                    "--log-save-path", str(tmp_path / "log"),
+                    "--checkpoint-path", str(tmp_path / "ck"),
+                    "--profile", str(prof)])
+    assert res["steps"] == 8
+    with open(prof / "trace.json") as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    k1 = sum("attention_fwd_" in n and "kernel" in n for n in names)
+    assert k1 == 4 * 6

@@ -3,8 +3,8 @@ value a kernel of the run does not take is refused with a message naming
 the flag, before any model is built; on the CPU, where the plain versions
 take any shape, nothing is refused; the default configuration passes for
 every variant and mode, and so do the shapes the kernels once refused and
-now take (`ACCEPTED`: any length, head width up to 256 and head count, CE
-width, star width, beam size).
+now take (`ACCEPTED`: any length, head width and head count dividing the
+width, CE width, star width, beam size).
 
 The f32 K2's shared-memory size comes from its built library, which the
 CPU cannot build: here a stand-in gives it, growing with the heads as the
@@ -62,16 +62,9 @@ REFUSED = {
                              dict(beam_size=22235), "--beam-size 22235"),
     "gan_star_heads_7": ("gan_star", None, dict(encoder_num_heads=7), {},
                          "--encoder-d-model 128 / --encoder-num-heads 7"),
-    "head_width_512": ("transformer", None,
-                       dict(encoder_d_model=512, encoder_num_heads=1), {},
-                       "--encoder-d-model 512 / --encoder-num-heads 1"),
     "heads_not_dividing": ("transformer", "greedy",
                            dict(decoder_num_heads=3), {},
                            "--decoder-num-heads 3"),
-    "decoder_head_width_384": ("transformer", "teacher_forced",
-                               dict(decoder_d_model=384,
-                                    decoder_num_heads=1), {},
-                               "--decoder-d-model 384"),
     "star_heads_5": ("star", "teacher_forced",
                      dict(decoder_d_model=96, decoder_num_heads=5), {},
                      "--decoder-d-model 96 / --decoder-num-heads 5"),
@@ -145,6 +138,12 @@ WIDENED = {
                            dict(decoder_d_model=200, decoder_num_heads=8),
                            dict(beam_size=16)),
     "beam_size_64": ("transformer", "beam", {}, dict(beam_size=64)),
+    # heads wider than 256: the chunked wide kernels
+    "head_width_512": ("transformer", None,
+                       dict(encoder_d_model=512, encoder_num_heads=1), {}),
+    "decoder_head_width_384": ("transformer", "teacher_forced",
+                               dict(decoder_d_model=384,
+                                    decoder_num_heads=1), {}),
 }
 ACCEPTED = {**{name: (*case, {}) for name, case in LONG.items()},
             **WIDENED}
@@ -242,11 +241,10 @@ def test_cli_refuses_before_building_a_model(tmp_path, monkeypatch, cmd,
 
     monkeypatch.setattr(cli, "make_model", refuse)
     monkeypatch.setattr(cli, "load_model", refuse)
-    argv = [cmd, "--encoder-d-model", "512", "--encoder-num-heads", "1",
-            "--log-save-path", str(tmp_path), "--checkpoint-path",
-            str(tmp_path)]
+    argv = [cmd, "--encoder-num-heads", "3", "--log-save-path",
+            str(tmp_path), "--checkpoint-path", str(tmp_path)]
     if mode:
         argv += ["--eval-mode", mode]
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
-    assert "--encoder-num-heads 1" in str(exc.value.code)
+    assert "--encoder-num-heads 3" in str(exc.value.code)

@@ -30,6 +30,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "deepsc_gan_tpu_torch.ops.attention_kernel" in mods
     assert "deepsc_gan_tpu_torch.ops.star_kernel" in mods
     assert "deepsc_gan_tpu_torch.models.star" in mods
+    for new in ("models.mine", "train.mine_steps", "utils.checkpoint",
+                "data.augment", "utils.profiling"):
+        assert f"deepsc_gan_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
