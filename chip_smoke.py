@@ -162,7 +162,33 @@ non-zero without its last line:
    over one MINE step, and the device's idle share in each
    (torch.profiler); the star sweep call must run no roll kernel (K5
    reads the ring unstacked);
-21. the kernels as one JSON line (the wide kernels as entries of their
+21. similarity: `cli evaluate --metric both` (the KV greedy sweep on the
+   trained weights, bf16) with DEEPSC_BERT_PATH at a BERT-base-shaped
+   random checkpoint the phase writes from --seed (12 layers of 768, 12
+   heads, ff 3072, safetensors written by hand): 4 K1 per call, the BLEU
+   column equal to the BLEU-only run's, the similarity column the mean of
+   its calls; two calls' scores within 1e-4 of the CPU Similarity's on the
+   same sentences; a BERT-base forward's device and wall time;
+22. transmit: `cli transmit` at f32 on the trained weights, 6 dB, four
+   sentences: exactly 244 K1 (the full-prefix greedy decode at one noise
+   level); the ids equal the plain versions' on the same draws but for
+   near-ties (`same_ids_but_near_ties`, each row up to its first
+   difference);
+23. export: `cli export` of the KV greedy sweep at full width, f32 and
+   bf16, symbolic b and s, each in a background job started after the
+   build (tracing takes minutes; it runs beside phases 3-22); each
+   artifact loaded by a fresh python3 that imports only torch and called
+   at (B, S) = (4, 2) and (3, 5); its ids equal the eager plain-version KV
+   sweep's on the same draws (f32 exactly, bf16 but for near-ties); export
+   seconds, MB, load and call seconds;
+24. baseline: `cli baseline` (64-QAM, block_k 512, 6 turbo iterations) on
+   256 Zipf sentences the phase writes, at 0, 6, 12 and 18 dB, the BCJR on
+   the card: rows equal to the CPU run's, clean BLEU 1.0 at 18 dB and the
+   attacked column below it; seconds per SNR point; a profiled BCJR call
+   (its kernels and the device's idle share);
+25. preprocess: `cli preprocess` on a corpus the phase writes; the outputs
+   read back and decoded equal the tokenized sentences, split 90/10;
+26. the kernels as one JSON line (the wide kernels as entries of their
    own, launches from phase 15; the chunked wide K1/K2 too, launches and
    rows from its heads-wider-than-256 path), then `{"ok": true, "device": {...}}`
    as the last line.
@@ -179,23 +205,30 @@ import json
 import math
 import os
 import pickle
+import random
 import re
+import shlex
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from deepsc_gan_tpu_torch import cli
+from deepsc_gan_tpu_torch.baselines import turbo
+from deepsc_gan_tpu_torch.baselines.pipeline import classical_sweep
+from deepsc_gan_tpu_torch.data import preprocess
 from deepsc_gan_tpu_torch.data.augment import load_train_dataset
 from deepsc_gan_tpu_torch.data.loader import eval_batches, synthetic_sentences
+from deepsc_gan_tpu_torch.data.vocab import Vocab
 from deepsc_gan_tpu_torch.evaluate.beam import (
     make_beam_decode,
     make_beam_decode_kv,
     make_beam_decode_sweep,
 )
-from deepsc_gan_tpu_torch.evaluate import greedy
+from deepsc_gan_tpu_torch.evaluate import greedy, metrics
 from deepsc_gan_tpu_torch.evaluate.greedy import (
     make_greedy_decode_gan,
     make_greedy_decode_sweep,
@@ -204,6 +237,12 @@ from deepsc_gan_tpu_torch.evaluate.kv_decode import (
     make_greedy_decode_kv_sweep,
 )
 from deepsc_gan_tpu_torch.evaluate.metrics import SNR_to_noise
+from deepsc_gan_tpu_torch.models.bert import (
+    BertConfig,
+    BertEncoder,
+    exact_f32_matmuls,
+    write_safetensors,
+)
 from deepsc_gan_tpu_torch.models.channel import draw_channel, snr_to_noise
 from deepsc_gan_tpu_torch.models.transceiver import make_model
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
@@ -384,8 +423,9 @@ def cuda_ms(fn, iters):
 def device_ms(fn, iters):
     """Device ms per call over `iters` back-to-back calls queued behind a
     spin of the device (SPIN_CYCLES), so the events time the device running
-    them, not the host enqueuing them (None if the enqueue outlasted the
-    spin)."""
+    them, not the host enqueuing them. Where the enqueue outlasts the spin
+    (a call that waits for the device, as a large allocation does): the
+    time the device ran kernels over the calls, from torch.profiler."""
     fn()
     torch.cuda.synchronize()
     spin, start, end = (torch.cuda.Event(enable_timing=True)
@@ -400,8 +440,26 @@ def device_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     if host_ms >= spin.elapsed_time(start):
-        return None
+        return profiler_device_ms(fn, iters)
     return start.elapsed_time(end) / iters
+
+
+def profiler_device_ms(fn, iters):
+    """ms a call in which the device ran a kernel (the union of the kernels'
+    intervals), over `iters` calls under torch.profiler; None if it
+    recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    return _busy_us(spans) / 1e3 / iters if spans else None
 
 
 def attention_inputs(n, lq, lk, dtype, gen, causal, heads=HEADS, dh=DH):
@@ -954,9 +1012,10 @@ def phase_serve(tag, flags, seed, batches, bs, per_call, model=VANILLA,
             and all(0.0 <= x <= 1.0 for x in r[1:3 if width == 5 else 2])
             for r in table):
         raise AssertionError(f"{tag}: bad table {table}")
-    if width == 2:
-        print(f"[{tag}] BLEU-1 " + " ".join(f"{s:.0f}dB={b:.4f}"
-                                            for s, b in table))
+    if width < 5:
+        print(f"[{tag}] BLEU-1" + ("" if width == 2 else ", similarity")
+              + " " + " ".join(f"{r[0]:.0f}dB=" + "/".join(
+                  f"{x:.4f}" for x in r[1:]) for r in table))
     else:
         print(f"[{tag}] SNR: BLEU-1 clean/attacked, loss clean/attacked: "
               + "; ".join(f"{r[0]:.0f}dB {r[1]:.4f}/{r[2]:.4f} "
@@ -2904,6 +2963,469 @@ def phase_levers(seed, bs):
     return got, phase_profile_run(seed, bs), numbers
 
 
+# --- the evaluation metrics and the other commands -------------------------
+
+BERT_DIR = "log/chip_smoke/bert_base"
+# BERT-base's shape (bert-base-uncased's config.json), random weights
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 max_position_embeddings=512)
+# the similarity calls also scored on the CPU: (batch index, SNR index)
+SIM_CPU_CALLS = ((0, 0), (0, len(SNRS) - 1))
+SIM_TOL = 1e-4
+
+
+def write_bert_base(directory, seed):
+    """A BERT-base-shaped checkpoint from `seed` in a Hugging Face
+    directory: config.json, a vocab.txt of the specials then the identity
+    vocab's words (so every transceiver word is one WordPiece), and
+    model.safetensors written by hand (N(0, 0.02) matrices, LayerNorms at
+    1 and 0, as BERT's initialiser)."""
+    cfg = BertConfig(**BERT_BASE)
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(cfg.to_json(), f)
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        f"w{i}" for i in range(4, Config().vocab_size)]
+    with open(os.path.join(directory, "vocab.txt"), "w") as f:
+        f.write("\n".join(words) + "\n")
+    gen = torch.Generator().manual_seed(seed)
+    tensors = {}
+    for name, t in BertEncoder(cfg).state_dict().items():
+        if "LayerNorm" in name:
+            tensors["bert." + name] = (torch.ones_like(t) if name.endswith(
+                "weight") else torch.zeros_like(t))
+        else:
+            tensors["bert." + name] = 0.02 * torch.randn(t.shape,
+                                                         generator=gen)
+    write_safetensors(os.path.join(directory, "model.safetensors"),
+                      tensors)
+    return sum(t.numel() for t in tensors.values())
+
+
+def phase_similarity(seed, batches, bs):
+    """`cli evaluate --metric both` (the KV greedy sweep on the trained
+    weights, bf16) with DEEPSC_BERT_PATH at a BERT-base-shaped random
+    checkpoint: the table [snr, BLEU, similarity], the BLEU column equal to
+    the BLEU-only run's, the similarity column the mean of its calls'
+    scores; the card's scores of SIM_CPU_CALLS within SIM_TOL of the CPU
+    Similarity's on the same sentences; the BERT forward's device and wall
+    time. -> the sweep's launch counts."""
+    t0 = time.perf_counter()
+    n_params = write_bert_base(BERT_DIR, seed)
+    print(f"[similarity] BERT-base-shaped checkpoint, {n_params:,} params, "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    calls = []
+    score = metrics.Similarity.compute_score
+
+    def recording(self, real, predicted):
+        out = score(self, real, predicted)
+        calls.append((list(real), list(predicted), out))
+        return out
+
+    flags = ["--eval-mode", "greedy", "--kv-cache"]
+    encoder = dict({n: 0 for n in COUNTERS},
+                   **{attn.KERNEL: Config().encoder_num_layer})
+    os.environ["DEEPSC_BERT_PATH"] = BERT_DIR
+    metrics.Similarity.compute_score = recording
+    try:
+        got, _, res, err = phase_serve("similarity", flags + [
+            "--metric", "both"], seed, batches, bs, encoder, width=3)
+    finally:
+        metrics.Similarity.compute_score = score
+        del os.environ["DEEPSC_BERT_PATH"]
+    if "unavailable" in err:
+        raise AssertionError("similarity: the BERT checkpoint was not used")
+    _, _, bleu_only, _ = phase_serve("similarity_bleu", flags, seed,
+                                     batches, bs, encoder)
+    table = res["table"]
+    if len(calls) != len(SNRS) * batches:
+        raise AssertionError(f"similarity: {len(calls)} scorer calls, "
+                             f"expected {len(SNRS) * batches}")
+    for si, row in enumerate(table):
+        # the sweep scores batch by batch, every SNR point of a batch
+        mean = float(torch.tensor([x for c in calls[si::len(SNRS)]
+                                   for x in c[2]],
+                                  dtype=torch.float64).mean())
+        if row[1] != bleu_only["table"][si][1] or abs(row[2] - mean) > 1e-12 \
+                or not -1.0 - 1e-6 <= row[2] <= 1.0 + 1e-6:
+            raise AssertionError(f"similarity: row {row} against BLEU "
+                                 f"{bleu_only['table'][si]} and mean {mean}")
+    print("[similarity] BERT similarity " + " ".join(
+        f"{r[0]:.0f}dB={r[2]:.4f}" for r in table))
+    t0 = time.perf_counter()
+    cpu = metrics.Similarity(BERT_DIR, device="cpu")
+    worst = 0.0
+    for bi, si in SIM_CPU_CALLS:
+        real, predicted, want = calls[bi * len(SNRS) + si]
+        got_cpu = cpu.compute_score(real, predicted)
+        worst = max(worst, max(abs(a - b) for a, b in zip(want, got_cpu)))
+    print(f"[similarity] card vs CPU scores over {len(SIM_CPU_CALLS)} calls "
+          f"of {bs} sentence pairs: max |diff| {worst:.3g} (tolerance "
+          f"{SIM_TOL}; CPU {time.perf_counter() - t0:.1f} s)")
+    if not worst <= SIM_TOL:
+        raise AssertionError(f"similarity: card and CPU scores differ by "
+                             f"{worst} > {SIM_TOL}")
+    sim = metrics.Similarity(BERT_DIR, device="cuda")
+    real, predicted, _ = calls[0]
+    ids, mask = sim.tokenizer.encode_batch(real, sim.max_len)
+    ids, mask = ids.cuda(), mask.cuda()
+
+    def forward():
+        with torch.inference_mode(), exact_f32_matmuls():
+            sim.model(ids, mask)
+
+    dev_ms, host_ms = cuda_ms(forward, 10)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sim.compute_score(real, predicted)
+    wall = (time.perf_counter() - t0) * 1e3 / 5
+    print(f"[similarity] BERT-base forward of {len(real)} x {sim.max_len} "
+          f"tokens, f32 without TF32: device {dev_ms:.3f} ms (host enqueue "
+          f"{host_ms:.3f} ms); a compute_score call (two forwards, "
+          f"tokenizing, normalising) wall {wall:.2f} ms")
+    return got
+
+
+TRANSMIT_TEXTS = ("w12 w345 w6789 w22000 w17, w4.",
+                  "W901 w55 w56 w57 w58 w59 w60 w61?",
+                  "w1000 w2000 w3000 w4000 w5000 w6000 w7000 w8000 w9000 "
+                  "w10000 w11000 w12000 w13000 w14000 w15000 w16000 w17000 "
+                  "w18000 w19000 w20000 w21000 w22000 w100 w200 w300 w400 "
+                  "w500 w600 w700 w800 w900 w999 w998",
+                  "w7 w8 w9")
+
+
+def greedy_logits(model, cfg, inp, snr, noise):
+    """The full-prefix greedy decode at one noise level with its f32 logits
+    recorded: -> (ids (B, T+1), logits (B, T, V))."""
+    seen = recorded_logits(model)
+    ids = greedy.make_greedy_decode(model, cfg)(inp, 0.0, SNR_to_noise(snr),
+                                                noise)
+    return ids, torch.cat([x.float() for x in seen], dim=1)
+
+
+def same_greedy_ids_but_near_ties(tag, got, want, got_logits, want_logits):
+    """`same_ids_but_near_ties` for greedy decodes, whose later steps follow
+    their own picks: each row is held up to its first differing step."""
+    diff = got[:, 1:] != want[:, 1:]
+    steps = diff.shape[1]
+    first = torch.where(diff.any(1), diff.int().argmax(1), steps)
+    keep = torch.arange(steps, device=got.device)[None] <= first[:, None]
+    same_ids_but_near_ties(tag, torch.where(keep, got[:, 1:], want[:, 1:]),
+                           want[:, 1:],
+                           torch.where(keep[..., None], got_logits,
+                                       want_logits), want_logits)
+
+
+def phase_transmit(seed):
+    """`cli transmit` at f32 on the trained weights, 6 dB: K1 launched
+    encoder_num_layer + 2 decoder_num_layer max_length times (the
+    full-prefix greedy decode at one noise level), and nothing else; the
+    ids equal, but for near-ties, the plain versions' on the same draws;
+    the CLI's ids equal its kernel decode's repeated outside the CLI. ->
+    the launch counts."""
+    cfg = Config()
+    want = dict({n: 0 for n in COUNTERS}, **{
+        attn.KERNEL: cfg.encoder_num_layer
+        + 2 * cfg.decoder_num_layer * cfg.max_length})
+    argv = ["transmit", *VANILLA, "--dtype", "float32", "--seed", str(seed),
+            "--snr", "6", "--device", "cuda"]
+    for t in TRANSMIT_TEXTS:
+        argv += ["--text", t]
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    wall = time.perf_counter() - t0
+    got = launches()
+    check_launches("transmit", got, want)
+    params = load_params_pickle(PARAMS)
+    cfg = Config(dtype="float32", tie_embeddings=is_tied(params))
+    inp = res["inp"].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise, _ = draw_channel(gen, (inp.shape[0], cfg.seq_len,
+                                  cfg.channel_dim))
+    out = []
+    for a in (attn.fused_attention, attn.attention_fwd_reference):
+        model = load_into(make_model(cfg, attention=a), params).cuda().eval()
+        out.append(greedy_logits(model, cfg, inp, 6.0, noise))
+    if not torch.equal(out[0][0].cpu(), res["ids"]):
+        raise AssertionError("transmit: the CLI's ids are not its kernel "
+                             "decode's")
+    same_greedy_ids_but_near_ties(
+        f"transmit ({inp.shape[0]} sentences), K1 vs plain", out[0][0],
+        out[1][0], out[0][1], out[1][1])
+    for t, r in zip(res["texts"], res["received"]):
+        print(f"[transmit] tx> {t}\n[transmit] rx> {r}")
+    print(f"[transmit] wall {wall:.2f} s")
+    return got
+
+
+EXPORT_CALLS = ((4, 2), (3, 5))
+EXPORT_DTYPES = ("float32", "bfloat16")
+EXPORT_DIR = "log/chip_smoke/export"
+EXPORT_TIMEOUT = 900
+# run in a fresh interpreter: loads an artifact and calls it; torch only
+EXPORT_LOADER = """
+import json, sys, time, torch
+art, inputs, out, report = sys.argv[1:5]
+t0 = time.perf_counter()
+program = torch.export.load(art).module()
+t1 = time.perf_counter()
+outs = [program(*x) for x in torch.load(inputs)]
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "deepsc_gan_tpu_torch", "deepsc_gan_tpu", "jax", "transformers"))
+assert not bad, bad
+torch.save(outs, out)
+json.dump({"load_s": t1 - t0, "calls_s": t2 - t1}, open(report, "w"))
+"""
+
+
+def export_inputs(seed):
+    """The artifacts' inputs at EXPORT_CALLS (sentences of the evaluation
+    set, standard normals from a generator seeded with `seed`, SNR points
+    0, 4, 8, ... dB), saved for the loader; -> them."""
+    cfg = Config()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    inputs = []
+    for b, s in EXPORT_CALLS:
+        inp = torch.as_tensor(eval_batches(cfg.test_save_path, cfg.seq_len,
+                                           cfg.vocab_size, b, 1, seed)[0],
+                              dtype=torch.long, device="cuda")
+        noise = torch.randn((s, b, cfg.seq_len, cfg.channel_dim),
+                            generator=gen, device="cuda")
+        n_stds = torch.tensor([SNR_to_noise(x) for x in SNRS[::4][:s]],
+                              dtype=torch.float32, device="cuda")
+        inputs.append((inp, noise, torch.tensor(0.0, device="cuda"),
+                       n_stds))
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    torch.save(inputs, os.path.join(EXPORT_DIR, "inputs.pt"))
+    return inputs
+
+
+def start_exports(seed):
+    """Start, for each of EXPORT_DTYPES, `python3 -m deepsc_gan_tpu_torch.cli
+    export` of the KV greedy sweep at full width on the trained weights
+    (symbolic b and s), then a fresh python3 that imports only torch, loads
+    the artifact and calls it at EXPORT_CALLS: one background shell each,
+    tracing on its own core while the other phases run (a full-width
+    export traces for minutes). -> {dtype: (process, its log, paths)}."""
+    export_inputs(seed)
+    jobs = {}
+    for dtype in EXPORT_DTYPES:
+        paths = {n: os.path.join(EXPORT_DIR, f"{n}_{dtype}{ext}")
+                 for n, ext in (("kv", ".pt2"), ("outputs", ".pt"),
+                                ("report", ".json"), ("log", ".log"))}
+        export = [sys.executable, "-m", "deepsc_gan_tpu_torch.cli",
+                  "export", *VANILLA, "--dtype", dtype, "--device", "cuda",
+                  "--out", paths["kv"]]
+        load = [sys.executable, "-c", EXPORT_LOADER, paths["kv"],
+                os.path.join(EXPORT_DIR, "inputs.pt"), paths["outputs"],
+                paths["report"]]
+        log = open(paths["log"], "w")
+        proc = subprocess.Popen(
+            ["bash", "-c", f"{shlex.join(export)} && {shlex.join(load)}"],
+            stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+        jobs[dtype] = (proc, log, paths)
+    return jobs
+
+
+def stop_exports(jobs):
+    for proc, log, _ in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+
+
+def phase_export(jobs):
+    """Wait for the export jobs (`start_exports`); each artifact's ids at
+    EXPORT_CALLS equal the eager plain-version KV sweep's on the same
+    draws, f32 exactly, bf16 but for near-ties (judged on the eager
+    full-prefix decoder's logits of the same prefix); the export seconds,
+    the artifact's MB and the fresh process's load and call seconds."""
+    params = load_params_pickle(PARAMS)
+    inputs = torch.load(os.path.join(EXPORT_DIR, "inputs.pt"))
+    for dtype, (proc, log, paths) in jobs.items():
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=EXPORT_TIMEOUT)
+        waited = time.perf_counter() - t0
+        log.flush()
+        with open(paths["log"]) as f:
+            text = f.read()
+        print(text.strip())
+        if rc:
+            raise AssertionError(f"export {dtype}: the job exited {rc}")
+        line = next(x for x in text.splitlines() if x.startswith("[export] "
+                                                                   + EXPORT_DIR))
+        seconds = float(re.search(r"; ([0-9.]+) s$", line).group(1))
+        with open(paths["report"]) as f:
+            report = json.load(f)
+        outs = torch.load(paths["outputs"])
+        cfg = Config(dtype=dtype, tie_embeddings=is_tied(params))
+        model = load_into(make_model(cfg, attention=attn.plain_attention),
+                          params).cuda().eval()
+        sweep = make_greedy_decode_kv_sweep(model, cfg)
+        for (inp, noise, _, n_stds), got in zip(inputs, outs):
+            want = sweep(inp, 0.0, n_stds, noise)
+            tag = (f"export {dtype}, artifact vs eager plain KV sweep at "
+                   f"(B, S) = ({inp.shape[0]}, {n_stds.shape[0]})")
+            if dtype == "float32" or torch.equal(got, want):
+                same_ids(tag, got, want)
+            else:
+                export_near_ties(tag, model, cfg, inp, noise, n_stds, got,
+                                 want)
+        mb = os.path.getsize(paths["kv"]) / 1e6
+        print(f"[export] {dtype}: {seconds:.1f} s to export and save, "
+              f"{mb:.1f} MB; a fresh python3 (torch only) loaded it in "
+              f"{report['load_s']:.1f} s and made {len(EXPORT_CALLS)} calls "
+              f"in {report['calls_s']:.2f} s; this phase waited "
+              f"{waited:.1f} s for the job")
+
+
+def export_near_ties(tag, model, cfg, inp, noise, n_stds, got, want):
+    """bf16 artifact ids against the eager ones where they differ: each
+    row held up to its first differing step, where the two picks must be
+    within 2 x TOL[bf16] of the largest logit of the eager full-prefix
+    decoder run on the common prefix."""
+    s, b = n_stds.shape[0], inp.shape[0]
+    got, want = got.reshape(s * b, -1), want.reshape(s * b, -1)
+    diff = got != want
+    rows = diff.any(1).nonzero()[:, 0]
+    with torch.inference_mode():
+        mask = greedy.create_padding_mask(inp, cfg.pad_idx)
+        tx = model.encode(inp, mask)
+        y = model.transmit(tx[None], noise, n_stds.reshape(s, 1, 1, 1))
+        mem = model.channel_decode(y.reshape((s * b,) + tx.shape[1:]))
+        masks = mask.repeat(s, 1, 1, 1)
+        causal = greedy.create_look_ahead_mask(want.shape[1], inp.device)
+        for r in rows.tolist():
+            j = int(diff[r].int().argmax())
+            buf = want[r:r + 1].long().clone()
+            buf[0, j:] = cfg.pad_idx
+            comb = torch.maximum(greedy.create_padding_mask(buf, cfg.pad_idx),
+                                 causal)
+            h = model._semantic_decode(buf, mem[r:r + 1], comb,
+                                       masks[r:r + 1], apply_final=False)
+            logits = model.final_projection(h[:, j - 1])[0].float()
+            gap = abs(float(logits[want[r, j]] - logits[got[r, j]]))
+            limit = 2 * TOL[torch.bfloat16] * float(logits.abs().max())
+            if gap > limit:
+                raise AssertionError(f"{tag}: row {r} step {j}: picks "
+                                     f"{int(want[r, j])} and {int(got[r, j])}"
+                                     f" apart by {gap} > {limit}")
+    print(f"[export] {tag}: {len(rows)} of {s * b} rows differ, each at a "
+          f"near-tie of the eager logits")
+
+
+BASELINE_SENTENCES = 256
+BASELINE_WORDS = 2000
+BASELINE_SNRS = (0, 6, 12, 18)
+
+
+def write_baseline_sentences(path, seed):
+    """BASELINE_SENTENCES sentences of 5 to 29 words drawn from `seed`,
+    words Zipf-distributed over BASELINE_WORDS (p ~ 1 / rank)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, BASELINE_WORDS + 1)
+    p /= p.sum()
+    sents = [" ".join(f"w{int(i)}" for i in rng.choice(
+        BASELINE_WORDS, size=int(rng.integers(5, 30)), p=p))
+        for _ in range(BASELINE_SENTENCES)]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(sents, f)
+    return sents
+
+
+def phase_baseline(seed):
+    """`cli baseline` (64-QAM, block_k 512, 6 turbo iterations, PNR 10 dB)
+    on BASELINE_SENTENCES Zipf sentences over BASELINE_SNRS, the BCJR on the
+    card: the rows equal the port's pipeline run on the CPU on the same
+    sentences and draws; clean BLEU 1.0 at the top SNR and the attacked
+    column below the clean one there; seconds per SNR point; one BCJR
+    call profiled."""
+    data = "log/chip_smoke/baseline/sentences.pkl"
+    sents = write_baseline_sentences(data, seed)
+    snrs = ",".join(str(x) for x in BASELINE_SNRS)
+    res = cli.main(["baseline", "--data", data, "--out",
+                    "log/chip_smoke/baseline/classical.pkl", "--snrs", snrs,
+                    "--baseline-seed", str(seed), "--device", "cuda"])
+    rows = res["rows"]
+    t0 = time.perf_counter()
+    want = classical_sweep(sents, BASELINE_SNRS, seed=seed, device="cpu",
+                           verbose=False)
+    cpu_s = time.perf_counter() - t0
+    print(f"[baseline] rows [snr, attacked, clean]: {rows}")
+    print(f"[baseline] card seconds per SNR point {res['seconds']}; the CPU "
+          f"run {cpu_s:.1f} s for {len(BASELINE_SNRS)} points")
+    if rows != want:
+        raise AssertionError(f"baseline: card rows {rows} != CPU rows {want}")
+    top = rows[-1]
+    if top[2] != 1.0 or not top[1] < top[2]:
+        raise AssertionError(f"baseline: at {top[0]} dB clean {top[2]} "
+                             f"(want 1.0), attacked {top[1]}")
+    llrs = [torch.randn((len(sents), 512), generator=torch.Generator(
+        device="cuda").manual_seed(seed + i), device="cuda") for i in range(3)]
+    turbo.bcjr(*llrs)
+    profiled(f"baseline: one BCJR call, {len(sents)} blocks of 512",
+             lambda: turbo.bcjr(*llrs))
+
+
+PREPROCESS_LINES = (
+    "<p>Résumé of the sitting; naïve, café?</p>",
+    "The House rose and observed a minute' s silence.",
+    "this is all in accordance with the principles that we have upheld!",
+    "too short here",
+)
+
+
+def phase_preprocess(seed):
+    """`cli preprocess` on a corpus the phase writes from `seed` (two
+    files; tags, accents, punctuation, lengths in and out of range,
+    duplicates): the vocab, train and test files read back; every id list
+    decodes to its sentence's tokens; 90/10 by round."""
+    rnd = random.Random(seed)
+    words = [f"word{i}" for i in range(300)]
+    root = "log/chip_smoke/preprocess"
+    corpus = os.path.join(root, "en")
+    os.makedirs(corpus, exist_ok=True)
+    lines = list(PREPROCESS_LINES)
+    for _ in range(400):
+        n = rnd.randint(2, 34)
+        lines.append(" ".join(rnd.choice(words) for _ in range(n))
+                     + rnd.choice([".", "?", "!", ", ok.", ""]))
+    lines += lines[:20]  # duplicates
+    for k in range(2):
+        with open(os.path.join(corpus, f"part{k}.txt"), "w") as f:
+            f.write("\n".join(lines[k::2]))
+    out = {n: os.path.join(root, f) for n, f in (
+        ("vocab", "vocab.json"), ("train", "train.pkl"), ("test", "test.pkl"))}
+    cli.main(["preprocess", "--input-data-dir", corpus, "--output-vocab",
+              out["vocab"], "--output-train-dir", out["train"],
+              "--output-test-dir", out["test"], "--device", "cuda"])
+    vocab = Vocab.load(out["vocab"])
+    with open(out["train"], "rb") as f:
+        train = pickle.load(f)
+    with open(out["test"], "rb") as f:
+        test = pickle.load(f)
+    sents = preprocess.dedupe(
+        s for k in range(2) for s in preprocess.process_file(
+            os.path.join(corpus, f"part{k}.txt")))
+    toks = [preprocess.tokenize(s, punct_to_keep=preprocess.PUNCT_TO_KEEP,
+                                punct_to_remove=preprocess.PUNCT_TO_REMOVE)
+            for s in sents]
+    if [vocab.decode(ids, stop_at_end=False) for ids in train + test] \
+            != toks or len(train) != round(0.9 * len(toks)):
+        raise AssertionError("preprocess: the outputs do not round-trip")
+    print(f"[preprocess] {len(lines)} lines -> {len(toks)} sentences "
+          f"({len(train)} train, {len(test)} test), vocab {len(vocab)}; "
+          f"round trip ok")
+
+
 KERNEL_INFO = {
     attn.KERNEL: ("deepsc_gan_tpu/ops/pallas/attention.py:125",
                   "decoder_self", "serving: decoder self-attention, bf16, "
@@ -3050,21 +3572,8 @@ def _timing(row):
         "library_ms", "device_ms", "library_device_ms")}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batches", type=int, default=2)
-    ap.add_argument("--bs", type=int, default=64)
-    ap.add_argument("--epochs", type=int, default=3)
-    ap.add_argument("--star-epochs", type=int, default=2)
-    ap.add_argument("--iters", type=int, default=50)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    t0 = time.perf_counter()
-    name = phase_device()
-    phase_build()
+def run_phases(args, jobs):
+    """Phases 3 to 25; -> the kernels line's entries."""
     rows = phase_kernels(args.seed, len(SNRS) * args.bs, args.bs,
                          args.iters)
     by_path = phase_serving(args.seed, args.batches, args.bs)
@@ -3107,7 +3616,38 @@ def main(argv=None) -> int:
     graph = phase_graph(args.seed, args.bs)
     print(f"[graph] {json.dumps(graph)}")
     phase_profile(args.seed, args.bs)
-    kernels = kernels_line(rows, by_path)
+    t1 = time.perf_counter()
+    by_path["similarity"] = phase_similarity(args.seed, args.batches,
+                                             args.bs)
+    by_path["transmit"] = phase_transmit(args.seed)
+    phase_baseline(args.seed)
+    phase_preprocess(args.seed)
+    phase_export(jobs)
+    print(f"[commands] similarity, transmit, baseline, preprocess and "
+          f"export phases: {time.perf_counter() - t1:.1f} s")
+    return kernels_line(rows, by_path)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batches", type=int, default=2)
+    ap.add_argument("--bs", type=int, default=64)
+    ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--star-epochs", type=int, default=2)
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    name = phase_device()
+    phase_build()
+    jobs = start_exports(args.seed)
+    try:
+        kernels = run_phases(args, jobs)
+    finally:
+        stop_exports(jobs)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

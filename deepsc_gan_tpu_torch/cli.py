@@ -1,6 +1,9 @@
 """Command-line entry points of the port: the BLEU-vs-SNR sweeps and the
-teacher-forced attack tables (the JAX package's `cli evaluate`), and
-teacher-forced training, plain, FGM-adversarial, the GAN's three phases or
+teacher-forced attack tables (the JAX package's `cli evaluate`, scored by
+`--metric bleu|similarity|both`), `transmit` (sentences through the
+transceiver at one SNR), `export` (the serving sweep through
+`torch.export`), `preprocess` (the corpus pipeline), `baseline` (the
+classical Huffman + turbo + QAM curve), and teacher-forced training, plain, FGM-adversarial, the GAN's three phases or
 MINE (`cli train --train-mode plain|attack|gan|mine`, one device; plain
 mode K = `--scan-steps` steps a call, 32 by default as in the JAX CLI, on
 CUDA K replays of one captured CUDA graph of the step; the others one step
@@ -47,6 +50,11 @@ flag when a kernel it would launch does not take its shapes
   python -m deepsc_gan_tpu_torch.cli train --variant gan --train-mode gan
   python -m deepsc_gan_tpu_torch.cli evaluate --variant gan \
       --eval-mode greedy_gan
+  python -m deepsc_gan_tpu_torch.cli evaluate --metric both  # + BERT
+  python -m deepsc_gan_tpu_torch.cli transmit --snr 6 --text "the house"
+  python -m deepsc_gan_tpu_torch.cli export --out model_decode.pt2
+  python -m deepsc_gan_tpu_torch.cli preprocess --input-data-dir data/txt/en
+  python -m deepsc_gan_tpu_torch.cli baseline --data sentences.pkl
 
 Weights come from a params pickle in the `results/*_params.pkl` format
 (whether the decoder is tied is read from the tree): `--params-pkl`, or for
@@ -97,20 +105,25 @@ import time
 
 import torch
 
+from deepsc_gan_tpu_torch.baselines.pipeline import classical_sweep
+from deepsc_gan_tpu_torch.data import preprocess
 from deepsc_gan_tpu_torch.data.augment import load_train_dataset
 from deepsc_gan_tpu_torch.data.loader import eval_batches, stacked_batches
-from deepsc_gan_tpu_torch.data.vocab import Vocab
+from deepsc_gan_tpu_torch.data.vocab import SeqToText, Vocab
 from deepsc_gan_tpu_torch.evaluate.beam import (
     make_beam_decode,
     make_beam_decode_kv,
+    make_beam_decode_sweep,
 )
 from deepsc_gan_tpu_torch.evaluate.evaluator import (
+    METRICS,
     save_result_table,
     snr_sweep_bleu,
     snr_sweep_bleu_fast,
     teacher_forced_sweep,
 )
 from deepsc_gan_tpu_torch.evaluate.greedy import (
+    make_greedy_decode,
     make_greedy_decode_attack,
     make_greedy_decode_gan,
     make_greedy_decode_sweep,
@@ -118,9 +131,13 @@ from deepsc_gan_tpu_torch.evaluate.greedy import (
 from deepsc_gan_tpu_torch.evaluate.kv_decode import (
     make_greedy_decode_kv_sweep,
 )
-from deepsc_gan_tpu_torch.models.channel import snr_to_noise
+from deepsc_gan_tpu_torch.evaluate.metrics import SNR_to_noise
+from deepsc_gan_tpu_torch.models.channel import draw_channel, snr_to_noise
 from deepsc_gan_tpu_torch.models.transceiver import make_model
+from deepsc_gan_tpu_torch.ops.attention_kernel import plain_attention
 from deepsc_gan_tpu_torch.ops.envelope import check_envelope
+from deepsc_gan_tpu_torch.ops.star_kernel import plain_satellite
+from deepsc_gan_tpu_torch.ops.topk_kernel import topk_logits_reference
 from deepsc_gan_tpu_torch.train.gan_steps import (
     make_gan_eval_step,
     make_gan_train_step,
@@ -170,23 +187,24 @@ def variant_config(args) -> Config:
 
 
 def load_model(cfg: Config, params_pkl, device, seed: int = 0,
-               variant: str = "transformer", state_dict=None):
+               variant: str = "transformer", state_dict=None, **ops):
     """(cfg, model of `variant`) on `device`, in eval mode: weights from
     `params_pkl` (cfg's tie_embeddings set from the tree), else from
     `state_dict` (an epoch checkpoint's; tied when it holds the decoder's
-    `final_bias`), else a random init from `seed`."""
+    `final_bias`), else a random init from `seed`. `ops` (`attention`,
+    `satellite`) go to `make_model`."""
     if params_pkl:
         params = load_params_pickle(params_pkl)
         cfg = cfg.replace(tie_embeddings=is_tied(params))
-        model = load_into(make_model(cfg, variant), params)
+        model = load_into(make_model(cfg, variant, **ops), params)
     elif state_dict is not None:
         cfg = cfg.replace(
             tie_embeddings="semantic_decoder.final_bias" in state_dict)
-        model = make_model(cfg, variant)
+        model = make_model(cfg, variant, **ops)
         model.load_state_dict(state_dict, strict=True)
     else:
         print("[cli] no params pickle; using random init", file=sys.stderr)
-        model = init_params(make_model(cfg, variant), seed)
+        model = init_params(make_model(cfg, variant, **ops), seed)
     return cfg, model.to(device).eval()
 
 
@@ -215,6 +233,30 @@ def latest_checkpoint_params(cfg: Config, variant: str):
     return os.path.join(directory, str(epoch)), mgr.eval_params(epoch)
 
 
+def restore_model(args, cfg: Config, device, tag: str, **ops):
+    """(cfg, model in eval mode on `device`, where its weights came from or
+    None) for `evaluate`, `transmit` and `export`: `--params-pkl`, else the
+    params `train` saved, else the latest epoch checkpoint (its EMA shadow
+    when it holds one), else a random init from --seed. `ops` (export: the
+    plain versions) go to `make_model`."""
+    pickled = evaluate_params_path(args, cfg)
+    checkpoint, restored = ((None, None) if pickled
+                            else latest_checkpoint_params(cfg, args.variant))
+    params_path = pickled or checkpoint
+    if params_path:
+        print(f"[{tag}] params from {params_path}", file=sys.stderr)
+    cfg, model = load_model(cfg, pickled, device, args.seed, args.variant,
+                            restored, **ops)
+    return cfg, model, params_path
+
+
+def load_vocab(cfg: Config) -> Vocab:
+    """`--vocab-path`, or the identity vocab when the file does not
+    exist (the JAX CLI's `_load_vocab`)."""
+    return (Vocab.load(cfg.vocab_path) if os.path.exists(cfg.vocab_path)
+            else Vocab.identity(cfg.vocab_size))
+
+
 EVAL_MODES = ("greedy", "beam", "greedy_attack", "greedy_gan",
               "teacher_forced", "pgd")
 
@@ -236,16 +278,8 @@ def cmd_evaluate(args) -> dict:
     cfg = variant_config(args)
     check_envelope(cfg, args.variant, args.eval_mode, args.beam_size,
                    args.kv_cache, args.beam_impl, device)
-    pickled = evaluate_params_path(args, cfg)
-    checkpoint, restored = ((None, None) if pickled
-                            else latest_checkpoint_params(cfg, args.variant))
-    params_path = pickled or checkpoint
-    if params_path:
-        print(f"[eval] params from {params_path}", file=sys.stderr)
-    cfg, model = load_model(cfg, pickled, device, args.seed, args.variant,
-                            restored)
-    vocab = (Vocab.load(cfg.vocab_path) if os.path.exists(cfg.vocab_path)
-             else Vocab.identity(cfg.vocab_size))
+    cfg, model, params_path = restore_model(args, cfg, device, "eval")
+    vocab = load_vocab(cfg)
     # seed 0, as the JAX CLI's test set (its `_load_dataset` default)
     batches = eval_batches(cfg.test_save_path, cfg.seq_len, cfg.vocab_size,
                            cfg.bs, args.eval_batches)
@@ -282,10 +316,12 @@ def cmd_evaluate(args) -> dict:
             make = make_eval_step
         table = teacher_forced_sweep(
             timed(make(model, cfg, full_target=star)), batches, vocab, cfg,
-            gen, snrs=snrs, pnr_db=args.pnr_db, epsilon=args.epsilon)
+            gen, snrs=snrs, pnr_db=args.pnr_db, epsilon=args.epsilon,
+            metric=args.metric)
         for row in table:
-            print(f"SNR={row[0]:.0f}dB BLEU clean {row[1]:.4f} attacked "
-                  f"{row[2]:.4f} loss {row[3]:.4f}/{row[4]:.4f}")
+            print(f"SNR={row[0]:.0f}dB metrics(clean|attacked)="
+                  + " ".join(f"{m:.4f}" for m in row[1:-2])
+                  + f" loss={row[-2]:.4f}/{row[-1]:.4f}")
         name = f"eval-{args.variant}.pkl"
     else:
         if args.eval_mode == "beam":
@@ -293,7 +329,7 @@ def cmd_evaluate(args) -> dict:
                 else make_beam_decode_kv
             table = snr_sweep_bleu(timed(make(model, cfg, args.beam_size)),
                                    batches, vocab, cfg, gen, snrs=snrs,
-                                   pnr_db=args.pnr_db)
+                                   pnr_db=args.pnr_db, metric=args.metric)
         elif args.eval_mode in ("greedy_attack", "greedy_gan"):
             make = make_greedy_decode_gan if args.eval_mode == "greedy_gan" \
                 else make_greedy_decode_attack
@@ -301,7 +337,8 @@ def cmd_evaluate(args) -> dict:
                           full_target=star)
             table = snr_sweep_bleu(timed(decode), batches, vocab, cfg, gen,
                                    snrs=snrs, pnr_db=args.pnr_db, draws=2,
-                                   decode_extra_args=(args.epsilon,))
+                                   decode_extra_args=(args.epsilon,),
+                                   metric=args.metric)
         else:
             # the KV decoder is autoregressive: a star decoder is decoded in
             # one shot with or without --kv-cache, as the JAX CLI does
@@ -312,9 +349,10 @@ def cmd_evaluate(args) -> dict:
             else:
                 sweep = make_greedy_decode_sweep(model, cfg)
             table = snr_sweep_bleu_fast(timed(sweep), batches, vocab, cfg,
-                                        gen, snrs=snrs, pnr_db=args.pnr_db)
-        for snr, bleu in table:
-            print(f"SNR={snr:.0f}dB {bleu:.4f}")
+                                        gen, snrs=snrs, pnr_db=args.pnr_db,
+                                        metric=args.metric)
+        for snr, *ms in table:
+            print(f"SNR={snr:.0f}dB " + " ".join(f"{m:.4f}" for m in ms))
     save_result_table(table, os.path.join(cfg.log_save_path, name))
     return {"table": table, "device": str(device),
             "sequences": len(snrs) * sum(len(b) for b in batches),
@@ -543,6 +581,189 @@ def cmd_train(args) -> dict:
             "device": str(device)}
 
 
+def cmd_transmit(args) -> dict:
+    """Send sentences through the transceiver at --snr and print what the
+    receiver decodes (the JAX CLI's `transmit`): each sentence normalised,
+    tokenized, encoded and padded (or cut) to seq_len, then the full-prefix
+    greedy decode at one noise level (a star decoder in one shot), its
+    channel drawn from a generator seeded with --seed, the leading <START>
+    stripped. -> {"texts", "received", "inp", "ids", "device"}."""
+    device = resolve_device(args.device)
+    cfg = variant_config(args)
+    check_envelope(cfg, args.variant, "transmit", device=device)
+    texts = args.text if args.text else [line.strip() for line in sys.stdin
+                                         if line.strip()]
+    if not texts:
+        raise SystemExit("transmit: no input sentences (pass --text or "
+                         "pipe non-empty lines on stdin)")
+    cfg, model, _ = restore_model(args, cfg, device, "transmit")
+    vocab = load_vocab(cfg)
+    rows = []
+    for t in texts:
+        toks = preprocess.tokenize(
+            preprocess.normalize_string(t),
+            punct_to_keep=preprocess.PUNCT_TO_KEEP,
+            punct_to_remove=preprocess.PUNCT_TO_REMOVE)
+        ids = vocab.encode(toks)[:cfg.seq_len]
+        rows.append(ids + [cfg.pad_idx] * (cfg.seq_len - len(ids)))
+    inp = torch.tensor(rows, dtype=torch.long, device=device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    noise, fade = draw_channel(gen, (len(rows), cfg.seq_len,
+                                     cfg.channel_dim),
+                               cfg.channel, cfg.fading_per_sample)
+    decode = make_greedy_decode(model, cfg,
+                                "oneshot" if is_star(args.variant) else "step")
+    out = decode(inp, args.pnr_db, SNR_to_noise(args.snr), noise,
+                 fade).cpu()
+    s2t = SeqToText(vocab, cfg.end_idx)
+    received = []
+    for t, row in zip(texts, out.tolist()):
+        if row and row[0] == cfg.start_idx:
+            row = row[1:]
+        received.append(s2t.sequence_to_text(row))
+        print(f"tx[{args.snr:g}dB]> {t}")
+        print(f"rx[{args.snr:g}dB]> {received[-1]}")
+    return {"texts": texts, "received": received, "inp": inp.cpu(),
+            "ids": out, "device": str(device)}
+
+
+class ServingSweep(torch.nn.Module):
+    """The serving sweep as a module for `torch.export`: `forward(inp,
+    noise, pnr_db, n_stds[, fade]) -> ids (S, B, max_length + 1)`, the
+    channel's standard normals given as inputs; `model` is a submodule, so
+    its weights go into the exported program."""
+
+    def __init__(self, model, sweep):
+        super().__init__()
+        self.model = model
+        self.sweep = sweep
+
+    def forward(self, inp, noise, pnr_db, n_stds, fade=None):
+        return self.sweep(inp, pnr_db, n_stds, noise, fade)
+
+
+# Example sizes of the symbolic batch and sweep-length dims: at least 2
+# (torch.export fixes a dim whose example size is 0 or 1), and apart, so
+# the two are not taken for one.
+EXPORT_EXAMPLE_B, EXPORT_EXAMPLE_S = 3, 2
+
+
+def export_decoder(variant: str, decoder: str) -> str:
+    """`--decoder` resolved: auto is kv for an autoregressive variant and
+    full (the one-shot sweep) for a star one; SystemExit for kv or beam on
+    a star variant, with the JAX CLI's message."""
+    star = is_star(variant)
+    if decoder == "auto":
+        decoder = "full" if star else "kv"
+    if decoder in ("kv", "beam") and star:
+        raise SystemExit(f"--decoder {decoder} requires an autoregressive "
+                         "decoder (vanilla transformer/gan); star decoders "
+                         "are non-autoregressive — their one-shot sweep IS "
+                         "the serving path (--decoder auto/full)")
+    return decoder
+
+
+def cmd_export(args) -> dict:
+    """Serialise the serving sweep with `torch.export` (weights in the
+    program) to --out, loadable by `torch.export.load` in a process that
+    imports only torch. The model is built with the plain attention, top-K
+    and star functions, so the artifact holds no kernel of the port (the
+    JAX CLI traces its artifact through the XLA paths for the same reason).
+    The draws are inputs: `(inp[b, L] int64, noise[s, b, L, C] f32, pnr_db
+    f32, n_stds[s] f32[, fade]) -> ids[s, b, max_length+1] int32`, fade
+    [s, 2] (or [s, b, 1, 2] per sample) for a fading channel. -> {"out",
+    "mb", "seconds", "decoder", "signature", "program" (the
+    ExportedProgram), "device"}."""
+    device = resolve_device(args.device)
+    cfg = variant_config(args)
+    decoder = export_decoder(args.variant, args.decoder)
+    cfg, model, _ = restore_model(args, cfg, device, "export",
+                                  attention=plain_attention,
+                                  satellite=plain_satellite)
+    if decoder == "kv":
+        sweep = make_greedy_decode_kv_sweep(model, cfg)
+    elif decoder == "beam":
+        sweep = make_beam_decode_sweep(model, cfg, args.beam_size,
+                                       topk=topk_logits_reference)
+    else:
+        sweep = make_greedy_decode_sweep(
+            model, cfg, "oneshot" if is_star(args.variant) else "step")
+    fading = cfg.channel != "AWGN"
+    if args.static_shapes:
+        b, s = cfg.bs, args.snr_points
+        b_str, s_str = str(b), str(s)
+    else:
+        b, s = EXPORT_EXAMPLE_B, EXPORT_EXAMPLE_S
+        b_str, s_str = "b", "s"
+    L, C = cfg.seq_len, cfg.channel_dim
+    f32 = {"dtype": torch.float32, "device": device}
+    example = [torch.zeros((b, L), dtype=torch.long, device=device),
+               torch.zeros((s, b, L, C), **f32), torch.zeros((), **f32),
+               torch.ones((s,), **f32)]
+    fade_shape = (s, b, 1, 2) if cfg.fading_per_sample else (s, 2)
+    if fading:
+        example.append(torch.zeros(fade_shape, **f32))
+    dynamic = None
+    if not args.static_shapes:
+        bd, sd = torch.export.Dim("b"), torch.export.Dim("s")
+        dynamic = {"inp": {0: bd}, "noise": {0: sd, 1: bd}, "pnr_db": None,
+                   "n_stds": {0: sd}}
+        if fading:
+            dynamic["fade"] = ({0: sd, 1: bd} if cfg.fading_per_sample
+                               else {0: sd})
+    t0 = time.perf_counter()
+    program = torch.export.export(ServingSweep(model, sweep), tuple(example),
+                                  dynamic_shapes=dynamic)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    torch.export.save(program, args.out)
+    seconds = time.perf_counter() - t0
+    mb = os.path.getsize(args.out) / 1e6
+    n_params = sum(p.numel() for p in model.parameters())
+    fade_sig = ""
+    if fading:
+        fade_sig = (f", fade[{s_str},{b_str},1,2] f32"
+                    if cfg.fading_per_sample else f", fade[{s_str},2] f32")
+    signature = (f"(inp[{b_str},{L}] i64, noise[{s_str},{b_str},{L},{C}] "
+                 f"f32, pnr_db f32, n_stds[{s_str}] f32{fade_sig}) -> "
+                 f"ids[{s_str},{b_str},{cfg.max_length + 1}] i32")
+    print(f"[export] {args.out}: {mb:.1f} MB, {n_params:,} params baked in, "
+          f"decoder {decoder}, signature {signature}; the channel's "
+          f"standard normals are inputs (the JAX artifact takes a seed: its "
+          f"RNG is not the port's); plain attention/top-K/star inside; "
+          f"{seconds:.1f} s")
+    return {"out": args.out, "mb": mb, "seconds": seconds,
+            "decoder": decoder, "signature": signature, "program": program,
+            "device": str(device)}
+
+
+def cmd_preprocess(args) -> dict:
+    """The corpus pipeline of `data/preprocess.py` (host only; --device is
+    resolved as every entry point's, and nothing runs on it)."""
+    resolve_device(args.device)
+    return preprocess.run(args)
+
+
+def cmd_baseline(args) -> dict:
+    """The classical Huffman + turbo + QAM BLEU-vs-SNR sweep on the raw
+    sentences of the pickle --data, its BCJR decoder on the device; the
+    rows [snr, bleu_attacked, bleu_clean] pickled to --out. -> {"rows",
+    "seconds" (per SNR), "device"}."""
+    device = resolve_device(args.device)
+    with open(args.data, "rb") as f:
+        sentences = pickle.load(f)
+    seconds = []
+    rows = classical_sweep(
+        sentences, [float(x) for x in args.snrs.split(",")],
+        block_k=args.block_k, iters=args.iters, mod_bits=args.mod_bits,
+        pnr_db=args.baseline_pnr_db, seed=args.baseline_seed, device=device,
+        seconds=seconds)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "wb") as f:
+        pickle.dump(rows, f)
+    print(f"wrote {args.out}")
+    return {"rows": rows, "seconds": seconds, "device": str(device)}
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="deepsc_gan_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -567,6 +788,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epsilon", type=float, default=1.0,
                    help="FGM strength (cancelled by the normalization, "
                         "quirk Q7: --pnr-db sets the attack's power)")
+    p.add_argument("--metric", default="bleu", choices=METRICS,
+                   help="the table's text metric column(s), BLEU then the "
+                        "similarity: BERT's from local weights "
+                        "(DEEPSC_BERT_PATH, a Hugging Face directory, "
+                        "default bert-base-uncased in the local cache; "
+                        "never fetched), else the unigram cosine with a "
+                        "warning")
     p.add_argument("--eval-batches", type=int, default=8)
     p.add_argument("--snr-lo", type=int, default=0)
     p.add_argument("--snr-hi", type=int, default=18)
@@ -613,12 +841,92 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--profile", default=None, metavar="DIR",
                    help="trace the first epoch with torch.profiler into "
                         "DIR/trace.json (a Chrome trace)")
+
+    tx = sub.add_parser(
+        "transmit", help="send text through the transceiver at --snr and "
+                         "print what the receiver decodes")
+    add_config_args(tx)
+    _model_args(tx)
+    tx.add_argument("--snr", type=float, default=6.0)
+    tx.add_argument("--pnr-db", type=float, default=0.0)
+    tx.add_argument("--text", action="append",
+                    help="sentence to transmit (repeatable; default: the "
+                         "non-empty lines of stdin)")
+
+    ex = sub.add_parser(
+        "export",
+        help="serialise the serving sweep, weights included, with "
+             "torch.export (a .pt2 that torch.export.load reads in a "
+             "process importing only torch). Signature: (inp[b, L] int64, "
+             "noise[s, b, L, C] f32, pnr_db f32, n_stds[s] f32[, fade]) -> "
+             "ids[s, b, max_length+1] int32: the channel's standard "
+             "normals are inputs (torch.export cannot seed a generator "
+             "inside the program; the JAX artifact takes a seed instead, "
+             "and its RNG is not the port's). The artifact runs the plain "
+             "attention, top-K and star functions, not the CUDA kernels")
+    add_config_args(ex)
+    _model_args(ex)
+    ex.add_argument("--decoder", default="auto",
+                    choices=["auto", "kv", "beam", "full"],
+                    help="auto = KV-cached greedy for autoregressive "
+                         "variants, the one-shot sweep for star; kv; beam "
+                         "(KV-cached beam search); full (full-prefix "
+                         "greedy)")
+    ex.add_argument("--beam-size", type=int, default=4,
+                    help="--decoder beam: beam width")
+    ex.add_argument("--snr-points", type=int, default=19,
+                    help="sweep length s with --static-shapes (otherwise "
+                         "b and s are symbolic, any size from 1)")
+    ex.add_argument("--static-shapes", action="store_true",
+                    help="pin b (= --bs) and s (= --snr-points)")
+    ex.add_argument("--out", default="model_decode.pt2")
+
+    pp = sub.add_parser("preprocess", help="Europarl preprocessing (host)")
+    preprocess.add_args(pp)
+    _device_arg(pp)
+
+    bl = sub.add_parser(
+        "baseline", help="classical Huffman + turbo + QAM BLEU-vs-SNR sweep "
+                         "(the BCJR decoder on the device)")
+    bl.add_argument("--data", required=True,
+                    help="pickle of raw sentences (a list of str)")
+    bl.add_argument("--out", default="log/classical-log.pkl")
+    bl.add_argument("--block-k", type=int, default=512)
+    bl.add_argument("--iters", type=int, default=6)
+    bl.add_argument("--mod-bits", type=int, default=6, help="6 = 64-QAM")
+    bl.add_argument("--baseline-pnr-db", type=float, default=10.0)
+    bl.add_argument("--snrs", default=",".join(str(x) for x in range(19)))
+    bl.add_argument("--baseline-seed", type=int, default=0)
+    _device_arg(bl)
     return parser
+
+
+def _device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; raises without it)")
+
+
+def _model_args(p: argparse.ArgumentParser) -> None:
+    """The flags that say which transceiver `transmit` and `export` run
+    and where its weights come from (as `evaluate`)."""
+    p.add_argument("--variant", default="transformer", choices=VARIANTS)
+    p.add_argument("--params-pkl", default=None,
+                   help="flax params pickle (results/*_params.pkl format); "
+                        "default <checkpoint-path>/<variant>_params.pkl "
+                        "when it exists, else the latest epoch checkpoint, "
+                        "else a random init from --seed")
+    p.add_argument("--seed", type=int, default=0)
+    _device_arg(p)
+
+
+COMMANDS = {"evaluate": cmd_evaluate, "train": cmd_train,
+            "transmit": cmd_transmit, "export": cmd_export,
+            "preprocess": cmd_preprocess, "baseline": cmd_baseline}
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    return cmd_train(args) if args.cmd == "train" else cmd_evaluate(args)
+    return COMMANDS[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,9 @@ the command starts, before any model is built.
 
 The kernels refuse shapes outside their envelope (each wrapper raises on
 CUDA; nothing falls back to a plain version), while the JAX package's
-Pallas kernels refuse none. So `cli train` and `cli evaluate` ask
-`check_envelope` first and stop with a message that names the flag, rather
-than mid-run after the weights are loaded. Each kernel has a tuned path
+Pallas kernels refuse none. So `cli train`, `cli evaluate` and
+`cli transmit` ask `check_envelope` first and stop with a message that
+names the flag, rather than mid-run after the weights are loaded. Each kernel has a tuned path
 and a wide one that takes what the tuned one does not, so what is left to
 refuse is narrow: a K1/K2 or K5 head count that does not divide the width
 (the models refuse it too when built), K6 a beam outside 1..V; K1/K2 take
@@ -22,7 +22,9 @@ Which kernels run, by variant and mode:
   PyTorch); K2 wherever a backward runs (training, plain, attack or GAN:
   every attention; the attack evaluations, `greedy_gan` and the GAN
   teacher-forced step: the decoder's); K3 and K4 in training with
-  cfg.fused_ce; K6 in beam search; MINE training (`mine`, vanilla only):
+  cfg.fused_ce; K6 in beam search; `transmit` (`cli transmit`, the
+  full-prefix greedy decode at one noise level): K1 as the full-prefix
+  greedy sweep; MINE training (`mine`, vanilla only):
   K1 and K2 at the training shapes (the encoder's K1 twice a step, its
   recompute for T's update), no K3 or K4 (the CE takes materialized
   logits);
@@ -82,7 +84,8 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
     """-> one message per flag whose value a kernel of this run does not
     take (empty: every kernel takes the run's shapes). `eval_mode` None is
     `cli train`, "mine" `cli train --train-mode mine` (the same attention
-    shapes, forward and backward); else the `cli evaluate` mode, with
+    shapes, forward and backward), "transmit" `cli transmit`; else the
+    `cli evaluate` mode, with
     `kv_cache` (greedy) and `beam_impl` (beam) saying which decoder runs. `smem_limit` is the
     card's shared memory per block (default: the device's)."""
     device = torch.device(device)
@@ -119,7 +122,7 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
             calls += [(t, t, seq), (t, cfg.seq_len, seq)]
         full_prefix = (eval_mode == "greedy" and not kv_cache) or (
             eval_mode == "beam" and beam_impl == "full") \
-            or eval_mode in ("greedy_attack", "greedy_gan")
+            or eval_mode in ("greedy_attack", "greedy_gan", "transmit")
         if full_prefix:
             t = cfg.max_length + 1
             flag = f"--max-length {cfg.max_length}"

@@ -10,7 +10,8 @@ values as rounding the weights once at load, so a bf16 forward is
 unchanged; the gradient reaches the f32 weights through the cast. Without
 autograd (serving) the cast copy is kept and reused until the weights
 change (a new version or storage), so a decode loop does not cast every
-weight at every step.
+weight at every step; a program being traced (`torch.export`) casts at
+every use.
 
 Dropout (flax `nn.Dropout`): keep each element with probability 1 - rate,
 scaling kept ones by 1 / (1 - rate) in the activation dtype. The mask is
@@ -48,7 +49,9 @@ class Dense(nn.Linear):
 
     def _params(self):
         """(weight, bias) in the activation dtype."""
-        if torch.is_grad_enabled() or self.weight.dtype == self.act_dtype:
+        if torch.is_grad_enabled() or self.weight.dtype == self.act_dtype \
+                or torch.compiler.is_compiling():
+            # (a traced program, as `torch.export`'s, casts in its graph)
             return self._cast_params()
         key = [(p.data_ptr(), p._version) for p in self.parameters()]
         if self._cast is None or self._cast[0] != key:
@@ -72,7 +75,8 @@ def project_packed(x: torch.Tensor, denses) -> tuple:
     out = torch.matmul(x.to(dt).reshape(1, -1, x.shape[-1]),
                        w.transpose(1, 2))                 # (n, rows, out)
     parts = [o.view(*x.shape[:-1], o.shape[-1]) for o in out]
-    if any(t.data_ptr() % 16 for t in parts):
+    if not torch.compiler.is_compiling() \
+            and any(t.data_ptr() % 16 for t in parts):
         parts = [t.clone() for t in parts]
     return tuple(parts)
 

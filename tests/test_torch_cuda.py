@@ -1457,3 +1457,140 @@ def test_profile_trace_holds_the_kernels(cuda, tmp_path, scan_steps):
         names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
     k1 = sum("attention_fwd_" in n and "kernel" in n for n in names)
     assert k1 == 4 * 6
+
+
+def _tiny_bert_dir(directory, seed=0):
+    """A tiny random BERT in a Hugging Face directory, written with the
+    port's own safetensors writer (the card's machine has no
+    transformers)."""
+    import json
+
+    from deepsc_gan_tpu_torch.models.bert import (
+        BertConfig,
+        BertEncoder,
+        write_safetensors,
+    )
+
+    cfg = BertConfig(vocab_size=60, hidden_size=32, num_hidden_layers=12,
+                     num_attention_heads=4, intermediate_size=64,
+                     max_position_embeddings=40)
+    (directory / "config.json").write_text(json.dumps(cfg.to_json()))
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        f"w{i}" for i in range(4, 40)]
+    (directory / "vocab.txt").write_text("\n".join(words) + "\n")
+    gen = torch.Generator().manual_seed(seed)
+    write_safetensors(str(directory / "model.safetensors"), {
+        name: 0.5 * torch.randn(t.shape, generator=gen)
+        for name, t in BertEncoder(cfg).state_dict().items()})
+    return str(directory)
+
+
+def test_bert_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """Every hidden state of the port's BERT on the card within 1e-4 of the
+    CPU's (f32 without TF32), pads in the mask; and the similarity scores
+    within 1e-4."""
+    from deepsc_gan_tpu_torch.evaluate.metrics import Similarity
+    from deepsc_gan_tpu_torch.models.bert import exact_f32_matmuls, load_bert
+
+    d = _tiny_bert_dir(tmp_path)
+    cpu, card = load_bert(d, "cpu"), load_bert(d, cuda)
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 60, (16, 24), generator=g)
+    mask = (torch.arange(24)[None] < torch.randint(3, 25, (16, 1),
+                                                   generator=g)).long()
+    with torch.inference_mode(), exact_f32_matmuls():
+        want = cpu(ids, mask)
+        got = card(ids.to(cuda), mask.to(cuda))
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4
+    real = ["w5 w6 w7 w8", "w9 w10", "w11 w12 w13", "w30 w31 w32 w33 w34"]
+    pred = ["w5 w6 w9 w8", "w9", "w11 w12 w13", "w4 w31"]
+    a = Similarity(d, device="cuda").compute_score(real, pred)
+    b = Similarity(d, device="cpu").compute_score(real, pred)
+    assert max(abs(x - y) for x, y in zip(a, b)) <= 1e-4
+
+
+def test_bcjr_on_the_card_equals_the_cpu(cuda):
+    """The max-log BCJR's LLRs on the card within 1e-5 of their largest of
+    the CPU's, and the turbo decoder's bits equal, at block_k 512."""
+    from deepsc_gan_tpu_torch.baselines import turbo
+
+    rng = np.random.default_rng(0)
+    ls, lp, la = (torch.from_numpy(3 * rng.standard_normal(
+        (32, 512)).astype(np.float32)) for _ in range(3))
+    want = turbo.bcjr(ls, lp, la)
+    got = turbo.bcjr(ls.to(cuda), lp.to(cuda), la.to(cuda)).cpu()
+    assert (got - want).abs().max().item() \
+        <= 1e-5 * want.abs().max().item()
+    codecs = [turbo.TurboCodec(block_k=512, iters=6, seed=1, device=d)
+              for d in ("cpu", cuda)]
+    bits = rng.integers(0, 2, 16 * 512 - 7).astype(np.uint8)
+    sym, n = codecs[0].encode(bits)
+    llr = turbo.TurboCodec.awgn_llr(sym, 0.5,
+                                    torch.Generator().manual_seed(2))
+    hard = [c.decode(llr, n) for c in codecs]
+    assert np.array_equal(hard[0], hard[1])
+
+
+EXPORT_TINY = ["--vocab-size", "40", "--seq-len", "12", "--max-length", "11",
+               "--encoder-num-layer", "2", "--decoder-num-layer", "2",
+               "--encoder-d-model", "16", "--decoder-d-model", "16",
+               "--encoder-d-ff", "32", "--decoder-d-ff", "32",
+               "--encoder-num-heads", "2", "--decoder-num-heads", "2",
+               "--channel-hidden", "24", "--channel-dim", "8",
+               "--channel-dec-hidden", "32", "--dtype", "float32"]
+
+
+def test_export_on_the_card_decodes_the_plain_ids(cuda, tmp_path):
+    """`cli export` on the card (the KV sweep, symbolic b and s), loaded
+    from the file: its ids equal the eager sweep's through the plain
+    attention at two (B, S), and it launched no kernel."""
+    from deepsc_gan_tpu_torch import cli
+    from deepsc_gan_tpu_torch.evaluate.kv_decode import (
+        make_greedy_decode_kv_sweep,
+    )
+
+    out = str(tmp_path / "kv.pt2")
+    argv = ["export", "--device", "cuda", "--out", out, *EXPORT_TINY]
+    attn.reset_launches()
+    cli.main(argv)
+    assert attn.launches == 0
+    args = cli.build_parser().parse_args(argv)
+    cfg, model, _ = cli.restore_model(args, cli.variant_config(args), cuda,
+                                      "test", attention=attn.plain_attention)
+    program = torch.export.load(out).module()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for b, s in ((4, 2), (3, 5)):
+        inp = torch.randint(4, 40, (b, 12), generator=g, device=cuda)
+        inp[:, 0] = 1
+        noise = torch.randn((s, b, 12, 8), generator=g, device=cuda)
+        n_stds = 0.05 + torch.rand((s,), generator=g, device=cuda)
+        got = program(inp, noise, torch.tensor(0.0, device=cuda), n_stds)
+        want = make_greedy_decode_kv_sweep(model, cfg)(inp, 0.0, n_stds,
+                                                       noise)
+        assert torch.equal(got, want)
+
+
+def test_transmit_on_the_card(cuda, tmp_path):
+    """`cli transmit` on the card at f32: K1 launched encoder layers + 2
+    decoder layers x max_length times; the ids equal the plain attention's
+    on the same draws."""
+    from deepsc_gan_tpu_torch import cli
+    from deepsc_gan_tpu_torch.evaluate.greedy import make_greedy_decode
+    from deepsc_gan_tpu_torch.models.channel import draw_channel
+
+    argv = ["transmit", "--device", "cuda", "--seed", "4", "--snr", "9",
+            "--checkpoint-path", str(tmp_path), "--text", "w5 w6 w7, w8.",
+            "--text", "w30 w31 w9?", *EXPORT_TINY]
+    attn.reset_launches()
+    res = cli.main(argv)
+    assert attn.launches == 2 + 2 * 2 * 11
+    args = cli.build_parser().parse_args(argv)
+    cfg, model, _ = cli.restore_model(args, cli.variant_config(args), cuda,
+                                      "test", attention=attn.plain_attention)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    noise, _ = draw_channel(gen, (2, 12, 8))
+    want = make_greedy_decode(model, cfg)(res["inp"].to(cuda), 0.0,
+                                          1.0 / math.sqrt(10 ** 0.9), noise)
+    assert torch.equal(res["ids"], want.cpu())
+    assert len(res["received"]) == 2

@@ -31,17 +31,38 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "deepsc_gan_tpu_torch.ops.star_kernel" in mods
     assert "deepsc_gan_tpu_torch.models.star" in mods
     for new in ("models.mine", "train.mine_steps", "utils.checkpoint",
-                "data.augment", "utils.profiling"):
+                "data.augment", "utils.profiling", "models.bert",
+                "data.wordpiece", "data.preprocess", "baselines.huffman",
+                "baselines.modem", "baselines.turbo", "baselines.pipeline"):
         assert f"deepsc_gan_tpu_torch.{new}" in mods
+    # nor what the card's machine does not have: the tests alone use them
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "    ('jax', 'jaxlib', 'flax', 'optax', 'deepsc_gan_tpu'))\n"
+        "    ('jax', 'jaxlib', 'flax', 'optax', 'deepsc_gan_tpu',\n"
+        "     'transformers', 'tokenizers', 'safetensors', 'nltk'))\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                    check=True, timeout=120)
+
+
+@pytest.mark.parametrize("argv", [
+    ["transmit", "--text", "w5 w6"],
+    ["export", "--out", "never.pt2"],
+    ["baseline", "--data", "never.pkl"],
+    ["preprocess", "--input-data-dir", "never"],
+])
+def test_new_commands_need_cuda_unless_told_otherwise(monkeypatch, tmp_path,
+                                                      argv):
+    from deepsc_gan_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)
+    assert not list(tmp_path.iterdir())
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):
