@@ -35,7 +35,9 @@ non-zero without its last line:
    the tuned ones do not take the shape); and at the shapes of the
    widened train paths of phase 15: K1/K2 at 8 heads of 64 and of 25,
    the chunked K1/K2 at one head of 512 (Lq = Lk = 32) and 2 heads of 320
-   (31 x 31 and 31 x 32), K3/K4 at D = 640;
+   (31 x 31 and 31 x 32), K3/K4 at D = 640 and K4's dh-only mode there
+   (in bf16 K4 off the tuned widths and K1 past 256-wide heads run their
+   tensor-core kernels: `design` wgmma or mma bf16);
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -118,8 +120,10 @@ non-zero without its last line:
    saved (K6's wide kernels), `cli train --variant star` at d_model 96
    (K5's wide kernel), exact launch counts; then heads wider than 256:
    `cli train` with an encoder of one head of 512 and a decoder of 2 heads
-   of 320 (the chunked wide K1/K2 kernels, K3/K4's wide ones at D = 640),
-   exact launch counts;
+   of 320 (K1 on its tensor-core chunked kernel, csrc/attention_chunked.cu;
+   K2 on the chunked wide kernels; K3 on its wide kernel and K4 on its
+   tensor-core wide kernels, csrc/ce_wide_bwd.cu, at D = 640), exact
+   launch counts, and its ms a step;
 16. MINE: `cli train --train-mode mine` at full width in bf16 from a
    random init, MINE_EPOCHS epochs (per step: 16 K1, 12 K2, no K3/K4);
    every ce and mi finite, the mean of the last 16 ce below that of the
@@ -293,9 +297,10 @@ LONG_SEQ = 64
 KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
            star.KERNEL, topk.KERNEL)
 # the libraries of the wide kernels: the shapes the tuned kernels
-# above do not take
+# above do not take (the bf16 K1 past 256-wide heads and the bf16 wide K4
+# on the tensor cores in libraries of their own)
 WIDE_LIBRARIES = (attn.KERNEL_WIDE, ce.KERNEL_WIDE, star.KERNEL_WIDE,
-                  topk.KERNEL_WIDE)
+                  topk.KERNEL_WIDE, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD)
 # the K4 launches among ce_bwd's that ran in the dh-only mode
 DH_ONLY = "ce_bwd_dh_only"
 # the launches among each kernel's that went to its wide kernels
@@ -337,11 +342,15 @@ WIDE_HEADS_D = 640
 # a spin of the device (about 0.1 s) that the timed calls queue up behind
 SPIN_CYCLES = 200_000_000
 # what multiplies, by kernel and dtype (csrc/attention_fwd.cu,
-# csrc/attention_bwd.cu, csrc/ce_fwd.cu, csrc/ce_bwd.cu, csrc/topk.cu)
+# csrc/attention_bwd.cu, csrc/ce_fwd.cu, csrc/ce_bwd.cu, csrc/topk.cu); on
+# the wide paths, the CUDA-core wide kernels but for the bf16 K1 past
+# 256-wide heads (csrc/attention_chunked.cu) and the bf16 wide K4
+# (csrc/ce_wide_bwd.cu), redesigned on the tensor cores
 WGMMA = {torch.bfloat16: "wgmma bf16", torch.float32: "cuda-core f32"}
 MMA = {torch.bfloat16: "mma bf16", torch.float32: "cuda-core f32"}
 DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
           ce.KERNEL_BWD: WGMMA, topk.KERNEL: WGMMA}
+WIDE_DESIGN = "wide cuda-core f32"
 
 
 def phase_device():
@@ -367,8 +376,9 @@ def _kernel_name(mangled):
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
-    m = re.match(r"ILi(\d+)EE", mangled[i:])
-    return name + (f"<{m.group(1)}>" if m else "")
+    m = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    return name + (f"<{', '.join(re.findall(r'Li(\d+)E', m.group(1)))}>"
+                   if m else "")
 
 
 def ptxas_report(log):
@@ -546,9 +556,39 @@ def _sdpa_views(q, k, v, heads=HEADS):
 
 def _attention_design(kernel, dtype, heads, dh):
     """What multiplies in the kernel that takes `heads` heads of `dh`."""
+    if kernel == attn.KERNEL and attn.is_chunked_mma(dtype, heads, dh):
+        return MMA[dtype]
     if attn.is_wide(heads, dh):
-        return "wide cuda-core f32"
+        return WIDE_DESIGN
     return DESIGN[kernel][dtype]
+
+
+def _ce_design(kernel, dtype, d):
+    """What multiplies in the K3 or K4 kernel that takes width d."""
+    if kernel == ce.KERNEL_BWD and ce.uses_tensor_core_bwd(dtype, d):
+        return WGMMA[dtype]
+    if ce.is_wide(dtype, d):
+        return WIDE_DESIGN
+    return DESIGN[kernel][dtype]
+
+
+def _ce_launch(kernel, dtype, n, d, v, device):
+    """The tiling the library of `kernel` (K3 or K4) at width d reports
+    (rows of h and of W per tile, blocks per SM) and the vocab splits the
+    wrapper takes from it; for the tensor-core wide K4 also its plan (the
+    splits count the SMs in clusters)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if kernel == ce.KERNEL_BWD and ce.uses_tensor_core_bwd(dtype, d):
+        dp = ce.padded_width(d)
+        plan = ce.wide_bwd_plan(dp)
+        tiles = ce.tiling(ce.KERNEL_WIDE_BWD, dtype, dp, device)
+        return {"tiling": list(tiles), "plan": plan._asdict(),
+                "splits": ce.vocab_splits(n, v, max(1, sms // plan.cluster),
+                                          *tiles)}
+    tiles = ce.tiling(ce.KERNEL_WIDE if ce.is_wide(dtype, d) else kernel,
+                      dtype, d, device)
+    return {"tiling": list(tiles),
+            "splits": ce.vocab_splits(n, v, sms, *tiles)}
 
 
 def attention_case(label, n, lq, lk, dtype, gen, iters, heads=HEADS,
@@ -665,19 +705,12 @@ def ce_cases(dtype, gen, iters, n, d, v, label="ce"):
                              f"softmax part > {SOFTMAX_TOL[dtype]}")
     elt = h.element_size()
     ins = (n * d + v * d) * elt + v * 4 + n * 4
-    wide = ce.is_wide(dtype, d)
-    shape = {"n": n, "d": d, "v": v,
-             "design": "wide cuda-core f32" if wide
-             else DESIGN[ce.KERNEL_FWD][dtype]}
-    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    # rows of h and of W per tile and blocks per SM, as each library
-    # reports them, and the vocab splits the wrapper took from them
-    launch = {}
-    for kernel in (ce.KERNEL_FWD, ce.KERNEL_BWD):
-        tiles = ce.tiling(ce.KERNEL_WIDE if wide else kernel, dtype, d,
-                          h.device)
-        launch[kernel] = {"tiling": list(tiles),
-                          "splits": ce.vocab_splits(n, v, sms, *tiles)}
+    shape = {"n": n, "d": d, "v": v}
+    # what multiplies; rows of h and of W per tile and blocks per SM, as
+    # each library reports them, and the vocab splits the wrapper took
+    launch = {kernel: {"design": _ce_design(kernel, dtype, d),
+                       **_ce_launch(kernel, dtype, n, d, v, h.device)}
+              for kernel in (ce.KERNEL_FWD, ce.KERNEL_BWD)}
     # yardsticks: PyTorch's cross entropy over materialized logits, and
     # its backward
     leaves = [t.detach().requires_grad_(True) for t in (h, W, b)]
@@ -704,12 +737,12 @@ def ce_cases(dtype, gen, iters, n, d, v, label="ce"):
     return rows
 
 
-def ce_dh_only_case(dtype, gen, iters, n, d, v):
-    """K4 in its dh-only mode at the training path's shape: dh bitwise
-    equal to the full mode's, and against the plain version's dh relative
-    to its largest value (and on the softmax part, SOFTMAX_TOL); no dW or
-    db returned. The library yardstick is PyTorch's cross entropy's
-    backward with respect to h alone."""
+def ce_dh_only_case(dtype, gen, iters, n, d, v, label="ce_dh_only"):
+    """K4 in its dh-only mode at the training path's shape (or another
+    width d): dh bitwise equal to the full mode's, and against the plain
+    version's dh relative to its largest value (and on the softmax part,
+    SOFTMAX_TOL); no dW or db returned. The library yardstick is PyTorch's
+    cross entropy's backward with respect to h alone."""
     h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v)
     lse = ce.ce_fwd_reference(h, W, b, labels)[1]
     full = ce.ce_bwd(h, W, b, labels, lse, g)
@@ -734,14 +767,14 @@ def ce_dh_only_case(dtype, gen, iters, n, d, v):
     # reads h, W, b, labels, lse, g; writes dh (f32); a logits recompute
     # and the product P W
     return kernel_row(
-        ce.KERNEL_BWD, "ce_dh_only", dtype,
+        ce.KERNEL_BWD, label, dtype,
         max_err(got[:1], want[:1], relative=True), TOL[dtype],
         lambda: ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True),
         lambda: ce.ce_bwd_reference(h, W, b, labels, lse, g, dh_only=True),
         lambda: torch.autograd.grad(loss, [leaf], g, retain_graph=True),
         (n * d + v * d) * elt + v * 4 + 3 * n * 4 + n * d * 4,
         4 * n * d * v, iters, n=n, d=d, v=v,
-        design=DESIGN[ce.KERNEL_BWD][dtype], softmax_err=softmax_err,
+        design=_ce_design(ce.KERNEL_BWD, dtype, d), softmax_err=softmax_err,
         softmax_tol=SOFTMAX_TOL[dtype])
 
 
@@ -927,6 +960,9 @@ def widened_cases(dtype, gen, iters, bs):
         rows.append(topk_case(f"d{d}", bs * BEAM, dtype, gen, iters, d=d))
     rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1), WIDE_HEADS_D,
                      cfg.vocab_size, label=f"ce_d{WIDE_HEADS_D}")
+    rows.append(ce_dh_only_case(dtype, gen, iters, bs * (cfg.seq_len - 1),
+                                WIDE_HEADS_D, cfg.vocab_size,
+                                label=f"ce_dh_only_d{WIDE_HEADS_D}"))
     for k in WIDE_K:
         rows.append(topk_case(f"k{k}", bs * BEAM, dtype, gen, iters, k,
                               "tie" if k == WIDE_K[1] else "dyadic"))
@@ -2563,17 +2599,22 @@ def phase_wide(seed, bs):
 def phase_wide_heads(seed, bs):
     """Heads wider than 256 on a path: `cli train` in bf16 for one epoch
     from a random init with an encoder of one head of 512 (d_model 512) and
-    a decoder of 2 heads of 320 (d_model 640): every K1/K2 launch on the
-    chunked wide kernels, K3/K4 on their wide ones (D = 640); per step as
-    the default's. -> its launch counts."""
+    a decoder of 2 heads of 320 (d_model 640): every K1 launch on the
+    tensor-core chunked kernel, every K2 on the chunked wide kernels, K3 on
+    its wide kernel and K4 on its tensor-core wide kernels (D = 640); per
+    step as the default's. Prints the epoch's ms a step. -> its launch
+    counts."""
     widths = ["--encoder-d-model", "512", "--encoder-num-heads", "1",
               "--encoder-d-ff", "1024", "--decoder-d-model", "640",
               "--decoder-num-heads", "2", "--decoder-d-ff", "1280"]
-    got, _ = phase_train(seed, 1, bs, extra=widths,
-                         checkpoint="log/chip_smoke/wide_heads_ckpt",
-                         tag="wide_heads_train",
-                         wide=(attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD,
-                               ce.KERNEL_BWD))
+    got, stats = phase_train(seed, 1, bs, extra=widths,
+                             checkpoint="log/chip_smoke/wide_heads_ckpt",
+                             tag="wide_heads_train",
+                             wide=(attn.KERNEL, attn.KERNEL_BWD,
+                                   ce.KERNEL_FWD, ce.KERNEL_BWD))
+    print(f"[wide_heads] {stats['ms_per_step']:.3f} ms a step over the "
+          f"epoch of {stats['steps']} steps (the graph's warm-up and capture "
+          f"in it), bf16")
     return got
 
 
@@ -3458,8 +3499,9 @@ WIDE_INFO = {
                       "8 heads of 25, bf16, N=64 Lq=Lk=31, no dbias"),
     ce.KERNEL_FWD: (ce.KERNEL_WIDE, "ce_d200", "the wide train path's CE: "
                     "K3 at N=1984 D=200 V=22234, bf16"),
-    ce.KERNEL_BWD: (ce.KERNEL_WIDE, "ce_d200", "the wide train path's CE: "
-                    "K4 at N=1984 D=200 V=22234, bf16"),
+    ce.KERNEL_BWD: (ce.KERNEL_WIDE_BWD, "ce_d200", "the wide train path's "
+                    "CE: K4 at N=1984 D=200 V=22234, bf16 (the tensor-core "
+                    "wide kernels; f32 on csrc/ce_wide.cu)"),
     star.KERNEL: (star.KERNEL_WIDE, "star_d96", "the wide star train "
                   "path's ring: K5 at B=64 L=31 D=96 H=8, bf16"),
     topk.KERNEL: (topk.KERNEL_WIDE, "wide_beam", "the wide beam path: K6 "
@@ -3527,10 +3569,13 @@ def kernels_line(rows, by_path):
                  for label, *_ in WIDE_HEADS_PATH}
         row = cases[WIDE_HEADS_PATH[0][0]]
         n = by_path["wide_heads"][WIDE[kernel]]
+        # the bf16 K1 past 256-wide heads: the tensor-core chunked kernel
+        library = attn.KERNEL_CHUNKED if kernel == attn.KERNEL \
+            else attn.KERNEL_WIDE
         out.append({
             "name": WIDE[kernel] + "_chunked", "route": "cuda",
             "design": row["design"],
-            "source": f"deepsc_gan_tpu_torch/csrc/{attn.KERNEL_WIDE}.cu",
+            "source": f"deepsc_gan_tpu_torch/csrc/{library}.cu",
             "replaces": KERNEL_INFO[kernel][0], "launches": n,
             "launches_by_path": {"wide_heads": n}, **_timing(row),
             "cases": {label: _timing(r) for label, r in cases.items()},
@@ -3556,11 +3601,16 @@ def kernels_line(rows, by_path):
             "launches": sum(paths.values()), "launches_by_path": paths,
             **_timing(row), "at": at})
         if kernel in (ce.KERNEL_FWD, ce.KERNEL_BWD):
-            # the wide-heads path's CE runs at D = WIDE_HEADS_D
-            label = f"ce_d{WIDE_HEADS_D}"
+            # the wide-heads path's CE runs at D = WIDE_HEADS_D; K4 also at
+            # D = 512 and in its dh-only mode at WIDE_HEADS_D
+            labels = [f"ce_d{d}" for d in WIDE_D if d != WIDE_PATH_D] + [
+                f"ce_d{WIDE_HEADS_D}"]
+            if kernel == ce.KERNEL_BWD:
+                labels.append(f"ce_dh_only_d{WIDE_HEADS_D}")
             out[-1]["cases"] = {label: _timing(next(
                 r for r in rows if r["kernel"] == kernel
-                and r["case"] == label and r["dtype"] == "bfloat16"))}
+                and r["case"] == label and r["dtype"] == "bfloat16"))
+                for label in labels}
     return out
 
 

@@ -41,7 +41,9 @@
 // atomics, the same bits on every call. The kernels allocate nothing.
 //
 // Heads up to 256 wide (kMaxDh) keep the lane's 8 elements of q (and g, k,
-// v) in registers. A wider head takes the chunked kernels: the operands of
+// v) in registers. A wider head takes the chunked kernels (the forward in
+// f32 only: in bf16 it is csrc/attention_chunked.cu's, on the tensor
+// cores): the operands of
 // each dot product are read from memory (the same elements in the same
 // order, so the same bits as a register-held slice would give), and each
 // output row is walked in chunks of 256 elements, 8 a lane: for each chunk
@@ -54,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -578,10 +582,12 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
     attention_fwd_wide_kernel<T><<<grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
         sh);
-  else
+  else if constexpr (std::is_same<T, float>::value)
     attention_fwd_chunked_kernel<T><<<grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
         sh);
+  else  // bf16 heads wider than kMaxDh: csrc/attention_chunked.cu
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -632,7 +638,8 @@ extern "C" {
 
 // q, out: contiguous (N, Lq, heads*dh); k, v: (N, Lk, heads*dh); bias:
 // contiguous f32 (N, Lq, Lk); any N, Lq, Lk, heads and dh >= 1 (past 256
-// the chunked kernels).
+// the chunked kernels; in bf16 dh up to 256, csrc/attention_chunked.cu
+// taking wider heads).
 // Returns cudaGetLastError() after the launch (0 = success).
 int deepsc_attention_wide_fwd_f32(const void* q, const void* k,
                                   const void* v, const void* bias, void* out,

@@ -31,10 +31,14 @@
 // per vocab tile the logits and P (shared tile, f32), then Pc times the
 // tile's W slab, chunk by chunk; the splits' partials added in order by a
 // third kernel. dW and db from block (vocab tile, slab of D), walking every
-// row tile in order; db (unrounded P) by the first slab's blocks. No
+// row tile in order; db (unrounded P) by the first slab's blocks. The bf16
+// backward runs here only past 5,120 columns: up to there it is
+// csrc/ce_wide_bwd.cu's, on the tensor cores. No
 // atomics: every sum runs in a fixed order, the same bits on every call.
 // The kernels allocate nothing; the caller passes the outputs and the
 // workspaces.
+
+#include <type_traits>
 
 #include "wide_tile.cuh"
 
@@ -51,6 +55,8 @@ constexpr int DO = 256;             // columns of dh / dW a block writes
 constexpr int kDPer = DO / 16;      // of them per thread
 constexpr int kChunks = DO / KC;    // staged chunks per slab
 constexpr int kPStride = TV + 1;    // row stride of the P tile
+// the widest bf16 D the tensor-core backward (csrc/ce_wide_bwd.cu) takes
+constexpr int kMaxTensorCoreD = 5120;
 
 // ---- forward ----
 
@@ -390,6 +396,10 @@ int launch_bwd(const void* h, const void* w, const void* b,
                int splits, void* stream) {
   const int tps = wide::split_tiles(n, d, v, splits);
   if (tps < 0 || (dw == nullptr) != (db == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // bf16 up to 4,096 columns: the tensor-core kernels of
+  // csrc/ce_wide_bwd.cu
+  if (std::is_same<T, __nv_bfloat16>::value && d <= kMaxTensorCoreD)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   ce_dh_wide_kernel<T>

@@ -2,9 +2,10 @@
 (K1, the port of the TPU kernel `_fwd_kernel`) and `csrc/attention_bwd.cu`
 (K2, the port of `_bwd_kernel`, deepsc_gan_tpu/ops/pallas/attention.py),
 with `csrc/attention_wide.cu` for the head widths and counts they do not
-take, their wrappers and plain PyTorch versions, and the
-`torch.autograd.Function` that joins them as the TPU package's custom VJP
-does.
+take (and, for the bf16 forward at heads wider than 256,
+`csrc/attention_chunked.cu`), their wrappers and plain PyTorch versions,
+and the `torch.autograd.Function` that joins them as the TPU package's
+custom VJP does.
 
 `fused_attention(q, k, v, bias, heads, scale)` has the JAX signature of
 the TPU kernel's entry point: q (N, Lq, H*Dh), k and v (N, Lk, H*Dh), bias
@@ -28,6 +29,7 @@ from deepsc_gan_tpu_torch.ops import build
 KERNEL = "attention_fwd"
 KERNEL_BWD = "attention_bwd"
 KERNEL_WIDE = "attention_wide"
+KERNEL_CHUNKED = "attention_chunked"
 # what the tuned kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu):
 # a warp per head of a compile-time width in HEAD_DIMS, at most MAX_HEADS
 # heads, any number of queries and keys. Up to TILE of both: a block per
@@ -43,10 +45,14 @@ KERNEL_WIDE = "attention_wide"
 # Any other head width, or more heads: the wide kernels
 # (csrc/attention_wide.cu), a warp per (row, head, query) with the head's
 # elements spread over the lanes (past 256 of them, walked in chunks of
-# 256), any length, the same statistics scratch.
+# 256), any length, the same statistics scratch. The bf16 forward at heads
+# wider than REGISTER_DH: the tensor-core chunked kernel
+# (csrc/attention_chunked.cu: mma.sync, a block per row, head, 16 queries
+# and 512 output columns, the logits' k-steps split over its eight warps).
 HEAD_DIMS = (8, 16, 32)
 MAX_HEADS = 16
 TILE = 32
+REGISTER_DH = 256
 
 # Launches of the forward (K1) and backward (K2) kernels since the last
 # reset (each wrapper adds one per launch and nowhere else; `wide_launches`
@@ -139,6 +145,13 @@ def is_wide(heads: int, dh: int) -> bool:
     return dh not in HEAD_DIMS or heads > MAX_HEADS
 
 
+def is_chunked_mma(dtype, heads: int, dh: int) -> bool:
+    """Whether K1 at `heads` heads of `dh` in `dtype` runs the tensor-core
+    chunked kernel (bf16, heads wider than REGISTER_DH)."""
+    return dtype == torch.bfloat16 and is_wide(heads, dh) \
+        and dh > REGISTER_DH
+
+
 def takes_head_dim(dh: int) -> bool:
     """Whether some kernel takes heads of width `dh` (any width from 1)."""
     return dh >= 1
@@ -175,6 +188,20 @@ def _bind_wide(kernel, dtype):
                      f"deepsc_attention_wide_{part}_{_SUFFIX[dtype]}")
         fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[kernel]
                                             + (kernel == KERNEL_BWD))
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
+def _bind_chunked():
+    """The bf16 chunked K1's launch function (csrc/attention_chunked.cu),
+    with its ctypes signature declared (the wide forward's arguments)."""
+    key = (KERNEL_CHUNKED, torch.bfloat16)
+    if key not in _BOUND:
+        fn = build.load(KERNEL_CHUNKED).deepsc_attention_chunked_fwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * _POINTERS[KERNEL]
                        + [ctypes.c_int] * 5
                        + [ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -277,8 +304,12 @@ def attention_fwd(q, k, v, bias, heads: int, scale: float):
     _check(q, k, v, bias, heads)
     n, lq, hd = q.shape
     wide = is_wide(heads, hd // heads)
-    fn = _bind_wide(KERNEL, q.dtype) if wide else _tuned(KERNEL, q, k,
-                                                         heads)[0]
+    if is_chunked_mma(q.dtype, heads, hd // heads):
+        fn = _bind_chunked()
+    elif wide:
+        fn = _bind_wide(KERNEL, q.dtype)
+    else:
+        fn = _tuned(KERNEL, q, k, heads)[0]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),

@@ -20,13 +20,18 @@ on CPU tensors it runs the plain version, which is also what the kernels are
 held against on the card. Each dtype has one tuned kernel: bf16 multiplies
 on the tensor cores (wgmma) and f32 on the CUDA cores in exact f32, which
 the f32 step-parity checks need; a width they do not take goes to the wide
-kernels (`csrc/ce_wide.cu`, f32 CUDA-core tiles with D streamed in chunks).
+kernels: K4 in bf16 to `csrc/ce_wide_bwd.cu` (`wgmma`, the output's D cut
+into 64-column slabs over the two warpgroups of a block and, past 640
+columns, over a cluster of blocks that share each tile's logits through
+distributed shared memory), K3 and the f32 widths to `csrc/ce_wide.cu`
+(CUDA-core tiles with D streamed in chunks).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,12 +40,27 @@ from deepsc_gan_tpu_torch.ops import build
 KERNEL_FWD = "ce_fwd"
 KERNEL_BWD = "ce_bwd"
 KERNEL_WIDE = "ce_wide"
+KERNEL_WIDE_BWD = "ce_wide_bwd"
 # what the tuned kernels take: D a multiple of D_STEP (one wgmma k-step in
 # bf16, the f32 kernels' vector loads) up to MAX_D; any other D >= 1 goes
 # to the wide kernels (csrc/ce_wide.cu: D streamed in chunks through the
 # f32 CUDA-core tiles)
 MAX_D = 256
 D_STEP = {torch.float32: 8, torch.bfloat16: 16}
+# the bf16 wide K4 on the tensor cores (csrc/ce_wide_bwd.cu): rows of the
+# TMA's tensor maps a multiple of PAD_STEP columns (16 bytes); D cut into
+# slabs of SLAB columns, at most BLOCK_SLABS a block (two warpgroups of
+# five), at most MAX_CLUSTER blocks a cluster (D up to 5,120); a resident
+# tile of SLAB rows and a ring of at most MAX_STAGES streamed tiles of
+# TILE rows (each with its rows' three f32 values), as many as fit
+# SMEM_BUDGET bytes beside the resident tile and two SLAB x TILE f32 sums
+PAD_STEP = 8
+SLAB = 64
+TILE = 32
+BLOCK_SLABS = 10
+MAX_CLUSTER = 8
+MAX_STAGES = 4
+SMEM_BUDGET = 232448 - 256
 
 # Launches of the forward (K3) and backward (K4) kernels since the last
 # reset (each wrapper adds one per call that launches its kernels and
@@ -69,6 +89,54 @@ def is_wide(dtype: torch.dtype, d: int) -> bool:
     """Whether width D goes to the wide kernels (off the tuned kernels'
     D_STEP, or past MAX_D)."""
     return d % D_STEP[op_dtype(dtype)] != 0 or d > MAX_D
+
+
+def padded_width(d: int) -> int:
+    """The width the bf16 wide K4 reads h and W at: d rounded up to a
+    multiple of PAD_STEP (the wrapper stages zero-padded copies when it
+    differs from d)."""
+    return -(-d // PAD_STEP) * PAD_STEP
+
+
+class WideBwdPlan(NamedTuple):
+    """How csrc/ce_wide_bwd.cu cuts a padded width: its slabs of SLAB
+    columns, the blocks of a cluster, the slabs a block owns, the slabs its
+    first warpgroup holds (the kernels' NC), the ring's stages and a block's
+    dynamic shared memory in bytes (the library's
+    `deepsc_ce_wide_bwd_plan`)."""
+    slabs: int
+    cluster: int
+    block_slabs: int
+    nc: int
+    stages: int
+    smem: int
+
+
+def wide_bwd_plan(dp: int) -> Optional[WideBwdPlan]:
+    """The plan at padded width dp, or None where the tensor-core kernels
+    do not take it (dp not a positive multiple of PAD_STEP, or more than
+    MAX_CLUSTER x BLOCK_SLABS slabs)."""
+    if dp <= 0 or dp % PAD_STEP:
+        return None
+    slabs = -(-dp // SLAB)
+    cluster = -(-slabs // BLOCK_SLABS)
+    if cluster > MAX_CLUSTER:
+        return None
+    block = -(-slabs // cluster)
+    stage = block * TILE * 128 + 3 * TILE * 4
+    fixed = 1024 + block * SLAB * 128 + 2 * SLAB * TILE * 4
+    stages = min(MAX_STAGES, (SMEM_BUDGET - fixed) // stage)
+    return WideBwdPlan(slabs, cluster, block, -(-block // 2), stages,
+                       fixed + stages * stage)
+
+
+def uses_tensor_core_bwd(dtype: torch.dtype, d: int) -> bool:
+    """Whether K4 at width d in `dtype` runs the wide tensor-core kernels
+    (csrc/ce_wide_bwd.cu): bf16, off the tuned widths, and D up to
+    MAX_CLUSTER x BLOCK_SLABS x SLAB; the f32 wide widths, and bf16 past
+    5,120, run the CUDA-core wide kernels."""
+    return (op_dtype(dtype) == torch.bfloat16 and is_wide(dtype, d)
+            and wide_bwd_plan(padded_width(d)) is not None)
 
 
 def op_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -143,6 +211,32 @@ def _bind(kernel, dtype):
     return _BOUND[(kernel, dtype)]
 
 
+def _bind_wide_bwd():
+    """The bf16 tensor-core wide K4's launch function (csrc/ce_wide_bwd.cu),
+    with its ctypes signature declared."""
+    key = (KERNEL_WIDE_BWD, torch.bfloat16)
+    if key not in _BOUND:
+        fn = build.load(KERNEL_WIDE_BWD).deepsc_ce_wide_bwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
+def library_plan(dp: int) -> WideBwdPlan:
+    """`wide_bwd_plan(dp)` as the built library computes it."""
+    fn = build.load(KERNEL_WIDE_BWD).deepsc_ce_wide_bwd_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(dp, out)
+    if err != 0:
+        raise ValueError(f"ce_wide_bwd does not take width {dp}: CUDA "
+                         f"error {err}")
+    return WideBwdPlan(*out)
+
+
 def _bind_wide(kernel, dtype):
     """The wide library's launch function for `kernel`'s function (K3 or
     K4) in `dtype`, with its ctypes signature declared (the tuned entry's
@@ -161,8 +255,9 @@ def _bind_wide(kernel, dtype):
 
 def tiling(kernel, dtype, d, device):
     """(rows of h per tile, vocab rows per tile, blocks per SM) of the
-    kernel in the library `kernel` (`ce_fwd`, `ce_bwd`, `ce_wide`, or K6's
-    `topk` or `topk_wide`) that takes the vocab splits, at width d on
+    kernel in the library `kernel` (`ce_fwd`, `ce_bwd`, `ce_wide`,
+    `ce_wide_bwd` (d: the padded width), or K6's `topk` or `topk_wide`)
+    that takes the vocab splits, at width d on
     `device`, as the library's
     `deepsc_<kernel>_tiling_<dtype>` reports them (the blocks from CUDA's
     occupancy calculator)."""
@@ -282,6 +377,18 @@ def ce_fwd(h, W, b, labels):
     return ce, lse
 
 
+def _padded(x, dp):
+    """x (rows, d) as a zero-padded copy of width dp (x itself when d ==
+    dp)."""
+    rows, d = x.shape
+    if d == dp:
+        return x
+    out = torch.empty((rows, dp), dtype=x.dtype, device=x.device)
+    out[:, d:].zero_()
+    out[:, :d].copy_(x)
+    return out
+
+
 def ce_bwd(h, W, b, labels, lse, g, dh_only=False):
     """K4's wrapper: -> (dh (N, D), dW (V, D), db (V,)), all f32; with
     `dh_only`, (dh, None, None) from the dh kernel alone."""
@@ -291,18 +398,29 @@ def ce_bwd(h, W, b, labels, lse, g, dh_only=False):
     lse = lse.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
     _check(h, W, b, labels, lse, g)
-    fn, splits, wide = _launch_setup(KERNEL_BWD, h, W)
     (n, d), v = h.shape, W.shape[0]
+    tensor_cores = uses_tensor_core_bwd(h.dtype, d)
+    if tensor_cores:
+        dp = padded_width(d)
+        plan = wide_bwd_plan(dp)
+        fn, wide = _bind_wide_bwd(), True
+        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+        splits = vocab_splits(n, v, max(1, sms // plan.cluster),
+                              *tiling(KERNEL_WIDE_BWD, h.dtype, dp, h.device))
+        h, W = _padded(h, dp), _padded(W, dp)
+    else:
+        fn, splits, wide = _launch_setup(KERNEL_BWD, h, W)
     f32 = {"dtype": torch.float32, "device": h.device}
     dh = torch.empty((n, d), **f32)
     dW = None if dh_only else torch.empty((v, d), **f32)
     db = None if dh_only else torch.empty(v, **f32)
     dh_part = torch.empty((splits, n, d), **f32)
     stream = torch.cuda.current_stream(h.device).cuda_stream
+    sizes = (n, d, dp, v) if tensor_cores else (n, d, v)
     err = fn(h.data_ptr(), W.data_ptr(), b.data_ptr(), labels.data_ptr(),
              lse.data_ptr(), g.data_ptr(), dh.data_ptr(),
              None if dh_only else dW.data_ptr(),
-             None if dh_only else db.data_ptr(), dh_part.data_ptr(), n, d, v,
+             None if dh_only else db.data_ptr(), dh_part.data_ptr(), *sizes,
              splits, stream)
     if err != 0:
         raise RuntimeError(f"CE backward kernel launch failed: CUDA error "

@@ -2,8 +2,8 @@
 """The port's kernels of two checkouts, timed in turns on one card.
 
     python3 scripts/kernels_ab.py OLD NEW
-        [--cases ce,attention,attention_bwd,topk,star] [--turns ABBA]
-        [--iters 50]
+        [--cases ce,attention,attention_bwd,topk,star,wide_ce,
+                 wide_heads_attention] [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
 unpacked with `git archive <commit> chip_smoke.py deepsc_gan_tpu_torch` into
@@ -27,7 +27,14 @@ library call's. Cases:
   L = 31, on the star sweep decoder's B = 19 x 64 without autograd, and on
   the train step's B = 64 forward and backward. The update, not K5 alone,
   because K5's inputs may differ between checkouts (stacked contexts in
-  older ones, the unstacked ring now); no plain version or library call.
+  older ones, the unstacked ring now); no plain version or library call;
+- `wide_ce`: K3 and K4 in bf16 at widths the tuned kernels do not take,
+  N = 1,984, V = 22,234: D = 200 (the wide train path's decoder), 512 and
+  640 (the wide-heads path's), and K4's dh-only mode at D = 640;
+- `wide_heads_attention`: K1 in bf16 at heads wider than 256, the
+  wide-heads train path's shapes (N = 64): its encoder (one head of 512,
+  Lq = Lk = 32) and its decoder's self (2 heads of 320, 31 x 31) and cross
+  (31 x 32) attentions.
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -45,7 +52,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-CASES = ("ce", "attention", "attention_bwd", "topk", "star")
+CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
+         "wide_heads_attention")
 
 TURN = r"""
 import json, sys, torch
@@ -159,6 +167,32 @@ if "star" in cases:
              "dtype": "bfloat16", "ms": ms, "host_enqueue_ms": host_ms,
              "device_ms": cs.device_ms(call, iters)})
         device_us("satellite_update", label, call)
+if "wide_ce" in cases:
+    gen = torch.Generator("cuda").manual_seed(0)
+    for d in (200, 512, 640):
+        for r in cs.ce_cases(bf16, gen, iters, N, d, V, label=f"ce_d{d}"):
+            row(r)
+    row(cs.ce_dh_only_case(bf16, gen, iters, N, 640, V))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for d in (200, 512, 640):
+        h, W, b, labels, g = cs.ce_inputs(bf16, gen, N, d, V)
+        lse = ce.ce_fwd(h, W, b, labels)[1]
+        device_us(ce.KERNEL_BWD, f"ce_d{d}",
+                  lambda: ce.ce_bwd(h, W, b, labels, lse, g))
+    device_us(ce.KERNEL_BWD, "ce_dh_only_d640",
+              lambda: ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True))
+if "wide_heads_attention" in cases:
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, heads, dh, lq, lk in cs.WIDE_HEADS_PATH:
+        row(cs.attention_case(label, TRAIN, lq, lk, bf16, gen, iters, heads,
+                              dh))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, heads, dh, lq, lk in cs.WIDE_HEADS_PATH:
+        q, k, v, bias = cs.attention_inputs(TRAIN, lq, lk, bf16, gen,
+                                            lq == lk, heads, dh)
+        device_us(attn.KERNEL, label,
+                  lambda: attn.attention_fwd(q, k, v, bias, heads,
+                                             dh ** 0.5))
 if "topk" in cases:
     shapes = (("beam", BEAM), ("beam_sweep", 19 * BEAM))
     for dtype in (bf16, torch.float32):

@@ -248,3 +248,13 @@ def test_fused_attention_function_backward(plain):
         else:
             assert bt.grad is None and want[3] is None
     assert attn.launches == 0 and attn.bwd_launches == 0
+
+
+@pytest.mark.parametrize("dtype,h,dh,chunked", [
+    (torch.bfloat16, 2, 320, True), (torch.bfloat16, 1, 512, True),
+    (torch.bfloat16, 1, 257, True), (torch.bfloat16, 1, 256, False),
+    (torch.bfloat16, 8, 64, False), (torch.float32, 2, 320, False)])
+def test_chunked_mma_routing(dtype, h, dh, chunked):
+    """The bf16 K1 at heads wider than 256 runs the tensor-core chunked
+    kernel (csrc/attention_chunked.cu); f32 and narrower heads do not."""
+    assert attn.is_chunked_mma(dtype, h, dh) == chunked

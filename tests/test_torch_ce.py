@@ -251,3 +251,49 @@ def test_ce_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         ce.ce_bwd(h, W, b, labels, torch.zeros(4, device="meta"),
                   torch.zeros(4, device="meta"))
+
+
+@pytest.mark.parametrize("d,dp", [(1, 8), (8, 8), (12, 16), (200, 200),
+                                  (257, 264), (4097, 4104)])
+def test_wide_bwd_pads_to_the_tma_row(d, dp):
+    """The bf16 wide K4 reads h and W at d rounded up to 8 columns (rows of
+    16 bytes for the TMA)."""
+    assert ce.padded_width(d) == dp
+
+
+@pytest.mark.parametrize("dp,plan", [
+    (8, (1, 1, 1, 1, 4, 43520)),
+    (200, (4, 1, 4, 2, 4, 117248)),
+    (512, (8, 1, 8, 4, 4, 215552)),
+    (640, (10, 1, 10, 5, 3, 223360)),
+    (1000, (16, 2, 8, 4, 4, 215552)),
+    (2048, (32, 4, 8, 4, 4, 215552)),
+    (4104, (65, 7, 10, 5, 3, 223360)),
+    (5120, (80, 8, 10, 5, 3, 223360))])
+def test_wide_bwd_plan(dp, plan):
+    """How csrc/ce_wide_bwd.cu cuts a width (the card test holds this
+    mirror to the library's own): at most 10 slabs of 64 columns a block,
+    blocks in clusters past 640 columns, shared memory within the card's
+    227 KB a block and at least two stages."""
+    got = ce.wide_bwd_plan(dp)
+    assert tuple(got) == plan
+    assert got.smem <= 232448 and got.stages >= 2
+    assert got.cluster * got.block_slabs >= got.slabs
+    assert (got.cluster - 1) * got.block_slabs < got.slabs
+
+
+@pytest.mark.parametrize("dp", [0, 12, 5128, 8192])
+def test_wide_bwd_plan_refuses(dp):
+    """No plan off the TMA's 8-column step or past 8 blocks of 640."""
+    assert ce.wide_bwd_plan(dp) is None
+
+
+def test_wide_bwd_routing():
+    """bf16 off the tuned widths up to 5,120 runs the tensor-core wide K4;
+    f32 and wider bf16 the CUDA-core wide kernels; tuned widths neither."""
+    assert ce.uses_tensor_core_bwd(torch.bfloat16, 640)
+    assert ce.uses_tensor_core_bwd(torch.bfloat16, 12)
+    assert ce.uses_tensor_core_bwd(torch.bfloat16, 5120)
+    assert not ce.uses_tensor_core_bwd(torch.bfloat16, 5121)
+    assert not ce.uses_tensor_core_bwd(torch.bfloat16, 128)
+    assert not ce.uses_tensor_core_bwd(torch.float32, 640)

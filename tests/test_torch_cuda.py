@@ -863,12 +863,21 @@ def test_wide_attention_bwd_is_bitwise_deterministic(cuda, dtype, h, dh):
 @pytest.mark.parametrize("h,dh,n,lq,lk", [(1, 512, 64, 32, 32),
                                           (2, 320, 64, 31, 31),
                                           (2, 320, 64, 31, 32),
-                                          (1, 512, 3, 70, 45)])
+                                          (1, 512, 3, 70, 45),
+                                          (2, 264, 16, 31, 32),
+                                          (1, 1024, 8, 32, 32),
+                                          (2, 320, 8, 1, 1),
+                                          (1, 512, 8, 33, 33),
+                                          (1, 320, 4, 128, 128)])
 def test_attention_past_256_wide_heads_matches_plain_version(
         cuda, dtype, tol, h, dh, n, lq, lk):
-    """K1 and K2 at heads wider than 256 (the chunked wide kernels: a head
-    walked in chunks of 256 elements) at the train path's N = 64 and past
-    32 queries and keys, with fully blocked rows: the forward, dq, dk and
+    """K1 and K2 at heads wider than 256 (bf16 K1: the tensor-core chunked
+    kernel, its logits' k-steps split over warps, 512 output columns a
+    block; f32 K1 and K2: the chunked wide kernels, a head walked in chunks
+    of 256 elements) at the train path's N = 64, at Dh = 264 (off the
+    mma k-step) and 1,024 (two column groups), at one query and key and
+    past 32 of them (two passes over the key tiles), with fully blocked
+    rows: the forward, dq, dk and
     dv against the plain versions within the tolerances of chip_smoke.py,
     dbias within them times its largest value (dbias sums p (dp -
     rowsum), dp a dot of Dh N(0, 1) products: at Dh = 512 |dp| reaches
@@ -895,23 +904,47 @@ def test_attention_past_256_wide_heads_matches_plain_version(
                                        (torch.bfloat16, 3.2e-2)])
 @pytest.mark.parametrize("n,d,v", [(100, 200, 1000), (1984, 512, 22234),
                                    (70, 12, 300), (64, 264, 129),
-                                   (1984, 200, 22234)])
+                                   (1984, 200, 22234), (300, 520, 3000),
+                                   (1984, 640, 22234)])
 def test_wide_ce_kernels_match_plain_versions(cuda, dtype, tol, n, d, v):
     """K3 and K4 past D = 256 and off the tuned steps (D streamed in
-    chunks, the last one ragged), through the wide kernels: ce and lse
+    chunks, the last one ragged), through the wide kernels (bf16 K4 on the
+    tensor cores: D = 12 from zero-padded copies, 200, 512 and 640 in one
+    block, 520 too): ce and lse
     absolute, dh, dW and db relative to the largest reference value and
     on the softmax part (tol 1e-3 f32, 2e-3 bf16, as chip_smoke.py's); the
     dh-only mode's dh bitwise the full mode's; two calls bitwise equal.
     D = 200 in f32 is a tuned width (a multiple of 8 up to 256): the same
     checks hold there on the tuned kernels."""
+    _wide_ce_check(cuda, dtype, tol, n, d, v)
+
+
+@pytest.mark.parametrize("n,d,v", [(130, 1000, 2000), (200, 2048, 1500),
+                                   (64, 4104, 200), (64, 5128, 200)])
+def test_wide_bf16_ce_kernels_match_plain_versions_past_640(cuda, n, d, v):
+    """The checks above in bf16 at the widths past the wide-heads path's:
+    K4 on the tensor cores over clusters of 2 (D = 1,000), 4 (2,048: past
+    a whole tile of 64 rows in shared memory, 256 KB) and 7 (4,104, the
+    last block with fewer slabs) blocks, and at 5,128, past the clusters'
+    5,120, on the CUDA cores. K4 is given the plain version's lse, so that
+    the checks hold K4 alone: logits of these inputs reach 40 (sums of
+    1,000 and more products), where the wide K3's lse is a few 1e-5 off
+    the plain version's and shifts every P of its row. (In f32 the wide
+    K3's ce is 5e-5 off at D = 1,000, beyond the 1e-5 that holds it at
+    the widths above.)"""
+    _wide_ce_check(cuda, torch.bfloat16, 3.2e-2, n, d, v, plain_lse=True)
+
+
+def _wide_ce_check(cuda, dtype, tol, n, d, v, plain_lse=False):
     wide = int(ce.is_wide(dtype, d))
     h, W, b, labels, g = _ce_inputs(cuda, dtype, n, d, v)
     ce.reset_launches()
     cel, lse = ce.ce_fwd(h, W, b, labels)
-    grads = ce.ce_bwd(h, W, b, labels, lse, g)
-    dh_only = ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True)
-    again = ce.ce_bwd(h, W, b, labels, lse, g)
     ref_ce, ref_lse = ce.ce_fwd_reference(h, W, b, labels)
+    lse_in = ref_lse if plain_lse else lse
+    grads = ce.ce_bwd(h, W, b, labels, lse_in, g)
+    dh_only = ce.ce_bwd(h, W, b, labels, lse_in, g, dh_only=True)
+    again = ce.ce_bwd(h, W, b, labels, lse_in, g)
     ref = ce.ce_bwd_reference(h, W, b, labels, ref_lse, g)
     part = ce.ce_bwd_reference(h, W, b, labels, ref_lse, g, True)
     torch.cuda.synchronize()
@@ -927,6 +960,24 @@ def test_wide_ce_kernels_match_plain_versions(cuda, dtype, tol, n, d, v):
             name
     assert dh_only[1] is None and torch.equal(dh_only[0], grads[0])
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.parametrize("dp", [8, 16, 200, 264, 512, 520, 640, 768, 1000,
+                                2048, 4104, 5120, 5128])
+def test_wide_bwd_plan_comes_from_the_library(cuda, dp):
+    """`ce.wide_bwd_plan`, which the wrapper cuts the vocab by, equals the
+    bf16 wide K4 library's own plan (slabs, cluster, slabs a block, NC,
+    stages, shared memory), and both refuse past 5,120 columns; the
+    library's shared memory fits the card."""
+    want = ce.wide_bwd_plan(dp)
+    if want is None:
+        with pytest.raises(ValueError):
+            ce.library_plan(dp)
+        return
+    assert ce.library_plan(dp) == want
+    limit = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    assert want.smem <= limit
 
 
 def _wide_topk_inputs(device, dtype, n, d, v, seed, mode):
