@@ -36,8 +36,9 @@ non-zero without its last line:
    widened train paths of phase 15: K1/K2 at 8 heads of 64 and of 25,
    the chunked K1/K2 at one head of 512 (Lq = Lk = 32) and 2 heads of 320
    (31 x 31 and 31 x 32), K3/K4 at D = 640 and K4's dh-only mode there
-   (in bf16 K4 off the tuned widths and K1 past 256-wide heads run their
-   tensor-core kernels: `design` wgmma or mma bf16);
+   (in bf16 K4 off the tuned widths, K1 past 256-wide heads and K1/K2 at
+   every other wide shape run their tensor-core kernels: `design` wgmma,
+   mma or wide mma bf16);
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -116,7 +117,9 @@ non-zero without its last line:
    K3, 2 K4 per step), then its greedy_gan sweep (24 K5 per call);
 15. widened paths: `cli train` with an encoder of 8 heads of 64
    and a decoder of 8 heads of 25 (every K1-K4 launch on the wide
-   kernels), `cli evaluate --eval-mode beam --beam-size 9` on what it
+   kernels: K1/K2 on the tensor-core wide kernels,
+   csrc/attention_wide_mma.cu), and its ms a step, `cli evaluate
+   --eval-mode beam --beam-size 9` on what it
    saved (K6's wide kernels), `cli train --variant star` at d_model 96
    (K5's wide kernel), exact launch counts; then heads wider than 256:
    `cli train` with an encoder of one head of 512 and a decoder of 2 heads
@@ -297,10 +300,12 @@ LONG_SEQ = 64
 KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
            star.KERNEL, topk.KERNEL)
 # the libraries of the wide kernels: the shapes the tuned kernels
-# above do not take (the bf16 K1 past 256-wide heads and the bf16 wide K4
-# on the tensor cores in libraries of their own)
+# above do not take (the bf16 wide K1/K2 up to 256-wide heads, the bf16 K1
+# past them and the bf16 wide K4 on the tensor cores in libraries of their
+# own)
 WIDE_LIBRARIES = (attn.KERNEL_WIDE, ce.KERNEL_WIDE, star.KERNEL_WIDE,
-                  topk.KERNEL_WIDE, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD)
+                  topk.KERNEL_WIDE, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD,
+                  attn.KERNEL_WIDE_MMA)
 # the K4 launches among ce_bwd's that ran in the dh-only mode
 DH_ONLY = "ce_bwd_dh_only"
 # the launches among each kernel's that went to its wide kernels
@@ -343,14 +348,16 @@ WIDE_HEADS_D = 640
 SPIN_CYCLES = 200_000_000
 # what multiplies, by kernel and dtype (csrc/attention_fwd.cu,
 # csrc/attention_bwd.cu, csrc/ce_fwd.cu, csrc/ce_bwd.cu, csrc/topk.cu); on
-# the wide paths, the CUDA-core wide kernels but for the bf16 K1 past
-# 256-wide heads (csrc/attention_chunked.cu) and the bf16 wide K4
-# (csrc/ce_wide_bwd.cu), redesigned on the tensor cores
+# the wide paths, the CUDA-core wide kernels but for the bf16 K1/K2 up to
+# 256-wide heads (csrc/attention_wide_mma.cu), the bf16 K1 past them
+# (csrc/attention_chunked.cu) and the bf16 wide K4 (csrc/ce_wide_bwd.cu),
+# redesigned on the tensor cores
 WGMMA = {torch.bfloat16: "wgmma bf16", torch.float32: "cuda-core f32"}
 MMA = {torch.bfloat16: "mma bf16", torch.float32: "cuda-core f32"}
 DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
           ce.KERNEL_BWD: WGMMA, topk.KERNEL: WGMMA}
 WIDE_DESIGN = "wide cuda-core f32"
+WIDE_MMA_DESIGN = "wide mma bf16"
 
 
 def phase_device():
@@ -558,6 +565,8 @@ def _attention_design(kernel, dtype, heads, dh):
     """What multiplies in the kernel that takes `heads` heads of `dh`."""
     if kernel == attn.KERNEL and attn.is_chunked_mma(dtype, heads, dh):
         return MMA[dtype]
+    if attn.is_wide_mma(dtype, heads, dh):
+        return WIDE_MMA_DESIGN
     if attn.is_wide(heads, dh):
         return WIDE_DESIGN
     return DESIGN[kernel][dtype]
@@ -2565,18 +2574,21 @@ def phase_wide(seed, bs):
     K3/K4 launch on its wide kernels; per step as the default's), `cli
     evaluate --eval-mode beam --beam-size 9` on what it saved (K6's wide
     kernels, 30 a call; K1 of its encoder), and `cli train --variant star`
-    at d_model 96 (8 heads of 12: K5's wide kernel, 16 a step). -> the
-    launch counts by path."""
+    at d_model 96 (8 heads of 12: K5's wide kernel, 16 a step). Prints the
+    widened epoch's ms a step. -> the launch counts by path."""
     cfg = Config()
     ckpt = "log/chip_smoke/wide_ckpt"
     widths = ["--encoder-d-model", "512", "--encoder-d-ff", "1024",
               "--decoder-d-model", str(WIDE_PATH_D), "--decoder-d-ff",
               str(2 * WIDE_PATH_D)]
-    got, _ = phase_train(seed, 1, bs, extra=widths, checkpoint=ckpt,
-                         tag="wide_train", wide=(attn.KERNEL,
-                                                 attn.KERNEL_BWD,
-                                                 ce.KERNEL_FWD,
-                                                 ce.KERNEL_BWD))
+    got, stats = phase_train(seed, 1, bs, extra=widths, checkpoint=ckpt,
+                             tag="wide_train", wide=(attn.KERNEL,
+                                                     attn.KERNEL_BWD,
+                                                     ce.KERNEL_FWD,
+                                                     ce.KERNEL_BWD))
+    print(f"[wide] {stats['ms_per_step']:.3f} ms a step over the epoch of "
+          f"{stats['steps']} steps (the graph's warm-up and capture in it), "
+          f"bf16")
     beam_k = WIDE_BEAM
     per_call = {name: 0 for name in COUNTERS}
     per_call.update({attn.KERNEL: cfg.encoder_num_layer,
@@ -3491,12 +3503,15 @@ KERNEL_INFO = {
 # the wide kernels, by the kernel whose shapes they widen: (their
 # source, the case of their bf16 row shown, what it is)
 WIDE_INFO = {
-    attn.KERNEL: (attn.KERNEL_WIDE, "wide_dec_self_8x25", "the wide train "
-                  "path's decoder self-attention: K1 at 8 heads of 25, "
-                  "bf16, N=64 Lq=Lk=31"),
-    attn.KERNEL_BWD: (attn.KERNEL_WIDE, "wide_dec_self_8x25", "the wide "
+    attn.KERNEL: (attn.KERNEL_WIDE_MMA, "wide_dec_self_8x25", "the wide "
+                  "train path's decoder self-attention: K1 at 8 heads of "
+                  "25, bf16, N=64 Lq=Lk=31 (the tensor-core wide kernels; "
+                  "f32 on csrc/attention_wide.cu)"),
+    attn.KERNEL_BWD: (attn.KERNEL_WIDE_MMA, "wide_dec_self_8x25", "the wide "
                       "train path's decoder self-attention backward: K2 at "
-                      "8 heads of 25, bf16, N=64 Lq=Lk=31, no dbias"),
+                      "8 heads of 25, bf16, N=64 Lq=Lk=31, no dbias (the "
+                      "tensor-core wide kernels; f32 on "
+                      "csrc/attention_wide.cu)"),
     ce.KERNEL_FWD: (ce.KERNEL_WIDE, "ce_d200", "the wide train path's CE: "
                     "K3 at N=1984 D=200 V=22234, bf16"),
     ce.KERNEL_BWD: (ce.KERNEL_WIDE_BWD, "ce_d200", "the wide train path's "

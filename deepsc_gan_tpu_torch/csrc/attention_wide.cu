@@ -7,7 +7,10 @@
 // compile-time width 8, 16 or 32, at most 16 heads a block) do not take the
 // shape: the JAX kernels take any head width and count, so `--encoder-d-model
 // 512` with 8 heads (Dh = 64), 4 heads of 64, 32 heads, or one head of 512
-// run here. Same function and order of roundings as the tuned kernels: with
+// run here: in f32 at any width, and in bf16 the backward at heads wider
+// than 256 (bf16 heads up to 256 wide take csrc/attention_wide_mma.cu, on
+// the tensor cores, and the bf16 forward past 256 csrc/attention_chunked.cu).
+// Same function and order of roundings as the tuned kernels: with
 // q (N, Lq, H*Dh), k and v (N, Lk, H*Dh), bias (N, Lq, Lk) f32 and g shaped
 // like q,
 //     s = (q_h . k_h) * (1/scale) + bias   (f32, two roundings)
@@ -19,8 +22,8 @@
 //
 // What bounds it: the chain of dependent warp reductions, not the card's
 // memory or its tensor cores (a simple kernel, right first). At N = 64,
-// Lq = Lk = 31, 32 heads of 64 in bf16 one forward call moves 16.4 MB
-// (4.9 us at 3.35 TB/s) and does 0.5 GFLOP; each (row, head, query) here
+// Lq = Lk = 31, 32 heads of 64 in f32 one forward call moves 65.3 MB
+// (19.5 us at 3.35 TB/s) and does 0.5 GFLOP; each (row, head, query) here
 // runs three passes over the keys, each key a dot product of Dh elements
 // summed across the warp by five shuffles.
 //
@@ -40,10 +43,9 @@
 // Every output element has one writer and a fixed order of sums: no
 // atomics, the same bits on every call. The kernels allocate nothing.
 //
-// Heads up to 256 wide (kMaxDh) keep the lane's 8 elements of q (and g, k,
-// v) in registers. A wider head takes the chunked kernels (the forward in
-// f32 only: in bf16 it is csrc/attention_chunked.cu's, on the tensor
-// cores): the operands of
+// Heads up to 256 wide (kMaxDh, f32 only) keep the lane's 8 elements of q
+// (and g, k, v) in registers. A wider head takes the chunked kernels (the
+// forward in f32 only): the operands of
 // each dot product are read from memory (the same elements in the same
 // order, so the same bits as a register-held slice would give), and each
 // output row is walked in chunks of 256 elements, 8 a lane: for each chunk
@@ -572,9 +574,11 @@ Shape shape(int n, int lq, int lk, int heads, int dh, double scale) {
   return Shape{n, lq, lk, heads, dh, (float)(1.0 / scale)};
 }
 
-template <typename T>
+// f32 (the bf16 forward is csrc/attention_wide_mma.cu's up to 256-wide
+// heads, csrc/attention_chunked.cu's past them)
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                void* out, const Shape& sh, void* stream) {
+  using T = float;
   if (bad(sh)) return (int)cudaErrorInvalidValue;
   const unsigned grid = blocks((long long)sh.n * sh.heads * sh.lq);
   cudaStream_t st = (cudaStream_t)stream;
@@ -582,22 +586,23 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
     attention_fwd_wide_kernel<T><<<grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
         sh);
-  else if constexpr (std::is_same<T, float>::value)
+  else
     attention_fwd_chunked_kernel<T><<<grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
         sh);
-  else  // bf16 heads wider than kMaxDh: csrc/attention_chunked.cu
-    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
+// f32 at any width; bf16 at heads wider than kMaxDh (narrower bf16 heads
+// are csrc/attention_wide_mma.cu's)
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
                const void* g, void* dq, void* dk, void* dv, void* dbias,
                void* stats, const Shape& sh, void* stream) {
-  if (bad(sh)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   const bool chunked = sh.dh > kMaxDh;
+  if (bad(sh) || (!kF32 && !chunked)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   const unsigned q_grid = blocks((long long)sh.n * sh.heads * sh.lq);
   const unsigned k_grid = blocks((long long)sh.n * sh.heads * sh.lk);
   const unsigned b_grid = blocks((long long)sh.n * sh.lq);
@@ -605,7 +610,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
     attention_bwd_dq_chunked_kernel<T><<<q_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (T*)dq, (float4*)stats, sh);
-  else
+  else if constexpr (kF32)
     attention_bwd_dq_wide_kernel<T><<<q_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (T*)dq, (float4*)stats, sh);
@@ -615,7 +620,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
     attention_bwd_dkv_chunked_kernel<T><<<k_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (T*)dk, (T*)dv, (const float4*)stats, sh);
-  else
+  else if constexpr (kF32)
     attention_bwd_dkv_wide_kernel<T><<<k_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (T*)dk, (T*)dv, (const float4*)stats, sh);
@@ -625,7 +630,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
     attention_bwd_dbias_chunked_kernel<T><<<b_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (float*)dbias, (const float4*)stats, sh);
-  else
+  else if constexpr (kF32)
     attention_bwd_dbias_wide_kernel<T><<<b_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (float*)dbias, (const float4*)stats, sh);
@@ -636,32 +641,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
 
 extern "C" {
 
-// q, out: contiguous (N, Lq, heads*dh); k, v: (N, Lk, heads*dh); bias:
+// q, out: contiguous f32 (N, Lq, heads*dh); k, v: (N, Lk, heads*dh); bias:
 // contiguous f32 (N, Lq, Lk); any N, Lq, Lk, heads and dh >= 1 (past 256
-// the chunked kernels; in bf16 dh up to 256, csrc/attention_chunked.cu
-// taking wider heads).
+// the chunked kernels).
 // Returns cudaGetLastError() after the launch (0 = success).
 int deepsc_attention_wide_fwd_f32(const void* q, const void* k,
                                   const void* v, const void* bias, void* out,
                                   int n, int lq, int lk, int heads, int dh,
                                   double scale, void* stream) {
-  return launch_fwd<float>(q, k, v, bias, out,
-                           shape(n, lq, lk, heads, dh, scale), stream);
-}
-
-int deepsc_attention_wide_fwd_bf16(const void* q, const void* k,
-                                   const void* v, const void* bias,
-                                   void* out, int n, int lq, int lk,
-                                   int heads, int dh, double scale,
-                                   void* stream) {
-  return launch_fwd<__nv_bfloat16>(q, k, v, bias, out,
-                                   shape(n, lq, lk, heads, dh, scale),
-                                   stream);
+  return launch_fwd(q, k, v, bias, out, shape(n, lq, lk, heads, dh, scale),
+                    stream);
 }
 
 // As the forward, with g, dq shaped like q, dk and dv like k, dbias f32
 // (N, Lq, Lk) or null, and `stats` the caller's f32 scratch (N, heads, Lq,
-// 4), 16-byte aligned.
+// 4), 16-byte aligned; in bf16 only heads wider than 256.
 int deepsc_attention_wide_bwd_f32(const void* q, const void* k,
                                   const void* v, const void* bias,
                                   const void* g, void* dq, void* dk, void* dv,

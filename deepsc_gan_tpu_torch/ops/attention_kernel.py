@@ -1,9 +1,11 @@
 """Fused multi-head attention: the CUDA kernels `csrc/attention_fwd.cu`
 (K1, the port of the TPU kernel `_fwd_kernel`) and `csrc/attention_bwd.cu`
 (K2, the port of `_bwd_kernel`, deepsc_gan_tpu/ops/pallas/attention.py),
-with `csrc/attention_wide.cu` for the head widths and counts they do not
-take (and, for the bf16 forward at heads wider than 256,
-`csrc/attention_chunked.cu`), their wrappers and plain PyTorch versions,
+with `csrc/attention_wide_mma.cu` (bf16, heads up to 256 wide) and
+`csrc/attention_wide.cu` (f32, and the bf16 backward at heads wider than
+256) for the head widths and counts they do not take (and, for the bf16
+forward at heads wider than 256, `csrc/attention_chunked.cu`), their
+wrappers and plain PyTorch versions,
 and the `torch.autograd.Function` that joins them as the TPU package's
 custom VJP does.
 
@@ -30,6 +32,7 @@ KERNEL = "attention_fwd"
 KERNEL_BWD = "attention_bwd"
 KERNEL_WIDE = "attention_wide"
 KERNEL_CHUNKED = "attention_chunked"
+KERNEL_WIDE_MMA = "attention_wide_mma"
 # what the tuned kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu):
 # a warp per head of a compile-time width in HEAD_DIMS, at most MAX_HEADS
 # heads, any number of queries and keys. Up to TILE of both: a block per
@@ -42,13 +45,20 @@ KERNEL_CHUNKED = "attention_chunked"
 # queries with the keys streamed in tiles of TILE (online softmax), and a
 # backward in two kernels (dq and dbias per query tile, then dk and dv per
 # key tile) that pass the softmax statistics through a scratch tensor.
-# Any other head width, or more heads: the wide kernels
-# (csrc/attention_wide.cu), a warp per (row, head, query) with the head's
-# elements spread over the lanes (past 256 of them, walked in chunks of
-# 256), any length, the same statistics scratch. The bf16 forward at heads
-# wider than REGISTER_DH: the tensor-core chunked kernel
-# (csrc/attention_chunked.cu: mma.sync, a block per row, head, 16 queries
-# and 512 output columns, the logits' k-steps split over its eight warps).
+# Any other head width, or more heads: the wide kernels. In bf16 at heads
+# up to REGISTER_DH wide, the tensor-core wide kernels
+# (csrc/attention_wide_mma.cu: mma.sync, the head zero-padded in shared
+# memory to 16, 32, 64, 128 or 256 columns; the forward a block per row,
+# head and 32 queries, the backward a block per row and head up to TILE
+# queries and keys, past them a dq kernel and a dk/dv kernel that pass the
+# statistics through the scratch); in f32, and for the bf16 backward at
+# heads wider than REGISTER_DH, csrc/attention_wide.cu, a warp per (row,
+# head, query) with the head's elements spread over the lanes (past 256 of
+# them, walked in chunks of 256), any length, the same statistics scratch.
+# The bf16 forward at heads wider than REGISTER_DH: the tensor-core chunked
+# kernel (csrc/attention_chunked.cu: mma.sync, a block per row, head, 16
+# queries and 512 output columns, the logits' k-steps split over its eight
+# warps).
 HEAD_DIMS = (8, 16, 32)
 MAX_HEADS = 16
 TILE = 32
@@ -152,6 +162,13 @@ def is_chunked_mma(dtype, heads: int, dh: int) -> bool:
         and dh > REGISTER_DH
 
 
+def is_wide_mma(dtype, heads: int, dh: int) -> bool:
+    """Whether K1 and K2 at `heads` heads of `dh` in `dtype` run the
+    tensor-core wide kernels (bf16, wide, heads up to REGISTER_DH)."""
+    return dtype == torch.bfloat16 and is_wide(heads, dh) \
+        and dh <= REGISTER_DH
+
+
 def takes_head_dim(dh: int) -> bool:
     """Whether some kernel takes heads of width `dh` (any width from 1)."""
     return dh >= 1
@@ -188,6 +205,24 @@ def _bind_wide(kernel, dtype):
                      f"deepsc_attention_wide_{part}_{_SUFFIX[dtype]}")
         fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[kernel]
                                             + (kernel == KERNEL_BWD))
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
+def _bind_wide_mma(kernel):
+    """The tensor-core wide library's bf16 launch function for `kernel`'s
+    function (K1 or K2), with its ctypes signature declared (the wide
+    entries' arguments; the backward's also take the dbias scratch)."""
+    key = (KERNEL_WIDE_MMA, kernel)
+    if key not in _BOUND:
+        part = "fwd" if kernel == KERNEL else "bwd"
+        fn = getattr(build.load(KERNEL_WIDE_MMA),
+                     f"deepsc_attention_wide_mma_{part}_bf16")
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[kernel]
+                                            + 2 * (kernel == KERNEL_BWD))
                        + [ctypes.c_int] * 5
                        + [ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -306,6 +341,8 @@ def attention_fwd(q, k, v, bias, heads: int, scale: float):
     wide = is_wide(heads, hd // heads)
     if is_chunked_mma(q.dtype, heads, hd // heads):
         fn = _bind_chunked()
+    elif is_wide_mma(q.dtype, heads, hd // heads):
+        fn = _bind_wide_mma(KERNEL)
     elif wide:
         fn = _bind_wide(KERNEL, q.dtype)
     else:
@@ -340,7 +377,10 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     n, lq, hd = q.shape
     lk = k.shape[1]
     wide = is_wide(heads, hd // heads)
-    if wide:
+    mma = is_wide_mma(q.dtype, heads, hd // heads)
+    if mma:
+        fn, scratch = _bind_wide_mma(KERNEL_BWD), is_long(lq, lk)
+    elif wide:
         fn, scratch = _bind_wide(KERNEL_BWD, q.dtype), True
     else:
         fn, scratch = _tuned(KERNEL_BWD, q, k, heads)
@@ -348,15 +388,23 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     dbias = torch.empty_like(bias) if need_dbias else None
     # the long-length and wide kernels' softmax statistics (m, l,
     # rowsum(dp p), pad) per (row, head, query), written by the dq kernel,
-    # read by the dk/dv one
-    stats = [torch.empty((n, heads, lq, 4), dtype=torch.float32,
-                         device=q.device)] if scratch else []
+    # read by the dk/dv one (the tensor-core wide kernels need them only
+    # past TILE queries or keys)
+    stats = torch.empty((n, heads, lq, 4), dtype=torch.float32,
+                        device=q.device) if scratch else None
+    pointers = [stats] if scratch else []
+    if mma:
+        # the scratch may be null here, and each head's f32 ds goes to a
+        # second one, summed over the heads for dbias
+        ds = torch.empty((n, heads, lq, lk), dtype=torch.float32,
+                         device=q.device) if need_dbias else None
+        pointers = [stats, ds]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
              g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              None if dbias is None else dbias.data_ptr(),
-             *(t.data_ptr() for t in stats), n, lq, lk, heads, hd // heads,
-             float(scale), stream)
+             *(None if t is None else t.data_ptr() for t in pointers),
+             n, lq, lk, heads, hd // heads, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA "
                            f"error {err}")

@@ -3,7 +3,8 @@
 
     python3 scripts/kernels_ab.py OLD NEW
         [--cases ce,attention,attention_bwd,topk,star,wide_ce,
-                 wide_heads_attention] [--turns ABBA] [--iters 50]
+                 wide_heads_attention,wide_attention,wide_train]
+        [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
 unpacked with `git archive <commit> chip_smoke.py deepsc_gan_tpu_torch` into
@@ -34,7 +35,17 @@ library call's. Cases:
 - `wide_heads_attention`: K1 in bf16 at heads wider than 256, the
   wide-heads train path's shapes (N = 64): its encoder (one head of 512,
   Lq = Lk = 32) and its decoder's self (2 heads of 320, 31 x 31) and cross
-  (31 x 32) attentions.
+  (31 x 32) attentions;
+- `wide_attention`: K1 and K2 (no dbias) in bf16 at the widened train
+  path's shapes (N = 64; chip_smoke.WIDE_PATH): its encoder (8 heads of
+  64, Lq = Lk = 32) and its decoder's self (8 heads of 25, 31 x 31) and
+  cross (31 x 32) attentions, and at 32 heads of 16 (31 x 31);
+- `wide_train`: the widened train path end to end, `cli train` in bf16
+  from a random init (seed 0, batch 64, the default graphed path) with
+  chip_smoke.phase_wide's widths (encoder 8 heads of 64, decoder 8 heads
+  of 25) for 3 epochs of 64 steps: each epoch's seconds and the ms a step
+  over the epochs after the first (host clock; the graph's capture is in
+  the first), as the row's `ms`; no device time.
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -53,7 +64,7 @@ import sys
 from pathlib import Path
 
 CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
-         "wide_heads_attention")
+         "wide_heads_attention", "wide_attention", "wide_train")
 
 TURN = r"""
 import json, sys, torch
@@ -193,6 +204,41 @@ if "wide_heads_attention" in cases:
         device_us(attn.KERNEL, label,
                   lambda: attn.attention_fwd(q, k, v, bias, heads,
                                              dh ** 0.5))
+if "wide_attention" in cases:
+    shapes = list(cs.WIDE_PATH) + [("wide_32x16", 32, 16, 31, 31)]
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, heads, dh, lq, lk in shapes:
+        row(cs.attention_case(label, TRAIN, lq, lk, bf16, gen, iters, heads,
+                              dh))
+        row(cs.attention_bwd_case(label, TRAIN, lq, lk, bf16, gen, iters,
+                                  False, heads, dh))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, heads, dh, lq, lk in shapes:
+        q, k, v, bias = cs.attention_inputs(TRAIN, lq, lk, bf16, gen,
+                                            lq == lk, heads, dh)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+        device_us(attn.KERNEL, label,
+                  lambda: attn.attention_fwd(q, k, v, bias, heads,
+                                             dh ** 0.5))
+        device_us(attn.KERNEL_BWD, label,
+                  lambda: attn.attention_bwd(q, k, v, bias, g, heads,
+                                             dh ** 0.5, False))
+if "wide_train" in cases:
+    from deepsc_gan_tpu_torch import cli
+    res = cli.main(["train", "--variant", "transformer", "--train-mode",
+                    "plain", "--dtype", "bfloat16", "--bs", str(TRAIN),
+                    "--epochs", "3", "--seed", "0", "--device", "cuda",
+                    "--log-every", "64", "--log-save-path",
+                    "log/kernels_ab/wide_train", "--checkpoint-path",
+                    "log/kernels_ab/wide_ckpt", "--encoder-d-model", "512",
+                    "--encoder-d-ff", "1024", "--decoder-d-model",
+                    str(cs.WIDE_PATH_D), "--decoder-d-ff",
+                    str(2 * cs.WIDE_PATH_D)])
+    seconds = res["epoch_seconds"]
+    steps = res["steps"] // len(seconds)
+    row({"kernel": "cli_train", "case": "wide_train", "dtype": "bfloat16",
+         "path": res["path"], "epoch_seconds": seconds,
+         "ms": sum(seconds[1:]) / len(seconds[1:]) / steps * 1e3})
 if "topk" in cases:
     shapes = (("beam", BEAM), ("beam_sweep", 19 * BEAM))
     for dtype in (bf16, torch.float32):

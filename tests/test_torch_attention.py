@@ -250,6 +250,62 @@ def test_fused_attention_function_backward(plain):
     assert attn.launches == 0 and attn.bwd_launches == 0
 
 
+@pytest.mark.parametrize("shape", [(2, 31, 31, 8, 25), (2, 32, 32, 8, 64),
+                                   (2, 31, 32, 3, 5)])
+def test_wide_attention_reference_matches_jax_kernel(shape):
+    """The plain K1 and K2 against the TPU kernel and its custom VJP (under
+    the Pallas interpreter, one jax.vjp for both) at the widths the
+    tensor-core wide kernels take on the card: the widened model's decoder
+    (8 heads of 25) and encoder (8 of 64), and 3 heads of 5 (widths off the
+    mma k-step, whose head slices start off 16 bytes); out, dq, dk, dv and
+    dbias of sum(sin(out)), with a fully blocked row. f32, as
+    test_attention_bwd_reference_matches_jax_kernel, within 2e-6 of the
+    largest value of each (XLA and PyTorch sum the products of 64-wide
+    heads in other orders)."""
+    b, lq, lk, h, dh = shape
+    q, k, v, bias = _inputs(7, b, lq, lk, h, dh)
+    scale = float(np.sqrt(dh))
+    set_attn_kernel_mode("interpret")
+    try:
+        out, vjp = jax.vjp(
+            lambda *a: jax_fused_attention(*a, h, scale),
+            *(jnp.asarray(a) for a in (q, k, v, bias)))
+        g = np.cos(np.asarray(out))
+        want = [np.asarray(out)] + [np.asarray(w) for w in
+                                    vjp(jnp.asarray(g))]
+    finally:
+        set_attn_kernel_mode("auto")
+    ts = [torch.from_numpy(a) for a in (q, k, v, bias)]
+    got = [attn.attention_fwd_reference(*ts, h, scale)]
+    got += attn.attention_bwd_reference(*ts, torch.from_numpy(g), h, scale)
+    for name, gt, w in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        assert gt.shape == w.shape, name
+        np.testing.assert_allclose(gt.numpy(), w,
+                                   atol=2e-6 * max(1.0, np.abs(w).max()),
+                                   err_msg=name)
+    # the fully blocked row: near-uniform weights over all keys, as K1
+    assert np.abs(got[0][0, 1].numpy() - v[0].mean(axis=0)).max() < 1e-5
+
+
+@pytest.mark.parametrize("dtype,h,dh,mma", [
+    (torch.bfloat16, 8, 64, True), (torch.bfloat16, 8, 25, True),
+    (torch.bfloat16, 32, 16, True), (torch.bfloat16, 3, 5, True),
+    (torch.bfloat16, 1, 256, True), (torch.bfloat16, 1, 257, False),
+    (torch.bfloat16, 2, 320, False), (torch.bfloat16, 8, 16, False),
+    (torch.float32, 8, 64, False), (torch.float32, 8, 25, False),
+    (torch.float32, 32, 16, False), (torch.float32, 1, 256, False)])
+def test_wide_mma_routing(dtype, h, dh, mma):
+    """K1 and K2 in bf16 at every wide shape up to 256-wide heads, any head
+    count, run the tensor-core wide kernels (csrc/attention_wide_mma.cu);
+    257 and wider stay on the chunked kernels, the tuned shapes on the
+    tuned kernels, and f32 never goes (it keeps the exact f32 sums of
+    csrc/attention_wide.cu)."""
+    assert attn.is_wide_mma(dtype, h, dh) == mma
+    assert not (mma and attn.is_chunked_mma(dtype, h, dh))
+    if mma:
+        assert attn.is_wide(h, dh)
+
+
 @pytest.mark.parametrize("dtype,h,dh,chunked", [
     (torch.bfloat16, 2, 320, True), (torch.bfloat16, 1, 512, True),
     (torch.bfloat16, 1, 257, True), (torch.bfloat16, 1, 256, False),

@@ -814,24 +814,67 @@ WIDE_HEADS = [(32, 16), (8, 24), (8, 25), (4, 64), (32, 64), (2, 128),
               (32, 128), (1, 256), (3, 5), (2, 320), (1, 257)]
 
 
+def _ran(call):
+    """(what `call` returns, the names of the device kernels it launched,
+    from torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    return out, {e.name for e in prof.events()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)}
+
+
+def _wide_kernels(dtype, h, dh, lq, lk):
+    """The device kernels the wide K1 and K2 (with dbias) launch: in bf16
+    at heads up to 256 wide the tensor-core wide kernels
+    (csrc/attention_wide_mma.cu; K2 a single kernel up to 32 queries and
+    keys, a dq and a dk/dv kernel past them), wider bf16 heads the
+    tensor-core chunked K1 and the chunked K2, f32 the CUDA-core wide or
+    chunked kernels (csrc/attention_wide.cu)."""
+    if attn.is_wide_mma(dtype, h, dh):
+        bwd = (["wide_mma_bwd_dq_kernel", "wide_mma_bwd_dkv_kernel"]
+               if attn.is_long(lq, lk) else ["wide_mma_bwd_kernel"])
+        return ["wide_mma_fwd_kernel"], bwd + ["wide_mma_dbias_kernel"]
+    part = "wide" if dh <= attn.REGISTER_DH else "chunked"
+    fwd = ("attention_fwd_chunked_mma_kernel" if dtype == torch.bfloat16
+           else f"attention_fwd_{part}_kernel")
+    return [fwd], [f"attention_bwd_{kind}_{part}_kernel"
+                   for kind in ("dq", "dkv", "dbias")]
+
+
+def _assert_ran(names, want):
+    assert len(names) == len(want) and all(
+        sum(w in name for name in names) == 1 for w in want), (names, want)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3.2e-2)])
 @pytest.mark.parametrize("h,dh", WIDE_HEADS)
-@pytest.mark.parametrize("lq,lk", [(31, 31), (31, 32), (40, 33)])
+@pytest.mark.parametrize("lq,lk", [(31, 31), (31, 32), (40, 33), (70, 97)])
 def test_wide_attention_matches_plain_version(cuda, dtype, tol, h, dh, lq,
                                               lk):
     """K1 and K2 at head widths other than 8, 16 and 32 (not multiples of
     the mma k-step too) and past 16 heads, through the wide kernels, with
-    fully blocked rows: the forward, and dq, dk, dv and dbias, against the
-    plain versions; launches counted as the wide kernels'."""
+    fully blocked rows, up to 32 queries and keys and past them (70 x 97:
+    three query tiles, four streamed key tiles): the forward, and dq, dk,
+    dv and dbias, against the plain versions; launches counted as the wide
+    kernels', and the device kernels that ran are the ones the dtype and
+    width route to (torch.profiler's names)."""
     q, k, v, bias = _blocked_inputs(5, lq, lk, h, dh, dtype, cuda)
     g = torch.randn(q.shape, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(4)).to(dtype)
     scale = math.sqrt(dh)
     attn.reset_launches()
-    out = attn.attention_fwd(q, k, v, bias, h, scale)
-    got = attn.attention_bwd(q, k, v, bias, g, h, scale, True)
-    torch.cuda.synchronize()
+    want_fwd, want_bwd = _wide_kernels(dtype, h, dh, lq, lk)
+    out, names = _ran(lambda: attn.attention_fwd(q, k, v, bias, h, scale))
+    _assert_ran(names, want_fwd)
+    got, names = _ran(lambda: attn.attention_bwd(q, k, v, bias, g, h, scale,
+                                                 True))
+    _assert_ran(names, want_bwd)
     assert (attn.launches, attn.wide_launches, attn.bwd_launches,
             attn.wide_bwd_launches) == (1, 1, 1, 1)
     assert _err(out, attn.attention_fwd_reference(q, k, v, bias, h,
@@ -843,10 +886,11 @@ def test_wide_attention_matches_plain_version(cuda, dtype, tol, h, dh, lq,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,dh", [(32, 64), (2, 320)])
+@pytest.mark.parametrize("h,dh", [(32, 64), (2, 320), (8, 25), (8, 64)])
 def test_wide_attention_bwd_is_bitwise_deterministic(cuda, dtype, h, dh):
     """Two wide K2 calls, and one with dbias, give the same dq, dk, dv
-    (at 2 heads of 320, the chunked kernels)."""
+    (at 2 heads of 320, the chunked kernels; at the widened path's 8 heads
+    of 25 and of 64 in bf16, the tensor-core wide kernels)."""
     q, k, v, bias = _inputs(5, 16, 31, 31, h, dh, dtype, cuda)
     g = torch.randn(q.shape, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(6)).to(dtype)
