@@ -123,10 +123,10 @@ non-zero without its last line:
    saved (K6's wide kernels), `cli train --variant star` at d_model 96
    (K5's wide kernel), exact launch counts; then heads wider than 256:
    `cli train` with an encoder of one head of 512 and a decoder of 2 heads
-   of 320 (K1 on its tensor-core chunked kernel, csrc/attention_chunked.cu;
-   K2 on the chunked wide kernels; K3 on its wide kernel and K4 on its
-   tensor-core wide kernels, csrc/ce_wide_bwd.cu, at D = 640), exact
-   launch counts, and its ms a step;
+   of 320 (K1 and K2 on their tensor-core chunked kernels,
+   csrc/attention_chunked.cu; K3 and K4 on their tensor-core wide kernels,
+   csrc/ce_wide_fwd.cu and csrc/ce_wide_bwd.cu, at D = 640), exact launch
+   counts, and its ms a step;
 16. MINE: `cli train --train-mode mine` at full width in bf16 from a
    random init, MINE_EPOCHS epochs (per step: 16 K1, 12 K2, no K3/K4);
    every ce and mi finite, the mean of the last 16 ce below that of the
@@ -305,7 +305,7 @@ KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
 # own)
 WIDE_LIBRARIES = (attn.KERNEL_WIDE, ce.KERNEL_WIDE, star.KERNEL_WIDE,
                   topk.KERNEL_WIDE, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD,
-                  attn.KERNEL_WIDE_MMA)
+                  attn.KERNEL_WIDE_MMA, ce.KERNEL_WIDE_FWD)
 # the K4 launches among ce_bwd's that ran in the dh-only mode
 DH_ONLY = "ce_bwd_dh_only"
 # the launches among each kernel's that went to its wide kernels
@@ -344,14 +344,19 @@ WIDE_HEADS_PATH = (("wh_enc_1x512", 1, 512, 32, 32),
                    ("wh_dec_self_2x320", 2, 320, 31, 31),
                    ("wh_dec_cross_2x320", 2, 320, 31, 32))
 WIDE_HEADS_D = 640
+# widths off the tensor-core kernels' steps past 256 (the chunked K1/K2 at
+# one head of 300: 16-byte staging does not apply; the wide K3/K4 at D =
+# 264, off the 16-column k-step), N = bs and bs x 31
+OFF_STEP_HEADS = ("wh_off_1x300", 1, 300, 31, 31)
+OFF_STEP_D = 264
 # a spin of the device (about 0.1 s) that the timed calls queue up behind
 SPIN_CYCLES = 200_000_000
 # what multiplies, by kernel and dtype (csrc/attention_fwd.cu,
 # csrc/attention_bwd.cu, csrc/ce_fwd.cu, csrc/ce_bwd.cu, csrc/topk.cu); on
 # the wide paths, the CUDA-core wide kernels but for the bf16 K1/K2 up to
-# 256-wide heads (csrc/attention_wide_mma.cu), the bf16 K1 past them
-# (csrc/attention_chunked.cu) and the bf16 wide K4 (csrc/ce_wide_bwd.cu),
-# redesigned on the tensor cores
+# 256-wide heads (csrc/attention_wide_mma.cu), the bf16 K1/K2 past them
+# (csrc/attention_chunked.cu) and the bf16 wide K3/K4 (csrc/ce_wide_fwd.cu,
+# csrc/ce_wide_bwd.cu), redesigned on the tensor cores
 WGMMA = {torch.bfloat16: "wgmma bf16", torch.float32: "cuda-core f32"}
 MMA = {torch.bfloat16: "mma bf16", torch.float32: "cuda-core f32"}
 DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
@@ -563,7 +568,7 @@ def _sdpa_views(q, k, v, heads=HEADS):
 
 def _attention_design(kernel, dtype, heads, dh):
     """What multiplies in the kernel that takes `heads` heads of `dh`."""
-    if kernel == attn.KERNEL and attn.is_chunked_mma(dtype, heads, dh):
+    if attn.is_chunked_mma(dtype, heads, dh):
         return MMA[dtype]
     if attn.is_wide_mma(dtype, heads, dh):
         return WIDE_MMA_DESIGN
@@ -574,7 +579,8 @@ def _attention_design(kernel, dtype, heads, dh):
 
 def _ce_design(kernel, dtype, d):
     """What multiplies in the K3 or K4 kernel that takes width d."""
-    if kernel == ce.KERNEL_BWD and ce.uses_tensor_core_bwd(dtype, d):
+    if (ce.uses_tensor_core_bwd if kernel == ce.KERNEL_BWD
+            else ce.uses_tensor_core_fwd)(dtype, d):
         return WGMMA[dtype]
     if ce.is_wide(dtype, d):
         return WIDE_DESIGN
@@ -584,9 +590,14 @@ def _ce_design(kernel, dtype, d):
 def _ce_launch(kernel, dtype, n, d, v, device):
     """The tiling the library of `kernel` (K3 or K4) at width d reports
     (rows of h and of W per tile, blocks per SM) and the vocab splits the
-    wrapper takes from it; for the tensor-core wide K4 also its plan (the
-    splits count the SMs in clusters)."""
+    wrapper takes from it; for the tensor-core wide K3 and K4 also their
+    plan (K4's splits count the SMs in clusters)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if kernel == ce.KERNEL_FWD and ce.uses_tensor_core_fwd(dtype, d):
+        dp = ce.padded_width(d)
+        tiles = ce.tiling(ce.KERNEL_WIDE_FWD, dtype, dp, device)
+        return {"tiling": list(tiles), "plan": ce.wide_fwd_plan(dp)._asdict(),
+                "splits": ce.vocab_splits(n, v, sms, *tiles)}
     if kernel == ce.KERNEL_BWD and ce.uses_tensor_core_bwd(dtype, d):
         dp = ce.padded_width(d)
         plan = ce.wide_bwd_plan(dp)
@@ -665,15 +676,16 @@ def attention_bwd_case(label, n, lq, lk, dtype, gen, iters, dbias,
         design=_attention_design(attn.KERNEL_BWD, dtype, heads, dh))
 
 
-def attention_bwd_bitwise(label, n, lq, lk, dtype, gen):
-    """K2 twice without dbias and once with it on the same inputs: dq, dk
-    and dv must be bitwise equal in all three (no atomics, a fixed order of
-    every sum, and the same per-head arithmetic whether a block holds one
-    head or all of them)."""
-    q, k, v, bias = attention_inputs(n, lq, lk, dtype, gen, lq == lk)
+def attention_bwd_bitwise(label, n, lq, lk, dtype, gen, heads=HEADS, dh=DH):
+    """K2 twice without dbias and once with it on the same inputs (at
+    `heads` heads of `dh`): dq, dk and dv must be bitwise equal in all three
+    (no atomics, a fixed order of every sum, and the same per-head
+    arithmetic whether a block holds one head or all of them)."""
+    q, k, v, bias = attention_inputs(n, lq, lk, dtype, gen, lq == lk, heads,
+                                     dh)
     g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-    scale = math.sqrt(DH)
-    calls = [attn.attention_bwd(q, k, v, bias, g, HEADS, scale, dbias)[:3]
+    scale = math.sqrt(dh)
+    calls = [attn.attention_bwd(q, k, v, bias, g, heads, scale, dbias)[:3]
              for dbias in (False, False, True)]
     torch.cuda.synchronize()
     same = [all(torch.equal(a, b) for a, b in zip(calls[0], other))
@@ -949,8 +961,10 @@ def widened_cases(dtype, gen, iters, bs):
     step's ring); K6 at k = 9, 16 and 64 (with exact ties past the tuned
     list's 8) and at D = 200 and 512; K1/K2 and K6 at the shapes the
     widened CLI paths of `phase_wide` give them (WIDE_PATH, WIDE_BEAM);
-    and the chunked K1/K2 and the wide K3/K4 at the shapes of
-    `phase_wide_heads` (WIDE_HEADS_PATH, WIDE_HEADS_D)."""
+    the chunked K1/K2 (K2 bitwise over calls, in bf16 also with dbias) and
+    the wide K3/K4 at the shapes of `phase_wide_heads` (WIDE_HEADS_PATH,
+    WIDE_HEADS_D), and at widths off their steps (OFF_STEP_HEADS,
+    OFF_STEP_D)."""
     cfg = Config()
     rows = []
     if dtype == torch.float32:
@@ -963,6 +977,19 @@ def widened_cases(dtype, gen, iters, bs):
                                    heads, dh))
         rows.append(attention_bwd_case(label, bs, lq, lk, dtype, gen, iters,
                                        False, heads, dh))
+    for label, heads, dh, lq, lk in list(WIDE_HEADS_PATH) + [OFF_STEP_HEADS]:
+        if label == OFF_STEP_HEADS[0]:
+            rows.append(attention_case(label, bs, lq, lk, dtype, gen, iters,
+                                       heads, dh))
+            rows.append(attention_bwd_case(label, bs, lq, lk, dtype, gen,
+                                           iters, False, heads, dh))
+        # the bf16 chunked K2 with dbias (the f32 chunked kernels' dbias,
+        # sums of dp of 512 products, is held relative to its largest value
+        # by the card tests)
+        if dtype == torch.bfloat16:
+            rows.append(attention_bwd_case(label, bs, lq, lk, dtype, gen,
+                                           iters, True, heads, dh))
+        attention_bwd_bitwise(label, bs, lq, lk, dtype, gen, heads, dh)
     for d in WIDE_D:
         rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1), d,
                          cfg.vocab_size, label=f"ce_d{d}")
@@ -972,6 +999,8 @@ def widened_cases(dtype, gen, iters, bs):
     rows.append(ce_dh_only_case(dtype, gen, iters, bs * (cfg.seq_len - 1),
                                 WIDE_HEADS_D, cfg.vocab_size,
                                 label=f"ce_dh_only_d{WIDE_HEADS_D}"))
+    rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1), OFF_STEP_D,
+                     cfg.vocab_size, label=f"ce_d{OFF_STEP_D}")
     for k in WIDE_K:
         rows.append(topk_case(f"k{k}", bs * BEAM, dtype, gen, iters, k,
                               "tie" if k == WIDE_K[1] else "dyadic"))
@@ -2611,10 +2640,9 @@ def phase_wide(seed, bs):
 def phase_wide_heads(seed, bs):
     """Heads wider than 256 on a path: `cli train` in bf16 for one epoch
     from a random init with an encoder of one head of 512 (d_model 512) and
-    a decoder of 2 heads of 320 (d_model 640): every K1 launch on the
-    tensor-core chunked kernel, every K2 on the chunked wide kernels, K3 on
-    its wide kernel and K4 on its tensor-core wide kernels (D = 640); per
-    step as the default's. Prints the epoch's ms a step. -> its launch
+    a decoder of 2 heads of 320 (d_model 640): every K1 and K2 launch on
+    the tensor-core chunked kernels, K3 and K4 on their tensor-core wide
+    kernels (D = 640); per step as the default's. Prints the epoch's ms a step. -> its launch
     counts."""
     widths = ["--encoder-d-model", "512", "--encoder-num-heads", "1",
               "--encoder-d-ff", "1024", "--decoder-d-model", "640",
@@ -3512,8 +3540,9 @@ WIDE_INFO = {
                       "8 heads of 25, bf16, N=64 Lq=Lk=31, no dbias (the "
                       "tensor-core wide kernels; f32 on "
                       "csrc/attention_wide.cu)"),
-    ce.KERNEL_FWD: (ce.KERNEL_WIDE, "ce_d200", "the wide train path's CE: "
-                    "K3 at N=1984 D=200 V=22234, bf16"),
+    ce.KERNEL_FWD: (ce.KERNEL_WIDE_FWD, "ce_d200", "the wide train path's "
+                    "CE: K3 at N=1984 D=200 V=22234, bf16 (the tensor-core "
+                    "wide kernel; f32 on csrc/ce_wide.cu)"),
     ce.KERNEL_BWD: (ce.KERNEL_WIDE_BWD, "ce_d200", "the wide train path's "
                     "CE: K4 at N=1984 D=200 V=22234, bf16 (the tensor-core "
                     "wide kernels; f32 on csrc/ce_wide.cu)"),
@@ -3584,23 +3613,28 @@ def kernels_line(rows, by_path):
                  for label, *_ in WIDE_HEADS_PATH}
         row = cases[WIDE_HEADS_PATH[0][0]]
         n = by_path["wide_heads"][WIDE[kernel]]
-        # the bf16 K1 past 256-wide heads: the tensor-core chunked kernel
-        library = attn.KERNEL_CHUNKED if kernel == attn.KERNEL \
-            else attn.KERNEL_WIDE
         out.append({
             "name": WIDE[kernel] + "_chunked", "route": "cuda",
             "design": row["design"],
-            "source": f"deepsc_gan_tpu_torch/csrc/{library}.cu",
+            "source": f"deepsc_gan_tpu_torch/csrc/{attn.KERNEL_CHUNKED}.cu",
             "replaces": KERNEL_INFO[kernel][0], "launches": n,
             "launches_by_path": {"wide_heads": n}, **_timing(row),
             "cases": {label: _timing(r) for label, r in cases.items()},
-            "at": "heads wider than 256 (the chunked wide kernels) at the "
-                  "wide-heads train path's shapes, bf16, N=64: its encoder "
-                  "(one head of 512, Lq=Lk=32) shown; `cases`: the encoder, "
-                  "the decoder's self (2 heads of 320, Lq=Lk=31) and cross "
-                  "(Lq=31, Lk=32) attentions, each launched once a layer" + (
-                      ", no dbias; library: SDPA backward"
+            "at": "heads wider than 256 (the tensor-core chunked kernels) at "
+                  "the wide-heads train path's shapes, bf16, N=64: its "
+                  "encoder (one head of 512, Lq=Lk=32) shown; `cases`: the "
+                  "encoder, the decoder's self (2 heads of 320, Lq=Lk=31) "
+                  "and cross (Lq=31, Lk=32) attentions, each launched once a "
+                  "layer" + (
+                      ", no dbias (+dbias: with it); library: SDPA backward"
                       if kernel == attn.KERNEL_BWD else "; library: SDPA")})
+        if kernel == attn.KERNEL_BWD:
+            out[-1]["cases"].update({
+                label + "+dbias": _timing(next(
+                    r for r in rows if r["kernel"] == kernel
+                    and r["case"] == label + "+dbias"
+                    and r["dtype"] == "bfloat16"))
+                for label, *_ in WIDE_HEADS_PATH})
     for kernel, (library, case, at) in WIDE_INFO.items():
         row = next(r for r in rows if r["kernel"] == kernel
                    and r["case"] == case and r["dtype"] == "bfloat16")

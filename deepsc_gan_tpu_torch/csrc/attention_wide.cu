@@ -7,9 +7,9 @@
 // compile-time width 8, 16 or 32, at most 16 heads a block) do not take the
 // shape: the JAX kernels take any head width and count, so `--encoder-d-model
 // 512` with 8 heads (Dh = 64), 4 heads of 64, 32 heads, or one head of 512
-// run here: in f32 at any width, and in bf16 the backward at heads wider
-// than 256 (bf16 heads up to 256 wide take csrc/attention_wide_mma.cu, on
-// the tensor cores, and the bf16 forward past 256 csrc/attention_chunked.cu).
+// run here in f32, at any width (bf16 heads up to 256 wide take
+// csrc/attention_wide_mma.cu, wider ones csrc/attention_chunked.cu, both on
+// the tensor cores).
 // Same function and order of roundings as the tuned kernels: with
 // q (N, Lq, H*Dh), k and v (N, Lk, H*Dh), bias (N, Lq, Lk) f32 and g shaped
 // like q,
@@ -43,9 +43,8 @@
 // Every output element has one writer and a fixed order of sums: no
 // atomics, the same bits on every call. The kernels allocate nothing.
 //
-// Heads up to 256 wide (kMaxDh, f32 only) keep the lane's 8 elements of q
-// (and g, k, v) in registers. A wider head takes the chunked kernels (the
-// forward in f32 only): the operands of
+// Heads up to 256 wide (kMaxDh) keep the lane's 8 elements of q (and g, k,
+// v) in registers. A wider head takes the chunked kernels: the operands of
 // each dot product are read from memory (the same elements in the same
 // order, so the same bits as a register-held slice would give), and each
 // output row is walked in chunks of 256 elements, 8 a lane: for each chunk
@@ -58,8 +57,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -593,15 +590,14 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// f32 at any width; bf16 at heads wider than kMaxDh (narrower bf16 heads
-// are csrc/attention_wide_mma.cu's)
-template <typename T>
+// f32 (the bf16 backward is csrc/attention_wide_mma.cu's up to 256-wide
+// heads, csrc/attention_chunked.cu's past them)
 int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
                const void* g, void* dq, void* dk, void* dv, void* dbias,
                void* stats, const Shape& sh, void* stream) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
+  using T = float;
   const bool chunked = sh.dh > kMaxDh;
-  if (bad(sh) || (!kF32 && !chunked)) return (int)cudaErrorInvalidValue;
+  if (bad(sh)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned q_grid = blocks((long long)sh.n * sh.heads * sh.lq);
   const unsigned k_grid = blocks((long long)sh.n * sh.heads * sh.lk);
@@ -610,7 +606,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
     attention_bwd_dq_chunked_kernel<T><<<q_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (T*)dq, (float4*)stats, sh);
-  else if constexpr (kF32)
+  else
     attention_bwd_dq_wide_kernel<T><<<q_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (T*)dq, (float4*)stats, sh);
@@ -620,7 +616,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
     attention_bwd_dkv_chunked_kernel<T><<<k_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (T*)dk, (T*)dv, (const float4*)stats, sh);
-  else if constexpr (kF32)
+  else
     attention_bwd_dkv_wide_kernel<T><<<k_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (T*)dk, (T*)dv, (const float4*)stats, sh);
@@ -630,7 +626,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
     attention_bwd_dbias_chunked_kernel<T><<<b_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (float*)dbias, (const float4*)stats, sh);
-  else if constexpr (kF32)
+  else
     attention_bwd_dbias_wide_kernel<T><<<b_grid, kWarps * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
         (const T*)g, (float*)dbias, (const float4*)stats, sh);
@@ -655,26 +651,15 @@ int deepsc_attention_wide_fwd_f32(const void* q, const void* k,
 
 // As the forward, with g, dq shaped like q, dk and dv like k, dbias f32
 // (N, Lq, Lk) or null, and `stats` the caller's f32 scratch (N, heads, Lq,
-// 4), 16-byte aligned; in bf16 only heads wider than 256.
+// 4), 16-byte aligned.
 int deepsc_attention_wide_bwd_f32(const void* q, const void* k,
                                   const void* v, const void* bias,
                                   const void* g, void* dq, void* dk, void* dv,
                                   void* dbias, void* stats, int n, int lq,
                                   int lk, int heads, int dh, double scale,
                                   void* stream) {
-  return launch_bwd<float>(q, k, v, bias, g, dq, dk, dv, dbias, stats,
-                           shape(n, lq, lk, heads, dh, scale), stream);
-}
-
-int deepsc_attention_wide_bwd_bf16(const void* q, const void* k,
-                                   const void* v, const void* bias,
-                                   const void* g, void* dq, void* dk,
-                                   void* dv, void* dbias, void* stats, int n,
-                                   int lq, int lk, int heads, int dh,
-                                   double scale, void* stream) {
-  return launch_bwd<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, dbias,
-                                   stats, shape(n, lq, lk, heads, dh, scale),
-                                   stream);
+  return launch_bwd(q, k, v, bias, g, dq, dk, dv, dbias, stats,
+                    shape(n, lq, lk, heads, dh, scale), stream);
 }
 
 }  // extern "C"

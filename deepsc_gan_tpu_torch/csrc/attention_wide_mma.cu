@@ -87,9 +87,7 @@ namespace {
 
 using namespace mrow;
 
-constexpr int kT = kRows;     // queries or keys a tile: two 16-row m-tiles
-constexpr int kPStride = 80;  // bytes a row of the pc and dss tiles: 32
-                              // bf16 and 16 bytes, five 16-byte units
+constexpr int kT = kRows;  // queries or keys a tile: two 16-row m-tiles
 
 struct Shape {
   int n, lq, lk, heads, dh;
@@ -176,48 +174,6 @@ __device__ __forceinline__ void stage_head(uint8_t* dst,
   }
 }
 
-// the (rows, cols) window of an f32 bias at bg, rows `ld` floats apart ->
-// the kT x kT tile at bs, kBiasStride floats a row, zero outside the window
-template <int NT>
-__device__ __forceinline__ void stage_bias_window(float* bs,
-                                                  const float* __restrict__ bg,
-                                                  int rows, int cols, int ld,
-                                                  int tid) {
-  for (int e = tid; e < kT * kT; e += NT) {
-    const int i = e >> 5;
-    const int j = e & 31;
-    float* d = bs + i * kBiasStride + j;
-    if (i < rows && j < cols)
-      cp_async4(d, bg + (long long)i * ld + j);
-    else
-      *d = 0.f;
-  }
-}
-
-__device__ __forceinline__ void zero(float (&x)[4][4]) {
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[nj][e] = 0.f;
-}
-
-template <int NTW>
-__device__ __forceinline__ void zero_out(float (&x)[NTW][4]) {
-#pragma unroll
-  for (int dn = 0; dn < NTW; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[dn][e] = 0.f;
-}
-
-// the A fragment whose row g, column 2 (t % 4) is at byte p
-__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const uint8_t* p,
-                                       int stride) {
-  f[0] = lds32(p);
-  f[1] = lds32(p + 8 * stride);
-  f[2] = lds32(p + 16);
-  f[3] = lds32(p + 8 * stride + 16);
-}
-
 // s = rows r0, r0 + 8 of the staged a times the 32 staged rows of b (n-tile
 // nj: rows 8 nj + gr), transposed, over KS k-steps; with kTwo also
 // s2 = a2 b2^T in the same loop (S and dP)
@@ -246,147 +202,6 @@ __device__ __forceinline__ void logit_products(float (&s)[4][4],
       if (kTwo) mma16816(s2[nj], fa2, lds32(b2 + o), lds32(b2 + o + 16));
     }
   }
-}
-
-// accumulators of a 16 x 32 tile rounded to bf16 in pairs (pk[nj][half]:
-// row g + 8 half, columns 8 nj + c2, + 1), each value times `mul`
-__device__ __forceinline__ void pack(uint32_t (&pk)[4][2],
-                                     const float (&x)[4][4], float mul) {
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      pk[nj][half] = pack_bf16(__fmul_rn(x[nj][2 * half], mul),
-                               __fmul_rn(x[nj][2 * half + 1], mul));
-}
-
-// the packed pairs as the A operand of the two 16-key k-steps of a product
-// with K = keys (the accumulator-to-A identity)
-__device__ __forceinline__ void to_a(uint32_t (&a)[2][4],
-                                     const uint32_t (&pk)[4][2]) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    a[kk][0] = pk[2 * kk][0];
-    a[kk][1] = pk[2 * kk][1];
-    a[kk][2] = pk[2 * kk + 1][0];
-    a[kk][3] = pk[2 * kk + 1][1];
-  }
-}
-
-// acc[dn] += a[kk] . rows 16 kk.. of the staged b (n-tile t0 + dn) over the
-// k-steps kk < nk that hold data (b through ldmatrix.trans)
-template <int DP>
-__device__ __forceinline__ void out_products(
-    float (&acc)[Cfg<DP>::NTW][4], const uint32_t (&a)[2][4],
-    const uint8_t* b, int nk, const Lane& t) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    if (kk >= nk) continue;
-    const uint8_t* row =
-        b + (16 * kk + (t.lane & 15)) * Cfg<DP>::kStride + 16 * t.t0;
-#pragma unroll
-    for (int dn = 0; dn < Cfg<DP>::NTW; ++dn) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, row + 16 * dn);
-      mma16816(acc[dn], a[kk], b0, b1);
-    }
-  }
-}
-
-// a tile's packed pairs -> its rows r0, r0 + 8 of a (query, key) bf16 tile
-__device__ __forceinline__ void put_tile(uint8_t* tile,
-                                         const uint32_t (&pk)[4][2],
-                                         const Lane& t) {
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      *reinterpret_cast<uint32_t*>(tile + (t.r0() + 8 * half) * kPStride +
-                                   2 * (8 * nj + t.c2)) = pk[nj][half];
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&a)[4],
-                                              const uint8_t* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(smem_u32(row))
-      : "memory");
-}
-
-// dV += pc^T g and dK += dss^T q for keys 16 t.m.. over the query k-steps
-// kk < nq: A read transposed from the (query, key) tiles, g and q the B
-// operands through ldmatrix.trans
-template <int DP>
-__device__ __forceinline__ void dkv_products(float (&dva)[Cfg<DP>::NTW][4],
-                                             float (&dka)[Cfg<DP>::NTW][4],
-                                             const Smem<DP>& sm, int nq,
-                                             const Lane& t) {
-  constexpr int stride = Cfg<DP>::kStride;
-  const int lane = t.lane;
-  const int o = ((lane & 7) + 8 * (lane >> 4)) * kPStride +
-                2 * (16 * t.m + 8 * ((lane >> 3) & 1));
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    if (kk >= nq) continue;
-    uint32_t ap[4], ad[4];
-    ldsm_x4_trans(ap, sm.ps + 16 * kk * kPStride + o);
-    ldsm_x4_trans(ad, sm.dss + 16 * kk * kPStride + o);
-    const int row = (16 * kk + (lane & 15)) * stride + 16 * t.t0;
-#pragma unroll
-    for (int dn = 0; dn < Cfg<DP>::NTW; ++dn) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, sm.gs + row + 16 * dn);
-      mma16816(dva[dn], ap, b0, b1);
-      ldsm_x2_trans(b0, b1, sm.qs + row + 16 * dn);
-      mma16816(dka[dn], ad, b0, b1);
-    }
-  }
-}
-
-// rows r0, r0 + 8 (those below `rows`) of an output m-tile's accumulators,
-// columns 8 (t0 + dn) + c2, + 1 (those below dh), rounded to bf16 into the
-// head's slice at base (rows ld elements apart)
-template <int DP>
-__device__ __forceinline__ void store_out(__nv_bfloat16* __restrict__ base,
-                                          long long ld,
-                                          const float (&acc)[Cfg<DP>::NTW][4],
-                                          int rows, int dh, const Lane& t) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int i = t.r0() + 8 * half;
-    if (i >= rows) continue;
-    __nv_bfloat16* row = base + i * ld;
-#pragma unroll
-    for (int dn = 0; dn < Cfg<DP>::NTW; ++dn) {
-      const int col = 8 * (t.t0 + dn) + t.c2;
-      if (col >= dh) continue;
-      const float x0 = acc[dn][2 * half];
-      const float x1 = acc[dn][2 * half + 1];
-      if ((dh & 1) == 0) {  // an even width: the pair is 4-byte aligned
-        *reinterpret_cast<uint32_t*>(row + col) = pack_bf16(x0, x1);
-      } else {
-        row[col] = __float2bfloat16_rn(x0);
-        if (col + 1 < dh) row[col + 1] = __float2bfloat16_rn(x1);
-      }
-    }
-  }
-}
-
-// the f32 ds of rows r0, r0 + 8 below `rows` and keys below `cols` -> the
-// dbias scratch at base (rows ld floats apart)
-__device__ __forceinline__ void store_ds(float* __restrict__ base, long long ld,
-                                         const float (&ds)[4][4], int rows,
-                                         int cols, const Lane& t) {
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = t.r0() + 8 * (e >> 1);
-      const int j = 8 * nj + t.c2 + (e & 1);
-      if (i < rows && j < cols) base[i * ld + j] = ds[nj][e];
-    }
 }
 
 // ---- forward ----
@@ -420,7 +235,7 @@ wide_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
   float o[C::NTW][4];
-  zero_out<C::NTW>(o);
+  zero_out(o);
   // pass 0 (past 32 keys only): each row's running max and sum; pass 1:
   // p . v
   for (int pass = nkt > 1 ? 0 : 1; pass < 2; ++pass) {
@@ -431,7 +246,7 @@ wide_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       stage_head<DP>(sm.ks, kb + k0 * hd, hd, kl, sh.dh, sh.vec, t.tid);
       if (pass == 1)
         stage_head<DP>(sm.vs, vb + k0 * hd, hd, kl, sh.dh, sh.vec, t.tid);
-      stage_bias_window<C::kThreads>(sm.bs, bb + k0, ql, kl, sh.lk, t.tid);
+      stage_bias_window(sm.bs, bb + k0, ql, kl, sh.lk, t.tid, C::kThreads);
       cp_async_wait_all();
       __syncthreads();
       if (!active) continue;
@@ -478,39 +293,16 @@ wide_mma_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       uint32_t pk[4][2], a[2][4];
       pack(pk, sc, 1.f);
       to_a(a, pk);
-      out_products<DP>(o, a, sm.vs, kl > 16 ? 2 : 1, t);
+      out_products(o, a, sm.vs, C::kStride, kl > 16 ? 2 : 1, t.lane,
+                   t.t0);
     }
   }
   if (active)
-    store_out<DP>(out + (n * sh.lq + q0) * hd + col, hd, o, ql, sh.dh, t);
+    store_out(out + (n * sh.lq + q0) * hd + col, hd, o, ql, sh.dh, t.r0(),
+              t.c2, t.t0, (sh.dh & 1) == 0);
 }
 
 // ---- backward up to 32 queries and keys: a block per (row, head) ----
-
-// p (f32, 0 in rows from `rows` on) from the exact softmax numerators e and
-// row sums, rowsum(dp p) and ds = p (dp - rowsum) into dp
-__device__ __forceinline__ void exact_ds(float (&e)[4][4], float (&dp)[4][4],
-                                         const float (&sum)[2], int rows,
-                                         const Lane& t) {
-  const float rs[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
-  float rowsum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int r = x >> 1;
-      const float p = div_rn(e[nj][x], sum[r], rs[r]);
-      e[nj][x] = t.r0() + 8 * r < rows ? p : 0.f;
-      rowsum[r] = __fadd_rn(rowsum[r], __fmul_rn(dp[nj][x], e[nj][x]));
-    }
-  quad_sum(rowsum);
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      dp[nj][x] =
-          __fmul_rn(e[nj][x], __fsub_rn(dp[nj][x], rowsum[x >> 1]));
-}
 
 template <int DP>
 __global__ void __launch_bounds__(Cfg<DP>::kThreads)
@@ -537,8 +329,8 @@ wide_mma_bwd_kernel(const __nv_bfloat16* __restrict__ q,
   stage_head<DP>(sm.gs, g + q_at, hd, sh.lq, sh.dh, sh.vec, t.tid);
   stage_head<DP>(sm.ks, k + k_at, hd, sh.lk, sh.dh, sh.vec, t.tid);
   stage_head<DP>(sm.vs, v + k_at, hd, sh.lk, sh.dh, sh.vec, t.tid);
-  stage_bias_window<C::kThreads>(sm.bs, bias + n * sh.lq * sh.lk, sh.lq,
-                                 sh.lk, sh.lk, t.tid);
+  stage_bias_window(sm.bs, bias + n * sh.lq * sh.lk, sh.lq, sh.lk, sh.lk,
+                    t.tid, C::kThreads);
   cp_async_wait_all();
   __syncthreads();
 
@@ -548,32 +340,38 @@ wide_mma_bwd_kernel(const __nv_bfloat16* __restrict__ q,
     logit_products<DP, true>(sc, dp, sm.qs, sm.ks, sm.gs, sm.vs, t);
     float sum[2];
     softmax_exp(sc, sm.bs, t.r0(), t.c2, sh.lk, sh.inv_scale, sum);
-    exact_ds(sc, dp, sum, sh.lq, t);
+    exact_ds(sc, dp, sum, sh.lq, t.r0());
     uint32_t dsk[4][2], a[2][4];
     pack(dsk, dp, sh.inv_scale);
     if (t.leader()) {
       uint32_t pk[4][2];
       pack(pk, sc, 1.f);
-      put_tile(sm.ps, pk, t);
-      put_tile(sm.dss, dsk, t);
+      put_tile(sm.ps, pk, t.r0(), t.c2);
+      put_tile(sm.dss, dsk, t.r0(), t.c2);
       if (ds_out != nullptr)
-        store_ds(ds_out + nh * sh.lq * sh.lk, sh.lk, dp, sh.lq, sh.lk, t);
+        store_ds(ds_out + nh * sh.lq * sh.lk, sh.lk, dp, sh.lq, sh.lk,
+                 t.r0(), t.c2);
     }
     float dqa[C::NTW][4];
-    zero_out<C::NTW>(dqa);
+    zero_out(dqa);
     to_a(a, dsk);
-    out_products<DP>(dqa, a, sm.ks, sh.lk > 16 ? 2 : 1, t);
-    store_out<DP>(dq + q_at, hd, dqa, sh.lq, sh.dh, t);
+    out_products(dqa, a, sm.ks, C::kStride, sh.lk > 16 ? 2 : 1, t.lane,
+                 t.t0);
+    store_out(dq + q_at, hd, dqa, sh.lq, sh.dh, t.r0(), t.c2,
+              t.t0, (sh.dh & 1) == 0);
   }
   __syncthreads();  // the pc and dss tiles are whole
   // phase B: dV and dK of keys 16 t.m.. over the warp's columns
   if (16 * t.m < sh.lk) {
     float dva[C::NTW][4], dka[C::NTW][4];
-    zero_out<C::NTW>(dva);
-    zero_out<C::NTW>(dka);
-    dkv_products<DP>(dva, dka, sm, sh.lq > 16 ? 2 : 1, t);
-    store_out<DP>(dv + k_at, hd, dva, sh.lk, sh.dh, t);
-    store_out<DP>(dk + k_at, hd, dka, sh.lk, sh.dh, t);
+    zero_out(dva);
+    zero_out(dka);
+    dkv_products(dva, dka, sm.ps, sm.dss, sm.gs, sm.qs, C::kStride,
+                 sh.lq > 16 ? 2 : 1, t.m, t.t0, t.lane);
+    store_out(dv + k_at, hd, dva, sh.lk, sh.dh, t.r0(), t.c2,
+              t.t0, (sh.dh & 1) == 0);
+    store_out(dk + k_at, hd, dka, sh.lk, sh.dh, t.r0(), t.c2,
+              t.t0, (sh.dh & 1) == 0);
   }
 }
 
@@ -612,7 +410,7 @@ wide_mma_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   float l[2] = {0.f, 0.f};
   float rowsum[2] = {0.f, 0.f};
   float dqa[C::NTW][4];
-  zero_out<C::NTW>(dqa);
+  zero_out(dqa);
   const int nkt = (sh.lk + kT - 1) / kT;
   // pass 0: the running max, sum and sum of e dp; pass 1: ds and dQ
   for (int pass = 0; pass < 2; ++pass) {
@@ -622,7 +420,7 @@ wide_mma_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       __syncthreads();  // the last tile's reads of the staged rows are done
       stage_head<DP>(sm.ks, kb + k0 * hd, hd, kl, sh.dh, sh.vec, t.tid);
       stage_head<DP>(sm.vs, vb + k0 * hd, hd, kl, sh.dh, sh.vec, t.tid);
-      stage_bias_window<C::kThreads>(sm.bs, bb + k0, ql, kl, sh.lk, t.tid);
+      stage_bias_window(sm.bs, bb + k0, ql, kl, sh.lk, t.tid, C::kThreads);
       cp_async_wait_all();
       __syncthreads();
       if (!active) continue;
@@ -668,11 +466,12 @@ wide_mma_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
         }
       if (ds_out != nullptr && t.leader())
         store_ds(ds_out + (nh * sh.lq + q0) * sh.lk + k0, sh.lk, dp, ql, kl,
-                 t);
+                 t.r0(), t.c2);
       uint32_t dsk[4][2], a[2][4];
       pack(dsk, dp, sh.inv_scale);
       to_a(a, dsk);
-      out_products<DP>(dqa, a, sm.ks, kl > 16 ? 2 : 1, t);
+      out_products(dqa, a, sm.ks, C::kStride, kl > 16 ? 2 : 1, t.lane,
+                   t.t0);
     }
     if (pass == 0) {
 #pragma unroll
@@ -688,7 +487,8 @@ wide_mma_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
         stats[nh * sh.lq + q0 + i] = make_float4(m[r], l[r], rowsum[r], 0.f);
     }
   }
-  store_out<DP>(dq + q_at, hd, dqa, ql, sh.dh, t);
+  store_out(dq + q_at, hd, dqa, ql, sh.dh, t.r0(), t.c2, t.t0,
+            (sh.dh & 1) == 0);
 }
 
 template <int DP>
@@ -719,15 +519,15 @@ wide_mma_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   stage_head<DP>(sm.vs, v + k_at, hd, kl, sh.dh, sh.vec, t.tid);
 
   float dva[C::NTW][4], dka[C::NTW][4];
-  zero_out<C::NTW>(dva);
-  zero_out<C::NTW>(dka);
+  zero_out(dva);
+  zero_out(dka);
   for (int q0 = 0; q0 < sh.lq; q0 += kT) {
     const int ql = min(kT, sh.lq - q0);
     __syncthreads();  // the last tile's reads of the staged rows are done
     stage_head<DP>(sm.qs, qb + q0 * hd, hd, ql, sh.dh, sh.vec, t.tid);
     stage_head<DP>(sm.gs, gb + q0 * hd, hd, ql, sh.dh, sh.vec, t.tid);
-    stage_bias_window<C::kThreads>(
-        sm.bs, bias + (n * sh.lq + q0) * sh.lk + k0, ql, kl, sh.lk, t.tid);
+    stage_bias_window(sm.bs, bias + (n * sh.lq + q0) * sh.lk + k0, ql, kl,
+                      sh.lk, t.tid, C::kThreads);
     for (int e = t.tid; e < kT; e += C::kThreads) {
       if (e < ql)
         cp_async16(sm.st + e, stats + nh * sh.lq + q0 + e);
@@ -761,35 +561,23 @@ wide_mma_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
           }
         uint32_t pk[4][2];
         pack(pk, sc, 1.f);
-        put_tile(sm.ps, pk, t);
+        put_tile(sm.ps, pk, t.r0(), t.c2);
         pack(pk, dp, sh.inv_scale);
-        put_tile(sm.dss, pk, t);
+        put_tile(sm.dss, pk, t.r0(), t.c2);
       }
     }
     __syncthreads();  // the pc and dss tiles are whole
     // phase B: dV and dK of keys 16 t.m.. over this query tile
-    if (16 * t.m < kl) dkv_products<DP>(dva, dka, sm, ql > 16 ? 2 : 1, t);
+    if (16 * t.m < kl)
+      dkv_products(dva, dka, sm.ps, sm.dss, sm.gs, sm.qs, C::kStride,
+                   ql > 16 ? 2 : 1, t.m, t.t0, t.lane);
   }
   if (16 * t.m < kl) {
-    store_out<DP>(dv + k_at, hd, dva, kl, sh.dh, t);
-    store_out<DP>(dk + k_at, hd, dka, kl, sh.dh, t);
+    store_out(dv + k_at, hd, dva, kl, sh.dh, t.r0(), t.c2,
+              t.t0, (sh.dh & 1) == 0);
+    store_out(dk + k_at, hd, dka, kl, sh.dh, t.r0(), t.c2,
+              t.t0, (sh.dh & 1) == 0);
   }
-}
-
-// dbias = sum over heads 0..H-1 of the scratch's ds: a thread per (row,
-// query, key)
-__global__ void wide_mma_dbias_kernel(const float* __restrict__ ds,
-                                      float* __restrict__ dbias, int n,
-                                      int heads, int lq, int lk) {
-  const long long per = (long long)lq * lk;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n * per) return;
-  const long long b = e / per;
-  const long long o = e - b * per;
-  float s = 0.f;
-  for (int h = 0; h < heads; ++h)
-    s = __fadd_rn(s, ds[(b * heads + h) * per + o]);
-  dbias[e] = s;
 }
 
 // ---- launch ----
@@ -912,10 +700,8 @@ int deepsc_attention_wide_mma_bwd_bf16(const void* q, const void* k,
                                            st);
   });
   if (err || dbias == nullptr) return err;
-  const long long total = (long long)n * lq * lk;
-  wide_mma_dbias_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      (const float*)ds, (float*)dbias, n, heads, lq, lk);
-  return (int)cudaGetLastError();
+  return sum_dbias((const float*)ds, (float*)dbias, n, heads, lq, lk,
+                   st);
 }
 
 }  // extern "C"

@@ -41,8 +41,7 @@
 //   and each thread keeps the softmax state of a 4 x 4 patch of 64 x 64
 //   logits; the 16 partials of a row are merged in the block.
 
-#include "ce_tile.cuh"
-#include "wgmma_tile.cuh"
+#include "ce_online.cuh"
 
 namespace {
 
@@ -149,78 +148,10 @@ ce_fwd_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
 }
 
-// one thread per row: merge the splits in order; lse = m + log(s),
-// ce = lse - gold
-__global__ void ce_fwd_combine_kernel(const float* __restrict__ part,
-                                      float* __restrict__ ce_out,
-                                      float* __restrict__ lse_out, int n,
-                                      int splits) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  float mm = NEG;
-  for (int sp = 0; sp < splits; ++sp)
-    mm = fmaxf(mm, part[((size_t)sp * n + row) * 3]);
-  float ss = 0.f, gg = 0.f;
-  for (int sp = 0; sp < splits; ++sp) {
-    const float* p = part + ((size_t)sp * n + row) * 3;
-    ss += p[1] * expf(p[0] - mm);
-    gg += p[2];
-  }
-  const float lse = mm + logf(ss);
-  lse_out[row] = lse;
-  ce_out[row] = lse - gg;
-}
-
 // ---- bf16: tensor cores ----
 
-constexpr int kTV16 = 128;   // vocab rows per tile: wgmma N
+using ceo::kTV;
 constexpr int kStages = 2;   // ring of vocab tiles
-
-// One thread's online-softmax state: rows r and r + 8 of the row tile, over
-// its columns 8 q + 2 (lane % 4) + e (q < 16, e < 2) of each vocab tile.
-struct Softmax {
-  int lab[2];
-  float m[2], s[2], gold[2];
-
-  // folds in the logits acc (64 x 128 accumulator, bias added in place) of
-  // the vocab tile at col0; c0 = col0 + 2 (lane % 4); columns from `lim` on
-  // (a ragged last tile) are left out
-  template <bool kRagged>
-  __device__ __forceinline__ void add(float (&acc)[64], const float* bias,
-                                      int col0, int c0, int lim) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float cm = NEG;
-#pragma unroll
-      for (int q = 0; q < 16; ++q)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = acc[4 * q + 2 * i + e];
-          x += bias[2 * q + e];
-          if (kRagged && c0 + 8 * q + e >= lim) x = -INFINITY;
-          cm = fmaxf(cm, x);
-        }
-      const float mn = fmaxf(m[i], cm);
-      const float mn2 = mn * wg::kLog2e;
-      float se = 0.f;
-#pragma unroll
-      for (int q = 0; q < 16; ++q)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          se += wg::exp2_approx(
-              fmaf(acc[4 * q + 2 * i + e], wg::kLog2e, -mn2));
-      s[i] = s[i] * wg::exp2_approx((m[i] - mn) * wg::kLog2e) + se;
-      m[i] = mn;
-      if (lab[i] >= col0 && lab[i] < col0 + kTV16) {
-#pragma unroll
-        for (int q = 0; q < 16; ++q)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (c0 + 8 * q + e == lab[i]) gold[i] = acc[4 * q + 2 * i + e];
-      }
-    }
-  }
-};
 
 __global__ void __launch_bounds__(wg::kThreads)
 ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap hmap,
@@ -233,13 +164,13 @@ ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap hmap,
   __shared__ uint64_t bar[kStages + 1];  // the ring's stages, then h
   uint8_t* hs = wg::align_1024(smem_raw);
   uint8_t* ring = hs + wg::tile_bytes(wg::kRows, d);
-  const int stage_bytes = wg::tile_bytes(kTV16, d);
+  const int stage_bytes = wg::tile_bytes(kTV, d);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int row0 = blockIdx.x * wg::kRows;
   const int split = blockIdx.y;
-  const int nvt = (v + kTV16 - 1) / kTV16;
+  const int nvt = (v + kTV - 1) / kTV;
   const int t0 = split * tiles_per_split;
   const int count = min(t0 + tiles_per_split, nvt) - t0;
 
@@ -252,79 +183,31 @@ ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap hmap,
     wg::load_tile(hs, &hmap, &bar[kStages], row0, wg::kRows, d);
     for (int i = 0; i < kStages && i < count; ++i)
       wg::load_tile(ring + i * stage_bytes, &wmap, &bar[i],
-                    (t0 + i) * kTV16, kTV16, d);
+                    (t0 + i) * kTV, kTV, d);
   }
 
   const int r = (tid >> 5) * 16 + (lane >> 2);
-  Softmax sm;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + r + 8 * i;
-    sm.lab[i] = row < n ? labels[row] : -1;
-    sm.m[i] = NEG;
-    sm.s[i] = 0.f;
-    sm.gold[i] = 0.f;
-  }
+  ceo::Softmax sm;
+  sm.init(labels, row0 + r, n);
 
   wg::mbar_wait(&bar[kStages], 0);
   const uint32_t h_addr = wg::smem_u32(hs);
   for (int it = 0; it < count; ++it) {
-    const int col0 = (t0 + it) * kTV16;
+    const int col0 = (t0 + it) * kTV;
     const int c0 = col0 + 2 * (lane & 3);
-    float bias[32];  // 8-byte loads (c0 is even) but on a ragged tile
-    if (col0 + kTV16 <= v) {
-#pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        const float2 x = __ldg(reinterpret_cast<const float2*>(c0 + 8 * q + b));
-        bias[2 * q] = x.x;
-        bias[2 * q + 1] = x.y;
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < 16; ++q)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = c0 + 8 * q + e;
-          bias[2 * q + e] = c < v ? __ldg(b + c) : 0.f;
-        }
-    }
+    float bias[32];
+    ceo::load_bias(bias, b, col0, c0, v);
     uint8_t* ws = ring + (it % kStages) * stage_bytes;
     wg::mbar_wait(&bar[it % kStages], (it / kStages) & 1);
     float acc[64];
-    wg::logits<kTV16, wg::kMaxSlabs>(acc, h_addr, wg::smem_u32(ws), d);
+    wg::logits<kTV, wg::kMaxSlabs>(acc, h_addr, wg::smem_u32(ws), d);
     __syncthreads();  // every warp's products have read the stage
     if (tid == 0 && it + kStages < count)
       wg::load_tile(ws, &wmap, &bar[it % kStages],
-                    (t0 + it + kStages) * kTV16, kTV16, d);
-    if (col0 + kTV16 <= v)
-      sm.add<false>(acc, bias, col0, c0, v);
-    else
-      sm.add<true>(acc, bias, col0, c0, v);
+                    (t0 + it + kStages) * kTV, kTV, d);
+    sm.add_tile(acc, bias, col0, c0, v);
   }
-
-  // merge the four threads of each row (lanes 4 g .. 4 g + 3), in the same
-  // butterfly order in every run
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, sm.m[i], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, sm.s[i], off);
-      const float g2 = __shfl_xor_sync(0xffffffffu, sm.gold[i], off);
-      const float mn = fmaxf(sm.m[i], m2);
-      sm.s[i] = sm.s[i] * wg::exp2_approx((sm.m[i] - mn) * wg::kLog2e) +
-                s2 * wg::exp2_approx((m2 - mn) * wg::kLog2e);
-      sm.gold[i] += g2;
-      sm.m[i] = mn;
-    }
-    const int row = row0 + r + 8 * i;
-    if ((lane & 3) == 0 && row < n) {
-      float* out = part + ((size_t)split * n + row) * 3;
-      out[0] = sm.m[i];
-      out[1] = sm.s[i];
-      out[2] = sm.gold[i];
-    }
-  }
+  sm.store(part, split, row0 + r, n, lane);
 }
 
 size_t smem_bytes_f32(int d) {
@@ -333,45 +216,19 @@ size_t smem_bytes_f32(int d) {
 
 size_t smem_bytes_bf16(int d) {
   return 1024 + (size_t)wg::tile_bytes(wg::kRows, d) +
-         (size_t)kStages * wg::tile_bytes(kTV16, d);
+         (size_t)kStages * wg::tile_bytes(kTV, d);
 }
 
-// vocab tiles per split for `splits` splits of tiles of `tv` rows, or -1
-// when the arguments are bad or a split would own no tile
+// vocab tiles per split (ceo::split_tiles), or -1 past the widths the
+// kernels take
 int split_tiles(int n, int d, int v, int splits, int tv) {
-  if (n <= 0 || v <= 0 || d <= 0 || d > ce::kMaxD || splits <= 0) return -1;
-  const int nvt = (v + tv - 1) / tv;
-  const int tps = (nvt + splits - 1) / splits;
-  return (splits - 1) * tps >= nvt ? -1 : tps;
+  if (d <= 0 || d > ce::kMaxD) return -1;
+  return ceo::split_tiles(n, v, splits, tv);
 }
 
-int set_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// What the wrapper cuts the vocab into splits by, into out[3]: `rows` of
-// h per tile, `vocab_rows` of W per tile, and how many blocks of the
-// partial kernel `kernel` (`threads` threads, `smem` bytes of dynamic shared
-// memory) fit an SM, from the occupancy calculator. 0 on success, else a
-// CUDA error.
-int tiling(const void* kernel, int threads, size_t smem, int rows,
-           int vocab_rows, int* out) {
-  const int err = set_smem(kernel, smem);
-  if (err) return err;
-  out[0] = rows;
-  out[1] = vocab_rows;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
-                                                            threads, smem);
-}
-
-int combine(const void* part, void* ce_out, void* lse_out, int n, int splits,
-            cudaStream_t st) {
-  ce_fwd_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      (const float*)part, (float*)ce_out, (float*)lse_out, n, splits);
-  return (int)cudaGetLastError();
-}
+using ceo::combine;
+using ceo::set_smem;
+using ceo::tiling;
 
 }  // namespace
 
@@ -392,7 +249,7 @@ int deepsc_ce_fwd_tiling_f32(int d, int* out) {
 int deepsc_ce_fwd_tiling_bf16(int d, int* out) {
   if (d <= 0 || d > ce::kMaxD || d % 16) return (int)cudaErrorInvalidValue;
   return tiling((const void*)ce_fwd_wgmma_kernel, wg::kThreads,
-                smem_bytes_bf16(d), wg::kRows, kTV16, out);
+                smem_bytes_bf16(d), wg::kRows, kTV, out);
 }
 
 // h: contiguous f32 (N, D), D a multiple of 4 up to 256; w: contiguous f32
@@ -426,12 +283,12 @@ int deepsc_ce_fwd_bf16(const void* h, const void* w, const void* b,
                        const void* labels, void* ce_out, void* lse_out,
                        void* part, int n, int d, int v, int splits,
                        void* stream) {
-  const int tps = split_tiles(n, d, v, splits, kTV16);
+  const int tps = split_tiles(n, d, v, splits, kTV);
   if (tps < 0 || d % 16) return (int)cudaErrorInvalidValue;
   CUtensorMap hmap, wmap;
   int err = wg::make_map(&hmap, h, n, d, wg::kRows);
   if (err) return err;
-  err = wg::make_map(&wmap, w, v, d, kTV16);
+  err = wg::make_map(&wmap, w, v, d, kTV);
   if (err) return err;
   const size_t smem = smem_bytes_bf16(d);
   err = set_smem((const void*)ce_fwd_wgmma_kernel, smem);

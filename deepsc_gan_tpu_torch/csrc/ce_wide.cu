@@ -6,7 +6,9 @@
 // csrc/ce_bwd.cu: D a multiple of 16 (bf16, one wgmma k-step) or 8 (f32)
 // up to 256, the whole row of D staged or held in registers) do not take
 // the width: the JAX kernels take any D, so `--decoder-d-model 512` or 200
-// runs here. Same functions and roundings as the tuned kernels: with h
+// runs here in f32 (in bf16 the forward is csrc/ce_wide_fwd.cu's and the
+// backward up to 5,120 columns csrc/ce_wide_bwd.cu's, on the tensor cores).
+// Same functions and roundings as the tuned kernels: with h
 // (N, D), W (V, D) of one type T, bias b (V) f32, labels y,
 //     lse_n = log sum_v exp(h_n . W_v + b_v),  ce_n = lse_n - (h_n . W_y + b_y)
 //     P_nv = exp(h_n . W_v + b_v - lse_n) g_n - [v == y_n] g_n       (f32)
@@ -31,9 +33,8 @@
 // per vocab tile the logits and P (shared tile, f32), then Pc times the
 // tile's W slab, chunk by chunk; the splits' partials added in order by a
 // third kernel. dW and db from block (vocab tile, slab of D), walking every
-// row tile in order; db (unrounded P) by the first slab's blocks. The bf16
-// backward runs here only past 5,120 columns: up to there it is
-// csrc/ce_wide_bwd.cu's, on the tensor cores. No
+// row tile in order; db (unrounded P) by the first slab's blocks. In bf16
+// only the backward past 5,120 columns runs here. No
 // atomics: every sum runs in a fixed order, the same bits on every call.
 // The kernels allocate nothing; the caller passes the outputs and the
 // workspaces.
@@ -427,7 +428,8 @@ extern "C" {
 
 // (rows of h per tile, vocab rows per tile, blocks of the dh kernel per SM)
 // into out[3], on the current device: what the wrappers cut the vocab into
-// splits by, for the forward and the backward alike.
+// splits by, for the forward and the backward alike (bf16: the backward
+// past 5,120 columns).
 int deepsc_ce_wide_tiling_f32(int d, int* out) {
   if (d <= 0) return (int)cudaErrorInvalidValue;
   return wide::tiling((const void*)ce_dh_wide_kernel<float>, out);
@@ -438,7 +440,7 @@ int deepsc_ce_wide_tiling_bf16(int d, int* out) {
   return wide::tiling((const void*)ce_dh_wide_kernel<__nv_bfloat16>, out);
 }
 
-// h: contiguous (N, D), any D >= 1; w: contiguous (V, D) of h's type; b:
+// h: contiguous f32 (N, D), any D >= 1; w: contiguous f32 (V, D); b:
 // f32 (V); labels: int32 (N); ce_out, lse_out: f32 (N); part: f32 workspace
 // (splits, N, 3). Every split must own at least one vocab tile of 64 rows.
 // Returns cudaGetLastError() after the launches (0 = success).
@@ -448,14 +450,6 @@ int deepsc_ce_wide_fwd_f32(const void* h, const void* w, const void* b,
                            void* stream) {
   return launch_fwd<float>(h, w, b, labels, ce_out, lse_out, part, n, d, v,
                            splits, stream);
-}
-
-int deepsc_ce_wide_fwd_bf16(const void* h, const void* w, const void* b,
-                            const void* labels, void* ce_out, void* lse_out,
-                            void* part, int n, int d, int v, int splits,
-                            void* stream) {
-  return launch_fwd<__nv_bfloat16>(h, w, b, labels, ce_out, lse_out, part, n,
-                                   d, v, splits, stream);
 }
 
 // As the forward, with lse, g: f32 (N); dh: f32 (N, D); dw: f32 (V, D) and

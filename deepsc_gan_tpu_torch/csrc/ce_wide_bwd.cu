@@ -279,15 +279,9 @@ __device__ __forceinline__ void load_slabs(uint8_t* dst,
   if (threadIdx.x == 0)
     wg::mbar_expect_tx(bar, (uint32_t)(count * rows * wg::kRowBytes));
   if ((threadIdx.x & 31) == 0) {
-    for (int s = threadIdx.x >> 5; s < count; s += kThreads / 32) {
-      asm volatile(
-          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-          "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-              wg::smem_u32(dst + s * rows * wg::kRowBytes)),
-          "l"(reinterpret_cast<uint64_t>(map)), "r"(wg::smem_u32(bar)),
-          "r"((s0 + s) * wg::kSlabCols), "r"(row0)
-          : "memory");
-    }
+    for (int s = threadIdx.x >> 5; s < count; s += kThreads / 32)
+      wg::load_box(dst + s * rows * wg::kRowBytes, map, bar,
+                   (s0 + s) * wg::kSlabCols, row0);
   }
 }
 

@@ -272,4 +272,255 @@ __device__ __forceinline__ void quad_sum(float (&x)[2]) {
   }
 }
 
+// ---- the backward's tiles, shared by csrc/attention_wide_mma.cu and
+// csrc/attention_chunked.cu ----
+//
+// A block's warps each hold one 16-row m-tile (queries; keys in dK and dV)
+// and n-tiles t0.. of an output's columns. pc and dss go between warps as
+// bf16 (query, key) tiles of 32 x 32 in shared memory, kPStride bytes a row
+// (32 bf16 and 16 bytes, five 16-byte units).
+
+constexpr int kPStride = 80;
+
+// the (rows, cols) window of an f32 bias at bg, rows `ld` floats apart ->
+// the kRows x kRows tile at bs, kBiasStride floats a row, zero outside the
+// window, by the block's `nt` threads
+__device__ __forceinline__ void stage_bias_window(float* bs,
+                                                  const float* __restrict__ bg,
+                                                  int rows, int cols, int ld,
+                                                  int tid, int nt) {
+  for (int e = tid; e < kRows * kRows; e += nt) {
+    const int i = e >> 5;
+    const int j = e & 31;
+    float* d = bs + i * kBiasStride + j;
+    if (i < rows && j < cols)
+      cp_async4(d, bg + (long long)i * ld + j);
+    else
+      *d = 0.f;
+  }
+}
+
+__device__ __forceinline__ void zero(float (&x)[4][4]) {
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[nj][e] = 0.f;
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_out(float (&x)[NT][4]) {
+#pragma unroll
+  for (int dn = 0; dn < NT; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[dn][e] = 0.f;
+}
+
+// the A fragment whose row g, column 2 (t % 4) is at byte p
+__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const uint8_t* p,
+                                       int stride) {
+  f[0] = lds32(p);
+  f[1] = lds32(p + 8 * stride);
+  f[2] = lds32(p + 16);
+  f[3] = lds32(p + 8 * stride + 16);
+}
+
+// accumulators of a 16 x 32 tile rounded to bf16 in pairs (pk[nj][half]:
+// row g + 8 half, columns 8 nj + c2, + 1), each value times `mul`
+__device__ __forceinline__ void pack(uint32_t (&pk)[4][2],
+                                     const float (&x)[4][4], float mul) {
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      pk[nj][half] = pack_bf16(__fmul_rn(x[nj][2 * half], mul),
+                               __fmul_rn(x[nj][2 * half + 1], mul));
+}
+
+// the packed pairs as the A operand of the two 16-key k-steps of a product
+// with K = keys (the accumulator-to-A identity)
+__device__ __forceinline__ void to_a(uint32_t (&a)[2][4],
+                                     const uint32_t (&pk)[4][2]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    a[kk][0] = pk[2 * kk][0];
+    a[kk][1] = pk[2 * kk][1];
+    a[kk][2] = pk[2 * kk + 1][0];
+    a[kk][3] = pk[2 * kk + 1][1];
+  }
+}
+
+// acc[dn] += a[kk] . rows 16 kk.. of the staged b (rows `stride` bytes
+// apart; n-tile t0 + dn) over the k-steps kk < nk that hold data (b through
+// ldmatrix.trans)
+template <int NT>
+__device__ __forceinline__ void out_products(float (&acc)[NT][4],
+                                             const uint32_t (&a)[2][4],
+                                             const uint8_t* b, int stride,
+                                             int nk, int lane, int t0) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    if (kk >= nk) continue;
+    const uint8_t* row = b + (16 * kk + (lane & 15)) * stride + 16 * t0;
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn) {
+      uint32_t b0, b1;
+      ldsm_x2_trans(b0, b1, row + 16 * dn);
+      mma16816(acc[dn], a[kk], b0, b1);
+    }
+  }
+}
+
+// a tile's packed pairs -> its rows r0, r0 + 8 of a (query, key) bf16 tile
+__device__ __forceinline__ void put_tile(uint8_t* tile,
+                                         const uint32_t (&pk)[4][2], int r0,
+                                         int c2) {
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<uint32_t*>(tile + (r0 + 8 * half) * kPStride +
+                                   2 * (8 * nj + c2)) = pk[nj][half];
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&a)[4],
+                                              const uint8_t* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_u32(row))
+      : "memory");
+}
+
+// dV += pc^T g and dK += dss^T q for keys 16 m.. over the query k-steps
+// kk < nq: A read transposed from the (query, key) tiles ps and dss, g and
+// q (staged rows `stride` bytes apart, n-tiles t0..) the B operands
+// through ldmatrix.trans
+template <int NT>
+__device__ __forceinline__ void dkv_products(float (&dva)[NT][4],
+                                             float (&dka)[NT][4],
+                                             const uint8_t* ps,
+                                             const uint8_t* dss,
+                                             const uint8_t* gs,
+                                             const uint8_t* qs, int stride,
+                                             int nq, int m, int t0,
+                                             int lane) {
+  const int o = ((lane & 7) + 8 * (lane >> 4)) * kPStride +
+                2 * (16 * m + 8 * ((lane >> 3) & 1));
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    if (kk >= nq) continue;
+    uint32_t ap[4], ad[4];
+    ldsm_x4_trans(ap, ps + 16 * kk * kPStride + o);
+    ldsm_x4_trans(ad, dss + 16 * kk * kPStride + o);
+    const int row = (16 * kk + (lane & 15)) * stride + 16 * t0;
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn) {
+      uint32_t b0, b1;
+      ldsm_x2_trans(b0, b1, gs + row + 16 * dn);
+      mma16816(dva[dn], ap, b0, b1);
+      ldsm_x2_trans(b0, b1, qs + row + 16 * dn);
+      mma16816(dka[dn], ad, b0, b1);
+    }
+  }
+}
+
+// rows r0, r0 + 8 (those below `rows`) of an output m-tile's accumulators,
+// columns 8 (t0 + dn) + c2, + 1 (those below cols), rounded to bf16 into
+// the slice at base (rows ld elements apart); `pairs`: each pair stored as
+// one 4-byte word (base and ld even: the head's width is)
+template <int NT>
+__device__ __forceinline__ void store_out(__nv_bfloat16* __restrict__ base,
+                                          long long ld,
+                                          const float (&acc)[NT][4], int rows,
+                                          int cols, int r0, int c2, int t0,
+                                          bool pairs) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = r0 + 8 * half;
+    if (i >= rows) continue;
+    __nv_bfloat16* row = base + i * ld;
+#pragma unroll
+    for (int dn = 0; dn < NT; ++dn) {
+      const int col = 8 * (t0 + dn) + c2;
+      if (col >= cols) continue;
+      const float x0 = acc[dn][2 * half];
+      const float x1 = acc[dn][2 * half + 1];
+      if (pairs) {
+        *reinterpret_cast<uint32_t*>(row + col) = pack_bf16(x0, x1);
+      } else {
+        row[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < cols) row[col + 1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+// the f32 ds of rows r0, r0 + 8 below `rows` and keys below `cols` -> the
+// dbias scratch at base (rows ld floats apart)
+__device__ __forceinline__ void store_ds(float* __restrict__ base, long long ld,
+                                         const float (&ds)[4][4], int rows,
+                                         int cols, int r0, int c2) {
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + 8 * (e >> 1);
+      const int j = 8 * nj + c2 + (e & 1);
+      if (i < rows && j < cols) base[i * ld + j] = ds[nj][e];
+    }
+}
+
+// p (f32, 0 in rows from `rows` on) from the exact softmax numerators e and
+// row sums of rows r0 and r0 + 8, rowsum(dp p) and ds = p (dp - rowsum)
+// into dp
+__device__ __forceinline__ void exact_ds(float (&e)[4][4], float (&dp)[4][4],
+                                         const float (&sum)[2], int rows,
+                                         int r0) {
+  const float rs[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+  float rowsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int r = x >> 1;
+      const float p = div_rn(e[nj][x], sum[r], rs[r]);
+      e[nj][x] = r0 + 8 * r < rows ? p : 0.f;
+      rowsum[r] = __fadd_rn(rowsum[r], __fmul_rn(dp[nj][x], e[nj][x]));
+    }
+  quad_sum(rowsum);
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      dp[nj][x] =
+          __fmul_rn(e[nj][x], __fsub_rn(dp[nj][x], rowsum[x >> 1]));
+}
+
+// dbias of the tensor-core K2s (csrc/attention_wide_mma.cu,
+// csrc/attention_chunked.cu) = the sum over heads 0..H-1, in order, of their
+// f32 ds scratch (N, H, Lq, Lk): a thread per (row, query, key)
+__global__ void mma_dbias_kernel(const float* __restrict__ ds,
+                                 float* __restrict__ dbias, int n, int heads,
+                                 int lq, int lk) {
+  const long long per = (long long)lq * lk;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n * per) return;
+  const long long b = e / per;
+  const long long o = e - b * per;
+  float s = 0.f;
+  for (int h = 0; h < heads; ++h)
+    s = __fadd_rn(s, ds[(b * heads + h) * per + o]);
+  dbias[e] = s;
+}
+
+// launches mma_dbias_kernel; cudaGetLastError() after it (0 = success)
+inline int sum_dbias(const float* ds, float* dbias, int n, int heads, int lq,
+                     int lk, cudaStream_t st) {
+  const long long total = (long long)n * lq * lk;
+  mma_dbias_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      ds, dbias, n, heads, lq, lk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace mrow

@@ -122,6 +122,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA ----
 
+// one box of a 2-D tensor map (64 columns from column `col`, the map's box
+// rows from row `row`) -> dst; completes on `bar`, whose expected bytes the
+// caller sets (mbar_expect_tx)
+__device__ __forceinline__ void load_box(uint8_t* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row)
+      : "memory");
+}
+
 // rows [row0, row0 + rows) of a 2-D bf16 tensor map whose box is
 // (64 columns, rows) -> the slabs at dst; completes on `bar`, which is
 // told to expect the bytes of every box (zero-filled parts included).
@@ -132,15 +146,8 @@ __device__ __forceinline__ void load_tile(uint8_t* dst,
                                           int d) {
   const int ns = slabs(d);
   mbar_expect_tx(bar, (uint32_t)(ns * rows * kRowBytes));
-  for (int s = 0; s < ns; ++s) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-            smem_u32(dst + s * rows * kRowBytes)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-        "r"(s * kSlabCols), "r"(row0)
-        : "memory");
-  }
+  for (int s = 0; s < ns; ++s)
+    load_box(dst + s * rows * kRowBytes, map, bar, s * kSlabCols, row0);
 }
 
 // ---- wgmma ----

@@ -1,13 +1,12 @@
 """Fused multi-head attention: the CUDA kernels `csrc/attention_fwd.cu`
 (K1, the port of the TPU kernel `_fwd_kernel`) and `csrc/attention_bwd.cu`
 (K2, the port of `_bwd_kernel`, deepsc_gan_tpu/ops/pallas/attention.py),
-with `csrc/attention_wide_mma.cu` (bf16, heads up to 256 wide) and
-`csrc/attention_wide.cu` (f32, and the bf16 backward at heads wider than
-256) for the head widths and counts they do not take (and, for the bf16
-forward at heads wider than 256, `csrc/attention_chunked.cu`), their
-wrappers and plain PyTorch versions,
-and the `torch.autograd.Function` that joins them as the TPU package's
-custom VJP does.
+with `csrc/attention_wide_mma.cu` (bf16, heads up to 256 wide),
+`csrc/attention_chunked.cu` (bf16, heads wider than 256) and
+`csrc/attention_wide.cu` (f32) for the head widths and counts they do not
+take, their wrappers and plain PyTorch versions, and the
+`torch.autograd.Function` that joins them as the TPU package's custom VJP
+does.
 
 `fused_attention(q, k, v, bias, heads, scale)` has the JAX signature of
 the TPU kernel's entry point: q (N, Lq, H*Dh), k and v (N, Lk, H*Dh), bias
@@ -51,14 +50,16 @@ KERNEL_WIDE_MMA = "attention_wide_mma"
 # memory to 16, 32, 64, 128 or 256 columns; the forward a block per row,
 # head and 32 queries, the backward a block per row and head up to TILE
 # queries and keys, past them a dq kernel and a dk/dv kernel that pass the
-# statistics through the scratch); in f32, and for the bf16 backward at
-# heads wider than REGISTER_DH, csrc/attention_wide.cu, a warp per (row,
-# head, query) with the head's elements spread over the lanes (past 256 of
-# them, walked in chunks of 256), any length, the same statistics scratch.
-# The bf16 forward at heads wider than REGISTER_DH: the tensor-core chunked
-# kernel (csrc/attention_chunked.cu: mma.sync, a block per row, head, 16
-# queries and 512 output columns, the logits' k-steps split over its eight
-# warps).
+# statistics through the scratch); in f32, csrc/attention_wide.cu, a warp
+# per (row, head, query) with the head's elements spread over the lanes
+# (past 256 of them, walked in chunks of 256), any length, the same
+# statistics scratch. bf16 at heads wider than REGISTER_DH: the tensor-core
+# chunked kernels (csrc/attention_chunked.cu: mma.sync, the logits' k-steps
+# split over a block's eight warps and their partials summed in shared
+# memory; the forward a block per row, head, 16 queries and 512 output
+# columns, the backward per row, head and 128 output columns up to TILE
+# queries and keys, past them a dq and a dk/dv kernel through the
+# statistics scratch).
 HEAD_DIMS = (8, 16, 32)
 MAX_HEADS = 16
 TILE = 32
@@ -156,8 +157,8 @@ def is_wide(heads: int, dh: int) -> bool:
 
 
 def is_chunked_mma(dtype, heads: int, dh: int) -> bool:
-    """Whether K1 at `heads` heads of `dh` in `dtype` runs the tensor-core
-    chunked kernel (bf16, heads wider than REGISTER_DH)."""
+    """Whether K1 and K2 at `heads` heads of `dh` in `dtype` run the
+    tensor-core chunked kernels (bf16, heads wider than REGISTER_DH)."""
     return dtype == torch.bfloat16 and is_wide(heads, dh) \
         and dh > REGISTER_DH
 
@@ -212,31 +213,17 @@ def _bind_wide(kernel, dtype):
     return _BOUND[key]
 
 
-def _bind_wide_mma(kernel):
-    """The tensor-core wide library's bf16 launch function for `kernel`'s
-    function (K1 or K2), with its ctypes signature declared (the wide
-    entries' arguments; the backward's also take the dbias scratch)."""
-    key = (KERNEL_WIDE_MMA, kernel)
+def _bind_tensor_core(library, kernel):
+    """The bf16 launch function for `kernel`'s function (K1 or K2) of a
+    tensor-core wide library (KERNEL_WIDE_MMA or KERNEL_CHUNKED), with its
+    ctypes signature declared (the wide entries' arguments; the backward's
+    also take the statistics and dbias scratch)."""
+    key = (library, kernel)
     if key not in _BOUND:
         part = "fwd" if kernel == KERNEL else "bwd"
-        fn = getattr(build.load(KERNEL_WIDE_MMA),
-                     f"deepsc_attention_wide_mma_{part}_bf16")
+        fn = getattr(build.load(library), f"deepsc_{library}_{part}_bf16")
         fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[kernel]
                                             + 2 * (kernel == KERNEL_BWD))
-                       + [ctypes.c_int] * 5
-                       + [ctypes.c_double, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _BOUND[key] = fn
-    return _BOUND[key]
-
-
-def _bind_chunked():
-    """The bf16 chunked K1's launch function (csrc/attention_chunked.cu),
-    with its ctypes signature declared (the wide forward's arguments)."""
-    key = (KERNEL_CHUNKED, torch.bfloat16)
-    if key not in _BOUND:
-        fn = build.load(KERNEL_CHUNKED).deepsc_attention_chunked_fwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * _POINTERS[KERNEL]
                        + [ctypes.c_int] * 5
                        + [ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -340,9 +327,9 @@ def attention_fwd(q, k, v, bias, heads: int, scale: float):
     n, lq, hd = q.shape
     wide = is_wide(heads, hd // heads)
     if is_chunked_mma(q.dtype, heads, hd // heads):
-        fn = _bind_chunked()
+        fn = _bind_tensor_core(KERNEL_CHUNKED, KERNEL)
     elif is_wide_mma(q.dtype, heads, hd // heads):
-        fn = _bind_wide_mma(KERNEL)
+        fn = _bind_tensor_core(KERNEL_WIDE_MMA, KERNEL)
     elif wide:
         fn = _bind_wide(KERNEL, q.dtype)
     else:
@@ -377,9 +364,12 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     n, lq, hd = q.shape
     lk = k.shape[1]
     wide = is_wide(heads, hd // heads)
-    mma = is_wide_mma(q.dtype, heads, hd // heads)
+    library = (KERNEL_WIDE_MMA if is_wide_mma(q.dtype, heads, hd // heads)
+               else KERNEL_CHUNKED
+               if is_chunked_mma(q.dtype, heads, hd // heads) else None)
+    mma = library is not None
     if mma:
-        fn, scratch = _bind_wide_mma(KERNEL_BWD), is_long(lq, lk)
+        fn, scratch = _bind_tensor_core(library, KERNEL_BWD), is_long(lq, lk)
     elif wide:
         fn, scratch = _bind_wide(KERNEL_BWD, q.dtype), True
     else:
@@ -388,8 +378,8 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     dbias = torch.empty_like(bias) if need_dbias else None
     # the long-length and wide kernels' softmax statistics (m, l,
     # rowsum(dp p), pad) per (row, head, query), written by the dq kernel,
-    # read by the dk/dv one (the tensor-core wide kernels need them only
-    # past TILE queries or keys)
+    # read by the dk/dv one (the tensor-core wide and chunked kernels need
+    # them only past TILE queries or keys)
     stats = torch.empty((n, heads, lq, 4), dtype=torch.float32,
                         device=q.device) if scratch else None
     pointers = [stats] if scratch else []

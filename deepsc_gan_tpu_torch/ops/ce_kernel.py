@@ -20,11 +20,14 @@ on CPU tensors it runs the plain version, which is also what the kernels are
 held against on the card. Each dtype has one tuned kernel: bf16 multiplies
 on the tensor cores (wgmma) and f32 on the CUDA cores in exact f32, which
 the f32 step-parity checks need; a width they do not take goes to the wide
-kernels: K4 in bf16 to `csrc/ce_wide_bwd.cu` (`wgmma`, the output's D cut
-into 64-column slabs over the two warpgroups of a block and, past 640
+kernels: K3 in bf16 to `csrc/ce_wide_fwd.cu` (`wgmma`, the tuned K3's tile
+step with D streamed through a TMA ring in 64-column k-chunks of h's and
+W's tiles), K4 in bf16 to `csrc/ce_wide_bwd.cu` (`wgmma`, the output's D
+cut into 64-column slabs over the two warpgroups of a block and, past 640
 columns, over a cluster of blocks that share each tile's logits through
-distributed shared memory), K3 and the f32 widths to `csrc/ce_wide.cu`
-(CUDA-core tiles with D streamed in chunks).
+distributed shared memory), the f32 widths (and the bf16 K4 past 5,120
+columns) to `csrc/ce_wide.cu` (CUDA-core tiles with D streamed in
+chunks).
 """
 
 from __future__ import annotations
@@ -41,12 +44,19 @@ KERNEL_FWD = "ce_fwd"
 KERNEL_BWD = "ce_bwd"
 KERNEL_WIDE = "ce_wide"
 KERNEL_WIDE_BWD = "ce_wide_bwd"
+KERNEL_WIDE_FWD = "ce_wide_fwd"
 # what the tuned kernels take: D a multiple of D_STEP (one wgmma k-step in
 # bf16, the f32 kernels' vector loads) up to MAX_D; any other D >= 1 goes
-# to the wide kernels (csrc/ce_wide.cu: D streamed in chunks through the
+# to the wide kernels (bf16: csrc/ce_wide_fwd.cu and csrc/ce_wide_bwd.cu on
+# the tensor cores; f32: csrc/ce_wide.cu, D streamed in chunks through the
 # f32 CUDA-core tiles)
 MAX_D = 256
 D_STEP = {torch.float32: 8, torch.bfloat16: 16}
+# the bf16 wide K3 on the tensor cores (csrc/ce_wide_fwd.cu): a ring of
+# FWD_STAGES stages, each a k-chunk of SLAB columns of h's 64-row tile and of
+# W's FWD_TILE-row tile
+FWD_STAGES = 3
+FWD_TILE = 128
 # the bf16 wide K4 on the tensor cores (csrc/ce_wide_bwd.cu): rows of the
 # TMA's tensor maps a multiple of PAD_STEP columns (16 bytes); D cut into
 # slabs of SLAB columns, at most BLOCK_SLABS a block (two warpgroups of
@@ -128,6 +138,33 @@ def wide_bwd_plan(dp: int) -> Optional[WideBwdPlan]:
     stages = min(MAX_STAGES, (SMEM_BUDGET - fixed) // stage)
     return WideBwdPlan(slabs, cluster, block, -(-block // 2), stages,
                        fixed + stages * stage)
+
+
+class WideFwdPlan(NamedTuple):
+    """How csrc/ce_wide_fwd.cu cuts a padded width: its k-chunks of SLAB
+    columns, the ring's stages and a block's dynamic shared memory in
+    bytes (the library's `deepsc_ce_wide_fwd_plan`)."""
+    chunks: int
+    stages: int
+    smem: int
+
+
+def wide_fwd_plan(dp: int) -> Optional[WideFwdPlan]:
+    """The plan at padded width dp (a stage holds a k-chunk of h's 64 rows
+    and of W's FWD_TILE rows, 128 bytes a row: the same shared memory at
+    every width), or None off a positive multiple of PAD_STEP."""
+    if dp <= 0 or dp % PAD_STEP:
+        return None
+    stage = (SLAB + FWD_TILE) * 128
+    return WideFwdPlan(-(-dp // SLAB), FWD_STAGES,
+                       1024 + FWD_STAGES * stage)
+
+
+def uses_tensor_core_fwd(dtype: torch.dtype, d: int) -> bool:
+    """Whether K3 at width d in `dtype` runs the wide tensor-core kernel
+    (csrc/ce_wide_fwd.cu): bf16 off the tuned widths, any D; f32 runs the
+    CUDA-core wide kernels."""
+    return op_dtype(dtype) == torch.bfloat16 and is_wide(dtype, d)
 
 
 def uses_tensor_core_bwd(dtype: torch.dtype, d: int) -> bool:
@@ -224,17 +261,33 @@ def _bind_wide_bwd():
     return _BOUND[key]
 
 
-def library_plan(dp: int) -> WideBwdPlan:
-    """`wide_bwd_plan(dp)` as the built library computes it."""
-    fn = build.load(KERNEL_WIDE_BWD).deepsc_ce_wide_bwd_plan
+def _bind_wide_fwd():
+    """The bf16 tensor-core wide K3's launch function (csrc/ce_wide_fwd.cu),
+    with its ctypes signature declared (the tuned entry's arguments, D the
+    padded width)."""
+    key = (KERNEL_WIDE_FWD, torch.bfloat16)
+    if key not in _BOUND:
+        fn = build.load(KERNEL_WIDE_FWD).deepsc_ce_wide_fwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * _POINTERS[KERNEL_FWD]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
+def library_plan(dp: int, kernel: str = KERNEL_WIDE_BWD):
+    """`wide_bwd_plan(dp)` (or, for KERNEL_WIDE_FWD, `wide_fwd_plan(dp)`)
+    as the built library computes it."""
+    plan = WideFwdPlan if kernel == KERNEL_WIDE_FWD else WideBwdPlan
+    fn = getattr(build.load(kernel), f"deepsc_{kernel}_plan")
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * len(plan._fields))()
     err = fn(dp, out)
     if err != 0:
-        raise ValueError(f"ce_wide_bwd does not take width {dp}: CUDA "
+        raise ValueError(f"{kernel} does not take width {dp}: CUDA "
                          f"error {err}")
-    return WideBwdPlan(*out)
+    return plan(*out)
 
 
 def _bind_wide(kernel, dtype):
@@ -256,7 +309,8 @@ def _bind_wide(kernel, dtype):
 def tiling(kernel, dtype, d, device):
     """(rows of h per tile, vocab rows per tile, blocks per SM) of the
     kernel in the library `kernel` (`ce_fwd`, `ce_bwd`, `ce_wide`,
-    `ce_wide_bwd` (d: the padded width), or K6's `topk` or `topk_wide`)
+    `ce_wide_fwd` or `ce_wide_bwd` (d: the padded width), or K6's `topk` or
+    `topk_wide`)
     that takes the vocab splits, at width d on
     `device`, as the library's
     `deepsc_<kernel>_tiling_<dtype>` reports them (the blocks from CUDA's
@@ -358,8 +412,16 @@ def ce_fwd(h, W, b, labels):
         return ce_fwd_reference(h, W, b, labels)
     h, W, b, labels = _operands(h, W, b, labels)
     _check(h, W, b, labels)
-    fn, splits, wide = _launch_setup(KERNEL_FWD, h, W)
     (n, d), v = h.shape, W.shape[0]
+    if uses_tensor_core_fwd(h.dtype, d):
+        d = padded_width(d)
+        fn, wide = _bind_wide_fwd(), True
+        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+        splits = vocab_splits(n, v, sms, *tiling(KERNEL_WIDE_FWD, h.dtype, d,
+                                                 h.device))
+        h, W = _padded(h, d), _padded(W, d)
+    else:
+        fn, splits, wide = _launch_setup(KERNEL_FWD, h, W)
     f32 = {"dtype": torch.float32, "device": h.device}
     ce = torch.empty(n, **f32)
     lse = torch.empty(n, **f32)

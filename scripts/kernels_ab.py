@@ -3,7 +3,8 @@
 
     python3 scripts/kernels_ab.py OLD NEW
         [--cases ce,attention,attention_bwd,topk,star,wide_ce,
-                 wide_heads_attention,wide_attention,wide_train]
+                 wide_heads_attention,wide_attention,wide_train,
+                 wide_heads_train]
         [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
@@ -32,10 +33,11 @@ library call's. Cases:
 - `wide_ce`: K3 and K4 in bf16 at widths the tuned kernels do not take,
   N = 1,984, V = 22,234: D = 200 (the wide train path's decoder), 512 and
   640 (the wide-heads path's), and K4's dh-only mode at D = 640;
-- `wide_heads_attention`: K1 in bf16 at heads wider than 256, the
-  wide-heads train path's shapes (N = 64): its encoder (one head of 512,
-  Lq = Lk = 32) and its decoder's self (2 heads of 320, 31 x 31) and cross
-  (31 x 32) attentions;
+- `wide_heads_attention`: K1 and K2 (no dbias) in bf16 at heads wider
+  than 256, the wide-heads train path's shapes (N = 64;
+  chip_smoke.WIDE_HEADS_PATH): its encoder (one head of 512, Lq = Lk = 32)
+  and its decoder's self (2 heads of 320, 31 x 31) and cross (31 x 32)
+  attentions;
 - `wide_attention`: K1 and K2 (no dbias) in bf16 at the widened train
   path's shapes (N = 64; chip_smoke.WIDE_PATH): its encoder (8 heads of
   64, Lq = Lk = 32) and its decoder's self (8 heads of 25, 31 x 31) and
@@ -45,7 +47,10 @@ library call's. Cases:
   chip_smoke.phase_wide's widths (encoder 8 heads of 64, decoder 8 heads
   of 25) for 3 epochs of 64 steps: each epoch's seconds and the ms a step
   over the epochs after the first (host clock; the graph's capture is in
-  the first), as the row's `ms`; no device time.
+  the first), as the row's `ms`; no device time;
+- `wide_heads_train`: the same for the wide-heads train path
+  (chip_smoke.phase_wide_heads's widths: encoder one head of 512, decoder
+  2 heads of 320, d_model 640).
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -64,7 +69,8 @@ import sys
 from pathlib import Path
 
 CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
-         "wide_heads_attention", "wide_attention", "wide_train")
+         "wide_heads_attention", "wide_attention", "wide_train",
+         "wide_heads_train")
 
 TURN = r"""
 import json, sys, torch
@@ -197,13 +203,19 @@ if "wide_heads_attention" in cases:
     for label, heads, dh, lq, lk in cs.WIDE_HEADS_PATH:
         row(cs.attention_case(label, TRAIN, lq, lk, bf16, gen, iters, heads,
                               dh))
+        row(cs.attention_bwd_case(label, TRAIN, lq, lk, bf16, gen, iters,
+                                  False, heads, dh))
     gen = torch.Generator("cuda").manual_seed(1)
     for label, heads, dh, lq, lk in cs.WIDE_HEADS_PATH:
         q, k, v, bias = cs.attention_inputs(TRAIN, lq, lk, bf16, gen,
                                             lq == lk, heads, dh)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
         device_us(attn.KERNEL, label,
                   lambda: attn.attention_fwd(q, k, v, bias, heads,
                                              dh ** 0.5))
+        device_us(attn.KERNEL_BWD, label,
+                  lambda: attn.attention_bwd(q, k, v, bias, g, heads,
+                                             dh ** 0.5, False))
 if "wide_attention" in cases:
     shapes = list(cs.WIDE_PATH) + [("wide_32x16", 32, 16, 31, 31)]
     gen = torch.Generator("cuda").manual_seed(0)
@@ -223,20 +235,27 @@ if "wide_attention" in cases:
         device_us(attn.KERNEL_BWD, label,
                   lambda: attn.attention_bwd(q, k, v, bias, g, heads,
                                              dh ** 0.5, False))
-if "wide_train" in cases:
+TRAIN_WIDTHS = {
+    "wide_train": ["--encoder-d-model", "512", "--encoder-d-ff", "1024",
+                   "--decoder-d-model", str(cs.WIDE_PATH_D),
+                   "--decoder-d-ff", str(2 * cs.WIDE_PATH_D)],
+    "wide_heads_train": ["--encoder-d-model", "512", "--encoder-num-heads",
+                         "1", "--encoder-d-ff", "1024", "--decoder-d-model",
+                         "640", "--decoder-num-heads", "2", "--decoder-d-ff",
+                         "1280"]}
+for case, widths in TRAIN_WIDTHS.items():
+    if case not in cases:
+        continue
     from deepsc_gan_tpu_torch import cli
     res = cli.main(["train", "--variant", "transformer", "--train-mode",
                     "plain", "--dtype", "bfloat16", "--bs", str(TRAIN),
                     "--epochs", "3", "--seed", "0", "--device", "cuda",
                     "--log-every", "64", "--log-save-path",
-                    "log/kernels_ab/wide_train", "--checkpoint-path",
-                    "log/kernels_ab/wide_ckpt", "--encoder-d-model", "512",
-                    "--encoder-d-ff", "1024", "--decoder-d-model",
-                    str(cs.WIDE_PATH_D), "--decoder-d-ff",
-                    str(2 * cs.WIDE_PATH_D)])
+                    f"log/kernels_ab/{case}", "--checkpoint-path",
+                    f"log/kernels_ab/{case}_ckpt", *widths])
     seconds = res["epoch_seconds"]
     steps = res["steps"] // len(seconds)
-    row({"kernel": "cli_train", "case": "wide_train", "dtype": "bfloat16",
+    row({"kernel": "cli_train", "case": case, "dtype": "bfloat16",
          "path": res["path"], "epoch_seconds": seconds,
          "ms": sum(seconds[1:]) / len(seconds[1:]) / steps * 1e3})
 if "topk" in cases:

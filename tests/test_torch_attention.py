@@ -251,13 +251,16 @@ def test_fused_attention_function_backward(plain):
 
 
 @pytest.mark.parametrize("shape", [(2, 31, 31, 8, 25), (2, 32, 32, 8, 64),
-                                   (2, 31, 32, 3, 5)])
+                                   (2, 31, 32, 3, 5), (2, 31, 31, 2, 320),
+                                   (2, 32, 32, 1, 264)])
 def test_wide_attention_reference_matches_jax_kernel(shape):
     """The plain K1 and K2 against the TPU kernel and its custom VJP (under
     the Pallas interpreter, one jax.vjp for both) at the widths the
-    tensor-core wide kernels take on the card: the widened model's decoder
-    (8 heads of 25) and encoder (8 of 64), and 3 heads of 5 (widths off the
-    mma k-step, whose head slices start off 16 bytes); out, dq, dk, dv and
+    tensor-core wide and chunked kernels take on the card: the widened
+    model's decoder (8 heads of 25) and encoder (8 of 64), 3 heads of 5
+    (widths off the mma k-step, whose head slices start off 16 bytes), the
+    wide-heads decoder (2 heads of 320) and one head of 264 (past 256, off
+    the k-step); out, dq, dk, dv and
     dbias of sum(sin(out)), with a fully blocked row. f32, as
     test_attention_bwd_reference_matches_jax_kernel, within 2e-6 of the
     largest value of each (XLA and PyTorch sum the products of 64-wide
@@ -309,8 +312,12 @@ def test_wide_mma_routing(dtype, h, dh, mma):
 @pytest.mark.parametrize("dtype,h,dh,chunked", [
     (torch.bfloat16, 2, 320, True), (torch.bfloat16, 1, 512, True),
     (torch.bfloat16, 1, 257, True), (torch.bfloat16, 1, 256, False),
-    (torch.bfloat16, 8, 64, False), (torch.float32, 2, 320, False)])
+    (torch.bfloat16, 8, 64, False), (torch.float32, 2, 320, False),
+    (torch.bfloat16, 1, 300, True), (torch.bfloat16, 1, 1024, True),
+    (torch.float32, 1, 512, False), (torch.float32, 1, 300, False)])
 def test_chunked_mma_routing(dtype, h, dh, chunked):
-    """The bf16 K1 at heads wider than 256 runs the tensor-core chunked
-    kernel (csrc/attention_chunked.cu); f32 and narrower heads do not."""
+    """The bf16 K1 and K2 at heads wider than 256 run the tensor-core
+    chunked kernels (csrc/attention_chunked.cu); f32 (the chunked
+    CUDA-core kernels of csrc/attention_wide.cu) and narrower heads do
+    not."""
     assert attn.is_chunked_mma(dtype, h, dh) == chunked

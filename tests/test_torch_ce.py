@@ -54,6 +54,8 @@ def _leaf(x):
     (16, 8, 40, 8, 16),     # padding on both axes
     (24, 16, 64, 8, 32),    # exact tiles
     (10, 8, 50, 16, 32),    # n < tile
+    (24, 200, 64, 8, 32),   # the widened decoder's width (the wide K3/K4)
+    (16, 264, 64, 8, 32),   # past 256, off the 16-column k-step
 ])
 def test_ce_plain_versions_match_jax_kernels(interpret, n, d, v, tn, tv):
     """ce, and dh, dW, db of sum(ce * weights) through jax.grad, against
@@ -286,6 +288,44 @@ def test_wide_bwd_plan(dp, plan):
 def test_wide_bwd_plan_refuses(dp):
     """No plan off the TMA's 8-column step or past 8 blocks of 640."""
     assert ce.wide_bwd_plan(dp) is None
+
+
+@pytest.mark.parametrize("dp,plan", [
+    (8, (1, 3, 74752)), (200, (4, 3, 74752)), (264, (5, 3, 74752)),
+    (512, (8, 3, 74752)), (640, (10, 3, 74752)), (5128, (81, 3, 74752))])
+def test_wide_fwd_plan(dp, plan):
+    """How csrc/ce_wide_fwd.cu cuts a width (the card test holds this
+    mirror to the library's own): k-chunks of 64 columns, a ring of 3
+    stages of a chunk of h's 64 rows and W's 128 (24 KB), the same shared
+    memory at every width, within a third of the card's 228 KB an SM
+    (three blocks an SM)."""
+    got = ce.wide_fwd_plan(dp)
+    assert tuple(got) == plan
+    assert got.chunks * ce.SLAB >= dp > (got.chunks - 1) * ce.SLAB
+    assert 3 * (got.smem + 1024) <= 233472
+
+
+@pytest.mark.parametrize("dp", [0, 12, 201])
+def test_wide_fwd_plan_refuses(dp):
+    """No plan off the TMA's 8-column step: the wrapper pads such widths
+    (`padded_width`) before the launch."""
+    assert ce.wide_fwd_plan(dp) is None
+    assert ce.wide_fwd_plan(ce.padded_width(dp or 1)) is not None
+
+
+@pytest.mark.parametrize("dtype,d,tensor_cores", [
+    (torch.bfloat16, 200, True), (torch.bfloat16, 640, True),
+    (torch.bfloat16, 12, True), (torch.bfloat16, 5128, True),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 256, False),
+    (torch.float32, 200, False), (torch.float32, 640, False),
+    (torch.float32, 12, False)])
+def test_wide_fwd_routing(dtype, d, tensor_cores):
+    """K3 in bf16 at every width the tuned kernel does not take runs the
+    tensor-core wide kernel (csrc/ce_wide_fwd.cu), past 5,120 columns too;
+    f32 keeps the CUDA-core kernels' exact f32 products, and the tuned
+    widths the tuned kernel."""
+    assert ce.uses_tensor_core_fwd(dtype, d) == tensor_cores
+    assert not tensor_cores or ce.is_wide(dtype, d)
 
 
 def test_wide_bwd_routing():

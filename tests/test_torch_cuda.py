@@ -16,6 +16,7 @@ from deepsc_gan_tpu_torch.evaluate.beam import make_beam_decode_sweep
 from deepsc_gan_tpu_torch.evaluate.greedy import make_greedy_decode_sweep
 from deepsc_gan_tpu_torch.models.transceiver import make_model
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
+from deepsc_gan_tpu_torch.ops import build
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
 from deepsc_gan_tpu_torch.ops import star_kernel as star
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk
@@ -34,10 +35,20 @@ TINY = Config(vocab_size=40, bs=4, seq_len=12, max_length=11,
               dtype="float32")
 
 
-@pytest.fixture
-def cuda():
+@pytest.fixture(scope="session")
+def built():
+    """Every kernel library of csrc/, built before the first card test, all
+    nvcc processes started together: no test's call, nor a profile of it,
+    then spans a compiler run (the card's torch.profiler recorded none or
+    some of the kernels of calls profiled while libraries were being built
+    in the same process)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
+    build.build(sorted(p.stem for p in build.CSRC.glob("*.cu")))
+
+
+@pytest.fixture
+def cuda(built):
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -820,6 +831,7 @@ def _ran(call):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = call()
         torch.cuda.synchronize()
@@ -831,19 +843,23 @@ def _ran(call):
 def _wide_kernels(dtype, h, dh, lq, lk):
     """The device kernels the wide K1 and K2 (with dbias) launch: in bf16
     at heads up to 256 wide the tensor-core wide kernels
-    (csrc/attention_wide_mma.cu; K2 a single kernel up to 32 queries and
-    keys, a dq and a dk/dv kernel past them), wider bf16 heads the
-    tensor-core chunked K1 and the chunked K2, f32 the CUDA-core wide or
-    chunked kernels (csrc/attention_wide.cu)."""
-    if attn.is_wide_mma(dtype, h, dh):
-        bwd = (["wide_mma_bwd_dq_kernel", "wide_mma_bwd_dkv_kernel"]
-               if attn.is_long(lq, lk) else ["wide_mma_bwd_kernel"])
-        return ["wide_mma_fwd_kernel"], bwd + ["wide_mma_dbias_kernel"]
+    (csrc/attention_wide_mma.cu), wider bf16 heads the tensor-core chunked
+    kernels (csrc/attention_chunked.cu; K2 of both a single kernel up to 32
+    queries and keys, a dq and a dk/dv kernel past them, and the dbias sum
+    they share, csrc/mma_row.cuh), f32 the CUDA-core wide or chunked
+    kernels (csrc/attention_wide.cu)."""
+    for pre, takes in (("wide_mma", attn.is_wide_mma),
+                       ("chunked_mma", attn.is_chunked_mma)):
+        if takes(dtype, h, dh):
+            bwd = ([f"{pre}_bwd_dq_kernel", f"{pre}_bwd_dkv_kernel"]
+                   if attn.is_long(lq, lk) else [f"{pre}_bwd_kernel"])
+            fwd = ("attention_fwd_chunked_mma_kernel"
+                   if pre == "chunked_mma" else "wide_mma_fwd_kernel")
+            return [fwd], bwd + ["mma_dbias_kernel"]
     part = "wide" if dh <= attn.REGISTER_DH else "chunked"
-    fwd = ("attention_fwd_chunked_mma_kernel" if dtype == torch.bfloat16
-           else f"attention_fwd_{part}_kernel")
-    return [fwd], [f"attention_bwd_{kind}_{part}_kernel"
-                   for kind in ("dq", "dkv", "dbias")]
+    return [f"attention_fwd_{part}_kernel"], [
+        f"attention_bwd_{kind}_{part}_kernel"
+        for kind in ("dq", "dkv", "dbias")]
 
 
 def _assert_ran(names, want):
@@ -912,16 +928,19 @@ def test_wide_attention_bwd_is_bitwise_deterministic(cuda, dtype, h, dh):
                                           (1, 1024, 8, 32, 32),
                                           (2, 320, 8, 1, 1),
                                           (1, 512, 8, 33, 33),
-                                          (1, 320, 4, 128, 128)])
+                                          (1, 320, 4, 128, 128),
+                                          (1, 300, 64, 31, 31),
+                                          (3, 300, 4, 40, 33)])
 def test_attention_past_256_wide_heads_matches_plain_version(
         cuda, dtype, tol, h, dh, n, lq, lk):
-    """K1 and K2 at heads wider than 256 (bf16 K1: the tensor-core chunked
-    kernel, its logits' k-steps split over warps, 512 output columns a
-    block; f32 K1 and K2: the chunked wide kernels, a head walked in chunks
-    of 256 elements) at the train path's N = 64, at Dh = 264 (off the
-    mma k-step) and 1,024 (two column groups), at one query and key and
-    past 32 of them (two passes over the key tiles), with fully blocked
-    rows: the forward, dq, dk and
+    """K1 and K2 at heads wider than 256 (bf16: the tensor-core chunked
+    kernels, the logits' k-steps split over warps, 512 output columns a
+    K1 block and 128 a K2 block; f32: the chunked wide kernels, a head
+    walked in chunks of 256 elements) at the train path's N = 64, at Dh =
+    264 (off the mma k-step), 300 (off the 16-byte staging step) and 1,024
+    (two K1 column groups), at one query and key and past 32 of them (two
+    passes over the key tiles), with fully blocked rows: the forward, dq,
+    dk and
     dv against the plain versions within the tolerances of chip_smoke.py,
     dbias within them times its largest value (dbias sums p (dp -
     rowsum), dp a dot of Dh N(0, 1) products: at Dh = 512 |dp| reaches
@@ -944,6 +963,57 @@ def test_attention_past_256_wide_heads_matches_plain_version(
         assert _err(a, r, relative=name == "dbias") <= tol, name
 
 
+@pytest.mark.parametrize("h,dh,lq,lk", [(1, 512, 32, 32), (2, 320, 31, 31),
+                                        (2, 320, 31, 32), (1, 300, 31, 31),
+                                        (2, 320, 70, 45)])
+def test_chunked_bf16_k2_is_bitwise_deterministic(cuda, h, dh, lq, lk):
+    """The bf16 K2 past 256-wide heads (csrc/attention_chunked.cu) at the
+    wide-heads path's shapes, off the staging step and past 32: two calls
+    give the same dq, dk, dv bits, and so does a call with dbias (whose
+    dbias is its plain version's within 3.2e-2 of its largest value); its
+    device kernels are the chunked tensor-core ones."""
+    q, k, v, bias = _blocked_inputs(8, lq, lk, h, dh, torch.bfloat16, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(9)).to(
+                        torch.bfloat16)
+    scale = math.sqrt(dh)
+    calls = []
+    for dbias in (False, False, True):
+        got, names = _ran(lambda d=dbias: attn.attention_bwd(
+            q, k, v, bias, g, h, scale, d))
+        _assert_ran(names, _wide_kernels(torch.bfloat16, h, dh, lq, lk)[1]
+                    [:None if dbias else -1])
+        calls.append(got)
+    for other in calls[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(calls[0][:3],
+                                                     other[:3]))
+    want = attn.attention_bwd_reference(q, k, v, bias, g, h, scale, True)
+    assert _err(calls[2][3], want[3], relative=True) <= 3.2e-2
+
+
+def test_tensor_core_wrappers_raise_instead_of_falling_back(cuda,
+                                                            monkeypatch):
+    """When the bf16 wide K3 (csrc/ce_wide_fwd.cu) or the chunked K2
+    reports a failed launch, the wrapper raises and counts nothing: no
+    fall-back to the plain versions or to the CUDA-core kernels."""
+    h, W, b, labels, _ = _ce_inputs(cuda, torch.bfloat16, 64, 200, 300)
+    ce._bind_wide_fwd()
+    monkeypatch.setitem(ce._BOUND, (ce.KERNEL_WIDE_FWD, torch.bfloat16),
+                        lambda *args: 1)
+    ce.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        ce.ce_fwd(h, W, b, labels)
+    assert ce.fwd_launches == 0
+    q, k, v, bias = _inputs(3, 4, 31, 31, 2, 320, torch.bfloat16, cuda)
+    attn._bind_tensor_core(attn.KERNEL_CHUNKED, attn.KERNEL_BWD)
+    monkeypatch.setitem(attn._BOUND, (attn.KERNEL_CHUNKED, attn.KERNEL_BWD),
+                        lambda *args: 1)
+    attn.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        attn.attention_bwd(q, k, v, bias, q, 2, 16.0, False)
+    assert attn.bwd_launches == 0
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3.2e-2)])
 @pytest.mark.parametrize("n,d,v", [(100, 200, 1000), (1984, 512, 22234),
@@ -952,12 +1022,13 @@ def test_attention_past_256_wide_heads_matches_plain_version(
                                    (1984, 640, 22234)])
 def test_wide_ce_kernels_match_plain_versions(cuda, dtype, tol, n, d, v):
     """K3 and K4 past D = 256 and off the tuned steps (D streamed in
-    chunks, the last one ragged), through the wide kernels (bf16 K4 on the
-    tensor cores: D = 12 from zero-padded copies, 200, 512 and 640 in one
-    block, 520 too): ce and lse
+    chunks, the last one ragged), through the wide kernels (bf16 K3 and K4
+    on the tensor cores: D = 12 from zero-padded copies, 200, 512 and 640
+    (K4 in one block), 520 too): ce and lse
     absolute, dh, dW and db relative to the largest reference value and
-    on the softmax part (tol 1e-3 f32, 2e-3 bf16, as chip_smoke.py's); the
-    dh-only mode's dh bitwise the full mode's; two calls bitwise equal.
+    on the softmax part (tol 1e-3 f32, 2e-3 bf16, as chip_smoke.py's), and
+    from K3's lse relative to the largest reference value; the dh-only
+    mode's dh bitwise the full mode's; two calls of each bitwise equal.
     D = 200 in f32 is a tuned width (a multiple of 8 up to 256): the same
     checks hold there on the tuned kernels."""
     _wide_ce_check(cuda, dtype, tol, n, d, v)
@@ -973,35 +1044,54 @@ def test_wide_bf16_ce_kernels_match_plain_versions_past_640(cuda, n, d, v):
     5,120, on the CUDA cores. K4 is given the plain version's lse, so that
     the checks hold K4 alone: logits of these inputs reach 40 (sums of
     1,000 and more products), where the wide K3's lse is a few 1e-5 off
-    the plain version's and shifts every P of its row. (In f32 the wide
+    the plain version's and shifts every P of its row; K4 given K3's lse
+    is held relative to the largest reference value. (In f32 the wide
     K3's ce is 5e-5 off at D = 1,000, beyond the 1e-5 that holds it at
     the widths above.)"""
-    _wide_ce_check(cuda, torch.bfloat16, 3.2e-2, n, d, v, plain_lse=True)
+    _wide_ce_check(cuda, torch.bfloat16, 3.2e-2, n, d, v)
 
 
-def _wide_ce_check(cuda, dtype, tol, n, d, v, plain_lse=False):
+def _wide_ce_check(cuda, dtype, tol, n, d, v):
+    """K3 against its plain version; K4 against its plain version on the
+    same inputs, the plain version's lse (as chip_smoke.py gives both),
+    relative to the largest reference value and on the softmax part; and
+    the chain that training runs, K4 given K3's lse, relative to the
+    largest reference value (as the tuned widths' test holds it) and, in
+    f32, on the softmax part too. In bf16 the softmax-part gate holds only
+    where K4's lse is the plain version's to its last bits: near a P close
+    to 1 (W ~ N(0, 0.3^2) here) a K3 whose lse differs there (its sums in
+    another order; on the tensor cores up to 1.1e-5 at D = 640) flips the
+    bf16 rounding of that P and moves dh by one bf16 step of it, 3.7e-3 of
+    the softmax part at D = 512."""
     wide = int(ce.is_wide(dtype, d))
     h, W, b, labels, g = _ce_inputs(cuda, dtype, n, d, v)
     ce.reset_launches()
     cel, lse = ce.ce_fwd(h, W, b, labels)
     ref_ce, ref_lse = ce.ce_fwd_reference(h, W, b, labels)
-    lse_in = ref_lse if plain_lse else lse
-    grads = ce.ce_bwd(h, W, b, labels, lse_in, g)
-    dh_only = ce.ce_bwd(h, W, b, labels, lse_in, g, dh_only=True)
-    again = ce.ce_bwd(h, W, b, labels, lse_in, g)
+    grads = ce.ce_bwd(h, W, b, labels, ref_lse, g)
+    dh_only = ce.ce_bwd(h, W, b, labels, ref_lse, g, dh_only=True)
+    again = ce.ce_bwd(h, W, b, labels, ref_lse, g)
+    chained = ce.ce_bwd(h, W, b, labels, lse, g)
+    fwd_again = ce.ce_fwd(h, W, b, labels)
     ref = ce.ce_bwd_reference(h, W, b, labels, ref_lse, g)
     part = ce.ce_bwd_reference(h, W, b, labels, ref_lse, g, True)
     torch.cuda.synchronize()
     assert (ce.fwd_launches, ce.bwd_launches, ce.wide_fwd_launches,
             ce.wide_bwd_launches, ce.bwd_dh_only_launches) == \
-        (1, 3, wide, 3 * wide, 1)
+        (2, 4, 2 * wide, 4 * wide, 1)
+    assert torch.equal(cel, fwd_again[0]) and torch.equal(lse, fwd_again[1])
     assert _err(cel, ref_ce) <= tol and _err(lse, ref_lse) <= tol
     soft = {torch.float32: 1e-3, torch.bfloat16: 2e-3}[dtype]
-    for name, a, r, c in zip(("dh", "dW", "db"), grads, ref, part):
+    for name, a, r, c, x in zip(("dh", "dW", "db"), grads, ref, part,
+                                chained):
         assert a.shape == r.shape and a.dtype == torch.float32, name
         assert _err(a, r, relative=True) <= tol, name
         assert (a - r).abs().max().item() <= soft * c.abs().max().item(), \
             name
+        assert x.shape == r.shape and x.dtype == torch.float32, name
+        assert _err(x, r, relative=True) <= tol, f"{name} from K3's lse"
+        assert dtype == torch.bfloat16 or (x - r).abs().max().item() <= \
+            soft * c.abs().max().item(), f"{name} from K3's lse"
     assert dh_only[1] is None and torch.equal(dh_only[0], grads[0])
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
 
@@ -1022,6 +1112,24 @@ def test_wide_bwd_plan_comes_from_the_library(cuda, dp):
     limit = torch.cuda.get_device_properties(cuda) \
         .shared_memory_per_block_optin
     assert want.smem <= limit
+
+
+@pytest.mark.parametrize("dp", [8, 16, 200, 264, 512, 640, 1000, 5128])
+def test_wide_fwd_plan_and_tiling_come_from_the_library(cuda, dp):
+    """`ce.wide_fwd_plan` (k-chunks, stages, shared memory) equals the bf16
+    wide K3 library's own plan, and the tiling the wrapper cuts the vocab
+    by is the library's: 64 rows of h, 128 of W, and the blocks of its
+    kernel that fit an SM (three: one block's softmax under the others'
+    products) at every width; its splits' blocks fit one wave at the
+    training shape."""
+    want = ce.wide_fwd_plan(dp)
+    assert ce.library_plan(dp, ce.KERNEL_WIDE_FWD) == want
+    rows, tile_v, blocks = ce.tiling(ce.KERNEL_WIDE_FWD, torch.bfloat16, dp,
+                                     torch.device(cuda))
+    assert (rows, tile_v, blocks) == (64, ce.FWD_TILE, 3)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = ce.vocab_splits(1984, 22234, sms, rows, tile_v, blocks)
+    assert 31 * splits <= blocks * sms
 
 
 def _wide_topk_inputs(device, dtype, n, d, v, seed, mode):
