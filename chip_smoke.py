@@ -27,7 +27,10 @@ non-zero without its last line:
    with and without dbias; K4 in its dh-only mode (no dW/db) at the
    training shape, its dh bitwise equal to the full mode's; K1 and K2
    also past 32 queries and keys (N = 64, Lq = Lk = 128: the long-length
-   kernels), K2 there bitwise equal over calls too; the widened
+   kernels; the bf16 K2 there, and at 63 x 64, the resident kernel), K2
+   there bitwise equal over calls too; K6's and K2's `design` read from
+   the names of the device kernels one call ran (torch.profiler) and held
+   to the wrappers' route (a mismatch fails); the widened
    shapes: the f32 K2 at 16 heads of 16 (the long-length kernels, its
    short kernel's shared memory too large), K1/K2 at 8 heads of 24, 64 and
    128 and at 32 heads of 16, K3/K4 and K6 at D = 200 and 512, K6 at k =
@@ -38,7 +41,9 @@ non-zero without its last line:
    (31 x 31 and 31 x 32), K3/K4 at D = 640 and K4's dh-only mode there
    (in bf16 K4 off the tuned widths, K1 past 256-wide heads and K1/K2 at
    every other wide shape run their tensor-core kernels: `design` wgmma,
-   mma or wide mma bf16);
+   mma or wide mma bf16); the bf16 K6 on its tensor-core wide kernel at
+   every k of 9, 16, 64 and D of 200, 512, and at the wide beam, each in
+   the dyadic, tie and negative modes (`design` wide wgmma bf16);
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -195,7 +200,16 @@ non-zero without its last line:
    (its kernels and the device's idle share);
 25. preprocess: `cli preprocess` on a corpus the phase writes; the outputs
    read back and decoded equal the tokenized sentences, split 90/10;
-26. the kernels as one JSON line (the wide kernels as entries of their
+26. routes, run right after phase 2, before the export jobs start (no
+   other process on the card, no earlier profile in this process: later,
+   the card's profiler has recorded no kernel at all of such calls): one
+   bf16 call of K6 at every k of
+   9, 16, 64 and D of 200, 512 and at the wide beam, in each input mode,
+   and of K2 at 128 x 128 and 63 x 64 with and without dbias, profiled:
+   each must run its route's kernel (the tensor-core wide K6, the
+   resident K2; torch.profiler's names printed), and the kernel rows of
+   those cases take the design so read;
+27. the kernels as one JSON line (the wide kernels as entries of their
    own, launches from phase 15; the chunked wide K1/K2 too, launches and
    rows from its heads-wider-than-256 path), then `{"ok": true, "device": {...}}`
    as the last line.
@@ -292,20 +306,25 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 3.2e-2}
 SOFTMAX_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-3}
 TRAIN_SHAPES = (("encoder", 32, 32), ("decoder_self", 31, 31),
                 ("decoder_cross", 31, 32))
-# K1/K2 past 32 queries and keys (the long-length kernels), at N = bs
+# K1/K2 past 32 queries and keys (the long-length kernels; the bf16 K2 the
+# resident kernel), at N = bs; the K2 also at the seq-len-64 epoch's
+# decoder cross-attention (LONG_CROSS)
 LONG_LEN = 128
 LONG_CASE = f"long_{LONG_LEN}"
+LONG_CROSS = ("long_63x64", 63, 64)
 # the vanilla train epoch that runs them end to end
 LONG_SEQ = 64
 KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
            star.KERNEL, topk.KERNEL)
 # the libraries of the wide kernels: the shapes the tuned kernels
 # above do not take (the bf16 wide K1/K2 up to 256-wide heads, the bf16 K1
-# past them and the bf16 wide K4 on the tensor cores in libraries of their
-# own)
+# past them, the bf16 wide K3, K4 and K6 on the tensor cores in libraries
+# of their own), and the bf16 K2 past 32 queries or keys up to 128
+# (csrc/attention_bwd_resident.cu)
 WIDE_LIBRARIES = (attn.KERNEL_WIDE, ce.KERNEL_WIDE, star.KERNEL_WIDE,
                   topk.KERNEL_WIDE, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD,
-                  attn.KERNEL_WIDE_MMA, ce.KERNEL_WIDE_FWD)
+                  attn.KERNEL_WIDE_MMA, ce.KERNEL_WIDE_FWD,
+                  topk.KERNEL_WIDE_MMA, attn.KERNEL_RESIDENT)
 # the K4 launches among ce_bwd's that ran in the dh-only mode
 DH_ONLY = "ce_bwd_dh_only"
 # the launches among each kernel's that went to its wide kernels
@@ -327,6 +346,10 @@ GRAPH_RUNS = 3
 WIDE_HEADS = ((8, 24), (8, 64), (8, 128), (32, 16))
 WIDE_D = (200, 512)
 WIDE_K = (9, 16, 64)
+# past the tensor-core wide K6's lists (topk.K_LIST) and the resident K2's
+# lengths (attn.L_RES): the bf16 shapes the older kernels keep
+PAST_LIST_K = 100
+PAST_RESIDENT = 256
 WIDE_STAR_D = (96, 512)
 # the widened CLI paths' own shapes (phase_wide): the encoder at 8 heads of
 # 64 (d_model 512) and the decoder at 8 heads of 25 (d_model 200), N = bs;
@@ -363,6 +386,11 @@ DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
           ce.KERNEL_BWD: WGMMA, topk.KERNEL: WGMMA}
 WIDE_DESIGN = "wide cuda-core f32"
 WIDE_MMA_DESIGN = "wide mma bf16"
+# this slice's routes as the device kernels that ran name them
+# (torch.profiler): the design of each, by a fragment of its kernels' names
+ROUTES = {topk.KERNEL: (("topk_wide_mma", "wide wgmma bf16"),),
+          attn.KERNEL_BWD: (("attention_bwd_resident_kernel",
+                             "resident mma bf16"),)}
 
 
 def phase_device():
@@ -482,6 +510,97 @@ def profiler_device_ms(fn, iters):
              if getattr(e, "device_type", None) == DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False)]
     return _busy_us(spans) / 1e3 / iters if spans else None
+
+
+def ran_kernels(call):
+    """The names of the device kernels two calls of `call` launched, after
+    a short spin of the device (torch.profiler; every library is built
+    before the first call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
+
+
+def routed_design(kernel, label, call, want):
+    """(the design of the kernel that ran in `call` of K6 or K2, from its
+    profiled name (ROUTES); the names); raises where the design is not
+    `want`, the design the wrapper's route predicates choose. The card's
+    profiler has left out kernels of a call (PERF.md): a call whose
+    profile shows another design is profiled again, three times at most."""
+    for _ in range(3):
+        names = ran_kernels(call)
+        got = next((design for fragment, design in ROUTES[kernel]
+                    if any(fragment in name for name in names)), None)
+        if got == want:
+            return got, names
+    if not names:
+        raise AssertionError(f"{kernel} {label}: the profiler recorded no "
+                             f"device kernel in three profiles of the call "
+                             f"(not even the spin); the route is {want}")
+    raise AssertionError(f"{kernel} {label}: the device ran {names} "
+                         f"({got}); the route is {want}")
+
+
+def phase_routes(seed, bs):
+    """The routes of this slice's kernels, from torch.profiler's kernel
+    names, before the export jobs start and before any other profile in
+    this process (with those jobs on the card, and once after them, the
+    profiler recorded no kernel of some or all calls): one bf16 call of K6
+    at every k of WIDE_K and D of WIDE_D and at the wide beam, in each
+    input mode, and of K2 past 32 queries and keys (LONG_CASE, LONG_CROSS)
+    with and without dbias. Each must run its route's kernel (the
+    tensor-core wide K6, the resident K2). -> {(kernel, case): (design,
+    names)}, the design the kernel rows of those cases take (`set_designs`)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf16 = torch.bfloat16
+    seen = {}
+    cases = [(f"k{k}_d{d}_{mode}", bs * BEAM, d, k, mode)
+             for mode in ("dyadic", "tie", "negative") for d in WIDE_D
+             for k in WIDE_K]
+    cases += [("wide_beam" + ("" if mode == "dyadic" else f"_{mode}"),
+               bs * WIDE_BEAM, WIDE_PATH_D, WIDE_BEAM, mode)
+              for mode in ("dyadic", "tie", "negative")]
+    for label, n, d, k, mode in cases:
+        h, W, b = topk_inputs(n, d, k, mode, bf16, gen)
+        seen[(topk.KERNEL, label)] = routed_design(
+            topk.KERNEL, label, lambda: topk.topk_logits(h, W, b, k),
+            topk_design(bf16, d, k))
+    for label, lq, lk in ((LONG_CASE, LONG_LEN, LONG_LEN), LONG_CROSS):
+        q, k, v, bias = attention_inputs(bs, lq, lk, bf16, gen, lq == lk)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+        for dbias in (False, True):
+            seen[(attn.KERNEL_BWD, label + ("+dbias" if dbias else ""))] = \
+                routed_design(attn.KERNEL_BWD, label,
+                              lambda: attn.attention_bwd(q, k, v, bias, g,
+                                                         HEADS, DH ** 0.5,
+                                                         dbias),
+                              "resident mma bf16")
+    for (kernel, label), (design, names) in seen.items():
+        # the port's kernels among them (not the spin, not PyTorch's fill)
+        short = sorted(m.group(1) for m in (
+            re.search(r"(\w+(?:<[\d, ]*>)?)\(", x) for x in names
+            if "at::" not in x) if m and m.group(1) != "spin_kernel")
+        print(f"[routes] {kernel} {label} bf16: {design} "
+              f"({', '.join(short)})")
+    return seen
+
+
+def set_designs(rows, seen):
+    """The bf16 kernel rows of the cases `phase_routes` profiled take the
+    design it read."""
+    for row in rows:
+        key = (row["kernel"], row["case"])
+        if row["dtype"] == "bfloat16" and key in seen:
+            row["design"] = seen[key][0]
 
 
 def attention_inputs(n, lq, lk, dtype, gen, causal, heads=HEADS, dh=DH):
@@ -673,7 +792,9 @@ def attention_bwd_case(label, n, lq, lk, dtype, gen, iters, dbias,
         lambda: torch.autograd.grad(out, leaves, gh, retain_graph=True),
         nbytes, 5 * 2 * n * heads * lq * lk * dh, iters,
         n=n, lq=lq, lk=lk, heads=heads, dh=dh, dbias=dbias,
-        design=_attention_design(attn.KERNEL_BWD, dtype, heads, dh))
+        design=("resident mma bf16"
+                if attn.uses_resident(dtype, lq, lk, heads, dh)
+                else _attention_design(attn.KERNEL_BWD, dtype, heads, dh)))
 
 
 def attention_bwd_bitwise(label, n, lq, lk, dtype, gen, heads=HEADS, dh=DH):
@@ -810,6 +931,34 @@ def dyadic(shape, scale, gen, dtype):
     return (x.float() / (8 * scale)).to(dtype)
 
 
+def topk_inputs(n, d, k, mode, dtype, gen):
+    """h (N, D), W (V, D) and b (V,) of K6's cases (see topk_case)."""
+    v = Config().vocab_size
+    if mode == "tie":
+        h = torch.ones((n, d), device="cuda", dtype=dtype)
+        W = torch.zeros((v, d), device="cuda", dtype=dtype)
+        b = torch.zeros(v, device="cuda")
+        b[[v - 3, 7, v // 2, 130, 64]] = 1.0
+        if k > 8:  # more equal maxima than the tuned kernel's list holds
+            b[torch.arange(9, 9 + 7 * k, 7)] = 1.0
+        return h, W, b
+    h = dyadic((n, d), 8, gen, dtype)
+    W = dyadic((v, d), 2, gen, dtype)
+    b = dyadic((v,), 8, gen, torch.float32)
+    if mode == "negative":
+        b -= 3.0
+        if not (h.float() @ W.float().t() + b).amax().item() < 0:
+            raise AssertionError("topk negative: a logit is not below 0")
+    return h, W, b
+
+
+def topk_design(dtype, d, k):
+    """What multiplies in the K6 kernel that takes width d and k."""
+    if topk.uses_tensor_core(dtype, d, k):
+        return "wide wgmma bf16"
+    return WIDE_DESIGN if topk.is_wide(d, k) else DESIGN[topk.KERNEL][dtype]
+
+
 def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None):
     """K6 at one shape (W the (V, D) table, V = 22,234: its last vocab tile
     of 128 rows is ragged). `mode`: "dyadic", exact logits with many ties;
@@ -818,23 +967,9 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None):
     less 3, so every logit is below 0 and a padded vocab column (zero
     logit) in the list would show. `d` (default the decoder's 128) and k
     past 8 take the wide kernels where the tuned one does not."""
-    cfg = Config()
-    d, v = d or cfg.decoder_d_model, cfg.vocab_size
-    if mode == "tie":
-        h = torch.ones((n, d), device="cuda", dtype=dtype)
-        W = torch.zeros((v, d), device="cuda", dtype=dtype)
-        b = torch.zeros(v, device="cuda")
-        b[[v - 3, 7, v // 2, 130, 64]] = 1.0
-        if k > 8:  # more equal maxima than the tuned kernel's list holds
-            b[torch.arange(9, 9 + 7 * k, 7)] = 1.0
-    else:
-        h = dyadic((n, d), 8, gen, dtype)
-        W = dyadic((v, d), 2, gen, dtype)
-        b = dyadic((v,), 8, gen, torch.float32)
-        if mode == "negative":
-            b -= 3.0
-            if not (h.float() @ W.float().t() + b).amax().item() < 0:
-                raise AssertionError("topk negative: a logit is not below 0")
+    d = d or Config().decoder_d_model
+    h, W, b = topk_inputs(n, d, k, mode, dtype, gen)
+    v = W.shape[0]
     vals, idx, lse = topk.topk_logits(h, W, b, k)
     ref = topk.topk_logits_reference(h, W, b, k)
     torch.cuda.synchronize()
@@ -848,10 +983,14 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None):
         return torch.topk(logits, k), torch.logsumexp(logits, dim=-1)
 
     # rows of h and of W per tile and blocks per SM, as the library reports
-    # them, and the vocab splits the wrapper took from them
+    # them (the tensor-core wide kernel's by k), and the vocab splits the
+    # wrapper took from them
     wide = topk.is_wide(d, k)
-    tiles = ce.tiling(topk.KERNEL_WIDE if wide else topk.KERNEL, dtype, d,
-                      h.device)
+    tensor_core = topk.uses_tensor_core(dtype, d, k)
+    tiles = (ce.tiling(topk.KERNEL_WIDE_MMA, dtype, k, h.device)
+             if tensor_core else
+             ce.tiling(topk.KERNEL_WIDE if wide else topk.KERNEL, dtype, d,
+                       h.device))
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     elt = h.element_size()
     return kernel_row(
@@ -859,9 +998,9 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None):
         TOL[dtype], lambda: topk.topk_logits(h, W, b, k),
         lambda: topk.topk_logits_reference(h, W, b, k), library,
         (n * d + v * d) * elt + v * 4 + n * k * 8 + n * 4, 2 * n * d * v,
-        iters, n=n, d=d, v=v, k=k,
-        design="wide cuda-core f32" if wide else DESIGN[topk.KERNEL][dtype],
-        tiling=list(tiles), splits=ce.vocab_splits(n, v, sms, *tiles))
+        iters, n=n, d=d, v=v, k=k, mode=mode,
+        design=topk_design(dtype, d, k), tiling=list(tiles),
+        splits=ce.vocab_splits(n, v, sms, *tiles))
 
 
 def star_case(label, b, length, dtype, gen, iters, d=HEADS * DH):
@@ -921,6 +1060,9 @@ def phase_kernels(seed, n, bs, iters):
         for dbias in (False, True):
             rows.append(attention_bwd_case(LONG_CASE, bs, LONG_LEN, LONG_LEN,
                                            dtype, gen, iters, dbias))
+            rows.append(attention_bwd_case(LONG_CROSS[0], bs,
+                                           *LONG_CROSS[1:], dtype, gen,
+                                           iters, dbias))
         rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1),
                          cfg.decoder_d_model, cfg.vocab_size)
         rows.append(ce_dh_only_case(dtype, gen, iters, bs * (cfg.seq_len - 1),
@@ -945,7 +1087,8 @@ def phase_kernels(seed, n, bs, iters):
                                   iters))
         for label, lq, lk in [("train_" + label, lq, lk)
                               for label, lq, lk in TRAIN_SHAPES] + [
-                                  (LONG_CASE, LONG_LEN, LONG_LEN)]:
+                                  (LONG_CASE, LONG_LEN, LONG_LEN),
+                                  LONG_CROSS]:
             attention_bwd_bitwise(label, bs, lq, lk, dtype, gen)
         rows += widened_cases(dtype, gen, iters, bs)
     return rows
@@ -1006,6 +1149,25 @@ def widened_cases(dtype, gen, iters, bs):
                               "tie" if k == WIDE_K[1] else "dyadic"))
     rows.append(topk_case("wide_beam", bs * WIDE_BEAM, dtype, gen, iters,
                           WIDE_BEAM, d=WIDE_PATH_D))
+    if dtype == torch.bfloat16:
+        # the tensor-core wide K6 at every list length and width of the
+        # widened shapes, and at the wide beam, in all three input modes
+        for mode in ("dyadic", "tie", "negative"):
+            for d in WIDE_D:
+                for k in WIDE_K:
+                    rows.append(topk_case(f"k{k}_d{d}_{mode}", bs * BEAM,
+                                          dtype, gen, iters, k, mode, d))
+            if mode != "dyadic":
+                rows.append(topk_case(f"wide_beam_{mode}", bs * WIDE_BEAM,
+                                      dtype, gen, iters, WIDE_BEAM, mode,
+                                      WIDE_PATH_D))
+        # what the older kernels keep: K6 past the tensor-core kernel's
+        # lists, K2 past the resident kernel's lengths
+        rows.append(topk_case(f"k{PAST_LIST_K}", bs * BEAM, dtype, gen,
+                              iters, PAST_LIST_K, d=WIDE_PATH_D))
+        rows.append(attention_bwd_case(f"long_{PAST_RESIDENT}", bs,
+                                       PAST_RESIDENT, PAST_RESIDENT, dtype,
+                                       gen, iters, False))
     for d in WIDE_STAR_D:
         rows.append(star_case(f"star_d{d}", bs, default_seq_len("star"),
                               dtype, gen, iters, d))
@@ -3548,8 +3710,10 @@ WIDE_INFO = {
                     "wide kernels; f32 on csrc/ce_wide.cu)"),
     star.KERNEL: (star.KERNEL_WIDE, "star_d96", "the wide star train "
                   "path's ring: K5 at B=64 L=31 D=96 H=8, bf16"),
-    topk.KERNEL: (topk.KERNEL_WIDE, "wide_beam", "the wide beam path: K6 "
-                  "at N=64x9 D=200 V=22234 k=9, bf16"),
+    topk.KERNEL: (topk.KERNEL_WIDE_MMA, "wide_beam", "the wide beam path: "
+                  "K6 at N=64x9 D=200 V=22234 k=9, bf16 (the tensor-core "
+                  "wide kernel; f32 and k past 64 on csrc/topk_wide.cu); "
+                  "`cases`: k = 16 and 64 at D = 200 and 512, N=64x4"),
 }
 
 
@@ -3591,9 +3755,33 @@ def kernels_line(rows, by_path):
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "device_ms", "library_device_ms")}
         out[[e["name"] for e in out].index(kernel)]["long"]["at"] = (
-            f"the long-length kernels: N={row['n']} Lq=Lk={LONG_LEN} H=8 "
-            f"Dh=16, bf16; library: SDPA" + (" backward" if kernel ==
-                                             attn.KERNEL_BWD else ""))
+            f"past 32 queries and keys: N={row['n']} Lq=Lk={LONG_LEN} H=8 "
+            f"Dh=16, bf16" + ("; the resident kernel (its own entry); "
+                              "library: SDPA backward" if kernel ==
+                              attn.KERNEL_BWD else
+                              "; the long-length kernel; library: SDPA"))
+    # the resident K2 (csrc/attention_bwd_resident.cu): every K2 launch of
+    # the seq-len-64 epoch
+    row = next(r for r in rows if r["kernel"] == attn.KERNEL_BWD
+               and r["case"] == LONG_CASE and r["dtype"] == "bfloat16"
+               and not r["dbias"])
+    n = by_path["long_len"][attn.KERNEL_BWD]
+    out.append({
+        "name": attn.KERNEL_RESIDENT, "route": "cuda",
+        "design": row["design"],
+        "source": f"deepsc_gan_tpu_torch/csrc/{attn.KERNEL_RESIDENT}.cu",
+        "replaces": KERNEL_INFO[attn.KERNEL_BWD][0], "launches": n,
+        "launches_by_path": {"long_len": n}, **_timing(row),
+        "cases": {label: _timing(next(
+            r for r in rows if r["kernel"] == attn.KERNEL_BWD
+            and r["case"] == label and r["dtype"] == "bfloat16"))
+            for label in (LONG_CASE + "+dbias", LONG_CROSS[0],
+                          LONG_CROSS[0] + "+dbias")},
+        "at": f"the bf16 K2 past 32 queries or keys up to {attn.L_RES}: "
+              f"N={row['n']} Lq=Lk={LONG_LEN} H=8 Dh=16, no dbias; `cases`: "
+              f"with dbias, and {LONG_CROSS[1]} x {LONG_CROSS[2]} (the "
+              f"seq-len-{LONG_SEQ} epoch's decoder cross-attention); "
+              f"library: SDPA backward"})
     dh = next(r for r in rows if r["case"] == "ce_dh_only"
               and r["dtype"] == "bfloat16")
     paths = {path: got[DH_ONLY] for path, got in by_path.items()}
@@ -3649,6 +3837,12 @@ def kernels_line(rows, by_path):
             "replaces": KERNEL_INFO[kernel][0],
             "launches": sum(paths.values()), "launches_by_path": paths,
             **_timing(row), "at": at})
+        if kernel == topk.KERNEL:
+            out[-1]["cases"] = {label: _timing(next(
+                r for r in rows if r["kernel"] == kernel
+                and r["case"] == label and r["dtype"] == "bfloat16"))
+                for label in (f"k{k}_d{d}_dyadic" for d in WIDE_D
+                              for k in WIDE_K if k != WIDE_BEAM)}
         if kernel in (ce.KERNEL_FWD, ce.KERNEL_BWD):
             # the wide-heads path's CE runs at D = WIDE_HEADS_D; K4 also at
             # D = 512 and in its dh-only mode at WIDE_HEADS_D
@@ -3671,10 +3865,12 @@ def _timing(row):
         "library_ms", "device_ms", "library_device_ms")}
 
 
-def run_phases(args, jobs):
-    """Phases 3 to 25; -> the kernels line's entries."""
+def run_phases(args, jobs, routes):
+    """Phases 3 to 25; -> the kernels line's entries (their designs from
+    `routes`, phase 26's)."""
     rows = phase_kernels(args.seed, len(SNRS) * args.bs, args.bs,
                          args.iters)
+    set_designs(rows, routes)
     by_path = phase_serving(args.seed, args.batches, args.bs)
     phase_f32_ids(args.seed, args.bs)
     by_path["train"], _ = phase_train(args.seed, args.epochs, args.bs)
@@ -3742,9 +3938,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     name = phase_device()
     phase_build()
+    routes = phase_routes(args.seed, args.bs)
     jobs = start_exports(args.seed)
     try:
-        kernels = run_phases(args, jobs)
+        kernels = run_phases(args, jobs, routes)
     finally:
         stop_exports(jobs)
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -31,7 +31,8 @@
 //
 // Up to 32 queries and keys each dtype has one kernel, below; past 32 of
 // either, the long-length kernels further down take the call (query tiles
-// and key tiles of 32; two kernels, dq then dk and dv).
+// and key tiles of 32; two kernels, dq then dk and dv; the bf16 K2 up to
+// 128 queries and keys runs csrc/attention_bwd_resident.cu instead).
 // - bf16, tensor cores (mma.sync m16n8k16, f32 accumulators; the staging,
 //   the quad softmax and the division are K1's, csrc/mma_row.cuh). A warp
 //   takes one head of one batch row. Without dbias a block takes
@@ -559,8 +560,11 @@ attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---- any length: query tiles and key tiles ----
 //
-// Past 32 queries or keys (either) the launch takes two kernels in turn,
-// each recomputing the probabilities per (query tile, key tile) of 32 x 32:
+// Past 32 queries or keys (either) the launch takes two kernels in turn
+// (in bf16 the wrapper takes them only past 128 of either: up to 128 the
+// bf16 K2 runs csrc/attention_bwd_resident.cu, a batch row's head held
+// whole), each recomputing the probabilities per (query tile, key tile)
+// of 32 x 32:
 // A. a block per (batch row, tile of 32 queries), a warp per head: pass 1
 //    streams the key tiles for each query's softmax statistics, the running
 //    max m and sum l (rescaled by exp(m_old - m_new) as in the forward) and

@@ -1,8 +1,9 @@
 // The online softmax of the bf16 tensor-core cross-entropy forwards (the
-// tuned K3 of csrc/ce_fwd.cu and the wide K3 of csrc/ce_wide_fwd.cu), and
-// the host pieces both CE forward libraries share: the merge of the vocab
-// splits, the split sizes and the occupancy query the wrapper cuts the
-// vocab by.
+// tuned K3 of csrc/ce_fwd.cu and the wide K3 of csrc/ce_wide_fwd.cu, and the
+// wide K6 of csrc/topk_wide_mma.cu, which reads no label), the ring that
+// streams D through the wide kernels' tiles, and the host pieces the
+// libraries share: the merge of the vocab splits, the split sizes and the
+// occupancy query the wrapper cuts the vocab by.
 //
 // A block holds a 64-row tile of h and walks vocab tiles of 128 rows of W;
 // a tile's logits S = h_t . W_t^T are a wgmma m64n128 f32 accumulator
@@ -53,12 +54,14 @@ struct Softmax {
   int lab[2];
   float m[2], s[2], gold[2];
 
-  // rows row and row + 8 of h (N rows) and their labels
+  // rows row and row + 8 of h (N rows) and their labels (none when
+  // `labels` is null: the gold logit then stays 0)
   __device__ __forceinline__ void init(const int* __restrict__ labels,
                                        int row, int n) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      lab[i] = row + 8 * i < n ? labels[row + 8 * i] : -1;
+      lab[i] = labels != nullptr && row + 8 * i < n ? labels[row + 8 * i]
+                                                    : -1;
       m[i] = ce::NEG;
       s[i] = 0.f;
       gold[i] = 0.f;
@@ -139,6 +142,102 @@ struct Softmax {
         out[2] = gold[i];
       }
     }
+  }
+};
+
+// The streamed logits of the wide kernels (csrc/ce_wide_fwd.cu,
+// csrc/topk_wide_mma.cu): block (row tile, vocab split) walks its `count`
+// vocab tiles of kTV rows of W against its 64 rows of h with D as a k-loop
+// of 64-column chunks. A ring stage holds one chunk of h's tile and of W's
+// tile (8 + 16 KB, TMA loads into 128-byte-swizzled slabs, one mbarrier a
+// stage). The chunks of a vocab tile accumulate into one 64 x 128 f32 tile
+// (wgmma m64n128k16); each chunk's products are waited for while the next
+// chunk's run, its stage then refilled with the chunk kStages ahead (across
+// vocab tiles, so the next tile's loads run under this tile's epilogue).
+// The TMA fills columns past D with zeros (a k-step past D adds exact
+// zeros; the k-steps wholly past D are not issued).
+template <int kStages>
+struct Ring {
+  static constexpr int kHBytes = wg::kRows * wg::kRowBytes;  // 8 KB
+  static constexpr int kWBytes = kTV * wg::kRowBytes;        // 16 KB
+  static constexpr int kStageBytes = kHBytes + kWBytes;
+  // dynamic shared memory of the ring, its 1,024-byte alignment included
+  static constexpr size_t kBytes = 1024 + (size_t)kStages * kStageBytes;
+
+  const CUtensorMap* hmap;
+  const CUtensorMap* wmap;
+  uint8_t* ring;
+  uint64_t* bar;  // kStages mbarriers in shared memory
+  int row0, t0, nk, ksteps, total;
+
+  // chunk j (k-chunk j % nk of vocab tile t0 + j / nk) -> stage j % kStages
+  __device__ __forceinline__ void load(int j) {
+    uint8_t* st = ring + (j % kStages) * kStageBytes;
+    uint64_t* bj = &bar[j % kStages];
+    const int col = (j % nk) * wg::kSlabCols;
+    wg::mbar_expect_tx(bj, kStageBytes);
+    wg::load_box(st, hmap, bj, col, row0);
+    wg::load_box(st + kHBytes, wmap, bj, col, (t0 + j / nk) * kTV);
+  }
+
+  // every warp's products of chunk j are done: refill its stage
+  __device__ __forceinline__ void release(int j) {
+    __syncthreads();
+    if (threadIdx.x == 0 && j + kStages < total) load(j + kStages);
+  }
+
+  // By every thread of the block: the barriers set up and the first
+  // kStages chunks asked for, for `count` vocab tiles from t0 at padded
+  // width dp.
+  __device__ __forceinline__ void begin(const CUtensorMap* h_map,
+                                        const CUtensorMap* w_map,
+                                        uint8_t* smem, uint64_t* bars,
+                                        int row, int tile0, int count,
+                                        int dp) {
+    hmap = h_map;
+    wmap = w_map;
+    ring = wg::align_1024(smem);
+    bar = bars;
+    row0 = row;
+    t0 = tile0;
+    nk = wg::slabs(dp);
+    ksteps = (dp + 15) / 16;
+    total = count * nk;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kStages; ++i) wg::mbar_init(&bar[i], 1);
+      wg::mbar_fence_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < kStages && j < total; ++j) load(j);
+    }
+  }
+
+  // acc = the logits of the block's 64 rows against its vocab tile `it`
+  // (0 <= it < count), by every thread of the block
+  __device__ __forceinline__ void tile(float (&acc)[64], int it) {
+    const uint32_t ring_addr = wg::smem_u32(ring);
+    wg::fence_regs(acc);
+    for (int kc = 0; kc < nk; ++kc) {
+      const int j = it * nk + kc;
+      wg::mbar_wait(&bar[j % kStages], (j / kStages) & 1);
+      const uint32_t a = ring_addr + (j % kStages) * kStageBytes;  // h
+      const uint32_t w = a + kHBytes;                               // W
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (4 * kc + kk < ksteps)
+          wg::mma_ss_n128(acc, wg::desc_k(a, wg::kRows, kk),
+                          wg::desc_k(w, kTV, kk), kc > 0 || kk > 0);
+      wg::commit();
+      if (kc > 0) {
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        release(j - 1);
+      }
+    }
+    wg::wait_all();
+    wg::fence_regs(acc);
+    release(it * nk + nk - 1);
   }
 };
 

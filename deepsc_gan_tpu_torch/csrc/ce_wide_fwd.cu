@@ -24,7 +24,8 @@
 // S = h_t . W_t^T (wgmma m64n128k16, 64 registers a thread) for its 64 rows
 // of h and a vocab tile of 128 rows of W, and only the operands stream. A
 // ring stage holds one 64-column k-chunk of h's tile and of W's tile (8 +
-// 16 KB, TMA loads into 128-byte-swizzled slabs, one mbarrier a stage), so
+// 16 KB, TMA loads into 128-byte-swizzled slabs, one mbarrier a stage:
+// `ceo::Ring` of csrc/ce_online.cuh, which the wide K6 shares), so
 // shared memory is the same at every D and three blocks share an SM: one
 // block's exponentials run under the others' products. Three stages (72
 // KB) took 0.101 / 0.112 / 0.137 ms at D = 200 / 512 / 640 where four (two
@@ -53,18 +54,10 @@ namespace {
 using ceo::kTV;
 
 constexpr int kStages = 3;
-constexpr int kHBytes = wg::kRows * wg::kRowBytes;  // a k-chunk of h: 8 KB
-constexpr int kWBytes = kTV * wg::kRowBytes;        // of W: 16 KB
-constexpr int kStageBytes = kHBytes + kWBytes;
+using Ring = ceo::Ring<kStages>;
 
 // dynamic shared memory a block needs (the same at every width)
-size_t smem_bytes() {
-  return 1024 + (size_t)kStages * kStageBytes;
-}
-
-__device__ __forceinline__ void wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
+size_t smem_bytes() { return Ring::kBytes; }
 
 // block (row tile, vocab split): (max, sum, gold) of its 64 rows over its
 // vocab tiles, into part[split]
@@ -77,74 +70,26 @@ ce_fwd_wide_tc_kernel(const __grid_constant__ CUtensorMap hmap,
                       int tiles_per_split) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar[kStages];  // the ring's stages
-  uint8_t* ring = wg::align_1024(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  const int lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * wg::kRows;
   const int split = blockIdx.y;
   const int nvt = (v + kTV - 1) / kTV;
   const int t0 = split * tiles_per_split;
   const int count = min(t0 + tiles_per_split, nvt) - t0;
-  const int nk = wg::slabs(dp);         // k-chunks of 64 columns a tile
-  const int ksteps = (dp + 15) / 16;    // k-steps of 16 that hold data
-  const int total = count * nk;         // chunks the block streams
+  Ring ring;
+  ring.begin(&hmap, &wmap, smem_raw, bar, row0, t0, count, dp);
 
-  // chunk j (k-chunk j % nk of vocab tile t0 + j / nk) -> stage j % kStages
-  auto load = [&](int j) {
-    uint8_t* st = ring + (j % kStages) * kStageBytes;
-    uint64_t* bj = &bar[j % kStages];
-    const int col = (j % nk) * wg::kSlabCols;
-    wg::mbar_expect_tx(bj, kStageBytes);
-    wg::load_box(st, &hmap, bj, col, row0);
-    wg::load_box(st + kHBytes, &wmap, bj, col, (t0 + j / nk) * kTV);
-  };
-  // every warp's products of chunk j are done: refill its stage
-  auto release = [&](int j) {
-    __syncthreads();
-    if (tid == 0 && j + kStages < total) load(j + kStages);
-  };
-
-  if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) wg::mbar_init(&bar[i], 1);
-    wg::mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int j = 0; j < kStages && j < total; ++j) load(j);
-  }
-
-  const int r = (tid >> 5) * 16 + (lane >> 2);
+  const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);
   ceo::Softmax sm;
   sm.init(labels, row0 + r, n);
-  const uint32_t ring_addr = wg::smem_u32(ring);
   for (int it = 0; it < count; ++it) {
     const int col0 = (t0 + it) * kTV;
     const int c0 = col0 + 2 * (lane & 3);
     float bias[32];
     ceo::load_bias(bias, b, col0, c0, v);
     float acc[64];
-    wg::fence_regs(acc);
-    for (int kc = 0; kc < nk; ++kc) {
-      const int j = it * nk + kc;
-      wg::mbar_wait(&bar[j % kStages], (j / kStages) & 1);
-      const uint32_t a = ring_addr + (j % kStages) * kStageBytes;  // h
-      const uint32_t w = a + kHBytes;                               // W
-      wg::fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        if (4 * kc + kk < ksteps)
-          wg::mma_ss_n128(acc, wg::desc_k(a, wg::kRows, kk),
-                          wg::desc_k(w, kTV, kk), kc > 0 || kk > 0);
-      wg::commit();
-      if (kc > 0) {
-        wait_one();
-        release(j - 1);
-      }
-    }
-    wg::wait_all();
-    wg::fence_regs(acc);
-    release(it * nk + nk - 1);
+    ring.tile(acc, it);
     sm.add_tile(acc, bias, col0, c0, v);
   }
   sm.store(part, split, row0 + r, n, lane);

@@ -393,10 +393,10 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&a)[4],
 }
 
 // dV += pc^T g and dK += dss^T q for keys 16 m.. over the query k-steps
-// kk < nq: A read transposed from the (query, key) tiles ps and dss, g and
-// q (staged rows `stride` bytes apart, n-tiles t0..) the B operands
-// through ldmatrix.trans
-template <int NT>
+// kk < nq (at most KQ): A read transposed from the (query, key) tiles ps
+// and dss (rows `pstride` bytes apart), g and q (staged rows `stride`
+// bytes apart, n-tiles t0..) the B operands through ldmatrix.trans
+template <int NT, int KQ = 2>
 __device__ __forceinline__ void dkv_products(float (&dva)[NT][4],
                                              float (&dka)[NT][4],
                                              const uint8_t* ps,
@@ -404,15 +404,16 @@ __device__ __forceinline__ void dkv_products(float (&dva)[NT][4],
                                              const uint8_t* gs,
                                              const uint8_t* qs, int stride,
                                              int nq, int m, int t0,
-                                             int lane) {
-  const int o = ((lane & 7) + 8 * (lane >> 4)) * kPStride +
+                                             int lane,
+                                             int pstride = kPStride) {
+  const int o = ((lane & 7) + 8 * (lane >> 4)) * pstride +
                 2 * (16 * m + 8 * ((lane >> 3) & 1));
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
+  for (int kk = 0; kk < KQ; ++kk) {
     if (kk >= nq) continue;
     uint32_t ap[4], ad[4];
-    ldsm_x4_trans(ap, ps + 16 * kk * kPStride + o);
-    ldsm_x4_trans(ad, dss + 16 * kk * kPStride + o);
+    ldsm_x4_trans(ap, ps + 16 * kk * pstride + o);
+    ldsm_x4_trans(ad, dss + 16 * kk * pstride + o);
     const int row = (16 * kk + (lane & 15)) * stride + 16 * t0;
 #pragma unroll
     for (int dn = 0; dn < NT; ++dn) {

@@ -5,7 +5,8 @@
 // topk.py where the tuned kernel (csrc/topk.cu: a sorted list of at most 8
 // candidates a row in registers, D a multiple of 8 up to 256) does not take
 // the call: the JAX kernel takes any k (`_take_top`, topk.py:76) and any D,
-// so `--beam-size 9`, 16 or 64 and `--decoder-d-model 512` run here. Same
+// so `--beam-size 9`, 16 or 64 and `--decoder-d-model 512` run here in
+// f32, and in bf16 past k = 64 (bf16 up to 64: csrc/topk_wide_mma.cu). Same
 // function as the tuned kernel: per row of h (N, D) over the vocab table W
 // (V, D) of one type T and bias b (V) f32, the k largest logits h . W_v +
 // b_v in descending order, ties to the lowest vocab index (k rounds of

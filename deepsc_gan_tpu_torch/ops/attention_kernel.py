@@ -1,7 +1,9 @@
 """Fused multi-head attention: the CUDA kernels `csrc/attention_fwd.cu`
 (K1, the port of the TPU kernel `_fwd_kernel`) and `csrc/attention_bwd.cu`
 (K2, the port of `_bwd_kernel`, deepsc_gan_tpu/ops/pallas/attention.py),
-with `csrc/attention_wide_mma.cu` (bf16, heads up to 256 wide),
+with `csrc/attention_bwd_resident.cu` (the bf16 K2 past 32 queries or keys
+up to L_RES of both), `csrc/attention_wide_mma.cu` (bf16, heads up to 256
+wide),
 `csrc/attention_chunked.cu` (bf16, heads wider than 256) and
 `csrc/attention_wide.cu` (f32) for the head widths and counts they do not
 take, their wrappers and plain PyTorch versions, and the
@@ -32,6 +34,7 @@ KERNEL_BWD = "attention_bwd"
 KERNEL_WIDE = "attention_wide"
 KERNEL_CHUNKED = "attention_chunked"
 KERNEL_WIDE_MMA = "attention_wide_mma"
+KERNEL_RESIDENT = "attention_bwd_resident"
 # what the tuned kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu):
 # a warp per head of a compile-time width in HEAD_DIMS, at most MAX_HEADS
 # heads, any number of queries and keys. Up to TILE of both: a block per
@@ -60,10 +63,17 @@ KERNEL_WIDE_MMA = "attention_wide_mma"
 # columns, the backward per row, head and 128 output columns up to TILE
 # queries and keys, past them a dq and a dk/dv kernel through the
 # statistics scratch).
+# The bf16 K2 at those head widths and counts past TILE queries or keys, up
+# to L_RES of both, runs the resident kernel
+# (csrc/attention_bwd_resident.cu: a block per batch row and head holds the
+# head's q, g, k, v and the row's bias tile, a warp per 16 queries forms p
+# once over all keys, then a warp per 16 keys sums dk and dv over all
+# queries); the long-length kernels keep f32 and longer rows.
 HEAD_DIMS = (8, 16, 32)
 MAX_HEADS = 16
 TILE = 32
 REGISTER_DH = 256
+L_RES = 128
 
 # Launches of the forward (K1) and backward (K2) kernels since the last
 # reset (each wrapper adds one per launch and nowhere else; `wide_launches`
@@ -150,6 +160,33 @@ def is_long(lq: int, lk: int) -> bool:
     return lq > TILE or lk > TILE
 
 
+def uses_resident(dtype, lq: int, lk: int, heads: int, dh: int) -> bool:
+    """Whether K2 at Lq x Lk and `heads` heads of `dh` in `dtype` runs the
+    resident kernel (csrc/attention_bwd_resident.cu): bf16 at the tuned
+    head widths and counts, past TILE queries or keys, up to L_RES of
+    both."""
+    return (dtype == torch.bfloat16 and is_long(lq, lk) and lq <= L_RES
+            and lk <= L_RES and not is_wide(heads, dh))
+
+
+def resident_smem_bytes(lq: int, lk: int, dh: int) -> int:
+    """Shared memory of a resident K2 block (the library's
+    `deepsc_attention_bwd_resident_plan`): with the lengths rounded up to
+    16, the head's q, g (Lq rows) and k, v (Lk rows) at an odd number of
+    16-byte units a row, the bias tile at Lk + 8 floats a row, and the pc
+    and dss tiles at 2 Lk + 16 bytes a row."""
+    lqp, lkp = -(-lq // 16) * 16, -(-lk // 16) * 16
+    units = dh * 2 // 16
+    stride = 16 * (units + (1 if units % 2 == 0 else 2))
+    return (2 * (lqp + lkp) * stride + 4 * lqp * (lkp + 8)
+            + 2 * lqp * (2 * lkp + 16))
+
+
+def resident_threads(lq: int, lk: int) -> int:
+    """Threads of a resident K2 block: a warp per 16 of the longer side."""
+    return 32 * -(-max(lq, lk) // 16)
+
+
 def is_wide(heads: int, dh: int) -> bool:
     """Whether `heads` heads of width `dh` go to the wide kernels (a width
     outside HEAD_DIMS, or more than MAX_HEADS heads)."""
@@ -229,6 +266,34 @@ def _bind_tensor_core(library, kernel):
         fn.restype = ctypes.c_int
         _BOUND[key] = fn
     return _BOUND[key]
+
+
+def _bind_resident():
+    """The resident K2's launch function, with its ctypes signature
+    declared (the backward's arguments, then the dbias scratch)."""
+    key = (KERNEL_RESIDENT, KERNEL_BWD)
+    if key not in _BOUND:
+        fn = build.load(KERNEL_RESIDENT).deepsc_attention_bwd_resident_bf16
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[KERNEL_BWD] + 1)
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
+def resident_plan(lq: int, lk: int, dh: int):
+    """(shared memory bytes, threads, blocks an SM) of a resident K2 block
+    at Lq x Lk and head width dh, as the built library reports them."""
+    fn = build.load(KERNEL_RESIDENT).deepsc_attention_bwd_resident_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(lq, lk, dh, out)
+    if err != 0:
+        raise ValueError(f"{KERNEL_RESIDENT} does not take {lq} x {lk} at "
+                         f"head width {dh}: CUDA error {err}")
+    return tuple(out)
 
 
 def _check(q, k, v, bias, heads):
@@ -368,8 +433,11 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
                else KERNEL_CHUNKED
                if is_chunked_mma(q.dtype, heads, hd // heads) else None)
     mma = library is not None
+    resident = uses_resident(q.dtype, lq, lk, heads, hd // heads)
     if mma:
         fn, scratch = _bind_tensor_core(library, KERNEL_BWD), is_long(lq, lk)
+    elif resident:
+        fn, scratch = _bind_resident(), False
     elif wide:
         fn, scratch = _bind_wide(KERNEL_BWD, q.dtype), True
     else:
@@ -383,7 +451,11 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     stats = torch.empty((n, heads, lq, 4), dtype=torch.float32,
                         device=q.device) if scratch else None
     pointers = [stats] if scratch else []
-    if mma:
+    if resident:
+        # each head's f32 ds, summed over the heads for dbias
+        pointers = [torch.empty((n, heads, lq, lk), dtype=torch.float32,
+                                device=q.device) if need_dbias else None]
+    elif mma:
         # the scratch may be null here, and each head's f32 ds goes to a
         # second one, summed over the heads for dbias
         ds = torch.empty((n, heads, lq, lk), dtype=torch.float32,

@@ -16,9 +16,14 @@ runs the plain version, which is also what the kernel is held against on
 the card. Each dtype has one kernel: bf16 multiplies on the tensor cores
 (wgmma) and f32 on the CUDA cores in exact f32, which the f32 beam id
 checks need. Past k = 8, or at a width off its step, the wide kernels
-(`csrc/topk_wide.cu`) take the call. The vocab splits come from
-`ce_kernel.vocab_splits` fed by the library's tiles and blocks per SM
-(`deepsc_topk_tiling_*`, `deepsc_topk_wide_tiling_*`).
+take the call: in bf16 up to k = K_LIST the tensor-core wide kernel
+(`csrc/topk_wide_mma.cu`: the wide K3's streamed wgmma logits tile, each
+row's k best kept in shared memory behind a threshold filter, then a merge
+of the vocab splits), f32 and bf16 past K_LIST `csrc/topk_wide.cu` (the
+logits through a workspace, each split's top k, then a merge). The vocab
+splits come from `ce_kernel.vocab_splits` fed by the library's tiles and
+blocks per SM (`deepsc_topk_tiling_*`, `deepsc_topk_wide_tiling_*`,
+`deepsc_topk_wide_mma_tiling_bf16`).
 
 `take_top` is the selection both use, and beam search's second stage too:
 k rounds of (max, lowest index reaching the max), each winner masked to
@@ -28,6 +33,7 @@ NEG. `torch.topk` is not used: its order on ties is not specified.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,13 +41,16 @@ from deepsc_gan_tpu_torch.ops import build
 from deepsc_gan_tpu_torch.ops.ce_kernel import (
     MAX_D,
     _on_cuda,
+    _padded,
     op_dtype,
+    padded_width,
     tiling,
     vocab_splits,
 )
 
 KERNEL = "topk"
 KERNEL_WIDE = "topk_wide"
+KERNEL_WIDE_MMA = "topk_wide_mma"
 NEG = -1e30
 IBIG = 2 ** 30
 # what the tuned kernel takes: k up to MAX_K (a sorted list of at most 8 a
@@ -50,6 +59,17 @@ IBIG = 2 ** 30
 # logits through a workspace, each vocab split's top k, then a merge)
 MAX_K = 8
 D_STEP = 8
+# the bf16 tensor-core wide kernel (csrc/topk_wide_mma.cu): k up to K_LIST,
+# each row's list LIST_LENGTHS long (the first that holds k), a ring of
+# MMA_STAGES stages of a 64-column k-chunk of h's 64 rows and of W's
+# MMA_TILE rows (128 bytes a row), and MMA_BUF candidate keys a row a round;
+# the list and the buffer of each of a block's 64 rows (and one key of
+# padding), 8 bytes a key
+K_LIST = 64
+LIST_LENGTHS = (16, 32, 64)
+MMA_STAGES = 2
+MMA_TILE = 128
+MMA_BUF = 32
 
 # Launches of K6 since the last reset (the wrapper adds one per launch and
 # nowhere else; `wide_launches` counts the calls among them that went to
@@ -68,6 +88,48 @@ def reset_launches() -> None:
 def is_wide(d: int, k: int) -> bool:
     """Whether width D and k go to the wide kernels."""
     return k > MAX_K or d % D_STEP != 0 or d > MAX_D
+
+
+def uses_tensor_core(dtype: torch.dtype, d: int, k: int) -> bool:
+    """Whether K6 at width d and k in `dtype` runs the tensor-core wide
+    kernel (csrc/topk_wide_mma.cu): bf16 calls the tuned kernel does not
+    take, k up to K_LIST; f32 and longer lists run csrc/topk_wide.cu."""
+    return (op_dtype(dtype) == torch.bfloat16 and is_wide(d, k)
+            and k <= K_LIST)
+
+
+class WideMmaPlan(NamedTuple):
+    """How csrc/topk_wide_mma.cu takes k: its list length, the ring's
+    stages and a block's dynamic shared memory in bytes (the library's
+    `deepsc_topk_wide_mma_plan`)."""
+    list_length: int
+    stages: int
+    smem: int
+
+
+def wide_mma_plan(k: int) -> Optional[WideMmaPlan]:
+    """The plan for k (the same at every width), or None outside 1..K_LIST:
+    1,024 bytes of alignment, the ring, and per row of the block's 64 the
+    list, the buffer and a key of padding."""
+    if not 1 <= k <= K_LIST:
+        return None
+    length = next(n for n in LIST_LENGTHS if k <= n)
+    ring = MMA_STAGES * (64 + MMA_TILE) * 128
+    keys = 64 * (length + MMA_BUF + 1)
+    return WideMmaPlan(length, MMA_STAGES, 1024 + ring + 8 * keys)
+
+
+def library_plan(k: int) -> WideMmaPlan:
+    """`wide_mma_plan(k)` as the built library computes it."""
+    fn = build.load(KERNEL_WIDE_MMA).deepsc_topk_wide_mma_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(WideMmaPlan._fields))()
+    err = fn(k, out)
+    if err != 0:
+        raise ValueError(f"{KERNEL_WIDE_MMA} does not take k = {k}: CUDA "
+                         f"error {err}")
+    return WideMmaPlan(*out)
 
 
 def take_top(x: torch.Tensor, cols: torch.Tensor, k: int):
@@ -139,6 +201,19 @@ def _bind_wide(dtype):
     return _BOUND[key]
 
 
+def _bind_wide_mma():
+    """The tensor-core wide library's launch function, with its ctypes
+    signature declared."""
+    key = (KERNEL_WIDE_MMA, torch.bfloat16)
+    if key not in _BOUND:
+        fn = build.load(KERNEL_WIDE_MMA).deepsc_topk_wide_mma_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
 def _check(h, W, b, k):
     """What the kernels take: h (N, D) and W (V, D) of one dtype, f32 or
     bf16, any D >= 1; b (V,) f32; 1 <= k <= V; all contiguous, 16-byte
@@ -173,7 +248,29 @@ def topk_logits(h, W, b, k: int = 4):
     h, W, b = _operands(h, W, b)
     _check(h, W, b, k)
     (n, d), v = h.shape, W.shape[0]
-    props = torch.cuda.get_device_properties(h.device)
+    dev = h.device
+    vals = torch.empty((n, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    lse = torch.empty(n, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    wide = is_wide(d, k)
+    launch = (_launch_wide_mma if uses_tensor_core(h.dtype, d, k)
+              else _launch)
+    err = launch(h, W, b, k, vals, idx, lse, stream)
+    if err != 0:
+        raise RuntimeError(f"K6 launch failed: CUDA error {err}")
+    global launches, wide_launches
+    launches += 1
+    wide_launches += wide
+    return vals, idx, lse
+
+
+def _launch(h, W, b, k, vals, idx, lse, stream):
+    """The tuned kernel, or the wide kernels of csrc/topk_wide.cu, on
+    checked operands; -> the CUDA error code."""
+    (n, d), v = h.shape, W.shape[0]
+    dev = h.device
+    props = torch.cuda.get_device_properties(dev)
     wide = is_wide(d, k)
     if not wide:
         fn, smem_bytes = _bind(h.dtype)
@@ -183,35 +280,45 @@ def topk_logits(h, W, b, k: int = 4):
                              f"{props.shared_memory_per_block_optin}")
     splits = vocab_splits(n, v, props.multi_processor_count,
                           *tiling(KERNEL_WIDE if wide else KERNEL, h.dtype,
-                                  d, h.device))
-    dev = h.device
-    vals = torch.empty((n, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
-    lse = torch.empty(n, dtype=torch.float32, device=dev)
+                                  d, dev))
     listed = k if wide else MAX_K
     part_v = torch.empty((splits, n, listed), dtype=torch.float32,
                          device=dev)
     part_i = torch.empty((splits, n, listed), dtype=torch.int32, device=dev)
     part_ms = torch.empty((splits, n, 2), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if wide:
         # the wide kernels' (N, V) f32 logits, written once and read by the
         # split selection
         logits = torch.empty((n, v), dtype=torch.float32, device=dev)
-        err = _bind_wide(h.dtype)(
+        return _bind_wide(h.dtype)(
             h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), lse.data_ptr(), logits.data_ptr(),
             part_v.data_ptr(), part_i.data_ptr(), part_ms.data_ptr(), n, d,
             v, k, splits, stream)
-    else:
-        err = fn(h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
-                 idx.data_ptr(), lse.data_ptr(), part_v.data_ptr(),
-                 part_i.data_ptr(), part_ms.data_ptr(), n, d, v, k, splits,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"K6 launch failed: CUDA error {err}")
-    global launches, wide_launches
-    launches += 1
-    wide_launches += wide
-    return vals, idx, lse
+    return fn(h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
+              idx.data_ptr(), lse.data_ptr(), part_v.data_ptr(),
+              part_i.data_ptr(), part_ms.data_ptr(), n, d, v, k, splits,
+              stream)
 
+
+def _launch_wide_mma(h, W, b, k, vals, idx, lse, stream):
+    """The tensor-core wide kernel on checked bf16 operands (D off 8
+    columns through zero-padded copies of width dp); -> the CUDA error
+    code."""
+    (n, d), v = h.shape, W.shape[0]
+    dp = padded_width(d)
+    h, W = _padded(h, dp), _padded(W, dp)
+    dev = h.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the library's tiling takes k in the place of a width
+    splits = vocab_splits(n, v, sms, *tiling(KERNEL_WIDE_MMA, h.dtype, k,
+                                             dev))
+    part_key = torch.empty((n, splits, k), dtype=torch.int64, device=dev)
+    part_ms = torch.empty((splits, n, 3), dtype=torch.float32, device=dev)
+    # each row's threshold, shared by its splits (the largest k-th key a
+    # split has published), from zero
+    row_kth = torch.zeros(n, dtype=torch.int64, device=dev)
+    return _bind_wide_mma()(
+        h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), lse.data_ptr(), part_key.data_ptr(),
+        part_ms.data_ptr(), row_kth.data_ptr(), n, dp, v, k, splits, stream)

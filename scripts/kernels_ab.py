@@ -4,7 +4,8 @@
     python3 scripts/kernels_ab.py OLD NEW
         [--cases ce,attention,attention_bwd,topk,star,wide_ce,
                  wide_heads_attention,wide_attention,wide_train,
-                 wide_heads_train]
+                 wide_heads_train,wide_topk,long_attention_bwd,
+                 wide_beam_eval,long_train]
         [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
@@ -50,7 +51,22 @@ library call's. Cases:
   the first), as the row's `ms`; no device time;
 - `wide_heads_train`: the same for the wide-heads train path
   (chip_smoke.phase_wide_heads's widths: encoder one head of 512, decoder
-  2 heads of 320, d_model 640).
+  2 heads of 320, d_model 640);
+- `wide_topk`: K6 in bf16 where the tuned kernel does not take the call:
+  the wide beam (N = 64 x 9, D = 200, k = 9), k = 16 and 64 at N = 64 x 4
+  and D = 200, and D = 512 at k = 4 and 64, V = 22,234, dyadic inputs;
+- `long_attention_bwd`: K2 in bf16 past 32 queries and keys (N = 64, 8
+  heads of 16, no dbias): 128 x 128 and 63 x 64 (`cli train --seq-len
+  64`'s decoder cross-attention);
+- `wide_beam_eval`: the wide beam end to end, `cli evaluate --eval-mode
+  beam --beam-size 9` in bf16 on a random init of the widened transceiver
+  (encoder 8 heads of 64, decoder 8 heads of 25: d_model 200), one batch
+  of 64 at 19 SNRs: each decode call's seconds, and the mean over the
+  calls after the first as the row's `ms` (host clock);
+- `long_train`: `cli train --seq-len 128` in bf16 from a random init (seed
+  0, batch 64, the default graphed path) for 2 epochs of 64 steps: the
+  ms a step of the second epoch as the row's `ms` (host clock; the graph's
+  capture is in the first).
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -70,7 +86,8 @@ from pathlib import Path
 
 CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
          "wide_heads_attention", "wide_attention", "wide_train",
-         "wide_heads_train")
+         "wide_heads_train", "wide_topk", "long_attention_bwd",
+         "wide_beam_eval", "long_train")
 
 TURN = r"""
 import json, sys, torch
@@ -258,6 +275,62 @@ for case, widths in TRAIN_WIDTHS.items():
     row({"kernel": "cli_train", "case": case, "dtype": "bfloat16",
          "path": res["path"], "epoch_seconds": seconds,
          "ms": sum(seconds[1:]) / len(seconds[1:]) / steps * 1e3})
+if "wide_topk" in cases:
+    shapes = (("wide_beam", 64 * 9, 200, 9), ("k16_d200", BEAM, 200, 16),
+              ("k64_d200", BEAM, 200, 64), ("d512", BEAM, 512, 4),
+              ("k64_d512", BEAM, 512, 64))
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, n, d, k in shapes:
+        row(cs.topk_case(label, n, bf16, gen, iters, k, d=d))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, n, d, k in shapes:
+        h = cs.dyadic((n, d), 8, gen, bf16)
+        W = cs.dyadic((V, d), 2, gen, bf16)
+        b = cs.dyadic((V,), 8, gen, torch.float32)
+        device_us(topk.KERNEL, label,
+                  lambda: topk.topk_logits(h, W, b, k))
+if "long_attention_bwd" in cases:
+    shapes = (("long_128", 128, 128), ("long_63x64", 63, 64))
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, lq, lk in shapes:
+        row(cs.attention_bwd_case(label, TRAIN, lq, lk, bf16, gen, iters,
+                                  False))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, lq, lk in shapes:
+        q, k, v, bias = cs.attention_inputs(TRAIN, lq, lk, bf16, gen,
+                                            lq == lk)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+        device_us(attn.KERNEL_BWD, label,
+                  lambda: attn.attention_bwd(q, k, v, bias, g, cs.HEADS, 4.0,
+                                             False))
+if "wide_beam_eval" in cases:
+    from deepsc_gan_tpu_torch import cli
+    res = cli.main(["evaluate", "--variant", "transformer", "--eval-mode",
+                    "beam", "--beam-size", "9", "--dtype", "bfloat16",
+                    "--bs", str(TRAIN), "--eval-batches", "1", "--seed", "0",
+                    "--snr-lo", "0", "--snr-hi", "18", "--device", "cuda",
+                    "--encoder-d-model", "512", "--encoder-d-ff", "1024",
+                    "--decoder-d-model", str(cs.WIDE_PATH_D),
+                    "--decoder-d-ff", str(2 * cs.WIDE_PATH_D),
+                    "--checkpoint-path", "log/kernels_ab/no_ckpt",
+                    "--log-save-path", "log/kernels_ab/wide_beam_eval"])
+    seconds = res["decode_seconds"]
+    row({"kernel": "cli_evaluate", "case": "wide_beam_eval",
+         "dtype": "bfloat16", "decode_seconds": seconds,
+         "ms": sum(seconds[1:]) / len(seconds[1:]) * 1e3})
+if "long_train" in cases:
+    from deepsc_gan_tpu_torch import cli
+    res = cli.main(["train", "--variant", "transformer", "--train-mode",
+                    "plain", "--dtype", "bfloat16", "--bs", str(TRAIN),
+                    "--epochs", "2", "--seed", "0", "--device", "cuda",
+                    "--seq-len", "128", "--log-every", "64",
+                    "--log-save-path", "log/kernels_ab/long_train",
+                    "--checkpoint-path", "log/kernels_ab/long_train_ckpt"])
+    seconds = res["epoch_seconds"]
+    steps = res["steps"] // len(seconds)
+    row({"kernel": "cli_train", "case": "long_train", "dtype": "bfloat16",
+         "path": res["path"], "epoch_seconds": seconds,
+         "ms": seconds[-1] / steps * 1e3})
 if "topk" in cases:
     shapes = (("beam", BEAM), ("beam_sweep", 19 * BEAM))
     for dtype in (bf16, torch.float32):

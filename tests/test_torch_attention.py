@@ -193,13 +193,16 @@ def test_kernel_wrapper_takes_any_length(lq, lk):
 
 
 @pytest.mark.parametrize("shape", [(4, 8, 8, 2, 8), (4, 7, 9, 2, 8),
-                                   (6, 1, 12, 3, 4), (2, 31, 32, 8, 16)])
+                                   (6, 1, 12, 3, 4), (2, 31, 32, 8, 16),
+                                   (1, 63, 64, 8, 16), (1, 128, 128, 8, 16)])
 def test_attention_bwd_reference_matches_jax_kernel(shape):
     """The plain backward (K2's plain version) against jax.grad through the
     TPU kernel's custom VJP (under the Pallas interpreter), and against
     torch.autograd through the plain forward: dq, dk, dv and dbias of
     sum(sin(out)), at the shapes of tests/test_ops.py's kernel test (Lq !=
-    Lk included) and the decoder cross-attention's."""
+    Lk included), the decoder cross-attention's, and past 32 queries and
+    keys (63 x 64, `cli train --seq-len 64`'s decoder cross-attention, and
+    128 x 128: the resident kernel's lengths on the card)."""
     b, lq, lk, h, dh = shape
     q, k, v, bias = _inputs(5, b, lq, lk, h, dh)
     scale = float(np.sqrt(dh))
@@ -321,3 +324,60 @@ def test_chunked_mma_routing(dtype, h, dh, chunked):
     CUDA-core kernels of csrc/attention_wide.cu) and narrower heads do
     not."""
     assert attn.is_chunked_mma(dtype, h, dh) == chunked
+
+
+@pytest.mark.parametrize("dtype,lq,lk,h,dh,resident", [
+    (torch.bfloat16, 33, 33, 8, 16, True), (torch.bfloat16, 64, 64, 8, 16,
+                                            True),
+    (torch.bfloat16, 128, 128, 8, 16, True), (torch.bfloat16, 63, 64, 8, 16,
+                                              True),
+    (torch.bfloat16, 128, 31, 16, 8, True), (torch.bfloat16, 20, 100, 4, 32,
+                                             True),
+    (torch.bfloat16, 129, 129, 8, 16, False), (torch.bfloat16, 64, 200, 8,
+                                               16, False),
+    (torch.bfloat16, 32, 32, 8, 16, False), (torch.bfloat16, 31, 32, 8, 16,
+                                             False),
+    (torch.bfloat16, 64, 64, 8, 25, False), (torch.bfloat16, 64, 64, 32, 16,
+                                             False),
+    (torch.float32, 64, 64, 8, 16, False), (torch.float32, 128, 128, 8, 16,
+                                            False)])
+def test_resident_routing(dtype, lq, lk, h, dh, resident):
+    """The bf16 K2 past 32 queries or keys, up to L_RES of both, at the
+    tuned head widths and counts, runs the resident kernel
+    (csrc/attention_bwd_resident.cu); longer rows, f32, short lengths and
+    wide heads do not."""
+    assert attn.uses_resident(dtype, lq, lk, h, dh) == resident
+    assert not resident or (attn.is_long(lq, lk)
+                            and not attn.is_wide(h, dh))
+
+
+# the card's shared memory an SM and a block can use, and what each block
+# sets aside (H100: 228 KB an SM, 227 KB a block)
+SM_SMEM, BLOCK_SMEM, RESERVED = 233472, 232448, 1024
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32])
+def test_resident_plan_fits_the_card(dh):
+    """The resident K2 block's shared memory (`resident_smem_bytes`, the
+    library's own plan on the card: held to it by a card test) fits a
+    block of the H100 at every length it takes, with at most 256 threads
+    (a warp per 16 of the longer side); at 128 x 128 it is built for one
+    block an SM (256 threads of up to 255 registers), and its shared
+    memory allows that one."""
+    worst = 0
+    for lq in range(1, attn.L_RES + 1):
+        for lk in range(1, attn.L_RES + 1):
+            if not attn.is_long(lq, lk):
+                continue
+            smem = attn.resident_smem_bytes(lq, lk, dh)
+            worst = max(worst, smem)
+            assert attn.resident_threads(lq, lk) <= 256
+    assert worst == attn.resident_smem_bytes(attn.L_RES, attn.L_RES, dh)
+    assert worst <= BLOCK_SMEM and SM_SMEM // (worst + RESERVED) >= 1
+    assert attn.resident_threads(attn.L_RES, attn.L_RES) == 256
+    # the strides keep the fragment loads conflict-free: rows of an odd
+    # number of 16-byte units for q, k, v, g and the pc and dss tiles
+    units = dh * 2 // 16
+    assert (units + (1 if units % 2 == 0 else 2)) % 2 == 1
+    for lkp in range(16, attn.L_RES + 1, 16):
+        assert ((2 * lkp + 16) // 16) % 2 == 1

@@ -1175,6 +1175,147 @@ def test_wide_topk_matches_plain_version(cuda, dtype, tol, n, d, k, mode):
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
+def _device_kernels(names, fragment):
+    """The profiled kernel names that hold `fragment`."""
+    return sorted(name for name in names if fragment in name)
+
+
+@pytest.mark.parametrize("n,d,k", [(576, 200, 9), (256, 128, 9),
+                                   (256, 128, 16), (256, 128, 64),
+                                   (256, 512, 4), (256, 512, 64),
+                                   (100, 25, 9), (1, 200, 16),
+                                   (64, 1000, 33), (4864, 128, 9)])
+@pytest.mark.parametrize("mode", ["dyadic", "tie", "negative"])
+def test_tensor_core_wide_topk_matches_plain_version(cuda, n, d, k, mode):
+    """The bf16 K6 calls the tuned kernel does not take, up to k = 64
+    (csrc/topk_wide_mma.cu: the wide beam's 576 x 200 at k = 9, k = 16 and
+    64, D = 512, D = 25 off the TMA's 8 columns, one row, k = 33, the beam
+    sweep's rows), with exact ties, every logit below 0 and few distinct
+    maxima at V = 22,234: the plain version's indices, vals and lse within
+    3.2e-2; the device ran the tensor-core kernel and its split merge
+    (torch.profiler's names), each call counted as a wide launch, two calls
+    the same bits."""
+    h, W, b = _wide_topk_inputs(cuda, torch.bfloat16, n, d, 22234, 3, mode)
+    assert topk.uses_tensor_core(torch.bfloat16, d, k)
+    topk.reset_launches()
+    got, names = _ran(lambda: topk.topk_logits(h, W, b, k))
+    again = topk.topk_logits(h, W, b, k)
+    assert _device_kernels(names, "topk") == sorted(
+        _device_kernels(names, "topk_wide_mma"))
+    assert len(_device_kernels(names, "topk_wide_mma_kernel<")) == 1
+    assert len(_device_kernels(names, "topk_wide_mma_merge_kernel")) == 1
+    assert (topk.launches, topk.wide_launches) == (2, 2)
+    want = topk.topk_logits_reference(h, W, b, k)
+    assert got[0].shape == (n, k) and got[1].dtype == torch.int32
+    _topk_equal(got, want, 3.2e-2)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("k,blocks", [(1, 3), (9, 3), (16, 3), (17, 2),
+                                      (32, 2), (33, 2), (64, 2)])
+def test_wide_mma_topk_plan_and_tiling_come_from_the_library(cuda, k,
+                                                             blocks):
+    """`topk.wide_mma_plan` (list length, stages, shared memory) equals the
+    tensor-core wide K6 library's own plan, fits a block of the card, and
+    the tiling the wrapper cuts the vocab by is the library's: 64 rows of
+    h, 128 of W and the blocks an SM the design counts on (three with
+    lists of 16, two with longer ones); past k = 64 the library
+    refuses."""
+    want = topk.wide_mma_plan(k)
+    assert topk.library_plan(k) == want
+    limit = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    assert want.smem <= limit
+    assert ce.tiling(topk.KERNEL_WIDE_MMA, torch.bfloat16, k,
+                     torch.device(cuda)) == (64, topk.MMA_TILE, blocks)
+    with pytest.raises(ValueError):
+        topk.library_plan(topk.K_LIST + 1)
+
+
+RESIDENT_SHAPES = [(64, 128, 128, 8, 16), (64, 63, 64, 8, 16),
+                   (64, 64, 63, 8, 16), (16, 33, 33, 8, 16),
+                   (16, 128, 31, 16, 8), (8, 20, 100, 4, 32),
+                   (16, 100, 70, 8, 16), (4, 127, 128, 8, 16),
+                   (3, 128, 128, 2, 32), (5, 97, 40, 1, 8)]
+
+
+@pytest.mark.parametrize("n,lq,lk,h,dh", RESIDENT_SHAPES)
+@pytest.mark.parametrize("dbias", [False, True])
+def test_resident_k2_matches_plain_version(cuda, n, lq, lk, h, dh, dbias):
+    """The bf16 K2 past 32 queries or keys up to 128 of both
+    (csrc/attention_bwd_resident.cu), with fully blocked rows, at every
+    head width and a few head counts, lengths off 16 and Lq != Lk: dq, dk,
+    dv (and dbias) within 3.2e-2 of the plain version; the device ran the
+    resident kernel (and the dbias sum over heads), counted as one K2
+    launch; two calls, and a call with dbias, give the same dq, dk, dv
+    bits."""
+    q, k, v, bias = _blocked_inputs(n, lq, lk, h, dh, torch.bfloat16, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(8)).to(
+                        torch.bfloat16)
+    scale = math.sqrt(dh)
+    assert attn.uses_resident(torch.bfloat16, lq, lk, h, dh)
+    attn.reset_launches()
+    got, names = _ran(lambda: attn.attention_bwd(q, k, v, bias, g, h, scale,
+                                                 dbias))
+    _assert_ran(names, ["attention_bwd_resident_kernel"]
+                + (["mma_dbias_kernel"] if dbias else []))
+    assert (attn.bwd_launches, attn.wide_bwd_launches) == (1, 0)
+    want = attn.attention_bwd_reference(q, k, v, bias, g, h, scale, dbias)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if r is None:
+            assert a is None
+            continue
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert _err(a, r) <= 3.2e-2, name
+    for other in (attn.attention_bwd(q, k, v, bias, g, h, scale, dbias),
+                  attn.attention_bwd(q, k, v, bias, g, h, scale,
+                                     not dbias)):
+        assert all(torch.equal(a, c) for a, c in zip(got[:3], other[:3]))
+
+
+@pytest.mark.parametrize("lq,lk", [(33, 33), (64, 64), (128, 128), (63, 64),
+                                   (128, 33), (20, 100), (1, 128)])
+@pytest.mark.parametrize("dh", [8, 16, 32])
+def test_resident_plan_comes_from_the_library(cuda, lq, lk, dh):
+    """The resident K2 block's shared memory and threads
+    (`attn.resident_smem_bytes`, `attn.resident_threads`) are the
+    library's own, the shared memory fits a block of the card and at
+    least one block fits an SM (one at 128 x 128, as designed)."""
+    smem, threads, blocks = attn.resident_plan(lq, lk, dh)
+    assert (smem, threads) == (attn.resident_smem_bytes(lq, lk, dh),
+                               attn.resident_threads(lq, lk))
+    limit = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    assert smem <= limit and blocks >= 1
+    if (lq, lk) == (128, 128):
+        assert blocks == 1
+
+
+def test_resident_and_wide_mma_wrappers_raise_instead_of_falling_back(
+        cuda, monkeypatch):
+    """When the tensor-core wide K6 or the resident K2 reports a failed
+    launch, the wrapper raises and counts nothing: no fall-back to the
+    plain versions or to the older kernels."""
+    h, W, b = _wide_topk_inputs(cuda, torch.bfloat16, 64, 200, 3000, 3,
+                                "dyadic")
+    topk._bind_wide_mma()
+    monkeypatch.setitem(topk._BOUND, (topk.KERNEL_WIDE_MMA, torch.bfloat16),
+                        lambda *args: 1)
+    topk.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        topk.topk_logits(h, W, b, 9)
+    assert topk.launches == 0
+    q, k, v, bias = _inputs(3, 4, 64, 64, 8, 16, torch.bfloat16, cuda)
+    attn._bind_resident()
+    monkeypatch.setitem(attn._BOUND, (attn.KERNEL_RESIDENT, attn.KERNEL_BWD),
+                        lambda *args: 1)
+    attn.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        attn.attention_bwd(q, k, v, bias, q, 8, 4.0, False)
+    assert attn.bwd_launches == 0
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3.2e-2)])
 @pytest.mark.parametrize("b,l,d,h", [(64, 31, 96, 8), (64, 31, 512, 8),

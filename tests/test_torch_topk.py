@@ -71,6 +71,23 @@ def test_plain_version_matches_interpreted_tpu_kernel(interpret, n, d, v, tn,
     np.testing.assert_allclose(lse, want[2], atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("k", [9, 16])
+def test_plain_version_past_eight_matches_interpreted_tpu_kernel(interpret,
+                                                                  k):
+    """The plain K6 at the lists the tensor-core wide kernel keeps on the
+    card (k = 9: the widened decoder's beam; 16) and the widened decoder's
+    D = 200, against the TPU kernel under the Pallas interpreter (vocab
+    tiles of 128, the last ragged)."""
+    n, d, v = 24, 200, 300
+    h, W, b = _case(n, d, v, seed=k)
+    want = [np.asarray(t) for t in jax_topk_logits(
+        jnp.asarray(h), jnp.asarray(W), jnp.asarray(b), k, 8, 128)]
+    vals, idx, lse = _port(h, W, b, k)
+    np.testing.assert_array_equal(idx, want[1])
+    np.testing.assert_allclose(vals, want[0], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse, want[2], atol=ATOL, rtol=0)
+
+
 def test_ties_go_to_the_lowest_index_across_tiles(interpret):
     """Equal maxima in different vocab tiles of the TPU kernel (tiles of
     16): the lowest indices first, then the lowest index of the rest."""
@@ -198,3 +215,214 @@ def test_vocab_splits_cover_every_vocab_tile_once(vocab_rows):
     if vocab_rows == 128:
         assert ce.vocab_splits(256, 22234, 132, 64, 128, 2) == 58
         assert ce.vocab_splits(4864, 22234, 132, 64, 128, 2) == 3
+
+
+@pytest.mark.parametrize("dtype,d,k,tensor_core", [
+    (torch.bfloat16, 200, 9, True), (torch.bfloat16, 200, 16, True),
+    (torch.bfloat16, 200, 64, True), (torch.bfloat16, 512, 9, True),
+    (torch.bfloat16, 512, 16, True), (torch.bfloat16, 512, 64, True),
+    (torch.bfloat16, 512, 4, True), (torch.bfloat16, 25, 1, True),
+    (torch.bfloat16, 128, 9, True), (torch.bfloat16, 200, 4, False),
+    (torch.bfloat16, 128, 8, False), (torch.bfloat16, 200, 65, False),
+    (torch.bfloat16, 512, 100, False), (torch.float32, 200, 9, False),
+    (torch.float32, 512, 64, False), (torch.float32, 128, 4, False)])
+def test_tensor_core_wide_routing(dtype, d, k, tensor_core):
+    """bf16 calls the tuned K6 does not take (k past 8, D past 256 or off
+    8 columns) run the tensor-core wide kernel up to k = K_LIST; the tuned
+    shapes stay on the tuned kernel, f32 and longer lists on
+    csrc/topk_wide.cu."""
+    assert topk.uses_tensor_core(dtype, d, k) == tensor_core
+    assert topk.is_wide(d, k) or not tensor_core
+
+
+# the card's shared memory an SM and a block can use, and what each block
+# sets aside (H100: 228 KB an SM, 227 KB a block)
+SM_SMEM, BLOCK_SMEM, RESERVED = 233472, 232448, 1024
+
+
+@pytest.mark.parametrize("k,length,blocks", [
+    (1, 16, 3), (9, 16, 3), (16, 16, 3), (17, 32, 2), (32, 32, 2),
+    (33, 64, 2), (64, 64, 2)])
+def test_wide_mma_plan_fits_the_card(k, length, blocks):
+    """The tensor-core wide K6's shared memory (`wide_mma_plan`, the
+    library's own plan on the card: held to it by a card test) fits a
+    block of the H100, and lets as many blocks share an SM as the design
+    counts on: three with lists of 16, two with longer ones (registers may
+    allow fewer: the card test reads the occupancy calculator); past
+    K_LIST no plan."""
+    plan = topk.wide_mma_plan(k)
+    assert plan.list_length == length and plan.stages == topk.MMA_STAGES
+    assert plan.smem <= BLOCK_SMEM
+    assert SM_SMEM // (plan.smem + RESERVED) == blocks
+    assert topk.wide_mma_plan(topk.K_LIST + 1) is None
+    assert topk.wide_mma_plan(0) is None
+
+
+TILE_V, BUF = 128, topk.MMA_BUF
+
+
+def _key(x, col):
+    """The kernel's order as a sort key: larger value first, then the
+    lower index (-0.0 as +0.0)."""
+    return (-(float(x) + 0.0), col)
+
+
+def _merge_rank(lst, buf, k):
+    """The merge by rank: each key's place among list and buffer; the
+    first k kept (the keys are unique: their indices are)."""
+    return sorted(lst + buf)[:k]
+
+
+BISECT = 12
+
+
+def _bound(vals, k):
+    """The kernel's first-tile bound, in f32: the quad's finite range of
+    the tile's logits halved BISECT times, keeping a low end that at least
+    k of them reach; -inf where fewer than k are finite."""
+    finite = vals[vals > -np.inf].astype(np.float32)
+    if len(finite) < k:
+        return -np.inf
+    lo, hi = finite.min(), finite.max()
+    for _ in range(BISECT):
+        mid = np.float32(lo + np.float32(0.5) * (hi - lo))
+        if (vals >= mid).sum() >= k:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def _emulate_split(x, c0, c1, k, shared):
+    """csrc/topk_wide_mma.cu's selection over columns [c0, c1) of the
+    logits x (rows, V) of one row tile, tile by tile in the kernel's order:
+    a quad's thread t holds columns 8 q + 2 t + e of each 128-column tile;
+    the threshold, the larger of the list's k-th key (none until it holds
+    k) and the row's shared one (`shared`, read before each tile, raised
+    by every full list: here the splits run one after another, one of the
+    orders the blocks may take); while the list is not full, the bound (a
+    value at least k logits of the tile reach, BISECT halvings of their
+    range); candidates above the threshold's value (or equal to it, where
+    its index is not below the tile) and at the bound, written thread
+    after thread, BUF a round, merged by rank, the rest kept while their
+    key is above the raised threshold. -> per row, its list (k keys at
+    most)."""
+    order = [8 * q + 2 * t + e for t in range(4) for q in range(16)
+             for e in range(2)]
+    out = []
+    for r, row in enumerate(x):
+        lst = []
+        for t0 in range(c0, c1, TILE_V):
+            cols = np.arange(t0, t0 + TILE_V)
+            vals = np.where(cols < c1, row[np.minimum(cols, len(row) - 1)],
+                            -np.inf)
+            seen = shared[r]
+            thr = min(lst[k - 1], seen) if len(lst) == k else seen
+            lo = -np.inf
+            if len(lst) < k:
+                lo = _bound(vals, k)
+            tv, ties = -np.inf, False
+            if thr != NONE:
+                tv, ties = -thr[0], thr[1] >= t0
+            cand = [c for c in order
+                    if (vals[c] > tv or (ties and vals[c] == tv))
+                    and vals[c] >= lo]
+            while cand:
+                take, cand = cand[:BUF], cand[BUF:]
+                lst = _merge_rank(lst, [_key(vals[c], t0 + c)
+                                        for c in take], k)
+                if len(lst) == k:
+                    shared[r] = min(shared[r], lst[k - 1])
+                    thr = min(lst[k - 1], seen)
+                    cand = [c for c in cand if _key(vals[c], t0 + c) < thr]
+        out.append(lst)
+    return out
+
+
+NONE = (np.inf, -1)  # below every key in this order: no threshold yet
+MAX_CAND = 512
+
+
+def _emulate(x, k, splits, reverse=False):
+    """Every split's lists (vocab tiles of 128 cut as the wrapper cuts
+    them; `reverse`: the splits run last to first), then the merge kernel:
+    the keys at or above the row's shared threshold ranked among
+    themselves where at most MAX_CAND, else k rounds of the largest head
+    key over the splits' lists. -> (vals, idx) as numpy arrays."""
+    v = x.shape[1]
+    tiles = -(-v // TILE_V)
+    per = -(-tiles // splits)
+    shared = [NONE] * x.shape[0]
+    ran = [s for s in range(splits) if s * per < tiles]
+    lists = [_emulate_split(x, s * per * TILE_V, min((s + 1) * per * TILE_V,
+                                                     v), k, shared)
+             for s in (ran[::-1] if reverse else ran)]
+    vals, idx = [], []
+    for r in range(x.shape[0]):
+        cand = [key for ls in lists for key in ls[r] if key <= shared[r]]
+        if shared[r] != NONE and len(cand) <= MAX_CAND:
+            best = sorted(cand)[:k]
+        else:
+            heads = [list(ls[r]) for ls in lists]
+            best = []
+            for _ in range(k):
+                s = min((h[0], i) for i, h in enumerate(heads) if h)[1]
+                best.append(heads[s].pop(0))
+        vals.append([-key[0] for key in best])
+        idx.append([key[1] for key in best])
+    return np.array(vals, np.float32), np.array(idx, np.int32)
+
+
+def _tie_logits(seed, rows, v, mode):
+    """Logits with planted ties: "dyadic", integers 0..6 (equal values in
+    one tile, across tiles and across splits); "flat", every logit 0 but a
+    few 1s (a tile's 128 columns all candidates: the buffer's rounds);
+    "spread", distinct values with the largest equal ones placed in
+    different tiles and splits; "falling", values falling with the index
+    (the k best all in the first tile: the bound alone decides what enters
+    it), pairs of equal values in row 1; "rising", values rising with the
+    index (every tile beats the list: a merge each tile)."""
+    rng = np.random.default_rng(seed)
+    if mode in ("falling", "rising"):
+        x = np.tile(np.arange(v, dtype=np.float32), (rows, 1))
+        x[1] = np.floor(x[1] / 2)
+        return -x if mode == "falling" else x
+    if mode == "dyadic":
+        return rng.integers(0, 7, (rows, v)).astype(np.float32)
+    if mode == "flat":
+        x = np.zeros((rows, v), np.float32)
+        x[:, [3, 129, 130, 500, v - 1]] = 1.0
+        x[1, :] = -0.0  # -0 ties with +0
+        return x
+    x = rng.standard_normal((rows, v)).astype(np.float32)
+    x[:, [5, 6, 140, 400, 401, 777, v - 2]] = 9.0
+    return x
+
+
+@pytest.mark.parametrize("k", [9, 16, 64])
+@pytest.mark.parametrize("mode", ["dyadic", "flat", "spread", "falling",
+                                  "rising"])
+def test_threshold_filter_emulation_equals_take_top(k, mode):
+    """A pure-torch/numpy emulation of the tensor-core wide K6's selection
+    (the threshold filter, the buffer's rounds, the merge by rank and the
+    split merge), fed tile by tile in the kernel's column order, equals
+    `take_top` and the JAX `_take_top` over the whole row: indices and
+    values, at k = 9, 16 and 64 with ties planted inside one tile, across
+    tiles and across splits (V = 1,000: eight tiles, the last ragged, in
+    three splits)."""
+    rows, v, splits = 4, 1000, 3
+    x = _tie_logits(k, rows, v, mode)
+    got = _emulate(x, k, splits)
+    # the splits in the other order (the last first): other lists, the
+    # same k best
+    rev = _emulate(x, k, splits, reverse=True)
+    np.testing.assert_array_equal(rev[1], got[1])
+    np.testing.assert_array_equal(rev[0], got[0])
+    cols = np.broadcast_to(np.arange(v, dtype=np.int32), x.shape)
+    want = topk.take_top(torch.from_numpy(x), torch.from_numpy(cols.copy()),
+                         k)
+    jax_want = jax_take_top(jnp.asarray(x), jnp.asarray(cols), k)
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], np.asarray(jax_want[1]))
+    np.testing.assert_array_equal(got[0], np.asarray(jax_want[0]))
