@@ -43,7 +43,14 @@ non-zero without its last line:
    every other wide shape run their tensor-core kernels: `design` wgmma,
    mma or wide mma bf16); the bf16 K6 on its tensor-core wide kernel at
    every k of 9, 16, 64 and D of 200, 512, and at the wide beam, each in
-   the dyadic, tie and negative modes (`design` wide wgmma bf16);
+   the dyadic, tie and negative modes (`design` wide wgmma bf16); past
+   k = 64 the bf16 K6 on that kernel's long path (k = 100 at
+   D = 200 and at the beam-100 path's N = 64 x 100, D = 128; k = 256 at
+   D = 200 and 512; `design` long-path wgmma bf16) and at k = 1,000 on
+   csrc/topk_wide.cu; the bf16 K2 past 128 queries or keys on the cluster
+   kernel (256 x 256 with and without dbias, 255 x 256, 31 x 256 and
+   512 x 512, bitwise over calls; `design` cluster mma bf16) and at
+   1,024 x 1,024 on the long-length kernels;
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -105,6 +112,11 @@ non-zero without its last line:
 11. long lengths: `cli train --seq-len 64` for one epoch in bf16 from a
    random init (K1 and K2 through their long-length kernels; per step as
    in 5); every loss finite and the last 20 below the first 20 on average;
+   the same at `--seq-len 256` (12 K2 a step, every one on the cluster
+   kernel); then the beam-100 path: `cli evaluate --eval-mode beam
+   --beam-size 100` on the trained weights, one batch of 64 at 9 dB (one
+   decode call: 30 K6 at N = 64 x 100, every one on the tensor-core wide
+   kernel's long path, and the encoder's 4 K1), one finite row;
 12. GAN training: `cli train --variant gan --train-mode gan` at full width
    in bf16 from a random init, AWGN, GAN_EPOCHS epochs (per step: 20 K1,
    20 K2, 2 K3, 2 K4); the losses, g_losses and d_losses finite, the mean
@@ -205,13 +217,17 @@ non-zero without its last line:
    the card's profiler has recorded no kernel at all of such calls): one
    bf16 call of K6 at every k of
    9, 16, 64 and D of 200, 512 and at the wide beam, in each input mode,
-   and of K2 at 128 x 128 and 63 x 64 with and without dbias, profiled:
-   each must run its route's kernel (the tensor-core wide K6, the
-   resident K2; torch.profiler's names printed), and the kernel rows of
-   those cases take the design so read;
-27. the kernels as one JSON line (the wide kernels as entries of their
-   own, launches from phase 15; the chunked wide K1/K2 too, launches and
-   rows from its heads-wider-than-256 path), then `{"ok": true, "device": {...}}`
+   and at k = 100 and 256 and D of 128, 200, and of K2 at 128 x 128 and
+   63 x 64, 256 x 256, 255 x 256 and 31 x 256, with and without dbias,
+   profiled: each must run its route's kernel (the tensor-core wide K6,
+   its long path past k = 64, the resident K2, the cluster K2;
+   torch.profiler's names printed), and the kernel rows of those cases
+   take the design so read;
+27. the seconds of each phase as one line, the kernels as one JSON line
+   (the wide kernels as entries of their own, launches from phase 15; the
+   chunked wide K1/K2 too, launches and rows from its heads-wider-than-256
+   path; the long-path K6 and the cluster K2, launches from the beam-100
+   path and the seq-len-256 epoch), then `{"ok": true, "device": {...}}`
    as the last line.
 
 Needs CUDA: without it the script exits 1 before any phase.
@@ -324,15 +340,21 @@ KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
 WIDE_LIBRARIES = (attn.KERNEL_WIDE, ce.KERNEL_WIDE, star.KERNEL_WIDE,
                   topk.KERNEL_WIDE, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD,
                   attn.KERNEL_WIDE_MMA, ce.KERNEL_WIDE_FWD,
-                  topk.KERNEL_WIDE_MMA, attn.KERNEL_RESIDENT)
+                  topk.KERNEL_WIDE_MMA, attn.KERNEL_RESIDENT,
+                  attn.KERNEL_CLUSTER)
 # the K4 launches among ce_bwd's that ran in the dh-only mode
 DH_ONLY = "ce_bwd_dh_only"
+# the K6 launches on the tensor-core wide kernel's long path (k past 64),
+# and the K2 launches on the cluster kernel
+LONG_LIST = "topk_long_list"
+CLUSTER = "attention_bwd_cluster"
 # the launches among each kernel's that went to its wide kernels
 WIDE = {attn.KERNEL: "attention_fwd_wide", attn.KERNEL_BWD:
         "attention_bwd_wide", ce.KERNEL_FWD: "ce_fwd_wide",
         ce.KERNEL_BWD: "ce_bwd_wide", star.KERNEL: "star_wide",
         topk.KERNEL: "topk_wide"}
-COUNTERS = KERNELS + (DH_ONLY,) + tuple(WIDE.values())
+COUNTERS = KERNELS + (DH_ONLY,) + tuple(WIDE.values()) + (LONG_LIST,
+                                                          CLUSTER)
 BEAM = 4
 # `cli train`'s default steps a call (one captured CUDA graph of the step,
 # replayed): what the train phases run
@@ -346,10 +368,30 @@ GRAPH_RUNS = 3
 WIDE_HEADS = ((8, 24), (8, 64), (8, 128), (32, 16))
 WIDE_D = (200, 512)
 WIDE_K = (9, 16, 64)
-# past the tensor-core wide K6's lists (topk.K_LIST) and the resident K2's
-# lengths (attn.L_RES): the bf16 shapes the older kernels keep
+# past the tensor-core wide K6's lists of 64 and the resident K2's lengths
+# (attn.L_RES): the bf16 shapes its long path and the cluster K2
+# take (the route phase's K6 at every k of PAST_LIST_KS and D of
+# PAST_LIST_D; K2 at PAST_RESIDENT and the cross shapes of the seq-len-256
+# epoch, and at CLUSTER_LEN), and past them the shapes the older kernels
+# keep (K6 at k = PAST_K6: csrc/topk_wide.cu; K2 at PAST_CLUSTER: the
+# long-length kernels)
 PAST_LIST_K = 100
+PAST_LIST_KS = (100, 256)
+PAST_LIST_D = (128, 200)
 PAST_RESIDENT = 256
+PAST_RESIDENT_CROSS = (("long_255x256", 255, 256), ("long_31x256", 31, 256))
+CLUSTER_LEN = 512
+PAST_K6 = 1000
+PAST_CLUSTER = 1024
+# the beam-100 path: `cli evaluate --eval-mode beam --beam-size BEAM100` at
+# one SNR (its K6 at N = bs x BEAM100, D = 128, k = BEAM100), and the
+# seq-len-256 train epoch
+BEAM100 = 100
+BEAM100_SNR = 9
+SEQ256 = 256
+# timed calls of the wide K6's tie and negative rows (their routes and
+# indices are held in full; their times are not in the kernels line)
+MODE_ITERS = 10
 WIDE_STAR_D = (96, 512)
 # the widened CLI paths' own shapes (phase_wide): the encoder at 8 heads of
 # 64 (d_model 512) and the decoder at 8 heads of 25 (d_model 200), N = bs;
@@ -388,9 +430,12 @@ WIDE_DESIGN = "wide cuda-core f32"
 WIDE_MMA_DESIGN = "wide mma bf16"
 # this slice's routes as the device kernels that ran name them
 # (torch.profiler): the design of each, by a fragment of its kernels' names
-ROUTES = {topk.KERNEL: (("topk_wide_mma", "wide wgmma bf16"),),
+ROUTES = {topk.KERNEL: (("topk_long_emit_kernel", "long-path wgmma bf16"),
+                        ("topk_wide_mma", "wide wgmma bf16")),
           attn.KERNEL_BWD: (("attention_bwd_resident_kernel",
-                             "resident mma bf16"),)}
+                             "resident mma bf16"),
+                            ("attention_bwd_cluster_kernel",
+                             "cluster mma bf16"))}
 
 
 def phase_device():
@@ -556,9 +601,11 @@ def phase_routes(seed, bs):
     this process (with those jobs on the card, and once after them, the
     profiler recorded no kernel of some or all calls): one bf16 call of K6
     at every k of WIDE_K and D of WIDE_D and at the wide beam, in each
-    input mode, and of K2 past 32 queries and keys (LONG_CASE, LONG_CROSS)
-    with and without dbias. Each must run its route's kernel (the
-    tensor-core wide K6, the resident K2). -> {(kernel, case): (design,
+    input mode, and at every k of PAST_LIST_KS and D of PAST_LIST_D, and of
+    K2 past 32 queries and keys (LONG_CASE, LONG_CROSS) and past 128
+    (PAST_RESIDENT, PAST_RESIDENT_CROSS) with and without dbias. Each must
+    run its route's kernel (the tensor-core wide K6, its long path past
+    k = 64, the resident K2, the cluster K2). -> {(kernel, case): (design,
     names)}, the design the kernel rows of those cases take (`set_designs`)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bf16 = torch.bfloat16
@@ -569,12 +616,16 @@ def phase_routes(seed, bs):
     cases += [("wide_beam" + ("" if mode == "dyadic" else f"_{mode}"),
                bs * WIDE_BEAM, WIDE_PATH_D, WIDE_BEAM, mode)
               for mode in ("dyadic", "tie", "negative")]
+    cases += [(f"k{k}_d{d}_route", bs * BEAM, d, k, "dyadic")
+              for k in PAST_LIST_KS for d in PAST_LIST_D]
     for label, n, d, k, mode in cases:
         h, W, b = topk_inputs(n, d, k, mode, bf16, gen)
         seen[(topk.KERNEL, label)] = routed_design(
             topk.KERNEL, label, lambda: topk.topk_logits(h, W, b, k),
-            topk_design(bf16, d, k))
-    for label, lq, lk in ((LONG_CASE, LONG_LEN, LONG_LEN), LONG_CROSS):
+            topk_design(bf16, d, k, W.shape[0]))
+    for label, lq, lk in ((LONG_CASE, LONG_LEN, LONG_LEN), LONG_CROSS,
+                          (f"long_{PAST_RESIDENT}", PAST_RESIDENT,
+                           PAST_RESIDENT), *PAST_RESIDENT_CROSS):
         q, k, v, bias = attention_inputs(bs, lq, lk, bf16, gen, lq == lk)
         g = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
         for dbias in (False, True):
@@ -583,7 +634,7 @@ def phase_routes(seed, bs):
                               lambda: attn.attention_bwd(q, k, v, bias, g,
                                                          HEADS, DH ** 0.5,
                                                          dbias),
-                              "resident mma bf16")
+                              k2_design(bf16, lq, lk, HEADS, DH))
     for (kernel, label), (design, names) in seen.items():
         # the port's kernels among them (not the spin, not PyTorch's fill)
         short = sorted(m.group(1) for m in (
@@ -655,15 +706,18 @@ def softmax_part_err(got, want, softmax):
 
 
 def kernel_row(kernel, case, dtype, err, tol, call, plain, library, nbytes,
-               ops, iters, ops_dtype=None, **extra):
-    """Check `err` against `tol`, time the kernel, its plain version and
-    the library call, print and return the row. The operations are counted
-    at the peak rate of `ops_dtype` (default: the row's dtype)."""
+               ops, iters, ops_dtype=None, plain_iters=None, **extra):
+    """Check `err` against `tol`, time the kernel, its plain version (over
+    `plain_iters` calls, default `iters`: fewer where a call takes a tenth
+    of a second) and the library call, print and return the row. The
+    operations are counted at the peak rate of `ops_dtype` (default: the
+    row's dtype)."""
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"{kernel} {case} {dtype}: max err {err} > "
                              f"{tol}")
+    plain_iters = plain_iters or iters
     ms, host_ms = cuda_ms(call, iters)
-    plain_ms, _ = cuda_ms(plain, iters)
+    plain_ms, _ = cuda_ms(plain, plain_iters)
     library_ms = cuda_ms(library, iters)[0] if library else None
     bound_ms, bound_by = bound(nbytes, ops, ops_dtype or dtype)
     row = {"kernel": kernel, "case": case,
@@ -673,7 +727,7 @@ def kernel_row(kernel, case, dtype, err, tol, call, plain, library, nbytes,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "ops": ops,
            "device_ms": device_ms(call, iters),
-           "plain_device_ms": device_ms(plain, iters),
+           "plain_device_ms": device_ms(plain, plain_iters),
            "library_device_ms": device_ms(library, iters) if library
            else None}
     print("[kernel] " + json.dumps(row))
@@ -758,9 +812,10 @@ def attention_case(label, n, lq, lk, dtype, gen, iters, heads=HEADS,
 
 
 def attention_bwd_case(label, n, lq, lk, dtype, gen, iters, dbias,
-                       heads=HEADS, dh=DH):
+                       heads=HEADS, dh=DH, plain_iters=None):
     """K2 at one shape, with or without dbias (at `heads` heads of `dh`:
-    the wide kernels where the tuned ones do not take them)."""
+    the wide kernels where the tuned ones do not take them; the plain
+    version timed over `plain_iters` calls, default `iters`)."""
     q, k, v, bias = attention_inputs(n, lq, lk, dtype, gen, lq == lk, heads,
                                      dh)
     g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
@@ -792,9 +847,17 @@ def attention_bwd_case(label, n, lq, lk, dtype, gen, iters, dbias,
         lambda: torch.autograd.grad(out, leaves, gh, retain_graph=True),
         nbytes, 5 * 2 * n * heads * lq * lk * dh, iters,
         n=n, lq=lq, lk=lk, heads=heads, dh=dh, dbias=dbias,
-        design=("resident mma bf16"
-                if attn.uses_resident(dtype, lq, lk, heads, dh)
-                else _attention_design(attn.KERNEL_BWD, dtype, heads, dh)))
+        design=k2_design(dtype, lq, lk, heads, dh), plain_iters=plain_iters)
+
+
+def k2_design(dtype, lq, lk, heads, dh):
+    """What multiplies in the K2 kernel that takes Lq x Lk at `heads` heads
+    of `dh`."""
+    if attn.uses_resident(dtype, lq, lk, heads, dh):
+        return "resident mma bf16"
+    if attn.uses_cluster(dtype, lq, lk, heads, dh):
+        return "cluster mma bf16"
+    return _attention_design(attn.KERNEL_BWD, dtype, heads, dh)
 
 
 def attention_bwd_bitwise(label, n, lq, lk, dtype, gen, heads=HEADS, dh=DH):
@@ -952,21 +1015,26 @@ def topk_inputs(n, d, k, mode, dtype, gen):
     return h, W, b
 
 
-def topk_design(dtype, d, k):
-    """What multiplies in the K6 kernel that takes width d and k."""
-    if topk.uses_tensor_core(dtype, d, k):
+def topk_design(dtype, d, k, v):
+    """What multiplies in the K6 kernel that takes width d and k over V = v
+    rows of W."""
+    if topk.uses_long_list(dtype, d, k, v):
+        return "long-path wgmma bf16"
+    if topk.uses_tensor_core(dtype, d, k, v):
         return "wide wgmma bf16"
     return WIDE_DESIGN if topk.is_wide(d, k) else DESIGN[topk.KERNEL][dtype]
 
 
-def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None):
+def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None,
+              plain_iters=None):
     """K6 at one shape (W the (V, D) table, V = 22,234: its last vocab tile
     of 128 rows is ragged). `mode`: "dyadic", exact logits with many ties;
     "tie", every logit equal to the bias, which is 1 at indices in
     different vocab splits and 0 elsewhere; "negative", the dyadic logits
     less 3, so every logit is below 0 and a padded vocab column (zero
     logit) in the list would show. `d` (default the decoder's 128) and k
-    past 8 take the wide kernels where the tuned one does not."""
+    past 8 take the wide kernels where the tuned one does not; the plain
+    version is timed over `plain_iters` calls (default `iters`)."""
     d = d or Config().decoder_d_model
     h, W, b = topk_inputs(n, d, k, mode, dtype, gen)
     v = W.shape[0]
@@ -986,12 +1054,19 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None):
     # them (the tensor-core wide kernel's by k), and the vocab splits the
     # wrapper took from them
     wide = topk.is_wide(d, k)
-    tensor_core = topk.uses_tensor_core(dtype, d, k)
+    tensor_core = topk.uses_tensor_core(dtype, d, k, v)
     tiles = (ce.tiling(topk.KERNEL_WIDE_MMA, dtype, k, h.device)
              if tensor_core else
              ce.tiling(topk.KERNEL_WIDE if wide else topk.KERNEL, dtype, d,
                        h.device))
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    splits = ce.vocab_splits(n, v, sms, *tiles)
+    extra = {}
+    if topk.uses_long_list(dtype, d, k, v):
+        # the long path: the partial kernel's splits, the emission's, a
+        # row's candidate slots
+        plan = topk.long_plan(n, v, k, sms, tiles, topk.emit_tiling(h.device))
+        splits, extra = plan.splits, {"long_plan": plan._asdict()}
     elt = h.element_size()
     return kernel_row(
         topk.KERNEL, label, dtype, max_err([vals, lse], [ref[0], ref[2]]),
@@ -999,8 +1074,9 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None):
         lambda: topk.topk_logits_reference(h, W, b, k), library,
         (n * d + v * d) * elt + v * 4 + n * k * 8 + n * 4, 2 * n * d * v,
         iters, n=n, d=d, v=v, k=k, mode=mode,
-        design=topk_design(dtype, d, k), tiling=list(tiles),
-        splits=ce.vocab_splits(n, v, sms, *tiles))
+        design=topk_design(dtype, d, k, v), tiling=list(tiles),
+        splits=splits,
+        plain_iters=plain_iters, **extra)
 
 
 def star_case(label, b, length, dtype, gen, iters, d=HEADS * DH):
@@ -1152,22 +1228,51 @@ def widened_cases(dtype, gen, iters, bs):
     if dtype == torch.bfloat16:
         # the tensor-core wide K6 at every list length and width of the
         # widened shapes, and at the wide beam, in all three input modes
+        # (the tie and negative modes timed over fewer calls)
         for mode in ("dyadic", "tie", "negative"):
+            timed = iters if mode == "dyadic" else min(iters, MODE_ITERS)
             for d in WIDE_D:
                 for k in WIDE_K:
                     rows.append(topk_case(f"k{k}_d{d}_{mode}", bs * BEAM,
-                                          dtype, gen, iters, k, mode, d))
+                                          dtype, gen, timed, k, mode, d))
             if mode != "dyadic":
                 rows.append(topk_case(f"wide_beam_{mode}", bs * WIDE_BEAM,
-                                      dtype, gen, iters, WIDE_BEAM, mode,
+                                      dtype, gen, timed, WIDE_BEAM, mode,
                                       WIDE_PATH_D))
-        # what the older kernels keep: K6 past the tensor-core kernel's
-        # lists, K2 past the resident kernel's lengths
+        # past its lists of 64: its long path (k = 100 and 256, and the
+        # beam-100 path's call), and past k = 256 csrc/topk_wide.cu; K2
+        # past the resident kernel's lengths: the
+        # cluster kernel (bitwise over calls too), and past it the
+        # long-length kernels
         rows.append(topk_case(f"k{PAST_LIST_K}", bs * BEAM, dtype, gen,
                               iters, PAST_LIST_K, d=WIDE_PATH_D))
-        rows.append(attention_bwd_case(f"long_{PAST_RESIDENT}", bs,
-                                       PAST_RESIDENT, PAST_RESIDENT, dtype,
-                                       gen, iters, False))
+        for d in WIDE_D:
+            rows.append(topk_case(f"k{PAST_LIST_KS[-1]}_d{d}", bs * BEAM,
+                                  dtype, gen, iters, PAST_LIST_KS[-1],
+                                  d=d))
+        rows.append(topk_case("beam100", bs * BEAM100, dtype, gen, iters,
+                              BEAM100, plain_iters=2))
+        rows.append(topk_case(f"k{PAST_K6}", bs * BEAM, dtype, gen,
+                              min(iters, 5), PAST_K6, d=WIDE_PATH_D))
+        for dbias in (False, True):
+            rows.append(attention_bwd_case(f"long_{PAST_RESIDENT}", bs,
+                                           PAST_RESIDENT, PAST_RESIDENT,
+                                           dtype, gen, iters, dbias))
+        for label, lq, lk in PAST_RESIDENT_CROSS:
+            rows.append(attention_bwd_case(label, bs, lq, lk, dtype, gen,
+                                           iters, False))
+        rows.append(attention_bwd_case(f"long_{CLUSTER_LEN}", bs,
+                                       CLUSTER_LEN, CLUSTER_LEN, dtype, gen,
+                                       iters, False, plain_iters=5))
+        rows.append(attention_bwd_case(f"long_{PAST_CLUSTER}", bs,
+                                       PAST_CLUSTER, PAST_CLUSTER, dtype,
+                                       gen, min(iters, 5), False,
+                                       plain_iters=2))
+        for label, lq, lk in ((f"long_{PAST_RESIDENT}", PAST_RESIDENT,
+                               PAST_RESIDENT), *PAST_RESIDENT_CROSS,
+                              (f"long_{CLUSTER_LEN}", CLUSTER_LEN,
+                               CLUSTER_LEN)):
+            attention_bwd_bitwise(label, bs, lq, lk, dtype, gen)
     for d in WIDE_STAR_D:
         rows.append(star_case(f"star_d{d}", bs, default_seq_len("star"),
                               dtype, gen, iters, d))
@@ -1183,7 +1288,9 @@ def reset_launches():
 
 def launches():
     """Launches of K1-K6 since the last reset, how many of K4's ran in its
-    dh-only mode, and how many of each went to its wide kernels."""
+    dh-only mode, how many of each went to its wide kernels, and how many
+    of K6's went to the tensor-core wide kernel's lists past 64 and of
+    K2's to the cluster kernel."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
             ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
             star.KERNEL: star.launches, topk.KERNEL: topk.launches,
@@ -1193,7 +1300,9 @@ def launches():
             WIDE[ce.KERNEL_FWD]: ce.wide_fwd_launches,
             WIDE[ce.KERNEL_BWD]: ce.wide_bwd_launches,
             WIDE[star.KERNEL]: star.wide_launches,
-            WIDE[topk.KERNEL]: topk.wide_launches}
+            WIDE[topk.KERNEL]: topk.wide_launches,
+            LONG_LIST: topk.long_list_launches,
+            CLUSTER: attn.cluster_bwd_launches}
 
 
 def check_launches(path, got, expected):
@@ -1290,9 +1399,49 @@ def phase_serving(seed, batches, bs):
     return {"serve": serve, "kv": kv, "beam": beam}
 
 
+def phase_beam100(seed, bs):
+    """The beam-100 path: `cli evaluate --eval-mode beam --beam-size
+    BEAM100` (KV-cached) on the trained weights in bf16, one batch of bs at
+    one SNR (BEAM100_SNR): one decode call of max_length K6 launches at
+    N = bs x BEAM100, D = 128, k = BEAM100, every one on the tensor-core
+    wide kernel's long path (LONG_LIST), and the encoder's K1; the
+    table one row of finite values, its BLEU in [0, 1]. -> (its launch
+    counts, the decode call's seconds)."""
+    cfg = Config()
+    if not topk.uses_long_list(torch.bfloat16, cfg.decoder_d_model,
+                               BEAM100, cfg.vocab_size):
+        raise AssertionError(f"K6 at k = {BEAM100} is not routed to the "
+                             f"long lists")
+    expected = {name: 0 for name in COUNTERS}
+    expected.update({attn.KERNEL: cfg.encoder_num_layer,
+                     topk.KERNEL: cfg.max_length,
+                     WIDE[topk.KERNEL]: cfg.max_length,
+                     LONG_LIST: cfg.max_length})
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli.main(["evaluate", *VANILLA, "--eval-mode", "beam",
+                    "--beam-size", str(BEAM100), "--dtype", "bfloat16",
+                    "--bs", str(bs), "--eval-batches", "1", "--seed",
+                    str(seed), "--snr-lo", str(BEAM100_SNR), "--snr-hi",
+                    str(BEAM100_SNR), "--device", "cuda",
+                    "--log-save-path", "log/chip_smoke/beam100"])
+    wall = time.perf_counter() - t0
+    got = launches()
+    check_launches("beam100", got, expected)
+    table, secs = res["table"], res["decode_seconds"]
+    if len(table) != 1 or table[0][0] != BEAM100_SNR or not all(
+            math.isfinite(x) for x in table[0]) \
+            or not 0.0 <= table[0][1] <= 1.0 or len(secs) != 1:
+        raise AssertionError(f"beam100: bad table {table} or calls {secs}")
+    print(f"[beam100] beam {BEAM100}, {res['sequences']} sequences at "
+          f"{BEAM100_SNR} dB: BLEU-1 {table[0][1]:.4f}; the decode call "
+          f"{secs[0]:.3f} s; wall {wall:.2f} s")
+    return got, secs[0]
+
+
 def phase_train(seed, epochs, bs, variant="transformer",
                 checkpoint="log/chip_smoke/ckpt", extra=(), tag=None,
-                wide=(), k1_passes=1):
+                wide=(), k1_passes=1, sub=()):
     """A training path: `cli train --variant <variant>` (and `extra`
     flags) at full width in bf16 from a random init on the synthetic set,
     the params saved under `checkpoint`, through the default path (SCAN_STEPS
@@ -1301,7 +1450,9 @@ def phase_train(seed, epochs, bs, variant="transformer",
     one K5 once per cycle of its encoder and its decoder; both K3 and K4
     once; every launch of the kernels in `wide` on their wide kernels; K1
     `k1_passes` times per attention (2 with --remat: each layer's forward
-    runs again in the backward)."""
+    runs again in the backward); for each (counter, kernel) of `sub`, every
+    launch of the kernel counted in the counter too (CLUSTER: the cluster
+    K2)."""
     tag = tag or ("train" if variant == "transformer"
                   else f"{variant}_train")
     reset_launches()
@@ -1329,6 +1480,8 @@ def phase_train(seed, epochs, bs, variant="transformer",
         expected[star.KERNEL] = 2 * cfg.cycle_num * n
     for kernel in wide:
         expected[WIDE[kernel]] = expected[kernel]
+    for counter, kernel in sub:
+        expected[counter] = expected[kernel]
     check_launches(tag, got, expected)
     losses = res["losses"]
     first, last = losses[:20].mean().item(), losses[-20:].mean().item()
@@ -3724,7 +3877,8 @@ def kernels_line(rows, by_path):
     fading: its three sweeps, attack_train, attack_eval: its five tables
     and decodes, long_len: the vanilla train epoch at seq_len LONG_SEQ,
     gan_train, gan_eval: its three tables and sweeps, gan_star: its
-    training and its greedy_gan sweep) and `launches` their sum. K1's and
+    training and its greedy_gan sweep, seq256: the train epoch at seq_len
+    SEQ256, beam100: the beam-100 call) and `launches` their sum. K1's and
     K2's entries also hold their long-length row (`long`: N = 64, L =
     LONG_LEN), K4's its dh-only mode (`dh_only`: the K4 launches that ran
     in it, and its bf16 row at the training shape); the chunked K1/K2's and
@@ -3782,6 +3936,49 @@ def kernels_line(rows, by_path):
               f"with dbias, and {LONG_CROSS[1]} x {LONG_CROSS[2]} (the "
               f"seq-len-{LONG_SEQ} epoch's decoder cross-attention); "
               f"library: SDPA backward"})
+    # the long-path K6 (csrc/topk_wide_mma.cu past k = 64):
+    # every K6 launch of the beam-100 path
+    row = next(r for r in rows if r["kernel"] == topk.KERNEL
+               and r["case"] == "beam100" and r["dtype"] == "bfloat16")
+    n = by_path["beam100"][LONG_LIST]
+    out.append({
+        "name": LONG_LIST, "route": "cuda", "design": row["design"],
+        "source": f"deepsc_gan_tpu_torch/csrc/{topk.KERNEL_WIDE_MMA}.cu",
+        "replaces": KERNEL_INFO[topk.KERNEL][0], "launches": n,
+        "launches_by_path": {"beam100": n}, **_timing(row),
+        "cases": {label: _timing(next(
+            r for r in rows if r["kernel"] == topk.KERNEL
+            and r["case"] == label and r["dtype"] == "bfloat16"))
+            for label in [f"k{PAST_LIST_K}"] + [
+                f"k{PAST_LIST_KS[-1]}_d{d}" for d in WIDE_D]},
+        "at": f"the bf16 K6 past k = 64 (the long path): the "
+              f"beam-100 path's call, N={row['n']} D={row['d']} V=22234 "
+              f"k={BEAM100}; `cases`: k={PAST_LIST_K} at N=64x4 D=200, "
+              f"k={PAST_LIST_KS[-1]} at D=200 and 512; library: torch.topk "
+              f"+ logsumexp"})
+    # the cluster K2 (csrc/attention_bwd_cluster.cu): every K2 launch of
+    # the seq-len-256 epoch
+    row = next(r for r in rows if r["kernel"] == attn.KERNEL_BWD
+               and r["case"] == f"long_{PAST_RESIDENT}"
+               and r["dtype"] == "bfloat16" and not r["dbias"])
+    n = by_path["seq256"][CLUSTER]
+    out.append({
+        "name": attn.KERNEL_CLUSTER, "route": "cuda",
+        "design": row["design"],
+        "source": f"deepsc_gan_tpu_torch/csrc/{attn.KERNEL_CLUSTER}.cu",
+        "replaces": KERNEL_INFO[attn.KERNEL_BWD][0], "launches": n,
+        "launches_by_path": {"seq256": n}, **_timing(row),
+        "cases": {label: _timing(next(
+            r for r in rows if r["kernel"] == attn.KERNEL_BWD
+            and r["case"] == label and r["dtype"] == "bfloat16"))
+            for label in [f"long_{PAST_RESIDENT}+dbias"] + [
+                label for label, *_ in PAST_RESIDENT_CROSS] + [
+                f"long_{CLUSTER_LEN}"]},
+        "at": f"the bf16 K2 past {attn.L_RES} queries or keys up to "
+              f"{attn.L_CLUSTER}: N={row['n']} Lq=Lk={PAST_RESIDENT} H=8 "
+              f"Dh=16, no dbias (the seq-len-{SEQ256} epoch's encoder); "
+              f"`cases`: with dbias, the epoch's decoder shapes, "
+              f"{CLUSTER_LEN} x {CLUSTER_LEN}; library: SDPA backward"})
     dh = next(r for r in rows if r["case"] == "ce_dh_only"
               and r["dtype"] == "bfloat16")
     paths = {path: got[DH_ONLY] for path, got in by_path.items()}
@@ -3827,10 +4024,12 @@ def kernels_line(rows, by_path):
         row = next(r for r in rows if r["kernel"] == kernel
                    and r["case"] == case and r["dtype"] == "bfloat16")
         # the wide-heads path's K1/K2 launches all ran the chunked kernels
-        # (their entries above), the other paths' the register-held ones
+        # and the beam-100 path's K6 the long lists (their entries above),
+        # the other paths' the register-held ones and the lists up to 64
         paths = {path: got[WIDE[kernel]] for path, got in by_path.items()
-                 if path != "wide_heads"
-                 or kernel not in (attn.KERNEL, attn.KERNEL_BWD)}
+                 if (path != "wide_heads"
+                     or kernel not in (attn.KERNEL, attn.KERNEL_BWD))
+                 and (path != "beam100" or kernel != topk.KERNEL)}
         out.append({
             "name": WIDE[kernel], "route": "cuda", "design": row["design"],
             "source": f"deepsc_gan_tpu_torch/csrc/{library}.cu",
@@ -3865,59 +4064,96 @@ def _timing(row):
         "library_ms", "device_ms", "library_device_ms")}
 
 
+# seconds of each phase of this run, by name (`timed`)
+PHASE_SECONDS = {}
+
+
+@contextlib.contextmanager
+def timed(name):
+    """Adds the block's seconds (host clock) to PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) \
+            + time.perf_counter() - t0
+
+
 def run_phases(args, jobs, routes):
     """Phases 3 to 25; -> the kernels line's entries (their designs from
     `routes`, phase 26's)."""
-    rows = phase_kernels(args.seed, len(SNRS) * args.bs, args.bs,
-                         args.iters)
-    set_designs(rows, routes)
-    by_path = phase_serving(args.seed, args.batches, args.bs)
-    phase_f32_ids(args.seed, args.bs)
-    by_path["train"], _ = phase_train(args.seed, args.epochs, args.bs)
-    phase_step_parity(args.seed, args.bs)
-    by_path["star_train"], _ = phase_train(args.seed, args.star_epochs,
-                                           args.bs, "star", STAR_CKPT)
-    phase_step_parity(args.seed, args.bs, "star")
-    by_path["star_serve"] = phase_star_serving(args.seed, args.batches,
-                                               args.bs)
-    phase_star_f32_ids(args.seed, args.bs)
-    by_path["fading"] = phase_fading(args.seed, args.batches, args.bs)
-    phase_fading_f32_ids(args.seed, args.bs)
-    by_path["attack_train"] = phase_attack_train(args.seed, ATTACK_EPOCHS,
-                                                 args.bs)
-    phase_attack_step_parity(args.seed, args.bs)
-    by_path["attack_eval"] = phase_attack_eval(args.seed, args.batches,
-                                               args.bs)
-    phase_attack_f32(args.seed, args.bs)
-    by_path["long_len"], _ = phase_train(
-        args.seed, 1, args.bs, extra=("--seq-len", str(LONG_SEQ)),
-        checkpoint="log/chip_smoke/long_ckpt", tag="long_len")
-    by_path["gan_train"], _ = phase_gan_train(args.seed, GAN_EPOCHS,
-                                              args.bs)
-    phase_gan_step_parity(args.seed, args.bs)
-    by_path["gan_eval"] = phase_gan_eval(args.seed, args.batches, args.bs)
-    phase_gan_f32_ids(args.seed, args.bs)
-    by_path["gan_star"], _ = phase_gan_star(args.seed, GAN_EPOCHS,
-                                            args.batches, args.bs)
-    by_path["wide"] = phase_wide(args.seed, args.bs)
-    by_path["wide_heads"] = phase_wide_heads(args.seed, args.bs)
-    by_path["mine_train"] = phase_mine_train(args.seed, MINE_EPOCHS,
-                                             args.bs)
-    phase_mine_step_parity(args.seed, args.bs)
-    by_path["resume"] = phase_resume(args.seed, args.bs)
-    by_path["levers"], by_path["profile_run"], levers = phase_levers(
-        args.seed, args.bs)
-    print(f"[levers] {json.dumps(levers)}")
-    graph = phase_graph(args.seed, args.bs)
-    print(f"[graph] {json.dumps(graph)}")
-    phase_profile(args.seed, args.bs)
+    seed, bs = args.seed, args.bs
+    with timed("kernels"):
+        rows = phase_kernels(seed, len(SNRS) * bs, bs, args.iters)
+        set_designs(rows, routes)
+    with timed("serving"):
+        by_path = phase_serving(seed, args.batches, bs)
+        phase_f32_ids(seed, bs)
+    with timed("train"):
+        by_path["train"], _ = phase_train(seed, args.epochs, bs)
+        phase_step_parity(seed, bs)
+    with timed("star"):
+        by_path["star_train"], _ = phase_train(seed, args.star_epochs, bs,
+                                               "star", STAR_CKPT)
+        phase_step_parity(seed, bs, "star")
+        by_path["star_serve"] = phase_star_serving(seed, args.batches, bs)
+        phase_star_f32_ids(seed, bs)
+    with timed("fading"):
+        by_path["fading"] = phase_fading(seed, args.batches, bs)
+        phase_fading_f32_ids(seed, bs)
+    with timed("attack"):
+        by_path["attack_train"] = phase_attack_train(seed, ATTACK_EPOCHS,
+                                                     bs)
+        phase_attack_step_parity(seed, bs)
+        by_path["attack_eval"] = phase_attack_eval(seed, args.batches, bs)
+        phase_attack_f32(seed, bs)
+    with timed("long"):
+        by_path["long_len"], _ = phase_train(
+            seed, 1, bs, extra=("--seq-len", str(LONG_SEQ)),
+            checkpoint="log/chip_smoke/long_ckpt", tag="long_len")
+        by_path["seq256"], seq256 = phase_train(
+            seed, 1, bs, extra=("--seq-len", str(SEQ256)),
+            checkpoint="log/chip_smoke/seq256_ckpt", tag="seq256",
+            sub=((CLUSTER, attn.KERNEL_BWD),))
+        print(f"[seq256] {seq256['ms_per_step']:.3f} ms a step over the "
+              f"epoch of {seq256['steps']} steps (the graph's warm-up and "
+              f"capture in it), bf16")
+        by_path["beam100"], _ = phase_beam100(seed, bs)
+    with timed("gan"):
+        by_path["gan_train"], _ = phase_gan_train(seed, GAN_EPOCHS, bs)
+        phase_gan_step_parity(seed, bs)
+        by_path["gan_eval"] = phase_gan_eval(seed, args.batches, bs)
+        phase_gan_f32_ids(seed, bs)
+        by_path["gan_star"], _ = phase_gan_star(seed, GAN_EPOCHS,
+                                                args.batches, bs)
+    with timed("wide"):
+        by_path["wide"] = phase_wide(seed, bs)
+        by_path["wide_heads"] = phase_wide_heads(seed, bs)
+    with timed("mine"):
+        by_path["mine_train"] = phase_mine_train(seed, MINE_EPOCHS, bs)
+        phase_mine_step_parity(seed, bs)
+    with timed("resume"):
+        by_path["resume"] = phase_resume(seed, bs)
+    with timed("levers"):
+        by_path["levers"], by_path["profile_run"], levers = phase_levers(
+            seed, bs)
+        print(f"[levers] {json.dumps(levers)}")
+    with timed("graph"):
+        graph = phase_graph(seed, bs)
+        print(f"[graph] {json.dumps(graph)}")
+    with timed("profile"):
+        phase_profile(seed, bs)
     t1 = time.perf_counter()
-    by_path["similarity"] = phase_similarity(args.seed, args.batches,
-                                             args.bs)
-    by_path["transmit"] = phase_transmit(args.seed)
-    phase_baseline(args.seed)
-    phase_preprocess(args.seed)
-    phase_export(jobs)
+    with timed("similarity"):
+        by_path["similarity"] = phase_similarity(seed, args.batches, bs)
+    with timed("transmit"):
+        by_path["transmit"] = phase_transmit(seed)
+    with timed("baseline"):
+        phase_baseline(seed)
+    with timed("preprocess"):
+        phase_preprocess(seed)
+    with timed("export"):
+        phase_export(jobs)
     print(f"[commands] similarity, transmit, baseline, preprocess and "
           f"export phases: {time.perf_counter() - t1:.1f} s")
     return kernels_line(rows, by_path)
@@ -3937,14 +4173,18 @@ def main(argv=None) -> int:
         return 1
     t0 = time.perf_counter()
     name = phase_device()
-    phase_build()
-    routes = phase_routes(args.seed, args.bs)
+    with timed("build"):
+        phase_build()
+    with timed("routes"):
+        routes = phase_routes(args.seed, args.bs)
     jobs = start_exports(args.seed)
     try:
         kernels = run_phases(args, jobs, routes)
     finally:
         stop_exports(jobs)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print("[phases] seconds " + json.dumps(
+        {key: round(value, 1) for key, value in PHASE_SECONDS.items()}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

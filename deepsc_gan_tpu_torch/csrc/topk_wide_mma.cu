@@ -1,12 +1,14 @@
-// Fused beam-candidate scorer (K6) at any width D and k up to 64, bf16, on
+// Fused beam-candidate scorer (K6) at any width D and k up to 256, bf16, on
 // Hopper's tensor cores (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel `_topk_kernel` of deepsc_gan_tpu/ops/pallas/
 // topk.py where the tuned K6 (csrc/topk.cu: lists of at most 8 in
 // registers, D a multiple of 8 up to 256) does not take a bf16 call: k from
 // 9 (`--beam-size 9` on the widened decoder, d_model 200) up to kMaxList =
-// 64, and any D (`--decoder-d-model 512`). f32, and bf16 past k = 64, stay
-// on csrc/topk_wide.cu. Same function as the tuned kernel: per row of h
+// 64 with a list a row, past it up to kMaxLong = 256 (`--beam-size 100`)
+// by the long path below (V up to 25,000), and any D
+// (`--decoder-d-model 512`). f32, and bf16 past k = 256, stay on
+// csrc/topk_wide.cu. Same function as the tuned kernel: per row of h
 // (N, D) over the vocab table W (V, D) and bias b (V) f32, the k largest
 // logits h . W_v + b_v in descending order, ties to the lowest vocab index,
 // their indices, and the row's logsumexp, with exact products of the bf16
@@ -17,7 +19,10 @@
 // bf16 tensor-core rate) and N V = 12.8 M exponentials, and reads 9 MB.
 // The design before this one (csrc/topk_wide.cu: f32 CUDA-core tiles, the
 // logits through an (N, V) f32 workspace and k rounds of a block argmax
-// over it) took 1.006 ms there on an H100 80GB HBM3 at 700 W.
+// over it) took 1.006 ms there on an H100 80GB HBM3 at 700 W, and 5.984
+// ms at k = 100, N = 256, D = 200, where `torch.topk` + `logsumexp` take
+// 0.216 (the lists of this kernel grown to 128 a row took 0.287, most of
+// it in their merges, at one block an SM).
 //
 // Design. The logits are the wide K3's (csrc/ce_wide_fwd.cu): block (row
 // tile of 64, vocab split) walks its vocab tiles of 128 rows with D
@@ -57,11 +62,13 @@
 // second kernel, a block per row, merges the splits: the keys at or above
 // the row's threshold, each placed by its rank among them (k rounds of the
 // warp's largest head key over the sorted lists where they are too many),
-// and the (max, sum) pairs in a fixed order into lse. No float atomics: the
-// same bits on every call. The splits are the wrapper's (`vocab_splits` from
-// this library's tiling). The TMA fills columns past D with zeros; a D off
-// 8 columns comes as zero-padded copies of width dp. Vocab columns past V
-// (the last tile) are -inf after the softmax's epilogue and never pass.
+// and the (max, sum) pairs in a fixed order into lse. Past k = 64 the long
+// path (described above its kernels) keeps lists of 16 and passes the
+// logits twice. No float atomics: the same bits on every call. The splits
+// are the wrapper's (`vocab_splits` from this library's tiling). The TMA
+// fills columns past D with zeros; a D off 8 columns comes as zero-padded
+// copies of width dp. Vocab columns past V (the last tile) are -inf after
+// the softmax's epilogue and never pass.
 
 #include "ce_online.cuh"
 
@@ -71,13 +78,20 @@ using ceo::kTV;
 
 constexpr int kStages = 2;       // the ring's: two stages of 24 KB
 using Ring = ceo::Ring<kStages>;
-constexpr int kMaxList = 64;     // the longest list, and k's bound
+constexpr int kMaxList = 64;     // the longest list
 constexpr int kBuf = 32;         // candidate keys a row takes per round
 constexpr int kBisect = 12;      // halvings of the first tile's bound
 constexpr int kMergeThreads = 128;     // a merge block's (one row)
 constexpr int kMaxSplitsPerThread = 4; // the merge's: 512 splits
 constexpr int kMaxCand = 512;          // keys a row's ranked merge takes
 constexpr size_t kMergeSmem = 200 * 1024;
+// the long path (kMaxList < k <= kMaxLong, V <= kMaxLongV): lists of
+// kSelect a split, then the emission of the keys at or above each row's
+// bound and a block per row's select of the k best
+constexpr int kMaxLong = 256;
+constexpr int kSelect = 16;
+constexpr int kFinalThreads = 256;
+constexpr int kMaxLongV = 25000;
 
 // 8-byte keys of a row's selection state: its list of KL, the buffer, and
 // one more so that the rows of a warp's eight quads fall in distinct banks
@@ -91,8 +105,10 @@ constexpr size_t smem_bytes() {
   return Ring::kBytes + sizeof(uint64_t) * wg::kRows * row_keys<KL>();
 }
 
-// the list length that holds k
-int list_length(int k) { return k <= 16 ? 16 : k <= 32 ? 32 : kMaxList; }
+// the list length that holds k (past kMaxList: the long path's lists)
+int list_length(int k) {
+  return k <= 16 ? 16 : k <= 32 ? 32 : k <= kMaxList ? kMaxList : kSelect;
+}
 
 // x's order-preserving bits (-0 as +0), then ~col: a larger key goes first
 __device__ __forceinline__ uint64_t key_of(float x, int col) {
@@ -328,8 +344,8 @@ topk_wide_mma_kernel(const __grid_constant__ CUtensorMap hmap,
   uint64_t* const st[2] = {state + r * row_keys<KL>(),
                            state + (r + 8) * row_keys<KL>()};
   unsigned long long* const slot[2] = {
-      row0 + r < n ? row_kth + row0 + r : nullptr,
-      row0 + r + 8 < n ? row_kth + row0 + r + 8 : nullptr};
+      row_kth && row0 + r < n ? row_kth + row0 + r : nullptr,
+      row_kth && row0 + r + 8 < n ? row_kth + row0 + r + 8 : nullptr};
   uint64_t kth[2] = {0, 0};
   ceo::Softmax sm;
   sm.init(nullptr, row0 + r, n);
@@ -383,6 +399,131 @@ topk_wide_mma_kernel(const __grid_constant__ CUtensorMap hmap,
     uint64_t* out = part_key + ((size_t)row * gridDim.y + split) * k;
     for (int i = lane & 3; i < k; i += 4) out[i] = st[h][i];
   }
+}
+
+// The bytes that single out the k best of `total` keys in shared memory
+// (0 for none; at least k nonzero), by the whole block: a radix select of
+// the k-th largest key, a byte a pass from the top. Each pass counts the
+// keys that match the bytes chosen so far by their next byte (a warp's
+// equal bytes added at once) and picks the byte whose keys hold the wanted
+// rank; it stops early where every key of that byte is wanted. The keys
+// with (key & mask) >= prefix are then exactly the k best (keys are
+// unique). The counts are integers, so the same bytes are chosen on every
+// call. hist: 256 ints, pick: 3 (shared).
+struct Bound {
+  uint64_t prefix, mask;
+};
+
+__device__ Bound radix_bound(const uint64_t* keys, int total, int k,
+                             int* hist, int* pick) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  uint64_t prefix = 0, mask = 0;
+  int want = k;  // K*'s rank among the keys that match prefix
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int i = tid; i < 256; i += nt) hist[i] = 0;
+    __syncthreads();  // (the keys, and the last pass's pick read)
+    for (int at = 0; at < total; at += nt) {
+      const int e = at + tid;
+      const uint64_t key = e < total ? keys[e] : 0;
+      const bool in = key != 0 && (key & mask) == prefix;
+      const int byte = (int)((key >> shift) & 0xFF);
+      const unsigned active = __ballot_sync(0xffffffffu, in);
+      if (in) {
+        const unsigned peers = __match_any_sync(active, byte);
+        if (__ffs(peers) - 1 == lane) atomicAdd(&hist[byte], __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // lane l holds bytes 255 - 8 l down to 248 - 8 l: the keys above
+      // each in order of the lanes, then of its bytes
+      int c[8], own = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = hist[255 - 8 * lane - j];
+        own += c[j];
+      }
+      int incl = own;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      int above = incl - own;
+      if (above < want && want <= incl) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (above + c[j] >= want) {
+            pick[0] = 255 - 8 * lane - j;
+            pick[1] = above;
+            pick[2] = c[j];
+            break;
+          }
+          above += c[j];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= (uint64_t)pick[0] << shift;
+    mask |= (uint64_t)0xFF << shift;
+    want -= pick[1];
+    if (pick[2] == want) break;  // every key of the byte is wanted
+  }
+  return {prefix, mask};
+}
+
+// The k best of `total` keys in shared memory (`radix_bound`), gathered
+// into best[k] and each placed by its rank among them: vals and idx of
+// `row`, largest first. taken: 1 int (shared).
+__device__ void select_top(const uint64_t* keys, int total, int k,
+                           uint64_t* best, int* hist, int* pick, int* taken,
+                           float* __restrict__ vals, int* __restrict__ idx,
+                           int row) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  if (tid == 0) *taken = 0;
+  const Bound bd = radix_bound(keys, total, k, hist, pick);
+  for (int at = 0; at < total; at += nt) {
+    const int e = at + tid;
+    const uint64_t key = e < total ? keys[e] : 0;
+    if (key != 0 && (key & bd.mask) >= bd.prefix)
+      best[atomicAdd(taken, 1)] = key;
+  }
+  __syncthreads();
+  for (int c = tid; c < k; c += nt) {
+    const uint64_t key = best[c];
+    int rank = 0;
+    for (int i = 0; i < k; ++i) rank += best[i] > key;
+    vals[(size_t)row * k + rank] = value_of(key);
+    idx[(size_t)row * k + rank] = index_of(key);
+  }
+}
+
+// lse of `row` from the splits' (max, sum) pairs (splits, N, 3), by the
+// first warp: lane l merges splits l, l + 32, ... in order, then the lanes
+// merge in a fixed butterfly
+__device__ void merge_lse(const float* __restrict__ part_ms,
+                          float* __restrict__ lse, int n, int splits,
+                          int row) {
+  const int lane = threadIdx.x & 31;
+  float m = ce::NEG, sum = 0.f;
+  for (int sp = lane; sp < splits; sp += 32) {
+    const float* p = part_ms + ((size_t)sp * n + row) * 3;
+    const float mn = fmaxf(m, p[0]);
+    sum = sum * expf(m - mn) + p[1] * expf(p[0] - mn);
+    m = mn;
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const float s2 = __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mn = fmaxf(m, m2);
+    sum = sum * expf(m - mn) + s2 * expf(m2 - mn);
+    m = mn;
+  }
+  if (lane == 0) lse[row] = m + logf(sum);
 }
 
 // a block per row: the splits' sorted lists (staged in shared memory) and
@@ -503,25 +644,166 @@ topk_wide_mma_merge_kernel(const uint64_t* __restrict__ part_key,
       }
     }
   }
-  if (tid >= 32) return;
-  // lse: lane l merges the (max, sum) pairs of splits l, l + 32, ... in
-  // order, then the lanes merge in a fixed butterfly
-  float m = ce::NEG, sum = 0.f;
-  for (int sp = lane; sp < splits; sp += 32) {
-    const float* p = part_ms + ((size_t)sp * n + row) * 3;
-    const float mn = fmaxf(m, p[0]);
-    sum = sum * expf(m - mn) + p[1] * expf(p[0] - mn);
-    m = mn;
+  if (tid < 32) merge_lse(part_ms, lse, n, splits, row);
+}
+
+// ---- the long path, kMaxList < k <= kMaxLong
+//
+// The lists of kMaxList give way past it: a split's list of k (or a
+// buffer's rounds) costs more than the logits. Instead: (1) the partial
+// kernel with lists of kSelect and no shared threshold (each split's own
+// kSelect best: their union holds at least k keys, the splits being at
+// least k / 8), (2) a block per row radix-selects the k-th largest key of
+// that union, a lower bound of the row's k-th: the bytes chosen so far
+// (prefix, mask) go to row_thr, (3) the logits again (the same tile and
+// bias add, so the same bits), each key at or above the row's bound
+// appended to the row's candidates (an integer atomicAdd on its count; cap
+// slots, the count going on past them), (4) a block per row selects the k
+// best of its candidates; (5) a row whose candidates overflowed (many
+// equal logits) is done by the fallback: its V logits on the CUDA cores
+// into shared memory and the same select. The candidates' order depends on
+// the blocks' timing; the select's result does not.
+
+// (2): row_thr[row] = (prefix, mask) of the union's k best; the row's
+// candidate count zeroed (and the overflow count by row 0); lse
+__global__ void __launch_bounds__(kMergeThreads)
+topk_long_threshold_kernel(const uint64_t* __restrict__ part_key,
+                           const float* __restrict__ part_ms,
+                           unsigned long long* __restrict__ row_thr,
+                           int* __restrict__ count, float* __restrict__ lse,
+                           int n, int k, int splits) {
+  extern __shared__ uint64_t keys[];  // the splits' lists
+  __shared__ int hist[256];
+  __shared__ int pick[3];
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x;
+  const int total = splits * kSelect;
+  const uint64_t* lists = part_key + (size_t)row * total;
+#pragma unroll 4
+  for (int e = tid; e < total; e += kMergeThreads) keys[e] = lists[e];
+  const Bound bd = radix_bound(keys, total, k, hist, pick);
+  if (tid == 0) {
+    row_thr[2 * row] = bd.prefix;
+    row_thr[2 * row + 1] = bd.mask;
+    count[row] = 0;
+    if (row == 0) count[n] = 0;
   }
+  if (tid < 32) merge_lse(part_ms, lse, n, splits, row);
+}
+
+// (3): block (row tile, vocab split) computes its tiles' logits as the
+// partial kernel does and appends each key at or above its row's bound
+// to the row's candidates
+__global__ void __launch_bounds__(wg::kThreads)
+topk_long_emit_kernel(const __grid_constant__ CUtensorMap hmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const float* __restrict__ b,
+                      const unsigned long long* __restrict__ row_thr,
+                      uint64_t* __restrict__ cand, int* __restrict__ count,
+                      int n, int dp, int v, int cap, int tiles_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar[kStages];
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * wg::kRows;
+  const int split = blockIdx.y;
+  const int nvt = (v + kTV - 1) / kTV;
+  const int t0 = split * tiles_per_split;
+  const int ntiles = min(t0 + tiles_per_split, nvt) - t0;
+  Ring ring;
+  ring.begin(&hmap, &wmap, smem_raw, bar, row0, t0, ntiles, dp);
+  const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  uint64_t prefix[2], mask[2];
+  bool live[2];
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
-    const float s2 = __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mn = fmaxf(m, m2);
-    sum = sum * expf(m - mn) + s2 * expf(m2 - mn);
-    m = mn;
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + r + 8 * h;
+    live[h] = row < n;
+    prefix[h] = live[h] ? row_thr[2 * row] : 0;
+    mask[h] = live[h] ? row_thr[2 * row + 1] : 0;
   }
-  if (lane == 0) lse[row] = m + logf(sum);
+  for (int it = 0; it < ntiles; ++it) {
+    const int col0 = (t0 + it) * kTV;
+    const int c0 = col0 + 2 * (lane & 3);
+    float bias[32];
+    ceo::load_bias(bias, b, col0, c0, v);
+    float acc[64];
+    ring.tile(acc, it);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * q + e;
+          if (col >= v || !live[h]) continue;
+          // the partial kernel's value: the product plus the bias, once
+          const float x = acc[4 * q + 2 * h + e] + bias[2 * q + e];
+          const uint64_t key = key_of(x, col);
+          if ((key & mask[h]) >= prefix[h]) {
+            const int row = row0 + r + 8 * h;
+            const int at = atomicAdd(&count[row], 1);
+            if (at < cap) cand[(size_t)row * cap + at] = key;
+          }
+        }
+  }
+}
+
+// (4): a block per row: the k best of its candidates; a row whose
+// candidates overflowed goes on the fallback's list (count[n] long)
+__global__ void __launch_bounds__(kFinalThreads)
+topk_long_final_kernel(const uint64_t* __restrict__ cand,
+                       int* __restrict__ count, int* __restrict__ over,
+                       float* __restrict__ vals, int* __restrict__ idx,
+                       int n, int k, int cap) {
+  extern __shared__ uint64_t keys[];  // the candidates, then the k best
+  __shared__ int hist[256];
+  __shared__ int pick[3];
+  __shared__ int taken;
+  const int row = blockIdx.x;
+  const int total = count[row];
+  if (total > cap) {
+    if (threadIdx.x == 0) over[atomicAdd(&count[n], 1)] = row;
+    return;
+  }
+  const uint64_t* c = cand + (size_t)row * cap;
+  for (int e = threadIdx.x; e < total; e += kFinalThreads) keys[e] = c[e];
+  select_top(keys, total, k, keys + total, hist, pick, &taken, vals, idx,
+             row);
+}
+
+// (5): each block takes rows of the overflow list in turn: the row's V
+// logits (h's row and W's rows as f32 products of the bf16 operands,
+// summed in order, plus the bias) as keys in shared memory, and their k
+// best
+__global__ void __launch_bounds__(kFinalThreads)
+topk_long_fallback_kernel(const __nv_bfloat16* __restrict__ h,
+                          const __nv_bfloat16* __restrict__ w,
+                          const float* __restrict__ b,
+                          const int* __restrict__ count,
+                          const int* __restrict__ over,
+                          float* __restrict__ vals, int* __restrict__ idx,
+                          int n, int dp, int v, int k) {
+  extern __shared__ uint64_t keys[];  // v keys, the k best, h's row (f32)
+  __shared__ int hist[256];
+  __shared__ int pick[3];
+  __shared__ int taken;
+  float* hrow = reinterpret_cast<float*>(keys + v + k);
+  const int rows = count[n];
+  for (int i = blockIdx.x; i < rows; i += gridDim.x) {
+    const int row = over[i];
+    __syncthreads();  // (the last row's keys read)
+    for (int d = threadIdx.x; d < dp; d += kFinalThreads)
+      hrow[d] = __bfloat162float(h[(size_t)row * dp + d]);
+    __syncthreads();
+    for (int col = threadIdx.x; col < v; col += kFinalThreads) {
+      const __nv_bfloat16* wr = w + (size_t)col * dp;
+      float x = 0.f;
+      for (int d = 0; d < dp; ++d)
+        x = fmaf(hrow[d], __bfloat162float(wr[d]), x);
+      keys[col] = key_of(x + b[col], col);
+    }
+    select_top(keys, v, k, keys + v, hist, pick, &taken, vals, idx, row);
+  }
 }
 
 bool takes(int dp, int k) {
@@ -571,15 +853,100 @@ int tiling(int* out) {
                      smem_bytes<KL>(), wg::kRows, kTV, out);
 }
 
+bool takes_long(int dp, int k, int v) {
+  return dp > 0 && dp % 8 == 0 && k > kMaxList && k <= kMaxLong &&
+         k <= v && v <= kMaxLongV;
+}
+
+// shared memory of the long path's blocks: the threshold's (the splits'
+// lists of kSelect), the final select's (cap candidates and the k best),
+// the fallback's (the row's v keys, the k best and h's row as f32)
+size_t threshold_smem(int splits) {
+  return sizeof(uint64_t) * (size_t)splits * kSelect;
+}
+size_t final_smem(int cap, int k) {
+  return sizeof(uint64_t) * ((size_t)cap + k);
+}
+size_t fallback_smem(int v, int k, int dp) {
+  return sizeof(uint64_t) * ((size_t)v + k) + sizeof(float) * dp;
+}
+
+int launch_long(const void* h, const void* w, const void* b, void* vals,
+                void* idx, void* lse, void* part_key, void* part_ms,
+                void* row_thr, void* cand, void* count, void* over, int n,
+                int dp, int v, int k, int splits, int emit_splits, int cap,
+                cudaStream_t st) {
+  const int tps = ceo::split_tiles(n, v, splits, kTV);
+  const int etps = ceo::split_tiles(n, v, emit_splits, kTV);
+  const size_t tsmem = threshold_smem(splits);
+  const size_t fsmem = final_smem(cap, k);
+  const size_t bsmem = fallback_smem(v, k, dp);
+  // the union of the splits' lists holds at least k keys: every split but
+  // the last (whose last tile may be ragged) fills its kSelect
+  if (tps < 0 || etps < 0 || (splits - 1) * kSelect < k ||
+      tsmem > kMergeSmem || cap < k || fsmem > kMergeSmem)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0, dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  CUtensorMap hmap, wmap;
+  err = wg::make_map(&hmap, h, n, dp, wg::kRows);
+  if (!err) err = wg::make_map(&wmap, w, v, dp, kTV);
+  if (!err)
+    err = ceo::set_smem((const void*)topk_wide_mma_kernel<kSelect>,
+                        smem_bytes<kSelect>());
+  if (!err)
+    err = ceo::set_smem((const void*)topk_long_threshold_kernel, tsmem);
+  if (!err)
+    err = ceo::set_smem((const void*)topk_long_emit_kernel, Ring::kBytes);
+  if (!err) err = ceo::set_smem((const void*)topk_long_final_kernel, fsmem);
+  if (!err)
+    err = ceo::set_smem((const void*)topk_long_fallback_kernel, bsmem);
+  if (err) return err;
+  const int tiles = (n + wg::kRows - 1) / wg::kRows;
+  topk_wide_mma_kernel<kSelect><<<dim3(tiles, splits), wg::kThreads,
+                                  smem_bytes<kSelect>(), st>>>(
+      hmap, wmap, (const float*)b, (uint64_t*)part_key, (float*)part_ms,
+      nullptr, n, dp, v, kSelect, tps);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  topk_long_threshold_kernel<<<n, kMergeThreads, tsmem, st>>>(
+      (const uint64_t*)part_key, (const float*)part_ms,
+      (unsigned long long*)row_thr, (int*)count, (float*)lse, n, k, splits);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  topk_long_emit_kernel<<<dim3(tiles, emit_splits), wg::kThreads,
+                          Ring::kBytes, st>>>(
+      hmap, wmap, (const float*)b, (const unsigned long long*)row_thr,
+      (uint64_t*)cand, (int*)count, n, dp, v, cap, etps);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  topk_long_final_kernel<<<n, kFinalThreads, fsmem, st>>>(
+      (const uint64_t*)cand, (int*)count, (int*)over, (float*)vals,
+      (int*)idx, n, k, cap);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  topk_long_fallback_kernel<<<n < sms ? n : sms, kFinalThreads, bsmem, st>>>(
+      (const __nv_bfloat16*)h, (const __nv_bfloat16*)w, (const float*)b,
+      (const int*)count, (const int*)over, (float*)vals, (int*)idx, n, dp, v,
+      k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// How the library takes k, into out[3]: the list length (16, 32 or 64),
-// the ring's stages, and a block's dynamic shared memory in bytes. Returns
-// 0, or cudaErrorInvalidValue outside 1 <= k <= 64.
+// How the library takes k, into out[3]: the list length (16, 32 or 64;
+// past 64 the long path's lists of 16), the ring's stages, and a block's
+// dynamic shared memory in bytes. Returns 0, or cudaErrorInvalidValue
+// outside 1 <= k <= 256.
 int deepsc_topk_wide_mma_plan(int k, int* out) {
-  if (!takes(8, k)) return (int)cudaErrorInvalidValue;
+  if (!takes(8, k) && !takes_long(8, k, kMaxLongV))
+    return (int)cudaErrorInvalidValue;
   const int kl = list_length(k);
   out[0] = kl;
   out[1] = kStages;
@@ -593,11 +960,19 @@ int deepsc_topk_wide_mma_plan(int k, int* out) {
 // per SM from CUDA's occupancy calculator) into out[3] for k (the width
 // does not enter): what the wrapper cuts the vocab into splits by.
 int deepsc_topk_wide_mma_tiling_bf16(int k, int* out) {
-  if (!takes(8, k)) return (int)cudaErrorInvalidValue;
+  if (!takes(8, k) && !takes_long(8, k, kMaxLongV))
+    return (int)cudaErrorInvalidValue;
   const int kl = list_length(k);
   return kl == 16 ? tiling<16>(out)
          : kl == 32 ? tiling<32>(out)
                     : tiling<kMaxList>(out);
+}
+
+// The emission kernel of the long path, into out[3]: rows of h and of W
+// per tile and its blocks an SM (CUDA's occupancy calculator).
+int deepsc_topk_wide_mma_emit_tiling_bf16(int* out) {
+  return ceo::tiling((const void*)topk_long_emit_kernel, wg::kThreads,
+                     Ring::kBytes, wg::kRows, kTV, out);
 }
 
 // h: contiguous bf16 (N, dp) and w: bf16 (V, dp), zero in the columns past
@@ -624,6 +999,27 @@ int deepsc_topk_wide_mma_bf16(const void* h, const void* w, const void* b,
                       dp, v, k, splits, st);
   return launch<kMaxList>(h, w, b, vals, idx, lse, part_key, part_ms,
                           row_kth, n, dp, v, k, splits, st);
+}
+
+// The long path, kMaxList < k <= 256 (V <= 25,000): h, w, b, the outputs
+// and D as deepsc_topk_wide_mma_bf16's. Workspaces: part_key uint64 (N,
+// splits, 16), part_ms f32 (splits, N, 3), row_thr uint64 (N, 2), cand
+// uint64 (N, cap), count int32 (N + 1), over int32 (N). splits: the
+// partial kernel's vocab splits, each owning a vocab tile, with
+// (splits - 1) x 16 >= k; emit_splits: the emission's; k <= cap, and
+// (cap + k) keys within 200 KB. Returns cudaGetLastError() after the
+// launches (0 = success).
+int deepsc_topk_wide_mma_long_bf16(const void* h, const void* w,
+                                   const void* b, void* vals, void* idx,
+                                   void* lse, void* part_key, void* part_ms,
+                                   void* row_thr, void* cand, void* count,
+                                   void* over, int n, int dp, int v, int k,
+                                   int splits, int emit_splits, int cap,
+                                   void* stream) {
+  if (n <= 0 || !takes_long(dp, k, v)) return (int)cudaErrorInvalidValue;
+  return launch_long(h, w, b, vals, idx, lse, part_key, part_ms, row_thr,
+                     cand, count, over, n, dp, v, k, splits, emit_splits, cap,
+                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 (K1, the port of the TPU kernel `_fwd_kernel`) and `csrc/attention_bwd.cu`
 (K2, the port of `_bwd_kernel`, deepsc_gan_tpu/ops/pallas/attention.py),
 with `csrc/attention_bwd_resident.cu` (the bf16 K2 past 32 queries or keys
-up to L_RES of both), `csrc/attention_wide_mma.cu` (bf16, heads up to 256
+up to L_RES of both), `csrc/attention_bwd_cluster.cu` (the bf16 K2 past
+L_RES up to L_CLUSTER), `csrc/attention_wide_mma.cu` (bf16, heads up to 256
 wide),
 `csrc/attention_chunked.cu` (bf16, heads wider than 256) and
 `csrc/attention_wide.cu` (f32) for the head widths and counts they do not
@@ -35,6 +36,7 @@ KERNEL_WIDE = "attention_wide"
 KERNEL_CHUNKED = "attention_chunked"
 KERNEL_WIDE_MMA = "attention_wide_mma"
 KERNEL_RESIDENT = "attention_bwd_resident"
+KERNEL_CLUSTER = "attention_bwd_cluster"
 # what the tuned kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu):
 # a warp per head of a compile-time width in HEAD_DIMS, at most MAX_HEADS
 # heads, any number of queries and keys. Up to TILE of both: a block per
@@ -68,30 +70,49 @@ KERNEL_RESIDENT = "attention_bwd_resident"
 # (csrc/attention_bwd_resident.cu: a block per batch row and head holds the
 # head's q, g, k, v and the row's bias tile, a warp per 16 queries forms p
 # once over all keys, then a warp per 16 keys sums dk and dv over all
-# queries); the long-length kernels keep f32 and longer rows.
+# queries). Past L_RES of either, up to L_CLUSTER of both, the cluster
+# kernel (csrc/attention_bwd_cluster.cu: a block per row's head holds the
+# head's k and v and walks its query slices, a warp per 16 queries and
+# CLUSTER_CHUNK keys forming p once, dk and dv held in registers over the
+# slices; where the rows' heads are fewer than the SMs, the slices are
+# split over a cluster of up to CLUSTER_MAX blocks whose dk and dv
+# partials are summed in rank order through distributed shared memory);
+# the long-length kernels keep f32 and longer rows.
 HEAD_DIMS = (8, 16, 32)
 MAX_HEADS = 16
 TILE = 32
 REGISTER_DH = 256
 L_RES = 128
+L_CLUSTER = 512
+# the cluster kernel's block: CLUSTER_WARPS warps, each a phase-1 task of
+# 16 queries and CLUSTER_CHUNK keys; at most CLUSTER_MAX blocks a cluster
+CLUSTER_WARPS = 16
+CLUSTER_CHUNK = 64
+CLUSTER_MAX = 8
+# the shared memory a block of the cluster kernel may take (the H100's)
+CLUSTER_SMEM = 232448
 
 # Launches of the forward (K1) and backward (K2) kernels since the last
 # reset (each wrapper adds one per launch and nowhere else; `wide_launches`
 # and `wide_bwd_launches` count the calls among them that went to the wide
-# kernels); read by chip_smoke.py to show that a path went through the
+# kernels, `cluster_bwd_launches` the K2 calls that went to the cluster
+# kernel); read by chip_smoke.py to show that a path went through the
 # kernels.
 launches = 0
 bwd_launches = 0
 wide_launches = 0
 wide_bwd_launches = 0
+cluster_bwd_launches = 0
 
 
 def reset_launches() -> None:
     global launches, bwd_launches, wide_launches, wide_bwd_launches
+    global cluster_bwd_launches
     launches = 0
     bwd_launches = 0
     wide_launches = 0
     wide_bwd_launches = 0
+    cluster_bwd_launches = 0
 
 
 def _heads(x, heads):
@@ -164,9 +185,69 @@ def uses_resident(dtype, lq: int, lk: int, heads: int, dh: int) -> bool:
     """Whether K2 at Lq x Lk and `heads` heads of `dh` in `dtype` runs the
     resident kernel (csrc/attention_bwd_resident.cu): bf16 at the tuned
     head widths and counts, past TILE queries or keys, up to L_RES of
-    both."""
+    both. The cluster kernel takes these shapes too but is slower there
+    (H100, N = 64, 8 heads of 16, no dbias: 0.0368 against 0.0349 ms at
+    128 x 128, 0.0292 against 0.0101 at 63 x 64, 0.0305 against 0.0081 at
+    33 x 33; scripts/attention_bwd_cluster_variants.py
+    --against-resident)."""
     return (dtype == torch.bfloat16 and is_long(lq, lk) and lq <= L_RES
             and lk <= L_RES and not is_wide(heads, dh))
+
+
+def uses_cluster(dtype, lq: int, lk: int, heads: int, dh: int) -> bool:
+    """Whether K2 at Lq x Lk and `heads` heads of `dh` in `dtype` runs the
+    cluster kernel (csrc/attention_bwd_cluster.cu): bf16 at the tuned head
+    widths and counts, past L_RES queries or keys, up to L_CLUSTER of
+    both."""
+    return (dtype == torch.bfloat16 and (lq > L_RES or lk > L_RES)
+            and lq <= L_CLUSTER and lk <= L_CLUSTER
+            and not is_wide(heads, dh))
+
+
+def cluster_slice_rows(lk: int) -> int:
+    """Queries of a cluster K2 slice: a warp per 16 queries and key chunk
+    (the keys cut into 1, 2, 4 or 8 chunks of CLUSTER_CHUNK), at most
+    128."""
+    chunks = -(-lk // CLUSTER_CHUNK)
+    chunks = next(c for c in (1, 2, 4, 8) if chunks <= c)
+    return 16 * min(CLUSTER_WARPS // chunks, 8)
+
+
+def cluster_plan(lq: int, lk: int, dh: int):
+    """(shared memory bytes, threads, query slices of a row's head, queries
+    a slice) of the cluster K2 at Lq x Lk and head width dh (the library's
+    `deepsc_attention_bwd_cluster_plan`): the head's k and v (Lk rounded up
+    to 16 rows) and two buffers of a slice's q and g at an odd number of
+    16-byte units a row, the slice's bias rows at Lk + 8 floats, the pc
+    and dss tiles at 2 Lk + 16 bytes a row, each warp's row statistics (3
+    x 16 f32), and the warps' dq partials (16 x dh f32 each) where the
+    card's CLUSTER_SMEM allows (else they reuse the bias rows); the dk and
+    dv partials (f32) of a cluster reuse
+    the space after the last slice."""
+    lkp = -(-lk // 16) * 16
+    rows = cluster_slice_rows(lk)
+    chunks = next(c for c in (1, 2, 4, 8) if -(-lk // CLUSTER_CHUNK) <= c)
+    units = dh * 2 // 16
+    stride = 16 * (units + (1 if units % 2 == 0 else 2))
+    main = (2 * lkp * stride + 4 * rows * stride + 4 * rows * (lkp + 8)
+            + 2 * rows * (2 * lkp + 16) + 4 * CLUSTER_WARPS * 16 * 3)
+    own = main + 4 * rows * chunks * dh
+    if own <= CLUSTER_SMEM:
+        main = own
+    return (max(main, 2 * lkp * dh * 4), 32 * CLUSTER_WARPS,
+            -(-lq // rows), rows)
+
+
+def cluster_size(n: int, heads: int, lq: int, lk: int, sms: int) -> int:
+    """Blocks a cluster of the cluster K2 at N rows of `heads` heads on a
+    card of `sms` SMs (the library's `deepsc_attention_bwd_cluster_size`):
+    doubled from 1, up to CLUSTER_MAX and the query slices, while the rows'
+    heads times it are fewer than the SMs."""
+    slices = cluster_plan(lq, lk, 16)[2]
+    c = 1
+    while 2 * c <= CLUSTER_MAX and 2 * c <= slices and n * heads * c < sms:
+        c *= 2
+    return c
 
 
 def resident_smem_bytes(lq: int, lk: int, dh: int) -> int:
@@ -280,6 +361,46 @@ def _bind_resident():
         fn.restype = ctypes.c_int
         _BOUND[key] = fn
     return _BOUND[key]
+
+
+def _bind_cluster():
+    """The cluster K2's launch function, with its ctypes signature
+    declared (the resident K2's arguments)."""
+    key = (KERNEL_CLUSTER, KERNEL_BWD)
+    if key not in _BOUND:
+        fn = build.load(KERNEL_CLUSTER).deepsc_attention_bwd_cluster_bf16
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[KERNEL_BWD] + 1)
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
+def library_cluster_plan(lq: int, lk: int, dh: int):
+    """`cluster_plan(lq, lk, dh)` as the built library reports it."""
+    fn = build.load(KERNEL_CLUSTER).deepsc_attention_bwd_cluster_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(lq, lk, dh, out)
+    if err != 0:
+        raise ValueError(f"{KERNEL_CLUSTER} does not take {lq} x {lk} at "
+                         f"head width {dh}: CUDA error {err}")
+    return tuple(out)
+
+
+def library_cluster_size(n: int, heads: int, lq: int, lk: int) -> int:
+    """`cluster_size` on the current device, as the built library computes
+    it."""
+    fn = build.load(KERNEL_CLUSTER).deepsc_attention_bwd_cluster_size
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int()
+    err = fn(n, heads, lq, lk, ctypes.byref(out))
+    if err != 0:
+        raise ValueError(f"{KERNEL_CLUSTER} cluster size: CUDA error {err}")
+    return out.value
 
 
 def resident_plan(lq: int, lk: int, dh: int):
@@ -434,10 +555,13 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
                if is_chunked_mma(q.dtype, heads, hd // heads) else None)
     mma = library is not None
     resident = uses_resident(q.dtype, lq, lk, heads, hd // heads)
+    cluster = uses_cluster(q.dtype, lq, lk, heads, hd // heads)
     if mma:
         fn, scratch = _bind_tensor_core(library, KERNEL_BWD), is_long(lq, lk)
     elif resident:
         fn, scratch = _bind_resident(), False
+    elif cluster:
+        fn, scratch = _bind_cluster(), False
     elif wide:
         fn, scratch = _bind_wide(KERNEL_BWD, q.dtype), True
     else:
@@ -451,7 +575,7 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     stats = torch.empty((n, heads, lq, 4), dtype=torch.float32,
                         device=q.device) if scratch else None
     pointers = [stats] if scratch else []
-    if resident:
+    if resident or cluster:
         # each head's f32 ds, summed over the heads for dbias
         pointers = [torch.empty((n, heads, lq, lk), dtype=torch.float32,
                                 device=q.device) if need_dbias else None]
@@ -470,9 +594,10 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA "
                            f"error {err}")
-    global bwd_launches, wide_bwd_launches
+    global bwd_launches, wide_bwd_launches, cluster_bwd_launches
     bwd_launches += 1
     wide_bwd_launches += wide
+    cluster_bwd_launches += cluster
     return dq, dk, dv, dbias
 
 

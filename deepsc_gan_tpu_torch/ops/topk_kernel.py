@@ -17,10 +17,13 @@ the card. Each dtype has one kernel: bf16 multiplies on the tensor cores
 (wgmma) and f32 on the CUDA cores in exact f32, which the f32 beam id
 checks need. Past k = 8, or at a width off its step, the wide kernels
 take the call: in bf16 up to k = K_LIST the tensor-core wide kernel
-(`csrc/topk_wide_mma.cu`: the wide K3's streamed wgmma logits tile, each
-row's k best kept in shared memory behind a threshold filter, then a merge
-of the vocab splits), f32 and bf16 past K_LIST `csrc/topk_wide.cu` (the
-logits through a workspace, each split's top k, then a merge). The vocab
+(`csrc/topk_wide_mma.cu`: the wide K3's streamed wgmma logits tile; up to
+K_SHORT each row's k best kept in shared memory behind a threshold filter,
+then a merge of the vocab splits; past it the long path: lists of
+SELECT_LIST a split, a per-row bound from their union, the logits again
+with the keys at or above it kept, and a select of each row's k best),
+f32 and bf16 past K_LIST `csrc/topk_wide.cu` (the logits through a
+workspace, each split's top k, then a merge). The vocab
 splits come from `ce_kernel.vocab_splits` fed by the library's tiles and
 blocks per SM (`deepsc_topk_tiling_*`, `deepsc_topk_wide_tiling_*`,
 `deepsc_topk_wide_mma_tiling_bf16`).
@@ -60,29 +63,49 @@ IBIG = 2 ** 30
 MAX_K = 8
 D_STEP = 8
 # the bf16 tensor-core wide kernel (csrc/topk_wide_mma.cu): k up to K_LIST,
-# each row's list LIST_LENGTHS long (the first that holds k), a ring of
-# MMA_STAGES stages of a 64-column k-chunk of h's 64 rows and of W's
-# MMA_TILE rows (128 bytes a row), and MMA_BUF candidate keys a row a round;
-# the list and the buffer of each of a block's 64 rows (and one key of
-# padding), 8 bytes a key
-K_LIST = 64
+# up to K_SHORT each row's list LIST_LENGTHS long (the first that holds k),
+# past it the long path's lists of SELECT_LIST (V up to LONG_MAX_V); a
+# ring of MMA_STAGES stages of a 64-column k-chunk of h's 64 rows and of
+# W's MMA_TILE rows (128 bytes a row), and MMA_BUF candidate keys a row a
+# round; the list and the buffer of each of a block's 64 rows (and one key
+# of padding), 8 bytes a key. The long path's threshold stages the
+# splits' lists of SELECT_LIST in MERGE_SMEM bytes at most, its select a
+# row's candidates (at most CAND_CAP a row and CAND_BUDGET bytes over the
+# rows) and k best.
+K_LIST = 256
+K_SHORT = 64
 LIST_LENGTHS = (16, 32, 64)
+SELECT_LIST = 16
+LONG_MAX_V = 25000
 MMA_STAGES = 2
 MMA_TILE = 128
 MMA_BUF = 32
+MERGE_SMEM = 200 * 1024
+CAND_CAP = 4096
+CAND_BUDGET = 64 * 2 ** 20
 
 # Launches of K6 since the last reset (the wrapper adds one per launch and
 # nowhere else; `wide_launches` counts the calls among them that went to
-# the wide kernels); read by chip_smoke.py to show that a path went through
-# it.
+# the wide kernels, `long_list_launches` those that went to the
+# tensor-core wide kernel's long path, past k = K_SHORT); read by
+# chip_smoke.py to show that a path went through it.
 launches = 0
 wide_launches = 0
+long_list_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, wide_launches
+    global launches, wide_launches, long_list_launches
     launches = 0
     wide_launches = 0
+    long_list_launches = 0
+
+
+def uses_long_list(dtype: torch.dtype, d: int, k: int, v: int) -> bool:
+    """Whether K6 at width d and k in `dtype` over V = v rows of W runs the
+    tensor-core wide kernel's long path (bf16, k from K_SHORT + 1 to
+    K_LIST, V up to LONG_MAX_V)."""
+    return uses_tensor_core(dtype, d, k, v) and k > K_SHORT
 
 
 def is_wide(d: int, k: int) -> bool:
@@ -90,12 +113,22 @@ def is_wide(d: int, k: int) -> bool:
     return k > MAX_K or d % D_STEP != 0 or d > MAX_D
 
 
-def uses_tensor_core(dtype: torch.dtype, d: int, k: int) -> bool:
-    """Whether K6 at width d and k in `dtype` runs the tensor-core wide
-    kernel (csrc/topk_wide_mma.cu): bf16 calls the tuned kernel does not
-    take, k up to K_LIST; f32 and longer lists run csrc/topk_wide.cu."""
+def uses_tensor_core(dtype: torch.dtype, d: int, k: int, v: int) -> bool:
+    """Whether K6 at width d and k in `dtype` over V = v rows of W runs the
+    tensor-core wide kernel (csrc/topk_wide_mma.cu): bf16
+    calls the tuned kernel does not take, k up to K_LIST (past K_SHORT its
+    long path, V up to LONG_MAX_V); f32, longer lists and larger vocabs
+    past K_SHORT run csrc/topk_wide.cu."""
     return (op_dtype(dtype) == torch.bfloat16 and is_wide(d, k)
-            and k <= K_LIST)
+            and k <= K_LIST
+            and (k <= K_SHORT or takes_long(k, v)))
+
+
+def takes_long(k: int, v: int) -> bool:
+    """Whether the long path takes k over V vocab rows: V up to
+    LONG_MAX_V, and vocab tiles enough that all but the last fill lists of
+    SELECT_LIST holding 2 k keys."""
+    return v <= LONG_MAX_V and (-(-v // MMA_TILE) - 1) * SELECT_LIST >= 2 * k
 
 
 class WideMmaPlan(NamedTuple):
@@ -108,15 +141,51 @@ class WideMmaPlan(NamedTuple):
 
 
 def wide_mma_plan(k: int) -> Optional[WideMmaPlan]:
-    """The plan for k (the same at every width), or None outside 1..K_LIST:
-    1,024 bytes of alignment, the ring, and per row of the block's 64 the
-    list, the buffer and a key of padding."""
+    """The plan for k (the same at every width; past K_SHORT the long
+    path's partial kernel, lists of SELECT_LIST), or None outside
+    1..K_LIST: 1,024 bytes of alignment, the ring, and per row of the
+    block's 64 the list, the buffer and a key of padding."""
     if not 1 <= k <= K_LIST:
         return None
-    length = next(n for n in LIST_LENGTHS if k <= n)
+    length = next((n for n in LIST_LENGTHS if k <= n), SELECT_LIST)
     ring = MMA_STAGES * (64 + MMA_TILE) * 128
     keys = 64 * (length + MMA_BUF + 1)
     return WideMmaPlan(length, MMA_STAGES, 1024 + ring + 8 * keys)
+
+
+class LongPlan(NamedTuple):
+    """How the long path takes a call: the partial kernel's vocab splits,
+    the emission's, and each row's candidate slots."""
+    splits: int
+    emit_splits: int
+    cap: int
+
+
+def long_plan(n: int, v: int, k: int, sms: int, tiles: tuple,
+              emit_tiles: tuple) -> LongPlan:
+    """The long path's plan for N rows, V vocab rows and k on `sms` SMs,
+    from the partial kernel's tiling at lists of SELECT_LIST (`tiles`) and
+    the emission's (`emit_tiles`): the partial kernel's splits as
+    `vocab_splits` cuts them but at least enough that every split but the
+    last fills its list and their union holds 2 k keys (`takes_long`: the
+    vocab has tiles enough), their lists within the threshold's MERGE_SMEM
+    bytes, each split owning `per` vocab tiles and the last at least one
+    (the library refuses a count with an empty split); a row's candidate
+    slots CAND_CAP, fewer where N rows of them would pass CAND_BUDGET
+    bytes, but at least 2 k (a row with more candidates takes the
+    fallback)."""
+    vtiles = -(-v // tiles[1])
+    want = min(max(vocab_splits(n, v, sms, *tiles),
+                   -(-2 * k // SELECT_LIST) + 1), vtiles,
+               MERGE_SMEM // (8 * SELECT_LIST))
+    # fewer tiles a split until the splits that own them are enough (at
+    # one tile a split there are vtiles, which `takes_long` makes enough)
+    per = -(-vtiles // want)
+    while per > 1 and (-(-vtiles // per) - 1) * SELECT_LIST < 2 * k:
+        per -= 1
+    cap = min(CAND_CAP, max(2 * k, CAND_BUDGET // (8 * n)))
+    return LongPlan(-(-vtiles // per), vocab_splits(n, v, sms, *emit_tiles),
+                    cap)
 
 
 def library_plan(k: int) -> WideMmaPlan:
@@ -201,6 +270,39 @@ def _bind_wide(dtype):
     return _BOUND[key]
 
 
+def _bind_long():
+    """The long path's launch function, with its ctypes signature
+    declared."""
+    key = (KERNEL_WIDE_MMA, "long")
+    if key not in _BOUND:
+        fn = build.load(KERNEL_WIDE_MMA).deepsc_topk_wide_mma_long_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
+_EMIT_TILING = {}
+
+
+def emit_tiling(device) -> tuple:
+    """(rows of h per tile, vocab rows per tile, blocks an SM) of the long
+    path's emission kernel, as the built library reports them."""
+    if device not in _EMIT_TILING:
+        fn = build.load(KERNEL_WIDE_MMA).deepsc_topk_wide_mma_emit_tiling_bf16
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            err = fn(out)
+        if err != 0:
+            raise RuntimeError(f"{KERNEL_WIDE_MMA} emission tiling: CUDA "
+                               f"error {err}")
+        _EMIT_TILING[device] = tuple(out)
+    return _EMIT_TILING[device]
+
+
 def _bind_wide_mma():
     """The tensor-core wide library's launch function, with its ctypes
     signature declared."""
@@ -254,14 +356,17 @@ def topk_logits(h, W, b, k: int = 4):
     lse = torch.empty(n, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     wide = is_wide(d, k)
-    launch = (_launch_wide_mma if uses_tensor_core(h.dtype, d, k)
+    long = uses_long_list(h.dtype, d, k, v)
+    launch = (_launch_long if long
+              else _launch_wide_mma if uses_tensor_core(h.dtype, d, k, v)
               else _launch)
     err = launch(h, W, b, k, vals, idx, lse, stream)
     if err != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
-    global launches, wide_launches
+    global launches, wide_launches, long_list_launches
     launches += 1
     wide_launches += wide
+    long_list_launches += long
     return vals, idx, lse
 
 
@@ -322,3 +427,32 @@ def _launch_wide_mma(h, W, b, k, vals, idx, lse, stream):
         h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
         idx.data_ptr(), lse.data_ptr(), part_key.data_ptr(),
         part_ms.data_ptr(), row_kth.data_ptr(), n, dp, v, k, splits, stream)
+
+
+def _launch_long(h, W, b, k, vals, idx, lse, stream):
+    """The tensor-core wide kernel's long path on checked bf16 operands (D
+    off 8 columns through zero-padded copies of width dp); -> the CUDA
+    error code."""
+    (n, d), v = h.shape, W.shape[0]
+    dp = padded_width(d)
+    h, W = _padded(h, dp), _padded(W, dp)
+    dev = h.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = long_plan(n, v, k, sms, tiling(KERNEL_WIDE_MMA, h.dtype,
+                                          SELECT_LIST, dev), emit_tiling(dev))
+    part_key = torch.empty((n, plan.splits, SELECT_LIST), dtype=torch.int64,
+                           device=dev)
+    part_ms = torch.empty((plan.splits, n, 3), dtype=torch.float32,
+                          device=dev)
+    # each row's bound (prefix, mask), its candidates and their count (one
+    # more count: the rows that overflowed, listed in `over`)
+    row_thr = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    cand = torch.empty((n, plan.cap), dtype=torch.int64, device=dev)
+    count = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    over = torch.empty(n, dtype=torch.int32, device=dev)
+    return _bind_long()(
+        h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), lse.data_ptr(), part_key.data_ptr(),
+        part_ms.data_ptr(), row_thr.data_ptr(), cand.data_ptr(),
+        count.data_ptr(), over.data_ptr(), n, dp, v, k, plan.splits,
+        plan.emit_splits, plan.cap, stream)

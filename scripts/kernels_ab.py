@@ -5,7 +5,8 @@
         [--cases ce,attention,attention_bwd,topk,star,wide_ce,
                  wide_heads_attention,wide_attention,wide_train,
                  wide_heads_train,wide_topk,long_attention_bwd,
-                 wide_beam_eval,long_train]
+                 wide_beam_eval,long_train,past_list_topk,
+                 past_resident_bwd,beam100_eval,seq256_train]
         [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
@@ -66,7 +67,24 @@ library call's. Cases:
 - `long_train`: `cli train --seq-len 128` in bf16 from a random init (seed
   0, batch 64, the default graphed path) for 2 epochs of 64 steps: the
   ms a step of the second epoch as the row's `ms` (host clock; the graph's
-  capture is in the first).
+  capture is in the first);
+- `past_list_topk`: K6 in bf16 past k = 64, V = 22,234, dyadic inputs:
+  k = 100 at N = 64 x 4 and D = 200, k = 256 at D = 200 and 512, and the
+  beam-100 path's call (N = 64 x 100, D = 128, k = 100); the kernel's time
+  alone (no plain version or library call), and whether its indices equal
+  the plain version's (one call of it);
+- `past_resident_bwd`: K2 in bf16 past 128 queries or keys (N = 64, 8
+  heads of 16, no dbias): 256 x 256, 255 x 256 and 31 x 256 (`cli train
+  --seq-len 256`'s encoder, decoder self- and cross-attention shapes at
+  its decoder's 255 and the 31 of the default) and 512 x 512; the
+  kernel's time alone;
+- `beam100_eval`: `cli evaluate --eval-mode beam --beam-size 100` in bf16
+  on results/plain_best_params.pkl (of the checkout that runs the script),
+  one batch of 64 at 0, 1 and 2 dB: each decode call's seconds, and the
+  mean over the calls after the first as the row's `ms` (host clock);
+- `seq256_train`: `cli train --seq-len 256` in bf16 from a random init
+  (seed 0, batch 64, the default graphed path) for 2 epochs of 64 steps:
+  the ms a step of the second epoch as the row's `ms` (host clock).
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -87,7 +105,10 @@ from pathlib import Path
 CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
          "wide_heads_attention", "wide_attention", "wide_train",
          "wide_heads_train", "wide_topk", "long_attention_bwd",
-         "wide_beam_eval", "long_train")
+         "wide_beam_eval", "long_train", "past_list_topk",
+         "past_resident_bwd", "beam100_eval", "seq256_train")
+PARAMS = Path(__file__).resolve().parent.parent / "results" \
+    / "plain_best_params.pkl"
 
 TURN = r"""
 import json, sys, torch
@@ -331,6 +352,67 @@ if "long_train" in cases:
     row({"kernel": "cli_train", "case": "long_train", "dtype": "bfloat16",
          "path": res["path"], "epoch_seconds": seconds,
          "ms": seconds[-1] / steps * 1e3})
+if "past_list_topk" in cases:
+    shapes = (("k100_d200", BEAM, 200, 100), ("k256_d200", BEAM, 200, 256),
+              ("k256_d512", BEAM, 512, 256), ("beam100", 64 * 100, D, 100))
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, n, d, k in shapes:
+        h = cs.dyadic((n, d), 8, gen, bf16)
+        W = cs.dyadic((V, d), 2, gen, bf16)
+        b = cs.dyadic((V,), 8, gen, torch.float32)
+
+        def call():
+            return topk.topk_logits(h, W, b, k)
+
+        same = torch.equal(call()[1], topk.topk_logits_reference(h, W, b,
+                                                                 k)[1])
+        ms, host_ms = cs.cuda_ms(call, iters)
+        row({"kernel": topk.KERNEL, "case": label, "dtype": "bfloat16",
+             "ms": ms, "host_enqueue_ms": host_ms,
+             "device_ms": cs.device_ms(call, iters), "indices_equal": same})
+        device_us(topk.KERNEL, label, call)
+if "past_resident_bwd" in cases:
+    shapes = (("long_256", 256, 256), ("long_255x256", 255, 256),
+              ("long_31x256", 31, 256), ("long_512", 512, 512))
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, lq, lk in shapes:
+        q, k, v, bias = cs.attention_inputs(TRAIN, lq, lk, bf16, gen,
+                                            lq == lk)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+
+        def call():
+            return attn.attention_bwd(q, k, v, bias, g, cs.HEADS, 4.0, False)
+
+        ms, host_ms = cs.cuda_ms(call, iters)
+        row({"kernel": attn.KERNEL_BWD, "case": label, "dtype": "bfloat16",
+             "ms": ms, "host_enqueue_ms": host_ms,
+             "device_ms": cs.device_ms(call, iters)})
+        device_us(attn.KERNEL_BWD, label, call)
+if "beam100_eval" in cases:
+    from deepsc_gan_tpu_torch import cli
+    res = cli.main(["evaluate", "--variant", "transformer", "--params-pkl",
+                    args["params"], "--eval-mode", "beam", "--beam-size",
+                    "100", "--dtype", "bfloat16", "--bs", str(TRAIN),
+                    "--eval-batches", "1", "--seed", "0", "--snr-lo", "0",
+                    "--snr-hi", "2", "--device", "cuda", "--log-save-path",
+                    "log/kernels_ab/beam100_eval"])
+    seconds = res["decode_seconds"]
+    row({"kernel": "cli_evaluate", "case": "beam100_eval",
+         "dtype": "bfloat16", "decode_seconds": seconds,
+         "ms": sum(seconds[1:]) / len(seconds[1:]) * 1e3})
+if "seq256_train" in cases:
+    from deepsc_gan_tpu_torch import cli
+    res = cli.main(["train", "--variant", "transformer", "--train-mode",
+                    "plain", "--dtype", "bfloat16", "--bs", str(TRAIN),
+                    "--epochs", "2", "--seed", "0", "--device", "cuda",
+                    "--seq-len", "256", "--log-every", "64",
+                    "--log-save-path", "log/kernels_ab/seq256_train",
+                    "--checkpoint-path", "log/kernels_ab/seq256_train_ckpt"])
+    seconds = res["epoch_seconds"]
+    steps = res["steps"] // len(seconds)
+    row({"kernel": "cli_train", "case": "seq256_train", "dtype": "bfloat16",
+         "path": res["path"], "epoch_seconds": seconds,
+         "ms": seconds[-1] / steps * 1e3})
 if "topk" in cases:
     shapes = (("beam", BEAM), ("beam_sweep", 19 * BEAM))
     for dtype in (bf16, torch.float32):
@@ -350,7 +432,8 @@ def run_turn(root: Path, cases, iters: int) -> list:
     """One checkout's rows: ("ROW" or "DEVICE", dict) for each such line."""
     proc = subprocess.run(
         [sys.executable, "-c", TURN,
-         json.dumps({"cases": list(cases), "iters": iters})],
+         json.dumps({"cases": list(cases), "iters": iters,
+                     "params": str(PARAMS)})],
         cwd=root, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"turn in {root} failed (exit {proc.returncode}):"

@@ -351,6 +351,71 @@ def test_resident_routing(dtype, lq, lk, h, dh, resident):
                             and not attn.is_wide(h, dh))
 
 
+@pytest.mark.parametrize("dtype,lq,lk,h,dh,cluster", [
+    (torch.bfloat16, 129, 129, 8, 16, True), (torch.bfloat16, 256, 256, 8,
+                                              16, True),
+    (torch.bfloat16, 255, 256, 8, 16, True), (torch.bfloat16, 31, 256, 8,
+                                              16, True),
+    (torch.bfloat16, 256, 31, 8, 16, True), (torch.bfloat16, 512, 512, 16,
+                                             32, True),
+    (torch.bfloat16, 64, 200, 8, 16, True), (torch.bfloat16, 300, 8, 2, 8,
+                                             True),
+    (torch.bfloat16, 128, 128, 8, 16, False), (torch.bfloat16, 513, 64, 8,
+                                               16, False),
+    (torch.bfloat16, 64, 513, 8, 16, False), (torch.bfloat16, 256, 256, 8,
+                                              25, False),
+    (torch.bfloat16, 256, 256, 32, 16, False), (torch.float32, 256, 256, 8,
+                                                16, False),
+    (torch.float32, 129, 129, 8, 16, False)])
+def test_cluster_routing(dtype, lq, lk, h, dh, cluster):
+    """The bf16 K2 past L_RES queries or keys, up to L_CLUSTER of both, at
+    the tuned head widths and counts, runs the cluster kernel
+    (csrc/attention_bwd_cluster.cu); up to L_RES the resident kernel, past
+    L_CLUSTER, f32 and wide heads the older kernels. No shape takes both."""
+    assert attn.uses_cluster(dtype, lq, lk, h, dh) == cluster
+    assert not (cluster and attn.uses_resident(dtype, lq, lk, h, dh))
+    assert not cluster or (attn.is_long(lq, lk)
+                           and not attn.is_wide(h, dh))
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32])
+def test_cluster_plan_fits_the_card(dh):
+    """The cluster K2's block (`cluster_plan`, the library's own plan on
+    the card: held to it by a card test) fits a block of the H100 at every
+    length it takes (one block an SM, 512 threads), its slices (at most
+    16) cover the queries, and a slice is a whole number of 16-query
+    warps; at 256 keys a slice holds 64 queries, at 512 keys 32."""
+    worst = 0
+    for lk in list(range(1, 160)) + list(range(160, attn.L_CLUSTER + 1, 7)) \
+            + [attn.L_CLUSTER]:
+        for lq in (1, 31, 129, 255, 256, 300, attn.L_CLUSTER):
+            if not attn.uses_cluster(torch.bfloat16, lq, lk, 8, dh):
+                continue
+            smem, threads, blocks, rows = attn.cluster_plan(lq, lk, dh)
+            worst = max(worst, smem)
+            assert threads == 32 * attn.CLUSTER_WARPS == 512
+            assert 1 <= blocks <= 16
+            assert (blocks - 1) * rows < lq <= blocks * rows
+            assert rows % 16 == 0
+    assert worst <= BLOCK_SMEM and SM_SMEM // (worst + RESERVED) >= 1
+    assert attn.cluster_slice_rows(256) == 64
+    assert attn.cluster_slice_rows(512) == 32
+    assert attn.cluster_plan(256, 256, dh)[2] == 4
+    assert attn.cluster_plan(512, 512, dh)[2] == 16
+
+
+@pytest.mark.parametrize("n,heads,lq,lk,want", [
+    (64, 8, 256, 256, 1), (16, 8, 256, 256, 2), (8, 8, 256, 256, 4),
+    (1, 8, 256, 256, 4), (1, 1, 512, 512, 8), (2, 4, 31, 256, 1),
+    (4, 8, 512, 256, 8), (132, 1, 512, 512, 1), (8, 16, 129, 129, 2)])
+def test_cluster_size(n, heads, lq, lk, want):
+    """The cluster K2 splits a row's head over a cluster only where the
+    rows' heads are fewer than the H100's 132 SMs: doubled up to
+    CLUSTER_MAX blocks (the portable size) and the query slices."""
+    assert attn.cluster_size(n, heads, lq, lk, 132) == want
+    assert want <= attn.CLUSTER_MAX
+
+
 # the card's shared memory an SM and a block can use, and what each block
 # sets aside (H100: 228 KB an SM, 227 KB a block)
 SM_SMEM, BLOCK_SMEM, RESERVED = 233472, 232448, 1024

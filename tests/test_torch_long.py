@@ -31,10 +31,13 @@ N_STD = 0.3
 
 
 @pytest.mark.parametrize("shape", [(2, 48, 48, 2, 8), (2, 33, 64, 2, 8),
-                                   (1, 70, 40, 2, 16)])
+                                   (1, 70, 40, 2, 16), (1, 130, 130, 2, 8),
+                                   (1, 31, 160, 1, 16), (1, 160, 31, 2, 32)])
 def test_attention_plain_versions_match_jax_kernel_past_32(shape):
     """K1's and K2's plain versions against the interpreted TPU kernel and
-    its VJP: the output, dq, dk, dv and dbias."""
+    its VJP: the output, dq, dk, dv and dbias; past 32 and past 128
+    queries or keys (where the bf16 K2 runs the cluster kernel on the
+    card)."""
     b, lq, lk, h, dh = shape
     q, k, v, bias = _inputs(4, b, lq, lk, h, dh)
     g = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)

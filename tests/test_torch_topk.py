@@ -88,6 +88,41 @@ def test_plain_version_past_eight_matches_interpreted_tpu_kernel(interpret,
     np.testing.assert_allclose(lse, want[2], atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("k", [65, 100])
+def test_plain_version_past_the_list_matches_interpreted_tpu_kernel(
+        interpret, k):
+    """The plain K6 past k = 64, where the tensor-core wide kernel's long
+    path takes bf16 on the card (lists of 16 a split, a per-row bound from
+    their union, an emission of the keys at or above it, a radix select;
+    k = 100: `--beam-size 100`), against the TPU kernel under the Pallas
+    interpreter at N = 24, D = 200 and V = 384 (three vocab tiles of
+    128)."""
+    n, d, v = 24, 200, 384
+    h, W, b = _case(n, d, v, seed=k)
+    want = [np.asarray(t) for t in jax_topk_logits(
+        jnp.asarray(h), jnp.asarray(W), jnp.asarray(b), k, 8, 128)]
+    vals, idx, lse = _port(h, W, b, k)
+    np.testing.assert_array_equal(idx, want[1])
+    np.testing.assert_allclose(vals, want[0], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse, want[2], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("k", [100, 256])
+def test_take_top_long_lists_match_jax(k):
+    """`take_top` at the long lists (k = 100 and 256), over rows with
+    many equal values and with every value below 0, against the JAX
+    package's `_take_top`: the same values and indices, ties to the
+    lowest index."""
+    rng = np.random.default_rng(k)
+    x = rng.integers(-9, 9, (6, 700)).astype(np.float32)
+    x[3] = -rng.integers(1, 5, 700).astype(np.float32)
+    cols = np.broadcast_to(np.arange(700, dtype=np.int32), x.shape).copy()
+    got = topk.take_top(torch.from_numpy(x), torch.from_numpy(cols), k)
+    want = jax_take_top(jnp.asarray(x), jnp.asarray(cols), k)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
 def test_ties_go_to_the_lowest_index_across_tiles(interpret):
     """Equal maxima in different vocab tiles of the TPU kernel (tiles of
     16): the lowest indices first, then the lowest index of the rest."""
@@ -223,15 +258,21 @@ def test_vocab_splits_cover_every_vocab_tile_once(vocab_rows):
     (torch.bfloat16, 512, 16, True), (torch.bfloat16, 512, 64, True),
     (torch.bfloat16, 512, 4, True), (torch.bfloat16, 25, 1, True),
     (torch.bfloat16, 128, 9, True), (torch.bfloat16, 200, 4, False),
-    (torch.bfloat16, 128, 8, False), (torch.bfloat16, 200, 65, False),
-    (torch.bfloat16, 512, 100, False), (torch.float32, 200, 9, False),
-    (torch.float32, 512, 64, False), (torch.float32, 128, 4, False)])
+    (torch.bfloat16, 128, 8, False), (torch.bfloat16, 200, 65, True),
+    (torch.bfloat16, 512, 100, True), (torch.bfloat16, 128, 100, True),
+    (torch.bfloat16, 200, 256, True), (torch.bfloat16, 512, 256, True),
+    (torch.bfloat16, 200, 257, False), (torch.bfloat16, 128, 1000, False),
+    (torch.float32, 200, 9, False), (torch.float32, 512, 64, False),
+    (torch.float32, 128, 4, False), (torch.float32, 128, 100, False),
+    (torch.float32, 200, 256, False)])
 def test_tensor_core_wide_routing(dtype, d, k, tensor_core):
     """bf16 calls the tuned K6 does not take (k past 8, D past 256 or off
-    8 columns) run the tensor-core wide kernel up to k = K_LIST; the tuned
-    shapes stay on the tuned kernel, f32 and longer lists on
+    8 columns) run the tensor-core wide kernel at V = 22,234 up to
+    k = K_LIST = 256 (past k = 64 its long path: lists of 16, a per-row
+    bound, an emission of the keys at or above it, a radix select); the
+    tuned shapes stay on the tuned kernel, f32 and longer lists on
     csrc/topk_wide.cu."""
-    assert topk.uses_tensor_core(dtype, d, k) == tensor_core
+    assert topk.uses_tensor_core(dtype, d, k, 22234) == tensor_core
     assert topk.is_wide(d, k) or not tensor_core
 
 
@@ -242,20 +283,87 @@ SM_SMEM, BLOCK_SMEM, RESERVED = 233472, 232448, 1024
 
 @pytest.mark.parametrize("k,length,blocks", [
     (1, 16, 3), (9, 16, 3), (16, 16, 3), (17, 32, 2), (32, 32, 2),
-    (33, 64, 2), (64, 64, 2)])
+    (33, 64, 2), (64, 64, 2), (65, 16, 3), (100, 16, 3), (256, 16, 3)])
 def test_wide_mma_plan_fits_the_card(k, length, blocks):
     """The tensor-core wide K6's shared memory (`wide_mma_plan`, the
     library's own plan on the card: held to it by a card test) fits a
     block of the H100, and lets as many blocks share an SM as the design
-    counts on: three with lists of 16, two with longer ones (registers may
-    allow fewer: the card test reads the occupancy calculator); past
-    K_LIST no plan."""
+    counts on: three with lists of 16 (the long path's past k = 64 too),
+    two with longer ones (registers may allow fewer: the card test reads
+    the occupancy calculator); past K_LIST no plan."""
     plan = topk.wide_mma_plan(k)
     assert plan.list_length == length and plan.stages == topk.MMA_STAGES
     assert plan.smem <= BLOCK_SMEM
     assert SM_SMEM // (plan.smem + RESERVED) == blocks
     assert topk.wide_mma_plan(topk.K_LIST + 1) is None
     assert topk.wide_mma_plan(0) is None
+
+
+def _split_tiles(v, splits):
+    """Vocab tiles a split owns as the library cuts them
+    (`ceo::split_tiles`), or -1 where a split would own none, a count the
+    library refuses."""
+    tiles = -(-v // topk.MMA_TILE)
+    per = -(-tiles // splits)
+    return -1 if (splits - 1) * per >= tiles else per
+
+
+@pytest.mark.parametrize("k", [65, 100, 121, 128, 200, 256])
+@pytest.mark.parametrize("n", [1, 64, 256, 768, 1024, 6400, 16384])
+def test_long_plan(k, n):
+    """The long path's plan at V = 22,234 on 132 SMs (the partial kernel
+    at three blocks an SM with lists of 16, the emission at four): every
+    partial and emission split owns a vocab tile (a count the library
+    takes) and all but the last fill their lists with 2 k keys between
+    them, within the threshold's shared memory; a row's candidate slots
+    hold at least 2 k keys, at most CAND_CAP, and all rows' at most
+    CAND_BUDGET bytes where 2 k allows."""
+    v = 22234
+    plan = topk.long_plan(n, v, k, 132, (64, topk.MMA_TILE, 3),
+                          (64, topk.MMA_TILE, 4))
+    tiles = -(-v // topk.MMA_TILE)
+    assert topk.takes_long(k, v)
+    assert 1 <= plan.splits <= tiles and 1 <= plan.emit_splits <= tiles
+    assert _split_tiles(v, plan.splits) > 0
+    assert _split_tiles(v, plan.emit_splits) > 0
+    assert (plan.splits - 1) * topk.SELECT_LIST >= 2 * k
+    assert 8 * plan.splits * topk.SELECT_LIST <= topk.MERGE_SMEM
+    assert 2 * k <= plan.cap <= topk.CAND_CAP
+    assert 8 * n * plan.cap <= max(topk.CAND_BUDGET, 8 * n * 2 * k)
+
+
+@pytest.mark.parametrize("v", [1800, 5000, 22234, 25000])
+def test_long_plan_takes_every_k(v):
+    """At every k the long path takes over V (65..256 where `takes_long`
+    holds), every row count from one row to the beam-256 call's 64 x 256
+    and 114 to 132 SMs: the partial kernel's splits are a count the
+    library takes (each owning a vocab tile) with 2 k keys in the lists of
+    all but the last, and the emission's splits own a tile each."""
+    for k in range(topk.K_SHORT + 1, topk.K_LIST + 1):
+        if not topk.takes_long(k, v):
+            continue
+        for n in (1, 100, 256, 700, 1000, 3000, 6400, 16384):
+            for sms in (114, 132):
+                plan = topk.long_plan(n, v, k, sms, (64, topk.MMA_TILE, 3),
+                                      (64, topk.MMA_TILE, 4))
+                assert _split_tiles(v, plan.splits) > 0, (k, n, sms)
+                assert _split_tiles(v, plan.emit_splits) > 0, (k, n, sms)
+                assert (plan.splits - 1) * topk.SELECT_LIST >= 2 * k, \
+                    (k, n, sms)
+
+
+@pytest.mark.parametrize("k,v,takes", [(65, 22234, True), (256, 22234, True),
+                                       (256, 25000, True), (256, 25001, False),
+                                       (100, 1000, False), (100, 1800, True),
+                                       (64, 100, True)])
+def test_long_path_routing_by_vocab(k, v, takes):
+    """Past k = 64 the bf16 K6 takes the long path only where the vocab
+    fits its fallback's shared memory (V up to LONG_MAX_V) and has tiles
+    enough for lists of 16 holding 2 k keys; elsewhere csrc/topk_wide.cu.
+    Up to k = 64 the vocab does not enter."""
+    assert topk.uses_tensor_core(torch.bfloat16, 200, k, v) == takes
+    assert topk.uses_long_list(torch.bfloat16, 200, k, v) == (takes
+                                                             and k > 64)
 
 
 TILE_V, BUF = 128, topk.MMA_BUF
@@ -381,7 +489,8 @@ def _tie_logits(seed, rows, v, mode):
     different tiles and splits; "falling", values falling with the index
     (the k best all in the first tile: the bound alone decides what enters
     it), pairs of equal values in row 1; "rising", values rising with the
-    index (every tile beats the list: a merge each tile)."""
+    index (every tile beats the list: a merge each tile); "negative",
+    integers -1..-6 (every value below 0, many equal)."""
     rng = np.random.default_rng(seed)
     if mode in ("falling", "rising"):
         x = np.tile(np.arange(v, dtype=np.float32), (rows, 1))
@@ -389,6 +498,8 @@ def _tie_logits(seed, rows, v, mode):
         return -x if mode == "falling" else x
     if mode == "dyadic":
         return rng.integers(0, 7, (rows, v)).astype(np.float32)
+    if mode == "negative":
+        return -rng.integers(1, 7, (rows, v)).astype(np.float32)
     if mode == "flat":
         x = np.zeros((rows, v), np.float32)
         x[:, [3, 129, 130, 500, v - 1]] = 1.0
@@ -426,3 +537,119 @@ def test_threshold_filter_emulation_equals_take_top(k, mode):
     np.testing.assert_array_equal(got[0], want[0].numpy())
     np.testing.assert_array_equal(got[1], np.asarray(jax_want[1]))
     np.testing.assert_array_equal(got[0], np.asarray(jax_want[0]))
+
+
+def _key_bits(x, col):
+    """The kernel's 64-bit key of an f32 value at a vocab column: the
+    value's order-preserving bits (-0 as +0), then the complement of the
+    column."""
+    u = int(np.float32(np.float32(x) + np.float32(0.0)).view(np.uint32))
+    u ^= 0xFFFFFFFF if u & 0x80000000 else 0x80000000
+    return (u << 32) | (0xFFFFFFFF - col)
+
+
+def _radix_bound(keys, k):
+    """The kernel's radix select (`radix_bound`): a byte a pass from the
+    top, the wanted rank's byte picked from the counts of the keys matching
+    the bytes so far, stopping where every key of the byte is wanted. Zero
+    keys (a short list's padding) are never counted. -> (prefix, mask):
+    the keys with key & mask >= prefix are the k best."""
+    prefix, mask, want = 0, 0, k
+    for shift in range(56, -1, -8):
+        hist = [0] * 256
+        for key in keys:
+            if key and key & mask == prefix:
+                hist[(key >> shift) & 0xFF] += 1
+        above = 0
+        for byte in range(255, -1, -1):
+            if above + hist[byte] >= want:
+                break
+            above += hist[byte]
+        prefix |= byte << shift
+        mask |= 0xFF << shift
+        want -= above
+        if hist[byte] == want:
+            break
+    return prefix, mask
+
+
+def _radix_top(keys, k):
+    """The kernel's select (`select_top`): the keys `_radix_bound` singles
+    out, each placed by its rank. -> the k best, largest first."""
+    prefix, mask = _radix_bound(keys, k)
+    best = [key for key in keys if key and key & mask >= prefix]
+    assert len(best) == k
+    return sorted(best, reverse=True)
+
+
+@pytest.mark.parametrize("mode", ["flat", "dyadic", "negative", "spread",
+                                  "rising"])
+@pytest.mark.parametrize("k", [1, 9, 64, 100, 256])
+def test_split_merge_radix_select_equals_sorting(mode, k):
+    """The long path's radix select (its threshold over the splits'
+    lists, each sorted, a short one padded with zeros; its final select
+    over a row's candidates) keeps the same k keys as sorting their union,
+    in the same order: with ties on every value byte (flat: the select goes
+    down to the index bytes), integer ties, every value below 0, spread
+    values, and splits shorter than k."""
+    for x in _tie_logits(k + 7, 2, 1000, mode):
+        keys = [_key_bits(v, c) for c, v in enumerate(x)]
+        lists = []
+        for s0 in range(0, 1000, 300):  # splits of 300, the last of 100
+            part = sorted(keys[s0:s0 + 300], reverse=True)[:k]
+            lists += part + [0] * (k - len(part))
+        assert _radix_top(lists, k) == sorted(keys, reverse=True)[:k]
+
+
+def _emulate_long(x, k, splits, cap):
+    """The long path (csrc/topk_wide_mma.cu past k = 64) on one row of
+    logits x: each vocab split's own 16 best keys (the partial kernel with
+    lists of 16 and no shared threshold), the bound of their union's k
+    best (`_radix_bound`), the row's keys at or above it (the emission),
+    and their k best (`_radix_top`; where more than `cap` keys pass, the
+    fallback's select over every key of the row). -> (the k best, the
+    candidates' count)."""
+    keys = [_key_bits(v, c) for c, v in enumerate(x)]
+    tiles = -(-len(keys) // TILE_V)
+    per = -(-tiles // splits)
+    union = []
+    for s0 in range(0, len(keys), per * TILE_V):
+        part = sorted(keys[s0:s0 + per * TILE_V], reverse=True)[:16]
+        union += part + [0] * (16 - len(part))
+    prefix, mask = _radix_bound(union, k)
+    cand = [key for key in keys if key & mask >= prefix]
+    best = _radix_top(cand if len(cand) <= cap else keys, k)
+    return best, len(cand)
+
+
+@pytest.mark.parametrize("k", [65, 100, 256])
+@pytest.mark.parametrize("mode", ["flat", "dyadic", "negative", "spread",
+                                  "falling", "rising"])
+def test_long_path_emulation_equals_take_top(k, mode):
+    """The long path's selection, emulated (`_emulate_long`: lists of 16 a
+    split, the union's bound, the keys at or above it, their k best, or the
+    fallback's where they overflow the candidate slots), equals `take_top`
+    and the JAX `_take_top`: indices and values at k = 65, 100 and 256 over
+    V = 6,000 in as many splits as the long path's plan takes (8 vocab
+    tiles of 128 a split, or enough for 2 k keys in their lists of 16),
+    with equal values (flat: most rows' keys
+    differ only by index), integer ties, every value below 0, spread
+    values, and the k best all in the first split (falling) or the last
+    (rising). Every key of the k best reaches the bound; where the values
+    are spread, few more than k do."""
+    rows, v = 2, 6000
+    tiles = -(-v // TILE_V)
+    splits = min(max(6, -(-2 * k // 16) + 1), tiles)
+    x = _tie_logits(k + 3, rows, v, mode)
+    cols = np.broadcast_to(np.arange(v, dtype=np.int32), x.shape)
+    want = topk.take_top(torch.from_numpy(x), torch.from_numpy(cols.copy()),
+                         k)
+    jax_want = jax_take_top(jnp.asarray(x), jnp.asarray(cols), k)
+    for r in range(rows):
+        best, count = _emulate_long(x[r], k, splits, 4 * k)
+        idx = [0xFFFFFFFF - (key & 0xFFFFFFFF) for key in best]
+        np.testing.assert_array_equal(idx, want[1][r].numpy())
+        np.testing.assert_array_equal(idx, np.asarray(jax_want[1][r]))
+        assert count >= k
+        if mode == "spread":
+            assert count <= k + 200
