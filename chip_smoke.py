@@ -46,11 +46,18 @@ non-zero without its last line:
    the dyadic, tie and negative modes (`design` wide wgmma bf16); past
    k = 64 the bf16 K6 on that kernel's long path (k = 100 at
    D = 200 and at the beam-100 path's N = 64 x 100, D = 128; k = 256 at
-   D = 200 and 512; `design` long-path wgmma bf16) and at k = 1,000 on
-   csrc/topk_wide.cu; the bf16 K2 past 128 queries or keys on the cluster
-   kernel (256 x 256 with and without dbias, 255 x 256, 31 x 256 and
-   512 x 512, bitwise over calls; `design` cluster mma bf16) and at
-   1,024 x 1,024 on the long-length kernels;
+   D = 200 and 512; `design` long-path wgmma bf16); K6 on the select
+   kernels (csrc/topk_select.cu): in bf16 at k = 1,000 (D = 200) and at
+   V = 32,000 (k = 100), in f32 at every k of 9, 16, 64, 1,000 and D of
+   200, 512 and at the wide beam, each in the three modes, and at k = V
+   (a full sort of each row, N = 64) in both dtypes and the three modes
+   (`design` select wgmma bf16 or select cuda-core f32); the f32 K1 at
+   every wide shape above on the tiled kernel (csrc/attention_tiled.cu,
+   `design` tiled cuda-core f32); the bf16 K2 past 128 queries or keys on
+   the cluster kernel (256 x 256 with and without dbias, 255 x 256,
+   31 x 256 and 512 x 512, bitwise over calls; `design` cluster mma bf16)
+   and at 1,024 x 1,024 on the long-length kernels; each row prints its
+   seconds;
 4. serving paths, each through the port's CLI on the trained transceiver
    (results/plain_best_params.pkl) in bf16, SNR 0..18 dB, synthetic
    batches of 64; every launch count is set to 0 just before a path and
@@ -143,7 +150,15 @@ non-zero without its last line:
    of 320 (K1 and K2 on their tensor-core chunked kernels,
    csrc/attention_chunked.cu; K3 and K4 on their tensor-core wide kernels,
    csrc/ce_wide_fwd.cu and csrc/ce_wide_bwd.cu, at D = 640), exact launch
-   counts, and its ms a step;
+   counts, and its ms a step; then at f32 on what both saved: `cli
+   evaluate --dtype float32 --eval-mode beam --beam-size 9` on the widened
+   model (f32_wide_beam: the encoder's 4 K1 a call on the tiled kernel, 30
+   K6 a call on the select kernels at N = 64 x 9, D = 200, k = 9) and the
+   full-prefix greedy sweep on the wide-heads model (f32_wide_heads_greedy:
+   244 K1 a call on the tiled kernel past 256-wide heads), exact launch
+   counts, and each decode's ids through the kernels against the plain
+   versions' at 0, 9 and 18 dB (near-ties aside: the beam's at its first
+   differing choice, `same_beam_ids_but_near_ties`);
 16. MINE: `cli train --train-mode mine` at full width in bf16 from a
    random init, MINE_EPOCHS epochs (per step: 16 K1, 12 K2, no K3/K4);
    every ce and mi finite, the mean of the last 16 ce below that of the
@@ -215,20 +230,24 @@ non-zero without its last line:
 26. routes, run right after phase 2, before the export jobs start (no
    other process on the card, no earlier profile in this process: later,
    the card's profiler has recorded no kernel at all of such calls): one
-   bf16 call of K6 at every k of
-   9, 16, 64 and D of 200, 512 and at the wide beam, in each input mode,
-   and at k = 100 and 256 and D of 128, 200, and of K2 at 128 x 128 and
-   63 x 64, 256 x 256, 255 x 256 and 31 x 256, with and without dbias,
-   profiled: each must run its route's kernel (the tensor-core wide K6,
-   its long path past k = 64, the resident K2, the cluster K2;
+   bf16 call of K6 at every k of 9, 16, 64 and D of 200, 512 and at the
+   wide beam, in each input mode, at k = 100 and 256 and D of 128, 200,
+   and at k = 1,000, V = 32,000 and k = V in each mode; one f32 call of K6
+   at every k of 9, 16, 64, 1,000 and D of 200, 512, at the wide beam and
+   at k = V in each mode; one bf16 call of K2 at 128 x 128 and 63 x 64,
+   256 x 256, 255 x 256 and 31 x 256, with and without dbias; one f32
+   call of K1 at every wide shape of the kernel rows; profiled: each must
+   run its route's kernel (the tensor-core wide K6, its long path past
+   k = 64, the select K6, the resident K2, the cluster K2, the tiled K1;
    torch.profiler's names printed), and the kernel rows of those cases
    take the design so read;
 27. the seconds of each phase as one line, the kernels as one JSON line
    (the wide kernels as entries of their own, launches from phase 15; the
    chunked wide K1/K2 too, launches and rows from its heads-wider-than-256
    path; the long-path K6 and the cluster K2, launches from the beam-100
-   path and the seq-len-256 epoch), then `{"ok": true, "device": {...}}`
-   as the last line.
+   path and the seq-len-256 epoch; the select K6 and the tiled K1,
+   launches from phase 15's f32 paths), then `{"ok": true, "device":
+   {...}}` as the last line.
 
 Needs CUDA: without it the script exits 1 before any phase.
 """
@@ -260,7 +279,9 @@ from deepsc_gan_tpu_torch.data import preprocess
 from deepsc_gan_tpu_torch.data.augment import load_train_dataset
 from deepsc_gan_tpu_torch.data.loader import eval_batches, synthetic_sentences
 from deepsc_gan_tpu_torch.data.vocab import Vocab
+from deepsc_gan_tpu_torch.evaluate import beam as beam_module
 from deepsc_gan_tpu_torch.evaluate.beam import (
+    _vocab_table,
     make_beam_decode,
     make_beam_decode_kv,
     make_beam_decode_sweep,
@@ -338,23 +359,27 @@ KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
 # of their own), and the bf16 K2 past 32 queries or keys up to 128
 # (csrc/attention_bwd_resident.cu)
 WIDE_LIBRARIES = (attn.KERNEL_WIDE, ce.KERNEL_WIDE, star.KERNEL_WIDE,
-                  topk.KERNEL_WIDE, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD,
+                  topk.KERNEL_SELECT, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD,
                   attn.KERNEL_WIDE_MMA, ce.KERNEL_WIDE_FWD,
                   topk.KERNEL_WIDE_MMA, attn.KERNEL_RESIDENT,
-                  attn.KERNEL_CLUSTER)
+                  attn.KERNEL_CLUSTER, attn.KERNEL_TILED)
 # the K4 launches among ce_bwd's that ran in the dh-only mode
 DH_ONLY = "ce_bwd_dh_only"
 # the K6 launches on the tensor-core wide kernel's long path (k past 64),
 # and the K2 launches on the cluster kernel
 LONG_LIST = "topk_long_list"
 CLUSTER = "attention_bwd_cluster"
+# the K6 launches on the select kernels (csrc/topk_select.cu), and the K1
+# launches on the tiled f32 kernel (csrc/attention_tiled.cu)
+SELECT = "topk_select"
+TILED = "attention_tiled"
 # the launches among each kernel's that went to its wide kernels
 WIDE = {attn.KERNEL: "attention_fwd_wide", attn.KERNEL_BWD:
         "attention_bwd_wide", ce.KERNEL_FWD: "ce_fwd_wide",
         ce.KERNEL_BWD: "ce_bwd_wide", star.KERNEL: "star_wide",
         topk.KERNEL: "topk_wide"}
-COUNTERS = KERNELS + (DH_ONLY,) + tuple(WIDE.values()) + (LONG_LIST,
-                                                          CLUSTER)
+COUNTERS = KERNELS + (DH_ONLY,) + tuple(WIDE.values()) + (
+    LONG_LIST, CLUSTER, SELECT, TILED)
 BEAM = 4
 # `cli train`'s default steps a call (one captured CUDA graph of the step,
 # replayed): what the train phases run
@@ -372,9 +397,10 @@ WIDE_K = (9, 16, 64)
 # (attn.L_RES): the bf16 shapes its long path and the cluster K2
 # take (the route phase's K6 at every k of PAST_LIST_KS and D of
 # PAST_LIST_D; K2 at PAST_RESIDENT and the cross shapes of the seq-len-256
-# epoch, and at CLUSTER_LEN), and past them the shapes the older kernels
-# keep (K6 at k = PAST_K6: csrc/topk_wide.cu; K2 at PAST_CLUSTER: the
-# long-length kernels)
+# epoch, and at CLUSTER_LEN), and past them the shapes other kernels take
+# (K6 at k = PAST_K6 and past V = 25,000 at PAST_V: the select kernels,
+# csrc/topk_select.cu, as every f32 K6 past k = 8 at SELECT_KS; K2 at
+# PAST_CLUSTER: the long-length kernels)
 PAST_LIST_K = 100
 PAST_LIST_KS = (100, 256)
 PAST_LIST_D = (128, 200)
@@ -382,6 +408,8 @@ PAST_RESIDENT = 256
 PAST_RESIDENT_CROSS = (("long_255x256", 255, 256), ("long_31x256", 31, 256))
 CLUSTER_LEN = 512
 PAST_K6 = 1000
+PAST_V = 32000
+SELECT_KS = WIDE_K + (PAST_K6,)
 PAST_CLUSTER = 1024
 # the beam-100 path: `cli evaluate --eval-mode beam --beam-size BEAM100` at
 # one SNR (its K6 at N = bs x BEAM100, D = 128, k = BEAM100), and the
@@ -389,9 +417,14 @@ PAST_CLUSTER = 1024
 BEAM100 = 100
 BEAM100_SNR = 9
 SEQ256 = 256
-# timed calls of the wide K6's tie and negative rows (their routes and
-# indices are held in full; their times are not in the kernels line)
+# timed calls of the K6 rows in the tie and negative modes (their routes
+# and indices are held in full, their plain versions called once for
+# that and not timed; their times are not in the kernels line)
 MODE_ITERS = 10
+# timed calls of the f32 wide K3/K4 rows (csrc/ce_wide.cu: 4.5 to 44 ms a
+# call at D = 200 to 640), and of the K6 rows at k = PAST_K6 and k = V
+WIDE_F32_CE_ITERS = 10
+LONG_K_ITERS = 5
 WIDE_STAR_D = (96, 512)
 # the widened CLI paths' own shapes (phase_wide): the encoder at 8 heads of
 # 64 (d_model 512) and the decoder at 8 heads of 25 (d_model 200), N = bs;
@@ -428,10 +461,20 @@ DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
           ce.KERNEL_BWD: WGMMA, topk.KERNEL: WGMMA}
 WIDE_DESIGN = "wide cuda-core f32"
 WIDE_MMA_DESIGN = "wide mma bf16"
+# the f32 K1 off the tuned shapes (csrc/attention_tiled.cu), and K6 on the
+# select kernels (csrc/topk_select.cu)
+TILED_DESIGN = "tiled cuda-core f32"
+SELECT_DESIGN = {torch.bfloat16: "select wgmma bf16",
+                 torch.float32: "select cuda-core f32"}
 # this slice's routes as the device kernels that ran name them
 # (torch.profiler): the design of each, by a fragment of its kernels' names
 ROUTES = {topk.KERNEL: (("topk_long_emit_kernel", "long-path wgmma bf16"),
+                        ("topk_select_logits_mma",
+                         SELECT_DESIGN[torch.bfloat16]),
+                        ("topk_select_logits_f32",
+                         SELECT_DESIGN[torch.float32]),
                         ("topk_wide_mma", "wide wgmma bf16")),
+          attn.KERNEL: (("attention_fwd_tiled_kernel", TILED_DESIGN),),
           attn.KERNEL_BWD: (("attention_bwd_resident_kernel",
                              "resident mma bf16"),
                             ("attention_bwd_cluster_kernel",
@@ -496,11 +539,11 @@ def phase_build():
             print(f"[ptxas] {name}: {line}")
 
 
-def cuda_ms(fn, iters):
+def cuda_ms(fn, iters, warm=3):
     """(device ms per call between CUDA events, host ms per call to enqueue
-    it) over `iters` back-to-back calls after a warm-up. When the two are
-    close, the host, not the device, set the pace."""
-    for _ in range(3):
+    it) over `iters` back-to-back calls after `warm` calls. When the two
+    are close, the host, not the device, set the pace."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -596,61 +639,86 @@ def routed_design(kernel, label, call, want):
 
 
 def phase_routes(seed, bs):
-    """The routes of this slice's kernels, from torch.profiler's kernel
-    names, before the export jobs start and before any other profile in
-    this process (with those jobs on the card, and once after them, the
-    profiler recorded no kernel of some or all calls): one bf16 call of K6
-    at every k of WIDE_K and D of WIDE_D and at the wide beam, in each
-    input mode, and at every k of PAST_LIST_KS and D of PAST_LIST_D, and of
-    K2 past 32 queries and keys (LONG_CASE, LONG_CROSS) and past 128
-    (PAST_RESIDENT, PAST_RESIDENT_CROSS) with and without dbias. Each must
-    run its route's kernel (the tensor-core wide K6, its long path past
-    k = 64, the resident K2, the cluster K2). -> {(kernel, case): (design,
-    names)}, the design the kernel rows of those cases take (`set_designs`)."""
+    """The routes of the kernels redesigned in the latest slices, from
+    torch.profiler's kernel names, before the export jobs start and before
+    any other profile in this process (with those jobs on the card, and
+    once after them, the profiler recorded no kernel of some or all
+    calls): one call of the bf16 K6 at every k of WIDE_K and D of WIDE_D
+    and at the wide beam, in each input mode, at every k of PAST_LIST_KS
+    and D of PAST_LIST_D, at k = PAST_K6, past V = 25,000 and at k = V; of
+    the f32 K6 at every k of SELECT_KS and D of WIDE_D and at the wide
+    beam, in each input mode, and at k = V; of the bf16 K2 past 32 queries
+    and keys (LONG_CASE, LONG_CROSS) and past 128 (PAST_RESIDENT,
+    PAST_RESIDENT_CROSS) with and without dbias; and of the f32 K1 at every
+    wide shape the kernel rows hold (WIDE_HEADS, WIDE_PATH,
+    WIDE_HEADS_PATH, OFF_STEP_HEADS). Each must run its route's kernel (the
+    tensor-core wide K6, its long path past k = 64, the select K6, the
+    resident K2, the cluster K2, the tiled K1). -> {(kernel, case, dtype):
+    (design, names)}, the design the kernel rows of those cases take
+    (`set_designs`)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
+    modes = ("dyadic", "tie", "negative")
+    v = Config().vocab_size
     seen = {}
-    cases = [(f"k{k}_d{d}_{mode}", bs * BEAM, d, k, mode)
-             for mode in ("dyadic", "tie", "negative") for d in WIDE_D
-             for k in WIDE_K]
+    cases = [(f"k{k}_d{d}_{mode}", bs * BEAM, d, k, mode, bf16, None)
+             for mode in modes for d in WIDE_D for k in WIDE_K]
+    cases += [(f"k{k}_d{d}_{mode}", bs * BEAM, d, k, mode, f32, None)
+              for mode in modes for d in WIDE_D for k in SELECT_KS]
     cases += [("wide_beam" + ("" if mode == "dyadic" else f"_{mode}"),
-               bs * WIDE_BEAM, WIDE_PATH_D, WIDE_BEAM, mode)
-              for mode in ("dyadic", "tie", "negative")]
-    cases += [(f"k{k}_d{d}_route", bs * BEAM, d, k, "dyadic")
+               bs * WIDE_BEAM, WIDE_PATH_D, WIDE_BEAM, mode, dtype, None)
+              for mode in modes for dtype in (bf16, f32)]
+    cases += [(f"k{k}_d{d}_route", bs * BEAM, d, k, "dyadic", bf16, None)
               for k in PAST_LIST_KS for d in PAST_LIST_D]
-    for label, n, d, k, mode in cases:
-        h, W, b = topk_inputs(n, d, k, mode, bf16, gen)
-        seen[(topk.KERNEL, label)] = routed_design(
+    cases += [(f"k{PAST_K6}_{mode}", bs * BEAM, WIDE_PATH_D, PAST_K6, mode,
+               bf16, None) for mode in modes]
+    cases += [(f"v{PAST_V}_{mode}", bs * BEAM, 128, PAST_LIST_K, mode, bf16,
+               PAST_V) for mode in modes]
+    cases += [(f"k_vocab_{mode}", bs, 128, v, mode, dtype, None)
+              for mode in modes for dtype in (bf16, f32)]
+    for label, n, d, k, mode, dtype, vocab in cases:
+        h, W, b = topk_inputs(n, d, k, mode, dtype, gen, vocab)
+        seen[(topk.KERNEL, label, dtype)] = routed_design(
             topk.KERNEL, label, lambda: topk.topk_logits(h, W, b, k),
-            topk_design(bf16, d, k, W.shape[0]))
+            topk_design(dtype, d, k, W.shape[0]))
     for label, lq, lk in ((LONG_CASE, LONG_LEN, LONG_LEN), LONG_CROSS,
                           (f"long_{PAST_RESIDENT}", PAST_RESIDENT,
                            PAST_RESIDENT), *PAST_RESIDENT_CROSS):
         q, k, v, bias = attention_inputs(bs, lq, lk, bf16, gen, lq == lk)
         g = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
         for dbias in (False, True):
-            seen[(attn.KERNEL_BWD, label + ("+dbias" if dbias else ""))] = \
-                routed_design(attn.KERNEL_BWD, label,
-                              lambda: attn.attention_bwd(q, k, v, bias, g,
-                                                         HEADS, DH ** 0.5,
-                                                         dbias),
-                              k2_design(bf16, lq, lk, HEADS, DH))
-    for (kernel, label), (design, names) in seen.items():
+            seen[(attn.KERNEL_BWD, label + ("+dbias" if dbias else ""),
+                  bf16)] = routed_design(
+                attn.KERNEL_BWD, label,
+                lambda: attn.attention_bwd(q, k, v, bias, g, HEADS,
+                                           DH ** 0.5, dbias),
+                k2_design(bf16, lq, lk, HEADS, DH))
+    for label, heads, dh, lq, lk in [(f"wide_{heads}x{dh}", heads, dh, 31,
+                                      31) for heads, dh in WIDE_HEADS] + \
+            list(WIDE_PATH) + list(WIDE_HEADS_PATH) + [OFF_STEP_HEADS]:
+        q, k, v, bias = attention_inputs(bs, lq, lk, f32, gen, lq == lk,
+                                         heads, dh)
+        seen[(attn.KERNEL, label, f32)] = routed_design(
+            attn.KERNEL, label,
+            lambda: attn.attention_fwd(q, k, v, bias, heads, dh ** 0.5),
+            _attention_design(attn.KERNEL, f32, heads, dh))
+    for (kernel, label, dtype), (design, names) in seen.items():
         # the port's kernels among them (not the spin, not PyTorch's fill)
         short = sorted(m.group(1) for m in (
-            re.search(r"(\w+(?:<[\d, ]*>)?)\(", x) for x in names
+            re.search(r"(\w+(?:<[\w, ]*>)?)\(", x) for x in names
             if "at::" not in x) if m and m.group(1) != "spin_kernel")
-        print(f"[routes] {kernel} {label} bf16: {design} "
+        print(f"[routes] {kernel} {label} "
+              f"{str(dtype).replace('torch.', '')}: {design} "
               f"({', '.join(short)})")
     return seen
 
 
 def set_designs(rows, seen):
-    """The bf16 kernel rows of the cases `phase_routes` profiled take the
-    design it read."""
+    """The kernel rows of the cases `phase_routes` profiled take the design
+    it read."""
     for row in rows:
-        key = (row["kernel"], row["case"])
-        if row["dtype"] == "bfloat16" and key in seen:
+        key = (row["kernel"], row["case"], getattr(torch, row["dtype"]))
+        if key in seen:
             row["design"] = seen[key][0]
 
 
@@ -705,19 +773,27 @@ def softmax_part_err(got, want, softmax):
                for a, b, c in zip(got, want, softmax))
 
 
+# when the last kernel row ended (phase_kernels starts it)
+_ROW_CLOCK = [0.0]
+
+
 def kernel_row(kernel, case, dtype, err, tol, call, plain, library, nbytes,
                ops, iters, ops_dtype=None, plain_iters=None, **extra):
     """Check `err` against `tol`, time the kernel, its plain version (over
     `plain_iters` calls, default `iters`: fewer where a call takes a tenth
-    of a second) and the library call, print and return the row. The
-    operations are counted at the peak rate of `ops_dtype` (default: the
-    row's dtype)."""
+    of a second; 0: not timed, the plain version having been called once
+    for the check) and the library call, print and return the row, with
+    its `seconds` since the last row ended (its inputs, checks and times)
+    and the `timed_seconds` of its timing alone. The operations are
+    counted at the peak rate of `ops_dtype` (default: the row's dtype)."""
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"{kernel} {case} {dtype}: max err {err} > "
                              f"{tol}")
-    plain_iters = plain_iters or iters
+    t0 = time.perf_counter()
+    plain_iters = iters if plain_iters is None else plain_iters
     ms, host_ms = cuda_ms(call, iters)
-    plain_ms, _ = cuda_ms(plain, plain_iters)
+    plain_ms = (cuda_ms(plain, plain_iters, warm=min(3, plain_iters))[0]
+                if plain_iters else None)
     library_ms = cuda_ms(library, iters)[0] if library else None
     bound_ms, bound_by = bound(nbytes, ops, ops_dtype or dtype)
     row = {"kernel": kernel, "case": case,
@@ -727,9 +803,11 @@ def kernel_row(kernel, case, dtype, err, tol, call, plain, library, nbytes,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "ops": ops,
            "device_ms": device_ms(call, iters),
-           "plain_device_ms": device_ms(plain, plain_iters),
            "library_device_ms": device_ms(library, iters) if library
            else None}
+    now = time.perf_counter()
+    row["timed_seconds"], row["seconds"] = now - t0, now - _ROW_CLOCK[0]
+    _ROW_CLOCK[0] = now
     print("[kernel] " + json.dumps(row))
     return row
 
@@ -741,6 +819,8 @@ def _sdpa_views(q, k, v, heads=HEADS):
 
 def _attention_design(kernel, dtype, heads, dh):
     """What multiplies in the kernel that takes `heads` heads of `dh`."""
+    if kernel == attn.KERNEL and attn.uses_tiled(dtype, heads, dh):
+        return TILED_DESIGN
     if attn.is_chunked_mma(dtype, heads, dh):
         return MMA[dtype]
     if attn.is_wide_mma(dtype, heads, dh):
@@ -895,7 +975,10 @@ def ce_inputs(dtype, gen, n, d, v):
 def ce_cases(dtype, gen, iters, n, d, v, label="ce"):
     """K3 and K4 at the training path's shape (tied layout: W is (V, D)),
     or at another width D (the wide kernels where the tuned ones do not
-    take it)."""
+    take it; the f32 ones, which take tens of ms a call, timed over
+    WIDE_F32_CE_ITERS calls)."""
+    if dtype == torch.float32 and ce.is_wide(dtype, d):
+        iters = min(iters, WIDE_F32_CE_ITERS)
     h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v)
     got = ce.ce_fwd(h, W, b, labels)
     want = ce.ce_fwd_reference(h, W, b, labels)
@@ -947,7 +1030,10 @@ def ce_dh_only_case(dtype, gen, iters, n, d, v, label="ce_dh_only"):
     width d): dh bitwise equal to the full mode's, and against the plain
     version's dh relative to its largest value (and on the softmax part,
     SOFTMAX_TOL); no dW or db returned. The library yardstick is PyTorch's
-    cross entropy's backward with respect to h alone."""
+    cross entropy's backward with respect to h alone. The f32 wide K4 is
+    timed over WIDE_F32_CE_ITERS calls."""
+    if dtype == torch.float32 and ce.is_wide(dtype, d):
+        iters = min(iters, WIDE_F32_CE_ITERS)
     h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v)
     lse = ce.ce_fwd_reference(h, W, b, labels)[1]
     full = ce.ce_bwd(h, W, b, labels, lse, g)
@@ -994,16 +1080,17 @@ def dyadic(shape, scale, gen, dtype):
     return (x.float() / (8 * scale)).to(dtype)
 
 
-def topk_inputs(n, d, k, mode, dtype, gen):
-    """h (N, D), W (V, D) and b (V,) of K6's cases (see topk_case)."""
-    v = Config().vocab_size
+def topk_inputs(n, d, k, mode, dtype, gen, v=None):
+    """h (N, D), W (V, D) and b (V,) of K6's cases (see topk_case; V the
+    vocab's unless given)."""
+    v = v or Config().vocab_size
     if mode == "tie":
         h = torch.ones((n, d), device="cuda", dtype=dtype)
         W = torch.zeros((v, d), device="cuda", dtype=dtype)
         b = torch.zeros(v, device="cuda")
         b[[v - 3, 7, v // 2, 130, 64]] = 1.0
         if k > 8:  # more equal maxima than the tuned kernel's list holds
-            b[torch.arange(9, 9 + 7 * k, 7)] = 1.0
+            b[torch.arange(9, min(v, 9 + 7 * k), 7)] = 1.0
         return h, W, b
     h = dyadic((n, d), 8, gen, dtype)
     W = dyadic((v, d), 2, gen, dtype)
@@ -1020,13 +1107,15 @@ def topk_design(dtype, d, k, v):
     rows of W."""
     if topk.uses_long_list(dtype, d, k, v):
         return "long-path wgmma bf16"
+    if topk.uses_select(dtype, d, k, v):
+        return SELECT_DESIGN[dtype]
     if topk.uses_tensor_core(dtype, d, k, v):
         return "wide wgmma bf16"
     return WIDE_DESIGN if topk.is_wide(d, k) else DESIGN[topk.KERNEL][dtype]
 
 
 def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None,
-              plain_iters=None):
+              plain_iters=None, v=None):
     """K6 at one shape (W the (V, D) table, V = 22,234: its last vocab tile
     of 128 rows is ragged). `mode`: "dyadic", exact logits with many ties;
     "tie", every logit equal to the bias, which is 1 at indices in
@@ -1034,9 +1123,10 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None,
     less 3, so every logit is below 0 and a padded vocab column (zero
     logit) in the list would show. `d` (default the decoder's 128) and k
     past 8 take the wide kernels where the tuned one does not; the plain
-    version is timed over `plain_iters` calls (default `iters`)."""
+    version is timed over `plain_iters` calls (default `iters`). `v`: a
+    vocab of another size (V = 32,000: past the long path's)."""
     d = d or Config().decoder_d_model
-    h, W, b = topk_inputs(n, d, k, mode, dtype, gen)
+    h, W, b = topk_inputs(n, d, k, mode, dtype, gen, v)
     v = W.shape[0]
     vals, idx, lse = topk.topk_logits(h, W, b, k)
     ref = topk.topk_logits_reference(h, W, b, k)
@@ -1053,12 +1143,10 @@ def topk_case(label, n, dtype, gen, iters, k=BEAM, mode="dyadic", d=None,
     # rows of h and of W per tile and blocks per SM, as the library reports
     # them (the tensor-core wide kernel's by k), and the vocab splits the
     # wrapper took from them
-    wide = topk.is_wide(d, k)
-    tensor_core = topk.uses_tensor_core(dtype, d, k, v)
     tiles = (ce.tiling(topk.KERNEL_WIDE_MMA, dtype, k, h.device)
-             if tensor_core else
-             ce.tiling(topk.KERNEL_WIDE if wide else topk.KERNEL, dtype, d,
-                       h.device))
+             if topk.uses_tensor_core(dtype, d, k, v) else
+             ce.tiling(topk.KERNEL_SELECT if topk.uses_select(dtype, d, k, v)
+                       else topk.KERNEL, dtype, d, h.device))
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     splits = ce.vocab_splits(n, v, sms, *tiles)
     extra = {}
@@ -1121,6 +1209,7 @@ def phase_kernels(seed, n, bs, iters):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cfg = Config()
     rows = []
+    _ROW_CLOCK[0] = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         for label, lq, lk in TRAIN_SHAPES:
             rows.append(attention_case(label, n, lq, lk, dtype, gen, iters))
@@ -1225,35 +1314,49 @@ def widened_cases(dtype, gen, iters, bs):
                               "tie" if k == WIDE_K[1] else "dyadic"))
     rows.append(topk_case("wide_beam", bs * WIDE_BEAM, dtype, gen, iters,
                           WIDE_BEAM, d=WIDE_PATH_D))
+    modes = ("dyadic", "tie", "negative")
     if dtype == torch.bfloat16:
         # the tensor-core wide K6 at every list length and width of the
         # widened shapes, and at the wide beam, in all three input modes
-        # (the tie and negative modes timed over fewer calls)
-        for mode in ("dyadic", "tie", "negative"):
+        # (the tie and negative modes timed over fewer calls, their plain
+        # versions not timed)
+        for mode in modes:
             timed = iters if mode == "dyadic" else min(iters, MODE_ITERS)
+            plain = None if mode == "dyadic" else 0
             for d in WIDE_D:
                 for k in WIDE_K:
                     rows.append(topk_case(f"k{k}_d{d}_{mode}", bs * BEAM,
-                                          dtype, gen, timed, k, mode, d))
+                                          dtype, gen, timed, k, mode, d,
+                                          plain_iters=plain))
             if mode != "dyadic":
                 rows.append(topk_case(f"wide_beam_{mode}", bs * WIDE_BEAM,
                                       dtype, gen, timed, WIDE_BEAM, mode,
-                                      WIDE_PATH_D))
+                                      WIDE_PATH_D, plain_iters=plain))
         # past its lists of 64: its long path (k = 100 and 256, and the
-        # beam-100 path's call), and past k = 256 csrc/topk_wide.cu; K2
-        # past the resident kernel's lengths: the
-        # cluster kernel (bitwise over calls too), and past it the
-        # long-length kernels
+        # beam-100 path's call; their plain versions, k rounds each, timed
+        # over 2 calls, the beam-100 one over 1); K2 past the resident
+        # kernel's lengths: the cluster kernel (bitwise over calls too),
+        # and past it the long-length kernels (the plain version at 1,024 x
+        # 1,024 not timed)
         rows.append(topk_case(f"k{PAST_LIST_K}", bs * BEAM, dtype, gen,
-                              iters, PAST_LIST_K, d=WIDE_PATH_D))
+                              iters, PAST_LIST_K, d=WIDE_PATH_D,
+                              plain_iters=2))
         for d in WIDE_D:
             rows.append(topk_case(f"k{PAST_LIST_KS[-1]}_d{d}", bs * BEAM,
                                   dtype, gen, iters, PAST_LIST_KS[-1],
-                                  d=d))
+                                  d=d, plain_iters=2))
         rows.append(topk_case("beam100", bs * BEAM100, dtype, gen, iters,
-                              BEAM100, plain_iters=2))
-        rows.append(topk_case(f"k{PAST_K6}", bs * BEAM, dtype, gen,
-                              min(iters, 5), PAST_K6, d=WIDE_PATH_D))
+                              BEAM100, plain_iters=1))
+        # past k = 256 and past V = 25,000: the select kernels
+        for mode in modes:
+            plain = 2 if mode == "dyadic" else 0
+            rows.append(topk_case(f"k{PAST_K6}_{mode}", bs * BEAM, dtype,
+                                  gen, min(iters, LONG_K_ITERS), PAST_K6,
+                                  mode, WIDE_PATH_D, plain_iters=plain))
+            rows.append(topk_case(f"v{PAST_V}_{mode}", bs * BEAM, dtype, gen,
+                                  iters if mode == "dyadic"
+                                  else min(iters, MODE_ITERS), PAST_LIST_K,
+                                  mode, 128, plain_iters=plain, v=PAST_V))
         for dbias in (False, True):
             rows.append(attention_bwd_case(f"long_{PAST_RESIDENT}", bs,
                                            PAST_RESIDENT, PAST_RESIDENT,
@@ -1267,12 +1370,39 @@ def widened_cases(dtype, gen, iters, bs):
         rows.append(attention_bwd_case(f"long_{PAST_CLUSTER}", bs,
                                        PAST_CLUSTER, PAST_CLUSTER, dtype,
                                        gen, min(iters, 5), False,
-                                       plain_iters=2))
+                                       plain_iters=0))
         for label, lq, lk in ((f"long_{PAST_RESIDENT}", PAST_RESIDENT,
                                PAST_RESIDENT), *PAST_RESIDENT_CROSS,
                               (f"long_{CLUSTER_LEN}", CLUSTER_LEN,
                                CLUSTER_LEN)):
             attention_bwd_bitwise(label, bs, lq, lk, dtype, gen)
+    else:
+        # every f32 wide K6 on the select kernels: at every k of SELECT_KS
+        # and D of WIDE_D, and at the wide beam, in all three input modes
+        # (the tie and negative modes timed over fewer calls, their plain
+        # versions not timed; k = PAST_K6's plain version over 2 calls)
+        for mode in modes:
+            timed = iters if mode == "dyadic" else min(iters, MODE_ITERS)
+            plain = None if mode == "dyadic" else 0
+            for d in WIDE_D:
+                for k in SELECT_KS:
+                    rows.append(topk_case(
+                        f"k{k}_d{d}_{mode}", bs * BEAM, dtype, gen,
+                        min(timed, LONG_K_ITERS) if k == PAST_K6 else timed,
+                        k, mode, d,
+                        plain_iters=2 if k == PAST_K6 and plain is None
+                        else plain))
+            if mode != "dyadic":
+                rows.append(topk_case(f"wide_beam_{mode}", bs * WIDE_BEAM,
+                                      dtype, gen, timed, WIDE_BEAM, mode,
+                                      WIDE_PATH_D, plain_iters=plain))
+    # k = V (a full sort of each row's logits, the select kernels), bs rows
+    # at D = 128, in all three modes; the plain version (V rounds, seconds a
+    # call) called once for the check and not timed
+    for mode in ("dyadic", "tie", "negative"):
+        rows.append(topk_case(f"k_vocab_{mode}", bs, dtype, gen,
+                              min(iters, LONG_K_ITERS), cfg.vocab_size,
+                              mode, 128, plain_iters=0))
     for d in WIDE_STAR_D:
         rows.append(star_case(f"star_d{d}", bs, default_seq_len("star"),
                               dtype, gen, iters, d))
@@ -1289,8 +1419,9 @@ def reset_launches():
 def launches():
     """Launches of K1-K6 since the last reset, how many of K4's ran in its
     dh-only mode, how many of each went to its wide kernels, and how many
-    of K6's went to the tensor-core wide kernel's lists past 64 and of
-    K2's to the cluster kernel."""
+    of K6's went to the tensor-core wide kernel's lists past 64 and to the
+    select kernels, of K2's to the cluster kernel and of K1's to the tiled
+    f32 kernel."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
             ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
             star.KERNEL: star.launches, topk.KERNEL: topk.launches,
@@ -1302,7 +1433,9 @@ def launches():
             WIDE[star.KERNEL]: star.wide_launches,
             WIDE[topk.KERNEL]: topk.wide_launches,
             LONG_LIST: topk.long_list_launches,
-            CLUSTER: attn.cluster_bwd_launches}
+            CLUSTER: attn.cluster_bwd_launches,
+            SELECT: topk.select_launches,
+            TILED: attn.tiled_launches}
 
 
 def check_launches(path, got, expected):
@@ -1329,8 +1462,8 @@ VANILLA = ("--variant", "transformer", "--params-pkl", PARAMS)
 
 
 def phase_serve(tag, flags, seed, batches, bs, per_call, model=VANILLA,
-                width=2):
-    """One serving path through `cli evaluate` in bf16, 19 SNRs (`model`:
+                width=2, dtype="bfloat16"):
+    """One serving path through `cli evaluate` in `dtype`, 19 SNRs (`model`:
     the variant and where its weights come from; the vanilla transceiver's
     trained weights by default): the launch counts must equal `per_call`
     times the decode calls; the table 19 rows of `width` finite values,
@@ -1341,7 +1474,7 @@ def phase_serve(tag, flags, seed, batches, bs, per_call, model=VANILLA,
     reset_launches()
     t0 = time.perf_counter()
     with stderr_copy() as err:
-        res = cli.main(["evaluate", *model, *flags, "--dtype", "bfloat16",
+        res = cli.main(["evaluate", *model, *flags, "--dtype", dtype,
                         "--bs", str(bs), "--eval-batches", str(batches),
                         "--seed", str(seed), "--snr-lo", str(SNRS[0]),
                         "--snr-hi", str(SNRS[-1]), "--device", "cuda",
@@ -2910,6 +3043,21 @@ def phase_graph(seed, bs):
     return out
 
 
+# the widened paths' models (phase_wide, phase_wide_heads): their widths as
+# CLI flags and where their training saves them
+WIDE_CKPT = "log/chip_smoke/wide_ckpt"
+WIDE_WIDTHS = ["--encoder-d-model", "512", "--encoder-d-ff", "1024",
+               "--decoder-d-model", str(WIDE_PATH_D), "--decoder-d-ff",
+               str(2 * WIDE_PATH_D)]
+WIDE_HEADS_CKPT = "log/chip_smoke/wide_heads_ckpt"
+WIDE_HEADS_WIDTHS = ["--encoder-d-model", "512", "--encoder-num-heads", "1",
+                     "--encoder-d-ff", "1024", "--decoder-d-model", "640",
+                     "--decoder-num-heads", "2", "--decoder-d-ff", "1280"]
+# the SNRs of the f32 id checks on the widened models, and the two paths
+F32_WIDE_SNRS = (0, 9, 18)
+F32_WIDE_PATHS = ("f32_wide_beam", "f32_wide_heads_greedy")
+
+
 def phase_wide(seed, bs):
     """The widened kernels on paths through the CLI, bf16, from random
     inits (each widening accepted at command start): `cli train` of a
@@ -2921,10 +3069,7 @@ def phase_wide(seed, bs):
     at d_model 96 (8 heads of 12: K5's wide kernel, 16 a step). Prints the
     widened epoch's ms a step. -> the launch counts by path."""
     cfg = Config()
-    ckpt = "log/chip_smoke/wide_ckpt"
-    widths = ["--encoder-d-model", "512", "--encoder-d-ff", "1024",
-              "--decoder-d-model", str(WIDE_PATH_D), "--decoder-d-ff",
-              str(2 * WIDE_PATH_D)]
+    ckpt, widths = WIDE_CKPT, WIDE_WIDTHS
     got, stats = phase_train(seed, 1, bs, extra=widths, checkpoint=ckpt,
                              tag="wide_train", wide=(attn.KERNEL,
                                                      attn.KERNEL_BWD,
@@ -2959,11 +3104,8 @@ def phase_wide_heads(seed, bs):
     the tensor-core chunked kernels, K3 and K4 on their tensor-core wide
     kernels (D = 640); per step as the default's. Prints the epoch's ms a step. -> its launch
     counts."""
-    widths = ["--encoder-d-model", "512", "--encoder-num-heads", "1",
-              "--encoder-d-ff", "1024", "--decoder-d-model", "640",
-              "--decoder-num-heads", "2", "--decoder-d-ff", "1280"]
-    got, stats = phase_train(seed, 1, bs, extra=widths,
-                             checkpoint="log/chip_smoke/wide_heads_ckpt",
+    got, stats = phase_train(seed, 1, bs, extra=WIDE_HEADS_WIDTHS,
+                             checkpoint=WIDE_HEADS_CKPT,
                              tag="wide_heads_train",
                              wide=(attn.KERNEL, attn.KERNEL_BWD,
                                    ce.KERNEL_FWD, ce.KERNEL_BWD))
@@ -2971,6 +3113,194 @@ def phase_wide_heads(seed, bs):
           f"epoch of {stats['steps']} steps (the graph's warm-up and capture "
           f"in it), bf16")
     return got
+
+
+def wide_config(widths, params, **fields):
+    """The Config of a widened model given as CLI width flags, its
+    tie_embeddings read from `params`."""
+    kw = {flag[2:].replace("-", "_"): int(value)
+          for flag, value in zip(widths[::2], widths[1::2])}
+    return Config(tie_embeddings=is_tied(params), **kw, **fields)
+
+
+def recording(fn, seen):
+    """`fn` whose every call's arguments and result are appended to
+    `seen`."""
+    def call(*args):
+        out = fn(*args)
+        seen.append((args, out))
+        return out
+    return call
+
+
+def beam_steps(model, cfg, k, scorer, args):
+    """The KV beam decode at one noise level with each step's two
+    selections recorded: -> (ids (B, T+1), [(h_flat, vals, idx) of the
+    scorer's call], [(candidate scores (B, k k), top positions) of the
+    second stage's `take_top`])."""
+    stage1, stage2 = [], []
+    take_top = beam_module.take_top
+    beam_module.take_top = recording(take_top, stage2)
+    try:
+        ids = make_beam_decode_kv(model, cfg, k,
+                                  topk=recording(scorer, stage1))(*args)
+    finally:
+        beam_module.take_top = take_top
+    return (ids, [(a[0].float(), out[0], out[1]) for a, out in stage1],
+            [(a[0], out[1]) for a, out in stage2])
+
+
+def same_beam_ids_but_near_ties(tag, k, got, want, W, b):
+    """Beam ids through the kernels (`got`: beam_steps' result) against the
+    plain versions' (`want`). The two paths' logits differ by f32 rounding
+    alone: at each step by delta, the largest difference of the scorer's
+    values where both paths' lists agree, which must be within the f32
+    tolerance of the largest value. A row whose ids differ counts as a
+    fault unless, at its first step where the paths chose differently, the
+    choice was a near-tie: in the scorer's list of one of its beams, the
+    plain logits (from the plain path's hidden state) of the two
+    candidates at the first differing place lie within 2 delta; or, the
+    lists agreeing, in the second stage the plain scores of the two
+    candidates at the first differing place lie within 2 delta of the
+    step's candidate scores. Such near-ties are counted and printed."""
+    ids_g, s1_g, s2_g = got
+    ids_w, s1_w, s2_w = want
+    rows = ids_g.shape[0]
+    deltas, deltas2, scale = [], [], 0.0
+    for (hg, vg, ig), (hw, vw, iw), (cg, _), (cw, _) in zip(s1_g, s1_w,
+                                                            s2_g, s2_w):
+        same = ig == iw
+        deltas.append(((vg - vw).abs() * same).max().item())
+        rows_same = same.reshape(rows, -1).all(1)
+        deltas2.append(((cg - cw).abs()[rows_same].max().item()
+                        if rows_same.any() else 0.0))
+        scale = max(scale, vw.abs().max().item())
+    delta = max(deltas)
+    diff = (ids_g != ids_w).any(1).nonzero().reshape(-1).tolist()
+    near, faults = 0, []
+    for r in diff:
+        for s, ((_, vg, ig), (hw, vw, iw), (cg, pg), (cw, pw)) in enumerate(
+                zip(s1_g, s1_w, s2_g, s2_w)):
+            ig_r, iw_r = (x.reshape(rows, k, k)[r] for x in (ig, iw))
+            if not torch.equal(ig_r, iw_r):
+                beam, pos = (ig_r != iw_r).nonzero()[0].tolist()
+                x, y = int(ig_r[beam, pos]), int(iw_r[beam, pos])
+                h = hw.reshape(rows, k, -1)[r, beam]
+                lx, ly = (h @ W[[x, y]].float().t() + b[[x, y]]).tolist()
+                ok = ly - lx <= 2 * deltas[s]
+                break
+            if not torch.equal(pg[r], pw[r]):
+                pos = int((pg[r] != pw[r]).nonzero()[0])
+                x, y = int(pg[r, pos]), int(pw[r, pos])
+                ok = (cw[r, y] - cw[r, x]).item() <= 2 * deltas2[s]
+                break
+        else:
+            ok = False
+        near += ok
+        if not ok:
+            faults.append(r)
+    print(f"[f32] {tag}: {not faults and delta <= TOL[torch.float32] * scale}"
+          f" ({len(diff)} of {rows} rows differ, {near} at near-ties within "
+          f"2 x delta; scorer values differ by {delta:.3g} of max "
+          f"{scale:.3g})")
+    if not delta <= TOL[torch.float32] * scale:
+        raise AssertionError(f"f32 {tag}: scorer values differ by {delta} "
+                             f"> {TOL[torch.float32]} x {scale}")
+    if faults:
+        raise AssertionError(f"f32 {tag}: rows {faults} differ away from a "
+                             f"near-tie")
+
+
+def phase_f32_wide(seed, bs):
+    """The f32 paths of the widened models, on what phase_wide and
+    phase_wide_heads saved, each through `cli evaluate --dtype float32`
+    with exact launch counts, then its ids through the kernels against the
+    plain versions at F32_WIDE_SNRS, one batch of bs, same weights and
+    noise:
+    - f32_wide_beam: `--eval-mode beam --beam-size WIDE_BEAM` on the
+      widened model (encoder 8 heads of 64, decoder 8 of 25, D = 200), one
+      batch at 19 SNRs: a decode call an SNR, each the encoder's K1 on the
+      tiled kernel and max_length K6 on the select kernels (N = bs x
+      WIDE_BEAM, k = WIDE_BEAM); the KV beam through K1 and K6 against the
+      plain attention and scorer (`same_beam_ids_but_near_ties`);
+    - f32_wide_heads_greedy: the full-prefix greedy sweep on the
+      wide-heads model (encoder one head of 512, decoder 2 of 320), one
+      batch: every K1 (encoder_num_layer + 2 decoder_num_layer max_length
+      a call) on the tiled kernel past 256-wide heads; the greedy decode
+      through K1 against the plain attention
+      (`same_greedy_ids_but_near_ties`).
+    -> {path: launch counts}."""
+    cfg = Config()
+    none = {name: 0 for name in COUNTERS}
+    enc = cfg.encoder_num_layer
+    beam_call = dict(none, **{attn.KERNEL: enc, WIDE[attn.KERNEL]: enc,
+                              TILED: enc, topk.KERNEL: cfg.max_length,
+                              WIDE[topk.KERNEL]: cfg.max_length,
+                              SELECT: cfg.max_length})
+    by_path = {}
+    by_path["f32_wide_beam"], rate, *_ = phase_serve(
+        "f32_wide_beam", ["--eval-mode", "beam", "--beam-size",
+                          str(WIDE_BEAM)], seed, 1, bs, beam_call,
+        model=("--variant", "transformer", "--checkpoint-path", WIDE_CKPT,
+               *WIDE_WIDTHS), dtype="float32")
+    print(f"[f32_wide_beam] steady {rate:.1f} seq/s")
+    k1 = enc + 2 * cfg.decoder_num_layer * cfg.max_length
+    greedy_call = dict(none, **{attn.KERNEL: k1, WIDE[attn.KERNEL]: k1,
+                                TILED: k1})
+    by_path["f32_wide_heads_greedy"], rate, *_ = phase_serve(
+        "f32_wide_heads_greedy", ["--eval-mode", "greedy"], seed, 1, bs,
+        greedy_call, model=("--variant", "transformer", "--checkpoint-path",
+                            WIDE_HEADS_CKPT, *WIDE_HEADS_WIDTHS),
+        dtype="float32")
+    print(f"[f32_wide_heads_greedy] steady {rate:.1f} seq/s")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for tag, ckpt, widths in (("f32_wide_beam", WIDE_CKPT, WIDE_WIDTHS),
+                              ("f32_wide_heads_greedy", WIDE_HEADS_CKPT,
+                               WIDE_HEADS_WIDTHS)):
+        params = load_params_pickle(f"{ckpt}/transformer_params.pkl")
+        wcfg = wide_config(widths, params, dtype="float32", bs=bs)
+        model_k, model_p = (
+            load_into(make_model(wcfg, attention=a), params).cuda().eval()
+            for a in (attn.fused_attention, attn.attention_fwd_reference))
+        inp = torch.as_tensor(eval_batches(
+            wcfg.test_save_path, wcfg.seq_len, wcfg.vocab_size, bs, 1,
+            seed)[0], dtype=torch.long, device="cuda")
+        for snr in F32_WIDE_SNRS:
+            noise = torch.randn((bs, wcfg.seq_len, wcfg.channel_dim),
+                                generator=gen, device="cuda")
+            if tag == "f32_wide_beam":
+                args = (inp, 0.0, SNR_to_noise(snr), noise)
+                reset_launches()
+                got = beam_steps(model_k, wcfg, WIDE_BEAM, topk.topk_logits,
+                                 args)
+                k6 = (topk.launches, topk.select_launches, attn.launches,
+                      attn.tiled_launches)
+                want = beam_steps(model_p, wcfg, WIDE_BEAM,
+                                  topk.topk_logits_reference, args)
+                if k6 != (wcfg.max_length, wcfg.max_length, enc, enc) or \
+                        topk.launches != wcfg.max_length:
+                    raise AssertionError(f"{tag}: launches {k6} through the "
+                                         f"kernels, {topk.launches} after "
+                                         f"the plain run")
+                W, b = _vocab_table(model_p, torch.float32)
+                same_beam_ids_but_near_ties(
+                    f"{tag} at {snr} dB ({bs} x {WIDE_BEAM} beams), K1 and "
+                    f"K6 vs plain", WIDE_BEAM, got, want, W, b)
+            else:
+                reset_launches()
+                ids_k, logits_k = greedy_logits(model_k, wcfg, inp, snr,
+                                                noise)
+                if (attn.launches, attn.tiled_launches) != (k1, k1):
+                    raise AssertionError(f"{tag}: {attn.launches} K1, "
+                                         f"{attn.tiled_launches} tiled, "
+                                         f"want {k1}")
+                ids_p, logits_p = greedy_logits(model_p, wcfg, inp, snr,
+                                                noise)
+                same_greedy_ids_but_near_ties(
+                    f"{tag} at {snr} dB ({bs} sentences), K1 vs plain",
+                    ids_k, ids_p, logits_k, logits_p)
+    return by_path
 
 
 # epochs of the MINE training phase: one epoch is 64 steps at bs 64
@@ -3849,7 +4179,7 @@ WIDE_INFO = {
     attn.KERNEL: (attn.KERNEL_WIDE_MMA, "wide_dec_self_8x25", "the wide "
                   "train path's decoder self-attention: K1 at 8 heads of "
                   "25, bf16, N=64 Lq=Lk=31 (the tensor-core wide kernels; "
-                  "f32 on csrc/attention_wide.cu)"),
+                  "f32 on csrc/attention_tiled.cu, its own entry)"),
     attn.KERNEL_BWD: (attn.KERNEL_WIDE_MMA, "wide_dec_self_8x25", "the wide "
                       "train path's decoder self-attention backward: K2 at "
                       "8 heads of 25, bf16, N=64 Lq=Lk=31, no dbias (the "
@@ -3865,7 +4195,8 @@ WIDE_INFO = {
                   "path's ring: K5 at B=64 L=31 D=96 H=8, bf16"),
     topk.KERNEL: (topk.KERNEL_WIDE_MMA, "wide_beam", "the wide beam path: "
                   "K6 at N=64x9 D=200 V=22234 k=9, bf16 (the tensor-core "
-                  "wide kernel; f32 and k past 64 on csrc/topk_wide.cu); "
+                  "wide kernel; k 65 to 256 its long path, f32 and bf16 "
+                  "past it the select kernels, entries of their own); "
                   "`cases`: k = 16 and 64 at D = 200 and 512, N=64x4"),
 }
 
@@ -3979,6 +4310,55 @@ def kernels_line(rows, by_path):
               f"Dh=16, no dbias (the seq-len-{SEQ256} epoch's encoder); "
               f"`cases`: with dbias, the epoch's decoder shapes, "
               f"{CLUSTER_LEN} x {CLUSTER_LEN}; library: SDPA backward"})
+    # the select K6 (csrc/topk_select.cu): every K6 launch of the f32 wide
+    # beam path
+    f32_rows = {(r["kernel"], r["case"]): r for r in rows
+                if r["dtype"] == "float32"}
+    bf16_rows = {(r["kernel"], r["case"]): r for r in rows
+                 if r["dtype"] == "bfloat16"}
+    row = f32_rows[(topk.KERNEL, "wide_beam")]
+    n = by_path["f32_wide_beam"][SELECT]
+    cases = {f"{label}_float32": _timing(f32_rows[(topk.KERNEL, label)])
+             for label in [f"k{k}_d{d}_dyadic" for d in WIDE_D
+                           for k in SELECT_KS] + ["k_vocab_dyadic"]}
+    cases.update({f"{label}_bfloat16": _timing(bf16_rows[(topk.KERNEL,
+                                                          label)])
+                  for label in (f"k{PAST_K6}_dyadic", f"v{PAST_V}_dyadic",
+                                "k_vocab_dyadic")})
+    out.append({
+        "name": SELECT, "route": "cuda", "design": row["design"],
+        "source": f"deepsc_gan_tpu_torch/csrc/{topk.KERNEL_SELECT}.cu",
+        "replaces": KERNEL_INFO[topk.KERNEL][0], "launches": n,
+        "launches_by_path": {"f32_wide_beam": n}, **_timing(row),
+        "cases": cases,
+        "at": f"every f32 K6 off the tuned shapes and the bf16 K6 past "
+              f"k = 256 or V = 25,000 (the select kernels): the f32 wide "
+              f"beam path's call, N={row['n']} D={row['d']} V=22234 "
+              f"k={WIDE_BEAM}; `cases`: f32 at k = {SELECT_KS} and D = "
+              f"{WIDE_D}, N=64x4, and k = V at N=64, D=128; bf16 at "
+              f"k = {PAST_K6} (D=200), at V = {PAST_V} (k={PAST_LIST_K}, "
+              f"D=128) and k = V; library: torch.topk + logsumexp"})
+    # the tiled f32 K1 (csrc/attention_tiled.cu): every K1 launch of the
+    # f32 wide paths
+    row = f32_rows[(attn.KERNEL, WIDE_HEADS_PATH[0][0])]
+    paths = {path: by_path[path][TILED] for path in F32_WIDE_PATHS}
+    labels = [label for label, *_ in WIDE_HEADS_PATH + WIDE_PATH] + [
+        f"wide_{heads}x{dh}" for heads, dh in WIDE_HEADS] + [
+            OFF_STEP_HEADS[0]]
+    out.append({
+        "name": TILED, "route": "cuda", "design": row["design"],
+        "source": f"deepsc_gan_tpu_torch/csrc/{attn.KERNEL_TILED}.cu",
+        "replaces": KERNEL_INFO[attn.KERNEL][0],
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        **_timing(row),
+        "cases": {label: _timing(f32_rows[(attn.KERNEL, label)])
+                  for label in labels},
+        "at": "every f32 K1 off the tuned head widths and counts (the "
+              "tiled kernel): the wide-heads model's encoder, one head of "
+              "512, N=64 Lq=Lk=32 shown; `cases`: its decoder (2 heads of "
+              "320), the widened model's (8 heads of 64 and of 25), 8 "
+              "heads of 24, 64, 128, 32 heads of 16 and one head of 300; "
+              "library: SDPA (f32, no TF32)"})
     dh = next(r for r in rows if r["case"] == "ce_dh_only"
               and r["dtype"] == "bfloat16")
     paths = {path: got[DH_ONLY] for path, got in by_path.items()}
@@ -4023,13 +4403,17 @@ def kernels_line(rows, by_path):
     for kernel, (library, case, at) in WIDE_INFO.items():
         row = next(r for r in rows if r["kernel"] == kernel
                    and r["case"] == case and r["dtype"] == "bfloat16")
-        # the wide-heads path's K1/K2 launches all ran the chunked kernels
-        # and the beam-100 path's K6 the long lists (their entries above),
-        # the other paths' the register-held ones and the lists up to 64
+        # the wide-heads path's K1/K2 launches all ran the chunked kernels,
+        # the beam-100 path's K6 the long lists, the f32 wide paths' K1 the
+        # tiled kernel and their K6 the select kernels (their entries
+        # above), the other paths' the register-held ones and the lists up
+        # to 64
         paths = {path: got[WIDE[kernel]] for path, got in by_path.items()
                  if (path != "wide_heads"
                      or kernel not in (attn.KERNEL, attn.KERNEL_BWD))
-                 and (path != "beam100" or kernel != topk.KERNEL)}
+                 and (path != "beam100" or kernel != topk.KERNEL)
+                 and (path not in F32_WIDE_PATHS
+                      or kernel not in (attn.KERNEL, topk.KERNEL))}
         out.append({
             "name": WIDE[kernel], "route": "cuda", "design": row["design"],
             "source": f"deepsc_gan_tpu_torch/csrc/{library}.cu",
@@ -4129,6 +4513,8 @@ def run_phases(args, jobs, routes):
     with timed("wide"):
         by_path["wide"] = phase_wide(seed, bs)
         by_path["wide_heads"] = phase_wide_heads(seed, bs)
+    with timed("f32_wide"):
+        by_path.update(phase_f32_wide(seed, bs))
     with timed("mine"):
         by_path["mine_train"] = phase_mine_train(seed, MINE_EPOCHS, bs)
         phase_mine_step_parity(seed, bs)

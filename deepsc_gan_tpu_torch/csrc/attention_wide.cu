@@ -1,45 +1,45 @@
-// Fused multi-head attention, forward and backward, at any head width and
+// Fused multi-head attention backward (K2) in f32 at any head width and
 // any number of heads, for Hopper (sm_90a), plain C interface.
 //
-// Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
-// deepsc_gan_tpu/ops/pallas/attention.py where the tuned kernels
-// (csrc/attention_fwd.cu, csrc/attention_bwd.cu: a warp per head of a
-// compile-time width 8, 16 or 32, at most 16 heads a block) do not take the
-// shape: the JAX kernels take any head width and count, so `--encoder-d-model
-// 512` with 8 heads (Dh = 64), 4 heads of 64, 32 heads, or one head of 512
-// run here in f32, at any width (bf16 heads up to 256 wide take
-// csrc/attention_wide_mma.cu, wider ones csrc/attention_chunked.cu, both on
-// the tensor cores).
+// Replaces the TPU kernel `_bwd_kernel` of
+// deepsc_gan_tpu/ops/pallas/attention.py where the tuned kernel
+// (csrc/attention_bwd.cu: a warp per head of a compile-time width 8, 16 or
+// 32, at most 16 heads a block) does not take the shape: the JAX kernel
+// takes any head width and count, so `--encoder-d-model 512` with 8 heads
+// (Dh = 64), 4 heads of 64, 32 heads, or one head of 512 run here in f32,
+// at any width (bf16 heads up to 256 wide take csrc/attention_wide_mma.cu,
+// wider ones csrc/attention_chunked.cu, both on the tensor cores; the f32
+// forward at these shapes is csrc/attention_tiled.cu's).
 // Same function and order of roundings as the tuned kernels: with
 // q (N, Lq, H*Dh), k and v (N, Lk, H*Dh), bias (N, Lq, Lk) f32 and g shaped
 // like q,
 //     s = (q_h . k_h) * (1/scale) + bias   (f32, two roundings)
 //     p = exp(s - max) / sum               (f32)
-//     out = pc v_h with pc = p rounded to the input type (f32 sums)
-//     dv = pc^T g, dp = g v^T, ds = p (dp - rowsum(dp p)),
+//     dv = pc^T g with pc = p rounded to the input type, dp = g v^T,
+//     ds = p (dp - rowsum(dp p)),
 //     dq = dss k, dk = dss^T q with dss = (ds * (1/scale)) rounded to the
 //     input type, dbias = sum_h ds (f32, heads in order 0..H-1).
 //
 // What bounds it: the chain of dependent warp reductions, not the card's
-// memory or its tensor cores (a simple kernel, right first). At N = 64,
-// Lq = Lk = 31, 32 heads of 64 in f32 one forward call moves 65.3 MB
-// (19.5 us at 3.35 TB/s) and does 0.5 GFLOP; each (row, head, query) here
-// runs three passes over the keys, each key a dot product of Dh elements
-// summed across the warp by five shuffles.
+// memory (a simple kernel, right first). At N = 64, Lq = Lk = 31, 32 heads
+// of 64 in f32 one call reads q, k, v, g and the bias and writes dq, dk,
+// dv: about 114 MB (34 us at 3.35 TB/s); each (row, head, query) here runs
+// three passes over the keys, each key a dot product of Dh elements summed
+// across the warp by five shuffles.
 //
-// Design: a warp per (batch row, head, query) for the forward and for the
-// backward's dq, a warp per (batch row, head, key) for dk and dv, and a warp
-// per (batch row, query) for dbias; eight warps a block, no shared memory.
+// Design: a warp per (batch row, head, query) for dq, a warp per (batch
+// row, head, key) for dk and dv, and a warp per (batch row, query) for
+// dbias; eight warps a block, no shared memory.
 // Lane l holds the elements d = l + 32 t of a head's slice, so a dot
 // product is the lane's partial sum over its elements in the order of t
 // and a butterfly of __shfl_xor_sync, which leaves every lane with the same
 // bits. The softmax is exact, not online: a first pass over the keys takes
-// the max, a second the sum of exponentials (and, backward, sum_j e_j dp_j),
-// and the last forms p = e / sum and accumulates; the logits are recomputed
-// in each pass rather than kept. The backward's dq kernel writes each
-// query's (max, sum, rowsum) to the caller's statistics scratch (N, H, Lq,
-// 4), read by the dk/dv kernel and the dbias kernel, which recompute s and
-// dp with the same products in the same order (bitwise the dq kernel's).
+// the max, a second the sum of exponentials and sum_j e_j dp_j, and the
+// last forms p = e / sum and accumulates; the logits are recomputed in
+// each pass rather than kept. The dq kernel writes each query's (max, sum,
+// rowsum) to the caller's statistics scratch (N, H, Lq, 4), read by the
+// dk/dv kernel and the dbias kernel, which recompute s and dp with the
+// same products in the same order (bitwise the dq kernel's).
 // Every output element has one writer and a fixed order of sums: no
 // atomics, the same bits on every call. The kernels allocate nothing.
 //
@@ -133,55 +133,6 @@ struct Shape {
   int n, lq, lk, heads, dh;
   float inv_scale;
 };
-
-// ---- forward ----
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const float* __restrict__ bias, T* __restrict__ out,
-                          Shape sh) {
-  const int lane = threadIdx.x & 31;
-  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (w >= (long long)sh.n * sh.heads * sh.lq) return;  // the whole warp
-  const int i = (int)(w % sh.lq);
-  const long long nh = w / sh.lq;
-  const int h = (int)(nh % sh.heads);
-  const long long b = nh / sh.heads;
-  const long long hd = (long long)sh.heads * sh.dh;
-  const long long col = (long long)h * sh.dh;
-
-  float qv[kMaxPer];
-  load_slice(q + (b * sh.lq + i) * hd + col, lane, sh.dh, qv);
-  const T* kb = k + b * sh.lk * hd + col;
-  const T* vb = v + b * sh.lk * hd + col;
-  const float* bb = bias + (b * sh.lq + i) * sh.lk;
-
-  float m = -INFINITY;
-  for (int j = 0; j < sh.lk; ++j)
-    m = fmaxf(m, logit(dot(qv, kb + j * hd, lane, sh.dh), sh.inv_scale,
-                       bb[j]));
-  float sum = 0.f;
-  for (int j = 0; j < sh.lk; ++j)
-    sum += expf(logit(dot(qv, kb + j * hd, lane, sh.dh), sh.inv_scale,
-                      bb[j]) - m);
-  float ctx[kMaxPer];
-#pragma unroll
-  for (int t = 0; t < kMaxPer; ++t) ctx[t] = 0.f;
-  for (int j = 0; j < sh.lk; ++j) {
-    const float s = logit(dot(qv, kb + j * hd, lane, sh.dh), sh.inv_scale,
-                          bb[j]);
-    const float p = round_to<T>(__fdiv_rn(expf(s - m), sum));
-    const T* vj = vb + j * hd;
-#pragma unroll
-    for (int t = 0; t < kMaxPer; ++t) {
-      const int d = lane + 32 * t;
-      if (d < sh.dh) ctx[t] = fmaf(p, to_f(vj[d]), ctx[t]);
-    }
-  }
-  store_slice(out + (b * sh.lq + i) * hd + col, lane, sh.dh, ctx);
-}
 
 // ---- backward ----
 
@@ -369,50 +320,6 @@ __device__ __forceinline__ void zero(float* acc) {
   for (int t = 0; t < kMaxPer; ++t) acc[t] = 0.f;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_fwd_chunked_kernel(const T* __restrict__ q,
-                             const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const float* __restrict__ bias,
-                             T* __restrict__ out, Shape sh) {
-  const int lane = threadIdx.x & 31;
-  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (w >= (long long)sh.n * sh.heads * sh.lq) return;  // the whole warp
-  const int i = (int)(w % sh.lq);
-  const long long nh = w / sh.lq;
-  const int h = (int)(nh % sh.heads);
-  const long long b = nh / sh.heads;
-  const long long hd = (long long)sh.heads * sh.dh;
-  const long long col = (long long)h * sh.dh;
-
-  const T* qi = q + (b * sh.lq + i) * hd + col;
-  const T* kb = k + b * sh.lk * hd + col;
-  const T* vb = v + b * sh.lk * hd + col;
-  const float* bb = bias + (b * sh.lq + i) * sh.lk;
-
-  float m = -INFINITY;
-  for (int j = 0; j < sh.lk; ++j)
-    m = fmaxf(m, logit(dot_rows(qi, kb + j * hd, lane, sh.dh), sh.inv_scale,
-                       bb[j]));
-  float sum = 0.f;
-  for (int j = 0; j < sh.lk; ++j)
-    sum += expf(logit(dot_rows(qi, kb + j * hd, lane, sh.dh), sh.inv_scale,
-                      bb[j]) - m);
-  T* oi = out + (b * sh.lq + i) * hd + col;
-  for (int c = 0; c < sh.dh; c += kMaxDh) {
-    float ctx[kMaxPer];
-    zero(ctx);
-    for (int j = 0; j < sh.lk; ++j) {
-      const float s = logit(dot_rows(qi, kb + j * hd, lane, sh.dh),
-                            sh.inv_scale, bb[j]);
-      const float p = round_to<T>(__fdiv_rn(expf(s - m), sum));
-      axpy_chunk(p, vb + j * hd, c, lane, sh.dh, ctx);
-    }
-    store_slice(oi + c, lane, sh.dh - c, ctx);
-  }
-}
-
 // dq and the statistics: a warp per (b, h, i)
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -571,25 +478,6 @@ Shape shape(int n, int lq, int lk, int heads, int dh, double scale) {
   return Shape{n, lq, lk, heads, dh, (float)(1.0 / scale)};
 }
 
-// f32 (the bf16 forward is csrc/attention_wide_mma.cu's up to 256-wide
-// heads, csrc/attention_chunked.cu's past them)
-int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
-               void* out, const Shape& sh, void* stream) {
-  using T = float;
-  if (bad(sh)) return (int)cudaErrorInvalidValue;
-  const unsigned grid = blocks((long long)sh.n * sh.heads * sh.lq);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (sh.dh <= kMaxDh)
-    attention_fwd_wide_kernel<T><<<grid, kWarps * 32, 0, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
-        sh);
-  else
-    attention_fwd_chunked_kernel<T><<<grid, kWarps * 32, 0, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
-        sh);
-  return (int)cudaGetLastError();
-}
-
 // f32 (the bf16 backward is csrc/attention_wide_mma.cu's up to 256-wide
 // heads, csrc/attention_chunked.cu's past them)
 int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
@@ -637,21 +525,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
 
 extern "C" {
 
-// q, out: contiguous f32 (N, Lq, heads*dh); k, v: (N, Lk, heads*dh); bias:
-// contiguous f32 (N, Lq, Lk); any N, Lq, Lk, heads and dh >= 1 (past 256
-// the chunked kernels).
-// Returns cudaGetLastError() after the launch (0 = success).
-int deepsc_attention_wide_fwd_f32(const void* q, const void* k,
-                                  const void* v, const void* bias, void* out,
-                                  int n, int lq, int lk, int heads, int dh,
-                                  double scale, void* stream) {
-  return launch_fwd(q, k, v, bias, out, shape(n, lq, lk, heads, dh, scale),
-                    stream);
-}
-
-// As the forward, with g, dq shaped like q, dk and dv like k, dbias f32
-// (N, Lq, Lk) or null, and `stats` the caller's f32 scratch (N, heads, Lq,
-// 4), 16-byte aligned.
+// q, g, dq: contiguous f32 (N, Lq, heads*dh); k, v, dk, dv: (N, Lk,
+// heads*dh); bias: contiguous f32 (N, Lq, Lk); dbias f32 (N, Lq, Lk) or
+// null; `stats` the caller's f32 scratch (N, heads, Lq, 4), 16-byte
+// aligned; any N, Lq, Lk, heads and dh >= 1 (past 256 the chunked
+// kernels). Returns cudaGetLastError() after the launches (0 = success).
 int deepsc_attention_wide_bwd_f32(const void* q, const void* k,
                                   const void* v, const void* bias,
                                   const void* g, void* dq, void* dk, void* dv,

@@ -7,19 +7,19 @@
 // 9 (`--beam-size 9` on the widened decoder, d_model 200) up to kMaxList =
 // 64 with a list a row, past it up to kMaxLong = 256 (`--beam-size 100`)
 // by the long path below (V up to 25,000), and any D
-// (`--decoder-d-model 512`). f32, and bf16 past k = 256, stay on
-// csrc/topk_wide.cu. Same function as the tuned kernel: per row of h
-// (N, D) over the vocab table W (V, D) and bias b (V) f32, the k largest
-// logits h . W_v + b_v in descending order, ties to the lowest vocab index,
-// their indices, and the row's logsumexp, with exact products of the bf16
-// operands and f32 sums; the (N, V) logits never reach device memory.
+// (`--decoder-d-model 512`). f32, and bf16 past k = 256 or past V =
+// 25,000, take csrc/topk_select.cu. Same function as the tuned kernel: per
+// row of h (N, D) over the vocab table W (V, D) and bias b (V) f32, the k
+// largest logits h . W_v + b_v in descending order, ties to the lowest vocab
+// index, their indices, and the row's logsumexp, with exact products of the
+// bf16 operands and f32 sums; the (N, V) logits never reach device memory.
 //
 // What bounds it: operations. At the wide beam (N = 64 x 9 = 576, D = 200,
 // V = 22,234, k = 9) one call does 2 N D V = 5.1 GFLOP (0.0052 ms at the
 // bf16 tensor-core rate) and N V = 12.8 M exponentials, and reads 9 MB.
-// The design before this one (csrc/topk_wide.cu: f32 CUDA-core tiles, the
-// logits through an (N, V) f32 workspace and k rounds of a block argmax
-// over it) took 1.006 ms there on an H100 80GB HBM3 at 700 W, and 5.984
+// The design before this one (CUDA-core tiles, the logits through an
+// (N, V) f32 workspace and k rounds of a block argmax over it; since
+// replaced by csrc/topk_select.cu) took 1.006 ms there on an H100 80GB HBM3 at 700 W, and 5.984
 // ms at k = 100, N = 256, D = 200, where `torch.topk` + `logsumexp` take
 // 0.216 (the lists of this kernel grown to 128 a row took 0.287, most of
 // it in their merges, at one block an SM).

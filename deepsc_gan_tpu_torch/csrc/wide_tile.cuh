@@ -1,5 +1,5 @@
-// Shared pieces of the vocab kernels at any width D (csrc/ce_wide.cu and
-// csrc/topk_wide.cu): the tile shape, a column chunk of rows staged into
+// Shared pieces of the CUDA-core vocab kernels at any width D
+// (csrc/ce_wide.cu): the tile shape, a column chunk of rows staged into
 // shared memory as f32, and one 64 x 64 tile of logits h . W_v with D
 // streamed through shared memory in chunks of KC columns.
 //

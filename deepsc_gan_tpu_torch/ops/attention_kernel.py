@@ -4,12 +4,11 @@
 with `csrc/attention_bwd_resident.cu` (the bf16 K2 past 32 queries or keys
 up to L_RES of both), `csrc/attention_bwd_cluster.cu` (the bf16 K2 past
 L_RES up to L_CLUSTER), `csrc/attention_wide_mma.cu` (bf16, heads up to 256
-wide),
-`csrc/attention_chunked.cu` (bf16, heads wider than 256) and
-`csrc/attention_wide.cu` (f32) for the head widths and counts they do not
-take, their wrappers and plain PyTorch versions, and the
-`torch.autograd.Function` that joins them as the TPU package's custom VJP
-does.
+wide), `csrc/attention_chunked.cu` (bf16, heads wider than 256),
+`csrc/attention_tiled.cu` (the f32 K1) and `csrc/attention_wide.cu` (the
+f32 K2) for the head widths and counts they do not take, their wrappers
+and plain PyTorch versions, and the `torch.autograd.Function` that joins
+them as the TPU package's custom VJP does.
 
 `fused_attention(q, k, v, bias, heads, scale)` has the JAX signature of
 the TPU kernel's entry point: q (N, Lq, H*Dh), k and v (N, Lk, H*Dh), bias
@@ -33,6 +32,7 @@ from deepsc_gan_tpu_torch.ops import build
 KERNEL = "attention_fwd"
 KERNEL_BWD = "attention_bwd"
 KERNEL_WIDE = "attention_wide"
+KERNEL_TILED = "attention_tiled"
 KERNEL_CHUNKED = "attention_chunked"
 KERNEL_WIDE_MMA = "attention_wide_mma"
 KERNEL_RESIDENT = "attention_bwd_resident"
@@ -55,11 +55,14 @@ KERNEL_CLUSTER = "attention_bwd_cluster"
 # memory to 16, 32, 64, 128 or 256 columns; the forward a block per row,
 # head and 32 queries, the backward a block per row and head up to TILE
 # queries and keys, past them a dq kernel and a dk/dv kernel that pass the
-# statistics through the scratch); in f32, csrc/attention_wide.cu, a warp
-# per (row, head, query) with the head's elements spread over the lanes
-# (past 256 of them, walked in chunks of 256), any length, the same
-# statistics scratch. bf16 at heads wider than REGISTER_DH: the tensor-core
-# chunked kernels (csrc/attention_chunked.cu: mma.sync, the logits' k-steps
+# statistics through the scratch); in f32 the forward on
+# csrc/attention_tiled.cu (a block per row, head and 16 or 8 queries, the
+# logits formed once into shared memory from cp.async-staged chunks of q
+# and k, an exact softmax, then p v a chunk of output columns at a time),
+# the backward on csrc/attention_wide.cu (a warp per (row, head,
+# query) with the head's elements spread over the lanes, past 256 of them
+# walked in chunks of 256), any length, the same statistics scratch. bf16
+# at heads wider than REGISTER_DH: the tensor-core chunked kernels (csrc/attention_chunked.cu: mma.sync, the logits' k-steps
 # split over a block's eight warps and their partials summed in shared
 # memory; the forward a block per row, head, 16 queries and 512 output
 # columns, the backward per row, head and 128 output columns up to TILE
@@ -95,23 +98,26 @@ CLUSTER_SMEM = 232448
 # Launches of the forward (K1) and backward (K2) kernels since the last
 # reset (each wrapper adds one per launch and nowhere else; `wide_launches`
 # and `wide_bwd_launches` count the calls among them that went to the wide
-# kernels, `cluster_bwd_launches` the K2 calls that went to the cluster
+# kernels, `tiled_launches` the K1 calls that went to the tiled f32
+# kernel, `cluster_bwd_launches` the K2 calls that went to the cluster
 # kernel); read by chip_smoke.py to show that a path went through the
 # kernels.
 launches = 0
 bwd_launches = 0
 wide_launches = 0
 wide_bwd_launches = 0
+tiled_launches = 0
 cluster_bwd_launches = 0
 
 
 def reset_launches() -> None:
     global launches, bwd_launches, wide_launches, wide_bwd_launches
-    global cluster_bwd_launches
+    global tiled_launches, cluster_bwd_launches
     launches = 0
     bwd_launches = 0
     wide_launches = 0
     wide_bwd_launches = 0
+    tiled_launches = 0
     cluster_bwd_launches = 0
 
 
@@ -281,6 +287,13 @@ def is_chunked_mma(dtype, heads: int, dh: int) -> bool:
         and dh > REGISTER_DH
 
 
+def uses_tiled(dtype, heads: int, dh: int) -> bool:
+    """Whether K1 at `heads` heads of `dh` in `dtype` runs the tiled f32
+    kernel (csrc/attention_tiled.cu): every f32 call of the wide
+    kernels."""
+    return dtype == torch.float32 and is_wide(heads, dh)
+
+
 def is_wide_mma(dtype, heads: int, dh: int) -> bool:
     """Whether K1 and K2 at `heads` heads of `dh` in `dtype` run the
     tensor-core wide kernels (bf16, wide, heads up to REGISTER_DH)."""
@@ -314,21 +327,57 @@ def _bind(kernel, dtype, long_bwd=False):
     return _BOUND[key]
 
 
-def _bind_wide(kernel, dtype):
-    """The wide library's launch function for `kernel`'s function (K1 or
-    K2) in `dtype`, with its ctypes signature declared."""
-    key = (KERNEL_WIDE, kernel, dtype)
+def _bind_wide():
+    """The wide library's f32 K2 launch function, with its ctypes signature
+    declared (the backward's arguments, then the statistics scratch)."""
+    key = (KERNEL_WIDE, KERNEL_BWD)
     if key not in _BOUND:
-        part = "fwd" if kernel == KERNEL else "bwd"
-        fn = getattr(build.load(KERNEL_WIDE),
-                     f"deepsc_attention_wide_{part}_{_SUFFIX[dtype]}")
-        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[kernel]
-                                            + (kernel == KERNEL_BWD))
+        fn = build.load(KERNEL_WIDE).deepsc_attention_wide_bwd_f32
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[KERNEL_BWD] + 1)
                        + [ctypes.c_int] * 5
                        + [ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _BOUND[key] = fn
     return _BOUND[key]
+
+
+def _bind_tiled():
+    """(launch function, scratch-size function) of the tiled f32 K1, with
+    their ctypes signatures declared (the forward's arguments and S's
+    scratch)."""
+    key = (KERNEL_TILED, KERNEL)
+    if key not in _BOUND:
+        lib = build.load(KERNEL_TILED)
+        fn = lib.deepsc_attention_tiled_fwd_f32
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[KERNEL] + 1)
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        size = lib.deepsc_attention_tiled_scratch_f32
+        size.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        size.restype = ctypes.c_int
+        _BOUND[key] = (fn, size)
+    return _BOUND[key]
+
+
+_TILED_SCRATCH = {}
+
+
+def tiled_scratch_floats(n: int, lq: int, lk: int, heads: int,
+                         dh: int) -> int:
+    """f32 floats of the scratch the tiled K1 needs for these shapes on the
+    current device (0 where a block's logits fit its shared memory), as the
+    built library computes them."""
+    key = (n, lq, lk, heads, dh, torch.cuda.current_device())
+    if key not in _TILED_SCRATCH:
+        out = ctypes.c_longlong()
+        err = _bind_tiled()[1](n, lq, lk, heads, dh, ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"{KERNEL_TILED} scratch size: CUDA error "
+                               f"{err}")
+        _TILED_SCRATCH[key] = out.value
+    return _TILED_SCRATCH[key]
 
 
 def _bind_tensor_core(library, kernel):
@@ -511,26 +560,35 @@ def attention_fwd(q, k, v, bias, heads: int, scale: float):
         return attention_fwd_reference(q, k, v, bias, heads, scale)
     _check(q, k, v, bias, heads)
     n, lq, hd = q.shape
-    wide = is_wide(heads, hd // heads)
-    if is_chunked_mma(q.dtype, heads, hd // heads):
+    lk, dh = k.shape[1], hd // heads
+    wide = is_wide(heads, dh)
+    tiled = uses_tiled(q.dtype, heads, dh)
+    pointers = []
+    if is_chunked_mma(q.dtype, heads, dh):
         fn = _bind_tensor_core(KERNEL_CHUNKED, KERNEL)
-    elif is_wide_mma(q.dtype, heads, hd // heads):
+    elif is_wide_mma(q.dtype, heads, dh):
         fn = _bind_tensor_core(KERNEL_WIDE_MMA, KERNEL)
-    elif wide:
-        fn = _bind_wide(KERNEL, q.dtype)
+    elif tiled:
+        fn = _bind_tiled()[0]
+        # the logits of rows of keys too long for a block's shared memory
+        floats = tiled_scratch_floats(n, lq, lk, heads, dh)
+        pointers = [torch.empty(floats, dtype=torch.float32, device=q.device)
+                    if floats else None]
     else:
         fn = _tuned(KERNEL, q, k, heads)[0]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), n, lq, k.shape[1], heads, hd // heads,
-             float(scale), stream)
+             out.data_ptr(),
+             *(None if t is None else t.data_ptr() for t in pointers),
+             n, lq, lk, heads, dh, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error "
                            f"{err}")
-    global launches, wide_launches
+    global launches, wide_launches, tiled_launches
     launches += 1
     wide_launches += wide
+    tiled_launches += tiled
     return out
 
 
@@ -563,7 +621,7 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     elif cluster:
         fn, scratch = _bind_cluster(), False
     elif wide:
-        fn, scratch = _bind_wide(KERNEL_BWD, q.dtype), True
+        fn, scratch = _bind_wide(), True
     else:
         fn, scratch = _tuned(KERNEL_BWD, q, k, heads)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))

@@ -310,7 +310,7 @@ def tiling(kernel, dtype, d, device):
     """(rows of h per tile, vocab rows per tile, blocks per SM) of the
     kernel in the library `kernel` (`ce_fwd`, `ce_bwd`, `ce_wide`,
     `ce_wide_fwd` or `ce_wide_bwd` (d: the padded width), or K6's `topk`,
-    `topk_wide` or `topk_wide_mma` (d: the list length k, its tiling the
+    `topk_select` or `topk_wide_mma` (d: the list length k, its tiling the
     same at every width))
     that takes the vocab splits, at width d on
     `device`, as the library's

@@ -30,6 +30,25 @@ Which kernels run, by variant and mode:
   logits);
 - star (`star`, `star_multi`, `gan_star`): K5 in every satellite update of
   the encoder and the decoder; K3 and K4 in training.
+
+Which design takes each call, and why none of them refuses a shape the
+check lets through:
+- K1: the tuned kernel (heads of 8, 16 or 32, at most 16; any length: the
+  long-length kernels past 32); other heads in bf16 the tensor-core wide
+  (up to 256 wide) or chunked kernels, in f32 the tiled kernel
+  (csrc/attention_tiled.cu; any length, its logits in a scratch where a
+  row of keys outgrows a block's shared memory);
+- K2: the tuned kernel (the f32 short kernel's shared memory checked here,
+  else the long-length kernels), the bf16 resident and cluster kernels
+  past 32 queries or keys, the wide kernels (bf16 tensor-core, f32
+  csrc/attention_wide.cu) at other heads;
+- K3/K4: the tuned kernels, else the wide ones, at any width;
+- K6: `--beam-size` k in 1..V at any width: the tuned kernel up to k = 8,
+  in bf16 the tensor-core wide kernel up to 64 and its long path up to
+  256 (V up to 25,000), every other call (every f32 one, bf16 past them)
+  the select kernels (csrc/topk_select.cu: any k up to V, a row's keys in
+  a scratch where they outgrow a block's shared memory);
+- K5: the tuned kernel, else the wide one, at any head count dividing D.
 This list is kept by hand beside the paths: were it to miss a kernel, the
 run would still stop at that kernel's wrapper (which raises on a shape it
 does not take), only later.

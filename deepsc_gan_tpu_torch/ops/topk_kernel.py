@@ -21,12 +21,14 @@ take the call: in bf16 up to k = K_LIST the tensor-core wide kernel
 K_SHORT each row's k best kept in shared memory behind a threshold filter,
 then a merge of the vocab splits; past it the long path: lists of
 SELECT_LIST a split, a per-row bound from their union, the logits again
-with the keys at or above it kept, and a select of each row's k best),
-f32 and bf16 past K_LIST `csrc/topk_wide.cu` (the logits through a
-workspace, each split's top k, then a merge). The vocab
-splits come from `ce_kernel.vocab_splits` fed by the library's tiles and
-blocks per SM (`deepsc_topk_tiling_*`, `deepsc_topk_wide_tiling_*`,
-`deepsc_topk_wide_mma_tiling_bf16`).
+with the keys at or above it kept, and a select of each row's k best);
+every f32 call, and bf16 past K_LIST or past the long path's vocab, the
+select kernels (`csrc/topk_select.cu`: the logits once into an (N, V) f32
+workspace, f32 on the CUDA cores and bf16 on the tensor cores, then a
+block per row radix-selects its k best keys and sorts them, any k up to
+V). The vocab splits come from `ce_kernel.vocab_splits` fed by the
+library's tiles and blocks per SM (`deepsc_topk_tiling_*`,
+`deepsc_topk_select_tiling_*`, `deepsc_topk_wide_mma_tiling_bf16`).
 
 `take_top` is the selection both use, and beam search's second stage too:
 k rounds of (max, lowest index reaching the max), each winner masked to
@@ -52,14 +54,14 @@ from deepsc_gan_tpu_torch.ops.ce_kernel import (
 )
 
 KERNEL = "topk"
-KERNEL_WIDE = "topk_wide"
+KERNEL_SELECT = "topk_select"
 KERNEL_WIDE_MMA = "topk_wide_mma"
 NEG = -1e30
 IBIG = 2 ** 30
 # what the tuned kernel takes: k up to MAX_K (a sorted list of at most 8 a
 # row in registers), D a multiple of D_STEP up to ce_kernel.MAX_D; any
-# other k <= V or D >= 1 goes to the wide kernels (csrc/topk_wide.cu: the
-# logits through a workspace, each vocab split's top k, then a merge)
+# other k <= V or D >= 1 goes to the wide kernels (the bf16 tensor-core
+# wide kernel below, or the select kernels of csrc/topk_select.cu)
 MAX_K = 8
 D_STEP = 8
 # the bf16 tensor-core wide kernel (csrc/topk_wide_mma.cu): k up to K_LIST,
@@ -83,22 +85,28 @@ MMA_BUF = 32
 MERGE_SMEM = 200 * 1024
 CAND_CAP = 4096
 CAND_BUDGET = 64 * 2 ** 20
+# the select kernel's shared memory beside a row's keys: its candidate
+# buffer (4,096 keys) and its static part
+SELECT_RESERVED = 8 * 4096 + 2048
 
 # Launches of K6 since the last reset (the wrapper adds one per launch and
 # nowhere else; `wide_launches` counts the calls among them that went to
 # the wide kernels, `long_list_launches` those that went to the
-# tensor-core wide kernel's long path, past k = K_SHORT); read by
+# tensor-core wide kernel's long path, past k = K_SHORT, and
+# `select_launches` those that went to the select kernels); read by
 # chip_smoke.py to show that a path went through it.
 launches = 0
 wide_launches = 0
 long_list_launches = 0
+select_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, wide_launches, long_list_launches
+    global launches, wide_launches, long_list_launches, select_launches
     launches = 0
     wide_launches = 0
     long_list_launches = 0
+    select_launches = 0
 
 
 def uses_long_list(dtype: torch.dtype, d: int, k: int, v: int) -> bool:
@@ -118,10 +126,27 @@ def uses_tensor_core(dtype: torch.dtype, d: int, k: int, v: int) -> bool:
     tensor-core wide kernel (csrc/topk_wide_mma.cu): bf16
     calls the tuned kernel does not take, k up to K_LIST (past K_SHORT its
     long path, V up to LONG_MAX_V); f32, longer lists and larger vocabs
-    past K_SHORT run csrc/topk_wide.cu."""
+    past K_SHORT run the select kernels (`uses_select`)."""
     return (op_dtype(dtype) == torch.bfloat16 and is_wide(d, k)
             and k <= K_LIST
             and (k <= K_SHORT or takes_long(k, v)))
+
+
+def select_keys_spill(k: int, smem_optin: int) -> bool:
+    """Whether the select kernel keeps a row's k keys in the caller's
+    scratch (N, k) rather than in its block's shared memory: where 8 k
+    bytes do not fit beside SELECT_RESERVED bytes of the card's
+    `smem_optin` (csrc/topk_select.cu `select_plan`; the H100's 227 KB
+    hold the keys of k up to 24,704)."""
+    return 8 * k > smem_optin - SELECT_RESERVED
+
+
+def uses_select(dtype: torch.dtype, d: int, k: int, v: int) -> bool:
+    """Whether K6 at width d and k in `dtype` over V = v rows of W runs the
+    select kernels (csrc/topk_select.cu): every call of the wide kernels
+    that the tensor-core wide kernel does not take (every f32 one; bf16
+    past K_LIST, or past K_SHORT where the long path does not take V)."""
+    return is_wide(d, k) and not uses_tensor_core(dtype, d, k, v)
 
 
 def takes_long(k: int, v: int) -> bool:
@@ -256,14 +281,14 @@ def _bind(dtype):
     return _BOUND[dtype]
 
 
-def _bind_wide(dtype):
-    """The wide library's launch function for `dtype`, with its ctypes
+def _bind_select(dtype):
+    """The select library's launch function for `dtype`, with its ctypes
     signature declared."""
-    key = (KERNEL_WIDE, dtype)
+    key = (KERNEL_SELECT, dtype)
     if key not in _BOUND:
-        fn = getattr(build.load(KERNEL_WIDE),
-                     f"deepsc_topk_wide_{_SUFFIX[dtype]}")
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        fn = getattr(build.load(KERNEL_SELECT),
+                     f"deepsc_topk_select_{_SUFFIX[dtype]}")
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _BOUND[key] = fn
@@ -357,53 +382,67 @@ def topk_logits(h, W, b, k: int = 4):
     stream = torch.cuda.current_stream(dev).cuda_stream
     wide = is_wide(d, k)
     long = uses_long_list(h.dtype, d, k, v)
+    select = uses_select(h.dtype, d, k, v)
     launch = (_launch_long if long
-              else _launch_wide_mma if uses_tensor_core(h.dtype, d, k, v)
+              else _launch_select if select
+              else _launch_wide_mma if wide
               else _launch)
     err = launch(h, W, b, k, vals, idx, lse, stream)
     if err != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
-    global launches, wide_launches, long_list_launches
+    global launches, wide_launches, long_list_launches, select_launches
     launches += 1
     wide_launches += wide
     long_list_launches += long
+    select_launches += select
     return vals, idx, lse
 
 
 def _launch(h, W, b, k, vals, idx, lse, stream):
-    """The tuned kernel, or the wide kernels of csrc/topk_wide.cu, on
-    checked operands; -> the CUDA error code."""
+    """The tuned kernel on checked operands; -> the CUDA error code."""
     (n, d), v = h.shape, W.shape[0]
     dev = h.device
     props = torch.cuda.get_device_properties(dev)
-    wide = is_wide(d, k)
-    if not wide:
-        fn, smem_bytes = _bind(h.dtype)
-        if smem_bytes(d) > props.shared_memory_per_block_optin:
-            raise ValueError(f"K6 needs {smem_bytes(d)} bytes of shared "
-                             f"memory per block; the device allows "
-                             f"{props.shared_memory_per_block_optin}")
+    fn, smem_bytes = _bind(h.dtype)
+    if smem_bytes(d) > props.shared_memory_per_block_optin:
+        raise ValueError(f"K6 needs {smem_bytes(d)} bytes of shared "
+                         f"memory per block; the device allows "
+                         f"{props.shared_memory_per_block_optin}")
     splits = vocab_splits(n, v, props.multi_processor_count,
-                          *tiling(KERNEL_WIDE if wide else KERNEL, h.dtype,
-                                  d, dev))
-    listed = k if wide else MAX_K
-    part_v = torch.empty((splits, n, listed), dtype=torch.float32,
+                          *tiling(KERNEL, h.dtype, d, dev))
+    part_v = torch.empty((splits, n, MAX_K), dtype=torch.float32,
                          device=dev)
-    part_i = torch.empty((splits, n, listed), dtype=torch.int32, device=dev)
+    part_i = torch.empty((splits, n, MAX_K), dtype=torch.int32, device=dev)
     part_ms = torch.empty((splits, n, 2), dtype=torch.float32, device=dev)
-    if wide:
-        # the wide kernels' (N, V) f32 logits, written once and read by the
-        # split selection
-        logits = torch.empty((n, v), dtype=torch.float32, device=dev)
-        return _bind_wide(h.dtype)(
-            h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), lse.data_ptr(), logits.data_ptr(),
-            part_v.data_ptr(), part_i.data_ptr(), part_ms.data_ptr(), n, d,
-            v, k, splits, stream)
     return fn(h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
               idx.data_ptr(), lse.data_ptr(), part_v.data_ptr(),
               part_i.data_ptr(), part_ms.data_ptr(), n, d, v, k, splits,
               stream)
+
+
+def _launch_select(h, W, b, k, vals, idx, lse, stream):
+    """The select kernels on checked operands (bf16: D off 8 columns
+    through zero-padded copies of width dp); -> the CUDA error code."""
+    (n, d), v = h.shape, W.shape[0]
+    if h.dtype == torch.bfloat16:
+        d = padded_width(d)
+        h, W = _padded(h, d), _padded(W, d)
+    dev = h.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = vocab_splits(n, v, sms, *tiling(KERNEL_SELECT, h.dtype, d, dev))
+    # the (N, V) f32 logits, written once and read by the select; each
+    # split's (max, sum) a row; the rows' k keys where a block's shared
+    # memory does not hold them (the library's rule)
+    logits = torch.empty((n, v), dtype=torch.float32, device=dev)
+    part_ms = torch.empty((splits, n, 3), dtype=torch.float32, device=dev)
+    optin = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    scratch = torch.empty((n, k) if select_keys_spill(k, optin) else (1,),
+                          dtype=torch.int64, device=dev)
+    return _bind_select(h.dtype)(
+        h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), lse.data_ptr(), logits.data_ptr(),
+        part_ms.data_ptr(), scratch.data_ptr(), n, d, v, k, splits, stream)
 
 
 def _launch_wide_mma(h, W, b, k, vals, idx, lse, stream):

@@ -6,7 +6,9 @@
                  wide_heads_attention,wide_attention,wide_train,
                  wide_heads_train,wide_topk,long_attention_bwd,
                  wide_beam_eval,long_train,past_list_topk,
-                 past_resident_bwd,beam100_eval,seq256_train]
+                 past_resident_bwd,beam100_eval,seq256_train,
+                 select_topk,tiled_attention,f32_wide_beam_eval,
+                 f32_wide_heads_eval]
         [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
@@ -84,7 +86,22 @@ library call's. Cases:
   mean over the calls after the first as the row's `ms` (host clock);
 - `seq256_train`: `cli train --seq-len 256` in bf16 from a random init
   (seed 0, batch 64, the default graphed path) for 2 epochs of 64 steps:
-  the ms a step of the second epoch as the row's `ms` (host clock).
+  the ms a step of the second epoch as the row's `ms` (host clock);
+- `select_topk`: K6 where the select kernels take the call, dyadic inputs
+  at V = 22,234 unless said: f32 at the wide beam (N = 64 x 9, D = 200,
+  k = 9), at N = 64 x 4 and D = 200 for k = 16, 64 and 1,000, and D = 512
+  for k = 64 and 1,000; bf16 at k = 1,000 (D = 200) and at V = 32,000
+  (k = 100, D = 128); the kernel's time alone (k = 1,000 over 10 calls at
+  most), and whether its indices equal the plain version's (one call);
+- `tiled_attention`: K1 in f32 at the shapes the tiled kernel takes (N =
+  64): chip_smoke.WIDE_HEADS_PATH, WIDE_PATH, WIDE_HEADS at 31 x 31 and
+  OFF_STEP_HEADS, with its plain version and SDPA (f32) as in
+  chip_smoke.attention_case;
+- `f32_wide_beam_eval`: `wide_beam_eval` at `--dtype float32`;
+- `f32_wide_heads_eval`: `cli evaluate` (the full-prefix greedy sweep) at
+  `--dtype float32` on a random init of the wide-heads transceiver
+  (`wide_heads_train`'s widths), one batch of 64 at 19 SNRs: the decode
+  call's seconds as the row's `ms`.
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -106,7 +123,8 @@ CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
          "wide_heads_attention", "wide_attention", "wide_train",
          "wide_heads_train", "wide_topk", "long_attention_bwd",
          "wide_beam_eval", "long_train", "past_list_topk",
-         "past_resident_bwd", "beam100_eval", "seq256_train")
+         "past_resident_bwd", "beam100_eval", "seq256_train", "select_topk",
+         "tiled_attention", "f32_wide_beam_eval", "f32_wide_heads_eval")
 PARAMS = Path(__file__).resolve().parent.parent / "results" \
     / "plain_best_params.pkl"
 
@@ -324,21 +342,73 @@ if "long_attention_bwd" in cases:
         device_us(attn.KERNEL_BWD, label,
                   lambda: attn.attention_bwd(q, k, v, bias, g, cs.HEADS, 4.0,
                                              False))
-if "wide_beam_eval" in cases:
+for case, dtype in (("wide_beam_eval", "bfloat16"),
+                    ("f32_wide_beam_eval", "float32")):
+    if case not in cases:
+        continue
     from deepsc_gan_tpu_torch import cli
     res = cli.main(["evaluate", "--variant", "transformer", "--eval-mode",
-                    "beam", "--beam-size", "9", "--dtype", "bfloat16",
+                    "beam", "--beam-size", "9", "--dtype", dtype,
                     "--bs", str(TRAIN), "--eval-batches", "1", "--seed", "0",
                     "--snr-lo", "0", "--snr-hi", "18", "--device", "cuda",
                     "--encoder-d-model", "512", "--encoder-d-ff", "1024",
                     "--decoder-d-model", str(cs.WIDE_PATH_D),
                     "--decoder-d-ff", str(2 * cs.WIDE_PATH_D),
                     "--checkpoint-path", "log/kernels_ab/no_ckpt",
-                    "--log-save-path", "log/kernels_ab/wide_beam_eval"])
+                    "--log-save-path", f"log/kernels_ab/{case}"])
     seconds = res["decode_seconds"]
-    row({"kernel": "cli_evaluate", "case": "wide_beam_eval",
-         "dtype": "bfloat16", "decode_seconds": seconds,
+    row({"kernel": "cli_evaluate", "case": case, "dtype": dtype,
+         "decode_seconds": seconds,
          "ms": sum(seconds[1:]) / len(seconds[1:]) * 1e3})
+if "f32_wide_heads_eval" in cases:
+    from deepsc_gan_tpu_torch import cli
+    res = cli.main(["evaluate", "--variant", "transformer", "--eval-mode",
+                    "greedy", "--dtype", "float32", "--bs", str(TRAIN),
+                    "--eval-batches", "1", "--seed", "0", "--snr-lo", "0",
+                    "--snr-hi", "18", "--device", "cuda",
+                    *TRAIN_WIDTHS["wide_heads_train"],
+                    "--checkpoint-path", "log/kernels_ab/no_ckpt",
+                    "--log-save-path", "log/kernels_ab/f32_wide_heads_eval"])
+    seconds = res["decode_seconds"]
+    row({"kernel": "cli_evaluate", "case": "f32_wide_heads_eval",
+         "dtype": "float32", "decode_seconds": seconds,
+         "ms": sum(seconds) / len(seconds) * 1e3})
+if "select_topk" in cases:
+    f32 = torch.float32
+    shapes = (("wide_beam", 64 * 9, 200, 9, f32, V),
+              ("k16_d200", BEAM, 200, 16, f32, V),
+              ("k64_d200", BEAM, 200, 64, f32, V),
+              ("k1000_d200", BEAM, 200, 1000, f32, V),
+              ("k64_d512", BEAM, 512, 64, f32, V),
+              ("k1000_d512", BEAM, 512, 1000, f32, V),
+              ("k1000_d200", BEAM, 200, 1000, bf16, V),
+              ("v32000_k100", BEAM, 128, 100, bf16, 32000))
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, n, d, k, dtype, v in shapes:
+        h = cs.dyadic((n, d), 8, gen, dtype)
+        W = cs.dyadic((v, d), 2, gen, dtype)
+        b = cs.dyadic((v,), 8, gen, torch.float32)
+
+        def call():
+            return topk.topk_logits(h, W, b, k)
+
+        same = torch.equal(call()[1], topk.topk_logits_reference(h, W, b,
+                                                                 k)[1])
+        n_iters = min(iters, 10) if k >= 1000 else iters
+        ms, host_ms = cs.cuda_ms(call, n_iters)
+        row({"kernel": topk.KERNEL, "case": label,
+             "dtype": str(dtype).replace("torch.", ""), "ms": ms,
+             "host_enqueue_ms": host_ms,
+             "device_ms": cs.device_ms(call, n_iters),
+             "indices_equal": same})
+if "tiled_attention" in cases:
+    shapes = list(cs.WIDE_HEADS_PATH) + list(cs.WIDE_PATH) + [
+        (f"wide_{heads}x{dh}", heads, dh, 31, 31)
+        for heads, dh in cs.WIDE_HEADS] + [cs.OFF_STEP_HEADS]
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, heads, dh, lq, lk in shapes:
+        row(cs.attention_case(label, TRAIN, lq, lk, torch.float32, gen,
+                              iters, heads, dh))
 if "long_train" in cases:
     from deepsc_gan_tpu_torch import cli
     res = cli.main(["train", "--variant", "transformer", "--train-mode",

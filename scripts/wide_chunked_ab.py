@@ -1,27 +1,27 @@
 #!/usr/bin/env python3
-"""The wide K1/K2 library's two kernel families on the same shapes, in f32:
-heads up to 256 wide take its register-held kernels (a lane keeps its 8
-elements of a head), wider heads its chunked ones (the operands of each dot
-product read from memory, the output walked in chunks of 256). This times
-both on the shapes the register-held kernels take, on one card:
+"""The f32 wide K2 library's two kernel families on the same shapes: heads
+up to 256 wide take its register-held kernels (a lane keeps its 8 elements
+of a head), wider heads its chunked ones (the operands of each dot product
+read from memory, the output walked in chunks of 256). This times both on
+the shapes the register-held kernels take, on one card:
 
     python3 scripts/wide_chunked_ab.py [--iters 50]
 
 `chunked` is an edited copy of `csrc/attention_wide.cu` (the Dh test of
-both launchers replaced, so every head takes the chunked kernels; the
-edit is a text replacement that must match the source once), built with
-the port's nvcc flags beside the source as it is (`as_is`) in a temporary
+the launcher replaced, so every head takes the chunked kernels; the edit
+is a text replacement that must match the source once), built with the
+port's nvcc flags beside the source as it is (`as_is`) in a temporary
 directory and called through its C interface. Shapes: chip_smoke.py's
 WIDE_PATH (the widened train path's encoder at 8 heads of 64, its decoder
 at 8 heads of 25) and WIDE_HEADS (8 heads of 24, 64, 128, 32 heads of 16,
 Lq = Lk = 31), N = 64, f32, on chip_smoke.py's inputs. Prints each
 variant's device time per call (`chip_smoke.device_ms`: the calls queued
-behind a spin of the device) of the forward and of the backward without
-and with dbias, the ratios, and whether the two variants' outputs are
-bitwise equal, with the card's name and power limit. In bf16 the library
-has no register-held kernels (bf16 heads up to 256 wide are
-csrc/attention_wide_mma.cu's, on the tensor cores) and no chunked forward
-(csrc/attention_chunked.cu's), so bf16 is not compared. Needs CUDA.
+behind a spin of the device) of the backward without and with dbias, the
+ratios, and whether the two variants' outputs are bitwise equal, with the
+card's name and power limit. The library holds f32 alone (bf16 heads are
+csrc/attention_wide_mma.cu's and csrc/attention_chunked.cu's, on the
+tensor cores) and no forward (the f32 forward at these shapes is
+csrc/attention_tiled.cu's). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -41,9 +41,7 @@ import chip_smoke as cs  # noqa: E402
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn  # noqa: E402
 from deepsc_gan_tpu_torch.ops import build  # noqa: E402
 
-EDITS = [("  if (sh.dh <= kMaxDh)\n    attention_fwd_wide_kernel",
-          "  if (false)\n    attention_fwd_wide_kernel"),
-         ("  const bool chunked = sh.dh > kMaxDh;",
+EDITS = [("  const bool chunked = sh.dh > kMaxDh;",
           "  const bool chunked = true;")]
 VARIANTS = {"as_is": [], "chunked": EDITS}
 
@@ -80,7 +78,7 @@ def stream():
 
 
 def wide_rows(libs, gen, iters):
-    """The wide K1/K2 at each head shape up to 256 wide, as they are and
+    """The wide f32 K2 at each head shape up to 256 wide, as it is and
     through the chunked kernels."""
     shapes = list(cs.WIDE_PATH) + [(f"wide_{h}x{dh}", h, dh, 31, 31)
                                    for h, dh in cs.WIDE_HEADS]
@@ -95,24 +93,11 @@ def wide_rows(libs, gen, iters):
         scale = dh ** 0.5
         outs, times = {}, {}
         for name in VARIANTS:
-            lib = libs[name]
-            fwd = getattr(lib, f"deepsc_attention_wide_fwd_{suffix}")
-            fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                            + [ctypes.c_double, ctypes.c_void_p])
-            bwd = getattr(lib, f"deepsc_attention_wide_bwd_{suffix}")
+            bwd = getattr(libs[name], f"deepsc_attention_wide_bwd_{suffix}")
             bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                             + [ctypes.c_double, ctypes.c_void_p])
-            fwd.restype = bwd.restype = ctypes.c_int
-            out = torch.empty_like(q)
+            bwd.restype = ctypes.c_int
             grads = [torch.empty_like(t) for t in (q, k, v, bias)]
-
-            def call_fwd(fwd=fwd, out=out, name=name):
-                err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          bias.data_ptr(), out.data_ptr(), n, lq, lk,
-                          heads, dh, scale, stream())
-                if err:
-                    raise RuntimeError(f"wide K1 {name}: CUDA error "
-                                       f"{err}")
 
             def call_bwd(dbias, bwd=bwd, grads=grads, name=name):
                 err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -125,27 +110,26 @@ def wide_rows(libs, gen, iters):
                     raise RuntimeError(f"wide K2 {name}: CUDA error "
                                        f"{err}")
 
-            call_fwd()
             call_bwd(True)
             torch.cuda.synchronize()
-            outs[name] = [t.clone() for t in [out] + grads]
+            outs[name] = [t.clone() for t in grads]
             times[name] = [
-                cs.device_ms(call_fwd, iters),
                 cs.device_ms(lambda f=call_bwd: f(False), iters),
                 cs.device_ms(lambda f=call_bwd: f(True), iters)]
         same = all(torch.equal(a, b) for a, b in zip(*outs.values()))
-        for name, (f, b, bd) in times.items():
+        for name, (b, bd) in times.items():
             print(f"[wide] {name:7s} {suffix} {label:19s} "
-                  f"({heads} x {dh}, {lq} x {lk}): device_ms K1 {f!r}, "
-                  f"K2 {b!r}, K2+dbias {bd!r}", flush=True)
+                  f"({heads} x {dh}, {lq} x {lk}): device_ms K2 {b!r}, "
+                  f"K2+dbias {bd!r}", flush=True)
         ratio = [c / a if a else None
                  for c, a in zip(times["chunked"], times["as_is"])]
-        ref = attn.attention_fwd_reference(q, k, v, bias, heads, scale)
-        err = (outs["as_is"][0].float() - ref.float()).abs().max()
-        print(f"[wide] {suffix} {label}: chunked / as_is K1 "
-              f"{ratio[0]:.3f}, K2 {ratio[1]:.3f}, K2+dbias "
-              f"{ratio[2]:.3f}; outputs bitwise equal {same}; K1 max "
-              f"err vs plain {err.item():.3g}", flush=True)
+        ref = attn.attention_bwd_reference(q, k, v, bias, g, heads, scale)
+        err = max((a.float() - r.float()).abs().max().item()
+                  for a, r in zip(outs["as_is"][:3], ref[:3]))
+        print(f"[wide] {suffix} {label}: chunked / as_is K2 "
+              f"{ratio[0]:.3f}, K2+dbias {ratio[1]:.3f}; outputs bitwise "
+              f"equal {same}; dq, dk, dv max err vs plain {err:.3g}",
+              flush=True)
 
 
 def main(argv=None) -> int:

@@ -304,7 +304,8 @@ def test_wide_mma_routing(dtype, h, dh, mma):
     """K1 and K2 in bf16 at every wide shape up to 256-wide heads, any head
     count, run the tensor-core wide kernels (csrc/attention_wide_mma.cu);
     257 and wider stay on the chunked kernels, the tuned shapes on the
-    tuned kernels, and f32 never goes (it keeps the exact f32 sums of
+    tuned kernels, and f32 never goes (it keeps exact f32 sums on the CUDA
+    cores: the forward csrc/attention_tiled.cu, the backward
     csrc/attention_wide.cu)."""
     assert attn.is_wide_mma(dtype, h, dh) == mma
     assert not (mma and attn.is_chunked_mma(dtype, h, dh))
@@ -320,10 +321,92 @@ def test_wide_mma_routing(dtype, h, dh, mma):
     (torch.float32, 1, 512, False), (torch.float32, 1, 300, False)])
 def test_chunked_mma_routing(dtype, h, dh, chunked):
     """The bf16 K1 and K2 at heads wider than 256 run the tensor-core
-    chunked kernels (csrc/attention_chunked.cu); f32 (the chunked
-    CUDA-core kernels of csrc/attention_wide.cu) and narrower heads do
-    not."""
+    chunked kernels (csrc/attention_chunked.cu); f32 (the tiled forward of
+    csrc/attention_tiled.cu, the chunked CUDA-core backward of
+    csrc/attention_wide.cu) and narrower heads do not."""
     assert attn.is_chunked_mma(dtype, h, dh) == chunked
+
+
+@pytest.mark.parametrize("dtype,h,dh,tiled", [
+    (torch.float32, 8, 25, True), (torch.float32, 8, 64, True),
+    (torch.float32, 32, 16, True), (torch.float32, 8, 24, True),
+    (torch.float32, 8, 128, True), (torch.float32, 1, 512, True),
+    (torch.float32, 2, 320, True), (torch.float32, 1, 300, True),
+    (torch.float32, 17, 8, True), (torch.float32, 3, 5, True),
+    (torch.float32, 8, 16, False), (torch.float32, 16, 32, False),
+    (torch.float32, 2, 8, False), (torch.bfloat16, 8, 25, False),
+    (torch.bfloat16, 1, 512, False), (torch.bfloat16, 8, 16, False)])
+def test_tiled_routing(dtype, h, dh, tiled):
+    """The f32 K1 at every head width and count the tuned kernel does not
+    take (widths off 8, 16 and 32, more than 16 heads, heads past 256) runs
+    the tiled kernel (csrc/attention_tiled.cu); the tuned shapes stay on
+    the tuned kernel and bf16 on its tensor-core kernels."""
+    assert attn.uses_tiled(dtype, h, dh) == tiled
+    assert tiled == (dtype == torch.float32 and attn.is_wide(h, dh))
+
+
+def _fma(a, b, c):
+    """f32 fmaf(a, b, c), emulated: the exact product and sum in f64 (a
+    product of two f32 values is exact there), rounded once to f32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tiled_forward(q, k, v, bias, heads, scale):
+    """The tiled f32 K1's arithmetic in its order (csrc/attention_tiled.cu)
+    on CPU tensors: each logit a sum over d in order 0..Dh-1 by fmaf, times
+    1/scale (rounded once to f32), plus its bias; a row's max, exp(s - max)
+    and their sum over 32 lanes (lane l takes keys l, l + 32, ... in order,
+    then a butterfly of five steps), p = e / sum; each output a sum over the
+    keys in order by fmaf."""
+    n, lq, hd = q.shape
+    lk, dh = k.shape[1], hd // heads
+    inv = torch.tensor(1.0 / scale, dtype=torch.float64).float()
+    out = torch.empty_like(q)
+    for h in range(heads):
+        qh, kh, vh = (t[:, :, h * dh:(h + 1) * dh] for t in (q, k, v))
+        s = torch.zeros((n, lq, lk))
+        for d in range(dh):
+            s = _fma(qh[:, :, d, None], kh[:, None, :, d], s)
+        s = s * inv + bias
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        lanes = torch.zeros((n, lq, 32))
+        for j in range(lk):
+            lanes[..., j % 32] += e[..., j]
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[..., torch.arange(32) ^ o]
+        p = e / lanes[..., :1]
+        acc = torch.zeros((n, lq, dh))
+        for j in range(lk):
+            acc = _fma(p[..., j, None], vh[:, None, j, :], acc)
+        out[:, :, h * dh:(h + 1) * dh] = acc
+    return out
+
+
+@pytest.mark.parametrize("shape", [(2, 31, 31, 8, 25), (2, 32, 32, 8, 64),
+                                   (2, 31, 32, 2, 320), (1, 5, 70, 1, 300),
+                                   (2, 7, 9, 3, 5)])
+def test_tiled_forward_emulation_matches_plain_version(shape):
+    """The tiled f32 K1's order of sums and roundings (`_tiled_forward`)
+    against the plain version within 1e-5, as chip_smoke.py holds the
+    kernel, at the widened model's heads (8 of 25, 8 of 64), the wide-heads
+    decoder's (2 of 320), one head of 300 past 64 keys (two of the
+    kernel's key chunks) and 3 heads of 5, with a fully blocked row; and
+    against the TPU kernel under the Pallas interpreter within the same."""
+    b, lq, lk, h, dh = shape
+    q, k, v, bias = _inputs(9, b, lq, lk, h, dh)
+    scale = float(np.sqrt(dh))
+    ts = [torch.from_numpy(a) for a in (q, k, v, bias)]
+    got = _tiled_forward(*ts, h, scale)
+    want = attn.attention_fwd_reference(*ts, h, scale)
+    assert (got - want).abs().max().item() <= 1e-5
+    set_attn_kernel_mode("interpret")
+    try:
+        jax_out = np.asarray(jax_fused_attention(
+            *(jnp.asarray(a) for a in (q, k, v, bias)), h, scale))
+    finally:
+        set_attn_kernel_mode("auto")
+    assert np.abs(got.numpy() - jax_out).max() <= 1e-5
 
 
 @pytest.mark.parametrize("dtype,lq,lk,h,dh,resident", [

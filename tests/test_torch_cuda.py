@@ -865,8 +865,9 @@ def _wide_kernels(dtype, h, dh, lq, lk):
     (csrc/attention_wide_mma.cu), wider bf16 heads the tensor-core chunked
     kernels (csrc/attention_chunked.cu; K2 of both a single kernel up to 32
     queries and keys, a dq and a dk/dv kernel past them, and the dbias sum
-    they share, csrc/mma_row.cuh), f32 the CUDA-core wide or chunked
-    kernels (csrc/attention_wide.cu)."""
+    they share, csrc/mma_row.cuh), f32 the tiled forward
+    (csrc/attention_tiled.cu) and the CUDA-core wide or chunked backward
+    (csrc/attention_wide.cu)."""
     for pre, takes in (("wide_mma", attn.is_wide_mma),
                        ("chunked_mma", attn.is_chunked_mma)):
         if takes(dtype, h, dh):
@@ -876,7 +877,7 @@ def _wide_kernels(dtype, h, dh, lq, lk):
                    if pre == "chunked_mma" else "wide_mma_fwd_kernel")
             return [fwd], bwd + ["mma_dbias_kernel"]
     part = "wide" if dh <= attn.REGISTER_DH else "chunked"
-    return [f"attention_fwd_{part}_kernel"], [
+    return ["attention_fwd_tiled_kernel"], [
         f"attention_bwd_{kind}_{part}_kernel"
         for kind in ("dq", "dkv", "dbias")]
 
@@ -1408,6 +1409,139 @@ def test_long_path_plan_comes_from_the_library(cuda, k):
                      torch.device(cuda)) == (64, topk.MMA_TILE, 3)
     rows, vocab_rows, blocks = topk.emit_tiling(torch.device(cuda))
     assert (rows, vocab_rows) == (64, topk.MMA_TILE) and blocks >= 3
+
+
+# K6 on the select kernels (csrc/topk_select.cu): every f32 call of the
+# wide kernels (the wide beam's 576 x 200 at k = 9, k = 16 to 1,000 at
+# D = 200 and 512, k = V, D = 25, one row past 256), and bf16 past
+# k = 256 or past the long path's V = 25,000 (k = 1,000, V = 32,000 at
+# k = 65 and 100, k = V, D = 25 off the TMA's 8 columns)
+SELECT_SHAPES = [
+    (torch.float32, 576, 200, 22234, 9), (torch.float32, 256, 200, 22234, 16),
+    (torch.float32, 256, 512, 22234, 64),
+    (torch.float32, 256, 200, 22234, 1000),
+    (torch.float32, 256, 512, 22234, 1000),
+    (torch.float32, 64, 200, 22234, 22234), (torch.float32, 100, 25, 1000, 17),
+    (torch.float32, 1, 200, 22234, 257),
+    (torch.bfloat16, 256, 200, 22234, 1000),
+    (torch.bfloat16, 256, 128, 32000, 100),
+    (torch.bfloat16, 64, 200, 32000, 65),
+    (torch.bfloat16, 64, 128, 22234, 22234),
+    (torch.bfloat16, 100, 25, 1000, 300),
+    (torch.bfloat16, 256, 512, 22234, 257)]
+
+
+@pytest.mark.parametrize("dtype,n,d,v,k", SELECT_SHAPES)
+@pytest.mark.parametrize("mode", ["dyadic", "tie", "negative"])
+def test_select_topk_matches_plain_version(cuda, dtype, n, d, v, k, mode):
+    """K6 on the select kernels (the logits once into an (N, V) workspace,
+    f32 on the CUDA cores and bf16 on the tensor cores, then a block per
+    row's radix select and sort) with exact ties (a few equal maxima, then
+    keys that differ by index alone: k = V sorts them all), every logit
+    below 0 and dyadic logits: the plain version's indices, vals and lse
+    within the tolerances of chip_smoke.py; the device ran the select
+    kernels and no other K6 kernel (torch.profiler's names), the call
+    counted as a wide and a select launch; two calls give the same bits."""
+    h, W, b = _wide_topk_inputs(cuda, dtype, n, d, v, 7, mode)
+    assert topk.uses_select(dtype, d, k, v)
+    topk.reset_launches()
+    got, names = _ran(lambda: topk.topk_logits(h, W, b, k))
+    logits = "mma" if dtype == torch.bfloat16 else "f32"
+    assert len(_device_kernels(names, f"topk_select_logits_{logits}")) == 1
+    assert len(_device_kernels(names, "topk_select_kernel")) == 1
+    assert _device_kernels(names, "topk") == _device_kernels(names,
+                                                             "topk_select")
+    assert (topk.launches, topk.wide_launches, topk.select_launches,
+            topk.long_list_launches) == (1, 1, 1, 0)
+    want = topk.topk_logits_reference(h, W, b, k)
+    assert got[0].shape == (n, k) and got[1].dtype == torch.int32
+    _topk_equal(got, want, 1e-5 if dtype == torch.float32 else 3.2e-2)
+    again = topk.topk_logits(h, W, b, k)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_topk_keys_past_shared_memory(cuda, dtype):
+    """k = 30,000 of V = 32,000: a row's keys pass what a block's shared
+    memory holds (`topk.select_keys_spill`), so the select sorts them in
+    the caller's scratch row: the indices of a stable descending sort of
+    the plain logits (ties to the lowest index; dyadic logits, exact in
+    f32), their values, and lse within the tolerance."""
+    n, d, v, k = 4, 64, 32000, 30000
+    limit = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    assert topk.select_keys_spill(k, limit)
+    assert not topk.select_keys_spill(22234, limit)
+    h, W, b = _wide_topk_inputs(cuda, dtype, n, d, v, 11, "dyadic")
+    vals, idx, lse = topk.topk_logits(h, W, b, k)
+    logits = h.float() @ W.float().t() + b
+    want_vals, want_idx = torch.sort(logits, dim=1, descending=True,
+                                     stable=True)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.long(), want_idx[:, :k])
+    assert torch.equal(vals, want_vals[:, :k])
+    tol = 1e-5 if dtype == torch.float32 else 3.2e-2
+    assert _err(lse, torch.logsumexp(logits, dim=1)) <= tol
+
+
+def test_select_and_tiled_wrappers_raise_instead_of_falling_back(
+        cuda, monkeypatch):
+    """When the select K6 or the tiled K1 reports a failed launch, the
+    wrapper raises and counts nothing: no fall-back to the plain versions
+    or to the older kernels."""
+    h, W, b = _wide_topk_inputs(cuda, torch.float32, 64, 200, 3000, 3,
+                                "dyadic")
+    topk._bind_select(torch.float32)
+    monkeypatch.setitem(topk._BOUND, (topk.KERNEL_SELECT, torch.float32),
+                        lambda *args: 1)
+    topk.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        topk.topk_logits(h, W, b, 9)
+    assert topk.launches == 0
+    q, k, v, bias = _inputs(3, 4, 31, 31, 8, 25, torch.float32, cuda)
+    size = attn._bind_tiled()[1]
+    monkeypatch.setitem(attn._BOUND, (attn.KERNEL_TILED, attn.KERNEL),
+                        (lambda *args: 1, size))
+    attn.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        attn.attention_fwd(q, k, v, bias, 8, 5.0)
+    assert attn.launches == 0
+
+
+# the f32 K1 on the tiled kernel (csrc/attention_tiled.cu): the widened and
+# wide-heads paths' shapes (8 x 64, 8 x 25, 32 x 16, one head of 512, 2 of
+# 320, one of 300), heads of 5, 24, 128, 257 and 1,024, one query and key,
+# past 32 of them, and keys past a block's shared memory (S in scratch)
+TILED_SHAPES = [(8, 64, 64, 32, 32), (8, 25, 64, 31, 31),
+                (8, 25, 64, 31, 32), (32, 16, 64, 31, 31),
+                (8, 24, 64, 31, 31), (8, 128, 64, 31, 31),
+                (1, 512, 64, 32, 32), (2, 320, 64, 31, 31),
+                (2, 320, 64, 31, 32), (1, 300, 64, 31, 31),
+                (3, 5, 4, 70, 97), (1, 1024, 8, 32, 32), (2, 320, 8, 1, 1),
+                (1, 257, 4, 128, 128), (2, 64, 1, 20, 7000)]
+
+
+@pytest.mark.parametrize("h,dh,n,lq,lk", TILED_SHAPES)
+def test_tiled_attention_matches_plain_version(cuda, h, dh, n, lq, lk):
+    """The f32 K1 at head widths and counts the tuned kernel does not take,
+    with fully blocked rows: the plain version's output within 1e-5; the
+    device ran the tiled kernel alone (torch.profiler's names), the call
+    counted as a wide and a tiled launch; two calls give the same bits;
+    past about 3,000 keys the logits go to a scratch the wrapper sizes
+    from the library."""
+    q, k, v, bias = _blocked_inputs(n, lq, lk, h, dh, torch.float32, cuda)
+    scale = math.sqrt(dh)
+    assert attn.uses_tiled(torch.float32, h, dh)
+    assert (attn.tiled_scratch_floats(n, lq, lk, h, dh) > 0) == (lk > 3000)
+    attn.reset_launches()
+    out, names = _ran(lambda: attn.attention_fwd(q, k, v, bias, h, scale))
+    _assert_ran(names, ["attention_fwd_tiled_kernel"])
+    assert (attn.launches, attn.wide_launches, attn.tiled_launches) == (
+        1, 1, 1)
+    assert _err(out, attn.attention_fwd_reference(q, k, v, bias, h,
+                                                  scale)) <= 1e-5
+    again = attn.attention_fwd(q, k, v, bias, h, scale)
+    assert torch.equal(out, again)
 
 
 # the bf16 K2 past 128 queries or keys (csrc/attention_bwd_cluster.cu):

@@ -53,6 +53,16 @@ def library_sizes(monkeypatch):
     monkeypatch.setattr(attn, "smem_bytes", smem_bytes)
     return asked
 
+# chip_smoke.py's f32 paths on the widened model (encoder 8 heads of 64,
+# decoder 8 of 25) and on the wide-heads one (encoder one head of 512,
+# decoder 2 of 320)
+WIDE_PATH_F32 = dict(dtype="float32", encoder_d_model=512, encoder_d_ff=1024,
+                     decoder_d_model=200, decoder_d_ff=400)
+WIDE_HEADS_F32 = dict(dtype="float32", encoder_d_model=512,
+                      encoder_num_heads=1, encoder_d_ff=1024,
+                      decoder_d_model=640, decoder_num_heads=2,
+                      decoder_d_ff=1280)
+
 # name -> (variant, eval mode (None: train), Config fields, extra keywords
 # of the check, the flag the message must name): what no kernel takes
 REFUSED = {
@@ -144,6 +154,14 @@ WIDENED = {
     "decoder_head_width_384": ("transformer", "teacher_forced",
                                dict(decoder_d_model=384,
                                     decoder_num_heads=1), {}),
+    # the select K6 (every f32 beam past k = 8, any beam up to V) and the
+    # tiled f32 K1 (every f32 head shape off the tuned ones)
+    "f32_beam_size_1000": ("transformer", "beam", dict(dtype="float32"),
+                           dict(beam_size=1000)),
+    "beam_size_vocab": ("transformer", "beam", {}, dict(beam_size=22234)),
+    "f32_wide_beam_9": ("transformer", "beam", WIDE_PATH_F32,
+                        dict(beam_size=9)),
+    "f32_wide_heads_greedy": ("transformer", "greedy", WIDE_HEADS_F32, {}),
 }
 ACCEPTED = {**{name: (*case, {}) for name, case in LONG.items()},
             **WIDENED}
@@ -248,3 +266,31 @@ def test_cli_refuses_before_building_a_model(tmp_path, monkeypatch, cmd,
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
     assert "--encoder-num-heads 3" in str(exc.value.code)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--dtype", "float32", "--eval-mode", "beam", "--beam-size", "1000"],
+    ["--dtype", "float32", "--eval-mode", "greedy", "--encoder-d-model",
+     "512", "--encoder-num-heads", "1", "--encoder-d-ff", "1024",
+     "--decoder-d-model", "640", "--decoder-num-heads", "2",
+     "--decoder-d-ff", "1280"],
+    ["--dtype", "float32", "--eval-mode", "beam", "--beam-size", "9",
+     "--encoder-d-model", "512", "--encoder-d-ff", "1024",
+     "--decoder-d-model", "200", "--decoder-d-ff", "400"]])
+def test_cli_f32_select_and_tiled_runs_pass_the_envelope(tmp_path,
+                                                         monkeypatch, argv):
+    """`cli evaluate --dtype float32 --beam-size 1000` (the select K6), the
+    f32 greedy sweep of the wide-heads model (the tiled K1 past 256-wide
+    heads) and the f32 beam-9 of the widened one pass the check on CUDA
+    and go on to build the model."""
+    monkeypatch.setattr(cli, "resolve_device",
+                        lambda _: torch.device("cuda"))
+
+    def built(*a, **k):
+        raise RuntimeError("a model was built")
+
+    monkeypatch.setattr(cli, "make_model", built)
+    monkeypatch.setattr(cli, "load_model", built)
+    with pytest.raises(RuntimeError, match="a model was built"):
+        cli.main(["evaluate", *argv, "--log-save-path", str(tmp_path),
+                  "--checkpoint-path", str(tmp_path)])

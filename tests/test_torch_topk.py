@@ -107,6 +107,23 @@ def test_plain_version_past_the_list_matches_interpreted_tpu_kernel(
     np.testing.assert_allclose(lse, want[2], atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("k", [257, 264])
+def test_plain_version_past_256_matches_interpreted_tpu_kernel(interpret, k):
+    """The plain K6 past k = 256 and at k = V, where the select kernels
+    take every call on the card (a radix select of each row's k best keys,
+    then a sort of them), against the TPU kernel under the Pallas
+    interpreter at N = 8, D = 200 and V = 264 (three vocab tiles of 128,
+    the last ragged; k = V: every logit of a row, in order)."""
+    n, d, v = 8, 200, 264
+    h, W, b = _case(n, d, v, seed=k)
+    want = [np.asarray(t) for t in jax_topk_logits(
+        jnp.asarray(h), jnp.asarray(W), jnp.asarray(b), k, 8, 128)]
+    vals, idx, lse = _port(h, W, b, k)
+    np.testing.assert_array_equal(idx, want[1])
+    np.testing.assert_allclose(vals, want[0], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse, want[2], atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("k", [100, 256])
 def test_take_top_long_lists_match_jax(k):
     """`take_top` at the long lists (k = 100 and 256), over rows with
@@ -270,8 +287,8 @@ def test_tensor_core_wide_routing(dtype, d, k, tensor_core):
     8 columns) run the tensor-core wide kernel at V = 22,234 up to
     k = K_LIST = 256 (past k = 64 its long path: lists of 16, a per-row
     bound, an emission of the keys at or above it, a radix select); the
-    tuned shapes stay on the tuned kernel, f32 and longer lists on
-    csrc/topk_wide.cu."""
+    tuned shapes stay on the tuned kernel, f32 and longer lists on the
+    select kernels (csrc/topk_select.cu)."""
     assert topk.uses_tensor_core(dtype, d, k, 22234) == tensor_core
     assert topk.is_wide(d, k) or not tensor_core
 
@@ -359,11 +376,52 @@ def test_long_plan_takes_every_k(v):
 def test_long_path_routing_by_vocab(k, v, takes):
     """Past k = 64 the bf16 K6 takes the long path only where the vocab
     fits its fallback's shared memory (V up to LONG_MAX_V) and has tiles
-    enough for lists of 16 holding 2 k keys; elsewhere csrc/topk_wide.cu.
+    enough for lists of 16 holding 2 k keys; elsewhere the select kernels
+    (csrc/topk_select.cu).
     Up to k = 64 the vocab does not enter."""
     assert topk.uses_tensor_core(torch.bfloat16, 200, k, v) == takes
     assert topk.uses_long_list(torch.bfloat16, 200, k, v) == (takes
                                                              and k > 64)
+
+
+@pytest.mark.parametrize("dtype,d,k,v,select", [
+    (torch.float32, 200, 9, 22234, True), (torch.float32, 128, 9, 22234, True),
+    (torch.float32, 512, 4, 22234, True), (torch.float32, 25, 1, 22234, True),
+    (torch.float32, 200, 1000, 22234, True),
+    (torch.float32, 128, 22234, 22234, True),
+    (torch.float32, 128, 4, 22234, False),
+    (torch.float32, 128, 8, 32000, False),
+    (torch.bfloat16, 200, 9, 22234, False),
+    (torch.bfloat16, 200, 256, 22234, False),
+    (torch.bfloat16, 200, 257, 22234, True),
+    (torch.bfloat16, 128, 1000, 22234, True),
+    (torch.bfloat16, 128, 22234, 22234, True),
+    (torch.bfloat16, 128, 100, 32000, True),
+    (torch.bfloat16, 128, 65, 25001, True),
+    (torch.bfloat16, 128, 65, 25000, False),
+    (torch.bfloat16, 128, 64, 32000, False),
+    (torch.bfloat16, 25, 300, 1000, True),
+    (torch.bfloat16, 128, 8, 32000, False)])
+def test_select_routing(dtype, d, k, v, select):
+    """The select kernels (csrc/topk_select.cu) take every call of the
+    wide kernels that the bf16 tensor-core wide kernel does not: every f32
+    one (k past 8, D past 256 or off 8 columns, up to k = V), and bf16 past
+    k = 256, or past k = 64 where the long path does not take V (past
+    25,000); the tuned shapes stay on the tuned kernel in both dtypes."""
+    assert topk.uses_select(dtype, d, k, v) == select
+    assert not (select and topk.uses_tensor_core(dtype, d, k, v))
+    assert select == (topk.is_wide(d, k)
+                      and not topk.uses_tensor_core(dtype, d, k, v))
+
+
+@pytest.mark.parametrize("k,spill", [(1, False), (22234, False),
+                                     (24704, False), (24705, True)])
+def test_select_keys_spill_past_shared_memory(k, spill):
+    """A row's k keys (8 bytes each) stay in the select block's shared
+    memory of the H100 (227 KB a block, SELECT_RESERVED of it taken by the
+    candidate buffer and the static part) up to k = 24,704, past it in the
+    caller's scratch."""
+    assert topk.select_keys_spill(k, 232448) == spill
 
 
 TILE_V, BUF = 128, topk.MMA_BUF
@@ -653,3 +711,92 @@ def test_long_path_emulation_equals_take_top(k, mode):
         assert count >= k
         if mode == "spread":
             assert count <= k + 200
+
+
+def _select_bound(keys, v, k):
+    """The select kernel's radix select (csrc/topk_select.cu
+    `radix_bound`): a byte a pass from the top, the index's bytes that
+    V - 1 does not reach skipped (the same in every key), the wanted
+    rank's byte picked from the counts of the keys matching the bytes so
+    far, stopping where every key of the byte is wanted. -> (prefix,
+    mask): the keys with key & mask >= prefix are the k best."""
+    prefix, mask, want = 0, 0, k
+    for shift in range(56, -1, -8):
+        if 0 < shift < 32 and (v - 1) >> shift == 0:
+            continue
+        hist = [0] * 256
+        for key in keys:
+            if key & mask == prefix:
+                hist[(key >> shift) & 0xFF] += 1
+        above = 0
+        for byte in range(255, -1, -1):
+            if above + hist[byte] >= want:
+                break
+            above += hist[byte]
+        prefix |= byte << shift
+        mask |= 0xFF << shift
+        want -= above
+        if hist[byte] == want:
+            break
+    return prefix, mask
+
+
+def _select_sort(keys):
+    """The select kernel's sort (`sort_desc`): a bitonic network over the
+    next power of two p >= k whose merges all sort the same way (a flip,
+    then half-cleaners), the comparators past k left out (the kernel runs
+    the steps within groups of 32 places in a warp's registers, where the
+    places past k hold zeros, below every key: the same exchanges)."""
+    keys, k = list(keys), len(keys)
+    p = 1
+    while p < k:
+        p <<= 1
+    size = 2
+    while size <= p:
+        stride = size >> 1
+        while stride:
+            for i in range(p // 2):
+                blk, pos = divmod(i, stride)
+                if stride == size >> 1:
+                    a, b = blk * size + pos, blk * size + size - 1 - pos
+                else:
+                    a = blk * 2 * stride + pos
+                    b = a + stride
+                if b < k and keys[a] < keys[b]:
+                    keys[a], keys[b] = keys[b], keys[a]
+            stride >>= 1
+        size <<= 1
+    return keys
+
+
+@pytest.mark.parametrize("k", [1, 9, 257, 1000, 1500])
+@pytest.mark.parametrize("mode", ["flat", "dyadic", "negative", "spread",
+                                  "falling"])
+def test_select_emulation_equals_take_top(mode, k):
+    """The select kernels' selection, emulated on a row of logits (each
+    logit's 64-bit key, `_select_bound`'s radix passes, the keys at or
+    above the bound gathered in a scrambled order, as the kernel's atomics
+    may, and `_select_sort`), equals `take_top` (and the JAX `_take_top`
+    up to k = 257): indices and values at k = 1, 9, 257, 1,000 and V =
+    1,500 (a full sort), with equal values (flat: -0.0 and +0.0 in row 1,
+    the keys of a row differing by index alone), integer ties, every value
+    below 0, spread values and values falling with the index."""
+    rows, v = 2, 1500
+    x = _tie_logits(k + 11, rows, v, mode)
+    cols = np.broadcast_to(np.arange(v, dtype=np.int32), x.shape)
+    want = topk.take_top(torch.from_numpy(x), torch.from_numpy(cols.copy()),
+                         k)
+    jax_want = (jax_take_top(jnp.asarray(x), jnp.asarray(cols), k)
+                if k <= 257 else None)
+    rng = np.random.default_rng(k)
+    for r in range(rows):
+        keys = [_key_bits(val, c) for c, val in enumerate(x[r])]
+        prefix, mask = _select_bound(keys, v, k)
+        best = [key for key in keys if key & mask >= prefix]
+        assert len(best) == k
+        best = _select_sort([best[i] for i in rng.permutation(k)])
+        idx = [0xFFFFFFFF - (key & 0xFFFFFFFF) for key in best]
+        np.testing.assert_array_equal(idx, want[1][r].numpy())
+        np.testing.assert_array_equal(x[r][idx], want[0][r].numpy())
+        if jax_want is not None:
+            np.testing.assert_array_equal(idx, np.asarray(jax_want[1][r]))
