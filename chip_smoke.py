@@ -358,11 +358,12 @@ KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
 # past them, the bf16 wide K3, K4 and K6 on the tensor cores in libraries
 # of their own), and the bf16 K2 past 32 queries or keys up to 128
 # (csrc/attention_bwd_resident.cu)
-WIDE_LIBRARIES = (attn.KERNEL_WIDE, ce.KERNEL_WIDE, star.KERNEL_WIDE,
+WIDE_LIBRARIES = (attn.KERNEL_BWD_TILED, ce.KERNEL_WIDE, star.KERNEL_WIDE,
                   topk.KERNEL_SELECT, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD,
                   attn.KERNEL_WIDE_MMA, ce.KERNEL_WIDE_FWD,
                   topk.KERNEL_WIDE_MMA, attn.KERNEL_RESIDENT,
-                  attn.KERNEL_CLUSTER, attn.KERNEL_TILED)
+                  attn.KERNEL_CLUSTER, attn.KERNEL_TILED,
+                  ce.KERNEL_BWD_TILED)
 # the K4 launches among ce_bwd's that ran in the dh-only mode
 DH_ONLY = "ce_bwd_dh_only"
 # the K6 launches on the tensor-core wide kernel's long path (k past 64),
@@ -373,13 +374,17 @@ CLUSTER = "attention_bwd_cluster"
 # launches on the tiled f32 kernel (csrc/attention_tiled.cu)
 SELECT = "topk_select"
 TILED = "attention_tiled"
+# the K2 launches on the tiled f32 kernels (csrc/attention_bwd_tiled.cu),
+# and the K4 launches on the tiled kernels (csrc/ce_bwd_tiled.cu)
+TILED_BWD = "attention_bwd_tiled"
+CE_TILED = "ce_bwd_tiled"
 # the launches among each kernel's that went to its wide kernels
 WIDE = {attn.KERNEL: "attention_fwd_wide", attn.KERNEL_BWD:
         "attention_bwd_wide", ce.KERNEL_FWD: "ce_fwd_wide",
         ce.KERNEL_BWD: "ce_bwd_wide", star.KERNEL: "star_wide",
         topk.KERNEL: "topk_wide"}
 COUNTERS = KERNELS + (DH_ONLY,) + tuple(WIDE.values()) + (
-    LONG_LIST, CLUSTER, SELECT, TILED)
+    LONG_LIST, CLUSTER, SELECT, TILED, TILED_BWD, CE_TILED)
 BEAM = 4
 # `cli train`'s default steps a call (one captured CUDA graph of the step,
 # replayed): what the train phases run
@@ -421,8 +426,9 @@ SEQ256 = 256
 # and indices are held in full, their plain versions called once for
 # that and not timed; their times are not in the kernels line)
 MODE_ITERS = 10
-# timed calls of the f32 wide K3/K4 rows (csrc/ce_wide.cu: 4.5 to 44 ms a
-# call at D = 200 to 640), and of the K6 rows at k = PAST_K6 and k = V
+# timed calls of the f32 wide K3/K4 rows (K3 on csrc/ce_wide.cu: 1.5 to 5.7
+# ms a call at D = 264 to 640; the K4 design before csrc/ce_bwd_tiled.cu
+# took 20.8 to 44.0 ms there), and of the K6 rows at k = PAST_K6 and k = V
 WIDE_F32_CE_ITERS = 10
 LONG_K_ITERS = 5
 WIDE_STAR_D = (96, 512)
@@ -461,9 +467,13 @@ DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
           ce.KERNEL_BWD: WGMMA, topk.KERNEL: WGMMA}
 WIDE_DESIGN = "wide cuda-core f32"
 WIDE_MMA_DESIGN = "wide mma bf16"
-# the f32 K1 off the tuned shapes (csrc/attention_tiled.cu), and K6 on the
-# select kernels (csrc/topk_select.cu)
+# the f32 K1 and K2 off the tuned shapes (csrc/attention_tiled.cu,
+# csrc/attention_bwd_tiled.cu) and the f32 wide K4 (csrc/ce_bwd_tiled.cu; in
+# bf16 past 5,120 columns), and K6 on the select kernels
+# (csrc/topk_select.cu)
 TILED_DESIGN = "tiled cuda-core f32"
+TILED_CE_DESIGN = {torch.bfloat16: "tiled cuda-core bf16",
+                   torch.float32: TILED_DESIGN}
 SELECT_DESIGN = {torch.bfloat16: "select wgmma bf16",
                  torch.float32: "select cuda-core f32"}
 # this slice's routes as the device kernels that ran name them
@@ -478,7 +488,9 @@ ROUTES = {topk.KERNEL: (("topk_long_emit_kernel", "long-path wgmma bf16"),
           attn.KERNEL_BWD: (("attention_bwd_resident_kernel",
                              "resident mma bf16"),
                             ("attention_bwd_cluster_kernel",
-                             "cluster mma bf16"))}
+                             "cluster mma bf16"),
+                            ("attention_bwd_tiled_dq_kernel", TILED_DESIGN)),
+          ce.KERNEL_BWD: (("ce_bwd_tiled_p_kernel", TILED_DESIGN),)}
 
 
 def phase_device():
@@ -649,11 +661,13 @@ def phase_routes(seed, bs):
     the f32 K6 at every k of SELECT_KS and D of WIDE_D and at the wide
     beam, in each input mode, and at k = V; of the bf16 K2 past 32 queries
     and keys (LONG_CASE, LONG_CROSS) and past 128 (PAST_RESIDENT,
-    PAST_RESIDENT_CROSS) with and without dbias; and of the f32 K1 at every
-    wide shape the kernel rows hold (WIDE_HEADS, WIDE_PATH,
-    WIDE_HEADS_PATH, OFF_STEP_HEADS). Each must run its route's kernel (the
-    tensor-core wide K6, its long path past k = 64, the select K6, the
-    resident K2, the cluster K2, the tiled K1). -> {(kernel, case, dtype):
+    PAST_RESIDENT_CROSS) with and without dbias; of the f32 K1 and K2 (no
+    dbias) at every wide shape the kernel rows hold (WIDE_HEADS, WIDE_PATH,
+    WIDE_HEADS_PATH, OFF_STEP_HEADS); and of the f32 K4 at D = 512,
+    WIDE_HEADS_D and OFF_STEP_D, and in its dh-only mode at WIDE_HEADS_D.
+    Each must run its route's kernel (the tensor-core wide K6, its long
+    path past k = 64, the select K6, the resident K2, the cluster K2, the
+    tiled K1, K2 and K4). -> {(kernel, case, dtype):
     (design, names)}, the design the kernel rows of those cases take
     (`set_designs`)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -702,6 +716,23 @@ def phase_routes(seed, bs):
             attn.KERNEL, label,
             lambda: attn.attention_fwd(q, k, v, bias, heads, dh ** 0.5),
             _attention_design(attn.KERNEL, f32, heads, dh))
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        seen[(attn.KERNEL_BWD, label, f32)] = routed_design(
+            attn.KERNEL_BWD, label,
+            lambda: attn.attention_bwd(q, k, v, bias, g, heads, dh ** 0.5,
+                                       False),
+            k2_design(f32, lq, lk, heads, dh))
+    cfg = Config()
+    for d, dh_only in ((WIDE_D[1], False), (WIDE_HEADS_D, False),
+                       (OFF_STEP_D, False), (WIDE_HEADS_D, True)):
+        h, W, b, labels, g = ce_inputs(f32, gen, bs * (cfg.seq_len - 1), d,
+                                       cfg.vocab_size)
+        lse = ce.ce_fwd_reference(h, W, b, labels)[1]
+        label = f"ce_dh_only_d{d}" if dh_only else f"ce_d{d}"
+        seen[(ce.KERNEL_BWD, label, f32)] = routed_design(
+            ce.KERNEL_BWD, label,
+            lambda: ce.ce_bwd(h, W, b, labels, lse, g, dh_only=dh_only),
+            _ce_design(ce.KERNEL_BWD, f32, d))
     for (kernel, label, dtype), (design, names) in seen.items():
         # the port's kernels among them (not the spin, not PyTorch's fill)
         short = sorted(m.group(1) for m in (
@@ -819,14 +850,12 @@ def _sdpa_views(q, k, v, heads=HEADS):
 
 def _attention_design(kernel, dtype, heads, dh):
     """What multiplies in the kernel that takes `heads` heads of `dh`."""
-    if kernel == attn.KERNEL and attn.uses_tiled(dtype, heads, dh):
+    if attn.uses_tiled(dtype, heads, dh):
         return TILED_DESIGN
     if attn.is_chunked_mma(dtype, heads, dh):
         return MMA[dtype]
     if attn.is_wide_mma(dtype, heads, dh):
         return WIDE_MMA_DESIGN
-    if attn.is_wide(heads, dh):
-        return WIDE_DESIGN
     return DESIGN[kernel][dtype]
 
 
@@ -835,6 +864,8 @@ def _ce_design(kernel, dtype, d):
     if (ce.uses_tensor_core_bwd if kernel == ce.KERNEL_BWD
             else ce.uses_tensor_core_fwd)(dtype, d):
         return WGMMA[dtype]
+    if kernel == ce.KERNEL_BWD and ce.uses_tiled_bwd(dtype, d):
+        return TILED_CE_DESIGN[dtype]
     if ce.is_wide(dtype, d):
         return WIDE_DESIGN
     return DESIGN[kernel][dtype]
@@ -858,6 +889,11 @@ def _ce_launch(kernel, dtype, n, d, v, device):
         return {"tiling": list(tiles), "plan": plan._asdict(),
                 "splits": ce.vocab_splits(n, v, max(1, sms // plan.cluster),
                                           *tiles)}
+    if kernel == ce.KERNEL_BWD and ce.uses_tiled_bwd(dtype, d):
+        tiles = ce.tiling(ce.KERNEL_BWD_TILED, dtype, d, device)
+        return {"tiling": list(tiles), "workspace": list(
+            ce.tiled_workspace(n, v)),
+            "splits": ce.tiled_splits(n, d, v, sms, tiles[2])}
     tiles = ce.tiling(ce.KERNEL_WIDE if ce.is_wide(dtype, d) else kernel,
                       dtype, d, device)
     return {"tiling": list(tiles),
@@ -975,8 +1011,8 @@ def ce_inputs(dtype, gen, n, d, v):
 def ce_cases(dtype, gen, iters, n, d, v, label="ce"):
     """K3 and K4 at the training path's shape (tied layout: W is (V, D)),
     or at another width D (the wide kernels where the tuned ones do not
-    take it; the f32 ones, which take tens of ms a call, timed over
-    WIDE_F32_CE_ITERS calls)."""
+    take it; the f32 ones, which take milliseconds a call, timed over
+    WIDE_F32_CE_ITERS calls); K4 also bitwise over two calls."""
     if dtype == torch.float32 and ce.is_wide(dtype, d):
         iters = min(iters, WIDE_F32_CE_ITERS)
     h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v)
@@ -984,6 +1020,7 @@ def ce_cases(dtype, gen, iters, n, d, v, label="ce"):
     want = ce.ce_fwd_reference(h, W, b, labels)
     lse = want[1]
     dgot = ce.ce_bwd(h, W, b, labels, lse, g)
+    again = ce.ce_bwd(h, W, b, labels, lse, g)
     dwant = ce.ce_bwd_reference(h, W, b, labels, lse, g)
     softmax_err = softmax_part_err(
         dgot, dwant, ce.ce_bwd_reference(h, W, b, labels, lse, g, True))
@@ -991,6 +1028,10 @@ def ce_cases(dtype, gen, iters, n, d, v, label="ce"):
     if not softmax_err <= SOFTMAX_TOL[dtype]:
         raise AssertionError(f"ce_bwd {dtype}: err {softmax_err} of the "
                              f"softmax part > {SOFTMAX_TOL[dtype]}")
+    # no atomics, one order of sums: two calls give the same bits
+    if not all(torch.equal(x, y) for x, y in zip(dgot, again)):
+        raise AssertionError(f"ce_bwd {label} {dtype}: calls on the same "
+                             f"inputs differ")
     elt = h.element_size()
     ins = (n * d + v * d) * elt + v * 4 + n * 4
     shape = {"n": n, "d": d, "v": v}
@@ -1272,7 +1313,8 @@ def widened_cases(dtype, gen, iters, bs):
     the chunked K1/K2 (K2 bitwise over calls, in bf16 also with dbias) and
     the wide K3/K4 at the shapes of `phase_wide_heads` (WIDE_HEADS_PATH,
     WIDE_HEADS_D), and at widths off their steps (OFF_STEP_HEADS,
-    OFF_STEP_D)."""
+    OFF_STEP_D); the f32 K2 (the tiled kernels) bitwise over calls at every
+    wide shape."""
     cfg = Config()
     rows = []
     if dtype == torch.float32:
@@ -1285,6 +1327,10 @@ def widened_cases(dtype, gen, iters, bs):
                                    heads, dh))
         rows.append(attention_bwd_case(label, bs, lq, lk, dtype, gen, iters,
                                        False, heads, dh))
+        if dtype == torch.float32 and (label, heads, dh, lq, lk) not in \
+                WIDE_HEADS_PATH:
+            # the tiled f32 K2 (the wide-heads shapes below)
+            attention_bwd_bitwise(label, bs, lq, lk, dtype, gen, heads, dh)
     for label, heads, dh, lq, lk in list(WIDE_HEADS_PATH) + [OFF_STEP_HEADS]:
         if label == OFF_STEP_HEADS[0]:
             rows.append(attention_case(label, bs, lq, lk, dtype, gen, iters,
@@ -1420,8 +1466,8 @@ def launches():
     """Launches of K1-K6 since the last reset, how many of K4's ran in its
     dh-only mode, how many of each went to its wide kernels, and how many
     of K6's went to the tensor-core wide kernel's lists past 64 and to the
-    select kernels, of K2's to the cluster kernel and of K1's to the tiled
-    f32 kernel."""
+    select kernels, of K2's to the cluster kernel, of K1's and K2's to the
+    tiled f32 kernels and of K4's to the tiled kernels."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
             ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
             star.KERNEL: star.launches, topk.KERNEL: topk.launches,
@@ -1435,7 +1481,9 @@ def launches():
             LONG_LIST: topk.long_list_launches,
             CLUSTER: attn.cluster_bwd_launches,
             SELECT: topk.select_launches,
-            TILED: attn.tiled_launches}
+            TILED: attn.tiled_launches,
+            TILED_BWD: attn.tiled_bwd_launches,
+            CE_TILED: ce.tiled_bwd_launches}
 
 
 def check_launches(path, got, expected):
@@ -1574,9 +1622,9 @@ def phase_beam100(seed, bs):
 
 def phase_train(seed, epochs, bs, variant="transformer",
                 checkpoint="log/chip_smoke/ckpt", extra=(), tag=None,
-                wide=(), k1_passes=1, sub=()):
+                wide=(), k1_passes=1, sub=(), dtype="bfloat16"):
     """A training path: `cli train --variant <variant>` (and `extra`
-    flags) at full width in bf16 from a random init on the synthetic set,
+    flags) at full width in `dtype` from a random init on the synthetic set,
     the params saved under `checkpoint`, through the default path (SCAN_STEPS
     steps a call: replays of one captured CUDA graph of the step). Per step
     the vanilla transceiver launches K1 and K2 once per attention, the star
@@ -1585,13 +1633,13 @@ def phase_train(seed, epochs, bs, variant="transformer",
     `k1_passes` times per attention (2 with --remat: each layer's forward
     runs again in the backward); for each (counter, kernel) of `sub`, every
     launch of the kernel counted in the counter too (CLUSTER: the cluster
-    K2)."""
+    K2; TILED, TILED_BWD, CE_TILED: the tiled K1, K2 and K4)."""
     tag = tag or ("train" if variant == "transformer"
                   else f"{variant}_train")
     reset_launches()
     t0 = time.perf_counter()
     res = cli.main(["train", "--variant", variant, "--train-mode",
-                    "plain", "--dtype", "bfloat16", "--bs", str(bs),
+                    "plain", "--dtype", dtype, "--bs", str(bs),
                     "--epochs", str(epochs), "--seed", str(seed),
                     "--device", "cuda", "--log-every", "64",
                     "--log-save-path", f"log/chip_smoke/{tag}",
@@ -1654,13 +1702,18 @@ def variant_model(cfg, variant, plain=False):
                       else star.satellite_attention)
 
 
-def phase_step_parity(seed, bs, variant="transformer"):
+def phase_step_parity(seed, bs, variant="transformer", widths=(),
+                      counted=()):
     """One f32 train step at full width through the kernels and one
     through the plain versions: the same weights (init from `seed`),
     noise and dropout masks (one generator seed, drawn in the same
-    order). A star step scores the un-shifted target."""
+    order). A star step scores the un-shifted target. `widths`: the
+    model's CLI width flags (WIDE_HEADS_WIDTHS: the wide-heads model);
+    `counted`: the sub-counters that step must launch too (its wide and
+    tiled kernels')."""
     is_star = variant != "transformer"
-    cfg = Config(dtype="float32", bs=bs, seq_len=default_seq_len(variant))
+    cfg = Config(dtype="float32", bs=bs, seq_len=default_seq_len(variant),
+                 **width_fields(widths))
     inp = _train_batch(cfg, seed)
     n_std = float(snr_to_noise(cfg.train_snr))
     out = []
@@ -1677,7 +1730,7 @@ def phase_step_parity(seed, bs, variant="transformer"):
         out.append((loss.item(), model, launches()))
     (lk, mk, ck), (lp, mp, cp) = out
     trained = (star.KERNEL,) if is_star else (attn.KERNEL, attn.KERNEL_BWD)
-    trained += (ce.KERNEL_FWD, ce.KERNEL_BWD)
+    trained += (ce.KERNEL_FWD, ce.KERNEL_BWD) + tuple(counted)
     if sum(cp.values()) or any(ck[name] == 0 for name in trained) \
             or any(ck[name] for name in COUNTERS if name not in trained):
         raise AssertionError(f"step parity launches: kernels {ck}, plain "
@@ -1687,7 +1740,8 @@ def phase_step_parity(seed, bs, variant="transformer"):
         err = max_err([a.grad], [b.grad], relative=True)
         if err > worst:
             worst, worst_name = err, name
-    print(f"[parity] {variant} f32 step: loss kernels {lk:.7f} plain "
+    print(f"[parity] {variant}{' ' + ' '.join(widths) if widths else ''} "
+          f"f32 step: loss kernels {lk:.7f} plain "
           f"{lp:.7f} (rel "
           f"{abs(lk - lp) / abs(lp):.2e}); worst grad err / max|ref| "
           f"{worst:.2e} ({worst_name}); launches {json.dumps(ck)}")
@@ -3115,12 +3169,17 @@ def phase_wide_heads(seed, bs):
     return got
 
 
+def width_fields(widths):
+    """Config fields of a widened model given as CLI width flags."""
+    return {flag[2:].replace("-", "_"): int(value)
+            for flag, value in zip(widths[::2], widths[1::2])}
+
+
 def wide_config(widths, params, **fields):
     """The Config of a widened model given as CLI width flags, its
     tie_embeddings read from `params`."""
-    kw = {flag[2:].replace("-", "_"): int(value)
-          for flag, value in zip(widths[::2], widths[1::2])}
-    return Config(tie_embeddings=is_tied(params), **kw, **fields)
+    return Config(tie_embeddings=is_tied(params), **width_fields(widths),
+                  **fields)
 
 
 def recording(fn, seen):
@@ -3300,6 +3359,49 @@ def phase_f32_wide(seed, bs):
                 same_greedy_ids_but_near_ties(
                     f"{tag} at {snr} dB ({bs} sentences), K1 vs plain",
                     ids_k, ids_p, logits_k, logits_p)
+    return by_path
+
+
+# where the f32 train epochs of the widened models save them, and those
+# paths (phase_f32_wide_train)
+F32_WIDE_HEADS_CKPT = "log/chip_smoke/f32_wide_heads_ckpt"
+F32_WIDE_CKPT = "log/chip_smoke/f32_wide_ckpt"
+F32_TRAIN_PATHS = ("f32_wide_heads_train", "f32_wide_train")
+
+
+def phase_f32_wide_train(seed, bs):
+    """The widened models trained at f32, `cli train --dtype float32` for
+    one epoch from a random init through the default graphed path, exact
+    launch counts, losses finite and falling:
+    - f32_wide_heads_train: the wide-heads model (WIDE_HEADS_WIDTHS:
+      encoder one head of 512, decoder 2 of 320, D = 640): per step 12 K1
+      on the tiled kernel, 12 K2 on the tiled kernels
+      (csrc/attention_bwd_tiled.cu), K3 on csrc/ce_wide.cu and K4 on the
+      tiled kernels (csrc/ce_bwd_tiled.cu) at D = 640;
+    - f32_wide_train: the widened model (WIDE_WIDTHS: encoder 8 heads of
+      64, decoder 8 of 25, D = 200): 12 tiled K1 and 12 tiled K2 a step
+      (its K3/K4 at D = 200, a tuned f32 width);
+    then one f32 step of the wide-heads model through the kernels against
+    one through the plain versions (`phase_step_parity`). Prints each
+    epoch's ms a step. -> {path: launch counts}."""
+    by_path = {}
+    tiled = ((TILED, attn.KERNEL), (TILED_BWD, attn.KERNEL_BWD))
+    for tag, widths, ckpt, wide, sub in (
+            ("f32_wide_heads_train", WIDE_HEADS_WIDTHS, F32_WIDE_HEADS_CKPT,
+             (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD),
+             tiled + ((CE_TILED, ce.KERNEL_BWD),)),
+            ("f32_wide_train", WIDE_WIDTHS, F32_WIDE_CKPT,
+             (attn.KERNEL, attn.KERNEL_BWD), tiled)):
+        by_path[tag], stats = phase_train(seed, 1, bs, extra=widths,
+                                          checkpoint=ckpt, tag=tag,
+                                          wide=wide, sub=sub,
+                                          dtype="float32")
+        print(f"[{tag}] {stats['ms_per_step']:.3f} ms a step over the epoch "
+              f"of {stats['steps']} steps (the graph's warm-up and capture "
+              f"in it), f32")
+    phase_step_parity(seed, bs, widths=WIDE_HEADS_WIDTHS, counted=(
+        WIDE[attn.KERNEL], WIDE[attn.KERNEL_BWD], WIDE[ce.KERNEL_FWD],
+        WIDE[ce.KERNEL_BWD], TILED, TILED_BWD, CE_TILED))
     return by_path
 
 
@@ -4184,13 +4286,14 @@ WIDE_INFO = {
                       "train path's decoder self-attention backward: K2 at "
                       "8 heads of 25, bf16, N=64 Lq=Lk=31, no dbias (the "
                       "tensor-core wide kernels; f32 on "
-                      "csrc/attention_wide.cu)"),
+                      "csrc/attention_bwd_tiled.cu, its own entry)"),
     ce.KERNEL_FWD: (ce.KERNEL_WIDE_FWD, "ce_d200", "the wide train path's "
                     "CE: K3 at N=1984 D=200 V=22234, bf16 (the tensor-core "
-                    "wide kernel; f32 on csrc/ce_wide.cu)"),
+                    "wide kernel; f32 on csrc/ce_wide.cu, its own entry)"),
     ce.KERNEL_BWD: (ce.KERNEL_WIDE_BWD, "ce_d200", "the wide train path's "
                     "CE: K4 at N=1984 D=200 V=22234, bf16 (the tensor-core "
-                    "wide kernels; f32 on csrc/ce_wide.cu)"),
+                    "wide kernels; f32 on csrc/ce_bwd_tiled.cu, its own "
+                    "entry)"),
     star.KERNEL: (star.KERNEL_WIDE, "star_d96", "the wide star train "
                   "path's ring: K5 at B=64 L=31 D=96 H=8, bf16"),
     topk.KERNEL: (topk.KERNEL_WIDE_MMA, "wide_beam", "the wide beam path: "
@@ -4341,7 +4444,8 @@ def kernels_line(rows, by_path):
     # the tiled f32 K1 (csrc/attention_tiled.cu): every K1 launch of the
     # f32 wide paths
     row = f32_rows[(attn.KERNEL, WIDE_HEADS_PATH[0][0])]
-    paths = {path: by_path[path][TILED] for path in F32_WIDE_PATHS}
+    paths = {path: by_path[path][TILED]
+             for path in F32_WIDE_PATHS + F32_TRAIN_PATHS}
     labels = [label for label, *_ in WIDE_HEADS_PATH + WIDE_PATH] + [
         f"wide_{heads}x{dh}" for heads, dh in WIDE_HEADS] + [
             OFF_STEP_HEADS[0]]
@@ -4359,6 +4463,48 @@ def kernels_line(rows, by_path):
               "320), the widened model's (8 heads of 64 and of 25), 8 "
               "heads of 24, 64, 128, 32 heads of 16 and one head of 300; "
               "library: SDPA (f32, no TF32)"})
+    # the tiled f32 K2 (csrc/attention_bwd_tiled.cu): every K2 launch of
+    # the f32 train paths
+    row = f32_rows[(attn.KERNEL_BWD, WIDE_HEADS_PATH[0][0])]
+    paths = {path: by_path[path][TILED_BWD] for path in F32_TRAIN_PATHS}
+    out.append({
+        "name": TILED_BWD, "route": "cuda", "design": row["design"],
+        "source": f"deepsc_gan_tpu_torch/csrc/{attn.KERNEL_BWD_TILED}.cu",
+        "replaces": KERNEL_INFO[attn.KERNEL_BWD][0],
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        **_timing(row),
+        "cases": {label: _timing(f32_rows[(attn.KERNEL_BWD, label)])
+                  for label in labels},
+        "at": "every f32 K2 off the tuned head widths and counts (the "
+              "tiled kernels), no dbias: the wide-heads model's encoder, "
+              "one head of 512, N=64 Lq=Lk=32 shown; `cases`: the shapes "
+              "of the tiled K1's entry; library: SDPA's backward (f32, no "
+              "TF32)"})
+    # the tiled K4 (csrc/ce_bwd_tiled.cu) and the f32 wide K3
+    # (csrc/ce_wide.cu): every K4 and K3 launch of the f32 wide-heads train
+    # path
+    for name, kernel, source, counter, labels in (
+            (CE_TILED, ce.KERNEL_BWD, ce.KERNEL_BWD_TILED, CE_TILED,
+             (f"ce_d{WIDE_D[1]}", f"ce_d{OFF_STEP_D}",
+              f"ce_dh_only_d{WIDE_HEADS_D}")),
+            ("ce_fwd_wide_f32", ce.KERNEL_FWD, ce.KERNEL_WIDE,
+             WIDE[ce.KERNEL_FWD], (f"ce_d{WIDE_D[1]}", f"ce_d{OFF_STEP_D}"))):
+        row = f32_rows[(kernel, f"ce_d{WIDE_HEADS_D}")]
+        n = by_path["f32_wide_heads_train"][counter]
+        out.append({
+            "name": name, "route": "cuda", "design": row["design"],
+            "source": f"deepsc_gan_tpu_torch/csrc/{source}.cu",
+            "replaces": KERNEL_INFO[kernel][0], "launches": n,
+            "launches_by_path": {"f32_wide_heads_train": n}, **_timing(row),
+            "cases": {label: _timing(f32_rows[(kernel, label)])
+                      for label in labels},
+            "at": f"the f32 wide-heads train path's CE: N={row['n']} "
+                  f"D={WIDE_HEADS_D} V=22234, f32 shown; `cases`: D = "
+                  f"{WIDE_D[1]} and {OFF_STEP_D}" + (
+                      f", and the dh-only mode at D = {WIDE_HEADS_D}; "
+                      f"library: F.cross_entropy's backward (cuBLAS SGEMMs)"
+                      if kernel == ce.KERNEL_BWD else
+                      "; library: F.cross_entropy over h @ W^T")})
     dh = next(r for r in rows if r["case"] == "ce_dh_only"
               and r["dtype"] == "bfloat16")
     paths = {path: got[DH_ONLY] for path, got in by_path.items()}
@@ -4405,15 +4551,17 @@ def kernels_line(rows, by_path):
                    and r["case"] == case and r["dtype"] == "bfloat16")
         # the wide-heads path's K1/K2 launches all ran the chunked kernels,
         # the beam-100 path's K6 the long lists, the f32 wide paths' K1 the
-        # tiled kernel and their K6 the select kernels (their entries
-        # above), the other paths' the register-held ones and the lists up
-        # to 64
+        # tiled kernel and their K6 the select kernels, the f32 train
+        # paths' K1, K2 and K4 the tiled kernels and their K3 csrc/ce_wide.cu
+        # (their entries above), the other paths' the register-held ones
+        # and the lists up to 64
         paths = {path: got[WIDE[kernel]] for path, got in by_path.items()
                  if (path != "wide_heads"
                      or kernel not in (attn.KERNEL, attn.KERNEL_BWD))
                  and (path != "beam100" or kernel != topk.KERNEL)
                  and (path not in F32_WIDE_PATHS
-                      or kernel not in (attn.KERNEL, topk.KERNEL))}
+                      or kernel not in (attn.KERNEL, topk.KERNEL))
+                 and path not in F32_TRAIN_PATHS}
         out.append({
             "name": WIDE[kernel], "route": "cuda", "design": row["design"],
             "source": f"deepsc_gan_tpu_torch/csrc/{library}.cu",
@@ -4515,6 +4663,8 @@ def run_phases(args, jobs, routes):
         by_path["wide_heads"] = phase_wide_heads(seed, bs)
     with timed("f32_wide"):
         by_path.update(phase_f32_wide(seed, bs))
+    with timed("f32_wide_train"):
+        by_path.update(phase_f32_wide_train(seed, bs))
     with timed("mine"):
         by_path["mine_train"] = phase_mine_train(seed, MINE_EPOCHS, bs)
         phase_mine_step_parity(seed, bs)

@@ -8,8 +8,9 @@
 // 16 or 32) and the tensor-core wide kernels (csrc/attention_wide_mma.cu:
 // heads up to 256) do not take the width: the wide-heads model's encoder
 // (one head of 512) and decoder (2 heads of 320) run here in bf16. The f32
-// widths stay on csrc/attention_wide.cu's chunked CUDA-core kernels (exact
-// f32, which the f32 step-parity checks need). Same function and roundings as the other K1
+// widths stay on the tiled CUDA-core kernels (csrc/attention_tiled.cu,
+// csrc/attention_bwd_tiled.cu: exact f32, which the f32 step-parity checks
+// need). Same function and roundings as the other K1
 // kernels: with q (N, Lq, H*Dh), k and v (N, Lk, H*Dh) bf16 and bias
 // (N, Lq, Lk) f32 shared by the heads,
 //     s = (q_h . k_h) * (1/scale) + bias    (f32, two roundings)
@@ -346,7 +347,7 @@ attention_fwd_chunked_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // ---- backward (K2) ----
 //
 // dq, dk, dv (and dbias) of the forward above, for bf16 heads wider than
-// 256 (the f32 ones stay on csrc/attention_wide.cu's chunked kernels). With
+// 256 (the f32 ones take csrc/attention_bwd_tiled.cu). With
 // g the cotangent of out,
 //     dv = pc^T g, dp = g v^T, ds = p (dp - rowsum(dp p))   (f32)
 //     dq = dss k, dk = dss^T q, dss = (ds * (1/scale)) rounded to bf16
@@ -355,7 +356,7 @@ attention_fwd_chunked_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // Lq = Lk = 32, one head of 512, a call reads q, k, v, g (8.4 MB) and the
 // bias (0.26 MB) and writes dq, dk, dv (6.3 MB): 0.0045 ms at 3.35 TB/s,
 // against 1.3 GFLOP (1.4 us on the tensor cores). The design before this
-// one (csrc/attention_wide.cu's chunked kernels: a warp per query or key,
+// one (the chunked CUDA-core kernels: a warp per query or key,
 // each logit a dot product summed by shuffles, three passes over the keys)
 // took 0.30-0.42 ms there.
 //

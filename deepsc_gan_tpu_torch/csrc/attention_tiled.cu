@@ -51,15 +51,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_stage.cuh"
+
 namespace {
+
+using cps::commit;
+using cps::row_stride;
+using cps::stage;
+using cps::wait_group;
 
 constexpr int kThreads = 128;  // 8 query groups x 16 lanes
 constexpr int kKV = 32;        // keys of a staged v chunk
-
-// row stride in shared memory (floats) of a chunk of DC head columns: a
-// multiple of 4 for 16-byte copies, and 4 past one so that a
-// quarter-warp's 16-byte reads of 8 rows fall in distinct banks
-__host__ __device__ constexpr int row_stride(int dc) { return dc + 4; }
 
 struct Shape {
   int n, lq, lk, heads, dh;
@@ -77,54 +79,6 @@ __host__ __device__ constexpr int stage_floats(int qt, int kc, int dc) {
 
 __host__ __device__ constexpr int s_stride(int lk) { return lk | 1; }
 
-// `bytes` (4 or 16) from global to shared memory, asynchronously; zeros
-// where !ok
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(ok ? 4 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [0, rows) x columns [0, cols) of a row-major source at row stride
-// `ld` into shared memory at row stride `ds`: zeros past `valid_rows` rows
-// and `valid_cols` columns. kVec: 16-byte copies (the columns and the
-// source's stride and offset multiples of 4), else 4-byte ones.
-template <bool kVec>
-__device__ __forceinline__ void stage(float* dst, int ds, const float* src,
-                                      long long ld, int rows, int cols,
-                                      int valid_rows, int valid_cols) {
-  if (kVec) {
-    const int groups = cols / 4;
-    for (int e = threadIdx.x; e < rows * groups; e += kThreads) {
-      const int r = e / groups, c = (e - r * groups) * 4;
-      const bool ok = r < valid_rows && c < valid_cols;
-      cp_async<16>(dst + r * ds + c, ok ? src + r * ld + c : src, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
-      const int r = e / cols, c = e - r * cols;
-      const bool ok = r < valid_rows && c < valid_cols;
-      cp_async<4>(dst + r * ds + c, ok ? src + r * ld + c : src, ok);
-    }
-  }
-}
 
 template <int QT, int KC, int DC, bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -166,9 +120,9 @@ attention_fwd_tiled_kernel(const float* __restrict__ q,
   const int nkc = (sh.lk + KC - 1) / KC;
   const auto issue1 = [&](int t) {
     const int kc0 = (t / nd) * KC, d0 = (t % nd) * DC;
-    stage<kVec>(qs[t & 1], kDS, qb + d0, hd, QT, DC, nq, sh.dh - d0);
-    stage<kVec>(ks[t & 1], kDS, kb + kc0 * hd + d0, hd, KC, DC,
-                sh.lk - kc0, sh.dh - d0);
+    stage<kThreads, kVec>(qs[t & 1], kDS, qb + d0, hd, QT, DC, nq, sh.dh - d0);
+    stage<kThreads, kVec>(ks[t & 1], kDS, kb + kc0 * hd + d0, hd, KC, DC,
+                          sh.lk - kc0, sh.dh - d0);
     commit();
   };
   float acc[RQ][KJ];
@@ -259,8 +213,8 @@ attention_fwd_tiled_kernel(const float* __restrict__ q,
   const int ncc = (sh.dh + DC - 1) / DC;
   const auto issue3 = [&](int t) {
     const int c0 = (t / nkv) * DC, j0 = (t % nkv) * kKV;
-    stage<kVec>(vs[t & 1], kDS, vb + j0 * hd + c0, hd, kKV, DC,
-                sh.lk - j0, sh.dh - c0);
+    stage<kThreads, kVec>(vs[t & 1], kDS, vb + j0 * hd + c0, hd, kKV, DC,
+                          sh.lk - j0, sh.dh - c0);
     commit();
   };
   float* ob = out + (b * sh.lq + q0) * hd + (long long)h * sh.dh;

@@ -9,9 +9,9 @@
 // most 16 of them) do not take the shape: the widened model's encoder (8
 // heads of 64) and decoder (8 heads of 25), 32 heads of 16, any width from 1
 // to 256, any head count, any Lq and Lk. Heads wider than 256 take
-// csrc/attention_chunked.cu (K1) and csrc/attention_wide.cu's chunked
-// kernels (K2); f32 stays on csrc/attention_wide.cu (exact f32 on the CUDA
-// cores, which the f32 step-parity checks need). Same function and order of
+// csrc/attention_chunked.cu; f32 stays on csrc/attention_tiled.cu (K1)
+// and csrc/attention_bwd_tiled.cu (K2) (exact f32 on the CUDA cores, which
+// the f32 step-parity checks need). Same function and order of
 // roundings as the other K1/K2 kernels: with q (N, Lq, H*Dh), k and v
 // (N, Lk, H*Dh), bias (N, Lq, Lk) f32 shared by the heads and g shaped like q,
 //     s = (q_h . k_h) * (1/scale) + bias         (f32, two roundings)

@@ -4,9 +4,10 @@
 // Replaces the TPU kernels `_dh_kernel` and `_dw_kernel` of
 // deepsc_gan_tpu/ops/pallas/ce.py where the tuned K4 (csrc/ce_bwd.cu: D a
 // multiple of 16 up to 256) does not take the width: `--decoder-d-model
-// 640` (the wide-heads decoder) or 200 runs here in bf16. The f32 widths
-// stay on csrc/ce_wide.cu's CUDA-core kernels (exact f32 products, which
-// the f32 step-parity checks need). Same function and roundings as the
+// 640` (the wide-heads decoder) or 200 runs here in bf16, up to 5,120
+// columns. The f32 widths, and bf16 past 5,120, take csrc/ce_bwd_tiled.cu's
+// CUDA-core kernels (exact f32 products, which the f32 step-parity checks
+// need). Same function and roundings as the
 // tuned K4: with h (N, D) and W (V, D) bf16, bias b (V) f32, labels y, the
 // forward's lse (N) and the cotangent g (N),
 //     P_nv = exp(h_n . W_v + b_v - lse_n) g_n - [v == y_n] g_n      (f32)

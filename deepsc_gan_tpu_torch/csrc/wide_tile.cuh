@@ -33,16 +33,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// x rounded to T and read back (the plain versions' `.to(dtype).float()`)
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // columns [c0, c0 + KC) of rows [row0, row0 + count) of a row-major
 // (total, d) array -> f32 at row stride kCStride; zero past `total` rows and
 // past d columns

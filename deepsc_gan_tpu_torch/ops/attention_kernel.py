@@ -5,8 +5,8 @@ with `csrc/attention_bwd_resident.cu` (the bf16 K2 past 32 queries or keys
 up to L_RES of both), `csrc/attention_bwd_cluster.cu` (the bf16 K2 past
 L_RES up to L_CLUSTER), `csrc/attention_wide_mma.cu` (bf16, heads up to 256
 wide), `csrc/attention_chunked.cu` (bf16, heads wider than 256),
-`csrc/attention_tiled.cu` (the f32 K1) and `csrc/attention_wide.cu` (the
-f32 K2) for the head widths and counts they do not take, their wrappers
+`csrc/attention_tiled.cu` (the f32 K1) and `csrc/attention_bwd_tiled.cu`
+(the f32 K2) for the head widths and counts they do not take, their wrappers
 and plain PyTorch versions, and the `torch.autograd.Function` that joins
 them as the TPU package's custom VJP does.
 
@@ -31,8 +31,8 @@ from deepsc_gan_tpu_torch.ops import build
 
 KERNEL = "attention_fwd"
 KERNEL_BWD = "attention_bwd"
-KERNEL_WIDE = "attention_wide"
 KERNEL_TILED = "attention_tiled"
+KERNEL_BWD_TILED = "attention_bwd_tiled"
 KERNEL_CHUNKED = "attention_chunked"
 KERNEL_WIDE_MMA = "attention_wide_mma"
 KERNEL_RESIDENT = "attention_bwd_resident"
@@ -59,9 +59,10 @@ KERNEL_CLUSTER = "attention_bwd_cluster"
 # csrc/attention_tiled.cu (a block per row, head and 16 or 8 queries, the
 # logits formed once into shared memory from cp.async-staged chunks of q
 # and k, an exact softmax, then p v a chunk of output columns at a time),
-# the backward on csrc/attention_wide.cu (a warp per (row, head,
-# query) with the head's elements spread over the lanes, past 256 of them
-# walked in chunks of 256), any length, the same statistics scratch. bf16
+# the backward on csrc/attention_bwd_tiled.cu (a block per row, head and
+# 16 or 8 queries forming S and dP once into shared memory, p and dss
+# written to a scratch, then dq; a block per row, head and 16 or 8 keys
+# summing dk and dv from that scratch), any length. bf16
 # at heads wider than REGISTER_DH: the tensor-core chunked kernels (csrc/attention_chunked.cu: mma.sync, the logits' k-steps
 # split over a block's eight warps and their partials summed in shared
 # memory; the forward a block per row, head, 16 queries and 512 output
@@ -98,26 +99,28 @@ CLUSTER_SMEM = 232448
 # Launches of the forward (K1) and backward (K2) kernels since the last
 # reset (each wrapper adds one per launch and nowhere else; `wide_launches`
 # and `wide_bwd_launches` count the calls among them that went to the wide
-# kernels, `tiled_launches` the K1 calls that went to the tiled f32
-# kernel, `cluster_bwd_launches` the K2 calls that went to the cluster
-# kernel); read by chip_smoke.py to show that a path went through the
-# kernels.
+# kernels, `tiled_launches` and `tiled_bwd_launches` the K1 and K2 calls
+# that went to the tiled f32 kernels, `cluster_bwd_launches` the K2 calls
+# that went to the cluster kernel); read by chip_smoke.py to show that a
+# path went through the kernels.
 launches = 0
 bwd_launches = 0
 wide_launches = 0
 wide_bwd_launches = 0
 tiled_launches = 0
+tiled_bwd_launches = 0
 cluster_bwd_launches = 0
 
 
 def reset_launches() -> None:
     global launches, bwd_launches, wide_launches, wide_bwd_launches
-    global tiled_launches, cluster_bwd_launches
+    global tiled_launches, tiled_bwd_launches, cluster_bwd_launches
     launches = 0
     bwd_launches = 0
     wide_launches = 0
     wide_bwd_launches = 0
     tiled_launches = 0
+    tiled_bwd_launches = 0
     cluster_bwd_launches = 0
 
 
@@ -288,10 +291,18 @@ def is_chunked_mma(dtype, heads: int, dh: int) -> bool:
 
 
 def uses_tiled(dtype, heads: int, dh: int) -> bool:
-    """Whether K1 at `heads` heads of `dh` in `dtype` runs the tiled f32
-    kernel (csrc/attention_tiled.cu): every f32 call of the wide
-    kernels."""
+    """Whether K1 and K2 at `heads` heads of `dh` in `dtype` run the tiled
+    f32 kernels (csrc/attention_tiled.cu, csrc/attention_bwd_tiled.cu):
+    every f32 call of the wide kernels, at any length."""
     return dtype == torch.float32 and is_wide(heads, dh)
+
+
+def tiled_bwd_scratch_floats(n: int, lq: int, lk: int, heads: int,
+                             need_dbias: bool) -> int:
+    """f32 floats of the tiled K2's scratch: each head's p and dss (N, H,
+    Lq, Lk), and its ds too where dbias is asked for (summed over the
+    heads by the library's last kernel)."""
+    return (3 if need_dbias else 2) * n * heads * lq * lk
 
 
 def is_wide_mma(dtype, heads: int, dh: int) -> bool:
@@ -327,12 +338,12 @@ def _bind(kernel, dtype, long_bwd=False):
     return _BOUND[key]
 
 
-def _bind_wide():
-    """The wide library's f32 K2 launch function, with its ctypes signature
-    declared (the backward's arguments, then the statistics scratch)."""
-    key = (KERNEL_WIDE, KERNEL_BWD)
+def _bind_tiled_bwd():
+    """The tiled f32 K2's launch function, with its ctypes signature
+    declared (the backward's arguments, then its scratch)."""
+    key = (KERNEL_BWD_TILED, KERNEL_BWD)
     if key not in _BOUND:
-        fn = build.load(KERNEL_WIDE).deepsc_attention_wide_bwd_f32
+        fn = build.load(KERNEL_BWD_TILED).deepsc_attention_bwd_tiled_f32
         fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[KERNEL_BWD] + 1)
                        + [ctypes.c_int] * 5
                        + [ctypes.c_double, ctypes.c_void_p])
@@ -606,30 +617,31 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     if not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("g must be contiguous and 16-byte aligned")
     n, lq, hd = q.shape
-    lk = k.shape[1]
-    wide = is_wide(heads, hd // heads)
-    library = (KERNEL_WIDE_MMA if is_wide_mma(q.dtype, heads, hd // heads)
+    lk, dh = k.shape[1], hd // heads
+    wide = is_wide(heads, dh)
+    library = (KERNEL_WIDE_MMA if is_wide_mma(q.dtype, heads, dh)
                else KERNEL_CHUNKED
-               if is_chunked_mma(q.dtype, heads, hd // heads) else None)
+               if is_chunked_mma(q.dtype, heads, dh) else None)
     mma = library is not None
-    resident = uses_resident(q.dtype, lq, lk, heads, hd // heads)
-    cluster = uses_cluster(q.dtype, lq, lk, heads, hd // heads)
+    resident = uses_resident(q.dtype, lq, lk, heads, dh)
+    cluster = uses_cluster(q.dtype, lq, lk, heads, dh)
+    tiled = uses_tiled(q.dtype, heads, dh)
     if mma:
         fn, scratch = _bind_tensor_core(library, KERNEL_BWD), is_long(lq, lk)
     elif resident:
         fn, scratch = _bind_resident(), False
     elif cluster:
         fn, scratch = _bind_cluster(), False
-    elif wide:
-        fn, scratch = _bind_wide(), True
+    elif tiled:
+        fn, scratch = _bind_tiled_bwd(), False
     else:
         fn, scratch = _tuned(KERNEL_BWD, q, k, heads)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dbias = torch.empty_like(bias) if need_dbias else None
-    # the long-length and wide kernels' softmax statistics (m, l,
-    # rowsum(dp p), pad) per (row, head, query), written by the dq kernel,
-    # read by the dk/dv one (the tensor-core wide and chunked kernels need
-    # them only past TILE queries or keys)
+    # the long-length kernels' softmax statistics (m, l, rowsum(dp p), pad)
+    # per (row, head, query), written by the dq kernel, read by the dk/dv
+    # one (the tensor-core wide and chunked kernels need them only past
+    # TILE queries or keys)
     stats = torch.empty((n, heads, lq, 4), dtype=torch.float32,
                         device=q.device) if scratch else None
     pointers = [stats] if scratch else []
@@ -643,19 +655,26 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
         ds = torch.empty((n, heads, lq, lk), dtype=torch.float32,
                          device=q.device) if need_dbias else None
         pointers = [stats, ds]
+    elif tiled:
+        # each head's p and dss (and ds, summed over the heads for dbias)
+        pointers = [torch.empty(tiled_bwd_scratch_floats(
+            n, lq, lk, heads, need_dbias), dtype=torch.float32,
+            device=q.device)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
              g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              None if dbias is None else dbias.data_ptr(),
              *(None if t is None else t.data_ptr() for t in pointers),
-             n, lq, lk, heads, hd // heads, float(scale), stream)
+             n, lq, lk, heads, dh, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA "
                            f"error {err}")
     global bwd_launches, wide_bwd_launches, cluster_bwd_launches
+    global tiled_bwd_launches
     bwd_launches += 1
     wide_bwd_launches += wide
     cluster_bwd_launches += cluster
+    tiled_bwd_launches += tiled
     return dq, dk, dv, dbias
 
 

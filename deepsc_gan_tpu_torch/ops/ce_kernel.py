@@ -22,12 +22,14 @@ on the tensor cores (wgmma) and f32 on the CUDA cores in exact f32, which
 the f32 step-parity checks need; a width they do not take goes to the wide
 kernels: K3 in bf16 to `csrc/ce_wide_fwd.cu` (`wgmma`, the tuned K3's tile
 step with D streamed through a TMA ring in 64-column k-chunks of h's and
-W's tiles), K4 in bf16 to `csrc/ce_wide_bwd.cu` (`wgmma`, the output's D
-cut into 64-column slabs over the two warpgroups of a block and, past 640
-columns, over a cluster of blocks that share each tile's logits through
-distributed shared memory), the f32 widths (and the bf16 K4 past 5,120
-columns) to `csrc/ce_wide.cu` (CUDA-core tiles with D streamed in
-chunks).
+W's tiles) and in f32 to `csrc/ce_wide.cu` (CUDA-core tiles with D streamed
+in chunks); K4 in bf16 up to 5,120 columns to `csrc/ce_wide_bwd.cu`
+(`wgmma`, the output's D cut into 64-column slabs over the two warpgroups
+of a block and, past 640 columns, over a cluster of blocks that share each
+tile's logits through distributed shared memory), and every other wide K4
+(every f32 one, bf16 past 5,120 columns) to `csrc/ce_bwd_tiled.cu` (P
+formed once into an (N, V) workspace by 128 x 128 CUDA-core tiles, then
+dh = Pc W and dW = Pc^T h as two tiled products that read it).
 """
 
 from __future__ import annotations
@@ -45,11 +47,12 @@ KERNEL_BWD = "ce_bwd"
 KERNEL_WIDE = "ce_wide"
 KERNEL_WIDE_BWD = "ce_wide_bwd"
 KERNEL_WIDE_FWD = "ce_wide_fwd"
+KERNEL_BWD_TILED = "ce_bwd_tiled"
 # what the tuned kernels take: D a multiple of D_STEP (one wgmma k-step in
 # bf16, the f32 kernels' vector loads) up to MAX_D; any other D >= 1 goes
 # to the wide kernels (bf16: csrc/ce_wide_fwd.cu and csrc/ce_wide_bwd.cu on
-# the tensor cores; f32: csrc/ce_wide.cu, D streamed in chunks through the
-# f32 CUDA-core tiles)
+# the tensor cores; f32: csrc/ce_wide.cu for K3, csrc/ce_bwd_tiled.cu for
+# K4)
 MAX_D = 256
 D_STEP = {torch.float32: 8, torch.bfloat16: 16}
 # the bf16 wide K3 on the tensor cores (csrc/ce_wide_fwd.cu): a ring of
@@ -71,28 +74,35 @@ BLOCK_SLABS = 10
 MAX_CLUSTER = 8
 MAX_STAGES = 4
 SMEM_BUDGET = 232448 - 256
+# the tiled K4 (csrc/ce_bwd_tiled.cu): tiles of TILED_TILE rows and
+# columns; its P workspace has N and V rounded up to TILED_TILE, and the dh
+# product's vocab splits each own whole vocab tiles
+TILED_TILE = 128
 
 # Launches of the forward (K3) and backward (K4) kernels since the last
 # reset (each wrapper adds one per call that launches its kernels and
 # nowhere else; `bwd_dh_only_launches` counts the K4 calls among them that
 # ran in the dh-only mode, `wide_fwd_launches` and `wide_bwd_launches` the
-# calls that went to the wide kernels); read by chip_smoke.py to show that
-# a path went through them.
+# calls that went to the wide kernels, `tiled_bwd_launches` the K4 calls
+# among those that went to the tiled kernels); read by chip_smoke.py to show
+# that a path went through them.
 fwd_launches = 0
 bwd_launches = 0
 bwd_dh_only_launches = 0
 wide_fwd_launches = 0
 wide_bwd_launches = 0
+tiled_bwd_launches = 0
 
 
 def reset_launches() -> None:
     global fwd_launches, bwd_launches, bwd_dh_only_launches
-    global wide_fwd_launches, wide_bwd_launches
+    global wide_fwd_launches, wide_bwd_launches, tiled_bwd_launches
     fwd_launches = 0
     bwd_launches = 0
     bwd_dh_only_launches = 0
     wide_fwd_launches = 0
     wide_bwd_launches = 0
+    tiled_bwd_launches = 0
 
 
 def is_wide(dtype: torch.dtype, d: int) -> bool:
@@ -171,9 +181,47 @@ def uses_tensor_core_bwd(dtype: torch.dtype, d: int) -> bool:
     """Whether K4 at width d in `dtype` runs the wide tensor-core kernels
     (csrc/ce_wide_bwd.cu): bf16, off the tuned widths, and D up to
     MAX_CLUSTER x BLOCK_SLABS x SLAB; the f32 wide widths, and bf16 past
-    5,120, run the CUDA-core wide kernels."""
+    5,120, run the tiled kernels (`uses_tiled_bwd`)."""
     return (op_dtype(dtype) == torch.bfloat16 and is_wide(dtype, d)
             and wide_bwd_plan(padded_width(d)) is not None)
+
+
+def uses_tiled_bwd(dtype: torch.dtype, d: int) -> bool:
+    """Whether K4 at width d in `dtype` runs the tiled kernels
+    (csrc/ce_bwd_tiled.cu): every wide K4 the tensor-core wide kernels do
+    not take (every f32 width off the tuned kernel's, bf16 past 5,120)."""
+    return is_wide(dtype, d) and not uses_tensor_core_bwd(dtype, d)
+
+
+def tiled_workspace(n: int, v: int):
+    """The shape of the tiled K4's P workspace: N and V rounded up to
+    TILED_TILE (the P kernel writes its whole tiles, zeros past N and V)."""
+    return (-(-n // TILED_TILE) * TILED_TILE,
+            -(-v // TILED_TILE) * TILED_TILE)
+
+
+def tiled_splits(n: int, d: int, v: int, sm_count: int,
+                 blocks_per_sm: int) -> int:
+    """Vocab splits of the tiled K4's dh product: the most whose blocks
+    (row tiles x column tiles of D x splits) all fit in one wave of
+    `blocks_per_sm` blocks per SM, at least one; every split owns at least
+    one vocab tile (the library's condition). Its partials are added in
+    split order."""
+    tiles = -(-n // TILED_TILE) * -(-d // TILED_TILE)
+    vt = -(-v // TILED_TILE)
+    want = max(1, blocks_per_sm * sm_count // tiles)
+    per = -(-vt // min(want, vt))
+    return -(-vt // per)
+
+
+def tiled_split_ranges(v: int, splits: int):
+    """[(first, last) vocab index of each split of the tiled K4's dh
+    product], within the workspace's V rounded up to TILED_TILE: whole
+    vocab tiles, split s from s x ceil(tiles / splits) of them."""
+    vt = -(-v // TILED_TILE)
+    per = -(-vt // splits)
+    return [(s * per * TILED_TILE, min((s + 1) * per, vt) * TILED_TILE)
+            for s in range(splits)]
 
 
 def op_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -290,16 +338,29 @@ def library_plan(dp: int, kernel: str = KERNEL_WIDE_BWD):
     return plan(*out)
 
 
-def _bind_wide(kernel, dtype):
-    """The wide library's launch function for `kernel`'s function (K3 or
-    K4) in `dtype`, with its ctypes signature declared (the tuned entry's
-    arguments)."""
-    key = (KERNEL_WIDE, kernel, dtype)
+def _bind_wide(dtype):
+    """The wide library's K3 launch function in `dtype` (csrc/ce_wide.cu),
+    with its ctypes signature declared (the tuned entry's arguments)."""
+    key = (KERNEL_WIDE, KERNEL_FWD, dtype)
     if key not in _BOUND:
-        part = "fwd" if kernel == KERNEL_FWD else "bwd"
         fn = getattr(build.load(KERNEL_WIDE),
-                     f"deepsc_ce_wide_{part}_{_SUFFIX[dtype]}")
-        fn.argtypes = ([ctypes.c_void_p] * _POINTERS[kernel]
+                     f"deepsc_ce_wide_fwd_{_SUFFIX[dtype]}")
+        fn.argtypes = ([ctypes.c_void_p] * _POINTERS[KERNEL_FWD]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
+def _bind_tiled_bwd(dtype):
+    """The tiled K4's launch function in `dtype` (csrc/ce_bwd_tiled.cu),
+    with its ctypes signature declared (the tuned entry's pointers, then the
+    P workspace and the dh partials)."""
+    key = (KERNEL_BWD_TILED, dtype)
+    if key not in _BOUND:
+        fn = getattr(build.load(KERNEL_BWD_TILED),
+                     f"deepsc_{KERNEL_BWD_TILED}_{_SUFFIX[dtype]}")
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[KERNEL_BWD] + 1)
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _BOUND[key] = fn
@@ -309,7 +370,8 @@ def _bind_wide(kernel, dtype):
 def tiling(kernel, dtype, d, device):
     """(rows of h per tile, vocab rows per tile, blocks per SM) of the
     kernel in the library `kernel` (`ce_fwd`, `ce_bwd`, `ce_wide`,
-    `ce_wide_fwd` or `ce_wide_bwd` (d: the padded width), or K6's `topk`,
+    `ce_bwd_tiled`, `ce_wide_fwd` or `ce_wide_bwd` (d: the padded width),
+    or K6's `topk`,
     `topk_select` or `topk_wide_mma` (d: the list length k, its tiling the
     same at every width))
     that takes the vocab splits, at width d on
@@ -388,12 +450,12 @@ def vocab_splits(n: int, v: int, sm_count: int, rows: int, vocab_rows: int,
 
 def _launch_setup(kernel, h, W):
     """(launch function, vocab splits, whether it is the wide kernels') for
-    h and W."""
+    h and W (the wide kernels: K3's alone, csrc/ce_wide.cu)."""
     (n, d), v = h.shape, W.shape[0]
     props = torch.cuda.get_device_properties(h.device)
     wide = is_wide(h.dtype, d)
     if wide:
-        fn, tiles = _bind_wide(kernel, h.dtype), KERNEL_WIDE
+        fn, tiles = _bind_wide(h.dtype), KERNEL_WIDE
     else:
         fn, smem_bytes = _bind(kernel, h.dtype)
         tiles = kernel
@@ -463,35 +525,44 @@ def ce_bwd(h, W, b, labels, lse, g, dh_only=False):
     _check(h, W, b, labels, lse, g)
     (n, d), v = h.shape, W.shape[0]
     tensor_cores = uses_tensor_core_bwd(h.dtype, d)
+    tiled = uses_tiled_bwd(h.dtype, d)
+    f32 = {"dtype": torch.float32, "device": h.device}
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     if tensor_cores:
         dp = padded_width(d)
         plan = wide_bwd_plan(dp)
-        fn, wide = _bind_wide_bwd(), True
-        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+        fn = _bind_wide_bwd()
         splits = vocab_splits(n, v, max(1, sms // plan.cluster),
                               *tiling(KERNEL_WIDE_BWD, h.dtype, dp, h.device))
         h, W = _padded(h, dp), _padded(W, dp)
+    elif tiled:
+        fn = _bind_tiled_bwd(h.dtype)
+        splits = tiled_splits(n, d, v, sms, tiling(KERNEL_BWD_TILED, h.dtype,
+                                                   d, h.device)[2])
+        # P once, (N, V) rounded up to whole tiles
+        work = torch.empty(tiled_workspace(n, v), **f32)
     else:
-        fn, splits, wide = _launch_setup(KERNEL_BWD, h, W)
-    f32 = {"dtype": torch.float32, "device": h.device}
+        fn, splits, _ = _launch_setup(KERNEL_BWD, h, W)
     dh = torch.empty((n, d), **f32)
     dW = None if dh_only else torch.empty((v, d), **f32)
     db = None if dh_only else torch.empty(v, **f32)
-    dh_part = torch.empty((splits, n, d), **f32)
+    dh_part = (torch.empty((splits, n, d), **f32)
+               if splits > 1 or not tiled else None)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     sizes = (n, d, dp, v) if tensor_cores else (n, d, v)
-    err = fn(h.data_ptr(), W.data_ptr(), b.data_ptr(), labels.data_ptr(),
-             lse.data_ptr(), g.data_ptr(), dh.data_ptr(),
-             None if dh_only else dW.data_ptr(),
-             None if dh_only else db.data_ptr(), dh_part.data_ptr(), *sizes,
-             splits, stream)
+    pointers = [h, W, b, labels, lse, g, dh, dW, db] + (
+        [work] if tiled else []) + [dh_part]
+    err = fn(*(None if t is None else t.data_ptr() for t in pointers),
+             *sizes, splits, stream)
     if err != 0:
         raise RuntimeError(f"CE backward kernel launch failed: CUDA error "
                            f"{err}")
     global bwd_launches, bwd_dh_only_launches, wide_bwd_launches
+    global tiled_bwd_launches
     bwd_launches += 1
     bwd_dh_only_launches += dh_only
-    wide_bwd_launches += wide
+    wide_bwd_launches += tensor_cores or tiled
+    tiled_bwd_launches += tiled
     return dh, dW, db
 
 

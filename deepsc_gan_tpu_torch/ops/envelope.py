@@ -40,9 +40,14 @@ check lets through:
   row of keys outgrows a block's shared memory);
 - K2: the tuned kernel (the f32 short kernel's shared memory checked here,
   else the long-length kernels), the bf16 resident and cluster kernels
-  past 32 queries or keys, the wide kernels (bf16 tensor-core, f32
-  csrc/attention_wide.cu) at other heads;
-- K3/K4: the tuned kernels, else the wide ones, at any width;
+  past 32 queries or keys, the wide kernels at other heads: in bf16 the
+  tensor-core wide or chunked kernels, in f32 the tiled kernels
+  (csrc/attention_bwd_tiled.cu; any length, S and dP formed in its
+  scratch where a row of keys outgrows a block's shared memory);
+- K3/K4: the tuned kernels, else the wide ones, at any width: in f32 K3
+  on csrc/ce_wide.cu and K4 on the tiled kernels (csrc/ce_bwd_tiled.cu:
+  P once into an (N, V) workspace, then dh and dW), in bf16 both on the
+  tensor cores (K4 up to 5,120 columns, the tiled kernels past them);
 - K6: `--beam-size` k in 1..V at any width: the tuned kernel up to k = 8,
   in bf16 the tensor-core wide kernel up to 64 and its long path up to
   256 (V up to 25,000), every other call (every f32 one, bf16 past them)

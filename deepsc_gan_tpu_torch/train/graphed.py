@@ -32,10 +32,11 @@ from deepsc_gan_tpu_torch.ops import star_kernel, topk_kernel
 # every kernel launch count, by module
 _COUNTS = ((attention_kernel, ("launches", "bwd_launches", "wide_launches",
                                "wide_bwd_launches", "tiled_launches",
+                               "tiled_bwd_launches",
                                "cluster_bwd_launches")),
            (ce_kernel, ("fwd_launches", "bwd_launches",
                         "bwd_dh_only_launches", "wide_fwd_launches",
-                        "wide_bwd_launches")),
+                        "wide_bwd_launches", "tiled_bwd_launches")),
            (star_kernel, ("launches", "wide_launches")),
            (topk_kernel, ("launches", "wide_launches",
                           "long_list_launches", "select_launches")))

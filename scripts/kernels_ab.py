@@ -8,7 +8,8 @@
                  wide_beam_eval,long_train,past_list_topk,
                  past_resident_bwd,beam100_eval,seq256_train,
                  select_topk,tiled_attention,f32_wide_beam_eval,
-                 f32_wide_heads_eval]
+                 f32_wide_heads_eval,f32_wide_ce_bwd,
+                 f32_wide_attention_bwd,f32_wide_heads_train]
         [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
@@ -101,7 +102,18 @@ library call's. Cases:
 - `f32_wide_heads_eval`: `cli evaluate` (the full-prefix greedy sweep) at
   `--dtype float32` on a random init of the wide-heads transceiver
   (`wide_heads_train`'s widths), one batch of 64 at 19 SNRs: the decode
-  call's seconds as the row's `ms`.
+  call's seconds as the row's `ms`;
+- `f32_wide_ce_bwd`: K3 and K4 in f32 at the widths the tuned kernels do
+  not take, N = 1,984, V = 22,234: D = 640 (the wide-heads path's), 512
+  and 264, and K4's dh-only mode at D = 640, with their plain versions and
+  library calls as in chip_smoke.ce_cases, and each K4 kernel's device
+  time;
+- `f32_wide_attention_bwd`: K2 in f32 (no dbias) at every wide shape of
+  chip_smoke's kernel rows (N = 64): WIDE_HEADS_PATH, WIDE_PATH, WIDE_HEADS
+  at 31 x 31 and OFF_STEP_HEADS, with its plain version and SDPA's
+  backward (f32) as in chip_smoke.attention_bwd_case, and each kernel's
+  device time;
+- `f32_wide_heads_train`: `wide_heads_train` at `--dtype float32`.
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -124,7 +136,8 @@ CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
          "wide_heads_train", "wide_topk", "long_attention_bwd",
          "wide_beam_eval", "long_train", "past_list_topk",
          "past_resident_bwd", "beam100_eval", "seq256_train", "select_topk",
-         "tiled_attention", "f32_wide_beam_eval", "f32_wide_heads_eval")
+         "tiled_attention", "f32_wide_beam_eval", "f32_wide_heads_eval",
+         "f32_wide_ce_bwd", "f32_wide_attention_bwd", "f32_wide_heads_train")
 PARAMS = Path(__file__).resolve().parent.parent / "results" \
     / "plain_best_params.pkl"
 
@@ -145,7 +158,7 @@ N, D, V = 1984, 128, 22234
 SERVE, TRAIN, BEAM = 19 * 64, 64, 256
 
 
-def device_us(kernel, case, call):
+def device_us(kernel, case, call, dtype="bfloat16"):
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -161,7 +174,7 @@ def device_us(kernel, case, call):
             by_name[e.name] = by_name.get(e.name, 0.0) + us
             count += 1
     print("DEVICE " + json.dumps({"kernel": kernel, "case": case,
-                                  "dtype": "bfloat16",
+                                  "dtype": dtype,
                                   "device_us": sum(by_name.values()),
                                   "kernels": count / 20,
                                   "by_name": by_name}), flush=True)
@@ -299,19 +312,21 @@ TRAIN_WIDTHS = {
                          "1", "--encoder-d-ff", "1024", "--decoder-d-model",
                          "640", "--decoder-num-heads", "2", "--decoder-d-ff",
                          "1280"]}
+TRAIN_WIDTHS["f32_wide_heads_train"] = TRAIN_WIDTHS["wide_heads_train"]
 for case, widths in TRAIN_WIDTHS.items():
     if case not in cases:
         continue
     from deepsc_gan_tpu_torch import cli
+    dtype = "float32" if case.startswith("f32") else "bfloat16"
     res = cli.main(["train", "--variant", "transformer", "--train-mode",
-                    "plain", "--dtype", "bfloat16", "--bs", str(TRAIN),
+                    "plain", "--dtype", dtype, "--bs", str(TRAIN),
                     "--epochs", "3", "--seed", "0", "--device", "cuda",
                     "--log-every", "64", "--log-save-path",
                     f"log/kernels_ab/{case}", "--checkpoint-path",
                     f"log/kernels_ab/{case}_ckpt", *widths])
     seconds = res["epoch_seconds"]
     steps = res["steps"] // len(seconds)
-    row({"kernel": "cli_train", "case": case, "dtype": "bfloat16",
+    row({"kernel": "cli_train", "case": case, "dtype": dtype,
          "path": res["path"], "epoch_seconds": seconds,
          "ms": sum(seconds[1:]) / len(seconds[1:]) / steps * 1e3})
 if "wide_topk" in cases:
@@ -409,6 +424,40 @@ if "tiled_attention" in cases:
     for label, heads, dh, lq, lk in shapes:
         row(cs.attention_case(label, TRAIN, lq, lk, torch.float32, gen,
                               iters, heads, dh))
+if "f32_wide_ce_bwd" in cases:
+    f32 = torch.float32
+    gen = torch.Generator("cuda").manual_seed(0)
+    for d in (264, 512, 640):
+        for r in cs.ce_cases(f32, gen, iters, N, d, V, label=f"ce_d{d}"):
+            row(r)
+    row(cs.ce_dh_only_case(f32, gen, iters, N, 640, V,
+                           label="ce_dh_only_d640"))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for d in (264, 512, 640):  # the dh-only mode below at D = 640
+        h, W, b, labels, g = cs.ce_inputs(f32, gen, N, d, V)
+        lse = ce.ce_fwd(h, W, b, labels)[1]
+        device_us(ce.KERNEL_BWD, f"ce_d{d}",
+                  lambda: ce.ce_bwd(h, W, b, labels, lse, g), "float32")
+    device_us(ce.KERNEL_BWD, "ce_dh_only_d640",
+              lambda: ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True),
+              "float32")
+if "f32_wide_attention_bwd" in cases:
+    f32 = torch.float32
+    shapes = list(cs.WIDE_HEADS_PATH) + list(cs.WIDE_PATH) + [
+        (f"wide_{heads}x{dh}", heads, dh, 31, 31)
+        for heads, dh in cs.WIDE_HEADS] + [cs.OFF_STEP_HEADS]
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, heads, dh, lq, lk in shapes:
+        row(cs.attention_bwd_case(label, TRAIN, lq, lk, f32, gen, iters,
+                                  False, heads, dh))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, heads, dh, lq, lk in shapes:
+        q, k, v, bias = cs.attention_inputs(TRAIN, lq, lk, f32, gen,
+                                            lq == lk, heads, dh)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        device_us(attn.KERNEL_BWD, label,
+                  lambda: attn.attention_bwd(q, k, v, bias, g, heads,
+                                             dh ** 0.5, False), "float32")
 if "long_train" in cases:
     from deepsc_gan_tpu_torch import cli
     res = cli.main(["train", "--variant", "transformer", "--train-mode",

@@ -306,7 +306,7 @@ def test_wide_mma_routing(dtype, h, dh, mma):
     257 and wider stay on the chunked kernels, the tuned shapes on the
     tuned kernels, and f32 never goes (it keeps exact f32 sums on the CUDA
     cores: the forward csrc/attention_tiled.cu, the backward
-    csrc/attention_wide.cu)."""
+    csrc/attention_bwd_tiled.cu)."""
     assert attn.is_wide_mma(dtype, h, dh) == mma
     assert not (mma and attn.is_chunked_mma(dtype, h, dh))
     if mma:
@@ -321,9 +321,9 @@ def test_wide_mma_routing(dtype, h, dh, mma):
     (torch.float32, 1, 512, False), (torch.float32, 1, 300, False)])
 def test_chunked_mma_routing(dtype, h, dh, chunked):
     """The bf16 K1 and K2 at heads wider than 256 run the tensor-core
-    chunked kernels (csrc/attention_chunked.cu); f32 (the tiled forward of
-    csrc/attention_tiled.cu, the chunked CUDA-core backward of
-    csrc/attention_wide.cu) and narrower heads do not."""
+    chunked kernels (csrc/attention_chunked.cu); f32 (the tiled kernels of
+    csrc/attention_tiled.cu and csrc/attention_bwd_tiled.cu) and narrower
+    heads do not."""
     assert attn.is_chunked_mma(dtype, h, dh) == chunked
 
 
@@ -337,12 +337,17 @@ def test_chunked_mma_routing(dtype, h, dh, chunked):
     (torch.float32, 2, 8, False), (torch.bfloat16, 8, 25, False),
     (torch.bfloat16, 1, 512, False), (torch.bfloat16, 8, 16, False)])
 def test_tiled_routing(dtype, h, dh, tiled):
-    """The f32 K1 at every head width and count the tuned kernel does not
-    take (widths off 8, 16 and 32, more than 16 heads, heads past 256) runs
-    the tiled kernel (csrc/attention_tiled.cu); the tuned shapes stay on
-    the tuned kernel and bf16 on its tensor-core kernels."""
+    """The f32 K1 and K2 at every head width and count the tuned kernels do
+    not take (widths off 8, 16 and 32, more than 16 heads, heads past 256)
+    run the tiled kernels (csrc/attention_tiled.cu,
+    csrc/attention_bwd_tiled.cu), at any length (never the resident or
+    cluster K2, which are bf16's); the tuned shapes stay on the tuned
+    kernels and bf16 on its tensor-core kernels."""
     assert attn.uses_tiled(dtype, h, dh) == tiled
     assert tiled == (dtype == torch.float32 and attn.is_wide(h, dh))
+    for lq, lk in ((31, 31), (31, 32), (70, 97), (300, 300)):
+        assert not (tiled and (attn.uses_resident(dtype, lq, lk, h, dh)
+                               or attn.uses_cluster(dtype, lq, lk, h, dh)))
 
 
 def _fma(a, b, c):
@@ -407,6 +412,125 @@ def test_tiled_forward_emulation_matches_plain_version(shape):
     finally:
         set_attn_kernel_mode("auto")
     assert np.abs(got.numpy() - jax_out).max() <= 1e-5
+
+
+@pytest.mark.parametrize("n,lq,lk,heads,dbias,floats", [
+    (64, 31, 31, 2, False, 2 * 64 * 2 * 31 * 31),
+    (64, 31, 31, 2, True, 3 * 64 * 2 * 31 * 31),
+    (2, 20, 3000, 1, False, 2 * 2 * 20 * 3000)])
+def test_tiled_bwd_scratch(n, lq, lk, heads, dbias, floats):
+    """The tiled K2's scratch: each head's p and dss (N, H, Lq, Lk), and ds
+    too with dbias."""
+    assert attn.tiled_bwd_scratch_floats(n, lq, lk, heads, dbias) == floats
+
+
+def _tiled_backward(q, k, v, bias, g, heads, scale, need_dbias):
+    """The tiled f32 K2's arithmetic in its order
+    (csrc/attention_bwd_tiled.cu) on CPU tensors: each logit and each dp a
+    sum over d in order 0..Dh-1 by fmaf, the logit times 1/scale (rounded
+    once to f32) plus its bias; a row's max, exp(s - max) and their sum
+    over 32 lanes (lane l takes keys l, l + 32, ... in order, then a
+    butterfly of five steps), p = e / sum, rowsum = sum_j p_j dp_j over the
+    lanes the same way by fmaf; ds = p (dp - rowsum), dss = ds (1/scale);
+    dq a sum over the keys in order by fmaf, dk and dv over the queries;
+    dbias the heads' ds added in order 0..H-1."""
+    n, lq, hd = q.shape
+    lk, dh = k.shape[1], hd // heads
+    inv = torch.tensor(1.0 / scale, dtype=torch.float64).float()
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    dbias = torch.zeros((n, lq, lk))
+    lane = torch.arange(32)
+
+    def lanes_sum(x, y=None):
+        acc = torch.zeros((n, lq, 32))
+        for j in range(lk):
+            acc[..., j % 32] = (acc[..., j % 32] + x[..., j] if y is None
+                                else _fma(x[..., j], y[..., j],
+                                          acc[..., j % 32]))
+        for o in (16, 8, 4, 2, 1):
+            acc = acc + acc[..., lane ^ o]
+        return acc[..., :1]
+
+    for h in range(heads):
+        cols = slice(h * dh, (h + 1) * dh)
+        qh, kh, vh, gh = (t[:, :, cols] for t in (q, k, v, g))
+        s = torch.zeros((n, lq, lk))
+        dp = torch.zeros((n, lq, lk))
+        for d in range(dh):
+            s = _fma(qh[:, :, d, None], kh[:, None, :, d], s)
+            dp = _fma(gh[:, :, d, None], vh[:, None, :, d], dp)
+        s = s * inv + bias
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / lanes_sum(e)
+        ds = p * (dp - lanes_sum(p, dp))
+        dss = ds * inv
+        dq = torch.zeros((n, lq, dh))
+        for j in range(lk):
+            dq = _fma(dss[..., j, None], kh[:, None, j, :], dq)
+        dk = torch.zeros((n, lk, dh))
+        dv = torch.zeros((n, lk, dh))
+        for i in range(lq):
+            dk = _fma(dss[:, i, :, None], qh[:, i, None, :], dk)
+            dv = _fma(p[:, i, :, None], gh[:, i, None, :], dv)
+        for grad, part in zip(grads, (dq, dk, dv)):
+            grad[:, :, cols] = part
+        dbias = dbias + ds
+    return (*grads, dbias if need_dbias else None)
+
+
+_JAX_VJPS = {}
+
+
+def _jax_attention_vjp(shape):
+    """(q, k, v, bias, g, [dq, dk, dv, dbias]) of the TPU kernel's custom
+    VJP under the Pallas interpreter, g = cos(out), once per shape."""
+    if shape not in _JAX_VJPS:
+        b, lq, lk, h, dh = shape
+        q, k, v, bias = _inputs(11, b, lq, lk, h, dh)
+        scale = float(np.sqrt(dh))
+        set_attn_kernel_mode("interpret")
+        try:
+            out, vjp = jax.vjp(
+                lambda *a: jax_fused_attention(*a, h, scale),
+                *(jnp.asarray(a) for a in (q, k, v, bias)))
+            g = np.cos(np.asarray(out))
+            want = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+        finally:
+            set_attn_kernel_mode("auto")
+        _JAX_VJPS[shape] = (q, k, v, bias, g, want)
+    return _JAX_VJPS[shape]
+
+
+@pytest.mark.parametrize("shape", [(2, 31, 31, 8, 25), (2, 32, 32, 8, 64),
+                                   (2, 31, 32, 2, 320), (1, 5, 70, 1, 300),
+                                   (2, 7, 9, 3, 5)])
+@pytest.mark.parametrize("dbias", [False, True])
+def test_tiled_backward_emulation_matches_plain_version(shape, dbias):
+    """The tiled f32 K2's order of sums and roundings (`_tiled_backward`)
+    at the widened model's heads (8 of 25, 8 of 64), the wide-heads
+    decoder's (2 of 320), one head of 300 past 64 keys (several of the
+    kernel's key chunks) and 3 heads of 5, with a fully blocked row, with
+    and without dbias: dq, dk, dv within 1e-5 of the plain version's and of
+    the TPU kernel's VJP (under the Pallas interpreter), and dbias within
+    1e-5 of its largest value (a sum over the heads of p (dp - rowsum),
+    where dp is a dot of Dh products); dq, dk and dv the same bits with and
+    without dbias."""
+    b, lq, lk, h, dh = shape
+    q, k, v, bias, g, jax_grads = _jax_attention_vjp(shape)
+    scale = float(np.sqrt(dh))
+    ts = [torch.from_numpy(a) for a in (q, k, v, bias, g)]
+    got = _tiled_backward(*ts, h, scale, dbias)
+    want = attn.attention_bwd_reference(*ts, h, scale, dbias)
+    for name, a, r, j in zip(("dq", "dk", "dv", "dbias"), got, want,
+                             jax_grads):
+        if name == "dbias" and not dbias:
+            assert a is None and r is None
+            continue
+        tol = 1e-5 * (r.abs().max().item() if name == "dbias" else 1.0)
+        assert (a - r).abs().max().item() <= tol, name
+        assert np.abs(a.numpy() - j).max() <= tol, name
+    other = _tiled_backward(*ts, h, scale, not dbias)
+    assert all(torch.equal(x, y) for x, y in zip(got[:3], other[:3]))
 
 
 @pytest.mark.parametrize("dtype,lq,lk,h,dh,resident", [

@@ -330,10 +330,150 @@ def test_wide_fwd_routing(dtype, d, tensor_cores):
 
 def test_wide_bwd_routing():
     """bf16 off the tuned widths up to 5,120 runs the tensor-core wide K4;
-    f32 and wider bf16 the CUDA-core wide kernels; tuned widths neither."""
+    f32 and wider bf16 the tiled kernels; tuned widths neither."""
     assert ce.uses_tensor_core_bwd(torch.bfloat16, 640)
     assert ce.uses_tensor_core_bwd(torch.bfloat16, 12)
     assert ce.uses_tensor_core_bwd(torch.bfloat16, 5120)
     assert not ce.uses_tensor_core_bwd(torch.bfloat16, 5121)
     assert not ce.uses_tensor_core_bwd(torch.bfloat16, 128)
     assert not ce.uses_tensor_core_bwd(torch.float32, 640)
+
+
+@pytest.mark.parametrize("dtype,d,tiled", [
+    (torch.float32, 640, True), (torch.float32, 512, True),
+    (torch.float32, 264, True), (torch.float32, 12, True),
+    (torch.float32, 1, True), (torch.float32, 257, True),
+    (torch.float32, 5128, True), (torch.float32, 128, False),
+    (torch.float32, 200, False), (torch.float32, 256, False),
+    (torch.bfloat16, 5121, True), (torch.bfloat16, 5128, True),
+    (torch.bfloat16, 5120, False), (torch.bfloat16, 640, False),
+    (torch.bfloat16, 200, False), (torch.bfloat16, 128, False)])
+def test_tiled_bwd_routing(dtype, d, tiled):
+    """K4 runs the tiled kernels (csrc/ce_bwd_tiled.cu) at every f32 width
+    off the tuned kernel's (off 8 columns or past 256) and in bf16 past the
+    tensor-core wide kernels' 5,120 columns; every other wide K4 runs the
+    tensor-core wide kernels, the tuned widths the tuned kernel."""
+    assert ce.uses_tiled_bwd(dtype, d) == tiled
+    assert not (tiled and ce.uses_tensor_core_bwd(dtype, d))
+    assert not tiled or ce.is_wide(dtype, d)
+
+
+@pytest.mark.parametrize("n,d,v,sms,blocks", [
+    (1984, 640, 22234, 132, 2), (1984, 512, 22234, 132, 1),
+    (1984, 264, 22234, 132, 3), (16, 12, 40, 132, 2), (1, 3, 1, 132, 2),
+    (100000, 640, 22234, 132, 2), (300, 520, 3000, 4, 2),
+    (64, 5128, 129, 132, 2)])
+def test_tiled_splits_own_vocab_tiles(n, d, v, sms, blocks):
+    """The tiled K4's dh product cuts the vocab into splits of whole
+    128-row tiles, none empty (the library refuses an empty one), covering
+    the workspace's vocab in order, their blocks within one wave; the
+    workspace holds N and V rounded up to 128."""
+    splits = ce.tiled_splits(n, d, v, sms, blocks)
+    np_, vp = ce.tiled_workspace(n, v)
+    assert np_ % 128 == 0 and vp % 128 == 0
+    assert n <= np_ < n + 128 and v <= vp < v + 128
+    assert splits == 1 or -(-n // 128) * -(-d // 128) * splits \
+        <= blocks * sms
+    ranges = ce.tiled_split_ranges(v, splits)
+    assert len(ranges) == splits and ranges[0][0] == 0 \
+        and ranges[-1][1] == vp
+    assert all(lo < hi and lo % 128 == 0 for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    tiles = vp // 128
+    per = -(-tiles // splits)
+    assert (splits - 1) * per < tiles
+
+
+def _fma(a, b, c):
+    """f32 fmaf(a, b, c), emulated: the exact product and sum in f64 (a
+    product of two f32 values is exact there), rounded once to f32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tiled_ce_bwd(h, W, b, labels, lse, g, splits, dh_only):
+    """The tiled K4's arithmetic in its order (csrc/ce_bwd_tiled.cu) on
+    f32 CPU tensors: each logit a sum over d in order 0..D-1 by fmaf, then
+    P = exp((logit + b) - lse) g, less g at the label; dh a sum over each
+    vocab split's rows in order by fmaf, the splits' partials added in
+    split order (`ce.tiled_split_ranges`); dW a sum over the rows n in
+    order by fmaf; db = sum_n P in order."""
+    n, d = h.shape
+    v = W.shape[0]
+    acc = torch.zeros((n, v))
+    for k in range(d):
+        acc = _fma(h[:, k, None], W[None, :, k], acc)
+    p = torch.exp((acc + b) - lse[:, None]) * g[:, None]
+    rows = torch.arange(n)
+    p[rows, labels.long()] -= g
+    parts = []
+    for lo, hi in ce.tiled_split_ranges(v, splits):
+        part = torch.zeros((n, d))
+        for j in range(lo, min(hi, v)):  # rows past V add exact zeros
+            part = _fma(p[:, j, None], W[None, j, :], part)
+        parts.append(part)
+    dh = parts[0]
+    if splits > 1:
+        dh = torch.zeros((n, d))
+        for part in parts:
+            dh = dh + part
+    if dh_only:
+        return dh, None, None
+    dW = torch.zeros((v, d))
+    db = torch.zeros(v)
+    for i in range(n):
+        dW = _fma(p[i, :, None], h[None, i, :], dW)
+        db = db + p[i]
+    return dh, dW, db
+
+
+_JAX_CE_GRADS = {}
+
+
+def _jax_ce_grads(n, d, v):
+    """dh, dW (port layout) and db of sum(ce * weights) through the TPU
+    kernels under the Pallas interpreter, once per shape."""
+    if (n, d, v) not in _JAX_CE_GRADS:
+        h, W, b, labels, weights = _case(n, d, v, seed=3)
+        set_ce_kernel_mode("interpret")
+        try:
+            grads = jax.grad(lambda h, W, b: jnp.sum(pallas_softmax_xent(
+                h, W, b, jnp.asarray(labels), 8, 32) * weights),
+                argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (h, W, b)))
+        finally:
+            set_ce_kernel_mode("auto")
+        _JAX_CE_GRADS[(n, d, v)] = (np.asarray(grads[0]),
+                                    np.asarray(grads[1]).T,
+                                    np.asarray(grads[2]))
+    return _JAX_CE_GRADS[(n, d, v)]
+
+
+@pytest.mark.parametrize("d", [264, 520])
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("dh_only", [False, True])
+def test_tiled_bwd_emulation_matches_plain_version(d, splits, dh_only):
+    """The tiled K4's order of sums and roundings (`_tiled_ce_bwd`) at
+    D = 264 and 520 (past 256, off 8 and 16 columns at 264), V = 300 (three
+    vocab tiles of 128, the last ragged), one or two vocab splits of the dh
+    product, in both modes: against the plain version and against the TPU
+    kernels' gradients (under the Pallas interpreter) within 1e-5 of each
+    gradient's largest value, as chip_smoke.py holds the kernel; the
+    dh-only mode's dh is the full mode's."""
+    n, v = 40, 300
+    h, W, b, labels, weights = _case(n, d, v, seed=3)
+    ht, Wt, bt = (torch.from_numpy(a) for a in (h, W.T.copy(), b))
+    lab = torch.from_numpy(labels)
+    lse = ce.ce_fwd_reference(ht, Wt, bt, lab)[1]
+    g = torch.from_numpy(weights)
+    got = _tiled_ce_bwd(ht, Wt, bt, lab, lse, g, splits, dh_only)
+    want = ce.ce_bwd_reference(ht, Wt, bt, lab, lse, g, dh_only=dh_only)
+    jax_grads = _jax_ce_grads(n, d, v)
+    for name, a, r, j in zip(("dh", "dW", "db"), got, want, jax_grads):
+        if r is None:
+            assert a is None, name
+            continue
+        scale = r.abs().max().item()
+        assert (a - r).abs().max().item() <= 1e-5 * scale, name
+        assert np.abs(a.numpy() - j).max() <= 1e-5 * scale, name
+    if dh_only:
+        full = _tiled_ce_bwd(ht, Wt, bt, lab, lse, g, splits, False)
+        assert torch.equal(got[0], full[0])

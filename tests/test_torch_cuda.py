@@ -866,8 +866,9 @@ def _wide_kernels(dtype, h, dh, lq, lk):
     kernels (csrc/attention_chunked.cu; K2 of both a single kernel up to 32
     queries and keys, a dq and a dk/dv kernel past them, and the dbias sum
     they share, csrc/mma_row.cuh), f32 the tiled forward
-    (csrc/attention_tiled.cu) and the CUDA-core wide or chunked backward
-    (csrc/attention_wide.cu)."""
+    (csrc/attention_tiled.cu) and the tiled backward
+    (csrc/attention_bwd_tiled.cu: the dq kernel, the dk/dv kernel and the
+    dbias sum)."""
     for pre, takes in (("wide_mma", attn.is_wide_mma),
                        ("chunked_mma", attn.is_chunked_mma)):
         if takes(dtype, h, dh):
@@ -876,15 +877,28 @@ def _wide_kernels(dtype, h, dh, lq, lk):
             fwd = ("attention_fwd_chunked_mma_kernel"
                    if pre == "chunked_mma" else "wide_mma_fwd_kernel")
             return [fwd], bwd + ["mma_dbias_kernel"]
-    part = "wide" if dh <= attn.REGISTER_DH else "chunked"
     return ["attention_fwd_tiled_kernel"], [
-        f"attention_bwd_{kind}_{part}_kernel"
+        f"attention_bwd_tiled_{kind}_kernel"
         for kind in ("dq", "dkv", "dbias")]
 
 
 def _assert_ran(names, want):
     assert len(names) == len(want) and all(
         sum(w in name for name in names) == 1 for w in want), (names, want)
+
+
+def _ran_route(call, want):
+    """`_ran(call)`, profiled again (three times at most) while the names
+    are not exactly `want`: the card's profiler has left out some kernels
+    of a call (PERF.md), not only all of them. A route that is wrong fails
+    all three."""
+    for _ in range(3):
+        out, names = _ran(call)
+        if len(names) == len(want) and all(
+                sum(w in name for name in names) == 1 for w in want):
+            break
+    _assert_ran(names, want)
+    return out
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -925,8 +939,9 @@ def test_wide_attention_matches_plain_version(cuda, dtype, tol, h, dh, lq,
 @pytest.mark.parametrize("h,dh", [(32, 64), (2, 320), (8, 25), (8, 64)])
 def test_wide_attention_bwd_is_bitwise_deterministic(cuda, dtype, h, dh):
     """Two wide K2 calls, and one with dbias, give the same dq, dk, dv
-    (at 2 heads of 320, the chunked kernels; at the widened path's 8 heads
-    of 25 and of 64 in bf16, the tensor-core wide kernels)."""
+    (at 2 heads of 320 in bf16, the chunked kernels; at the widened path's
+    8 heads of 25 and of 64 in bf16, the tensor-core wide kernels; in f32
+    the tiled kernels)."""
     q, k, v, bias = _inputs(5, 16, 31, 31, h, dh, dtype, cuda)
     g = torch.randn(q.shape, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(6)).to(dtype)
@@ -955,8 +970,8 @@ def test_attention_past_256_wide_heads_matches_plain_version(
         cuda, dtype, tol, h, dh, n, lq, lk):
     """K1 and K2 at heads wider than 256 (bf16: the tensor-core chunked
     kernels, the logits' k-steps split over warps, 512 output columns a
-    K1 block and 128 a K2 block; f32: the chunked wide kernels, a head
-    walked in chunks of 256 elements) at the train path's N = 64, at Dh =
+    K1 block and 128 a K2 block; f32: the tiled kernels, a head walked in
+    chunks of 64 or 128 columns) at the train path's N = 64, at Dh =
     264 (off the mma k-step), 300 (off the 16-byte staging step) and 1,024
     (two K1 column groups), at one query and key and past 32 of them (two
     passes over the key tiles), with fully blocked rows: the forward, dq,
@@ -1061,8 +1076,9 @@ def test_wide_bf16_ce_kernels_match_plain_versions_past_640(cuda, n, d, v):
     K4 on the tensor cores over clusters of 2 (D = 1,000), 4 (2,048: past
     a whole tile of 64 rows in shared memory, 256 KB) and 7 (4,104, the
     last block with fewer slabs) blocks, and at 5,128, past the clusters'
-    5,120, on the CUDA cores. K4 is given the plain version's lse, so that
-    the checks hold K4 alone: logits of these inputs reach 40 (sums of
+    5,120, on the tiled CUDA-core kernels (csrc/ce_bwd_tiled.cu). K4 is
+    given the plain version's lse, so that the checks hold K4 alone:
+    logits of these inputs reach 40 (sums of
     1,000 and more products), where the wide K3's lse is a few 1e-5 off
     the plain version's and shifts every P of its row; K4 given K3's lse
     is held relative to the largest reference value. (In f32 the wide
@@ -1525,7 +1541,8 @@ TILED_SHAPES = [(8, 64, 64, 32, 32), (8, 25, 64, 31, 31),
 def test_tiled_attention_matches_plain_version(cuda, h, dh, n, lq, lk):
     """The f32 K1 at head widths and counts the tuned kernel does not take,
     with fully blocked rows: the plain version's output within 1e-5; the
-    device ran the tiled kernel alone (torch.profiler's names), the call
+    device ran the tiled kernel alone (torch.profiler's names,
+    `_ran_route`), the call
     counted as a wide and a tiled launch; two calls give the same bits;
     past about 3,000 keys the logits go to a scratch the wrapper sizes
     from the library."""
@@ -1534,14 +1551,159 @@ def test_tiled_attention_matches_plain_version(cuda, h, dh, n, lq, lk):
     assert attn.uses_tiled(torch.float32, h, dh)
     assert (attn.tiled_scratch_floats(n, lq, lk, h, dh) > 0) == (lk > 3000)
     attn.reset_launches()
-    out, names = _ran(lambda: attn.attention_fwd(q, k, v, bias, h, scale))
-    _assert_ran(names, ["attention_fwd_tiled_kernel"])
+    out = _ran_route(lambda: attn.attention_fwd(q, k, v, bias, h, scale),
+                     ["attention_fwd_tiled_kernel"])
     assert (attn.launches, attn.wide_launches, attn.tiled_launches) == (
         1, 1, 1)
     assert _err(out, attn.attention_fwd_reference(q, k, v, bias, h,
                                                   scale)) <= 1e-5
     again = attn.attention_fwd(q, k, v, bias, h, scale)
     assert torch.equal(out, again)
+
+
+# the f32 K2 on the tiled kernels (csrc/attention_bwd_tiled.cu): the kernel
+# rows' shapes (the widened and wide-heads paths', 8 heads of 24 and 128,
+# one head of 300), heads of 5, 257 and 1,024, one query and key, past 32
+# of them, and keys past a block's shared memory (S and dP formed in the
+# scratch)
+TILED_BWD_SHAPES = [(8, 64, 64, 32, 32), (8, 25, 64, 31, 31),
+                    (8, 25, 64, 31, 32), (32, 16, 64, 31, 31),
+                    (8, 24, 64, 31, 31), (8, 128, 64, 31, 31),
+                    (1, 512, 64, 32, 32), (2, 320, 64, 31, 31),
+                    (2, 320, 64, 31, 32), (1, 300, 64, 31, 31),
+                    (3, 5, 4, 70, 97), (1, 1024, 8, 32, 32),
+                    (2, 320, 8, 1, 1), (1, 257, 4, 128, 128),
+                    (1, 64, 2, 20, 3000)]
+
+
+@pytest.mark.parametrize("h,dh,n,lq,lk", TILED_BWD_SHAPES)
+@pytest.mark.parametrize("dbias", [False, True])
+def test_tiled_attention_bwd_matches_plain_version(cuda, h, dh, n, lq, lk,
+                                                   dbias):
+    """The f32 K2 at head widths and counts the tuned kernel does not take,
+    with fully blocked rows, with and without dbias: dq, dk and dv within
+    1e-5 of the plain version's, dbias within 1e-5 of its largest value
+    (dbias sums p (dp - rowsum) over the heads, dp a dot of Dh N(0, 1)
+    products: at Dh = 512 |dp| reaches ~90); the device ran the tiled
+    kernels alone (torch.profiler's names, `_ran_route`: the dq kernel, the
+    dk/dv kernel and, with dbias, the sum over heads); the call counted as
+    a wide and a tiled launch; two calls give the same bits, and dq, dk, dv
+    are those of the call with the other dbias setting."""
+    q, k, v, bias = _blocked_inputs(n, lq, lk, h, dh, torch.float32, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(10))
+    scale = math.sqrt(dh)
+    assert attn.uses_tiled(torch.float32, h, dh)
+    attn.reset_launches()
+    got = _ran_route(lambda: attn.attention_bwd(q, k, v, bias, g, h, scale,
+                                                dbias),
+                     _wide_kernels(torch.float32, h, dh, lq, lk)[1]
+                     [:None if dbias else -1])
+    assert (attn.bwd_launches, attn.wide_bwd_launches,
+            attn.tiled_bwd_launches, attn.launches) == (1, 1, 1, 0)
+    want = attn.attention_bwd_reference(q, k, v, bias, g, h, scale, dbias)
+    assert (got[3] is None) == (not dbias)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if r is None:
+            continue
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert _err(a, r, relative=name == "dbias") <= 1e-5, name
+    again = attn.attention_bwd(q, k, v, bias, g, h, scale, dbias)
+    other = attn.attention_bwd(q, k, v, bias, g, h, scale, not dbias)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], other[:3]))
+    assert not dbias or torch.equal(got[3], again[3])
+
+
+def _tiled_ce_kernels(n, d, v, dh_only):
+    """The device kernels the tiled K4 launches (csrc/ce_bwd_tiled.cu): P,
+    the dh product, the sum of its vocab splits' partials where there are
+    more than one, and (not in the dh-only mode) the dW product."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = ce.tiled_splits(n, d, v, sms, ce.tiling(
+        ce.KERNEL_BWD_TILED, torch.float32, d, torch.device("cuda"))[2])
+    return (["ce_bwd_tiled_p_kernel", "ce_bwd_tiled_dh_kernel"]
+            + (["ce_bwd_tiled_dh_sum_kernel"] if splits > 1 else [])
+            + ([] if dh_only else ["ce_bwd_tiled_dw_kernel"]))
+
+
+@pytest.mark.parametrize("n,d,v", [(1984, 640, 22234), (1984, 512, 22234),
+                                   (1984, 264, 22234), (70, 12, 300),
+                                   (300, 520, 3000), (129, 602, 257),
+                                   (1, 3, 1)])
+@pytest.mark.parametrize("dh_only", [False, True])
+def test_tiled_ce_bwd_matches_plain_version(cuda, n, d, v, dh_only):
+    """The f32 K4 off the tuned widths on the tiled kernels, at the kernel
+    rows' widths (the wide-heads path's D = 640, 512 and 264) and at ragged
+    rows, vocab and widths (D off 4 columns, N and V off the 128-row
+    tiles, one row of one vocab entry), in both modes: dh, dW and db within
+    1e-5 of the plain version's largest value and on the softmax part
+    within 1e-3 of that part's (chip_smoke.py's gates); the device ran the
+    tiled kernels alone (torch.profiler's names, `_ran_route`); the call
+    counted as a wide and a tiled launch; two calls give the same bits, and
+    the dh-only mode's dh is the full mode's."""
+    h, W, b, labels, g = _ce_inputs(cuda, torch.float32, n, d, v)
+    labels = labels.int()  # as the CE Function passes them: no cast kernel
+    lse = ce.ce_fwd_reference(h, W, b, labels)[1]
+    assert ce.uses_tiled_bwd(torch.float32, d)
+    ce.reset_launches()
+    got = _ran_route(lambda: ce.ce_bwd(h, W, b, labels, lse, g,
+                                       dh_only=dh_only),
+                     _tiled_ce_kernels(n, d, v, dh_only))
+    assert (ce.bwd_launches, ce.wide_bwd_launches, ce.tiled_bwd_launches,
+            ce.bwd_dh_only_launches) == (1, 1, 1, int(dh_only))
+    want = ce.ce_bwd_reference(h, W, b, labels, lse, g, dh_only=dh_only)
+    part = ce.ce_bwd_reference(h, W, b, labels, lse, g, True, dh_only)
+    for name, a, r, c in zip(("dh", "dW", "db"), got, want, part):
+        if r is None:
+            assert a is None, name
+            continue
+        assert a.shape == r.shape and a.dtype == torch.float32, name
+        err = _err(a, r, relative=True)
+        assert err <= 1e-5, (name, err)
+        err = (a - r).abs().max().item() / c.abs().max().item()
+        assert err <= 1e-3, (name, "softmax part", err)
+    again = ce.ce_bwd(h, W, b, labels, lse, g, dh_only=dh_only)
+    other = ce.ce_bwd(h, W, b, labels, lse, g, dh_only=not dh_only)
+    assert all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again))
+    assert torch.equal(got[0], other[0])
+
+
+def test_tiled_bwd_tiling_comes_from_the_library(cuda):
+    """The tiled K4's library reports its 128 x 128 tiles and how many dh
+    blocks fit an SM; at the wide-heads path's shape the dh product's
+    splits each own vocab tiles and their blocks fit one wave."""
+    rows, cols, blocks = ce.tiling(ce.KERNEL_BWD_TILED, torch.float32, 640,
+                                   torch.device(cuda))
+    assert (rows, cols) == (ce.TILED_TILE, ce.TILED_TILE) and blocks >= 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = ce.tiled_splits(1984, 640, 22234, sms, blocks)
+    assert splits == 1 or 16 * 5 * splits <= blocks * sms
+    assert all(a < b for a, b in ce.tiled_split_ranges(22234, splits))
+
+
+def test_tiled_bwd_wrappers_raise_instead_of_falling_back(cuda,
+                                                          monkeypatch):
+    """When the tiled K2 or the tiled K4 reports a failed launch, the
+    wrapper raises and counts nothing: no fall-back to the plain versions
+    or to the older kernels."""
+    q, k, v, bias = _inputs(3, 4, 31, 31, 8, 25, torch.float32, cuda)
+    attn._bind_tiled_bwd()
+    monkeypatch.setitem(attn._BOUND, (attn.KERNEL_BWD_TILED, attn.KERNEL_BWD),
+                        lambda *args: 1)
+    attn.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        attn.attention_bwd(q, k, v, bias, q, 8, 5.0, False)
+    assert attn.bwd_launches == 0
+    h, W, b, labels, g = _ce_inputs(cuda, torch.float32, 64, 640, 300)
+    ce._bind_tiled_bwd(torch.float32)
+    monkeypatch.setitem(ce._BOUND, (ce.KERNEL_BWD_TILED, torch.float32),
+                        lambda *args: 1)
+    ce.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        ce.ce_bwd(h, W, b, labels, torch.zeros_like(g), g)
+    assert ce.bwd_launches == 0
 
 
 # the bf16 K2 past 128 queries or keys (csrc/attention_bwd_cluster.cu):
