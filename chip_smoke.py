@@ -158,7 +158,13 @@ non-zero without its last line:
    244 K1 a call on the tiled kernel past 256-wide heads), exact launch
    counts, and each decode's ids through the kernels against the plain
    versions' at 0, 9 and 18 dB (near-ties aside: the beam's at its first
-   differing choice, `same_beam_ids_but_near_ties`);
+   differing choice, `same_beam_ids_but_near_ties`); then `cli train
+   --dtype float32` of the wide-heads and the widened models (one epoch
+   each) and of the main model (F32_MAIN_EPOCHS epochs: d_model 128, its
+   K3 and K4 at D = 128), every K3 and K4 on the tiled kernels
+   (csrc/ce_fwd_tiled.cu, csrc/ce_bwd_tiled.cu), exact launch counts,
+   losses finite and falling, each path's ms a step; and an f32
+   wide-heads step against the plain one;
 16. MINE: `cli train --train-mode mine` at full width in bf16 from a
    random init, MINE_EPOCHS epochs (per step: 16 K1, 12 K2, no K3/K4);
    every ce and mi finite, the mean of the last 16 ce below that of the
@@ -240,13 +246,16 @@ non-zero without its last line:
    run its route's kernel (the tensor-core wide K6, its long path past
    k = 64, the select K6, the resident K2, the cluster K2, the tiled K1;
    torch.profiler's names printed), and the kernel rows of those cases
-   take the design so read;
+   take the design so read; so does one f32 call of K3 and K4 at D = 128,
+   200, 512, 640, 264 and 136 (the tiled kernels) and of K4's dh-only mode
+   at 128 and 640;
 27. the seconds of each phase as one line, the kernels as one JSON line
    (the wide kernels as entries of their own, launches from phase 15; the
    chunked wide K1/K2 too, launches and rows from its heads-wider-than-256
    path; the long-path K6 and the cluster K2, launches from the beam-100
    path and the seq-len-256 epoch; the select K6 and the tiled K1,
-   launches from phase 15's f32 paths), then `{"ok": true, "device":
+   launches from phase 15's f32 paths; the tiled K3 and K4, launches from
+   every f32 path), then `{"ok": true, "device":
    {...}}` as the last line.
 
 Needs CUDA: without it the script exits 1 before any phase.
@@ -336,9 +345,10 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 3.2e-2}
 # K4 also against the softmax part of its plain version (the gradients
 # without the label term), relative to that part's largest value: beside
 # the label term it is ~1e-4 of the largest dW at the training shape, so
-# TOL above would not see it. Sound kernels read 1.1e-4 to 1.7e-4 (f32)
-# and 2.5e-4 to 4.0e-4 (bf16) on these inputs; K4 with its softmax term
-# scaled by 1.01 reads 1.0e-2 or more, without it 1.0
+# TOL above would not see it. Sound kernels read 1.1e-4 to 1.7e-4 (f32,
+# the CUDA-core K4 before the tiled one; the tiled K4's rows read 8.9e-6 to
+# 9.5e-5) and 2.5e-4 to 4.0e-4 (bf16) on these inputs; K4 with its softmax
+# term scaled by 1.01 reads 1.0e-2 or more, without it 1.0
 # (scripts/ce_bwd_planted_faults.py, PERF.md).
 SOFTMAX_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-3}
 TRAIN_SHAPES = (("encoder", 32, 32), ("decoder_self", 31, 31),
@@ -358,7 +368,8 @@ KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
 # past them, the bf16 wide K3, K4 and K6 on the tensor cores in libraries
 # of their own), and the bf16 K2 past 32 queries or keys up to 128
 # (csrc/attention_bwd_resident.cu)
-WIDE_LIBRARIES = (attn.KERNEL_BWD_TILED, ce.KERNEL_WIDE, star.KERNEL_WIDE,
+WIDE_LIBRARIES = (attn.KERNEL_BWD_TILED, ce.KERNEL_FWD_TILED,
+                  star.KERNEL_WIDE,
                   topk.KERNEL_SELECT, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD,
                   attn.KERNEL_WIDE_MMA, ce.KERNEL_WIDE_FWD,
                   topk.KERNEL_WIDE_MMA, attn.KERNEL_RESIDENT,
@@ -375,16 +386,18 @@ CLUSTER = "attention_bwd_cluster"
 SELECT = "topk_select"
 TILED = "attention_tiled"
 # the K2 launches on the tiled f32 kernels (csrc/attention_bwd_tiled.cu),
-# and the K4 launches on the tiled kernels (csrc/ce_bwd_tiled.cu)
+# and the K4 and K3 launches on the tiled kernels (csrc/ce_bwd_tiled.cu,
+# csrc/ce_fwd_tiled.cu: every f32 one)
 TILED_BWD = "attention_bwd_tiled"
 CE_TILED = "ce_bwd_tiled"
+CE_TILED_FWD = "ce_fwd_tiled"
 # the launches among each kernel's that went to its wide kernels
 WIDE = {attn.KERNEL: "attention_fwd_wide", attn.KERNEL_BWD:
         "attention_bwd_wide", ce.KERNEL_FWD: "ce_fwd_wide",
         ce.KERNEL_BWD: "ce_bwd_wide", star.KERNEL: "star_wide",
         topk.KERNEL: "topk_wide"}
 COUNTERS = KERNELS + (DH_ONLY,) + tuple(WIDE.values()) + (
-    LONG_LIST, CLUSTER, SELECT, TILED, TILED_BWD, CE_TILED)
+    LONG_LIST, CLUSTER, SELECT, TILED, TILED_BWD, CE_TILED, CE_TILED_FWD)
 BEAM = 4
 # `cli train`'s default steps a call (one captured CUDA graph of the step,
 # replayed): what the train phases run
@@ -426,9 +439,9 @@ SEQ256 = 256
 # and indices are held in full, their plain versions called once for
 # that and not timed; their times are not in the kernels line)
 MODE_ITERS = 10
-# timed calls of the f32 wide K3/K4 rows (K3 on csrc/ce_wide.cu: 1.5 to 5.7
-# ms a call at D = 264 to 640; the K4 design before csrc/ce_bwd_tiled.cu
-# took 20.8 to 44.0 ms there), and of the K6 rows at k = PAST_K6 and k = V
+# timed calls of the f32 K3/K4 rows off the tuned widths (K4 takes 2.4 to
+# 4.3 ms a call at D = 264 to 640 on an H100 80GB HBM3 at 700 W), and of
+# the K6 rows at k = PAST_K6 and k = V
 WIDE_F32_CE_ITERS = 10
 LONG_K_ITERS = 5
 WIDE_STAR_D = (96, 512)
@@ -453,6 +466,11 @@ WIDE_HEADS_D = 640
 # 264, off the 16-column k-step), N = bs and bs x 31
 OFF_STEP_HEADS = ("wh_off_1x300", 1, 300, 31, 31)
 OFF_STEP_D = 264
+# an f32 CE width off the tiled kernels' 128-column tiles and 16-column
+# chunks, a tuned width before them (the f32 K3/K4 rows), and every row of
+# the f32 CE rows' inputs whose cotangent is zero (ce_inputs)
+ODD_F32_D = 136
+ZERO_G_EVERY = 16
 # a spin of the device (about 0.1 s) that the timed calls queue up behind
 SPIN_CYCLES = 200_000_000
 # what multiplies, by kernel and dtype (csrc/attention_fwd.cu,
@@ -468,9 +486,9 @@ DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
 WIDE_DESIGN = "wide cuda-core f32"
 WIDE_MMA_DESIGN = "wide mma bf16"
 # the f32 K1 and K2 off the tuned shapes (csrc/attention_tiled.cu,
-# csrc/attention_bwd_tiled.cu) and the f32 wide K4 (csrc/ce_bwd_tiled.cu; in
-# bf16 past 5,120 columns), and K6 on the select kernels
-# (csrc/topk_select.cu)
+# csrc/attention_bwd_tiled.cu), every f32 K3 and K4 (csrc/ce_fwd_tiled.cu,
+# csrc/ce_bwd_tiled.cu; K4 in bf16 past 5,120 columns too), and K6 on the
+# select kernels (csrc/topk_select.cu)
 TILED_DESIGN = "tiled cuda-core f32"
 TILED_CE_DESIGN = {torch.bfloat16: "tiled cuda-core bf16",
                    torch.float32: TILED_DESIGN}
@@ -490,6 +508,7 @@ ROUTES = {topk.KERNEL: (("topk_long_emit_kernel", "long-path wgmma bf16"),
                             ("attention_bwd_cluster_kernel",
                              "cluster mma bf16"),
                             ("attention_bwd_tiled_dq_kernel", TILED_DESIGN)),
+          ce.KERNEL_FWD: (("ce_fwd_tiled_kernel", TILED_DESIGN),),
           ce.KERNEL_BWD: (("ce_bwd_tiled_p_kernel", TILED_DESIGN),)}
 
 
@@ -663,11 +682,12 @@ def phase_routes(seed, bs):
     and keys (LONG_CASE, LONG_CROSS) and past 128 (PAST_RESIDENT,
     PAST_RESIDENT_CROSS) with and without dbias; of the f32 K1 and K2 (no
     dbias) at every wide shape the kernel rows hold (WIDE_HEADS, WIDE_PATH,
-    WIDE_HEADS_PATH, OFF_STEP_HEADS); and of the f32 K4 at D = 512,
-    WIDE_HEADS_D and OFF_STEP_D, and in its dh-only mode at WIDE_HEADS_D.
+    WIDE_HEADS_PATH, OFF_STEP_HEADS); and of the f32 K3 and K4 at the main
+    model's D = 128, WIDE_PATH_D, 512, WIDE_HEADS_D, OFF_STEP_D and
+    ODD_F32_D, and K4 in its dh-only mode at D = 128 and WIDE_HEADS_D.
     Each must run its route's kernel (the tensor-core wide K6, its long
     path past k = 64, the select K6, the resident K2, the cluster K2, the
-    tiled K1, K2 and K4). -> {(kernel, case, dtype):
+    tiled K1, K2, K3 and K4). -> {(kernel, case, dtype):
     (design, names)}, the design the kernel rows of those cases take
     (`set_designs`)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -723,16 +743,25 @@ def phase_routes(seed, bs):
                                        False),
             k2_design(f32, lq, lk, heads, dh))
     cfg = Config()
-    for d, dh_only in ((WIDE_D[1], False), (WIDE_HEADS_D, False),
-                       (OFF_STEP_D, False), (WIDE_HEADS_D, True)):
+    main_d = cfg.decoder_d_model
+    for d, dh_only in ((main_d, False), (WIDE_PATH_D, False),
+                       (WIDE_D[1], False), (WIDE_HEADS_D, False),
+                       (OFF_STEP_D, False), (ODD_F32_D, False),
+                       (main_d, True), (WIDE_HEADS_D, True)):
         h, W, b, labels, g = ce_inputs(f32, gen, bs * (cfg.seq_len - 1), d,
                                        cfg.vocab_size)
         lse = ce.ce_fwd_reference(h, W, b, labels)[1]
         label = f"ce_dh_only_d{d}" if dh_only else f"ce_d{d}"
+        if d == main_d:
+            label = label.replace(f"_d{d}", "")  # the kernel rows' names
         seen[(ce.KERNEL_BWD, label, f32)] = routed_design(
             ce.KERNEL_BWD, label,
             lambda: ce.ce_bwd(h, W, b, labels, lse, g, dh_only=dh_only),
             _ce_design(ce.KERNEL_BWD, f32, d))
+        if not dh_only:
+            seen[(ce.KERNEL_FWD, label, f32)] = routed_design(
+                ce.KERNEL_FWD, label, lambda: ce.ce_fwd(h, W, b, labels),
+                _ce_design(ce.KERNEL_FWD, f32, d))
     for (kernel, label, dtype), (design, names) in seen.items():
         # the port's kernels among them (not the spin, not PyTorch's fill)
         short = sorted(m.group(1) for m in (
@@ -783,25 +812,44 @@ def bound(nbytes, ops, dtype):
         "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def _abs_diff(a, b):
+    """|a - b| in f32, 0 where both hold the same non-finite value (equal
+    infinities in the same place), NaN where either is NaN."""
+    a, b = a.float(), b.float()
+    same = (a == b) & ~torch.isfinite(b)
+    return torch.where(same, torch.zeros_like(a), (a - b).abs())
+
+
+def _scale(x):
+    """max |x| over its finite values, at least 1e-30."""
+    x = x.float().abs()
+    x = x[torch.isfinite(x)]
+    return max(x.max().item() if x.numel() else 0.0, 1e-30)
+
+
+def _worst(errs):
+    """The largest of `errs`, NaN if any is NaN (Python's max may drop
+    it)."""
+    errs = list(errs)
+    return math.nan if any(math.isnan(e) for e in errs) else max(errs,
+                                                                 default=0.0)
+
+
 def max_err(got, want, relative=False):
-    """max |got - want| over tensors (None pairs skipped), over max |want|
-    when `relative`."""
-    err = 0.0
-    for a, b in zip(got, want):
-        if b is None:
-            continue
-        e = (a.float() - b.float()).abs().max().item()
-        if relative:
-            e /= max(b.float().abs().max().item(), 1e-30)
-        err = max(err, e)
-    return err
+    """max |got - want| over tensors (None pairs skipped), over the largest
+    finite |want| when `relative`; NaN where any difference is NaN, so that
+    every gate that reads it fails. Two non-finite values count as equal
+    only when they are the same value in the same place."""
+    return _worst(_abs_diff(a, b).max().item()
+                  / (_scale(b) if relative else 1.0)
+                  for a, b in zip(got, want) if b is not None)
 
 
 def softmax_part_err(got, want, softmax):
     """Largest over K4's outputs of max |got - want| over the largest value
-    of the softmax part of `want` (`softmax`)."""
-    return max((a - b).abs().max().item() / max(c.abs().max().item(), 1e-30)
-               for a, b, c in zip(got, want, softmax))
+    of the softmax part of `want` (`softmax`); NaN as `max_err`."""
+    return _worst(_abs_diff(a, b).max().item() / _scale(c)
+                  for a, b, c in zip(got, want, softmax))
 
 
 # when the last kernel row ended (phase_kernels starts it)
@@ -864,11 +912,24 @@ def _ce_design(kernel, dtype, d):
     if (ce.uses_tensor_core_bwd if kernel == ce.KERNEL_BWD
             else ce.uses_tensor_core_fwd)(dtype, d):
         return WGMMA[dtype]
-    if kernel == ce.KERNEL_BWD and ce.uses_tiled_bwd(dtype, d):
+    if (ce.uses_tiled_bwd if kernel == ce.KERNEL_BWD
+            else ce.uses_tiled_fwd)(dtype, d):
         return TILED_CE_DESIGN[dtype]
-    if ce.is_wide(dtype, d):
-        return WIDE_DESIGN
     return DESIGN[kernel][dtype]
+
+
+def ce_routes(dtype, d, fwd, bwd, dh_only=0):
+    """The K3 and K4 counters of `fwd` K3 and `bwd` K4 launches (`dh_only`
+    of them in K4's dh-only mode) at width d in `dtype` (a torch dtype or
+    a Config's name of one): with their wide and tiled sub-counters, as the
+    wrappers' routes count them."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    wide = ce.is_wide(dtype, d)
+    return {ce.KERNEL_FWD: fwd, ce.KERNEL_BWD: bwd, DH_ONLY: dh_only,
+            WIDE[ce.KERNEL_FWD]: fwd * wide, WIDE[ce.KERNEL_BWD]: bwd * wide,
+            CE_TILED_FWD: fwd * ce.uses_tiled_fwd(dtype, d),
+            CE_TILED: bwd * ce.uses_tiled_bwd(dtype, d)}
 
 
 def _ce_launch(kernel, dtype, n, d, v, device):
@@ -894,8 +955,9 @@ def _ce_launch(kernel, dtype, n, d, v, device):
         return {"tiling": list(tiles), "workspace": list(
             ce.tiled_workspace(n, v)),
             "splits": ce.tiled_splits(n, d, v, sms, tiles[2])}
-    tiles = ce.tiling(ce.KERNEL_WIDE if ce.is_wide(dtype, d) else kernel,
-                      dtype, d, device)
+    if kernel == ce.KERNEL_FWD and ce.uses_tiled_fwd(dtype, d):
+        kernel = ce.KERNEL_FWD_TILED
+    tiles = ce.tiling(kernel, dtype, d, device)
     return {"tiling": list(tiles),
             "splits": ce.vocab_splits(n, v, sms, *tiles)}
 
@@ -997,25 +1059,39 @@ def attention_bwd_bitwise(label, n, lq, lk, dtype, gen, heads=HEADS, dh=DH):
                              f"the same inputs differ")
 
 
-def ce_inputs(dtype, gen, n, d, v):
+def ce_inputs(dtype, gen, n, d, v, zero_rows=False):
     """h ~ N(0, 1) (n, d) and the tied table W ~ N(0, 0.1^2) (v, d) in
-    `dtype`; b ~ N(0, 0.1^2), uniform labels, cotangents in [0, 1)."""
+    `dtype`; b ~ N(0, 0.1^2), uniform labels, cotangents in [0, 1); with
+    `zero_rows`, zero in every ZERO_G_EVERY-th row (a padded row's: its dh
+    row must be 0, and it adds nothing to dW and db; no draw more)."""
     h = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
     W = (0.1 * torch.randn((v, d), generator=gen, device="cuda")).to(dtype)
     b = 0.1 * torch.randn(v, generator=gen, device="cuda")
     labels = torch.randint(0, v, (n,), generator=gen, device="cuda")
     g = torch.rand(n, generator=gen, device="cuda")
+    if zero_rows:
+        g[::ZERO_G_EVERY] = 0.0
     return h, W, b, labels, g
+
+
+def zero_rows_check(label, dtype, dh, g):
+    """The rows of zero cotangent have dh rows of exact zeros."""
+    if torch.count_nonzero(dh[g == 0]).item():
+        raise AssertionError(f"ce_bwd {label} {dtype}: a row of zero "
+                             f"cotangent has a nonzero dh")
 
 
 def ce_cases(dtype, gen, iters, n, d, v, label="ce"):
     """K3 and K4 at the training path's shape (tied layout: W is (V, D)),
     or at another width D (the wide kernels where the tuned ones do not
-    take it; the f32 ones, which take milliseconds a call, timed over
-    WIDE_F32_CE_ITERS calls); K4 also bitwise over two calls."""
-    if dtype == torch.float32 and ce.is_wide(dtype, d):
+    take it; the f32 ones off the tuned widths, which take milliseconds a
+    call, timed over WIDE_F32_CE_ITERS calls); K4 also bitwise over two
+    calls; in f32 (the tiled kernels) with rows of zero cotangent, whose dh
+    rows must be exactly 0."""
+    f32 = dtype == torch.float32
+    if f32 and ce.is_wide(dtype, d):
         iters = min(iters, WIDE_F32_CE_ITERS)
-    h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v)
+    h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v, zero_rows=f32)
     got = ce.ce_fwd(h, W, b, labels)
     want = ce.ce_fwd_reference(h, W, b, labels)
     lse = want[1]
@@ -1032,6 +1108,7 @@ def ce_cases(dtype, gen, iters, n, d, v, label="ce"):
     if not all(torch.equal(x, y) for x, y in zip(dgot, again)):
         raise AssertionError(f"ce_bwd {label} {dtype}: calls on the same "
                              f"inputs differ")
+    zero_rows_check(label, dtype, dgot[0], g)
     elt = h.element_size()
     ins = (n * d + v * d) * elt + v * 4 + n * 4
     shape = {"n": n, "d": d, "v": v}
@@ -1070,12 +1147,14 @@ def ce_dh_only_case(dtype, gen, iters, n, d, v, label="ce_dh_only"):
     """K4 in its dh-only mode at the training path's shape (or another
     width d): dh bitwise equal to the full mode's, and against the plain
     version's dh relative to its largest value (and on the softmax part,
-    SOFTMAX_TOL); no dW or db returned. The library yardstick is PyTorch's
+    SOFTMAX_TOL), in f32 with rows of zero cotangent (their dh rows 0); no
+    dW or db returned. The library yardstick is PyTorch's
     cross entropy's backward with respect to h alone. The f32 wide K4 is
     timed over WIDE_F32_CE_ITERS calls."""
-    if dtype == torch.float32 and ce.is_wide(dtype, d):
+    f32 = dtype == torch.float32
+    if f32 and ce.is_wide(dtype, d):
         iters = min(iters, WIDE_F32_CE_ITERS)
-    h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v)
+    h, W, b, labels, g = ce_inputs(dtype, gen, n, d, v, zero_rows=f32)
     lse = ce.ce_fwd_reference(h, W, b, labels)[1]
     full = ce.ce_bwd(h, W, b, labels, lse, g)
     got = ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True)
@@ -1088,6 +1167,7 @@ def ce_dh_only_case(dtype, gen, iters, n, d, v, label="ce_dh_only"):
     if not torch.equal(got[0], full[0]):
         raise AssertionError(f"ce_bwd dh_only {dtype}: dh differs from the "
                              f"full mode's")
+    zero_rows_check(label, dtype, got[0], g)
     softmax_err = softmax_part_err(got[:1], want[:1], part[:1])
     if not softmax_err <= SOFTMAX_TOL[dtype]:
         raise AssertionError(f"ce_bwd dh_only {dtype}: err {softmax_err} of "
@@ -1313,8 +1393,8 @@ def widened_cases(dtype, gen, iters, bs):
     the chunked K1/K2 (K2 bitwise over calls, in bf16 also with dbias) and
     the wide K3/K4 at the shapes of `phase_wide_heads` (WIDE_HEADS_PATH,
     WIDE_HEADS_D), and at widths off their steps (OFF_STEP_HEADS,
-    OFF_STEP_D); the f32 K2 (the tiled kernels) bitwise over calls at every
-    wide shape."""
+    OFF_STEP_D; the f32 K3/K4 also at ODD_F32_D); the f32 K2 (the tiled
+    kernels) bitwise over calls at every wide shape."""
     cfg = Config()
     rows = []
     if dtype == torch.float32:
@@ -1355,6 +1435,13 @@ def widened_cases(dtype, gen, iters, bs):
                                 label=f"ce_dh_only_d{WIDE_HEADS_D}"))
     rows += ce_cases(dtype, gen, iters, bs * (cfg.seq_len - 1), OFF_STEP_D,
                      cfg.vocab_size, label=f"ce_d{OFF_STEP_D}")
+    if dtype == torch.float32:
+        # from a generator of its own: the later rows' draws stay as they
+        # were before this row was added
+        odd = torch.Generator(device="cuda").manual_seed(
+            gen.initial_seed() + ODD_F32_D)
+        rows += ce_cases(dtype, odd, iters, bs * (cfg.seq_len - 1),
+                         ODD_F32_D, cfg.vocab_size, label=f"ce_d{ODD_F32_D}")
     for k in WIDE_K:
         rows.append(topk_case(f"k{k}", bs * BEAM, dtype, gen, iters, k,
                               "tie" if k == WIDE_K[1] else "dyadic"))
@@ -1467,7 +1554,7 @@ def launches():
     dh-only mode, how many of each went to its wide kernels, and how many
     of K6's went to the tensor-core wide kernel's lists past 64 and to the
     select kernels, of K2's to the cluster kernel, of K1's and K2's to the
-    tiled f32 kernels and of K4's to the tiled kernels."""
+    tiled f32 kernels and of K3's and K4's to the tiled kernels."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
             ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
             star.KERNEL: star.launches, topk.KERNEL: topk.launches,
@@ -1483,7 +1570,8 @@ def launches():
             SELECT: topk.select_launches,
             TILED: attn.tiled_launches,
             TILED_BWD: attn.tiled_bwd_launches,
-            CE_TILED: ce.tiled_bwd_launches}
+            CE_TILED: ce.tiled_bwd_launches,
+            CE_TILED_FWD: ce.tiled_fwd_launches}
 
 
 def check_launches(path, got, expected):
@@ -1629,11 +1717,12 @@ def phase_train(seed, epochs, bs, variant="transformer",
     steps a call: replays of one captured CUDA graph of the step). Per step
     the vanilla transceiver launches K1 and K2 once per attention, the star
     one K5 once per cycle of its encoder and its decoder; both K3 and K4
-    once; every launch of the kernels in `wide` on their wide kernels; K1
+    once, on the routes of the decoder's width in `dtype` (`ce_routes`);
+    every launch of the kernels in `wide` on their wide kernels; K1
     `k1_passes` times per attention (2 with --remat: each layer's forward
     runs again in the backward); for each (counter, kernel) of `sub`, every
     launch of the kernel counted in the counter too (CLUSTER: the cluster
-    K2; TILED, TILED_BWD, CE_TILED: the tiled K1, K2 and K4)."""
+    K2; TILED, TILED_BWD: the tiled K1 and K2)."""
     tag = tag or ("train" if variant == "transformer"
                   else f"{variant}_train")
     reset_launches()
@@ -1651,8 +1740,10 @@ def phase_train(seed, epochs, bs, variant="transformer",
                              f"not the default scan{SCAN_STEPS}")
     cfg = Config()
     n = res["steps"]
+    d = (int(extra[list(extra).index("--decoder-d-model") + 1])
+         if "--decoder-d-model" in extra else cfg.decoder_d_model)
     expected = {name: 0 for name in COUNTERS}
-    expected.update({ce.KERNEL_FWD: n, ce.KERNEL_BWD: n})
+    expected.update(ce_routes(dtype, d, n, n))
     if variant == "transformer":
         per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
         expected.update({attn.KERNEL: k1_passes * per_step * n,
@@ -1710,7 +1801,8 @@ def phase_step_parity(seed, bs, variant="transformer", widths=(),
     order). A star step scores the un-shifted target. `widths`: the
     model's CLI width flags (WIDE_HEADS_WIDTHS: the wide-heads model);
     `counted`: the sub-counters that step must launch too (its wide and
-    tiled kernels')."""
+    tiled K1/K2 kernels'; K3's and K4's follow from the width,
+    `ce_routes`)."""
     is_star = variant != "transformer"
     cfg = Config(dtype="float32", bs=bs, seq_len=default_seq_len(variant),
                  **width_fields(widths))
@@ -1730,7 +1822,8 @@ def phase_step_parity(seed, bs, variant="transformer", widths=(),
         out.append((loss.item(), model, launches()))
     (lk, mk, ck), (lp, mp, cp) = out
     trained = (star.KERNEL,) if is_star else (attn.KERNEL, attn.KERNEL_BWD)
-    trained += (ce.KERNEL_FWD, ce.KERNEL_BWD) + tuple(counted)
+    trained += tuple(name for name, k in ce_routes(
+        cfg.dtype, cfg.decoder_d_model, 1, 1).items() if k) + tuple(counted)
     if sum(cp.values()) or any(ck[name] == 0 for name in trained) \
             or any(ck[name] for name in COUNTERS if name not in trained):
         raise AssertionError(f"step parity launches: kernels {ck}, plain "
@@ -2354,8 +2447,8 @@ def attack_step_launches(cfg, adv_weight):
     return {attn.KERNEL: per_forward * (1 + passes),
             attn.KERNEL_BWD: 2 * cfg.decoder_num_layer - 1
             + per_forward * passes,
-            ce.KERNEL_FWD: 1 + passes, ce.KERNEL_BWD: 1 + passes,
-            DH_ONLY: 1}
+            **ce_routes(cfg.dtype, cfg.decoder_d_model, 1 + passes,
+                        1 + passes, 1)}
 
 
 # epochs of the attack training phase: one epoch is 64 steps at bs 64
@@ -2552,7 +2645,7 @@ def gan_step_launches(cfg):
     dec = 2 * cfg.decoder_num_layer
     return {attn.KERNEL: cfg.encoder_num_layer + 2 * dec,
             attn.KERNEL_BWD: cfg.encoder_num_layer + 2 * dec,
-            ce.KERNEL_FWD: 2, ce.KERNEL_BWD: 2}
+            **ce_routes(cfg.dtype, cfg.decoder_d_model, 2, 2)}
 
 
 def gan_eval_launches(cfg, mode):
@@ -2600,8 +2693,8 @@ def phase_gan_train(seed, epochs, bs, variant="gan"):
     if variant == "gan":
         per_step = gan_step_launches(cfg)
     else:
-        per_step = {star.KERNEL: 3 * cfg.cycle_num, ce.KERNEL_FWD: 2,
-                    ce.KERNEL_BWD: 2}
+        per_step = {star.KERNEL: 3 * cfg.cycle_num,
+                    **ce_routes(cfg.dtype, cfg.decoder_d_model, 2, 2)}
     expected.update({name: k * n for name, k in per_step.items()})
     check_launches(tag, got, expected)
     losses = [res[k] for k in ("losses", "g_losses", "d_losses")]
@@ -3126,9 +3219,7 @@ def phase_wide(seed, bs):
     ckpt, widths = WIDE_CKPT, WIDE_WIDTHS
     got, stats = phase_train(seed, 1, bs, extra=widths, checkpoint=ckpt,
                              tag="wide_train", wide=(attn.KERNEL,
-                                                     attn.KERNEL_BWD,
-                                                     ce.KERNEL_FWD,
-                                                     ce.KERNEL_BWD))
+                                                     attn.KERNEL_BWD))
     print(f"[wide] {stats['ms_per_step']:.3f} ms a step over the epoch of "
           f"{stats['steps']} steps (the graph's warm-up and capture in it), "
           f"bf16")
@@ -3161,8 +3252,7 @@ def phase_wide_heads(seed, bs):
     got, stats = phase_train(seed, 1, bs, extra=WIDE_HEADS_WIDTHS,
                              checkpoint=WIDE_HEADS_CKPT,
                              tag="wide_heads_train",
-                             wide=(attn.KERNEL, attn.KERNEL_BWD,
-                                   ce.KERNEL_FWD, ce.KERNEL_BWD))
+                             wide=(attn.KERNEL, attn.KERNEL_BWD))
     print(f"[wide_heads] {stats['ms_per_step']:.3f} ms a step over the "
           f"epoch of {stats['steps']} steps (the graph's warm-up and capture "
           f"in it), bf16")
@@ -3362,46 +3452,53 @@ def phase_f32_wide(seed, bs):
     return by_path
 
 
-# where the f32 train epochs of the widened models save them, and those
-# paths (phase_f32_wide_train)
+# where the f32 train epochs of the widened models and of the main model
+# save them, those paths, and the main model's epochs there
+# (phase_f32_wide_train)
 F32_WIDE_HEADS_CKPT = "log/chip_smoke/f32_wide_heads_ckpt"
 F32_WIDE_CKPT = "log/chip_smoke/f32_wide_ckpt"
-F32_TRAIN_PATHS = ("f32_wide_heads_train", "f32_wide_train")
+F32_CKPT = "log/chip_smoke/f32_ckpt"
+F32_TRAIN_PATHS = ("f32_wide_heads_train", "f32_wide_train", "f32_train")
+F32_MAIN_EPOCHS = 2
 
 
 def phase_f32_wide_train(seed, bs):
-    """The widened models trained at f32, `cli train --dtype float32` for
-    one epoch from a random init through the default graphed path, exact
-    launch counts, losses finite and falling:
-    - f32_wide_heads_train: the wide-heads model (WIDE_HEADS_WIDTHS:
-      encoder one head of 512, decoder 2 of 320, D = 640): per step 12 K1
-      on the tiled kernel, 12 K2 on the tiled kernels
-      (csrc/attention_bwd_tiled.cu), K3 on csrc/ce_wide.cu and K4 on the
-      tiled kernels (csrc/ce_bwd_tiled.cu) at D = 640;
-    - f32_wide_train: the widened model (WIDE_WIDTHS: encoder 8 heads of
-      64, decoder 8 of 25, D = 200): 12 tiled K1 and 12 tiled K2 a step
-      (its K3/K4 at D = 200, a tuned f32 width);
+    """The widened models and the main model trained at f32, `cli train
+    --dtype float32` from a random init through the default graphed path,
+    exact launch counts, losses finite and falling; every K3 and K4 on the
+    tiled kernels (csrc/ce_fwd_tiled.cu, csrc/ce_bwd_tiled.cu):
+    - f32_wide_heads_train, one epoch: the wide-heads model
+      (WIDE_HEADS_WIDTHS: encoder one head of 512, decoder 2 of 320,
+      D = 640): per step 12 K1 on the tiled kernel, 12 K2 on the tiled
+      kernels (csrc/attention_bwd_tiled.cu), K3 and K4 at D = 640;
+    - f32_wide_train, one epoch: the widened model (WIDE_WIDTHS: encoder 8
+      heads of 64, decoder 8 of 25, D = 200): 12 tiled K1 and 12 tiled K2
+      a step, K3 and K4 at D = 200;
+    - f32_train, F32_MAIN_EPOCHS epochs: the main model (d_model 128, 8
+      heads of 16: the tuned f32 K1/K2), K3 and K4 at D = 128;
     then one f32 step of the wide-heads model through the kernels against
     one through the plain versions (`phase_step_parity`). Prints each
-    epoch's ms a step. -> {path: launch counts}."""
+    path's ms a step (the widened ones over their one epoch, the graph's
+    warm-up and capture in it; the main model's over its epochs after the
+    first). -> {path: launch counts}."""
     by_path = {}
     tiled = ((TILED, attn.KERNEL), (TILED_BWD, attn.KERNEL_BWD))
-    for tag, widths, ckpt, wide, sub in (
+    for tag, widths, ckpt, epochs, wide, sub in (
             ("f32_wide_heads_train", WIDE_HEADS_WIDTHS, F32_WIDE_HEADS_CKPT,
-             (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD),
-             tiled + ((CE_TILED, ce.KERNEL_BWD),)),
-            ("f32_wide_train", WIDE_WIDTHS, F32_WIDE_CKPT,
-             (attn.KERNEL, attn.KERNEL_BWD), tiled)):
-        by_path[tag], stats = phase_train(seed, 1, bs, extra=widths,
+             1, (attn.KERNEL, attn.KERNEL_BWD), tiled),
+            ("f32_wide_train", WIDE_WIDTHS, F32_WIDE_CKPT, 1,
+             (attn.KERNEL, attn.KERNEL_BWD), tiled),
+            ("f32_train", [], F32_CKPT, F32_MAIN_EPOCHS, (), ())):
+        by_path[tag], stats = phase_train(seed, epochs, bs, extra=widths,
                                           checkpoint=ckpt, tag=tag,
                                           wide=wide, sub=sub,
                                           dtype="float32")
-        print(f"[{tag}] {stats['ms_per_step']:.3f} ms a step over the epoch "
-              f"of {stats['steps']} steps (the graph's warm-up and capture "
-              f"in it), f32")
+        print(f"[{tag}] {stats['ms_per_step']:.3f} ms a step over " + (
+            f"the epoch of {stats['steps']} steps (the graph's warm-up and "
+            f"capture in it)" if epochs == 1 else
+            f"the epochs after the first of {epochs}") + ", f32")
     phase_step_parity(seed, bs, widths=WIDE_HEADS_WIDTHS, counted=(
-        WIDE[attn.KERNEL], WIDE[attn.KERNEL_BWD], WIDE[ce.KERNEL_FWD],
-        WIDE[ce.KERNEL_BWD], TILED, TILED_BWD, CE_TILED))
+        WIDE[attn.KERNEL], WIDE[attn.KERNEL_BWD], TILED, TILED_BWD))
     return by_path
 
 
@@ -3571,7 +3668,7 @@ def phase_resume(seed, bs):
     per_step = cfg.encoder_num_layer + 2 * cfg.decoder_num_layer
     expected = {name: 0 for name in COUNTERS}
     expected.update({attn.KERNEL: per_step * n, attn.KERNEL_BWD: per_step * n,
-                     ce.KERNEL_FWD: n, ce.KERNEL_BWD: n})
+                     **ce_routes(torch.float32, cfg.decoder_d_model, n, n)})
     check_launches(tag, got, expected)
     if [r["path"] for r in runs] != [f"scan{SCAN_STEPS}"] * 3 or \
             runs[2]["start_epoch"] != 2:
@@ -4289,11 +4386,12 @@ WIDE_INFO = {
                       "csrc/attention_bwd_tiled.cu, its own entry)"),
     ce.KERNEL_FWD: (ce.KERNEL_WIDE_FWD, "ce_d200", "the wide train path's "
                     "CE: K3 at N=1984 D=200 V=22234, bf16 (the tensor-core "
-                    "wide kernel; f32 on csrc/ce_wide.cu, its own entry)"),
+                    "wide kernel; every f32 K3 on csrc/ce_fwd_tiled.cu, its "
+                    "own entry)"),
     ce.KERNEL_BWD: (ce.KERNEL_WIDE_BWD, "ce_d200", "the wide train path's "
                     "CE: K4 at N=1984 D=200 V=22234, bf16 (the tensor-core "
-                    "wide kernels; f32 on csrc/ce_bwd_tiled.cu, its own "
-                    "entry)"),
+                    "wide kernels; every f32 K4 on csrc/ce_bwd_tiled.cu, "
+                    "its own entry)"),
     star.KERNEL: (star.KERNEL_WIDE, "star_d96", "the wide star train "
                   "path's ring: K5 at B=64 L=31 D=96 H=8, bf16"),
     topk.KERNEL: (topk.KERNEL_WIDE_MMA, "wide_beam", "the wide beam path: "
@@ -4480,30 +4578,33 @@ def kernels_line(rows, by_path):
               "one head of 512, N=64 Lq=Lk=32 shown; `cases`: the shapes "
               "of the tiled K1's entry; library: SDPA's backward (f32, no "
               "TF32)"})
-    # the tiled K4 (csrc/ce_bwd_tiled.cu) and the f32 wide K3
-    # (csrc/ce_wide.cu): every K4 and K3 launch of the f32 wide-heads train
-    # path
-    for name, kernel, source, counter, labels in (
-            (CE_TILED, ce.KERNEL_BWD, ce.KERNEL_BWD_TILED, CE_TILED,
-             (f"ce_d{WIDE_D[1]}", f"ce_d{OFF_STEP_D}",
-              f"ce_dh_only_d{WIDE_HEADS_D}")),
-            ("ce_fwd_wide_f32", ce.KERNEL_FWD, ce.KERNEL_WIDE,
-             WIDE[ce.KERNEL_FWD], (f"ce_d{WIDE_D[1]}", f"ce_d{OFF_STEP_D}"))):
-        row = f32_rows[(kernel, f"ce_d{WIDE_HEADS_D}")]
-        n = by_path["f32_wide_heads_train"][counter]
+    # the tiled K4 (csrc/ce_bwd_tiled.cu) and K3 (csrc/ce_fwd_tiled.cu):
+    # every f32 K4 and K3 launch of the paths (the f32 train epochs, the
+    # resume run's)
+    widths = [f"ce_d{d}" for d in (WIDE_PATH_D, WIDE_D[1], WIDE_HEADS_D,
+                                   OFF_STEP_D, ODD_F32_D)]
+    for name, kernel, source, labels in (
+            (CE_TILED, ce.KERNEL_BWD, ce.KERNEL_BWD_TILED,
+             widths + ["ce_dh_only", f"ce_dh_only_d{WIDE_HEADS_D}"]),
+            (CE_TILED_FWD, ce.KERNEL_FWD, ce.KERNEL_FWD_TILED, widths)):
+        row = f32_rows[(kernel, "ce")]
+        paths = {path: got[name] for path, got in by_path.items()
+                 if got.get(name)}
         out.append({
             "name": name, "route": "cuda", "design": row["design"],
             "source": f"deepsc_gan_tpu_torch/csrc/{source}.cu",
-            "replaces": KERNEL_INFO[kernel][0], "launches": n,
-            "launches_by_path": {"f32_wide_heads_train": n}, **_timing(row),
+            "replaces": KERNEL_INFO[kernel][0],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            **_timing(row),
             "cases": {label: _timing(f32_rows[(kernel, label)])
                       for label in labels},
-            "at": f"the f32 wide-heads train path's CE: N={row['n']} "
-                  f"D={WIDE_HEADS_D} V=22234, f32 shown; `cases`: D = "
-                  f"{WIDE_D[1]} and {OFF_STEP_D}" + (
-                      f", and the dh-only mode at D = {WIDE_HEADS_D}; "
-                      f"library: F.cross_entropy's backward (cuBLAS SGEMMs)"
-                      if kernel == ce.KERNEL_BWD else
+            "at": f"every f32 {'K4' if kernel == ce.KERNEL_BWD else 'K3'}: "
+                  f"the main model's CE, N={row['n']} D={row['d']} V=22234, "
+                  f"f32 shown; `cases`: D = {WIDE_PATH_D}, {WIDE_D[1]}, "
+                  f"{WIDE_HEADS_D}, {OFF_STEP_D} and {ODD_F32_D}" + (
+                      f", and the dh-only mode at D = {row['d']} and "
+                      f"{WIDE_HEADS_D}; library: F.cross_entropy's backward "
+                      f"(cuBLAS SGEMMs)" if kernel == ce.KERNEL_BWD else
                       "; library: F.cross_entropy over h @ W^T")})
     dh = next(r for r in rows if r["case"] == "ce_dh_only"
               and r["dtype"] == "bfloat16")
@@ -4552,9 +4653,8 @@ def kernels_line(rows, by_path):
         # the wide-heads path's K1/K2 launches all ran the chunked kernels,
         # the beam-100 path's K6 the long lists, the f32 wide paths' K1 the
         # tiled kernel and their K6 the select kernels, the f32 train
-        # paths' K1, K2 and K4 the tiled kernels and their K3 csrc/ce_wide.cu
-        # (their entries above), the other paths' the register-held ones
-        # and the lists up to 64
+        # paths' K1, K2, K3 and K4 the tiled kernels (their entries above),
+        # the other paths' the register-held ones and the lists up to 64
         paths = {path: got[WIDE[kernel]] for path, got in by_path.items()
                  if (path != "wide_heads"
                      or kernel not in (attn.KERNEL, attn.KERNEL_BWD))

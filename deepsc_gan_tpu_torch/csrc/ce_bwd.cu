@@ -34,8 +34,9 @@
 //   dh kernel and its split sum, and no dW/db kernel. The FGM attacks take
 //   the gradient with respect to the received symbols through a loss whose
 //   vocab table is held fixed.
-// No atomics: the result is deterministic. Each dtype has one version:
-// - bf16, tensor cores (csrc/wgmma_tile.cuh), one warpgroup per block: the
+// No atomics: the result is deterministic. bf16 only, on the tensor cores
+// (csrc/wgmma_tile.cuh), one warpgroup per block (every f32 K4 is
+// csrc/ce_bwd_tiled.cu's: exact f32 products on the CUDA cores): the
 //   resident tile A (h for dh, W for dW) and the streamed tiles B (64 rows
 //   of W, or of h) sit in shared memory as the TMA leaves them (128-byte
 //   swizzle; a three-stage ring for B, one mbarrier per stage). Per tile,
@@ -49,133 +50,11 @@
 //   roles swap (S^T = W_t . h_t^T, so P^T is already in the A layout), and
 //   db is each thread's sum of the unrounded P^T over its columns, merged
 //   across the four threads of a row at the end in a fixed order.
-// - f32, CUDA cores (exact f32 products, which the f32 step-parity checks
-//   need): 256 threads stage both tiles in shared memory as f32
-//   (csrc/ce_tile.cuh), form P in a shared tile and multiply with scalar
-//   FMAs, each thread owning 4 rows by D / 16 columns.
 
 #include "ce_tile.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
-
-using ce::kThreads;
-using ce::TN;
-using ce::TV;
-
-constexpr int kDPer = ce::kMaxD / 16;  // columns of D per thread
-constexpr int kPStride = TV + 1;       // row stride of the P tile
-
-// P for the thread's 4 x 4 logits (rows row0 + ty + 16 i, columns
-// col0 + tx + 16 j), in f32; zero off the ragged edges
-__device__ __forceinline__ void tile_p(float acc[4][4], const float* b,
-                                       const int* lab, const float* lse,
-                                       const float* g, int row0, int col0,
-                                       int n, int v, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool row_ok = row0 + ty + 16 * i < n;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (row_ok && c < v) {
-        float p = expf(acc[i][j] + b[c] - lse[i]) * g[i];
-        if (c == lab[i]) p -= g[i];
-        acc[i][j] = p;
-      } else {
-        acc[i][j] = 0.f;
-      }
-    }
-  }
-}
-
-// labels, lse and cotangent of the thread's rows row0 + ty + 16 i
-__device__ __forceinline__ void row_info(const int* labels,
-                                         const float* lse_in,
-                                         const float* g_in, int row0, int n,
-                                         int ty, int lab[4], float lse[4],
-                                         float g[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    const bool ok = r < n;
-    lab[i] = ok ? labels[r] : -1;
-    lse[i] = ok ? lse_in[r] : 0.f;
-    g[i] = ok ? g_in[r] : 0.f;
-  }
-}
-
-// ---- f32: CUDA cores ----
-
-__global__ void __launch_bounds__(kThreads)
-ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
-             const float* __restrict__ b, const int* __restrict__ labels,
-             const float* __restrict__ lse_in, const float* __restrict__ g_in,
-             float* __restrict__ dh_part, int n, int d, int v,
-             int tiles_per_split) {
-  extern __shared__ float smem[];
-  const int stride = d + 1;
-  float* hs = smem;              // TN x stride
-  float* ws = hs + TN * stride;  // TV x stride
-  float* pt = ws + TV * stride;  // TN x kPStride: P
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.x * TN;
-  const int split = blockIdx.y;
-  const int nvt = (v + TV - 1) / TV;
-  const int t0 = split * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, nvt);
-
-  ce::stage_rows(h, n, row0, TN, d, hs);
-  int lab[4];
-  float lse[4], g[4];
-  row_info(labels, lse_in, g_in, row0, n, ty, lab, lse, g);
-  float dha[4][kDPer];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < kDPer; ++t) dha[i][t] = 0.f;
-
-  for (int t = t0; t < t1; ++t) {
-    const int col0 = t * TV;
-    __syncthreads();  // the previous tile's reads of ws and pt are done
-    ce::stage_rows(w, v, col0, TV, d, ws);
-    __syncthreads();
-    float acc[4][4];
-    ce::tile_logits(hs, ws, d, ty, tx, acc);
-    tile_p(acc, b, lab, lse, g, row0, col0, n, v, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pt[(ty + 16 * i) * kPStride + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-    // dh[r][k] += sum_c P[r][c] W[c][k]; W rows past V are staged as 0
-    for (int c = 0; c < TV; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = pt[(ty + 16 * i) * kPStride + c];
-#pragma unroll
-      for (int k = 0; k < kDPer; ++k) {
-        if (tx + 16 * k < d) {
-          const float wv = ws[c * stride + tx + 16 * k];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dha[i][k] = fmaf(p[i], wv, dha[i][k]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= n) continue;
-    float* out = dh_part + ((size_t)split * n + r) * d;
-#pragma unroll
-    for (int k = 0; k < kDPer; ++k)
-      if (tx + 16 * k < d) out[tx + 16 * k] = dha[i][k];
-  }
-}
 
 // dh = sum over splits 0..S-1 of the partials, in order
 __global__ void ce_dh_sum_kernel(const float* __restrict__ dh_part,
@@ -187,78 +66,6 @@ __global__ void ce_dh_sum_kernel(const float* __restrict__ dh_part,
   float acc = 0.f;
   for (int sp = 0; sp < splits; ++sp) acc += dh_part[sp * total + e];
   dh[e] = acc;
-}
-
-__global__ void __launch_bounds__(kThreads)
-ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
-             const float* __restrict__ b, const int* __restrict__ labels,
-             const float* __restrict__ lse_in, const float* __restrict__ g_in,
-             float* __restrict__ dw, float* __restrict__ db, int n, int d,
-             int v) {
-  extern __shared__ float smem[];
-  const int stride = d + 1;
-  float* hs = smem;              // TN x stride
-  float* ws = hs + TN * stride;  // TV x stride
-  float* pt = ws + TV * stride;  // TN x kPStride: P in f32
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int col0 = blockIdx.x * TV;
-  ce::stage_rows(w, v, col0, TV, d, ws);
-
-  // thread (ty, tx) accumulates dW rows col0 + ty + 16 i, columns
-  // tx + 16 k of D; thread c < TV accumulates db[col0 + c]
-  float dwa[4][kDPer];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < kDPer; ++k) dwa[i][k] = 0.f;
-  float dba = 0.f;
-
-  for (int row0 = 0; row0 < n; row0 += TN) {
-    __syncthreads();  // the previous tile's reads of hs and pt are done
-    ce::stage_rows(h, n, row0, TN, d, hs);
-    int lab[4];
-    float lse[4], g[4];
-    row_info(labels, lse_in, g_in, row0, n, ty, lab, lse, g);
-    __syncthreads();
-    float acc[4][4];
-    ce::tile_logits(hs, ws, d, ty, tx, acc);
-    tile_p(acc, b, lab, lse, g, row0, col0, n, v, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pt[(ty + 16 * i) * kPStride + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-    // dW[c][k] += sum_r P[r][c] h[r][k]; h rows past N are staged as 0
-    for (int r = 0; r < TN; ++r) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = pt[r * kPStride + ty + 16 * i];
-#pragma unroll
-      for (int k = 0; k < kDPer; ++k) {
-        if (tx + 16 * k < d) {
-          const float hv = hs[r * stride + tx + 16 * k];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dwa[i][k] = fmaf(p[i], hv, dwa[i][k]);
-        }
-      }
-    }
-    if (threadIdx.x < TV)
-      for (int r = 0; r < TN; ++r) dba += pt[r * kPStride + threadIdx.x];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = col0 + ty + 16 * i;
-    if (c >= v) continue;
-    float* out = dw + (size_t)c * d;
-#pragma unroll
-    for (int k = 0; k < kDPer; ++k)
-      if (tx + 16 * k < d) out[tx + 16 * k] = dwa[i][k];
-  }
-  if (threadIdx.x < TV && col0 + (int)threadIdx.x < v)
-    db[col0 + threadIdx.x] = dba;
 }
 
 // ---- bf16: tensor cores ----
@@ -515,10 +322,6 @@ ce_dw_wgmma_kernel(const __grid_constant__ CUtensorMap hmap,
   }
 }
 
-size_t smem_bytes_f32(int d) {
-  return sizeof(float) * ((size_t)(TN + TV) * (d + 1) + TN * kPStride);
-}
-
 size_t smem_bytes_bf16(int d) {
   return 1024 + (size_t)(1 + kStages) * wg::tile_bytes(wg::kRows, d);
 }
@@ -533,7 +336,7 @@ int set_smem(const void* kernel, size_t smem) {
 // split would own no tile
 int split_tiles(int n, int d, int v, int splits) {
   if (n <= 0 || v <= 0 || d <= 0 || d > ce::kMaxD || splits <= 0) return -1;
-  const int nvt = (v + TV - 1) / TV;
+  const int nvt = (v + wg::kRows - 1) / wg::kRows;
   const int tps = (nvt + splits - 1) / splits;
   return (splits - 1) * tps >= nvt ? -1 : tps;
 }
@@ -601,58 +404,24 @@ int launch_bf16(const CUtensorMap& hmap, const CUtensorMap& wmap,
 extern "C" {
 
 // Bytes of dynamic shared memory one block of either product kernel needs.
-size_t deepsc_ce_bwd_smem_bytes_f32(int d) { return smem_bytes_f32(d); }
 size_t deepsc_ce_bwd_smem_bytes_bf16(int d) { return smem_bytes_bf16(d); }
 
 // The splits' terms at width d, out[3] as `tiling` fills it for the dh
 // kernel of the dtype on the current device.
-int deepsc_ce_bwd_tiling_f32(int d, int* out) {
-  if (d <= 0 || d > ce::kMaxD || d % 4) return (int)cudaErrorInvalidValue;
-  return tiling((const void*)ce_dh_kernel, kThreads, smem_bytes_f32(d), TN,
-                TV, out);
-}
-
 int deepsc_ce_bwd_tiling_bf16(int d, int* out) {
   if (d <= 0 || d > ce::kMaxD || d % 16) return (int)cudaErrorInvalidValue;
   return tiling(dh_wgmma_kernel(d), wg::kThreads, smem_bytes_bf16(d),
                 wg::kRows, wg::kRows, out);
 }
 
-// h: contiguous f32 (N, D), D a multiple of 4 up to 256; w: contiguous f32
-// (V, D); b, db: f32 (V); labels: int32 (N); lse, g: f32 (N); dh: f32
-// (N, D); dw: f32 (V, D); dh_part: f32 workspace (splits, N, D). Every
-// split must own at least one vocab tile of 64 rows. With dw and db both
-// null, dh alone: the dh kernel and its split sum, no dW/db kernel (the
-// gradient with respect to h of a loss whose vocab table is held fixed).
-// Returns cudaGetLastError() after the launches (0 = success).
-int deepsc_ce_bwd_f32(const void* h, const void* w, const void* b,
-                      const void* labels, const void* lse, const void* g,
-                      void* dh, void* dw, void* db, void* dh_part, int n,
-                      int d, int v, int splits, void* stream) {
-  const int tps = split_tiles(n, d, v, splits);
-  if (tps < 0 || d % 4 || (dw == nullptr) != (db == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes_f32(d);
-  int err = set_smem((const void*)ce_dh_kernel, smem);
-  if (err) return err;
-  err = set_smem((const void*)ce_dw_kernel, smem);
-  if (err) return err;
-  cudaStream_t st = (cudaStream_t)stream;
-  ce_dh_kernel<<<dim3((n + TN - 1) / TN, splits), kThreads, smem, st>>>(
-      (const float*)h, (const float*)w, (const float*)b, (const int*)labels,
-      (const float*)lse, (const float*)g, (float*)dh_part, n, d, v, tps);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  err = sum_splits(dh_part, dh, n, d, splits, st);
-  if (err || dw == nullptr) return err;
-  ce_dw_kernel<<<(v + TV - 1) / TV, kThreads, smem, st>>>(
-      (const float*)h, (const float*)w, (const float*)b, (const int*)labels,
-      (const float*)lse, (const float*)g, (float*)dw, (float*)db, n, d, v);
-  return (int)cudaGetLastError();
-}
-
-// As above with h and w in bf16 and D a multiple of 16 up to 256 (one
-// wgmma k-step is 16 columns).
+// h: contiguous bf16 (N, D), D a multiple of 16 up to 256 (one wgmma
+// k-step is 16 columns); w: contiguous bf16 (V, D); b, db: f32 (V);
+// labels: int32 (N); lse, g: f32 (N); dh: f32 (N, D); dw: f32 (V, D);
+// dh_part: f32 workspace (splits, N, D). Every split must own at least one
+// vocab tile of 64 rows. With dw and db both null, dh alone: the dh kernel
+// and its split sum, no dW/db kernel (the gradient with respect to h of a
+// loss whose vocab table is held fixed). Returns cudaGetLastError() after
+// the launches (0 = success).
 int deepsc_ce_bwd_bf16(const void* h, const void* w, const void* b,
                        const void* labels, const void* lse, const void* g,
                        void* dh, void* dw, void* db, void* dh_part, int n,

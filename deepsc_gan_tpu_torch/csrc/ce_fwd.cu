@@ -5,14 +5,13 @@
 // (reached through `pallas_softmax_xent` / `fused_ce_loss`). For each row n
 // of h (N, D) with label y_n, over the vocab table W (V, D) and bias b (V)
 //     lse_n = log sum_v exp(h_n . W_v + b_v),   ce_n = lse_n - (h_n . W_y + b_y)
-// with f32 products and sums of operands in h's type (f32, or bf16 on the
-// training path). The (N, V) logits never reach device memory: each block
-// recomputes tiles of them in registers and keeps a running max and a
-// rescaled sum of exponentials, as the TPU kernel does over its vocab grid
-// axis. The TPU kernel pads W and b to a whole number of vocab tiles (bias
-// -1e30 on the padding, a copy of the table per call); here the last tile
-// is masked instead, which gives the same sums: a padded column adds
-// exp(-1e30 - m) = 0.
+// with f32 products and sums of bf16 operands. The (N, V) logits never
+// reach device memory: each block recomputes tiles of them in registers
+// and keeps a running max and a rescaled sum of exponentials, as the TPU
+// kernel does over its vocab grid axis. The TPU kernel pads W and b to a
+// whole number of vocab tiles (bias -1e30 on the padding, a copy of the
+// table per call); here the last tile is masked instead, which gives the
+// same sums: a padded column adds exp(-1e30 - m) = 0.
 //
 // What bounds it: operations. At the training path (N = 64 x 31 = 1,984,
 // D = 128, V = 22,234, bf16) one call does 2 N D V = 11.3 GFLOP (11 us at
@@ -25,130 +24,22 @@
 // walks its range of vocab tiles; one (max, sum, gold) per (split, row)
 // goes to a workspace, and a second kernel merges the splits of each row in
 // order and writes ce and lse. No atomics: the result is deterministic.
-// Each dtype has one kernel:
-// - bf16, tensor cores (csrc/wgmma_tile.cuh): one warpgroup per block. The
-//   h tile stays in shared memory; vocab tiles of 128 rows of W stream
-//   through a two-stage ring filled by the TMA, one mbarrier per stage. The
-//   logits S = h_t . W_t^T (64 x 128, f32) come from wgmma m64n128k16 over
-//   D; the bias, the running max, the rescaled sum of exponentials (ex2 on
-//   log2e-scaled values) and the gold logit are taken in registers, each
-//   thread over the columns it holds of its two rows, and the four threads
-//   of a quad (one row) are merged by shuffles once at the end. The next
-//   tile's TMA load runs under this tile's epilogue, and two blocks share an
-//   SM, so one block's exponentials run under the other's products.
-// - f32, CUDA cores (exact f32 products, which the f32 step-parity checks
-//   need): 256 threads stage both tiles in shared memory (csrc/ce_tile.cuh)
-//   and each thread keeps the softmax state of a 4 x 4 patch of 64 x 64
-//   logits; the 16 partials of a row are merged in the block.
+// bf16 only, on the tensor cores (csrc/wgmma_tile.cuh; every f32 K3 is
+// csrc/ce_fwd_tiled.cu's, exact f32 on the CUDA cores), one warpgroup per
+// block. The h tile stays in shared memory; vocab tiles of 128 rows of W
+// stream through a two-stage ring filled by the TMA, one mbarrier per
+// stage. The logits S = h_t . W_t^T (64 x 128, f32) come from wgmma
+// m64n128k16 over D; the bias, the running max, the rescaled sum of
+// exponentials (ex2 on log2e-scaled values) and the gold logit are taken
+// in registers, each thread over the columns it holds of its two rows, and
+// the four threads of a quad (one row) are merged by shuffles once at the
+// end. The next tile's TMA load runs under this tile's epilogue, and two
+// blocks share an SM, so one block's exponentials run under the other's
+// products.
 
 #include "ce_online.cuh"
 
 namespace {
-
-using ce::kThreads;
-using ce::NEG;
-using ce::TN;
-using ce::TV;
-
-// ---- f32: CUDA cores ----
-
-__global__ void __launch_bounds__(kThreads)
-ce_fwd_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                      const float* __restrict__ b,
-                      const int* __restrict__ labels,
-                      float* __restrict__ part, int n, int d, int v,
-                      int tiles_per_split) {
-  extern __shared__ float smem[];
-  const int stride = d + 1;
-  float* hs = smem;              // TN x stride
-  float* ws = hs + TN * stride;  // TV x stride
-  float* red = ws + TV * stride; // 3 x TN x 16 partials
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.x * TN;
-  const int split = blockIdx.y;
-  const int nvt = (v + TV - 1) / TV;
-  const int t0 = split * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, nvt);
-
-  ce::stage_rows(h, n, row0, TN, d, hs);
-  int lab[4];
-  float m[4], s[4], gold[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    lab[i] = r < n ? labels[r] : -1;
-    m[i] = NEG;
-    s[i] = 0.f;
-    gold[i] = 0.f;
-  }
-
-  for (int t = t0; t < t1; ++t) {
-    const int col0 = t * TV;
-    __syncthreads();  // the previous tile's reads of ws are done
-    ce::stage_rows(w, v, col0, TV, d, ws);
-    __syncthreads();
-    float acc[4][4];
-    ce::tile_logits(hs, ws, d, ty, tx, acc);
-    if (col0 + tx >= v) continue;  // this thread owns no column of the tile
-    float bias[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      bias[j] = c < v ? b[c] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float cm = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = col0 + tx + 16 * j;
-        if (c < v) {
-          acc[i][j] += bias[j];
-          cm = fmaxf(cm, acc[i][j]);
-          if (c == lab[i]) gold[i] = acc[i][j];
-        }
-      }
-      const float mn = fmaxf(m[i], cm);
-      float se = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (col0 + tx + 16 * j < v) se += expf(acc[i][j] - mn);
-      s[i] = s[i] * expf(m[i] - mn) + se;
-      m[i] = mn;
-    }
-  }
-
-  // merge the 16 column partials of each row (threads tx = 0..15)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    red[(0 * TN + r) * 16 + tx] = m[i];
-    red[(1 * TN + r) * 16 + tx] = s[i];
-    red[(2 * TN + r) * 16 + tx] = gold[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < TN) {
-    const int r = threadIdx.x;
-    const int row = row0 + r;
-    float mm = NEG;
-    for (int x = 0; x < 16; ++x) mm = fmaxf(mm, red[(0 * TN + r) * 16 + x]);
-    float ss = 0.f, gg = 0.f;
-    for (int x = 0; x < 16; ++x) {
-      ss += red[(1 * TN + r) * 16 + x] * expf(red[(0 * TN + r) * 16 + x] - mm);
-      gg += red[(2 * TN + r) * 16 + x];
-    }
-    if (row < n) {
-      float* out = part + ((size_t)split * n + row) * 3;
-      out[0] = mm;
-      out[1] = ss;
-      out[2] = gg;
-    }
-  }
-}
-
-// ---- bf16: tensor cores ----
 
 using ceo::kTV;
 constexpr int kStages = 2;   // ring of vocab tiles
@@ -210,10 +101,6 @@ ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap hmap,
   sm.store(part, split, row0 + r, n, lane);
 }
 
-size_t smem_bytes_f32(int d) {
-  return sizeof(float) * ((size_t)(TN + TV) * (d + 1) + 3 * TN * 16);
-}
-
 size_t smem_bytes_bf16(int d) {
   return 1024 + (size_t)wg::tile_bytes(wg::kRows, d) +
          (size_t)kStages * wg::tile_bytes(kTV, d);
@@ -235,50 +122,21 @@ using ceo::tiling;
 extern "C" {
 
 // Bytes of dynamic shared memory one block of the partial kernel needs.
-size_t deepsc_ce_fwd_smem_bytes_f32(int d) { return smem_bytes_f32(d); }
 size_t deepsc_ce_fwd_smem_bytes_bf16(int d) { return smem_bytes_bf16(d); }
 
 // The splits' terms at width d, out[3] as `tiling` fills it for the
 // partial kernel of the dtype on the current device.
-int deepsc_ce_fwd_tiling_f32(int d, int* out) {
-  if (d <= 0 || d > ce::kMaxD || d % 4) return (int)cudaErrorInvalidValue;
-  return tiling((const void*)ce_fwd_partial_kernel, kThreads,
-                smem_bytes_f32(d), TN, TV, out);
-}
-
 int deepsc_ce_fwd_tiling_bf16(int d, int* out) {
   if (d <= 0 || d > ce::kMaxD || d % 16) return (int)cudaErrorInvalidValue;
   return tiling((const void*)ce_fwd_wgmma_kernel, wg::kThreads,
                 smem_bytes_bf16(d), wg::kRows, kTV, out);
 }
 
-// h: contiguous f32 (N, D), D a multiple of 4 up to 256; w: contiguous f32
-// (V, D); b: f32 (V); labels: int32 (N); ce_out, lse_out: f32 (N); part:
-// f32 workspace (splits, N, 3). Every split must own at least one vocab
-// tile of 64 rows. Returns cudaGetLastError() after the launches (0 =
-// success).
-int deepsc_ce_fwd_f32(const void* h, const void* w, const void* b,
-                      const void* labels, void* ce_out, void* lse_out,
-                      void* part, int n, int d, int v, int splits,
-                      void* stream) {
-  const int tps = split_tiles(n, d, v, splits, TV);
-  if (tps < 0 || d % 4) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes_f32(d);
-  int err = set_smem((const void*)ce_fwd_partial_kernel, smem);
-  if (err) return err;
-  cudaStream_t st = (cudaStream_t)stream;
-  ce_fwd_partial_kernel<<<dim3((n + TN - 1) / TN, splits), kThreads, smem,
-                          st>>>((const float*)h, (const float*)w,
-                                (const float*)b, (const int*)labels,
-                                (float*)part, n, d, v, tps);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return combine(part, ce_out, lse_out, n, splits, st);
-}
-
-// As above with h and w in bf16 and D a multiple of 16 up to 256 (one
-// wgmma k-step is 16 columns); every split owns at least one vocab tile of
-// 128 rows.
+// h: contiguous bf16 (N, D), D a multiple of 16 up to 256 (one wgmma
+// k-step is 16 columns); w: contiguous bf16 (V, D); b: f32 (V); labels:
+// int32 (N); ce_out, lse_out: f32 (N); part: f32 workspace (splits, N, 3).
+// Every split must own at least one vocab tile of 128 rows. Returns
+// cudaGetLastError() after the launches (0 = success).
 int deepsc_ce_fwd_bf16(const void* h, const void* w, const void* b,
                        const void* labels, void* ce_out, void* lse_out,
                        void* part, int n, int d, int v, int splits,

@@ -5,8 +5,8 @@
 // where the tuned K3 (csrc/ce_fwd.cu: D a multiple of 16 up to 256, the
 // whole 64-row tile of h resident) does not take the width: the wide-heads
 // decoder (`--decoder-d-model 640`), the widened one (200) and any other
-// bf16 D run here. The f32 widths stay on csrc/ce_wide.cu's CUDA-core
-// kernels (exact f32 products, which the f32 step-parity checks need). Same
+// bf16 D run here. Every f32 width runs csrc/ce_fwd_tiled.cu on the CUDA
+// cores (exact f32 products, which the f32 step-parity checks need). Same
 // function and roundings as the tuned K3: with h (N, D) and W (V, D) bf16,
 // bias b (V) f32 and labels y,
 //     lse_n = log sum_v exp(h_n . W_v + b_v),  ce_n = lse_n - (h_n . W_y + b_y)
@@ -15,7 +15,7 @@
 // What bounds it: operations. At N = 1,984, D = 640, V = 22,234 one call
 // does 2 N D V = 56.5 GFLOP (0.057 ms at the bf16 tensor-core rate) and
 // N V = 44 M exponentials, and reads 31 MB (0.009 ms at 3.35 TB/s). The
-// design before this one (csrc/ce_wide.cu's f32 CUDA-core tiles, bf16
+// design before this one (CUDA-core tiles of 64 x 64 in f32, bf16
 // converted as it was staged) took 5.3 ms there.
 //
 // Design: the tuned K3's tile step with D turned into a streamed k-loop.

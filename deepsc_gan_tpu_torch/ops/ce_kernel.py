@@ -1,6 +1,6 @@
-"""Online-softmax vocab cross-entropy: the CUDA kernels `csrc/ce_fwd.cu`
-(K3, the port of the TPU kernel `_fwd_kernel`) and `csrc/ce_bwd.cu` (K4, the
-port of `_dh_kernel` and `_dw_kernel`, deepsc_gan_tpu/ops/pallas/ce.py),
+"""Online-softmax vocab cross-entropy: the CUDA kernels of K3 (the port of
+the TPU kernel `_fwd_kernel`) and K4 (the port of `_dh_kernel` and
+`_dw_kernel`, deepsc_gan_tpu/ops/pallas/ce.py),
 their wrappers and plain PyTorch versions, and the `torch.autograd.Function`
 of the per-row CE.
 
@@ -17,19 +17,20 @@ decoder's hidden states, the table passed detached), K4 runs in its dh-only
 mode: the dh kernel alone, no dW/db kernel. On CUDA
 tensors each wrapper launches its kernel (and counts the launch) or raises;
 on CPU tensors it runs the plain version, which is also what the kernels are
-held against on the card. Each dtype has one tuned kernel: bf16 multiplies
-on the tensor cores (wgmma) and f32 on the CUDA cores in exact f32, which
-the f32 step-parity checks need; a width they do not take goes to the wide
-kernels: K3 in bf16 to `csrc/ce_wide_fwd.cu` (`wgmma`, the tuned K3's tile
-step with D streamed through a TMA ring in 64-column k-chunks of h's and
-W's tiles) and in f32 to `csrc/ce_wide.cu` (CUDA-core tiles with D streamed
-in chunks); K4 in bf16 up to 5,120 columns to `csrc/ce_wide_bwd.cu`
-(`wgmma`, the output's D cut into 64-column slabs over the two warpgroups
-of a block and, past 640 columns, over a cluster of blocks that share each
-tile's logits through distributed shared memory), and every other wide K4
-(every f32 one, bf16 past 5,120 columns) to `csrc/ce_bwd_tiled.cu` (P
-formed once into an (N, V) workspace by 128 x 128 CUDA-core tiles, then
-dh = Pc W and dW = Pc^T h as two tiled products that read it).
+held against on the card. bf16 multiplies on the tensor cores (wgmma):
+the tuned kernels `csrc/ce_fwd.cu` and `csrc/ce_bwd.cu` at D a multiple of
+16 up to 256, and off those widths K3 in `csrc/ce_wide_fwd.cu` (the tuned
+K3's tile step with D streamed through a TMA ring in 64-column k-chunks of
+h's and W's tiles) and K4 up to 5,120 columns in `csrc/ce_wide_bwd.cu` (the
+output's D cut into 64-column slabs over the two warpgroups of a block
+and, past 640 columns, over a cluster of blocks that share each tile's
+logits through distributed shared memory). f32 multiplies on the CUDA
+cores in exact f32, which the f32 step-parity checks need, at every width
+on one 128 x 128 tile (`csrc/ce_tiled.cuh`): K3 in `csrc/ce_fwd_tiled.cu`
+(the logits tile by tile under an online softmax), K4 in
+`csrc/ce_bwd_tiled.cu` (P formed once into an (N, V) workspace, then dh =
+Pc W and dW = Pc^T h as two tiled products that read it), which also takes
+bf16 K4 past 5,120 columns.
 """
 
 from __future__ import annotations
@@ -44,15 +45,15 @@ from deepsc_gan_tpu_torch.ops import build
 
 KERNEL_FWD = "ce_fwd"
 KERNEL_BWD = "ce_bwd"
-KERNEL_WIDE = "ce_wide"
 KERNEL_WIDE_BWD = "ce_wide_bwd"
 KERNEL_WIDE_FWD = "ce_wide_fwd"
 KERNEL_BWD_TILED = "ce_bwd_tiled"
-# what the tuned kernels take: D a multiple of D_STEP (one wgmma k-step in
-# bf16, the f32 kernels' vector loads) up to MAX_D; any other D >= 1 goes
-# to the wide kernels (bf16: csrc/ce_wide_fwd.cu and csrc/ce_wide_bwd.cu on
-# the tensor cores; f32: csrc/ce_wide.cu for K3, csrc/ce_bwd_tiled.cu for
-# K4)
+KERNEL_FWD_TILED = "ce_fwd_tiled"
+# the widths off which a call counts as wide: D a multiple of D_STEP (one
+# wgmma k-step in bf16, 8 in f32) up to MAX_D is a tuned width; any other
+# D >= 1 goes in bf16 to the wide kernels (csrc/ce_wide_fwd.cu and
+# csrc/ce_wide_bwd.cu on the tensor cores); every f32 width runs the tiled
+# kernels (csrc/ce_fwd_tiled.cu, csrc/ce_bwd_tiled.cu)
 MAX_D = 256
 D_STEP = {torch.float32: 8, torch.bfloat16: 16}
 # the bf16 wide K3 on the tensor cores (csrc/ce_wide_fwd.cu): a ring of
@@ -74,40 +75,43 @@ BLOCK_SLABS = 10
 MAX_CLUSTER = 8
 MAX_STAGES = 4
 SMEM_BUDGET = 232448 - 256
-# the tiled K4 (csrc/ce_bwd_tiled.cu): tiles of TILED_TILE rows and
-# columns; its P workspace has N and V rounded up to TILED_TILE, and the dh
-# product's vocab splits each own whole vocab tiles
+# the tiled K3 and K4 (csrc/ce_fwd_tiled.cu, csrc/ce_bwd_tiled.cu): tiles
+# of TILED_TILE rows and columns; K4's P workspace has N and V rounded up to
+# TILED_TILE, and the vocab splits of both each own whole vocab tiles
 TILED_TILE = 128
 
 # Launches of the forward (K3) and backward (K4) kernels since the last
 # reset (each wrapper adds one per call that launches its kernels and
 # nowhere else; `bwd_dh_only_launches` counts the K4 calls among them that
 # ran in the dh-only mode, `wide_fwd_launches` and `wide_bwd_launches` the
-# calls that went to the wide kernels, `tiled_bwd_launches` the K4 calls
-# among those that went to the tiled kernels); read by chip_smoke.py to show
-# that a path went through them.
+# calls off the tuned widths (`is_wide`), `tiled_fwd_launches` and
+# `tiled_bwd_launches` the calls that went to the tiled kernels); read by
+# chip_smoke.py to show that a path went through them.
 fwd_launches = 0
 bwd_launches = 0
 bwd_dh_only_launches = 0
 wide_fwd_launches = 0
 wide_bwd_launches = 0
+tiled_fwd_launches = 0
 tiled_bwd_launches = 0
 
 
 def reset_launches() -> None:
     global fwd_launches, bwd_launches, bwd_dh_only_launches
-    global wide_fwd_launches, wide_bwd_launches, tiled_bwd_launches
+    global wide_fwd_launches, wide_bwd_launches
+    global tiled_fwd_launches, tiled_bwd_launches
     fwd_launches = 0
     bwd_launches = 0
     bwd_dh_only_launches = 0
     wide_fwd_launches = 0
     wide_bwd_launches = 0
+    tiled_fwd_launches = 0
     tiled_bwd_launches = 0
 
 
 def is_wide(dtype: torch.dtype, d: int) -> bool:
-    """Whether width D goes to the wide kernels (off the tuned kernels'
-    D_STEP, or past MAX_D)."""
+    """Whether width D is off the tuned widths (off D_STEP, or past
+    MAX_D): in bf16 the wide kernels take it."""
     return d % D_STEP[op_dtype(dtype)] != 0 or d > MAX_D
 
 
@@ -173,7 +177,7 @@ def wide_fwd_plan(dp: int) -> Optional[WideFwdPlan]:
 def uses_tensor_core_fwd(dtype: torch.dtype, d: int) -> bool:
     """Whether K3 at width d in `dtype` runs the wide tensor-core kernel
     (csrc/ce_wide_fwd.cu): bf16 off the tuned widths, any D; f32 runs the
-    CUDA-core wide kernels."""
+    tiled kernel (`uses_tiled_fwd`)."""
     return op_dtype(dtype) == torch.bfloat16 and is_wide(dtype, d)
 
 
@@ -186,11 +190,18 @@ def uses_tensor_core_bwd(dtype: torch.dtype, d: int) -> bool:
             and wide_bwd_plan(padded_width(d)) is not None)
 
 
+def uses_tiled_fwd(dtype: torch.dtype, d: int) -> bool:
+    """Whether K3 at width d in `dtype` runs the tiled kernel
+    (csrc/ce_fwd_tiled.cu): every f32 width."""
+    return op_dtype(dtype) == torch.float32
+
+
 def uses_tiled_bwd(dtype: torch.dtype, d: int) -> bool:
     """Whether K4 at width d in `dtype` runs the tiled kernels
-    (csrc/ce_bwd_tiled.cu): every wide K4 the tensor-core wide kernels do
-    not take (every f32 width off the tuned kernel's, bf16 past 5,120)."""
-    return is_wide(dtype, d) and not uses_tensor_core_bwd(dtype, d)
+    (csrc/ce_bwd_tiled.cu): every f32 width, and bf16 past the 5,120
+    columns of the tensor-core wide kernels."""
+    return op_dtype(dtype) == torch.float32 or (
+        is_wide(dtype, d) and not uses_tensor_core_bwd(dtype, d))
 
 
 def tiled_workspace(n: int, v: int):
@@ -214,13 +225,40 @@ def tiled_splits(n: int, d: int, v: int, sm_count: int,
     return -(-vt // per)
 
 
-def tiled_split_ranges(v: int, splits: int):
-    """[(first, last) vocab index of each split of the tiled K4's dh
-    product], within the workspace's V rounded up to TILED_TILE: whole
-    vocab tiles, split s from s x ceil(tiles / splits) of them."""
-    vt = -(-v // TILED_TILE)
-    per = -(-vt // splits)
-    return [(s * per * TILED_TILE, min((s + 1) * per, vt) * TILED_TILE)
+def tiled_dw_splits(n: int, d: int, v: int, sm_count: int,
+                    blocks_per_sm: int, most: int = 4) -> int:
+    """Row splits of the tiled K4's dW product (its partials added in split
+    order): one where its blocks (vocab tiles x column tiles of D) fill a
+    wave of `blocks_per_sm` blocks per SM; else, of 1..`most`, each owning
+    whole 128-row tiles of h, the one that takes the fewest waves times
+    the row tiles a block sums, the fewest splits on a tie, and one unless
+    that saves a tenth. (On an H100 80GB HBM3 at 700 W, three splits at
+    D = 128 took the dW product from 0.398 to 0.283 ms; two at D = 200 and
+    640, whose blocks already fill a wave, gained nothing and paid the
+    partials' traffic: scripts/kernels_ab.py's device times by kernel.)"""
+    rt = -(-n // TILED_TILE)
+    blocks = -(-v // TILED_TILE) * -(-d // TILED_TILE)
+    slots = max(1, blocks_per_sm * sm_count)
+    if blocks >= slots:
+        return 1
+
+    def cost(s):
+        return -(-blocks * s // slots) * -(-rt // s)
+
+    best = min((s for s in range(1, min(most, rt) + 1)
+                if (s - 1) * -(-rt // s) < rt), key=cost)
+    return best if cost(best) <= 0.9 * cost(1) else 1
+
+
+def tiled_split_ranges(total: int, splits: int):
+    """[(first, last) index of each split] of `total` entries cut into
+    whole tiles of TILED_TILE, split s from s x ceil(tiles / splits) of
+    them, within `total` rounded up to TILED_TILE: the vocab splits of the
+    tiled K4's dh product and of the tiled K3, and the row splits of the
+    tiled K4's dW product."""
+    tiles = -(-total // TILED_TILE)
+    per = -(-tiles // splits)
+    return [(s * per * TILED_TILE, min((s + 1) * per, tiles) * TILED_TILE)
             for s in range(splits)]
 
 
@@ -282,7 +320,8 @@ _TILING = {}
 
 def _bind(kernel, dtype):
     """(launch function, shared-memory size function) of the built
-    library of `kernel`, with their ctypes signatures declared."""
+    library of the tuned bf16 kernel `kernel`, with their ctypes
+    signatures declared."""
     if (kernel, dtype) not in _BOUND:
         lib = build.load(kernel)
         fn = getattr(lib, f"deepsc_{kernel}_{_SUFFIX[dtype]}")
@@ -338,13 +377,12 @@ def library_plan(dp: int, kernel: str = KERNEL_WIDE_BWD):
     return plan(*out)
 
 
-def _bind_wide(dtype):
-    """The wide library's K3 launch function in `dtype` (csrc/ce_wide.cu),
-    with its ctypes signature declared (the tuned entry's arguments)."""
-    key = (KERNEL_WIDE, KERNEL_FWD, dtype)
+def _bind_tiled_fwd():
+    """The tiled K3's launch function (csrc/ce_fwd_tiled.cu), with its
+    ctypes signature declared (the tuned entry's arguments)."""
+    key = (KERNEL_FWD_TILED, torch.float32)
     if key not in _BOUND:
-        fn = getattr(build.load(KERNEL_WIDE),
-                     f"deepsc_ce_wide_fwd_{_SUFFIX[dtype]}")
+        fn = build.load(KERNEL_FWD_TILED).deepsc_ce_fwd_tiled_f32
         fn.argtypes = ([ctypes.c_void_p] * _POINTERS[KERNEL_FWD]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -355,13 +393,14 @@ def _bind_wide(dtype):
 def _bind_tiled_bwd(dtype):
     """The tiled K4's launch function in `dtype` (csrc/ce_bwd_tiled.cu),
     with its ctypes signature declared (the tuned entry's pointers, then the
-    P workspace and the dh partials)."""
+    P workspace, the dh partials and the dW/db partials; N, D, V, the vocab
+    splits and the row splits)."""
     key = (KERNEL_BWD_TILED, dtype)
     if key not in _BOUND:
         fn = getattr(build.load(KERNEL_BWD_TILED),
                      f"deepsc_{KERNEL_BWD_TILED}_{_SUFFIX[dtype]}")
-        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[KERNEL_BWD] + 1)
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[KERNEL_BWD] + 2)
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _BOUND[key] = fn
     return _BOUND[key]
@@ -369,7 +408,7 @@ def _bind_tiled_bwd(dtype):
 
 def tiling(kernel, dtype, d, device):
     """(rows of h per tile, vocab rows per tile, blocks per SM) of the
-    kernel in the library `kernel` (`ce_fwd`, `ce_bwd`, `ce_wide`,
+    kernel in the library `kernel` (`ce_fwd`, `ce_bwd`, `ce_fwd_tiled`,
     `ce_bwd_tiled`, `ce_wide_fwd` or `ce_wide_bwd` (d: the padded width),
     or K6's `topk`,
     `topk_select` or `topk_wide_mma` (d: the list length k, its tiling the
@@ -408,10 +447,10 @@ def _on_cuda(h):
 
 def _check(h, W, b, labels, *rows):
     """What the kernels take: h (N, D) and W (V, D) of one dtype, f32 or
-    bf16, any D >= 1 (the tuned kernels a multiple of 8 (f32) or of 16
-    (bf16: one wgmma k-step) up to 256, the wide kernels any other); b (V,)
-    f32; int32 labels and f32 per-row vectors (N,); all contiguous, 16-byte
-    aligned, on h's device."""
+    bf16, any D >= 1 (the tuned bf16 kernels a multiple of 16 up to 256,
+    the wide and the tiled kernels any other); b (V,) f32; int32 labels
+    and f32 per-row vectors (N,); all contiguous, 16-byte aligned, on h's
+    device."""
     if h.dtype not in _SUFFIX or W.dtype != h.dtype:
         raise TypeError(f"CE kernels take h and W of one dtype, float32 or "
                         f"bfloat16, not {h.dtype} and {W.dtype}")
@@ -449,24 +488,19 @@ def vocab_splits(n: int, v: int, sm_count: int, rows: int, vocab_rows: int,
 
 
 def _launch_setup(kernel, h, W):
-    """(launch function, vocab splits, whether it is the wide kernels') for
-    h and W (the wide kernels: K3's alone, csrc/ce_wide.cu)."""
+    """(launch function, vocab splits) of the tuned bf16 kernel `kernel`
+    for h and W."""
     (n, d), v = h.shape, W.shape[0]
     props = torch.cuda.get_device_properties(h.device)
-    wide = is_wide(h.dtype, d)
-    if wide:
-        fn, tiles = _bind_wide(h.dtype), KERNEL_WIDE
-    else:
-        fn, smem_bytes = _bind(kernel, h.dtype)
-        tiles = kernel
-        smem = smem_bytes(d)
-        if smem > props.shared_memory_per_block_optin:
-            raise ValueError(f"{kernel} kernel needs {smem} bytes of shared "
-                             f"memory per block; the device allows "
-                             f"{props.shared_memory_per_block_optin}")
+    fn, smem_bytes = _bind(kernel, h.dtype)
+    smem = smem_bytes(d)
+    if smem > props.shared_memory_per_block_optin:
+        raise ValueError(f"{kernel} kernel needs {smem} bytes of shared "
+                         f"memory per block; the device allows "
+                         f"{props.shared_memory_per_block_optin}")
     splits = vocab_splits(n, v, props.multi_processor_count,
-                          *tiling(tiles, h.dtype, d, h.device))
-    return fn, splits, wide
+                          *tiling(kernel, h.dtype, d, h.device))
+    return fn, splits
 
 
 def ce_fwd(h, W, b, labels):
@@ -476,15 +510,20 @@ def ce_fwd(h, W, b, labels):
     h, W, b, labels = _operands(h, W, b, labels)
     _check(h, W, b, labels)
     (n, d), v = h.shape, W.shape[0]
-    if uses_tensor_core_fwd(h.dtype, d):
+    wide, tiled = is_wide(h.dtype, d), uses_tiled_fwd(h.dtype, d)
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    if tiled:
+        fn = _bind_tiled_fwd()
+        splits = vocab_splits(n, v, sms, *tiling(KERNEL_FWD_TILED, h.dtype,
+                                                 d, h.device))
+    elif uses_tensor_core_fwd(h.dtype, d):
         d = padded_width(d)
-        fn, wide = _bind_wide_fwd(), True
-        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+        fn = _bind_wide_fwd()
         splits = vocab_splits(n, v, sms, *tiling(KERNEL_WIDE_FWD, h.dtype, d,
                                                  h.device))
         h, W = _padded(h, d), _padded(W, d)
     else:
-        fn, splits, wide = _launch_setup(KERNEL_FWD, h, W)
+        fn, splits = _launch_setup(KERNEL_FWD, h, W)
     f32 = {"dtype": torch.float32, "device": h.device}
     ce = torch.empty(n, **f32)
     lse = torch.empty(n, **f32)
@@ -496,9 +535,10 @@ def ce_fwd(h, W, b, labels):
     if err != 0:
         raise RuntimeError(f"CE forward kernel launch failed: CUDA error "
                            f"{err}")
-    global fwd_launches, wide_fwd_launches
+    global fwd_launches, wide_fwd_launches, tiled_fwd_launches
     fwd_launches += 1
     wide_fwd_launches += wide
+    tiled_fwd_launches += tiled
     return ce, lse
 
 
@@ -537,23 +577,27 @@ def ce_bwd(h, W, b, labels, lse, g, dh_only=False):
         h, W = _padded(h, dp), _padded(W, dp)
     elif tiled:
         fn = _bind_tiled_bwd(h.dtype)
-        splits = tiled_splits(n, d, v, sms, tiling(KERNEL_BWD_TILED, h.dtype,
-                                                   d, h.device)[2])
+        blocks = tiling(KERNEL_BWD_TILED, h.dtype, d, h.device)[2]
+        splits = tiled_splits(n, d, v, sms, blocks)
+        dw_splits = 1 if dh_only else tiled_dw_splits(n, d, v, sms, blocks)
         # P once, (N, V) rounded up to whole tiles
         work = torch.empty(tiled_workspace(n, v), **f32)
+        dw_part = (torch.empty(dw_splits * (v * d + v), **f32)
+                   if dw_splits > 1 else None)
     else:
-        fn, splits, _ = _launch_setup(KERNEL_BWD, h, W)
+        fn, splits = _launch_setup(KERNEL_BWD, h, W)
     dh = torch.empty((n, d), **f32)
     dW = None if dh_only else torch.empty((v, d), **f32)
     db = None if dh_only else torch.empty(v, **f32)
     dh_part = (torch.empty((splits, n, d), **f32)
                if splits > 1 or not tiled else None)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    sizes = (n, d, dp, v) if tensor_cores else (n, d, v)
+    sizes = ((n, d, dp, v, splits) if tensor_cores else
+             (n, d, v, splits, dw_splits) if tiled else (n, d, v, splits))
     pointers = [h, W, b, labels, lse, g, dh, dW, db] + (
-        [work] if tiled else []) + [dh_part]
+        [work, dh_part, dw_part] if tiled else [dh_part])
     err = fn(*(None if t is None else t.data_ptr() for t in pointers),
-             *sizes, splits, stream)
+             *sizes, stream)
     if err != 0:
         raise RuntimeError(f"CE backward kernel launch failed: CUDA error "
                            f"{err}")
@@ -561,7 +605,7 @@ def ce_bwd(h, W, b, labels, lse, g, dh_only=False):
     global tiled_bwd_launches
     bwd_launches += 1
     bwd_dh_only_launches += dh_only
-    wide_bwd_launches += tensor_cores or tiled
+    wide_bwd_launches += is_wide(h.dtype, d)
     tiled_bwd_launches += tiled
     return dh, dW, db
 

@@ -44,10 +44,11 @@ check lets through:
   tensor-core wide or chunked kernels, in f32 the tiled kernels
   (csrc/attention_bwd_tiled.cu; any length, S and dP formed in its
   scratch where a row of keys outgrows a block's shared memory);
-- K3/K4: the tuned kernels, else the wide ones, at any width: in f32 K3
-  on csrc/ce_wide.cu and K4 on the tiled kernels (csrc/ce_bwd_tiled.cu:
-  P once into an (N, V) workspace, then dh and dW), in bf16 both on the
-  tensor cores (K4 up to 5,120 columns, the tiled kernels past them);
+- K3/K4: at any width. Every f32 call on the tiled kernels, one 128 x 128
+  CUDA-core tile (K3 csrc/ce_fwd_tiled.cu, K4 csrc/ce_bwd_tiled.cu: P once
+  into an (N, V) workspace, then dh and dW); bf16 on the tensor cores, the
+  tuned kernels at D a multiple of 16 up to 256, else the wide ones (K4 up
+  to 5,120 columns, the tiled kernels past them);
 - K6: `--beam-size` k in 1..V at any width: the tuned kernel up to k = 8,
   in bf16 the tensor-core wide kernel up to 64 and its long path up to
   256 (V up to 25,000), every other call (every f32 one, bf16 past them)

@@ -29,30 +29,26 @@ import torch
 from deepsc_gan_tpu_torch.ops import attention_kernel, ce_kernel
 from deepsc_gan_tpu_torch.ops import star_kernel, topk_kernel
 
-# every kernel launch count, by module
-_COUNTS = ((attention_kernel, ("launches", "bwd_launches", "wide_launches",
-                               "wide_bwd_launches", "tiled_launches",
-                               "tiled_bwd_launches",
-                               "cluster_bwd_launches")),
-           (ce_kernel, ("fwd_launches", "bwd_launches",
-                        "bwd_dh_only_launches", "wide_fwd_launches",
-                        "wide_bwd_launches", "tiled_bwd_launches")),
-           (star_kernel, ("launches", "wide_launches")),
-           (topk_kernel, ("launches", "wide_launches",
-                          "long_list_launches", "select_launches")))
+_KERNELS = (attention_kernel, ce_kernel, star_kernel, topk_kernel)
+
+
+def _counts():
+    """(module, name) of every kernel launch count: each wrapper module's
+    integers named `*launches`."""
+    return [(mod, name) for mod in _KERNELS for name, value in vars(mod).items()
+            if name.endswith("launches") and isinstance(value, int)]
 
 
 def launch_counts() -> Dict[Tuple[str, str], int]:
     """Every kernel wrapper's launch count, by (module, name)."""
     return {(mod.__name__, name): getattr(mod, name)
-            for mod, names in _COUNTS for name in names}
+            for mod, name in _counts()}
 
 
 def _add_counts(delta: Dict[Tuple[str, str], int], times: int = 1) -> None:
-    for mod, names in _COUNTS:
-        for name in names:
-            setattr(mod, name, getattr(mod, name)
-                    + times * delta[(mod.__name__, name)])
+    for mod, name in _counts():
+        setattr(mod, name, getattr(mod, name)
+                + times * delta[(mod.__name__, name)])
 
 
 def warm_up(step: Callable, state, inp, tar, gen, n_std, noise=None):

@@ -8,8 +8,8 @@
                  wide_beam_eval,long_train,past_list_topk,
                  past_resident_bwd,beam100_eval,seq256_train,
                  select_topk,tiled_attention,f32_wide_beam_eval,
-                 f32_wide_heads_eval,f32_wide_ce_bwd,
-                 f32_wide_attention_bwd,f32_wide_heads_train]
+                 f32_wide_heads_eval,f32_wide_attention_bwd,
+                 f32_wide_heads_train,f32_ce,f32_train,f32_wide_train]
         [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
@@ -103,17 +103,22 @@ library call's. Cases:
   `--dtype float32` on a random init of the wide-heads transceiver
   (`wide_heads_train`'s widths), one batch of 64 at 19 SNRs: the decode
   call's seconds as the row's `ms`;
-- `f32_wide_ce_bwd`: K3 and K4 in f32 at the widths the tuned kernels do
-  not take, N = 1,984, V = 22,234: D = 640 (the wide-heads path's), 512
-  and 264, and K4's dh-only mode at D = 640, with their plain versions and
-  library calls as in chip_smoke.ce_cases, and each K4 kernel's device
-  time;
 - `f32_wide_attention_bwd`: K2 in f32 (no dbias) at every wide shape of
   chip_smoke's kernel rows (N = 64): WIDE_HEADS_PATH, WIDE_PATH, WIDE_HEADS
   at 31 x 31 and OFF_STEP_HEADS, with its plain version and SDPA's
   backward (f32) as in chip_smoke.attention_bwd_case, and each kernel's
   device time;
-- `f32_wide_heads_train`: `wide_heads_train` at `--dtype float32`.
+- `f32_wide_heads_train`: `wide_heads_train` at `--dtype float32`;
+- `f32_ce`: K3 and K4 in f32 at every width of chip_smoke's f32 CE rows,
+  N = 1,984, V = 22,234: D = 128 (the main model's), 200 (the widened
+  decoder's), 264, 512, 640 (the wide-heads model's) and 136, and K4's
+  dh-only mode at D = 128 (the FGM steps') and 640, with their plain
+  versions and library calls as in chip_smoke.ce_cases (each checkout's
+  own inputs: chip_smoke.ce_inputs, whose cotangents have zero rows in
+  newer checkouts), and each K3 and K4 kernel's device time;
+- `f32_train`: `wide_train` at `--dtype float32` on the main model (no
+  width flags: d_model 128, 8 heads of 16);
+- `f32_wide_train`: `wide_train` at `--dtype float32`.
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -137,7 +142,8 @@ CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
          "wide_beam_eval", "long_train", "past_list_topk",
          "past_resident_bwd", "beam100_eval", "seq256_train", "select_topk",
          "tiled_attention", "f32_wide_beam_eval", "f32_wide_heads_eval",
-         "f32_wide_ce_bwd", "f32_wide_attention_bwd", "f32_wide_heads_train")
+         "f32_wide_attention_bwd", "f32_wide_heads_train", "f32_ce",
+         "f32_train", "f32_wide_train")
 PARAMS = Path(__file__).resolve().parent.parent / "results" \
     / "plain_best_params.pkl"
 
@@ -313,6 +319,8 @@ TRAIN_WIDTHS = {
                          "640", "--decoder-num-heads", "2", "--decoder-d-ff",
                          "1280"]}
 TRAIN_WIDTHS["f32_wide_heads_train"] = TRAIN_WIDTHS["wide_heads_train"]
+TRAIN_WIDTHS["f32_wide_train"] = TRAIN_WIDTHS["wide_train"]
+TRAIN_WIDTHS["f32_train"] = []
 for case, widths in TRAIN_WIDTHS.items():
     if case not in cases:
         continue
@@ -424,23 +432,31 @@ if "tiled_attention" in cases:
     for label, heads, dh, lq, lk in shapes:
         row(cs.attention_case(label, TRAIN, lq, lk, torch.float32, gen,
                               iters, heads, dh))
-if "f32_wide_ce_bwd" in cases:
+if "f32_ce" in cases:
     f32 = torch.float32
+    widths = (128, 200, 264, 512, 640, 136)
     gen = torch.Generator("cuda").manual_seed(0)
-    for d in (264, 512, 640):
-        for r in cs.ce_cases(f32, gen, iters, N, d, V, label=f"ce_d{d}"):
+    for d in widths:
+        for r in cs.ce_cases(f32, gen, iters, N, d, V,
+                             label="ce" if d == D else f"ce_d{d}"):
             row(r)
-    row(cs.ce_dh_only_case(f32, gen, iters, N, 640, V,
-                           label="ce_dh_only_d640"))
+    for d in (128, 640):
+        row(cs.ce_dh_only_case(f32, gen, iters, N, d, V,
+                               label="ce_dh_only" if d == D
+                               else f"ce_dh_only_d{d}"))
     gen = torch.Generator("cuda").manual_seed(1)
-    for d in (264, 512, 640):  # the dh-only mode below at D = 640
+    for d in widths:
         h, W, b, labels, g = cs.ce_inputs(f32, gen, N, d, V)
         lse = ce.ce_fwd(h, W, b, labels)[1]
-        device_us(ce.KERNEL_BWD, f"ce_d{d}",
+        label = "ce" if d == D else f"ce_d{d}"
+        device_us(ce.KERNEL_FWD, label, lambda: ce.ce_fwd(h, W, b, labels),
+                  "float32")
+        device_us(ce.KERNEL_BWD, label,
                   lambda: ce.ce_bwd(h, W, b, labels, lse, g), "float32")
-    device_us(ce.KERNEL_BWD, "ce_dh_only_d640",
-              lambda: ce.ce_bwd(h, W, b, labels, lse, g, dh_only=True),
-              "float32")
+        if d in (128, 640):
+            device_us(ce.KERNEL_BWD, label.replace("ce", "ce_dh_only"),
+                      lambda: ce.ce_bwd(h, W, b, labels, lse, g,
+                                        dh_only=True), "float32")
 if "f32_wide_attention_bwd" in cases:
     f32 = torch.float32
     shapes = list(cs.WIDE_HEADS_PATH) + list(cs.WIDE_PATH) + [

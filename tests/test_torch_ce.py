@@ -15,6 +15,7 @@ import torch
 from deepsc_gan_tpu.ops.fused_ce import fused_ce_loss as jax_fused_ce_loss
 from deepsc_gan_tpu.ops.losses import loss_function as jax_loss_function
 from deepsc_gan_tpu.ops.pallas.ce import (
+    _pallas_ce_fwd,
     pallas_softmax_xent,
     set_ce_kernel_mode,
 )
@@ -318,14 +319,17 @@ def test_wide_fwd_plan_refuses(dp):
     (torch.bfloat16, 12, True), (torch.bfloat16, 5128, True),
     (torch.bfloat16, 128, False), (torch.bfloat16, 256, False),
     (torch.float32, 200, False), (torch.float32, 640, False),
-    (torch.float32, 12, False)])
+    (torch.float32, 12, False), (torch.float32, 128, False),
+    (torch.float32, 264, False), (torch.float32, 1, False)])
 def test_wide_fwd_routing(dtype, d, tensor_cores):
     """K3 in bf16 at every width the tuned kernel does not take runs the
-    tensor-core wide kernel (csrc/ce_wide_fwd.cu), past 5,120 columns too;
-    f32 keeps the CUDA-core kernels' exact f32 products, and the tuned
-    widths the tuned kernel."""
+    tensor-core wide kernel (csrc/ce_wide_fwd.cu), past 5,120 columns too,
+    and the tuned widths the tuned kernel; every f32 K3, at the tuned
+    widths too, runs the tiled kernel (csrc/ce_fwd_tiled.cu: exact f32
+    products on the CUDA cores), and no bf16 one."""
     assert ce.uses_tensor_core_fwd(dtype, d) == tensor_cores
     assert not tensor_cores or ce.is_wide(dtype, d)
+    assert ce.uses_tiled_fwd(dtype, d) == (dtype == torch.float32)
 
 
 def test_wide_bwd_routing():
@@ -343,19 +347,22 @@ def test_wide_bwd_routing():
     (torch.float32, 640, True), (torch.float32, 512, True),
     (torch.float32, 264, True), (torch.float32, 12, True),
     (torch.float32, 1, True), (torch.float32, 257, True),
-    (torch.float32, 5128, True), (torch.float32, 128, False),
-    (torch.float32, 200, False), (torch.float32, 256, False),
+    (torch.float32, 5128, True), (torch.float32, 128, True),
+    (torch.float32, 200, True), (torch.float32, 256, True),
+    (torch.float32, 8, True), (torch.float32, 136, True),
     (torch.bfloat16, 5121, True), (torch.bfloat16, 5128, True),
     (torch.bfloat16, 5120, False), (torch.bfloat16, 640, False),
     (torch.bfloat16, 200, False), (torch.bfloat16, 128, False)])
 def test_tiled_bwd_routing(dtype, d, tiled):
-    """K4 runs the tiled kernels (csrc/ce_bwd_tiled.cu) at every f32 width
-    off the tuned kernel's (off 8 columns or past 256) and in bf16 past the
-    tensor-core wide kernels' 5,120 columns; every other wide K4 runs the
-    tensor-core wide kernels, the tuned widths the tuned kernel."""
+    """K4 runs the tiled kernels (csrc/ce_bwd_tiled.cu) at every f32 width,
+    the tuned widths (the main model's D = 128, the widened decoder's 200)
+    too, and in bf16 past the tensor-core wide kernels' 5,120 columns;
+    every other bf16 width off the tuned ones runs the tensor-core wide
+    kernels, the tuned bf16 widths the tuned kernel. A call counts as wide
+    off the tuned widths alone."""
     assert ce.uses_tiled_bwd(dtype, d) == tiled
     assert not (tiled and ce.uses_tensor_core_bwd(dtype, d))
-    assert not tiled or ce.is_wide(dtype, d)
+    assert not tiled or dtype == torch.float32 or ce.is_wide(dtype, d)
 
 
 @pytest.mark.parametrize("n,d,v,sms,blocks", [
@@ -390,13 +397,14 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _tiled_ce_bwd(h, W, b, labels, lse, g, splits, dh_only):
+def _tiled_ce_bwd(h, W, b, labels, lse, g, splits, dh_only, dw_splits=1):
     """The tiled K4's arithmetic in its order (csrc/ce_bwd_tiled.cu) on
     f32 CPU tensors: each logit a sum over d in order 0..D-1 by fmaf, then
     P = exp((logit + b) - lse) g, less g at the label; dh a sum over each
     vocab split's rows in order by fmaf, the splits' partials added in
-    split order (`ce.tiled_split_ranges`); dW a sum over the rows n in
-    order by fmaf; db = sum_n P in order."""
+    split order (`ce.tiled_split_ranges`); dW a sum over each row split's
+    rows n in order by fmaf and db = sum_n P over them in order, the row
+    splits' partials added in split order (`ce.tiled_split_ranges` of N)."""
     n, d = h.shape
     v = W.shape[0]
     acc = torch.zeros((n, v))
@@ -418,26 +426,34 @@ def _tiled_ce_bwd(h, W, b, labels, lse, g, splits, dh_only):
             dh = dh + part
     if dh_only:
         return dh, None, None
-    dW = torch.zeros((v, d))
-    db = torch.zeros(v)
-    for i in range(n):
-        dW = _fma(p[i, :, None], h[None, i, :], dW)
-        db = db + p[i]
+    parts = []
+    for lo, hi in ce.tiled_split_ranges(n, dw_splits):
+        dW, db = torch.zeros((v, d)), torch.zeros(v)
+        for i in range(lo, min(hi, n)):  # rows past N add exact zeros
+            dW = _fma(p[i, :, None], h[None, i, :], dW)
+            db = db + p[i]
+        parts.append((dW, db))
+    if dw_splits == 1:
+        return (dh,) + parts[0]
+    dW, db = torch.zeros((v, d)), torch.zeros(v)
+    for pw, pb in parts:
+        dW, db = dW + pw, db + pb
     return dh, dW, db
 
 
 _JAX_CE_GRADS = {}
 
 
-def _jax_ce_grads(n, d, v):
+def _jax_ce_grads(n, d, v, tn=8, tv=32):
     """dh, dW (port layout) and db of sum(ce * weights) through the TPU
-    kernels under the Pallas interpreter, once per shape."""
+    kernels under the Pallas interpreter (tiles of tn rows and tv vocab
+    entries), once per shape."""
     if (n, d, v) not in _JAX_CE_GRADS:
         h, W, b, labels, weights = _case(n, d, v, seed=3)
         set_ce_kernel_mode("interpret")
         try:
             grads = jax.grad(lambda h, W, b: jnp.sum(pallas_softmax_xent(
-                h, W, b, jnp.asarray(labels), 8, 32) * weights),
+                h, W, b, jnp.asarray(labels), tn, tv) * weights),
                 argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (h, W, b)))
         finally:
             set_ce_kernel_mode("auto")
@@ -447,14 +463,16 @@ def _jax_ce_grads(n, d, v):
     return _JAX_CE_GRADS[(n, d, v)]
 
 
-@pytest.mark.parametrize("d", [264, 520])
+@pytest.mark.parametrize("d", [8, 128, 200, 264, 520])
 @pytest.mark.parametrize("splits", [1, 2])
 @pytest.mark.parametrize("dh_only", [False, True])
 def test_tiled_bwd_emulation_matches_plain_version(d, splits, dh_only):
     """The tiled K4's order of sums and roundings (`_tiled_ce_bwd`) at
-    D = 264 and 520 (past 256, off 8 and 16 columns at 264), V = 300 (three
-    vocab tiles of 128, the last ragged), one or two vocab splits of the dh
-    product, in both modes: against the plain version and against the TPU
+    D = 8 (less than one chunk of 16), 128 (the main model's), 200 (the
+    widened decoder's), 264 and 520 (past 256, off 8 and 16 columns at
+    264), V = 300 (three vocab tiles of 128, the last ragged), one or two
+    vocab splits of the dh product, in both modes: against the plain
+    version and against the TPU
     kernels' gradients (under the Pallas interpreter) within 1e-5 of each
     gradient's largest value, as chip_smoke.py holds the kernel; the
     dh-only mode's dh is the full mode's."""
@@ -477,3 +495,131 @@ def test_tiled_bwd_emulation_matches_plain_version(d, splits, dh_only):
     if dh_only:
         full = _tiled_ce_bwd(ht, Wt, bt, lab, lse, g, splits, False)
         assert torch.equal(got[0], full[0])
+
+
+def _tiled_ce_fwd(h, W, b, labels, splits):
+    """The tiled K3's arithmetic in its order (csrc/ce_fwd_tiled.cu) on f32
+    CPU tensors: each logit a sum over d in order 0..D-1 by fmaf, plus the
+    bias; per split (`ce.tiled_split_ranges`) and vocab tile of 128 in
+    order, each of the 16 threads of a row takes the max of its 8 columns
+    (4 tx + j and 64 + 4 tx + j, j < 4) and the half-warp the max of
+    theirs; each thread sums the exponentials of its columns less the new
+    max in column order, the half-warp adds the 16 sums by xor shuffles
+    (1, 2, 4, 8), and the row's running sum is rescaled to the new max;
+    then the splits merged in order: lse = max + log(sum of the rescaled
+    sums), ce = lse - the gold logit. -> (ce, lse)."""
+    n, d = h.shape
+    v = W.shape[0]
+    acc = torch.zeros((n, v))
+    for k in range(d):
+        acc = _fma(h[:, k, None], W[None, :, k], acc)
+    x = acc + b
+    neg = torch.full((n,), -1e30)
+    cols = [[4 * tx + j for j in range(4)] + [64 + 4 * tx + j
+                                              for j in range(4)]
+            for tx in range(16)]
+    parts = []
+    for lo, hi in ce.tiled_split_ranges(v, splits):
+        m, s = neg.clone(), torch.zeros(n)
+        for c0 in range(lo, hi, 128):
+            own = [[c0 + c for c in cs if c0 + c < v] for cs in cols]
+            cm = torch.stack([x[:, o].max(dim=1).values if o else neg
+                              for o in own])
+            mn = torch.maximum(m, cm.max(dim=0).values)
+            se = []
+            for o in own:
+                acc_se = torch.zeros(n)
+                for c in o:
+                    acc_se = acc_se + torch.exp(x[:, c] - mn)
+                se.append(acc_se)
+            for step in (1, 2, 4, 8):
+                se = [se[t] + se[t ^ step] for t in range(16)]
+            s = s * torch.exp(m - mn) + se[0]
+            m = mn
+        inside = (labels >= lo) & (labels < hi)
+        gold = torch.where(inside, x[torch.arange(n),
+                                     labels.long().clamp(0, v - 1)],
+                           torch.zeros(n))
+        parts.append((m, s, gold))
+    mm = torch.stack([p[0] for p in parts]).max(dim=0).values
+    ss, gg = torch.zeros(n), torch.zeros(n)
+    for pm, ps, pg in parts:
+        ss = ss + ps * torch.exp(pm - mm)
+        gg = gg + pg
+    lse = mm + torch.log(ss)
+    return lse - gg, lse
+
+
+@pytest.mark.parametrize("d", [8, 128, 200, 264])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_tiled_fwd_emulation_matches_plain_version(d, splits):
+    """The tiled K3's order of sums and roundings (`_tiled_ce_fwd`) at
+    D = 8, 128 (the main model's), 200 (the widened decoder's) and 264,
+    N = 130 (a ragged second row tile), V = 700 (six vocab tiles of 128, the
+    last ragged), one vocab split or three: ce and lse within 1e-6 of the
+    largest of the plain version's (values up to 30 here, whose f32 step
+    is 1.9e-6) of the plain version and of the TPU kernel (under the
+    Pallas interpreter)."""
+    n, v = 130, 700
+    h, W, b, labels, _ = _case(n, d, v, seed=4)
+    ht, Wt, bt = (torch.from_numpy(a) for a in (h, W.T.copy(), b))
+    lab = torch.from_numpy(labels)
+    got = _tiled_ce_fwd(ht, Wt, bt, lab, splits)
+    want = ce.ce_fwd_reference(ht, Wt, bt, lab)
+    jax_ce, jax_lse = _pallas_ce_fwd(jnp.asarray(h), jnp.asarray(W),
+                                     jnp.asarray(b), jnp.asarray(labels), 8,
+                                     32, True)
+    for name, a, r, j in zip(("ce", "lse"), got, want, (jax_ce, jax_lse)):
+        tol = 1e-6 * r.abs().max().item()
+        assert (a - r).abs().max().item() <= tol, name
+        assert np.abs(a.numpy() - np.asarray(j)).max() <= tol, name
+
+
+@pytest.mark.parametrize("n,d,v,sms,blocks,want", [
+    (1984, 128, 22234, 132, 2, 3), (1984, 200, 22234, 132, 2, 1),
+    (1984, 136, 22234, 132, 2, 1), (1984, 264, 22234, 132, 2, 1),
+    (1984, 512, 22234, 132, 2, 1), (1984, 640, 22234, 132, 2, 1),
+    (1, 3, 1, 132, 2, 1), (300, 520, 3000, 132, 2, 2),
+    (129, 8, 100, 132, 2, 2), (100000, 128, 22234, 132, 2, 3),
+    (128, 128, 22234, 132, 2, 1)])
+def test_tiled_dw_row_splits(n, d, v, sms, blocks, want):
+    """The tiled K4's dW product takes row splits only where its blocks
+    leave a wave of the card's block slots part idle: three at the main
+    model's D = 128 (174 vocab tiles for 264 slots, at any N), as many as
+    fill the wave on small vocabularies, none at D = 136 and past (two
+    column tiles: the blocks fill a wave) nor where N has one row tile;
+    each split owns whole row tiles, none empty, covering the workspace's
+    rows in order."""
+    splits = ce.tiled_dw_splits(n, d, v, sms, blocks)
+    assert splits == want
+    ranges = ce.tiled_split_ranges(n, splits)
+    np_ = ce.tiled_workspace(n, v)[0]
+    assert len(ranges) == splits and ranges[0][0] == 0 \
+        and ranges[-1][1] == np_
+    assert all(lo < hi and lo % 128 == 0 for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("dw_splits", [1, 2, 3])
+def test_tiled_bwd_row_split_emulation_matches_plain_version(dw_splits):
+    """The tiled K4's order of sums with its dW product cut into row
+    splits (`_tiled_ce_bwd`, N = 300: three row tiles of 128, the last
+    ragged; D = 128, V = 300, two vocab splits of dh): dh, dW and db within
+    1e-5 of each gradient's largest value of the plain version's and of the
+    TPU kernels' (under the Pallas interpreter); dh does not depend on the
+    row splits."""
+    n, d, v = 300, 128, 300
+    h, W, b, labels, weights = _case(n, d, v, seed=3)
+    ht, Wt, bt = (torch.from_numpy(a) for a in (h, W.T.copy(), b))
+    lab = torch.from_numpy(labels)
+    lse = ce.ce_fwd_reference(ht, Wt, bt, lab)[1]
+    g = torch.from_numpy(weights)
+    got = _tiled_ce_bwd(ht, Wt, bt, lab, lse, g, 2, False, dw_splits)
+    want = ce.ce_bwd_reference(ht, Wt, bt, lab, lse, g)
+    jax_grads = _jax_ce_grads(n, d, v, 64, 128)
+    for name, a, r, j in zip(("dh", "dW", "db"), got, want, jax_grads):
+        scale = r.abs().max().item()
+        assert (a - r).abs().max().item() <= 1e-5 * scale, name
+        assert np.abs(a.numpy() - j).max() <= 1e-5 * scale, name
+    one = _tiled_ce_bwd(ht, Wt, bt, lab, lse, g, 2, True)
+    assert torch.equal(got[0], one[0])

@@ -362,23 +362,28 @@ def test_ce_kernels_are_deterministic(cuda, dtype):
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("kernel,dtype,vocab_rows",
-                         [(ce.KERNEL_FWD, torch.float32, 64),
-                          (ce.KERNEL_FWD, torch.bfloat16, 128),
-                          (ce.KERNEL_BWD, torch.float32, 64),
-                          (ce.KERNEL_BWD, torch.bfloat16, 64),
-                          (topk.KERNEL, torch.float32, 64),
-                          (topk.KERNEL, torch.bfloat16, 128)])
-def test_ce_tiling_comes_from_the_kernels(cuda, kernel, dtype, vocab_rows):
+@pytest.mark.parametrize("kernel,dtype,tile_n,vocab_rows",
+                         [(ce.KERNEL_FWD_TILED, torch.float32, 128, 128),
+                          (ce.KERNEL_FWD, torch.bfloat16, 64, 128),
+                          (ce.KERNEL_BWD_TILED, torch.float32, 128, 128),
+                          (ce.KERNEL_BWD, torch.bfloat16, 64, 64),
+                          (topk.KERNEL, torch.float32, 64, 64),
+                          (topk.KERNEL, torch.bfloat16, 64, 128)])
+def test_ce_tiling_comes_from_the_kernels(cuda, kernel, dtype, tile_n,
+                                          vocab_rows):
     """Each CE library and K6's report the tiles of the kernel that takes
-    the vocab splits (64 rows of h; 128 vocab rows for the bf16 forward and
-    the bf16 K6, else 64) and how many of its blocks fit an SM at D = 128;
-    at the training path's shape its splits' blocks fit in one wave."""
+    the vocab splits (the f32 CE's tiled kernels 128 x 128; else 64 rows of
+    h and 128 vocab rows for the bf16 forward and the bf16 K6, else 64) and
+    how many of its blocks fit an SM at D = 128; at the training path's
+    shape its splits' blocks fit in one wave."""
     rows, tile_v, blocks = ce.tiling(kernel, dtype, 128, torch.device(cuda))
-    assert (rows, tile_v) == (64, vocab_rows) and blocks >= 1
+    assert (rows, tile_v) == (tile_n, vocab_rows) and blocks >= 1
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    splits = ce.vocab_splits(1984, 22234, sms, rows, tile_v, blocks)
-    assert splits == 1 or 31 * splits <= blocks * sms
+    if kernel == ce.KERNEL_BWD_TILED:
+        splits = ce.tiled_splits(1984, 128, 22234, sms, blocks)
+    else:
+        splits = ce.vocab_splits(1984, 22234, sms, rows, tile_v, blocks)
+    assert splits == 1 or -(-1984 // rows) * splits <= blocks * sms
 
 
 @pytest.mark.parametrize("d", [8, 24])
@@ -673,7 +678,8 @@ def test_ce_bwd_dh_only_mode(cuda, dtype, tol, n, d, v):
     """K4's dh-only mode: dh bitwise equal to the full mode's (the same dh
     kernel and split sum), within tol of the plain version's relative to
     its largest value, no dW or db returned, one K4 launch counted as
-    dh-only, and no dW/db kernel on the device (torch.profiler)."""
+    dh-only, and no dW/db kernel on the device (torch.profiler; in f32 the
+    tiled kernels' names)."""
     from torch.profiler import ProfilerActivity, profile
 
     h, W, b, labels, g = _ce_inputs(cuda, dtype, n, d, v)
@@ -689,8 +695,9 @@ def test_ce_bwd_dh_only_mode(cuda, dtype, tol, n, d, v):
     assert torch.equal(got[0], full[0])
     assert _err(got[0], want[0], relative=True) <= tol
     names = [e.name for e in prof.events()]
-    assert any("ce_dh" in name for name in names), names
-    assert not any("ce_dw" in name for name in names), names
+    prefix = "ce_bwd_tiled_" if dtype == torch.float32 else "ce_"
+    assert any(prefix + "dh" in name for name in names), names
+    assert not any(prefix + "dw" in name for name in names), names
 
 
 def test_softmax_xent_with_a_fixed_table_runs_dh_only(cuda):
@@ -829,6 +836,20 @@ WIDE_HEADS = [(32, 16), (8, 24), (8, 25), (4, 64), (32, 64), (2, 128),
 _COUNTED = (attn, ce, star, topk)
 
 
+def _counts_restorer():
+    """A function that puts every kernel launch counter back to its value
+    now."""
+    counts = [{name: value for name, value in vars(mod).items()
+               if name.endswith("launches") and isinstance(value, int)}
+              for mod in _COUNTED]
+
+    def restore():
+        for mod, saved in zip(_COUNTED, counts):
+            for name, value in saved.items():
+                setattr(mod, name, value)
+    return restore
+
+
 def _ran(call):
     """(what `call` returns, the names of the device kernels it launched,
     from torch.profiler). The card's profiler now and then records no
@@ -840,13 +861,9 @@ def _ran(call):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    counts = [{name: value for name, value in vars(mod).items()
-               if name.endswith("launches") and isinstance(value, int)}
-              for mod in _COUNTED]
+    restore = _counts_restorer()
     for _ in range(3):
-        for mod, saved in zip(_COUNTED, counts):
-            for name, value in saved.items():
-                setattr(mod, name, value)
+        restore()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = call()
@@ -891,8 +908,11 @@ def _ran_route(call, want):
     """`_ran(call)`, profiled again (three times at most) while the names
     are not exactly `want`: the card's profiler has left out some kernels
     of a call (PERF.md), not only all of them. A route that is wrong fails
-    all three."""
+    all three. The launch counters are put back before each profile, so
+    they count the call once."""
+    restore = _counts_restorer()
     for _ in range(3):
+        restore()
         out, names = _ran(call)
         if len(names) == len(want) and all(
                 sum(w in name for name in names) == 1 for w in want):
@@ -1064,8 +1084,9 @@ def test_wide_ce_kernels_match_plain_versions(cuda, dtype, tol, n, d, v):
     on the softmax part (tol 1e-3 f32, 2e-3 bf16, as chip_smoke.py's), and
     from K3's lse relative to the largest reference value; the dh-only
     mode's dh bitwise the full mode's; two calls of each bitwise equal.
-    D = 200 in f32 is a tuned width (a multiple of 8 up to 256): the same
-    checks hold there on the tuned kernels."""
+    Every f32 call runs the tiled kernels (csrc/ce_fwd_tiled.cu,
+    csrc/ce_bwd_tiled.cu), D = 200 too: a tuned width (a multiple of 8 up
+    to 256), so not counted as wide."""
     _wide_ce_check(cuda, dtype, tol, n, d, v)
 
 
@@ -1617,32 +1638,44 @@ def test_tiled_attention_bwd_matches_plain_version(cuda, h, dh, n, lq, lk,
 
 def _tiled_ce_kernels(n, d, v, dh_only):
     """The device kernels the tiled K4 launches (csrc/ce_bwd_tiled.cu): P,
-    the dh product, the sum of its vocab splits' partials where there are
-    more than one, and (not in the dh-only mode) the dW product."""
+    the dh product, (not in the dh-only mode) the dW product, and the sum
+    of the splits' partials where the dh product has more than one vocab
+    split or the dW product more than one row split."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = ce.tiled_splits(n, d, v, sms, ce.tiling(
-        ce.KERNEL_BWD_TILED, torch.float32, d, torch.device("cuda"))[2])
+    blocks = ce.tiling(ce.KERNEL_BWD_TILED, torch.float32, d,
+                       torch.device("cuda"))[2]
+    splits = ce.tiled_splits(n, d, v, sms, blocks)
+    dw_splits = 1 if dh_only else ce.tiled_dw_splits(n, d, v, sms, blocks)
     return (["ce_bwd_tiled_p_kernel", "ce_bwd_tiled_dh_kernel"]
-            + (["ce_bwd_tiled_dh_sum_kernel"] if splits > 1 else [])
+            + (["ce_bwd_tiled_sum_kernel"] if max(splits, dw_splits) > 1
+               else [])
             + ([] if dh_only else ["ce_bwd_tiled_dw_kernel"]))
 
 
-@pytest.mark.parametrize("n,d,v", [(1984, 640, 22234), (1984, 512, 22234),
-                                   (1984, 264, 22234), (70, 12, 300),
-                                   (300, 520, 3000), (129, 602, 257),
-                                   (1, 3, 1)])
+# the f32 K3 and K4 on the tiled kernels: the kernel rows' widths (the
+# main model's D = 128, the widened decoder's 200, the wide-heads path's
+# 640, 512, 264 and 136) and ragged rows, vocab and widths (D off 4
+# columns, less than one chunk of 16, N and V off the 128-row tiles, one
+# row of one vocab entry)
+TILED_CE_SHAPES = [(1984, 128, 22234), (1984, 200, 22234), (1984, 640, 22234),
+                   (1984, 512, 22234), (1984, 264, 22234), (1984, 136, 22234),
+                   (100, 8, 1000), (70, 12, 300), (300, 520, 3000),
+                   (129, 602, 257), (1, 3, 1)]
+
+
+@pytest.mark.parametrize("n,d,v", TILED_CE_SHAPES)
 @pytest.mark.parametrize("dh_only", [False, True])
 def test_tiled_ce_bwd_matches_plain_version(cuda, n, d, v, dh_only):
-    """The f32 K4 off the tuned widths on the tiled kernels, at the kernel
-    rows' widths (the wide-heads path's D = 640, 512 and 264) and at ragged
-    rows, vocab and widths (D off 4 columns, N and V off the 128-row
-    tiles, one row of one vocab entry), in both modes: dh, dW and db within
-    1e-5 of the plain version's largest value and on the softmax part
-    within 1e-3 of that part's (chip_smoke.py's gates); the device ran the
-    tiled kernels alone (torch.profiler's names, `_ran_route`); the call
-    counted as a wide and a tiled launch; two calls give the same bits, and
-    the dh-only mode's dh is the full mode's."""
+    """Every f32 K4 on the tiled kernels (TILED_CE_SHAPES), in both modes,
+    with rows of zero cotangent (every 16th from the 8th): dh, dW and db within 1e-5 of the plain
+    version's largest value and on the softmax part within 1e-3 of that
+    part's (chip_smoke.py's gates), the zero rows' dh exactly 0; the device
+    ran the tiled kernels alone (torch.profiler's names, `_ran_route`); the
+    call counted as a tiled launch, and as a wide one off the tuned widths;
+    two calls give the same bits, and the dh-only mode's dh is the full
+    mode's."""
     h, W, b, labels, g = _ce_inputs(cuda, torch.float32, n, d, v)
+    g[7::16] = 0.0
     labels = labels.int()  # as the CE Function passes them: no cast kernel
     lse = ce.ce_fwd_reference(h, W, b, labels)[1]
     assert ce.uses_tiled_bwd(torch.float32, d)
@@ -1651,7 +1684,9 @@ def test_tiled_ce_bwd_matches_plain_version(cuda, n, d, v, dh_only):
                                        dh_only=dh_only),
                      _tiled_ce_kernels(n, d, v, dh_only))
     assert (ce.bwd_launches, ce.wide_bwd_launches, ce.tiled_bwd_launches,
-            ce.bwd_dh_only_launches) == (1, 1, 1, int(dh_only))
+            ce.bwd_dh_only_launches) == (
+                1, int(ce.is_wide(torch.float32, d)), 1, int(dh_only))
+    assert torch.count_nonzero(got[0][g == 0]) == 0
     want = ce.ce_bwd_reference(h, W, b, labels, lse, g, dh_only=dh_only)
     part = ce.ce_bwd_reference(h, W, b, labels, lse, g, True, dh_only)
     for name, a, r, c in zip(("dh", "dW", "db"), got, want, part):
@@ -1670,6 +1705,47 @@ def test_tiled_ce_bwd_matches_plain_version(cuda, n, d, v, dh_only):
     assert torch.equal(got[0], other[0])
 
 
+@pytest.mark.parametrize("n,d,v", TILED_CE_SHAPES)
+def test_tiled_ce_fwd_matches_plain_version(cuda, n, d, v):
+    """Every f32 K3 on the tiled kernel (csrc/ce_fwd_tiled.cu) at
+    TILED_CE_SHAPES: ce and lse within 1e-5 of the plain version's
+    (chip_smoke.py's gate), relative to the largest reference value where
+    it is past 1 (W ~ N(0, 0.3^2) here: at D = 602 ce reaches 32, whose f32
+    step is 3.8e-6, and the kernel's sums over d run in another order than
+    cuBLAS's); the device ran the partial kernel and the split merge alone
+    (`_ran_route`); the call counted as a tiled launch, and as a wide one
+    off the tuned widths; two calls give the same bits."""
+    h, W, b, labels, _ = _ce_inputs(cuda, torch.float32, n, d, v)
+    labels = labels.int()
+    assert ce.uses_tiled_fwd(torch.float32, d)
+    ce.reset_launches()
+    got = _ran_route(lambda: ce.ce_fwd(h, W, b, labels),
+                     ["ce_fwd_tiled_kernel", "ce_fwd_tiled_combine_kernel"])
+    assert (ce.fwd_launches, ce.wide_fwd_launches, ce.tiled_fwd_launches) \
+        == (1, int(ce.is_wide(torch.float32, d)), 1)
+    want = ce.ce_fwd_reference(h, W, b, labels)
+    for name, a, r in zip(("ce", "lse"), got, want):
+        assert a.shape == r.shape and a.dtype == torch.float32, name
+        tol = 1e-5 * max(1.0, r.abs().max().item())
+        assert _err(a, r) <= tol, (name, _err(a, r), tol)
+    again = ce.ce_fwd(h, W, b, labels)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_tiled_fwd_tiling_comes_from_the_library(cuda):
+    """The tiled K3's library reports its 128 x 128 tiles and how many of
+    its blocks fit an SM (two: 128 registers a thread); at the training
+    path's shape its vocab splits each own tiles and their blocks fit one
+    wave."""
+    rows, cols, blocks = ce.tiling(ce.KERNEL_FWD_TILED, torch.float32, 128,
+                                   torch.device(cuda))
+    assert (rows, cols) == (ce.TILED_TILE, ce.TILED_TILE) and blocks == 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = ce.vocab_splits(1984, 22234, sms, rows, cols, blocks)
+    assert 16 * splits <= blocks * sms
+    assert all(a < b for a, b in ce.tiled_split_ranges(22234, splits))
+
+
 def test_tiled_bwd_tiling_comes_from_the_library(cuda):
     """The tiled K4's library reports its 128 x 128 tiles and how many dh
     blocks fit an SM; at the wide-heads path's shape the dh product's
@@ -1685,9 +1761,9 @@ def test_tiled_bwd_tiling_comes_from_the_library(cuda):
 
 def test_tiled_bwd_wrappers_raise_instead_of_falling_back(cuda,
                                                           monkeypatch):
-    """When the tiled K2 or the tiled K4 reports a failed launch, the
-    wrapper raises and counts nothing: no fall-back to the plain versions
-    or to the older kernels."""
+    """When the tiled K2, the tiled K4 or the tiled K3 reports a failed
+    launch, the wrapper raises and counts nothing: no fall-back to the
+    plain versions or to the older kernels."""
     q, k, v, bias = _inputs(3, 4, 31, 31, 8, 25, torch.float32, cuda)
     attn._bind_tiled_bwd()
     monkeypatch.setitem(attn._BOUND, (attn.KERNEL_BWD_TILED, attn.KERNEL_BWD),
@@ -1704,6 +1780,12 @@ def test_tiled_bwd_wrappers_raise_instead_of_falling_back(cuda,
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         ce.ce_bwd(h, W, b, labels, torch.zeros_like(g), g)
     assert ce.bwd_launches == 0
+    ce._bind_tiled_fwd()
+    monkeypatch.setitem(ce._BOUND, (ce.KERNEL_FWD_TILED, torch.float32),
+                        lambda *args: 1)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        ce.ce_fwd(h, W, b, labels.int())
+    assert ce.fwd_launches == 0
 
 
 # the bf16 K2 past 128 queries or keys (csrc/attention_bwd_cluster.cu):
