@@ -14,7 +14,9 @@ non-zero without its last line:
    for each;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it, in f32 and bf16, with the tolerance
-   stated; the kernel's time, its host enqueue time, the plain version's
+   stated (every f32 K1 and K2 at the main model's heads on the narrow
+   kernels, csrc/attention_narrow.cu, `design` narrow cuda-core f32); the
+   kernel's time, its host enqueue time, the plain version's
    time, one PyTorch library call's (a yardstick the port never calls), and
    the least time the card could take; beside each time, its device time
    (`device_ms` ...: the calls queued behind a spin of the device, so the
@@ -31,8 +33,8 @@ non-zero without its last line:
    there bitwise equal over calls too; K6's and K2's `design` read from
    the names of the device kernels one call ran (torch.profiler) and held
    to the wrappers' route (a mismatch fails); the widened
-   shapes: the f32 K2 at 16 heads of 16 (the long-length kernels, its
-   short kernel's shared memory too large), K1/K2 at 8 heads of 24, 64 and
+   shapes: the f32 K2 at 16 heads of 16 (the narrow kernel, a block a
+   row and head), K1/K2 at 8 heads of 24, 64 and
    128 and at 32 heads of 16, K3/K4 and K6 at D = 200 and 512, K6 at k =
    9, 16 (with ties) and 64, K5 at D = 96 and 512 (the wide kernels where
    the tuned ones do not take the shape); and at the shapes of the
@@ -117,7 +119,7 @@ non-zero without its last line:
    attacked logits within 3 times the plain call's own gap under a 1e-5
    jitter of its perturbation);
 11. long lengths: `cli train --seq-len 64` for one epoch in bf16 from a
-   random init (K1 and K2 through their long-length kernels; per step as
+   random init (K1's long-length kernel, the resident K2; per step as
    in 5); every loss finite and the last 20 below the first 20 on average;
    the same at `--seq-len 256` (12 K2 a step, every one on the cluster
    kernel); then the beam-100 path: `cli evaluate --eval-mode beam
@@ -353,9 +355,9 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 3.2e-2}
 SOFTMAX_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-3}
 TRAIN_SHAPES = (("encoder", 32, 32), ("decoder_self", 31, 31),
                 ("decoder_cross", 31, 32))
-# K1/K2 past 32 queries and keys (the long-length kernels; the bf16 K2 the
-# resident kernel), at N = bs; the K2 also at the seq-len-64 epoch's
-# decoder cross-attention (LONG_CROSS)
+# K1/K2 past 32 queries and keys (in bf16 K1's long-length kernel and the
+# resident K2; in f32 the narrow kernels' key tiles), at N = bs; the K2
+# also at the seq-len-64 epoch's decoder cross-attention (LONG_CROSS)
 LONG_LEN = 128
 LONG_CASE = f"long_{LONG_LEN}"
 LONG_CROSS = ("long_63x64", 63, 64)
@@ -367,9 +369,10 @@ KERNELS = (attn.KERNEL, attn.KERNEL_BWD, ce.KERNEL_FWD, ce.KERNEL_BWD,
 # above do not take (the bf16 wide K1/K2 up to 256-wide heads, the bf16 K1
 # past them, the bf16 wide K3, K4 and K6 on the tensor cores in libraries
 # of their own), and the bf16 K2 past 32 queries or keys up to 128
-# (csrc/attention_bwd_resident.cu)
+# (csrc/attention_bwd_resident.cu), and the f32 K1/K2 at the tuned heads
+# (csrc/attention_narrow.cu)
 WIDE_LIBRARIES = (attn.KERNEL_BWD_TILED, ce.KERNEL_FWD_TILED,
-                  star.KERNEL_WIDE,
+                  attn.KERNEL_NARROW, star.KERNEL_WIDE,
                   topk.KERNEL_SELECT, attn.KERNEL_CHUNKED, ce.KERNEL_WIDE_BWD,
                   attn.KERNEL_WIDE_MMA, ce.KERNEL_WIDE_FWD,
                   topk.KERNEL_WIDE_MMA, attn.KERNEL_RESIDENT,
@@ -391,13 +394,18 @@ TILED = "attention_tiled"
 TILED_BWD = "attention_bwd_tiled"
 CE_TILED = "ce_bwd_tiled"
 CE_TILED_FWD = "ce_fwd_tiled"
+# the K1 and K2 launches on the narrow f32 kernels (csrc/attention_narrow.cu:
+# every f32 one at the tuned heads)
+NARROW = "attention_narrow"
+NARROW_BWD = "attention_narrow_bwd"
 # the launches among each kernel's that went to its wide kernels
 WIDE = {attn.KERNEL: "attention_fwd_wide", attn.KERNEL_BWD:
         "attention_bwd_wide", ce.KERNEL_FWD: "ce_fwd_wide",
         ce.KERNEL_BWD: "ce_bwd_wide", star.KERNEL: "star_wide",
         topk.KERNEL: "topk_wide"}
 COUNTERS = KERNELS + (DH_ONLY,) + tuple(WIDE.values()) + (
-    LONG_LIST, CLUSTER, SELECT, TILED, TILED_BWD, CE_TILED, CE_TILED_FWD)
+    LONG_LIST, CLUSTER, SELECT, TILED, TILED_BWD, CE_TILED, CE_TILED_FWD,
+    NARROW, NARROW_BWD)
 BEAM = 4
 # `cli train`'s default steps a call (one captured CUDA graph of the step,
 # replayed): what the train phases run
@@ -490,6 +498,8 @@ WIDE_MMA_DESIGN = "wide mma bf16"
 # csrc/ce_bwd_tiled.cu; K4 in bf16 past 5,120 columns too), and K6 on the
 # select kernels (csrc/topk_select.cu)
 TILED_DESIGN = "tiled cuda-core f32"
+# every f32 K1 and K2 at the tuned heads (csrc/attention_narrow.cu)
+NARROW_DESIGN = "narrow cuda-core f32"
 TILED_CE_DESIGN = {torch.bfloat16: "tiled cuda-core bf16",
                    torch.float32: TILED_DESIGN}
 SELECT_DESIGN = {torch.bfloat16: "select wgmma bf16",
@@ -502,12 +512,15 @@ ROUTES = {topk.KERNEL: (("topk_long_emit_kernel", "long-path wgmma bf16"),
                         ("topk_select_logits_f32",
                          SELECT_DESIGN[torch.float32]),
                         ("topk_wide_mma", "wide wgmma bf16")),
-          attn.KERNEL: (("attention_fwd_tiled_kernel", TILED_DESIGN),),
+          attn.KERNEL: (("attention_fwd_tiled_kernel", TILED_DESIGN),
+                        ("attention_narrow_fwd_kernel", NARROW_DESIGN)),
           attn.KERNEL_BWD: (("attention_bwd_resident_kernel",
                              "resident mma bf16"),
                             ("attention_bwd_cluster_kernel",
                              "cluster mma bf16"),
-                            ("attention_bwd_tiled_dq_kernel", TILED_DESIGN)),
+                            ("attention_bwd_tiled_dq_kernel", TILED_DESIGN),
+                            ("attention_narrow_bwd_kernel", NARROW_DESIGN),
+                            ("attention_narrow_dq_kernel", NARROW_DESIGN)),
           ce.KERNEL_FWD: (("ce_fwd_tiled_kernel", TILED_DESIGN),),
           ce.KERNEL_BWD: (("ce_bwd_tiled_p_kernel", TILED_DESIGN),)}
 
@@ -649,24 +662,39 @@ def ran_kernels(call):
             and not getattr(e, "is_user_annotation", False)}
 
 
+# profiles of a call that may hold no device kernel at all before a route
+# check fails: the card's profiler once recorded none for 3 profiles in a
+# row, at a bf16 cluster K2 route check (PERF.md §7)
+BLIND_PROFILES = 8
+
+
 def routed_design(kernel, label, call, want):
     """(the design of the kernel that ran in `call` of K6 or K2, from its
     profiled name (ROUTES); the names); raises where the design is not
     `want`, the design the wrapper's route predicates choose. The card's
     profiler has left out kernels of a call (PERF.md): a call whose
-    profile shows another design is profiled again, three times at most."""
-    for _ in range(3):
+    profile shows another design is profiled again, three times at most,
+    and one whose profile holds no device kernel at all (not even the
+    spin) again, BLIND_PROFILES times at most."""
+    blind = other = 0
+    while True:
         names = ran_kernels(call)
+        if not names:
+            blind += 1
+            if blind < BLIND_PROFILES:
+                continue
+            raise AssertionError(f"{kernel} {label}: the profiler recorded "
+                                 f"no device kernel in {blind} profiles of "
+                                 f"the call (not even the spin); the route "
+                                 f"is {want}")
         got = next((design for fragment, design in ROUTES[kernel]
                     if any(fragment in name for name in names)), None)
         if got == want:
             return got, names
-    if not names:
-        raise AssertionError(f"{kernel} {label}: the profiler recorded no "
-                             f"device kernel in three profiles of the call "
-                             f"(not even the spin); the route is {want}")
-    raise AssertionError(f"{kernel} {label}: the device ran {names} "
-                         f"({got}); the route is {want}")
+        other += 1
+        if other == 3:
+            raise AssertionError(f"{kernel} {label}: the device ran {names} "
+                                 f"({got}); the route is {want}")
 
 
 def phase_routes(seed, bs):
@@ -682,12 +710,16 @@ def phase_routes(seed, bs):
     and keys (LONG_CASE, LONG_CROSS) and past 128 (PAST_RESIDENT,
     PAST_RESIDENT_CROSS) with and without dbias; of the f32 K1 and K2 (no
     dbias) at every wide shape the kernel rows hold (WIDE_HEADS, WIDE_PATH,
-    WIDE_HEADS_PATH, OFF_STEP_HEADS); and of the f32 K3 and K4 at the main
+    WIDE_HEADS_PATH, OFF_STEP_HEADS); of the f32 K1 and K2 (with and
+    without dbias) at the main model's heads at the training shapes
+    (TRAIN_SHAPES, N = bs), K1 at the serving ones (N = 19 bs), K1 and K2
+    past 32 (LONG_CASE, K2 also at LONG_CROSS) and both at 16 heads of 16;
+    and of the f32 K3 and K4 at the main
     model's D = 128, WIDE_PATH_D, 512, WIDE_HEADS_D, OFF_STEP_D and
     ODD_F32_D, and K4 in its dh-only mode at D = 128 and WIDE_HEADS_D.
     Each must run its route's kernel (the tensor-core wide K6, its long
     path past k = 64, the select K6, the resident K2, the cluster K2, the
-    tiled K1, K2, K3 and K4). -> {(kernel, case, dtype):
+    tiled K1, K2, K3 and K4, the narrow K1 and K2). -> {(kernel, case, dtype):
     (design, names)}, the design the kernel rows of those cases take
     (`set_designs`)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -742,6 +774,33 @@ def phase_routes(seed, bs):
             lambda: attn.attention_bwd(q, k, v, bias, g, heads, dh ** 0.5,
                                        False),
             k2_design(f32, lq, lk, heads, dh))
+    # the f32 K1 and K2 at the main model's heads (the narrow kernels) at
+    # the kernel rows' shapes: training, serving, past 32, 16 heads
+    narrow = [(f"train_{label}", bs, lq, lk, HEADS, DH, True)
+              for label, lq, lk in TRAIN_SHAPES]
+    narrow += [(label, len(SNRS) * bs, lq, lk, HEADS, DH, False)
+               for label, lq, lk in TRAIN_SHAPES]
+    narrow += [(LONG_CASE, bs, LONG_LEN, LONG_LEN, HEADS, DH, True),
+               (LONG_CROSS[0], bs, *LONG_CROSS[1:], HEADS, DH, True),
+               ("f32_k2_16x16", bs, 31, 31, 16, 16, True)]
+    for label, n, lq, lk, heads, dh, bwd in narrow:
+        q, k, v, bias = attention_inputs(n, lq, lk, f32, gen, lq == lk,
+                                         heads, dh)
+        if label != LONG_CROSS[0]:
+            seen[(attn.KERNEL, label, f32)] = routed_design(
+                attn.KERNEL, label,
+                lambda: attn.attention_fwd(q, k, v, bias, heads, dh ** 0.5),
+                _attention_design(attn.KERNEL, f32, heads, dh))
+        if not bwd:
+            continue
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        for dbias in (False, True):
+            seen[(attn.KERNEL_BWD, label + ("+dbias" if dbias else ""),
+                  f32)] = routed_design(
+                attn.KERNEL_BWD, label,
+                lambda: attn.attention_bwd(q, k, v, bias, g, heads,
+                                           dh ** 0.5, dbias),
+                k2_design(f32, lq, lk, heads, dh))
     cfg = Config()
     main_d = cfg.decoder_d_model
     for d, dh_only in ((main_d, False), (WIDE_PATH_D, False),
@@ -898,6 +957,8 @@ def _sdpa_views(q, k, v, heads=HEADS):
 
 def _attention_design(kernel, dtype, heads, dh):
     """What multiplies in the kernel that takes `heads` heads of `dh`."""
+    if attn.uses_narrow(dtype, heads, dh):
+        return NARROW_DESIGN
     if attn.uses_tiled(dtype, heads, dh):
         return TILED_DESIGN
     if attn.is_chunked_mma(dtype, heads, dh):
@@ -1340,7 +1401,7 @@ def phase_kernels(seed, n, bs, iters):
             for dbias in (False, True):
                 rows.append(attention_bwd_case("train_" + label, bs, lq, lk,
                                                dtype, gen, iters, dbias))
-        # past 32: the long-length kernels (query tiles, key tiles streamed)
+        # past 32: query tiles, key tiles streamed
         rows.append(attention_case(LONG_CASE, bs, LONG_LEN, LONG_LEN, dtype,
                                    gen, iters))
         for dbias in (False, True):
@@ -1383,10 +1444,10 @@ def phase_kernels(seed, n, bs, iters):
 def widened_cases(dtype, gen, iters, bs):
     """The shapes the kernels took only after their wide paths,
     each against its plain version with its time and bound: the f32 K2 at
-    16 heads of 16 (the long-length kernels, where the short kernel's
-    shared memory does not fit); K1/K2 at head widths 24, 64 and 128 and
-    at 32 heads (the decoder self-attention's shape, N = bs); K3/K4 at D =
-    200 and 512 (N = bs x 31); K5 at D = 96 and 512 (the star train
+    16 heads of 16 (the narrow kernel; the lane-per-query kernel before it
+    did not fit the card's shared memory there); K1/K2 at head widths 24,
+    64 and 128 and at 32 heads (the decoder self-attention's shape, N =
+    bs); K3/K4 at D = 200 and 512 (N = bs x 31); K5 at D = 96 and 512 (the star train
     step's ring); K6 at k = 9, 16 and 64 (with exact ties past the tuned
     list's 8) and at D = 200 and 512; K1/K2 and K6 at the shapes the
     widened CLI paths of `phase_wide` give them (WIDE_PATH, WIDE_BEAM);
@@ -1554,7 +1615,8 @@ def launches():
     dh-only mode, how many of each went to its wide kernels, and how many
     of K6's went to the tensor-core wide kernel's lists past 64 and to the
     select kernels, of K2's to the cluster kernel, of K1's and K2's to the
-    tiled f32 kernels and of K3's and K4's to the tiled kernels."""
+    tiled and the narrow f32 kernels and of K3's and K4's to the tiled
+    kernels."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
             ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
             star.KERNEL: star.launches, topk.KERNEL: topk.launches,
@@ -1571,7 +1633,17 @@ def launches():
             TILED: attn.tiled_launches,
             TILED_BWD: attn.tiled_bwd_launches,
             CE_TILED: ce.tiled_bwd_launches,
-            CE_TILED_FWD: ce.tiled_fwd_launches}
+            CE_TILED_FWD: ce.tiled_fwd_launches,
+            NARROW: attn.narrow_launches,
+            NARROW_BWD: attn.narrow_bwd_launches}
+
+
+def with_narrow(expected):
+    """`expected` with every K1 and K2 launch on the narrow f32 kernels too
+    (an f32 path of the main model: its heads are the tuned ones)."""
+    expected[NARROW] = expected[attn.KERNEL]
+    expected[NARROW_BWD] = expected[attn.KERNEL_BWD]
+    return expected
 
 
 def check_launches(path, got, expected):
@@ -1722,7 +1794,8 @@ def phase_train(seed, epochs, bs, variant="transformer",
     `k1_passes` times per attention (2 with --remat: each layer's forward
     runs again in the backward); for each (counter, kernel) of `sub`, every
     launch of the kernel counted in the counter too (CLUSTER: the cluster
-    K2; TILED, TILED_BWD: the tiled K1 and K2)."""
+    K2; TILED, TILED_BWD: the tiled K1 and K2; NARROW, NARROW_BWD: the
+    narrow f32 K1 and K2)."""
     tag = tag or ("train" if variant == "transformer"
                   else f"{variant}_train")
     reset_launches()
@@ -1941,7 +2014,7 @@ def phase_attack_step_parity(seed, bs):
     _, mj, _, _ = run(True, ([rp[0] * (1.0 + 1e-5 * noise)], None))
     want = {name: 0 for name in COUNTERS}
     want.update(attack_step_launches(cfg, 0.5))
-    check_launches("f32 attack step", ck, want)
+    check_launches("f32 attack step", ck, with_narrow(want))
     if sum(cp.values()):
         raise AssertionError(f"the plain attack step launched {cp}")
     if not (len(xk) == len(xp) > 0 and len(rk) == 1):
@@ -2584,7 +2657,8 @@ def phase_attack_f32(seed, bs):
         torch.cuda.synchronize()
         want = {name: 0 for name in COUNTERS}
         if not plain:
-            want.update(eval_step_launches(cfg, "teacher_forced"))
+            want = with_narrow(dict(want, **eval_step_launches(
+                cfg, "teacher_forced")))
         check_launches(f"f32 teacher-forced (plain {plain})", launches(),
                        want)
         return out, taps
@@ -2768,7 +2842,7 @@ def phase_gan_step_parity(seed, bs):
     ls, gs, _, _ = run(True, (None, xk))
     want = {name: 0 for name in COUNTERS}
     want.update(gan_step_launches(cfg))
-    check_launches("f32 GAN step", ck, want)
+    check_launches("f32 GAN step", ck, with_narrow(want))
     if sum(cp.values()):
         raise AssertionError(f"the plain GAN step launched {cp}")
     if not len(xk) == len(xp) > 0:
@@ -2839,7 +2913,8 @@ def phase_gan_f32_ids(seed, bs):
         torch.cuda.synchronize()
         want = {name: 0 for name in COUNTERS}
         if not plain:
-            want.update(gan_eval_launches(cfg, "greedy_gan"))
+            want = with_narrow(dict(want, **gan_eval_launches(
+                cfg, "greedy_gan")))
         check_launches(f"f32 greedy_gan {snr} dB (plain {plain})",
                        launches(), want)
         return out, taps
@@ -3475,7 +3550,8 @@ def phase_f32_wide_train(seed, bs):
       heads of 64, decoder 8 of 25, D = 200): 12 tiled K1 and 12 tiled K2
       a step, K3 and K4 at D = 200;
     - f32_train, F32_MAIN_EPOCHS epochs: the main model (d_model 128, 8
-      heads of 16: the tuned f32 K1/K2), K3 and K4 at D = 128;
+      heads of 16: the narrow f32 K1/K2, csrc/attention_narrow.cu, 12 of
+      each a step), K3 and K4 at D = 128;
     then one f32 step of the wide-heads model through the kernels against
     one through the plain versions (`phase_step_parity`). Prints each
     path's ms a step (the widened ones over their one epoch, the graph's
@@ -3488,7 +3564,8 @@ def phase_f32_wide_train(seed, bs):
              1, (attn.KERNEL, attn.KERNEL_BWD), tiled),
             ("f32_wide_train", WIDE_WIDTHS, F32_WIDE_CKPT, 1,
              (attn.KERNEL, attn.KERNEL_BWD), tiled),
-            ("f32_train", [], F32_CKPT, F32_MAIN_EPOCHS, (), ())):
+            ("f32_train", [], F32_CKPT, F32_MAIN_EPOCHS, (),
+             ((NARROW, attn.KERNEL), (NARROW_BWD, attn.KERNEL_BWD)))):
         by_path[tag], stats = phase_train(seed, epochs, bs, extra=widths,
                                           checkpoint=ckpt, tag=tag,
                                           wide=wide, sub=sub,
@@ -3602,7 +3679,7 @@ def phase_mine_step_parity(seed, bs):
     ls, ns, _, _ = run(True, (None, xk))
     want = {name: 0 for name in COUNTERS}
     want.update(mine_step_launches(cfg))
-    check_launches("f32 MINE step", ck, want)
+    check_launches("f32 MINE step", ck, with_narrow(want))
     if sum(cp.values()):
         raise AssertionError(f"the plain MINE step launched {cp}")
     if not len(xk) == len(xp) > 0:
@@ -3669,7 +3746,7 @@ def phase_resume(seed, bs):
     expected = {name: 0 for name in COUNTERS}
     expected.update({attn.KERNEL: per_step * n, attn.KERNEL_BWD: per_step * n,
                      **ce_routes(torch.float32, cfg.decoder_d_model, n, n)})
-    check_launches(tag, got, expected)
+    check_launches(tag, got, with_narrow(expected))
     if [r["path"] for r in runs] != [f"scan{SCAN_STEPS}"] * 3 or \
             runs[2]["start_epoch"] != 2:
         raise AssertionError(f"{tag}: paths {[r['path'] for r in runs]}, "
@@ -4051,9 +4128,9 @@ def phase_transmit(seed):
     the CLI's ids equal its kernel decode's repeated outside the CLI. ->
     the launch counts."""
     cfg = Config()
-    want = dict({n: 0 for n in COUNTERS}, **{
+    want = with_narrow(dict({n: 0 for n in COUNTERS}, **{
         attn.KERNEL: cfg.encoder_num_layer
-        + 2 * cfg.decoder_num_layer * cfg.max_length})
+        + 2 * cfg.decoder_num_layer * cfg.max_length}))
     argv = ["transmit", *VANILLA, "--dtype", "float32", "--seed", str(seed),
             "--snr", "6", "--device", "cuda"]
     for t in TRANSMIT_TEXTS:
@@ -4578,6 +4655,39 @@ def kernels_line(rows, by_path):
               "one head of 512, N=64 Lq=Lk=32 shown; `cases`: the shapes "
               "of the tiled K1's entry; library: SDPA's backward (f32, no "
               "TF32)"})
+    # the narrow f32 K1 and K2 (csrc/attention_narrow.cu): every f32 K1 and
+    # K2 launch of the main model's paths (f32_train, resume, transmit)
+    for name, kernel, labels in (
+            (NARROW, attn.KERNEL,
+             ["train_encoder", "train_decoder_cross"]
+             + [label for label, *_ in TRAIN_SHAPES] + [LONG_CASE]),
+            (NARROW_BWD, attn.KERNEL_BWD,
+             [f"train_{label}{plus}" for label, *_ in TRAIN_SHAPES
+              for plus in ("", "+dbias") if label != "decoder_self"
+              or plus] + [LONG_CASE, LONG_CASE + "+dbias", LONG_CROSS[0],
+                          LONG_CROSS[0] + "+dbias", "f32_k2_16x16"])):
+        row = f32_rows[(kernel, "train_decoder_self")]
+        paths = {path: got[name] for path, got in by_path.items()
+                 if got.get(name)}
+        out.append({
+            "name": name, "route": "cuda", "design": row["design"],
+            "source": f"deepsc_gan_tpu_torch/csrc/{attn.KERNEL_NARROW}.cu",
+            "replaces": KERNEL_INFO[kernel][0],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            **_timing(row),
+            "cases": {label: _timing(f32_rows[(kernel, label)])
+                      for label in labels},
+            "at": "every f32 " + ("K1" if kernel == attn.KERNEL else "K2")
+                  + " at the tuned heads (the narrow kernels): the main "
+                  "model's decoder self-attention, 8 heads of 16, N=64 "
+                  "Lq=Lk=31 shown; `cases`: the training path's other "
+                  "shapes" + (
+                      ", the serving path's (N=19x64) and 128 x 128; "
+                      "library: SDPA (f32, no TF32)"
+                      if kernel == attn.KERNEL else
+                      " and each with dbias (+dbias), 128 x 128 and 63 x "
+                      "64 (both ways), 16 heads of 16; library: SDPA's "
+                      "backward (f32, no TF32)")})
     # the tiled K4 (csrc/ce_bwd_tiled.cu) and K3 (csrc/ce_fwd_tiled.cu):
     # every f32 K4 and K3 launch of the paths (the f32 train epochs, the
     # resume run's)
@@ -4723,7 +4833,7 @@ def run_phases(args, jobs, routes):
         phase_f32_ids(seed, bs)
     with timed("train"):
         by_path["train"], _ = phase_train(seed, args.epochs, bs)
-        phase_step_parity(seed, bs)
+        phase_step_parity(seed, bs, counted=(NARROW, NARROW_BWD))
     with timed("star"):
         by_path["star_train"], _ = phase_train(seed, args.star_epochs, bs,
                                                "star", STAR_CKPT)

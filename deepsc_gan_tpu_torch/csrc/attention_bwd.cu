@@ -29,11 +29,13 @@
 // kernel_variants.py); the design before this one, f32 staging and
 // CUDA-core products in a block per row, took 0.023.
 //
-// Up to 32 queries and keys each dtype has one kernel, below; past 32 of
-// either, the long-length kernels further down take the call (query tiles
-// and key tiles of 32; two kernels, dq then dk and dv; the bf16 K2 up to
-// 128 queries and keys runs csrc/attention_bwd_resident.cu instead).
-// - bf16, tensor cores (mma.sync m16n8k16, f32 accumulators; the staging,
+// bf16 only (f32 at these heads runs csrc/attention_narrow.cu). Up to 32
+// queries and keys one kernel, below; past 32 of either, the long-length
+// kernels further down (query tiles and key tiles of 32; two kernels, dq
+// then dk and dv), which the wrapper takes only past 512 of either: up to
+// 128 queries and keys csrc/attention_bwd_resident.cu takes the call, up to
+// 512 csrc/attention_bwd_cluster.cu.
+// - tensor cores (mma.sync m16n8k16, f32 accumulators; the staging,
 //   the quad softmax and the division are K1's, csrc/mma_row.cuh). A warp
 //   takes one head of one batch row. Without dbias a block takes
 //   kHeadsPerBlock = 4 heads of a row: 128 blocks at the training shape
@@ -61,218 +63,17 @@
 //   16-byte stores. No float atomics: every sum runs in a fixed order, and
 //   a head's arithmetic does not depend on the block it shares, so two
 //   calls give the same bits, with or without dbias.
-// - f32, CUDA cores (exact f32, which the f32 step parity needs; mma on f32
-//   would be TF32): one block per batch row for all heads (a warp per head),
-//   the row's q, g, k, v, its bias tile and, for every head, p and ds (Lq x
-//   (Lk | 1) f32 each: odd row strides, so a warp's accesses fall in
-//   distinct banks) kept in shared memory. Phase 1, a thread per (query,
-//   head) (lane = query): the logits, p, dp, the row sum and ds, written to
-//   shared memory, and dq. Phase 2, a thread per (key, head) (lane = key):
-//   dk and dv, summing over queries. Phase 3, a thread per (query, key):
-//   dbias, summing over heads 0..H-1.
 // The kernels allocate nothing; the caller passes the outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <cfloat>
 #include <stdint.h>
 
 #include "mma_row.cuh"
 
 namespace {
 
-constexpr int kMaxKeys = 32;   // keys per row (lk <= 32)
-constexpr int kMaxLen = 32;    // queries per row (lq <= 32)
 constexpr int kMaxHeads = 16;  // one warp per head: <= 512 threads
-
-// ---- f32: CUDA cores ----
-
-// 16-byte moves (the wrapper requires 16-byte aligned tensors; a head's
-// slice, Dh * 4 bytes, is a multiple of 16)
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 u = *reinterpret_cast<const float4*>(src);
-  dst[0] = u.x;
-  dst[1] = u.y;
-  dst[2] = u.z;
-  dst[3] = u.w;
-}
-
-__device__ __forceinline__ void store16(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2],
-                                                src[3]);
-}
-
-// count elements of a row-major array -> shared memory
-__device__ __forceinline__ void stage(const float* src, float* dst,
-                                      int count) {
-  for (int e = threadIdx.x * 4; e < count; e += blockDim.x * 4)
-    *reinterpret_cast<float4*>(dst + e) =
-        *reinterpret_cast<const float4*>(src + e);
-}
-
-// Shared memory (f32): qs, gs (Lq x H*Dh); ks, vs (Lk x H*Dh); bs
-// (Lq x (Lk | 1)); ps, dss (H x Lq x (Lk | 1)): p and the unscaled ds.
-template <int DH>
-__global__ void __launch_bounds__(kMaxHeads * 32)
-attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ g, float* __restrict__ dq,
-                     float* __restrict__ dk, float* __restrict__ dv,
-                     float* __restrict__ dbias, int lq, int lk, int heads,
-                     float inv_scale) {
-  extern __shared__ float smem[];
-  const int hd = heads * DH;
-  const int bstride = lk | 1;
-  float* qs = smem;
-  float* gs = qs + lq * hd;
-  float* ks = gs + lq * hd;
-  float* vs = ks + lk * hd;
-  float* bs = vs + lk * hd;
-  float* ps = bs + lq * bstride;
-  float* dss = ps + heads * lq * bstride;
-
-  const long long n = blockIdx.x;
-  const float* qn = q + n * lq * hd;
-  const float* gn = g + n * lq * hd;
-  stage(qn, qs, lq * hd);
-  stage(gn, gs, lq * hd);
-  stage(k + n * lk * hd, ks, lk * hd);
-  stage(v + n * lk * hd, vs, lk * hd);
-  const float* bn = bias + n * lq * lk;
-  for (int e = threadIdx.x; e < lq * lk; e += blockDim.x) {
-    const int i = e / lk;
-    bs[i * bstride + (e - i * lk)] = bn[e];
-  }
-  __syncthreads();
-
-  const int h = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  // ---- phase 1: thread (query i = lane, head h)
-  if (lane < lq) {
-    const int i = lane;
-    // this thread's query and cotangent rows, read from device memory into
-    // registers (a warp reading them from shared memory would hit one bank)
-    float qv[DH];
-    float gv[DH];
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) {
-      load16(qn + i * hd + h * DH + d, qv + d);
-      load16(gn + i * hd + h * DH + d, gv + d);
-    }
-    // the forward's logits and probabilities, as csrc/attention_fwd.cu
-    float s[kMaxKeys];
-    float m = -FLT_MAX;
-#pragma unroll
-    for (int j = 0; j < kMaxKeys; ++j) {
-      if (j < lk) {
-        const float* kj = ks + j * hd + h * DH;
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) acc = fmaf(qv[d], kj[d], acc);
-        s[j] = __fadd_rn(__fmul_rn(acc, inv_scale), bs[i * bstride + j]);
-        m = fmaxf(m, s[j]);
-      }
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxKeys; ++j) {
-      if (j < lk) {
-        s[j] = expf(s[j] - m);
-        sum += s[j];
-      }
-    }
-    // p_j (f32), dp_j = g_i . v_j (f32) and rowsum(dp * p)
-    float dp[kMaxKeys];
-    float rowsum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxKeys; ++j) {
-      if (j < lk) {
-        s[j] = __fdiv_rn(s[j], sum);
-        const float* vj = vs + j * hd + h * DH;
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) acc = fmaf(gv[d], vj[d], acc);
-        dp[j] = acc;
-        rowsum = __fadd_rn(rowsum, __fmul_rn(acc, s[j]));
-      }
-    }
-    // ds_j = p_j (dp_j - rowsum); dq = sum_j dss_j k_j
-    float* p_row = ps + (h * lq + i) * bstride;
-    float* ds_row = dss + (h * lq + i) * bstride;
-    float dqa[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) dqa[d] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxKeys; ++j) {
-      if (j < lk) {
-        const float ds = __fmul_rn(s[j], __fsub_rn(dp[j], rowsum));
-        p_row[j] = s[j];
-        ds_row[j] = ds;
-        const float dsc = __fmul_rn(ds, inv_scale);
-        const float* kj = ks + j * hd + h * DH;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) dqa[d] = fmaf(dsc, kj[d], dqa[d]);
-      }
-    }
-    float* dqi = dq + (n * lq + i) * hd + h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) store16(dqi + d, dqa + d);
-  }
-  __syncthreads();
-
-  // ---- phase 2: thread (key j = lane, head h): dk and dv over queries
-  if (lane < lk) {
-    const int j = lane;
-    float dka[DH];
-    float dva[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      dka[d] = 0.f;
-      dva[d] = 0.f;
-    }
-    for (int i = 0; i < lq; ++i) {
-      const float pc = ps[(h * lq + i) * bstride + j];
-      const float dsc = __fmul_rn(dss[(h * lq + i) * bstride + j], inv_scale);
-      const float* qi = qs + i * hd + h * DH;
-      const float* gi = gs + i * hd + h * DH;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dka[d] = fmaf(dsc, qi[d], dka[d]);
-        dva[d] = fmaf(pc, gi[d], dva[d]);
-      }
-    }
-    float* dkj = dk + (n * lk + j) * hd + h * DH;
-    float* dvj = dv + (n * lk + j) * hd + h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) {
-      store16(dkj + d, dka + d);
-      store16(dvj + d, dva + d);
-    }
-  }
-
-  // ---- phase 3: thread (query, key): dbias = sum over heads 0..H-1
-  if (dbias != nullptr) {
-    float* dbn = dbias + n * lq * lk;
-    for (int e = threadIdx.x; e < lq * lk; e += blockDim.x) {
-      const int i = e / lk;
-      const int j = e - i * lk;
-      float acc = 0.f;
-      for (int hh = 0; hh < heads; ++hh)
-        acc = __fadd_rn(acc, dss[(hh * lq + i) * bstride + j]);
-      dbn[e] = acc;
-    }
-  }
-}
-
-size_t smem_bytes_f32(int lq, int lk, int heads, int dh) {
-  const size_t hd = (size_t)heads * dh;
-  const size_t tile = (size_t)lq * (size_t)(lk | 1);
-  return sizeof(float) *
-         (2 * (size_t)lq * hd + 2 * (size_t)lk * hd + tile +
-          2 * (size_t)heads * tile);
-}
 
 // ---- bf16: tensor cores (csrc/mma_row.cuh) ----
 
@@ -561,10 +362,10 @@ attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // ---- any length: query tiles and key tiles ----
 //
 // Past 32 queries or keys (either) the launch takes two kernels in turn
-// (in bf16 the wrapper takes them only past 128 of either: up to 128 the
-// bf16 K2 runs csrc/attention_bwd_resident.cu, a batch row's head held
-// whole), each recomputing the probabilities per (query tile, key tile)
-// of 32 x 32:
+// (the wrapper takes them only past 512 of either: up to 128 the
+// K2 runs csrc/attention_bwd_resident.cu, a batch row's head held whole,
+// up to 512 csrc/attention_bwd_cluster.cu), each recomputing the
+// probabilities per (query tile, key tile) of 32 x 32 on the tensor cores:
 // A. a block per (batch row, tile of 32 queries), a warp per head: pass 1
 //    streams the key tiles for each query's softmax statistics, the running
 //    max m and sum l (rescaled by exp(m_old - m_new) as in the forward) and
@@ -583,239 +384,15 @@ attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // statistics come from online sums, so p may differ from the plain
 // version's in its last bits.
 //
-// What bounds it: memory. At N = 64, Lq = Lk = 128, 8 heads of 16 (bf16,
-// no dbias) a call must move 18.9 MB, 0.0056 ms at 3.35 TB/s, against 1.3
-// GFLOP. It takes 0.0610 ms of device time on an NVIDIA H100 80GB HBM3 at
+// What bounds it: memory. At N = 64, Lq = Lk = 128, 8 heads of 16 (no
+// dbias) a call must move 18.9 MB, 0.0056 ms at 3.35 TB/s, against 1.3
+// GFLOP. It took 0.0610 ms of device time on an NVIDIA H100 80GB HBM3 at
 // 700 W (chip_smoke.py), PyTorch's SDPA backward 0.0425: the logits and
 // dP are recomputed three times (two passes of A, one of B) and every key
 // tile is staged twice per query tile in A; the bf16 B kernel also spills
 // (24 bytes at Dh = 16, under the 128-register cap of 512 threads).
 // Saving the forward's row statistics would drop A's first pass.
 
-// f32: a lane per query (A) or per key (B). Shared memory of A: ks, vs
-// (kRows x H*Dh f32 each), bs (kRows x (kRows | 1)), and with dbias each
-// head's ds tile (H x kRows x (kRows | 1)); of B: qs, gs (kRows x H*Dh),
-// bs, and the query tile's statistics of every head (H x kRows x 4).
-template <int DH>
-__global__ void __launch_bounds__(kMaxHeads * 32)
-attention_bwd_dq_long_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ bias,
-                             const float* __restrict__ g,
-                             float* __restrict__ dq,
-                             float* __restrict__ dbias,
-                             float4* __restrict__ stats, int lq, int lk,
-                             int heads, float inv_scale) {
-  extern __shared__ float smem[];
-  constexpr int kTile = mrow::kRows;
-  constexpr int bstride = kTile | 1;
-  const int hd = heads * DH;
-  float* ks = smem;
-  float* vs = ks + kTile * hd;
-  float* bs = vs + kTile * hd;
-  float* dst = bs + kTile * bstride;  // with dbias
-
-  const long long n = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
-  const int ql = min(kTile, lq - q0);
-  const int h = threadIdx.x >> 5;
-  const int i = threadIdx.x & 31;
-  const bool valid = i < ql;
-  float qv[DH], gv[DH], dqa[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) qv[d] = gv[d] = dqa[d] = 0.f;
-  if (valid) {
-    const long long at = (n * lq + q0 + i) * hd + h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) {
-      load16(q + at + d, qv + d);
-      load16(g + at + d, gv + d);
-    }
-  }
-  float m = -INFINITY, l = 0.f, racc = 0.f, rowsum = 0.f;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < lk; k0 += kTile) {
-      const int kl = min(kTile, lk - k0);
-      __syncthreads();  // the last tile's reads are done
-      stage(k + (n * lk + k0) * hd, ks, kl * hd);
-      stage(v + (n * lk + k0) * hd, vs, kl * hd);
-      const float* bn = bias + (n * lq + q0) * lk + k0;
-      for (int e = threadIdx.x; e < ql * kl; e += blockDim.x) {
-        const int r = e / kl;
-        const int c = e - r * kl;
-        bs[r * bstride + c] = bn[(long long)r * lk + c];
-      }
-      __syncthreads();
-      if (valid) {
-        float s[kTile], dp[kTile];
-        float tmax = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kTile; ++j) {
-          if (j < kl) {
-            const float* kj = ks + j * hd + h * DH;
-            const float* vj = vs + j * hd + h * DH;
-            float acc = 0.f, dacc = 0.f;
-#pragma unroll
-            for (int d = 0; d < DH; ++d) {
-              acc = fmaf(qv[d], kj[d], acc);
-              dacc = fmaf(gv[d], vj[d], dacc);
-            }
-            s[j] = __fadd_rn(__fmul_rn(acc, inv_scale), bs[i * bstride + j]);
-            dp[j] = dacc;
-            tmax = fmaxf(tmax, s[j]);
-          }
-        }
-        if (pass == 0) {
-          const float mn = fmaxf(m, tmax);
-          const float alpha = expf(m - mn);
-          l *= alpha;
-          racc *= alpha;
-#pragma unroll
-          for (int j = 0; j < kTile; ++j) {
-            if (j < kl) {
-              const float e = expf(s[j] - mn);
-              l += e;
-              racc = fmaf(e, dp[j], racc);
-            }
-          }
-          m = mn;
-        } else {
-          float* ds_row = dst + (h * kTile + i) * bstride;
-#pragma unroll
-          for (int j = 0; j < kTile; ++j) {
-            if (j < kl) {
-              const float p = __fdiv_rn(expf(s[j] - m), l);
-              const float ds = __fmul_rn(p, __fsub_rn(dp[j], rowsum));
-              if (dbias != nullptr) ds_row[j] = ds;
-              const float dsc = __fmul_rn(ds, inv_scale);
-              const float* kj = ks + j * hd + h * DH;
-#pragma unroll
-              for (int d = 0; d < DH; ++d) dqa[d] = fmaf(dsc, kj[d], dqa[d]);
-            }
-          }
-        }
-      }
-      if (pass == 1 && dbias != nullptr) {
-        __syncthreads();
-        float* dbn = dbias + (n * lq + q0) * lk + k0;
-        for (int e = threadIdx.x; e < ql * kl; e += blockDim.x) {
-          const int r = e / kl;
-          const int c = e - r * kl;
-          float acc = 0.f;
-          for (int hh = 0; hh < heads; ++hh)
-            acc = __fadd_rn(acc, dst[(hh * kTile + r) * bstride + c]);
-          dbn[(long long)r * lk + c] = acc;
-        }
-      }
-    }
-    if (pass == 0) rowsum = __fdiv_rn(racc, l);
-  }
-  if (!valid) return;
-  stats[(n * heads + h) * lq + q0 + i] = make_float4(m, l, rowsum, 0.f);
-  float* dqi = dq + (n * lq + q0 + i) * hd + h * DH;
-#pragma unroll
-  for (int d = 0; d < DH; d += 4) store16(dqi + d, dqa + d);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kMaxHeads * 32)
-attention_bwd_dkv_long_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ g,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              const float4* __restrict__ stats, int lq,
-                              int lk, int heads, float inv_scale) {
-  extern __shared__ float smem[];
-  constexpr int kTile = mrow::kRows;
-  constexpr int bstride = kTile | 1;
-  const int hd = heads * DH;
-  float* qs = smem;
-  float* gs = qs + kTile * hd;
-  float* bs = gs + kTile * hd;
-  // 32 x 33 floats end on 16 bytes
-  float4* st = reinterpret_cast<float4*>(bs + kTile * bstride);
-
-  const long long n = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;
-  const int kl = min(kTile, lk - k0);
-  const int h = threadIdx.x >> 5;
-  const int j = threadIdx.x & 31;
-  const bool valid = j < kl;
-  float kv[DH], vv[DH], dka[DH], dva[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) kv[d] = vv[d] = dka[d] = dva[d] = 0.f;
-  if (valid) {
-    const long long at = (n * lk + k0 + j) * hd + h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) {
-      load16(k + at + d, kv + d);
-      load16(v + at + d, vv + d);
-    }
-  }
-  for (int q0 = 0; q0 < lq; q0 += kTile) {
-    const int ql = min(kTile, lq - q0);
-    __syncthreads();  // the last tile's reads are done
-    stage(q + (n * lq + q0) * hd, qs, ql * hd);
-    stage(g + (n * lq + q0) * hd, gs, ql * hd);
-    const float* bn = bias + (n * lq + q0) * lk + k0;
-    for (int e = threadIdx.x; e < ql * kl; e += blockDim.x) {
-      const int r = e / kl;
-      const int c = e - r * kl;
-      bs[r * bstride + c] = bn[(long long)r * lk + c];
-    }
-    for (int e = threadIdx.x; e < heads * ql; e += blockDim.x) {
-      const int hh = e / ql;
-      const int r = e - hh * ql;
-      st[hh * kTile + r] = stats[(n * heads + hh) * lq + q0 + r];
-    }
-    __syncthreads();
-    if (!valid) continue;
-    for (int i = 0; i < ql; ++i) {
-      const float* qi = qs + i * hd + h * DH;
-      const float* gi = gs + i * hd + h * DH;
-      float acc = 0.f, dacc = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        acc = fmaf(qi[d], kv[d], acc);
-        dacc = fmaf(gi[d], vv[d], dacc);
-      }
-      const float4 sti = st[h * kTile + i];
-      const float s = __fadd_rn(__fmul_rn(acc, inv_scale), bs[i * bstride + j]);
-      const float p = __fdiv_rn(expf(s - sti.x), sti.y);
-      const float ds = __fmul_rn(p, __fsub_rn(dacc, sti.z));
-      const float dsc = __fmul_rn(ds, inv_scale);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dka[d] = fmaf(dsc, qi[d], dka[d]);
-        dva[d] = fmaf(p, gi[d], dva[d]);
-      }
-    }
-  }
-  if (!valid) return;
-  const long long at = (n * lk + k0 + j) * hd + h * DH;
-#pragma unroll
-  for (int d = 0; d < DH; d += 4) {
-    store16(dk + at + d, dka + d);
-    store16(dv + at + d, dva + d);
-  }
-}
-
-size_t smem_bytes_dq_long_f32(int heads, int dh, bool with_dbias) {
-  const size_t tile = (size_t)kRows * (kRows | 1);
-  return sizeof(float) * (2 * (size_t)kRows * heads * dh + tile +
-                          (with_dbias ? (size_t)heads * tile : 0));
-}
-
-size_t smem_bytes_dkv_long_f32(int heads, int dh) {
-  return sizeof(float) * (2 * (size_t)kRows * heads * dh +
-                          (size_t)kRows * (kRows | 1)) +
-         sizeof(float4) * (size_t)heads * kRows;
-}
-
-// bf16: the tensor-core products of the kernel above per 32 x 32 tile.
 // Shared memory of A: qs, gs (the query tile's rows, all heads), ks, vs
 // (a key tile's), bs (kRows x kBiasStride f32), with dbias each head's ds
 // tile (kRows x kBiasStride f32); of B: ks, vs (the key tile's), qs, gs (a
@@ -1236,130 +813,83 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <bool kBf16, int DH>
+template <int DH>
 int launch_dh(const void* q, const void* k, const void* v, const void* bias,
               const void* g, void* dq, void* dk, void* dv, void* dbias,
               int n, int lq, int lk, int heads, float inv_scale,
               cudaStream_t st) {
-  if constexpr (kBf16) {
-    // all H heads a block with dbias (for the sum over heads), else the
-    // largest divisor of H up to kHeadsPerBlock
-    int hpb = heads;
-    if (dbias == nullptr)
-      for (hpb = heads < kHeadsPerBlock ? heads : kHeadsPerBlock; heads % hpb;
-           --hpb) {
-      }
-    const size_t smem = smem_bytes_bf16(hpb, DH, dbias != nullptr);
-    const int err = set_smem(attention_bwd_mma_kernel<DH>, smem);
-    if (err) return err;
-    attention_bwd_mma_kernel<DH>
-        <<<dim3(n, heads / hpb), hpb * 32, smem, st>>>(
-            (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-            (const __nv_bfloat16*)v, (const float*)bias,
-            (const __nv_bfloat16*)g, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk,
-            (__nv_bfloat16*)dv, (float*)dbias, lq, lk, heads, inv_scale);
-  } else {
-    const size_t smem = smem_bytes_f32(lq, lk, heads, DH);
-    const int err = set_smem(attention_bwd_kernel<DH>, smem);
-    if (err) return err;
-    attention_bwd_kernel<DH><<<n, heads * 32, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)bias, (const float*)g, (float*)dq, (float*)dk,
-        (float*)dv, (float*)dbias, lq, lk, heads, inv_scale);
-  }
+  // all H heads a block with dbias (for the sum over heads), else the
+  // largest divisor of H up to kHeadsPerBlock
+  int hpb = heads;
+  if (dbias == nullptr)
+    for (hpb = heads < kHeadsPerBlock ? heads : kHeadsPerBlock; heads % hpb;
+         --hpb) {
+    }
+  const size_t smem = smem_bytes_bf16(hpb, DH, dbias != nullptr);
+  const int err = set_smem(attention_bwd_mma_kernel<DH>, smem);
+  if (err) return err;
+  attention_bwd_mma_kernel<DH><<<dim3(n, heads / hpb), hpb * 32, smem, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const float*)bias, (const __nv_bfloat16*)g,
+      (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+      (float*)dbias, lq, lk, heads, inv_scale);
   return (int)cudaGetLastError();
 }
 
-template <bool kBf16, int DH>
+template <int DH>
 int launch_long_dh(const void* q, const void* k, const void* v,
                    const void* bias, const void* g, void* dq, void* dk,
                    void* dv, void* dbias, void* stats, int n, int lq, int lk,
                    int heads, float inv_scale, cudaStream_t st) {
+  using T = __nv_bfloat16;
   const dim3 grid_q(n, (lq + kRows - 1) / kRows);
   const dim3 grid_k(n, (lk + kRows - 1) / kRows);
   const int threads = heads * 32;
-  const bool with_dbias = dbias != nullptr;
+  const size_t smem = smem_bytes_long_bf16(heads, DH, dbias != nullptr);
   int err;
-  if constexpr (kBf16) {
-    using T = __nv_bfloat16;
-    const size_t smem = smem_bytes_long_bf16(heads, DH, with_dbias);
-    if ((err = set_smem(attention_bwd_dq_mma_long_kernel<DH>, smem)) ||
-        (err = set_smem(attention_bwd_dkv_mma_long_kernel<DH>, smem)))
-      return err;
-    attention_bwd_dq_mma_long_kernel<DH><<<grid_q, threads, smem, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-        (const T*)g, (T*)dq, (float*)dbias, (float4*)stats, lq, lk, heads,
-        inv_scale);
-    if ((err = (int)cudaGetLastError())) return err;
-    attention_bwd_dkv_mma_long_kernel<DH><<<grid_k, threads, smem, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-        (const T*)g, (T*)dk, (T*)dv, (const float4*)stats, lq, lk, heads,
-        inv_scale);
-  } else {
-    const size_t smem_a = smem_bytes_dq_long_f32(heads, DH, with_dbias);
-    const size_t smem_b = smem_bytes_dkv_long_f32(heads, DH);
-    if ((err = set_smem(attention_bwd_dq_long_kernel<DH>, smem_a)) ||
-        (err = set_smem(attention_bwd_dkv_long_kernel<DH>, smem_b)))
-      return err;
-    attention_bwd_dq_long_kernel<DH><<<grid_q, threads, smem_a, st>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)bias, (const float*)g, (float*)dq, (float*)dbias,
-        (float4*)stats, lq, lk, heads, inv_scale);
-    if ((err = (int)cudaGetLastError())) return err;
-    attention_bwd_dkv_long_kernel<DH><<<grid_k, threads, smem_b, st>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)bias, (const float*)g, (float*)dk, (float*)dv,
-        (const float4*)stats, lq, lk, heads, inv_scale);
-  }
+  if ((err = set_smem(attention_bwd_dq_mma_long_kernel<DH>, smem)) ||
+      (err = set_smem(attention_bwd_dkv_mma_long_kernel<DH>, smem)))
+    return err;
+  attention_bwd_dq_mma_long_kernel<DH><<<grid_q, threads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (const T*)g,
+      (T*)dq, (float*)dbias, (float4*)stats, lq, lk, heads, inv_scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  attention_bwd_dkv_mma_long_kernel<DH><<<grid_k, threads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (const T*)g,
+      (T*)dk, (T*)dv, (const float4*)stats, lq, lk, heads, inv_scale);
   return (int)cudaGetLastError();
 }
 
-template <bool kBf16>
-int launch_long(const void* q, const void* k, const void* v,
-                const void* bias, const void* g, void* dq, void* dk, void* dv,
-                void* dbias, void* stats, int n, int lq, int lk, int heads,
-                int dh, double scale, void* stream) {
-  if (n <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || heads > kMaxHeads)
-    return (int)cudaErrorInvalidValue;
-  const float inv_scale = (float)(1.0 / scale);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 8:
-      return launch_long_dh<kBf16, 8>(q, k, v, bias, g, dq, dk, dv, dbias,
-                                      stats, n, lq, lk, heads, inv_scale, st);
-    case 16:
-      return launch_long_dh<kBf16, 16>(q, k, v, bias, g, dq, dk, dv, dbias,
-                                       stats, n, lq, lk, heads, inv_scale,
-                                       st);
-    case 32:
-      return launch_long_dh<kBf16, 32>(q, k, v, bias, g, dq, dk, dv, dbias,
-                                       stats, n, lq, lk, heads, inv_scale,
-                                       st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <bool kBf16>
-int launch(const void* q, const void* k, const void* v, const void* bias,
-           const void* g, void* dq, void* dk, void* dv, void* dbias, int n,
-           int lq, int lk, int heads, int dh, double scale, void* stream) {
-  if (n <= 0 || lq <= 0 || lq > kMaxLen || lk <= 0 || lk > kMaxKeys ||
-      heads <= 0 || heads > kMaxHeads)
+// the long-length kernels (long) or the kernel up to 32 queries and keys
+int launch(bool long_len, const void* q, const void* k, const void* v,
+           const void* bias, const void* g, void* dq, void* dk, void* dv,
+           void* dbias, void* stats, int n, int lq, int lk, int heads, int dh,
+           double scale, void* stream) {
+  if (n <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || heads > kMaxHeads ||
+      (!long_len && (lq > kRows || lk > kRows)))
     return (int)cudaErrorInvalidValue;
   // 1/scale in double, rounded once to f32, as the forward
   const float inv_scale = (float)(1.0 / scale);
   cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
     case 8:
-      return launch_dh<kBf16, 8>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq,
-                                 lk, heads, inv_scale, st);
+      return long_len ? launch_long_dh<8>(q, k, v, bias, g, dq, dk, dv,
+                                          dbias, stats, n, lq, lk, heads,
+                                          inv_scale, st)
+                      : launch_dh<8>(q, k, v, bias, g, dq, dk, dv, dbias, n,
+                                     lq, lk, heads, inv_scale, st);
     case 16:
-      return launch_dh<kBf16, 16>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq,
-                                  lk, heads, inv_scale, st);
+      return long_len ? launch_long_dh<16>(q, k, v, bias, g, dq, dk, dv,
+                                           dbias, stats, n, lq, lk, heads,
+                                           inv_scale, st)
+                      : launch_dh<16>(q, k, v, bias, g, dq, dk, dv, dbias, n,
+                                      lq, lk, heads, inv_scale, st);
     case 32:
-      return launch_dh<kBf16, 32>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq,
-                                  lk, heads, inv_scale, st);
+      return long_len ? launch_long_dh<32>(q, k, v, bias, g, dq, dk, dv,
+                                           dbias, stats, n, lq, lk, heads,
+                                           inv_scale, st)
+                      : launch_dh<32>(q, k, v, bias, g, dq, dk, dv, dbias, n,
+                                      lq, lk, heads, inv_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1370,68 +900,37 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 extern "C" {
 
 // Bytes of dynamic shared memory one block needs at most (the wrapper
-// checks this against the device's limit before launching; bf16: with
-// dbias, a block of all heads).
-size_t deepsc_attention_bwd_smem_bytes_f32(int lq, int lk, int heads,
-                                           int dh) {
-  if (lq > kRows || lk > kRows) {
-    const size_t a = smem_bytes_dq_long_f32(heads, dh, true);
-    const size_t b = smem_bytes_dkv_long_f32(heads, dh);
-    return a > b ? a : b;
-  }
-  return smem_bytes_f32(lq, lk, heads, dh);
-}
-
+// checks this against the device's limit before launching; with dbias, a
+// block of all heads).
 size_t deepsc_attention_bwd_smem_bytes_bf16(int lq, int lk, int heads,
                                             int dh) {
   if (lq > kRows || lk > kRows) return smem_bytes_long_bf16(heads, dh, true);
   return smem_bytes_bf16(heads, dh, true);
 }
 
-// q, g, dq: contiguous f32 (N, Lq, heads*dh); k, v, dk, dv: (N, Lk,
+// q, g, dq, k, v, dk, dv: contiguous bf16 (N, Lq, heads*dh) and (N, Lk,
 // heads*dh); bias: contiguous f32 (N, Lq, Lk); dbias: f32 (N, Lq, Lk) or
-// null. Returns cudaGetLastError() after the launch (0 = success).
-int deepsc_attention_bwd_f32(const void* q, const void* k, const void* v,
-                             const void* bias, const void* g, void* dq,
-                             void* dk, void* dv, void* dbias, int n, int lq,
-                             int lk, int heads, int dh, double scale,
-                             void* stream) {
-  return launch<false>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq, lk, heads,
-                       dh, scale, stream);
-}
-
-// As above with q, k, v, g, dq, dk, dv in bf16 (bias and dbias f32).
+// null; Lq and Lk up to 32. Returns cudaGetLastError() after the launch
+// (0 = success).
 int deepsc_attention_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* bias, const void* g, void* dq,
                               void* dk, void* dv, void* dbias, int n, int lq,
                               int lk, int heads, int dh, double scale,
                               void* stream) {
-  return launch<true>(q, k, v, bias, g, dq, dk, dv, dbias, n, lq, lk, heads,
-                      dh, scale, stream);
+  return launch(false, q, k, v, bias, g, dq, dk, dv, dbias, nullptr, n, lq,
+                lk, heads, dh, scale, stream);
 }
 
-// Any Lq and Lk (the long-length kernels; the wrapper takes them past 32,
-// and in f32 where the short kernel's shared memory exceeds the card's):
-// as above, and `stats` is the caller's f32 scratch (N, heads, Lq, 4),
-// 16-byte aligned.
-int deepsc_attention_bwd_long_f32(const void* q, const void* k,
-                                  const void* v, const void* bias,
-                                  const void* g, void* dq, void* dk, void* dv,
-                                  void* dbias, void* stats, int n, int lq,
-                                  int lk, int heads, int dh, double scale,
-                                  void* stream) {
-  return launch_long<false>(q, k, v, bias, g, dq, dk, dv, dbias, stats, n,
-                            lq, lk, heads, dh, scale, stream);
-}
-
+// Any Lq and Lk (the long-length kernels): as above, and `stats` is the
+// caller's f32 scratch (N, heads, Lq, 4), 16-byte aligned.
 int deepsc_attention_bwd_long_bf16(const void* q, const void* k,
                                    const void* v, const void* bias,
                                    const void* g, void* dq, void* dk,
                                    void* dv, void* dbias, void* stats, int n,
                                    int lq, int lk, int heads, int dh,
                                    double scale, void* stream) {
-  return launch_long<true>(q, k, v, bias, g, dq, dk, dv, dbias, stats, n, lq,
-                           lk, heads, dh, scale, stream);
+  return launch(true, q, k, v, bias, g, dq, dk, dv, dbias, stats, n, lq, lk,
+                heads, dh, scale, stream);
 }
 
 }  // extern "C"

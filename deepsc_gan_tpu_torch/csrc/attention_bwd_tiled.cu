@@ -3,9 +3,9 @@
 // interface.
 //
 // Replaces the TPU kernel `_bwd_kernel` of deepsc_gan_tpu/ops/pallas/
-// attention.py where the tuned f32 kernel (csrc/attention_bwd.cu: heads of
-// 8, 16 or 32, at most 16 of them) does not take the shape: the JAX kernel
-// takes any head width and count, so `--dtype float32` with
+// attention.py where the narrow f32 kernels (csrc/attention_narrow.cu:
+// heads of 8, 16 or 32, at most 16 of them) do not take the shape: the JAX
+// kernel takes any head width and count, so `--dtype float32` with
 // `--encoder-d-model 512` (8 heads of 64), a decoder of 8 heads of 25, 32
 // heads of 16, one head of 512 or 2 heads of 320 run here, at any length
 // (in bf16 those shapes take csrc/attention_wide_mma.cu and

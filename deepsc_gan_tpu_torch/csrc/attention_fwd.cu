@@ -18,12 +18,12 @@
 // (9.7 MB): about 43 MB, 13 us at the H100 SXM's 3.35 TB/s, against about
 // 0.3 GFLOP (0.3 us at the bf16 tensor-core rate). Computed from the shapes.
 //
-// Design: one warp per head, Dh in {8, 16, 32} and H <= 16 (compile-time
-// Dh). Up to 32 queries and keys, one block per batch row and one kernel
-// per dtype, below; past 32 of either, the long-length kernels further
-// down (a block per tile of 32 queries, the keys streamed in tiles of 32
-// with an online softmax). For 32 or fewer each dtype has one kernel:
-// - bf16, tensor cores (mma.sync m16n8k16, f32 accumulators). The block
+// Design: bf16 only (f32 at these heads runs csrc/attention_narrow.cu):
+// one warp per head, Dh in {8, 16, 32} and H <= 16 (compile-time Dh). Up to
+// 32 queries and keys, one block per batch row, below; past 32 of either,
+// the long-length kernel further down (a block per tile of 32 queries, the
+// keys streamed in tiles of 32 with an online softmax). On the tensor cores
+// (mma.sync m16n8k16, f32 accumulators): the block
 //   copies the row's q, k and v (contiguous, 16-byte cp.async) and its bias
 //   tile (4-byte cp.async: a row of 31 x 31 floats seldom starts on 16
 //   bytes) into shared memory and waits once; the byte stream is kept in
@@ -49,126 +49,17 @@
 //   slice of the staged q, and the block writes rows < Lq with 16-byte
 //   stores. What bounds it now: the loads and stores alone (no products,
 //   no softmax) take 0.015 ms of the 0.024 (scripts/kernel_variants.py).
-// - f32, CUDA cores (exact f32, which the f32 greedy id checks need; mma
-//   on f32 would be TF32): one thread per (query, head), a warp per head
-//   (lane = query), so every read of the row's keys and values is a
-//   broadcast. The row's K and V and its bias tile (rows of an odd number
-//   of words, so a warp's per-query reads fall in distinct banks) are
-//   staged in shared memory once. Each thread keeps its query, its Lk
-//   logits and its context in registers. Every sum runs in a fixed order:
-//   the dot over d, the softmax denominator and the context over keys.
 // The kernels allocate nothing; the caller passes the output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <cfloat>
 #include <stdint.h>
 
 #include "mma_row.cuh"
 
 namespace {
 
-constexpr int kMaxKeys = 32;   // keys per row (lk <= 32)
 constexpr int kMaxHeads = 16;  // one warp per head: <= 512 threads
-
-// ---- f32: CUDA cores ----
-
-// 16-byte moves: a thread's query, its context and the staged rows move
-// as float4 (the wrapper requires 16-byte aligned tensors; a head's slice,
-// Dh * 4 bytes, is a multiple of 16).
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 u = *reinterpret_cast<const float4*>(src);
-  dst[0] = u.x;
-  dst[1] = u.y;
-  dst[2] = u.z;
-  dst[3] = u.w;
-}
-
-__device__ __forceinline__ void store16(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2],
-                                                src[3]);
-}
-
-// Shared memory: ks, vs (Lk x H*Dh f32 each), bs (Lq x (Lk | 1) f32).
-template <int DH>
-__global__ void __launch_bounds__(kMaxHeads * 32)
-attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     int lq, int lk, int heads, float inv_scale) {
-  extern __shared__ float smem[];
-  const int hd = heads * DH;
-  const int bstride = lk | 1;
-  float* ks = smem;
-  float* vs = ks + lk * hd;
-  float* bs = vs + lk * hd;
-
-  const long long n = blockIdx.x;
-  const float* kn = k + n * lk * hd;
-  const float* vn = v + n * lk * hd;
-  const float* bn = bias + n * lq * lk;
-  for (int e = threadIdx.x * 4; e < lk * hd; e += blockDim.x * 4) {
-    load16(kn + e, ks + e);
-    load16(vn + e, vs + e);
-  }
-  for (int e = threadIdx.x; e < lq * lk; e += blockDim.x) {
-    const int i = e / lk;
-    bs[i * bstride + (e - i * lk)] = bn[e];
-  }
-  __syncthreads();
-
-  const int h = threadIdx.x >> 5;
-  const int i = threadIdx.x & 31;
-  if (i >= lq) return;  // no later barrier
-  const float* qi = q + (n * lq + i) * hd + h * DH;
-  float qv[DH];
-#pragma unroll
-  for (int d = 0; d < DH; d += 4) load16(qi + d, qv + d);
-
-  // logits: s_j = (q . k_j) * (1/scale) + bias[i, j], rounded twice as the
-  // TPU kernel does (no fused multiply-add across the two steps)
-  float s[kMaxKeys];
-  float m = -FLT_MAX;
-#pragma unroll
-  for (int j = 0; j < kMaxKeys; ++j) {
-    if (j < lk) {
-      const float* kj = ks + j * hd + h * DH;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc = fmaf(qv[d], kj[d], acc);
-      s[j] = __fadd_rn(__fmul_rn(acc, inv_scale), bs[i * bstride + j]);
-      m = fmaxf(m, s[j]);
-    }
-  }
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxKeys; ++j) {
-    if (j < lk) {
-      s[j] = expf(s[j] - m);
-      sum += s[j];
-    }
-  }
-  float ctx[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) ctx[d] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxKeys; ++j) {
-    if (j < lk) {
-      const float p = __fdiv_rn(s[j], sum);
-      const float* vj = vs + j * hd + h * DH;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) ctx[d] = fmaf(p, vj[d], ctx[d]);
-    }
-  }
-  float* oi = out + (n * lq + i) * hd + h * DH;
-#pragma unroll
-  for (int d = 0; d < DH; d += 4) store16(oi + d, ctx + d);
-}
-
-size_t smem_bytes_f32(int lq, int lk, int heads, int dh) {
-  return sizeof(float) *
-         (2 * (size_t)lk * heads * dh + (size_t)lq * (size_t)(lk | 1));
-}
 
 // ---- bf16: tensor cores (csrc/mma_row.cuh) ----
 
@@ -305,7 +196,7 @@ size_t smem_bytes_bf16(int heads, int dh) {
 
 // ---- any length: query tiles over the grid, key tiles streamed ----
 //
-// Past 32 queries or keys (either) the launch takes these kernels instead:
+// Past 32 queries or keys (either) the launch takes this kernel instead:
 // a block per (batch row, tile of 32 queries), a warp per head, the keys
 // streamed in tiles of 32 with an online softmax. A tile's logits are taken
 // as above; the row's running max m and sum l are updated (the context and
@@ -325,104 +216,9 @@ size_t smem_bytes_bf16(int heads, int dh) {
 // SM holds overlap one's loads with another's products), and each tile's
 // bias is read once per query tile.
 
-// f32: a lane per query of the tile (as the kernel above); smem: ks, vs
-// (kRows x H*Dh f32 each), bs (kRows x (kRows | 1)).
-template <int DH>
-__global__ void __launch_bounds__(kMaxHeads * 32)
-attention_fwd_long_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ bias,
-                          float* __restrict__ out, int lq, int lk, int heads,
-                          float inv_scale) {
-  extern __shared__ float smem[];
-  constexpr int kTile = mrow::kRows;
-  constexpr int bstride = kTile | 1;
-  const int hd = heads * DH;
-  float* ks = smem;
-  float* vs = ks + kTile * hd;
-  float* bs = vs + kTile * hd;
-
-  const long long n = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
-  const int ql = min(kTile, lq - q0);
-  const int h = threadIdx.x >> 5;
-  const int i = threadIdx.x & 31;
-  const bool valid = i < ql;
-  float qv[DH];
-  float ctx[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) ctx[d] = qv[d] = 0.f;
-  if (valid) {
-    const float* qi = q + (n * lq + q0 + i) * hd + h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) load16(qi + d, qv + d);
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-  for (int k0 = 0; k0 < lk; k0 += kTile) {
-    const int kl = min(kTile, lk - k0);
-    __syncthreads();  // the last tile's reads are done
-    const float* kn = k + (n * lk + k0) * hd;
-    const float* vn = v + (n * lk + k0) * hd;
-    for (int e = threadIdx.x * 4; e < kl * hd; e += blockDim.x * 4) {
-      load16(kn + e, ks + e);
-      load16(vn + e, vs + e);
-    }
-    const float* bn = bias + (n * lq + q0) * lk + k0;
-    for (int e = threadIdx.x; e < ql * kl; e += blockDim.x) {
-      const int r = e / kl;
-      const int c = e - r * kl;
-      bs[r * bstride + c] = bn[(long long)r * lk + c];
-    }
-    __syncthreads();
-    if (!valid) continue;
-    float s[kTile];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      if (j < kl) {
-        const float* kj = ks + j * hd + h * DH;
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) acc = fmaf(qv[d], kj[d], acc);
-        s[j] = __fadd_rn(__fmul_rn(acc, inv_scale), bs[i * bstride + j]);
-        tmax = fmaxf(tmax, s[j]);
-      }
-    }
-    const float mn = fmaxf(m, tmax);
-    const float alpha = expf(m - mn);
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) ctx[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      if (j < kl) {
-        const float e = expf(s[j] - mn);
-        l += e;
-        const float* vj = vs + j * hd + h * DH;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) ctx[d] = fmaf(e, vj[d], ctx[d]);
-      }
-    }
-    m = mn;
-  }
-  if (!valid) return;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) ctx[d] = __fdiv_rn(ctx[d], l);
-  float* oi = out + (n * lq + q0 + i) * hd + h * DH;
-#pragma unroll
-  for (int d = 0; d < DH; d += 4) store16(oi + d, ctx + d);
-}
-
-size_t smem_bytes_long_f32(int heads, int dh) {
-  return sizeof(float) * (2 * (size_t)kRows * heads * dh +
-                          (size_t)kRows * (kRows | 1));
-}
-
-// bf16: the tensor-core kernel above on a tile of 32 queries against key
-// tiles of 32; the query tile's fragments are read from shared memory at
-// each key tile.
+// The tensor-core kernel above on a tile of 32 queries against key tiles of
+// 32; the query tile's fragments are read from shared memory at each key
+// tile.
 template <int DH>
 __global__ void __launch_bounds__(kMaxHeads * 32)
 attention_fwd_mma_long_kernel(const __nv_bfloat16* __restrict__ q,
@@ -598,50 +394,29 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <bool kBf16, int DH>
+template <int DH>
 int launch_dh(const void* q, const void* k, const void* v, const void* bias,
               void* out, int n, int lq, int lk, int heads, float inv_scale,
               cudaStream_t st) {
+  using T = __nv_bfloat16;
+  const size_t smem = smem_bytes_bf16(heads, DH);
   if (lq > kRows || lk > kRows) {
     const dim3 grid(n, (lq + kRows - 1) / kRows);
-    if constexpr (kBf16) {
-      const size_t smem = smem_bytes_bf16(heads, DH);
-      const int err = set_smem(attention_fwd_mma_long_kernel<DH>, smem);
-      if (err) return err;
-      attention_fwd_mma_long_kernel<DH><<<grid, heads * 32, smem, st>>>(
-          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-          (const __nv_bfloat16*)v, (const float*)bias, (__nv_bfloat16*)out,
-          lq, lk, heads, inv_scale);
-    } else {
-      const size_t smem = smem_bytes_long_f32(heads, DH);
-      const int err = set_smem(attention_fwd_long_kernel<DH>, smem);
-      if (err) return err;
-      attention_fwd_long_kernel<DH><<<grid, heads * 32, smem, st>>>(
-          (const float*)q, (const float*)k, (const float*)v,
-          (const float*)bias, (float*)out, lq, lk, heads, inv_scale);
-    }
+    const int err = set_smem(attention_fwd_mma_long_kernel<DH>, smem);
+    if (err) return err;
+    attention_fwd_mma_long_kernel<DH><<<grid, heads * 32, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
+        lq, lk, heads, inv_scale);
     return (int)cudaGetLastError();
   }
-  if constexpr (kBf16) {
-    const size_t smem = smem_bytes_bf16(heads, DH);
-    const int err = set_smem(attention_fwd_mma_kernel<DH>, smem);
-    if (err) return err;
-    attention_fwd_mma_kernel<DH><<<n, heads * 32, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (const float*)bias, (__nv_bfloat16*)out, lq,
-        lk, heads, inv_scale);
-  } else {
-    const size_t smem = smem_bytes_f32(lq, lk, heads, DH);
-    const int err = set_smem(attention_fwd_kernel<DH>, smem);
-    if (err) return err;
-    attention_fwd_kernel<DH><<<n, heads * 32, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)bias, (float*)out, lq, lk, heads, inv_scale);
-  }
+  const int err = set_smem(attention_fwd_mma_kernel<DH>, smem);
+  if (err) return err;
+  attention_fwd_mma_kernel<DH><<<n, heads * 32, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out, lq,
+      lk, heads, inv_scale);
   return (int)cudaGetLastError();
 }
 
-template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int n, int lq, int lk, int heads, int dh, double scale,
            void* stream) {
@@ -653,14 +428,14 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
     case 8:
-      return launch_dh<kBf16, 8>(q, k, v, bias, out, n, lq, lk, heads,
-                                 inv_scale, st);
+      return launch_dh<8>(q, k, v, bias, out, n, lq, lk, heads, inv_scale,
+                          st);
     case 16:
-      return launch_dh<kBf16, 16>(q, k, v, bias, out, n, lq, lk, heads,
-                                  inv_scale, st);
+      return launch_dh<16>(q, k, v, bias, out, n, lq, lk, heads, inv_scale,
+                           st);
     case 32:
-      return launch_dh<kBf16, 32>(q, k, v, bias, out, n, lq, lk, heads,
-                                  inv_scale, st);
+      return launch_dh<32>(q, k, v, bias, out, n, lq, lk, heads, inv_scale,
+                           st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -672,34 +447,18 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block needs (the wrapper checks this
 // against the device's limit before launching).
-size_t deepsc_attention_fwd_smem_bytes_f32(int lq, int lk, int heads,
-                                           int dh) {
-  if (lq > kRows || lk > kRows) return smem_bytes_long_f32(heads, dh);
-  return smem_bytes_f32(lq, lk, heads, dh);
-}
-
 size_t deepsc_attention_fwd_smem_bytes_bf16(int lq, int lk, int heads,
                                             int dh) {
   return smem_bytes_bf16(heads, dh);
 }
 
-// q, k, v, out: contiguous f32 (N, L, heads*dh); bias: contiguous f32
+// q, k, v, out: contiguous bf16 (N, L, heads*dh); bias: contiguous f32
 // (N, Lq, Lk). Returns cudaGetLastError() after the launch (0 = success).
-int deepsc_attention_fwd_f32(const void* q, const void* k, const void* v,
-                             const void* bias, void* out, int n, int lq,
-                             int lk, int heads, int dh, double scale,
-                             void* stream) {
-  return launch<false>(q, k, v, bias, out, n, lq, lk, heads, dh, scale,
-                       stream);
-}
-
-// As above with q, k, v, out in bf16.
 int deepsc_attention_fwd_bf16(const void* q, const void* k, const void* v,
                               const void* bias, void* out, int n, int lq,
                               int lk, int heads, int dh, double scale,
                               void* stream) {
-  return launch<true>(q, k, v, bias, out, n, lq, lk, heads, dh, scale,
-                      stream);
+  return launch(q, k, v, bias, out, n, lq, lk, heads, dh, scale, stream);
 }
 
 }  // extern "C"

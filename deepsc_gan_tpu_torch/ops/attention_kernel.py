@@ -1,14 +1,16 @@
 """Fused multi-head attention: the CUDA kernels `csrc/attention_fwd.cu`
 (K1, the port of the TPU kernel `_fwd_kernel`) and `csrc/attention_bwd.cu`
 (K2, the port of `_bwd_kernel`, deepsc_gan_tpu/ops/pallas/attention.py),
-with `csrc/attention_bwd_resident.cu` (the bf16 K2 past 32 queries or keys
-up to L_RES of both), `csrc/attention_bwd_cluster.cu` (the bf16 K2 past
-L_RES up to L_CLUSTER), `csrc/attention_wide_mma.cu` (bf16, heads up to 256
-wide), `csrc/attention_chunked.cu` (bf16, heads wider than 256),
-`csrc/attention_tiled.cu` (the f32 K1) and `csrc/attention_bwd_tiled.cu`
-(the f32 K2) for the head widths and counts they do not take, their wrappers
-and plain PyTorch versions, and the `torch.autograd.Function` that joins
-them as the TPU package's custom VJP does.
+bf16 at the tuned heads, with `csrc/attention_bwd_resident.cu` (the bf16 K2
+past 32 queries or keys up to L_RES of both), `csrc/attention_bwd_cluster.cu`
+(the bf16 K2 past L_RES up to L_CLUSTER), `csrc/attention_narrow.cu` (f32
+K1 and K2 at the tuned heads, any length), `csrc/attention_wide_mma.cu`
+(bf16, heads up to 256 wide), `csrc/attention_chunked.cu` (bf16, heads wider
+than 256), `csrc/attention_tiled.cu` (the f32 K1) and
+`csrc/attention_bwd_tiled.cu` (the f32 K2) for the head widths and counts
+the tuned ones do not take, their wrappers and plain PyTorch versions, and
+the `torch.autograd.Function` that joins them as the TPU package's custom
+VJP does.
 
 `fused_attention(q, k, v, bias, heads, scale)` has the JAX signature of
 the TPU kernel's entry point: q (N, Lq, H*Dh), k and v (N, Lk, H*Dh), bias
@@ -37,18 +39,25 @@ KERNEL_CHUNKED = "attention_chunked"
 KERNEL_WIDE_MMA = "attention_wide_mma"
 KERNEL_RESIDENT = "attention_bwd_resident"
 KERNEL_CLUSTER = "attention_bwd_cluster"
-# what the tuned kernels take (csrc/attention_fwd.cu, csrc/attention_bwd.cu):
-# a warp per head of a compile-time width in HEAD_DIMS, at most MAX_HEADS
-# heads, any number of queries and keys. Up to TILE of both: a block per
-# batch row; bf16: the row's q, k, v (and g) staged as bf16 in two 16-row
-# mma m-tiles of queries and of keys, the forward's block holding a batch
-# row's heads, the backward's four of them (all when dbias is asked for);
-# f32: a lane per query (and per key in the backward). Past TILE of either
-# (and for the f32 backward wherever its short kernel's shared memory does
-# not fit the card): the long-length kernels, a block per tile of TILE
-# queries with the keys streamed in tiles of TILE (online softmax), and a
-# backward in two kernels (dq and dbias per query tile, then dk and dv per
-# key tile) that pass the softmax statistics through a scratch tensor.
+KERNEL_NARROW = "attention_narrow"
+# what the tuned kernels take: heads of a compile-time width in HEAD_DIMS,
+# at most MAX_HEADS of them, any number of queries and keys. bf16 on
+# csrc/attention_fwd.cu and csrc/attention_bwd.cu: a warp per head; up to
+# TILE queries and keys a block per batch row, the row's q, k, v (and g)
+# staged as bf16 in two 16-row mma m-tiles of queries and of keys, the
+# forward's block holding a batch row's heads, the backward's four of them
+# (all when dbias is asked for); past TILE of either the long-length
+# kernels, a block per tile of TILE queries with the keys streamed in tiles
+# of TILE (online softmax), and a backward in two kernels (dq and dbias per
+# query tile, then dk and dv per key tile) that pass the softmax statistics
+# through a scratch tensor. f32 on csrc/attention_narrow.cu (`uses_narrow`):
+# a block of 128 threads per batch row, head and TILE queries (or keys), a
+# quad of lanes per query, each lane a quarter of the keys of a tile and of
+# the head's columns; the forward streams key tiles of TILE (one tile: an
+# exact softmax, more: an online one); the backward up to TILE queries and
+# keys one kernel a (row, head), past them a dq kernel and a dk/dv kernel
+# through the (N, H, Lq, 4) statistics scratch; dbias through an (N, H, Lq,
+# Lk) ds scratch summed over the heads by a last kernel.
 # Any other head width, or more heads: the wide kernels. In bf16 at heads
 # up to REGISTER_DH wide, the tensor-core wide kernels
 # (csrc/attention_wide_mma.cu: mma.sync, the head zero-padded in shared
@@ -81,7 +90,7 @@ KERNEL_CLUSTER = "attention_bwd_cluster"
 # slices; where the rows' heads are fewer than the SMs, the slices are
 # split over a cluster of up to CLUSTER_MAX blocks whose dk and dv
 # partials are summed in rank order through distributed shared memory);
-# the long-length kernels keep f32 and longer rows.
+# the long-length kernels keep the longer rows.
 HEAD_DIMS = (8, 16, 32)
 MAX_HEADS = 16
 TILE = 32
@@ -100,27 +109,33 @@ CLUSTER_SMEM = 232448
 # reset (each wrapper adds one per launch and nowhere else; `wide_launches`
 # and `wide_bwd_launches` count the calls among them that went to the wide
 # kernels, `tiled_launches` and `tiled_bwd_launches` the K1 and K2 calls
-# that went to the tiled f32 kernels, `cluster_bwd_launches` the K2 calls
-# that went to the cluster kernel); read by chip_smoke.py to show that a
-# path went through the kernels.
+# that went to the tiled f32 kernels, `narrow_launches` and
+# `narrow_bwd_launches` those that went to the narrow f32 kernels,
+# `cluster_bwd_launches` the K2 calls that went to the cluster kernel);
+# read by chip_smoke.py to show that a path went through the kernels.
 launches = 0
 bwd_launches = 0
 wide_launches = 0
 wide_bwd_launches = 0
 tiled_launches = 0
 tiled_bwd_launches = 0
+narrow_launches = 0
+narrow_bwd_launches = 0
 cluster_bwd_launches = 0
 
 
 def reset_launches() -> None:
     global launches, bwd_launches, wide_launches, wide_bwd_launches
     global tiled_launches, tiled_bwd_launches, cluster_bwd_launches
+    global narrow_launches, narrow_bwd_launches
     launches = 0
     bwd_launches = 0
     wide_launches = 0
     wide_bwd_launches = 0
     tiled_launches = 0
     tiled_bwd_launches = 0
+    narrow_launches = 0
+    narrow_bwd_launches = 0
     cluster_bwd_launches = 0
 
 
@@ -178,9 +193,9 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # pointer arguments of each launch function: q, k, v, bias (, g) and the
 # outputs (the long-length and wide backward entries also take the scratch)
 _POINTERS = {KERNEL: 5, KERNEL_BWD: 9}
-# the shared-memory size function of each library and dtype
-_SMEM = {KERNEL: "deepsc_attention_fwd_smem_bytes_{}",
-         KERNEL_BWD: "deepsc_attention_bwd_smem_bytes_{}"}
+# the shared-memory size function of each library (bf16)
+_SMEM = {KERNEL: "deepsc_attention_fwd_smem_bytes_bf16",
+         KERNEL_BWD: "deepsc_attention_bwd_smem_bytes_bf16"}
 _BOUND = {}
 
 
@@ -290,6 +305,23 @@ def is_chunked_mma(dtype, heads: int, dh: int) -> bool:
         and dh > REGISTER_DH
 
 
+def uses_narrow(dtype, heads: int, dh: int) -> bool:
+    """Whether K1 and K2 at `heads` heads of `dh` in `dtype` run the narrow
+    f32 kernels (csrc/attention_narrow.cu): every f32 call at the tuned
+    head widths and counts, at any length."""
+    return dtype == torch.float32 and not is_wide(heads, dh)
+
+
+def narrow_bwd_scratch_floats(n: int, lq: int, lk: int, heads: int,
+                              need_dbias: bool) -> int:
+    """f32 floats of the narrow K2's scratch (the library's
+    `deepsc_attention_narrow_bwd_scratch_f32`): the row statistics (N, H,
+    Lq, 4) past TILE queries or keys, then with dbias each head's ds (N,
+    H, Lq, Lk), summed over the heads by its last kernel."""
+    rows = n * heads * lq
+    return 4 * rows * is_long(lq, lk) + rows * lk * need_dbias
+
+
 def uses_tiled(dtype, heads: int, dh: int) -> bool:
     """Whether K1 and K2 at `heads` heads of `dh` in `dtype` run the tiled
     f32 kernels (csrc/attention_tiled.cu, csrc/attention_bwd_tiled.cu):
@@ -317,25 +349,51 @@ def takes_head_dim(dh: int) -> bool:
     return dh >= 1
 
 
-def _bind(kernel, dtype, long_bwd=False):
-    """(launch function, shared-memory size function) of the built
+def _bind(kernel, long_bwd=False):
+    """(launch function, shared-memory size function) of the built bf16
     library of `kernel` (with `long_bwd`, the backward's long-length entry,
     which also takes the statistics scratch), with their ctypes signatures
     declared."""
-    key = (kernel, dtype, long_bwd)
+    key = (kernel, long_bwd)
     if key not in _BOUND:
         lib = build.load(kernel)
         entry = f"deepsc_{kernel}_long" if long_bwd else f"deepsc_{kernel}"
-        fn = getattr(lib, f"{entry}_{_SUFFIX[dtype]}")
+        fn = getattr(lib, f"{entry}_bf16")
         fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[kernel] + long_bwd)
                        + [ctypes.c_int] * 5
                        + [ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = getattr(lib, _SMEM[kernel].format(_SUFFIX[dtype]))
+        smem = getattr(lib, _SMEM[kernel])
         smem.argtypes = [ctypes.c_int] * 4
         smem.restype = ctypes.c_size_t
         _BOUND[key] = (fn, smem)
     return _BOUND[key]
+
+
+def _bind_narrow(kernel):
+    """The narrow f32 library's launch function for `kernel`'s function
+    (K1, or K2 with its scratch), with its ctypes signature declared."""
+    key = (KERNEL_NARROW, kernel)
+    if key not in _BOUND:
+        part = "fwd" if kernel == KERNEL else "bwd"
+        fn = getattr(build.load(KERNEL_NARROW),
+                     f"deepsc_attention_narrow_{part}_f32")
+        fn.argtypes = ([ctypes.c_void_p] * (_POINTERS[kernel]
+                                            + (kernel == KERNEL_BWD))
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]
+
+
+def library_narrow_bwd_scratch_floats(n: int, lq: int, lk: int, heads: int,
+                                      need_dbias: bool) -> int:
+    """`narrow_bwd_scratch_floats` as the built library computes it."""
+    fn = build.load(KERNEL_NARROW).deepsc_attention_narrow_bwd_scratch_f32
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn(n, lq, lk, heads, int(need_dbias))
 
 
 def _bind_tiled_bwd():
@@ -520,49 +578,27 @@ def _on_cuda(q):
     return True
 
 
-def smem_bytes(kernel, dtype, lq: int, lk: int, heads: int,
-               dh: int) -> int:
-    """Shared memory one block of the tuned `kernel` ("attention_fwd" or
-    "attention_bwd") needs in `dtype` for Lq x Lk at `heads` heads of `dh`
-    (past TILE of either, the long-length kernels'), as its built library
+def smem_bytes(kernel, lq: int, lk: int, heads: int, dh: int) -> int:
+    """Shared memory one block of the tuned bf16 `kernel` ("attention_fwd"
+    or "attention_bwd") needs for Lq x Lk at `heads` heads of `dh` (past
+    TILE of either, the long-length kernels'), as its built library
     computes it (the library is built on first use)."""
-    return _bind(kernel, dtype)[1](lq, lk, heads, dh)
-
-
-def long_smem_bytes(kernel, dtype, heads: int, dh: int) -> int:
-    """`smem_bytes` of the long-length kernels, which does not depend on
-    the lengths."""
-    return smem_bytes(kernel, dtype, TILE + 1, TILE + 1, heads, dh)
-
-
-def uses_long(kernel, dtype, lq: int, lk: int, heads: int, dh: int,
-              smem_limit: int) -> bool:
-    """Whether the tuned `kernel` takes Lq x Lk through its long-length
-    kernels: past TILE of either, and for the f32 backward also where its
-    short kernel needs more shared memory than `smem_limit` (16 heads of
-    16 at 31 x 31, say; the long kernels stage one tile of keys at a
-    time)."""
-    if is_long(lq, lk):
-        return True
-    return (kernel == KERNEL_BWD and dtype == torch.float32
-            and smem_bytes(kernel, dtype, lq, lk, heads, dh) > smem_limit)
+    return _bind(kernel)[1](lq, lk, heads, dh)
 
 
 def _tuned(kernel, q, k, heads):
     """(launch function, whether it is the long-length backward entry) of
-    the tuned kernel for q and k, after checking its shared memory."""
+    the tuned bf16 kernel for q and k, after checking its shared memory."""
     n, lq, hd = q.shape
     lk, dh = k.shape[1], hd // heads
     limit = torch.cuda.get_device_properties(q.device) \
         .shared_memory_per_block_optin
-    long_bwd = kernel == KERNEL_BWD and uses_long(kernel, q.dtype, lq, lk,
-                                                  heads, dh, limit)
-    smem = (long_smem_bytes(kernel, q.dtype, heads, dh) if long_bwd
-            else smem_bytes(kernel, q.dtype, lq, lk, heads, dh))
+    long_bwd = kernel == KERNEL_BWD and is_long(lq, lk)
+    smem = smem_bytes(kernel, lq, lk, heads, dh)
     if smem > limit:
         raise ValueError(f"{kernel} kernel needs {smem} bytes of shared "
                          f"memory per block; the device allows {limit}")
-    return _bind(kernel, q.dtype, long_bwd)[0], long_bwd
+    return _bind(kernel, long_bwd)[0], long_bwd
 
 
 def attention_fwd(q, k, v, bias, heads: int, scale: float):
@@ -574,8 +610,11 @@ def attention_fwd(q, k, v, bias, heads: int, scale: float):
     lk, dh = k.shape[1], hd // heads
     wide = is_wide(heads, dh)
     tiled = uses_tiled(q.dtype, heads, dh)
+    narrow = uses_narrow(q.dtype, heads, dh)
     pointers = []
-    if is_chunked_mma(q.dtype, heads, dh):
+    if narrow:
+        fn = _bind_narrow(KERNEL)
+    elif is_chunked_mma(q.dtype, heads, dh):
         fn = _bind_tensor_core(KERNEL_CHUNKED, KERNEL)
     elif is_wide_mma(q.dtype, heads, dh):
         fn = _bind_tensor_core(KERNEL_WIDE_MMA, KERNEL)
@@ -596,10 +635,11 @@ def attention_fwd(q, k, v, bias, heads: int, scale: float):
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error "
                            f"{err}")
-    global launches, wide_launches, tiled_launches
+    global launches, wide_launches, tiled_launches, narrow_launches
     launches += 1
     wide_launches += wide
     tiled_launches += tiled
+    narrow_launches += narrow
     return out
 
 
@@ -626,6 +666,7 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
     resident = uses_resident(q.dtype, lq, lk, heads, dh)
     cluster = uses_cluster(q.dtype, lq, lk, heads, dh)
     tiled = uses_tiled(q.dtype, heads, dh)
+    narrow = uses_narrow(q.dtype, heads, dh)
     if mma:
         fn, scratch = _bind_tensor_core(library, KERNEL_BWD), is_long(lq, lk)
     elif resident:
@@ -634,6 +675,8 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
         fn, scratch = _bind_cluster(), False
     elif tiled:
         fn, scratch = _bind_tiled_bwd(), False
+    elif narrow:
+        fn, scratch = _bind_narrow(KERNEL_BWD), False
     else:
         fn, scratch = _tuned(KERNEL_BWD, q, k, heads)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -660,6 +703,11 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
         pointers = [torch.empty(tiled_bwd_scratch_floats(
             n, lq, lk, heads, need_dbias), dtype=torch.float32,
             device=q.device)]
+    elif narrow:
+        # the row statistics past TILE, and each head's ds for dbias
+        floats = narrow_bwd_scratch_floats(n, lq, lk, heads, need_dbias)
+        pointers = [torch.empty(floats, dtype=torch.float32, device=q.device)
+                    if floats else None]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
              g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -670,11 +718,12 @@ def attention_bwd(q, k, v, bias, g, heads: int, scale: float,
         raise RuntimeError(f"attention backward kernel launch failed: CUDA "
                            f"error {err}")
     global bwd_launches, wide_bwd_launches, cluster_bwd_launches
-    global tiled_bwd_launches
+    global tiled_bwd_launches, narrow_bwd_launches
     bwd_launches += 1
     wide_bwd_launches += wide
     cluster_bwd_launches += cluster
     tiled_bwd_launches += tiled
+    narrow_bwd_launches += narrow
     return dq, dk, dv, dbias
 
 

@@ -9,11 +9,8 @@ names the flag, rather than mid-run after the weights are loaded. Each kernel ha
 and a wide one that takes what the tuned one does not, so what is left to
 refuse is narrow: a K1/K2 or K5 head count that does not divide the width
 (the models refuse it too when built), K6 a beam outside 1..V; K1/K2 take
-any head width, K3/K4 any width, and no length is refused. The f32 K2's shared memory is the one its built library
-computes (`attention_kernel.smem_bytes`): where the short kernel's does
-not fit the card, the long-length kernels take the call, and the check
-refuses only if theirs does not fit either. On the CPU the plain versions
-take any shape and nothing is refused.
+any head width, K3/K4 any width, and no length is refused. On the CPU the
+plain versions take any shape and nothing is refused.
 
 Which kernels run, by variant and mode:
 - vanilla (`transformer`, `gan`): K1 in every attention of the encoder
@@ -33,14 +30,19 @@ Which kernels run, by variant and mode:
 
 Which design takes each call, and why none of them refuses a shape the
 check lets through:
-- K1: the tuned kernel (heads of 8, 16 or 32, at most 16; any length: the
-  long-length kernels past 32); other heads in bf16 the tensor-core wide
-  (up to 256 wide) or chunked kernels, in f32 the tiled kernel
+- K1: at the tuned heads (8, 16 or 32 wide, at most 16) in bf16 the tuned
+  kernel (any length: the long-length kernel past 32), in f32 the narrow
+  kernel (csrc/attention_narrow.cu: a block a row, head and 32 queries, key
+  tiles streamed, any length); other heads in bf16 the tensor-core wide (up
+  to 256 wide) or chunked kernels, in f32 the tiled kernel
   (csrc/attention_tiled.cu; any length, its logits in a scratch where a
   row of keys outgrows a block's shared memory);
-- K2: the tuned kernel (the f32 short kernel's shared memory checked here,
-  else the long-length kernels), the bf16 resident and cluster kernels
-  past 32 queries or keys, the wide kernels at other heads: in bf16 the
+- K2: at the tuned heads in bf16 the tuned kernel, past 32 queries or keys
+  the resident, cluster and long-length kernels, in f32 the narrow kernels
+  (a block a row and head, up to 128 queries and keys holding the head
+  whole, past them a dq and a dk/dv kernel through a statistics scratch;
+  shared memory a block that no length raises past 124 KB); the wide
+  kernels at other heads: in bf16 the
   tensor-core wide or chunked kernels, in f32 the tiled kernels
   (csrc/attention_bwd_tiled.cu; any length, S and dP formed in its
   scratch where a row of keys outgrows a block's shared memory);
@@ -68,62 +70,34 @@ import torch
 
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
 from deepsc_gan_tpu_torch.ops import star_kernel as star
-from deepsc_gan_tpu_torch.utils.config import Config, is_star, torch_dtype
+from deepsc_gan_tpu_torch.utils.config import Config, is_star
 
 # the eval modes whose attack gradient runs a backward through the decoder
 ATTACK_MODES = ("greedy_attack", "greedy_gan", "teacher_forced", "pgd")
 
 
-def _attention_errors(side: str, d_model: int, heads: int, calls,
-                      backward: bool, dtype, smem_limit) -> List[str]:
-    """K1 (and K2 when `backward`) over `calls` [(lq, lk, length flag)] at
-    `heads` heads of d_model / heads."""
-    flags = f"--{side}-d-model {d_model} / --{side}-num-heads {heads}"
+def _attention_errors(side: str, d_model: int, heads: int) -> List[str]:
+    """K1 and K2 at `heads` heads of d_model / heads (any length)."""
     dh = d_model // heads if heads > 0 and d_model % heads == 0 else 0
     if not attn.takes_head_dim(dh):
-        return [f"{flags}: the attention kernels K1/K2 take a number of "
-                f"heads that divides the width"]
-    if not backward or dtype != torch.float32 or attn.is_wide(heads, dh):
-        return []
-    for lq, lk, flag in calls:
-        need = attn.smem_bytes(attn.KERNEL_BWD, torch.float32, lq, lk,
-                               heads, dh)
-        limit = smem_limit()
-        if need > limit and not attn.is_long(lq, lk):
-            # the short kernel does not fit: the long-length kernels take it
-            need = attn.long_smem_bytes(attn.KERNEL_BWD, torch.float32,
-                                        heads, dh)
-        if need > limit:
-            return [f"--dtype float32 with {flags} and {flag}: the f32 K2 "
-                    f"needs {need} bytes of shared memory a block for "
-                    f"{lq} x {lk} at {heads} heads of {dh}; the card allows "
-                    f"{limit} (use --dtype bfloat16, fewer heads or a "
-                    f"shorter --seq-len)"]
+        return [f"--{side}-d-model {d_model} / --{side}-num-heads {heads}: "
+                f"the attention kernels K1/K2 take a number of heads that "
+                f"divides the width"]
     return []
 
 
 def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
                     beam_size: int = 4, kv_cache: bool = False,
-                    beam_impl: str = "kv", device="cuda",
-                    smem_limit: Optional[int] = None) -> List[str]:
+                    beam_impl: str = "kv", device="cuda") -> List[str]:
     """-> one message per flag whose value a kernel of this run does not
     take (empty: every kernel takes the run's shapes). `eval_mode` None is
     `cli train`, "mine" `cli train --train-mode mine` (the same attention
     shapes, forward and backward), "transmit" `cli transmit`; else the
     `cli evaluate` mode, with
-    `kv_cache` (greedy) and `beam_impl` (beam) saying which decoder runs. `smem_limit` is the
-    card's shared memory per block (default: the device's)."""
+    `kv_cache` (greedy) and `beam_impl` (beam) saying which decoder runs."""
     device = torch.device(device)
     if device.type != "cuda":
         return []
-    dtype = torch_dtype(cfg.dtype)
-
-    def limit():
-        if smem_limit is not None:
-            return smem_limit
-        return torch.cuda.get_device_properties(device) \
-            .shared_memory_per_block_optin
-
     train = eval_mode in (None, "mine")
     errors = []
     if is_star(variant):
@@ -137,25 +111,16 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
                     f"star satellite kernel K5 takes a number of heads that "
                     f"divides D")
     else:
-        seq = f"--seq-len {cfg.seq_len}"
-        errors += _attention_errors(
-            "encoder", cfg.encoder_d_model, cfg.encoder_num_heads,
-            [(cfg.seq_len, cfg.seq_len, seq)], train, dtype, limit)
-        calls = []
-        if train or eval_mode in ATTACK_MODES:
-            t = cfg.seq_len - 1
-            calls += [(t, t, seq), (t, cfg.seq_len, seq)]
+        errors += _attention_errors("encoder", cfg.encoder_d_model,
+                                    cfg.encoder_num_heads)
+        # the decoder's attentions run K1 (and K2) in training, the attack
+        # modes and the full-prefix decoders
         full_prefix = (eval_mode == "greedy" and not kv_cache) or (
             eval_mode == "beam" and beam_impl == "full") \
             or eval_mode in ("greedy_attack", "greedy_gan", "transmit")
-        if full_prefix:
-            t = cfg.max_length + 1
-            flag = f"--max-length {cfg.max_length}"
-            calls += [(t, t, flag), (t, cfg.seq_len, f"{flag} / {seq}")]
-        if calls:
-            errors += _attention_errors(
-                "decoder", cfg.decoder_d_model, cfg.decoder_num_heads, calls,
-                train or eval_mode in ATTACK_MODES, dtype, limit)
+        if train or eval_mode in ATTACK_MODES or full_prefix:
+            errors += _attention_errors("decoder", cfg.decoder_d_model,
+                                        cfg.decoder_num_heads)
     if eval_mode == "beam" and not 1 <= beam_size <= cfg.vocab_size:
         errors.append(f"--beam-size {beam_size}: the beam scorer K6 takes "
                       f"1 to the vocab size {cfg.vocab_size}")
@@ -164,12 +129,11 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
 
 def check_envelope(cfg: Config, variant: str, eval_mode: Optional[str],
                    beam_size: int = 4, kv_cache: bool = False,
-                   beam_impl: str = "kv", device="cuda",
-                   smem_limit: Optional[int] = None) -> None:
+                   beam_impl: str = "kv", device="cuda") -> None:
     """`envelope_errors`, raising SystemExit with every message when there
     is one."""
     errors = envelope_errors(cfg, variant, eval_mode, beam_size, kv_cache,
-                             beam_impl, device, smem_limit)
+                             beam_impl, device)
     if errors:
         raise SystemExit("the CUDA kernels do not take this configuration:\n"
                          + "\n".join(f"  {e}" for e in errors))

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""What bounds the bf16 K1, K2, K5 and K6: each built as it is and with
-one part changed or taken out, timed on one card.
+"""What bounds the bf16 K1, K2, K5 and K6 and the narrow f32 K1/K2: each
+built as it is and with one part changed or taken out, timed on one card.
 
     python3 scripts/kernel_variants.py [--iters 50]
+        [--sources attention_fwd,attention_bwd,star_satellite,topk,
+                   attention_narrow]
 
 Every variant is an edited copy of `csrc/attention_fwd.cu`,
-`csrc/attention_bwd.cu`, `csrc/star_satellite.cu` or `csrc/topk.cu` (the
-edit is a text replacement
+`csrc/attention_bwd.cu`, `csrc/star_satellite.cu`, `csrc/topk.cu` or
+`csrc/attention_narrow.cu` (the edit is a text replacement
 that must match the source), built with the port's nvcc flags in a
 temporary directory and called through its own C interface at the paths'
 shapes, on the inputs chip_smoke.py gives the kernels. Variants:
@@ -23,6 +25,15 @@ shapes, on the inputs chip_smoke.py gives the kernels. Variants:
 - K5 (the star sweep decoder's B = 19 x 64 and the train step's B = 64,
   L = 31, D = 128, 8 heads): `as_is`; `rows_4`, `rows_16`, blocks of that
   many rows (a warp each) instead of 8.
+- the narrow f32 K1 (N = 1,216 and 64, Lq = Lk = 31, and N = 64 at 128 x
+  128, 8 heads of 16) and K2 (N = 64 at the training path's three shapes
+  and at 128 x 128, no dbias), one library: `as_is`; `ieee_div`, e / sum
+  by `__fdiv_rn` instead of `div_rn`; `no_products`, no logits, softmax
+  or sums (K1's key tiles and the short K2's three phases empty: the
+  staging and the stores alone, the design's floor); `fwd_blocks_6`, K1
+  built for 6 blocks an SM instead of 8 (`kFwdBlocks`: up to 80 registers
+  a thread instead of 64), `fwd_unbounded` for none (96); `bwd_blocks_8`,
+  the short K2 built for 8 (64).
 - K6 (N = 256 and 4,864, k = 4, V = 22,234; and N = 256, k = 8):
   `as_is`; `no_quad`, without the quad's shared threshold; `swap_insert`,
   every insertion by the merge's compare-and-swap pass (index compares
@@ -31,7 +42,8 @@ shapes, on the inputs chip_smoke.py gives the kernels. Variants:
 Prints each variant's max error against the plain version (K6: whether
 its indices equal the plain version's) and its device time per call
 (`chip_smoke.device_ms`: the calls queued behind a spin of the device),
-with the card's name and power limit. Then holds K1's and K2's `div_rn`
+with the card's name and power limit. Then (with `attention_fwd`) holds
+K1's and K2's `div_rn`
 (its text taken from `csrc/mma_row.cuh`) bit for bit against `__fdiv_rn`
 over 2^32 pairs
 (a, b): a in [0, 1) and b in [1, 32) as K1's e and sum, and a any normal
@@ -82,6 +94,29 @@ K5_ROWS = "constexpr int kRowsPerBlock = 8;"
 K2_NONE_Q = ("  const int mq = lq > 16 ? 2 : 1;", "  const int mq = 0;")
 K2_NONE_K = ("  const int mk = lk > 16 ? 2 : 1;", "  const int mk = 0;")
 
+K1N_NONE = ("    const int kn = min(kRows, sh.lk - t * kRows);",
+            "    const int kn = 0;")
+K1N_DIV = ("        if (c + 4 * u < kn) prow[c + 4 * u] = "
+           "div_rn(s[u], sum, r);",
+           "        if (c + 4 * u < kn) prow[c + 4 * u] = "
+           "__fdiv_rn(s[u], sum);")
+K2N_DIV = ("        s[u] = div_rn(s[u], sum, rs);",
+           "        s[u] = __fdiv_rn(s[u], sum);")
+K2N_NONE = [
+    ("  // ---- 1. a quad per query: s, dp, p, rowsum(dp p), ds and dss\n  {",
+     "  // ---- 1. a quad per query: s, dp, p, rowsum(dp p), ds and dss\n"
+     "  if (sh.n < 0) {"),
+    ("    weighted_rows(acc, ws + r * kRowStride, ks + c * C, S, sh.lk);",
+     "    weighted_rows(acc, ws + r * kRowStride, ks + c * C, S, 0);"),
+    ("    for (int i = 0; i < sh.lq; ++i) {\n      axpy(ak",
+     "    for (int i = 0; i < 0; ++i) {\n      axpy(ak")]
+
+
+def narrow_bounds(kernel, blocks):
+    """`kernel`'s launch bounds with at least `blocks` blocks an SM."""
+    return (f"__launch_bounds__(kThreads)\n{kernel}(",
+            f"__launch_bounds__(kThreads, {blocks})\n{kernel}(")
+
 VARIANTS = {
     "attention_fwd": {"as_is": [], "ieee_div": [K1_DIV],
                       "no_softmax": [K1_NONE]},
@@ -95,13 +130,23 @@ VARIANTS = {
                           for n in (4, 16)}},
     "topk": {"as_is": [], "no_quad": [K6_QUAD], "swap_insert": [K6_SWAP],
              "no_lists": [K6_NONE]},
+    "attention_narrow": {
+        "as_is": [], "ieee_div": [K1N_DIV, K2N_DIV],
+        "no_products": [K1N_NONE, *K2N_NONE],
+        "fwd_blocks_6": [("constexpr int kFwdBlocks = 8;",
+                          "constexpr int kFwdBlocks = 6;")],
+        "fwd_unbounded": [("__launch_bounds__(kThreads, kFwdBlocks)",
+                           "__launch_bounds__(kThreads)")],
+        "bwd_blocks_8": [narrow_bounds("attention_narrow_bwd_kernel", 8)]},
 }
 
 
-def build_all(tmp: Path) -> dict:
-    """Every variant's library, all nvcc processes started together."""
+def build_all(tmp: Path, sources) -> dict:
+    """Every variant's library of `sources`, all nvcc processes started
+    together."""
     jobs = {}
-    for src, variants in VARIANTS.items():
+    for src in sources:
+        variants = VARIANTS[src]
         text = (build.CSRC / f"{src}.cu").read_text()
         for name, edits in variants.items():
             s = text
@@ -276,6 +321,65 @@ def k5_rows(libs, gen, iters):
                   f"device_ms {cs.device_ms(call, iters)!r}", flush=True)
 
 
+def narrow_rows(libs, gen, iters):
+    f32 = torch.float32
+    for n, lq, lk in ((1216, 31, 31), (64, 31, 31), (64, 128, 128)):
+        q, k, v, bias = cs.attention_inputs(n, lq, lk, f32, gen, lq == lk)
+        ref = attn.attention_fwd_reference(q, k, v, bias, cs.HEADS, 4.0)
+        out = torch.empty_like(q)
+        for name in VARIANTS["attention_narrow"]:
+            fn = libs[("attention_narrow", name)] \
+                .deepsc_attention_narrow_fwd_f32
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_double, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         bias.data_ptr(), out.data_ptr(), n, lq, lk,
+                         cs.HEADS, cs.DH, 4.0, stream())
+                if err:
+                    raise RuntimeError(f"narrow K1 {name}: CUDA error {err}")
+
+            call()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            print(f"[variant] narrow K1 {name:13s} N={n:5d} {lq}x{lk}: max "
+                  f"err {err:.3g}, device_ms {cs.device_ms(call, iters)!r}",
+                  flush=True)
+    for label, lq, lk in cs.TRAIN_SHAPES + (("long_128", 128, 128),):
+        n = 64
+        q, k, v, bias = cs.attention_inputs(n, lq, lk, f32, gen, lq == lk)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        ref = attn.attention_bwd_reference(q, k, v, bias, g, cs.HEADS, 4.0,
+                                           False)[:3]
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+        floats = attn.narrow_bwd_scratch_floats(n, lq, lk, cs.HEADS, False)
+        scratch = torch.empty(max(floats, 1), dtype=f32, device="cuda")
+        for name in VARIANTS["attention_narrow"]:
+            fn = libs[("attention_narrow", name)] \
+                .deepsc_attention_narrow_bwd_f32
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                           + [ctypes.c_double, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         bias.data_ptr(), g.data_ptr(),
+                         *(t.data_ptr() for t in outs), None,
+                         scratch.data_ptr(), n, lq, lk, cs.HEADS, cs.DH, 4.0,
+                         stream())
+                if err:
+                    raise RuntimeError(f"narrow K2 {name}: CUDA error {err}")
+
+            call()
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in zip(outs, ref))
+            print(f"[variant] narrow K2 {name:13s} {label:13s}: max err "
+                  f"{err:.3g}, device_ms {cs.device_ms(call, iters)!r}",
+                  flush=True)
+
+
 def k6_rows(libs, gen, iters):
     d, v = 128, 22234
     for n, k in ((256, 4), (4864, 4), (256, 8)):
@@ -318,19 +422,27 @@ def k6_rows(libs, gen, iters):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--sources", default=",".join(VARIANTS),
+                    help=f"comma-separated, of {', '.join(VARIANTS)}")
     args = ap.parse_args(argv)
+    sources = args.sources.split(",")
+    if not set(sources) <= set(VARIANTS):
+        ap.error(f"--sources takes {', '.join(VARIANTS)}")
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
         return 1
     cs.phase_device()
     gen = torch.Generator("cuda").manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all(Path(tmp))
-        k1_rows(libs, gen, args.iters)
-        k2_rows(libs, gen, args.iters)
-        k5_rows(libs, gen, args.iters)
-        k6_rows(libs, gen, args.iters)
-        division_check(Path(tmp))
+        libs = build_all(Path(tmp), sources)
+        for src, rows in (("attention_fwd", k1_rows),
+                          ("attention_bwd", k2_rows),
+                          ("star_satellite", k5_rows), ("topk", k6_rows),
+                          ("attention_narrow", narrow_rows)):
+            if src in sources:
+                rows(libs, gen, args.iters)
+        if "attention_fwd" in sources:
+            division_check(Path(tmp))
     return 0
 
 

@@ -9,7 +9,8 @@
                  past_resident_bwd,beam100_eval,seq256_train,
                  select_topk,tiled_attention,f32_wide_beam_eval,
                  f32_wide_heads_eval,f32_wide_attention_bwd,
-                 f32_wide_heads_train,f32_ce,f32_train,f32_wide_train]
+                 f32_wide_heads_train,f32_ce,f32_train,f32_wide_train,
+                 f32_attention,f32_greedy_eval]
         [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
@@ -118,7 +119,20 @@ library call's. Cases:
   newer checkouts), and each K3 and K4 kernel's device time;
 - `f32_train`: `wide_train` at `--dtype float32` on the main model (no
   width flags: d_model 128, 8 heads of 16);
-- `f32_wide_train`: `wide_train` at `--dtype float32`.
+- `f32_wide_train`: `wide_train` at `--dtype float32`;
+- `f32_attention`: K1 and K2 in f32 at the main model's heads (8 of 16):
+  K1 at the serving path's N = 1,216 and the training path's N = 64 at
+  chip_smoke.TRAIN_SHAPES, K2 there at N = 64 with and without dbias;
+  past 32 queries and keys (N = 64) K1 and K2 (both ways) at
+  chip_smoke.LONG_CASE, K2 (both ways) at chip_smoke.LONG_CROSS; and K1
+  and K2 (no dbias) at 16 heads of 16, 31 x 31; with their plain versions
+  and SDPA f32 (its backward for K2) as in chip_smoke.attention_case and
+  attention_bwd_case, and each kernel's device time;
+- `f32_greedy_eval`: `cli evaluate --dtype float32 --eval-mode greedy`
+  (the full-prefix greedy sweep) on results/plain_best_params.pkl (of the
+  checkout that runs the script), one batch of 64 at 19 SNRs, twice: the
+  second call's seconds as the row's `ms` (the first builds the
+  libraries' state and PyTorch's).
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -143,7 +157,7 @@ CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
          "past_resident_bwd", "beam100_eval", "seq256_train", "select_topk",
          "tiled_attention", "f32_wide_beam_eval", "f32_wide_heads_eval",
          "f32_wide_attention_bwd", "f32_wide_heads_train", "f32_ce",
-         "f32_train", "f32_wide_train")
+         "f32_train", "f32_wide_train", "f32_attention", "f32_greedy_eval")
 PARAMS = Path(__file__).resolve().parent.parent / "results" \
     / "plain_best_params.pkl"
 
@@ -474,6 +488,54 @@ if "f32_wide_attention_bwd" in cases:
         device_us(attn.KERNEL_BWD, label,
                   lambda: attn.attention_bwd(q, k, v, bias, g, heads,
                                              dh ** 0.5, False), "float32")
+if "f32_attention" in cases:
+    f32 = torch.float32
+    k1 = [(label, SERVE, lq, lk, cs.HEADS, cs.DH)
+          for label, lq, lk in cs.TRAIN_SHAPES]
+    k1 += [("train_" + label, TRAIN, lq, lk, cs.HEADS, cs.DH)
+           for label, lq, lk in cs.TRAIN_SHAPES]
+    k1 += [(cs.LONG_CASE, TRAIN, cs.LONG_LEN, cs.LONG_LEN, cs.HEADS, cs.DH),
+           ("f32_k1_16x16", TRAIN, 31, 31, 16, 16)]
+    k2 = [("train_" + label, lq, lk, cs.HEADS, cs.DH, dbias)
+          for label, lq, lk in cs.TRAIN_SHAPES for dbias in (False, True)]
+    k2 += [(cs.LONG_CASE, cs.LONG_LEN, cs.LONG_LEN, cs.HEADS, cs.DH, dbias)
+           for dbias in (False, True)]
+    k2 += [(cs.LONG_CROSS[0], *cs.LONG_CROSS[1:], cs.HEADS, cs.DH, dbias)
+           for dbias in (False, True)]
+    k2 += [("f32_k2_16x16", 31, 31, 16, 16, False)]
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, n, lq, lk, heads, dh in k1:
+        row(cs.attention_case(label, n, lq, lk, f32, gen, iters, heads, dh))
+    for label, lq, lk, heads, dh, dbias in k2:
+        row(cs.attention_bwd_case(label, TRAIN, lq, lk, f32, gen, iters,
+                                  dbias, heads, dh))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, n, lq, lk, heads, dh in k1:
+        q, k, v, bias = cs.attention_inputs(n, lq, lk, f32, gen, lq == lk,
+                                            heads, dh)
+        device_us(attn.KERNEL, label,
+                  lambda: attn.attention_fwd(q, k, v, bias, heads,
+                                             dh ** 0.5), "float32")
+    for label, lq, lk, heads, dh, dbias in k2:
+        q, k, v, bias = cs.attention_inputs(TRAIN, lq, lk, f32, gen,
+                                            lq == lk, heads, dh)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        device_us(attn.KERNEL_BWD, label + ("+dbias" if dbias else ""),
+                  lambda: attn.attention_bwd(q, k, v, bias, g, heads,
+                                             dh ** 0.5, dbias), "float32")
+if "f32_greedy_eval" in cases:
+    from deepsc_gan_tpu_torch import cli
+    for _ in range(2):
+        res = cli.main(["evaluate", "--variant", "transformer",
+                        "--params-pkl", args["params"], "--eval-mode",
+                        "greedy", "--dtype", "float32", "--bs", str(TRAIN),
+                        "--eval-batches", "1", "--seed", "0", "--snr-lo",
+                        "0", "--snr-hi", "18", "--device", "cuda",
+                        "--log-save-path", "log/kernels_ab/f32_greedy_eval"])
+    seconds = res["decode_seconds"]
+    row({"kernel": "cli_evaluate", "case": "f32_greedy_eval",
+         "dtype": "float32", "decode_seconds": seconds,
+         "ms": sum(seconds) / len(seconds) * 1e3})
 if "long_train" in cases:
     from deepsc_gan_tpu_torch import cli
     res = cli.main(["train", "--variant", "transformer", "--train-mode",

@@ -341,10 +341,13 @@ def test_tiled_routing(dtype, h, dh, tiled):
     not take (widths off 8, 16 and 32, more than 16 heads, heads past 256)
     run the tiled kernels (csrc/attention_tiled.cu,
     csrc/attention_bwd_tiled.cu), at any length (never the resident or
-    cluster K2, which are bf16's); the tuned shapes stay on the tuned
-    kernels and bf16 on its tensor-core kernels."""
+    cluster K2, which are bf16's); the f32 tuned shapes go to the narrow
+    kernels (csrc/attention_narrow.cu) and bf16 to its tensor-core
+    kernels."""
     assert attn.uses_tiled(dtype, h, dh) == tiled
     assert tiled == (dtype == torch.float32 and attn.is_wide(h, dh))
+    assert attn.uses_narrow(dtype, h, dh) == (dtype == torch.float32
+                                              and not tiled)
     for lq, lk in ((31, 31), (31, 32), (70, 97), (300, 300)):
         assert not (tiled and (attn.uses_resident(dtype, lq, lk, h, dh)
                                or attn.uses_cluster(dtype, lq, lk, h, dh)))
@@ -530,6 +533,231 @@ def test_tiled_backward_emulation_matches_plain_version(shape, dbias):
         assert (a - r).abs().max().item() <= tol, name
         assert np.abs(a.numpy() - j).max() <= tol, name
     other = _tiled_backward(*ts, h, scale, not dbias)
+    assert all(torch.equal(x, y) for x, y in zip(got[:3], other[:3]))
+
+
+@pytest.mark.parametrize("dtype,h,dh,narrow", [
+    (torch.float32, 8, 16, True), (torch.float32, 16, 16, True),
+    (torch.float32, 16, 32, True), (torch.float32, 2, 8, True),
+    (torch.float32, 1, 32, True), (torch.float32, 17, 8, False),
+    (torch.float32, 8, 24, False), (torch.float32, 8, 64, False),
+    (torch.bfloat16, 8, 16, False), (torch.bfloat16, 16, 32, False)])
+def test_narrow_routing(dtype, h, dh, narrow):
+    """Every f32 K1 and K2 at the tuned heads (8, 16 or 32 wide, at most
+    16) runs the narrow kernels (csrc/attention_narrow.cu), at every length
+    (never the resident, cluster, tiled or tensor-core kernels); other f32
+    heads the tiled kernels, bf16 its own."""
+    assert attn.uses_narrow(dtype, h, dh) == narrow
+    for lq, lk in ((31, 31), (32, 32), (31, 32), (63, 64), (128, 128),
+                   (1, 300), (300, 1)):
+        assert not (narrow and (
+            attn.uses_resident(dtype, lq, lk, h, dh)
+            or attn.uses_cluster(dtype, lq, lk, h, dh)
+            or attn.uses_tiled(dtype, h, dh)
+            or attn.is_wide_mma(dtype, h, dh)
+            or attn.is_chunked_mma(dtype, h, dh)))
+
+
+@pytest.mark.parametrize("n,lq,lk,heads,dbias,floats", [
+    (64, 31, 31, 8, False, 0), (64, 32, 32, 8, True, 64 * 8 * 32 * 32),
+    (64, 128, 128, 8, False, 4 * 64 * 8 * 128),
+    (64, 63, 64, 8, True, 64 * 8 * 63 * (4 + 64)),
+    (2, 5, 70, 2, True, 2 * 2 * 5 * (4 + 70)),
+    (2, 129, 20, 2, False, 4 * 2 * 2 * 129),
+    (1, 5, 300, 1, True, 5 * (4 + 300))])
+def test_narrow_bwd_scratch(n, lq, lk, heads, dbias, floats):
+    """The narrow K2's scratch: the row statistics (N, H, Lq, 4) past
+    TILE queries or keys (the pair of kernels), and each head's ds (N, H,
+    Lq, Lk) with dbias; none up to TILE of both without dbias."""
+    assert attn.narrow_bwd_scratch_floats(n, lq, lk, heads, dbias) == floats
+
+
+# the narrow kernels' tiles (csrc/attention_narrow.cu): 32 keys (or
+# queries), a quad of lanes a row, lane c taking rows c, c + 4, ... of a
+# tile
+_NT, _NL = 32, 4
+
+
+def _quad_sum(parts):
+    """The quad's butterfly of two shuffles over its lanes' partials (the
+    last axis, 4): lane 0's (p0 + p1) + (p2 + p3), which every lane
+    gets."""
+    return (parts[..., 0] + parts[..., 1]) + (parts[..., 2] + parts[..., 3])
+
+
+def _lanes(x, fma_with=None):
+    """Each lane's partial over its columns c, c + 4, ... of a tile (the
+    last axis) in order, added (or, with `fma_with`, fmaf(x, y, acc)) ->
+    (..., 4)."""
+    acc = torch.zeros((*x.shape[:-1], _NL))
+    for j in range(x.shape[-1]):
+        c = j % _NL
+        acc[..., c] = (acc[..., c] + x[..., j] if fma_with is None
+                       else _fma(x[..., j], fma_with[..., j], acc[..., c]))
+    return acc
+
+
+def _dots(a, b, dh):
+    """a_i . b_j over d in order 0..Dh-1 by fmaf: (n, L, dh) x (n, M, dh)
+    -> (n, L, M)."""
+    acc = torch.zeros((a.shape[0], a.shape[1], b.shape[1]))
+    for d in range(dh):
+        acc = _fma(a[:, :, d, None], b[:, None, :, d], acc)
+    return acc
+
+
+def _narrow_forward(q, k, v, bias, heads, scale):
+    """The narrow f32 K1's arithmetic in its order (csrc/attention_narrow.cu)
+    on CPU tensors: each logit a sum over d in order by fmaf, times 1/scale
+    (rounded once to f32), plus its bias; the keys in tiles of 32, each
+    lane's partial sum over its keys in order, the quad's butterfly. One
+    tile: p = e / sum, out = sum over the keys of p v in order by fmaf.
+    More: the running max m and sum l = l alpha + the tile's sum, the
+    context rescaled by alpha = exp(m_old - m_new) and summed over the
+    tile's keys e v in order by fmaf, then out = context / l."""
+    n, lq, hd = q.shape
+    lk, dh = k.shape[1], hd // heads
+    inv = torch.tensor(1.0 / scale, dtype=torch.float64).float()
+    out = torch.empty_like(q)
+    tiles = range(0, lk, _NT)
+    for h in range(heads):
+        cols = slice(h * dh, (h + 1) * dh)
+        qh, kh, vh = (t[:, :, cols] for t in (q, k, v))
+        s = _dots(qh, kh, dh) * inv + bias
+        ctx = torch.zeros((n, lq, dh))
+        m = torch.full((n, lq), -float("inf"))
+        l = torch.zeros((n, lq))
+        for k0 in tiles:
+            st = s[..., k0:k0 + _NT]
+            if len(tiles) == 1:
+                e = torch.exp(st - st.amax(dim=-1, keepdim=True))
+                w = e / _quad_sum(_lanes(e))[..., None]
+            else:
+                mn = torch.maximum(m, st.amax(dim=-1))
+                alpha = torch.exp(m - mn)
+                w = torch.exp(st - mn[..., None])
+                l = l * alpha + _quad_sum(_lanes(w))
+                ctx = ctx * alpha[..., None]
+                m = mn
+            for j in range(st.shape[-1]):
+                ctx = _fma(w[..., j, None], vh[:, None, k0 + j, :], ctx)
+        out[:, :, cols] = ctx if len(tiles) == 1 else ctx / l[..., None]
+    return out
+
+
+def _narrow_backward(q, k, v, bias, g, heads, scale, need_dbias):
+    """The narrow f32 K2's arithmetic in its order (csrc/attention_narrow.cu)
+    on CPU tensors: each logit and each dp a sum over d in order by fmaf.
+    Up to 32 queries and keys (one kernel): the row's max, e and its sum
+    over the lanes and the quad's butterfly, p = e / sum, rowsum = sum of
+    p dp by fmaf the same way, ds = p (dp - rowsum), dss = ds (1/scale).
+    Past 32 (one kernel holding a row's head up to 128 of both, two past
+    them, with the same operations in the same order): the statistics over
+    the key tiles (the running max m, l = l alpha + the tile's sum of e,
+    racc = racc alpha + the tile's sum of e dp by fmaf, rowsum = racc / l),
+    then p = exp(s - m) / l. dq a sum over the keys in order by fmaf, dk
+    and dv over the queries; dbias the heads' ds added in order 0..H-1."""
+    n, lq, hd = q.shape
+    lk, dh = k.shape[1], hd // heads
+    inv = torch.tensor(1.0 / scale, dtype=torch.float64).float()
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    dbias = torch.zeros((n, lq, lk))
+    long = lq > _NT or lk > _NT
+    for h in range(heads):
+        cols = slice(h * dh, (h + 1) * dh)
+        qh, kh, vh, gh = (t[:, :, cols] for t in (q, k, v, g))
+        s = _dots(qh, kh, dh) * inv + bias
+        dp = _dots(gh, vh, dh)
+        if not long:
+            e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            p = e / _quad_sum(_lanes(e))[..., None]
+            rowsum = _quad_sum(_lanes(p, dp))
+        else:
+            m = torch.full((n, lq), -float("inf"))
+            l = torch.zeros((n, lq))
+            racc = torch.zeros((n, lq))
+            for k0 in range(0, lk, _NT):
+                st, dpt = s[..., k0:k0 + _NT], dp[..., k0:k0 + _NT]
+                mn = torch.maximum(m, st.amax(dim=-1))
+                alpha = torch.exp(m - mn)
+                e = torch.exp(st - mn[..., None])
+                l = l * alpha + _quad_sum(_lanes(e))
+                racc = racc * alpha + _quad_sum(_lanes(e, dpt))
+                m = mn
+            rowsum = racc / l
+            p = torch.exp(s - m[..., None]) / l[..., None]
+        ds = p * (dp - rowsum[..., None])
+        dss = ds * inv
+        dq = torch.zeros((n, lq, dh))
+        for j in range(lk):
+            dq = _fma(dss[..., j, None], kh[:, None, j, :], dq)
+        dk = torch.zeros((n, lk, dh))
+        dv = torch.zeros((n, lk, dh))
+        for i in range(lq):
+            dk = _fma(dss[:, i, :, None], qh[:, i, None, :], dk)
+            dv = _fma(p[:, i, :, None], gh[:, i, None, :], dv)
+        for grad, part in zip(grads, (dq, dk, dv)):
+            grad[:, :, cols] = part
+        dbias = dbias + ds
+    return (*grads, dbias if need_dbias else None)
+
+
+# the narrow kernels' shapes: the main model's 8 heads of 16 at the
+# training lengths, 2 heads of 8 (with the fully blocked row every input
+# has), 16 heads of 16, 8 of 32 at the seq-len-64 epoch's 63 x 64, and a
+# row of keys past two tiles (70: tiles of 32, 32 and 6)
+NARROW_SHAPES = [(2, 31, 31, 8, 16), (2, 32, 32, 8, 16), (2, 31, 32, 8, 16),
+                 (2, 7, 9, 2, 8), (1, 31, 31, 16, 16), (1, 63, 64, 8, 32),
+                 (2, 5, 70, 2, 8)]
+
+
+@pytest.mark.parametrize("shape", NARROW_SHAPES)
+def test_narrow_forward_emulation_matches_plain_version(shape):
+    """The narrow f32 K1's order of sums and roundings (`_narrow_forward`:
+    the lanes and their butterfly, the key tiles, the online rescale past
+    one tile) against the plain version within 1e-5, as chip_smoke.py holds
+    the kernel, and against the TPU kernel under the Pallas interpreter
+    within the same."""
+    b, lq, lk, h, dh = shape
+    q, k, v, bias = _inputs(9, b, lq, lk, h, dh)
+    scale = float(np.sqrt(dh))
+    ts = [torch.from_numpy(a) for a in (q, k, v, bias)]
+    got = _narrow_forward(*ts, h, scale)
+    want = attn.attention_fwd_reference(*ts, h, scale)
+    assert (got - want).abs().max().item() <= 1e-5
+    set_attn_kernel_mode("interpret")
+    try:
+        jax_out = np.asarray(jax_fused_attention(
+            *(jnp.asarray(a) for a in (q, k, v, bias)), h, scale))
+    finally:
+        set_attn_kernel_mode("auto")
+    assert np.abs(got.numpy() - jax_out).max() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", NARROW_SHAPES)
+@pytest.mark.parametrize("dbias", [False, True])
+def test_narrow_backward_emulation_matches_plain_version(shape, dbias):
+    """The narrow f32 K2's order of sums and roundings (`_narrow_backward`:
+    one kernel up to 32 queries and keys, past them the statistics pair)
+    with and without dbias: dq, dk, dv within 1e-5 of the plain version's
+    and of the TPU kernel's VJP (under the Pallas interpreter), dbias within
+    1e-5 of its largest value; dq, dk and dv the same bits with and without
+    dbias."""
+    b, lq, lk, h, dh = shape
+    q, k, v, bias, g, jax_grads = _jax_attention_vjp(shape)
+    scale = float(np.sqrt(dh))
+    ts = [torch.from_numpy(a) for a in (q, k, v, bias, g)]
+    got = _narrow_backward(*ts, h, scale, dbias)
+    want = attn.attention_bwd_reference(*ts, h, scale, dbias)
+    for name, a, r, j in zip(("dq", "dk", "dv", "dbias"), got, want,
+                             jax_grads):
+        if name == "dbias" and not dbias:
+            assert a is None and r is None
+            continue
+        tol = 1e-5 * (r.abs().max().item() if name == "dbias" else 1.0)
+        assert (a - r).abs().max().item() <= tol, name
+        assert np.abs(a.numpy() - j).max() <= tol, name
+    other = _narrow_backward(*ts, h, scale, not dbias)
     assert all(torch.equal(x, y) for x, y in zip(got[:3], other[:3]))
 
 

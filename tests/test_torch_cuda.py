@@ -718,29 +718,29 @@ def test_softmax_xent_with_a_fixed_table_runs_dh_only(cuda):
     assert torch.equal(*grads)
 
 
-@pytest.mark.parametrize("heads,dh,short_fits", [(16, 16, False),
-                                                 (8, 16, True),
-                                                 (8, 32, True),
-                                                 (16, 32, False)])
-def test_envelope_reads_the_f32_backward_size_from_the_library(
-        cuda, heads, dh, short_fits):
-    """`cli train` at f32 (seq_len 32): where the f32 K2's short kernel
-    needs more shared memory than the card has (its library's size for the
-    encoder's 32 x 32 block), the long-length kernels take the call, their
-    size fits, and the check at command start refuses nothing."""
+@pytest.mark.parametrize("heads,dh", [(16, 16), (8, 16), (8, 32), (16, 32)])
+def test_envelope_accepts_every_f32_tuned_head_count(cuda, heads, dh):
+    """`cli train` at f32 (seq_len 32) at 8 or 16 heads of 16 or 32: the
+    check at command start refuses nothing, and the narrow K2 takes the
+    encoder's 32 x 32 call at every such head count (its blocks hold one
+    head: no shared-memory size depends on the heads; the lane-per-query
+    K2 before it did not fit 16 heads and took its long-length kernels)."""
     cfg = Config(dtype="float32").replace(
         encoder_d_model=heads * dh, encoder_num_heads=heads,
         decoder_d_model=heads * dh, decoder_num_heads=heads)
-    errors = envelope_errors(cfg, "transformer", None, device=cuda)
-    need = attn._bind(attn.KERNEL_BWD, torch.float32)[1](32, 32, heads, dh)
-    limit = torch.cuda.get_device_properties(cuda) \
-        .shared_memory_per_block_optin
-    assert (need <= limit) == short_fits
-    assert attn.uses_long(attn.KERNEL_BWD, torch.float32, 32, 32, heads, dh,
-                          limit) == (not short_fits)
-    assert attn.long_smem_bytes(attn.KERNEL_BWD, torch.float32, heads,
-                                dh) <= limit
-    assert errors == []
+    assert envelope_errors(cfg, "transformer", None, device=cuda) == []
+    assert attn.uses_narrow(torch.float32, heads, dh)
+    q, k, v, bias = _blocked_inputs(8, 32, 32, heads, dh, torch.float32,
+                                    cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4))
+    scale = math.sqrt(dh)
+    got = attn.attention_bwd(q, k, v, bias, g, heads, scale, False)
+    want = attn.attention_bwd_reference(q, k, v, bias, g, heads, scale,
+                                        False)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], want[:3]):
+        assert _err(a, b) <= 1e-5
 
 
 @pytest.mark.parametrize("kind,eq,per_sample", [("Rayleigh", None, False),
@@ -800,20 +800,16 @@ def test_tiny_attack_step_kernels_equal_plain_step(cuda):
         assert _err(a.grad, b.grad, relative=True) <= 1e-4, name
 
 
-# ---- the widened shapes: the f32 K2 past its short kernel's shared
-# memory, and the wide kernels of K1/K2, K3/K4, K5 and K6 ----
+# ---- the f32 K1 and K2 at the tuned heads on the narrow kernels, and the
+# wide kernels of K1/K2, K3/K4, K5 and K6 ----
 
 
 def test_f32_k2_whose_short_kernel_does_not_fit_takes_the_long_kernels(
         cuda):
-    """16 heads of 16 at Lq = Lk = 31 in f32: the short kernel's shared
-    memory exceeds the card's, so the wrapper takes the long-length
-    kernels (one tile of keys), with and without dbias, against the plain
-    version."""
-    limit = torch.cuda.get_device_properties(cuda) \
-        .shared_memory_per_block_optin
-    assert attn.uses_long(attn.KERNEL_BWD, torch.float32, 31, 31, 16, 16,
-                          limit)
+    """16 heads of 16 at Lq = Lk = 31 in f32, where the lane-per-query K2's
+    block (all heads of a row) did not fit the card: the narrow kernel
+    takes it, one block a row and head, with and without dbias, against
+    the plain version, and counts a narrow launch (no wide one)."""
     q, k, v, bias = _blocked_inputs(64, 31, 31, 16, 16, torch.float32, cuda)
     g = torch.randn(q.shape, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(4))
@@ -822,10 +818,97 @@ def test_f32_k2_whose_short_kernel_does_not_fit_takes_the_long_kernels(
         got = attn.attention_bwd(q, k, v, bias, g, 16, 4.0, dbias)
         want = attn.attention_bwd_reference(q, k, v, bias, g, 16, 4.0, dbias)
         torch.cuda.synchronize()
-        assert (attn.bwd_launches, attn.wide_bwd_launches) == (1, 0)
+        assert (attn.bwd_launches, attn.wide_bwd_launches,
+                attn.narrow_bwd_launches) == (1, 0, 1)
         for a, r in zip(got, want):
             if r is not None:
                 assert _err(a, r) <= 1e-5
+
+
+# the narrow f32 K1/K2 (csrc/attention_narrow.cu): the main model's shapes
+# (training N = 64 and serving N = 1,216), 16 heads of 16 and of 32, heads
+# of 8, one query, one key, past 32 of either (one and several key or
+# query tiles; K2's pair of kernels), and key rows past two tiles
+NARROW_SHAPES = [(8, 16, 64, 31, 31), (8, 16, 64, 32, 32),
+                 (8, 16, 64, 31, 32), (8, 16, 1216, 31, 31),
+                 (16, 16, 64, 31, 31), (16, 32, 8, 31, 31),
+                 (2, 8, 8, 7, 9), (1, 32, 4, 1, 1), (8, 16, 64, 1, 31),
+                 (8, 16, 16, 128, 128), (8, 16, 16, 63, 64),
+                 (8, 32, 4, 31, 70), (3, 8, 4, 70, 20), (8, 16, 2, 300, 300),
+                 (8, 32, 4, 128, 128), (4, 8, 4, 129, 40)]
+
+
+@pytest.mark.parametrize("h,dh,n,lq,lk", NARROW_SHAPES)
+def test_narrow_attention_matches_plain_version(cuda, h, dh, n, lq, lk):
+    """The f32 K1 and K2 (with and without dbias) at the tuned heads, with
+    fully blocked rows: within 1e-5 of the plain versions (dbias of its
+    largest value); the device ran the narrow kernels alone
+    (torch.profiler's names, `_ran_route`: K1 one kernel, K2 one up to 32
+    queries and keys, else a dq and a dk/dv kernel, and the dbias sum),
+    each call counted as a narrow launch and not a wide one; two calls give
+    the same bits, and K2's dq, dk and dv the same with or without
+    dbias."""
+    q, k, v, bias = _blocked_inputs(n, lq, lk, h, dh, torch.float32, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4))
+    scale = math.sqrt(dh)
+    assert attn.uses_narrow(torch.float32, h, dh)
+    attn.reset_launches()
+    out = _ran_route(lambda: attn.attention_fwd(q, k, v, bias, h, scale),
+                     ["attention_narrow_fwd_kernel"])
+    assert (attn.launches, attn.wide_launches, attn.narrow_launches) == (
+        1, 0, 1)
+    assert _err(out, attn.attention_fwd_reference(q, k, v, bias, h,
+                                                  scale)) <= 1e-5
+    assert torch.equal(out, attn.attention_fwd(q, k, v, bias, h, scale))
+    bwd = (["attention_narrow_dq_kernel", "attention_narrow_dkv_kernel"]
+           if attn.is_long(lq, lk) else ["attention_narrow_bwd_kernel"])
+    calls = []
+    for dbias in (False, True, False):
+        attn.reset_launches()
+        calls.append(_ran_route(
+            lambda: attn.attention_bwd(q, k, v, bias, g, h, scale, dbias),
+            bwd + (["attention_narrow_dbias_kernel"] if dbias else [])))
+        assert (attn.bwd_launches, attn.wide_bwd_launches,
+                attn.narrow_bwd_launches) == (1, 0, 1)
+    want = attn.attention_bwd_reference(q, k, v, bias, g, h, scale, True)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), calls[1], want):
+        tol = 1e-5 * (r.abs().max().item() if name == "dbias" else 1.0)
+        assert _err(a, r) <= tol, name
+    for other in calls[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(calls[0][:3],
+                                                     other[:3]))
+
+
+def test_narrow_bwd_scratch_comes_from_the_library(cuda):
+    """The wrapper's narrow K2 scratch (`narrow_bwd_scratch_floats`) is the
+    library's own size at every shape kind: short or long, with or without
+    dbias."""
+    for n, lq, lk, heads in ((64, 31, 31, 8), (64, 32, 32, 16),
+                             (64, 128, 128, 8), (16, 63, 64, 8),
+                             (2, 5, 70, 2), (3, 70, 5, 4)):
+        for dbias in (False, True):
+            assert attn.narrow_bwd_scratch_floats(n, lq, lk, heads, dbias) \
+                == attn.library_narrow_bwd_scratch_floats(n, lq, lk, heads,
+                                                          dbias)
+
+
+def test_narrow_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
+    """When a narrow kernel reports a failed launch, its wrapper raises and
+    counts nothing: no fall-back to the plain versions."""
+    q, k, v, bias = _inputs(3, 4, 31, 31, 8, 16, torch.float32, cuda)
+    g = torch.randn(q.shape, device=cuda)
+    for kernel in (attn.KERNEL, attn.KERNEL_BWD):
+        attn._bind_narrow(kernel)
+        monkeypatch.setitem(attn._BOUND, (attn.KERNEL_NARROW, kernel),
+                            lambda *args: 1)
+    attn.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        attn.attention_fwd(q, k, v, bias, 8, 4.0)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        attn.attention_bwd(q, k, v, bias, g, 8, 4.0, True)
+    assert (attn.launches, attn.bwd_launches, attn.narrow_launches,
+            attn.narrow_bwd_launches) == (0, 0, 0, 0)
 
 
 WIDE_HEADS = [(32, 16), (8, 24), (8, 25), (4, 64), (32, 64), (2, 128),
@@ -2332,8 +2415,8 @@ def test_graphed_resume_is_bitwise_the_straight_run(cuda, tmp_path):
 @pytest.mark.parametrize("scan_steps", [1, 4])
 def test_profile_trace_holds_the_kernels(cuda, tmp_path, scan_steps):
     """`cli train --profile` on the card, eager and graphed (the capture
-    inside the traced epoch): the trace holds K1's kernel once per
-    attention and step of the first epoch."""
+    inside the traced epoch): the trace holds K1's kernel (at f32 the
+    narrow kernel) once per attention and step of the first epoch."""
     import json
 
     from deepsc_gan_tpu_torch import cli
@@ -2349,7 +2432,7 @@ def test_profile_trace_holds_the_kernels(cuda, tmp_path, scan_steps):
     assert res["steps"] == 8
     with open(prof / "trace.json") as f:
         names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
-    k1 = sum("attention_fwd_" in n and "kernel" in n for n in names)
+    k1 = sum("attention_narrow_fwd_kernel" in n for n in names)
     assert k1 == 4 * 6
 
 

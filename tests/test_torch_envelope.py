@@ -6,19 +6,17 @@ every variant and mode, and so do the shapes the kernels once refused and
 now take (`ACCEPTED`: any length, head width and head count dividing the
 width, CE width, star width, beam size).
 
-The f32 K2's shared-memory size comes from its built library, which the
-CPU cannot build: here a stand-in gives it, growing with the heads as the
-kernel's layout does (two score tiles a head) and crossing the card's
-limit between 8 and 16 heads for the short kernel, while the long-length
-kernels' (one tile of keys at a time) hold 16 heads. The card test
-`test_envelope_reads_the_f32_backward_size_from_the_library` holds the
-check to the library's own sizes."""
+The check asks no kernel library anything (the f32 K2 at the tuned heads,
+whose shared memory it once read from its library, runs the narrow
+kernels, whose blocks hold one head whatever the length): here every
+library load is recorded, and none may happen."""
 
 import pytest
 import torch
 
 from deepsc_gan_tpu_torch import cli
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
+from deepsc_gan_tpu_torch.ops import build
 from deepsc_gan_tpu_torch.ops.envelope import (
     check_envelope,
     envelope_errors,
@@ -29,28 +27,21 @@ from deepsc_gan_tpu_torch.utils.config import (
     is_star,
 )
 
-# Hopper's shared memory per block (227 KiB), what an H100 reports as
-# shared_memory_per_block_optin
-SMEM = 232448
 MODES = [None, "greedy", "beam", "greedy_attack", "greedy_gan",
          "teacher_forced", "pgd"]
-# the stand-in's bytes a head: 8 heads fit SMEM, 16 do not (the short
-# kernel); the long-length kernels' half of it, so 16 heads fit
-BYTES_PER_HEAD = SMEM // 12
 
 
 @pytest.fixture(autouse=True)
 def library_sizes(monkeypatch):
-    """-> the (kernel, dtype, lq, lk, heads, dh) the check asked the
-    stand-in for."""
+    """-> the names of the kernel libraries the check asked to load (it
+    must ask none; a load raises here, as it would on the CPU)."""
     asked = []
 
-    def smem_bytes(kernel, dtype, lq, lk, heads, dh):
-        asked.append((kernel, dtype, lq, lk, heads, dh))
-        long = attn.is_long(lq, lk)
-        return BYTES_PER_HEAD * heads // (2 if long else 1)
+    def load(name):
+        asked.append(name)
+        raise RuntimeError(f"the envelope check loaded {name}")
 
-    monkeypatch.setattr(attn, "smem_bytes", smem_bytes)
+    monkeypatch.setattr(build, "load", load)
     return asked
 
 # chip_smoke.py's f32 paths on the widened model (encoder 8 heads of 64,
@@ -86,8 +77,7 @@ def test_refused_on_cuda_with_the_flag_named(case):
     variant, mode, fields, extra, flag = REFUSED[case]
     cfg = Config(seq_len=default_seq_len(variant)).replace(**fields)
     with pytest.raises(SystemExit) as exc:
-        check_envelope(cfg, variant, mode, device="cuda", smem_limit=SMEM,
-                       **extra)
+        check_envelope(cfg, variant, mode, device="cuda", **extra)
     assert flag in str(exc.value.code)
 
 
@@ -110,8 +100,10 @@ LONG = {
 }
 # what the check refused until each kernel had a wide path (name ->
 # (variant, eval mode, Config fields, extra keywords of the check)): the
-# f32 K2 whose short kernel does not fit (the long-length kernels take
-# it); K1/K2 at head widths other than 8, 16 and 32 and past 16 heads; K3,
+# f32 K2 at 16 heads of 16 (the narrow kernels take it; before them the
+# short kernel's shared memory did not fit and the check read the
+# long-length kernels' size); K1/K2 at head widths other than 8, 16 and 32
+# and past 16 heads; K3,
 # K4 and K6 at widths off their tuned steps or past 256; K5 at any width
 # and head count dividing it; K6 past k = 8
 WIDENED = {
@@ -170,14 +162,17 @@ ACCEPTED = {**{name: (*case, {}) for name, case in LONG.items()},
 @pytest.mark.parametrize("case", list(LONG))
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_long_lengths_accepted_on_cuda(case, dtype, library_sizes):
-    """No length refused; at f32 where a backward runs, the check asks the
-    library for the f32 K2's shared memory at the long shape."""
+    """No length refused, in either dtype, and no library asked: at f32 the
+    narrow kernels take every length at the tuned heads (K1 streams key
+    tiles, K2 past 32 passes the row statistics between its two kernels),
+    so no size depends on the length."""
     variant, mode, fields = LONG[case]
     cfg = Config(dtype=dtype).replace(**fields)
-    assert envelope_errors(cfg, variant, mode, smem_limit=SMEM) == []
-    asked = [a[2:4] for a in library_sizes]
-    assert (dtype == "float32" and mode != "greedy") == bool(asked)
-    assert all(max(a) > 32 for a in asked)
+    assert envelope_errors(cfg, variant, mode) == []
+    assert library_sizes == []
+    heads, dh = cfg.decoder_num_heads, cfg.decoder_d_model \
+        // cfg.decoder_num_heads
+    assert attn.uses_narrow(torch.float32, heads, dh)
 
 
 @pytest.mark.parametrize("case", list(ACCEPTED))
@@ -192,7 +187,7 @@ def test_widened_shapes_accepted_on_cuda(case, dtype):
     for kv in (False, True):
         assert envelope_errors(cfg, variant, mode, kv_cache=kv,
                                beam_impl="full" if kv else "kv",
-                               smem_limit=SMEM, **extra) == [], case
+                               **extra) == [], case
 
 
 @pytest.mark.parametrize("variant", ["transformer", "star", "star_multi",
@@ -205,45 +200,34 @@ def test_default_configuration_passes(variant, dtype):
             continue
         for kv in (False, True):
             assert envelope_errors(cfg, variant, mode, kv_cache=kv,
-                                   beam_impl="full" if kv else "kv",
-                                   smem_limit=SMEM) == [], (variant, mode)
+                                   beam_impl="full" if kv else "kv") == [], \
+                (variant, mode)
 
 
 def test_f32_backward_shape_boundary(library_sizes):
-    """The f32 K2 at 16 heads of 16: its short kernel does not fit, so the
-    check asks the library for the short size at the decoder's first
-    teacher-forced shape (the encoder runs no backward there), then for
-    the long-length kernels' (which hold 16 heads), and accepts; on a card
-    too small for those as well it refuses with the flag and the size
-    named, and stops at that first refusal. 8 heads of 16 (the default)
-    fit the short kernel; bf16 and a run without a backward ask nothing."""
-    wide = dict(decoder_d_model=256, decoder_num_heads=16)
-    f32 = Config(dtype="float32").replace(**wide)
-    assert envelope_errors(f32, "transformer", "teacher_forced",
-                           smem_limit=SMEM) == []
-    assert library_sizes[:2] == [
-        (attn.KERNEL_BWD, torch.float32, 31, 31, 16, 16),
-        (attn.KERNEL_BWD, torch.float32, 33, 33, 16, 16)]
-    library_sizes.clear()
-    small = BYTES_PER_HEAD * 6
-    errors = envelope_errors(f32, "transformer", "teacher_forced",
-                             smem_limit=small)
-    assert len(errors) == 1 and "--dtype float32" in errors[0]
-    assert f"needs {BYTES_PER_HEAD * 16 // 2} bytes" in errors[0]
-    assert len(library_sizes) == 2
-    library_sizes.clear()
-    assert not envelope_errors(f32.replace(decoder_num_heads=8),
-                               "transformer", "teacher_forced",
-                               smem_limit=SMEM)
-    assert library_sizes == [
-        (attn.KERNEL_BWD, torch.float32, 31, 31, 8, 32),
-        (attn.KERNEL_BWD, torch.float32, 31, 32, 8, 32)]
-    library_sizes.clear()
-    assert not envelope_errors(f32, "transformer", "greedy",
-                               smem_limit=SMEM)
-    assert not envelope_errors(f32.replace(dtype="bfloat16"), "transformer",
-                               "teacher_forced", smem_limit=SMEM)
+    """The f32 K2 at the edge of the tuned heads: 16 heads of 16 (the short
+    lane-per-query kernel once did not fit the card's shared memory there)
+    and of 32, at the training and the full-prefix lengths, run the narrow
+    kernels and pass the check without a library asked; 17 heads, or heads
+    of 24, run the tiled ones and pass too; bf16 stays on its tuned
+    kernels. Only a head count that does not divide the width is
+    refused."""
+    for heads, dh, narrow in ((16, 16, True), (16, 32, True), (8, 16, True),
+                              (17, 16, False), (8, 24, False)):
+        f32 = Config(dtype="float32").replace(
+            decoder_d_model=heads * dh, decoder_num_heads=heads,
+            encoder_d_model=heads * dh, encoder_num_heads=heads)
+        for mode in (None, "teacher_forced", "greedy", "greedy_attack"):
+            assert envelope_errors(f32, "transformer", mode) == [], \
+                (heads, dh, mode)
+        assert attn.uses_narrow(torch.float32, heads, dh) == narrow
+        assert attn.uses_tiled(torch.float32, heads, dh) == (not narrow)
+        assert not attn.uses_narrow(torch.bfloat16, heads, dh)
     assert library_sizes == []
+    bad = Config(dtype="float32").replace(decoder_d_model=250,
+                                          decoder_num_heads=16)
+    errors = envelope_errors(bad, "transformer", "teacher_forced")
+    assert len(errors) == 1 and "--decoder-num-heads 16" in errors[0]
 
 
 @pytest.mark.parametrize("cmd,mode", [("evaluate", "greedy"),

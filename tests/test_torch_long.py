@@ -109,5 +109,4 @@ def test_teacher_forced_loss_at_seq_len_48_matches_jax(tiny_cfg, fused):
                                           ("gan", "greedy_gan")])
 def test_check_envelope_accepts_seq_len_48(variant, mode):
     cfg = Config(seq_len=48, max_length=47)
-    assert envelope_errors(cfg, variant, mode, device="cuda",
-                           smem_limit=232448) == []
+    assert envelope_errors(cfg, variant, mode, device="cuda") == []
