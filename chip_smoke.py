@@ -398,6 +398,9 @@ CE_TILED_FWD = "ce_fwd_tiled"
 # every f32 one at the tuned heads)
 NARROW = "attention_narrow"
 NARROW_BWD = "attention_narrow_bwd"
+# the f32 K6 launches of the tuned kernel, on the 128 x 128 tile
+# (csrc/topk.cu `topk_tiled_kernel`)
+TOPK_TILED = "topk_tiled"
 # the launches among each kernel's that went to its wide kernels
 WIDE = {attn.KERNEL: "attention_fwd_wide", attn.KERNEL_BWD:
         "attention_bwd_wide", ce.KERNEL_FWD: "ce_fwd_wide",
@@ -405,7 +408,7 @@ WIDE = {attn.KERNEL: "attention_fwd_wide", attn.KERNEL_BWD:
         topk.KERNEL: "topk_wide"}
 COUNTERS = KERNELS + (DH_ONLY,) + tuple(WIDE.values()) + (
     LONG_LIST, CLUSTER, SELECT, TILED, TILED_BWD, CE_TILED, CE_TILED_FWD,
-    NARROW, NARROW_BWD)
+    NARROW, NARROW_BWD, TOPK_TILED)
 BEAM = 4
 # `cli train`'s default steps a call (one captured CUDA graph of the step,
 # replayed): what the train phases run
@@ -489,15 +492,17 @@ SPIN_CYCLES = 200_000_000
 # csrc/ce_wide_bwd.cu), redesigned on the tensor cores
 WGMMA = {torch.bfloat16: "wgmma bf16", torch.float32: "cuda-core f32"}
 MMA = {torch.bfloat16: "mma bf16", torch.float32: "cuda-core f32"}
-DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
-          ce.KERNEL_BWD: WGMMA, topk.KERNEL: WGMMA}
-WIDE_DESIGN = "wide cuda-core f32"
-WIDE_MMA_DESIGN = "wide mma bf16"
 # the f32 K1 and K2 off the tuned shapes (csrc/attention_tiled.cu,
 # csrc/attention_bwd_tiled.cu), every f32 K3 and K4 (csrc/ce_fwd_tiled.cu,
-# csrc/ce_bwd_tiled.cu; K4 in bf16 past 5,120 columns too), and K6 on the
-# select kernels (csrc/topk_select.cu)
+# csrc/ce_bwd_tiled.cu; K4 in bf16 past 5,120 columns too), the tuned f32
+# K6 (csrc/topk.cu) and K6 on the select kernels (csrc/topk_select.cu)
 TILED_DESIGN = "tiled cuda-core f32"
+DESIGN = {attn.KERNEL: MMA, attn.KERNEL_BWD: MMA, ce.KERNEL_FWD: WGMMA,
+          ce.KERNEL_BWD: WGMMA,
+          topk.KERNEL: {torch.bfloat16: WGMMA[torch.bfloat16],
+                        torch.float32: TILED_DESIGN}}
+WIDE_DESIGN = "wide cuda-core f32"
+WIDE_MMA_DESIGN = "wide mma bf16"
 # every f32 K1 and K2 at the tuned heads (csrc/attention_narrow.cu)
 NARROW_DESIGN = "narrow cuda-core f32"
 TILED_CE_DESIGN = {torch.bfloat16: "tiled cuda-core bf16",
@@ -511,7 +516,11 @@ ROUTES = {topk.KERNEL: (("topk_long_emit_kernel", "long-path wgmma bf16"),
                          SELECT_DESIGN[torch.bfloat16]),
                         ("topk_select_logits_f32",
                          SELECT_DESIGN[torch.float32]),
-                        ("topk_wide_mma", "wide wgmma bf16")),
+                        ("topk_wide_mma", "wide wgmma bf16"),
+                        ("topk_tiled_kernel", TILED_DESIGN)),
+          star.KERNEL: (("star_group_kernel", "group wide"),
+                        ("star_head_kernel", "head wide"),
+                        ("star_satellite_kernel", "tuned")),
           attn.KERNEL: (("attention_fwd_tiled_kernel", TILED_DESIGN),
                         ("attention_narrow_fwd_kernel", NARROW_DESIGN)),
           attn.KERNEL_BWD: (("attention_bwd_resident_kernel",
@@ -706,7 +715,9 @@ def phase_routes(seed, bs):
     and at the wide beam, in each input mode, at every k of PAST_LIST_KS
     and D of PAST_LIST_D, at k = PAST_K6, past V = 25,000 and at k = V; of
     the f32 K6 at every k of SELECT_KS and D of WIDE_D and at the wide
-    beam, in each input mode, and at k = V; of the bf16 K2 past 32 queries
+    beam, in each input mode, and at k = V, and at the tuned kernel's rows
+    (`tiled_topk_rows`); of K5 at every D of WIDE_STAR_D in both dtypes; of
+    the bf16 K2 past 32 queries
     and keys (LONG_CASE, LONG_CROSS) and past 128 (PAST_RESIDENT,
     PAST_RESIDENT_CROSS) with and without dbias; of the f32 K1 and K2 (no
     dbias) at every wide shape the kernel rows hold (WIDE_HEADS, WIDE_PATH,
@@ -718,8 +729,9 @@ def phase_routes(seed, bs):
     model's D = 128, WIDE_PATH_D, 512, WIDE_HEADS_D, OFF_STEP_D and
     ODD_F32_D, and K4 in its dh-only mode at D = 128 and WIDE_HEADS_D.
     Each must run its route's kernel (the tensor-core wide K6, its long
-    path past k = 64, the select K6, the resident K2, the cluster K2, the
-    tiled K1, K2, K3 and K4, the narrow K1 and K2). -> {(kernel, case, dtype):
+    path past k = 64, the select K6, the tuned f32 K6's tile, the wide
+    K5's group of lanes a row, the resident K2, the cluster K2, the tiled
+    K1, K2, K3 and K4, the narrow K1 and K2). -> {(kernel, case, dtype):
     (design, names)}, the design the kernel rows of those cases take
     (`set_designs`)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -742,11 +754,21 @@ def phase_routes(seed, bs):
                PAST_V) for mode in modes]
     cases += [(f"k_vocab_{mode}", bs, 128, v, mode, dtype, None)
               for mode in modes for dtype in (bf16, f32)]
+    # the tuned f32 K6 (the 128 x 128 tile) at the kernel rows' shapes
+    cases += [(label, n, d, k, mode, f32, None)
+              for label, n, d, k, mode in tiled_topk_rows(bs)]
     for label, n, d, k, mode, dtype, vocab in cases:
         h, W, b = topk_inputs(n, d, k, mode, dtype, gen, vocab)
         seen[(topk.KERNEL, label, dtype)] = routed_design(
             topk.KERNEL, label, lambda: topk.topk_logits(h, W, b, k),
             topk_design(dtype, d, k, W.shape[0]))
+    for d in WIDE_STAR_D:
+        for dtype in (bf16, f32):
+            ring = star_ring(bs, default_seq_len("star"), d, dtype, gen)
+            seen[(star.KERNEL, f"star_d{d}", dtype)] = routed_design(
+                star.KERNEL, f"star_d{d}",
+                lambda: star.star_satellite(*ring, HEADS),
+                star_design(dtype, d))
     for label, lq, lk in ((LONG_CASE, LONG_LEN, LONG_LEN), LONG_CROSS,
                           (f"long_{PAST_RESIDENT}", PAST_RESIDENT,
                            PAST_RESIDENT), *PAST_RESIDENT_CROSS):
@@ -1284,6 +1306,25 @@ def topk_inputs(n, d, k, mode, dtype, gen, v=None):
     return h, W, b
 
 
+def tiled_topk_rows(bs):
+    """The K6 rows of the tuned kernel (phase_kernels, widened_cases), as
+    (label, N, D, k, mode): the CLI's beam, the beam sweep, k = 1 and 8,
+    every logit below 0, equal maxima, and the widened decoder's D."""
+    n = bs * BEAM
+    return (("beam", n, 128, BEAM, "dyadic"),
+            ("beam_sweep", len(SNRS) * n, 128, BEAM, "dyadic"),
+            ("k1", n, 128, 1, "dyadic"), ("k8", n, 128, 8, "dyadic"),
+            ("negative", n, 128, 8, "negative"), ("tie", n, 128, 8, "tie"),
+            (f"d{WIDE_PATH_D}", n, WIDE_PATH_D, BEAM, "dyadic"))
+
+
+def star_ring(b, length, d, dtype, gen):
+    """K5's ring at B sequences of L rows of width D: q, kh, vh, ke, ve
+    (B, L, D) and ks, vs (B, D) ~ N(0, 1)."""
+    return [torch.randn((b, length, d) if i < 5 else (b, d), generator=gen,
+                        device="cuda").to(dtype) for i in range(7)]
+
+
 def topk_design(dtype, d, k, v):
     """What multiplies in the K6 kernel that takes width d and k over V = v
     rows of W."""
@@ -1353,8 +1394,7 @@ def star_case(label, b, length, dtype, gen, iters, d=HEADS * DH):
     """K5 at B sequences of L rows of D = 128 (8 heads of 16; another D in
     8 heads: the wide kernel where the tuned one does not take it): the
     ring q, kh, vh, ke, ve (B, L, D) and ks, vs (B, D) ~ N(0, 1)."""
-    ring = [torch.randn((b, length, d) if i < 5 else (b, d), generator=gen,
-                        device="cuda").to(dtype) for i in range(7)]
+    ring = star_ring(b, length, d, dtype, gen)
     q, kh, vh, ke, ve, ks, vs = ring
     out = star.star_satellite(*ring, HEADS)
     ref = star.ring_reference(*ring, HEADS)
@@ -1377,7 +1417,16 @@ def star_case(label, b, length, dtype, gen, iters, d=HEADS * DH):
         lambda: F.scaled_dot_product_attention(qh, k5, v5),
         (6 * n * d + 2 * b * d) * elt, 2 * 2 * 5 * n * d, iters,
         ops_dtype=torch.float32, b=b, l=length, n=n, d=d, heads=HEADS,
-        design="wide" if not star.takes_width(d, HEADS) else "tuned")
+        design=star_design(dtype, d))
+
+
+def star_design(dtype, d):
+    """The K5 kernel that takes width d in HEADS heads: the tuned one, or
+    the wide kernels' path (a group of lanes per row, a warp per row and
+    head)."""
+    if star.takes_width(d, HEADS):
+        return "tuned"
+    return f"{star.wide_plan(d, HEADS, dtype.itemsize).path} wide"
 
 
 def phase_kernels(seed, n, bs, iters):
@@ -1615,8 +1664,8 @@ def launches():
     dh-only mode, how many of each went to its wide kernels, and how many
     of K6's went to the tensor-core wide kernel's lists past 64 and to the
     select kernels, of K2's to the cluster kernel, of K1's and K2's to the
-    tiled and the narrow f32 kernels and of K3's and K4's to the tiled
-    kernels."""
+    tiled and the narrow f32 kernels, of K3's and K4's to the tiled
+    kernels and of K6's to the tuned kernel's f32 tile."""
     return {attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
             ce.KERNEL_FWD: ce.fwd_launches, ce.KERNEL_BWD: ce.bwd_launches,
             star.KERNEL: star.launches, topk.KERNEL: topk.launches,
@@ -1635,7 +1684,8 @@ def launches():
             CE_TILED: ce.tiled_bwd_launches,
             CE_TILED_FWD: ce.tiled_fwd_launches,
             NARROW: attn.narrow_launches,
-            NARROW_BWD: attn.narrow_bwd_launches}
+            NARROW_BWD: attn.narrow_bwd_launches,
+            TOPK_TILED: topk.tiled_launches}
 
 
 def with_narrow(expected):
@@ -2063,8 +2113,9 @@ def phase_f32_ids(seed, bs):
     """One batch at f32 on the card, all 19 SNRs, same weights and noise:
     the full-prefix greedy sweep through K1 and through its plain version;
     the KV sweep against the full-prefix one; the beam sweep scored by K6
-    and by its plain version; the KV beam against the full-prefix beam at
-    three SNRs."""
+    (every launch on the tuned kernel's f32 tile) and by its plain version;
+    the KV beam against the full-prefix beam at three SNRs. -> the launch
+    counts of the beam sweep through K6 (the f32_beam_sweep path)."""
     params = load_params_pickle(PARAMS)
     cfg = Config(dtype="float32", bs=bs, tie_embeddings=is_tied(params))
     model_k, model_p = (
@@ -2087,11 +2138,13 @@ def phase_f32_ids(seed, bs):
 
     reset_launches()
     beam_k = make_beam_decode_sweep(model_k, cfg, BEAM)(*args)
-    k6 = topk.launches
+    counts = launches()
     beam_p = make_beam_decode_sweep(
         model_k, cfg, BEAM, topk=topk.topk_logits_reference)(*args)
-    if (k6, topk.launches) != (cfg.max_length, cfg.max_length):
-        raise AssertionError(f"beam sweep: {k6} K6 launches with K6, "
+    k6 = counts[topk.KERNEL]
+    if (k6, counts[TOPK_TILED], topk.launches) != (cfg.max_length,) * 3:
+        raise AssertionError(f"beam sweep: {k6} K6 launches with K6 "
+                             f"({counts[TOPK_TILED]} on the f32 tile), "
                              f"{topk.launches - k6} with the plain scorer")
     same_ids(f"beam sweep ({len(SNRS)} x {bs} x {BEAM} rows), K6 vs plain "
              f"scorer", beam_k, beam_p)
@@ -2101,6 +2154,7 @@ def phase_f32_ids(seed, bs):
         a = (inp, 0.0, float(n_stds[s]), noise[s])
         same_ids(f"beam at {SNRS[s]} dB, KV vs full prefix", kv(*a),
                  full(*a))
+    return counts
 
 
 def phase_star_serving(seed, batches, bs):
@@ -4470,7 +4524,9 @@ WIDE_INFO = {
                     "wide kernels; every f32 K4 on csrc/ce_bwd_tiled.cu, "
                     "its own entry)"),
     star.KERNEL: (star.KERNEL_WIDE, "star_d96", "the wide star train "
-                  "path's ring: K5 at B=64 L=31 D=96 H=8, bf16"),
+                  "path's ring: K5 at B=64 L=31 D=96 H=8, bf16 (a group "
+                  "of 12 lanes a row); `cases`: D = 512 (a warp a row) in "
+                  "bf16, D = 96 and 512 in f32"),
     topk.KERNEL: (topk.KERNEL_WIDE_MMA, "wide_beam", "the wide beam path: "
                   "K6 at N=64x9 D=200 V=22234 k=9, bf16 (the tensor-core "
                   "wide kernel; k 65 to 256 its long path, f32 and bf16 "
@@ -4688,6 +4744,27 @@ def kernels_line(rows, by_path):
                       " and each with dbias (+dbias), 128 x 128 and 63 x "
                       "64 (both ways), 16 heads of 16; library: SDPA's "
                       "backward (f32, no TF32)")})
+    # the tuned f32 K6 on the 128 x 128 tile (csrc/topk.cu): every f32 K6
+    # launch at k up to 8 and the tuned widths (the f32 beam sweep's)
+    row = f32_rows[(topk.KERNEL, "beam_sweep")]
+    paths = {path: got[TOPK_TILED] for path, got in by_path.items()
+             if got.get(TOPK_TILED)}
+    out.append({
+        "name": TOPK_TILED, "route": "cuda", "design": row["design"],
+        "source": f"deepsc_gan_tpu_torch/csrc/{topk.KERNEL}.cu",
+        "replaces": KERNEL_INFO[topk.KERNEL][0],
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        **_timing(row),
+        "cases": {label: _timing(f32_rows[(topk.KERNEL, label)])
+                  for label, *_ in tiled_topk_rows(
+                      row["n"] // (len(SNRS) * BEAM))
+                  if label != "beam_sweep"},
+        "at": f"every f32 K6 at k up to 8 and D a multiple of 8 up to 256 "
+              f"(the tuned kernel's 128 x 128 tile): the f32 beam sweep's "
+              f"call, N={row['n']} D={row['d']} V=22234 k={BEAM} shown; "
+              f"`cases`: the CLI's beam (N=64x4), k = 1 and 8, every logit "
+              f"below 0, equal maxima, D = {WIDE_PATH_D}; library: "
+              f"torch.topk + logsumexp"})
     # the tiled K4 (csrc/ce_bwd_tiled.cu) and K3 (csrc/ce_fwd_tiled.cu):
     # every f32 K4 and K3 launch of the paths (the f32 train epochs, the
     # resume run's)
@@ -4784,6 +4861,15 @@ def kernels_line(rows, by_path):
                 and r["case"] == label and r["dtype"] == "bfloat16"))
                 for label in (f"k{k}_d{d}_dyadic" for d in WIDE_D
                               for k in WIDE_K if k != WIDE_BEAM)}
+        if kernel == star.KERNEL:
+            # the D = 512 rows in bf16, every wide row in f32
+            out[-1]["cases"] = {
+                f"{label}_{dtype}": _timing(next(
+                    r for r in rows if r["kernel"] == kernel
+                    and r["case"] == label and r["dtype"] == dtype))
+                for label, dtype in [(f"star_d{WIDE_STAR_D[1]}",
+                                      "bfloat16")] + [
+                    (f"star_d{d}", "float32") for d in WIDE_STAR_D]}
         if kernel in (ce.KERNEL_FWD, ce.KERNEL_BWD):
             # the wide-heads path's CE runs at D = WIDE_HEADS_D; K4 also at
             # D = 512 and in its dh-only mode at WIDE_HEADS_D
@@ -4830,7 +4916,7 @@ def run_phases(args, jobs, routes):
         set_designs(rows, routes)
     with timed("serving"):
         by_path = phase_serving(seed, args.batches, bs)
-        phase_f32_ids(seed, bs)
+        by_path["f32_beam_sweep"] = phase_f32_ids(seed, bs)
     with timed("train"):
         by_path["train"], _ = phase_train(seed, args.epochs, bs)
         phase_step_parity(seed, bs, counted=(NARROW, NARROW_BWD))

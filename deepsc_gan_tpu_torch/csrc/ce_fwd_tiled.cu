@@ -47,22 +47,6 @@ using namespace tiled;
 
 constexpr float NEG = -1e30f;  // the TPU kernel's running-max start
 
-// the max (half_warp_max) or the sum (half_warp_sum) of x over the 16
-// threads tx of a half-warp, the same bits in every lane
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 // block (row tile, vocab split): (max, sum, gold) of each of its rows over
 // the split's vocab tiles, into part (splits, N, 3)
 __global__ void __launch_bounds__(kThreads, 2)

@@ -1,9 +1,10 @@
 // The 128 x 128 CUDA-core tile of the f32 vocab kernels (csrc/ce_fwd_tiled.cu,
-// K3, and csrc/ce_bwd_tiled.cu, K4): a tile of 128 x 128 products summed
-// over a depth streamed through shared memory in chunks of kBK, 256
-// threads each owning 8 x 8 of them, every sum in order of depth by fmaf
-// (exact f32 products; no TF32). Operands are f32, or bf16 converted to f32
-// as they are loaded (every product of two bf16 values is exact in f32).
+// K3, csrc/ce_bwd_tiled.cu, K4, and the f32 K6 of csrc/topk.cu): a tile of
+// 128 x 128 products summed over a depth streamed through shared memory in
+// chunks of kBK, 256 threads each owning 8 x 8 of them, every sum in order
+// of depth by fmaf (exact f32 products; no TF32). Operands are f32, or bf16
+// converted to f32 as they are loaded (every product of two bf16 values is
+// exact in f32).
 //
 // Layout: a chunk is staged as [depth][tile row] in shared memory (row
 // stride kStride), loaded from device memory into registers while the
@@ -202,6 +203,23 @@ __device__ __forceinline__ void tile_product(float (&acc)[8][8], LA& la,
   }
 }
 
+// the max (half_warp_max) or the sum (half_warp_sum) of x over the 16
+// threads tx of a half-warp (a tile row's 128 columns), the same bits in
+// every lane
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1)
+    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
 struct Nothing {
   __device__ __forceinline__ void operator()(float (*)[kStride]) const {}
 };
@@ -234,6 +252,5 @@ __device__ __forceinline__ void store_tile(const float (&acc)[8][8],
     }
   }
 }
-
 
 }  // namespace tiled

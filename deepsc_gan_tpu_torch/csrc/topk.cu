@@ -12,60 +12,78 @@
 // What bounds it: at the CLI's beam (N = 64 x 4 = 256, D = 128, V = 22,234,
 // bf16) the 5.7 MB stream of W (1.7 us at 3.35 TB/s), just above the 1.46
 // GFLOP of the products at the bf16 tensor-core rate (1.5 us); at the beam
-// sweep (N = 19 x 256 = 4,864) the 27.7 GFLOP (28 us).
+// sweep (N = 19 x 256 = 4,864) the 27.7 GFLOP (28 us). In f32 on the CUDA
+// cores the products alone: 0.022 ms at the beam, 0.413 at the sweep (67
+// TFLOP/s).
 //
 // Design: the TPU kernel walks the vocab tiles in order on one core, keeping
 // a running top-k and an online max and sum. Here blocks run in parallel, so
 // the vocab axis is cut into `splits` contiguous ranges (as the CE kernels:
 // the wrapper takes the most splits whose blocks fit one wave, from the
 // tiles and blocks per SM that `deepsc_topk_tiling_*` reports). Block
-// (row tile, split) keeps its 64 rows of h and walks its range of vocab
-// tiles; each thread keeps, for each row it holds, a running (max, sum of
-// exponentials) and a sorted list of its best L candidates, ordered by
-// (value descending, index ascending). The lists and sums of a row's
-// threads are merged by shuffles; one list and one (max, sum) per
+// (row tile, split) keeps its rows of h and walks its range of vocab
+// tiles; each thread keeps, for each row it holds, a sorted list of its
+// best L candidates, ordered by (value descending, index ascending), and a
+// running (max, sum of exponentials) is kept for each row. L, the list's
+// length, is the smallest of 1, 2, 4, 8 that holds k (a template), so a
+// k = 4 call carries 4. A thread visits its columns of a vocab tile in
+// increasing order, so a new logit enters its list only if it is larger
+// than the list's last entry (an equal one has the larger index), and then
+// by a shift that needs no index compare. The lists of a row's threads are
+// merged once per block by shuffles; one list and one (max, sum) per
 // (split, row) go to a workspace. A second kernel, a warp per row, merges
 // the splits' lists and sums and writes the first k of the list and lse.
 // Because the order is total and every index is seen by one thread only,
 // the merged list is the same whatever the merge order: ties go to the
-// lowest index exactly as the TPU kernel's masked argmax does. The sums are
-// merged in a fixed tree, so the result is deterministic. No atomics.
-// Each dtype has one partial kernel:
+// lowest index exactly as the TPU kernel's masked argmax does. The sums
+// are merged in a fixed tree, so the result is deterministic. No atomics.
+// Vocab columns past V enter neither a list nor a sum. Each dtype has one
+// partial kernel:
 // - bf16, tensor cores (csrc/wgmma_tile.cuh), the logits tile of K3's
 //   forward (csrc/ce_fwd.cu): one warpgroup per block, the h tile resident
 //   in 128-byte-swizzled shared memory, vocab tiles of 128 rows of W
 //   through a two-stage TMA ring, wgmma m64n128k16 over D with f32
 //   accumulators. A thread holds rows r and r + 8 and, of each vocab tile,
-//   columns 8 q + 2 (lane % 4) + e, which it visits in increasing order: a
-//   new logit enters its list only if it is larger than the list's last
-//   entry (an equal one has the larger index) and not below the quad's
-//   largest last entry (taken once a tile by two shuffles), and then by a
-//   shift that needs no index compare. L, the list's length, is the
-//   smallest of 1, 2, 4, 8 that holds k (a template), so a k = 4 call
-//   carries 4. These checks still cost about as much as the softmax sums:
+//   columns 8 q + 2 (lane % 4) + e; a logit enters its list only if it is
+//   also not below the quad's largest last entry (taken once a tile by two
+//   shuffles). These checks still cost about as much as the softmax sums:
 //   with no lists the kernel takes half its time (H100, N = 4,864,
 //   scripts/kernel_variants.py). The four threads of a row (a quad) are
-//   merged once per block. Vocab columns past V (the TMA zero-fills W's
-//   rows there) are set to -inf in the last tile, so they enter neither a
-//   list nor a sum. D a multiple of 8 up to 256: the TMA zero-fills the
+//   merged once per block; the running (max, sum) is per thread. Vocab
+//   columns past V (the TMA zero-fills W's rows there) are set to -inf in
+//   the last tile. D a multiple of 8 up to 256: the TMA zero-fills the
 //   columns past D, so a last k-step of 8 adds zeros.
 // - f32, CUDA cores (exact f32 products, which the f32 beam id checks
-//   need): 256 threads stage 64-row tiles of h and W in shared memory as
-//   f32 (csrc/ce_tile.cuh), thread (ty, tx) owns rows ty + 16 i and columns
-//   tx + 16 j of each 64 x 64 tile and keeps lists of 8; the 16 threads of
-//   a row (16 consecutive lanes of one warp) merge by shuffles.
+//   need): the 128 x 128 tile of the f32 K3 and K4 (csrc/ce_tiled.cuh),
+//   block (128 rows of h, vocab split), 8 x 8 logits a thread, D streamed
+//   in chunks of 16 columns (the next chunk loaded while this one is
+//   multiplied), every logit summed over d in order 0..D-1 by fmaf and then
+//   rounded once more by the bias add (the order of the tiled K3 and of
+//   the 64 x 64 design before this one, so the logits are the same bits).
+//   A row's 128 columns of a tile lie with the 16 threads of a half-warp:
+//   the row's running (max, sum) in shared memory is rescaled per tile as
+//   the tiled K3 does (the half-warp's max, then its sum of exponentials,
+//   by xor shuffles in the order 1, 2, 4, 8), and each thread keeps a list
+//   of L for each of its 8 rows (64 registers at L = 4: one block of 256
+//   an SM). A logit enters only if it is above its own list's last entry
+//   (a row threshold shared by the 16 lists, a half-warp max a tile, took
+//   2-4 % longer on an H100: scripts/kernel_variants.py). The 16 threads
+//   of a row merge their lists once per block
+//   by a butterfly of bitonic merges of two sorted lists (L + L log2(L) /
+//   2 compare-exchanges a step where insertion takes L^2: 20 against 64 at
+//   L = 8). The design before this one, a 64 x 64 tile with 4 x 4 logits a
+//   thread (one shared-memory load for every four FMAs), took 2.35 ms at
+//   the sweep on an H100 80GB HBM3 at 700 W (PERF.md).
 
 #include <math_constants.h>
 
 #include "ce_tile.cuh"
+#include "ce_tiled.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
-using ce::kThreads;
 using ce::NEG;
-using ce::TN;
-using ce::TV;
 
 constexpr int kMaxK = 8;     // candidates kept per row (k <= 8)
 constexpr int kBig = 1 << 30;
@@ -132,6 +150,37 @@ __device__ __forceinline__ void merge_ms(float& m, float& s, float m2,
   m = mm;
 }
 
+// The best L of the sorted lists (lv, li) and (ov, oi), sorted, into (lv,
+// li): the better of entry t and the other's entry L - 1 - t (a bitonic
+// sequence holding the best L), then a bitonic merge: L + L log2(L) / 2
+// compare-exchanges where insertion takes L^2 compare-and-swaps.
+template <int L>
+__device__ __forceinline__ void merge_sorted(float (&lv)[L], int (&li)[L],
+                                             const float (&ov)[L],
+                                             const int (&oi)[L]) {
+#pragma unroll
+  for (int t = 0; t < L; ++t) {
+    if (before(ov[L - 1 - t], oi[L - 1 - t], lv[t], li[t])) {
+      lv[t] = ov[L - 1 - t];
+      li[t] = oi[L - 1 - t];
+    }
+  }
+#pragma unroll
+  for (int j = L / 2; j > 0; j /= 2) {
+#pragma unroll
+    for (int t = 0; t < L; ++t) {
+      if ((t & j) == 0 && before(lv[t + j], li[t + j], lv[t], li[t])) {
+        const float tv = lv[t];
+        const int ti = li[t];
+        lv[t] = lv[t + j];
+        li[t] = li[t + j];
+        lv[t + j] = tv;
+        li[t + j] = ti;
+      }
+    }
+  }
+}
+
 // merge the lists and sums of the lanes `lane ^ o` for o < width (a
 // butterfly over `width` consecutive lanes of a warp)
 template <int L>
@@ -167,81 +216,101 @@ __device__ __forceinline__ void put(const float (&lv)[L], const int (&li)[L],
   part_ms[o * 2 + 1] = s;
 }
 
-// ---- f32: CUDA cores ----
+// ---- f32: CUDA cores, the 128 x 128 tile ----
 
-__global__ void __launch_bounds__(kThreads)
-topk_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                    const float* __restrict__ b, float* __restrict__ part_v,
-                    int* __restrict__ part_i, float* __restrict__ part_ms,
-                    int n, int d, int v, int tiles_per_split) {
-  extern __shared__ float smem[];
-  const int stride = d + 1;
-  float* hs = smem;              // TN x stride
-  float* ws = hs + TN * stride;  // TV x stride
-
+// block (row tile of 128, vocab split): each row's best L candidates and
+// (max, sum) over the split's vocab tiles of 128, into the workspace
+template <int L>
+__global__ void __launch_bounds__(tiled::kThreads, 1)
+topk_tiled_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                  const float* __restrict__ b, float* __restrict__ part_v,
+                  int* __restrict__ part_i, float* __restrict__ part_ms,
+                  int n, int d, int v, int tiles_per_split) {
+  using tiled::at;
+  using tiled::kBM;
+  using tiled::kBN;
+  __shared__ __align__(16) float as[2][tiled::kBK][tiled::kStride];
+  __shared__ __align__(16) float bs[2][tiled::kBK][tiled::kStride];
+  __shared__ float m_s[kBM];
+  __shared__ float s_s[kBM];
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.x * TN;
+  const int row0 = blockIdx.x * kBM;
   const int split = blockIdx.y;
-  const int nvt = (v + TV - 1) / TV;
+  const int vt = (v + kBN - 1) / kBN;
   const int t0 = split * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, nvt);
-
-  ce::stage_rows(h, n, row0, TN, d, hs);
-  float m[4], s[4];
-  float lv[4][kMaxK];
-  int li[4][kMaxK];
+  const int t1 = min(t0 + tiles_per_split, vt);
+  if (threadIdx.x < kBM) {
+    m_s[threadIdx.x] = NEG;
+    s_s[threadIdx.x] = 0.f;
+  }  // read after tile_product's first barrier
+  float lv[8][L];
+  int li[8][L];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    s[i] = 0.f;
-    clear(lv[i], li[i]);
-  }
-
+  for (int i = 0; i < 8; ++i) clear(lv[i], li[i]);
+  tiled::DepthAlongRows<float> la{h, n, d, d, row0};
   for (int t = t0; t < t1; ++t) {
-    const int col0 = t * TV;
-    __syncthreads();  // the previous tile's reads of ws are done
-    ce::stage_rows(w, v, col0, TV, d, ws);
-    __syncthreads();
-    float acc[4][4];
-    ce::tile_logits(hs, ws, d, ty, tx, acc);
-    if (col0 + tx >= v) continue;  // this thread owns no column of the tile
-    float bias[4];
+    const int col0 = t * kBN;
+    tiled::DepthAlongRows<float> lb{w, v, d, d, col0};
+    float acc[8][8];
+    tiled::tile_product<float>(acc, la, lb, 0, d, as, bs, tiled::Nothing{});
+    float bias[8];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      bias[j] = c < v ? b[c] : 0.f;
+    for (int j = 0; j < 8; ++j) {
+      const int c = col0 + at(tx, j);
+      bias[j] = c < v ? __ldg(b + c) : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 8; ++i) {
       float cm = NEG;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = col0 + tx + 16 * j;
-        if (c < v) {
-          acc[i][j] += bias[j];
-          cm = fmaxf(cm, acc[i][j]);
-          insert(lv[i], li[i], acc[i][j], c);
-        }
+      for (int j = 0; j < 8; ++j) {
+        acc[i][j] = __fadd_rn(acc[i][j], bias[j]);
+        if (col0 + at(tx, j) < v) cm = fmaxf(cm, acc[i][j]);
       }
-      const float mn = fmaxf(m[i], cm);
+      const float m_old = m_s[at(ty, i)];
+      const float mn = fmaxf(m_old, tiled::half_warp_max(cm));
       float se = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (col0 + tx + 16 * j < v) se += expf(acc[i][j] - mn);
-      s[i] = s[i] * expf(m[i] - mn) + se;
-      m[i] = mn;
+      for (int j = 0; j < 8; ++j)
+        if (col0 + at(tx, j) < v)
+          se = __fadd_rn(se, expf(__fsub_rn(acc[i][j], mn)));
+      se = tiled::half_warp_sum(se);
+      // every lane read m_s before the shuffles that lane 0 waits on
+      if (tx == 0) {
+        s_s[at(ty, i)] = __fadd_rn(
+            __fmul_rn(s_s[at(ty, i)], expf(__fsub_rn(m_old, mn))), se);
+        m_s[at(ty, i)] = mn;
+      }
+      // the thread's columns come in increasing order, so a logit equal to
+      // its list's last entry has the larger index and stays out
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = col0 + at(tx, j);
+        if (c < v && acc[i][j] > lv[i][L - 1])
+          insert_new(lv[i], li[i], acc[i][j], c);
+      }
     }
   }
-
-  // the 16 threads of row group ty are lanes 16 (ty & 1) .. + 15 of a warp
+  // the 16 threads of a row are lanes 16 (ty & 1) .. + 15 of a warp,
+  // merged by a butterfly; its (max, sum) is its first thread's own
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    merge_lanes(lv[i], li[i], m[i], s[i], 16);
-    const int row = row0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int o = 8; o > 0; o /= 2) {
+      float ov[L];
+      int oi[L];
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        ov[t] = __shfl_xor_sync(0xffffffffu, lv[i][t], o);
+        oi[t] = __shfl_xor_sync(0xffffffffu, li[i][t], o);
+      }
+      merge_sorted(lv[i], li[i], ov, oi);
+    }
+    const int row = row0 + at(ty, i);
     if (tx == 0 && row < n)
-      put(lv[i], li[i], m[i], s[i], part_v, part_i, part_ms,
-          (size_t)split * n + row);
+      put(lv[i], li[i], m_s[at(ty, i)], s_s[at(ty, i)], part_v, part_i,
+          part_ms, (size_t)split * n + row);
   }
 }
 
@@ -438,10 +507,6 @@ int combine(const void* part_v, const void* part_i, const void* part_ms,
   return (int)cudaGetLastError();
 }
 
-size_t smem_bytes_f32(int d) {
-  return sizeof(float) * (size_t)(TN + TV) * (d + 1);
-}
-
 size_t smem_bytes_bf16(int d) {
   return 1024 + (size_t)wg::tile_bytes(wg::kRows, d) +
          (size_t)kStages * wg::tile_bytes(kTV16, d);
@@ -480,6 +545,21 @@ int tiling(const void* kernel, int threads, size_t smem, int rows,
 }
 
 template <int L>
+int launch_f32(const void* h, const void* w, const void* b, void* vals,
+               void* idx, void* lse, void* part_v, void* part_i,
+               void* part_ms, int n, int d, int v, int k, int splits,
+               int tps, cudaStream_t st) {
+  topk_tiled_kernel<L><<<dim3((n + tiled::kBM - 1) / tiled::kBM, splits),
+                         tiled::kThreads, 0, st>>>(
+      (const float*)h, (const float*)w, (const float*)b, (float*)part_v,
+      (int*)part_i, (float*)part_ms, n, d, v, tps);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return combine<L>(part_v, part_i, part_ms, vals, idx, lse, n, k, splits,
+                    st);
+}
+
+template <int L>
 int launch_bf16(const void* h, const void* w, const void* b, void* vals,
                 void* idx, void* lse, void* part_v, void* part_i,
                 void* part_ms, int n, int d, int v, int k, int splits,
@@ -502,22 +582,48 @@ int launch_bf16(const void* h, const void* w, const void* b, void* vals,
                     st);
 }
 
+// the dtype's kernels with lists of the smallest of 1, 2, 4, 8 that
+// holds k
+template <int L>
+int launch(bool bf16, const void* h, const void* w, const void* b,
+           void* vals, void* idx, void* lse, void* part_v, void* part_i,
+           void* part_ms, int n, int d, int v, int k, int splits, int tps,
+           cudaStream_t st) {
+  return (bf16 ? launch_bf16<L> : launch_f32<L>)(
+      h, w, b, vals, idx, lse, part_v, part_i, part_ms, n, d, v, k, splits,
+      tps, st);
+}
+
+int launch_k(bool bf16, const void* h, const void* w, const void* b,
+             void* vals, void* idx, void* lse, void* part_v, void* part_i,
+             void* part_ms, int n, int d, int v, int k, int splits,
+             void* stream) {
+  const int tps = split_tiles(n, d, v, k, splits,
+                              bf16 ? kTV16 : tiled::kBN);
+  if (tps < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  auto go = k == 1 ? launch<1> : k == 2 ? launch<2>
+          : k <= 4 ? launch<4> : launch<kMaxK>;
+  return go(bf16, h, w, b, vals, idx, lse, part_v, part_i, part_ms, n, d, v,
+            k, splits, tps, st);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the partial kernel needs.
-size_t deepsc_topk_smem_bytes_f32(int d) { return smem_bytes_f32(d); }
+// Bytes of dynamic shared memory one block of the bf16 partial kernel
+// needs (the f32 one has only static shared memory).
 size_t deepsc_topk_smem_bytes_bf16(int d) { return smem_bytes_bf16(d); }
 
 // The splits' terms at width d, out[3] as `tiling` fills it for the
-// partial kernel of the dtype on the current device (bf16: the instance
-// with lists of 8; a shorter list takes fewer registers, and the shared
-// memory bounds the blocks per SM either way).
+// partial kernel of the dtype on the current device (the instance with
+// lists of 8; a shorter list takes fewer registers, and the registers (f32)
+// or the shared memory (bf16) bound the blocks per SM either way).
 int deepsc_topk_tiling_f32(int d, int* out) {
   if (d <= 0 || d > ce::kMaxD || d % 8) return (int)cudaErrorInvalidValue;
-  return tiling((const void*)topk_partial_kernel, kThreads, smem_bytes_f32(d),
-                TN, TV, out);
+  return tiling((const void*)topk_tiled_kernel<kMaxK>, tiled::kThreads, 0,
+                tiled::kBM, tiled::kBN, out);
 }
 
 int deepsc_topk_tiling_bf16(int d, int* out) {
@@ -530,48 +636,23 @@ int deepsc_topk_tiling_bf16(int d, int* out) {
 // (V, D); b: f32 (V); vals: f32 (N, k); idx: int32 (N, k); lse: f32 (N);
 // part_v: f32 workspace (splits, N, 8); part_i: int32 (splits, N, 8);
 // part_ms: f32 (splits, N, 2). 1 <= k <= min(8, V); every split must own
-// at least one vocab tile of 64 rows. Returns cudaGetLastError() after the
-// launches (0 = success).
+// at least one vocab tile of 128 rows. Returns cudaGetLastError() after
+// the launches (0 = success).
 int deepsc_topk_f32(const void* h, const void* w, const void* b, void* vals,
                     void* idx, void* lse, void* part_v, void* part_i,
                     void* part_ms, int n, int d, int v, int k, int splits,
                     void* stream) {
-  const int tps = split_tiles(n, d, v, k, splits, TV);
-  if (tps < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes_f32(d);
-  int err = set_smem((const void*)topk_partial_kernel, smem);
-  if (err) return err;
-  cudaStream_t st = (cudaStream_t)stream;
-  topk_partial_kernel<<<dim3((n + TN - 1) / TN, splits), kThreads, smem,
-                        st>>>((const float*)h, (const float*)w,
-                              (const float*)b, (float*)part_v, (int*)part_i,
-                              (float*)part_ms, n, d, v, tps);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return combine<kMaxK>(part_v, part_i, part_ms, vals, idx, lse, n, k,
-                        splits, st);
+  return launch_k(false, h, w, b, vals, idx, lse, part_v, part_i, part_ms, n,
+                  d, v, k, splits, stream);
 }
 
-// As above with h and w in bf16; every split owns at least one vocab tile
-// of 128 rows.
+// As above with h and w in bf16.
 int deepsc_topk_bf16(const void* h, const void* w, const void* b, void* vals,
                      void* idx, void* lse, void* part_v, void* part_i,
                      void* part_ms, int n, int d, int v, int k, int splits,
                      void* stream) {
-  const int tps = split_tiles(n, d, v, k, splits, kTV16);
-  if (tps < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (k == 1)
-    return launch_bf16<1>(h, w, b, vals, idx, lse, part_v, part_i, part_ms,
-                          n, d, v, k, splits, tps, st);
-  if (k == 2)
-    return launch_bf16<2>(h, w, b, vals, idx, lse, part_v, part_i, part_ms,
-                          n, d, v, k, splits, tps, st);
-  if (k <= 4)
-    return launch_bf16<4>(h, w, b, vals, idx, lse, part_v, part_i, part_ms,
-                          n, d, v, k, splits, tps, st);
-  return launch_bf16<kMaxK>(h, w, b, vals, idx, lse, part_v, part_i, part_ms,
-                            n, d, v, k, splits, tps, st);
+  return launch_k(true, h, w, b, vals, idx, lse, part_v, part_i, part_ms, n,
+                  d, v, k, splits, stream);
 }
 
 }  // extern "C"

@@ -16,7 +16,9 @@ softmax over the five and sum_j w_j v_j, returned as (B, L, D) in q's dtype.
 The kernel reads the ring unstacked (a neighbour by index); the plain
 version `ring_reference` stacks it and runs `satellite_reference`, the
 TPU package's `_xla_satellite` on the stacked, flattened contexts. A width
-or head layout the kernel does not take goes to `csrc/star_wide.cu`. On
+or head layout the kernel does not take goes to `csrc/star_wide.cu` (a
+group of lanes per row, or at widths past one warp's a warp per row and
+head; `wide_plan`). On
 CUDA tensors the wrapper launches the kernel (and counts the launch) or
 raises; on CPU tensors it runs the plain version, which is also what the
 kernel is held against on the card.
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -47,9 +50,59 @@ CONTEXTS = 5
 # what the tuned kernel takes (csrc/star_satellite.cu): a warp per row, each
 # lane holding D / 32 consecutive elements, so D is 32 x (2, 4 or 8); a
 # head's Dh elements span a power of two of lanes; any B and L. Any other D
-# and head count that divides it goes to the wide kernel
-# (csrc/star_wide.cu: a warp per row and head)
+# and head count that divides it goes to the wide kernels
+# (csrc/star_wide.cu, `wide_plan`)
 WIDTHS = (64, 128, 256)
+# the wide kernels' chunks a lane on the group path (1, 2 or MAX_CHUNKS)
+MAX_CHUNKS = 4
+
+
+class WidePlan(NamedTuple):
+    """How csrc/star_wide.cu takes a width (its `deepsc_star_wide_plan`):
+    `path` "group" (a group of `lanes` lanes per row, each `chunks`
+    consecutive chunks of `chunk_bytes`) or "head" (a warp per row and
+    head, the head's chunks of `chunk_bytes`, 32 a pass)."""
+    path: str
+    chunk_bytes: int
+    chunks: int
+    lanes: int
+
+
+def wide_plan(d: int, heads: int, size: int) -> WidePlan:
+    """The wide kernels' plan for width d in `heads` heads of `size`-byte
+    elements: the group path with the largest chunk of 16, 8, 4 (2) bytes
+    dividing the row's bytes and the fewest chunks a lane (1, 2 or
+    MAX_CHUNKS) that fit the row in 32 lanes, a lane's elements no more
+    than a head's (so they span at most two heads); else the head path,
+    its chunk the largest dividing a head's bytes."""
+    dh = d // heads
+    cb = 16
+    while cb >= size:
+        kv = cb // size
+        nc = d // kv
+        c = 1
+        while (d * size) % cb == 0 and c <= MAX_CHUNKS and c * kv <= dh:
+            if nc <= 32 * c:
+                return WidePlan("group", cb, c, -(-nc // c))
+            c *= 2
+        cb //= 2
+    cb = 16
+    while (dh * size) % cb:
+        cb //= 2
+    return WidePlan("head", cb, 1, 32)
+
+
+def library_plan(d: int, heads: int, size: int) -> WidePlan:
+    """`wide_plan` as the built library computes it."""
+    fn = build.load(KERNEL_WIDE).deepsc_star_wide_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(d, heads, size, out)
+    if err != 0:
+        raise ValueError(f"{KERNEL_WIDE} does not take D {d} in {heads} "
+                         f"heads: CUDA error {err}")
+    return WidePlan(("group", "head")[out[0]], *out[1:])
 
 
 def takes_width(d: int, heads: int) -> bool:
@@ -67,7 +120,7 @@ def takes_heads(d: int, heads: int) -> bool:
 
 # Launches of K5 since the last reset (the wrapper adds one per launch and
 # nowhere else; `wide_launches` counts the calls among them that went to
-# the wide kernel); read by chip_smoke.py to show that a path went through
+# the wide kernels); read by chip_smoke.py to show that a path went through
 # it.
 launches = 0
 wide_launches = 0
@@ -165,7 +218,7 @@ def _check(ring, heads):
     """What the kernels take: q, kh, vh, ke, ve (B, L, D) and ks, vs (B, D)
     of one dtype, f32 or bf16; heads dividing D (the tuned kernel: D in
     WIDTHS and a head width Dh that is a power of two of at least D / 32;
-    the wide kernel any other); all contiguous, 16-byte aligned, on q's
+    the wide kernels any other); all contiguous, 16-byte aligned, on q's
     device. Any B and L."""
     q = ring[0]
     if q.dtype not in _SUFFIX or any(t.dtype != q.dtype for t in ring):

@@ -15,7 +15,8 @@ launches the kernel (and counts the launch) or raises; on CPU tensors it
 runs the plain version, which is also what the kernel is held against on
 the card. Each dtype has one kernel: bf16 multiplies on the tensor cores
 (wgmma) and f32 on the CUDA cores in exact f32, which the f32 beam id
-checks need. Past k = 8, or at a width off its step, the wide kernels
+checks need (the 128 x 128 tile of the f32 K3 and K4, `csrc/ce_tiled.cuh`).
+Past k = 8, or at a width off its step, the wide kernels
 take the call: in bf16 up to k = K_LIST the tensor-core wide kernel
 (`csrc/topk_wide_mma.cu`: the wide K3's streamed wgmma logits tile; up to
 K_SHORT each row's k best kept in shared memory behind a threshold filter,
@@ -92,21 +93,25 @@ SELECT_RESERVED = 8 * 4096 + 2048
 # Launches of K6 since the last reset (the wrapper adds one per launch and
 # nowhere else; `wide_launches` counts the calls among them that went to
 # the wide kernels, `long_list_launches` those that went to the
-# tensor-core wide kernel's long path, past k = K_SHORT, and
-# `select_launches` those that went to the select kernels); read by
-# chip_smoke.py to show that a path went through it.
+# tensor-core wide kernel's long path, past k = K_SHORT,
+# `select_launches` those that went to the select kernels and
+# `tiled_launches` the f32 calls of the tuned kernel, on the 128 x 128
+# tile); read by chip_smoke.py to show that a path went through it.
 launches = 0
 wide_launches = 0
 long_list_launches = 0
 select_launches = 0
+tiled_launches = 0
 
 
 def reset_launches() -> None:
     global launches, wide_launches, long_list_launches, select_launches
+    global tiled_launches
     launches = 0
     wide_launches = 0
     long_list_launches = 0
     select_launches = 0
+    tiled_launches = 0
 
 
 def uses_long_list(dtype: torch.dtype, d: int, k: int, v: int) -> bool:
@@ -266,19 +271,25 @@ _BOUND = {}
 
 
 def _bind(dtype):
-    """(launch function, shared-memory size function) of the built
-    library, with their ctypes signatures declared."""
+    """The tuned library's launch function for `dtype`, with its ctypes
+    signature declared."""
     if dtype not in _BOUND:
-        lib = build.load(KERNEL)
-        fn = getattr(lib, f"deepsc_topk_{_SUFFIX[dtype]}")
+        fn = getattr(build.load(KERNEL), f"deepsc_topk_{_SUFFIX[dtype]}")
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = getattr(lib, f"deepsc_topk_smem_bytes_{_SUFFIX[dtype]}")
-        smem.argtypes = [ctypes.c_int]
-        smem.restype = ctypes.c_size_t
-        _BOUND[dtype] = (fn, smem)
+        _BOUND[dtype] = fn
     return _BOUND[dtype]
+
+
+def _smem_bytes_bf16(d: int) -> int:
+    """Dynamic shared memory of a block of the tuned bf16 kernel at width
+    d, as the built library computes it (the f32 kernel has only static
+    shared memory)."""
+    fn = build.load(KERNEL).deepsc_topk_smem_bytes_bf16
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_size_t
+    return fn(d)
 
 
 def _bind_select(dtype):
@@ -391,10 +402,12 @@ def topk_logits(h, W, b, k: int = 4):
     if err != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
     global launches, wide_launches, long_list_launches, select_launches
+    global tiled_launches
     launches += 1
     wide_launches += wide
     long_list_launches += long
     select_launches += select
+    tiled_launches += not wide and h.dtype == torch.float32
     return vals, idx, lse
 
 
@@ -403,9 +416,9 @@ def _launch(h, W, b, k, vals, idx, lse, stream):
     (n, d), v = h.shape, W.shape[0]
     dev = h.device
     props = torch.cuda.get_device_properties(dev)
-    fn, smem_bytes = _bind(h.dtype)
-    if smem_bytes(d) > props.shared_memory_per_block_optin:
-        raise ValueError(f"K6 needs {smem_bytes(d)} bytes of shared "
+    if h.dtype == torch.bfloat16 and \
+            _smem_bytes_bf16(d) > props.shared_memory_per_block_optin:
+        raise ValueError(f"K6 needs {_smem_bytes_bf16(d)} bytes of shared "
                          f"memory per block; the device allows "
                          f"{props.shared_memory_per_block_optin}")
     splits = vocab_splits(n, v, props.multi_processor_count,
@@ -414,10 +427,10 @@ def _launch(h, W, b, k, vals, idx, lse, stream):
                          device=dev)
     part_i = torch.empty((splits, n, MAX_K), dtype=torch.int32, device=dev)
     part_ms = torch.empty((splits, n, 2), dtype=torch.float32, device=dev)
-    return fn(h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
-              idx.data_ptr(), lse.data_ptr(), part_v.data_ptr(),
-              part_i.data_ptr(), part_ms.data_ptr(), n, d, v, k, splits,
-              stream)
+    return _bind(h.dtype)(
+        h.data_ptr(), W.data_ptr(), b.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), lse.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+        part_ms.data_ptr(), n, d, v, k, splits, stream)
 
 
 def _launch_select(h, W, b, k, vals, idx, lse, stream):

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""What bounds the bf16 K1, K2, K5 and K6 and the narrow f32 K1/K2: each
-built as it is and with one part changed or taken out, timed on one card.
+"""What bounds the bf16 K1, K2, K5 and K6, the narrow f32 K1/K2, the f32
+K6 and the wide K5: each built as it is and with one part changed or taken
+out, timed on one card.
 
     python3 scripts/kernel_variants.py [--iters 50]
         [--sources attention_fwd,attention_bwd,star_satellite,topk,
-                   attention_narrow]
+                   attention_narrow,topk_f32,star_wide]
 
 Every variant is an edited copy of `csrc/attention_fwd.cu`,
-`csrc/attention_bwd.cu`, `csrc/star_satellite.cu`, `csrc/topk.cu` or
+`csrc/attention_bwd.cu`, `csrc/star_satellite.cu`, `csrc/topk.cu` (the
+sources `topk` and `topk_f32`), `csrc/star_wide.cu` or
 `csrc/attention_narrow.cu` (the edit is a text replacement
 that must match the source), built with the port's nvcc flags in a
 temporary directory and called through its own C interface at the paths'
@@ -39,6 +41,20 @@ shapes, on the inputs chip_smoke.py gives the kernels. Variants:
   every insertion by the merge's compare-and-swap pass (index compares
   included) instead of the shift; `no_lists`, no top-k lists (the
   softmax sums alone).
+- the f32 K6 (`topk_tiled_kernel`; N = 256 at k = 1, 4 and 8, N = 4,864
+  at k = 4; D = 128, V = 22,234, dyadic operands): `as_is`;
+  `blocks_2`, built for two blocks of 256 an SM (at most 128 registers a
+  thread: the lists spill), with the splits that the variant's tiling
+  gives; `row_filter`, a logit entering only if it is also not below the
+  row's threshold (the largest last entry of its 16 lists, a half-warp max
+  a tile); `insert_merge`,
+  the row's 16 lists merged by insertion instead of bitonic merges;
+  `no_lists`, no top-k lists (the products and the softmax sums alone).
+- the wide K5 (B = 64, L = 31, D = 96 and 512 in 8 heads, bf16 and f32):
+  `as_is`; `warps_4`, blocks of 4 warps instead of 8; `chunk_8`, chunks
+  of at most 8 bytes (the plan's path and lanes as the variant's
+  `deepsc_star_wide_plan` gives them); `early_v`, the v rows loaded with
+  q and k, before the scores (all eleven loads of a row in flight).
 Prints each variant's max error against the plain version (K6: whether
 its indices equal the plain version's) and its device time per call
 (`chip_smoke.device_ms`: the calls queued behind a spin of the device),
@@ -88,6 +104,32 @@ K6_QUAD = (K6_CHECK, """        if (x > lv[i][L - 1])
 K6_SWAP = (K6_CHECK, """        if (x >= tq && x > lv[i][L - 1])
           insert(lv[i], li[i], x, c0 + 8 * q + e);""")
 K6_NONE = (K6_CHECK, "")
+K6F_BOUNDS = ("__launch_bounds__(tiled::kThreads, 1)\ntopk_tiled_kernel(",
+              "__launch_bounds__(tiled::kThreads, 2)\ntopk_tiled_kernel(")
+K6F_LOOP = """#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = col0 + at(tx, j);
+        if (c < v && acc[i][j] > lv[i][L - 1])"""
+K6F_CHECK = """        if (c < v && acc[i][j] > lv[i][L - 1])
+          insert_new(lv[i], li[i], acc[i][j], c);"""
+K6F_FILTER = (K6F_LOOP, "      const float tq = tiled::half_warp_max(lv[i][L - 1]);\n"
+              + K6F_LOOP.replace("acc[i][j] > lv", "acc[i][j] >= tq && "
+                                 "acc[i][j] > lv"))
+K6F_INSERT = ("      merge_sorted(lv[i], li[i], ov, oi);",
+              "      for (int t = 0; t < L; ++t) "
+              "insert(lv[i], li[i], ov[t], oi[t]);")
+K6F_NONE = (K6F_CHECK, "")
+
+K5W_EARLY = """  typename W::V qr[C], kr[kContexts][C], vr[kContexts][C];
+"""
+K5W_LATE = """  // the v rows, in flight while the softmax runs
+"""
+K5W_V = """#pragma unroll
+  for (int j = 0; j < kContexts; ++j)
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (c < mine) vr[j][c] = W::load(r.v[j] + c * KV);
+"""
 
 K2_HEADS = "constexpr int kHeadsPerBlock = 4;"
 K5_ROWS = "constexpr int kRowsPerBlock = 8;"
@@ -138,7 +180,19 @@ VARIANTS = {
         "fwd_unbounded": [("__launch_bounds__(kThreads, kFwdBlocks)",
                            "__launch_bounds__(kThreads)")],
         "bwd_blocks_8": [narrow_bounds("attention_narrow_bwd_kernel", 8)]},
+    "topk_f32": {"as_is": [], "blocks_2": [K6F_BOUNDS],
+                 "row_filter": [K6F_FILTER], "insert_merge": [K6F_INSERT],
+                 "no_lists": [K6F_NONE]},
+    "star_wide": {"as_is": [],
+                  "warps_4": [("constexpr int kWarps = 8;",
+                               "constexpr int kWarps = 4;")],
+                  "chunk_8": [("for (int cb = 16; cb >= size; cb /= 2) {",
+                               "for (int cb = 8; cb >= size; cb /= 2) {")],
+                  "early_v": [(K5W_LATE, ""),
+                              (K5W_EARLY, K5W_EARLY + K5W_V)]},
 }
+# the source file of a variant set named otherwise
+SOURCE = {"topk_f32": "topk"}
 
 
 def build_all(tmp: Path, sources) -> dict:
@@ -147,7 +201,7 @@ def build_all(tmp: Path, sources) -> dict:
     jobs = {}
     for src in sources:
         variants = VARIANTS[src]
-        text = (build.CSRC / f"{src}.cu").read_text()
+        text = (build.CSRC / f"{SOURCE.get(src, src)}.cu").read_text()
         for name, edits in variants.items():
             s = text
             for old, new in edits:
@@ -419,6 +473,89 @@ def k6_rows(libs, gen, iters):
                   f"{cs.device_ms(call, iters)!r}", flush=True)
 
 
+def k6_f32_rows(libs, gen, iters):
+    d, v = 128, 22234
+    f32 = {"dtype": torch.float32, "device": "cuda"}
+    for n, k in ((256, 4), (4864, 4), (256, 8), (256, 1)):
+        h = cs.dyadic((n, d), 8, gen, torch.float32)
+        W = cs.dyadic((v, d), 2, gen, torch.float32)
+        b = cs.dyadic((v,), 8, gen, torch.float32)
+        ref = topk.topk_logits_reference(h, W, b, k)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        vals, lse = torch.empty((n, k), **f32), torch.empty(n, **f32)
+        idx = torch.empty((n, k), dtype=torch.int32, device="cuda")
+        for name in VARIANTS["topk_f32"]:
+            lib = libs[("topk_f32", name)]
+            tiling = lib.deepsc_topk_tiling_f32
+            tiling.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            out = (ctypes.c_int * 3)()
+            if tiling(d, out):
+                raise RuntimeError(f"f32 K6 {name}: tiling failed")
+            splits = ce.vocab_splits(n, v, sms, *out)
+            part_v = torch.empty((splits, n, topk.MAX_K), **f32)
+            part_i = torch.empty((splits, n, topk.MAX_K), dtype=torch.int32,
+                                 device="cuda")
+            part_ms = torch.empty((splits, n, 2), **f32)
+            fn = lib.deepsc_topk_f32
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            def call():
+                err = fn(h.data_ptr(), W.data_ptr(), b.data_ptr(),
+                         vals.data_ptr(), idx.data_ptr(), lse.data_ptr(),
+                         part_v.data_ptr(), part_i.data_ptr(),
+                         part_ms.data_ptr(), n, d, v, k, splits, stream())
+                if err:
+                    raise RuntimeError(f"f32 K6 {name}: CUDA error {err}")
+
+            call()
+            torch.cuda.synchronize()
+            print(f"[variant] f32 K6 {name:12s} N={n:5d} k={k}: blocks an "
+                  f"SM {out[2]}, splits {splits}, indices equal "
+                  f"{torch.equal(idx, ref[1])}, lse err "
+                  f"{(lse - ref[2]).abs().max().item():.3g}, device_ms "
+                  f"{cs.device_ms(call, iters)!r}", flush=True)
+
+
+def k5_wide_rows(libs, gen, iters):
+    b, length = 64, 31
+    for d in (96, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            ring = cs.star_ring(b, length, d, dtype, gen)
+            ref = star.ring_reference(*ring, cs.HEADS)
+            out = torch.empty_like(ring[0])
+            suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+            for name in VARIANTS["star_wide"]:
+                lib = libs[("star_wide", name)]
+                plan = lib.deepsc_star_wide_plan
+                plan.argtypes = ([ctypes.c_int] * 3
+                                 + [ctypes.POINTER(ctypes.c_int)])
+                got = (ctypes.c_int * 4)()
+                if plan(d, cs.HEADS, dtype.itemsize, got):
+                    raise RuntimeError(f"wide K5 {name}: plan failed")
+                fn = getattr(lib, f"deepsc_star_wide_{suffix}")
+                fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                               + [ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+
+                def call():
+                    err = fn(*(t.data_ptr() for t in ring), out.data_ptr(),
+                             b, length, d, cs.HEADS, stream())
+                    if err:
+                        raise RuntimeError(f"wide K5 {name}: CUDA error "
+                                           f"{err}")
+
+                call()
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                print(f"[variant] wide K5 {name:8s} D={d:3d} {suffix:4s}: "
+                      f"{('group', 'head')[got[0]]} path, {got[1]}-byte "
+                      f"chunks, {got[2]} a lane, {got[3]} lanes, max err "
+                      f"{err:.3g}, device_ms {cs.device_ms(call, iters)!r}",
+                      flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=50)
@@ -438,7 +575,9 @@ def main(argv=None) -> int:
         for src, rows in (("attention_fwd", k1_rows),
                           ("attention_bwd", k2_rows),
                           ("star_satellite", k5_rows), ("topk", k6_rows),
-                          ("attention_narrow", narrow_rows)):
+                          ("attention_narrow", narrow_rows),
+                          ("topk_f32", k6_f32_rows),
+                          ("star_wide", k5_wide_rows)):
             if src in sources:
                 rows(libs, gen, args.iters)
         if "attention_fwd" in sources:

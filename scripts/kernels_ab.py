@@ -10,7 +10,7 @@
                  select_topk,tiled_attention,f32_wide_beam_eval,
                  f32_wide_heads_eval,f32_wide_attention_bwd,
                  f32_wide_heads_train,f32_ce,f32_train,f32_wide_train,
-                 f32_attention,f32_greedy_eval]
+                 f32_attention,f32_greedy_eval,f32_topk,star_wide]
         [--turns ABBA] [--iters 50]
 
 OLD and NEW are roots of checkouts of the repo (for instance a parent commit
@@ -132,7 +132,28 @@ library call's. Cases:
   (the full-prefix greedy sweep) on results/plain_best_params.pkl (of the
   checkout that runs the script), one batch of 64 at 19 SNRs, twice: the
   second call's seconds as the row's `ms` (the first builds the
-  libraries' state and PyTorch's).
+  libraries' state and PyTorch's);
+- `f32_topk`: K6 in f32 where the tuned kernel takes the call (V =
+  22,234, dyadic inputs unless said): the CLI's beam (N = 64 x 4, D = 128,
+  k = 4), the beam sweep's (N = 19 x 256), k = 1 and 8, k = 8 with every
+  logit below 0 and with equal maxima, and D = 200 (k = 4), with their
+  plain versions and library calls as in chip_smoke.topk_case, and each
+  kernel's device time; the sha256 of the beam sweep call's vals and idx
+  on N(0, 1) operands (the logits' bits, to compare between checkouts);
+  then end to end on results/plain_best_params.pkl in f32: the beam sweep
+  call (`make_beam_decode_sweep`, 19 SNRs x 64 x 4 beams, the f32 ids
+  phase's call), its seconds (host clock, the second of two calls) as the
+  row's `ms` and its device time over 2 calls (chip_smoke.device_ms); and
+  `cli evaluate --dtype float32 --eval-mode beam` at 0, 1 and 2 dB (one
+  batch of 64): the mean of the calls after the first as the row's `ms`;
+- `star_wide`: K5 where the wide kernel takes the width (B = 64, L = 31,
+  8 heads): D = 96 and 512 in bf16 and f32, with their plain versions and
+  library calls as in chip_smoke.star_case, and each kernel's device
+  time; then the widened star train path end to end, `cli train
+  --variant star` in bf16 at d_model 96 (chip_smoke.phase_wide's, 16 K5 a
+  step) from a random init (seed 0, batch 64, the default graphed path)
+  for 2 epochs of 64 steps: the ms a step of the second epoch as the
+  row's `ms` (host clock; the graph's capture is in the first).
 Each turn then takes the device time per call of every kernel the bf16
 wrapper (for `star`, the update) launches at each shape, and the number of
 kernels, from torch.profiler over 20 calls. Prints
@@ -157,7 +178,8 @@ CASES = ("ce", "attention", "attention_bwd", "topk", "star", "wide_ce",
          "past_resident_bwd", "beam100_eval", "seq256_train", "select_topk",
          "tiled_attention", "f32_wide_beam_eval", "f32_wide_heads_eval",
          "f32_wide_attention_bwd", "f32_wide_heads_train", "f32_ce",
-         "f32_train", "f32_wide_train", "f32_attention", "f32_greedy_eval")
+         "f32_train", "f32_wide_train", "f32_attention", "f32_greedy_eval",
+         "f32_topk", "star_wide")
 PARAMS = Path(__file__).resolve().parent.parent / "results" \
     / "plain_best_params.pkl"
 
@@ -208,7 +230,8 @@ cs.phase_device()
 build.build([name for case, names in (
     ("ce", [ce.KERNEL_FWD, ce.KERNEL_BWD]), ("attention", [attn.KERNEL]),
     ("attention_bwd", [attn.KERNEL_BWD]), ("topk", [topk.KERNEL]),
-    ("star", ["star_satellite"])) if case in cases for name in names])
+    ("star", ["star_satellite"]), ("f32_topk", [topk.KERNEL]),
+    ("star_wide", ["star_wide"])) if case in cases for name in names])
 bf16 = torch.bfloat16
 if "ce" in cases:
     for dtype in (bf16, torch.float32):
@@ -536,6 +559,96 @@ if "f32_greedy_eval" in cases:
     row({"kernel": "cli_evaluate", "case": "f32_greedy_eval",
          "dtype": "float32", "decode_seconds": seconds,
          "ms": sum(seconds) / len(seconds) * 1e3})
+if "f32_topk" in cases:
+    import hashlib
+    f32 = torch.float32
+    shapes = (("beam", BEAM, D, 4, "dyadic"),
+              ("beam_sweep", 19 * BEAM, D, 4, "dyadic"),
+              ("k1", BEAM, D, 1, "dyadic"), ("k8", BEAM, D, 8, "dyadic"),
+              ("negative", BEAM, D, 8, "negative"),
+              ("tie", BEAM, D, 8, "tie"), ("d200", BEAM, 200, 4, "dyadic"))
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, n, d, k, mode in shapes:
+        row(cs.topk_case(label, n, f32, gen, iters, k, mode, d=d))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for label, n, d, k, mode in shapes:
+        h, W, b = cs.topk_inputs(n, d, k, mode, f32, gen)
+        device_us(topk.KERNEL, label, lambda: topk.topk_logits(h, W, b, k),
+                  "float32")
+    gen = torch.Generator("cuda").manual_seed(2)
+    h = torch.randn((19 * BEAM, D), generator=gen, device="cuda")
+    W = 0.3 * torch.randn((V, D), generator=gen, device="cuda")
+    b = 0.1 * torch.randn(V, generator=gen, device="cuda")
+    vals, idx, _ = topk.topk_logits(h, W, b, 4)
+    print("BITS " + json.dumps({
+        name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+        for name, t in (("vals", vals), ("idx", idx))}), flush=True)
+    import time
+    params = cs.load_params_pickle(args["params"])
+    cfg = cs.Config(dtype="float32", bs=TRAIN,
+                    tie_embeddings=cs.is_tied(params))
+    model = cs.load_into(cs.make_model(cfg, attention=attn.fused_attention),
+                         params).cuda().eval()
+    inp = torch.as_tensor(cs.eval_batches(cfg.test_save_path, cfg.seq_len,
+                                          cfg.vocab_size, TRAIN, 1, 0)[0],
+                          dtype=torch.long, device="cuda")
+    n_stds = torch.tensor([cs.SNR_to_noise(x) for x in cs.SNRS],
+                          dtype=torch.float32, device="cuda")
+    noise = torch.randn((len(cs.SNRS), TRAIN, cfg.seq_len, cfg.channel_dim),
+                        generator=gen, device="cuda")
+    sweep = cs.make_beam_decode_sweep(model, cfg, 4)
+
+    def call():
+        return sweep(inp, 0.0, n_stds, noise)
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    row({"kernel": "beam_sweep_call", "case": "f32_beam_sweep",
+         "dtype": "float32", "ms": seconds * 1e3,
+         "device_ms": cs.device_ms(call, 2)})
+    from deepsc_gan_tpu_torch import cli
+    res = cli.main(["evaluate", "--variant", "transformer", "--params-pkl",
+                    args["params"], "--eval-mode", "beam", "--beam-size",
+                    "4", "--dtype", "float32", "--bs", str(TRAIN),
+                    "--eval-batches", "1", "--seed", "0", "--snr-lo", "0",
+                    "--snr-hi", "2", "--device", "cuda", "--log-save-path",
+                    "log/kernels_ab/f32_beam_eval"])
+    seconds = res["decode_seconds"]
+    row({"kernel": "cli_evaluate", "case": "f32_beam_eval",
+         "dtype": "float32", "decode_seconds": seconds,
+         "ms": sum(seconds[1:]) / len(seconds[1:]) * 1e3})
+if "star_wide" in cases:
+    gen = torch.Generator("cuda").manual_seed(0)
+    for d in (96, 512):
+        for dtype in (bf16, torch.float32):
+            row(cs.star_case(f"star_d{d}", TRAIN, 31, dtype, gen, iters,
+                             d=d))
+    gen = torch.Generator("cuda").manual_seed(1)
+    for d in (96, 512):
+        for dtype in (bf16, torch.float32):
+            ring = [torch.randn((TRAIN, 31, d) if i < 5 else (TRAIN, d),
+                                generator=gen, device="cuda").to(dtype)
+                    for i in range(7)]
+            device_us("star_satellite", f"star_d{d}",
+                      lambda: cs.star.star_satellite(*ring, cs.HEADS),
+                      str(dtype).replace("torch.", ""))
+    from deepsc_gan_tpu_torch import cli
+    res = cli.main(["train", "--variant", "star", "--train-mode", "plain",
+                    "--dtype", "bfloat16", "--bs", str(TRAIN), "--epochs",
+                    "2", "--seed", "0", "--device", "cuda",
+                    "--encoder-d-model", "96", "--decoder-d-model", "96",
+                    "--log-every", "64", "--log-save-path",
+                    "log/kernels_ab/star_wide_train", "--checkpoint-path",
+                    "log/kernels_ab/star_wide_train_ckpt"])
+    seconds = res["epoch_seconds"]
+    steps = res["steps"] // len(seconds)
+    row({"kernel": "cli_train", "case": "star_wide_train",
+         "dtype": "bfloat16", "path": res["path"], "epoch_seconds": seconds,
+         "ms": seconds[-1] / steps * 1e3})
 if "long_train" in cases:
     from deepsc_gan_tpu_torch import cli
     res = cli.main(["train", "--variant", "transformer", "--train-mode",
@@ -639,7 +752,7 @@ def run_turn(root: Path, cases, iters: int) -> list:
     for line in proc.stdout.splitlines():
         if line.startswith("[device]"):
             print(f"  {line}")
-        for tag in ("ROW ", "DEVICE "):
+        for tag in ("ROW ", "DEVICE ", "BITS "):
             if line.startswith(tag):
                 out.append((tag.strip(), json.loads(line[len(tag):])))
     return out
@@ -667,6 +780,8 @@ def main(argv=None) -> int:
     for i, turn in enumerate(args.turns):
         for tag, row in run_turn(roots[turn], cases, args.iters):
             print(f"[turn {i} {turn}] {tag} {json.dumps(row)}")
+            if tag == "BITS":
+                continue
             key = (turn, row["kernel"], row["case"], row["dtype"])
             if tag == "ROW":
                 for field in ("ms", "host_enqueue_ms", "plain_ms",

@@ -367,13 +367,14 @@ def test_ce_kernels_are_deterministic(cuda, dtype):
                           (ce.KERNEL_FWD, torch.bfloat16, 64, 128),
                           (ce.KERNEL_BWD_TILED, torch.float32, 128, 128),
                           (ce.KERNEL_BWD, torch.bfloat16, 64, 64),
-                          (topk.KERNEL, torch.float32, 64, 64),
+                          (topk.KERNEL, torch.float32, 128, 128),
                           (topk.KERNEL, torch.bfloat16, 64, 128)])
 def test_ce_tiling_comes_from_the_kernels(cuda, kernel, dtype, tile_n,
                                           vocab_rows):
     """Each CE library and K6's report the tiles of the kernel that takes
-    the vocab splits (the f32 CE's tiled kernels 128 x 128; else 64 rows of
-    h and 128 vocab rows for the bf16 forward and the bf16 K6, else 64) and
+    the vocab splits (the f32 CE's tiled kernels and the f32 K6 128 x 128;
+    else 64 rows of h and 128 vocab rows for the bf16 forward and the bf16
+    K6, else 64) and
     how many of its blocks fit an SM at D = 128; at the training path's
     shape its splits' blocks fit in one wave."""
     rows, tile_v, blocks = ce.tiling(kernel, dtype, 128, torch.device(cuda))
@@ -1320,6 +1321,37 @@ def _device_kernels(names, fragment):
     return sorted(name for name in names if fragment in name)
 
 
+@pytest.mark.parametrize("n,d,k", [(256, 128, 4), (4864, 128, 4),
+                                   (256, 128, 1), (256, 128, 8),
+                                   (256, 200, 4), (100, 8, 3),
+                                   (130, 256, 2)])
+@pytest.mark.parametrize("mode", ["dyadic", "tie", "negative"])
+def test_tiled_f32_topk_matches_plain_version(cuda, n, d, k, mode):
+    """The f32 K6 at k up to 8 and D a multiple of 8 up to 256 on the 128 x
+    128 tile (csrc/topk.cu `topk_tiled_kernel`): at the beam rows of
+    chip_smoke.py (N = 256 and the sweep's 4,864 at D = 128, k = 4; k = 1
+    and 8; D = 200) and ragged rows (N = 100 and 130 at D = 8 and 256),
+    with exact ties, every logit equal to its bias and every logit below
+    0: the device ran the tiled kernel and the splits' merge and no other
+    K6 kernel (torch.profiler's names), the call counted as a tiled
+    launch; the plain version's indices, vals and lse within 1e-5; two
+    calls give the same bits."""
+    h, W, b = _wide_topk_inputs(cuda, torch.float32, n, d, 22234, 5, mode)
+    assert not topk.is_wide(d, k)
+    topk.reset_launches()
+    got, names = _ran(lambda: topk.topk_logits(h, W, b, k))
+    assert _device_kernels(names, "topk") == sorted(
+        _device_kernels(names, "topk_tiled_kernel")
+        + _device_kernels(names, "topk_combine_kernel"))
+    assert len(_device_kernels(names, "topk_tiled_kernel")) == 1
+    assert (topk.launches, topk.tiled_launches, topk.wide_launches) == \
+        (1, 1, 0)
+    want = topk.topk_logits_reference(h, W, b, k)
+    _topk_equal(got, want, 1e-5)
+    again = topk.topk_logits(h, W, b, k)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
 @pytest.mark.parametrize("n,d,k", [(576, 200, 9), (256, 128, 9),
                                    (256, 128, 16), (256, 128, 64),
                                    (256, 512, 4), (256, 512, 64),
@@ -1954,20 +1986,38 @@ def test_cluster_k2_wrapper_raises_instead_of_falling_back(cuda,
 @pytest.mark.parametrize("b,l,d,h", [(64, 31, 96, 8), (64, 31, 512, 8),
                                      (1216, 31, 96, 8), (37, 1, 96, 3),
                                      (37, 2, 512, 16), (64, 31, 128, 64),
-                                     (5, 9, 100, 5), (3, 4, 1024, 2)])
+                                     (5, 9, 100, 5), (3, 4, 1024, 2),
+                                     (7, 31, 100, 4), (3, 2, 45, 3),
+                                     (5, 7, 130, 65), (2, 3, 544, 2)])
 def test_wide_star_kernel_matches_plain_version(cuda, dtype, tol, b, l, d,
                                                 h):
     """K5 at widths outside {64, 128, 256} and head layouts the tuned
     kernel does not take (head widths 2, 12, 20, 32, 64, 512), through the
-    wide kernel, at L = 1 and 2 too: the plain version's output."""
+    wide kernels, at L = 1 and 2 too: the plain version's output; the
+    device ran the kernel of `star.wide_plan`'s path (a group of lanes per
+    row, or a warp per row and head) and nothing else; two calls give the
+    same bits."""
     ring = _ring(cuda, dtype, b, l, d)
     star.reset_launches()
-    out = star.star_satellite(*ring, h)
+    out, names = _ran(lambda: star.star_satellite(*ring, h))
     ref = star.ring_reference(*ring, h)
     torch.cuda.synchronize()
+    path = star.wide_plan(d, h, ring[0].element_size()).path
+    _assert_ran(names, [f"star_{path}_kernel"])
     assert (star.launches, star.wide_launches) == (1, 1)
     assert out.shape == (b, l, d) and out.dtype == dtype
     assert _err(out, ref) <= tol
+    assert torch.equal(out, star.star_satellite(*ring, h))
+
+
+@pytest.mark.parametrize("d,h", [(96, 8), (100, 4), (512, 8), (45, 3),
+                                 (33, 3), (130, 65), (544, 2), (1024, 2),
+                                 (128, 64), (512, 16), (64, 1)])
+def test_wide_star_plan_comes_from_the_library(cuda, d, h):
+    """`star.wide_plan` (which the CPU emulation in tests/test_torch_star.py
+    follows) is the library's `deepsc_star_wide_plan`, in both dtypes."""
+    for size in (4, 2):
+        assert star.library_plan(d, h, size) == star.wide_plan(d, h, size)
 
 
 # ---- multi-step training: one captured CUDA graph of the step, replayed

@@ -273,3 +273,137 @@ def test_weight_bridge_round_trip_star(tiny_cfg, which):
     for name in want:
         assert got[name].shape == want[name].shape, name
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def _fma(a, b, c):
+    """f32 fmaf(a, b, c), emulated: the exact product and sum in f64 (a
+    product of two f32 values is exact there), rounded once to f32."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _softmax5(s):
+    """csrc/star_wide.cu `softmax5` on scores (5, ...): max and sum in
+    context order, each weight by a division."""
+    m = np.max(s, axis=0)
+    e = np.exp(s - m).astype(np.float32)
+    total = np.zeros_like(e[0])
+    for j in range(5):
+        total = total + e[j]
+    return e / total
+
+
+def _wide_star(q, k_ctx, v_ctx, heads, size):
+    """The wide K5's arithmetic in its order (csrc/star_wide.cu) on f32
+    rows q (N, D) and contexts (5, N, D), with the lane partition
+    `star_kernel.wide_plan` gives elements of `size` bytes (4: the f32
+    kernel's; 2: the bf16 kernel's, on these f32 values). Group path: lane
+    g holds elements [g E, g E + E') (E' short on a last, ragged lane),
+    at most two heads; its part of each by an fmaf chain in element order;
+    the parts of the lanes inside a head summed by the segmented suffix
+    scan (offsets 1, 2, 4, ..., a lane adding the sum at its offset while
+    every lane of its window is inside the head), the head's total at the
+    lane where it starts (its part plus the scan of the next lane), taken
+    from there by the head's other lanes; the scores divided by sqrt(Dh),
+    `_softmax5`, and each output an fmaf chain over the contexts. Head
+    path: lane l the head's chunks l, l + 32, ..., an fmaf chain over
+    them, summed by an xor butterfly (16, 8, 4, 2, 1)."""
+    n, d = q.shape
+    dh = d // heads
+    sqrt_dh = np.float32(np.sqrt(np.float64(dh)))
+    plan = star_kernel.wide_plan(d, heads, size)
+    kv = plan.chunk_bytes // size
+    out = np.zeros((n, d), np.float32)
+    if plan.path == "head":
+        nch = dh // kv
+        for h0 in range(0, d, dh):
+            part = np.zeros((32, 5, n), np.float32)
+            for lane in range(32):
+                for c in range(lane, nch, 32):
+                    for e in range(h0 + c * kv, h0 + c * kv + kv):
+                        part[lane] = _fma(q[None, :, e], k_ctx[:, :, e],
+                                          part[lane])
+            for o in (16, 8, 4, 2, 1):
+                part = np.stack([part[ln] + part[ln ^ o]
+                                 for ln in range(32)])
+            w = _softmax5(part[0] / sqrt_dh)
+            for e in range(h0, h0 + dh):
+                acc = np.zeros(n, np.float32)
+                for j in range(5):
+                    acc = _fma(w[j], v_ctx[j, :, e], acc)
+                out[:, e] = acc
+        return out
+    big = plan.chunks * kv  # E
+    lanes = plan.lanes
+    first = [g * big for g in range(lanes)]
+    held = [min(big, d - a) for a in first]
+    hf = [a // dh for a in first]
+    bound = [(h + 1) * dh for h in hf]
+    two = [a + m > bnd for a, m, bnd in zip(first, held, bound)]
+    hl = [h + t for h, t in zip(hf, two)]
+    link = [g + 1 < lanes and held[g] == big
+            and first[g] + big < (hl[g] + 1) * dh for g in range(lanes)]
+    inside = [link[g] and not two[g] for g in range(lanes)]
+    span = -(-dh // big) + 1
+    offsets = [o for o in (1, 2, 4, 8, 16) if o < span]
+    takes, on = [], list(inside)
+    for o in offsets:
+        takes.append(list(on))
+        on = [on[g] and g + o < lanes and on[g + o] for g in range(lanes)]
+    pf = np.zeros((lanes, 5, n), np.float32)
+    pl = np.zeros((lanes, 5, n), np.float32)
+    for g in range(lanes):
+        for e in range(first[g], first[g] + held[g]):
+            if e < bound[g]:
+                pf[g] = _fma(q[None, :, e], k_ctx[:, :, e], pf[g])
+            else:
+                pl[g] = _fma(q[None, :, e], k_ctx[:, :, e], pl[g])
+    u = pf.copy()
+    for o, take in zip(offsets, takes):
+        u = np.stack([u[g] + u[g + o] if take[g] else u[g]
+                      for g in range(lanes)])
+    own = [pl[g] if two[g] else pf[g] for g in range(lanes)]
+    total = [own[g] + u[g + 1] if link[g] else own[g]
+             for g in range(lanes)]
+    for g in range(lanes):
+        gs = hf[g] * dh // big
+        tf = total[gs] if gs != g else (pf[g] if two[g] else total[g])
+        wf = _softmax5(tf / sqrt_dh)
+        wl = _softmax5(total[g] / sqrt_dh)
+        for e in range(first[g], first[g] + held[g]):
+            w = wf if e < bound[g] else wl
+            acc = np.zeros(n, np.float32)
+            for j in range(5):
+                acc = _fma(w[j], v_ctx[j, :, e], acc)
+            out[:, e] = acc
+    return out
+
+
+@pytest.mark.parametrize("b,l,d,heads", [
+    (3, 31, 96, 8), (3, 1, 96, 8), (3, 2, 96, 8),   # the widened star's
+    (3, 31, 100, 4), (5, 2, 100, 4),                # Dh = 25
+    (3, 31, 512, 8), (3, 1, 512, 8),                # the D = 512 rows'
+    (3, 7, 45, 3), (5, 2, 45, 3),                   # odd D, 3 heads
+    (3, 5, 130, 65), (1, 3, 544, 2),                # the head path
+])
+@pytest.mark.parametrize("size", [4, 2])
+def test_wide_emulation_matches_ring_reference(interpret, b, l, d, heads,
+                                               size):
+    """The wide K5's lane partition and order of sums (`_wide_star`), with
+    the f32 kernel's partition and the bf16 kernel's (D = 96: 12 lanes of 8,
+    heads of 12 straddling lanes; D = 100: 25 lanes of 4, heads of 25), at
+    L = 1, 2, 7 and 31 and odd numbers of sequences, on the group path and
+    the head path (D = 130 in 65 heads of 2, D = 544 in 2 heads of 272 in
+    f32): within 1e-5 of `ring_reference` and of the TPU kernel under the
+    Pallas interpreter on the contexts the JAX model builds."""
+    xs = _ring_inputs(b, l, d, seed=4)
+    t = [torch.from_numpy(x) for x in xs]
+    want = star_kernel.ring_reference(*t, heads).numpy()
+    jax_want = np.asarray(_jax_ring(*map(jnp.asarray, xs), heads))
+    n = b * l
+    q = xs[0].reshape(n, d)
+    k_ctx, v_ctx = (star_kernel.contexts(x, xe, xs_).reshape(5, n, d)
+                    .numpy() for x, xe, xs_ in ((t[1], t[3], t[5]),
+                                                (t[2], t[4], t[6])))
+    got = _wide_star(q, k_ctx, v_ctx, heads, size).reshape(b, l, d)
+    for ref in (want, jax_want):
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)

@@ -800,3 +800,160 @@ def test_select_emulation_equals_take_top(mode, k):
         np.testing.assert_array_equal(x[r][idx], want[0][r].numpy())
         if jax_want is not None:
             np.testing.assert_array_equal(idx, np.asarray(jax_want[1][r]))
+
+
+def _fma(a, b, c):
+    """f32 fmaf(a, b, c), emulated: the exact product and sum in f64 (a
+    product of two f32 values is exact there), rounded once to f32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _mode_case(n, d, v, mode, seed):
+    """h (N, D), W (D, V) in the JAX layout and b (V,) as chip_smoke.py's K6
+    rows make them: "dyadic", exact logits with many ties (h and W
+    integers over 64 and 16, b over 64); "tie", every logit its bias, 1 at
+    a few indices in different vocab tiles and splits, 0 elsewhere;
+    "negative", the dyadic logits less 3 (every one below 0)."""
+    rng = np.random.default_rng(seed)
+    if mode == "tie":
+        b = np.zeros(v, np.float32)
+        b[[v - 3, 7, v // 2, 130, 64]] = 1.0
+        return (np.ones((n, d), np.float32), np.zeros((d, v), np.float32),
+                b)
+    h = (rng.integers(-8, 9, (n, d)) / 64).astype(np.float32)
+    W = (rng.integers(-2, 3, (d, v)) / 16).astype(np.float32)
+    b = (rng.integers(-8, 9, v) / 64).astype(np.float32)
+    if mode == "negative":
+        b -= 3.0
+        assert (h @ W + b).max() < 0
+    return h, W, b
+
+
+def _merge_top(vals, idx, length):
+    """The best `length` of candidate lists (..., m), ordered by value
+    descending then index ascending: what merging them by insertion gives
+    whatever the order (the order is total and every index distinct)."""
+    order = np.lexsort((idx, -vals), axis=-1)[..., :length]
+    return (np.take_along_axis(vals, order, -1),
+            np.take_along_axis(idx, order, -1))
+
+
+def _merge_ms(m, s, m2, s2):
+    """`merge_ms` of csrc/topk.cu: (max, sum of exp(x - max)) pairs."""
+    mm = np.maximum(m, m2)
+    return mm, s * np.exp(m - mm) + s2 * np.exp(m2 - mm)
+
+
+def _tiled_topk(h, W, b, k, splits):
+    """The f32 K6 on the 128 x 128 tile in its order (csrc/topk.cu
+    `topk_tiled_kernel`, then `topk_combine_kernel`) on f32 CPU tensors:
+    each logit a sum over d in order 0..D-1 by fmaf, then the bias added;
+    per split (`split_tiles`: ceil(tiles / splits) tiles each) and vocab
+    tile of 128 in order, the 16 threads tx of a row each take the max of
+    their 8 columns (4 tx + j, 64 + 4 tx + j, j < 4) and the half-warp the
+    max of theirs; each thread sums the exponentials of its columns less
+    the new max in column order, the half-warp adds the 16 sums by xor
+    shuffles (1, 2, 4, 8), and the row's running sum is rescaled to the
+    new max; each thread keeps a list of L (the smallest of 1, 2, 4, 8
+    holding k), a logit entering only if it is above the list's last entry
+    (its columns come in increasing order); the 16 lists merged once per
+    split (a butterfly of merges of two sorted
+    lists); then a warp a row merges the splits (lane l splits l, l + 32,
+    ..., in order, then a butterfly over the lanes), lse = m + log(s).
+    -> (vals (N, k), idx (N, k) int32, lse (N,)) as numpy."""
+    n, d = h.shape
+    v = W.shape[0]
+    acc = torch.zeros((n, v))
+    for kk in range(d):
+        acc = _fma(h[:, kk, None], W[None, :, kk], acc)
+    x = (acc + b).numpy()
+    length = next(m for m in (1, 2, 4, 8) if k <= m)
+    tiles = -(-v // 128)
+    per = -(-tiles // splits)
+    assert (splits - 1) * per < tiles  # every split owns a tile
+    cols = [[4 * tx + j for j in range(4)] + [64 + 4 * tx + j
+                                              for j in range(4)]
+            for tx in range(16)]
+    neg = np.float32(-1e30)
+    part = []
+    for sp in range(splits):
+        m = np.full(n, neg, np.float32)
+        s = np.zeros(n, np.float32)
+        lv = np.full((16, n, length), -np.inf, np.float32)
+        li = np.full((16, n, length), topk.IBIG, np.int64)
+        for t in range(sp * per, min(sp * per + per, tiles)):
+            own = [[t * 128 + c for c in cs if t * 128 + c < v]
+                   for cs in cols]
+            cm = np.stack([x[:, o].max(axis=1) if o else np.full(n, neg)
+                           for o in own]).max(axis=0)
+            mn = np.maximum(m, cm)
+            se = []
+            for o in own:
+                acc_se = np.zeros(n, np.float32)
+                for c in o:
+                    acc_se = acc_se + np.exp(x[:, c] - mn)
+                se.append(acc_se)
+            for step in (1, 2, 4, 8):
+                se = [se[tx] + se[tx ^ step] for tx in range(16)]
+            s = s * np.exp(m - mn) + se[0]
+            m = mn
+            for tx, o in enumerate(own):
+                for c in o:  # insert_new: strictly above the last entry
+                    enter = x[:, c] > lv[tx, :, -1]
+                    cand_v = np.concatenate([lv[tx], x[:, c, None]], 1)
+                    cand_i = np.concatenate([li[tx], np.full((n, 1), c)], 1)
+                    nv, ni = _merge_top(cand_v, cand_i, length)
+                    lv[tx] = np.where(enter[:, None], nv, lv[tx])
+                    li[tx] = np.where(enter[:, None], ni, li[tx])
+        for o in (8, 4, 2, 1):
+            lv, li = map(np.stack, zip(*[_merge_top(
+                np.concatenate([lv[tx], lv[tx ^ o]], 1),
+                np.concatenate([li[tx], li[tx ^ o]], 1), length)
+                for tx in range(16)]))
+        part.append((lv[0], li[0], m, s))
+    lanes = []
+    for lane in range(32):
+        lv = np.full((n, length), -np.inf, np.float32)
+        li = np.full((n, length), topk.IBIG, np.int64)
+        m, s = np.full(n, neg, np.float32), np.zeros(n, np.float32)
+        for pv, pi, pm, ps in part[lane::32]:
+            lv, li = _merge_top(np.concatenate([lv, pv], 1),
+                                np.concatenate([li, pi], 1), length)
+            m, s = _merge_ms(m, s, pm, ps)
+        lanes.append((lv, li, m, s))
+    for o in (16, 8, 4, 2, 1):
+        lanes = [_merge_top(np.concatenate([lanes[ln][0], lanes[ln ^ o][0]],
+                                           1),
+                            np.concatenate([lanes[ln][1], lanes[ln ^ o][1]],
+                                           1), length)
+                 + _merge_ms(*lanes[ln][2:], *lanes[ln ^ o][2:])
+                 for ln in range(32)]
+    lv, li, m, s = lanes[0]
+    return lv[:, :k], li[:, :k].astype(np.int32), m + np.log(s)
+
+
+@pytest.mark.parametrize("d", [8, 128, 200])
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["dyadic", "tie", "negative"])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_tiled_emulation_matches_plain_version(interpret, d, k, mode,
+                                               splits):
+    """The f32 K6's order on the 128 x 128 tile (`_tiled_topk`) at D = 8,
+    128 (the main model's) and 200 (the widened decoder's), k = 1, 4 (the
+    beam's) and 8, on exact logits with many ties, on logits all equal to
+    the bias, and on logits all below 0, over V = 700 (six vocab tiles of
+    128, the last ragged) in one vocab split or three, N = 20: the indices
+    of the plain version (`topk_logits_reference`: `take_top` on the
+    materialized logits) and of the TPU kernel under the Pallas
+    interpreter, vals and lse within 1e-5 of both."""
+    n, v = 20, 700
+    h, W, b = _mode_case(n, d, v, mode, seed=d + k)
+    ht, Wt, bt = (torch.from_numpy(a) for a in (h, W.T.copy(), b))
+    got = _tiled_topk(ht, Wt, bt, k, splits)
+    want = [t.numpy() for t in topk.topk_logits_reference(ht, Wt, bt, k)]
+    jax_want = [np.asarray(t) for t in jax_topk_logits(
+        jnp.asarray(h), jnp.asarray(W), jnp.asarray(b), k, 8, 128)]
+    for ref in (want, jax_want):
+        np.testing.assert_array_equal(got[1], ref[1])
+        np.testing.assert_allclose(got[0], ref[0], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got[2], ref[2], atol=1e-5, rtol=0)
