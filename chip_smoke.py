@@ -251,13 +251,33 @@ non-zero without its last line:
    take the design so read; so does one f32 call of K3 and K4 at D = 128,
    200, 512, 640, 264 and 136 (the tiled kernels) and of K4's dh-only mode
    at 128 and 640;
-27. the seconds of each phase as one line, the kernels as one JSON line
+27. native: the port's native library (`native/`, g++) built, a failed
+   build failing the run; one bf16 greedy sweep call's sentences (19 x 64
+   pairs, the trained weights) scored by BleuScore natively and in
+   Python: the scores equal (1e-12), the host ms of each way;
+28. dp: two ranks on the one card (`parallel/launch.py:run_ranks`; the
+   backend `parallel/mesh.py` picks, gloo for ranks that share a card) at
+   the main model's full width, global batch 64: two f32 plain steps, one
+   f32 FGM (adv weight 0.5), GAN, MINE and star step, each against the
+   single-process step on the card (losses within 1e-4 relative, the
+   averaged gradients and the params within 1e-4 of their norms; MINE's
+   T by its gradients), two bf16 plain steps (losses within
+   DP_BF16_LOSS_TOL); each rank's launches equal to the single step's
+   (K1-K4, K5 for star) and every rank ending with rank 0's parameters;
+   one f32 plain step in a one-rank group (NCCL, a card of its own)
+   against the single step; the dp step's ms a step beside the single
+   step's (on one card: the collectives' cost, not scaling);
+29. snr_parallel: two ranks, the f32 greedy, KV and beam sweeps at 0, 6,
+   12 and 18 dB on the trained weights split over them: the gathered ids
+   equal the single-process sweeps'; each rank launched K1 (and K6);
+30. the seconds of each phase as one line, the kernels as one JSON line
    (the wide kernels as entries of their own, launches from phase 15; the
    chunked wide K1/K2 too, launches and rows from its heads-wider-than-256
    path; the long-path K6 and the cluster K2, launches from the beam-100
    path and the seq-len-256 epoch; the select K6 and the tiled K1,
    launches from phase 15's f32 paths; the tiled K3 and K4, launches from
-   every f32 path), then `{"ok": true, "device":
+   every f32 path; the six kernels' launches include every rank's of
+   phases 28 and 29), then `{"ok": true, "device":
    {...}}` as the last line.
 
 Needs CUDA: without it the script exits 1 before any phase.
@@ -283,13 +303,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepsc_gan_tpu_torch import cli
+import torch.distributed as dist
+
+from deepsc_gan_tpu_torch import cli, native
 from deepsc_gan_tpu_torch.baselines import turbo
 from deepsc_gan_tpu_torch.baselines.pipeline import classical_sweep
 from deepsc_gan_tpu_torch.data import preprocess
 from deepsc_gan_tpu_torch.data.augment import load_train_dataset
 from deepsc_gan_tpu_torch.data.loader import eval_batches, synthetic_sentences
-from deepsc_gan_tpu_torch.data.vocab import Vocab
+from deepsc_gan_tpu_torch.data.vocab import SeqToText, Vocab
 from deepsc_gan_tpu_torch.evaluate import beam as beam_module
 from deepsc_gan_tpu_torch.evaluate.beam import (
     _vocab_table,
@@ -319,6 +341,9 @@ from deepsc_gan_tpu_torch.ops import build
 from deepsc_gan_tpu_torch.ops import ce_kernel as ce
 from deepsc_gan_tpu_torch.ops import star_kernel as star
 from deepsc_gan_tpu_torch.ops import topk_kernel as topk
+from deepsc_gan_tpu_torch.parallel import mesh as pmesh
+from deepsc_gan_tpu_torch.parallel import sharding
+from deepsc_gan_tpu_torch.parallel.launch import run_ranks
 from deepsc_gan_tpu_torch.train import gan_steps, mine_steps, steps
 from deepsc_gan_tpu_torch.utils.config import (
     Config,
@@ -534,6 +559,10 @@ ROUTES = {topk.KERNEL: (("topk_long_emit_kernel", "long-path wgmma bf16"),
           ce.KERNEL_BWD: (("ce_bwd_tiled_p_kernel", TILED_DESIGN),)}
 
 
+# the card's name and power limit as nvidia-smi gives them (phase_device)
+CARD = {}
+
+
 def phase_device():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -543,6 +572,7 @@ def phase_device():
     print(f"[device] torch: {name}, count {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"[device] nvidia-smi: {smi.stdout.strip()}")
+    CARD["smi"] = smi.stdout.strip()
     # f32 matrix products in full f32: the f32 comparisons below rely on it
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1985,8 +2015,8 @@ def tapped(replay=(None, None)):
     given_r = iter(replay[0] or ())
     given_x = iter(replay[1] or ())
 
-    def fgm(grad, epsilon=1.0):
-        r = normalize(grad, epsilon)
+    def fgm(grad, epsilon=1.0, group=None):
+        r = normalize(grad, epsilon, group)
         if replay[0] is not None:
             r = next(given_r)
         perts.append(r)
@@ -4482,6 +4512,422 @@ def phase_preprocess(seed):
           f"round trip ok")
 
 
+# ---------------------------------------------------------------------------
+# The native passes and the parallel runs (deepsc_gan_tpu_torch/native/,
+# deepsc_gan_tpu_torch/parallel/)
+
+NATIVE_REPEATS = 5
+
+
+def phase_native(seed, bs):
+    """The native library built with g++ (a failed build fails the run);
+    one bf16 full-prefix greedy sweep call on the trained weights (one
+    batch, 19 SNRs) decoded to sentences and scored by BleuScore both ways:
+    the scores equal (within 1e-12), and the host seconds of each way."""
+    path = native.build()
+    if not native.available():
+        raise AssertionError("the native library did not load")
+    print(f"[native] built {path.relative_to(os.getcwd())}")
+    params = load_params_pickle(PARAMS)
+    cfg = Config(bs=bs, tie_embeddings=is_tied(params))
+    model = load_into(make_model(cfg), params).cuda().eval()
+    inp = eval_batches(cfg.test_save_path, cfg.seq_len, cfg.vocab_size, bs,
+                       1, seed)[0]
+    n_stds = torch.tensor([SNR_to_noise(s) for s in SNRS],
+                          dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn((len(SNRS), bs, cfg.seq_len, cfg.channel_dim),
+                        generator=gen, device="cuda")
+    ids = make_greedy_decode_sweep(model, cfg)(
+        torch.as_tensor(inp, dtype=torch.long, device="cuda"), 0.0, n_stds,
+        noise).cpu().numpy()
+    s2t = SeqToText(Vocab.identity(cfg.vocab_size), cfg.end_idx)
+    ref = [s2t.sequence_to_text(row[1:]) for row in inp] * len(SNRS)
+    hyp = [s2t.sequence_to_text(row[1:]) for point in ids for row in point]
+    scores, seconds = {}, {}
+    for way in (True, False):
+        scorer = metrics.BleuScore(1.0, 0.0, 0.0, 0.0, native=way)
+        best = math.inf
+        for _ in range(NATIVE_REPEATS):
+            t0 = time.perf_counter()
+            scores[way] = scorer.compute_score(ref, hyp)
+            best = min(best, time.perf_counter() - t0)
+        seconds[way] = best
+    err = max_err([torch.tensor(scores[True], dtype=torch.float64)],
+                  [torch.tensor(scores[False], dtype=torch.float64)])
+    print(f"[native] BLEU of one greedy sweep call ({len(hyp)} sentence "
+          f"pairs): native {seconds[True] * 1e3:.3f} ms, Python "
+          f"{seconds[False] * 1e3:.3f} ms on the host (best of "
+          f"{NATIVE_REPEATS}; {CARD['smi']}); mean BLEU "
+          f"{np.mean(scores[True]):.6f}, max |native - Python| {err:.2e}")
+    if not err <= 1e-12:
+        raise AssertionError(f"native BLEU differs from the Python path by "
+                             f"{err}")
+    return {"native_ms": seconds[True] * 1e3,
+            "python_ms": seconds[False] * 1e3, "pairs": len(hyp)}
+
+
+DP_RANKS = 2
+DP_STEPS = 2
+DP_TIMED_STEPS = 10
+DP_VARIANT = {"plain": "transformer", "attack": "transformer", "gan": "gan",
+              "mine": "transformer", "star": "star"}
+# f32: the losses within DP_TOL relative; the gradients (averaged over
+# the ranks, as Adam takes them) and the params after the steps within
+# DP_TOL of their norm. Held by norm, not element by element: Adam's step
+# of an element whose gradient is near its rounding level is decided by
+# the gradient's last bits (at full width 3.8 % of the elements have
+# 0 < |g| < 1e-6), so two sum orders move such elements apart by up to
+# 2 lr, a local effect the norm shows at its size; a missing cross-rank
+# term moves every element and reads 1e-2 or more. MINE's T is held by its
+# gradients alone: the DV bound is blind to a shift of T, so its output
+# bias's gradient is 0 up to rounding and Adam moves it +-lr by the
+# rounding's sign (1.1e-4 of T's norm after one step, its gradients 4e-6:
+# this phase on an H100, PERF.md §6); its params' gap is printed.
+DP_TOL = 1e-4
+# bf16 plain steps: the losses within this relative gap. Two half-batches
+# may round apart from one batch in bf16; on the card the second step's
+# loss read 9.7e-6 apart (this phase on an H100, PERF.md §6), and a
+# missing cross-rank term reads 1e-2 or more
+DP_BF16_LOSS_TOL = 1e-3
+SNR_PARALLEL_POINTS = (0, 6, 12, 18)
+
+
+def _dp_step(mode, model, mine, cfg, mesh, star_target):
+    if mesh is None:
+        return {"plain": lambda: steps.make_train_step(
+                    model, cfg, full_target=star_target),
+                "star": lambda: steps.make_train_step(
+                    model, cfg, full_target=star_target),
+                "attack": lambda: steps.make_train_attack_step(
+                    model, cfg, adv_weight=0.5),
+                "gan": lambda: gan_steps.make_gan_train_step(model, cfg),
+                "mine": lambda: mine_steps.make_mine_train_step(
+                    model, mine, cfg)}[mode]()
+    return {"plain": lambda: sharding.make_parallel_train_step(
+                model, cfg, mesh, full_target=star_target),
+            "star": lambda: sharding.make_parallel_train_step(
+                model, cfg, mesh, full_target=star_target),
+            "attack": lambda: sharding.make_parallel_attack_step(
+                model, cfg, mesh, adv_weight=0.5),
+            "gan": lambda: sharding.make_parallel_gan_step(model, cfg, mesh),
+            "mine": lambda: sharding.make_parallel_mine_step(
+                model, mine, cfg, mesh)}[mode]()
+
+
+def _grad_recorder(prefix, module, grads):
+    """An optimizer pre-step hook: `module`'s gradients of the last update
+    (host copies)."""
+
+    def hook(opt, args, kwargs):
+        for name, p in module.named_parameters():
+            if p.grad is not None:
+                grads[prefix + name] = p.grad.detach().float().cpu()
+
+    return hook
+
+
+def _spread(module, mesh):
+    """The largest gap between this rank's parameters and the dp group's
+    first rank's (0 on every rank when they are equal)."""
+    worst = torch.zeros((), device="cuda")
+    src = dist.get_global_rank(mesh.dp_group, 0)
+    for p in module.parameters():
+        first = p.detach().clone()
+        dist.broadcast(first, src=src, group=mesh.dp_group)
+        worst = torch.maximum(worst, (first - p.detach()).abs().max())
+    return float(worst)
+
+
+def dp_run(mode, dtype, seed, bs, n_steps, mesh=None, full=True):
+    """`n_steps` steps of `mode` at the main model's full width (star: the
+    single-block star codec) in `dtype`, from a random init (`seed`), on
+    the first batches of the synthetic training set; single-process or
+    data-parallel over `mesh`. -> {"losses", "counts", "params", "mine",
+    "grads" (host copies; when `full`), "spread" (dp)}."""
+    variant = DP_VARIANT[mode]
+    cfg = Config(dtype=dtype, bs=bs, seq_len=default_seq_len(variant))
+    model = steps.init_params(make_model(cfg, variant), seed).cuda().train()
+    if mesh is not None:
+        sharding.replicate(model, mesh)
+    state = steps.create_train_state(model, cfg)
+    mine = mine_state = None
+    if mode == "mine":
+        mine, mine_state = mine_steps.create_mine_state(cfg, seed,
+                                                        device="cuda")
+        if mesh is not None:
+            sharding.replicate(mine, mesh)
+    step = _dp_step(mode, model, mine, cfg, mesh, is_star(variant))
+    grads = {}
+    state.optimizer.register_step_pre_hook(_grad_recorder("", model, grads))
+    if mine is not None:
+        mine_state.optimizer.register_step_pre_hook(
+            _grad_recorder("T.", mine, grads))
+    data = iter(load_train_dataset(cfg, seed))
+    batches = [torch.from_numpy(next(data)[0]).to("cuda", torch.long)
+               for _ in range(n_steps)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_std = float(snr_to_noise(cfg.train_snr))
+    losses = []
+    reset_launches()
+    for inp in batches:
+        if mode in ("plain", "star"):
+            state, out = step(state, inp, inp, gen, n_std)
+        elif mode == "attack":
+            state, out = step(state, inp, inp, gen, 0.0, n_std, 1.0)
+        elif mode == "gan":
+            state, out = step(state, inp, inp, gen, n_std)
+        else:
+            state, mine_state, out = step(state, mine_state, inp, inp, gen,
+                                          n_std)
+        losses.append(out)
+    torch.cuda.synchronize()
+    got = {"counts": launches(),
+           "losses": [[float(x) for x in (out if isinstance(out, tuple)
+                                          else (out,))] for out in losses]}
+    if mesh is not None:
+        got["spread"] = max(_spread(model, mesh), _spread(mine, mesh)
+                            if mine is not None else 0.0)
+    if full:
+        got.update(
+            params={n: p.detach().float().cpu()
+                    for n, p in model.named_parameters()},
+            mine=None if mine is None else {
+                n: p.detach().float().cpu()
+                for n, p in mine.named_parameters()},
+            grads=grads)
+    return got
+
+
+def dp_step_ms(seed, bs, mesh=None):
+    """Wall ms a step (host clock, the card synchronized at both ends) of
+    DP_TIMED_STEPS eager bf16 plain steps at full width after two warm-up
+    steps; single-process or data-parallel over `mesh`."""
+    cfg = Config(bs=bs)
+    model = steps.init_params(make_model(cfg), seed).cuda().train()
+    state = steps.create_train_state(model, cfg)
+    step = _dp_step("plain", model, None, cfg, mesh, False)
+    data = iter(load_train_dataset(cfg, seed))
+    inp = torch.from_numpy(next(data)[0]).to("cuda", torch.long)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_std = float(snr_to_noise(cfg.train_snr))
+    for _ in range(2):
+        step(state, inp, inp, gen, n_std)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED_STEPS):
+        step(state, inp, inp, gen, n_std)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS
+
+
+def snr_sweeps(seed, bs, mesh=None):
+    """The f32 greedy, KV and beam sweeps on the trained weights over
+    SNR_PARALLEL_POINTS, one batch, the noise drawn from `seed`;
+    single-process or split over the mesh's snr axis. -> {sweep: (ids,
+    launch counts)}."""
+    params = load_params_pickle(PARAMS)
+    cfg = Config(dtype="float32", bs=bs, tie_embeddings=is_tied(params))
+    model = load_into(make_model(cfg), params).cuda().eval()
+    inp = torch.as_tensor(eval_batches(cfg.test_save_path, cfg.seq_len,
+                                       cfg.vocab_size, bs, 1, seed)[0],
+                          dtype=torch.long, device="cuda")
+    points = SNR_PARALLEL_POINTS
+    n_stds = torch.tensor([SNR_to_noise(s) for s in points],
+                          dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn((len(points), bs, cfg.seq_len, cfg.channel_dim),
+                        generator=gen, device="cuda")
+    if mesh is None:
+        sweeps = {"greedy": make_greedy_decode_sweep(model, cfg),
+                  "kv": make_greedy_decode_kv_sweep(model, cfg),
+                  "beam": make_beam_decode_sweep(model, cfg, BEAM)}
+    else:
+        sweeps = {"greedy": sharding.make_parallel_greedy_sweep(model, cfg,
+                                                                mesh),
+                  "kv": sharding.make_parallel_greedy_kv_sweep(model, cfg,
+                                                               mesh),
+                  "beam": sharding.make_parallel_beam_sweep(model, cfg, mesh,
+                                                            BEAM)}
+    out = {}
+    for name, sweep in sweeps.items():
+        reset_launches()
+        ids = sweep(inp, 0.0, n_stds, noise).cpu()
+        out[name] = (ids, launches())
+    return out
+
+
+def parallel_rank(rank, spec):
+    """One rank of the dp or snr_parallel phase's group (spawned by
+    `run_ranks`): the runs of `spec["runs"]` (dp_run over a dp mesh of
+    every rank), the step timing, and the SNR-parallel sweeps over an snr
+    mesh. Full host copies come back from rank 0 only."""
+    backend = pmesh.initialize_distributed("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": backend, "world": pmesh.world_size(),
+           "device": str(torch.cuda.current_device()), "runs": {}}
+    if spec.get("runs") or spec.get("timing"):
+        mesh = pmesh.make_mesh(dp=pmesh.world_size())
+        for key, kw in spec.get("runs", {}).items():
+            out["runs"][key] = dp_run(mesh=mesh, full=rank == 0, **kw)
+        if spec.get("timing"):
+            out["ms"] = dp_step_ms(mesh=mesh, **spec["timing"])
+    if spec.get("sweeps"):
+        mesh = pmesh.make_mesh(dp=1, snr=pmesh.world_size())
+        out["sweeps"] = snr_sweeps(mesh=mesh, **spec["sweeps"])
+    return out
+
+
+def _norm_gap(got, want):
+    """||got - want|| / ||want|| over the tensors of two name -> tensor
+    maps (f64 sums), and the largest |got - want| over the largest
+    |want|."""
+    diff = sum(float(((got[n].double() - w.double()) ** 2).sum())
+               for n, w in want.items())
+    norm = sum(float((w.double() ** 2).sum()) for w in want.values())
+    worst = max(float((got[n] - w).abs().max()) for n, w in want.items())
+    return (diff / max(norm, 1e-300)) ** 0.5, worst / max(
+        float(w.abs().max()) for w in want.values())
+
+
+def dp_compare(tag, ref, got, tol):
+    """A dp run against the single-process one at f32 (see DP_TOL); ->
+    (the worst loss gap, the gradients' and each network's params' norm
+    gaps)."""
+    lr = np.asarray(ref["losses"], np.float64)
+    lg = np.asarray(got["losses"], np.float64)
+    loss_gap = float(np.max(np.abs(lg - lr) / np.abs(lr)))
+    grads = {n: g for n, g in ref["grads"].items() if not n.startswith("T.")}
+    gaps = {"grads": _norm_gap(got["grads"], grads),
+            "params": _norm_gap(got["params"], ref["params"])}
+    shown = {}
+    if ref["mine"] is not None:
+        gaps["T grads"] = _norm_gap(got["grads"], {
+            n: g for n, g in ref["grads"].items() if n.startswith("T.")})
+        shown["T params (not held)"] = _norm_gap(got["mine"], ref["mine"])
+    print(f"[dp] {tag}: losses {lr.tolist()} vs {lg.tolist()} (worst rel "
+          f"{loss_gap:.2e}); " + "; ".join(
+              f"{name} gap / norm {g[0]:.2e} (largest element gap / "
+              f"largest value {g[1]:.2e})"
+              for name, g in {**gaps, **shown}.items()))
+    if not (loss_gap <= tol and all(g[0] <= tol for g in gaps.values())):
+        raise AssertionError(f"dp {tag}: loss {loss_gap}, norm gaps "
+                             f"{ {k: g[0] for k, g in gaps.items()} }")
+    return loss_gap, gaps
+
+
+def _check_rank_counts(tag, ref, got, trained):
+    """Each rank launched what the single-process step launches a step
+    (its rows are half the batch; the launches are as many), every kernel
+    of `trained` among them."""
+    if got["counts"] != ref["counts"] or not all(
+            got["counts"][k] > 0 for k in trained):
+        raise AssertionError(f"dp {tag}: rank launches {got['counts']}, "
+                             f"single {ref['counts']}")
+
+
+def phase_dp(seed, bs):
+    """DP_RANKS ranks on the one card over the backend `parallel/mesh.py`
+    chooses (gloo: they share the card), at the main model's full width,
+    global batch `bs`: DP_STEPS f32 plain steps, and one f32 FGM (adv
+    weight 0.5, PNR 0 dB), GAN, MINE and star step, each against the
+    single-process step on the card (DP_TOL), every rank's launches equal
+    to the single step's (K1-K4; K5 for star) and every rank ending with
+    the same parameters; DP_STEPS bf16 plain steps, the losses within
+    DP_BF16_LOSS_TOL; one f32 plain step in a one-rank group (NCCL: a card
+    of its own) against the single step; the dp step's ms against the
+    single step's. -> the launches of every rank's runs, summed."""
+    runs = {f"{mode}_f32": dict(mode=mode, dtype="float32", seed=seed,
+                                bs=bs, n_steps=DP_STEPS if mode == "plain"
+                                else 1) for mode in DP_VARIANT}
+    runs["plain_bf16"] = dict(mode="plain", dtype="bfloat16", seed=seed,
+                              bs=bs, n_steps=DP_STEPS)
+    refs = {key: dp_run(**kw) for key, kw in runs.items()}
+    single_ms = dp_step_ms(seed, bs)
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, DP_RANKS,
+                      {"runs": runs, "timing": dict(seed=seed, bs=bs)})
+    print(f"[dp] {DP_RANKS} ranks spawned and run: "
+          f"{time.perf_counter() - t0:.1f} s")
+    backends = {r["backend"] for r in ranks}
+    print(f"[dp] backend {backends} for {DP_RANKS} ranks on "
+          f"{torch.cuda.device_count()} card(s) (parallel/mesh.py: NCCL "
+          f"where every rank has a card of its own, else gloo); devices "
+          f"{[r['device'] for r in ranks]}")
+    if backends != {"nccl" if DP_RANKS <= torch.cuda.device_count()
+                    else "gloo"}:
+        raise AssertionError(f"dp backend {backends}")
+    total = {name: 0 for name in COUNTERS}
+    for key, ref in refs.items():
+        mode = runs[key]["mode"]
+        trained = ((star.KERNEL,) if mode == "star" else
+                   (attn.KERNEL, attn.KERNEL_BWD))
+        if mode != "mine":
+            trained += (ce.KERNEL_FWD, ce.KERNEL_BWD)
+        for r, out in enumerate(ranks):
+            got = out["runs"][key]
+            _check_rank_counts(f"{key} rank {r}", ref, got, trained)
+            total = _sum_counts(total, got["counts"])
+            if got["spread"] != 0.0:
+                raise AssertionError(f"dp {key}: rank {r}'s parameters "
+                                     f"differ from rank 0's by "
+                                     f"{got['spread']}")
+        got = ranks[0]["runs"][key]
+        if runs[key]["dtype"] == "float32":
+            dp_compare(key, ref, got, DP_TOL)
+            continue
+        lr = np.asarray(ref["losses"], np.float64)[:, 0]
+        lg = np.asarray(got["losses"], np.float64)[:, 0]
+        gap = float(np.max(np.abs(lg - lr) / np.abs(lr)))
+        print(f"[dp] {key}: losses {lr.tolist()} vs {lg.tolist()} (worst "
+              f"rel {gap:.2e}, tolerance {DP_BF16_LOSS_TOL})")
+        if not gap <= DP_BF16_LOSS_TOL:
+            raise AssertionError(f"dp {key}: loss gap {gap}")
+    print(f"[dp] launches of every rank's runs: {json.dumps(total)}")
+    ms = [r["ms"] for r in ranks]
+    print(f"[dp] bf16 plain eager step at full width, global batch {bs}: "
+          f"dp {DP_RANKS} ranks {max(ms):.3f} ms a step (ranks "
+          f"{', '.join(f'{m:.3f}' for m in ms)}), single process "
+          f"{single_ms:.3f} ms ({CARD['smi']}); on one card the ranks "
+          f"share it, so the gap is the collectives' overhead (gloo through "
+          f"the host), not scaling")
+    one = run_ranks(parallel_rank, 1, {"runs": {"plain_f32": runs[
+        "plain_f32"]}})[0]
+    print(f"[dp] one-rank group: backend {one['backend']}")
+    if one["backend"] != "nccl":
+        raise AssertionError(f"one-rank group on {one['backend']}")
+    _check_rank_counts("plain_f32 nccl", refs["plain_f32"],
+                       one["runs"]["plain_f32"], (attn.KERNEL,))
+    dp_compare("plain_f32, one-rank NCCL group", refs["plain_f32"],
+               one["runs"]["plain_f32"], DP_TOL)
+    return total, {"dp_ms": max(ms), "single_ms": single_ms}
+
+
+def phase_snr_parallel(seed, bs):
+    """DP_RANKS ranks on the card, the f32 greedy, KV and beam sweeps over
+    SNR_PARALLEL_POINTS split over them: the gathered ids equal the
+    single-process sweeps'; each rank launched K1 (and K6 for the beam).
+    -> the launches of every rank's sweeps, summed."""
+    ref = snr_sweeps(seed, bs)
+    ranks = run_ranks(parallel_rank, DP_RANKS,
+                      {"sweeps": dict(seed=seed, bs=bs)})
+    total = {name: 0 for name in COUNTERS}
+    for r, out in enumerate(ranks):
+        for name, (ids, counts) in out["sweeps"].items():
+            same_ids(f"snr_parallel {name} rank {r} ({len(SNR_PARALLEL_POINTS)}"
+                     f" SNRs over {DP_RANKS} ranks)", ids, ref[name][0])
+            want = (attn.KERNEL,) + ((topk.KERNEL,) if name == "beam"
+                                     else ())
+            if not all(counts[k] > 0 for k in want):
+                raise AssertionError(f"snr_parallel {name} rank {r}: "
+                                     f"launches {counts}")
+            total = _sum_counts(total, counts)
+    print(f"[snr_parallel] launches of every rank's sweeps: "
+          f"{json.dumps(total)}")
+    return total
+
+
 KERNEL_INFO = {
     attn.KERNEL: ("deepsc_gan_tpu/ops/pallas/attention.py:125",
                   "decoder_self", "serving: decoder self-attention, bf16, "
@@ -4543,7 +4989,8 @@ def kernels_line(rows, by_path):
     and decodes, long_len: the vanilla train epoch at seq_len LONG_SEQ,
     gan_train, gan_eval: its three tables and sweeps, gan_star: its
     training and its greedy_gan sweep, seq256: the train epoch at seq_len
-    SEQ256, beam100: the beam-100 call) and `launches` their sum. K1's and
+    SEQ256, beam100: the beam-100 call, dp and snr_parallel: every rank's
+    runs of phases 28 and 29) and `launches` their sum. K1's and
     K2's entries also hold their long-length row (`long`: N = 64, L =
     LONG_LEN), K4's its dh-only mode (`dh_only`: the K4 launches that ran
     in it, and its bf16 row at the training shape); the chunked K1/K2's and
@@ -4908,8 +5355,8 @@ def timed(name):
 
 
 def run_phases(args, jobs, routes):
-    """Phases 3 to 25; -> the kernels line's entries (their designs from
-    `routes`, phase 26's)."""
+    """Phases 3 to 25 and 27 to 29; -> the kernels line's entries (their
+    designs from `routes`, phase 26's)."""
     seed, bs = args.seed, args.bs
     with timed("kernels"):
         rows = phase_kernels(seed, len(SNRS) * bs, bs, args.iters)
@@ -4964,6 +5411,14 @@ def run_phases(args, jobs, routes):
     with timed("mine"):
         by_path["mine_train"] = phase_mine_train(seed, MINE_EPOCHS, bs)
         phase_mine_step_parity(seed, bs)
+    with timed("native"):
+        native_ms = phase_native(seed, bs)
+    with timed("dp"):
+        by_path["dp"], dp_ms = phase_dp(seed, bs)
+    with timed("snr_parallel"):
+        by_path["snr_parallel"] = phase_snr_parallel(seed, bs)
+    print(f"[parallel] {json.dumps({'native': native_ms, 'dp': dp_ms})} "
+          f"({CARD['smi']})")
     with timed("resume"):
         by_path["resume"] = phase_resume(seed, bs)
     with timed("levers"):

@@ -92,6 +92,22 @@ Chrome trace in `DIR/trace.json`). The training set takes `--aug-crop`,
 `--fuse-qkv` change how the models compute, not what (the Config
 docstring lists the flags accepted without effect). Runs on CUDA unless
 `--device` names another device.
+
+Parallel runs, one process a rank under a launcher, each rank on
+`cuda:LOCAL_RANK % device_count` (`parallel/`): `train --distributed --dp
+N` trains data-parallel (the rows of each global batch split over N ranks,
+the gradients averaged; one eager step a call, as the JAX CLI's dp path),
+`evaluate --distributed --snr-parallel N` splits the greedy, KV and beam
+sweeps' SNR points over N ranks; `--dp x --snr-parallel` must be the
+launcher's world size. The backend is NCCL where every rank has a card of
+its own, gloo where ranks share one or on the CPU. Only rank 0 prints and
+writes logs, tables and checkpoints. `--tp` and `--pp` above 1 stop with
+the ROADMAP item that will bring them.
+
+  torchrun --nproc-per-node 2 -m deepsc_gan_tpu_torch.cli train \
+      --distributed --dp 2 --epochs 3
+  torchrun --nproc-per-node 2 -m deepsc_gan_tpu_torch.cli evaluate \
+      --distributed --snr-parallel 2 --snr-lo 0 --snr-hi 17 --kv-cache
 """
 
 from __future__ import annotations
@@ -104,6 +120,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from deepsc_gan_tpu_torch.baselines.pipeline import classical_sweep
 from deepsc_gan_tpu_torch.data import preprocess
@@ -138,6 +155,8 @@ from deepsc_gan_tpu_torch.ops.attention_kernel import plain_attention
 from deepsc_gan_tpu_torch.ops.envelope import check_envelope
 from deepsc_gan_tpu_torch.ops.star_kernel import plain_satellite
 from deepsc_gan_tpu_torch.ops.topk_kernel import topk_logits_reference
+from deepsc_gan_tpu_torch.parallel import mesh as pmesh
+from deepsc_gan_tpu_torch.parallel import sharding
 from deepsc_gan_tpu_torch.train.gan_steps import (
     make_gan_eval_step,
     make_gan_train_step,
@@ -257,6 +276,49 @@ def load_vocab(cfg: Config) -> Vocab:
             else Vocab.identity(cfg.vocab_size))
 
 
+def parallel_mesh(args, cfg: Config, device, snr_parallel: int = 1):
+    """The run's (snr, dp) mesh, or None for a single process: the JAX
+    CLI's checks (--tp and --pp are not in the port; bs divisible by --dp),
+    then with --distributed the launcher's process group joined; --dp x
+    --snr-parallel must equal its world size. SystemExit otherwise."""
+    if cfg.tp > 1:
+        raise SystemExit(f"--tp {cfg.tp}: the vocab-parallel CE is not in "
+                         "the port yet (ROADMAP §A.2.2); run with --tp 1")
+    if cfg.pp > 1:
+        raise SystemExit(f"--pp {cfg.pp}: GPipe is not in the port yet "
+                         "(ROADMAP §A.2.3); run with --pp 1")
+    if cfg.dp < 1 or snr_parallel < 1:
+        raise SystemExit("--dp and --snr-parallel must be at least 1")
+    if cfg.bs % cfg.dp:
+        raise SystemExit(f"batch size {cfg.bs} not divisible by --dp "
+                         f"{cfg.dp}")
+    if args.distributed:
+        pmesh.initialize_distributed(device.type)
+    world = pmesh.world_size()
+    want = cfg.dp * snr_parallel
+    if want != world:
+        have = (f"the process group has {world}" if dist.is_initialized()
+                else "there is no process group")
+        raise SystemExit(
+            f"--dp {cfg.dp} x --snr-parallel {snr_parallel} = {want} ranks, "
+            f"but {have}: start one process a rank under a launcher and "
+            f"pass --distributed, e.g. torchrun --nproc-per-node {want} -m "
+            f"deepsc_gan_tpu_torch.cli {args.cmd} --distributed ...")
+    if not dist.is_initialized():
+        return None
+    return pmesh.make_mesh(dp=cfg.dp, snr=snr_parallel)
+
+
+class _Quiet:
+    """The metric logger of a rank other than 0: logs nothing."""
+
+    def log(self, **metrics):
+        return metrics
+
+    def close(self) -> None:
+        pass
+
+
 EVAL_MODES = ("greedy", "beam", "greedy_attack", "greedy_gan",
               "teacher_forced", "pgd")
 
@@ -276,6 +338,22 @@ def cmd_evaluate(args) -> dict:
             "them in one shot")
     device = resolve_device(args.device)
     cfg = variant_config(args)
+    snrs = list(range(args.snr_lo, args.snr_hi + 1))
+    if args.snr_parallel > 1:
+        if args.eval_mode not in ("greedy", "beam"):
+            raise SystemExit("--snr-parallel splits the greedy and beam "
+                             "sweeps (--eval-mode greedy or beam)")
+        if len(snrs) % args.snr_parallel:
+            raise SystemExit(
+                f"--snr-parallel {args.snr_parallel} must divide the "
+                f"number of SNR points ({len(snrs)})")
+        if args.eval_mode == "beam" and args.beam_impl == "full":
+            raise SystemExit("--snr-parallel beam runs the KV-cached "
+                             "serving impl (--beam-impl kv)")
+    mesh = parallel_mesh(args, cfg, device, args.snr_parallel)
+    if mesh is not None and device.type == "cuda":
+        device = pmesh.rank_device()
+    lead = pmesh.rank() == 0
     check_envelope(cfg, args.variant, args.eval_mode, args.beam_size,
                    args.kv_cache, args.beam_impl, device)
     cfg, model, params_path = restore_model(args, cfg, device, "eval")
@@ -283,7 +361,6 @@ def cmd_evaluate(args) -> dict:
     # seed 0, as the JAX CLI's test set (its `_load_dataset` default)
     batches = eval_batches(cfg.test_save_path, cfg.seq_len, cfg.vocab_size,
                            cfg.bs, args.eval_batches)
-    snrs = list(range(args.snr_lo, args.snr_hi + 1))
     seconds, eps_star = [], []
 
     def timed(fn):
@@ -318,13 +395,21 @@ def cmd_evaluate(args) -> dict:
             timed(make(model, cfg, full_target=star)), batches, vocab, cfg,
             gen, snrs=snrs, pnr_db=args.pnr_db, epsilon=args.epsilon,
             metric=args.metric)
-        for row in table:
+        for row in table if lead else ():
             print(f"SNR={row[0]:.0f}dB metrics(clean|attacked)="
                   + " ".join(f"{m:.4f}" for m in row[1:-2])
                   + f" loss={row[-2]:.4f}/{row[-1]:.4f}")
         name = f"eval-{args.variant}.pkl"
     else:
-        if args.eval_mode == "beam":
+        if args.eval_mode == "beam" and args.snr_parallel > 1:
+            # every SNR point of a batch in one call, the points split
+            # over the snr ranks (the JAX CLI's sharded beam sweep)
+            sweep = sharding.make_parallel_beam_sweep(model, cfg, mesh,
+                                                      args.beam_size)
+            table = snr_sweep_bleu_fast(timed(sweep), batches, vocab, cfg,
+                                        gen, snrs=snrs, pnr_db=args.pnr_db,
+                                        metric=args.metric)
+        elif args.eval_mode == "beam":
             make = make_beam_decode if args.beam_impl == "full" \
                 else make_beam_decode_kv
             table = snr_sweep_bleu(timed(make(model, cfg, args.beam_size)),
@@ -348,12 +433,17 @@ def cmd_evaluate(args) -> dict:
                 sweep = make_greedy_decode_kv_sweep(model, cfg)
             else:
                 sweep = make_greedy_decode_sweep(model, cfg)
+            if args.snr_parallel > 1:
+                sweep = sharding.sharded_sweep(sweep, mesh)
             table = snr_sweep_bleu_fast(timed(sweep), batches, vocab, cfg,
                                         gen, snrs=snrs, pnr_db=args.pnr_db,
                                         metric=args.metric)
-        for snr, *ms in table:
-            print(f"SNR={snr:.0f}dB " + " ".join(f"{m:.4f}" for m in ms))
-    save_result_table(table, os.path.join(cfg.log_save_path, name))
+        if lead:
+            for snr, *ms in table:
+                print(f"SNR={snr:.0f}dB "
+                      + " ".join(f"{m:.4f}" for m in ms))
+    if lead:
+        save_result_table(table, os.path.join(cfg.log_save_path, name))
     return {"table": table, "device": str(device),
             "sequences": len(snrs) * sum(len(b) for b in batches),
             "decode_seconds": seconds, "params_path": params_path,
@@ -419,7 +509,14 @@ def cmd_train(args) -> dict:
     (step // K) % --log-every == 0; `--scan-steps 1`, the attack and the
     GAN modes run one step a call (path `single`), MINE one step a call
     (path `mine`), a loss logged every --log-every steps. Step numbers in
-    the log count from the first epoch, resumed runs included."""
+    the log count from the first epoch, resumed runs included.
+
+    With a process group (`--distributed`; `parallel_mesh`) every mode
+    runs its data-parallel step (`parallel/sharding.py`), one eager step a
+    call (path `dpN:<mode>`): each rank loads the same global batches and
+    trains on its rows; the parameters start from rank 0's; only rank 0
+    prints and writes the log, the checkpoints and the params ("params_path"
+    None on the others)."""
     mode = args.train_mode
     if mode == "gan" and not is_gan(args.variant):
         raise SystemExit(f"--train-mode gan needs a GAN transceiver "
@@ -429,11 +526,17 @@ def cmd_train(args) -> dict:
         raise SystemExit(MINE_REFUSAL)
     device = resolve_device(args.device)
     cfg = variant_config(args)
+    mesh = parallel_mesh(args, cfg, device)
+    if mesh is not None and device.type == "cuda":
+        device = pmesh.rank_device()
+    lead = pmesh.rank() == 0
     check_envelope(cfg, args.variant, "mine" if mode == "mine" else None,
                    device=device)
     cfg, model = load_model(cfg, args.params_pkl, device, args.seed,
                             args.variant)
     model.train()
+    if mesh is not None:
+        sharding.replicate(model, mesh)
     state = create_train_state(model, cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     start_epoch = 0
@@ -441,22 +544,40 @@ def cmd_train(args) -> dict:
         start_epoch = resume_from_checkpoint(cfg, args.variant, state, gen)
     star = is_star(args.variant)
     scan_k = max(1, args.scan_steps)
-    scan = mode == "plain" and scan_k > 1
+    scan = mode == "plain" and scan_k > 1 and mesh is None
     mine_state = None
-    if mode == "attack":
+    if mode == "mine":
+        mine, mine_state = create_mine_state(cfg, args.seed, device=device)
+    if mesh is not None:
+        if mode == "attack":
+            step = sharding.make_parallel_attack_step(
+                model, cfg, mesh, full_target=star,
+                adv_weight=args.adv_weight)
+        elif mode == "gan":
+            step = sharding.make_parallel_gan_step(model, cfg, mesh,
+                                                   full_target=star)
+        elif mode == "mine":
+            step = sharding.make_parallel_mine_step(
+                model, sharding.replicate(mine, mesh), cfg, mesh)
+        else:
+            step = sharding.make_parallel_train_step(model, cfg, mesh,
+                                                     full_target=star)
+    elif mode == "attack":
         step = make_train_attack_step(model, cfg, full_target=star,
                                       adv_weight=args.adv_weight)
     elif mode == "gan":
         step = make_gan_train_step(model, cfg, full_target=star)
     elif mode == "mine":
-        mine, mine_state = create_mine_state(cfg, args.seed, device=device)
         step = make_mine_train_step(model, mine, cfg)
     elif scan:
         step = make_train_multi_step(model, cfg, full_target=star)
     else:
         step = make_train_step(model, cfg, full_target=star)
-    path = f"scan{scan_k}" if scan else ("mine" if mode == "mine"
-                                         else "single")
+    if mesh is not None:
+        path = f"dp{mesh.dp}:{mode}"
+    else:
+        path = f"scan{scan_k}" if scan else ("mine" if mode == "mine"
+                                             else "single")
     ds = load_train_dataset(cfg, args.seed)
     if args.resume and scan and len(ds) % scan_k:
         print(f"[train] --resume: not bit-identical to a run not stopped: "
@@ -465,11 +586,15 @@ def cmd_train(args) -> dict:
               f"a new one)", file=sys.stderr)
     n_std = float(snr_to_noise(cfg.train_snr))
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[train] variant={args.variant} mode={mode} path={path} "
-          f"device={device} params={n_params:,}")
-    logger = MetricLogger(os.path.join(cfg.log_save_path, "train.jsonl"))
-    ckpt = CheckpointManager(
-        os.path.join(cfg.checkpoint_path, args.variant), max_to_keep=5)
+    if lead:
+        print(f"[train] variant={args.variant} mode={mode} path={path} "
+              f"device={device} params={n_params:,}")
+        logger = MetricLogger(os.path.join(cfg.log_save_path,
+                                           "train.jsonl"))
+        ckpt = CheckpointManager(
+            os.path.join(cfg.checkpoint_path, args.variant), max_to_keep=5)
+    else:
+        logger, ckpt = _Quiet(), None
     losses, clean_losses, g_losses, d_losses, mis = [], [], [], [], []
     epoch_seconds, rates = [], []
     stacker = stacked_batches(ds, scan_k) if scan else None
@@ -539,9 +664,11 @@ def cmd_train(args) -> dict:
             epoch_seconds.append(dt)
             rates.append(epoch_sents / dt)
             logger.log(epoch=epoch, epoch_time=dt, sents_per_sec=rates[-1])
-            if (epoch + 1) % args.ckpt_every == 0 or epoch + 1 == cfg.epochs:
+            if lead and ((epoch + 1) % args.ckpt_every == 0
+                         or epoch + 1 == cfg.epochs):
                 ckpt.save(epoch + 1, state, {"generator": gen.get_state()})
-    ckpt.close()
+    if lead:
+        ckpt.close()
     logger.close()
     steps_taken = len(losses)
     recipe = {"variant": args.variant, "train_mode": mode,
@@ -565,10 +692,14 @@ def cmd_train(args) -> dict:
                       optimizer_updates=state.step)
     if mode == "mine":
         recipe.update(mine_lambda=cfg.mine_lambda)
-    path_pkl = save_params_pickle(
-        os.path.join(cfg.checkpoint_path, f"{args.variant}_params.pkl"),
-        eval_params(state), cfg, recipe)
-    print(f"[train] done: {steps_taken} steps; params -> {path_pkl}")
+    if mesh is not None:
+        recipe.update(dp=mesh.dp)
+    path_pkl = None
+    if lead:
+        path_pkl = save_params_pickle(
+            os.path.join(cfg.checkpoint_path, f"{args.variant}_params.pkl"),
+            eval_params(state), cfg, recipe)
+        print(f"[train] done: {steps_taken} steps; params -> {path_pkl}")
 
     def host(xs):
         return torch.stack(xs).float().cpu() if xs else torch.zeros(0)
@@ -798,6 +929,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-batches", type=int, default=8)
     p.add_argument("--snr-lo", type=int, default=0)
     p.add_argument("--snr-hi", type=int, default=18)
+    p.add_argument("--snr-parallel", type=int, default=1,
+                   help="greedy (full-prefix or --kv-cache) and beam (KV) "
+                        "modes: split the sweep's SNR points over this many "
+                        "ranks (it must divide their count; one process a "
+                        "rank, --distributed)")
+    _distributed_arg(p)
 
     t = sub.add_parser("train")
     add_config_args(t)
@@ -826,7 +963,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--scan-steps", type=int, default=32,
                    help="plain mode: K steps a call, on CUDA K replays of "
                         "one captured CUDA graph of the step (the JAX CLI's "
-                        "lax.scan path); 1 = one eager step a call")
+                        "lax.scan path); 1 = one eager step a call. Under "
+                        "--dp (a process group) every step is an eager "
+                        "call and no CUDA graph is captured, as the JAX "
+                        "CLI's dp path runs no scan")
+    _distributed_arg(t)
     t.add_argument("--ckpt-every", type=int, default=10,
                    help="save an epoch checkpoint every N epochs under "
                         "<checkpoint-path>/<variant>/<epoch>/ (the last "
@@ -899,6 +1040,15 @@ def build_parser() -> argparse.ArgumentParser:
     bl.add_argument("--baseline-seed", type=int, default=0)
     _device_arg(bl)
     return parser
+
+
+def _distributed_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group a launcher (torchrun) "
+                        "describes in the environment (RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL where "
+                        "every rank has a card of its own, else gloo; "
+                        "each rank on cuda:LOCAL_RANK % device_count")
 
 
 def _device_arg(p: argparse.ArgumentParser) -> None:

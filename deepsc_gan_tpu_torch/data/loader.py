@@ -13,11 +13,16 @@ from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
+from deepsc_gan_tpu_torch import native as native_text
+
 
 def pad_sequences(seqs: Sequence[Sequence[int]], maxlen: int = 31,
-                  pad_value: int = 0) -> np.ndarray:
+                  pad_value: int = 0, native: bool = True) -> np.ndarray:
     """Post-pad and post-truncate to (N, maxlen) int32 (keras
-    `pad_sequences(..., padding='post')`)."""
+    `pad_sequences(..., padding='post')`), by the native pass
+    (`native.pad_sequences`) when `native` and the library builds."""
+    if native and native_text.available():
+        return native_text.pad_sequences(seqs, maxlen, pad_value)
     out = np.full((len(seqs), maxlen), pad_value, dtype=np.int32)
     for i, s in enumerate(seqs):
         trunc = list(s)[:maxlen]

@@ -1,6 +1,6 @@
 """Europarl corpus preprocessing (JAX package `data/preprocess.py:36-163`,
-its Python path): NFD unicode fold, tag strip, `!.?` spaced out, everything
-but `[a-zA-Z.!?]` turned to spaces, lower case; sentences of 5 to 29 words;
+its native pass or its Python path): NFD unicode fold, tag strip, `!.?`
+spaced out, everything but `[a-zA-Z.!?]` turned to spaces, lower case; sentences of 5 to 29 words;
 order-preserving dedupe; `;` and `,` kept as tokens and `?` and `.` removed
 at tokenize time; a sorted vocab after the specials; <START>/<END> around
 each sentence; a 90/10 train/test split by `round`. Outputs: the vocab JSON
@@ -20,6 +20,7 @@ import re
 import unicodedata
 from typing import Iterable, List, Sequence, Tuple
 
+from deepsc_gan_tpu_torch import native as native_text
 from deepsc_gan_tpu_torch.data.vocab import Vocab
 
 _TAG_RE = re.compile(r"<[^>]*>")
@@ -61,11 +62,16 @@ def cutted_data(cleaned: Iterable[str], min_length: int = 4,
     return out
 
 
-def process_file(text_path: str) -> List[str]:
+def process_file(text_path: str, native: bool = True) -> List[str]:
+    """The file's lines normalized and cut: by the native pass
+    (`native.normalize_lines`, one C call for the file) when `native` and
+    the library builds, else by `normalize_string`."""
     with open(text_path, "r", encoding="utf8") as f:
         raw = f.read()
-    return cutted_data(normalize_string(s)
-                       for s in raw.strip().split("\n"))
+    lines = raw.strip().split("\n")
+    if native and native_text.available():
+        return cutted_data(native_text.normalize_lines(lines))
+    return cutted_data(normalize_string(s) for s in lines)
 
 
 def tokenize(s: str, delim: str = " ", add_start_token: bool = True,

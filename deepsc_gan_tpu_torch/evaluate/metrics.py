@@ -1,7 +1,8 @@
 """Text metrics (JAX package `evaluate/metrics.py`).
 
-- BLEU in pure Python with NLTK `sentence_bleu` semantics (one reference,
-  no smoothing): clipped n-gram precisions with a denominator of at least
+- BLEU with NLTK `sentence_bleu` semantics (one reference, no
+  smoothing), by the native scorer (`native/bleu.cc`) or in pure Python:
+  clipped n-gram precisions with a denominator of at least
   1; score 0 when no unigram matches; a zero higher-order numerator becomes
   the smallest positive float (NLTK's method0); brevity penalty
   exp(1 - ref_len / hyp_len) when the hypothesis is not longer. Tags like
@@ -28,6 +29,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from deepsc_gan_tpu_torch import native as native_text
 from deepsc_gan_tpu_torch.data.wordpiece import WordPieceTokenizer
 from deepsc_gan_tpu_torch.models.bert import exact_f32_matmuls, load_bert
 from deepsc_gan_tpu_torch.utils.device import resolve_device
@@ -66,13 +68,33 @@ def sentence_bleu(ref: Sequence[str], hyp: Sequence[str],
 
 
 class BleuScore:
-    """Per-sentence BLEU with 1-4-gram weights (reference `BleuScore`)."""
+    """Per-sentence BLEU with 1-4-gram weights (reference `BleuScore`).
 
-    def __init__(self, w1: float, w2: float, w3: float, w4: float):
+    With `native` (the default) the words of each call are interned to
+    integer ids and scored by the C++ batch scorer (`native.bleu_batch`,
+    the same semantics), as the JAX package's `BleuScore` does; where the
+    library cannot be built, and with `native=False`, `sentence_bleu`."""
+
+    def __init__(self, w1: float, w2: float, w3: float, w4: float,
+                 native: bool = True):
         self.weights = (w1, w2, w3, w4)
+        self.native = native
+
+    def _compute_native(self, real, predicted) -> List[float]:
+        intern: dict = {}
+
+        def ids(sent):
+            return [intern.setdefault(w, len(intern))
+                    for w in _remove_tags(sent).split()]
+
+        return native_text.bleu_batch([ids(s) for s in real],
+                                      [ids(s) for s in predicted],
+                                      self.weights).tolist()
 
     def compute_score(self, real: Sequence[str],
                       predicted: Sequence[str]) -> List[float]:
+        if self.native and native_text.available():
+            return self._compute_native(real, predicted)
         return [sentence_bleu(_remove_tags(r).split(),
                               _remove_tags(p).split(), self.weights)
                 for r, p in zip(real, predicted)]

@@ -18,10 +18,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from deepsc_gan_tpu_torch.models.transformer import LayerNorm
 from deepsc_gan_tpu_torch.ops.layers import Dense
+from deepsc_gan_tpu_torch.parallel.batch import all_sum, dp_group, draw_rows
 
 
 def f32_scalar(value, device) -> torch.Tensor:
@@ -42,20 +44,23 @@ def snr_to_noise(snr_db) -> torch.Tensor:
 
 
 def awgn(x: torch.Tensor, noise: torch.Tensor, n_std,
-         p: Optional[torch.Tensor] = None, pnr_db: float = 0.0
-         ) -> torch.Tensor:
+         p: Optional[torch.Tensor] = None, pnr_db: float = 0.0,
+         group=None) -> torch.Tensor:
     """y = x + n_std * noise + n_std * sqrt(PNR) * (sqrt(size) * p), in f32.
 
     `noise` is standard normal, shaped like x (or broadcasting against it
     with leading noise-level axes); `n_std` broadcasts against it. `p` is
-    the perturbation; None means zero, where the term is exactly 0."""
+    the perturbation; None means zero, where the term is exactly 0. `size`
+    is the whole batch's element count: x's times the dp `group`'s size
+    when x is a rank's rows."""
     x = x.to(torch.float32)
     n_std = f32_scalar(n_std, x.device)
     y = x + n_std * noise
     if p is not None:
         f32 = {"dtype": torch.float32, "device": x.device}
         pnr = 10.0 ** (torch.tensor(pnr_db, **f32) / 10.0)
-        size = torch.tensor(float(x.numel()), **f32)
+        ranks = 1 if group is None else dist.get_world_size(group)
+        size = torch.tensor(float(x.numel() * ranks), **f32)
         y = y + n_std * torch.sqrt(pnr) * (torch.sqrt(size) * p)
     return y
 
@@ -106,9 +111,11 @@ def channel(x: torch.Tensor, noise: torch.Tensor, n_std,
             kind: str = "AWGN", fade: Optional[torch.Tensor] = None,
             equalizer: Optional[str] = None) -> torch.Tensor:
     """The reference's dispatch: "AWGN" | "Rayleigh" (K = 0) | anything else
-    Rician (K = 1). A fading channel needs its `fade` draw."""
+    Rician (K = 1). A fading channel needs its `fade` draw. Under a
+    data-parallel shard (`parallel/batch.py`) the perturbation's scale
+    counts the global batch."""
     if kind == "AWGN":
-        return awgn(x, noise, n_std, p, pnr_db)
+        return awgn(x, noise, n_std, p, pnr_db, dp_group())
     if fade is None:
         raise ValueError(f"the {kind} channel needs its fade draw")
     return fading(x, fade, noise, n_std, 0.0 if kind == "Rayleigh" else 1.0,
@@ -121,22 +128,36 @@ def draw_channel(generator: torch.Generator, shape, kind: str = "AWGN",
     leading axes `lead`, then for a fading `kind` the standard-normal fade
     ((*lead, 2), or (*lead, B, 1, 2) `per_sample`), else None; both f32 from
     `generator` on its device, in that order, so an AWGN channel draws the
-    noise alone."""
+    noise alone. Under a data-parallel shard B is the rank's rows: the
+    global batch's values are drawn and the rank's rows kept."""
     f32 = {"generator": generator, "device": generator.device,
            "dtype": torch.float32}
     lead = tuple(lead)
-    noise = torch.randn(lead + tuple(shape), **f32)
+
+    def randn(s):
+        return torch.randn(s, **f32)
+
+    noise = draw_rows(randn, lead + tuple(shape), len(lead))
     if kind == "AWGN":
         return noise, None
-    fade = (shape[0], 1, 2) if per_sample else (2,)
-    return noise, torch.randn(lead + fade, **f32)
+    if per_sample:
+        return noise, draw_rows(randn, lead + (shape[0], 1, 2), len(lead))
+    return noise, randn(lead + (2,))
 
 
-def power_normalize(x: torch.Tensor, half: bool = False) -> torch.Tensor:
+def power_normalize(x: torch.Tensor, half: bool = False,
+                    group=None) -> torch.Tensor:
     """x / sqrt(mean(x^2)): unit average power over the WHOLE tensor
     (every row of the batch shares one normalizer); with `half`,
-    x / sqrt(2 mean(x^2)), half unit power (the GAN generator's)."""
-    return x / torch.sqrt((2.0 if half else 1.0) * torch.mean(torch.square(x)))
+    x / sqrt(2 mean(x^2)), half unit power (the GAN generator's). With a
+    dp `group`, x is a rank's rows and the mean is the global batch's: a
+    sum of squares and a count summed over the group (differentiable)."""
+    scale = 2.0 if half else 1.0
+    if group is None:
+        return x / torch.sqrt(scale * torch.mean(torch.square(x)))
+    count = torch.tensor(float(x.numel()), dtype=x.dtype, device=x.device)
+    stats = all_sum(torch.stack([torch.sum(torch.square(x)), count]), group)
+    return x / torch.sqrt(scale * (stats[0] / stats[1]))
 
 
 class ChannelEncoder(nn.Module):
@@ -151,7 +172,7 @@ class ChannelEncoder(nn.Module):
 
     def forward(self, x):
         x = self.dense1(torch.relu(self.dense0(x)))
-        return power_normalize(x.float()).to(self.dtype)
+        return power_normalize(x.float(), group=dp_group()).to(self.dtype)
 
 
 class ChannelDecoder(nn.Module):

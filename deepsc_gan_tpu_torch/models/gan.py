@@ -24,6 +24,7 @@ from torch import nn
 
 from deepsc_gan_tpu_torch.models.channel import power_normalize
 from deepsc_gan_tpu_torch.ops.layers import Dense
+from deepsc_gan_tpu_torch.parallel.batch import dp_group
 
 LN_EPS = 1e-6
 
@@ -40,7 +41,8 @@ class Generator(nn.Module):
 
     def forward(self, x):
         x = self.fc1(torch.relu(self.fc0(x)))
-        return power_normalize(x.float(), half=True).to(self.dtype)
+        return power_normalize(x.float(), half=True,
+                               group=dp_group()).to(self.dtype)
 
 
 class Discriminator(nn.Module):
@@ -112,7 +114,8 @@ class GeneratorCNN(nn.Module):
 
     def forward(self, x):
         x = self.fc(self.norm(self.cnn2(self.cnn1(x))))
-        return power_normalize(x.float(), half=True).to(self.dtype)
+        return power_normalize(x.float(), half=True,
+                               group=dp_group()).to(self.dtype)
 
 
 class DiscriminatorCNN(nn.Module):

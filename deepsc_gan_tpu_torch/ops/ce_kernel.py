@@ -294,22 +294,34 @@ def ce_fwd_reference(h, W, b, labels):
 
 def ce_bwd_reference(h, W, b, labels, lse, g, softmax_only=False,
                      dh_only=False):
-    """Plain PyTorch version of K4: P = exp(logits - lse) g - onehot g in
-    f32; dh = Pc W, dW = Pc^T h with Pc = P rounded to the op dtype;
-    db = sum_n P. -> (dh (N, D), dW (V, D), db (V,)), all f32; with
-    `dh_only`, (dh, None, None). `softmax_only` leaves the label term out
-    of P: the softmax part of the gradients, which checks hold on its own
-    scale (beside the label term it is small)."""
+    """Plain PyTorch version of K4: P = exp(logits - lse) g - onehot g;
+    dh = Pc W, dW = Pc^T h with Pc = P rounded to the op dtype; db =
+    sum_n P. -> (dh (N, D), dW (V, D), db (V,)), all f32; with `dh_only`,
+    (dh, None, None). `softmax_only` leaves the label term out of P: the
+    softmax part of the gradients, which checks hold on its own scale
+    (beside the label term it is small).
+
+    In f32, P in f32. Rounded to bf16, P is formed in f64 (f64 logits of
+    the bf16 operands, less lse) and rounded through f32, so Pc is P
+    correctly rounded: formed in f32, P rounds to the other bf16 neighbour
+    wherever its f32 error crosses a rounding boundary, and on chip_smoke's
+    inputs at D = 640 that put this version 2.5e-3 of the softmax part off
+    an f64 evaluation where the kernel was 9.4e-4 off it (H100,
+    scripts/ce_softmax_gate.py, PERF.md)."""
     h, W, b, labels = _operands(h, W, b, labels)
-    g = g.to(torch.float32)
-    p = torch.exp(_logits(h, W, b) - lse[:, None]) * g[:, None]
+    f32 = h.dtype == torch.float32
+    wide = torch.float32 if f32 else torch.float64
+    g = g.to(wide)
+    logits = (_logits(h, W, b) if f32 else
+              torch.matmul(h.double(), W.double().t()) + b.double())
+    p = torch.exp(logits - lse.to(wide)[:, None]) * g[:, None]
     if not softmax_only:
         rows = torch.arange(p.shape[0], device=p.device)
         p[rows, labels.long()] -= g
-    pc = p.to(h.dtype).float()
+    pc = p.float().to(h.dtype).float()
     if dh_only:
         return pc @ W.float(), None, None
-    return pc @ W.float(), pc.t() @ h.float(), p.sum(dim=0)
+    return pc @ W.float(), pc.t() @ h.float(), p.sum(dim=0).float()
 
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}

@@ -28,49 +28,31 @@ Which kernels run, by variant and mode:
 - star (`star`, `star_multi`, `gan_star`): K5 in every satellite update of
   the encoder and the decoder; K3 and K4 in training.
 
-Which design takes each call, and why none of them refuses a shape the
-check lets through:
-- K1: at the tuned heads (8, 16 or 32 wide, at most 16) in bf16 the tuned
-  kernel (any length: the long-length kernel past 32), in f32 the narrow
-  kernel (csrc/attention_narrow.cu: a block a row, head and 32 queries, key
-  tiles streamed, any length); other heads in bf16 the tensor-core wide (up
-  to 256 wide) or chunked kernels, in f32 the tiled kernel
-  (csrc/attention_tiled.cu; any length, its logits in a scratch where a
-  row of keys outgrows a block's shared memory);
-- K2: at the tuned heads in bf16 the tuned kernel, past 32 queries or keys
-  the resident, cluster and long-length kernels, in f32 the narrow kernels
-  (a block a row and head, up to 128 queries and keys holding the head
-  whole, past them a dq and a dk/dv kernel through a statistics scratch;
-  shared memory a block that no length raises past 124 KB); the wide
-  kernels at other heads: in bf16 the
-  tensor-core wide or chunked kernels, in f32 the tiled kernels
-  (csrc/attention_bwd_tiled.cu; any length, S and dP formed in its
-  scratch where a row of keys outgrows a block's shared memory);
-- K3/K4: at any width. Every f32 call on the tiled kernels, one 128 x 128
-  CUDA-core tile (K3 csrc/ce_fwd_tiled.cu, K4 csrc/ce_bwd_tiled.cu: P once
-  into an (N, V) workspace, then dh and dW); bf16 on the tensor cores, the
-  tuned kernels at D a multiple of 16 up to 256, else the wide ones (K4 up
-  to 5,120 columns, the tiled kernels past them);
-- K6: `--beam-size` k in 1..V at any width: the tuned kernel up to k = 8,
-  in bf16 the tensor-core wide kernel up to 64 and its long path up to
-  256 (V up to 25,000), every other call (every f32 one, bf16 past them)
-  the select kernels (csrc/topk_select.cu: any k up to V, a row's keys in
-  a scratch where they outgrow a block's shared memory);
-- K5: the tuned kernel, else the wide one, at any head count dividing D.
-This list is kept by hand beside the paths: were it to miss a kernel, the
-run would still stop at that kernel's wrapper (which raises on a shape it
-does not take), only later.
+Which design takes each call is `kernel_designs`: the source of each
+kernel this run launches, read from the route predicates its wrapper
+takes (`attention_kernel.uses_narrow`, `uses_tiled`, `is_wide_mma`,
+`is_chunked_mma`, `uses_resident`, `uses_cluster`; `ce_kernel.
+uses_tiled_fwd`, `uses_tiled_bwd`, `uses_tensor_core_fwd`,
+`uses_tensor_core_bwd`; `topk_kernel.uses_select`, `uses_long_list`,
+`uses_tensor_core`; `star_kernel.takes_width`, `wide_plan`), so it cannot
+drift from the wrappers. Every design takes any length (the K1/K2 ones
+past a block's shared memory through a scratch), K3/K4 any width and K6
+any k up to V, so none refuses a shape the check lets through; were one to,
+the run would still stop at that kernel's wrapper (which raises on a shape
+it does not take), only later.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from deepsc_gan_tpu_torch.ops import attention_kernel as attn
+from deepsc_gan_tpu_torch.ops import ce_kernel as ce
 from deepsc_gan_tpu_torch.ops import star_kernel as star
-from deepsc_gan_tpu_torch.utils.config import Config, is_star
+from deepsc_gan_tpu_torch.ops import topk_kernel as topk
+from deepsc_gan_tpu_torch.utils.config import Config, is_star, torch_dtype
 
 # the eval modes whose attack gradient runs a backward through the decoder
 ATTACK_MODES = ("greedy_attack", "greedy_gan", "teacher_forced", "pgd")
@@ -125,6 +107,122 @@ def envelope_errors(cfg: Config, variant: str, eval_mode: Optional[str],
         errors.append(f"--beam-size {beam_size}: the beam scorer K6 takes "
                       f"1 to the vocab size {cfg.vocab_size}")
     return errors
+
+
+def _csrc(name: str) -> str:
+    return f"csrc/{name}.cu"
+
+
+def attention_designs(dtype, heads: int, dh: int, lq: int, lk: int
+                      ) -> Dict[str, str]:
+    """{"K1": source, "K2": source} of the attention kernels' calls at
+    `heads` heads of `dh`, Lq x Lk, in `dtype`, by the wrappers' routes."""
+    if attn.uses_narrow(dtype, heads, dh):
+        return {"K1": _csrc(attn.KERNEL_NARROW),
+                "K2": _csrc(attn.KERNEL_NARROW)}
+    if attn.uses_tiled(dtype, heads, dh):
+        return {"K1": _csrc(attn.KERNEL_TILED),
+                "K2": _csrc(attn.KERNEL_BWD_TILED)}
+    for takes, name in ((attn.is_wide_mma, attn.KERNEL_WIDE_MMA),
+                        (attn.is_chunked_mma, attn.KERNEL_CHUNKED)):
+        if takes(dtype, heads, dh):
+            return {"K1": _csrc(name), "K2": _csrc(name)}
+    if attn.uses_resident(dtype, lq, lk, heads, dh):
+        bwd = attn.KERNEL_RESIDENT
+    elif attn.uses_cluster(dtype, lq, lk, heads, dh):
+        bwd = attn.KERNEL_CLUSTER
+    else:
+        bwd = attn.KERNEL_BWD
+    return {"K1": _csrc(attn.KERNEL), "K2": _csrc(bwd)}
+
+
+def ce_designs(dtype, d: int) -> Dict[str, str]:
+    """{"K3": source, "K4": source} at width d in `dtype`."""
+    if ce.uses_tiled_fwd(dtype, d):
+        fwd = ce.KERNEL_FWD_TILED
+    elif ce.uses_tensor_core_fwd(dtype, d):
+        fwd = ce.KERNEL_WIDE_FWD
+    else:
+        fwd = ce.KERNEL_FWD
+    if ce.uses_tiled_bwd(dtype, d):
+        bwd = ce.KERNEL_BWD_TILED
+    elif ce.uses_tensor_core_bwd(dtype, d):
+        bwd = ce.KERNEL_WIDE_BWD
+    else:
+        bwd = ce.KERNEL_BWD
+    return {"K3": _csrc(fwd), "K4": _csrc(bwd)}
+
+
+def topk_design(dtype, d: int, k: int, v: int) -> str:
+    """K6's source at width d, k and V = v in `dtype`."""
+    if topk.uses_select(dtype, d, k, v):
+        return _csrc(topk.KERNEL_SELECT)
+    if topk.uses_long_list(dtype, d, k, v):
+        return _csrc(topk.KERNEL_WIDE_MMA) + " (long path)"
+    if topk.uses_tensor_core(dtype, d, k, v):
+        return _csrc(topk.KERNEL_WIDE_MMA)
+    return _csrc(topk.KERNEL)
+
+
+def star_design(dtype, d: int, heads: int) -> str:
+    """K5's source at width d in `heads` heads."""
+    if star.takes_width(d, heads):
+        return _csrc(star.KERNEL)
+    size = torch.empty((), dtype=dtype).element_size()
+    return (f"{_csrc(star.KERNEL_WIDE)} "
+            f"({star.wide_plan(d, heads, size).path} path)")
+
+
+def kernel_designs(cfg: Config, variant: str, eval_mode: Optional[str],
+                   beam_size: int = 4, kv_cache: bool = False,
+                   beam_impl: str = "kv") -> Dict[str, str]:
+    """The kernels a run launches on CUDA and the source of the design
+    that takes each ("K1 encoder", "K2 decoder self", "K3", "K6", "K5
+    decoder", ...), by the same arguments as `envelope_errors`, read from
+    the wrappers' route predicates at the run's shapes (training: the
+    shifted target's seq_len - 1 decoder positions; decoding:
+    max_length + 1). A run whose shapes the envelope refuses has no
+    entry for the refused kernel."""
+    dt = torch_dtype(cfg.dtype)
+    train = eval_mode in (None, "mine")
+    out = {}
+    if is_star(variant):
+        for side, d, heads in (("encoder", cfg.encoder_d_model,
+                                cfg.encoder_num_heads),
+                               ("decoder", cfg.decoder_d_model,
+                                cfg.decoder_num_heads)):
+            if star.takes_heads(d, heads):
+                out[f"K5 {side}"] = star_design(dt, d, heads)
+    else:
+        backward = train or eval_mode in ATTACK_MODES
+        decode = cfg.max_length + 1
+        dec_len = cfg.seq_len - 1 if backward else decode
+        full_prefix = (eval_mode == "greedy" and not kv_cache) or (
+            eval_mode == "beam" and beam_impl == "full") \
+            or eval_mode in ("greedy_attack", "greedy_gan", "transmit")
+        sides = [("encoder", cfg.encoder_d_model, cfg.encoder_num_heads,
+                  ((cfg.seq_len, cfg.seq_len),))]
+        if backward or full_prefix:
+            sides.append(("decoder", cfg.decoder_d_model,
+                          cfg.decoder_num_heads,
+                          ((dec_len, dec_len), (dec_len, cfg.seq_len))))
+        for side, d, heads, lengths in sides:
+            if _attention_errors(side, d, heads):
+                continue
+            for (lq, lk), part in zip(lengths, ("self", "cross")):
+                label = side if side == "encoder" else f"{side} {part}"
+                got = attention_designs(dt, heads, d // heads, lq, lk)
+                out[f"K1 {label}"] = got["K1"]
+                # the encoder's backward runs in training alone
+                if train or side == "decoder" and backward:
+                    out[f"K2 {label}"] = got["K2"]
+    if train and cfg.fused_ce and eval_mode != "mine":
+        out.update(ce_designs(dt, cfg.decoder_d_model))
+    if eval_mode == "beam" and 1 <= beam_size <= cfg.vocab_size \
+            and not is_star(variant):
+        out["K6"] = topk_design(dt, cfg.decoder_d_model, beam_size,
+                                cfg.vocab_size)
+    return out
 
 
 def check_envelope(cfg: Config, variant: str, eval_mode: Optional[str],

@@ -3,7 +3,8 @@
 online-softmax kernels (`ops/ce_kernel.py`; the (B*L, V) logits are never
 materialized), label smoothing outside the kernels' VJP, then the pad mask,
 the optional `extra_masked_ids` (quirk Q2) and the mean over all B x L
-positions, as `ops/losses.py:loss_function` normalizes.
+positions, as `ops/losses.py:loss_function` normalizes (the global
+batch's under a data-parallel shard).
 
 The JAX package picks its CE path by size on the TPU (a lax.scan below
 4,096 rows); the port takes the kernels at every size.
@@ -17,6 +18,7 @@ import torch
 
 from deepsc_gan_tpu_torch.ops.ce_kernel import softmax_xent
 from deepsc_gan_tpu_torch.ops.losses import loss_mask
+from deepsc_gan_tpu_torch.parallel.batch import global_mean
 
 
 def fused_ce_loss(hidden: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
@@ -39,4 +41,5 @@ def fused_ce_loss(hidden: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         gold = (h32 * W32[flat]).sum(dim=-1) + b32[flat]
         mean_logits = h32 @ W32.mean(dim=0) + b32.mean()
         ce = ce + label_smoothing * (gold - mean_logits).reshape(bsz, length)
-    return torch.mean(ce * loss_mask(real, pad_idx, extra_masked_ids))
+    return global_mean(torch.mean(ce * loss_mask(real, pad_idx,
+                                                 extra_masked_ids)))

@@ -17,8 +17,10 @@ Dropout (flax `nn.Dropout`): keep each element with probability 1 - rate,
 scaling kept ones by 1 / (1 - rate) in the activation dtype. The mask is
 drawn with `bernoulli_` from the caller's `torch.Generator`; without one
 (or at rate 0) the layer is the identity, as flax's `deterministic=True`.
-Nothing draws from the global generator. A layer recomputed in the
-backward (`remat`) draws through a `MaskTape` instead of the generator:
+Nothing draws from the global generator. Under a data-parallel shard
+(`parallel/batch.py`) a mask is the global batch's, the rank's rows kept.
+A layer recomputed in the backward (`remat`) draws through a `MaskTape`
+instead of the generator:
 the first forward draws its masks from the generator in the same order and
 keeps them, and the recompute takes the kept ones, so the masks and the
 generator's state are those of a layer that is not recomputed.
@@ -31,6 +33,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from deepsc_gan_tpu_torch.parallel.batch import draw_rows
 
 
 class Dense(nn.Linear):
@@ -107,9 +111,14 @@ class MaskTape:
 
 
 def _draw_mask(shape, keep: float, device, gen: torch.Generator):
-    mask = torch.empty(shape, dtype=torch.float32, device=device)
-    mask.bernoulli_(keep, generator=gen)
-    return mask
+    """A keep mask of `shape`, batch-leading: under a data-parallel shard
+    the global batch's mask is drawn and the rank's rows kept."""
+
+    def draw(s):
+        mask = torch.empty(s, dtype=torch.float32, device=device)
+        return mask.bernoulli_(keep, generator=gen)
+
+    return draw_rows(draw, shape)
 
 
 def dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Masked cross-entropy from materialized logits (JAX package
 `ops/losses.py`): sparse softmax CE in f32, zeroed where the target is
 <PAD>, then the mean over ALL (B, L) positions (padded positions count in
-the denominator), as the reference's published curves were trained.
+the denominator), as the reference's published curves were trained;
+under a data-parallel shard (`parallel/batch.py`) the global batch's
+mean.
 
 Quirk Q2: the reference means to mask ids 4 and 5 too, but a bug leaves it
 pad-only; `extra_masked_ids` gives the intended behaviour.
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+
+from deepsc_gan_tpu_torch.parallel.batch import global_mean
 
 
 def cross_entropy_per_token(real: torch.Tensor,
@@ -43,4 +47,5 @@ def loss_function(real: torch.Tensor, logits: torch.Tensor, pad_idx: int = 0,
         lg32 = logits.float()
         gold = lg32.gather(-1, real.long()[..., None])[..., 0]
         ce = ce + label_smoothing * (gold - lg32.mean(dim=-1))
-    return torch.mean(ce * loss_mask(real, pad_idx, extra_masked_ids))
+    return global_mean(torch.mean(ce * loss_mask(real, pad_idx,
+                                                 extra_masked_ids)))

@@ -15,10 +15,15 @@ from typing import Callable, Tuple
 
 import torch
 
+from deepsc_gan_tpu_torch.parallel.batch import all_sum
 
-def fgm_normalize(grad: torch.Tensor, epsilon: float = 1.0) -> torch.Tensor:
+
+def fgm_normalize(grad: torch.Tensor, epsilon: float = 1.0,
+                  group=None) -> torch.Tensor:
     """Per-sample L2 normalization x epsilon, then a global L2
-    normalization, both norms clamped at 1e-12, in f32.
+    normalization, both norms clamped at 1e-12, in f32. With a dp `group`,
+    `grad` is a rank's rows and the global norm is the whole batch's (its
+    sum of squares summed over the group).
 
     Quirk Q7, kept: the global normalization cancels epsilon (the
     per-sample rows eps g_i / |g_i| have global norm eps sqrt(B)), so the
@@ -27,7 +32,11 @@ def fgm_normalize(grad: torch.Tensor, epsilon: float = 1.0) -> torch.Tensor:
     flat = grad.reshape(b, -1).to(torch.float32)
     per_norm = torch.linalg.vector_norm(flat, dim=1, keepdim=True)
     r = epsilon * flat / torch.clamp(per_norm, min=1e-12)
-    r = r / torch.clamp(torch.linalg.vector_norm(r), min=1e-12)
+    if group is None:
+        norm = torch.linalg.vector_norm(r)
+    else:
+        norm = torch.sqrt(all_sum(torch.sum(torch.square(r)), group))
+    r = r / torch.clamp(norm, min=1e-12)
     return r.reshape(grad.shape)
 
 

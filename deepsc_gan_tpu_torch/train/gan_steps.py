@@ -38,6 +38,7 @@ from deepsc_gan_tpu_torch.ops.fused_ce import fused_ce_loss
 from deepsc_gan_tpu_torch.ops.losses import loss_function
 from deepsc_gan_tpu_torch.ops.masks import create_masks
 from deepsc_gan_tpu_torch.ops.schedule import set_lr
+from deepsc_gan_tpu_torch.parallel.batch import sync_grads
 from deepsc_gan_tpu_torch.train.attacks import fgm_normalize
 from deepsc_gan_tpu_torch.train.steps import (
     TrainState,
@@ -75,7 +76,8 @@ def selective_update(state: TrainState, grads: Dict[str, torch.Tensor],
     gradient of an unused leaf is): the learning rate and every
     participating parameter's bias correction at the shared count
     `state.step`, which then goes up by one. The other parameters keep
-    their values and moments."""
+    their values and moments. Under a data-parallel shard the gradients
+    are first averaged over its group."""
     count = state.step
     opt = state.optimizer
     set_lr(opt, state.schedule(count))
@@ -96,6 +98,8 @@ def selective_update(state: TrainState, grads: Dict[str, torch.Tensor],
                 (), dtype=torch.float32,
                 device=p.device if opt.defaults["capturable"] else None)
         st["step"].fill_(float(count))
+    sync_grads(p.grad for name, p in state.model.named_parameters()
+               if mask[name])
     opt.step()
     state.step += 1
 

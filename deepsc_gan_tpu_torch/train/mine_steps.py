@@ -30,7 +30,8 @@ capturable fused Adam of `ops/schedule.py`.
 Randomness comes from the step's `torch.Generator`: the channel draw, then
 the marginal permutation, then the dropout masks in forward order. A
 caller may pass the draws and the permutation, as the parity tests do with
-JAX's.
+JAX's. Under a data-parallel shard (`parallel/batch.py`) the permutation is
+the global batch's, and the bound and T's gradients the global batch's.
 """
 
 from __future__ import annotations
@@ -45,6 +46,11 @@ from deepsc_gan_tpu_torch.models.mine import MINE, mine_loss
 from deepsc_gan_tpu_torch.ops.losses import loss_function
 from deepsc_gan_tpu_torch.ops.masks import create_masks
 from deepsc_gan_tpu_torch.ops.schedule import make_optimizer
+from deepsc_gan_tpu_torch.parallel.batch import (
+    dp_group,
+    global_rows,
+    sync_grads,
+)
 from deepsc_gan_tpu_torch.train.steps import (
     TrainState,
     _draw,
@@ -115,7 +121,7 @@ def make_mine_train_step(model: nn.Module, mine: MINE,
         if noise is None:
             noise, fade = _draw(cfg, gen, inp, cfg.channel)
         if perm is None:
-            perm = torch.randperm(inp.shape[0], generator=gen,
+            perm = torch.randperm(global_rows(inp.shape[0]), generator=gen,
                                   device=inp.device)
         masks_state = gen.get_state()
 
@@ -127,7 +133,7 @@ def make_mine_train_step(model: nn.Module, mine: MINE,
             tx, y = symbols(inp, enc_mask, noise, n_std, fade, gen)
             logits = model.decode(tar_inp, y, combined_mask, dec_mask, gen)
             ce = loss_function(tar_real, logits, **lkw)
-            _, mi = mine_loss(mine, tx, y, perm)
+            _, mi = mine_loss(mine, tx, y, perm, dp_group())
             (ce - lam * mi).backward()
         finally:
             for p in mine_params:
@@ -141,8 +147,9 @@ def make_mine_train_step(model: nn.Module, mine: MINE,
             tx, y = symbols(inp, enc_mask, noise, n_std, fade, gen)
         gen.set_state(after)
         mine_state.optimizer.zero_grad(set_to_none=True)
-        loss, _ = mine_loss(mine, tx, y, perm)
+        loss, _ = mine_loss(mine, tx, y, perm, dp_group())
         loss.backward()
+        sync_grads(p.grad for p in mine_params)
         clip_by_global_norm_(mine_params)
         mine_state.optimizer.step()
         mine_state.step += 1

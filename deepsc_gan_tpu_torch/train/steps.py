@@ -13,6 +13,12 @@ a fading channel its fade), then the dropout masks in forward order. A
 caller may pass the draws instead, as the parity tests do with the normals
 JAX draws.
 
+Run inside `parallel/batch.py:sharded` (as `parallel/sharding.py`'s
+data-parallel steps run them), a step takes a rank's rows: its draws are
+the global batch's rows for the rank, its batch-wide statistics and loss
+means the global batch's, and its gradients are averaged over the group
+before the update.
+
 `make_train_multi_step` runs K plain steps a call, the counterpart of the
 JAX package's `lax.scan` over K steps: on the CPU K eager steps, on CUDA
 K replays of one captured CUDA graph of the step (`train/graphed.py`).
@@ -33,6 +39,7 @@ from deepsc_gan_tpu_torch.ops.fused_ce import fused_ce_loss
 from deepsc_gan_tpu_torch.ops.losses import loss_function
 from deepsc_gan_tpu_torch.ops.masks import create_masks
 from deepsc_gan_tpu_torch.ops.schedule import Schedule, make_optimizer, set_lr
+from deepsc_gan_tpu_torch.parallel.batch import dp_group, sync_grads
 from deepsc_gan_tpu_torch.train.attacks import (
     fgm_normalize,
     fgm_perturbation,
@@ -65,8 +72,11 @@ class TrainState:
 
     def update(self) -> None:
         """One Adam update from the gradients on the parameters at the rate
-        `set_lr` wrote; then the EMA shadow (d * ema + (1 - d) * params).
-        Device work alone, so a captured graph may hold it."""
+        `set_lr` wrote (under a data-parallel shard, first averaged over
+        its group: `parallel/batch.py:sync_grads`); then the EMA shadow
+        (d * ema + (1 - d) * params). Device work alone, so a captured
+        graph may hold it."""
+        sync_grads(p.grad for p in self.model.parameters())
         self.optimizer.step()
         if self.ema is not None:
             d = self.ema_decay
@@ -365,7 +375,7 @@ def make_train_attack_step(model: nn.Module, cfg: Config,
         clean = loss_of_y(y1, tar_inp, tar_real, combined_mask, dec_mask,
                           gen)
         (g_y,) = torch.autograd.grad(clean, y1)
-        r = fgm_normalize(g_y, epsilon)
+        r = fgm_normalize(g_y, epsilon, dp_group())
 
         if noise2 is None:
             noise2, fade2 = _draw(cfg, gen, inp, cfg.channel)

@@ -1,14 +1,19 @@
 """Configuration of the port: the fields of the JAX package's `Config`
-with the same names and defaults (all but its parallel ones: `dp`, `tp`,
-`pp`, `pp_microbatches`), and the padded length of each model variant.
+with the same names and defaults, and the padded length of each model
+variant.
+
+Of the parallel fields, `dp` is the data-parallel size of `cli train`
+(`parallel/sharding.py`, over a `torch.distributed` group); `tp` and `pp`
+above 1 stop the CLI (ROADMAP §A.2.2 and §A.2.3 bring them), and
+`pp_microbatches` is carried for them.
 
 Four fields are accepted and recorded but change nothing in the port:
 `rng_impl` (its draws come from a `torch.Generator`), `ce_chunk` (the CE
 kernels tile the vocab themselves), `shuffle_size` (unused in the JAX
-package too) and `input_data_dir` (read only by the JAX package's
-`preprocess`, which the port does not have yet). `train_with_mine` is
-carried as the JAX package carries it (`--train-mode mine` selects MINE
-training).
+package too) and `input_data_dir` (the port's `preprocess` command reads
+its own `--input-data-dir` flag, `data/preprocess.py:add_args`, as the JAX
+one does). `train_with_mine` is carried as the JAX package carries it
+(`--train-mode mine` selects MINE training).
 
 A frozen dataclass like the JAX package's (`deepsc_gan_tpu/utils/config.py`),
 kept as the port's own copy so the port imports nothing of that package.
@@ -136,6 +141,14 @@ class Config:
     # attention and the star banks); the parameters are unchanged
     fuse_qkv: bool = False
 
+    # --- parallelism: the data-parallel size of training; tensor- and
+    #     pipeline-parallel sizes and GPipe's microbatches (not in the port
+    #     yet: above 1 the CLI stops)
+    dp: int = 1
+    tp: int = 1
+    pp: int = 1
+    pp_microbatches: int = 4
+
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
 
@@ -180,6 +193,13 @@ HELP = {
     "remat": "recompute each vanilla encoder and decoder layer in the "
              "backward (dropout masks kept): less activation memory for "
              "about a fifth more time a step (PERF.md)",
+    "dp": "data-parallel size of train: one process a rank under a "
+          "launcher (torchrun) with --distributed; bs divisible by it",
+    "tp": "tensor-parallel size; above 1 not in the port yet (ROADMAP "
+          "§A.2.2)",
+    "pp": "pipeline-parallel stages; above 1 not in the port yet (ROADMAP "
+          "§A.2.3)",
+    "pp_microbatches": "GPipe microbatches a step (carried for --pp)",
     "fuse_qkv": "Q/K/V projections sharing an input as one matmul; kept "
                 "for the JAX CLI's flags, no reliable gain on the H100 "
                 "(PERF.md)",

@@ -623,3 +623,48 @@ def test_tiled_bwd_row_split_emulation_matches_plain_version(dw_splits):
         assert np.abs(a.numpy() - j).max() <= 1e-5 * scale, name
     one = _tiled_ce_bwd(ht, Wt, bt, lab, lse, g, 2, True)
     assert torch.equal(got[0], one[0])
+
+
+def _k4_f64(h, W, b, labels, lse, g, softmax_only=False):
+    """K4's function on bf16 operands in f64: P from f64 logits less lse,
+    rounded to bf16 through f32 (-> Pc too); the products and db in f64."""
+    hh, ww = h.double(), W.double()
+    p = torch.exp(hh @ ww.t() + b.double() - lse.double()[:, None]) \
+        * g.double()[:, None]
+    if not softmax_only:
+        p[torch.arange(h.shape[0]), labels.long()] -= g.double()
+    pc = p.float().to(torch.bfloat16).double()
+    return (pc @ ww, pc.t() @ hh, p.sum(0)), pc
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_k4_plain_version_rounds_p_from_f64(seed):
+    """The bf16 K4 plain version rounds P to bf16 from its f64 value: its
+    dh and dW are the products of that Pc, bitwise, and its softmax part
+    sits within f32 product rounding (5e-6 of the part) of an f64
+    evaluation. P formed in f32, as the version before formed it, rounds
+    some elements to the other bf16 neighbour (tens here; at chip_smoke's
+    shape on the card that put the softmax part 2.5e-3 off the f64
+    evaluation at D = 640, past the 2e-3 gate, where the kernel read 9.4e-4:
+    scripts/ce_softmax_gate.py)."""
+    gen = torch.Generator().manual_seed(seed)
+    n, d, v = 256, 640, 2048
+    h = torch.randn((n, d), generator=gen).to(torch.bfloat16)
+    W = (0.1 * torch.randn((v, d), generator=gen)).to(torch.bfloat16)
+    b = 0.1 * torch.randn(v, generator=gen)
+    labels = torch.randint(0, v, (n,), generator=gen)
+    g = torch.rand(n, generator=gen)
+    lse = ce.ce_fwd_reference(h, W, b, labels)[1]
+    args = (h, W, b, labels, lse, g)
+    part, _ = _k4_f64(*args, softmax_only=True)
+    exact, pc = _k4_f64(*args)
+    got = ce.ce_bwd_reference(*args)
+    pc = pc.float()
+    assert torch.equal(got[0], pc @ W.float())
+    assert torch.equal(got[1], pc.t() @ h.float())
+    assert max(float((x.double() - r).abs().max() / s.abs().max())
+               for x, r, s in zip(got, exact, part)) <= 5e-6
+    hf, wf = h.float(), W.float()
+    p32 = torch.exp(hf @ wf.t() + b - lse[:, None]) * g[:, None]
+    p32[torch.arange(n), labels] -= g
+    assert int((p32.to(torch.bfloat16).float() != pc).sum()) > 0

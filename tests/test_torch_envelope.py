@@ -278,3 +278,118 @@ def test_cli_f32_select_and_tiled_runs_pass_the_envelope(tmp_path,
     with pytest.raises(RuntimeError, match="a model was built"):
         cli.main(["evaluate", *argv, "--log-save-path", str(tmp_path),
                   "--checkpoint-path", str(tmp_path)])
+
+
+def _src(name):
+    return f"csrc/{name}.cu"
+
+
+# (dtype, d_model, heads): the tuned heads, heads up to 256 wide, heads
+# past 256, more than 16 heads, a width off 8 columns
+DESIGN_WIDTHS = [(dt, d, h) for dt in ("float32", "bfloat16")
+                 for d, h in ((128, 8), (128, 4), (512, 8), (200, 8),
+                              (512, 1), (640, 2), (512, 32), (264, 1))]
+# seq_len: the tuned length, past 32, past 128, past 512 (decoder lengths
+# are one shorter)
+DESIGN_LENGTHS = (32, 64, 256, 640)
+
+
+@pytest.mark.parametrize("dtype,d,heads", DESIGN_WIDTHS)
+@pytest.mark.parametrize("seq_len", DESIGN_LENGTHS)
+def test_kernel_designs_follow_the_route_predicates(dtype, d, heads,
+                                                    seq_len):
+    """Each design `kernel_designs` names for a training run and a beam
+    run holds exactly where the wrappers' route predicate for it holds."""
+    from deepsc_gan_tpu_torch.ops import ce_kernel as ce
+    from deepsc_gan_tpu_torch.ops import topk_kernel as topk
+    from deepsc_gan_tpu_torch.ops.envelope import kernel_designs
+
+    cfg = Config(dtype=dtype, encoder_d_model=d, decoder_d_model=d,
+                 encoder_num_heads=heads, decoder_num_heads=heads,
+                 seq_len=seq_len, max_length=seq_len - 2)
+    dt, dh = getattr(torch, dtype), d // heads
+    got = kernel_designs(cfg, "transformer", None)
+    assert set(got) == {f"K{k} {s}" for k in (1, 2) for s in (
+        "encoder", "decoder self", "decoder cross")} | {"K3", "K4"}
+    lengths = {"encoder": (seq_len, seq_len),
+               "decoder self": (seq_len - 1, seq_len - 1),
+               "decoder cross": (seq_len - 1, seq_len)}
+    for label, (lq, lk) in lengths.items():
+        k1, k2 = got[f"K1 {label}"], got[f"K2 {label}"]
+        assert (k1 == _src(attn.KERNEL_NARROW)) == attn.uses_narrow(
+            dt, heads, dh)
+        assert (k1 == _src(attn.KERNEL_TILED)) == attn.uses_tiled(
+            dt, heads, dh)
+        assert (k2 == _src(attn.KERNEL_BWD_TILED)) == attn.uses_tiled(
+            dt, heads, dh)
+        assert (k1 == _src(attn.KERNEL_WIDE_MMA)) == attn.is_wide_mma(
+            dt, heads, dh)
+        assert (k1 == _src(attn.KERNEL_CHUNKED)) == attn.is_chunked_mma(
+            dt, heads, dh)
+        assert (k1 == _src(attn.KERNEL)) == (
+            dt == torch.bfloat16 and not attn.is_wide(heads, dh))
+        assert (k2 == _src(attn.KERNEL_RESIDENT)) == attn.uses_resident(
+            dt, lq, lk, heads, dh)
+        assert (k2 == _src(attn.KERNEL_CLUSTER)) == attn.uses_cluster(
+            dt, lq, lk, heads, dh)
+    assert (got["K3"] == _src(ce.KERNEL_FWD_TILED)) == ce.uses_tiled_fwd(
+        dt, d)
+    assert (got["K3"] == _src(ce.KERNEL_WIDE_FWD)) == \
+        ce.uses_tensor_core_fwd(dt, d)
+    assert (got["K4"] == _src(ce.KERNEL_BWD_TILED)) == ce.uses_tiled_bwd(
+        dt, d)
+    assert (got["K4"] == _src(ce.KERNEL_WIDE_BWD)) == \
+        ce.uses_tensor_core_bwd(dt, d)
+    for k in (1, 4, 9, 64, 100, 1000, 22234):
+        beam = kernel_designs(cfg, "transformer", "beam", beam_size=k)
+        assert set(beam) == {"K1 encoder", "K6"}
+        v = cfg.vocab_size
+        assert (beam["K6"] == _src(topk.KERNEL_SELECT)) == \
+            topk.uses_select(dt, d, k, v)
+        assert beam["K6"].endswith("(long path)") == topk.uses_long_list(
+            dt, d, k, v)
+        assert beam["K6"].startswith(_src(topk.KERNEL_WIDE_MMA)) == \
+            topk.uses_tensor_core(dt, d, k, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,heads", [(128, 8), (96, 8), (512, 8), (200, 5)])
+def test_star_designs_follow_the_route_predicates(dtype, d, heads):
+    from deepsc_gan_tpu_torch.ops import star_kernel as star
+    from deepsc_gan_tpu_torch.ops.envelope import kernel_designs
+
+    cfg = Config(dtype=dtype, encoder_d_model=d, decoder_d_model=d,
+                 encoder_num_heads=heads, decoder_num_heads=heads,
+                 seq_len=31)
+    got = kernel_designs(cfg, "star", None)
+    size = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    for side in ("encoder", "decoder"):
+        design = got[f"K5 {side}"]
+        assert (design == _src(star.KERNEL)) == star.takes_width(d, heads)
+        if not star.takes_width(d, heads):
+            assert design == (f"{_src(star.KERNEL_WIDE)} "
+                              f"({star.wide_plan(d, heads, size).path} "
+                              f"path)")
+    assert "K1 encoder" not in got and "K6" not in got
+
+
+def test_every_design_named_is_a_source_of_the_port():
+    from deepsc_gan_tpu_torch.ops.envelope import kernel_designs
+
+    seen = set()
+    for dtype, d, heads in DESIGN_WIDTHS:
+        for seq_len in DESIGN_LENGTHS:
+            cfg = Config(dtype=dtype, encoder_d_model=d, decoder_d_model=d,
+                         encoder_num_heads=heads, decoder_num_heads=heads,
+                         seq_len=seq_len, max_length=seq_len - 2)
+            for mode, k in ((None, 4), ("beam", 4), ("beam", 9),
+                            ("beam", 100),
+                            ("beam", 1000), ("teacher_forced", 4)):
+                seen |= set(kernel_designs(cfg, "transformer", mode,
+                                           k).values())
+            seen |= set(kernel_designs(cfg, "star", None).values())
+    for design in seen:
+        assert (build.CSRC.parent / design.split(" ")[0]).exists(), design
+    # every library of csrc/ takes some call of these runs
+    assert {design.split(" ")[0] for design in seen} == {
+        f"csrc/{p.name}" for p in build.CSRC.glob("*.cu")}

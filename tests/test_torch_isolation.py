@@ -33,7 +33,9 @@ def test_port_and_chip_smoke_import_no_jax():
     for new in ("models.mine", "train.mine_steps", "utils.checkpoint",
                 "data.augment", "utils.profiling", "models.bert",
                 "data.wordpiece", "data.preprocess", "baselines.huffman",
-                "baselines.modem", "baselines.turbo", "baselines.pipeline"):
+                "baselines.modem", "baselines.turbo", "baselines.pipeline",
+                "native", "parallel", "parallel.batch", "parallel.mesh",
+                "parallel.sharding", "parallel.launch"):
         assert f"deepsc_gan_tpu_torch.{new}" in mods
     # nor what the card's machine does not have: the tests alone use them
     code = (
@@ -112,3 +114,22 @@ def test_chip_smoke_fails_without_gpu_or_port(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_parallel_and_native_import_neither_jax_nor_the_jax_package():
+    """The parallel runs and the native passes stand alone too: a fresh
+    process importing them, and building and calling the native library,
+    loads no JAX and nothing of the JAX package."""
+    code = (
+        "import sys\n"
+        "import deepsc_gan_tpu_torch.parallel.sharding\n"
+        "import deepsc_gan_tpu_torch.parallel.launch\n"
+        "from deepsc_gan_tpu_torch import native\n"
+        "if native.available():\n"
+        "    assert native.normalize_string('A b.') == 'a b .'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "    ('jax', 'jaxlib', 'flax', 'optax', 'deepsc_gan_tpu'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=120)
